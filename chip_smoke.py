@@ -1,0 +1,409 @@
+"""Smoke test of paddle_tpu_torch on one NVIDIA GPU (H100 / H200).
+
+    python3 chip_smoke.py            # every phase; needs one card
+    python3 chip_smoke.py --quick    # card, build, and the kernel checks only
+
+Phases, each printing one JSON line:
+  1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
+  2. build  — nvcc builds paddle_tpu_torch/csrc/*.cu (sm_90a) at first use.
+  3. k1     — flash-attention forward kernel vs its plain fp32 version at the
+              prefill shape, a GQA shape, a ragged shape and sq=1 decode.
+  4. k2     — fused decode-step kernel vs its plain version at Llama-2-7B
+              width with 2 layers, MHA and GQA (nkv=8): x_out and the
+              appended cache row.
+  5. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
+              through inference.generate, b=4, prompt 1024, 64 new tokens,
+              greedy and sampled; kernel launch counts read around each
+              run; time to first token (generate with one new token) and
+              decode ms/step (the rest of the greedy run per step); one
+              teacher-forced decode step through the kernel and the plain
+              path, logits compared.
+  6. timing — per-kernel times at the main-path shapes beside the bound,
+              the plain version and (flash attention) PyTorch's sdpa.
+
+Every failure propagates and exits non-zero. The line before the last is
+the kernel table ({"kernels": [...]}); the last line is
+{"ok": true, "device": {...}}. Imports nothing of jax or paddle_tpu.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# (bytes/s, bf16 dense FLOP/s) by card, from NVIDIA's data sheets
+_PEAKS = (("H100 PCIe", 2.0e12, 756e12), ("H100 NVL", 3.9e12, 835e12),
+          ("H200", 4.8e12, 989e12), ("H100", 3.35e12, 989e12))
+
+# Tolerances. bf16 keeps 8 significant bits: where kernel and plain version
+# round nearly equal fp32 values on either side of a boundary they differ by
+# one bf16 ulp (at most 2^-7·|v|, the rtol). Such flips in the bf16
+# intermediates (the normalised x, attention output, SwiGLU activation)
+# feed the next products and leave absolute noise in the fp32 residual
+# (the atol), which grows with depth.
+K1_TOL_OUT = 3e-2   # |out| <= max|v| ~ 4: bf16 P in P·V + bf16 output
+K1_TOL_LSE = 2e-3   # fp32 log-sum-exp; __expf approximation
+K2_ATOL, K2_RTOL = 5e-2, 2.0 ** -7   # x_out and appended row, 2 layers
+E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
+
+
+def close(a, ref, atol, rtol):
+    """(max |a - ref|, all |a - ref| <= atol + rtol·|ref|)."""
+    a, ref = a.float(), ref.float()
+    d = (a - ref).abs()
+    return d.max().item(), bool((d <= atol + rtol * ref.abs()).all())
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def card():
+    name_line = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(name_line, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    for key, bw, flops in _PEAKS:
+        if key in kind or key in name_line:
+            break
+    else:
+        raise RuntimeError(f"no peak rates known for {kind!r}")
+    emit({"phase": "card", "nvidia_smi": name_line, "kind": kind,
+          "count": torch.cuda.device_count(), "bytes_per_s": bw,
+          "bf16_flops": flops})
+    return name_line, kind, bw, flops
+
+
+def time_ms(fn, iters=10, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def rand(shape, gen, scale=1.0, dtype=torch.bfloat16):
+    t = torch.empty(shape, dtype=torch.float32, device="cuda")
+    return (t.normal_(0.0, scale, generator=gen)).to(dtype)
+
+
+# ---- K1 -----------------------------------------------------------------------
+
+def k1_case(fa, gen, b, h, nkv, sq, sk, d, q_off, kv_len):
+    q = rand((b, sq, h, d), gen)
+    k = rand((b, sk, nkv, d), gen)
+    v = rand((b, sk, nkv, d), gen)
+    kl = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, is_causal=True,
+                                      causal_offset=q_off, kv_lens=kl)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, is_causal=True,
+                                                causal_offset=q_off,
+                                                kv_lens=kl)
+    err = (out.float() - ref.float()).abs().max().item()
+    live = ref_lse > -1e29
+    lerr = (lse - ref_lse)[live].abs().max().item() if live.any() else 0.0
+    ok = (err <= K1_TOL_OUT and lerr <= K1_TOL_LSE
+          and bool(torch.isfinite(out.float()).all()))
+    return {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
+            "q_off": q_off, "kv_len": kv_len, "max_abs_err": err,
+            "lse_max_abs_err": lerr, "tol": K1_TOL_OUT,
+            "lse_tol": K1_TOL_LSE, "ok": ok}
+
+
+def phase_k1(fa, gen):
+    cases = [
+        k1_case(fa, gen, 4, 32, 32, 1024, 1152, 128, 0, 1024),  # prefill
+        k1_case(fa, gen, 2, 32, 8, 512, 640, 128, 64, 576),     # GQA
+        k1_case(fa, gen, 2, 8, 8, 1000, 1000, 128, 0, 1000),    # ragged
+        k1_case(fa, gen, 3, 8, 2, 1000, 1100, 64, 100, 1037),   # d=64 GQA
+        k1_case(fa, gen, 4, 32, 32, 1, 1152, 128, 1056, 1057),  # decode
+    ]
+    emit({"phase": "k1", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+# ---- K2 -----------------------------------------------------------------------
+
+def fused_params(gen, L, h, nh, nkv, hd, ffn):
+    dq, dkv = nh * hd, nkv * hd
+    return {"ln1": (1.0 + rand((L, h), gen, 0.1, torch.float32)).bfloat16(),
+            "wqkv": rand((L, h, dq + 2 * dkv), gen, 0.02),
+            "wo": rand((L, dq, h), gen, 0.02),
+            "ln2": (1.0 + rand((L, h), gen, 0.1, torch.float32)).bfloat16(),
+            "wg": rand((L, h, ffn), gen, 0.02),
+            "wu": rand((L, h, ffn), gen, 0.02),
+            "wd": rand((L, ffn, h), gen, 0.02)}
+
+
+def k2_case(fd, rope, gen, nkv, L=2, b=4, S=1152, pos=1056):
+    h, nh, hd, ffn = 4096, 32, 128, 11008
+    dkv = nkv * hd
+    params = fused_params(gen, L, h, nh, nkv, hd, ffn)
+    kv = torch.zeros((L, b, S, 2 * dkv), dtype=torch.bfloat16, device="cuda")
+    kv[:, :, :pos] = rand((L, b, pos, 2 * dkv), gen)
+    x = rand((b, h), gen)
+    cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
+    c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+    kv_k = kv.clone()
+    xo, _ = fd.fused_decode_cuda(x, params, kv_k, pos, c, s, num_heads=nh,
+                                 num_kv_heads=nkv, eps=1e-5)
+    torch.cuda.synchronize()
+    xr, kv_r = fd.fused_decode_reference(x, params, kv, pos, c, s,
+                                         num_heads=nh, num_kv_heads=nkv,
+                                         eps=1e-5)
+    err, ok_x = close(xo, xr, K2_ATOL, K2_RTOL)
+    row_err, ok_row = close(kv_k[:, :, pos], kv_r[:, :, pos], K2_ATOL,
+                            K2_RTOL)
+    untouched = bool(torch.equal(kv_k[:, :, :pos], kv_r[:, :, :pos])
+                     and torch.equal(kv_k[:, :, pos + 1:], kv_r[:, :, pos + 1:]))
+    ok = (ok_x and ok_row and untouched
+          and bool(torch.isfinite(xo.float()).all()))
+    return {"nkv": nkv, "L": L, "b": b, "S": S, "pos": pos,
+            "max_abs_err": err, "row_max_abs_err": row_err,
+            "rest_of_cache_unchanged": untouched, "atol": K2_ATOL,
+            "rtol": K2_RTOL, "ok": ok}
+
+
+def phase_k2(fd, rope, gen):
+    cases = [k2_case(fd, rope, gen, 32), k2_case(fd, rope, gen, 8)]
+    emit({"phase": "k2", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K2 disagrees with its plain version: {bad}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+# ---- end to end ---------------------------------------------------------------
+
+B, PROMPT, NEW = 4, 1024, 64
+
+
+def reset_counts(fa, fd):
+    fa.flash_attention_fwd.launches = 0
+    fd.fused_decode_cuda.launches = 0
+
+
+def phase_e2e(fa, fd):
+    from paddle_tpu_torch.inference import generate, prefill
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import rope
+
+    cfg = LlamaConfig.llama2_7b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), device="cuda",
+                        generator=gen)
+    runs = {}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(temperature=0.8, top_k=50, top_p=0.9,
+                                      seed=7))):
+        torch.cuda.synchronize()
+        reset_counts(fa, fd)
+        t0 = time.perf_counter()
+        out = generate(model, ids, max_new_tokens=NEW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                  "fused_decode_step": fd.fused_decode_cuda.launches}
+        new = out[:, PROMPT:]
+        if counts["flash_attention_fwd"] != cfg.num_layers \
+                or counts["fused_decode_step"] != NEW - 1:
+            raise AssertionError(f"{name}: launch counts {counts}, expected "
+                                 f"{cfg.num_layers} and {NEW - 1}")
+        if tuple(out.shape) != (B, PROMPT + NEW) \
+                or not torch.equal(out[:, :PROMPT], ids) \
+                or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{name}: bad tokens {tuple(out.shape)}")
+        runs[name] = {"wall_s": wall, "launches": counts,
+                      "first_tokens": new[:, :8].tolist()}
+    reset_counts(fa, fd)
+
+    # warm timings (the counted runs above were the first, cold, calls):
+    # time to first token = generate with one new token (prefill, building
+    # the fused plan, the first sample; no decode step); a decode step = the
+    # rest of a greedy 64-token run, per step
+    def wall(new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(model, ids, max_new_tokens=new)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ttft_s = min(wall(1) for _ in range(2))
+    gen_s = wall(NEW)
+    total = -(-(PROMPT + NEW) // 128) * 128
+    with torch.inference_mode():
+        prefill(model, ids, total, fused=True)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, kv = prefill(model, ids, total, fused=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError("prefill logits not finite")
+        # one teacher-forced decode step, kernel path vs plain path
+        state = model.state_dict(include_buffers=False)
+        plan = model.fused_decode_plan(state)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        del logits
+        pos = PROMPT
+        cos, sin = rope.rope_cos_sin(total, cfg.head_dim, device="cuda")
+        x = plan["embed"](tok, pos)
+        kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.kv_heads,
+                  eps=cfg.rms_norm_eps)
+        kv_plain = kv.clone()
+        xk, kv = fd.fused_decode_cuda(x, plan["params"], kv, pos,
+                                      cos[pos:pos + 1], sin[pos:pos + 1], **kw)
+        lk = plan["head"](xk).float()
+        xp, kv_plain = fd.fused_decode_reference(
+            x, plan["params"], kv_plain, pos, cos[pos:pos + 1],
+            sin[pos:pos + 1], **kw)
+        lp = plan["head"](xp).float()
+        logit_err, logits_ok = close(lk, lp, E2E_ATOL, E2E_RTOL)
+        logit_absmax = lp.abs().max().item()
+        argmax_agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        del kv_plain
+    peak = torch.cuda.max_memory_allocated()
+    decode_s = (gen_s - ttft_s) / (NEW - 1)
+    res = {"phase": "e2e", "model": "llama2_7b", "layers": cfg.num_layers,
+           "dtype": "bfloat16", "batch": B, "prompt": PROMPT, "new": NEW,
+           "init_s": init_s, "runs": runs, "prefill_ms": prefill_s * 1e3,
+           "ttft_ms": ttft_s * 1e3,
+           "decode_ms_per_step": decode_s * 1e3,
+           "generate_ms": gen_s * 1e3, "tokens_per_s": B * NEW / gen_s,
+           "teacher_forced_logit_max_abs_err": logit_err,
+           "teacher_forced_argmax_agree": argmax_agree,
+           "logit_absmax": logit_absmax, "logit_atol": E2E_ATOL,
+           "logit_rtol": E2E_RTOL,
+           "max_memory_allocated": peak}
+    emit(res)
+    if not logits_ok:
+        raise AssertionError(f"teacher-forced logits differ by {logit_err}")
+    return model, plan, kv, res, runs["greedy"]["launches"]
+
+
+# ---- timing -----------------------------------------------------------------
+
+def phase_timing(fa, fd, model, plan, kv, bw, flops, launches, k1_err, k2_err):
+    from paddle_tpu_torch.ops import rope
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    b, h, d, sq, sk = B, cfg.num_heads, cfg.head_dim, PROMPT, kv.shape[2]
+    q = rand((b, sq, h, d), gen)
+    k = rand((b, sk, cfg.kv_heads, d), gen)
+    v = rand((b, sk, cfg.kv_heads, d), gen)
+    kl = torch.full((b,), sq, dtype=torch.int32, device="cuda")
+    f1 = lambda: fa.flash_attention_fwd(q, k, v, is_causal=True,
+                                        causal_offset=0, kv_lens=kl)
+    ms1 = time_ms(f1, iters=20)
+    plain1 = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, is_causal=True, causal_offset=0, kv_lens=kl), iters=3,
+        warmup=1)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib1 = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=20)
+    pairs = sum(min(sq, i + 1) for i in range(sq)) * b * h
+    bytes1 = sum(t.numel() * t.element_size() for t in (q, k, v, q)) \
+        + b * h * sq * 4
+    flops1 = 4 * d * pairs
+    t_bytes1, t_ops1 = bytes1 / bw * 1e3, flops1 / flops * 1e3
+
+    pos = PROMPT + 32
+    cos, sin = rope.rope_cos_sin(kv.shape[2], cfg.head_dim, device="cuda")
+    x = rand((b, cfg.hidden_size), gen)
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.kv_heads,
+              eps=cfg.rms_norm_eps)
+    f2 = lambda: fd.fused_decode_cuda(x, plan["params"], kv, pos,
+                                      cos[pos:pos + 1], sin[pos:pos + 1], **kw)
+    ms2 = time_ms(f2, iters=20)
+    plain2 = time_ms(lambda: fd.fused_decode_reference(
+        x, plan["params"], kv, pos, cos[pos:pos + 1], sin[pos:pos + 1], **kw),
+        iters=2, warmup=1)
+    L = cfg.num_layers
+    wbytes = sum(t.numel() * t.element_size() for t in plan["params"].values())
+    row = b * kv.shape[3] * kv.element_size()
+    bytes2 = wbytes + L * row * (pos + 1) + L * row + 2 * x.numel() * 2
+    flops2 = 2 * b * sum(t.numel() for t in plan["params"].values()) \
+        + L * b * cfg.num_heads * 4 * cfg.head_dim * (pos + 1)
+    t_bytes2, t_ops2 = bytes2 / bw * 1e3, flops2 / flops * 1e3
+    head_bytes = model.lm_head.weight.numel() * 2
+    kernels = [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:526",
+         "launches": launches["flash_attention_fwd"], "max_abs_err": k1_err,
+         "ms": ms1, "plain_ms": plain1, "bound_ms": max(t_bytes1, t_ops1),
+         "bound_by": "bytes" if t_bytes1 >= t_ops1 else "operations",
+         "library_ms": lib1},
+        {"name": "fused_decode_step", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/fused_decode.cu",
+         "replaces": "paddle_tpu/ops/fused_decode.py:555",
+         "launches": launches["fused_decode_step"], "max_abs_err": k2_err,
+         "ms": ms2, "plain_ms": plain2, "bound_ms": max(t_bytes2, t_ops2),
+         "bound_by": "bytes" if t_bytes2 >= t_ops2 else "operations",
+         "library_ms": None},
+    ]
+    emit({"phase": "timing", "k1_shape": [b, sq, h, d, sk],
+          "k2_pos": pos, "k2_bytes": bytes2, "k1_flops": flops1,
+          "decode_step_bound_ms_with_lm_head": (bytes2 + head_bytes) / bw * 1e3,
+          "kernels": kernels})
+    return kernels
+
+
+def main(argv):
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    quick = "--quick" in argv
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops import rope
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name_line, kind, bw, flops = card()
+    t0 = time.perf_counter()
+    _build.build_all(verbose=True)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": sorted(_build._libs)})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    k1_err = phase_k1(fa, gen)
+    k2_err = phase_k2(fd, rope, gen)
+    if quick:
+        return 0
+    model, plan, kv, _, launches = phase_e2e(fa, fd)
+    with torch.inference_mode():   # kv is an inference tensor
+        kernels = phase_timing(fa, fd, model, plan, kv, bw, flops, launches,
+                               k1_err, k2_err)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,153 @@
+"""Where the time of a decode step goes, per CUDA kernel.
+
+    PYTHONPATH=. python3 examples/torch_decode_profile.py [--layers 32]
+        [--batch 4] [--pos 1056] [--kv_heads 32]
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --generate
+
+Default: builds a Llama-2-7B-width stack (random bf16 weights, seed 0) and
+a KV cache filled up to `pos`, times paddle_tpu_torch's fused decode step
+with CUDA events, then traces a few steps with torch.profiler and prints
+one JSON line: device time per kernel name (sum per step), the step time,
+and the byte bound of each kernel family at the card's memory rate.
+
+--generate: traces a whole `inference.generate` call of Llama-2-7B (b=4,
+prompt 1024, 64 new tokens) and the same call with one new token, and
+prints the wall time and the device-busy time of the 63 decode steps
+(their difference), so the device's idle share during decode shows.
+
+Needs a CUDA GPU; imports nothing of jax or paddle_tpu.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import fused_decode as fd
+from paddle_tpu_torch.ops.rope import rope_cos_sin
+
+BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
+               "H100": 3.35e12}
+
+
+def device_ms(prof):
+    """Device time (ms) of every CUDA kernel in a trace, by kernel name."""
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = ev.self_device_time_total
+        if not dt:
+            continue
+        # "void (anonymous namespace)::gemm_partial_kernel<true, ...>(...)"
+        name = ev.key.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0]
+        per_kernel[name] = per_kernel.get(name, 0.0) + dt / 1e3
+    return per_kernel
+
+
+def traced(fn):
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall * 1e3, device_ms(prof)
+
+
+def generate_split(card):
+    from paddle_tpu_torch.inference import generate
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b()
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda",
+                             seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (4, 1024), device="cuda",
+                        generator=g)
+    generate(model, ids, max_new_tokens=64)            # warm
+    w64, d64 = traced(lambda: generate(model, ids, max_new_tokens=64))
+    w1, d1 = traced(lambda: generate(model, ids, max_new_tokens=1))
+    busy = (sum(d64.values()) - sum(d1.values())) / 63
+    wall = (w64 - w1) / 63
+    top = {k: (v - d1.get(k, 0.0)) / 63 for k, v in d64.items()}
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])
+    print(json.dumps({"card": card, "decode_wall_ms_per_step": wall,
+                      "decode_device_busy_ms_per_step": busy,
+                      "decode_device_idle_share": 1 - busy / wall,
+                      "ttft_wall_ms": w1,
+                      "top_device_ms_per_step": top}))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--pos", type=int, default=1056)
+    ap.add_argument("--kv_heads", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--generate", action="store_true")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--id=0",
+                           "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    bw = next(v for k, v in BYTES_PER_S.items() if k in kind)
+    _build.build_all()
+    if a.generate:
+        return generate_split(card)
+    L, b, pos, nkv = a.layers, a.batch, a.pos, a.kv_heads
+    h, nh, hd, ffn = 4096, 32, 128, 11008
+    S = -(-(pos + 1) // 128) * 128
+    dq, dkv = nh * hd, nkv * hd
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
+        0, sc, generator=g).bfloat16()
+    p = {"ln1": torch.ones(L, h, device="cuda").bfloat16(),
+         "wqkv": mk(L, h, dq + 2 * dkv), "wo": mk(L, dq, h),
+         "ln2": torch.ones(L, h, device="cuda").bfloat16(),
+         "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
+    kv = torch.zeros(L, b, S, 2 * dkv, device="cuda", dtype=torch.bfloat16)
+    kv[:, :, :pos] = mk(L, b, pos, 2 * dkv, sc=1.0)
+    x = mk(b, h, sc=1.0)
+    cos, sin = rope_cos_sin(S, hd, device="cuda")
+    step = lambda: fd.fused_decode_cuda(
+        x, p, kv, pos, cos[pos:pos + 1], sin[pos:pos + 1], num_heads=nh,
+        num_kv_heads=nkv)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(a.steps):
+        step()
+    e1.record()
+    torch.cuda.synchronize()
+    step_ms = e0.elapsed_time(e1) / a.steps
+    _, per_kernel = traced(lambda: [step() for _ in range(a.steps)])
+    per_kernel = {k: v / a.steps for k, v in per_kernel.items()}
+    wb = lambda *ks: sum(p[k].numel() * 2 for k in ks)
+    kvb = L * b * (pos + 1) * 2 * dkv * 2
+    bounds_ms = {"qkv gemm": wb("wqkv") / bw * 1e3,
+                 "o-proj gemm": wb("wo") / bw * 1e3,
+                 "gate/up gemm": wb("wg", "wu") / bw * 1e3,
+                 "down gemm": wb("wd") / bw * 1e3,
+                 "attention (filled KV)": kvb / bw * 1e3}
+    print(json.dumps({"card": card, "layers": L, "batch": b, "pos": pos,
+                      "kv_heads": nkv, "step_ms": step_ms,
+                      "device_ms_per_step_by_kernel": per_kernel,
+                      "device_ms_per_step": sum(per_kernel.values()),
+                      "bound_ms_by_part": bounds_ms,
+                      "bound_ms": sum(bounds_ms.values())}))
+
+
+if __name__ == "__main__":
+    main()

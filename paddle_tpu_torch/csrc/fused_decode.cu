@@ -1,0 +1,525 @@
+// Fused decode step for Hopper (sm_90a): one token through every layer of
+// a llama stack, bf16 weights, bf16 KV cache, fp32 residual stream.
+//
+// Replaces the TPU kernel paddle_tpu/ops/fused_decode.py::_fused_decode_pallas
+// (pallas_call at :940), llama arch, bf16 mode. Per layer, on one stream,
+// issued by one C call for the whole stack:
+//   1. skinny GEMM  qkv = rms(x, ln1) @ wqkv            (RMSNorm prologue)
+//   2. rope + cache append at pos + attention over the filled prefix [0, pos]
+//   3. skinny GEMM  x += attn @ wo                       (residual epilogue)
+//   4. skinny GEMM  act = silu(rms(x, ln2) @ wg) * (rms(x, ln2) @ wu)
+//   5. skinny GEMM  x += act @ wd                        (residual epilogue)
+// A skinny GEMM is two or three launches: the RMSNorm statistics (b
+// floats), the split-K partial products with the norm applied while x is
+// staged, and an epilogue that sums the partials in a fixed order and
+// applies the residual add or SwiGLU — 1 + 11 launches per layer.
+// Casts sit where fused_decode_reference puts them: activations are rounded
+// to bf16 before each product, products accumulate in fp32, q/k/v and the
+// residual stay fp32, k and v are rounded to bf16 by the cache append.
+//
+// What bounds it on the H100: bytes. At b <= 8 every weight element is used
+// b times, far below the ~295 FLOP/byte ridge, so a step can take no less
+// than (all layer weights + the filled KV prefix) / 3.35 TB/s. The design
+// streams each weight byte exactly once with 16-byte loads (each thread owns
+// 8 adjacent output columns of the row-major (in, out) weight, neighbouring
+// threads neighbouring columns), keeps several loads in flight per thread,
+// splits the contraction dim across the warps of a block and across ~4
+// blocks per SM (a 4096-wide output alone fills only 64 blocks), and fuses
+// the norm, residual and SwiGLU into the products so activations
+// cross device memory only as tiny (b, ·) vectors. Attention reads only the
+// filled prefix, never the unfilled tail. First design: no CUDA graph, no
+// persistent megakernel, no split over the KV length.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+#define NEG_INF (-1e30f)
+
+namespace {
+
+enum { MODE_QKV = 0, MODE_SWIGLU = 1, MODE_RESID = 2 };
+
+constexpr int GT = 256;  // threads per GEMM block
+constexpr int NWG = GT / 32;
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffff, v, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < NWG; ++w) s += red[w];
+  return s;
+}
+
+// RMSNorm statistics, one block per batch row: rstd = 1/sqrt(mean(x^2)+eps)
+__global__ void __launch_bounds__(GT)
+rms_stats_kernel(const float* __restrict__ xf, float* __restrict__ rstd,
+                 int in, float eps) {
+  __shared__ float tmp[NWG];
+  const int bi = blockIdx.x;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < in; k += GT) {
+    const float t = xf[(long)bi * in + k];
+    ss += t * t;
+  }
+  ss = block_sum(ss, tmp);
+  if (threadIdx.x == 0) rstd[bi] = 1.f / sqrtf(ss / (float)in + eps);
+}
+
+// Partial products of y(b, out) = x(b, in) @ W(in, out), b <= B: block
+// (blockIdx.x, blockIdx.y) owns 64 output columns (8 per thread, 8 column
+// groups) and the contraction rows [ks*kper, (ks+1)*kper); its 32 row
+// slices stride those rows and are reduced through shuffles and shared
+// memory into ws[ks][bi][col]. The prologue stages x in shared memory KCH
+// rows at a time: RMS applies the norm (rstd precomputed, bf16(x*rstd)*w
+// rounded to bf16, the reference rounding); otherwise x is bf16 already.
+// TWO streams a second weight (SwiGLU's up) against the same x.
+constexpr int TPC = 8;           // threads per 64-column group
+constexpr int COLS = TPC * 8;
+constexpr int RS = GT / TPC;     // contraction slices per block
+
+template <bool RMS, bool TWO, int B>
+__global__ void __launch_bounds__(GT)
+gemm_partial_kernel(const float* __restrict__ xf,
+                    const float* __restrict__ rstd,
+                    const bf16* __restrict__ xb, const bf16* __restrict__ lnw,
+                    const bf16* __restrict__ w0, const bf16* __restrict__ w1,
+                    float* __restrict__ ws0, float* __restrict__ ws1, int b,
+                    int in, int out, int kper) {
+  constexpr int KCH = 4096 / B;  // staged rows (8 KB of bf16)
+  constexpr int U = TWO ? 2 : 8; // weight rows in flight per thread
+  constexpr int NA = TWO ? 2 : 1;
+  __shared__ __align__(16) bf16 xs[B][KCH];
+  __shared__ float red[NA][NWG][B][COLS];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = tid % TPC, rs = tid / TPC;
+  const int col = blockIdx.x * COLS + cg * 8;
+  const bool live = col < out;
+  const int k0 = blockIdx.y * kper, k1 = min(in, k0 + kper);
+
+  float acc[NA][B][8];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int bi = 0; bi < B; ++bi)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[a][bi][j] = 0.f;
+
+  for (int kc = k0; kc < k1; kc += KCH) {
+    const int kn = min(KCH, k1 - kc);
+    __syncthreads();  // the previous chunk is consumed
+    for (int idx = tid; idx < B * KCH; idx += GT) {
+      const int bi = idx / KCH, r = idx % KCH;
+      bf16 val = __float2bfloat16(0.f);
+      if (bi < b && r < kn) {
+        const long off = (long)bi * in + kc + r;
+        if (RMS) {
+          const float y = bf16_round(xf[off] * rstd[bi]);
+          val = __float2bfloat16(y * __bfloat162float(lnw[kc + r]));
+        } else {
+          val = xb[off];
+        }
+      }
+      xs[bi][r] = val;
+    }
+    __syncthreads();
+    if (live) {
+      for (int r = rs; r < kn; r += U * RS) {
+        uint4 wv[NA][U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int rr = r + u * RS;
+          const long off = (long)(kc + rr) * out + col;
+#pragma unroll
+          for (int a = 0; a < NA; ++a)
+            wv[a][u] = rr < kn
+                ? __ldg(reinterpret_cast<const uint4*>((a ? w1 : w0) + off))
+                : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int rr = min(r + u * RS, kn - 1);  // zero weights past kn
+          float xv[B];
+#pragma unroll
+          for (int bi = 0; bi < B; ++bi) xv[bi] = __bfloat162float(xs[bi][rr]);
+#pragma unroll
+          for (int a = 0; a < NA; ++a) {
+            float wf[8];
+            unpack8(wv[a][u], wf);
+#pragma unroll
+            for (int bi = 0; bi < B; ++bi)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                acc[a][bi][j] = fmaf(xv[bi], wf[j], acc[a][bi][j]);
+          }
+        }
+      }
+    }
+  }
+
+  // reduce the row slices: lanes cg, cg+8, cg+16, cg+24 of a warp by
+  // shuffles, then the warps through shared memory
+#pragma unroll
+  for (int o = TPC; o < 32; o <<= 1)
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int bi = 0; bi < B; ++bi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[a][bi][j] += __shfl_xor_sync(0xffffffff, acc[a][bi][j], o);
+  if (lane < TPC) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int bi = 0; bi < B; ++bi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) red[a][warp][bi][cg * 8 + j] = acc[a][bi][j];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < NA * b * COLS; idx += GT) {
+    const int a = idx / (b * COLS), bi = (idx / COLS) % b, c = idx % COLS;
+    const int oc = blockIdx.x * COLS + c;
+    if (oc >= out) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWG; ++w) s += red[a][w][bi][c];
+    (a ? ws1 : ws0)[((long)blockIdx.y * b + bi) * out + oc] = s;
+  }
+}
+
+// Sum the ks partials of each output in a fixed order (deterministic) and
+// apply MODE's epilogue: store fp32 (qkv), add into the fp32 residual
+// (optionally writing its bf16 copy), or SwiGLU into bf16 activations.
+template <int MODE>
+__global__ void gemm_epilogue_kernel(const float* __restrict__ ws0,
+                                     const float* __restrict__ ws1, int ks,
+                                     int n, float* __restrict__ yf,
+                                     bf16* __restrict__ yb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < ks; ++k) s += ws0[(long)k * n + i];
+  if (MODE == MODE_QKV) {
+    yf[i] = s;
+  } else if (MODE == MODE_RESID) {
+    const float nx = yf[i] + s;
+    yf[i] = nx;
+    if (yb != nullptr) yb[i] = __float2bfloat16(nx);
+  } else {
+    float u = 0.f;
+    for (int k = 0; k < ks; ++k) u += ws1[(long)k * n + i];
+    const float sg = s * (1.f / (1.f + expf(-s)));  // silu in fp32
+    yb[i] = __float2bfloat16(sg * u);
+  }
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// contraction splits: about eight 256-thread blocks per SM in all (four
+// when each streams two weights), each split at least 256 rows long.
+// Measured on an H100 (examples/torch_decode_profile.py): more splits or
+// more rows in flight for the two-weight GEMM make it slower.
+int ksplit(int in, int out, bool two = false) {
+  const int cb = (out + COLS - 1) / COLS;
+  int ks = ((two ? 4 : 8) * num_sms() + cb - 1) / cb;
+  ks = min(ks, max(1, in / 256));
+  return max(ks, 1);
+}
+
+// One block per (kv head g, batch row bi): rope q (the rep heads of the
+// group) and k at `pos`, append k and v to the cache, then attend over the
+// filled prefix [0, pos] with an online softmax, NW warps striding the keys,
+// merged through shared memory.
+constexpr int NWA = 16;
+
+template <int HD, int REP>
+__global__ void __launch_bounds__(NWA * 32)
+rope_append_attn_kernel(const float* __restrict__ qkv,
+                        const float* __restrict__ cosr,
+                        const float* __restrict__ sinr, bf16* __restrict__ kv,
+                        bf16* __restrict__ attn, int nkv, int S, int pos,
+                        float scale) {
+  constexpr int DPL = HD / 32;  // head dims per lane
+  const int g = blockIdx.x, bi = blockIdx.y;
+  const int dkv = nkv * HD, dq = nkv * REP * HD, dqkv = dq + 2 * dkv;
+  extern __shared__ float sm[];
+  float* qs = sm;                       // [REP][HD]
+  float* wm = qs + REP * HD;            // [NWA][REP]
+  float* wl = wm + NWA * REP;           // [NWA][REP]
+  float* wacc = wl + NWA * REP;         // [NWA][REP][HD]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* row = qkv + (long)bi * dqkv;
+  bf16* kvb = kv + (long)bi * S * 2 * dkv;
+
+  for (int i = tid; i < REP * HD; i += NWA * 32) {
+    const int r = i / HD, d = i % HD;
+    const float* qh = row + (g * REP + r) * HD;
+    const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
+    qs[i] = (qh[d] * cosr[d] + rot * sinr[d]) * scale;
+  }
+  for (int d = tid; d < HD; d += NWA * 32) {
+    const float* kh = row + dq + g * HD;
+    const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
+    bf16* dst = kvb + (long)pos * 2 * dkv + g * HD + d;
+    dst[0] = __float2bfloat16(kh[d] * cosr[d] + rot * sinr[d]);
+    dst[dkv] = __float2bfloat16(row[dq + dkv + g * HD + d]);
+  }
+  __syncthreads();  // the appended row and q are visible to the block
+
+  float qr[REP][DPL], m[REP], l[REP], acc[REP][DPL];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      qr[r][j] = qs[r * HD + lane * DPL + j];
+      acc[r][j] = 0.f;
+    }
+  }
+  constexpr int U = 4;  // keys in flight per warp
+  for (int t0 = warp; t0 <= pos; t0 += U * NWA) {
+    float kf[U][DPL], vf[U][DPL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * NWA;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) kf[u][j] = vf[u][j] = 0.f;
+      if (t <= pos) {
+        const bf16* kr = kvb + (long)t * 2 * dkv + g * HD + lane * DPL;
+#pragma unroll
+        for (int j = 0; j < DPL; j += 2) {
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(kr + j));
+          const float2 c = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(kr + dkv + j));
+          kf[u][j] = a.x; kf[u][j + 1] = a.y;
+          vf[u][j] = c.x; vf[u][j + 1] = c.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (t0 + u * NWA > pos) break;
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) s = fmaf(qr[r][j], kf[u][j], s);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffff, s, o);
+        const float mn = fmaxf(m[r], s);
+        const float a = expf(m[r] - mn), p = expf(s - mn);
+        l[r] = l[r] * a + p;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) acc[r][j] = fmaf(p, vf[u][j], acc[r][j] * a);
+        m[r] = mn;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    if (lane == 0) {
+      wm[warp * REP + r] = m[r];
+      wl[warp * REP + r] = l[r];
+    }
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      wacc[(warp * REP + r) * HD + lane * DPL + j] = acc[r][j];
+  }
+  __syncthreads();
+  for (int i = tid; i < REP * HD; i += NWA * 32) {
+    const int r = i / HD, d = i % HD;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NWA; ++w) M = fmaxf(M, wm[w * REP + r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWA; ++w) {
+      const float e = expf(wm[w * REP + r] - M);
+      L += wl[w * REP + r] * e;
+      A += wacc[(w * REP + r) * HD + d] * e;
+    }
+    attn[(long)bi * dq + (g * REP + r) * HD + d] = __float2bfloat16(A / L);
+  }
+}
+
+__global__ void bf16_to_f32_kernel(const bf16* __restrict__ x,
+                                   float* __restrict__ y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = __bfloat162float(x[i]);
+}
+
+template <bool RMS, bool TWO, int B>
+void partial_b(const float* xf, const float* rstd, const bf16* xb,
+               const bf16* lnw, const bf16* w0, const bf16* w1, float* ws0,
+               float* ws1, int b, int in, int out, int ks, cudaStream_t st) {
+  const int kper = (in + ks - 1) / ks;
+  gemm_partial_kernel<RMS, TWO, B><<<dim3((out + COLS - 1) / COLS, ks), GT,
+                                      0, st>>>(xf, rstd, xb, lnw, w0, w1,
+                                               ws0, ws1, b, in, out, kper);
+}
+
+// One skinny GEMM: [rms stats] -> partial products -> epilogue.
+template <int MODE>
+cudaError_t gemm(const float* xf, const bf16* xb, const bf16* lnw,
+                 const bf16* w0, const bf16* w1, float* yf, bf16* yb,
+                 float* ws0, float* ws1, float* rstd, int b, int in, int out,
+                 float eps, cudaStream_t st) {
+  constexpr bool RMS = MODE != MODE_RESID;
+  constexpr bool TWO = MODE == MODE_SWIGLU;
+  const int ks = ksplit(in, out, TWO);
+  if (RMS) rms_stats_kernel<<<b, GT, 0, st>>>(xf, rstd, in, eps);
+  if (b <= 1) partial_b<RMS, TWO, 1>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  else if (b <= 2) partial_b<RMS, TWO, 2>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  else if (b <= 4) partial_b<RMS, TWO, 4>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  else if (b <= 8) partial_b<RMS, TWO, 8>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  else return cudaErrorInvalidValue;
+  const int n = b * out;
+  gemm_epilogue_kernel<MODE><<<(n + 255) / 256, 256, 0, st>>>(ws0, ws1, ks, n,
+                                                              yf, yb);
+  return cudaGetLastError();
+}
+
+template <int HD, int REP>
+cudaError_t attn_launch(const float* qkv, const float* cosr, const float* sinr,
+                        bf16* kv, bf16* attn, int b, int nkv, int S, int pos,
+                        float scale, cudaStream_t st) {
+  const int smem = (REP * HD + 2 * NWA * REP + NWA * REP * HD) * 4;
+  static bool opted_in = false;  // above 48 KB needs the opt-in, once
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rope_append_attn_kernel<HD, REP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  rope_append_attn_kernel<HD, REP><<<dim3(nkv, b), NWA * 32, smem, st>>>(
+      qkv, cosr, sinr, kv, attn, nkv, S, pos, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t attn_hd(int rep, const float* qkv, const float* cosr,
+                    const float* sinr, bf16* kv, bf16* attn, int b, int nkv,
+                    int S, int pos, float scale, cudaStream_t st) {
+  switch (rep) {
+    case 1: return attn_launch<HD, 1>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
+    case 2: return attn_launch<HD, 2>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
+    case 4: return attn_launch<HD, 4>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
+    case 8: return attn_launch<HD, 8>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Floats of split-K workspace one step needs: 8 for the RMSNorm rstd, then
+// the partial sums of the widest GEMM, then the up-projection's partials.
+long ws_layout(int b, int h, int dq, int dqkv, int ffn, long* n0) {
+  long a = (long)ksplit(h, dqkv) * b * dqkv;
+  a = a > (long)ksplit(dq, h) * b * h ? a : (long)ksplit(dq, h) * b * h;
+  a = a > (long)ksplit(h, ffn, true) * b * ffn ? a
+                                              : (long)ksplit(h, ffn, true) * b * ffn;
+  a = a > (long)ksplit(ffn, h) * b * h ? a : (long)ksplit(ffn, h) * b * h;
+  *n0 = a;
+  return 8 + a + (long)ksplit(h, ffn, true) * b * ffn;
+}
+
+}  // namespace
+
+extern "C" long fused_decode_llama_workspace(int b, int h, int nh, int nkv,
+                                             int hd, int ffn) {
+  long n0;
+  return ws_layout(b, h, nh * hd, (nh + 2 * nkv) * hd, ffn, &n0);
+}
+
+// One decode step through all L layers. Stacked weights (L, ...) as built
+// by build_fused_params; kv (L, b, S, 2*nkv*hd) is updated in place at
+// `pos`. Scratch: xf (b,h) f32, qkv (b,dqkv) f32, attn (b,dq) bf16,
+// act (b,ffn) bf16, ws (fused_decode_llama_workspace floats). Returns the
+// first CUDA error, 0 on success.
+extern "C" int fused_decode_llama(
+    const void* x_in, void* x_out, const void* ln1, const void* wqkv,
+    const void* wo, const void* ln2, const void* wg, const void* wu,
+    const void* wd, void* kv, const void* cosr, const void* sinr, void* xf,
+    void* qkv, void* attn, void* act, void* ws, int L, int b, int h, int nh,
+    int nkv, int hd, int ffn, int S, int pos, float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int dq = nh * hd, dkv = nkv * hd, dqkv = dq + 2 * dkv;
+  const int rep = nh / nkv;
+  const float scale = 1.f / sqrtf((float)hd);
+  float* xff = (float*)xf;
+  float* qkvf = (float*)qkv;
+  bf16* attnb = (bf16*)attn;
+  bf16* actb = (bf16*)act;
+  long n0;
+  ws_layout(b, h, dq, dqkv, ffn, &n0);
+  float* rstd = (float*)ws;
+  float* ws0 = rstd + 8;
+  float* ws1 = ws0 + n0;
+  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>((const bf16*)x_in,
+                                                           xff, b * h);
+  cudaError_t e = cudaGetLastError();
+  for (int l = 0; l < L && e == cudaSuccess; ++l) {
+    const bf16* ln1l = (const bf16*)ln1 + (long)l * h;
+    const bf16* wqkvl = (const bf16*)wqkv + (long)l * h * dqkv;
+    const bf16* wol = (const bf16*)wo + (long)l * dq * h;
+    const bf16* ln2l = (const bf16*)ln2 + (long)l * h;
+    const bf16* wgl = (const bf16*)wg + (long)l * h * ffn;
+    const bf16* wul = (const bf16*)wu + (long)l * h * ffn;
+    const bf16* wdl = (const bf16*)wd + (long)l * ffn * h;
+    bf16* kvl = (bf16*)kv + (long)l * b * S * 2 * dkv;
+    e = gemm<MODE_QKV>(xff, nullptr, ln1l, wqkvl, nullptr, qkvf, nullptr,
+                       ws0, ws1, rstd, b, h, dqkv, eps, st);
+    if (e != cudaSuccess) break;
+    e = hd == 128 ? attn_hd<128>(rep, qkvf, (const float*)cosr,
+                                 (const float*)sinr, kvl, attnb, b, nkv, S,
+                                 pos, scale, st)
+        : hd == 64 ? attn_hd<64>(rep, qkvf, (const float*)cosr,
+                                 (const float*)sinr, kvl, attnb, b, nkv, S,
+                                 pos, scale, st)
+                   : cudaErrorInvalidValue;
+    if (e != cudaSuccess) break;
+    e = gemm<MODE_RESID>(nullptr, attnb, nullptr, wol, nullptr, xff, nullptr,
+                         ws0, ws1, rstd, b, dq, h, eps, st);
+    if (e != cudaSuccess) break;
+    e = gemm<MODE_SWIGLU>(xff, nullptr, ln2l, wgl, wul, nullptr, actb, ws0,
+                          ws1, rstd, b, h, ffn, eps, st);
+    if (e != cudaSuccess) break;
+    e = gemm<MODE_RESID>(nullptr, actb, nullptr, wdl, nullptr, xff,
+                         l == L - 1 ? (bf16*)x_out : nullptr, ws0, ws1, rstd,
+                         b, ffn, h, eps, st);
+  }
+  return (int)e;
+}

@@ -1,0 +1,282 @@
+"""Llama (port of ``paddle_tpu/models/llama.py``), single device, serving.
+
+Same module tree and attribute names as the reference, so the state keys
+are the JAX ``state_dict(include_buffers=False)`` keys. The projections
+and ``lm_head`` are ``torch.matmul`` (the reference leaves them to XLA,
+outside any Pallas kernel); attention goes through
+``F.scaled_dot_product_attention`` — the flash-attention kernel on the card.
+
+Entry points build on ``cuda`` unless a device is given; the weights are
+drawn directly on that device in the requested dtype from an explicit
+``torch.Generator`` (a 7B model never exists in fp32 on the host).
+"""
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from paddle_tpu_torch import nn
+from paddle_tpu_torch.core import rng as rng_mod
+from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import initializer as init
+from paddle_tpu_torch.ops import rope as rope_ops
+from paddle_tpu_torch.parallel import mp_layers as mp
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: Optional[int] = None      # None → MHA
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_base: float = 10000.0
+    initializer_range: float = 0.02
+
+    @property
+    def kv_heads(self):
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_heads
+
+    @classmethod
+    def tiny(cls, vocab_size=256):
+        return cls(vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
+                   num_layers=2, num_heads=4, num_kv_heads=2,
+                   max_position_embeddings=128)
+
+    @classmethod
+    def llama2_7b(cls):
+        return cls()
+
+
+class LlamaAttention(nn.Layer):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None,
+                 generator=None):
+        super().__init__()
+        h, nh, nkv, hd = (cfg.hidden_size, cfg.num_heads, cfg.kv_heads,
+                          cfg.head_dim)
+        w = init.Normal(0.0, cfg.initializer_range)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        col = lambda n: mp.ColumnParallelLinear(h, n, weight_attr=w,
+                                                has_bias=False, **kw)
+        self.q_proj = col(nh * hd)
+        self.k_proj = col(nkv * hd)
+        self.v_proj = col(nkv * hd)
+        self.o_proj = mp.RowParallelLinear(nh * hd, h, weight_attr=init.Normal(
+            0.0, cfg.initializer_range / math.sqrt(2 * cfg.num_layers)),
+            has_bias=False, **kw)
+        self.cfg = cfg
+
+    def forward(self, x, cos=None, sin=None, attn_mask=None, cache=None,
+                start_pos=0):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        v = self.v_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        if cos is None or sin is None:
+            pos = start_pos + torch.arange(s, device=x.device)
+            cos, sin = rope_ops.rope_cos_sin(s, cfg.head_dim,
+                                             base=cfg.rope_base,
+                                             position_ids=pos)
+        q = rope_ops.apply_rotary_pos_emb(q, cos, sin)
+        k = rope_ops.apply_rotary_pos_emb(k, cos, sin)
+        if cache is not None:
+            # decode/prefill into the preallocated cache: write k/v at
+            # [start_pos, start_pos+s) IN PLACE, attend to the filled
+            # prefix. The reference passes the dense bool mask
+            # k_pos <= start_pos + i over the whole cache; the same limit
+            # goes here as structured arguments (causal offset start_pos,
+            # kv_len start_pos + s), which the kernel takes directly.
+            if attn_mask is not None:
+                raise NotImplementedError(
+                    "attn_mask with a KV cache is not ported yet")
+            cache["k"][:, start_pos:start_pos + s] = k.to(cache["k"].dtype)
+            cache["v"][:, start_pos:start_pos + s] = v.to(cache["v"].dtype)
+            out = F.scaled_dot_product_attention(
+                q, cache["k"], cache["v"], is_causal=True,
+                causal_offset=start_pos, kv_lens=start_pos + s,
+                training=False)
+            out = self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+            return out, cache
+        # no cache: causal, bottom-right aligned (sq == sk here)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                             is_causal=True, training=False)
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+
+
+class LlamaMLP(nn.Layer):
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None,
+                 generator=None):
+        super().__init__()
+        h, ffn = cfg.hidden_size, cfg.intermediate_size
+        w = init.Normal(0.0, cfg.initializer_range)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.gate_proj = mp.ColumnParallelLinear(h, ffn, weight_attr=w,
+                                                 has_bias=False, **kw)
+        self.up_proj = mp.ColumnParallelLinear(h, ffn, weight_attr=w,
+                                               has_bias=False, **kw)
+        self.down_proj = mp.RowParallelLinear(ffn, h, weight_attr=init.Normal(
+            0.0, cfg.initializer_range / math.sqrt(2 * cfg.num_layers)),
+            has_bias=False, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Layer):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None,
+                 generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.input_layernorm = nn.RMSNorm(cfg.hidden_size,
+                                          epsilon=cfg.rms_norm_eps, **kw)
+        self.self_attn = LlamaAttention(cfg, generator=generator, **kw)
+        self.post_attention_layernorm = nn.RMSNorm(
+            cfg.hidden_size, epsilon=cfg.rms_norm_eps, **kw)
+        self.mlp = LlamaMLP(cfg, generator=generator, **kw)
+
+    def forward(self, x, cos=None, sin=None, attn_mask=None, cache=None,
+                start_pos=0):
+        if cache is not None:
+            attn, new_cache = self.self_attn(self.input_layernorm(x), cos,
+                                             sin, attn_mask, cache=cache,
+                                             start_pos=start_pos)
+            x = x + attn
+            x = x + self.mlp(self.post_attention_layernorm(x))
+            return x, new_cache
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_mask)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Layer):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None,
+                 generator=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(dtype=dtype, device=device)
+        self.embed_tokens = mp.VocabParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size,
+            weight_attr=init.Normal(0.0, cfg.initializer_range),
+            generator=generator, **kw)
+        self.layers = nn.LayerList([
+            LlamaDecoderLayer(cfg, generator=generator, **kw)
+            for _ in range(cfg.num_layers)])
+        self.norm = nn.RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps,
+                               **kw)
+
+    def forward(self, input_ids, attn_mask=None, cache=None, start_pos=0):
+        cfg = self.cfg
+        s = input_ids.shape[1]
+        pos = (start_pos + torch.arange(s, device=input_ids.device)
+               if cache is not None else None)
+        cos, sin = rope_ops.rope_cos_sin(s, cfg.head_dim, base=cfg.rope_base,
+                                         position_ids=pos,
+                                         device=input_ids.device)
+        x = self.embed_tokens(input_ids)
+        if cache is not None:
+            new_cache = []
+            for i, layer in enumerate(self.layers):
+                x, c = layer(x, cos, sin, attn_mask, cache=cache[i],
+                             start_pos=start_pos)
+                new_cache.append(c)
+            return self.norm(x), new_cache
+        for layer in self.layers:
+            x = layer(x, cos, sin, attn_mask)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Layer):
+    """Llama LM head model. ``device`` defaults to cuda (raises without a
+    GPU); ``dtype`` is the parameter dtype the weights are drawn in; they
+    are drawn from a ``torch.Generator`` on ``device`` seeded with ``seed``
+    (or from the global seed stream when ``seed`` is None). Tied
+    embeddings and sliding-window attention are not ported yet (ROADMAP
+    Queue A item 4)."""
+
+    def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None,
+                 seed: Optional[int] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        if seed is None:
+            generator = rng_mod.next_generator(dev)
+        else:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(int(seed))
+        self.cfg = cfg
+        self.model = LlamaModel(cfg, dtype=dtype, device=dev,
+                                generator=generator)
+        self.lm_head = mp.ColumnParallelLinear(
+            cfg.hidden_size, cfg.vocab_size,
+            weight_attr=init.Normal(0.0, cfg.initializer_range),
+            has_bias=False, dtype=dtype, device=dev, generator=generator)
+
+    def forward(self, input_ids, attn_mask=None, cache=None, start_pos=0):
+        if cache is not None:
+            x, new_cache = self.model(input_ids, attn_mask, cache=cache,
+                                      start_pos=start_pos)
+            return self.lm_head(x), new_cache
+        return self.lm_head(self.model(input_ids, attn_mask))
+
+    def init_cache(self, batch_size, max_len, dtype=torch.bfloat16):
+        """Preallocated KV cache: one {'k','v'} buffer pair per layer, on
+        the model's device."""
+        cfg = self.cfg
+        shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+        dev = self.device
+        return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                for _ in range(cfg.num_layers)]
+
+    def fused_decode_plan(self, state, probe=False):
+        """Plan for the fused decode-step path (ops.fused_decode): stacked
+        per-layer weights plus embed/head closures, or None when this
+        config can't ride it (odd head_dim, non-standard state). llama,
+        bf16 or fp32 weights; the CUDA kernel itself takes bf16 only.
+
+        With probe=True only eligibility + static meta are computed."""
+        cfg = self.cfg
+        if cfg.head_dim % 2:
+            return None
+        if "model.layers.0.self_attn.q_proj.weight" not in state:
+            return None     # non-standard state (e.g. int8, not ported)
+        from paddle_tpu_torch.ops import fused_decode as fd
+        from paddle_tpu_torch.ops.rms_norm import rms_norm
+        hd = cfg.head_dim
+        dq = cfg.num_heads * hd
+        blocks = fd.decode_block_plan(
+            cfg.hidden_size, dq + 2 * cfg.kv_heads * hd, dq, hd,
+            cfg.intermediate_size)
+        meta = {
+            "num_heads": cfg.num_heads, "num_kv_heads": cfg.kv_heads,
+            "head_dim": hd, "eps": cfg.rms_norm_eps,
+            "rope_base": cfg.rope_base, "blocks": blocks,
+        }
+        if probe:
+            return meta
+        params = fd.build_fused_params(state, cfg.num_layers,
+                                       ffn_pad=blocks["ffn_pad"])
+        embed_w = state["model.embed_tokens.weight"]
+        norm_w = state["model.norm.weight"]
+        head_w = state["lm_head.weight"]
+
+        def embed(tok, pos):                  # (b,), scalar -> (b, h)
+            del pos                           # rope positions, not learned
+            return embed_w[tok]
+
+        def head(x):                          # (b, h) -> (b, vocab)
+            return torch.matmul(rms_norm(x, norm_w, cfg.rms_norm_eps),
+                                head_w)
+
+        return dict(meta, params=params, embed=embed, head=head)

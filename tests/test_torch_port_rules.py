@@ -1,0 +1,145 @@
+"""Rules of the PyTorch port, and its checks that need a GPU.
+
+* No file of paddle_tpu_torch/, and not chip_smoke.py, imports jax or
+  paddle_tpu (AST scan).
+* Kernel launch counters stay 0 when the entry points run on CPU tensors.
+* An entry point called with no device on a machine without CUDA raises
+  instead of running on the CPU.
+* The kernels against their plain versions on the card (marked `cuda`;
+  skipped where torch.cuda.is_available() is False). Run them on a GPU
+  machine with ``python -m pytest -m cuda tests/test_torch_port_rules.py``.
+"""
+
+import ast
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_paddle_tpu(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_covers_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "paddle_tpu_torch/ops/flash_attention.py" in names
+    assert "paddle_tpu_torch/inference/__init__.py" in names
+    assert len(names) >= 20
+
+
+def test_counters_stay_zero_on_cpu():
+    from paddle_tpu_torch.inference import generate
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_decode as fd
+    fa.flash_attention_fwd.launches = 0
+    fd.fused_decode_cuda.launches = 0
+    m = LlamaForCausalLM(LlamaConfig.tiny(), dtype=torch.bfloat16,
+                         device="cpu", seed=0)
+    ids = np.random.RandomState(0).randint(0, 256, (2, 5))
+    out = generate(m, ids, max_new_tokens=4, temperature=0.7, top_k=10)
+    assert tuple(out.shape) == (2, 9)
+    assert fa.flash_attention_fwd.launches == 0
+    assert fd.fused_decode_cuda.launches == 0
+
+
+def test_default_device_raises_without_cuda():
+    from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cuda_wrappers_check_inputs():
+    """The kernel wrappers refuse what the kernels do not take before any
+    launch (these checks run without a GPU)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q, q)          # not a CUDA tensor
+
+
+# ---- on the card --------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,sq,sk,d,q_off,kv_len", [
+    (8, 8, 200, 260, 128, 60, 250), (8, 2, 1, 300, 64, 299, 300),
+    (4, 4, 130, 130, 128, None, 130)])
+def test_flash_kernel_matches_plain(cuda, h, nkv, sq, sk, d, q_off, kv_len):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v = mk(2, sq, h, d), mk(2, sk, nkv, d), mk(2, sk, nkv, d)
+    kl = torch.tensor([kv_len, 0], dtype=torch.int32, device=cuda)
+    out, lse = fa.flash_attention_fwd(q, k, v, is_causal=True,
+                                      causal_offset=q_off, kv_lens=kl)
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, is_causal=True,
+                                                causal_offset=q_off,
+                                                kv_lens=kl)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-3, rtol=0)
+    assert bool((out[1] == 0).all())              # kv_len 0: fully masked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nkv", [4, 1])
+def test_fused_decode_kernel_matches_plain(cuda, nkv):
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, S, nh, hd, h, ffn, pos = 2, 3, 256, 4, 128, 512, 1024, 150
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mk = lambda *s, sc=0.05: (torch.randn(*s, generator=g, device=cuda)
+                              * sc).bfloat16()
+    dq, dkv = nh * hd, nkv * hd
+    p = {"ln1": 1 + mk(L, h, sc=0.1), "wqkv": mk(L, h, dq + 2 * dkv),
+         "wo": mk(L, dq, h), "ln2": 1 + mk(L, h, sc=0.1),
+         "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
+    x = mk(b, h, sc=1.0)
+    kv = mk(L, b, S, 2 * dkv, sc=1.0)
+    kv[:, :, pos:] = 0
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xk, kvk = fd.fused_decode_cuda(x, p, kv.clone(), pos, cos[pos:pos + 1],
+                                   sin[pos:pos + 1], **kw)
+    xr, kvr = fd.fused_decode_reference(x, p, kv.clone(), pos,
+                                        cos[pos:pos + 1], sin[pos:pos + 1],
+                                        **kw)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    assert math.isfinite(float(xk.float().abs().max()))
