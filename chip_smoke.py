@@ -11,31 +11,49 @@ Phases, each printing one JSON line:
   4. k2     — fused decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, MHA and GQA (nkv=8): x_out and the
               appended cache row.
-  5. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
+  5. k3     — flash-attention backward kernels (K3 dq, K4 dk/dv) through
+              the autograd Function vs the plain fp32 backward on the same
+              forward's (out, lse): the GPT-2 training shape, a GQA d=128
+              shape, a ragged causal shape, a non-causal one and one with a
+              fully-masked batch row.
+  6. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
               run; time to first token (generate with one new token) and
               decode ms/step (the rest of the greedy run per step); one
               teacher-forced decode step through the kernel and the plain
               path, logits compared.
-  6. timing — per-kernel times at the main-path shapes beside the bound,
-              the plain version and (flash attention) PyTorch's sdpa.
+  7. timing — K1 (prefill shape) and K2 times beside the bound, the plain
+              version and (flash attention) PyTorch's sdpa.
+  8. train  — GPT-2 345M (24 layers, bf16, random weights from seed 0)
+              pretraining through the bench twin's step
+              (paddle_tpu_torch.bench): B=8, S=1024, AdamW 1e-4, a warm-up
+              pass and a counted, timed pass of 20 steps each; K1, K3 and
+              K4 must each launch 24 × 20 times in the counted pass, the
+              loss must stay finite and fall.
+  9. step   — one train step of a 2-layer GPT at full width (hidden 1024,
+              16 heads, vocab 50304, B=1, S=1024): on the card in bf16
+              through the kernels, against the same weights on the CPU in
+              fp32 through the plain versions; loss and every gradient.
+ 10. timing_train — K1, K3 and K4 at the training shape beside the bound,
+              the plain version and PyTorch's sdpa (forward; backward for
+              the K3/K4 pair).
 
-Every failure propagates and exits non-zero. The line before the last is
-the kernel table ({"kernels": [...]}); the last line is
-{"ok": true, "device": {...}}. Imports nothing of jax or paddle_tpu.
+--quick stops after phase 5. Every failure propagates and exits non-zero.
+The line before the last is the kernel table ({"kernels": [...]}); the
+last line is {"ok": true, "device": {...}}. Imports nothing of jax or
+paddle_tpu.
 """
 
+import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
 
 import torch
-
-# (bytes/s, bf16 dense FLOP/s) by card, from NVIDIA's data sheets
-_PEAKS = (("H100 PCIe", 2.0e12, 756e12), ("H100 NVL", 3.9e12, 835e12),
-          ("H200", 4.8e12, 989e12), ("H100", 3.35e12, 989e12))
 
 # Tolerances. bf16 keeps 8 significant bits: where kernel and plain version
 # round nearly equal fp32 values on either side of a boundary they differ by
@@ -47,6 +65,20 @@ K1_TOL_OUT = 3e-2   # |out| <= max|v| ~ 4: bf16 P in P·V + bf16 output
 K1_TOL_LSE = 2e-3   # fp32 log-sum-exp; __expf approximation
 K2_ATOL, K2_RTOL = 5e-2, 2.0 ** -7   # x_out and appended row, 2 layers
 E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
+# K3/K4: each gradient within K3_TOL · max|plain|. The kernels round P and
+# dS to bf16 before their products (2^-9 relative each, signs at random)
+# and their outputs to bf16 (2^-9); sums are fp32 and Δ is fp32, so the
+# error stays a few 2^-9 of the largest entry. 2^-6 = 8 · 2^-9 leaves room
+# for __expf and sums over 1024 keys; a wrong fragment or mask gives O(1).
+K3_TOL = 2.0 ** -6
+# Whole step, bf16 on the card vs fp32 on the CPU from the same (bf16)
+# weights: every activation, logit and gradient of the card rounds to bf16
+# (2^-9 relative) at each layer. The loss (≈ ln 50304 = 10.8) is a mean
+# over 1024 tokens, so that noise averages down to ~1e-3; each gradient's
+# relative error ‖g − g_ref‖/‖g_ref‖ sums a few such roundings per layer,
+# ~1e-2 over 2 layers. A broken backward gives O(1).
+STEP_LOSS_ATOL = 2e-2
+STEP_GRAD_RTOL = 5e-2
 
 
 def close(a, ref, atol, rtol):
@@ -61,17 +93,14 @@ def emit(obj):
 
 
 def card():
+    from paddle_tpu_torch.bench import peak_rates
     name_line = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(name_line, flush=True)
     kind = torch.cuda.get_device_name(0)
-    for key, bw, flops in _PEAKS:
-        if key in kind or key in name_line:
-            break
-    else:
-        raise RuntimeError(f"no peak rates known for {kind!r}")
+    bw, flops = peak_rates(kind)
     emit({"phase": "card", "nvidia_smi": name_line, "kind": kind,
           "count": torch.cuda.device_count(), "bytes_per_s": bw,
           "bf16_flops": flops})
@@ -187,6 +216,57 @@ def phase_k2(fd, rope, gen):
     return max(c["max_abs_err"] for c in cases)
 
 
+# ---- K3 / K4 ------------------------------------------------------------------
+
+def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None):
+    q = rand((b, sq, h, d), gen)
+    k = rand((b, sk, nkv, d), gen)
+    v = rand((b, sk, nkv, d), gen)
+    do = rand((b, sq, h, d), gen)
+    kl = None if kv_lens is None else torch.tensor(kv_lens, dtype=torch.int32,
+                                                   device="cuda")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, is_causal=causal,
+                                          kv_lens=kl)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                       is_causal=causal, kv_lens=kl)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                        kv_lens=kl)
+    o.backward(do)
+    torch.cuda.synchronize()
+    res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
+           "causal": causal, "kv_lens": kv_lens, "tol_of_max_ref": K3_TOL,
+           "ok": True}
+    for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
+        g = t.grad.float()
+        err = (g - r).abs().max().item()
+        tol = K3_TOL * r.abs().max().item()
+        res[name] = {"max_abs_err": err, "tol": tol,
+                     "max_abs_ref": r.abs().max().item()}
+        res["ok"] &= bool(err <= tol and torch.isfinite(g).all())
+        if kv_lens is not None and 0 in kv_lens:
+            res["ok"] &= not bool(t.grad[kv_lens.index(0)].any())
+    return res
+
+
+def phase_k3(fa, gen):
+    cases = [
+        k3_case(fa, gen, 8, 16, 16, 1024, 1024, 64, True),     # training
+        k3_case(fa, gen, 2, 32, 8, 1024, 1024, 128, True),     # GQA d=128
+        k3_case(fa, gen, 2, 8, 8, 1000, 1000, 64, True),       # ragged
+        k3_case(fa, gen, 2, 8, 2, 512, 700, 128, False),       # non-causal
+        k3_case(fa, gen, 2, 8, 2, 384, 384, 64, True, [300, 0]),  # masked row
+    ]
+    emit({"phase": "k3", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K3/K4 disagree with the plain backward: {bad}")
+    return (max(c["dq"]["max_abs_err"] for c in cases),
+            max(max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
+                for c in cases))
+
+
 # ---- end to end ---------------------------------------------------------------
 
 B, PROMPT, NEW = 4, 1024, 64
@@ -194,7 +274,16 @@ B, PROMPT, NEW = 4, 1024, 64
 
 def reset_counts(fa, fd):
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
     fd.fused_decode_cuda.launches = 0
+
+
+def counts(fa, fd):
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+            "fused_decode_step": fd.fused_decode_cuda.launches}
 
 
 def phase_e2e(fa, fd):
@@ -222,18 +311,18 @@ def phase_e2e(fa, fd):
         out = generate(model, ids, max_new_tokens=NEW, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                  "fused_decode_step": fd.fused_decode_cuda.launches}
+        got = counts(fa, fd)
         new = out[:, PROMPT:]
-        if counts["flash_attention_fwd"] != cfg.num_layers \
-                or counts["fused_decode_step"] != NEW - 1:
-            raise AssertionError(f"{name}: launch counts {counts}, expected "
+        if got != {"flash_attention_fwd": cfg.num_layers,
+                   "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                   "fused_decode_step": NEW - 1}:
+            raise AssertionError(f"{name}: launch counts {got}, expected "
                                  f"{cfg.num_layers} and {NEW - 1}")
         if tuple(out.shape) != (B, PROMPT + NEW) \
                 or not torch.equal(out[:, :PROMPT], ids) \
                 or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
             raise AssertionError(f"{name}: bad tokens {tuple(out.shape)}")
-        runs[name] = {"wall_s": wall, "launches": counts,
+        runs[name] = {"wall_s": wall, "launches": got,
                       "first_tokens": new[:, :8].tolist()}
     reset_counts(fa, fd)
 
@@ -370,6 +459,175 @@ def phase_timing(fa, fd, model, plan, kv, bw, flops, launches, k1_err, k2_err):
     return kernels
 
 
+# ---- training -----------------------------------------------------------------
+
+def phase_train(fa, fd, flops):
+    from paddle_tpu_torch import bench
+    cfg, b, s, steps = bench.config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, x, y = bench.build(cfg, b, s, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.num_params()
+    t0 = time.perf_counter()
+    warm = bench.run_steps(model, opt, x, y, steps).tolist()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts(fa, fd)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    timed = bench.run_steps(model, opt, x, y, steps)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(fa, fd)
+    reset_counts(fa, fd)
+    dev_s = e0.elapsed_time(e1) / 1e3
+    losses = warm + timed.tolist()
+    tok_s = b * s * steps / dev_s
+    fpt = bench.flops_per_token(cfg, n_params, s)
+    want = cfg.num_layers * steps
+    res = {"phase": "train", "model": "gpt2_medium", "layers": cfg.num_layers,
+           "dtype": "bfloat16", "params": n_params, "batch": b, "seq": s,
+           "steps": steps, "init_s": init_s, "warmup_pass_s": warm_s,
+           "step_ms": 1e3 * dev_s / steps, "wall_step_ms": 1e3 * wall / steps,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu": tok_s * fpt / flops, "mfu_basis": "dense_6n",
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses_timed_pass": losses[steps:], "launches": got,
+           "launches_expected": want}
+    emit(res)
+    if got != {"flash_attention_fwd": want, "flash_attention_bwd_dq": want,
+               "flash_attention_bwd_dkv": want, "fused_decode_step": 0}:
+        raise AssertionError(f"train: launch counts {got}, expected {want} "
+                             "each of K1, K3, K4")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss not finite or not falling: "
+                             f"{losses}")
+    return got
+
+
+def phase_step(fa, fd):
+    """One train step of a 2-layer full-width GPT: card (bf16, kernels) vs
+    CPU (fp32, plain versions), from the same weights."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import GPTPretrainModel
+    cfg = dataclasses.replace(bench.config()[0], num_layers=2)
+    model, _, x, y = bench.build(cfg, 1, 1024, "cuda")
+    ref = GPTPretrainModel(cfg, dtype=torch.float32, device="cpu", seed=1)
+    ref.set_state_dict({k: t.float().cpu() for k, t in
+                        model.state_dict(include_buffers=False).items()})
+    reset_counts(fa, fd)
+    loss = model.loss(model(x), y)
+    loss.backward()
+    torch.cuda.synchronize()
+    got = counts(fa, fd)
+    loss_ref = ref.loss(ref(x.cpu()), y.cpu())
+    loss_ref.backward()
+    if counts(fa, fd) != got:
+        raise AssertionError("the CPU reference step launched a kernel")
+    rel = {}
+    for (name, p), rp in zip(model.named_parameters(), ref.parameters()):
+        rel[name] = ((p.grad.float().cpu() - rp.grad).norm()
+                     / rp.grad.norm()).item()
+    worst = max(rel, key=rel.get)
+    loss_err = abs(loss.item() - loss_ref.item())
+    res = {"phase": "step", "layers": 2, "hidden": cfg.hidden_size,
+           "heads": cfg.num_heads, "vocab": cfg.vocab_size, "batch": 1,
+           "seq": 1024, "loss": loss.item(), "loss_ref_fp32_cpu":
+           loss_ref.item(), "loss_abs_err": loss_err,
+           "loss_atol": STEP_LOSS_ATOL, "grad_rel_err_max": rel[worst],
+           "grad_rel_err_worst_param": worst,
+           "grad_rel_err_by_param": rel, "grad_rel_tol": STEP_GRAD_RTOL,
+           "launches": got}
+    emit(res)
+    if got["flash_attention_fwd"] != 2 or got["flash_attention_bwd_dq"] != 2 \
+            or got["flash_attention_bwd_dkv"] != 2:
+        raise AssertionError(f"step: launch counts {got}, expected 2 each")
+    if not (loss_err <= STEP_LOSS_ATOL and rel[worst] <= STEP_GRAD_RTOL):
+        raise AssertionError(f"step: loss off by {loss_err}, or {worst} "
+                             f"gradient off by {rel[worst]} (relative)")
+
+
+def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
+    """K1, K3 and K4 at the GPT-2 345M training shape."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    b, h, s, d = 8, 16, 1024, 64
+    q, k, v, do = (rand((b, s, h, d), gen) for _ in range(4))
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, is_causal=True)
+    delta_fn = lambda: (do.float() * out.float()).sum(-1).transpose(
+        1, 2).contiguous()
+    delta = delta_fn()
+    f1 = lambda: fa.flash_attention_fwd(q, k, v, is_causal=True)
+    f3 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                           is_causal=True)
+    f4 = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                            is_causal=True)
+    ms1, ms3, ms4 = (time_ms(f, iters=20) for f in (f1, f3, f4))
+    delta_ms = time_ms(delta_fn, iters=20)
+    plain1 = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, is_causal=True), iters=3, warmup=1)
+    plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, is_causal=True), iters=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    with torch.no_grad():
+        lib1 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=20)
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=20)
+    lib_fb = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), iters=20)
+    lib_bwd = lib_fb - lib_fwd
+    pairs = b * h * s * (s + 1) // 2
+    row = b * h * s * 4                      # one fp32 (b, h, s) tensor
+    t_bf = b * s * h * d * 2                 # one bf16 (b, s, h, d) tensor
+    work = {"k1": (4 * t_bf + row, 4 * d * pairs),
+            "k3": (5 * t_bf + 2 * row, 6 * d * pairs),
+            "k4": (6 * t_bf + 2 * row, 8 * d * pairs)}
+    bound = {}
+    for key, (nbytes, nflops) in work.items():
+        tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
+        bound[key] = (max(tb, to), "bytes" if tb >= to else "operations")
+    k1 = kernels[0]
+    k1["at_train_shape"] = {
+        "shape_b_s_h_d": [b, s, h, d], "causal": True, "ms": ms1,
+        "plain_ms": plain1, "bound_ms": bound["k1"][0],
+        "bound_by": bound["k1"][1], "library_ms": lib1}
+    k1["launches_by_path"] = {"generate": k1["launches"],
+                              "train": train_launches["flash_attention_fwd"]}
+    kernels[1]["launches_by_path"] = {
+        "generate": kernels[1]["launches"],
+        "train": train_launches["fused_decode_step"]}
+    pair = {"plain_ms_covers": "flash_attention_bwd_plain: dq, dk and dv",
+            "library_ms_covers": "backward of torch sdpa (its fwd+bwd less "
+                                 "its fwd): dq, dk and dv"}
+    for name, line, ms, key, err in (
+            ("flash_attention_bwd_dq", 668, ms3, "k3", k3_errs[0]),
+            ("flash_attention_bwd_dkv", 787, ms4, "k4", k3_errs[1])):
+        kernels.append(dict({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_bwd, "bound_ms": bound[key][0],
+            "bound_by": bound[key][1], "library_ms": lib_bwd,
+            "launches_by_path": {"generate": 0, "train": train_launches[name]},
+            "shape_b_s_h_d": [b, s, h, d], "causal": True}, **pair))
+    emit({"phase": "timing_train", "shape_b_s_h_d": [b, s, h, d],
+          "causal": True, "visible_pairs": pairs, "delta_ms": delta_ms,
+          "sdpa_fwd_ms_with_grad": lib_fwd, "sdpa_fwd_bwd_ms": lib_fb,
+          "work_bytes_flops": work, "kernels": kernels[:1] + kernels[2:]})
+    return kernels
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -392,12 +650,19 @@ def main(argv):
     gen.manual_seed(0)
     k1_err = phase_k1(fa, gen)
     k2_err = phase_k2(fd, rope, gen)
+    k3_errs = phase_k3(fa, gen)
     if quick:
         return 0
     model, plan, kv, _, launches = phase_e2e(fa, fd)
     with torch.inference_mode():   # kv is an inference tensor
         kernels = phase_timing(fa, fd, model, plan, kv, bw, flops, launches,
                                k1_err, k2_err)
+    del model, plan, kv
+    gc.collect()
+    train_launches = phase_train(fa, fd, flops)
+    phase_step(fa, fd)
+    kernels = phase_timing_train(fa, bw, flops, kernels, train_launches,
+                                 k3_errs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,12 @@ module by module with PyTorch around hand-written Hopper kernels
 (``csrc/*.cu``, built with nvcc at first use — see ``ops/_build.py``). It
 imports neither jax nor paddle_tpu.
 
-This slice serves Llama through ``inference.generate``: prefill through the
-flash-attention forward kernel, decode through the fused decode-step kernel.
+It serves Llama through ``inference.generate`` (prefill through the
+flash-attention forward kernel, decode through the fused decode-step
+kernel) and pretrains GPT-2 (``models.GPTPretrainModel`` +
+``optimizer.AdamW``, driven by ``python -m paddle_tpu_torch.bench``) with
+attention differentiated through the flash-attention forward and backward
+kernels.
 Entry points run on ``cuda`` unless a CPU device (or CPU tensors) is given;
 on a CPU tensor each kernel wrapper runs its plain PyTorch version.
 """
@@ -25,4 +29,4 @@ from paddle_tpu_torch.core.dtype import (  # noqa: F401
 )
 from paddle_tpu_torch.core.flags import get_flags, set_flags  # noqa: F401
 from paddle_tpu_torch.core.rng import seed  # noqa: F401
-from paddle_tpu_torch import inference, models, nn, ops  # noqa: F401
+from paddle_tpu_torch import inference, models, nn, ops, optimizer  # noqa: F401

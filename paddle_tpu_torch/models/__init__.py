@@ -1,3 +1,7 @@
+from paddle_tpu_torch.models.gpt import (  # noqa: F401
+    GPTConfig,
+    GPTPretrainModel,
+)
 from paddle_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     LlamaForCausalLM,

@@ -1,7 +1,14 @@
-"""Module system (the subset of ``paddle_tpu.nn`` the Llama serving path uses)."""
+"""Module system (the subset of ``paddle_tpu.nn`` that Llama serving and GPT
+pretraining use)."""
 
 from torch.nn import ModuleList as LayerList  # noqa: F401
 
 from paddle_tpu_torch.nn import functional, initializer  # noqa: F401
 from paddle_tpu_torch.nn.layer import Layer  # noqa: F401
-from paddle_tpu_torch.nn.layers import Embedding, Linear, RMSNorm  # noqa: F401
+from paddle_tpu_torch.nn.layers import (  # noqa: F401
+    Dropout,
+    Embedding,
+    LayerNorm,
+    Linear,
+    RMSNorm,
+)

@@ -1,10 +1,21 @@
-"""Functional ops — the subset of ``paddle_tpu/nn/functional.py`` Llama calls."""
+"""Functional ops — the subset of ``paddle_tpu/nn/functional.py`` that Llama
+serving and GPT pretraining call."""
 
 import torch
+
+# rows of logits per pass of cross_entropy: its fp32 intermediates stay at
+# _CE_ROWS × vocab (≈ 200 MB at 50304) instead of the whole (tokens, vocab)
+_CE_ROWS = 1024
 
 
 def silu(x):
     return torch.nn.functional.silu(x)
+
+
+def gelu(x, approximate=False):
+    """GELU; ``approximate=True`` is the tanh form (jax.nn.gelu's)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
 
 
 def linear(x, weight, bias=None):
@@ -19,9 +30,92 @@ def embedding(ids, weight):
     return weight[ids]
 
 
+def dropout(x, p=0.5, training=True):
+    """Identity when ``p == 0`` or not training. Random dropout needs the
+    named RNG streams, which are not ported yet, so p > 0 in training
+    raises."""
+    if not training or p == 0.0:
+        return x
+    raise NotImplementedError(
+        "dropout with p > 0 in training needs the named RNG streams, not "
+        "ported yet (ROADMAP Queue A item 1); set the dropout probability "
+        "to 0 or call eval()")
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """The reference's rounding: normalise in fp32 (fp64 stays fp64), cast
+    to x's dtype, then ``* weight + bias`` in that dtype."""
+    n = 1 if isinstance(normalized_shape, int) else len(tuple(normalized_shape))
+    dims = tuple(range(x.dim() - n, x.dim()))
+    xc = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xc.mean(dims, keepdim=True)
+    var = xc.var(dims, correction=0, keepdim=True)
+    y = ((xc - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        y = y * weight
+    if bias is not None:
+        y = y + bias
+    return y
+
+
 def rms_norm(x, weight=None, epsilon=1e-6):
     from paddle_tpu_torch.ops import rms_norm as _rms
     return _rms.rms_norm(x, weight, epsilon)
+
+
+class _TokenNLL(torch.autograd.Function):
+    """Mean −log softmax(logits)[label] over the tokens whose label is not
+    ``ignore_index`` (port of ``_token_nll`` + ``cross_entropy``'s mean).
+
+    Like the reference it keeps as residuals the logits in their own dtype
+    and an fp32 lse per token, and its backward emits (softmax − onehot)·g
+    in the logits dtype; the fp32 work runs over _CE_ROWS rows at a time."""
+
+    @staticmethod
+    def forward(ctx, logits, label, ignore_index):
+        n = logits.shape[0]
+        cdt = torch.promote_types(logits.dtype, torch.float32)
+        valid = label != ignore_index
+        lab = torch.where(valid, label, torch.zeros_like(label))
+        lse = torch.empty(n, dtype=cdt, device=logits.device)
+        picked = torch.empty(n, dtype=cdt, device=logits.device)
+        for i in range(0, n, _CE_ROWS):
+            z = logits[i:i + _CE_ROWS].to(cdt)
+            lse[i:i + _CE_ROWS] = torch.logsumexp(z, dim=-1)
+            picked[i:i + _CE_ROWS] = z.gather(
+                1, lab[i:i + _CE_ROWS, None])[:, 0]
+        count = valid.sum().clamp_min(1)
+        loss = torch.where(valid, lse - picked,
+                           torch.zeros((), dtype=cdt, device=logits.device))
+        ctx.save_for_backward(logits, lab, valid, lse, count)
+        return loss.sum() / count
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lab, valid, lse, count = ctx.saved_tensors
+        cdt = lse.dtype
+        g_tok = valid.to(cdt) * (g.to(cdt) / count)
+        dz = torch.empty_like(logits)
+        for i in range(0, logits.shape[0], _CE_ROWS):
+            p = torch.exp(logits[i:i + _CE_ROWS].to(cdt)
+                          - lse[i:i + _CE_ROWS, None])
+            p.scatter_add_(1, lab[i:i + _CE_ROWS, None],
+                           -valid[i:i + _CE_ROWS, None].to(cdt))
+            dz[i:i + _CE_ROWS] = p * g_tok[i:i + _CE_ROWS, None]
+        return dz, None, None
+
+
+def cross_entropy(logits, label, reduction="mean", ignore_index=-100):
+    """Hard-label cross entropy over the last axis of (tokens, classes)
+    logits, mean over the tokens whose label is not ``ignore_index``. Soft
+    labels, label smoothing and the other reductions are not ported yet
+    (ROADMAP Queue A item 2)."""
+    if reduction != "mean" or logits.dim() != 2 or label.dim() != 1:
+        raise NotImplementedError(
+            "cross_entropy: only reduction='mean' over (tokens, classes) "
+            "logits with (tokens,) hard labels is ported (ROADMAP Queue A "
+            "item 2)")
+    return _TokenNLL.apply(logits, label.long(), ignore_index)
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -29,8 +123,9 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  kv_lens=None, causal_offset=None):
     """q/k/v: (batch, seq, heads, head_dim) — the reference's layout.
 
-    On CUDA tensors this runs the hand-written flash-attention kernel; on
-    CPU tensors the plain version (see ``ops.flash_attention``)."""
+    On CUDA tensors this runs the hand-written flash-attention kernels
+    (forward, and the backward ones when a gradient is needed); on CPU
+    tensors the plain versions (see ``ops.flash_attention``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     return fa.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,

@@ -1,6 +1,7 @@
 """Layer — a minimal ``paddle.nn.Layer`` on ``torch.nn.Module``.
 
-Port of ``paddle_tpu/nn/layer.py``, reduced to what the serving slice uses.
+Port of ``paddle_tpu/nn/layer.py``, reduced to what serving and pretraining
+use.
 Parameter names come from torch's attribute registration, so a model built
 with the same attribute names as the JAX package has the same state keys
 (``model.layers.0.self_attn.q_proj.weight``); ``state_dict`` and
@@ -27,6 +28,14 @@ class Layer(torch.nn.Module):
             out.update({n: b for n, b in self.named_buffers()
                         if b is not None})
         return out
+
+    def trainable_state(self) -> Dict[str, torch.Tensor]:
+        """{qualified_name: parameter} of the parameters that require grad
+        (the tensors themselves, which an optimizer updates in place)."""
+        return {n: p for n, p in self.named_parameters() if p.requires_grad}
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
 
     def set_state_dict(self, state: Dict, strict: bool = True):
         """Copy `state` (torch tensors or numpy arrays, JAX key names) into

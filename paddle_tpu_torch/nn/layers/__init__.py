@@ -1,2 +1,2 @@
-from paddle_tpu_torch.nn.layers.common import Embedding, Linear  # noqa: F401
-from paddle_tpu_torch.nn.layers.norm import RMSNorm  # noqa: F401
+from paddle_tpu_torch.nn.layers.common import Dropout, Embedding, Linear  # noqa: F401
+from paddle_tpu_torch.nn.layers.norm import LayerNorm, RMSNorm  # noqa: F401

@@ -1,4 +1,4 @@
-"""Linear and Embedding (port of ``paddle_tpu/nn/layers/common.py``)."""
+"""Linear, Embedding and Dropout (port of ``paddle_tpu/nn/layers/common.py``)."""
 
 import torch
 
@@ -54,3 +54,15 @@ class Embedding(Layer):
 
     def forward(self, x):
         return F.embedding(x, self.weight)
+
+
+class Dropout(Layer):
+    """``F.dropout`` with the layer's training flag (identity at p = 0 or
+    in eval mode; p > 0 in training raises until the RNG streams land)."""
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training)

@@ -1,4 +1,4 @@
-"""Attention: the dispatch, the plain version, and the flash-attention kernel.
+"""Attention: the dispatch, the plain versions, and the flash-attention kernels.
 
 Port of ``paddle_tpu/ops/flash_attention.py``. Layout (batch, seq, heads,
 head_dim); GQA when k/v carry fewer heads than q.
@@ -7,13 +7,23 @@ head_dim); GQA when k/v carry fewer heads than q.
   name): dense fp32 scores, structured and dense masks, fully-masked rows
   emit 0 where the reference zeroes them.
 * ``flash_attention_fwd`` — the wrapper of the hand-written CUDA kernel
-  ``csrc/flash_attention.cu`` (replaces the TPU kernel ``_fwd_kernels``,
+  ``csrc/flash_attention.cu`` (K1, replaces the TPU kernel ``_fwd_kernels``,
   ``paddle_tpu/ops/flash_attention.py:526``), and ``flash_attention_fwd_plain``,
   its plain twin in fp32 with the same (out, lse) contract.
-* ``scaled_dot_product_attention`` — the dispatch: CPU tensors take the plain
-  version, CUDA tensors the kernel. There is no shape gate (the reference's
+* ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` — the wrappers of
+  ``csrc/flash_attention_bwd.cu`` (K3 and K4, replace ``_bwd_dq_kernel``
+  :668 and ``_bwd_dkv_kernel`` :787); ``flash_attention_bwd`` computes
+  Δ = rowsum(dO∘O) and runs both; ``flash_attention_bwd_plain`` is their
+  plain twin in fp32.
+* ``FlashAttention`` — the ``torch.autograd.Function`` over K1 and K3/K4
+  (the reference's ``_flash_vjp_entry`` custom_vjp, :1019-1125).
+* ``scaled_dot_product_attention`` — the dispatch. When a gradient is
+  needed (grad mode on and q, k or v requires grad) the call goes through
+  ``FlashAttention``: on CUDA tensors K1 + K3 + K4, on CPU tensors the
+  plain forward and backward. Otherwise CPU tensors take ``_xla_attention``
+  and CUDA tensors K1 alone. There is no shape gate (the reference's
   ``_pallas_seq_ok`` is a TPU heuristic): every CUDA call, sq=1 included,
-  goes to the kernel, and what the kernel does not take raises.
+  goes to the kernels, and what they do not take raises.
 
 ``causal_offset`` is a port-side extension: with ``is_causal`` it sets the
 causal limit to ``k_pos <= causal_offset + i`` instead of the bottom-right
@@ -122,6 +132,41 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
+                              scale=None, kv_lens=None, causal_offset=None):
+    """Plain twin of the backward kernels: (dq, dk, dv) in fp32 from the
+    forward's (out, lse), with the kernels' contract: P = exp(S·scale − lse)
+    on visible keys and 0 on a row whose lse is NEG_INF, Δ = rowsum(dO∘O),
+    dS = P∘(dP − Δ), dq = scale·dS·K, dk = scale·dSᵀ·Q, dv = Pᵀ·dO, and the
+    GQA groups summed into their kv head."""
+    b, sq, h, d = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    n_rep = h // nkv
+    kf = _repeat_kv(k, n_rep).float()
+    vf = _repeat_kv(v, n_rep).float()
+    qf, of = q.float(), dout.float()
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    lse = lse.float()[..., None]
+    p = torch.exp(s - lse)
+    keep = (lse > NEG_INF * 0.5).expand_as(p)
+    mask = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
+                            q.device)
+    if mask is not None:
+        keep = keep & mask
+    p = torch.where(keep, p, torch.zeros((), device=q.device))
+    delta = (of * out.float()).sum(-1).transpose(1, 2)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", of, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, of)
+    if n_rep != 1:
+        dk = dk.reshape(b, sk, nkv, n_rep, d).sum(3)
+        dv = dv.reshape(b, sk, nkv, n_rep, d).sum(3)
+    return dq, dk, dv
+
+
 def _kv_lens_arg(kv_lens, b, device):
     if kv_lens is None:
         return None
@@ -133,42 +178,72 @@ def _kv_lens_arg(kv_lens, b, device):
     return kl.to(torch.int32).contiguous()
 
 
+def _check_kernel_inputs(what, q, k, v, *more):
+    """Raise on what the CUDA kernels do not take: q/k/v and the bf16
+    tensors in `more` on q's CUDA device, bf16, contiguous, head_dim 64 or
+    128, kv heads dividing the heads. Returns (b, sq, sk, h, nkv, d)."""
+    b, sq, h, d = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)) + more:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{what}: {name} on {t.device}, expected "
+                             f"{q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: {name} is {t.dtype}; the kernel takes "
+                            "bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} not contiguous")
+    if d not in (64, 128) or k.shape != (b, sk, nkv, d) or v.shape != k.shape:
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (head_dim 64 "
+                         "or 128)")
+    if nkv == 0 or h % nkv:
+        raise ValueError(f"{what}: {h} heads not a multiple of {nkv} kv "
+                         "heads")
+    if sq == 0 or b == 0:
+        raise ValueError(f"{what}: empty q")
+    return b, sq, sk, h, nkv, d
+
+
+def _check_rows(what, b, h, sq, q, **rows):
+    """lse / delta: fp32 (b, h, sq), contiguous, on q's device."""
+    for name, t in rows.items():
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (b, h, sq) or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be contiguous float32 "
+                             f"{(b, h, sq)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _refuse_grad(what, *ts):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{what}: inputs require grad, and the raw kernel output would be "
+            "cut from the autograd graph; call scaled_dot_product_attention "
+            "(which differentiates through FlashAttention) or run under "
+            "torch.no_grad()")
+
+
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                         causal_offset=None):
     """Flash-attention forward: (out, lse) as flash_attention_fwd_plain.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64 or
     128, contiguous); anything else on CUDA raises. CPU tensors take the
-    plain twin."""
+    plain twin. Inputs that require grad, with grad mode on, raise: the
+    output of a raw kernel carries no gradient."""
+    _refuse_grad("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, is_causal, scale, kv_lens,
                                          causal_offset)
-    b, sq, h, d = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention_fwd: {name} on {t.device}, "
-                             f"expected {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention_fwd: {name} is {t.dtype}; the "
-                            "kernel takes bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} not contiguous")
-    if d not in (64, 128) or k.shape != (b, sk, nkv, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: unsupported shapes q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)} (head_dim 64 or 128)")
-    if nkv == 0 or h % nkv:
-        raise ValueError(f"flash_attention_fwd: {h} heads not a multiple of "
-                         f"{nkv} kv heads")
-    if sq == 0 or b == 0:
-        raise ValueError("flash_attention_fwd: empty q")
+    b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
+                                                q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib()
+    lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 8)
     err = lib.flash_attention_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _build.ptr(kl) if kl is not None else None,
@@ -182,14 +257,122 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
 flash_attention_fwd.launches = 0
 
 
-def _kernel_lib():
-    lib = _build.library("flash_attention")
-    fn = lib.flash_attention_fwd
+def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
+              causal_offset):
+    b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
+                                                ("dout", dout))
+    if dout.shape != q.shape:
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} is not q's "
+                         f"shape {tuple(q.shape)}")
+    _check_rows(what, b, h, sq, q, lse=lse, delta=delta)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q_off = (sk - sq) if causal_offset is None else int(causal_offset)
+    kl = _kv_lens_arg(kv_lens, b, q.device)
+    head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta)]
+    tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off, float(scale),
+            _build.stream_of(q)]
+    return head, _build.ptr(kl) if kl is not None else None, tail
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
+                           scale=None, kv_lens=None, causal_offset=None):
+    """dq (bf16, q's shape) by the K3 kernel of ``csrc/flash_attention_bwd.cu``
+    from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq).
+    CUDA tensors only (the CPU path is ``flash_attention_bwd_plain``)."""
+    head, kl, tail = _bwd_args("flash_attention_bwd_dq", q, k, v, dout, lse,
+                               delta, is_causal, scale, kv_lens,
+                               causal_offset)
+    dq = torch.empty_like(q)
+    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 8)
+    err = lib.flash_attention_bwd_dq(*head, _build.ptr(dq), kl, *tail)
+    flash_attention_bwd_dq.launches += 1
+    _build.check(err, "flash_attention_bwd_dq")
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
+                            scale=None, kv_lens=None, causal_offset=None):
+    """(dk, dv) (bf16, k's shape) by the K4 kernel of
+    ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
+    kernel. CUDA tensors only."""
+    head, kl, tail = _bwd_args("flash_attention_bwd_dkv", q, k, v, dout,
+                               lse, delta, is_causal, scale, kv_lens,
+                               causal_offset)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 8)
+    err = lib.flash_attention_bwd_dkv(*head, _build.ptr(dk), _build.ptr(dv),
+                                      kl, *tail)
+    flash_attention_bwd_dkv.launches += 1
+    _build.check(err, "flash_attention_bwd_dkv")
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
+                        kv_lens=None, causal_offset=None):
+    """Gradients (dq, dk, dv) of the attention whose forward gave (out,
+    lse), in the dtypes of q, k, v. CPU tensors take
+    ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O) in
+    fp32 (as the reference does outside its kernels, :1059) and launch K3
+    and K4."""
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                               is_causal, scale, kv_lens,
+                                               causal_offset)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
+              causal_offset=causal_offset)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints):
+    """The ctypes entry `fn_name` of csrc/<lib_name>.cu: n_ptrs pointers,
+    n_ints ints, the float scale and the stream; returns cudaError."""
+    lib = _build.library(lib_name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 6 + [ci] * 8 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * n_ptrs + [ci] * n_ints + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return lib
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: K1 forward, K3/K4 backward on CUDA
+    tensors; the plain forward and backward on CPU tensors. Port of the
+    reference's ``_flash_vjp_entry`` / ``_flash_vjp_fwd`` / ``_flash_vjp_bwd``.
+
+    The kernels take contiguous tensors and raise on anything else, so the
+    Function makes q, k, v (GPT's qkv split gives strided views) and the
+    incoming gradient contiguous itself, and saves those copies."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_causal, scale, kv_lens, causal_offset):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_fwd(q, k, v, is_causal=is_causal,
+                                       scale=scale, kv_lens=kv_lens,
+                                       causal_offset=causal_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
+                      causal_offset=causal_offset)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -199,12 +382,15 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
 
     Left for later PRs on the kernel path: dense bool/float masks, segment
     ids, sliding windows, ALiBi and dropout (ROADMAP Queue B row 1); those
-    raise on CUDA tensors. The plain version takes dense masks."""
+    raise on CUDA tensors. The plain version takes dense masks (and, on the
+    CPU, differentiates through them by torch's own autograd)."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "attention dropout is not ported yet (ROADMAP Queue B row 1); "
             "pass training=False or dropout_p=0")
-    if q.device.type == "cpu":
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if q.device.type == "cpu" and (attn_mask is not None or not needs_grad):
         return _xla_attention(q, k, v, attn_mask=attn_mask,
                               is_causal=is_causal, scale=scale,
                               kv_lens=kv_lens, causal_offset=causal_offset)
@@ -212,6 +398,9 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
         raise NotImplementedError(
             "dense attn_mask on the CUDA kernel path is not ported yet "
             "(ROADMAP Queue B row 1); pass is_causal/causal_offset/kv_lens")
+    if needs_grad:
+        return FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
+                                    causal_offset)
     return flash_attention_fwd(q, k, v, is_causal=is_causal, scale=scale,
                                kv_lens=kv_lens,
                                causal_offset=causal_offset)[0]

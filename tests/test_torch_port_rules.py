@@ -1,7 +1,7 @@
 """Rules of the PyTorch port, and its checks that need a GPU.
 
-* No file of paddle_tpu_torch/, and not chip_smoke.py, imports jax or
-  paddle_tpu (AST scan).
+* No file of paddle_tpu_torch/, no examples/torch_*.py, and not
+  chip_smoke.py imports jax or paddle_tpu (AST scan).
 * Kernel launch counters stay 0 when the entry points run on CPU tensors.
 * An entry point called with no device on a machine without CUDA raises
   instead of running on the CPU.
@@ -20,7 +20,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path):
@@ -45,6 +45,10 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "paddle_tpu_torch/ops/flash_attention.py" in names
     assert "paddle_tpu_torch/inference/__init__.py" in names
+    assert {"paddle_tpu_torch/models/gpt.py", "paddle_tpu_torch/bench.py",
+            "paddle_tpu_torch/optimizer/__init__.py",
+            "examples/torch_train_profile.py",
+            "examples/torch_decode_profile.py"} <= names
     assert len(names) >= 20
 
 
@@ -62,6 +66,48 @@ def test_counters_stay_zero_on_cpu():
     assert tuple(out.shape) == (2, 9)
     assert fa.flash_attention_fwd.launches == 0
     assert fd.fused_decode_cuda.launches == 0
+
+
+def test_training_counters_stay_zero_on_cpu():
+    """A GPT train step on CPU tensors runs the plain attention forward and
+    backward: none of K1, K3, K4 counts a launch."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops import flash_attention as fa
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    model, opt, x, y = bench.build(GPTConfig.tiny(), 2, 8, device="cpu")
+    losses = bench.run_steps(model, opt, x, y, 2)
+    assert bool(torch.isfinite(losses).all())
+    assert fa.flash_attention_fwd.launches == 0
+    assert fa.flash_attention_bwd_dq.launches == 0
+    assert fa.flash_attention_bwd_dkv.launches == 0
+
+
+def test_flash_fwd_refuses_tensors_that_require_grad():
+    """The raw kernel's output would be cut from the autograd graph, so
+    flash_attention_fwd raises on inputs that require grad (with grad mode
+    on), on any device; under no_grad it runs."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros(1, 4, 2, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="require grad"):
+        fa.flash_attention_fwd(q, q, q, is_causal=True)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, q, q, is_causal=True)
+    assert out.grad_fn is None and tuple(lse.shape) == (1, 2, 4)
+
+
+def test_bench_twin_refuses_cpu_by_default():
+    """python -m paddle_tpu_torch.bench runs on cuda unless --device cpu is
+    given; without a GPU it raises instead of timing the CPU."""
+    from paddle_tpu_torch import bench
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.build(*bench.config(tiny=True)[:3])
 
 
 def test_default_device_raises_without_cuda():
@@ -83,6 +129,11 @@ def test_cuda_wrappers_check_inputs():
     q = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, q, q)          # not a CUDA tensor
+    rows = torch.zeros(1, 2, 4, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(q, q, q, q, rows, rows)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dkv(q, q, q, q, rows, rows)
 
 
 # ---- on the card --------------------------------------------------------------
@@ -143,3 +194,38 @@ def test_fused_decode_kernel_matches_plain(cuda, nkv):
     torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
                                rtol=2 ** -7)
     assert math.isfinite(float(xk.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,sq,sk,d,causal,lens", [
+    (4, 4, 200, 200, 64, True, [200, 0]),
+    (8, 2, 130, 300, 128, True, [300, 257]),
+    (4, 4, 70, 90, 64, False, None),
+    (4, 2, 300, 200, 64, True, None)])         # sq > sk: empty top rows
+def test_flash_bwd_kernels_match_plain(cuda, h, nkv, sq, sk, d, causal,
+                                       lens):
+    """K3/K4 through FlashAttention against flash_attention_bwd_plain on the
+    kernel forward's (out, lse), bf16 inputs: each gradient within
+    2^-6 · max|plain| (bf16 P and dS in the products, bf16 outputs); a
+    kv_len of 0 gives zero gradients."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(2)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v, do = mk(2, sq, h, d), mk(2, sk, nkv, d), mk(2, sk, nkv, d), \
+        mk(2, sq, h, d)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, is_causal=causal,
+                                          kv_lens=kl)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                       is_causal=causal, kv_lens=kl)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                        kv_lens=kl)
+    o.backward(do)
+    for t, r in zip(leaves, ref):
+        err = (t.grad.float() - r).abs().max().item()
+        assert err <= 2 ** -6 * r.abs().max().item(), err
+    if lens is not None and 0 in lens:
+        assert all(not t.grad[1].any() for t in leaves)
