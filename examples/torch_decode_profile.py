@@ -3,6 +3,8 @@
     PYTHONPATH=. python3 examples/torch_decode_profile.py [--layers 32]
         [--batch 4] [--pos 1056] [--kv_heads 32]
     PYTHONPATH=. python3 examples/torch_decode_profile.py --generate
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --paged
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --serve
 
 Default: builds a Llama-2-7B-width stack (random bf16 weights, seed 0) and
 a KV cache filled up to `pos`, times paddle_tpu_torch's fused decode step
@@ -14,6 +16,14 @@ and the byte bound of each kernel family at the card's memory rate.
 prompt 1024, 64 new tokens) and the same call with one new token, and
 prints the wall time and the device-busy time of the 63 decode steps
 (their difference), so the device's idle share during decode shows.
+
+--paged: the same split for the paged decode step (K5) at 8 rows whose
+positions run evenly from 100 to 1300 (700 cached tokens on average),
+each through its own shuffled blocks of 128 tokens.
+
+--serve: a Llama-2-7B ServingEngine (8 slots, block 128) with 8 requests
+of 500-token prompts decoding; traces 32 ticks and prints the wall time
+and device-busy time per tick, its idle share, and the top kernels.
 
 Needs a CUDA GPU; imports nothing of jax or paddle_tpu.
 """
@@ -84,28 +94,8 @@ def generate_split(card):
                       "top_device_ms_per_step": top}))
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=32)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--pos", type=int, default=1056)
-    ap.add_argument("--kv_heads", type=int, default=32)
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--generate", action="store_true")
-    a = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--id=0",
-                           "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    kind = torch.cuda.get_device_name(0)
-    bw = next(v for k, v in BYTES_PER_S.items() if k in kind)
-    _build.build_all()
-    if a.generate:
-        return generate_split(card)
-    L, b, pos, nkv = a.layers, a.batch, a.pos, a.kv_heads
-    h, nh, hd, ffn = 4096, 32, 128, 11008
+def contiguous_step(L, b, pos, nkv, h, nh, hd, ffn):
+    """K2 over a contiguous cache filled up to `pos`."""
     S = -(-(pos + 1) // 128) * 128
     dq, dkv = nh * hd, nkv * hd
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -122,6 +112,97 @@ def main():
     step = lambda: fd.fused_decode_cuda(
         x, p, kv, pos, cos[pos:pos + 1], sin[pos:pos + 1], num_heads=nh,
         num_kv_heads=nkv)
+    return step, p, L * b * (pos + 1) * 2 * dkv * 2
+
+
+def serve_split(card, ticks=32):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Request, ServingEngine
+    cfg = LlamaConfig.llama2_7b()
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda",
+                             seed=0)
+    eng = ServingEngine(model, max_slots=8, block_tokens=128,
+                        max_seq_len=2048)
+    g = torch.Generator().manual_seed(1)
+    for _ in range(8):
+        eng.submit(Request(torch.randint(0, cfg.vocab_size, (500,),
+                                         generator=g).numpy(),
+                           max_new_tokens=2 * ticks + 8))
+    for _ in range(4):                     # admit, prefill, warm ticks
+        eng.step()
+    wall, dev = traced(lambda: [eng.step() for _ in range(ticks)])
+    busy = sum(dev.values()) / ticks
+    top = dict(sorted(((k, v / ticks) for k, v in dev.items()),
+                      key=lambda kv: -kv[1])[:8])
+    print(json.dumps({"card": card, "ticks": ticks, "slots": 8,
+                      "wall_ms_per_tick": wall / ticks,
+                      "device_busy_ms_per_tick": busy,
+                      "device_idle_share": 1 - busy / (wall / ticks),
+                      "top_device_ms_per_tick": top}))
+
+
+def paged_step(L, b, nkv, h=4096, nh=32, hd=128, ffn=11008, BT=128):
+    """K5 at 8 rows, positions 100..1300 evenly, shuffled private blocks."""
+    positions = [int(100 + i * 1200 / (b - 1)) for i in range(b)]
+    need = [p // BT + 1 for p in positions]
+    nb = 1 + sum(need)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
+        0, sc, generator=g).bfloat16()
+    dq, dkv = nh * hd, nkv * hd
+    p = {"ln1": torch.ones(L, h, device="cuda").bfloat16(),
+         "wqkv": mk(L, h, dq + 2 * dkv), "wo": mk(L, dq, h),
+         "ln2": torch.ones(L, h, device="cuda").bfloat16(),
+         "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
+    pool = mk(L, nb, BT, 2 * dkv, sc=1.0)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(0))
+    tables = torch.zeros(b, 2048 // BT, dtype=torch.int32)
+    nxt = 0
+    for r, n in enumerate(need):
+        tables[r, :n] = perm[nxt:nxt + n].to(torch.int32) + 1
+        nxt += n
+    tab = tables.cuda()
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    cos, sin = rope_cos_sin(2048, hd, device="cuda")
+    c, s = cos.index_select(0, pos), sin.index_select(0, pos)
+    x = mk(b, h, sc=1.0)
+    step = lambda: fd.fused_paged_decode_cuda(x, p, pool, tab, pos, c, s,
+                                              num_heads=nh, num_kv_heads=nkv)
+    keys = sum(q + 1 for q in positions)
+    return step, p, L * keys * 2 * dkv * 2, positions
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--pos", type=int, default=1056)
+    ap.add_argument("--kv_heads", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--generate", action="store_true")
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--serve", action="store_true")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--id=0",
+                           "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    bw = next(v for k, v in BYTES_PER_S.items() if k in kind)
+    _build.build_all()
+    if a.generate:
+        return generate_split(card)
+    if a.serve:
+        return serve_split(card)
+    L, b, pos, nkv = a.layers, a.batch, a.pos, a.kv_heads
+    h, nh, hd, ffn = 4096, 32, 128, 11008
+    if a.paged:
+        b = 8
+        step, p, kvb, pos = paged_step(L, b, nkv)
+    else:
+        step, p, kvb = contiguous_step(L, b, pos, nkv, h, nh, hd, ffn)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -135,13 +216,13 @@ def main():
     _, per_kernel = traced(lambda: [step() for _ in range(a.steps)])
     per_kernel = {k: v / a.steps for k, v in per_kernel.items()}
     wb = lambda *ks: sum(p[k].numel() * 2 for k in ks)
-    kvb = L * b * (pos + 1) * 2 * dkv * 2
     bounds_ms = {"qkv gemm": wb("wqkv") / bw * 1e3,
                  "o-proj gemm": wb("wo") / bw * 1e3,
                  "gate/up gemm": wb("wg", "wu") / bw * 1e3,
                  "down gemm": wb("wd") / bw * 1e3,
                  "attention (filled KV)": kvb / bw * 1e3}
     print(json.dumps({"card": card, "layers": L, "batch": b, "pos": pos,
+                      "kernel": "K5 (paged)" if a.paged else "K2",
                       "kv_heads": nkv, "step_ms": step_ms,
                       "device_ms_per_step_by_kernel": per_kernel,
                       "device_ms_per_step": sum(per_kernel.values()),

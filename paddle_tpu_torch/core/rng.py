@@ -55,7 +55,9 @@ def PRNGKey(seed, device=None):
 def fold_in(key, data):
     """jax.random.fold_in: hash the key with the pair (0, data). A Python
     int `data` stays a scalar operand (no host-to-device copy, which would
-    synchronise the stream on every decode step)."""
+    synchronise the stream on every decode step); a tensor `data` — e.g.
+    (b,) per-row counts against (b, 2) keys, the vmap of the JAX call — is
+    used on the keys' device as it is."""
     key = torch.as_tensor(key, dtype=torch.int64)
     if isinstance(data, int):
         x1, x2 = 0, data & _MASK

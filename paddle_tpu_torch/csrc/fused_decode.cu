@@ -29,6 +29,13 @@
 // cross device memory only as tiny (b, ·) vectors. Attention reads only the
 // filled prefix, never the unfilled tail. First design: no CUDA graph, no
 // persistent megakernel, no split over the KV length.
+//
+// Two entry points share every launch above: fused_decode_llama (K2) over
+// the contiguous cache (L, b, S, 2*nkv*hd) at one position, and
+// fused_paged_decode_llama (K5, the serving engine's step) over the paged
+// pool (L, NB, BT, 2*nkv*hd) through per-row block tables and positions.
+// Only step 2's addressing differs (ContigKV / PagedKV below). K5's bound
+// is bytes as well: the layer weights plus each row's own filled KV.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -258,19 +265,71 @@ int ksplit(int in, int out, bool two = false) {
   return max(ks, 1);
 }
 
+// Above 4 rows the two-weight (gate/up) partial kernel holds 2 x B x 8
+// fp32 accumulators per thread — 189 registers at B=8, one block per SM —
+// so there gate and up stream as two one-weight passes (two blocks per
+// SM each); the SwiGLU epilogue sums both partial sets as before.
+bool swiglu_two_pass(int b) { return b > 4; }
+
+int ksplit_swiglu(int in, int out, int b) {
+  return ksplit(in, out, !swiglu_two_pass(b));
+}
+
+// How the attention kernel finds a batch row's position, rope row and key
+// row t in one layer's cache. The kernel is written once over these two,
+// so K5 computes K2's bits when the KV content and positions are the same.
+//
+// Contiguous (K2): the (b, S, 2*dkv) layer slab, one position and one rope
+// row for the whole batch.
+struct ContigKV {
+  bf16* kv;
+  const float* cos;
+  const float* sin;
+  int S, dkv2, pos;
+  __device__ int position(int) const { return pos; }
+  __device__ const float* cos_row(int, int) const { return cos; }
+  __device__ const float* sin_row(int, int) const { return sin; }
+  __device__ bf16* row(int bi, int t) const {
+    return kv + ((long)bi * S + t) * dkv2;
+  }
+};
+
+// Paged (K5): the (NB, BT, 2*dkv) layer slab of the pool, addressed through
+// the row's block table; per-row positions and rope rows, all read from
+// device memory (the host uploads nothing per step).
+struct PagedKV {
+  bf16* kv;
+  const int* tables;      // (b, MB) physical block ids
+  const int* positions;   // (b,)
+  const float* cos;       // (b, HD)
+  const float* sin;
+  int MB, BT, dkv2;
+  __device__ int position(int bi) const { return positions[bi]; }
+  __device__ const float* cos_row(int bi, int hd) const {
+    return cos + (long)bi * hd;
+  }
+  __device__ const float* sin_row(int bi, int hd) const {
+    return sin + (long)bi * hd;
+  }
+  __device__ bf16* row(int bi, int t) const {
+    const int bid = __ldg(tables + (long)bi * MB + t / BT);
+    return kv + ((long)bid * BT + t % BT) * dkv2;
+  }
+};
+
 // One block per (kv head g, batch row bi): rope q (the rep heads of the
-// group) and k at `pos`, append k and v to the cache, then attend over the
-// filled prefix [0, pos] with an online softmax, NW warps striding the keys,
-// merged through shared memory.
+// group) and k at the row's position, append k and v to the cache there,
+// then attend over the filled prefix [0, pos] with an online softmax, NW
+// warps striding the keys, merged through shared memory. Several paged
+// rows may append to the same scratch address (idle rows); each block
+// reads back only what it wrote itself or what no block of this launch
+// writes, so only idle rows — whose output is thrown away — see a race.
 constexpr int NWA = 16;
 
-template <int HD, int REP>
+template <int HD, int REP, class KV>
 __global__ void __launch_bounds__(NWA * 32)
-rope_append_attn_kernel(const float* __restrict__ qkv,
-                        const float* __restrict__ cosr,
-                        const float* __restrict__ sinr, bf16* __restrict__ kv,
-                        bf16* __restrict__ attn, int nkv, int S, int pos,
-                        float scale) {
+rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
+                        bf16* __restrict__ attn, int nkv, float scale) {
   constexpr int DPL = HD / 32;  // head dims per lane
   const int g = blockIdx.x, bi = blockIdx.y;
   const int dkv = nkv * HD, dq = nkv * REP * HD, dqkv = dq + 2 * dkv;
@@ -281,7 +340,9 @@ rope_append_attn_kernel(const float* __restrict__ qkv,
   float* wacc = wl + NWA * REP;         // [NWA][REP][HD]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* row = qkv + (long)bi * dqkv;
-  bf16* kvb = kv + (long)bi * S * 2 * dkv;
+  const int pos = cache.position(bi);
+  const float* __restrict__ cosr = cache.cos_row(bi, HD);
+  const float* __restrict__ sinr = cache.sin_row(bi, HD);
 
   for (int i = tid; i < REP * HD; i += NWA * 32) {
     const int r = i / HD, d = i % HD;
@@ -292,7 +353,7 @@ rope_append_attn_kernel(const float* __restrict__ qkv,
   for (int d = tid; d < HD; d += NWA * 32) {
     const float* kh = row + dq + g * HD;
     const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
-    bf16* dst = kvb + (long)pos * 2 * dkv + g * HD + d;
+    bf16* dst = cache.row(bi, pos) + g * HD + d;
     dst[0] = __float2bfloat16(kh[d] * cosr[d] + rot * sinr[d]);
     dst[dkv] = __float2bfloat16(row[dq + dkv + g * HD + d]);
   }
@@ -318,7 +379,7 @@ rope_append_attn_kernel(const float* __restrict__ qkv,
 #pragma unroll
       for (int j = 0; j < DPL; ++j) kf[u][j] = vf[u][j] = 0.f;
       if (t <= pos) {
-        const bf16* kr = kvb + (long)t * 2 * dkv + g * HD + lane * DPL;
+        const bf16* kr = cache.row(bi, t) + g * HD + lane * DPL;
 #pragma unroll
         for (int j = 0; j < DPL; j += 2) {
           const float2 a = __bfloat1622float2(
@@ -400,46 +461,49 @@ cudaError_t gemm(const float* xf, const bf16* xb, const bf16* lnw,
                  float eps, cudaStream_t st) {
   constexpr bool RMS = MODE != MODE_RESID;
   constexpr bool TWO = MODE == MODE_SWIGLU;
-  const int ks = ksplit(in, out, TWO);
+  const int ks = TWO ? ksplit_swiglu(in, out, b) : ksplit(in, out);
   if (RMS) rms_stats_kernel<<<b, GT, 0, st>>>(xf, rstd, in, eps);
   if (b <= 1) partial_b<RMS, TWO, 1>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
   else if (b <= 2) partial_b<RMS, TWO, 2>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
   else if (b <= 4) partial_b<RMS, TWO, 4>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  else if (b <= 8) partial_b<RMS, TWO, 8>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  else return cudaErrorInvalidValue;
+  else if (b > 8) return cudaErrorInvalidValue;
+  else if (TWO) {  // swiglu_two_pass: gate into ws0, then up into ws1
+    partial_b<RMS, false, 8>(xf, rstd, xb, lnw, w0, nullptr, ws0, nullptr, b, in, out, ks, st);
+    partial_b<RMS, false, 8>(xf, rstd, xb, lnw, w1, nullptr, ws1, nullptr, b, in, out, ks, st);
+  } else {
+    partial_b<RMS, false, 8>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  }
   const int n = b * out;
   gemm_epilogue_kernel<MODE><<<(n + 255) / 256, 256, 0, st>>>(ws0, ws1, ks, n,
                                                               yf, yb);
   return cudaGetLastError();
 }
 
-template <int HD, int REP>
-cudaError_t attn_launch(const float* qkv, const float* cosr, const float* sinr,
-                        bf16* kv, bf16* attn, int b, int nkv, int S, int pos,
-                        float scale, cudaStream_t st) {
+template <int HD, int REP, class KV>
+cudaError_t attn_launch(const float* qkv, const KV& cache, bf16* attn, int b,
+                        int nkv, float scale, cudaStream_t st) {
   const int smem = (REP * HD + 2 * NWA * REP + NWA * REP * HD) * 4;
   static bool opted_in = false;  // above 48 KB needs the opt-in, once
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        rope_append_attn_kernel<HD, REP>,
+        rope_append_attn_kernel<HD, REP, KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  rope_append_attn_kernel<HD, REP><<<dim3(nkv, b), NWA * 32, smem, st>>>(
-      qkv, cosr, sinr, kv, attn, nkv, S, pos, scale);
+  rope_append_attn_kernel<HD, REP, KV><<<dim3(nkv, b), NWA * 32, smem, st>>>(
+      qkv, cache, attn, nkv, scale);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t attn_hd(int rep, const float* qkv, const float* cosr,
-                    const float* sinr, bf16* kv, bf16* attn, int b, int nkv,
-                    int S, int pos, float scale, cudaStream_t st) {
+template <int HD, class KV>
+cudaError_t attn_hd(int rep, const float* qkv, const KV& cache, bf16* attn,
+                    int b, int nkv, float scale, cudaStream_t st) {
   switch (rep) {
-    case 1: return attn_launch<HD, 1>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
-    case 2: return attn_launch<HD, 2>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
-    case 4: return attn_launch<HD, 4>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
-    case 8: return attn_launch<HD, 8>(qkv, cosr, sinr, kv, attn, b, nkv, S, pos, scale, st);
+    case 1: return attn_launch<HD, 1>(qkv, cache, attn, b, nkv, scale, st);
+    case 2: return attn_launch<HD, 2>(qkv, cache, attn, b, nkv, scale, st);
+    case 4: return attn_launch<HD, 4>(qkv, cache, attn, b, nkv, scale, st);
+    case 8: return attn_launch<HD, 8>(qkv, cache, attn, b, nkv, scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -447,13 +511,81 @@ cudaError_t attn_hd(int rep, const float* qkv, const float* cosr,
 // Floats of split-K workspace one step needs: 8 for the RMSNorm rstd, then
 // the partial sums of the widest GEMM, then the up-projection's partials.
 long ws_layout(int b, int h, int dq, int dqkv, int ffn, long* n0) {
+  const long up = (long)ksplit_swiglu(h, ffn, b) * b * ffn;
   long a = (long)ksplit(h, dqkv) * b * dqkv;
   a = a > (long)ksplit(dq, h) * b * h ? a : (long)ksplit(dq, h) * b * h;
-  a = a > (long)ksplit(h, ffn, true) * b * ffn ? a
-                                              : (long)ksplit(h, ffn, true) * b * ffn;
+  a = a > up ? a : up;
   a = a > (long)ksplit(ffn, h) * b * h ? a : (long)ksplit(ffn, h) * b * h;
   *n0 = a;
-  return 8 + a + (long)ksplit(h, ffn, true) * b * ffn;
+  return 8 + a + up;
+}
+
+// The operands of one decode step through the stack, shared by K2 and K5.
+struct Stack {
+  const bf16 *x_in, *ln1, *wqkv, *wo, *ln2, *wg, *wu, *wd;
+  bf16* x_out;
+  float *xf, *qkv, *ws;
+  bf16 *attn, *act;
+  int L, b, h, nh, nkv, hd, ffn;
+  float eps;
+};
+
+// Per layer: qkv GEMM, rope + append + attention over layer_kv(l), o-proj,
+// gate/up, down — 1 + 11L launches on `st`. Returns the first CUDA error.
+template <class LayerKV>
+cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
+  const int L = a.L, b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
+  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
+  const int rep = a.nh / a.nkv;
+  const float scale = 1.f / sqrtf((float)hd);
+  long n0;
+  ws_layout(b, h, dq, dqkv, ffn, &n0);
+  float* rstd = a.ws;
+  float* ws0 = rstd + 8;
+  float* ws1 = ws0 + n0;
+  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
+                                                           b * h);
+  cudaError_t e = cudaGetLastError();
+  for (int l = 0; l < L && e == cudaSuccess; ++l) {
+    const bf16* ln1l = a.ln1 + (long)l * h;
+    const bf16* wqkvl = a.wqkv + (long)l * h * dqkv;
+    const bf16* wol = a.wo + (long)l * dq * h;
+    const bf16* ln2l = a.ln2 + (long)l * h;
+    const bf16* wgl = a.wg + (long)l * h * ffn;
+    const bf16* wul = a.wu + (long)l * h * ffn;
+    const bf16* wdl = a.wd + (long)l * ffn * h;
+    e = gemm<MODE_QKV>(a.xf, nullptr, ln1l, wqkvl, nullptr, a.qkv, nullptr,
+                       ws0, ws1, rstd, b, h, dqkv, a.eps, st);
+    if (e != cudaSuccess) break;
+    const auto kv = layer_kv(l);
+    e = hd == 128 ? attn_hd<128>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
+        : hd == 64 ? attn_hd<64>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
+                   : cudaErrorInvalidValue;
+    if (e != cudaSuccess) break;
+    e = gemm<MODE_RESID>(nullptr, a.attn, nullptr, wol, nullptr, a.xf,
+                         nullptr, ws0, ws1, rstd, b, dq, h, a.eps, st);
+    if (e != cudaSuccess) break;
+    e = gemm<MODE_SWIGLU>(a.xf, nullptr, ln2l, wgl, wul, nullptr, a.act, ws0,
+                          ws1, rstd, b, h, ffn, a.eps, st);
+    if (e != cudaSuccess) break;
+    e = gemm<MODE_RESID>(nullptr, a.act, nullptr, wdl, nullptr, a.xf,
+                         l == L - 1 ? a.x_out : nullptr, ws0, ws1, rstd, b,
+                         ffn, h, a.eps, st);
+  }
+  return e;
+}
+
+Stack make_stack(const void* x_in, void* x_out, const void* ln1,
+                 const void* wqkv, const void* wo, const void* ln2,
+                 const void* wg, const void* wu, const void* wd, void* xf,
+                 void* qkv, void* attn, void* act, void* ws, int L, int b,
+                 int h, int nh, int nkv, int hd, int ffn, float eps) {
+  return Stack{(const bf16*)x_in, (const bf16*)ln1, (const bf16*)wqkv,
+               (const bf16*)wo,   (const bf16*)ln2, (const bf16*)wg,
+               (const bf16*)wu,   (const bf16*)wd,  (bf16*)x_out,
+               (float*)xf,        (float*)qkv,      (float*)ws,
+               (bf16*)attn,       (bf16*)act,       L, b, h, nh, nkv, hd,
+               ffn,               eps};
 }
 
 }  // namespace
@@ -464,8 +596,8 @@ extern "C" long fused_decode_llama_workspace(int b, int h, int nh, int nkv,
   return ws_layout(b, h, nh * hd, (nh + 2 * nkv) * hd, ffn, &n0);
 }
 
-// One decode step through all L layers. Stacked weights (L, ...) as built
-// by build_fused_params; kv (L, b, S, 2*nkv*hd) is updated in place at
+// K2 — one decode step through all L layers. Stacked weights (L, ...) as
+// built by build_fused_params; kv (L, b, S, 2*nkv*hd) is updated in place at
 // `pos`. Scratch: xf (b,h) f32, qkv (b,dqkv) f32, attn (b,dq) bf16,
 // act (b,ffn) bf16, ws (fused_decode_llama_workspace floats). Returns the
 // first CUDA error, 0 on success.
@@ -475,51 +607,42 @@ extern "C" int fused_decode_llama(
     const void* wd, void* kv, const void* cosr, const void* sinr, void* xf,
     void* qkv, void* attn, void* act, void* ws, int L, int b, int h, int nh,
     int nkv, int hd, int ffn, int S, int pos, float eps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int dq = nh * hd, dkv = nkv * hd, dqkv = dq + 2 * dkv;
-  const int rep = nh / nkv;
-  const float scale = 1.f / sqrtf((float)hd);
-  float* xff = (float*)xf;
-  float* qkvf = (float*)qkv;
-  bf16* attnb = (bf16*)attn;
-  bf16* actb = (bf16*)act;
-  long n0;
-  ws_layout(b, h, dq, dqkv, ffn, &n0);
-  float* rstd = (float*)ws;
-  float* ws0 = rstd + 8;
-  float* ws1 = ws0 + n0;
-  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>((const bf16*)x_in,
-                                                           xff, b * h);
-  cudaError_t e = cudaGetLastError();
-  for (int l = 0; l < L && e == cudaSuccess; ++l) {
-    const bf16* ln1l = (const bf16*)ln1 + (long)l * h;
-    const bf16* wqkvl = (const bf16*)wqkv + (long)l * h * dqkv;
-    const bf16* wol = (const bf16*)wo + (long)l * dq * h;
-    const bf16* ln2l = (const bf16*)ln2 + (long)l * h;
-    const bf16* wgl = (const bf16*)wg + (long)l * h * ffn;
-    const bf16* wul = (const bf16*)wu + (long)l * h * ffn;
-    const bf16* wdl = (const bf16*)wd + (long)l * ffn * h;
-    bf16* kvl = (bf16*)kv + (long)l * b * S * 2 * dkv;
-    e = gemm<MODE_QKV>(xff, nullptr, ln1l, wqkvl, nullptr, qkvf, nullptr,
-                       ws0, ws1, rstd, b, h, dqkv, eps, st);
-    if (e != cudaSuccess) break;
-    e = hd == 128 ? attn_hd<128>(rep, qkvf, (const float*)cosr,
-                                 (const float*)sinr, kvl, attnb, b, nkv, S,
-                                 pos, scale, st)
-        : hd == 64 ? attn_hd<64>(rep, qkvf, (const float*)cosr,
-                                 (const float*)sinr, kvl, attnb, b, nkv, S,
-                                 pos, scale, st)
-                   : cudaErrorInvalidValue;
-    if (e != cudaSuccess) break;
-    e = gemm<MODE_RESID>(nullptr, attnb, nullptr, wol, nullptr, xff, nullptr,
-                         ws0, ws1, rstd, b, dq, h, eps, st);
-    if (e != cudaSuccess) break;
-    e = gemm<MODE_SWIGLU>(xff, nullptr, ln2l, wgl, wul, nullptr, actb, ws0,
-                          ws1, rstd, b, h, ffn, eps, st);
-    if (e != cudaSuccess) break;
-    e = gemm<MODE_RESID>(nullptr, actb, nullptr, wdl, nullptr, xff,
-                         l == L - 1 ? (bf16*)x_out : nullptr, ws0, ws1, rstd,
-                         b, ffn, h, eps, st);
-  }
-  return (int)e;
+  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
+                             qkv, attn, act, ws, L, b, h, nh, nkv, hd, ffn,
+                             eps);
+  const int dkv2 = 2 * nkv * hd;
+  auto layer_kv = [=](int l) {
+    return ContigKV{(bf16*)kv + (long)l * b * S * dkv2, (const float*)cosr,
+                    (const float*)sinr, S, dkv2, pos};
+  };
+  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+}
+
+// K5 — one decode step through all L layers over the PAGED pool. Replaces
+// the TPU kernel paddle_tpu/ops/fused_decode.py::_fused_paged_decode_pallas
+// (pallas_call at :2267), llama arch, bf16 weights, bf16 pool. The products
+// are K2's; only the attention's addressing differs: row bi appends at
+// pool[l, tables[bi, pos/BT], pos%BT] for its own pos = positions[bi] and
+// reads key t from pool[l, tables[bi, t/BT], t%BT] for t <= pos. Positions,
+// block tables and the (b, hd) rope rows are read from device memory, so a
+// step uploads nothing. kv_pool (L, NB, BT, 2*nkv*hd) is updated in place;
+// scratch as for fused_decode_llama. Callers keep every positions[bi] below
+// MB*BT (the engine clamps at max_seq_len - 1).
+extern "C" int fused_paged_decode_llama(
+    const void* x_in, void* x_out, const void* ln1, const void* wqkv,
+    const void* wo, const void* ln2, const void* wg, const void* wu,
+    const void* wd, void* kv_pool, const void* tables, const void* positions,
+    const void* cosr, const void* sinr, void* xf, void* qkv, void* attn,
+    void* act, void* ws, int L, int b, int h, int nh, int nkv, int hd,
+    int ffn, int NB, int BT, int MB, float eps, void* stream) {
+  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
+                             qkv, attn, act, ws, L, b, h, nh, nkv, hd, ffn,
+                             eps);
+  const int dkv2 = 2 * nkv * hd;
+  auto layer_kv = [=](int l) {
+    return PagedKV{(bf16*)kv_pool + (long)l * NB * BT * dkv2,
+                   (const int*)tables, (const int*)positions,
+                   (const float*)cosr, (const float*)sinr, MB, BT, dkv2};
+  };
+  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
 }

@@ -64,7 +64,9 @@ def _row_keys(seeds):
 
 
 def _fold_rows(keys, t):
-    """Fold token index t into each row's base key."""
+    """Fold a token index into each row's base key: a Python int t for
+    every row (generate), or a (b,) tensor of per-row counts against (b, 2)
+    keys (the serving engine's step), which stays on the keys' device."""
     return rng.fold_in(keys, t)
 
 

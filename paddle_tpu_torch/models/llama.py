@@ -271,8 +271,8 @@ class LlamaForCausalLM(nn.Layer):
         norm_w = state["model.norm.weight"]
         head_w = state["lm_head.weight"]
 
-        def embed(tok, pos):                  # (b,), scalar -> (b, h)
-            del pos                           # rope positions, not learned
+        def embed(tok, pos):          # (b,), scalar or (b,) -> (b, h)
+            del pos                   # rope positions, not learned
             return embed_w[tok]
 
         def head(x):                          # (b, h) -> (b, vocab)

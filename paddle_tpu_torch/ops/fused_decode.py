@@ -1,18 +1,26 @@
 """Fused decode step — the fused_multi_transformer analog, llama arch.
 
-Port of ``paddle_tpu/ops/fused_decode.py`` for the contiguous KV cache:
+Port of ``paddle_tpu/ops/fused_decode.py`` for the contiguous KV cache and
+the paged pool:
 
 * ``build_fused_params`` — stack a llama state dict into per-layer arrays
   {ln1, wqkv, wo, ln2, wg, wu, wd} (q|k|v fused along the output dim).
 * ``fused_decode_reference`` — the plain version, llama arch.
 * ``fused_decode_step`` — the dispatch: CPU tensors take the plain version,
-  CUDA tensors the hand-written kernel ``csrc/fused_decode.cu`` (replaces
-  the TPU kernel ``_fused_decode_pallas``, ``paddle_tpu/ops/fused_decode.py:555``).
+  CUDA tensors the hand-written kernel ``csrc/fused_decode.cu`` (K2,
+  replaces the TPU kernel ``_fused_decode_pallas``,
+  ``paddle_tpu/ops/fused_decode.py:555``).
+* ``paged_pool_shape``, ``fused_paged_decode_reference``,
+  ``fused_paged_decode_step`` — the same step over the serving engine's
+  paged pool (L, NB, BT, 2*nkv*hd) through per-row block tables and
+  positions; CUDA tensors launch K5 (``fused_paged_decode_cuda``, same
+  source file; replaces ``_fused_paged_decode_pallas``, :1884).
+  ``paged_block_gather`` / ``paged_block_scatter`` move whole blocks.
 * ``decode_block_plan`` — kept for its ``ffn_pad`` key only.
 
 The KV cache is COMBINED and FLAT, (L, b, S, 2*nkv*hd) with k in lanes
-[0, nkv*hd). Unlike the JAX functions, both versions here update the cache
-in place at ``pos`` (it is 2.4 GB at 7B width, b=4, S=1152) and return it.
+[0, nkv*hd). Unlike the JAX functions, every version here updates the cache
+or pool in place (a 7B cache is gigabytes) and returns it.
 
 RoPE: both versions take the cos/sin row of ``pos`` from ``rope_cos_sin``,
 as ``fused_decode_reference`` does, so rope costs the kernel no tolerance
@@ -95,6 +103,35 @@ def _wdot(act, w):
     return (act.float() @ w.float())
 
 
+def _refuse_unported(arch, params, kv_scales, row="4"):
+    if arch != "llama" or kv_scales is not None or "wqkv_s" in params:
+        raise NotImplementedError(
+            f"fused decode arch={arch!r}, int8 weights and int8 KV are not "
+            f"ported yet (ROADMAP Queue B row {row})")
+
+
+def _attend(q, kl, vl, valid, scale):
+    """q (b, nh, hd) fp32; kl/vl (b, S, nkv, hd) fp32; valid (b|1, 1, 1, S)
+    → (b, nh·hd) fp32: masked fp32 softmax over the keys, grouped heads."""
+    b, nh, hd = q.shape
+    nkv = kl.shape[2]
+    qg = q.reshape(b, nkv, nh // nkv, hd) * scale
+    scores = torch.einsum("bgrd,bsgd->bgrs", qg, kl)
+    scores = torch.where(valid, scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgrs,bsgd->bgrd", probs, vl).reshape(b, nh * hd)
+
+
+def _mlp_residual(xf, params, l, eps, dtype):
+    """The attention-free tail of a layer: x + down(silu(gate) * up)."""
+    xn2 = _rms(xf, params["ln2"][l], eps)
+    gt = _wdot(xn2, params["wg"][l])
+    u = _wdot(xn2, params["wu"][l])
+    act = (torch.nn.functional.silu(gt) * u).to(dtype)
+    return xf + _wdot(act, params["wd"][l])
+
+
 def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
                            num_heads: int, num_kv_heads: int,
                            eps: float = 1e-5, arch: str = "llama",
@@ -105,15 +142,11 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
     cos/sin (1, hd) fp32 for position `pos`. Returns (x_out (b, h),
     kv_cache). Residual stream fp32, attention over [0, pos] only, softmax
     fp32 — the reference's numerics (``fused_decode.py:406``)."""
-    if arch != "llama" or kv_scales is not None or "wqkv_s" in params:
-        raise NotImplementedError(
-            f"fused decode arch={arch!r}, int8 weights and int8 KV are not "
-            "ported yet (ROADMAP Queue B row 4)")
+    _refuse_unported(arch, params, kv_scales)
     L, b, S, dkv2 = kv_cache.shape
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
     hd = dkv // nkv
-    rep = nh // nkv
     dq = nh * hd
     dtype = x.dtype
     scale = 1.0 / math.sqrt(hd)
@@ -133,89 +166,106 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
         kv_cache[l, :, pos] = kv_new.to(kv_cache.dtype)
         kl = kv_cache[l, :, :, :dkv].float().reshape(b, S, nkv, hd)
         vl = kv_cache[l, :, :, dkv:].float().reshape(b, S, nkv, hd)
-        qg = q.reshape(b, nkv, rep, hd) * scale
-        scores = torch.einsum("bgrd,bsgd->bgrs", qg, kl)
-        scores = torch.where(valid, scores,
-                             torch.tensor(NEG_INF, device=x.device))
-        probs = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("bgrs,bsgd->bgrd", probs, vl)
-        attn = attn.reshape(b, dq).to(dtype)
+        attn = _attend(q, kl, vl, valid, scale).to(dtype)
         xf = xf + _wdot(attn, params["wo"][l])
-        xn2 = _rms(xf, params["ln2"][l], eps)
-        gt = _wdot(xn2, params["wg"][l])
-        u = _wdot(xn2, params["wu"][l])
-        act = (torch.nn.functional.silu(gt) * u).to(dtype)
-        xf = xf + _wdot(act, params["wd"][l])
+        xf = _mlp_residual(xf, params, l, eps, dtype)
     return xf.to(dtype), kv_cache
 
 
 _PARAM_KEYS = ("ln1", "wqkv", "wo", "ln2", "wg", "wu", "wd")
 
 
-def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
-                      num_kv_heads: int, eps: float = 1e-5):
-    """Wrapper of the hand-written kernel (one call = one decode step
-    through all L layers, 1 + 11L launches on the current stream). Checks
-    device, dtype, shape and contiguity and raises on anything else."""
-    L, b, S, dkv2 = kv_cache.shape
+def _check_tensors(what, specs, device):
+    """Raise unless each (name, tensor, dtype, shape) of `specs` has its
+    dtype (TypeError), its shape and a contiguous layout, and then unless
+    all lie on the CUDA `device` (ValueError). Devices are checked last, so
+    the dtype, shape and layout refusals show without a GPU."""
+    for name, t, dtype, shape in specs:
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} not contiguous")
+    for name, t, _, _ in specs:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} on {t.device}, expected "
+                             f"{device} (cuda)")
+
+
+def _stack_specs(what, x, params, cache, num_heads, num_kv_heads):
+    """What K2 and K5 share: x, the stacked weights and the cache
+    (contiguous or paged; its last dim is 2·nkv·hd) in bf16, and the shapes
+    the kernels take. Returns (check specs, (b, h, hd, ffn))."""
+    L, dkv2 = cache.shape[0], cache.shape[-1]
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
     if nkv <= 0 or dkv % nkv or nh % nkv:
-        raise ValueError(f"fused_decode_cuda: heads {nh}/{nkv} do not "
-                         f"divide the cache width {dkv2}")
+        raise ValueError(f"{what}: heads {nh}/{nkv} do not divide the "
+                         f"cache width {dkv2}")
     hd = dkv // nkv
     rep = nh // nkv
-    h = x.shape[1]
+    b, h = x.shape
     dq = nh * hd
     ffn = params["wg"].shape[2]
+    if not 1 <= b <= 8 or hd not in (64, 128) or rep not in (1, 2, 4, 8):
+        raise ValueError(f"{what}: unsupported b={b} (1..8), "
+                         f"head_dim={hd} (64|128), rep={rep} (1|2|4|8)")
+    if h % 8 or ffn % 8 or (dq + 2 * dkv) % 8:
+        raise ValueError(f"{what}: h, ffn and the qkv width must be "
+                         "multiples of 8")
     shapes = {"ln1": (L, h), "wqkv": (L, h, dq + 2 * dkv), "wo": (L, dq, h),
               "ln2": (L, h), "wg": (L, h, ffn), "wu": (L, h, ffn),
               "wd": (L, ffn, h)}
-    tensors = [("x", x, (b, h)), ("kv_cache", kv_cache, (L, b, S, dkv2))]
-    tensors += [(k, params[k], shapes[k]) for k in _PARAM_KEYS]
-    for name, t, shape in tensors:
-        if t.device != x.device or t.device.type != "cuda":
-            raise ValueError(f"fused_decode_cuda: {name} on {t.device}, "
-                             f"expected {x.device} (cuda)")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"fused_decode_cuda: {name} is {t.dtype}; the "
-                            "kernel takes bfloat16 weights, x and cache")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_decode_cuda: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_decode_cuda: {name} not contiguous")
+    bf = torch.bfloat16
+    specs = [("x", x, bf, (b, h)), ("cache", cache, bf, cache.shape)]
+    specs += [(k, params[k], bf, shapes[k]) for k in _PARAM_KEYS]
+    return specs, (b, h, hd, ffn)
+
+
+def _scratch(lib, x, nh, nkv, hd, ffn):
+    """x_out and the step's scratch (xf, qkv, attn, act, split-K ws)."""
+    b, h = x.shape
+    dq, dkv = nh * hd, nkv * hd
+    dev = x.device
+    return (torch.empty_like(x),
+            torch.empty((b, h), dtype=torch.float32, device=dev),
+            torch.empty((b, dq + 2 * dkv), dtype=torch.float32, device=dev),
+            torch.empty((b, dq), dtype=torch.bfloat16, device=dev),
+            torch.empty((b, ffn), dtype=torch.bfloat16, device=dev),
+            torch.empty(lib.fused_decode_llama_workspace(b, h, nh, nkv, hd,
+                                                         ffn),
+                        dtype=torch.float32, device=dev))
+
+
+def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
+                      num_kv_heads: int, eps: float = 1e-5):
+    """Wrapper of K2 (one call = one decode step through all L layers,
+    1 + 11L launches on the current stream). Checks dtype, shape,
+    contiguity and device and raises on anything else."""
+    what = "fused_decode_cuda"
+    specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_cache,
+                                          num_heads, num_kv_heads)
+    L, S = kv_cache.shape[0], kv_cache.shape[2]
+    if kv_cache.dim() != 4 or kv_cache.shape[1] != b:
+        raise ValueError(f"{what}: cache {tuple(kv_cache.shape)} is not "
+                         f"(L, {b}, S, 2*nkv*hd)")
     cos = cos.reshape(hd)
     sin = sin.reshape(hd)
-    for name, t in (("cos", cos), ("sin", sin)):
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"fused_decode_cuda: {name} must be a "
-                             f"contiguous float32 ({hd},) row on {x.device}")
-    if not 1 <= b <= 8 or hd not in (64, 128) or rep not in (1, 2, 4, 8):
-        raise ValueError(f"fused_decode_cuda: unsupported b={b} (1..8), "
-                         f"head_dim={hd} (64|128), rep={rep} (1|2|4|8)")
-    if h % 8 or ffn % 8 or (dq + 2 * dkv) % 8:
-        raise ValueError("fused_decode_cuda: h, ffn and the qkv width must "
-                         "be multiples of 8")
+    _check_tensors(what, specs + [("cos", cos, torch.float32, (hd,)),
+                                  ("sin", sin, torch.float32, (hd,))],
+                   x.device)
     pos = int(pos)
     if not 0 <= pos < S:
-        raise ValueError(f"fused_decode_cuda: pos {pos} outside the cache "
-                         f"length {S}")
-    dev = x.device
-    x_out = torch.empty_like(x)
-    xf = torch.empty((b, h), dtype=torch.float32, device=dev)
-    qkv = torch.empty((b, dq + 2 * dkv), dtype=torch.float32, device=dev)
-    attn = torch.empty((b, dq), dtype=torch.bfloat16, device=dev)
-    act = torch.empty((b, ffn), dtype=torch.bfloat16, device=dev)
+        raise ValueError(f"{what}: pos {pos} outside the cache length {S}")
     lib = _kernel_lib()
-    ws = torch.empty(lib.fused_decode_llama_workspace(b, h, nh, nkv, hd, ffn),
-                     dtype=torch.float32, device=dev)
+    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn)
     p = _build.ptr
     err = lib.fused_decode_llama(
         p(x), p(x_out), *(p(params[k]) for k in _PARAM_KEYS), p(kv_cache),
-        p(cos), p(sin), p(xf), p(qkv), p(attn), p(act), p(ws),
-        L, b, h, nh, nkv, hd, ffn, S, pos, float(eps), _build.stream_of(x))
+        p(cos), p(sin), *(p(t) for t in scratch), L, b, h, num_heads,
+        num_kv_heads, hd, ffn, S, pos, float(eps), _build.stream_of(x))
     fused_decode_cuda.launches += 1
     _build.check(err, "fused_decode_llama")
     return x_out, kv_cache
@@ -231,6 +281,9 @@ def _kernel_lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 17 + [ci] * 9 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
+        pfn = lib.fused_paged_decode_llama
+        pfn.argtypes = [vp] * 19 + [ci] * 10 + [ctypes.c_float, vp]
+        pfn.restype = ctypes.c_int
         wsf = lib.fused_decode_llama_workspace
         wsf.argtypes = [ci] * 6
         wsf.restype = ctypes.c_long
@@ -244,15 +297,8 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
     """Dispatch: the CUDA kernel on CUDA tensors, the plain version on CPU
     tensors. Args follow fused_decode_reference; ``blocks`` is checked
     against the cache dtype."""
-    if arch != "llama" or kv_scales is not None or "wqkv_s" in params:
-        raise NotImplementedError(
-            f"fused decode arch={arch!r}, int8 weights and int8 KV are not "
-            "ported yet (ROADMAP Queue B row 4)")
-    cb = kv_cache.element_size()
-    if blocks is not None and blocks.get("cache_wbytes", cb) != cb:
-        raise ValueError(
-            f"decode plan assumed a {blocks['cache_wbytes']}-byte KV cache "
-            f"but the cache dtype is {kv_cache.dtype} ({cb} B)")
+    _refuse_unported(arch, params, kv_scales)
+    _check_plan(blocks, kv_cache)
     if x.device.type == "cpu":
         return fused_decode_reference(
             x, params, kv_cache, pos, cos, sin, num_heads=num_heads,
@@ -260,3 +306,163 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
     return fused_decode_cuda(x, params, kv_cache, pos, cos, sin,
                              num_heads=num_heads, num_kv_heads=num_kv_heads,
                              eps=eps)
+
+
+def _check_plan(blocks, cache):
+    cb = cache.element_size()
+    if blocks is not None and blocks.get("cache_wbytes", cb) != cb:
+        raise ValueError(
+            f"decode plan assumed a {blocks['cache_wbytes']}-byte KV cache "
+            f"but the cache dtype is {cache.dtype} ({cb} B)")
+
+
+# ---------------------------------------------------------------------------
+# The paged pool (the serving engine's one cache tensor)
+# ---------------------------------------------------------------------------
+#
+# (L, NB, BT, 2*nkv*hd): NB physical blocks of BT tokens, block 0 the
+# scratch block every unmapped table entry points at. Row r's logical
+# position t lives at pool[l, block_tables[r, t // BT], t % BT].
+
+
+def paged_pool_shape(num_layers: int, num_blocks: int, block_tokens: int,
+                     num_kv_heads: int, head_dim: int):
+    """Shape of the paged KV pool (the serving engine's one cache tensor)."""
+    return (num_layers, num_blocks, block_tokens,
+            2 * num_kv_heads * head_dim)
+
+
+def _refuse_unported_paged(arch, params, kv_scales, mp_axis):
+    _refuse_unported(arch, params, kv_scales, row="5")
+    if mp_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel paged decode (mp_axis) is not ported yet "
+            "(ROADMAP Queue A item 8)")
+
+
+def fused_paged_decode_reference(x, params, kv_pool, block_tables, positions,
+                                 cos, sin, *, num_heads: int,
+                                 num_kv_heads: int, eps: float = 1e-5,
+                                 arch: str = "llama", kv_scales=None,
+                                 mp_axis=None):
+    """One decode step against the paged pool; plain PyTorch.
+
+    x (b, h); kv_pool (L, NB, BT, 2*nkv*hd); block_tables (b, MB) int;
+    positions (b,) int (each row's append position — the number of tokens
+    already cached for it); cos/sin (b, hd) fp32 rope rows gathered at each
+    row's position. Returns (x_out (b, h), kv_pool).
+
+    The arithmetic is ``fused_decode_reference``'s, line for line, with the
+    reference's numerics (``fused_decode.py:1742``). Unlike the reference,
+    which injects each row's append into its gathered view and scatters
+    once at the end, each layer writes its appends into the pool first and
+    then gathers: the values an active row attends over are the same (its
+    append block is private), and it is what K5 does. Rows whose table is
+    all scratch are idle: their appends land in block 0, their output is
+    meaningless, and where several idle rows write one scratch address the
+    last write wins.
+    """
+    _refuse_unported_paged(arch, params, kv_scales, mp_axis)
+    L, NB, BT, dkv2 = kv_pool.shape
+    b, MB = block_tables.shape
+    S = MB * BT
+    dkv = dkv2 // 2
+    nh, nkv = num_heads, num_kv_heads
+    hd = dkv // nkv
+    dq = nh * hd
+    dtype = x.dtype
+    scale = 1.0 / math.sqrt(hd)
+    dev = x.device
+    tables = block_tables.to(dev, torch.long)
+    pos = positions.to(dev, torch.long)
+    app_bid = torch.gather(tables, 1, (pos // BT)[:, None])[:, 0]
+    app_off = pos % BT
+    cos_b = cos.reshape(b, 1, hd).float()
+    sin_b = sin.reshape(b, 1, hd).float()
+    valid = (torch.arange(S, device=dev)[None] <= pos[:, None])[:, None, None]
+    xf = x.float()
+    for l in range(L):
+        xn = _rms(xf, params["ln1"][l], eps)
+        qkv = _wdot(xn, params["wqkv"][l])
+        q = qkv[:, :dq].reshape(b, nh, hd)
+        k = qkv[:, dq:dq + dkv].reshape(b, nkv, hd)
+        v = qkv[:, dq + dkv:].reshape(b, nkv, hd)
+        q = _rope1(q, cos_b, sin_b)
+        k = _rope1(k, cos_b, sin_b)
+        kv_new = torch.cat([k.reshape(b, dkv), v.reshape(b, dkv)], dim=-1)
+        kv_pool[l, app_bid, app_off] = kv_new.to(kv_pool.dtype)
+        kvl = kv_pool[l][tables].reshape(b, S, dkv2)
+        kl = kvl[:, :, :dkv].float().reshape(b, S, nkv, hd)
+        vl = kvl[:, :, dkv:].float().reshape(b, S, nkv, hd)
+        attn = _attend(q, kl, vl, valid, scale).to(dtype)
+        xf = xf + _wdot(attn, params["wo"][l])
+        xf = _mlp_residual(xf, params, l, eps, dtype)
+    return xf.to(dtype), kv_pool
+
+
+def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
+                            sin, *, num_heads: int, num_kv_heads: int,
+                            eps: float = 1e-5):
+    """Wrapper of K5 (one call = one decode step through all L layers over
+    the paged pool, 1 + 11L launches on the current stream). Checks dtype,
+    shape, contiguity and device and raises on anything else. Positions
+    and tables are read on the device, never on the host: the caller keeps
+    every position below MB·BT."""
+    what = "fused_paged_decode_cuda"
+    if kv_pool.dim() != 4 or block_tables.dim() != 2:
+        raise ValueError(f"{what}: pool {tuple(kv_pool.shape)} must be "
+                         "(L, NB, BT, 2*nkv*hd) and block_tables (b, MB)")
+    specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_pool,
+                                          num_heads, num_kv_heads)
+    L, NB, BT, _ = kv_pool.shape
+    MB = block_tables.shape[1]
+    _check_tensors(what, specs + [
+        ("block_tables", block_tables, torch.int32, (b, MB)),
+        ("positions", positions, torch.int32, (b,)),
+        ("cos", cos, torch.float32, (b, hd)),
+        ("sin", sin, torch.float32, (b, hd))], x.device)
+    lib = _kernel_lib()
+    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn)
+    p = _build.ptr
+    err = lib.fused_paged_decode_llama(
+        p(x), p(x_out), *(p(params[k]) for k in _PARAM_KEYS), p(kv_pool),
+        p(block_tables), p(positions), p(cos), p(sin),
+        *(p(t) for t in scratch), L, b, h, num_heads, num_kv_heads, hd, ffn,
+        NB, BT, MB, float(eps), _build.stream_of(x))
+    fused_paged_decode_cuda.launches += 1
+    _build.check(err, "fused_paged_decode_llama")
+    return x_out, kv_pool
+
+
+fused_paged_decode_cuda.launches = 0
+
+
+def fused_paged_decode_step(x, params, kv_pool, block_tables, positions,
+                            cos, sin, *, num_heads: int, num_kv_heads: int,
+                            eps: float = 1e-5, arch: str = "llama",
+                            blocks: Optional[Dict] = None, kv_scales=None,
+                            mp_axis=None):
+    """Dispatch one PAGED decode step: K5 on CUDA tensors, the plain
+    version on CPU tensors. Args follow ``fused_paged_decode_reference``;
+    ``blocks`` is checked against the pool dtype."""
+    _refuse_unported_paged(arch, params, kv_scales, mp_axis)
+    _check_plan(blocks, kv_pool)
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps)
+    if x.device.type == "cpu":
+        return fused_paged_decode_reference(
+            x, params, kv_pool, block_tables, positions, cos, sin, **kw)
+    return fused_paged_decode_cuda(x, params, kv_pool, block_tables,
+                                   positions, cos, sin, **kw)
+
+
+def paged_block_gather(kv_pool, bids):
+    """Whole physical blocks out of the pool: (L, n, BT, 2*nkv*hd), a fresh
+    tensor."""
+    return kv_pool[:, bids]
+
+
+def paged_block_scatter(kv_pool, bids, vals):
+    """Write whole blocks (L, n, BT, 2*nkv*hd) into the pool at ``bids``,
+    in place; returns the pool."""
+    kv_pool[:, bids] = vals.to(kv_pool.dtype)
+    return kv_pool

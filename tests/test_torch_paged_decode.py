@@ -1,0 +1,173 @@
+"""The paged decode step of paddle_tpu_torch against paddle_tpu's.
+
+* fused_paged_decode_reference (the plain version a CPU tensor runs) against
+  the JAX ``fused_paged_decode_reference`` in fp32, MHA and GQA: three rows
+  at different positions, one of them idle (its table all scratch), over a
+  shuffled block table. x_out and the whole pool after the appends agree
+  within atol 2e-5 (sums in another order).
+* The same against the TPU kernel itself, run as the JAX package runs it on
+  the CPU (``_fused_paged_decode_pallas(..., interpret=True)``), bf16,
+  nkv·hd = 128: atol 2e-2, rtol 2^-6, as for K2 — one or two bf16 ulp of the
+  output plus bf16 intermediates rounded on either side of a boundary, and
+  the kernel's in-kernel rope angles.
+* The paged plain version over a pool holding a contiguous cache's rows
+  equals the contiguous plain version, bit for bit.
+* Block gather/scatter round-trip; unported modes raise naming ROADMAP.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import fused_decode as jfd
+from paddle_tpu_torch.ops import fused_decode as tfd
+from paddle_tpu_torch.ops.rope import rope_cos_sin as trope_cos_sin
+
+# rows 0 and 1 active at their own positions through private shuffled
+# blocks; row 2 idle (table all scratch) at a position inside block 0
+BT, MB, NB = 8, 4, 12
+TABLES = np.array([[7, 3, 0, 0], [5, 9, 2, 11], [0, 0, 0, 0]], np.int32)
+POSITIONS = np.array([13, 29, 5], np.int32)
+
+
+def _params(r, L, h, nh, nkv, hd, ffn, sc=0.05):
+    dq, dkv = nh * hd, nkv * hd
+    f = lambda *s, sc=sc: (r.randn(*s) * sc).astype(np.float32)
+    return {"ln1": 1 + f(L, h, sc=0.1), "wqkv": f(L, h, dq + 2 * dkv),
+            "wo": f(L, dq, h), "ln2": 1 + f(L, h, sc=0.1),
+            "wg": f(L, h, ffn), "wu": f(L, h, ffn), "wd": f(L, ffn, h)}
+
+
+def _rope_rows(hd, positions):
+    c, s = trope_cos_sin(MB * BT, hd)
+    idx = torch.from_numpy(positions.astype(np.int64))
+    return c[idx], s[idx]
+
+
+@pytest.mark.parametrize("nkv", [4, 2])          # MHA, GQA
+def test_paged_reference_matches_jax_reference_fp32(nkv):
+    L, h, nh, hd, ffn = 2, 64, 4, 16, 96
+    r = np.random.RandomState(nkv)
+    params = _params(r, L, h, nh, nkv, hd, ffn)
+    x = r.randn(3, h).astype(np.float32)
+    pool = r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32)
+    cos, sin = _rope_rows(hd, POSITIONS)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xj, pj = jfd.fused_paged_decode_reference(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},
+        jnp.asarray(pool), jnp.asarray(TABLES), jnp.asarray(POSITIONS),
+        jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()), **kw)
+    xt, pt = tfd.fused_paged_decode_step(
+        torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in
+                              params.items()},
+        torch.from_numpy(pool.copy()), torch.from_numpy(TABLES),
+        torch.from_numpy(POSITIONS), cos, sin, **kw)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=2e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=2e-5,
+                               rtol=1e-5)
+    assert tfd.fused_paged_decode_cuda.launches == 0
+
+
+def test_paged_reference_matches_interpret_kernel_bf16():
+    """The TPU kernel in interpret mode vs the port's plain version."""
+    L, h, nh, nkv, hd, ffn = 2, 128, 4, 2, 64, 256
+    r = np.random.RandomState(0)
+    params = _params(r, L, h, nh, nkv, hd, ffn)
+    x = r.randn(3, h).astype(np.float32)
+    pool = r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32)
+    pj = {k: jnp.asarray(v, jnp.bfloat16) for k, v in params.items()}
+    pool_j = jnp.asarray(pool, jnp.bfloat16)
+    xj, poolj = jax.jit(lambda x, p, c: jfd._fused_paged_decode_pallas(
+        x, p, c, jnp.asarray(TABLES), jnp.asarray(POSITIONS), num_heads=nh,
+        num_kv_heads=nkv, head_dim=hd, eps=1e-5, interpret=True))(
+            jnp.asarray(x, jnp.bfloat16), pj, pool_j)
+    to_t = lambda a: torch.from_numpy(
+        np.asarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    cos, sin = _rope_rows(hd, POSITIONS)
+    xt, poolt = tfd.fused_paged_decode_step(
+        to_t(jnp.asarray(x, jnp.bfloat16)), {k: to_t(v) for k, v in
+                                             pj.items()},
+        to_t(pool_j), torch.from_numpy(TABLES), torch.from_numpy(POSITIONS),
+        cos, sin, num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    active = [0, 1]                 # the idle row's output is thrown away
+    np.testing.assert_allclose(xt.float().numpy()[active],
+                               np.asarray(xj, np.float32)[active],
+                               atol=2e-2, rtol=2 ** -6)
+    pool_ref = np.asarray(poolj, np.float32)
+    for row in active:
+        bid = TABLES[row, POSITIONS[row] // BT]
+        off = POSITIONS[row] % BT
+        np.testing.assert_allclose(poolt[:, bid, off].float().numpy(),
+                                   pool_ref[:, bid, off], atol=2e-2,
+                                   rtol=2 ** -6)
+    # every block but the appended rows and scratch is untouched by both
+    touched = {0} | {int(TABLES[i, POSITIONS[i] // BT]) for i in active}
+    rest = [i for i in range(NB) if i not in touched]
+    assert torch.equal(poolt[:, rest], to_t(pool_j)[:, rest])
+    np.testing.assert_array_equal(pool_ref[:, rest],
+                                  np.asarray(pool_j, np.float32)[:, rest])
+
+
+def test_paged_equals_contiguous_plain_bitwise():
+    """A pool holding a contiguous cache's rows block by block (one
+    position for every row) gives the contiguous plain version's bits."""
+    L, h, nh, nkv, hd, ffn, b, pos = 2, 64, 4, 2, 16, 96, 2, 19
+    S = MB * BT
+    r = np.random.RandomState(3)
+    params = {k: torch.from_numpy(v).bfloat16() for k, v in
+              _params(r, L, h, nh, nkv, hd, ffn).items()}
+    x = torch.from_numpy(r.randn(b, h).astype(np.float32)).bfloat16()
+    cache = torch.from_numpy(
+        r.randn(L, b, S, 2 * nkv * hd).astype(np.float32)).bfloat16()
+    tables = np.array([[4, 1, 10, 6], [2, 8, 3, 11]], np.int32)
+    pool = torch.zeros(L, NB, BT, 2 * nkv * hd, dtype=torch.bfloat16)
+    for i in range(b):
+        pool[:, torch.from_numpy(tables[i]).long()] = cache[:, i].reshape(
+            L, MB, BT, -1)
+    c, s = trope_cos_sin(S, hd)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xc, cache = tfd.fused_decode_step(x, params, cache, pos, c[pos:pos + 1],
+                                      s[pos:pos + 1], **kw)
+    positions = torch.full((b,), pos, dtype=torch.int32)
+    xp, pool = tfd.fused_paged_decode_step(
+        x, params, pool, torch.from_numpy(tables), positions,
+        c[positions.long()], s[positions.long()], **kw)
+    assert torch.equal(xp, xc)
+    for i in range(b):
+        assert torch.equal(pool[:, torch.from_numpy(tables[i]).long()]
+                           .reshape(L, S, -1), cache[:, i])
+
+
+def test_block_gather_scatter_roundtrip():
+    pool = torch.arange(2 * 6 * 8 * 4, dtype=torch.float32).reshape(2, 6, 8, 4)
+    bids = torch.tensor([4, 1])
+    got = tfd.paged_block_gather(pool, bids)
+    assert tuple(got.shape) == (2, 2, 8, 4)
+    assert torch.equal(got[:, 0], pool[:, 4])
+    out = tfd.paged_block_scatter(pool.clone(), torch.tensor([2, 5]), got)
+    assert torch.equal(out[:, 2], pool[:, 4]) and torch.equal(out[:, 5],
+                                                              pool[:, 1])
+    assert torch.equal(out[:, [0, 1, 3, 4]], pool[:, [0, 1, 3, 4]])
+    assert tfd.paged_pool_shape(32, 129, 128, 32, 128) == (32, 129, 128,
+                                                           8192)
+
+
+def test_paged_dispatch_refuses_unported_modes():
+    x = torch.zeros(1, 8)
+    pool = torch.zeros(1, 2, 8, 8)
+    tab = torch.zeros(1, 1, dtype=torch.int32)
+    pos = torch.zeros(1, dtype=torch.int32)
+    args = (x, {}, pool, tab, pos, None, None)
+    kw = dict(num_heads=1, num_kv_heads=1)
+    for extra in (dict(arch="gpt"), dict(kv_scales=torch.ones(1)),
+                  dict(mp_axis="mp")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfd.fused_paged_decode_step(*args, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfd.fused_paged_decode_step(x, {"wqkv_s": None}, pool, tab, pos,
+                                    None, None, **kw)
+    with pytest.raises(ValueError, match="cache"):
+        tfd.fused_paged_decode_step(*args, **kw, blocks={"cache_wbytes": 1})

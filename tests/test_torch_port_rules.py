@@ -2,9 +2,11 @@
 
 * No file of paddle_tpu_torch/, no examples/torch_*.py, and not
   chip_smoke.py imports jax or paddle_tpu (AST scan).
-* Kernel launch counters stay 0 when the entry points run on CPU tensors.
+* Kernel launch counters stay 0 when the entry points run on CPU tensors
+  (generate, a train step, a serving engine run).
 * An entry point called with no device on a machine without CUDA raises
-  instead of running on the CPU.
+  instead of running on the CPU; kernel wrappers refuse what their kernels
+  do not take.
 * The kernels against their plain versions on the card (marked `cuda`;
   skipped where torch.cuda.is_available() is False). Run them on a GPU
   machine with ``python -m pytest -m cuda tests/test_torch_port_rules.py``.
@@ -46,6 +48,8 @@ def test_scan_covers_the_package():
     assert "paddle_tpu_torch/ops/flash_attention.py" in names
     assert "paddle_tpu_torch/inference/__init__.py" in names
     assert {"paddle_tpu_torch/models/gpt.py", "paddle_tpu_torch/bench.py",
+            "paddle_tpu_torch/serving/engine.py",
+            "paddle_tpu_torch/serving/pool.py",
             "paddle_tpu_torch/optimizer/__init__.py",
             "examples/torch_train_profile.py",
             "examples/torch_decode_profile.py"} <= names
@@ -83,6 +87,71 @@ def test_training_counters_stay_zero_on_cpu():
     assert fa.flash_attention_fwd.launches == 0
     assert fa.flash_attention_bwd_dq.launches == 0
     assert fa.flash_attention_bwd_dkv.launches == 0
+
+
+def test_paged_counter_stays_zero_through_a_cpu_engine_run():
+    """A serving engine on CPU tensors decodes through the paged plain
+    version: K5 (and K2) count no launch."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.serving import Request, ServingEngine
+    fd.fused_paged_decode_cuda.launches = 0
+    fd.fused_decode_cuda.launches = 0
+    m = LlamaForCausalLM(LlamaConfig.tiny(), dtype=torch.bfloat16,
+                         device="cpu", seed=0)
+    eng = ServingEngine(m, max_slots=2, block_tokens=16, max_seq_len=64,
+                        device="cpu", temperature=0.7, top_k=10)
+    prompts = np.random.RandomState(0).randint(0, 256, (3, 6))
+    rids = [eng.submit(Request(p, max_new_tokens=5)) for p in prompts]
+    eng.drain()
+    assert all(len(eng.results[r].tokens) == 5 for r in rids)
+    assert eng.stats["steps"] > 0
+    assert fd.fused_paged_decode_cuda.launches == 0
+    assert fd.fused_decode_cuda.launches == 0
+
+
+def test_paged_wrapper_refuses_what_k5_does_not_take():
+    """fused_paged_decode_cuda raises on CPU tensors, a wrong dtype and a
+    non-contiguous pool, before any launch (no GPU needed)."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, h, nh, nkv, hd, ffn, b = 1, 64, 2, 1, 64, 64, 2
+    bf = torch.bfloat16
+    p = {"ln1": torch.ones(L, h, dtype=bf),
+         "wqkv": torch.zeros(L, h, (nh + 2 * nkv) * hd, dtype=bf),
+         "wo": torch.zeros(L, nh * hd, h, dtype=bf),
+         "ln2": torch.ones(L, h, dtype=bf),
+         "wg": torch.zeros(L, h, ffn, dtype=bf),
+         "wu": torch.zeros(L, h, ffn, dtype=bf),
+         "wd": torch.zeros(L, ffn, h, dtype=bf)}
+    x = torch.zeros(b, h, dtype=bf)
+    pool = torch.zeros(L, 4, 16, 2 * nkv * hd, dtype=bf)
+    tab = torch.zeros(b, 2, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    rows = torch.zeros(b, hd)
+    kw = dict(num_heads=nh, num_kv_heads=nkv)
+    call = lambda *a: fd.fused_paged_decode_cuda(*a, **kw)
+    with pytest.raises(ValueError, match="cuda"):
+        call(x, p, pool, tab, pos, rows, rows)            # CPU tensors
+    with pytest.raises(TypeError, match="float32"):
+        call(x.float(), p, pool, tab, pos, rows, rows)
+    with pytest.raises(TypeError, match="int32"):
+        call(x, p, pool, tab.long(), pos, rows, rows)
+    strided = torch.zeros(L, 4, 32, 2 * nkv * hd, dtype=bf)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        call(x, p, strided, tab, pos, rows, rows)
+    assert fd.fused_paged_decode_cuda.launches == 0
+
+
+def test_serving_engine_default_device_raises_without_cuda():
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu", seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(m)
+    with pytest.raises(ValueError, match="lives on"):
+        ServingEngine(m, device="meta")
 
 
 def test_flash_fwd_refuses_tensors_that_require_grad():
@@ -229,3 +298,49 @@ def test_flash_bwd_kernels_match_plain(cuda, h, nkv, sq, sk, d, causal,
         assert err <= 2 ** -6 * r.abs().max().item(), err
     if lens is not None and 0 in lens:
         assert all(not t.grad[1].any() for t in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nkv", [4, 1])
+def test_paged_decode_kernel_matches_plain_and_k2(cuda, nkv):
+    """K5 against its plain version over a shuffled block table with an
+    idle row, and bitwise against K2 when every row sits at one position
+    over the same KV."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, nh, hd, h, ffn, BT, MB = 2, 3, 4, 128, 512, 1024, 16, 8
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mk = lambda *s, sc=0.05: (torch.randn(*s, generator=g, device=cuda)
+                              * sc).bfloat16()
+    dq, dkv = nh * hd, nkv * hd
+    p = {"ln1": 1 + mk(L, h, sc=0.1), "wqkv": mk(L, h, dq + 2 * dkv),
+         "wo": mk(L, dq, h), "ln2": 1 + mk(L, h, sc=0.1),
+         "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
+    x = mk(b, h, sc=1.0)
+    pool = mk(L, 1 + b * MB, BT, 2 * dkv, sc=1.0)
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(0))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32).to(cuda)
+    tab[2] = 0                                        # an idle row
+    cos, sin = rope_cos_sin(BT * MB, hd, device=cuda)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    pos = torch.tensor([77, 120, 5], dtype=torch.int32, device=cuda)
+    c, s = cos.index_select(0, pos), sin.index_select(0, pos)
+    xk, pk = fd.fused_paged_decode_cuda(x, p, pool.clone(), tab, pos, c, s,
+                                        **kw)
+    xr, pr = fd.fused_paged_decode_reference(x, p, pool.clone(), tab, pos,
+                                             c, s, **kw)
+    torch.testing.assert_close(xk[:2].float(), xr[:2].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(pk[:, 1:].float(), pr[:, 1:].float(),
+                               atol=5e-2, rtol=2 ** -7)
+    tab[2] = (perm[2 * MB:] + 1).to(torch.int32).to(cuda)
+    at = 100
+    cache = torch.stack([pool[:, tab[r].long()].reshape(L, MB * BT, -1)
+                         for r in range(b)], dim=1)
+    x2, cache = fd.fused_decode_cuda(x, p, cache, at, cos[at:at + 1],
+                                     sin[at:at + 1], **kw)
+    p5 = torch.full((b,), at, dtype=torch.int32, device=cuda)
+    x5, pool = fd.fused_paged_decode_cuda(
+        x, p, pool, tab, p5, cos.index_select(0, p5),
+        sin.index_select(0, p5), **kw)
+    assert torch.equal(x5, x2)
