@@ -21,16 +21,24 @@ Phases, each printing one JSON line:
               16 blocks per row): rows at mixed positions with one idle row,
               MHA and GQA (nkv=8); then x_out and the appended rows bitwise
               against K2 with every row at one position over the same KV.
-  7. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
+  7. k7     — paged verify kernel (K7) vs its plain version at Llama-2-7B
+              width with 2 layers, b=8, a 5-token tail per row, over a
+              shuffled table (BT 128, 16 blocks per row), MHA and GQA:
+              mixed positions, a tail straddling a block boundary, an idle
+              row, a tail past its last mapped block and one past the
+              table; x_out of mapped tokens, the appended rows, the rest of
+              the pool unchanged; then an all-accepted K7 step against 5
+              sequential K5 steps on a copy of the pool, per token.
+  8. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
               run; time to first token (generate with one new token) and
               decode ms/step (the rest of the greedy run per step); one
               teacher-forced decode step through the kernel and the plain
               path, logits compared.
-  8. timing — K1 (prefill shape) and K2 times beside the bound, the plain
+  9. timing — K1 (prefill shape) and K2 times beside the bound, the plain
               version and (flash attention) PyTorch's sdpa.
-  9. serve  — Llama-2-7B (the e2e phase's model, its plan and cache freed)
+ 10. serve  — Llama-2-7B (the e2e phase's model, its plan and cache freed)
               through serving.ServingEngine (max_slots 8, block_tokens 128,
               max_seq_len 2048): 16 greedy requests, prompts of 100–1000
               tokens and 16–96 new tokens from seed 0, eight of them behind a
@@ -42,21 +50,36 @@ Phases, each printing one JSON line:
               version on the logits; K5 timed at 8 rows averaging ~700
               cached tokens; then a second engine serves 8 sampled requests
               (temperature 0.8, top-k 50, top-p 0.9) with their own seeds.
- 10. train  — GPT-2 345M (24 layers, bf16, random weights from seed 0)
+ 11. spec   — the same model through ServingEngine(speculate=SpecConfig(k=4))
+              (8 slots, block 128): 16 greedy requests from seed 0 with
+              32–128 new tokens, 8 of 400–1000-token prompts tiling a
+              16–64-token motif and 8 random, 2 "high" that preempt; launch
+              counts (K7 once per speculative tick, K5 per plain tick and
+              replayed token); K7 timed at 8 rows × 5 tokens averaging ~700
+              cached tokens; the same requests through a plain engine (an
+              A/B, reported) and where the two engines' tokens part; a
+              k=4 engine on the random half with one forced-acceptance
+              tick (its proposals are the next 4 greedy tokens of K5 steps
+              over a clone of the pool: a multi-token commit, a stop inside
+              the accepted run, and a K5 step over K7's appended history
+              against one over K5's); then an adaptive engine (k_min 0) on
+              the random half with a teacher-forced 32-layer K7 step over
+              its live pool vs the plain verify on the logits.
+ 12. train  — GPT-2 345M (24 layers, bf16, random weights from seed 0)
               pretraining through the bench twin's step
               (paddle_tpu_torch.bench): B=8, S=1024, AdamW 1e-4, a warm-up
               pass and a counted, timed pass of 20 steps each; K1, K3 and
               K4 must each launch 24 × 20 times in the counted pass, the
               loss must stay finite and fall.
- 11. step   — one train step of a 2-layer GPT at full width (hidden 1024,
+ 13. step   — one train step of a 2-layer GPT at full width (hidden 1024,
               16 heads, vocab 50304, B=1, S=1024): on the card in bf16
               through the kernels, against the same weights on the CPU in
               fp32 through the plain versions; loss and every gradient.
- 12. timing_train — K1, K3 and K4 at the training shape beside the bound,
+ 14. timing_train — K1, K3 and K4 at the training shape beside the bound,
               the plain version and PyTorch's sdpa (forward; backward for
               the K3/K4 pair).
 
---quick stops after phase 6. Every failure propagates and exits non-zero.
+--quick stops after phase 7. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -352,6 +375,141 @@ def phase_k5(fd, rope, gen):
     return max(c["max_abs_err"] for c in cases)
 
 
+# ---- K7 -----------------------------------------------------------------------
+
+K7_K1 = 5      # the spec phase's tail: the last token and k = 4 proposals
+
+
+def k7_pool(gen, L, dkv2, nmap):
+    """A random pool and a shuffled block table: row r maps nmap[r] private
+    blocks drawn from a permutation; the rest of its table (all of an idle
+    row's) points at scratch block 0. Returns (pool, tables (b, MB) int32
+    cuda)."""
+    b = len(nmap)
+    nb = 1 + b * K5_MB
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        b + L + 7)) + 1
+    tables = torch.zeros((b, K5_MB), dtype=torch.int32)
+    nxt = 0
+    for r, n in enumerate(nmap):
+        tables[r, :n] = perm[nxt:nxt + n].to(torch.int32)
+        nxt += n
+    return rand((L, nb, K5_BT, dkv2), gen), tables.cuda()
+
+
+def k7_rope(rope, hd, positions, K1):
+    """(b, K1, hd) rope rows at min(pos + j, S - 1), as the engine gathers
+    them."""
+    S = K5_BT * K5_MB
+    cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
+    pj = torch.clamp(torch.tensor(positions, device="cuda")[:, None]
+                     + torch.arange(K1, device="cuda")[None], max=S - 1)
+    return cos[pj], sin[pj]
+
+
+def k7_case(fd, rope, gen, nkv, positions, nmap, L=2):
+    """K7 against the plain verify. Compared: x_out of every mapped tail
+    token (its position and all before it in mapped blocks), the appended
+    rows at mapped positions, and every other row of every block but
+    scratch (untouched by both)."""
+    h, nh, hd, ffn = 4096, 32, 128, 11008
+    b, K1 = len(positions), K7_K1
+    params = fused_params(gen, L, h, nh, nkv, hd, ffn)
+    pool, tables = k7_pool(gen, L, 2 * nkv * hd, nmap)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    c, s = k7_rope(rope, hd, positions, K1)
+    x = rand((b, K1, h), gen)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    pool_k = pool.clone()
+    xo, _ = fd.fused_paged_verify_cuda(x, params, pool_k, tables, pos, c, s,
+                                       **kw)
+    torch.cuda.synchronize()
+    xr, pool_r = fd.fused_paged_verify_reference(x, params, pool, tables,
+                                                 pos, c, s, **kw)
+    mapped = [(r, j) for r in range(b) for j in range(K1)
+              if (positions[r] + j) // K5_BT < min(nmap[r], K5_MB)]
+    rr = torch.tensor([r for r, _ in mapped], device="cuda")
+    jj = torch.tensor([j for _, j in mapped], device="cuda")
+    err, ok_x = close(xo[rr, jj], xr[rr, jj], K2_ATOL, K2_RTOL)
+    t = pos.long()[rr] + jj
+    bids = tables.long()[rr, t // K5_BT]
+    offs = t % K5_BT
+    row_err, ok_row = close(pool_k[:, bids, offs], pool_r[:, bids, offs],
+                            K2_ATOL, K2_RTOL)
+    mask = torch.ones(pool.shape[1:3], dtype=torch.bool, device="cuda")
+    mask[bids, offs] = False
+    mask[0] = False
+    untouched = bool(torch.equal(pool_k[:, mask], pool_r[:, mask]))
+    ok = (ok_x and ok_row and untouched
+          and bool(torch.isfinite(xo.float()).all()))
+    return {"nkv": nkv, "L": L, "b": b, "K1": K1, "block_tokens": K5_BT,
+            "blocks_per_row": K5_MB, "positions": positions,
+            "mapped_blocks": nmap, "mapped_tokens": len(mapped),
+            "max_abs_err": err, "row_max_abs_err": row_err,
+            "rest_of_pool_unchanged": untouched, "atol": K2_ATOL,
+            "rtol": K2_RTOL, "ok": ok}
+
+
+def k7_vs_k5(fd, rope, gen, nkv=32, L=2):
+    """An all-accepted K7 step against K1 sequential K5 steps over a clone
+    of the same pool: token j's x_out against K5's step at pos + j, and
+    the appended rows. Sums run in other orders (tensor cores vs K5's
+    split-K), so the bound is K2's tolerance, per token."""
+    h, nh, hd, ffn = 4096, 32, 128, 11008
+    K1 = K7_K1
+    positions = [1037, 126, 700, 3, 200, 5, 1900, 1500]
+    idle = (3,)
+    b = len(positions)
+    nmap = [0 if r in idle else (p + K1 - 1) // K5_BT + 1
+            for r, p in enumerate(positions)]
+    params = fused_params(gen, L, h, nh, nkv, hd, ffn)
+    pool, tables = k7_pool(gen, L, 2 * nkv * hd, nmap)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    c, s = k7_rope(rope, hd, positions, K1)
+    x = rand((b, K1, h), gen)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    pool7 = pool.clone()
+    x7, _ = fd.fused_paged_verify_cuda(x, params, pool7, tables, pos, c, s,
+                                       **kw)
+    active = [r for r in range(b) if r not in idle]
+    per_token, ok = [], True
+    for j in range(K1):
+        pj = pos + j
+        x5, pool = fd.fused_paged_decode_cuda(
+            x[:, j].contiguous(), params, pool, tables, pj,
+            c[:, j].contiguous(), s[:, j].contiguous(), **kw)
+        torch.cuda.synchronize()
+        err, ok_j = close(x7[active, j], x5[active], K2_ATOL, K2_RTOL)
+        t = pj.long()[active]
+        bids = tables.long()[active, t // K5_BT]
+        row_err, ok_r = close(pool7[:, bids, t % K5_BT],
+                              pool[:, bids, t % K5_BT], K2_ATOL, K2_RTOL)
+        per_token.append({"j": j, "x_out_max_abs_diff": err,
+                          "appended_row_max_abs_diff": row_err})
+        ok &= ok_j and ok_r
+    return {"nkv": nkv, "L": L, "b": b, "K1": K1, "positions": positions,
+            "idle_rows": list(idle), "per_token": per_token,
+            "atol": K2_ATOL, "rtol": K2_RTOL, "ok": ok}
+
+
+def phase_k7(fd, rope, gen):
+    # row 1 straddles a block boundary (126..130), row 3 is idle, row 4's
+    # tail runs past its last mapped block (254..258 with 2 blocks), row 6
+    # past the table itself (2045..2049, blocks 16 and beyond: scratch)
+    positions = [1037, 126, 700, 3, 254, 5, 2045, 1500]
+    nmap = [9, 2, 6, 0, 2, 1, K5_MB, 12]
+    cases = [k7_case(fd, rope, gen, 32, positions, nmap),
+             k7_case(fd, rope, gen, 8, positions, nmap)]
+    seq = k7_vs_k5(fd, rope, gen)
+    emit({"phase": "k7", "cases": cases, "vs_k5_sequential": seq})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K7 disagrees with its plain version: {bad}")
+    if not seq["ok"]:
+        raise AssertionError(f"K7 disagrees with sequential K5 steps: {seq}")
+    return max(c["max_abs_err"] for c in cases)
+
+
 # ---- K3 / K4 ------------------------------------------------------------------
 
 def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None):
@@ -414,6 +572,7 @@ def reset_counts(fa, fd):
     fa.flash_attention_bwd_dkv.launches = 0
     fd.fused_decode_cuda.launches = 0
     fd.fused_paged_decode_cuda.launches = 0
+    fd.fused_paged_verify_cuda.launches = 0
 
 
 def counts(fa, fd):
@@ -421,7 +580,8 @@ def counts(fa, fd):
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
             "fused_decode_step": fd.fused_decode_cuda.launches,
-            "fused_paged_decode_step": fd.fused_paged_decode_cuda.launches}
+            "fused_paged_decode_step": fd.fused_paged_decode_cuda.launches,
+            "fused_paged_verify_step": fd.fused_paged_verify_cuda.launches}
 
 
 def phase_e2e(fa, fd):
@@ -454,7 +614,8 @@ def phase_e2e(fa, fd):
         if got != {"flash_attention_fwd": cfg.num_layers,
                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                    "fused_decode_step": NEW - 1,
-                   "fused_paged_decode_step": 0}:
+                   "fused_paged_decode_step": 0,
+                   "fused_paged_verify_step": 0}:
             raise AssertionError(f"{name}: launch counts {got}, expected "
                                  f"{cfg.num_layers} and {NEW - 1}")
         if tuple(out.shape) != (B, PROMPT + NEW) \
@@ -835,6 +996,479 @@ def phase_serve(fa, fd, model, bw, flops, k5_err):
     return row, total
 
 
+# ---- speculative serving --------------------------------------------------------
+
+SPEC_K = 4
+
+
+def spec_requests(vocab):
+    """16 greedy requests from seed 0, 32–128 new tokens each: 8 whose
+    400–1000-token prompts tile a 16–64-token motif (the extraction, code
+    and quoting traffic prompt lookup serves), 8 random 100–1000-token
+    prompts."""
+    r = np.random.RandomState(0)
+    motif, rand_ = [], []
+    for _ in range(8):
+        m = r.randint(0, vocab, r.randint(16, 65))
+        n = r.randint(400, 1001)
+        motif.append((np.resize(m, n), int(r.randint(32, 129))))
+    for _ in range(8):
+        rand_.append((r.randint(0, vocab, r.randint(100, 1001)),
+                      int(r.randint(32, 129))))
+    return motif, rand_
+
+
+def drive_spec(eng, lows, highs):
+    """Submit the lows, tick until every slot is busy, submit the highs
+    (they preempt), drain. Returns (request ids, the ticks each request
+    decoded in)."""
+    from paddle_tpu_torch.serving import Request
+    ticks = {}
+
+    def step():
+        done = eng.step()["finished"]
+        for rid in done + [s.req.request_id for s in eng._slots
+                           if s is not None]:
+            ticks[rid] = ticks.get(rid, 0) + 1
+
+    rids = [eng.submit(Request(p, max_new_tokens=n, priority="low"))
+            for p, n in lows]
+    for _ in range(8):
+        if eng.active_slots == SERVE["max_slots"]:
+            break
+        step()
+    rids += [eng.submit(Request(p, max_new_tokens=n, priority="high"))
+             for p, n in highs]
+    step()
+    if eng.stats["preemptions"] < 1:
+        raise AssertionError(f"spec: no preemption ({eng.stats})")
+    while not eng.idle:
+        step()
+    return rids, ticks
+
+
+def teacher_forced_k7(fd, eng):
+    """One 32-layer verify over the live engine state: K7 against the plain
+    verify from the same tail (each slot's last token and the proposals the
+    last tick produced, zeros where it produced none), pool, tables and
+    positions (the host mirrors the next tick would upload); logits of
+    every mapped tail token of the active rows compared. Both write only
+    the rows' tail positions (which the next verify rewrites before
+    reading them) or scratch; the comparison launch is not counted as the
+    path's."""
+    tables_np, positions_np, toks_np = eng._tables, eng._positions, eng._toks
+    ntab = [0 if s is None else s.ntab for s in eng._slots]
+    pool = eng.kv_pool
+    up = lambda a: torch.tensor(a, device="cuda")
+    tables, positions = up(tables_np), up(positions_np)
+    b, K1 = len(positions_np), SPEC_K + 1
+    props = (eng._dev_prop[0] if eng._dev_prop is not None
+             and eng._dev_prop[0].shape[1] == SPEC_K else
+             torch.zeros((b, SPEC_K), dtype=torch.int32, device="cuda"))
+    tail = torch.cat([up(toks_np)[:, None], props.long()], dim=1)
+    S, BT = eng.max_seq_len, eng.block_tokens
+    pj = torch.clamp(positions.long()[:, None]
+                     + torch.arange(K1, device="cuda")[None], max=S - 1)
+    plan, meta = eng._plan, eng.meta
+    x = plan["embed"](tail.reshape(-1), pj.reshape(-1)).reshape(b, K1, -1)
+    cos, sin = eng._cos_tab[pj], eng._sin_tab[pj]
+    kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
+              eps=meta["eps"])
+    n0 = fd.fused_paged_verify_cuda.launches
+    xk, _ = fd.fused_paged_verify_cuda(x, plan["params"], pool, tables,
+                                       positions, cos, sin, **kw)
+    torch.cuda.synchronize()
+    fd.fused_paged_verify_cuda.launches = n0
+    xp, _ = fd.fused_paged_verify_reference(x, plan["params"], pool, tables,
+                                            positions, cos, sin, **kw)
+    mapped = [(r, j) for r in range(b) if ntab[r] for j in range(K1)
+              if (positions_np[r] + j) // BT < ntab[r]]
+    rr = torch.tensor([r for r, _ in mapped], device="cuda")
+    jj = torch.tensor([j for _, j in mapped], device="cuda")
+    lk = plan["head"](xk[rr, jj]).float()
+    lp = plan["head"](xp[rr, jj]).float()
+    err, ok = close(lk, lp, SERVE_LOGIT_ATOL, E2E_RTOL)
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    return {"rows": sorted({r for r, _ in mapped}), "tail_tokens":
+            len(mapped), "positions": positions_np.tolist(),
+            "logit_max_abs_err": err, "logit_absmax": lp.abs().max().item(),
+            "argmax_agree": agree, "atol": SERVE_LOGIT_ATOL,
+            "rtol": E2E_RTOL, "ok": ok}
+
+
+def time_k7(fd, eng, bw, flops):
+    """K7 and its plain version at b=8, K1=5, rows averaging ~700 cached
+    tokens, over the engine's pool (blocks borrowed from its free list).
+    Bound: every layer weight once, each row's filled KV and its K1
+    appended rows, x in and out, at the card's memory rate; the tail's
+    2·params·40 FLOP (and the attention's) at its bf16 rate."""
+    K1 = SPEC_K + 1
+    positions = [int(p) for p in np.linspace(100, 1300, 8)]
+    BT, L = eng.block_tokens, eng._num_layers
+    borrowed = []
+    tables = np.zeros((8, eng.max_blocks_per_slot), np.int32)
+    for i, p in enumerate(positions):
+        bids = eng.pool.alloc((p + K1 - 1) // BT + 1)
+        tables[i, :len(bids)] = bids
+        borrowed += bids
+    tab = torch.tensor(tables, device="cuda")
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    plan, meta = eng._plan, eng.meta
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    h = plan["params"]["ln1"].shape[1]
+    x = rand((8, K1, h), gen)
+    pj = pos.long()[:, None] + torch.arange(K1, device="cuda")[None]
+    cos, sin = eng._cos_tab[pj], eng._sin_tab[pj]
+    kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
+              eps=meta["eps"])
+    n0 = fd.fused_paged_verify_cuda.launches
+    ms = time_ms(lambda: fd.fused_paged_verify_cuda(
+        x, plan["params"], eng.kv_pool, tab, pos, cos, sin, **kw), iters=20)
+    fd.fused_paged_verify_cuda.launches = n0
+    plain = time_ms(lambda: fd.fused_paged_verify_reference(
+        x, plan["params"], eng.kv_pool, tab, pos, cos, sin, **kw), iters=2,
+        warmup=1)
+    for bid in borrowed:
+        eng.pool.free(bid)
+    params = plan["params"]
+    wbytes = sum(t.numel() * t.element_size() for t in params.values())
+    row = eng.kv_pool.shape[3] * eng.kv_pool.element_size()
+    keys = sum(p + K1 for p in positions)           # rows each row reads
+    nbytes = wbytes + L * row * keys + L * row * 8 * K1 + 2 * x.numel() * 2
+    pairs = sum(p + j + 1 for p in positions for j in range(K1))
+    nflops = 2 * 8 * K1 * sum(t.numel() for t in params.values()) \
+        + L * meta["num_heads"] * 4 * meta["head_dim"] * pairs
+    tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
+    return {"b": 8, "K1": K1, "positions": positions,
+            "mean_cached_tokens": sum(positions) / 8, "ms": ms,
+            "plain_ms": plain, "bytes": nbytes, "flops": nflops,
+            "bound_ms": max(tb, to), "bytes_ms": tb, "operations_ms": to,
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def engine_metrics(eng, wall, results, want):
+    st = dict(eng.stats)
+    lengths = [len(r.tokens) for r in results]
+    ttft = sorted(r.ttft_s for r in results)
+    slot_ticks = st["steps"] * eng.max_slots - st["idle_slot_steps"]
+    return {"wall_s": wall, "generated": lengths,
+            "full_length": lengths == want,
+            "tokens_per_s": sum(lengths) / wall,
+            "decode_ms_per_tick": 1e3 * (st["step_dispatch_s"]
+                                         + st["step_sync_s"]) / st["steps"],
+            "tokens_per_tick_per_active_slot":
+                st["decode_tokens"] / max(slot_ticks, 1),
+            "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+            "ttft_p99_ms": 1e3 * ttft[min(len(ttft) - 1,
+                                          int(0.99 * len(ttft)))],
+            "prefill_s": st["step_prefill_s"], "stats": st}
+
+
+def forced_acceptance(fa, fd, model, reqs, plain_tokens):
+    """A speculative engine (k=4) on `reqs` whose proposals, on one tick,
+    are the plain engine's next k greedy tokens: random weights accept
+    next to nothing from the n-gram matcher, so this is the tick that
+    drives a multi-token commit, positions, tokens and counts moving by
+    acc + 1 on the device, and a stop inside an accepted run on the card.
+
+    Tick A is the first clean tick (every slot busy, nothing queued, no
+    event that would re-zero the proposals on it or on the tick after).
+    Before it, k + 1 sequential K5 steps over a clone of the pool give each
+    row's greedy continuation o_0..o_k and the top-2 logit gap of each;
+    o_0..o_{k-1} replace the carried proposals. After it:
+      - every row accepts at least the prefix of proposals whose gap
+        exceeds SERVE_LOGIT_ATOL (below it K7 and K5 may round to other
+        argmaxes), these prefixes are not all empty, and the accepted
+        tokens are the proposals;
+      - one K5 step at each row's next position (host mirrors) over the
+        live pool, whose new history K7 appended, matches the same step
+        over the clone, whose history K5 appended (logits within
+        SERVE_LOGIT_ATOL/E2E_RTOL).
+    Tick B runs on the device twins tick A advanced. Row 0's budget is cut
+    to 2 more tokens and its first proposal set to that K5 step's argmax:
+      - every other row's first token of tick B is that argmax where its
+        gap exceeds SERVE_LOGIT_ATOL;
+      - row 0 commits 2 tokens and finishes by length (a stop inside the
+        accepted run) where its gap does.
+    Then the engine drains: every request reaches its length, no block
+    leaks, K7 launches equal its spec ticks, and where its tokens part from
+    the plain engine's is reported. Comparison launches are not counted
+    as the path's."""
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+    K, BT = SPEC_K, SERVE["block_tokens"]
+    thr = SERVE_LOGIT_ATOL
+    assert len(reqs) == SERVE["max_slots"]
+    eng = ServingEngine(model, **SERVE, speculate=SpecConfig(k=K))
+    reset_counts(fa, fd)
+    rids = [eng.submit(Request(p, max_new_tokens=n)) for p, n in reqs]
+
+    def clean():
+        act = [s for s in eng._slots if s is not None]
+        return (len(act) == eng.max_slots and not eng.queued
+                and not eng._dirty and eng._dev_prop is not None
+                and all((s.pos + 2 * K + 1) // BT < s.ntab
+                        and s.req.max_new_tokens - s.count > 2 * K + 2
+                        for s in act))
+
+    for warm in range(1, 33):
+        eng.step()
+        if clean():
+            break
+    else:
+        raise AssertionError("spec forced: no clean tick in 32")
+    slots = list(eng._slots)
+    up = lambda a: torch.tensor(a, device=eng.device)
+    plan, meta = eng._plan, eng.meta
+    kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
+              eps=meta["eps"])
+    n5 = fd.fused_paged_decode_cuda.launches
+
+    def k5_step(pool, tables, positions, toks):
+        """(argmax, top-2 gap) of one K5 step, and the pool."""
+        x = plan["embed"](toks, positions)
+        xk, pool = fd.fused_paged_decode_cuda(
+            x, plan["params"], pool, tables, positions,
+            eng._cos_tab.index_select(0, positions),
+            eng._sin_tab.index_select(0, positions), **kw)
+        top = plan["head"](xk).float().topk(2, dim=-1)
+        return (top.indices[:, 0], top.values[:, 0] - top.values[:, 1],
+                top.values, pool)
+
+    def mirrors():
+        return up(eng._tables), up(eng._positions), up(eng._toks)
+
+    # tick A: the oracle's proposals
+    tables, pos0, tok = mirrors()
+    clone = eng.kv_pool.clone()
+    oracle, gaps = [], []
+    for j in range(K + 1):
+        tok, gap, _, clone = k5_step(clone, tables, pos0 + j, tok)
+        oracle.append(tok.tolist())
+        gaps.append(gap.tolist())
+    eng._dev_prop = (torch.tensor(oracle[:K], dtype=torch.int32,
+                                  device=eng.device).T.contiguous(),
+                     up(np.full(eng.max_slots, K, np.int32)))
+    before = [len(s.tokens) for s in slots]
+    acc0 = eng.stats["spec_accepted"]
+    eng.step()
+    committed = [len(s.tokens) - n for s, n in zip(slots, before)]
+    accepted = eng.stats["spec_accepted"] - acc0
+    prefix = [next((j for j in range(K) if gaps[j][i] <= thr), K)
+              for i in range(len(slots))]
+    acc = [c - 1 for c in committed]
+    oracle_kept = all(s.tokens[n:n + a] == [o[i] for o in oracle[:a]]
+                      for i, (s, n, a) in enumerate(zip(slots, before, acc)))
+    cut = 0
+    # K7's appended history against K5's, one step at the next position
+    tables, positions, toks = mirrors()
+    nxt, gap_b, live, _ = k5_step(eng.kv_pool, tables, positions, toks)
+    _, _, ref, _ = k5_step(clone, tables, positions, toks)
+    del clone
+    hist_err, hist_ok = close(live, ref, thr, E2E_RTOL)
+    fd.fused_paged_decode_cuda.launches = n5
+    nxt, gap_b = nxt.tolist(), gap_b.tolist()
+
+    # tick B: over the device twins tick A left; row 0 stops inside its run
+    clean_b = not eng._dirty
+    props, nprop = eng._dev_prop
+    props, nprop = props.clone(), nprop.clone()
+    props[cut, 0], nprop[cut] = nxt[cut], max(int(nprop[cut]), 1)
+    eng._dev_prop = (props, nprop)
+    slots[cut].req.max_new_tokens = slots[cut].count + 2
+    before_b = [len(s.tokens) for s in slots]
+    eng.step()
+    first_b = [s.tokens[n] for s, n in zip(slots, before_b)]
+    device_ok = clean_b and all(first_b[i] == nxt[i]
+                                for i in range(len(slots))
+                                if i != cut and gap_b[i] > thr)
+    cut_res = eng.results.get(slots[cut].req.request_id)
+    cut_committed = len(slots[cut].tokens) - before_b[cut]
+    cut_ok = gap_b[cut] <= thr or (cut_committed == 2 and cut_res is not None
+                                   and cut_res.finish == "length")
+    while not eng.idle:
+        eng.step()
+    got = counts(fa, fd)
+    st = dict(eng.stats)
+    results = [eng.pop_result(i) for i in rids]
+    slot_of = {s.req.request_id: i for i, s in enumerate(slots)}
+    want = [slots[slot_of[r]].req.max_new_tokens for r in rids]
+    lengths = [len(r.tokens) for r in results]
+    eng.prefix_cache.clear()
+    leaked = eng.pool.used_blocks
+    eng.close()
+    del eng
+    gc.collect()
+    parting = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                    min(len(x), len(y)))
+               for x, y in zip((r.tokens.tolist() for r in results),
+                               plain_tokens)]
+    res = {"warm_ticks": warm, "positions_at_a": pos0.tolist(),
+           "tokens_before_a": [before[slot_of[r]] for r in rids],
+           "gap_prefix": prefix, "accepted_at_a": acc,
+           "tick_a_accepted": accepted,
+           "tick_a_tokens_per_active_slot": sum(committed) / len(slots),
+           "history_logit_max_abs_err": hist_err,
+           "tick_b_gap_above_atol": [g > thr for g in gap_b],
+           "tick_b_first_token_is_k5_argmax": [a == b for a, b in
+                                               zip(first_b, nxt)],
+           "cut_row_committed": cut_committed, "cut_row_finish":
+               None if cut_res is None else cut_res.finish,
+           "generated": lengths, "want": want,
+           "first_parting_token_vs_plain": parting, "stats": st,
+           "launches": got, "pool_used_blocks_after_clear": leaked}
+    checks = {
+        "gap prefix accepted": all(a >= p for a, p in zip(acc, prefix))
+        and sum(prefix) > 0 and oracle_kept,
+        "history appended by K7": hist_ok,
+        "device twins advanced by acc + 1": device_ok,
+        "stop inside the accepted run": cut_ok,
+        "every request at its length": lengths == want,
+        "no leaked block": leaked == 0,
+        "K7 once per speculative tick": got["fused_paged_verify_step"]
+        == st["spec_ticks"] > 0,
+    }
+    res["ok"] = all(checks.values())
+    res["failed"] = [k for k, v in checks.items() if not v]
+    return res
+
+
+def phase_spec(fa, fd, model, bw, flops, k7_err):
+    """Llama-2-7B through ServingEngine(speculate=SpecConfig(k=4)): one K7
+    launch per tick; then the same requests through a plain engine (an A/B
+    that is reported, not claimed); a forced-acceptance tick on the random
+    half (`forced_acceptance`); then an adaptive engine (k_min=0) on the
+    random half."""
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    motif, rand_ = spec_requests(cfg.vocab_size)
+    lows, highs = motif + rand_[:6], rand_[6:]
+    want = [n for _, n in lows + highs]
+    runs, tokens = {}, {}
+    launches = None
+    for name, spec in (("spec", SpecConfig(k=SPEC_K)), ("plain", None)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(model, **SERVE, speculate=spec)
+        reset_counts(fa, fd)
+        t0 = time.perf_counter()
+        rids, ticks = drive_spec(eng, lows, highs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(fa, fd)
+        results = [eng.pop_result(i) for i in rids]
+        m = engine_metrics(eng, wall, results, want)
+        m["launches"] = got
+        m["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        per_tick = [(len(r.tokens) - 1) / max(ticks.get(i, 1), 1)
+                    for i, r in zip(rids, results)]
+        m["tokens_per_tick_motif_half"] = sum(per_tick[:8]) / 8
+        m["tokens_per_tick_random_half"] = sum(per_tick[8:]) / 8
+        if spec is not None:
+            st = m["stats"]
+            m["acceptance"] = st["spec_accepted"] / max(st["spec_proposed"],
+                                                        1)
+            m["k7_timing"] = time_k7(fd, eng, bw, flops)
+            launches = got
+        eng.prefix_cache.clear()
+        m["pool_used_blocks_after_clear"] = eng.pool.used_blocks
+        tokens[name] = [r.tokens.tolist() for r in results]
+        runs[name] = m
+        eng.close()
+        del eng
+        gc.collect()
+    # where the two engines' greedy tokens first part, per request
+    # (reported: K7's tensor-core sums and K5's split-K sums round apart)
+    parting = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                    min(len(x), len(y)))
+               for x, y in zip(tokens["spec"], tokens["plain"])]
+
+    # one tick whose proposals are the plain engine's greedy continuation
+    torch.cuda.empty_cache()
+    forced = forced_acceptance(fa, fd, model, rand_, tokens["plain"][8:])
+    gc.collect()
+
+    # adaptive k on the random half; after its third tick, with every slot
+    # busy, the teacher-forced K7 check over its live state (this run's
+    # wall time includes the check)
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, **SERVE, speculate=SpecConfig(
+        k=SPEC_K, adaptive=True, k_min=0))
+    reset_counts(fa, fd)
+    arids = [eng.submit(Request(p, max_new_tokens=n)) for p, n in rand_]
+    widths = []
+    tf = None
+    t0 = time.perf_counter()
+    while not eng.idle:
+        eng.step()
+        widths.append(eng._spec_k_eff)
+        if len(widths) == 3:
+            tf = teacher_forced_k7(fd, eng)
+    torch.cuda.synchronize()
+    awall = time.perf_counter() - t0
+    agot = counts(fa, fd)
+    ares = [eng.pop_result(i) for i in arids]
+    ast = dict(eng.stats)
+    eng.prefix_cache.clear()
+    aleaked = eng.pool.used_blocks
+    eng.close()
+    del eng
+    gc.collect()
+    adaptive = {"requests": len(arids), "wall_s": awall,
+                "generated": [len(r.tokens) for r in ares],
+                "k_per_tick": widths, "stats": ast, "launches": agot,
+                "teacher_forced": tf,
+                "pool_used_blocks_after_clear": aleaked}
+
+    sp, pl = runs["spec"], runs["plain"]
+    st = sp["stats"]
+    res = {"phase": "spec", "model": "llama2_7b", "layers": L,
+           "dtype": "bfloat16", **SERVE, "k": SPEC_K, "requests": len(want),
+           "prompt_lens": [len(p) for p, _ in lows + highs],
+           "max_new": want, "spec": sp, "plain": pl,
+           "first_parting_token": parting, "forced_acceptance": forced,
+           "adaptive_random_half": adaptive}
+    emit(res)
+    checks = {
+        "every request at its full length": sp["full_length"]
+        and pl["full_length"]
+        and adaptive["generated"] == [n for _, n in rand_],
+        "no leaked block": sp["pool_used_blocks_after_clear"] == 0
+        and pl["pool_used_blocks_after_clear"] == 0 and aleaked == 0,
+        "K7 once per speculative tick": launches["fused_paged_verify_step"]
+        == st["spec_ticks"] > 0,
+        "K5 once per plain tick and replayed token":
+            launches["fused_paged_decode_step"]
+            == st["steps"] - st["spec_ticks"] + st["replay_tokens"],
+        "K1 32 per prefill group": launches["flash_attention_fwd"]
+        == L * st["prefill_groups"],
+        "K2 never": launches["fused_decode_step"] == 0,
+        "a preemption and a replay": st["preemptions"] >= 1
+        and st["replay_tokens"] >= 1,
+        "teacher-forced logits": tf is not None and tf["ok"],
+        "forced acceptance": forced["ok"],
+        "adaptive launches split": agot["fused_paged_verify_step"]
+        == ast["spec_ticks"] and agot["fused_paged_decode_step"]
+        == ast["steps"] - ast["spec_ticks"] + ast["replay_tokens"],
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"spec: failed {bad}")
+    t = sp["k7_timing"]
+    row = {"name": "fused_paged_verify_step", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/fused_decode.cu",
+           "replaces": "paddle_tpu/ops/fused_decode.py:2642",
+           "launches": launches["fused_paged_verify_step"],
+           "max_abs_err": k7_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+           "library_ms": None,
+           "at_shape": {"b": 8, "K1": t["K1"], "layers": L,
+                        "positions": t["positions"]}}
+    return row, launches
+
+
 # ---- training -----------------------------------------------------------------
 
 def phase_train(fa, fd, flops):
@@ -879,7 +1513,7 @@ def phase_train(fa, fd, flops):
     emit(res)
     if got != {"flash_attention_fwd": want, "flash_attention_bwd_dq": want,
                "flash_attention_bwd_dkv": want, "fused_decode_step": 0,
-               "fused_paged_decode_step": 0}:
+               "fused_paged_decode_step": 0, "fused_paged_verify_step": 0}:
         raise AssertionError(f"train: launch counts {got}, expected {want} "
                              "each of K1, K3, K4")
     if not all(math.isfinite(v) for v in losses) or \
@@ -1029,6 +1663,7 @@ def main(argv):
     k2_err = phase_k2(fd, rope, gen)
     k3_errs = phase_k3(fa, gen)
     k5_err = phase_k5(fd, rope, gen)
+    k7_err = phase_k7(fd, rope, gen)
     if quick:
         return 0
     model, plan, kv, _, launches = phase_e2e(fa, fd)
@@ -1039,6 +1674,8 @@ def main(argv):
     gc.collect()
     with torch.no_grad():
         k5_row, serve_launches = phase_serve(fa, fd, model, bw, flops, k5_err)
+        gc.collect()
+        k7_row, spec_launches = phase_spec(fa, fd, model, bw, flops, k7_err)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1046,10 +1683,11 @@ def main(argv):
     phase_step(fa, fd)
     kernels = phase_timing_train(fa, bw, flops, kernels, train_launches,
                                  k3_errs)
-    kernels.append(k5_row)
+    kernels += [k5_row, k7_row]
     for k in kernels:
         k.setdefault("launches_by_path", {"generate": 0, "train": 0})
         k["launches_by_path"]["serve"] = serve_launches[k["name"]]
+        k["launches_by_path"]["spec"] = spec_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,6 +4,7 @@
         [--batch 4] [--pos 1056] [--kv_heads 32]
     PYTHONPATH=. python3 examples/torch_decode_profile.py --generate
     PYTHONPATH=. python3 examples/torch_decode_profile.py --paged
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --verify
     PYTHONPATH=. python3 examples/torch_decode_profile.py --serve
 
 Default: builds a Llama-2-7B-width stack (random bf16 weights, seed 0) and
@@ -20,6 +21,12 @@ prints the wall time and the device-busy time of the 63 decode steps
 --paged: the same split for the paged decode step (K5) at 8 rows whose
 positions run evenly from 100 to 1300 (700 cached tokens on average),
 each through its own shuffled blocks of 128 tokens.
+
+--verify: the same split for the paged verify step (K7) at the same 8 rows
+with a tail of 5 tokens each (the last token and k = 4 proposals, the
+speculative engine's step), 40 tail rows in all. The
+tensor-core product kernel serves all four products; its epilogues tell
+them apart by mode (QKV, RESID for o-proj and down, SWIGLU).
 
 --serve: a Llama-2-7B ServingEngine (8 slots, block 128) with 8 requests
 of 500-token prompts decoding; traces 32 ticks and prints the wall time
@@ -41,6 +48,7 @@ from paddle_tpu_torch.ops.rope import rope_cos_sin
 
 BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
                "H100": 3.35e12}
+VERIFY_TAIL = 5             # --verify: the last token and k = 4 proposals
 
 
 def device_ms(prof):
@@ -141,10 +149,12 @@ def serve_split(card, ticks=32):
                       "top_device_ms_per_tick": top}))
 
 
-def paged_step(L, b, nkv, h=4096, nh=32, hd=128, ffn=11008, BT=128):
-    """K5 at 8 rows, positions 100..1300 evenly, shuffled private blocks."""
+def paged_step(L, b, nkv, tail=0, h=4096, nh=32, hd=128, ffn=11008,
+               BT=128):
+    """K5 (tail 0) or K7 (a tail of `tail` tokens per row) at 8 rows,
+    positions 100..1300 evenly, shuffled private blocks."""
     positions = [int(100 + i * 1200 / (b - 1)) for i in range(b)]
-    need = [p // BT + 1 for p in positions]
+    need = [(p + max(tail, 1) - 1) // BT + 1 for p in positions]
     nb = 1 + sum(need)
     g = torch.Generator(device="cuda").manual_seed(0)
     mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
@@ -164,11 +174,19 @@ def paged_step(L, b, nkv, h=4096, nh=32, hd=128, ffn=11008, BT=128):
     tab = tables.cuda()
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     cos, sin = rope_cos_sin(2048, hd, device="cuda")
-    c, s = cos.index_select(0, pos), sin.index_select(0, pos)
-    x = mk(b, h, sc=1.0)
-    step = lambda: fd.fused_paged_decode_cuda(x, p, pool, tab, pos, c, s,
-                                              num_heads=nh, num_kv_heads=nkv)
-    keys = sum(q + 1 for q in positions)
+    kw = dict(num_heads=nh, num_kv_heads=nkv)
+    if tail:
+        pj = pos.long()[:, None] + torch.arange(tail, device="cuda")[None]
+        c, s = cos[pj], sin[pj]
+        x = mk(b, tail, h, sc=1.0)
+        step = lambda: fd.fused_paged_verify_cuda(x, p, pool, tab, pos, c,
+                                                  s, **kw)
+    else:
+        c, s = cos.index_select(0, pos), sin.index_select(0, pos)
+        x = mk(b, h, sc=1.0)
+        step = lambda: fd.fused_paged_decode_cuda(x, p, pool, tab, pos, c,
+                                                  s, **kw)
+    keys = sum(q + max(tail, 1) for q in positions)
     return step, p, L * keys * 2 * dkv * 2, positions
 
 
@@ -181,6 +199,7 @@ def main():
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--generate", action="store_true")
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--verify", action="store_true")
     ap.add_argument("--serve", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -198,9 +217,10 @@ def main():
         return serve_split(card)
     L, b, pos, nkv = a.layers, a.batch, a.pos, a.kv_heads
     h, nh, hd, ffn = 4096, 32, 128, 11008
-    if a.paged:
+    if a.paged or a.verify:
         b = 8
-        step, p, kvb, pos = paged_step(L, b, nkv)
+        step, p, kvb, pos = paged_step(L, b, nkv,
+                                       tail=VERIFY_TAIL if a.verify else 0)
     else:
         step, p, kvb = contiguous_step(L, b, pos, nkv, h, nh, hd, ffn)
     for _ in range(3):
@@ -222,7 +242,9 @@ def main():
                  "down gemm": wb("wd") / bw * 1e3,
                  "attention (filled KV)": kvb / bw * 1e3}
     print(json.dumps({"card": card, "layers": L, "batch": b, "pos": pos,
-                      "kernel": "K5 (paged)" if a.paged else "K2",
+                      "kernel": ("K7 (verify), tail %d" % VERIFY_TAIL
+                                 if a.verify else
+                                 "K5 (paged)" if a.paged else "K2"),
                       "kv_heads": nkv, "step_ms": step_ms,
                       "device_ms_per_step_by_kernel": per_kernel,
                       "device_ms_per_step": sum(per_kernel.values()),

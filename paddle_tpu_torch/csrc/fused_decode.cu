@@ -36,6 +36,11 @@
 // pool (L, NB, BT, 2*nkv*hd) through per-row block tables and positions.
 // Only step 2's addressing differs (ContigKV / PagedKV below). K5's bound
 // is bytes as well: the layer weights plus each row's own filled KV.
+//
+// A third entry point, fused_paged_verify_llama (K7, speculative decoding's
+// verify step), runs up to 64 tail rows through the stack on tensor-core
+// GEMMs of its own; it shares only the epilogue, norm-sum and cast kernels
+// with K2/K5, whose code it leaves as it is (see the K7 section).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -575,6 +580,595 @@ cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
   return e;
 }
 
+// ---------------------------------------------------------------------------
+// K7 — the paged verify step (speculative decoding's scoring pass).
+//
+// Replaces paddle_tpu/ops/fused_decode.py::_fused_paged_verify_pallas
+// (pallas_call at :3055), llama arch, bf16 weights, bf16 pool. Each of b
+// rows brings a tail of K1 tokens (its last sampled token and k proposals)
+// at positions pos .. pos+K1-1; all M = b*K1 tail rows (row m = bi*K1 + j,
+// the (b, K1, h) layout of x) go through the stack together. Per layer:
+//   1. RMSNorm of the M rows into bf16, then the qkv product
+//   2. rope of q and k at pos+j; the K1 appends of every row through its
+//      block table (a block index >= MB goes to scratch block 0), then
+//      attention over the filled prefix with query j limited to pos+j
+//   3. o-proj with the residual epilogue
+//   4. RMSNorm, gate and up, SwiGLU epilogue
+//   5. down with the residual epilogue
+// 1 + 13 launches per layer. Casts as in K5: bf16 activations into each
+// product, fp32 accumulators and residual, k/v rounded to bf16 at the
+// append.
+//
+// What bounds it on the H100: bytes, as K5 — every layer weight once per
+// step plus each row's filled KV — while the products do K1 times K5's
+// work. K5's register-accumulator GEMM stops at 8 rows (at B=8 it already
+// holds 103-109 registers), so K7's products run on the tensor cores:
+// mma.sync m16n8k16 bf16 -> fp32 over rows padded to 16, one block per
+// (64 output columns, contraction split), the weight tile and the rows
+// streamed through shared memory by cp.async in 16-byte pieces, four
+// stages deep, so each weight byte is read once per step for all M rows.
+// Split-K partials are summed in a fixed order by K5's epilogue kernels.
+// First design: mma.sync, not wgmma/TMA; no persistent kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int VT = 256;      // threads per verify GEMM block (8 warps)
+constexpr int VN = 64;       // output columns per block
+constexpr int VK = 64;       // contraction rows per pipeline stage
+constexpr int VSTAGES = 4;   // shared-memory stages (three loads ahead)
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; ok == false writes 16 zero
+// bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element (r, c) of a 64-wide bf16 tile in shared memory whose 16-byte
+// chunks are XOR-swizzled by the row: the 8 rows one ldmatrix reads (rows
+// r0..r0+7, one chunk) land in 8 different bank groups.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// Stage c of a block's contraction range: W rows [kc, kc+VK) x the block's
+// 64 columns, and the MP activation rows' matching VK columns; what lies
+// past the range, the columns or the M rows reads as zero.
+template <int MP>
+__device__ __forceinline__ void tc_load_stage(
+    bf16* sw, bf16* sa, const bf16* __restrict__ A,
+    const bf16* __restrict__ W, int M, int in, int out, int n0, int kc,
+    int k1) {
+  for (int i = threadIdx.x; i < VK * VN / 8; i += VT) {
+    const int r = i >> 3, col = (i & 7) << 3;
+    const bool ok = kc + r < k1 && n0 + col < out;
+    cp_async16(sw + swz(r, col), ok ? W + (long)(kc + r) * out + n0 + col : W,
+               ok);
+  }
+  for (int i = threadIdx.x; i < MP * VK / 8; i += VT) {
+    const int r = i >> 3, col = (i & 7) << 3;
+    const bool ok = r < M && kc + col < k1;
+    cp_async16(sa + swz(r, col), ok ? A + (long)r * in + kc + col : A, ok);
+  }
+}
+
+// Partial products ws[ks][m][col] of y(M, out) = A(M, in) @ W(in, out),
+// M <= 16*MT, over the contraction rows [ks*kper, (ks+1)*kper). Warp w
+// owns columns (w%4)*16 .. +16 of the block's 64 and the k16 steps
+// {2*(w/4), 2*(w/4)+1} of every 64-row stage; the two k halves are added
+// through shared memory at the end (a fixed order).
+template <int MT>
+__global__ void __launch_bounds__(VT)
+tc_gemm_partial_kernel(const bf16* __restrict__ A,
+                       const bf16* __restrict__ W, float* __restrict__ ws,
+                       int M, int in, int out, int kper) {
+  constexpr int MP = MT * 16;
+  extern __shared__ __align__(16) unsigned char vsm[];
+  bf16* sw = reinterpret_cast<bf16*>(vsm);   // [VSTAGES][VK][VN]
+  bf16* sa = sw + VSTAGES * VK * VN;         // [VSTAGES][MP][VK]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * VN;
+  const int k0 = blockIdx.y * kper, k1 = min(in, k0 + kper);
+  const int nch = (k1 - k0 + VK - 1) / VK;
+  const int nq = warp & 3, kh = warp >> 2;
+  const int lr = lane & 7, lm = lane >> 3;
+
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < VSTAGES - 1; ++s) {
+    if (s < nch)
+      tc_load_stage<MP>(sw + s * VK * VN, sa + s * MP * VK, A, W, M, in, out,
+                        n0, k0 + s * VK, k1);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<VSTAGES - 2>();   // stage c has landed
+    __syncthreads();                // ... for every thread; c-1 is consumed
+    const int cn = c + VSTAGES - 1;
+    if (cn < nch) {
+      const int sn = cn % VSTAGES;
+      tc_load_stage<MP>(sw + sn * VK * VN, sa + sn * MP * VK, A, W, M, in,
+                        out, n0, k0 + cn * VK, k1);
+    }
+    cp_async_commit();
+    const int st = c % VSTAGES;
+    const bf16* w = sw + st * VK * VN;
+    const bf16* a = sa + st * MP * VK;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int kb = (kh * 2 + kk) * 16;
+      // B fragments of the warp's two n8 tiles: W is stored (k, n), so
+      // ldmatrix.trans hands each thread (k = 2c, 2c+1; n = g)
+      unsigned bfr[4];
+      ldsm_x4_trans(bfr, w + swz(kb + (lm & 1) * 8 + lr,
+                                 nq * 16 + (lm >> 1) * 8));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        unsigned afr[4];
+        ldsm_x4(afr, a + swz(mt * 16 + (lm & 1) * 8 + lr,
+                             kb + (lm >> 1) * 8));
+        mma16816(acc[mt][0], afr, bfr[0], bfr[1]);
+        mma16816(acc[mt][1], afr, bfr[2], bfr[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the stages are free: reuse them for the k halves
+
+  float* red = reinterpret_cast<float*>(vsm);   // [MT*8][4 nq][32 lanes]
+  if (kh == 1) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[((mt * 2 + t) * 4 + e) * 128 + nq * 32 + lane] = acc[mt][t][e];
+  }
+  __syncthreads();
+  if (kh == 0) {
+    const int g = lane >> 2, cq = lane & 3;
+    float* wsb = ws + (long)blockIdx.y * M * out;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = acc[mt][t][e] +
+                 red[((mt * 2 + t) * 4 + e) * 128 + nq * 32 + lane];
+        const int col = n0 + nq * 16 + t * 8 + cq * 2;
+        const int r0 = mt * 16 + g;
+        if (col < out) {
+          if (r0 < M)
+            *reinterpret_cast<float2*>(wsb + (long)r0 * out + col) =
+                make_float2(v[0], v[1]);
+          if (r0 + 8 < M)
+            *reinterpret_cast<float2*>(wsb + (long)(r0 + 8) * out + col) =
+                make_float2(v[2], v[3]);
+        }
+      }
+  }
+}
+
+// Contraction splits of a verify product: about three blocks per SM in
+// all, each split at least four stages long.
+struct VSplit {
+  int ks, kper;
+};
+
+VSplit vsplit(int in, int out) {
+  const int tiles = (out + VN - 1) / VN;
+  int ks = (3 * num_sms() + tiles - 1) / tiles;
+  ks = max(1, min(ks, in / (4 * VK)));
+  int kper = (in + ks - 1) / ks;
+  kper = (kper + VK - 1) / VK * VK;
+  return VSplit{(in + kper - 1) / kper, kper};
+}
+
+template <int MT>
+cudaError_t tc_partial(const bf16* A, const bf16* W, float* ws, int M, int in,
+                       int out, cudaStream_t st) {
+  const VSplit s = vsplit(in, out);
+  const int smem = VSTAGES * (VK * VN + MT * 16 * VK) * (int)sizeof(bf16);
+  static bool opted_in = false;  // above 48 KB needs the opt-in, once
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tc_gemm_partial_kernel<MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  tc_gemm_partial_kernel<MT><<<dim3((out + VN - 1) / VN, s.ks), VT, smem,
+                               st>>>(A, W, ws, M, in, out, s.kper);
+  return cudaGetLastError();
+}
+
+cudaError_t tc_partial_rows(const bf16* A, const bf16* W, float* ws, int M,
+                            int in, int out, cudaStream_t st) {
+  switch ((M + 15) / 16) {
+    case 1: return tc_partial<1>(A, W, ws, M, in, out, st);
+    case 2: return tc_partial<2>(A, W, ws, M, in, out, st);
+    case 3: return tc_partial<3>(A, W, ws, M, in, out, st);
+    case 4: return tc_partial<4>(A, W, ws, M, in, out, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// One verify product: partials (two weights for SwiGLU) -> K5's epilogue.
+template <int MODE>
+cudaError_t vgemm(const bf16* A, const bf16* w0, const bf16* w1, float* ws0,
+                  float* ws1, float* yf, bf16* yb, int M, int in, int out,
+                  cudaStream_t st) {
+  cudaError_t e = tc_partial_rows(A, w0, ws0, M, in, out, st);
+  if (e == cudaSuccess && MODE == MODE_SWIGLU)
+    e = tc_partial_rows(A, w1, ws1, M, in, out, st);
+  if (e != cudaSuccess) return e;
+  const int n = M * out;
+  gemm_epilogue_kernel<MODE><<<(n + 255) / 256, 256, 0, st>>>(
+      ws0, ws1, vsplit(in, out).ks, n, yf, yb);
+  return cudaGetLastError();
+}
+
+// RMSNorm of each row into bf16, one block per row, K5's rounding:
+// bf16(bf16(x * rstd) * w).
+__global__ void __launch_bounds__(GT)
+rms_rows_kernel(const float* __restrict__ xf, const bf16* __restrict__ lnw,
+                bf16* __restrict__ xn, int in, float eps) {
+  __shared__ float tmp[NWG];
+  const float* x = xf + (long)blockIdx.x * in;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < in; k += GT) ss += x[k] * x[k];
+  ss = block_sum(ss, tmp);
+  const float rstd = 1.f / sqrtf(ss / (float)in + eps);
+  for (int k = threadIdx.x; k < in; k += GT)
+    xn[(long)blockIdx.x * in + k] = __float2bfloat16(
+        bf16_round(x[k] * rstd) * __bfloat162float(lnw[k]));
+}
+
+// One layer's slab of the pool, as the verify kernels address it: row bi's
+// tail token j appends at position positions[bi] + j, its key t is read
+// from pool[tables[bi, t/BT], t%BT] (the attention kernel stages the
+// table row in shared memory); (b, K1, HD) rope rows.
+struct VerifyKV {
+  bf16* kv;
+  const int* tables;      // (b, MB)
+  const int* positions;   // (b,)
+  const float* cos;       // (b, K1, HD)
+  const float* sin;
+  int MB, BT, dkv2;
+  // an append past the table (block index >= MB) goes to scratch block 0;
+  // the table is never read at MB or beyond
+  __device__ bf16* append_row(int bi, int t) const {
+    const int cb = t / BT;
+    const int bid = cb < MB ? tables[(long)bi * MB + cb] : 0;
+    return kv + ((long)bid * BT + t % BT) * dkv2;
+  }
+};
+
+// The K1 appends of row bi, kv head g: rope k with each token's own rope
+// row, round k and v to bf16, write them through the table. Several idle
+// rows (tables all scratch) may write one scratch address: only their
+// thrown-away outputs can read it, as in K5.
+template <int HD>
+__global__ void verify_append_kernel(const float* __restrict__ qkv,
+                                     const VerifyKV kv, int K1, int nkv,
+                                     int rep) {
+  const int g = blockIdx.x, bi = blockIdx.y;
+  const int dkv = nkv * HD, dq = dkv * rep, dqkv = dq + 2 * dkv;
+  const int pos = kv.positions[bi];
+  for (int i = threadIdx.x; i < K1 * HD; i += blockDim.x) {
+    const int j = i / HD, d = i % HD, m = bi * K1 + j;
+    const float* kh = qkv + (long)m * dqkv + dq + g * HD;
+    const float* cr = kv.cos + (long)m * HD;
+    const float* sr = kv.sin + (long)m * HD;
+    const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
+    bf16* dst = kv.append_row(bi, pos + j) + g * HD + d;
+    dst[0] = __float2bfloat16(kh[d] * cr[d] + rot * sr[d]);
+    dst[dkv] = __float2bfloat16(kh[dkv + d]);
+  }
+}
+
+// Attention of up to QG tail queries of row bi, kv head g (query q of the
+// row's K1*rep is token q/rep, head g*rep + q%rep; blockIdx.z picks the
+// group): one walk over the keys [0, min(pos + jmax, MB*BT - 1)] serves
+// them all, query j counting only keys t <= pos + j, so it sees the tail
+// tokens before it and not those after. VNW warps stride the keys, U keys
+// in flight per warp, with an online softmax per query, and merge through
+// shared memory, as K5's kernel. A key is one dependent load: the row's
+// table sits in shared memory. The U keys' shuffle sums for all queries
+// are independent and interleave; each query then rescales once per U
+// keys and takes one fast exp (__expf, as K1) per key.
+constexpr int VNW = 16;
+
+template <int HD, int QG>
+__global__ void __launch_bounds__(VNW * 32)
+verify_attn_kernel(const float* __restrict__ qkv, const VerifyKV kv,
+                   bf16* __restrict__ attn, int K1, int nkv, int rep,
+                   float scale) {
+  constexpr int DPL = HD / 32;          // head dims per lane
+  constexpr int U = QG <= 6 ? 4 : 2;    // keys in flight per warp
+  const int g = blockIdx.x, bi = blockIdx.y, q0 = blockIdx.z * QG;
+  const int dkv = nkv * HD, dq = dkv * rep, dqkv = dq + 2 * dkv;
+  const int nq = min(QG, K1 * rep - q0);
+  extern __shared__ float vsa[];
+  float* qs = vsa;                     // [QG][HD]
+  float* wm = qs + QG * HD;            // [VNW][QG]
+  float* wl = wm + VNW * QG;           // [VNW][QG]
+  float* wacc = wl + VNW * QG;         // [VNW][QG][HD]
+  int* tab = reinterpret_cast<int*>(wacc + VNW * QG * HD);   // [MB]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pos = kv.positions[bi];
+  const int tcap = kv.MB * kv.BT - 1;
+  const int tmax = min(pos + (q0 + nq - 1) / rep, tcap);
+
+  for (int i = tid; i < QG * HD; i += VNW * 32) {
+    const int qi = i / HD, d = i % HD;
+    float val = 0.f;
+    if (qi < nq) {
+      const int q = q0 + qi, m = bi * K1 + q / rep;
+      const float* qh = qkv + (long)m * dqkv + (g * rep + q % rep) * HD;
+      const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
+      val = (qh[d] * kv.cos[(long)m * HD + d] +
+             rot * kv.sin[(long)m * HD + d]) * scale;
+    }
+    qs[i] = val;
+  }
+  for (int i = tid; i <= tmax / kv.BT; i += VNW * 32)
+    tab[i] = kv.tables[(long)bi * kv.MB + i];
+  __syncthreads();
+
+  int lim[QG];
+  float mx[QG], l[QG], acc[QG][DPL];
+#pragma unroll
+  for (int qi = 0; qi < QG; ++qi) {
+    lim[qi] = qi < nq ? min(pos + (q0 + qi) / rep, tcap) : -1;
+    mx[qi] = NEG_INF;
+    l[qi] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) acc[qi][j] = 0.f;
+  }
+  for (int t0 = warp; t0 <= tmax; t0 += U * VNW) {
+    float kf[U][DPL], vf[U][DPL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * VNW;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) kf[u][j] = vf[u][j] = 0.f;
+      if (t <= tmax) {
+        const bf16* kr = kv.kv + ((long)tab[t / kv.BT] * kv.BT + t % kv.BT)
+                                     * kv.dkv2 + g * HD + lane * DPL;
+#pragma unroll
+        for (int j = 0; j < DPL; j += 2) {
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(kr + j));
+          const float2 c = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(kr + dkv + j));
+          kf[u][j] = a.x; kf[u][j + 1] = a.y;
+          vf[u][j] = c.x; vf[u][j + 1] = c.y;
+        }
+      }
+    }
+    // the U keys' scores for every query (independent shuffle sums), then
+    // per query one rescale to the new running max and one exp per key
+    float sc[U][QG];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int qi = 0; qi < QG; ++qi) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)
+          s = fmaf(qs[qi * HD + lane * DPL + j], kf[u][j], s);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffff, s, o);
+        sc[u][qi] = s;
+      }
+#pragma unroll
+    for (int qi = 0; qi < QG; ++qi) {
+      float mn = mx[qi];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (t0 + u * VNW <= lim[qi]) mn = fmaxf(mn, sc[u][qi]);
+      const float a = __expf(mx[qi] - mn);
+      l[qi] *= a;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) acc[qi][j] *= a;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p =
+            t0 + u * VNW <= lim[qi] ? __expf(sc[u][qi] - mn) : 0.f;
+        l[qi] += p;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) acc[qi][j] = fmaf(p, vf[u][j], acc[qi][j]);
+      }
+      mx[qi] = mn;
+    }
+  }
+#pragma unroll
+  for (int qi = 0; qi < QG; ++qi) {
+    if (lane == 0) {
+      wm[warp * QG + qi] = mx[qi];
+      wl[warp * QG + qi] = l[qi];
+    }
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      wacc[(warp * QG + qi) * HD + lane * DPL + j] = acc[qi][j];
+  }
+  __syncthreads();
+  for (int i = tid; i < nq * HD; i += VNW * 32) {
+    const int qi = i / HD, d = i % HD;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < VNW; ++w) M = fmaxf(M, wm[w * QG + qi]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < VNW; ++w) {
+      const float e = expf(wm[w * QG + qi] - M);
+      L += wl[w * QG + qi] * e;
+      A += wacc[(w * QG + qi) * HD + d] * e;
+    }
+    const int q = q0 + qi, m = bi * K1 + q / rep;
+    attn[(long)m * dq + (g * rep + q % rep) * HD + d] = __float2bfloat16(A / L);
+  }
+}
+
+template <int HD, int QG>
+cudaError_t verify_attn_group(const float* qkv, const VerifyKV& kv,
+                              bf16* attn, int b, int K1, int nkv, int rep,
+                              float scale, cudaStream_t st) {
+  const int smem = (QG * HD + 2 * VNW * QG + VNW * QG * HD) * 4 + kv.MB * 4;
+  static int opted_in = 0;  // above 48 KB needs the opt-in
+  if (smem > opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        verify_attn_kernel<HD, QG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  const int groups = (K1 * rep + QG - 1) / QG;
+  verify_attn_kernel<HD, QG><<<dim3(nkv, b, groups), VNW * 32, smem, st>>>(
+      qkv, kv, attn, K1, nkv, rep, scale);
+  return cudaGetLastError();
+}
+
+// The appends, then the attention with the query group sized to the row's
+// K1*rep queries (2, 4, 6 or 8 per block; more make several groups).
+template <int HD>
+cudaError_t verify_attn_launch(const float* qkv, const VerifyKV& kv,
+                               bf16* attn, int b, int K1, int nkv, int rep,
+                               float scale, cudaStream_t st) {
+  verify_append_kernel<HD><<<dim3(nkv, b), 128, 0, st>>>(qkv, kv, K1, nkv,
+                                                         rep);
+  const int nq = K1 * rep;
+  if (nq <= 2)
+    return verify_attn_group<HD, 2>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+  if (nq <= 4)
+    return verify_attn_group<HD, 4>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+  if (nq <= 6)
+    return verify_attn_group<HD, 6>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+  return verify_attn_group<HD, 8>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+}
+
+// Floats of verify workspace: the widest product's split-K partials, then
+// the up-projection's (kept 8-byte aligned for the float2 stores).
+long vws_layout(int M, int h, int dq, int dqkv, int ffn, long* n0) {
+  auto part = [M](int in, int out) {
+    return (long)vsplit(in, out).ks * M * out;
+  };
+  const long up = part(h, ffn);
+  long a = part(h, dqkv);
+  a = a > part(dq, h) ? a : part(dq, h);
+  a = a > up ? a : up;
+  a = a > part(ffn, h) ? a : part(ffn, h);
+  a = (a + 1) & ~1L;
+  *n0 = a;
+  return a + up;
+}
+
+struct VStack {
+  const bf16 *x_in, *ln1, *wqkv, *wo, *ln2, *wg, *wu, *wd;
+  bf16* x_out;
+  float *xf, *qkv, *ws;
+  bf16 *xn, *attn, *act;
+  int L, b, K1, h, nh, nkv, hd, ffn;
+  float eps;
+};
+
+cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
+                         const int* positions, const float* cosr,
+                         const float* sinr, int NB, int BT, int MB,
+                         cudaStream_t st) {
+  const int L = a.L, M = a.b * a.K1, h = a.h, hd = a.hd, ffn = a.ffn;
+  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
+  const int rep = a.nh / a.nkv;
+  const float scale = 1.f / sqrtf((float)hd);
+  if (M < 1 || M > 64) return cudaErrorInvalidValue;
+  long n0;
+  vws_layout(M, h, dq, dqkv, ffn, &n0);
+  float* ws0 = a.ws;
+  float* ws1 = ws0 + n0;
+  bf16_to_f32_kernel<<<(M * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
+                                                           M * h);
+  cudaError_t e = cudaGetLastError();
+  for (int l = 0; l < L && e == cudaSuccess; ++l) {
+    const bf16* wqkvl = a.wqkv + (long)l * h * dqkv;
+    const bf16* wol = a.wo + (long)l * dq * h;
+    const bf16* wgl = a.wg + (long)l * h * ffn;
+    const bf16* wul = a.wu + (long)l * h * ffn;
+    const bf16* wdl = a.wd + (long)l * ffn * h;
+    rms_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h, a.xn, h,
+                                      a.eps);
+    e = vgemm<MODE_QKV>(a.xn, wqkvl, nullptr, ws0, ws1, a.qkv, nullptr, M, h,
+                        dqkv, st);
+    if (e != cudaSuccess) break;
+    const VerifyKV kv{pool + (long)l * NB * BT * 2 * dkv, tables, positions,
+                      cosr, sinr, MB, BT, 2 * dkv};
+    e = hd == 128 ? verify_attn_launch<128>(a.qkv, kv, a.attn, a.b, a.K1,
+                                            a.nkv, rep, scale, st)
+        : hd == 64 ? verify_attn_launch<64>(a.qkv, kv, a.attn, a.b, a.K1,
+                                            a.nkv, rep, scale, st)
+                   : cudaErrorInvalidValue;
+    if (e != cudaSuccess) break;
+    e = vgemm<MODE_RESID>(a.attn, wol, nullptr, ws0, ws1, a.xf, nullptr, M,
+                          dq, h, st);
+    if (e != cudaSuccess) break;
+    rms_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln2 + (long)l * h, a.xn, h,
+                                      a.eps);
+    e = vgemm<MODE_SWIGLU>(a.xn, wgl, wul, ws0, ws1, nullptr, a.act, M, h,
+                           ffn, st);
+    if (e != cudaSuccess) break;
+    e = vgemm<MODE_RESID>(a.act, wdl, nullptr, ws0, ws1, a.xf,
+                          l == L - 1 ? a.x_out : nullptr, M, ffn, h, st);
+  }
+  return e;
+}
+
 Stack make_stack(const void* x_in, void* x_out, const void* ln1,
                  const void* wqkv, const void* wo, const void* ln2,
                  const void* wg, const void* wu, const void* wd, void* xf,
@@ -645,4 +1239,38 @@ extern "C" int fused_paged_decode_llama(
                    (const float*)cosr, (const float*)sinr, MB, BT, dkv2};
   };
   return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+}
+
+extern "C" long fused_paged_verify_llama_workspace(int M, int h, int nh,
+                                                   int nkv, int hd, int ffn) {
+  long n0;
+  return vws_layout(M, h, nh * hd, (nh + 2 * nkv) * hd, ffn, &n0);
+}
+
+// K7 — one verify step through all L layers for b rows of K1 tail tokens
+// (see the K7 section above). x_in/x_out (b, K1, h) bf16; kv_pool
+// (L, NB, BT, 2*nkv*hd) updated in place at positions[bi] + j, j < K1;
+// tables (b, MB) and positions (b,) int32 and the (b, K1, hd) rope rows
+// read on the device. Scratch: xf (M, h) f32, xn (M, h) bf16, qkv
+// (M, dqkv) f32, attn (M, dq) bf16, act (M, ffn) bf16, ws
+// (fused_paged_verify_llama_workspace floats), M = b*K1 <= 64. Returns
+// the first CUDA error, 0 on success.
+extern "C" int fused_paged_verify_llama(
+    const void* x_in, void* x_out, const void* ln1, const void* wqkv,
+    const void* wo, const void* ln2, const void* wg, const void* wu,
+    const void* wd, void* kv_pool, const void* tables, const void* positions,
+    const void* cosr, const void* sinr, void* xf, void* xn, void* qkv,
+    void* attn, void* act, void* ws, int L, int b, int K1, int h, int nh,
+    int nkv, int hd, int ffn, int NB, int BT, int MB, float eps,
+    void* stream) {
+  const VStack a{(const bf16*)x_in, (const bf16*)ln1, (const bf16*)wqkv,
+                 (const bf16*)wo,   (const bf16*)ln2, (const bf16*)wg,
+                 (const bf16*)wu,   (const bf16*)wd,  (bf16*)x_out,
+                 (float*)xf,        (float*)qkv,      (float*)ws,
+                 (bf16*)xn,         (bf16*)attn,      (bf16*)act,
+                 L, b, K1, h, nh, nkv, hd, ffn, eps};
+  return (int)verify_stack(a, (bf16*)kv_pool, (const int*)tables,
+                           (const int*)positions, (const float*)cosr,
+                           (const float*)sinr, NB, BT, MB,
+                           (cudaStream_t)stream);
 }

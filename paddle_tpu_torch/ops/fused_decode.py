@@ -16,6 +16,11 @@ the paged pool:
   positions; CUDA tensors launch K5 (``fused_paged_decode_cuda``, same
   source file; replaces ``_fused_paged_decode_pallas``, :1884).
   ``paged_block_gather`` / ``paged_block_scatter`` move whole blocks.
+* ``fused_paged_verify_reference``, ``fused_paged_verify_step`` —
+  speculative decoding's scoring pass: a K1-token tail per row through the
+  stack over the paged pool, the K1 appends in place, per-query causal
+  limits; CUDA tensors launch K7 (``fused_paged_verify_cuda``, same source
+  file; replaces ``_fused_paged_verify_pallas``, :2642).
 * ``decode_block_plan`` — kept for its ``ffn_pad`` key only.
 
 The KV cache is COMBINED and FLAT, (L, b, S, 2*nkv*hd) with k in lanes
@@ -194,10 +199,11 @@ def _check_tensors(what, specs, device):
                              f"{device} (cuda)")
 
 
-def _stack_specs(what, x, params, cache, num_heads, num_kv_heads):
-    """What K2 and K5 share: x, the stacked weights and the cache
-    (contiguous or paged; its last dim is 2·nkv·hd) in bf16, and the shapes
-    the kernels take. Returns (check specs, (b, h, hd, ffn))."""
+def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
+                 max_rows=8):
+    """What K2, K5 and K7 share: x (rows, h), the stacked weights and the
+    cache (contiguous or paged; its last dim is 2·nkv·hd) in bf16, and the
+    shapes the kernels take. Returns (check specs, (b, h, hd, ffn))."""
     L, dkv2 = cache.shape[0], cache.shape[-1]
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
@@ -209,8 +215,9 @@ def _stack_specs(what, x, params, cache, num_heads, num_kv_heads):
     b, h = x.shape
     dq = nh * hd
     ffn = params["wg"].shape[2]
-    if not 1 <= b <= 8 or hd not in (64, 128) or rep not in (1, 2, 4, 8):
-        raise ValueError(f"{what}: unsupported b={b} (1..8), "
+    if not 1 <= b <= max_rows or hd not in (64, 128) \
+            or rep not in (1, 2, 4, 8):
+        raise ValueError(f"{what}: unsupported b={b} (1..{max_rows}), "
                          f"head_dim={hd} (64|128), rep={rep} (1|2|4|8)")
     if h % 8 or ffn % 8 or (dq + 2 * dkv) % 8:
         raise ValueError(f"{what}: h, ffn and the qkv width must be "
@@ -284,6 +291,12 @@ def _kernel_lib():
         pfn = lib.fused_paged_decode_llama
         pfn.argtypes = [vp] * 19 + [ci] * 10 + [ctypes.c_float, vp]
         pfn.restype = ctypes.c_int
+        vfn = lib.fused_paged_verify_llama
+        vfn.argtypes = [vp] * 20 + [ci] * 11 + [ctypes.c_float, vp]
+        vfn.restype = ctypes.c_int
+        vws = lib.fused_paged_verify_llama_workspace
+        vws.argtypes = [ci] * 6
+        vws.restype = ctypes.c_long
         wsf = lib.fused_decode_llama_workspace
         wsf.argtypes = [ci] * 6
         wsf.restype = ctypes.c_long
@@ -363,20 +376,31 @@ def fused_paged_decode_reference(x, params, kv_pool, block_tables, positions,
     last write wins.
     """
     _refuse_unported_paged(arch, params, kv_scales, mp_axis)
+    BT = kv_pool.shape[2]
+    tables = block_tables.to(x.device, torch.long)
+    pos = positions.to(x.device, torch.long)
+    app_bid = torch.gather(tables, 1, (pos // BT)[:, None])[:, 0]
+    x_out = _paged_token(x, params, kv_pool, tables, pos, app_bid, pos % BT,
+                         cos, sin, num_heads, num_kv_heads, eps)
+    return x_out, kv_pool
+
+
+def _paged_token(x, params, kv_pool, tables, pos, app_bid, app_off, cos,
+                 sin, nh, nkv, eps):
+    """One token row block (b, h) through every layer over the paged pool:
+    the body of ``fused_paged_decode_reference``, which the verify twin
+    runs once per tail token. tables (b, MB) and pos (b,) are long tensors
+    on x's device; each layer writes its appends at (app_bid, app_off) and
+    then gathers the rows' logical views, keys masked to ``<= pos``."""
     L, NB, BT, dkv2 = kv_pool.shape
-    b, MB = block_tables.shape
+    b, MB = tables.shape
     S = MB * BT
     dkv = dkv2 // 2
-    nh, nkv = num_heads, num_kv_heads
     hd = dkv // nkv
     dq = nh * hd
     dtype = x.dtype
     scale = 1.0 / math.sqrt(hd)
     dev = x.device
-    tables = block_tables.to(dev, torch.long)
-    pos = positions.to(dev, torch.long)
-    app_bid = torch.gather(tables, 1, (pos // BT)[:, None])[:, 0]
-    app_off = pos % BT
     cos_b = cos.reshape(b, 1, hd).float()
     sin_b = sin.reshape(b, 1, hd).float()
     valid = (torch.arange(S, device=dev)[None] <= pos[:, None])[:, None, None]
@@ -397,7 +421,7 @@ def fused_paged_decode_reference(x, params, kv_pool, block_tables, positions,
         attn = _attend(q, kl, vl, valid, scale).to(dtype)
         xf = xf + _wdot(attn, params["wo"][l])
         xf = _mlp_residual(xf, params, l, eps, dtype)
-    return xf.to(dtype), kv_pool
+    return xf.to(dtype)
 
 
 def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
@@ -452,6 +476,149 @@ def fused_paged_decode_step(x, params, kv_pool, block_tables, positions,
         return fused_paged_decode_reference(
             x, params, kv_pool, block_tables, positions, cos, sin, **kw)
     return fused_paged_decode_cuda(x, params, kv_pool, block_tables,
+                                   positions, cos, sin, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The paged verify step (speculative decoding's scoring pass)
+# ---------------------------------------------------------------------------
+
+
+def _refuse_unported_verify(arch, params, kv_scales, mp_axis):
+    if arch != "llama" or kv_scales is not None or "wqkv_s" in params \
+            or mp_axis is not None:
+        raise NotImplementedError(
+            f"paged verify arch={arch!r}, int8 weights, the int8 pool and "
+            "mp_axis are not ported yet (ROADMAP Queue B row 6)")
+
+
+def _verify_appends(tables, pos, BT):
+    """(block, offset) of each row's append at positions pos (b,): a
+    position whose block index reaches MB lands in scratch block 0 (the
+    over-speculation tail, garbage by contract). The table is never read
+    at MB or beyond."""
+    MB = tables.shape[1]
+    cb = pos // BT
+    bid = torch.gather(tables, 1, torch.clamp(cb, max=MB - 1)[:, None])[:, 0]
+    return torch.where(cb < MB, bid, 0), pos % BT
+
+
+def fused_paged_verify_reference(x, params, kv_pool, block_tables, positions,
+                                 cos, sin, *, num_heads: int,
+                                 num_kv_heads: int, eps: float = 1e-5,
+                                 arch: str = "llama", kv_scales=None,
+                                 mp_axis=None):
+    """Score a K1-token tail per row against the paged pool; plain PyTorch.
+
+    x (b, K1, h): x[:, j] is tail token j embedded at ``positions + j``;
+    cos/sin (b, K1, hd) the matching rope rows. kv_pool, block_tables and
+    positions as in ``fused_paged_decode_reference`` (``positions`` is each
+    row's append position for tail token 0). Returns (x_out (b, K1, h),
+    kv_pool) with every tail token's KV appended at [pos, pos + K1), in
+    place.
+
+    Token j runs ``fused_paged_decode_reference``'s per-token math at
+    ``positions + j`` (the reference's contract, ``fused_decode.py:2489``),
+    one (b, h) row block at a time, tokens outer and layers inner: each
+    layer writes the token's appends into the pool and then gathers, so
+    query j sees tail tokens < j and not > j. An all-accepted verify is
+    therefore bitwise K1 sequential plain paged steps. Positions whose
+    block index reaches MB append to scratch block 0.
+    """
+    _refuse_unported_verify(arch, params, kv_scales, mp_axis)
+    b, K1, h = x.shape
+    BT = kv_pool.shape[2]
+    tables = block_tables.to(x.device, torch.long)
+    pos0 = positions.to(x.device, torch.long)
+    outs = []
+    for j in range(K1):
+        pos = pos0 + j
+        app_bid, app_off = _verify_appends(tables, pos, BT)
+        outs.append(_paged_token(
+            x[:, j].contiguous(), params, kv_pool, tables, pos, app_bid,
+            app_off, cos[:, j], sin[:, j], num_heads, num_kv_heads, eps))
+    return torch.stack(outs, dim=1), kv_pool
+
+
+#: K7 takes at most this many tail rows (b·K1) in one launch: the GEMMs
+#: pad the rows to 16-row tensor-core tiles, at most four
+VERIFY_MAX_ROWS = 64
+
+
+def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
+                            cos, sin, *, num_heads: int, num_kv_heads: int,
+                            eps: float = 1e-5):
+    """Wrapper of K7 (one call = one verify step through all L layers for
+    the b·K1 tail rows, 1 + 13L launches on the current stream). Checks
+    dtype, shape, contiguity and device and raises on anything else.
+    Positions and tables are read on the device; tail positions whose
+    block index reaches MB append to scratch block 0."""
+    what = "fused_paged_verify_cuda"
+    if x.dim() != 3 or kv_pool.dim() != 4 or block_tables.dim() != 2:
+        raise ValueError(f"{what}: x {tuple(x.shape)} must be (b, K1, h), "
+                         f"the pool (L, NB, BT, 2*nkv*hd) and block_tables "
+                         "(b, MB)")
+    b, K1, h = x.shape
+    if not 1 <= b * K1 <= VERIFY_MAX_ROWS:
+        raise ValueError(f"{what}: b·K1 = {b}·{K1} rows; K7 takes 1.."
+                         f"{VERIFY_MAX_ROWS}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x not contiguous")
+    rows = x.view(b * K1, h)
+    specs, (M, h, hd, ffn) = _stack_specs(what, rows, params, kv_pool,
+                                          num_heads, num_kv_heads,
+                                          max_rows=VERIFY_MAX_ROWS)
+    L, NB, BT, _ = kv_pool.shape
+    MB = block_tables.shape[1]
+    _check_tensors(what, specs + [
+        ("block_tables", block_tables, torch.int32, (b, MB)),
+        ("positions", positions, torch.int32, (b,)),
+        ("cos", cos, torch.float32, (b, K1, hd)),
+        ("sin", sin, torch.float32, (b, K1, hd))], x.device)
+    lib = _kernel_lib()
+    nh, nkv = num_heads, num_kv_heads
+    dq, dkv = nh * hd, nkv * hd
+    dev = x.device
+    f32, bf = torch.float32, torch.bfloat16
+    x_out = torch.empty_like(x)
+    scratch = (torch.empty((M, h), dtype=f32, device=dev),
+               torch.empty((M, h), dtype=bf, device=dev),
+               torch.empty((M, dq + 2 * dkv), dtype=f32, device=dev),
+               torch.empty((M, dq), dtype=bf, device=dev),
+               torch.empty((M, ffn), dtype=bf, device=dev),
+               torch.empty(lib.fused_paged_verify_llama_workspace(
+                   M, h, nh, nkv, hd, ffn), dtype=f32, device=dev))
+    p = _build.ptr
+    err = lib.fused_paged_verify_llama(
+        p(x), p(x_out), *(p(params[k]) for k in _PARAM_KEYS), p(kv_pool),
+        p(block_tables), p(positions), p(cos), p(sin),
+        *(p(t) for t in scratch), L, b, K1, h, nh, nkv, hd, ffn, NB, BT, MB,
+        float(eps), _build.stream_of(x))
+    fused_paged_verify_cuda.launches += 1
+    _build.check(err, "fused_paged_verify_llama")
+    return x_out, kv_pool
+
+
+fused_paged_verify_cuda.launches = 0
+
+
+def fused_paged_verify_step(x, params, kv_pool, block_tables, positions,
+                            cos, sin, *, num_heads: int, num_kv_heads: int,
+                            eps: float = 1e-5, arch: str = "llama",
+                            blocks: Optional[Dict] = None, kv_scales=None,
+                            mp_axis=None):
+    """Dispatch one PAGED verify step: K7 on CUDA tensors, the plain
+    version on CPU tensors. Args follow ``fused_paged_verify_reference``;
+    ``blocks`` is checked against the pool dtype. The engine samples each
+    tail position's token from x_out and commits the longest proposal
+    prefix that matches its own stream."""
+    _refuse_unported_verify(arch, params, kv_scales, mp_axis)
+    _check_plan(blocks, kv_pool)
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps)
+    if x.device.type == "cpu":
+        return fused_paged_verify_reference(
+            x, params, kv_pool, block_tables, positions, cos, sin, **kw)
+    return fused_paged_verify_cuda(x, params, kv_pool, block_tables,
                                    positions, cos, sin, **kw)
 
 

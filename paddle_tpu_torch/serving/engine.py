@@ -33,13 +33,22 @@ on a dirty tick (a join, a leave, a new block); the decode step advances
 positions and counts on the device, so a steady tick uploads nothing and
 its one sync is the pull of the (max_slots,) sampled ids.
 
+Speculative decoding (``speculate=SpecConfig(k=...)``, the n-gram proposer,
+optionally with per-slot adaptive k): every tick is ONE
+``fused_paged_verify_step`` (K7 on the card) that scores each slot's last
+token plus k proposals, samples position j at ``fold_in(seed, count + j)``
+and commits the longest proposal prefix that matches, plus the next
+sampled token. The committed tokens are the non-speculative engine's. The
+committed-token history and the next tick's proposals stay on the device;
+a steady speculative tick uploads nothing and pulls one (b, 2k+3) array.
+An adaptive tick whose slots all sit at k = 0 runs the plain K5 step.
+
 PyTorch runs eagerly, so the reference's jitted programs are plain methods
 and its program cache has no counterpart. Not ported yet (each raises
 NotImplementedError naming its ROADMAP item): an int8 pool, chunked prefill,
-speculative decoding, offload, tensor-parallel meshes, the sanitizer,
-bounded queues and shedding, the flight recorder, snapshot/restore, and gpt
-models. The metrics registry and spans are left out; ``stats`` carries the
-counts.
+the draft proposer, offload, tensor-parallel meshes, the sanitizer, bounded
+queues and shedding, the flight recorder, snapshot/restore, and gpt models.
+The metrics registry and spans are left out; ``stats`` carries the counts.
 """
 
 import heapq
@@ -54,6 +63,7 @@ import torch
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.serving.pool import (SCRATCH_BLOCK, BlockPool,
                                            PoolExhausted, PrefixCache)
+from paddle_tpu_torch.serving.spec import SpecConfig
 
 __all__ = ["PRIORITIES", "Request", "RequestResult", "ServingEngine"]
 
@@ -86,6 +96,22 @@ def _note_req_id(rid: int):
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"ServingEngine: {what} is not ported yet (ROADMAP {item})")
+
+
+class _Ewma:
+    """One exponentially-weighted moving average (a slot's speculative
+    acceptance rate)."""
+
+    __slots__ = ("alpha", "value")
+
+    def __init__(self, alpha: float = 0.25):
+        self.alpha = float(alpha)
+        self.value: Optional[float] = None
+
+    def update(self, x: float):
+        self.value = (float(x) if self.value is None
+                      else (1.0 - self.alpha) * self.value
+                      + self.alpha * float(x))
 
 
 class Request:
@@ -251,8 +277,11 @@ class ServingEngine:
     ``max_seq_len``). Admission reserves each request's worst-case blocks
     (prompt + max_new) so lazy per-step block allocation can never fail
     mid-flight. ``device`` defaults to ``cuda`` (raises without a GPU); the
-    model must live there. ``stats`` counts steps, tokens, prefill groups,
-    replays, preemptions and the wall seconds of each tick segment.
+    model must live there. ``speculate=SpecConfig(...)`` arms speculative
+    decoding with the n-gram proposer (see the module docstring).
+    ``stats`` counts steps, tokens, prefill groups, replays, preemptions,
+    speculative ticks, proposals and acceptances, and the wall seconds of
+    each tick segment.
     """
 
     def __init__(self, model, *, max_slots: int = 4,
@@ -271,8 +300,6 @@ class ServingEngine:
         for what, on, item in (
                 ("chunked prefill (chunk_tokens)", chunk_tokens is not None,
                  "Queue A item 7: chunked prefill"),
-                ("speculative decoding (speculate)", speculate is not None,
-                 "Queue A item 7: speculative decoding"),
                 ("offload", bool(offload), "Queue A item 7: offload"),
                 ("mesh / layout", mesh is not None or layout is not None,
                  "Queue A item 8"),
@@ -313,6 +340,26 @@ class ServingEngine:
             raise ValueError(
                 f"max_seq_len {max_seq_len} must be a multiple of "
                 f"block_tokens {block_tokens}")
+        if speculate is not None:
+            if not isinstance(speculate, SpecConfig):
+                raise ValueError(
+                    f"speculate must be a serving.SpecConfig, got "
+                    f"{type(speculate).__name__}")
+            if speculate.proposer == "draft":
+                raise _unported("the draft proposer (SpecConfig(proposer="
+                                "'draft'))",
+                                "Queue A item 7: draft proposer")
+            if speculate.k >= max_seq_len:
+                raise ValueError(
+                    f"speculate k {speculate.k} must be < max_seq_len "
+                    f"{max_seq_len}")
+            from paddle_tpu_torch.ops.fused_decode import VERIFY_MAX_ROWS
+            if self.device.type == "cuda" \
+                    and (speculate.k + 1) * max_slots > VERIFY_MAX_ROWS:
+                raise ValueError(
+                    f"(k + 1) · max_slots = {speculate.k + 1} · {max_slots}"
+                    f" > {VERIFY_MAX_ROWS}: the paged verify kernel takes "
+                    f"at most {VERIFY_MAX_ROWS} tail rows")
         self.meta = meta
         self.cache_dtype = cache_dtype
         self.block_tokens = int(block_tokens)
@@ -363,6 +410,32 @@ class ServingEngine:
         self._dev = None
         self._dirty = True
 
+        # speculative decoding: the per-slot proposal cap (the adaptive k;
+        # k everywhere without adaptivity), per-slot k and acceptance EWMA,
+        # the tick's tail width (max k over active slots), the host history
+        # of committed tokens (ms, max_seq_len) the n-gram matcher runs
+        # over, and the device twins of cap, history and the proposals the
+        # last verify produced
+        self.speculate = speculate
+        self._spec_k = 0 if speculate is None else speculate.k
+        self._spec_cap = self._spec_k_slot = self._spec_acc_ewma = None
+        self._history = None
+        if speculate is not None:
+            self._spec_cap = np.full(ms, speculate.k, np.int32)
+            self._spec_k_slot = np.full(ms, speculate.k, np.int32)
+            self._spec_acc_ewma = [_Ewma() for _ in range(ms)]
+            self._history = np.zeros((ms, max_seq_len), np.int32)
+        self._spec_k_eff = 0
+        self._last_spec_k = None
+        self._spec_adapt_tick = 0
+        self._prop_zeros: Dict[int, tuple] = {}
+        self._dev_cap = self._dev_hist = self._dev_prop = None
+        # k = 0 recovery probing (adaptive, k_min = 0): the wait counter and
+        # the open two-tick window over the probed slots
+        self._spec_probe_wait = 0
+        self._probe_window = 0
+        self._probe_slots: List[int] = []
+
         self._slots: List[Optional[_Slot]] = [None] * ms
         self._queue = _PriorityQueue()
         self._submit_seq = 0
@@ -381,6 +454,8 @@ class ServingEngine:
                     prefill_groups=0, replay_tokens=0,
                     requests_finished=0, requests_admitted=0,
                     preemptions=0, requests_resumed=0,
+                    spec_ticks=0, spec_proposed=0, spec_accepted=0,
+                    spec_k_probes=0,
                     step_admit_s=0.0, step_prefill_s=0.0,
                     step_dispatch_s=0.0, step_sync_s=0.0)
 
@@ -692,6 +767,16 @@ class ServingEngine:
         self._toks[slot_idx] = s.tok
         self._seeds[slot_idx] = np.uint32(req.seed)
         self._counts[slot_idx] = s.count
+        if self._history is not None:
+            # the committed tokens: the prompt, the replayed resume prefix
+            # and the slot's current last token, the suffix the n-gram
+            # matcher extends
+            hist = (s.feed if not s.resume else np.concatenate(
+                [s.feed, np.asarray(s.resume[:-1], np.int32)]))
+            self._history[slot_idx][:] = 0
+            self._history[slot_idx, :len(hist)] = hist
+            self._history[slot_idx,
+                          min(len(hist), self.max_seq_len - 1)] = s.tok
         self.stats["prefill_tokens"] += P - s.R
         self.stats["prefill_tokens_reused"] += s.R
         if self.prefix_cache is not None:
@@ -736,12 +821,183 @@ class ServingEngine:
         pos2 = torch.clamp(positions + 1, max=self.max_seq_len - 1)
         return nxt, pos2, counts + 1
 
-    def _ensure_blocks(self, slot_idx: int):
-        """The append position must resolve to an allocated block: allocate
-        lazily as a slot crosses a block boundary (admission reserved the
-        worst case, so this cannot exhaust the pool)."""
+    # ---------------------------------------------------- speculative decode
+    def _verify(self, tables, positions, toks, seeds, counts, props, nprop,
+                cap, K: int):
+        """One speculative verify for every slot (K7 on the card): embed
+        the K+1-token tail (last sampled token + K proposals) at positions
+        ``pos + j`` (rope rows at ``min(pos + j, max_seq_len - 1)``; the
+        clamp binds only on over-speculation, garbage rows), score it
+        through ``fused_paged_verify_step``, apply the head to all
+        (b·(K+1), h) rows at once, sample position j at
+        ``fold_in(seed, count + j)`` (the key the plain step folds for
+        that token), and accept the longest proposal prefix that matches.
+        Then advance positions, counts and the last token, write the tail
+        and the next token into the device history, and run the n-gram
+        matcher for the next tick's proposals — all on the device.
+        Returns (g (b, K+1), acc (b,), pos2, tok2, counts2, prop2,
+        nprop2)."""
+        from paddle_tpu_torch.inference import (_fold_rows, _row_keys,
+                                                _sample_logits)
+        from paddle_tpu_torch.ops.fused_decode import fused_paged_verify_step
+        from paddle_tpu_torch.serving.spec import ngram_propose
+        plan, meta, sc = self._plan, self.meta, self.speculate
+        ms, K1 = self.max_slots, K + 1
+        pos_cap = self.max_seq_len - 1
+        offs = torch.arange(K1, device=self.device)
+        tail = torch.cat([toks[:, None], props.to(toks.dtype)], dim=1)
+        pj = torch.clamp(positions[:, None].long() + offs[None], max=pos_cap)
+        x = plan["embed"](tail.reshape(-1), pj.reshape(-1)).reshape(
+            ms, K1, -1)
+        x, self.kv_pool = fused_paged_verify_step(
+            x, plan["params"], self.kv_pool, tables, positions,
+            self._cos_tab[pj], self._sin_tab[pj],
+            num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
+            eps=meta["eps"], blocks=meta["blocks"])
+        keys = (_fold_rows(_row_keys(seeds).repeat_interleave(K1, dim=0),
+                           (counts[:, None] + offs[None]).reshape(-1))
+                if self.temperature != 0.0 else None)
+        g = _sample_logits(plan["head"](x.reshape(ms * K1, -1)), keys,
+                           self.temperature, self.top_k,
+                           self.top_p).reshape(ms, K1)
+        # the per-slot proposal cap: the adaptive k (k when not adaptive)
+        nprop_eff = torch.clamp(torch.minimum(nprop, cap), max=K)
+        match = (props.to(g.dtype) == g[:, :K]) \
+            & (offs[None, :K] < nprop_eff[:, None])
+        acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        tok2 = torch.gather(g, 1, acc[:, None])[:, 0]
+        pos2 = torch.clamp(positions + acc + 1, max=pos_cap).to(
+            positions.dtype)
+        counts2 = (counts + acc + 1).to(counts.dtype)
+        # committed-token history: the tail at its absolute indices, then
+        # the next token at pos2; writes past the accepted prefix sit
+        # beyond the committed length, like rejected KV
+        rows = torch.arange(ms, device=self.device)
+        hist = self._dev_hist
+        hist[rows[:, None], pj] = tail.to(hist.dtype)
+        hist[rows, pos2.long()] = tok2.to(hist.dtype)
+        prop2, nprop2 = ngram_propose(hist, pos2 + 1, K, sc.ngram_max,
+                                      sc.ngram_min)
+        return g, acc, pos2, tok2, counts2, prop2, torch.minimum(nprop2, cap)
+
+    def _prop_zero(self, K: int):
+        """The (proposals, nprop) reset pair for tail width ``K``, built
+        once per width: a dirty tick re-arms the proposer with it."""
+        z = self._prop_zeros.get(K)
+        if z is None:
+            z = (torch.zeros((self.max_slots, K), dtype=torch.int32,
+                             device=self.device),
+                 torch.zeros((self.max_slots,), dtype=torch.int32,
+                             device=self.device))
+            self._prop_zeros[K] = z
+        return z
+
+    def _current_spec_k(self, active) -> int:
+        """This tick's verify-tail width: the configured k, or with
+        adaptive speculation the MAX per-slot k (or probe cap) over the
+        active slots; slots below it are capped through ``cap``. 0 means
+        the tick runs the plain per-token step."""
+        if not self.speculate.adaptive:
+            return self._spec_k
+        return int(max(max(int(self._spec_k_slot[i]),
+                           int(self._spec_cap[i])) for i in active))
+
+    def _maybe_probe(self, active):
+        """k = 0 recovery probing, at the top of every tick of an adaptive
+        engine: a slot parked at ``k_min = 0`` proposes nothing, so its
+        EWMA could never observe again. Every ``adapt_every`` consecutive
+        parked ticks, raise each parked active slot's cap to ONE for a
+        two-tick window: the first (dirty) tick re-zeroes the carried
+        proposals and primes the matcher, the second verifies a real
+        one-token proposal and feeds the EWMA. ``spec_k_probes`` counts
+        probed slots."""
+        if self._probe_window > 0:
+            # the window lives only while a probed slot is active (a
+            # retirement mid-window resets its cap in _release_slot)
+            if any(self._slots[i] is not None for i in self._probe_slots):
+                return
+            self._probe_window = 0
+            self._probe_slots = []
+            return
+        parked = [i for i in active if self._spec_k_slot[i] == 0]
+        if not parked:
+            self._spec_probe_wait = 0
+            return
+        self._spec_probe_wait += 1
+        if self._spec_probe_wait < self.speculate.adapt_every:
+            return
+        self._spec_probe_wait = 0
+        self._probe_window = 2
+        self._probe_slots = list(parked)
+        for i in parked:
+            self._spec_cap[i] = 1
+        self._dirty = True
+        self.stats["spec_k_probes"] += len(parked)
+
+    def _close_probe_window(self):
+        """End-of-spec-tick bookkeeping of an open probe window: when it
+        closes, parked slots drop back to their k, unless the adapt step
+        climbed it in between."""
+        if self._probe_window <= 0:
+            return
+        self._probe_window -= 1
+        if self._probe_window:
+            return
+        changed = False
+        for i in self._probe_slots:
+            if self._slots[i] is not None \
+                    and int(self._spec_cap[i]) != int(self._spec_k_slot[i]):
+                self._spec_cap[i] = int(self._spec_k_slot[i])
+                changed = True
+        self._probe_slots = []
+        if changed:
+            self._dirty = True
+
+    def _adapt_spec_k(self, active, acc_np, nprop_np):
+        """Per-slot adaptive-k update off the acceptance EWMA, at the end of
+        each speculative tick. A k change is an event: the cap re-uploads
+        and the proposals re-zero on the next tick."""
+        sc = self.speculate
+        K_eff = self._spec_k_eff
+        for i in active:
+            if self._slots[i] is None:      # retired in this tick's commit
+                continue
+            neff = min(int(nprop_np[i]), int(self._spec_cap[i]), K_eff)
+            if neff > 0:
+                self._spec_acc_ewma[i].update(int(acc_np[i]) / neff)
+        self._spec_adapt_tick += 1
+        if self._spec_adapt_tick % sc.adapt_every:
+            return
+        changed = False
+        for i in active:
+            if self._slots[i] is None:
+                continue
+            ew = self._spec_acc_ewma[i].value
+            if ew is None:
+                continue
+            k_i = int(self._spec_k_slot[i])
+            if ew < sc.acceptance_floor and k_i > sc.k_min:
+                k_i -= 1
+            elif ew > sc.acceptance_ceiling and k_i < sc.k:
+                k_i += 1
+            else:
+                continue
+            self._spec_k_slot[i] = k_i
+            self._spec_cap[i] = k_i
+            changed = True
+        if changed:
+            self._dirty = True
+
+    def _ensure_blocks(self, slot_idx: int, horizon: int = 0):
+        """Append positions [pos, pos + horizon] must resolve to allocated
+        blocks: allocate lazily as a slot crosses a block boundary
+        (admission reserved the worst case, so this cannot exhaust the
+        pool). ``horizon`` is the speculative append depth (k tail tokens
+        beyond the base append); allocation never exceeds the slot's
+        reservation, and over-speculation past it lands in the scratch
+        block through the table."""
         s = self._slots[slot_idx]
-        c = min(s.pos // self.block_tokens, s.worst_blocks - 1)
+        c = min((s.pos + horizon) // self.block_tokens, s.worst_blocks - 1)
         while s.ntab <= c:
             bid = self.pool.alloc(1)[0]
             s.blocks.append(bid)
@@ -757,6 +1013,12 @@ class ServingEngine:
         s = self._slots[slot_idx]
         for bid in s.blocks:
             self.pool.free(bid)
+        if self._history is not None:
+            self._history[slot_idx][:] = 0
+            # a fresh occupant starts at the configured k, optimistic
+            self._spec_cap[slot_idx] = self._spec_k
+            self._spec_k_slot[slot_idx] = self._spec_k
+            self._spec_acc_ewma[slot_idx] = _Ewma()
         self._reserved -= s.worst_blocks - s.ntab
         self._slots[slot_idx] = None
         self._tables[slot_idx][:] = SCRATCH_BLOCK
@@ -840,18 +1102,39 @@ class ServingEngine:
                         and now > s.deadline_at:
                     self._retire(i, "deadline")
             active = [i for i, s in enumerate(self._slots) if s is not None]
+            spec_tick = False
             if active:
+                if self.speculate is not None:
+                    if self.speculate.adaptive:
+                        self._maybe_probe(active)
+                    self._spec_k_eff = K_eff = self._current_spec_k(active)
+                    spec_tick = K_eff > 0
+                    if K_eff != self._last_spec_k:
+                        # a changed tail width is an event: the carried
+                        # proposals re-zero at the new width
+                        self._dirty = True
+                        self._last_spec_k = K_eff
                 for i in active:
-                    self._ensure_blocks(i)
+                    self._ensure_blocks(i, self._spec_k)
                 if self._dirty:
                     self._dev = tuple(self._up(a) for a in (
                         self._tables, self._positions, self._toks,
                         self._seeds, self._counts))
+                    if self.speculate is not None:
+                        # a join/leave tick drops the carried proposals:
+                        # the matcher re-primes them at the end of this
+                        # tick's verify (one proposal-free tick per event)
+                        self._dev_hist = self._up(self._history)
+                        self._dev_prop = (self._prop_zero(K_eff)
+                                          if spec_tick else None)
+                        self._dev_cap = self._up(self._spec_cap)
                     self._dirty = False
             t_d0 = time.perf_counter()
             self.stats["step_admit_s"] += t_d0 - t0 - self._tick_prefill_s
             self.stats["step_prefill_s"] += self._tick_prefill_s
-            if active:
+            if spec_tick:
+                self._spec_decode(active, t_d0)
+            elif active:
                 self._plain_decode(active, t_d0)
         return dict(active=self.active_slots, queued=len(self._queue),
                     finished=self._finished_tick)
@@ -879,6 +1162,11 @@ class ServingEngine:
             s.tok = tok
             s.pos += 1
             s.count += 1
+            if self._history is not None:
+                # an adaptive engine's plain (k = 0) tick keeps the host
+                # history current; the device twin refreshes on the next
+                # event tick's upload
+                self._history[i, min(s.pos, self.max_seq_len - 1)] = tok
             self._positions[i] = s.pos
             self._toks[i] = tok
             self._counts[i] = s.count
@@ -886,6 +1174,61 @@ class ServingEngine:
                 self._retire(i, "eos")
             elif s.count >= s.req.max_new_tokens:
                 self._retire(i, "length")
+
+    def _spec_decode(self, active, t_d0):
+        """One speculative tick: the verify over the device twins, ONE pull
+        of (g, acc, proposals, nprop), then the host commit of each slot's
+        accepted prefix and its next token. The commit stops at eos or
+        ``max_new_tokens`` inside an accepted run; a retirement marks the
+        mirrors dirty like any leave."""
+        tables, positions, toks, seeds, counts = self._dev
+        props, nprop = self._dev_prop
+        K = self._spec_k_eff
+        K1 = K + 1
+        g, acc, pos2, tok2, cnt2, prop2, nprop2 = self._verify(
+            tables, positions, toks, seeds, counts, props, nprop,
+            self._dev_cap, K)
+        self._dev = (tables, pos2, tok2, seeds, cnt2)
+        self._dev_prop = (prop2, nprop2)
+        t_s0 = time.perf_counter()
+        pulled = torch.cat([g, acc[:, None].long(), props.long(),
+                            nprop[:, None].long()], dim=1).cpu().numpy()
+        g_np, acc_np = pulled[:, :K1], pulled[:, K1]
+        prop_np, nprop_np = pulled[:, K1 + 1:K1 + 1 + K], pulled[:, -1]
+        st = self.stats
+        st["step_dispatch_s"] += t_s0 - t_d0
+        st["step_sync_s"] += time.perf_counter() - t_s0
+        st["steps"] += 1
+        st["spec_ticks"] += 1
+        st["idle_slot_steps"] += self.max_slots - len(active)
+        pos_cap = self.max_seq_len - 1
+        eos = self.eos_token_id
+        for i in active:
+            s = self._slots[i]
+            a = int(acc_np[i])
+            # the EFFECTIVE proposal count the verify considered
+            st["spec_proposed"] += min(int(nprop_np[i]),
+                                       int(self._spec_cap[i]), K)
+            st["spec_accepted"] += a
+            for tok in [int(t) for t in prop_np[i, :a]] + [int(g_np[i, a])]:
+                s.tokens.append(tok)
+                s.tok = tok
+                s.pos += 1
+                s.count += 1
+                st["decode_tokens"] += 1
+                self._history[i, min(s.pos, pos_cap)] = tok
+                self._positions[i] = s.pos
+                self._toks[i] = tok
+                self._counts[i] = s.count
+                if eos is not None and tok == int(eos):
+                    self._retire(i, "eos")
+                    break
+                if s.count >= s.req.max_new_tokens:
+                    self._retire(i, "length")
+                    break
+        if self.speculate.adaptive:
+            self._adapt_spec_k(active, acc_np, nprop_np)
+            self._close_probe_window()
 
     # ------------------------------------------------------------- results
     def pop_result(self, request_id: int) -> RequestResult:
@@ -933,6 +1276,8 @@ class ServingEngine:
         self.kv_pool = None
         self._plan = None
         self._dev = None
+        self._dev_hist = self._dev_prop = self._dev_cap = None
+        self._prop_zeros = {}
         self._cos_tab = self._sin_tab = None
         self._slots = [None] * self.max_slots
         self._queue = _PriorityQueue()

@@ -1,0 +1,218 @@
+"""The paged verify step of paddle_tpu_torch against paddle_tpu's.
+
+* fused_paged_verify_reference (the plain version a CPU tensor runs) against
+  the JAX ``fused_paged_verify_reference`` in fp32, MHA and GQA: three rows
+  over a shuffled block table, one tail crossing a block boundary, one row
+  idle. x_out of the active rows and the appended rows in mapped blocks
+  agree within 1e-5 (sums in another order).
+* The same against the TPU kernel itself, run as the JAX package's own
+  ``tests/test_serving_spec.py::_verify_twin_case`` runs it on the CPU
+  (``_fused_paged_verify_pallas(..., interpret=True)``), bf16, b=2, NB=12,
+  BT=16, K1=4, positions 33 and 17: atol = rtol = 2e-2 on x_out and 2e-2
+  on the mapped pool rows — bf16 intermediates rounded on either side of a
+  boundary, and the kernel's in-kernel rope angles.
+* An all-accepted plain verify equals K1 sequential plain paged steps, bit
+  for bit (the contract speculation's token parity rests on).
+* A tail straddling a block boundary and a tail running past the table:
+  appends land in the right blocks or in scratch, every other block is
+  untouched.
+* Unported modes raise naming ROADMAP.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import fused_decode as jfd
+from paddle_tpu_torch.ops import fused_decode as tfd
+from paddle_tpu_torch.ops.rope import rope_cos_sin as trope_cos_sin
+
+# row 0 active through private shuffled blocks, its tail crossing from
+# block 7 into block 3; row 1 active near the end of its table; row 2 idle
+BT, MB, NB, K1 = 8, 4, 12, 4
+TABLES = np.array([[7, 3, 0, 0], [5, 9, 2, 11], [0, 0, 0, 0]], np.int32)
+POSITIONS = np.array([6, 26, 3], np.int32)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tier-1 run shares the CPU among several test workers: keep this
+    file's torch ops on one thread, so they do not crowd out the other
+    workers' timing-sensitive tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _params(r, L, h, nh, nkv, hd, ffn, sc=0.05):
+    dq, dkv = nh * hd, nkv * hd
+    f = lambda *s, sc=sc: (r.randn(*s) * sc).astype(np.float32)
+    return {"ln1": 1 + f(L, h, sc=0.1), "wqkv": f(L, h, dq + 2 * dkv),
+            "wo": f(L, dq, h), "ln2": 1 + f(L, h, sc=0.1),
+            "wg": f(L, h, ffn), "wu": f(L, h, ffn), "wd": f(L, ffn, h)}
+
+
+def _rope_rows(hd, positions, k1=K1, S=MB * BT):
+    """(b, K1, hd) rope rows at min(pos + j, S - 1), as the engine gathers
+    them."""
+    c, s = trope_cos_sin(S, hd)
+    idx = torch.from_numpy(np.minimum(positions[:, None] + np.arange(k1),
+                                      S - 1).astype(np.int64))
+    return c[idx], s[idx]
+
+
+def _to_t(a):
+    """A JAX bf16 array as a torch bf16 tensor, bit for bit."""
+    return torch.from_numpy(np.asarray(a).view(np.uint16).copy()).view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("nkv", [4, 2])          # MHA, GQA
+def test_verify_reference_matches_jax_reference_fp32(nkv):
+    L, h, nh, hd, ffn = 2, 64, 4, 16, 96
+    r = np.random.RandomState(nkv)
+    params = _params(r, L, h, nh, nkv, hd, ffn)
+    x = r.randn(3, K1, h).astype(np.float32)
+    pool = r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32)
+    cos, sin = _rope_rows(hd, POSITIONS)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xj, pj = jfd.fused_paged_verify_reference(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},
+        jnp.asarray(pool), jnp.asarray(TABLES), jnp.asarray(POSITIONS),
+        jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()), **kw)
+    xt, pt = tfd.fused_paged_verify_step(
+        torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in
+                              params.items()},
+        torch.from_numpy(pool.copy()), torch.from_numpy(TABLES),
+        torch.from_numpy(POSITIONS), cos, sin, **kw)
+    assert tuple(xt.shape) == (3, K1, h)
+    active = [0, 1]                 # the idle row's output is thrown away
+    np.testing.assert_allclose(xt.numpy()[active], np.asarray(xj)[active],
+                               atol=1e-5, rtol=1e-5)
+    mapped = sorted({int(t) for t in TABLES.ravel() if t != 0})
+    np.testing.assert_allclose(pt.numpy()[:, mapped],
+                               np.asarray(pj)[:, mapped], atol=1e-5,
+                               rtol=1e-5)
+    assert tfd.fused_paged_verify_cuda.launches == 0
+
+
+def test_verify_reference_matches_interpret_kernel_bf16():
+    """The TPU kernel in interpret mode vs the port's plain version, on the
+    JAX package's own twin case (b=2, NB=12, BT=16, K1=4)."""
+    L, h, nh, nkv, hd, ffn = 2, 128, 4, 4, 32, 256
+    b, nb, bt, k1 = 2, 12, 16, 4
+    r = np.random.RandomState(0)
+    params = _params(r, L, h, nh, nkv, hd, ffn)
+    pool = r.randn(L, nb, bt, 2 * nkv * hd).astype(np.float32)
+    tables = np.zeros((b, 4), np.int32)
+    tables[0, :3] = [1, 2, 3]
+    tables[1, :2] = [4, 5]
+    positions = np.asarray([33, 17], np.int32)      # mid-block appends
+    x = r.randn(b, k1, h).astype(np.float32)
+    pj = {k: jnp.asarray(v, jnp.bfloat16) for k, v in params.items()}
+    pool_j = jnp.asarray(pool, jnp.bfloat16)
+    x_j = jnp.asarray(x, jnp.bfloat16)
+    yk, pk = jax.jit(lambda x, p, c: jfd._fused_paged_verify_pallas(
+        x.transpose(1, 0, 2).reshape(k1 * b, h), p, c, jnp.asarray(tables),
+        jnp.asarray(positions), num_heads=nh, num_kv_heads=nkv,
+        head_dim=hd, eps=1e-5, interpret=True))(x_j, pj, pool_j)
+    yk = np.asarray(yk, np.float32).reshape(k1, b, h).transpose(1, 0, 2)
+    cos, sin = _rope_rows(hd, positions, k1, S=4 * bt)
+    yt, pt = tfd.fused_paged_verify_step(
+        _to_t(x_j), {k: _to_t(v) for k, v in pj.items()}, _to_t(pool_j),
+        torch.from_numpy(tables), torch.from_numpy(positions), cos, sin,
+        num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    np.testing.assert_allclose(yt.float().numpy(), yk, atol=2e-2, rtol=2e-2)
+    mapped = sorted({int(t) for t in tables.ravel() if t != 0})
+    np.testing.assert_allclose(pt.float().numpy()[:, mapped],
+                               np.asarray(pk, np.float32)[:, mapped],
+                               atol=2e-2, rtol=0)
+
+
+def test_all_accepted_verify_equals_sequential_plain_steps_bitwise():
+    """Tail token j through the verify == a plain paged step at pos + j
+    after steps 0..j-1, bit for bit: x_out and the whole pool (bf16)."""
+    L, h, nh, nkv, hd, ffn = 2, 64, 4, 2, 16, 96
+    r = np.random.RandomState(3)
+    params = {k: torch.from_numpy(v).bfloat16() for k, v in
+              _params(r, L, h, nh, nkv, hd, ffn).items()}
+    x = torch.from_numpy(r.randn(3, K1, h).astype(np.float32)).bfloat16()
+    pool = torch.from_numpy(
+        r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32)).bfloat16()
+    tables = torch.from_numpy(TABLES)
+    positions = torch.from_numpy(POSITIONS)
+    cos, sin = _rope_rows(hd, POSITIONS)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    pool_seq = pool.clone()
+    xv, pool = tfd.fused_paged_verify_step(x, params, pool, tables,
+                                           positions, cos, sin, **kw)
+    for j in range(K1):
+        xs, pool_seq = tfd.fused_paged_decode_step(
+            x[:, j].contiguous(), params, pool_seq, tables, positions + j,
+            cos[:, j].contiguous(), sin[:, j].contiguous(), **kw)
+        assert torch.equal(xv[:, j], xs), j
+    assert torch.equal(pool, pool_seq)
+
+
+def test_appends_straddle_and_past_the_table_land_where_they_should():
+    """Row 0's tail (6..9) crosses from its block 7 into block 3; row 1's
+    (30..33) runs past its 4-entry table, so 32 and 33 land in scratch.
+    Each appended row holds the rope'd k and v the plain step computes for
+    it; every block no append reached is untouched."""
+    L, h, nh, nkv, hd, ffn = 1, 64, 4, 2, 16, 96
+    r = np.random.RandomState(5)
+    params = {k: torch.from_numpy(v) for k, v in
+              _params(r, L, h, nh, nkv, hd, ffn).items()}
+    positions = np.array([6, 30, 3], np.int32)
+    x = torch.from_numpy(r.randn(3, K1, h).astype(np.float32))
+    pool0 = torch.from_numpy(
+        r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32))
+    cos, sin = _rope_rows(hd, positions)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    _, pool = tfd.fused_paged_verify_step(
+        x, params, pool0.clone(), torch.from_numpy(TABLES),
+        torch.from_numpy(positions), cos, sin, **kw)
+    want = {(7, 6), (7, 7), (3, 0), (3, 1),      # row 0
+            (11, 6), (11, 7)}                    # row 1 (30, 31)
+    dq, dkv = nh * hd, nkv * hd
+    for bid, off in want:
+        assert not torch.equal(pool[:, bid, off], pool0[:, bid, off])
+    # the v half of an appended row is the layer-0 v projection itself
+    xn = tfd._rms(x[0, 0][None], params["ln1"][0], 1e-5)
+    v = (xn @ params["wqkv"][0])[0, dq + dkv:]
+    torch.testing.assert_close(pool[0, 7, 6, dkv:], v, atol=1e-6, rtol=1e-6)
+    touched = {0, 7, 3, 11}
+    rest = [i for i in range(NB) if i not in touched]
+    assert torch.equal(pool[:, rest], pool0[:, rest])
+    for bid in (7, 3, 11):                       # rows no append reached
+        hit = [off for b_, off in want if b_ == bid]
+        keep = [o for o in range(BT) if o not in hit]
+        assert torch.equal(pool[:, bid, keep], pool0[:, bid, keep])
+    # the table is never read at MB or beyond: a tail starting at the
+    # last position of the table still runs
+    xe, _ = tfd.fused_paged_verify_step(
+        x, params, pool0.clone(), torch.from_numpy(TABLES),
+        torch.tensor([MB * BT - 1, MB * BT - 1, 0], dtype=torch.int32),
+        cos, sin, **kw)
+    assert bool(torch.isfinite(xe).all())
+
+
+def test_verify_dispatch_refuses_unported_modes():
+    x = torch.zeros(1, 2, 8)
+    pool = torch.zeros(1, 2, 8, 8)
+    tab = torch.zeros(1, 1, dtype=torch.int32)
+    pos = torch.zeros(1, dtype=torch.int32)
+    args = (x, {}, pool, tab, pos, None, None)
+    kw = dict(num_heads=1, num_kv_heads=1)
+    for extra in (dict(arch="gpt"), dict(kv_scales=torch.ones(1)),
+                  dict(mp_axis="mp")):
+        with pytest.raises(NotImplementedError, match="Queue B row 6"):
+            tfd.fused_paged_verify_step(*args, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="Queue B row 6"):
+        tfd.fused_paged_verify_step(x, {"wqkv_s": None}, pool, tab, pos,
+                                    None, None, **kw)
+    with pytest.raises(ValueError, match="cache"):
+        tfd.fused_paged_verify_step(*args, **kw, blocks={"cache_wbytes": 1})

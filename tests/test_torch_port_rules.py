@@ -50,6 +50,7 @@ def test_scan_covers_the_package():
     assert {"paddle_tpu_torch/models/gpt.py", "paddle_tpu_torch/bench.py",
             "paddle_tpu_torch/serving/engine.py",
             "paddle_tpu_torch/serving/pool.py",
+            "paddle_tpu_torch/serving/spec.py",
             "paddle_tpu_torch/optimizer/__init__.py",
             "examples/torch_train_profile.py",
             "examples/torch_decode_profile.py"} <= names
@@ -140,6 +141,63 @@ def test_paged_wrapper_refuses_what_k5_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         call(x, p, strided, tab, pos, rows, rows)
     assert fd.fused_paged_decode_cuda.launches == 0
+
+
+def test_spec_engine_counters_stay_zero_on_cpu():
+    """A speculative engine on CPU tensors verifies through the plain
+    version: K7 (and K5) count no launch."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+    fd.fused_paged_verify_cuda.launches = 0
+    fd.fused_paged_decode_cuda.launches = 0
+    m = LlamaForCausalLM(LlamaConfig.tiny(), dtype=torch.bfloat16,
+                         device="cpu", seed=0)
+    eng = ServingEngine(m, max_slots=2, block_tokens=16, max_seq_len=64,
+                        device="cpu", speculate=SpecConfig(k=2))
+    motif = np.random.RandomState(0).randint(0, 256, (3,))
+    rids = [eng.submit(Request(np.tile(motif, 4), max_new_tokens=6))
+            for _ in range(2)]
+    eng.drain()
+    assert all(len(eng.results[r].tokens) == 6 for r in rids)
+    assert eng.stats["spec_ticks"] == eng.stats["steps"] > 0
+    assert fd.fused_paged_verify_cuda.launches == 0
+    assert fd.fused_paged_decode_cuda.launches == 0
+
+
+def test_verify_wrapper_refuses_what_k7_does_not_take():
+    """fused_paged_verify_cuda raises on CPU tensors, a wrong dtype, a
+    non-contiguous x and more than 64 tail rows, before any launch."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, h, nh, nkv, hd, ffn, b, k1 = 1, 64, 2, 1, 64, 64, 2, 3
+    bf = torch.bfloat16
+    p = {"ln1": torch.ones(L, h, dtype=bf),
+         "wqkv": torch.zeros(L, h, (nh + 2 * nkv) * hd, dtype=bf),
+         "wo": torch.zeros(L, nh * hd, h, dtype=bf),
+         "ln2": torch.ones(L, h, dtype=bf),
+         "wg": torch.zeros(L, h, ffn, dtype=bf),
+         "wu": torch.zeros(L, h, ffn, dtype=bf),
+         "wd": torch.zeros(L, ffn, h, dtype=bf)}
+    x = torch.zeros(b, k1, h, dtype=bf)
+    pool = torch.zeros(L, 4, 16, 2 * nkv * hd, dtype=bf)
+    tab = torch.zeros(b, 2, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    rows = torch.zeros(b, k1, hd)
+    kw = dict(num_heads=nh, num_kv_heads=nkv)
+    call = lambda *a: fd.fused_paged_verify_cuda(*a, **kw)
+    with pytest.raises(ValueError, match="cuda"):
+        call(x, p, pool, tab, pos, rows, rows)            # CPU tensors
+    with pytest.raises(TypeError, match="float32"):
+        call(x.float(), p, pool, tab, pos, rows, rows)
+    with pytest.raises(TypeError, match="int32"):
+        call(x, p, pool, tab, pos.long(), rows, rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(torch.zeros(b, h, k1, dtype=bf).transpose(1, 2), p, pool, tab,
+             pos, rows, rows)
+    big = torch.zeros(8, 9, h, dtype=bf)
+    with pytest.raises(ValueError, match="64"):
+        call(big, p, pool, tab, pos, rows, rows)
+    assert fd.fused_paged_verify_cuda.launches == 0
 
 
 def test_serving_engine_default_device_raises_without_cuda():
@@ -344,3 +402,56 @@ def test_paged_decode_kernel_matches_plain_and_k2(cuda, nkv):
         x, p, pool, tab, p5, cos.index_select(0, p5),
         sin.index_select(0, p5), **kw)
     assert torch.equal(x5, x2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nkv", [4, 1])
+def test_paged_verify_kernel_matches_plain(cuda, nkv):
+    """K7 against its plain version over a shuffled block table: one tail
+    crossing a block boundary, one running past the table (scratch), one
+    idle row. x_out of mapped tail tokens, the appended rows, and every
+    other row of every block but scratch."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, K1, nh, hd, h, ffn, BT, MB = 2, 4, 5, 4, 128, 512, 1024, 16, 8
+    g = torch.Generator(device=cuda).manual_seed(4)
+    mk = lambda *s, sc=0.05: (torch.randn(*s, generator=g, device=cuda)
+                              * sc).bfloat16()
+    dq, dkv = nh * hd, nkv * hd
+    p = {"ln1": 1 + mk(L, h, sc=0.1), "wqkv": mk(L, h, dq + 2 * dkv),
+         "wo": mk(L, dq, h), "ln2": 1 + mk(L, h, sc=0.1),
+         "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
+    x = mk(b, K1, h, sc=1.0)
+    pool = mk(L, 1 + b * MB, BT, 2 * dkv, sc=1.0)
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(1))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32)
+    tab[1, 3:] = 0                  # row 1 maps 3 blocks: 46..50 crosses
+    tab[3] = 0                      # an idle row
+    tab = tab.to(cuda)
+    positions = [30, 46, MB * BT - 2, 3]   # row 0 crosses 31 | 32
+    mapped = [(0, j) for j in range(K1)] + [(1, 0), (1, 1)] + \
+        [(2, 0), (2, 1)]
+    S = BT * MB
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    pj = torch.clamp(torch.tensor(positions, device=cuda)[:, None]
+                     + torch.arange(K1, device=cuda)[None], max=S - 1)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xk, pk = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos,
+                                        cos[pj], sin[pj], **kw)
+    xr, pr = fd.fused_paged_verify_reference(x, p, pool.clone(), tab, pos,
+                                             cos[pj], sin[pj], **kw)
+    rr = torch.tensor([r for r, _ in mapped], device=cuda)
+    jj = torch.tensor([j for _, j in mapped], device=cuda)
+    torch.testing.assert_close(xk[rr, jj].float(), xr[rr, jj].float(),
+                               atol=5e-2, rtol=2 ** -7)
+    t = pos.long()[rr] + jj
+    bids, offs = tab.long()[rr, t // BT], t % BT
+    torch.testing.assert_close(pk[:, bids, offs].float(),
+                               pr[:, bids, offs].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    rest = torch.ones(pool.shape[1:3], dtype=torch.bool, device=cuda)
+    rest[bids, offs] = False
+    rest[0] = False
+    assert torch.equal(pk[:, rest], pr[:, rest])
+    assert torch.equal(pk[:, rest], pool[:, rest])

@@ -225,8 +225,9 @@ def test_request_validation_and_unported_options(pair):
             Request(**bad)
     big = Request([1], request_id=10 ** 6).request_id
     assert Request([1]).request_id > big    # the id source moves past it
+    draft = tserving.SpecConfig(k=2, proposer="draft", draft_model=tm)
     for kw in (dict(cache_dtype=torch.int8), dict(chunk_tokens=16),
-               dict(speculate=object()), dict(offload=True),
+               dict(speculate=draft), dict(offload=True),
                dict(mesh=object()), dict(sanitize=True),
                dict(max_queue=4), dict(shed_infeasible=True),
                dict(flight_dump_path="x")):
