@@ -6,6 +6,7 @@
     PYTHONPATH=. python3 examples/torch_decode_profile.py --paged
     PYTHONPATH=. python3 examples/torch_decode_profile.py --verify
     PYTHONPATH=. python3 examples/torch_decode_profile.py --serve
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --moe
 
 Default: builds a Llama-2-7B-width stack (random bf16 weights, seed 0) and
 a KV cache filled up to `pos`, times paddle_tpu_torch's fused decode step
@@ -27,6 +28,13 @@ with a tail of 5 tokens each (the last token and k = 4 proposals, the
 speculative engine's step), 40 tail rows in all. The
 tensor-core product kernel serves all four products; its epilogues tell
 them apart by mode (QKV, RESID for o-proj and down, SWIGLU).
+
+--moe: the same split for the MoE decode step (K6) at DeepSeekMoE-16B's
+shape (28 layers, h 2048, 16 heads, 64 experts of 1408, top-6, 2 shared
+experts as one 2816-wide SwiGLU), b=4, pos 1056; the routed experts' bound
+counts the distinct experts the step's routing used. The tensor-core
+product kernel serves the shared (DenseOps) and the routed (MoEOps)
+products.
 
 --serve: a Llama-2-7B ServingEngine (8 slots, block 128) with 8 requests
 of 500-token prompts decoding; traces 32 ticks and prints the wall time
@@ -190,6 +198,36 @@ def paged_step(L, b, nkv, tail=0, h=4096, nh=32, hd=128, ffn=11008,
     return step, p, L * keys * 2 * dkv * 2, positions
 
 
+def moe_step(b=4, pos=1056, L=28, h=2048, nh=16, hd=128, E=64, k=6,
+             f=1408, fs=2816):
+    """K6 over a contiguous cache filled up to `pos`, DeepSeekMoE-16B's
+    shape, random weights (std 0.02, the router's logits std ≈ 0.9)."""
+    S = -(-(pos + 1) // 128) * 128
+    dq = dkv = nh * hd
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
+        0, sc, generator=g).bfloat16()
+    p = {"ln1": torch.ones(L, h, device="cuda").bfloat16(),
+         "wqkv": mk(L, h, dq + 2 * dkv), "wo": mk(L, dq, h),
+         "ln2": torch.ones(L, h, device="cuda").bfloat16(),
+         "gate": mk(L, E, h), "weg": mk(L, E, h, f), "weu": mk(L, E, h, f),
+         "wed": mk(L, E, f, h), "wsg": mk(L, h, fs), "wsu": mk(L, h, fs),
+         "wsd": mk(L, fs, h)}
+    kv = torch.zeros(L, b, S, 2 * dkv, device="cuda", dtype=torch.bfloat16)
+    kv[:, :, :pos] = mk(L, b, pos, 2 * dkv, sc=1.0)
+    x = mk(b, h, sc=1.0)
+    cos, sin = rope_cos_sin(S, hd, device="cuda")
+    kw = dict(num_heads=nh, num_kv_heads=nh, top_k=k)
+    route = {}
+    fd.fused_decode_moe_cuda(x, p, kv, pos, cos[pos:pos + 1],
+                             sin[pos:pos + 1], routing=route, **kw)
+    ids = route["ids"].cpu()
+    distinct = sum(len(set(ids[l].flatten().tolist())) for l in range(L))
+    step = lambda: fd.fused_decode_moe_cuda(
+        x, p, kv, pos, cos[pos:pos + 1], sin[pos:pos + 1], **kw)
+    return step, p, L * b * (pos + 1) * 2 * dkv * 2, distinct
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=32)
@@ -201,6 +239,7 @@ def main():
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--verify", action="store_true")
     ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--moe", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -217,7 +256,10 @@ def main():
         return serve_split(card)
     L, b, pos, nkv = a.layers, a.batch, a.pos, a.kv_heads
     h, nh, hd, ffn = 4096, 32, 128, 11008
-    if a.paged or a.verify:
+    if a.moe:
+        L, b, pos, nkv = 28, 4, 1056, 16
+        step, p, kvb, distinct = moe_step(b, pos, L)
+    elif a.paged or a.verify:
         b = 8
         step, p, kvb, pos = paged_step(L, b, nkv,
                                        tail=VERIFY_TAIL if a.verify else 0)
@@ -238,12 +280,21 @@ def main():
     wb = lambda *ks: sum(p[k].numel() * 2 for k in ks)
     bounds_ms = {"qkv gemm": wb("wqkv") / bw * 1e3,
                  "o-proj gemm": wb("wo") / bw * 1e3,
-                 "gate/up gemm": wb("wg", "wu") / bw * 1e3,
-                 "down gemm": wb("wd") / bw * 1e3,
                  "attention (filled KV)": kvb / bw * 1e3}
+    if a.moe:
+        expert = wb("weg", "weu", "wed") / (L * p["weg"].shape[1])
+        bounds_ms.update({
+            "router (gate)": wb("gate") / bw * 1e3,
+            "shared experts": wb("wsg", "wsu", "wsd") / bw * 1e3,
+            f"routed experts ({distinct} distinct)":
+                distinct * expert / bw * 1e3})
+    else:
+        bounds_ms.update({"gate/up gemm": wb("wg", "wu") / bw * 1e3,
+                          "down gemm": wb("wd") / bw * 1e3})
     print(json.dumps({"card": card, "layers": L, "batch": b, "pos": pos,
                       "kernel": ("K7 (verify), tail %d" % VERIFY_TAIL
                                  if a.verify else
+                                 "K6 (MoE), DeepSeekMoE-16B" if a.moe else
                                  "K5 (paged)" if a.paged else "K2"),
                       "kv_heads": nkv, "step_ms": step_ms,
                       "device_ms_per_step_by_kernel": per_kernel,

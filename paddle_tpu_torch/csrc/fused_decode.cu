@@ -40,7 +40,10 @@
 // A third entry point, fused_paged_verify_llama (K7, speculative decoding's
 // verify step), runs up to 64 tail rows through the stack on tensor-core
 // GEMMs of its own; it shares only the epilogue, norm-sum and cast kernels
-// with K2/K5, whose code it leaves as it is (see the K7 section).
+// with K2/K5, whose code it leaves as it is (see the K7 section). A fourth,
+// fused_decode_moe (K6, the MoE step), runs K2's attention half and then
+// the routed and shared experts on K7's tensor-core GEMMs (see the K6
+// section).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -535,14 +538,37 @@ struct Stack {
   float eps;
 };
 
-// Per layer: qkv GEMM, rope + append + attention over layer_kv(l), o-proj,
-// gate/up, down — 1 + 11L launches on `st`. Returns the first CUDA error.
+// The attention half of layer l (K2's, K5's and K6's): qkv GEMM with the
+// RMSNorm prologue, rope + append + attention over kv, o-proj with the
+// residual epilogue into a.xf — 6 launches on `st`.
+template <class KV>
+cudaError_t attention_half(const Stack& a, int l, const KV& kv, float* rstd,
+                           float* ws0, float* ws1, cudaStream_t st) {
+  const int b = a.b, h = a.h, hd = a.hd;
+  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
+  const int rep = a.nh / a.nkv;
+  const float scale = 1.f / sqrtf((float)hd);
+  const bf16* ln1l = a.ln1 + (long)l * h;
+  const bf16* wqkvl = a.wqkv + (long)l * h * dqkv;
+  const bf16* wol = a.wo + (long)l * dq * h;
+  cudaError_t e = gemm<MODE_QKV>(a.xf, nullptr, ln1l, wqkvl, nullptr, a.qkv,
+                                 nullptr, ws0, ws1, rstd, b, h, dqkv, a.eps,
+                                 st);
+  if (e != cudaSuccess) return e;
+  e = hd == 128 ? attn_hd<128>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
+      : hd == 64 ? attn_hd<64>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
+                 : cudaErrorInvalidValue;
+  if (e != cudaSuccess) return e;
+  return gemm<MODE_RESID>(nullptr, a.attn, nullptr, wol, nullptr, a.xf,
+                          nullptr, ws0, ws1, rstd, b, dq, h, a.eps, st);
+}
+
+// Per layer: the attention half over layer_kv(l), then gate/up and down —
+// 1 + 11L launches on `st`. Returns the first CUDA error.
 template <class LayerKV>
 cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
   const int L = a.L, b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
-  const int rep = a.nh / a.nkv;
-  const float scale = 1.f / sqrtf((float)hd);
   long n0;
   ws_layout(b, h, dq, dqkv, ffn, &n0);
   float* rstd = a.ws;
@@ -552,23 +578,11 @@ cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
                                                            b * h);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
-    const bf16* ln1l = a.ln1 + (long)l * h;
-    const bf16* wqkvl = a.wqkv + (long)l * h * dqkv;
-    const bf16* wol = a.wo + (long)l * dq * h;
     const bf16* ln2l = a.ln2 + (long)l * h;
     const bf16* wgl = a.wg + (long)l * h * ffn;
     const bf16* wul = a.wu + (long)l * h * ffn;
     const bf16* wdl = a.wd + (long)l * ffn * h;
-    e = gemm<MODE_QKV>(a.xf, nullptr, ln1l, wqkvl, nullptr, a.qkv, nullptr,
-                       ws0, ws1, rstd, b, h, dqkv, a.eps, st);
-    if (e != cudaSuccess) break;
-    const auto kv = layer_kv(l);
-    e = hd == 128 ? attn_hd<128>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
-        : hd == 64 ? attn_hd<64>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
-                   : cudaErrorInvalidValue;
-    if (e != cudaSuccess) break;
-    e = gemm<MODE_RESID>(nullptr, a.attn, nullptr, wol, nullptr, a.xf,
-                         nullptr, ws0, ws1, rstd, b, dq, h, a.eps, st);
+    e = attention_half(a, l, layer_kv(l), rstd, ws0, ws1, st);
     if (e != cudaSuccess) break;
     e = gemm<MODE_SWIGLU>(a.xf, nullptr, ln2l, wgl, wul, nullptr, a.act, ws0,
                           ws1, rstd, b, h, ffn, a.eps, st);
@@ -668,14 +682,40 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
 }
 
+// Where a tensor-core product block (blockIdx.z = z) finds its operands:
+// the weight W(z) (in, out), activation row r (nullptr: a zero row) and
+// the partial-sum row of split ks for row r (nullptr: not stored).
+// prepare() runs first in every block, with every thread, over a small
+// shared array; a block whose prepare() returns false exits.
+//
+// DenseOps, K7's products: one activation matrix A (M, in), the weight w0
+// and the partial sums o0 (ks, M, out); z = 1 takes w1 and o1 (two weights
+// against the same rows in one launch).
+struct DenseOps {
+  static constexpr int CTX = 1;
+  const bf16* A;
+  const bf16* w0;
+  const bf16* w1;
+  float* o0;
+  float* o1;
+  int M, in;
+  __device__ bool prepare(int, int*) const { return true; }
+  __device__ const bf16* a_row(int, const int*, int r) const {
+    return r < M ? A + (long)r * in : nullptr;
+  }
+  __device__ const bf16* w(int z, const int*) const { return z ? w1 : w0; }
+  __device__ float* out_row(int z, const int*, int ks, int r, int out) const {
+    return r < M ? (z ? o1 : o0) + ((long)ks * M + r) * out : nullptr;
+  }
+};
+
 // Stage c of a block's contraction range: W rows [kc, kc+VK) x the block's
 // 64 columns, and the MP activation rows' matching VK columns; what lies
-// past the range, the columns or the M rows reads as zero.
-template <int MP>
+// past the range, the columns or the rows reads as zero.
+template <int MP, class Ops>
 __device__ __forceinline__ void tc_load_stage(
-    bf16* sw, bf16* sa, const bf16* __restrict__ A,
-    const bf16* __restrict__ W, int M, int in, int out, int n0, int kc,
-    int k1) {
+    bf16* sw, bf16* sa, const Ops& ops, const int* ctx,
+    const bf16* __restrict__ W, int out, int n0, int kc, int k1) {
   for (int i = threadIdx.x; i < VK * VN / 8; i += VT) {
     const int r = i >> 3, col = (i & 7) << 3;
     const bool ok = kc + r < k1 && n0 + col < out;
@@ -684,22 +724,25 @@ __device__ __forceinline__ void tc_load_stage(
   }
   for (int i = threadIdx.x; i < MP * VK / 8; i += VT) {
     const int r = i >> 3, col = (i & 7) << 3;
-    const bool ok = r < M && kc + col < k1;
-    cp_async16(sa + swz(r, col), ok ? A + (long)r * in + kc + col : A, ok);
+    const bf16* ar = ops.a_row(blockIdx.z, ctx, r);
+    const bool ok = ar != nullptr && kc + col < k1;
+    cp_async16(sa + swz(r, col), ok ? ar + kc + col : W, ok);
   }
 }
 
 // Partial products ws[ks][m][col] of y(M, out) = A(M, in) @ W(in, out),
-// M <= 16*MT, over the contraction rows [ks*kper, (ks+1)*kper). Warp w
-// owns columns (w%4)*16 .. +16 of the block's 64 and the k16 steps
-// {2*(w/4), 2*(w/4)+1} of every 64-row stage; the two k halves are added
-// through shared memory at the end (a fixed order).
-template <int MT>
+// M <= 16*MT, over the contraction rows [ks*kper, (ks+1)*kper), with the
+// operands Ops gives for blockIdx.z. Warp w owns columns (w%4)*16 .. +16
+// of the block's 64 and the k16 steps {2*(w/4), 2*(w/4)+1} of every 64-row
+// stage; the two k halves are added through shared memory at the end (a
+// fixed order).
+template <int MT, class Ops>
 __global__ void __launch_bounds__(VT)
-tc_gemm_partial_kernel(const bf16* __restrict__ A,
-                       const bf16* __restrict__ W, float* __restrict__ ws,
-                       int M, int in, int out, int kper) {
+tc_gemm_partial_kernel(const Ops ops, int in, int out, int kper) {
   constexpr int MP = MT * 16;
+  __shared__ int ctx[Ops::CTX];
+  if (!ops.prepare(blockIdx.z, ctx)) return;
+  const bf16* __restrict__ W = ops.w(blockIdx.z, ctx);
   extern __shared__ __align__(16) unsigned char vsm[];
   bf16* sw = reinterpret_cast<bf16*>(vsm);   // [VSTAGES][VK][VN]
   bf16* sa = sw + VSTAGES * VK * VN;         // [VSTAGES][MP][VK]
@@ -721,7 +764,7 @@ tc_gemm_partial_kernel(const bf16* __restrict__ A,
 #pragma unroll
   for (int s = 0; s < VSTAGES - 1; ++s) {
     if (s < nch)
-      tc_load_stage<MP>(sw + s * VK * VN, sa + s * MP * VK, A, W, M, in, out,
+      tc_load_stage<MP>(sw + s * VK * VN, sa + s * MP * VK, ops, ctx, W, out,
                         n0, k0 + s * VK, k1);
     cp_async_commit();
   }
@@ -731,7 +774,7 @@ tc_gemm_partial_kernel(const bf16* __restrict__ A,
     const int cn = c + VSTAGES - 1;
     if (cn < nch) {
       const int sn = cn % VSTAGES;
-      tc_load_stage<MP>(sw + sn * VK * VN, sa + sn * MP * VK, A, W, M, in,
+      tc_load_stage<MP>(sw + sn * VK * VN, sa + sn * MP * VK, ops, ctx, W,
                         out, n0, k0 + cn * VK, k1);
     }
     cp_async_commit();
@@ -772,7 +815,6 @@ tc_gemm_partial_kernel(const bf16* __restrict__ A,
   __syncthreads();
   if (kh == 0) {
     const int g = lane >> 2, cq = lane & 3;
-    float* wsb = ws + (long)blockIdx.y * M * out;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -785,25 +827,26 @@ tc_gemm_partial_kernel(const bf16* __restrict__ A,
         const int col = n0 + nq * 16 + t * 8 + cq * 2;
         const int r0 = mt * 16 + g;
         if (col < out) {
-          if (r0 < M)
-            *reinterpret_cast<float2*>(wsb + (long)r0 * out + col) =
-                make_float2(v[0], v[1]);
-          if (r0 + 8 < M)
-            *reinterpret_cast<float2*>(wsb + (long)(r0 + 8) * out + col) =
-                make_float2(v[2], v[3]);
+          float* o = ops.out_row(blockIdx.z, ctx, blockIdx.y, r0, out);
+          if (o != nullptr)
+            *reinterpret_cast<float2*>(o + col) = make_float2(v[0], v[1]);
+          o = ops.out_row(blockIdx.z, ctx, blockIdx.y, r0 + 8, out);
+          if (o != nullptr)
+            *reinterpret_cast<float2*>(o + col) = make_float2(v[2], v[3]);
         }
       }
   }
 }
 
-// Contraction splits of a verify product: about three blocks per SM in
-// all, each split at least four stages long.
+// Contraction splits of a tensor-core product over `slots` independent
+// (weight, rows) pairs: about three blocks per SM in all, each split at
+// least four stages long.
 struct VSplit {
   int ks, kper;
 };
 
-VSplit vsplit(int in, int out) {
-  const int tiles = (out + VN - 1) / VN;
+VSplit vsplit(int in, int out, int slots = 1) {
+  const int tiles = (out + VN - 1) / VN * slots;
   int ks = (3 * num_sms() + tiles - 1) / tiles;
   ks = max(1, min(ks, in / (4 * VK)));
   int kper = (in + ks - 1) / ks;
@@ -811,22 +854,29 @@ VSplit vsplit(int in, int out) {
   return VSplit{(in + kper - 1) / kper, kper};
 }
 
-template <int MT>
-cudaError_t tc_partial(const bf16* A, const bf16* W, float* ws, int M, int in,
-                       int out, cudaStream_t st) {
-  const VSplit s = vsplit(in, out);
+// One launch of gz product blocks' worth of tiles (blockIdx.z < gz).
+template <int MT, class Ops>
+cudaError_t tc_launch(const Ops& ops, int in, int out, const VSplit& s,
+                      int gz, cudaStream_t st) {
   const int smem = VSTAGES * (VK * VN + MT * 16 * VK) * (int)sizeof(bf16);
   static bool opted_in = false;  // above 48 KB needs the opt-in, once
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        tc_gemm_partial_kernel<MT>,
+        tc_gemm_partial_kernel<MT, Ops>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  tc_gemm_partial_kernel<MT><<<dim3((out + VN - 1) / VN, s.ks), VT, smem,
-                               st>>>(A, W, ws, M, in, out, s.kper);
+  tc_gemm_partial_kernel<MT, Ops><<<dim3((out + VN - 1) / VN, s.ks, gz), VT,
+                                    smem, st>>>(ops, in, out, s.kper);
   return cudaGetLastError();
+}
+
+template <int MT>
+cudaError_t tc_partial(const bf16* A, const bf16* W, float* ws, int M, int in,
+                       int out, cudaStream_t st) {
+  return tc_launch<MT>(DenseOps{A, W, W, ws, ws, M, in}, in, out,
+                       vsplit(in, out), 1, st);
 }
 
 cudaError_t tc_partial_rows(const bf16* A, const bf16* W, float* ws, int M,
@@ -1169,6 +1219,329 @@ cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
   return e;
 }
 
+// ---------------------------------------------------------------------------
+// K6 — the MoE decode step (Mixtral / DeepSeekMoE).
+//
+// Replaces paddle_tpu/ops/fused_decode.py::_fused_decode_moe_pallas
+// (pallas_call at :1464), bf16 weights, bf16 KV: llama attention, a top-k
+// router, the routed experts' SwiGLU and, where the model has them, the
+// DeepSeekMoE shared experts, one token per row over the flat cache
+// (L, b, S, 2*nkv*hd). Per layer, on one stream, from one C call:
+//   1. the attention half of K2, unchanged (attention_half: qkv GEMM with
+//      the RMSNorm prologue, rope + append + attention, o-proj + residual)
+//   2. the router, one block per row: xn2 = bf16(rms(x) * ln2) (the bf16
+//      value both the router and the experts read), fp32 logits against
+//      the (E, h) gate, fp32 softmax, k argmaxes in turn (the lowest index
+//      wins a tie, as lax.top_k), weights renormalised with the floor at
+//      1e-9; ids and weights go to the (L, b, k) outputs
+//   3. shared experts (optional): gate and up in one tensor-core launch,
+//      K5's SwiGLU epilogue, down
+//   4. routed experts: gate and up in one launch over (distinct-expert
+//      slot, column tile, split), K5's SwiGLU epilogue into (b*k, f), down
+//      over (slot, column tile, split) into fp32 partials per (row, choice)
+//   5. the combine, one thread per (row, column), in a fixed order with no
+//      atomics: x += Σ_c w[r,c] * d[r,c] (c in order), then x += shared
+// 1 + 11L launches, 1 + 14L with shared experts. Casts as in the plain
+// version: bf16 xn2 and activations into each product, fp32 accumulators,
+// residual and router.
+//
+// What bounds it on the H100: bytes. At b <= 8 every weight is used at
+// most b times: a step can take no less than (attention, gate and shared
+// weights + the distinct routed experts that step uses + the filled KV) /
+// 3.35 TB/s. The TPU kernel streams one (row, choice) slot's expert at a
+// time through a sequential grid, so an expert two rows choose streams
+// twice. Here every block of the expert products finds its own expert: it
+// reads the layer's (b, k) ids from device memory and takes the z-th
+// distinct one in first-appearance order (the rows that chose it, and at
+// which choice, come with it); a slot past the distinct count exits. So
+// each routed expert is streamed once per layer for all the rows that
+// chose it (one 16-row tensor-core tile holds them), and the host never
+// reads the routing: no sync inside a step. The products run on K7's
+// tensor-core engine (mma.sync with a cp.async pipeline). First design: no
+// overlap of the shared and routed products, no persistent kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int MOE_MAX_B = 8;       // rows per step (attention_half's limit)
+constexpr int MOE_MAX_PAIRS = 64;  // routed (row, choice) pairs per step
+
+// A layer's routed experts for one tensor-core product launch. gridDim.z =
+// 2 * nslot for gate and up (z >= nslot takes w1 and o1), nslot for down.
+// Slot z % nslot is the layer's (z % nslot)-th distinct routed expert in
+// first-appearance order over the (b, k) ids, or empty. Row r of the
+// product is batch row r when it chose that expert (at choice c_r), else a
+// zero row that is not stored; gathered rows read activation row r*k + c_r
+// (down: the (b*k, f) SwiGLU output), others row r (gate/up: xn2). Output
+// row r goes to partial row r*k + c_r of (ks, b*k, out).
+struct MoEOps {
+  static constexpr int CTX = 1 + MOE_MAX_B + 2 * MOE_MAX_PAIRS;
+  const int* ids;    // (b, k) this layer's routed ids
+  const bf16* a;     // (b, in), or (b*k, in) when gathered
+  const bf16* w0;    // (E, in, out) this layer's stack
+  const bf16* w1;
+  float* o0;         // (ks, b*k, out)
+  float* o1;
+  int b, k, nslot, in, out;
+  bool gathered;
+
+  // ctx: [0] the slot's expert (-1: empty), [1 + r] row r's choice of it
+  // (-1: none), then the ids and their first-appearance flags
+  __device__ bool prepare(int z, int* ctx) const {
+    const int n = b * k, slot = z % nslot, t = threadIdx.x;
+    int* idv = ctx + 1 + MOE_MAX_B;
+    int* first = idv + MOE_MAX_PAIRS;
+    if (t < n) idv[t] = ids[t];
+    if (t == 0) ctx[0] = -1;
+    __syncthreads();
+    if (t < n) {
+      int f = 1;
+      for (int j = 0; j < t; ++j) f &= idv[j] != idv[t];
+      first[t] = f;
+    }
+    __syncthreads();
+    if (t < n && first[t]) {
+      int rank = 0;
+      for (int j = 0; j < t; ++j) rank += first[j];
+      if (rank == slot) ctx[0] = idv[t];
+    }
+    __syncthreads();
+    if (t < b) {
+      int c = -1;
+      for (int cc = 0; cc < k; ++cc)
+        if (idv[t * k + cc] == ctx[0]) c = cc;
+      ctx[1 + t] = c;
+    }
+    __syncthreads();
+    return ctx[0] >= 0;
+  }
+  __device__ const bf16* a_row(int, const int* ctx, int r) const {
+    if (r >= b || ctx[1 + r] < 0) return nullptr;
+    return a + (long)(gathered ? r * k + ctx[1 + r] : r) * in;
+  }
+  __device__ const bf16* w(int z, const int* ctx) const {
+    return (z >= nslot ? w1 : w0) + (long)ctx[0] * in * out;
+  }
+  __device__ float* out_row(int z, const int* ctx, int ks, int r,
+                            int) const {
+    if (r >= b || ctx[1 + r] < 0) return nullptr;
+    return (z >= nslot ? o1 : o0) +
+           ((long)ks * b * k + r * k + ctx[1 + r]) * out;
+  }
+};
+
+// The router of one layer, one block per row bi (step 2 above). Dynamic
+// shared memory: xn2 as fp32 (h), then the E logits / probabilities.
+__global__ void __launch_bounds__(GT)
+moe_router_kernel(const float* __restrict__ xf, const bf16* __restrict__ ln2,
+                  const bf16* __restrict__ gate, bf16* __restrict__ xn,
+                  int* __restrict__ ids, float* __restrict__ wts, int h,
+                  int E, int k, float eps) {
+  extern __shared__ float rsm[];
+  __shared__ float tmp[NWG];
+  __shared__ float vals[MOE_MAX_PAIRS];
+  float* xs = rsm;
+  float* lg = rsm + h;
+  const int bi = blockIdx.x, tid = threadIdx.x, warp = tid >> 5,
+            lane = tid & 31;
+  const float* x = xf + (long)bi * h;
+  float ss = 0.f;
+  for (int i = tid; i < h; i += GT) ss += x[i] * x[i];
+  ss = block_sum(ss, tmp);
+  const float rstd = 1.f / sqrtf(ss / (float)h + eps);
+  for (int i = tid; i < h; i += GT) {
+    const bf16 v = __float2bfloat16(bf16_round(x[i] * rstd) *
+                                    __bfloat162float(ln2[i]));
+    xn[(long)bi * h + i] = v;
+    xs[i] = __bfloat162float(v);
+  }
+  __syncthreads();
+  for (int e = warp; e < E; e += NWG) {
+    const bf16* g = gate + (long)e * h;
+    float s = 0.f;
+#pragma unroll 4
+    for (int i = lane * 8; i < h; i += 256) {   // 16-byte loads (h % 8 == 0)
+      float gf[8];
+      unpack8(__ldg(reinterpret_cast<const uint4*>(g + i)), gf);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s = fmaf(xs[i + j], gf[j], s);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffff, s, o);
+    if (lane == 0) lg[e] = s;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  float m = -INFINITY;
+  for (int e = lane; e < E; e += 32) m = fmaxf(m, lg[e]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffff, m, o));
+  float sum = 0.f;
+  for (int e = lane; e < E; e += 32) sum += expf(lg[e] - m);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffff, sum, o);
+  for (int e = lane; e < E; e += 32) lg[e] = expf(lg[e] - m) / sum;
+  __syncwarp();
+  for (int c = 0; c < k; ++c) {
+    float bv = -2.f;   // probabilities are >= 0; a chosen one becomes -1
+    int bix = E;
+    for (int e = lane; e < E; e += 32)
+      if (lg[e] > bv) {
+        bv = lg[e];
+        bix = e;
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffff, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffff, bix, o);
+      if (ov > bv || (ov == bv && oi < bix)) {
+        bv = ov;
+        bix = oi;
+      }
+    }
+    if (lane == 0) {
+      ids[bi * k + c] = bix;
+      vals[c] = bv;
+      lg[bix] = -1.f;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    float tot = 0.f;
+    for (int c = 0; c < k; ++c) tot += vals[c];
+    tot = fmaxf(tot, 1e-9f);
+    for (int c = 0; c < k; ++c) wts[bi * k + c] = vals[c] / tot;
+  }
+}
+
+// x += Σ_c w[r,c] * d[r,c] (c in order; d summed over its splits in order),
+// then x += the shared experts' output (summed likewise); the last layer
+// also writes x_out in bf16. One thread per (row, column).
+__global__ void moe_combine_kernel(const float* __restrict__ dpart, int ksd,
+                                   const float* __restrict__ wts,
+                                   const float* __restrict__ spart, int kss,
+                                   float* __restrict__ xf,
+                                   bf16* __restrict__ x_out, int b, int k,
+                                   int h) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= b * h) return;
+  const int r = i / h, col = i % h;
+  float routed = 0.f;
+  for (int c = 0; c < k; ++c) {
+    float d = 0.f;
+    for (int s = 0; s < ksd; ++s)
+      d += dpart[((long)s * b * k + r * k + c) * h + col];
+    routed += wts[r * k + c] * d;
+  }
+  float nx = xf[i] + routed;
+  if (spart != nullptr) {
+    float sh = 0.f;
+    for (int s = 0; s < kss; ++s) sh += spart[((long)s * b + r) * h + col];
+    nx += sh;
+  }
+  xf[i] = nx;
+  if (x_out != nullptr) x_out[i] = __float2bfloat16(nx);
+}
+
+// The splits of K6's products and its workspace, in floats: the rstd, the
+// attention half's partials, then the routed gate, up and down partials
+// and the shared ones, each region even (float2 stores).
+struct MoEPlan {
+  VSplit gu, dn, sgu, sdn;
+  long attn, g, u, d, sg, su, sd, total;
+};
+
+MoEPlan moe_plan(int b, int h, int dq, int dqkv, int k, int f, int fs) {
+  MoEPlan p;
+  const int nslot = b * k, fsw = fs > 0 ? fs : 8;
+  p.gu = vsplit(h, f, 2 * nslot);
+  p.dn = vsplit(f, h, nslot);
+  p.sgu = vsplit(h, fsw, 2);
+  p.sdn = vsplit(fsw, h);
+  auto even = [](long n) { return (n + 1) & ~1L; };
+  long a = (long)ksplit(h, dqkv) * b * dqkv;
+  a = a > (long)ksplit(dq, h) * b * h ? a : (long)ksplit(dq, h) * b * h;
+  const long sh = fs > 0 ? 1 : 0;
+  p.attn = 8;
+  p.g = p.attn + even(a);
+  p.u = p.g + even((long)p.gu.ks * nslot * f);
+  p.d = p.u + even((long)p.gu.ks * nslot * f);
+  p.sg = p.d + even((long)p.dn.ks * nslot * h);
+  p.su = p.sg + sh * even((long)p.sgu.ks * b * fs);
+  p.sd = p.su + sh * even((long)p.sgu.ks * b * fs);
+  p.total = p.sd + sh * even((long)p.sdn.ks * b * h);
+  return p;
+}
+
+struct MoEArgs {
+  const bf16 *gate, *weg, *weu, *wed, *wsg, *wsu, *wsd;
+  int* ids;      // (L, b, k)
+  float* wts;    // (L, b, k)
+  bf16 *xn, *act, *sact;
+  int E, k, f, fs;
+};
+
+cudaError_t moe_stack(const Stack& a, const MoEArgs& m, bf16* kv,
+                      const float* cosr, const float* sinr, int S, int pos,
+                      cudaStream_t st) {
+  const int L = a.L, b = a.b, h = a.h, hd = a.hd, k = m.k, f = m.f,
+            fs = m.fs, E = m.E;
+  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
+  const int nslot = b * k, dkv2 = 2 * dkv;
+  if (b < 1 || b > MOE_MAX_B || k < 1 || k > E || nslot > MOE_MAX_PAIRS ||
+      h + E > 12000)   // the router's shared memory stays under 48 KB
+    return cudaErrorInvalidValue;
+  const MoEPlan p = moe_plan(b, h, dq, dqkv, k, f, fs);
+  float* rstd = a.ws;
+  float* ws0 = a.ws + p.attn;
+  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
+                                                           b * h);
+  cudaError_t e = cudaGetLastError();
+  for (int l = 0; l < L && e == cudaSuccess; ++l) {
+    const ContigKV kvl{kv + (long)l * b * S * dkv2, cosr, sinr, S, dkv2, pos};
+    e = attention_half(a, l, kvl, rstd, ws0, ws0, st);
+    if (e != cudaSuccess) break;
+    int* ids = m.ids + (long)l * nslot;
+    float* wts = m.wts + (long)l * nslot;
+    moe_router_kernel<<<b, GT, (h + E) * (int)sizeof(float), st>>>(
+        a.xf, a.ln2 + (long)l * h, m.gate + (long)l * E * h, m.xn, ids, wts,
+        h, E, k, a.eps);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) break;
+    if (fs > 0) {
+      const bf16* wsdl = m.wsd + (long)l * fs * h;
+      e = tc_launch<1>(DenseOps{m.xn, m.wsg + (long)l * h * fs,
+                                m.wsu + (long)l * h * fs, a.ws + p.sg,
+                                a.ws + p.su, b, h},
+                       h, fs, p.sgu, 2, st);
+      if (e != cudaSuccess) break;
+      gemm_epilogue_kernel<MODE_SWIGLU><<<(b * fs + 255) / 256, 256, 0, st>>>(
+          a.ws + p.sg, a.ws + p.su, p.sgu.ks, b * fs, nullptr, m.sact);
+      e = tc_launch<1>(DenseOps{m.sact, wsdl, wsdl, a.ws + p.sd, a.ws + p.sd,
+                                b, fs},
+                       fs, h, p.sdn, 1, st);
+      if (e != cudaSuccess) break;
+    }
+    const long estride = (long)E * h * f;
+    const MoEOps gu{ids, m.xn, m.weg + l * estride, m.weu + l * estride,
+                    a.ws + p.g, a.ws + p.u, b, k, nslot, h, f, false};
+    e = tc_launch<1>(gu, h, f, p.gu, 2 * nslot, st);
+    if (e != cudaSuccess) break;
+    gemm_epilogue_kernel<MODE_SWIGLU><<<(nslot * f + 255) / 256, 256, 0,
+                                        st>>>(a.ws + p.g, a.ws + p.u,
+                                              p.gu.ks, nslot * f, nullptr,
+                                              m.act);
+    const MoEOps dn{ids, m.act, m.wed + l * estride, m.wed + l * estride,
+                    a.ws + p.d, a.ws + p.d, b, k, nslot, f, h, true};
+    e = tc_launch<1>(dn, f, h, p.dn, nslot, st);
+    if (e != cudaSuccess) break;
+    moe_combine_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(
+        a.ws + p.d, p.dn.ks, wts, fs > 0 ? a.ws + p.sd : nullptr, p.sdn.ks,
+        a.xf, l == L - 1 ? a.x_out : nullptr, b, k, h);
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
 Stack make_stack(const void* x_in, void* x_out, const void* ln1,
                  const void* wqkv, const void* wo, const void* ln2,
                  const void* wg, const void* wu, const void* wd, void* xf,
@@ -1273,4 +1646,39 @@ extern "C" int fused_paged_verify_llama(
                            (const int*)positions, (const float*)cosr,
                            (const float*)sinr, NB, BT, MB,
                            (cudaStream_t)stream);
+}
+
+extern "C" long fused_decode_moe_workspace(int b, int h, int nh, int nkv,
+                                           int hd, int k, int f, int fs) {
+  return moe_plan(b, h, nh * hd, (nh + 2 * nkv) * hd, k, f, fs).total;
+}
+
+// K6 — one MoE decode step through all L layers (see the K6 section above).
+// Stacked weights as built by build_fused_params_moe: gate (L, E, h), weg /
+// weu (L, E, h, f), wed (L, E, f, h); wsg / wsu (L, h, fs) and wsd
+// (L, fs, h) when fs > 0 (nullptr otherwise). kv (L, b, S, 2*nkv*hd) is
+// updated in place at `pos`. Outputs: x_out (b, h) bf16, the routing ids
+// (L, b, k) int32 and weights (L, b, k) fp32. Scratch: xf (b, h) f32, qkv
+// (b, dqkv) f32, attn (b, dq) bf16, xn (b, h) bf16, act (b*k, f) bf16, sact
+// (b, fs) bf16, ws (fused_decode_moe_workspace floats). b <= 8, b*k <= 64.
+// Returns the first CUDA error, 0 on success.
+extern "C" int fused_decode_moe(
+    const void* x_in, void* x_out, const void* ln1, const void* wqkv,
+    const void* wo, const void* ln2, const void* gate, const void* weg,
+    const void* weu, const void* wed, const void* wsg, const void* wsu,
+    const void* wsd, void* kv, const void* cosr, const void* sinr, void* ids,
+    void* wts, void* xf, void* qkv, void* attn, void* xn, void* act,
+    void* sact, void* ws, int L, int b, int h, int nh, int nkv, int hd, int E,
+    int k, int f, int fs, int S, int pos, float eps, void* stream) {
+  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, nullptr,
+                             nullptr, nullptr, xf, qkv, attn, nullptr, ws, L,
+                             b, h, nh, nkv, hd, 0, eps);
+  const MoEArgs m{(const bf16*)gate, (const bf16*)weg, (const bf16*)weu,
+                  (const bf16*)wed,  (const bf16*)wsg, (const bf16*)wsu,
+                  (const bf16*)wsd,  (int*)ids,        (float*)wts,
+                  (bf16*)xn,         (bf16*)act,       (bf16*)sact,
+                  E,                 k,                f,
+                  fs};
+  return (int)moe_stack(a, m, (bf16*)kv, (const float*)cosr,
+                        (const float*)sinr, S, pos, (cudaStream_t)stream);
 }

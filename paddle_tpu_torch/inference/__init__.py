@@ -146,6 +146,8 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
     state = model.state_dict(include_buffers=False)
     plan = (model.fused_decode_plan(state, probe=True)
             if flag("FLAGS_fused_decode") else None)
+    if plan is not None and b > plan.get("max_batch", b):
+        plan = None     # e.g. MoE: no drops only while b <= capacity
     if plan is not None and torch.empty((), dtype=cache_dtype).element_size() != 2:
         plan = None     # an fp32 cache rides the layered path (reference)
     if plan is not None:
@@ -179,7 +181,8 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
                     x, plan["params"], cache, pos, cos_tab[pos:pos + 1],
                     sin_tab[pos:pos + 1], num_heads=plan["num_heads"],
                     num_kv_heads=plan["num_kv_heads"], eps=plan["eps"],
-                    blocks=plan["blocks"])
+                    arch=plan.get("arch", "llama"),
+                    top_k=plan.get("top_k", 2), blocks=plan["blocks"])
                 logits = plan["head"](x)
             else:
                 logits, cache = model(tok[:, None], cache=cache,

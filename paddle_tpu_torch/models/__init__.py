@@ -6,3 +6,7 @@ from paddle_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     LlamaForCausalLM,
 )
+from paddle_tpu_torch.models.mixtral import (  # noqa: F401
+    MixtralConfig,
+    MixtralForCausalLM,
+)

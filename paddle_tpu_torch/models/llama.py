@@ -197,7 +197,34 @@ class LlamaModel(nn.Layer):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Layer):
+class CausalLMBase(nn.Layer):
+    """What the decoder-only LMs share (``paddle_tpu/models/llama.py:303``):
+    the preallocated KV cache of the ``cfg``'s shape."""
+
+    def init_cache(self, batch_size, max_len, dtype=torch.bfloat16):
+        """Preallocated KV cache: one {'k','v'} buffer pair per layer, on
+        the model's device."""
+        cfg = self.cfg
+        shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+        dev = self.device
+        return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                for _ in range(cfg.num_layers)]
+
+
+def model_generator(device, seed):
+    """(device, generator) of an entry point: `device` resolved (cuda by
+    default), the generator on it seeded with `seed`, or the next one of
+    the global seed stream when `seed` is None."""
+    dev = resolve_device(device)
+    if seed is None:
+        return dev, rng_mod.next_generator(dev)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(int(seed))
+    return dev, generator
+
+
+class LlamaForCausalLM(CausalLMBase):
     """Llama LM head model. ``device`` defaults to cuda (raises without a
     GPU); ``dtype`` is the parameter dtype the weights are drawn in; they
     are drawn from a ``torch.Generator`` on ``device`` seeded with ``seed``
@@ -208,12 +235,7 @@ class LlamaForCausalLM(nn.Layer):
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None,
                  seed: Optional[int] = None):
         super().__init__()
-        dev = resolve_device(device)
-        if seed is None:
-            generator = rng_mod.next_generator(dev)
-        else:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(int(seed))
+        dev, generator = model_generator(device, seed)
         self.cfg = cfg
         self.model = LlamaModel(cfg, dtype=dtype, device=dev,
                                 generator=generator)
@@ -228,16 +250,6 @@ class LlamaForCausalLM(nn.Layer):
                                       start_pos=start_pos)
             return self.lm_head(x), new_cache
         return self.lm_head(self.model(input_ids, attn_mask))
-
-    def init_cache(self, batch_size, max_len, dtype=torch.bfloat16):
-        """Preallocated KV cache: one {'k','v'} buffer pair per layer, on
-        the model's device."""
-        cfg = self.cfg
-        shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
-        dev = self.device
-        return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-                for _ in range(cfg.num_layers)]
 
     def fused_decode_plan(self, state, probe=False):
         """Plan for the fused decode-step path (ops.fused_decode): stacked

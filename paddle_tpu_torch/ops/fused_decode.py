@@ -21,6 +21,11 @@ the paged pool:
   stack over the paged pool, the K1 appends in place, per-query causal
   limits; CUDA tensors launch K7 (``fused_paged_verify_cuda``, same source
   file; replaces ``_fused_paged_verify_pallas``, :2642).
+* ``build_fused_params_moe``, ``fused_decode_reference(arch="moe")``,
+  ``fused_decode_moe_cuda`` — the MoE step (llama attention, top-k router,
+  routed-expert SwiGLU, optional shared experts) over the flat cache; CUDA
+  tensors launch K6 (``fused_decode_moe`` in the same source file;
+  replaces ``_fused_decode_moe_pallas``, :1049).
 * ``decode_block_plan`` — kept for its ``ffn_pad`` key only.
 
 The KV cache is COMBINED and FLAT, (L, b, S, 2*nkv*hd) with k in lanes
@@ -85,6 +90,40 @@ def build_fused_params(state: Dict[str, torch.Tensor], num_layers: int,
     return out
 
 
+def build_fused_params_moe(state: Dict[str, torch.Tensor], num_layers: int,
+                           prefix: str = "model.layers."
+                           ) -> Dict[str, torch.Tensor]:
+    """Mixtral-block stacks: llama attention (ln1/wqkv/wo) + MoE FFN.
+
+    {ln1 (L,h), wqkv (L,h,dqkv), wo (L,dq,h), ln2 (L,h), gate (L,E,h) — the
+    router weight transposed, weg/weu (L,E,h,f), wed (L,E,f,h)}, plus the
+    dense shared-expert stacks {wsg/wsu (L,h,fs), wsd (L,fs,h)} when the
+    model has a ``shared_mlp``. The stacks are copies of the model's
+    weights (``paddle_tpu/ops/fused_decode.py:314``)."""
+    g = lambda i, n: state[f"{prefix}{i}.{n}"]
+    cols = {"ln1": [], "wqkv": [], "wo": [], "ln2": [], "gate": [],
+            "weg": [], "weu": [], "wed": []}
+    shared = f"{prefix}0.shared_mlp.gate_proj.weight" in state
+    if shared:
+        cols.update({"wsg": [], "wsu": [], "wsd": []})
+    for i in range(num_layers):
+        cols["ln1"].append(g(i, "input_layernorm.weight"))
+        cols["wqkv"].append(torch.cat(
+            [g(i, f"self_attn.{n}_proj.weight") for n in ("q", "k", "v")],
+            dim=1))
+        cols["wo"].append(g(i, "self_attn.o_proj.weight"))
+        cols["ln2"].append(g(i, "post_attention_layernorm.weight"))
+        cols["gate"].append(g(i, "moe.gate.proj.weight").t())
+        cols["weg"].append(g(i, "moe.experts.w_gate"))
+        cols["weu"].append(g(i, "moe.experts.w_up"))
+        cols["wed"].append(g(i, "moe.experts.w_down"))
+        if shared:
+            cols["wsg"].append(g(i, "shared_mlp.gate_proj.weight"))
+            cols["wsu"].append(g(i, "shared_mlp.up_proj.weight"))
+            cols["wsd"].append(g(i, "shared_mlp.down_proj.weight"))
+    return {k: torch.stack(v) for k, v in cols.items()}
+
+
 def _rms(x, w, eps):
     """fp32 rms-normalize, cast to w.dtype, times w (ops.rms_norm path)."""
     xf = x.float()
@@ -109,9 +148,17 @@ def _wdot(act, w):
 
 
 def _refuse_unported(arch, params, kv_scales, row="4"):
-    if arch != "llama" or kv_scales is not None or "wqkv_s" in params:
+    """The contiguous step (row 4) takes arch llama and moe (row 7), the
+    paged ones llama only; none takes int8 weights or int8 KV yet."""
+    if arch == "moe" and row == "4":
+        row = "7"
+    elif arch != "llama":
         raise NotImplementedError(
-            f"fused decode arch={arch!r}, int8 weights and int8 KV are not "
+            f"fused decode arch={arch!r} is not ported yet (ROADMAP Queue B "
+            f"row {row})")
+    if kv_scales is not None or "wqkv_s" in params:
+        raise NotImplementedError(
+            f"fused decode arch={arch!r} with int8 weights or int8 KV is not "
             f"ported yet (ROADMAP Queue B row {row})")
 
 
@@ -137,16 +184,88 @@ def _mlp_residual(xf, params, l, eps, dtype):
     return xf + _wdot(act, params["wd"][l])
 
 
+def moe_route(xn2, gate_l, top_k, force=None):
+    """The router of one layer: fp32 logits of the bf16 (or fp32) xn2
+    against gate (E, h), fp32 softmax, top-k by the lowest index on ties
+    (as ``lax.top_k`` and the TPU kernel's sequential argmax; a stable
+    descending sort), weights renormalised with the floor at 1e-9.
+    ``force`` (b, k) takes those experts instead of the top-k (their
+    probabilities renormalised the same way). Returns (ids (b, k) long,
+    weights (b, k) fp32, the gap between the k-th and the (k+1)-th
+    probability (b,) and the (k+1)-th id (b,); inf and -1 where E == k)."""
+    logits = xn2.float() @ gate_l.float().t()
+    probs = torch.softmax(logits, dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    ids = srt.indices[:, :top_k]
+    vals = srt.values[:, :top_k]
+    if force is not None:
+        ids = force.to(device=probs.device, dtype=torch.long)
+        vals = torch.gather(probs, 1, ids)
+    if probs.shape[-1] > top_k:
+        gap = vals[:, -1] - srt.values[:, top_k]
+        nxt = srt.indices[:, top_k]
+    else:
+        gap = torch.full_like(vals[:, -1], float("inf"))
+        nxt = torch.full_like(ids[:, -1], -1)
+    vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
+    return ids, vals, gap, nxt
+
+
+def _moe_residual(xf, params, l, eps, dtype, top_k, routing):
+    """The MoE tail of a layer (``fused_decode.py:493-528`` of the
+    reference): x + Σ_c w_c · expert_c(xn2) [+ shared(xn2)]."""
+    xn2 = _rms(xf, params["ln2"][l], eps).to(dtype)
+    force = routing.get("force_ids") if routing is not None else None
+    ids, vals, gap, nxt = moe_route(
+        xn2, params["gate"][l], top_k,
+        None if force is None else force[l])
+    if routing is not None:
+        for key, val in (("ids", ids), ("w", vals), ("gap", gap),
+                         ("next", nxt)):
+            routing.setdefault(key, []).append(val)
+    xn2f = xn2.float()
+    d = []
+    for c in range(top_k):
+        e = ids[:, c]
+        g = torch.einsum("bh,bhf->bf", xn2f, params["weg"][l][e].float())
+        u = torch.einsum("bh,bhf->bf", xn2f, params["weu"][l][e].float())
+        act = (torch.nn.functional.silu(g) * u).to(dtype)
+        d.append(torch.einsum("bf,bfh->bh", act.float(),
+                              params["wed"][l][e].float()))
+    xf = xf + torch.einsum("bk,bkh->bh", vals, torch.stack(d, dim=1))
+    if "wsg" in params:       # DeepSeekMoE shared experts: dense SwiGLU
+        sg = _wdot(xn2, params["wsg"][l])
+        su = _wdot(xn2, params["wsu"][l])
+        sact = (torch.nn.functional.silu(sg) * su).to(dtype)
+        xf = xf + _wdot(sact, params["wsd"][l])
+    return xf
+
+
+def _stack_routing(routing):
+    """Per-layer routing lists → (L, b, k) / (L, b) tensors, in place."""
+    if routing is not None and "ids" in routing:
+        for key in ("ids", "w", "gap", "next"):
+            routing[key] = torch.stack(routing[key])
+
+
 def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
                            num_heads: int, num_kv_heads: int,
                            eps: float = 1e-5, arch: str = "llama",
-                           kv_scales=None):
+                           top_k: int = 2, kv_scales=None, routing=None):
     """One decode step through the whole stack; plain PyTorch.
 
     x (b, h); kv_cache (L, b, S, 2*nkv*hd), updated in place at `pos`;
     cos/sin (1, hd) fp32 for position `pos`. Returns (x_out (b, h),
     kv_cache). Residual stream fp32, attention over [0, pos] only, softmax
-    fp32 — the reference's numerics (``fused_decode.py:406``)."""
+    fp32 — the reference's numerics (``fused_decode.py:406``).
+
+    arch="moe" (params of ``build_fused_params_moe``): the FFN is the
+    top-``top_k`` routed experts plus the shared experts when present. A
+    dict given as ``routing`` receives the router's per-layer ids (L, b, k),
+    weights (L, b, k), k-th-to-(k+1)-th probability gaps (L, b) and
+    (k+1)-th ids (L, b); where it holds ``force_ids`` (L, b, k), those
+    experts are taken instead of each layer's top-k (a check that follows
+    another router's choices)."""
     _refuse_unported(arch, params, kv_scales)
     L, b, S, dkv2 = kv_cache.shape
     dkv = dkv2 // 2
@@ -173,7 +292,11 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
         vl = kv_cache[l, :, :, dkv:].float().reshape(b, S, nkv, hd)
         attn = _attend(q, kl, vl, valid, scale).to(dtype)
         xf = xf + _wdot(attn, params["wo"][l])
-        xf = _mlp_residual(xf, params, l, eps, dtype)
+        if arch == "moe":
+            xf = _moe_residual(xf, params, l, eps, dtype, top_k, routing)
+        else:
+            xf = _mlp_residual(xf, params, l, eps, dtype)
+    _stack_routing(routing)
     return xf.to(dtype), kv_cache
 
 
@@ -280,6 +403,94 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
 
 fused_decode_cuda.launches = 0
 
+_MOE_KEYS = ("ln1", "wqkv", "wo", "ln2", "gate", "weg", "weu", "wed")
+_SHARED_KEYS = ("wsg", "wsu", "wsd")
+#: K6's bounds: rows per step (its attention half is K2's, b <= 8) and
+#: routed (row, choice) pairs per step
+MOE_MAX_ROWS, MOE_MAX_PAIRS = 8, 64
+
+
+def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
+                          num_heads: int, num_kv_heads: int,
+                          eps: float = 1e-5, top_k: int = 2, routing=None):
+    """Wrapper of K6 (one call = one MoE decode step through all L layers,
+    1 + 11L launches, 1 + 14L with shared experts, on the current stream).
+    Checks dtype, shape, contiguity and device and raises on anything else.
+    A dict given as ``routing`` receives the kernel's per-layer ids (L, b,
+    k) int32 and weights (L, b, k) fp32 (device tensors; the step itself
+    never reads them on the host)."""
+    what = "fused_decode_moe_cuda"
+    if kv_cache.dim() != 4 or x.dim() != 2 or kv_cache.shape[1] != x.shape[0]:
+        raise ValueError(f"{what}: cache {tuple(kv_cache.shape)} is not "
+                         f"(L, b, S, 2*nkv*hd) for x {tuple(x.shape)}")
+    L, b, S, dkv2 = kv_cache.shape
+    nh, nkv = num_heads, num_kv_heads
+    dkv = dkv2 // 2
+    if nkv <= 0 or dkv % nkv or nh % nkv:
+        raise ValueError(f"{what}: heads {nh}/{nkv} do not divide the "
+                         f"cache width {dkv2}")
+    hd, rep, h = dkv // nkv, nh // nkv, x.shape[1]
+    E, f = params["weg"].shape[1], params["weg"].shape[3]
+    shared = "wsg" in params
+    fs = params["wsg"].shape[2] if shared else 0
+    k = int(top_k)
+    if not 1 <= b <= MOE_MAX_ROWS or not 1 <= k <= E \
+            or b * k > MOE_MAX_PAIRS or hd not in (64, 128) \
+            or rep not in (1, 2, 4, 8):
+        raise ValueError(f"{what}: unsupported b={b} (1..{MOE_MAX_ROWS}), "
+                         f"top_k={k} (b*k <= {MOE_MAX_PAIRS}, <= E={E}), "
+                         f"head_dim={hd} (64|128), rep={rep} (1|2|4|8)")
+    dq = nh * hd
+    if h % 8 or f % 8 or fs % 8 or (dq + 2 * dkv) % 8:
+        raise ValueError(f"{what}: h, the expert widths and the qkv width "
+                         "must be multiples of 8")
+    shapes = {"ln1": (L, h), "wqkv": (L, h, dq + 2 * dkv), "wo": (L, dq, h),
+              "ln2": (L, h), "gate": (L, E, h), "weg": (L, E, h, f),
+              "weu": (L, E, h, f), "wed": (L, E, f, h), "wsg": (L, h, fs),
+              "wsu": (L, h, fs), "wsd": (L, fs, h)}
+    keys = _MOE_KEYS + (_SHARED_KEYS if shared else ())
+    bf = torch.bfloat16
+    cos = cos.reshape(hd)
+    sin = sin.reshape(hd)
+    _check_tensors(what, [("x", x, bf, (b, h)),
+                          ("cache", kv_cache, bf, kv_cache.shape),
+                          ("cos", cos, torch.float32, (hd,)),
+                          ("sin", sin, torch.float32, (hd,))]
+                   + [(n, params[n], bf, shapes[n]) for n in keys], x.device)
+    pos = int(pos)
+    if not 0 <= pos < S:
+        raise ValueError(f"{what}: pos {pos} outside the cache length {S}")
+    lib = _kernel_lib()
+    dev = x.device
+    f32 = torch.float32
+    x_out = torch.empty_like(x)
+    ids = torch.empty((L, b, k), dtype=torch.int32, device=dev)
+    wts = torch.empty((L, b, k), dtype=f32, device=dev)
+    scratch = (torch.empty((b, h), dtype=f32, device=dev),        # xf
+               torch.empty((b, dq + 2 * dkv), dtype=f32, device=dev),
+               torch.empty((b, dq), dtype=bf, device=dev),          # attn
+               torch.empty((b, h), dtype=bf, device=dev),           # xn2
+               torch.empty((b * k, f), dtype=bf, device=dev),       # act
+               torch.empty((b, max(fs, 8)), dtype=bf, device=dev),  # sact
+               torch.empty(lib.fused_decode_moe_workspace(
+                   b, h, nh, nkv, hd, k, f, fs), dtype=f32, device=dev))
+    p = _build.ptr
+    none = ctypes.c_void_p(0)
+    err = lib.fused_decode_moe(
+        p(x), p(x_out), *(p(params[n]) for n in _MOE_KEYS),
+        *((p(params[n]) for n in _SHARED_KEYS) if shared else (none,) * 3),
+        p(kv_cache), p(cos), p(sin), p(ids), p(wts),
+        *(p(t) for t in scratch), L, b, h, nh, nkv, hd, E, k, f, fs, S, pos,
+        float(eps), _build.stream_of(x))
+    fused_decode_moe_cuda.launches += 1
+    _build.check(err, "fused_decode_moe")
+    if routing is not None:
+        routing["ids"], routing["w"] = ids, wts
+    return x_out, kv_cache
+
+
+fused_decode_moe_cuda.launches = 0
+
 
 def _kernel_lib():
     lib = _build.library("fused_decode")
@@ -300,25 +511,35 @@ def _kernel_lib():
         wsf = lib.fused_decode_llama_workspace
         wsf.argtypes = [ci] * 6
         wsf.restype = ctypes.c_long
+        mfn = lib.fused_decode_moe
+        mfn.argtypes = [vp] * 25 + [ci] * 12 + [ctypes.c_float, vp]
+        mfn.restype = ctypes.c_int
+        mws = lib.fused_decode_moe_workspace
+        mws.argtypes = [ci] * 8
+        mws.restype = ctypes.c_long
     return lib
 
 
 def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
                       num_heads: int, num_kv_heads: int, eps: float = 1e-5,
-                      arch: str = "llama", blocks: Optional[Dict] = None,
-                      kv_scales=None):
-    """Dispatch: the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors. Args follow fused_decode_reference; ``blocks`` is checked
-    against the cache dtype."""
+                      arch: str = "llama", top_k: int = 2,
+                      blocks: Optional[Dict] = None, kv_scales=None):
+    """Dispatch: the CUDA kernel on CUDA tensors (K2 for arch llama, K6 for
+    arch moe), the plain version on CPU tensors. Args follow
+    fused_decode_reference; ``top_k`` applies to arch moe only; ``blocks``
+    is checked against the cache dtype."""
     _refuse_unported(arch, params, kv_scales)
     _check_plan(blocks, kv_cache)
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps)
+    if arch == "moe":
+        kw["top_k"] = top_k
     if x.device.type == "cpu":
-        return fused_decode_reference(
-            x, params, kv_cache, pos, cos, sin, num_heads=num_heads,
-            num_kv_heads=num_kv_heads, eps=eps)
-    return fused_decode_cuda(x, params, kv_cache, pos, cos, sin,
-                             num_heads=num_heads, num_kv_heads=num_kv_heads,
-                             eps=eps)
+        return fused_decode_reference(x, params, kv_cache, pos, cos, sin,
+                                      arch=arch, **kw)
+    if arch == "moe":
+        return fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin,
+                                     **kw)
+    return fused_decode_cuda(x, params, kv_cache, pos, cos, sin, **kw)
 
 
 def _check_plan(blocks, cache):

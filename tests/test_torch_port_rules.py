@@ -53,7 +53,9 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/serving/spec.py",
             "paddle_tpu_torch/optimizer/__init__.py",
             "examples/torch_train_profile.py",
-            "examples/torch_decode_profile.py"} <= names
+            "examples/torch_decode_profile.py",
+            "paddle_tpu_torch/nn/layers/moe.py",
+            "paddle_tpu_torch/models/mixtral.py"} <= names
     assert len(names) >= 20
 
 
@@ -198,6 +200,62 @@ def test_verify_wrapper_refuses_what_k7_does_not_take():
     with pytest.raises(ValueError, match="64"):
         call(big, p, pool, tab, pos, rows, rows)
     assert fd.fused_paged_verify_cuda.launches == 0
+
+
+def _tiny_moe(**extra):
+    import dataclasses
+    from paddle_tpu_torch.models import MixtralConfig, MixtralForCausalLM
+    cfg = dataclasses.replace(MixtralConfig.tiny(), num_experts=8,
+                              num_shared_experts=2, **extra)
+    return MixtralForCausalLM(cfg, dtype=torch.bfloat16, device="cpu",
+                              seed=0)
+
+
+def test_moe_counter_stays_zero_through_a_cpu_generate():
+    """MoE generate on CPU tensors decodes through the plain MoE step on
+    the fused path: K6 (and K2) count no launch."""
+    from paddle_tpu_torch.inference import generate
+    from paddle_tpu_torch.ops import fused_decode as fd
+    fd.fused_decode_moe_cuda.launches = 0
+    fd.fused_decode_cuda.launches = 0
+    m = _tiny_moe()
+    assert m.fused_decode_plan(m.state_dict(include_buffers=False),
+                               probe=True)["arch"] == "moe"
+    ids = np.random.RandomState(0).randint(0, 256, (2, 5))
+    out = generate(m, ids, max_new_tokens=4, temperature=0.7, top_k=10)
+    assert tuple(out.shape) == (2, 9)
+    assert fd.fused_decode_moe_cuda.launches == 0
+    assert fd.fused_decode_cuda.launches == 0
+
+
+def test_moe_step_refuses_int8_and_what_k6_does_not_take():
+    """fused_decode_step(arch="moe") raises on int8 KV scales and int8
+    weights (ROADMAP Queue B row 7); the K6 wrapper raises on CPU tensors,
+    a wrong dtype and more rows than it takes, before any launch."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    m = _tiny_moe(hidden_size=128, num_heads=2, num_kv_heads=1)   # hd 64
+    params = fd.build_fused_params_moe(m.state_dict(include_buffers=False),
+                                       2)
+    x = torch.zeros(2, 128, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 2, 16, 2 * 64, dtype=torch.bfloat16)
+    rows = torch.zeros(1, 64)
+    kw = dict(num_heads=2, num_kv_heads=1, arch="moe", top_k=2)
+    with pytest.raises(NotImplementedError, match="row 7"):
+        fd.fused_decode_step(x, params, kv, 3, rows, rows,
+                             kv_scales=torch.ones(2, 1, 128), **kw)
+    with pytest.raises(NotImplementedError, match="row 7"):
+        fd.fused_decode_step(x, dict(params, wqkv_s=None), kv, 3, rows,
+                             rows, **kw)
+    call = lambda x, p, kv: fd.fused_decode_moe_cuda(
+        x, p, kv, 3, rows, rows, num_heads=2, num_kv_heads=1, top_k=2)
+    with pytest.raises(ValueError, match="cuda"):
+        call(x, params, kv)                                # CPU tensors
+    with pytest.raises(TypeError, match="float32"):
+        call(x.float(), params, kv)
+    with pytest.raises(ValueError, match="unsupported b=9"):
+        call(torch.zeros(9, 128, dtype=torch.bfloat16), params,
+             torch.zeros(2, 9, 16, 128, dtype=torch.bfloat16))
+    assert fd.fused_decode_moe_cuda.launches == 0
 
 
 def test_serving_engine_default_device_raises_without_cuda():
@@ -455,3 +513,46 @@ def test_paged_verify_kernel_matches_plain(cuda, nkv):
     rest[0] = False
     assert torch.equal(pk[:, rest], pr[:, rest])
     assert torch.equal(pk[:, rest], pool[:, rest])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nkv,k,fs", [(4, 2, 0), (2, 4, 256)])
+def test_moe_decode_kernel_matches_plain(cuda, nkv, k, fs):
+    """K6 against its plain version with the gate ×8 (decisive routing):
+    the same expert sets at every layer, x_out and the appended rows at
+    K2's tolerance, the rest of the cache untouched, two launches bitwise
+    equal."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, S, nh, hd, h, E, f, pos = 2, 4, 256, 4, 128, 512, 16, 256, 150
+    g = torch.Generator(device=cuda).manual_seed(5)
+    mk = lambda *s, sc=0.05: (torch.randn(*s, generator=g, device=cuda)
+                              * sc).bfloat16()
+    dq, dkv = nh * hd, nkv * hd
+    p = {"ln1": 1 + mk(L, h, sc=0.1), "wqkv": mk(L, h, dq + 2 * dkv),
+         "wo": mk(L, dq, h), "ln2": 1 + mk(L, h, sc=0.1),
+         "gate": mk(L, E, h, sc=0.4), "weg": mk(L, E, h, f),
+         "weu": mk(L, E, h, f), "wed": mk(L, E, f, h)}
+    if fs:
+        p.update(wsg=mk(L, h, fs), wsu=mk(L, h, fs), wsd=mk(L, fs, h))
+    x = mk(b, h, sc=1.0)
+    kv = mk(L, b, S, 2 * dkv, sc=1.0)
+    kv[:, :, pos:] = 0
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, top_k=k)
+    kr, kr2, pr = {}, {}, {}
+    xk, kvk = fd.fused_decode_moe_cuda(x, p, kv.clone(), pos, c, s,
+                                       routing=kr, **kw)
+    xk2, kvk2 = fd.fused_decode_moe_cuda(x, p, kv.clone(), pos, c, s,
+                                         routing=kr2, **kw)
+    xr, kvr = fd.fused_decode_reference(x, p, kv.clone(), pos, c, s,
+                                        arch="moe", routing=pr, **kw)
+    assert torch.equal(xk, xk2) and torch.equal(kvk, kvk2)
+    assert torch.equal(kr["ids"].long().sort(-1).values,
+                       pr["ids"].sort(-1).values)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos])
