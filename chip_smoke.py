@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
               width with 2 layers, b=8 over a shuffled block table (BT 128,
               16 blocks per row): rows at mixed positions with one idle row,
               MHA and GQA (nkv=8); then x_out and the appended rows bitwise
-              against K2 with every row at one position over the same KV.
+              against K2 with every row at one position over the same KV,
+              in the llama mode and (GPT-2 345M width) in the gpt mode.
   7. k7     — paged verify kernel (K7) vs its plain version at Llama-2-7B
               width with 2 layers, b=8, a 5-token tail per row, over a
               shuffled table (BT 128, 16 blocks per row), MHA and GQA:
@@ -39,6 +40,14 @@ Phases, each printing one JSON line:
               cache unchanged, two launches bitwise equal, every row routed
               alike (one expert slot serves all 4 rows), and the gate ×8
               held strictly.
+  8a. k2g, k5g, k7g — the gpt modes of K2, K5 and K7 (LayerNorm with bias,
+              biased products, no rope, tanh-GELU FFN) vs their plain
+              versions at GPT-2 345M width (h 1024, 16 heads of 64, ffn
+              4096), 2 layers, random bf16 weights and biases: k2's case
+              (b=4, S 1152, pos 1056), k5's rows (b=8, shuffled table,
+              mixed positions, an idle row) and k7's edge cases (b=8 × a
+              5-token tail); x_out, the appended rows, the rest of the
+              cache or pool unchanged, two launches bitwise equal.
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -75,6 +84,22 @@ Phases, each printing one JSON line:
               against one over K5's); then an adaptive engine (k_min 0) on
               the random half with a teacher-forced 32-layer K7 step over
               its live pool vs the plain verify on the logits.
+ 12a. gpt   — GPT-2 345M (24 layers, bf16, random weights from seed 0 with
+              its biases and LayerNorms drawn too; the Llama model freed)
+              through inference.generate, b=8, prompt 512, 128 new tokens,
+              greedy and sampled: K1 24 and K2 127 launches per call; TTFT,
+              decode ms/step, tokens/s, peak memory; a teacher-forced
+              24-layer step, K2 vs the plain path, on the logits; K2 timed
+              at b=8, pos 576, beside its bound and the plain version.
+      gpt_serve — the same model through ServingEngine (8 slots, block
+              128, max_seq_len 1024) as phase serve does it, prompts of
+              100–800 tokens: K5 once per tick and replayed token, K1 24
+              per prefill group; K5 timed at 8 rows over positions
+              150 … 1000.
+      gpt_spec — the same greedy requests through
+              ServingEngine(speculate=SpecConfig(k=4)): K7 once per
+              speculative tick, a teacher-forced 24-layer K7 step over the
+              live pool, K7 timed at those rows × 5 tokens.
  13. moe    — DeepSeekMoE-16B (28 layers, bf16, random weights from seed 0;
               the Llama model freed first) through inference.generate, b=4,
               prompt 1024, 64 new tokens, greedy and sampled: K1 28 and K6
@@ -99,7 +124,7 @@ Phases, each printing one JSON line:
               the plain version and PyTorch's sdpa (forward; backward for
               the K3/K4 pair).
 
---quick stops after phase 8. Every failure propagates and exits non-zero.
+--quick stops after phase 8a. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -253,33 +278,83 @@ def fused_params(gen, L, h, nh, nkv, hd, ffn):
             "wd": rand((L, ffn, h), gen, 0.02)}
 
 
-def k2_case(fd, rope, gen, nkv, L=2, b=4, S=1152, pos=1056):
-    h, nh, hd, ffn = 4096, 32, 128, 11008
+# the stacks' widths: Llama-2-7B for the llama arch, GPT-2 345M for gpt
+WIDTHS = {"llama": dict(h=4096, nh=32, hd=128, ffn=11008),
+          "gpt": dict(h=1024, nh=16, hd=64, ffn=4096)}
+
+
+def gpt_params(gen, L, h, ffn):
+    """Random bf16 gpt stacks (build_fused_params_gpt's keys): LayerNorm
+    scales about 1, every bias and LayerNorm shift nonzero."""
+    one = lambda n: (1.0 + rand((L, n), gen, 0.1, torch.float32)).bfloat16()
+    return {"ln1": one(h), "ln1_b": rand((L, h), gen, 0.1),
+            "wqkv": rand((L, h, 3 * h), gen, 0.02),
+            "bqkv": rand((L, 3 * h), gen, 0.1),
+            "wo": rand((L, h, h), gen, 0.02), "bo": rand((L, h), gen, 0.1),
+            "ln2": one(h), "ln2_b": rand((L, h), gen, 0.1),
+            "wg": rand((L, h, ffn), gen, 0.02),
+            "bg": rand((L, ffn), gen, 0.1),
+            "wd": rand((L, ffn, h), gen, 0.02), "bd": rand((L, h), gen, 0.1)}
+
+
+def stack_params(gen, arch, L, nkv):
+    w = WIDTHS[arch]
+    if arch == "gpt":
+        return gpt_params(gen, L, w["h"], w["ffn"])
+    return fused_params(gen, L, w["h"], w["nh"], nkv, w["hd"], w["ffn"])
+
+
+def k2_case(fd, rope, gen, nkv, L=2, b=4, S=1152, pos=1056, arch="llama"):
+    """K2 against its plain version; the gpt mode also launches twice and
+    holds the two results bitwise equal."""
+    w = WIDTHS[arch]
+    h, nh, hd = w["h"], w["nh"], w["hd"]
     dkv = nkv * hd
-    params = fused_params(gen, L, h, nh, nkv, hd, ffn)
+    params = stack_params(gen, arch, L, nkv)
     kv = torch.zeros((L, b, S, 2 * dkv), dtype=torch.bfloat16, device="cuda")
     kv[:, :, :pos] = rand((L, b, pos, 2 * dkv), gen)
     x = rand((b, h), gen)
-    cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
-    c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+    c = s = None
+    if arch != "gpt":
+        cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
+        c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
     kv_k = kv.clone()
-    xo, _ = fd.fused_decode_cuda(x, params, kv_k, pos, c, s, num_heads=nh,
-                                 num_kv_heads=nkv, eps=1e-5)
+    xo, _ = fd.fused_decode_cuda(x, params, kv_k, pos, c, s, **kw)
+    repeat = None
+    if arch == "gpt":
+        kv_k2 = kv.clone()
+        xo2, _ = fd.fused_decode_cuda(x, params, kv_k2, pos, c, s, **kw)
+        repeat = bool(torch.equal(xo, xo2) and torch.equal(kv_k, kv_k2))
+        del kv_k2
     torch.cuda.synchronize()
-    xr, kv_r = fd.fused_decode_reference(x, params, kv, pos, c, s,
-                                         num_heads=nh, num_kv_heads=nkv,
-                                         eps=1e-5)
+    xr, kv_r = fd.fused_decode_reference(x, params, kv, pos, c, s, **kw)
     err, ok_x = close(xo, xr, K2_ATOL, K2_RTOL)
     row_err, ok_row = close(kv_k[:, :, pos], kv_r[:, :, pos], K2_ATOL,
                             K2_RTOL)
     untouched = bool(torch.equal(kv_k[:, :, :pos], kv_r[:, :, :pos])
                      and torch.equal(kv_k[:, :, pos + 1:], kv_r[:, :, pos + 1:]))
-    ok = (ok_x and ok_row and untouched
+    ok = (ok_x and ok_row and untouched and repeat is not False
           and bool(torch.isfinite(xo.float()).all()))
-    return {"nkv": nkv, "L": L, "b": b, "S": S, "pos": pos,
-            "max_abs_err": err, "row_max_abs_err": row_err,
-            "rest_of_cache_unchanged": untouched, "atol": K2_ATOL,
-            "rtol": K2_RTOL, "ok": ok}
+    res = {"nkv": nkv, "L": L, "b": b, "S": S, "pos": pos,
+           "max_abs_err": err, "row_max_abs_err": row_err,
+           "rest_of_cache_unchanged": untouched, "atol": K2_ATOL,
+           "rtol": K2_RTOL, "ok": ok}
+    if arch == "gpt":
+        res.update(arch="gpt", two_launches_bitwise_equal=repeat)
+    return res
+
+
+def phase_k2g(fd, rope, gen):
+    """K2's gpt mode at GPT-2 345M width (h 1024, 16 heads of 64, ffn 4096),
+    2 layers, b=4, S 1152, pos 1056."""
+    cases = [k2_case(fd, rope, gen, 16, arch="gpt")]
+    emit({"phase": "k2g", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K2 (gpt) disagrees with its plain version: "
+                             f"{bad}")
+    return max(c["max_abs_err"] for c in cases)
 
 
 def phase_k2(fd, rope, gen):
@@ -317,19 +392,31 @@ def k5_pool(gen, L, dkv2, positions, idle=()):
     return pool, tables.cuda()
 
 
-def k5_case(fd, rope, gen, nkv, positions, idle, L=2):
-    h, nh, hd, ffn = 4096, 32, 128, 11008
+def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama"):
+    """K5 against its plain version; the gpt mode also launches twice and
+    holds the two results bitwise equal."""
+    w = WIDTHS[arch]
+    h, nh, hd = w["h"], w["nh"], w["hd"]
     b = len(positions)
-    params = fused_params(gen, L, h, nh, nkv, hd, ffn)
+    params = stack_params(gen, arch, L, nkv)
     pool, tables = k5_pool(gen, L, 2 * nkv * hd, positions, idle)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    cos, sin = rope.rope_cos_sin(K5_BT * K5_MB, hd, device="cuda")
-    c, s = cos.index_select(0, pos), sin.index_select(0, pos)
+    c = s = None
+    if arch != "gpt":
+        cos, sin = rope.rope_cos_sin(K5_BT * K5_MB, hd, device="cuda")
+        c, s = cos.index_select(0, pos), sin.index_select(0, pos)
     x = rand((b, h), gen)
-    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
     pool_k = pool.clone()
     xo, _ = fd.fused_paged_decode_cuda(x, params, pool_k, tables, pos, c, s,
                                        **kw)
+    repeat = None
+    if arch == "gpt":
+        pool_k2 = pool.clone()
+        xo2, _ = fd.fused_paged_decode_cuda(x, params, pool_k2, tables, pos,
+                                            c, s, **kw)
+        repeat = bool(torch.equal(xo, xo2) and torch.equal(pool_k, pool_k2))
+        del pool_k2
     torch.cuda.synchronize()
     xr, pool_r = fd.fused_paged_decode_reference(x, params, pool, tables,
                                                  pos, c, s, **kw)
@@ -344,22 +431,26 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2):
     mask[bids, offs] = False
     mask[0] = False
     untouched = bool(torch.equal(pool_k[:, mask], pool_r[:, mask]))
-    ok = (ok_x and ok_row and untouched
+    ok = (ok_x and ok_row and untouched and repeat is not False
           and bool(torch.isfinite(xo.float()).all()))
-    return {"nkv": nkv, "L": L, "b": b, "block_tokens": K5_BT,
-            "blocks_per_row": K5_MB, "positions": positions,
-            "idle_rows": list(idle), "max_abs_err": err,
-            "row_max_abs_err": row_err, "rest_of_pool_unchanged": untouched,
-            "atol": K2_ATOL, "rtol": K2_RTOL, "ok": ok}
+    res = {"nkv": nkv, "L": L, "b": b, "block_tokens": K5_BT,
+           "blocks_per_row": K5_MB, "positions": positions,
+           "idle_rows": list(idle), "max_abs_err": err,
+           "row_max_abs_err": row_err, "rest_of_pool_unchanged": untouched,
+           "atol": K2_ATOL, "rtol": K2_RTOL, "ok": ok}
+    if arch == "gpt":
+        res.update(arch="gpt", two_launches_bitwise_equal=repeat)
+    return res
 
 
-def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300):
+def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300, arch="llama"):
     """Every row at one position over the same KV: K5 through a shuffled
     block table must give K2's bits (same products, same attention code)."""
-    h, nh, hd, ffn = 4096, 32, 128, 11008
+    w = WIDTHS[arch]
+    h, nh, hd = w["h"], w["nh"], w["hd"]
     dkv2 = 2 * nkv * hd
     S = K5_BT * K5_MB
-    params = fused_params(gen, L, h, nh, nkv, hd, ffn)
+    params = stack_params(gen, arch, L, nkv)
     cache = torch.zeros((L, b, S, dkv2), dtype=torch.bfloat16, device="cuda")
     cache[:, :, :pos] = rand((L, b, pos, dkv2), gen)
     positions = [pos] * b
@@ -368,20 +459,22 @@ def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300):
         pool[:, tables[r].long()] = cache[:, r].reshape(L, K5_MB, K5_BT,
                                                         dkv2)
     x = rand((b, h), gen)
-    cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
     p32 = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
-    x2, cache = fd.fused_decode_cuda(x, params, cache, pos,
-                                     cos[pos:pos + 1], sin[pos:pos + 1], **kw)
-    x5, pool = fd.fused_paged_decode_cuda(
-        x, params, pool, tables, p32, cos.index_select(0, p32),
-        sin.index_select(0, p32), **kw)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
+    c2 = s2 = c5 = s5 = None
+    if arch != "gpt":
+        cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
+        c2, s2 = cos[pos:pos + 1], sin[pos:pos + 1]
+        c5, s5 = cos.index_select(0, p32), sin.index_select(0, p32)
+    x2, cache = fd.fused_decode_cuda(x, params, cache, pos, c2, s2, **kw)
+    x5, pool = fd.fused_paged_decode_cuda(x, params, pool, tables, p32, c5,
+                                          s5, **kw)
     torch.cuda.synchronize()
     rows_equal = all(
         torch.equal(pool[:, tables[r, pos // K5_BT].long(), pos % K5_BT],
                     cache[:, r, pos]) for r in range(b))
     ok = bool(torch.equal(x5, x2)) and rows_equal
-    return {"nkv": nkv, "L": L, "b": b, "pos": pos,
+    return {"arch": arch, "nkv": nkv, "L": L, "b": b, "pos": pos,
             "x_out_bitwise_equal_k2": bool(torch.equal(x5, x2)),
             "appended_rows_equal_k2": rows_equal,
             "x_out_max_abs_diff": (x5.float() - x2.float()).abs().max().item(),
@@ -393,12 +486,28 @@ def phase_k5(fd, rope, gen):
     cases = [k5_case(fd, rope, gen, 32, mixed, idle=(4,)),
              k5_case(fd, rope, gen, 8, mixed, idle=(4,))]
     bitwise = k5_vs_k2(fd, rope, gen)
-    emit({"phase": "k5", "cases": cases, "vs_k2": bitwise})
+    bitwise_gpt = k5_vs_k2(fd, rope, gen, nkv=16, pos=1000, arch="gpt")
+    emit({"phase": "k5", "cases": cases, "vs_k2": bitwise,
+          "vs_k2_gpt": bitwise_gpt})
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K5 disagrees with its plain version: {bad}")
-    if not bitwise["ok"]:
-        raise AssertionError(f"K5 does not give K2's bits: {bitwise}")
+    for b in (bitwise, bitwise_gpt):
+        if not b["ok"]:
+            raise AssertionError(f"K5 does not give K2's bits: {b}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+def phase_k5g(fd, rope, gen):
+    """K5's gpt mode at GPT-2 345M width, 2 layers, b=8 over a shuffled
+    table at mixed positions with one idle row (phase k5's rows)."""
+    mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
+    cases = [k5_case(fd, rope, gen, 16, mixed, idle=(4,), arch="gpt")]
+    emit({"phase": "k5g", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K5 (gpt) disagrees with its plain version: "
+                             f"{bad}")
     return max(c["max_abs_err"] for c in cases)
 
 
@@ -434,22 +543,31 @@ def k7_rope(rope, hd, positions, K1):
     return cos[pj], sin[pj]
 
 
-def k7_case(fd, rope, gen, nkv, positions, nmap, L=2):
+def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
     """K7 against the plain verify. Compared: x_out of every mapped tail
     token (its position and all before it in mapped blocks), the appended
     rows at mapped positions, and every other row of every block but
-    scratch (untouched by both)."""
-    h, nh, hd, ffn = 4096, 32, 128, 11008
+    scratch (untouched by both); the gpt mode also launches twice and holds
+    the two results bitwise equal."""
+    w = WIDTHS[arch]
+    h, nh, hd = w["h"], w["nh"], w["hd"]
     b, K1 = len(positions), K7_K1
-    params = fused_params(gen, L, h, nh, nkv, hd, ffn)
+    params = stack_params(gen, arch, L, nkv)
     pool, tables = k7_pool(gen, L, 2 * nkv * hd, nmap)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    c, s = k7_rope(rope, hd, positions, K1)
+    c = s = None
+    if arch != "gpt":
+        c, s = k7_rope(rope, hd, positions, K1)
     x = rand((b, K1, h), gen)
-    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
     pool_k = pool.clone()
     xo, _ = fd.fused_paged_verify_cuda(x, params, pool_k, tables, pos, c, s,
                                        **kw)
+    pool_k2 = xo2 = None
+    if arch == "gpt":
+        pool_k2 = pool.clone()
+        xo2, _ = fd.fused_paged_verify_cuda(x, params, pool_k2, tables, pos,
+                                            c, s, **kw)
     torch.cuda.synchronize()
     xr, pool_r = fd.fused_paged_verify_reference(x, params, pool, tables,
                                                  pos, c, s, **kw)
@@ -467,14 +585,26 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2):
     mask[bids, offs] = False
     mask[0] = False
     untouched = bool(torch.equal(pool_k[:, mask], pool_r[:, mask]))
-    ok = (ok_x and ok_row and untouched
+    # two launches agree bitwise on every mapped token and every block but
+    # scratch: idle rows and tails past their blocks write scratch block 0
+    # from several rows at once and read it back, so it holds no defined
+    # value (as in K5)
+    repeat = None
+    if arch == "gpt":
+        repeat = bool(torch.equal(xo[rr, jj], xo2[rr, jj])
+                      and torch.equal(pool_k[:, 1:], pool_k2[:, 1:]))
+        del pool_k2, xo2
+    ok = (ok_x and ok_row and untouched and repeat is not False
           and bool(torch.isfinite(xo.float()).all()))
-    return {"nkv": nkv, "L": L, "b": b, "K1": K1, "block_tokens": K5_BT,
-            "blocks_per_row": K5_MB, "positions": positions,
-            "mapped_blocks": nmap, "mapped_tokens": len(mapped),
-            "max_abs_err": err, "row_max_abs_err": row_err,
-            "rest_of_pool_unchanged": untouched, "atol": K2_ATOL,
-            "rtol": K2_RTOL, "ok": ok}
+    res = {"nkv": nkv, "L": L, "b": b, "K1": K1, "block_tokens": K5_BT,
+           "blocks_per_row": K5_MB, "positions": positions,
+           "mapped_blocks": nmap, "mapped_tokens": len(mapped),
+           "max_abs_err": err, "row_max_abs_err": row_err,
+           "rest_of_pool_unchanged": untouched, "atol": K2_ATOL,
+           "rtol": K2_RTOL, "ok": ok}
+    if arch == "gpt":
+        res.update(arch="gpt", two_launches_bitwise_equal=repeat)
+    return res
 
 
 def k7_vs_k5(fd, rope, gen, nkv=32, L=2):
@@ -534,6 +664,21 @@ def phase_k7(fd, rope, gen):
         raise AssertionError(f"K7 disagrees with its plain version: {bad}")
     if not seq["ok"]:
         raise AssertionError(f"K7 disagrees with sequential K5 steps: {seq}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+def phase_k7g(fd, rope, gen):
+    """K7's gpt mode at GPT-2 345M width, 2 layers, b=8 × a 5-token tail,
+    with phase k7's edge cases (a tail across a block boundary, an idle
+    row, tails past the last mapped block and past the table)."""
+    positions = [1037, 126, 700, 3, 254, 5, 2045, 1500]
+    nmap = [9, 2, 6, 0, 2, 1, K5_MB, 12]
+    cases = [k7_case(fd, rope, gen, 16, positions, nmap, arch="gpt")]
+    emit({"phase": "k7g", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K7 (gpt) disagrees with its plain version: "
+                             f"{bad}")
     return max(c["max_abs_err"] for c in cases)
 
 
@@ -942,19 +1087,20 @@ SERVE = dict(max_slots=8, block_tokens=128, max_seq_len=2048)
 PREFIX = 256
 
 
-def serve_requests(vocab):
+def serve_requests(vocab, max_prompt=1000):
     """16 requests from seed 0: 8 behind a shared 256-token prefix (prompts
-    300–1000 tokens), 8 without (100–1000); 16–96 new tokens each."""
+    300–max_prompt tokens), 8 without (100–max_prompt); 16–96 new tokens
+    each."""
     r = np.random.RandomState(0)
     prefix = r.randint(0, vocab, PREFIX)
     shared, other = [], []
     for _ in range(8):
-        n = r.randint(300, 1001)
+        n = r.randint(300, max_prompt + 1)
         shared.append((np.concatenate([prefix, r.randint(0, vocab,
                                                         n - PREFIX)]),
                        int(r.randint(16, 97))))
     for _ in range(8):
-        other.append((r.randint(0, vocab, r.randint(100, 1001)),
+        other.append((r.randint(0, vocab, r.randint(100, max_prompt + 1)),
                       int(r.randint(16, 97))))
     return shared, other
 
@@ -973,7 +1119,7 @@ def teacher_forced_k5(fd, eng):
     cos = eng._cos_tab.index_select(0, positions)
     sin = eng._sin_tab.index_select(0, positions)
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"])
+              eps=meta["eps"], arch=eng.arch)
     n0 = fd.fused_paged_decode_cuda.launches
     xk, _ = fd.fused_paged_decode_cuda(x, plan["params"], eng.kv_pool, tables,
                                        positions, cos, sin, **kw)
@@ -993,11 +1139,22 @@ def teacher_forced_k5(fd, eng):
             "atol": SERVE_LOGIT_ATOL, "rtol": E2E_RTOL, "ok": ok}
 
 
-def time_k5(fd, eng, bw, flops):
-    """K5 and its plain version at 8 rows averaging ~700 cached tokens,
-    over the engine's pool (blocks borrowed from its free list)."""
-    positions = [int(p) for p in np.linspace(100, 1300, 8)]
+def borrow_blocks(eng, n):
+    """Make `n` pool blocks free for a timing's tables: evict prefix-cache
+    blocks that only the cache holds, as far as the free list falls short
+    (a drained engine's cache may hold most of a small pool)."""
+    short = n - eng.pool.free_blocks
+    if short > 0 and eng.prefix_cache is not None:
+        eng.prefix_cache.evict_free(short)
+
+
+def time_k5(fd, eng, bw, flops, span=(100, 1300)):
+    """K5 and its plain version at 8 rows at positions evenly over `span`
+    (~700 cached tokens on average by default), over the engine's pool
+    (blocks borrowed from its free list)."""
+    positions = [int(p) for p in np.linspace(*span, 8)]
     BT, L = eng.block_tokens, eng._num_layers
+    borrow_blocks(eng, sum(p // BT + 1 for p in positions))
     borrowed = []
     tables = np.zeros((8, eng.max_blocks_per_slot), np.int32)
     for i, p in enumerate(positions):
@@ -1014,7 +1171,7 @@ def time_k5(fd, eng, bw, flops):
     cos = eng._cos_tab.index_select(0, pos)
     sin = eng._sin_tab.index_select(0, pos)
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"])
+              eps=meta["eps"], arch=eng.arch)
     n0 = fd.fused_paged_decode_cuda.launches
     ms = time_ms(lambda: fd.fused_paged_decode_cuda(
         x, plan["params"], eng.kv_pool, tab, pos, cos, sin, **kw), iters=20)
@@ -1038,16 +1195,22 @@ def time_k5(fd, eng, bw, flops):
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
-def phase_serve(fa, fd, model, bw, flops, k5_err):
+def phase_serve(fa, fd, model, bw, flops, k5_err, phase="serve",
+                name="llama2_7b", serve=SERVE, max_prompt=1000,
+                span=(100, 1300)):
+    """`model` through serving.ServingEngine(**serve): the greedy run with
+    a shared prefix and a preemption, then the sampled run (see the module
+    docstring's phase serve). Returns (K5's kernel-table row, the launch
+    counts of both runs)."""
     from paddle_tpu_torch.inference import generate
     from paddle_tpu_torch.serving import Request, ServingEngine
 
     cfg = model.cfg
-    shared, other = serve_requests(cfg.vocab_size)
+    shared, other = serve_requests(cfg.vocab_size, max_prompt)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServingEngine(model, **SERVE)
+    eng = ServingEngine(model, **serve)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     lows = shared + other[:6]
@@ -1060,14 +1223,14 @@ def phase_serve(fa, fd, model, bw, flops, k5_err):
     rids += [eng.submit(Request(p, max_new_tokens=n, priority="low"))
              for p, n in lows[1:]]
     for _ in range(4):
-        if eng.active_slots == SERVE["max_slots"]:
+        if eng.active_slots == serve["max_slots"]:
             break
         eng.step()
     rids += [eng.submit(Request(p, max_new_tokens=n, priority="high"))
              for p, n in highs]
     eng.step()        # the high requests preempt two low slots
     if eng.stats["preemptions"] < 1 or eng.active_slots < 8:
-        raise AssertionError(f"serve: no preemption ({eng.stats})")
+        raise AssertionError(f"{phase}: no preemption ({eng.stats})")
     forced = teacher_forced_k5(fd, eng)
     eng.drain()
     torch.cuda.synchronize()
@@ -1078,7 +1241,7 @@ def phase_serve(fa, fd, model, bw, flops, k5_err):
     want = [n for _, n in lows + highs]
     lengths = [len(res.tokens) for res in results]
     ttft = sorted(res.ttft_s for res in results)
-    timing = time_k5(fd, eng, bw, flops)
+    timing = time_k5(fd, eng, bw, flops, span)
     eng.prefix_cache.clear()
     leaked = eng.pool.used_blocks
     greedy_peak = torch.cuda.max_memory_allocated()
@@ -1095,7 +1258,7 @@ def phase_serve(fa, fd, model, bw, flops, k5_err):
                            if a != b), n))
 
     # sampled: the knobs live on the engine, each request has its own seed
-    eng = ServingEngine(model, **SERVE, temperature=0.8, top_k=50, top_p=0.9)
+    eng = ServingEngine(model, **serve, temperature=0.8, top_k=50, top_p=0.9)
     reset_counts(fa, fd)
     t1 = time.perf_counter()
     srids = [eng.submit(Request(p, max_new_tokens=n, seed=1000 + i))
@@ -1116,8 +1279,8 @@ def phase_serve(fa, fd, model, bw, flops, k5_err):
     L = cfg.num_layers
     steps = st["steps"]
     res = {
-        "phase": "serve", "model": "llama2_7b", "layers": L,
-        "dtype": "bfloat16", **SERVE, "engine_init_s": init_s,
+        "phase": phase, "model": name, "layers": L,
+        "dtype": "bfloat16", **serve, "engine_init_s": init_s,
         "requests": len(rids), "shared_prefix_tokens": PREFIX,
         "prompt_lens": [len(p) for p, _ in lows + highs],
         "max_new": want, "generated": lengths,
@@ -1146,7 +1309,7 @@ def phase_serve(fa, fd, model, bw, flops, k5_err):
         == steps + st["replay_tokens"] and sgot["fused_paged_decode_step"]
         == sst["steps"] + sst["replay_tokens"],
         "K2 never": total["fused_decode_step"] == 0,
-        "K1 32 per prefill group": got["flash_attention_fwd"]
+        f"K1 {L} per prefill group": got["flash_attention_fwd"]
         == L * st["prefill_groups"] and sgot["flash_attention_fwd"]
         == L * sst["prefill_groups"],
         "a preemption and a replay": st["preemptions"] >= 1
@@ -1160,7 +1323,7 @@ def phase_serve(fa, fd, model, bw, flops, k5_err):
     }
     bad = [k for k, v in checks.items() if not v]
     if bad:
-        raise AssertionError(f"serve: failed {bad}")
+        raise AssertionError(f"{phase}: failed {bad}")
     row = {"name": "fused_paged_decode_step", "route": "cuda",
            "source": "paddle_tpu_torch/csrc/fused_decode.cu",
            "replaces": "paddle_tpu/ops/fused_decode.py:1884",
@@ -1250,7 +1413,7 @@ def teacher_forced_k7(fd, eng):
     x = plan["embed"](tail.reshape(-1), pj.reshape(-1)).reshape(b, K1, -1)
     cos, sin = eng._cos_tab[pj], eng._sin_tab[pj]
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"])
+              eps=meta["eps"], arch=eng.arch)
     n0 = fd.fused_paged_verify_cuda.launches
     xk, _ = fd.fused_paged_verify_cuda(x, plan["params"], pool, tables,
                                        positions, cos, sin, **kw)
@@ -1273,15 +1436,17 @@ def teacher_forced_k7(fd, eng):
             "rtol": E2E_RTOL, "ok": ok}
 
 
-def time_k7(fd, eng, bw, flops):
-    """K7 and its plain version at b=8, K1=5, rows averaging ~700 cached
-    tokens, over the engine's pool (blocks borrowed from its free list).
-    Bound: every layer weight once, each row's filled KV and its K1
-    appended rows, x in and out, at the card's memory rate; the tail's
-    2·params·40 FLOP (and the attention's) at its bf16 rate."""
+def time_k7(fd, eng, bw, flops, span=(100, 1300)):
+    """K7 and its plain version at b=8, K1=5, rows at positions evenly over
+    `span` (~700 cached tokens on average by default), over the engine's
+    pool (blocks borrowed from its free list). Bound: every layer weight
+    once, each row's filled KV and its K1 appended rows, x in and out, at
+    the card's memory rate; the tail's 2·params·40 FLOP (and the
+    attention's) at its bf16 rate."""
     K1 = SPEC_K + 1
-    positions = [int(p) for p in np.linspace(100, 1300, 8)]
+    positions = [int(p) for p in np.linspace(*span, 8)]
     BT, L = eng.block_tokens, eng._num_layers
+    borrow_blocks(eng, sum((p + K1 - 1) // BT + 1 for p in positions))
     borrowed = []
     tables = np.zeros((8, eng.max_blocks_per_slot), np.int32)
     for i, p in enumerate(positions):
@@ -1298,7 +1463,7 @@ def time_k7(fd, eng, bw, flops):
     pj = pos.long()[:, None] + torch.arange(K1, device="cuda")[None]
     cos, sin = eng._cos_tab[pj], eng._sin_tab[pj]
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"])
+              eps=meta["eps"], arch=eng.arch)
     n0 = fd.fused_paged_verify_cuda.launches
     ms = time_ms(lambda: fd.fused_paged_verify_cuda(
         x, plan["params"], eng.kv_pool, tab, pos, cos, sin, **kw), iters=20)
@@ -1644,6 +1809,270 @@ def phase_spec(fa, fd, model, bw, flops, k7_err):
            "at_shape": {"b": 8, "K1": t["K1"], "layers": L,
                         "positions": t["positions"]}}
     return row, launches
+
+
+# ---- GPT-2 345M generation and serving --------------------------------------------
+
+GPT_B, GPT_PROMPT, GPT_NEW = 8, 512, 128
+GPT_SERVE = dict(max_slots=8, block_tokens=128, max_seq_len=1024)
+GPT_SPAN = (150, 1000)   # timed rows: 8 positions averaging ~575 tokens
+
+
+def gpt_model():
+    """GPT-2 345M (GPTConfig.gpt2_medium(): 24 layers, hidden 1024, 16
+    heads of 64, vocab 50304, 1024 positions, tied head), bf16, random
+    weights from seed 0, eval(). The model's init leaves every bias 0 and
+    every LayerNorm at (1, 0); they are drawn here as well (N(0, 0.02)
+    around those values, from seed 0) so that the paths carry the biases
+    the gpt mode adds."""
+    from paddle_tpu_torch.models import GPTConfig, GPTPretrainModel
+    model = GPTPretrainModel(GPTConfig.gpt2_medium(), dtype=torch.bfloat16,
+                             device="cuda", seed=0)
+    model.eval()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            if p.dim() == 1:        # biases, LayerNorm scales and shifts
+                p.add_(rand(tuple(p.shape), gen, 0.02))
+    return model
+
+
+def k2_bound(params, kv, pos, b, bw, flops, nh, hd):
+    """K2's least time for one step at these inputs: every layer weight
+    once, the filled KV [0, pos] and the appends, x in and out, at the
+    card's memory rate; its FLOP at the bf16 peak."""
+    L = kv.shape[0]
+    wbytes = sum(t.numel() * t.element_size() for t in params.values())
+    row = b * kv.shape[3] * kv.element_size()
+    h = params["ln1"].shape[1]
+    nbytes = wbytes + L * row * (pos + 1) + L * row + 2 * b * h * 2
+    nflops = 2 * b * sum(t.numel() for t in params.values()) \
+        + L * b * nh * 4 * hd * (pos + 1)
+    tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
+    return {"bytes": nbytes, "flops": nflops, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def gpt_generate(fa, fd, model, bw, flops, k2g_err):
+    """GPT-2 345M through inference.generate, b=8, prompt 512, 128 new
+    tokens, greedy and sampled: K1 24 and K2 127 launches per call; TTFT,
+    decode ms/step, tokens/s, peak memory; one teacher-forced 24-layer
+    step, K2 vs the plain path, on the logits; K2 timed at b=8, pos 576."""
+    from paddle_tpu_torch.inference import generate, prefill
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    hd = cfg.hidden_size // cfg.num_heads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_PROMPT), device="cuda",
+                        generator=gen)
+    want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "fused_decode_step": GPT_NEW - 1,
+            "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
+            "fused_decode_moe_step": 0}
+    runs = {}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(temperature=0.8, top_k=50, top_p=0.9,
+                                      seed=7))):
+        torch.cuda.synchronize()
+        reset_counts(fa, fd)
+        t0 = time.perf_counter()
+        out = generate(model, ids, max_new_tokens=GPT_NEW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(fa, fd)
+        new = out[:, GPT_PROMPT:]
+        if got != want:
+            raise AssertionError(f"gpt {name}: launch counts {got}, "
+                                 f"expected {want}")
+        if tuple(out.shape) != (GPT_B, GPT_PROMPT + GPT_NEW) \
+                or not torch.equal(out[:, :GPT_PROMPT], ids) \
+                or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+            raise AssertionError(f"gpt {name}: bad tokens {tuple(out.shape)}")
+        runs[name] = {"wall_s": wall, "launches": got,
+                      "first_tokens": new[:, :8].tolist()}
+    reset_counts(fa, fd)
+
+    def wall(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(model, ids, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ttft_s = min(wall(1) for _ in range(2))
+    gen_s = wall(GPT_NEW)
+    gen_peak = torch.cuda.max_memory_allocated()
+    total = -(-(GPT_PROMPT + GPT_NEW) // 128) * 128
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_heads,
+              eps=cfg.layer_norm_epsilon, arch="gpt")
+    with torch.inference_mode():
+        logits, kv = prefill(model, ids, total, fused=True)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        del logits
+        plan = model.fused_decode_plan(model.state_dict(include_buffers=False))
+        params = plan["params"]
+        pos = GPT_PROMPT
+        x = plan["embed"](tok, pos)
+        kv_plain = kv.clone()
+        xk, kv = fd.fused_decode_cuda(x, params, kv, pos, None, None, **kw)
+        lk = plan["head"](xk).float()
+        xp, kv_plain = fd.fused_decode_reference(x, params, kv_plain, pos,
+                                                 None, None, **kw)
+        lp = plan["head"](xp).float()
+        del kv_plain
+        logit_err, logits_ok = close(lk, lp, E2E_ATOL, E2E_RTOL)
+        tf = {"logit_max_abs_err": logit_err,
+              "logit_absmax": lp.abs().max().item(),
+              "argmax_agree": float((lk.argmax(-1) == lp.argmax(-1))
+                                    .float().mean()),
+              "atol": E2E_ATOL, "rtol": E2E_RTOL, "ok": logits_ok}
+        # K2 timed at b=8, one step at the mean position of the 128-token
+        # decode (512 + 64 = 576) over the prefilled cache
+        tpos = GPT_PROMPT + GPT_NEW // 2
+        gen.manual_seed(3)
+        xt = rand((GPT_B, cfg.hidden_size), gen)
+        n0 = fd.fused_decode_cuda.launches
+        ms = time_ms(lambda: fd.fused_decode_cuda(xt, params, kv, tpos, None,
+                                                  None, **kw), iters=20)
+        fd.fused_decode_cuda.launches = n0
+        plain = time_ms(lambda: fd.fused_decode_reference(
+            xt, params, kv, tpos, None, None, **kw), iters=2, warmup=1)
+        head_ms = time_ms(lambda: plan["head"](xt), iters=20)
+        bound = k2_bound(params, kv, tpos, GPT_B, bw, flops, cfg.num_heads,
+                         hd)
+        del kv, plan, params
+    head_bytes = model.gpt.wte.weight.numel() * 2
+    decode_s = (gen_s - ttft_s) / (GPT_NEW - 1)
+    res = {"phase": "gpt", "model": "gpt2_medium", "layers": L,
+           "dtype": "bfloat16", "params": model.num_params(),
+           "batch": GPT_B, "prompt": GPT_PROMPT, "new": GPT_NEW,
+           "runs": runs, "ttft_ms": ttft_s * 1e3,
+           "decode_ms_per_step": decode_s * 1e3,
+           "generate_ms": gen_s * 1e3,
+           "tokens_per_s": GPT_B * GPT_NEW / gen_s,
+           "max_memory_allocated": gen_peak, "teacher_forced": tf,
+           "k2_timing": dict(bound, ms=ms, plain_ms=plain, pos=tpos,
+                             launches_per_step=1 + 11 * L),
+           "head_ms": head_ms,
+           "decode_step_bound_ms_with_head":
+               bound["bound_ms"] + head_bytes / bw * 1e3}
+    emit(res)
+    if not tf["ok"]:
+        raise AssertionError(f"gpt: teacher-forced logits differ: {tf}")
+    row = {"ms": ms, "plain_ms": plain, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"], "library_ms": None,
+           "max_abs_err": k2g_err,
+           "at_shape": {"b": GPT_B, "layers": L, "pos": tpos}}
+    return row, runs["greedy"]["launches"]
+
+
+def gpt_spec(fa, fd, model, bw, flops, k7g_err):
+    """GPT-2 345M through ServingEngine(speculate=SpecConfig(k=4)) on the
+    gpt_serve phase's greedy requests (2 "high" preempt): K7 once per
+    speculative tick, K5 once per plain tick and replayed token; after the
+    first ticks that fill every slot, a teacher-forced 24-layer K7 step
+    over the live pool against the plain verify; K7 timed at b=8 × 5
+    tokens at GPT_SPAN's rows."""
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    shared, other = serve_requests(cfg.vocab_size, 800)
+    lows, highs = shared + other[:6], other[6:]
+    want = [n for _, n in lows + highs]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, **GPT_SERVE, speculate=SpecConfig(k=SPEC_K))
+    reset_counts(fa, fd)
+    t0 = time.perf_counter()
+    rids = [eng.submit(Request(p, max_new_tokens=n, priority="low"))
+            for p, n in lows]
+    for _ in range(8):
+        if eng.active_slots == GPT_SERVE["max_slots"]:
+            break
+        eng.step()
+    rids += [eng.submit(Request(p, max_new_tokens=n, priority="high"))
+             for p, n in highs]
+    eng.step()
+    if eng.stats["preemptions"] < 1:
+        raise AssertionError(f"gpt_spec: no preemption ({eng.stats})")
+    eng.step()
+    tf = teacher_forced_k7(fd, eng)
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(fa, fd)
+    results = [eng.pop_result(i) for i in rids]
+    m = engine_metrics(eng, wall, results, want)
+    st = m["stats"]
+    timing = time_k7(fd, eng, bw, flops, GPT_SPAN)
+    eng.prefix_cache.clear()
+    leaked = eng.pool.used_blocks
+    peak = torch.cuda.max_memory_allocated()
+    eng.close()
+    del eng
+    gc.collect()
+    res = {"phase": "gpt_spec", "model": "gpt2_medium", "layers": L,
+           "dtype": "bfloat16", **GPT_SERVE, "k": SPEC_K,
+           "requests": len(want), "max_new": want, **m,
+           "acceptance": st["spec_accepted"] / max(st["spec_proposed"], 1),
+           "launches": got, "teacher_forced": tf, "k7_timing": timing,
+           "pool_used_blocks_after_clear": leaked,
+           "max_memory_allocated": peak}
+    emit(res)
+    checks = {
+        "every request at its full length": m["full_length"],
+        "no leaked block": leaked == 0,
+        "K7 once per speculative tick": got["fused_paged_verify_step"]
+        == st["spec_ticks"] > 0,
+        "K5 once per plain tick and replayed token":
+            got["fused_paged_decode_step"]
+            == st["steps"] - st["spec_ticks"] + st["replay_tokens"],
+        f"K1 {L} per prefill group": got["flash_attention_fwd"]
+        == L * st["prefill_groups"],
+        "K2 never": got["fused_decode_step"] == 0,
+        "a preemption and a replay": st["preemptions"] >= 1
+        and st["replay_tokens"] >= 1,
+        "teacher-forced logits": tf["ok"],
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"gpt_spec: failed {bad}")
+    row = {"ms": timing["ms"], "plain_ms": timing["plain_ms"],
+           "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+           "library_ms": None, "max_abs_err": k7g_err,
+           "at_shape": {"b": 8, "K1": timing["K1"], "layers": L,
+                        "positions": timing["positions"]}}
+    return row, got
+
+
+def phase_gpt(fa, fd, bw, flops, errs):
+    """GPT-2 345M generation (phase gpt), serving (gpt_serve) and
+    speculative serving (gpt_spec). Returns ({kernel name: its gpt-mode
+    row}, {path: launch counts})."""
+    model = gpt_model()
+    k2, gen_launches = gpt_generate(fa, fd, model, bw, flops, errs["k2g"])
+    with torch.no_grad():
+        k5, serve_launches = phase_serve(
+            fa, fd, model, bw, flops, errs["k5g"], phase="gpt_serve",
+            name="gpt2_medium", serve=GPT_SERVE, max_prompt=800,
+            span=GPT_SPAN)
+        k7, spec_launches = gpt_spec(fa, fd, model, bw, flops, errs["k7g"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    k5 = {k: k5[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "at_shape")}
+    k5["max_abs_err"] = errs["k5g"]
+    rows = {"fused_decode_step": k2, "fused_paged_decode_step": k5,
+            "fused_paged_verify_step": k7}
+    return rows, {"gpt_generate": gen_launches, "gpt_serve": serve_launches,
+                  "gpt_spec": spec_launches}
 
 
 # ---- MoE generation -------------------------------------------------------------
@@ -2028,6 +2457,9 @@ def main(argv):
     k5_err = phase_k5(fd, rope, gen)
     k7_err = phase_k7(fd, rope, gen)
     k6_err = phase_k6(fd, rope, gen)
+    gpt_errs = {"k2g": phase_k2g(fd, rope, gen),
+                "k5g": phase_k5g(fd, rope, gen),
+                "k7g": phase_k7g(fd, rope, gen)}
     if quick:
         return 0
     model, plan, kv, _, launches = phase_e2e(fa, fd)
@@ -2043,6 +2475,7 @@ def main(argv):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    gpt_rows, gpt_launches = phase_gpt(fa, fd, bw, flops, gpt_errs)
     k6_row, moe_launches = phase_moe(fa, fd, bw, flops, k6_err)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2056,6 +2489,10 @@ def main(argv):
         k["launches_by_path"]["serve"] = serve_launches[k["name"]]
         k["launches_by_path"]["spec"] = spec_launches[k["name"]]
         k["launches_by_path"]["moe"] = moe_launches[k["name"]]
+        for path, got in gpt_launches.items():
+            k["launches_by_path"][path] = got[k["name"]]
+        if k["name"] in gpt_rows:
+            k["gpt"] = gpt_rows[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,6 +7,7 @@
     PYTHONPATH=. python3 examples/torch_decode_profile.py --verify
     PYTHONPATH=. python3 examples/torch_decode_profile.py --serve
     PYTHONPATH=. python3 examples/torch_decode_profile.py --moe
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --gpt
 
 Default: builds a Llama-2-7B-width stack (random bf16 weights, seed 0) and
 a KV cache filled up to `pos`, times paddle_tpu_torch's fused decode step
@@ -35,6 +36,12 @@ experts as one 2816-wide SwiGLU), b=4, pos 1056; the routed experts' bound
 counts the distinct experts the step's routing used. The tensor-core
 product kernel serves the shared (DenseOps) and the routed (MoEOps)
 products.
+
+--gpt: the same split for the gpt mode of K2 at GPT-2 345M's shape (24
+layers, h 1024, 16 heads of 64, ffn 4096; random bf16 weights and biases),
+b=8, pos 576 (the mean position of a 512 + 128-token generate). Its step
+is 1 + 11 × 24 launches of small products, so the device-busy time beside
+the step time shows how much of the step is launch gaps.
 
 --serve: a Llama-2-7B ServingEngine (8 slots, block 128) with 8 requests
 of 500-token prompts decoding; traces 32 ticks and prints the wall time
@@ -129,6 +136,25 @@ def contiguous_step(L, b, pos, nkv, h, nh, hd, ffn):
         x, p, kv, pos, cos[pos:pos + 1], sin[pos:pos + 1], num_heads=nh,
         num_kv_heads=nkv)
     return step, p, L * b * (pos + 1) * 2 * dkv * 2
+
+
+def gpt_step(L=24, b=8, pos=576, h=1024, nh=16, ffn=4096):
+    """K2's gpt mode over a contiguous cache filled up to `pos`."""
+    S = -(-(pos + 1) // 128) * 128
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
+        0, sc, generator=g).bfloat16()
+    p = {"ln1": 1 + mk(L, h), "ln1_b": mk(L, h), "wqkv": mk(L, h, 3 * h),
+         "bqkv": mk(L, 3 * h), "wo": mk(L, h, h), "bo": mk(L, h),
+         "ln2": 1 + mk(L, h), "ln2_b": mk(L, h), "wg": mk(L, h, ffn),
+         "bg": mk(L, ffn), "wd": mk(L, ffn, h), "bd": mk(L, h)}
+    kv = torch.zeros(L, b, S, 2 * h, device="cuda", dtype=torch.bfloat16)
+    kv[:, :, :pos] = mk(L, b, pos, 2 * h, sc=1.0)
+    x = mk(b, h, sc=1.0)
+    step = lambda: fd.fused_decode_cuda(x, p, kv, pos, None, None,
+                                        num_heads=nh, num_kv_heads=nh,
+                                        arch="gpt")
+    return step, p, L * b * (pos + 1) * 2 * h * 2
 
 
 def serve_split(card, ticks=32):
@@ -240,6 +266,7 @@ def main():
     ap.add_argument("--verify", action="store_true")
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--moe", action="store_true")
+    ap.add_argument("--gpt", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -256,7 +283,10 @@ def main():
         return serve_split(card)
     L, b, pos, nkv = a.layers, a.batch, a.pos, a.kv_heads
     h, nh, hd, ffn = 4096, 32, 128, 11008
-    if a.moe:
+    if a.gpt:
+        L, b, pos, nkv = 24, 8, 576, 16
+        step, p, kvb = gpt_step(L, b, pos)
+    elif a.moe:
         L, b, pos, nkv = 28, 4, 1056, 16
         step, p, kvb, distinct = moe_step(b, pos, L)
     elif a.paged or a.verify:
@@ -288,6 +318,9 @@ def main():
             "shared experts": wb("wsg", "wsu", "wsd") / bw * 1e3,
             f"routed experts ({distinct} distinct)":
                 distinct * expert / bw * 1e3})
+    elif a.gpt:
+        bounds_ms.update({"fc_in gemm": wb("wg") / bw * 1e3,
+                          "fc_out gemm": wb("wd") / bw * 1e3})
     else:
         bounds_ms.update({"gate/up gemm": wb("wg", "wu") / bw * 1e3,
                           "down gemm": wb("wd") / bw * 1e3})
@@ -295,6 +328,7 @@ def main():
                       "kernel": ("K7 (verify), tail %d" % VERIFY_TAIL
                                  if a.verify else
                                  "K6 (MoE), DeepSeekMoE-16B" if a.moe else
+                                 "K2 (gpt), GPT-2 345M" if a.gpt else
                                  "K5 (paged)" if a.paged else "K2"),
                       "kv_heads": nkv, "step_ms": step_ms,
                       "device_ms_per_step_by_kernel": per_kernel,

@@ -44,6 +44,17 @@
 // fused_decode_moe (K6, the MoE step), runs K2's attention half and then
 // the routed and shared experts on K7's tensor-core GEMMs (see the K6
 // section).
+//
+// The gpt mode of K2, K5 and K7 (fused_decode_gpt, fused_paged_decode_gpt,
+// fused_paged_verify_gpt; the TPU kernels' arch="gpt" branches): LayerNorm
+// with bias, biases on all four products, no rope, a tanh-GELU FFN with no
+// up-projection. It adds kernels beside the llama ones and changes none of
+// theirs: a LayerNorm kernel (layernorm_rows_kernel) writes the bf16 rows
+// the products read, so the register GEMM runs its existing bf16-input path
+// (no LayerNorm prologue); bias epilogues (bias_epilogue_kernel) add each
+// product's bias after the fixed-order split-K sum, never in a partial; and
+// the attention kernels take a compile-time ROPE flag, false here. See the
+// gpt section near the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +67,9 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 enum { MODE_QKV = 0, MODE_SWIGLU = 1, MODE_RESID = 2 };
+// the gpt mode's bias epilogues: qkv + b; x + (o + b); (x + d) + b;
+// bf16(gelu_tanh(g + b))
+enum { MODE_QKV_B = 3, MODE_ORES_B = 4, MODE_FRES_B = 5, MODE_GELU_B = 6 };
 
 constexpr int GT = 256;  // threads per GEMM block
 constexpr int NWG = GT / 32;
@@ -332,9 +346,11 @@ struct PagedKV {
 // rows may append to the same scratch address (idle rows); each block
 // reads back only what it wrote itself or what no block of this launch
 // writes, so only idle rows — whose output is thrown away — see a race.
+// ROPE = false (the gpt mode) takes q and k as they are and reads no rope
+// row.
 constexpr int NWA = 16;
 
-template <int HD, int REP, class KV>
+template <int HD, int REP, class KV, bool ROPE>
 __global__ void __launch_bounds__(NWA * 32)
 rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
                         bf16* __restrict__ attn, int nkv, float scale) {
@@ -349,20 +365,28 @@ rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* row = qkv + (long)bi * dqkv;
   const int pos = cache.position(bi);
-  const float* __restrict__ cosr = cache.cos_row(bi, HD);
-  const float* __restrict__ sinr = cache.sin_row(bi, HD);
+  const float* __restrict__ cosr = ROPE ? cache.cos_row(bi, HD) : nullptr;
+  const float* __restrict__ sinr = ROPE ? cache.sin_row(bi, HD) : nullptr;
 
   for (int i = tid; i < REP * HD; i += NWA * 32) {
     const int r = i / HD, d = i % HD;
     const float* qh = row + (g * REP + r) * HD;
-    const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
-    qs[i] = (qh[d] * cosr[d] + rot * sinr[d]) * scale;
+    if (ROPE) {
+      const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
+      qs[i] = (qh[d] * cosr[d] + rot * sinr[d]) * scale;
+    } else {
+      qs[i] = qh[d] * scale;
+    }
   }
   for (int d = tid; d < HD; d += NWA * 32) {
     const float* kh = row + dq + g * HD;
-    const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
     bf16* dst = cache.row(bi, pos) + g * HD + d;
-    dst[0] = __float2bfloat16(kh[d] * cosr[d] + rot * sinr[d]);
+    if (ROPE) {
+      const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
+      dst[0] = __float2bfloat16(kh[d] * cosr[d] + rot * sinr[d]);
+    } else {
+      dst[0] = __float2bfloat16(kh[d]);
+    }
     dst[dkv] = __float2bfloat16(row[dq + dkv + g * HD + d]);
   }
   __syncthreads();  // the appended row and q are visible to the block
@@ -487,33 +511,43 @@ cudaError_t gemm(const float* xf, const bf16* xb, const bf16* lnw,
   return cudaGetLastError();
 }
 
-template <int HD, int REP, class KV>
+template <int HD, int REP, bool ROPE, class KV>
 cudaError_t attn_launch(const float* qkv, const KV& cache, bf16* attn, int b,
                         int nkv, float scale, cudaStream_t st) {
   const int smem = (REP * HD + 2 * NWA * REP + NWA * REP * HD) * 4;
   static bool opted_in = false;  // above 48 KB needs the opt-in, once
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        rope_append_attn_kernel<HD, REP, KV>,
+        rope_append_attn_kernel<HD, REP, KV, ROPE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  rope_append_attn_kernel<HD, REP, KV><<<dim3(nkv, b), NWA * 32, smem, st>>>(
-      qkv, cache, attn, nkv, scale);
+  rope_append_attn_kernel<HD, REP, KV, ROPE>
+      <<<dim3(nkv, b), NWA * 32, smem, st>>>(qkv, cache, attn, nkv, scale);
   return cudaGetLastError();
 }
 
-template <int HD, class KV>
+template <int HD, bool ROPE, class KV>
 cudaError_t attn_hd(int rep, const float* qkv, const KV& cache, bf16* attn,
                     int b, int nkv, float scale, cudaStream_t st) {
   switch (rep) {
-    case 1: return attn_launch<HD, 1>(qkv, cache, attn, b, nkv, scale, st);
-    case 2: return attn_launch<HD, 2>(qkv, cache, attn, b, nkv, scale, st);
-    case 4: return attn_launch<HD, 4>(qkv, cache, attn, b, nkv, scale, st);
-    case 8: return attn_launch<HD, 8>(qkv, cache, attn, b, nkv, scale, st);
+    case 1: return attn_launch<HD, 1, ROPE>(qkv, cache, attn, b, nkv, scale, st);
+    case 2: return attn_launch<HD, 2, ROPE>(qkv, cache, attn, b, nkv, scale, st);
+    case 4: return attn_launch<HD, 4, ROPE>(qkv, cache, attn, b, nkv, scale, st);
+    case 8: return attn_launch<HD, 8, ROPE>(qkv, cache, attn, b, nkv, scale, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// Attention of one layer at head_dim 64 or 128, with or without rope.
+template <bool ROPE, class KV>
+cudaError_t attn_any(int hd, int rep, const float* qkv, const KV& cache,
+                     bf16* attn, int b, int nkv, float scale,
+                     cudaStream_t st) {
+  return hd == 128 ? attn_hd<128, ROPE>(rep, qkv, cache, attn, b, nkv, scale, st)
+         : hd == 64 ? attn_hd<64, ROPE>(rep, qkv, cache, attn, b, nkv, scale, st)
+                    : cudaErrorInvalidValue;
 }
 
 // Floats of split-K workspace one step needs: 8 for the RMSNorm rstd, then
@@ -529,6 +563,9 @@ long ws_layout(int b, int h, int dq, int dqkv, int ffn, long* n0) {
 }
 
 // The operands of one decode step through the stack, shared by K2 and K5.
+// The gpt mode's operands follow, null for llama: the LayerNorm biases, the
+// four product biases (wg is fc_in and wd fc_out; wu is unused) and the
+// bf16 LayerNorm rows xn (b, h).
 struct Stack {
   const bf16 *x_in, *ln1, *wqkv, *wo, *ln2, *wg, *wu, *wd;
   bf16* x_out;
@@ -536,6 +573,10 @@ struct Stack {
   bf16 *attn, *act;
   int L, b, h, nh, nkv, hd, ffn;
   float eps;
+  bool gpt = false;
+  const bf16 *ln1_b = nullptr, *bqkv = nullptr, *bo = nullptr,
+             *ln2_b = nullptr, *bg = nullptr, *bd = nullptr;
+  bf16* xn = nullptr;
 };
 
 // The attention half of layer l (K2's, K5's and K6's): qkv GEMM with the
@@ -555,16 +596,161 @@ cudaError_t attention_half(const Stack& a, int l, const KV& kv, float* rstd,
                                  nullptr, ws0, ws1, rstd, b, h, dqkv, a.eps,
                                  st);
   if (e != cudaSuccess) return e;
-  e = hd == 128 ? attn_hd<128>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
-      : hd == 64 ? attn_hd<64>(rep, a.qkv, kv, a.attn, b, a.nkv, scale, st)
-                 : cudaErrorInvalidValue;
+  e = attn_any<true>(hd, rep, a.qkv, kv, a.attn, b, a.nkv, scale, st);
   if (e != cudaSuccess) return e;
   return gemm<MODE_RESID>(nullptr, a.attn, nullptr, wol, nullptr, a.xf,
                           nullptr, ws0, ws1, rstd, b, dq, h, a.eps, st);
 }
 
+// ---------------------------------------------------------------------------
+// The gpt mode of K2 and K5 (the arch="gpt" branches of _fused_decode_pallas,
+// paddle_tpu/ops/fused_decode.py:645-660, :717-723, :865-873, :907-921, and
+// of _fused_paged_decode_pallas). Per layer, 11 launches as llama's:
+//   1. LayerNorm of the b rows into bf16 xn (ln1, ln1_b)
+//   2. qkv = xn @ wqkv, epilogue + bqkv (fp32)
+//   3. append + attention, no rope
+//   4. x += (attn @ wo + bo)
+//   5. LayerNorm into xn (ln2, ln2_b)
+//   6. act = bf16(gelu_tanh(xn @ wg + bg)), one weight (no up-projection)
+//   7. x = (x + act @ wd) + bd
+// The products are K2's register GEMM on its bf16-input path (RMS = false,
+// the path the o-proj and down products already take), so the GEMM's inner
+// loop has no third prologue. Bound: bytes, as llama's.
+// ---------------------------------------------------------------------------
+
+// LayerNorm of each fp32 row into bf16, one block per row: a two-pass fp32
+// mean and variance (E[x^2] - mean^2 loses digits on a residual stream with
+// a large mean), then bf16(bf16(bf16(y) * w) + b), the rounding of the plain
+// version's y.to(w.dtype) * w + b in bf16.
+__global__ void __launch_bounds__(GT)
+layernorm_rows_kernel(const float* __restrict__ xf,
+                      const bf16* __restrict__ lnw,
+                      const bf16* __restrict__ lnb, bf16* __restrict__ xn,
+                      int in, float eps) {
+  __shared__ float tmp[NWG];
+  const float* x = xf + (long)blockIdx.x * in;
+  float s = 0.f;
+  for (int k = threadIdx.x; k < in; k += GT) s += x[k];
+  const float mean = block_sum(s, tmp) / (float)in;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < in; k += GT) {
+    const float c = x[k] - mean;
+    ss += c * c;
+  }
+  const float rstd = 1.f / sqrtf(block_sum(ss, tmp) / (float)in + eps);
+  for (int k = threadIdx.x; k < in; k += GT) {
+    const float yw = bf16_round(bf16_round((x[k] - mean) * rstd) *
+                                __bfloat162float(lnw[k]));
+    xn[(long)blockIdx.x * in + k] =
+        __float2bfloat16(yw + __bfloat162float(lnb[k]));
+  }
+}
+
+// Sum the ks partials of each output in a fixed order, then add the
+// product's bias in MODE's place: qkv + b (fp32); the o-proj residual
+// x + (o + b) and the fc_out residual (x + d) + b (the reference's orders,
+// optionally writing x's bf16 copy); fc_in's bf16(gelu_tanh(g + b)) in fp32
+// with the reference's constant form 0.5 g (1 + tanh(sqrt(2/pi)(g +
+// 0.044715 g^3))).
+template <int MODE>
+__global__ void bias_epilogue_kernel(const float* __restrict__ ws, int ks,
+                                     int n, int out,
+                                     const bf16* __restrict__ bias,
+                                     float* __restrict__ yf,
+                                     bf16* __restrict__ yb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < ks; ++k) s += ws[(long)k * n + i];
+  const float bv = __bfloat162float(bias[i % out]);
+  if (MODE == MODE_QKV_B) {
+    yf[i] = s + bv;
+  } else if (MODE == MODE_ORES_B || MODE == MODE_FRES_B) {
+    const float nx = MODE == MODE_ORES_B ? yf[i] + (s + bv) : (yf[i] + s) + bv;
+    yf[i] = nx;
+    if (yb != nullptr) yb[i] = __float2bfloat16(nx);
+  } else {
+    const float g = s + bv;
+    const float c = 0.7978845608028654f;   // sqrt(2 / pi)
+    yb[i] = __float2bfloat16(
+        0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g))));
+  }
+}
+
+template <int MODE>
+cudaError_t bias_epilogue(const float* ws, int ks, int rows, int out,
+                          const bf16* bias, float* yf, bf16* yb,
+                          cudaStream_t st) {
+  const int n = rows * out;
+  bias_epilogue_kernel<MODE><<<(n + 255) / 256, 256, 0, st>>>(ws, ks, n, out,
+                                                              bias, yf, yb);
+  return cudaGetLastError();
+}
+
+// One skinny GEMM of the gpt mode: the split-K partials of the bf16 rows
+// xb (b, in) @ W (in, out) on K2's register GEMM, then MODE's bias epilogue.
+template <int MODE>
+cudaError_t gemm_bias(const bf16* xb, const bf16* w, const bf16* bias,
+                      float* yf, bf16* yb, float* ws, int b, int in, int out,
+                      cudaStream_t st) {
+  const int ks = ksplit(in, out);
+  if (b <= 1) partial_b<false, false, 1>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
+  else if (b <= 2) partial_b<false, false, 2>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
+  else if (b <= 4) partial_b<false, false, 4>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
+  else if (b <= 8) partial_b<false, false, 8>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
+  else return cudaErrorInvalidValue;
+  return bias_epilogue<MODE>(ws, ks, b, out, bias, yf, yb, st);
+}
+
+// Floats of the gpt mode's split-K workspace: the widest of its four
+// one-weight products' partial sums.
+long gws_layout(int b, int h, int dq, int dqkv, int ffn) {
+  const long p[4] = {(long)ksplit(h, dqkv) * b * dqkv,
+                     (long)ksplit(dq, h) * b * h,
+                     (long)ksplit(h, ffn) * b * ffn,
+                     (long)ksplit(ffn, h) * b * h};
+  long a = 0;
+  for (long v : p) a = v > a ? v : a;
+  return a;
+}
+
+// Layer l of the gpt mode over kv (steps 1-7 above) — 11 launches on `st`.
+template <class KV>
+cudaError_t gpt_layer(const Stack& a, int l, const KV& kv, cudaStream_t st) {
+  const int b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
+  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
+  const float scale = 1.f / sqrtf((float)hd);
+  float* ws = a.ws;
+  layernorm_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h,
+                                          a.ln1_b + (long)l * h, a.xn, h,
+                                          a.eps);
+  cudaError_t e = gemm_bias<MODE_QKV_B>(a.xn, a.wqkv + (long)l * h * dqkv,
+                                        a.bqkv + (long)l * dqkv, a.qkv,
+                                        nullptr, ws, b, h, dqkv, st);
+  if (e != cudaSuccess) return e;
+  e = attn_any<false>(hd, a.nh / a.nkv, a.qkv, kv, a.attn, b, a.nkv, scale,
+                      st);
+  if (e != cudaSuccess) return e;
+  e = gemm_bias<MODE_ORES_B>(a.attn, a.wo + (long)l * dq * h,
+                             a.bo + (long)l * h, a.xf, nullptr, ws, b, dq, h,
+                             st);
+  if (e != cudaSuccess) return e;
+  layernorm_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln2 + (long)l * h,
+                                          a.ln2_b + (long)l * h, a.xn, h,
+                                          a.eps);
+  e = gemm_bias<MODE_GELU_B>(a.xn, a.wg + (long)l * h * ffn,
+                             a.bg + (long)l * ffn, nullptr, a.act, ws, b, h,
+                             ffn, st);
+  if (e != cudaSuccess) return e;
+  return gemm_bias<MODE_FRES_B>(a.act, a.wd + (long)l * ffn * h,
+                                a.bd + (long)l * h, a.xf,
+                                l == a.L - 1 ? a.x_out : nullptr, ws, b, ffn,
+                                h, st);
+}
+
 // Per layer: the attention half over layer_kv(l), then gate/up and down —
-// 1 + 11L launches on `st`. Returns the first CUDA error.
+// 1 + 11L launches on `st` (the gpt mode: gpt_layer, also 11 a layer).
+// Returns the first CUDA error.
 template <class LayerKV>
 cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
   const int L = a.L, b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
@@ -578,6 +764,10 @@ cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
                                                            b * h);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
+    if (a.gpt) {
+      e = gpt_layer(a, l, layer_kv(l), st);
+      continue;
+    }
     const bf16* ln2l = a.ln2 + (long)l * h;
     const bf16* wgl = a.wg + (long)l * h * ffn;
     const bf16* wul = a.wu + (long)l * h * ffn;
@@ -942,10 +1132,11 @@ struct VerifyKV {
 };
 
 // The K1 appends of row bi, kv head g: rope k with each token's own rope
-// row, round k and v to bf16, write them through the table. Several idle
-// rows (tables all scratch) may write one scratch address: only their
-// thrown-away outputs can read it, as in K5.
-template <int HD>
+// row (ROPE; the gpt mode takes k as it is), round k and v to bf16, write
+// them through the table. Several idle rows (tables all scratch) may write
+// one scratch address: only their thrown-away outputs can read it, as in
+// K5.
+template <int HD, bool ROPE>
 __global__ void verify_append_kernel(const float* __restrict__ qkv,
                                      const VerifyKV kv, int K1, int nkv,
                                      int rep) {
@@ -955,11 +1146,15 @@ __global__ void verify_append_kernel(const float* __restrict__ qkv,
   for (int i = threadIdx.x; i < K1 * HD; i += blockDim.x) {
     const int j = i / HD, d = i % HD, m = bi * K1 + j;
     const float* kh = qkv + (long)m * dqkv + dq + g * HD;
-    const float* cr = kv.cos + (long)m * HD;
-    const float* sr = kv.sin + (long)m * HD;
-    const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
     bf16* dst = kv.append_row(bi, pos + j) + g * HD + d;
-    dst[0] = __float2bfloat16(kh[d] * cr[d] + rot * sr[d]);
+    if (ROPE) {
+      const float* cr = kv.cos + (long)m * HD;
+      const float* sr = kv.sin + (long)m * HD;
+      const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
+      dst[0] = __float2bfloat16(kh[d] * cr[d] + rot * sr[d]);
+    } else {
+      dst[0] = __float2bfloat16(kh[d]);
+    }
     dst[dkv] = __float2bfloat16(kh[dkv + d]);
   }
 }
@@ -973,10 +1168,11 @@ __global__ void verify_append_kernel(const float* __restrict__ qkv,
 // shared memory, as K5's kernel. A key is one dependent load: the row's
 // table sits in shared memory. The U keys' shuffle sums for all queries
 // are independent and interleave; each query then rescales once per U
-// keys and takes one fast exp (__expf, as K1) per key.
+// keys and takes one fast exp (__expf, as K1) per key. ROPE = false (the
+// gpt mode) takes q as it is.
 constexpr int VNW = 16;
 
-template <int HD, int QG>
+template <int HD, int QG, bool ROPE>
 __global__ void __launch_bounds__(VNW * 32)
 verify_attn_kernel(const float* __restrict__ qkv, const VerifyKV kv,
                    bf16* __restrict__ attn, int K1, int nkv, int rep,
@@ -1003,9 +1199,13 @@ verify_attn_kernel(const float* __restrict__ qkv, const VerifyKV kv,
     if (qi < nq) {
       const int q = q0 + qi, m = bi * K1 + q / rep;
       const float* qh = qkv + (long)m * dqkv + (g * rep + q % rep) * HD;
-      const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
-      val = (qh[d] * kv.cos[(long)m * HD + d] +
-             rot * kv.sin[(long)m * HD + d]) * scale;
+      if (ROPE) {
+        const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
+        val = (qh[d] * kv.cos[(long)m * HD + d] +
+               rot * kv.sin[(long)m * HD + d]) * scale;
+      } else {
+        val = qh[d] * scale;
+      }
     }
     qs[i] = val;
   }
@@ -1108,7 +1308,7 @@ verify_attn_kernel(const float* __restrict__ qkv, const VerifyKV kv,
   }
 }
 
-template <int HD, int QG>
+template <int HD, int QG, bool ROPE>
 cudaError_t verify_attn_group(const float* qkv, const VerifyKV& kv,
                               bf16* attn, int b, int K1, int nkv, int rep,
                               float scale, cudaStream_t st) {
@@ -1116,33 +1316,46 @@ cudaError_t verify_attn_group(const float* qkv, const VerifyKV& kv,
   static int opted_in = 0;  // above 48 KB needs the opt-in
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        verify_attn_kernel<HD, QG>,
+        verify_attn_kernel<HD, QG, ROPE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     opted_in = smem;
   }
   const int groups = (K1 * rep + QG - 1) / QG;
-  verify_attn_kernel<HD, QG><<<dim3(nkv, b, groups), VNW * 32, smem, st>>>(
-      qkv, kv, attn, K1, nkv, rep, scale);
+  verify_attn_kernel<HD, QG, ROPE>
+      <<<dim3(nkv, b, groups), VNW * 32, smem, st>>>(qkv, kv, attn, K1, nkv,
+                                                     rep, scale);
   return cudaGetLastError();
 }
 
 // The appends, then the attention with the query group sized to the row's
 // K1*rep queries (2, 4, 6 or 8 per block; more make several groups).
-template <int HD>
+template <int HD, bool ROPE>
 cudaError_t verify_attn_launch(const float* qkv, const VerifyKV& kv,
                                bf16* attn, int b, int K1, int nkv, int rep,
                                float scale, cudaStream_t st) {
-  verify_append_kernel<HD><<<dim3(nkv, b), 128, 0, st>>>(qkv, kv, K1, nkv,
-                                                         rep);
+  verify_append_kernel<HD, ROPE><<<dim3(nkv, b), 128, 0, st>>>(qkv, kv, K1,
+                                                               nkv, rep);
   const int nq = K1 * rep;
   if (nq <= 2)
-    return verify_attn_group<HD, 2>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+    return verify_attn_group<HD, 2, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
   if (nq <= 4)
-    return verify_attn_group<HD, 4>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+    return verify_attn_group<HD, 4, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
   if (nq <= 6)
-    return verify_attn_group<HD, 6>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
-  return verify_attn_group<HD, 8>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+    return verify_attn_group<HD, 6, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+  return verify_attn_group<HD, 8, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
+}
+
+// The verify attention of one layer at head_dim 64 or 128.
+template <bool ROPE>
+cudaError_t verify_attn_any(int hd, const float* qkv, const VerifyKV& kv,
+                            bf16* attn, int b, int K1, int nkv, int rep,
+                            float scale, cudaStream_t st) {
+  return hd == 128 ? verify_attn_launch<128, ROPE>(qkv, kv, attn, b, K1, nkv,
+                                                   rep, scale, st)
+         : hd == 64 ? verify_attn_launch<64, ROPE>(qkv, kv, attn, b, K1, nkv,
+                                                   rep, scale, st)
+                    : cudaErrorInvalidValue;
 }
 
 // Floats of verify workspace: the widest product's split-K partials, then
@@ -1161,6 +1374,7 @@ long vws_layout(int M, int h, int dq, int dqkv, int ffn, long* n0) {
   return a + up;
 }
 
+// K7's operands; the gpt mode's biases follow, null for llama (as Stack's).
 struct VStack {
   const bf16 *x_in, *ln1, *wqkv, *wo, *ln2, *wg, *wu, *wd;
   bf16* x_out;
@@ -1168,7 +1382,57 @@ struct VStack {
   bf16 *xn, *attn, *act;
   int L, b, K1, h, nh, nkv, hd, ffn;
   float eps;
+  bool gpt = false;
+  const bf16 *ln1_b = nullptr, *bqkv = nullptr, *bo = nullptr,
+             *ln2_b = nullptr, *bg = nullptr, *bd = nullptr;
 };
+
+// One verify product of the gpt mode: tensor-core partials, then MODE's
+// bias epilogue.
+template <int MODE>
+cudaError_t vgemm_bias(const bf16* A, const bf16* w, const bf16* bias,
+                       float* ws, float* yf, bf16* yb, int M, int in, int out,
+                       cudaStream_t st) {
+  cudaError_t e = tc_partial_rows(A, w, ws, M, in, out, st);
+  if (e != cudaSuccess) return e;
+  return bias_epilogue<MODE>(ws, vsplit(in, out).ks, M, out, bias, yf, yb,
+                             st);
+}
+
+// Layer l of K7's gpt mode: LayerNorm, qkv + bias, the appends and the
+// attention without rope, o-proj + bias, LayerNorm, fc_in + bias with the
+// GELU, fc_out + bias — 12 launches on `st`.
+cudaError_t verify_gpt_layer(const VStack& a, int l, const VerifyKV& kv,
+                             float* ws, cudaStream_t st) {
+  const int M = a.b * a.K1, h = a.h, hd = a.hd, ffn = a.ffn;
+  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
+  const float scale = 1.f / sqrtf((float)hd);
+  layernorm_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h,
+                                          a.ln1_b + (long)l * h, a.xn, h,
+                                          a.eps);
+  cudaError_t e = vgemm_bias<MODE_QKV_B>(a.xn, a.wqkv + (long)l * h * dqkv,
+                                         a.bqkv + (long)l * dqkv, ws, a.qkv,
+                                         nullptr, M, h, dqkv, st);
+  if (e != cudaSuccess) return e;
+  e = verify_attn_any<false>(hd, a.qkv, kv, a.attn, a.b, a.K1, a.nkv,
+                             a.nh / a.nkv, scale, st);
+  if (e != cudaSuccess) return e;
+  e = vgemm_bias<MODE_ORES_B>(a.attn, a.wo + (long)l * dq * h,
+                              a.bo + (long)l * h, ws, a.xf, nullptr, M, dq, h,
+                              st);
+  if (e != cudaSuccess) return e;
+  layernorm_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln2 + (long)l * h,
+                                          a.ln2_b + (long)l * h, a.xn, h,
+                                          a.eps);
+  e = vgemm_bias<MODE_GELU_B>(a.xn, a.wg + (long)l * h * ffn,
+                              a.bg + (long)l * ffn, ws, nullptr, a.act, M, h,
+                              ffn, st);
+  if (e != cudaSuccess) return e;
+  return vgemm_bias<MODE_FRES_B>(a.act, a.wd + (long)l * ffn * h,
+                                 a.bd + (long)l * h, ws, a.xf,
+                                 l == a.L - 1 ? a.x_out : nullptr, M, ffn, h,
+                                 st);
+}
 
 cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
                          const int* positions, const float* cosr,
@@ -1187,6 +1451,12 @@ cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
                                                            M * h);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
+    const VerifyKV kv{pool + (long)l * NB * BT * 2 * dkv, tables, positions,
+                      cosr, sinr, MB, BT, 2 * dkv};
+    if (a.gpt) {
+      e = verify_gpt_layer(a, l, kv, ws0, st);
+      continue;
+    }
     const bf16* wqkvl = a.wqkv + (long)l * h * dqkv;
     const bf16* wol = a.wo + (long)l * dq * h;
     const bf16* wgl = a.wg + (long)l * h * ffn;
@@ -1197,13 +1467,8 @@ cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
     e = vgemm<MODE_QKV>(a.xn, wqkvl, nullptr, ws0, ws1, a.qkv, nullptr, M, h,
                         dqkv, st);
     if (e != cudaSuccess) break;
-    const VerifyKV kv{pool + (long)l * NB * BT * 2 * dkv, tables, positions,
-                      cosr, sinr, MB, BT, 2 * dkv};
-    e = hd == 128 ? verify_attn_launch<128>(a.qkv, kv, a.attn, a.b, a.K1,
-                                            a.nkv, rep, scale, st)
-        : hd == 64 ? verify_attn_launch<64>(a.qkv, kv, a.attn, a.b, a.K1,
-                                            a.nkv, rep, scale, st)
-                   : cudaErrorInvalidValue;
+    e = verify_attn_any<true>(hd, a.qkv, kv, a.attn, a.b, a.K1, a.nkv, rep,
+                              scale, st);
     if (e != cudaSuccess) break;
     e = vgemm<MODE_RESID>(a.attn, wol, nullptr, ws0, ws1, a.xf, nullptr, M,
                           dq, h, st);
@@ -1555,6 +1820,28 @@ Stack make_stack(const void* x_in, void* x_out, const void* ln1,
                ffn,               eps};
 }
 
+// The gpt mode's Stack: the twelve stacks in build_fused_params_gpt's order
+// (ln1, ln1_b, wqkv, bqkv, wo, bo, ln2, ln2_b, wg, bg, wd, bd).
+Stack make_gpt_stack(const void* x_in, void* x_out, const void* ln1,
+                     const void* ln1_b, const void* wqkv, const void* bqkv,
+                     const void* wo, const void* bo, const void* ln2,
+                     const void* ln2_b, const void* wg, const void* bg,
+                     const void* wd, const void* bd, void* xf, void* xn,
+                     void* qkv, void* attn, void* act, void* ws, int L, int b,
+                     int h, int nh, int nkv, int hd, int ffn, float eps) {
+  Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, nullptr, wd, xf,
+                       qkv, attn, act, ws, L, b, h, nh, nkv, hd, ffn, eps);
+  a.gpt = true;
+  a.ln1_b = (const bf16*)ln1_b;
+  a.bqkv = (const bf16*)bqkv;
+  a.bo = (const bf16*)bo;
+  a.ln2_b = (const bf16*)ln2_b;
+  a.bg = (const bf16*)bg;
+  a.bd = (const bf16*)bd;
+  a.xn = (bf16*)xn;
+  return a;
+}
+
 }  // namespace
 
 extern "C" long fused_decode_llama_workspace(int b, int h, int nh, int nkv,
@@ -1681,4 +1968,91 @@ extern "C" int fused_decode_moe(
                   fs};
   return (int)moe_stack(a, m, (bf16*)kv, (const float*)cosr,
                         (const float*)sinr, S, pos, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The gpt mode's entry points (see the gpt section): K2, K5 and K7 with
+// LayerNorm + bias, biased products, no rope and the tanh-GELU FFN. The
+// stacks come in build_fused_params_gpt's order; no rope rows are taken.
+// Scratch as for the llama entry points plus xn (rows, h) bf16, the
+// LayerNorm rows; K2/K5's ws holds fused_decode_gpt_workspace floats, K7's
+// fused_paged_verify_llama_workspace floats (with nkv = the kv heads).
+// ---------------------------------------------------------------------------
+
+extern "C" long fused_decode_gpt_workspace(int b, int h, int nh, int nkv,
+                                           int hd, int ffn) {
+  return gws_layout(b, h, nh * hd, (nh + 2 * nkv) * hd, ffn);
+}
+
+// K2, gpt mode — one decode step through all L layers over the contiguous
+// cache (L, b, S, 2*nkv*hd), updated in place at `pos`; 1 + 11L launches.
+extern "C" int fused_decode_gpt(
+    const void* x_in, void* x_out, const void* ln1, const void* ln1_b,
+    const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+    const void* ln2, const void* ln2_b, const void* wg, const void* bg,
+    const void* wd, const void* bd, void* kv, void* xf, void* xn, void* qkv,
+    void* attn, void* act, void* ws, int L, int b, int h, int nh, int nkv,
+    int hd, int ffn, int S, int pos, float eps, void* stream) {
+  const Stack a = make_gpt_stack(x_in, x_out, ln1, ln1_b, wqkv, bqkv, wo, bo,
+                                 ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
+                                 attn, act, ws, L, b, h, nh, nkv, hd, ffn,
+                                 eps);
+  const int dkv2 = 2 * nkv * hd;
+  auto layer_kv = [=](int l) {
+    return ContigKV{(bf16*)kv + (long)l * b * S * dkv2, nullptr, nullptr, S,
+                    dkv2, pos};
+  };
+  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+}
+
+// K5, gpt mode — the same step over the paged pool (L, NB, BT, 2*nkv*hd)
+// through per-row block tables and positions read on the device; K2's
+// products and attention code, so K5 gives K2's bits at equal positions.
+extern "C" int fused_paged_decode_gpt(
+    const void* x_in, void* x_out, const void* ln1, const void* ln1_b,
+    const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+    const void* ln2, const void* ln2_b, const void* wg, const void* bg,
+    const void* wd, const void* bd, void* kv_pool, const void* tables,
+    const void* positions, void* xf, void* xn, void* qkv, void* attn,
+    void* act, void* ws, int L, int b, int h, int nh, int nkv, int hd,
+    int ffn, int NB, int BT, int MB, float eps, void* stream) {
+  const Stack a = make_gpt_stack(x_in, x_out, ln1, ln1_b, wqkv, bqkv, wo, bo,
+                                 ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
+                                 attn, act, ws, L, b, h, nh, nkv, hd, ffn,
+                                 eps);
+  const int dkv2 = 2 * nkv * hd;
+  auto layer_kv = [=](int l) {
+    return PagedKV{(bf16*)kv_pool + (long)l * NB * BT * dkv2,
+                   (const int*)tables, (const int*)positions, nullptr,
+                   nullptr, MB, BT, dkv2};
+  };
+  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+}
+
+// K7, gpt mode — one verify step for b rows of K1 tail tokens (M = b*K1 <=
+// 64) over the paged pool, appends at positions[bi] + j; 1 + 12L launches.
+extern "C" int fused_paged_verify_gpt(
+    const void* x_in, void* x_out, const void* ln1, const void* ln1_b,
+    const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+    const void* ln2, const void* ln2_b, const void* wg, const void* bg,
+    const void* wd, const void* bd, void* kv_pool, const void* tables,
+    const void* positions, void* xf, void* xn, void* qkv, void* attn,
+    void* act, void* ws, int L, int b, int K1, int h, int nh, int nkv,
+    int hd, int ffn, int NB, int BT, int MB, float eps, void* stream) {
+  VStack a{(const bf16*)x_in, (const bf16*)ln1, (const bf16*)wqkv,
+           (const bf16*)wo,   (const bf16*)ln2, (const bf16*)wg,
+           nullptr,           (const bf16*)wd,  (bf16*)x_out,
+           (float*)xf,        (float*)qkv,      (float*)ws,
+           (bf16*)xn,         (bf16*)attn,      (bf16*)act,
+           L, b, K1, h, nh, nkv, hd, ffn, eps};
+  a.gpt = true;
+  a.ln1_b = (const bf16*)ln1_b;
+  a.bqkv = (const bf16*)bqkv;
+  a.bo = (const bf16*)bo;
+  a.ln2_b = (const bf16*)ln2_b;
+  a.bg = (const bf16*)bg;
+  a.bd = (const bf16*)bd;
+  return (int)verify_stack(a, (bf16*)kv_pool, (const int*)tables,
+                           (const int*)positions, nullptr, nullptr, NB, BT,
+                           MB, (cudaStream_t)stream);
 }

@@ -145,7 +145,8 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
     total = prompt_len + max_new_tokens
     state = model.state_dict(include_buffers=False)
     plan = (model.fused_decode_plan(state, probe=True)
-            if flag("FLAGS_fused_decode") else None)
+            if flag("FLAGS_fused_decode")
+            and hasattr(model, "fused_decode_plan") else None)
     if plan is not None and b > plan.get("max_batch", b):
         plan = None     # e.g. MoE: no drops only while b <= capacity
     if plan is not None and torch.empty((), dtype=cache_dtype).element_size() != 2:

@@ -1,4 +1,5 @@
-"""GPT-2 (port of ``paddle_tpu/models/gpt.py``), single device, pretraining.
+"""GPT-2 (port of ``paddle_tpu/models/gpt.py``), single device: pretraining,
+generation and serving.
 
 Same module tree and attribute names as the reference (``gpt.wte``,
 ``gpt.h.0.attn.qkv_proj``, ``gpt.ln_f`` …), so the state keys are the JAX
@@ -9,8 +10,13 @@ them to XLA, outside any Pallas kernel); attention goes through
 ``F.scaled_dot_product_attention`` — on the card the flash-attention
 kernels, forward and backward.
 
-The no-cache forward only: GPT decode over a KV cache needs the dense-mask
-attention and the fused gpt decode arch (ROADMAP Queue B row 4).
+The cache forward (``init_cache``, ``cache=``/``start_pos=``) writes k/v at
+[start_pos, start_pos + s) in place and attends the filled prefix: the
+reference's dense mask ``k_pos <= q_pos`` goes to the kernel as a causal
+offset and a kv length, as in the port's Llama. ``fused_decode_plan`` is
+the fused decode step's gpt arch (``ops.fused_decode``; the gpt modes of
+the decode kernels on the card). Positions index the learned table ``wpe``:
+callers keep every position below ``max_position_embeddings``.
 """
 
 import dataclasses
@@ -24,6 +30,7 @@ from paddle_tpu_torch.core import rng as rng_mod
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as init
+from paddle_tpu_torch.ops import tied_unembed
 
 
 @dataclasses.dataclass
@@ -55,13 +62,6 @@ class GPTConfig:
         return self.intermediate_size or 4 * self.hidden_size
 
 
-def _no_cache(cache):
-    if cache is not None:
-        raise NotImplementedError(
-            "GPT decode over a KV cache is not ported yet (ROADMAP Queue B "
-            "row 4, arch='gpt')")
-
-
 class GPTAttention(nn.Layer):
     def __init__(self, cfg: GPTConfig, **kw):
         super().__init__()
@@ -74,13 +74,23 @@ class GPTAttention(nn.Layer):
         self.head_dim = h // nh
         self.attn_dropout = cfg.attention_dropout_prob
 
-    def forward(self, x):
+    def forward(self, x, cache=None, start_pos=0):
         b, s, h = x.shape
         q, k, v = self.qkv_proj(x).split(h, dim=-1)
         shape = (b, s, self.num_heads, self.head_dim)
+        q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
+        if cache is not None:
+            # append at [start_pos, start_pos + s) in place, attend the
+            # filled prefix (the reference's mask k_pos <= q_pos)
+            cache["k"][:, start_pos:start_pos + s] = k.to(cache["k"].dtype)
+            cache["v"][:, start_pos:start_pos + s] = v.to(cache["v"].dtype)
+            out = F.scaled_dot_product_attention(
+                q, cache["k"], cache["v"], is_causal=True,
+                causal_offset=start_pos, kv_lens=start_pos + s,
+                training=False)
+            return self.out_proj(out.reshape(b, s, h)), cache
         out = F.scaled_dot_product_attention(
-            q.reshape(shape), k.reshape(shape), v.reshape(shape),
-            is_causal=True, dropout_p=self.attn_dropout,
+            q, k, v, is_causal=True, dropout_p=self.attn_dropout,
             training=self.training)
         return self.out_proj(out.reshape(b, s, h))
 
@@ -103,7 +113,14 @@ class GPTBlock(nn.Layer):
                                     / math.sqrt(2 * cfg.num_layers)), **kw)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, start_pos=0):
+        if cache is not None:
+            attn, cache = self.attn(self.ln_1(x), cache=cache,
+                                    start_pos=start_pos)
+            x = x + attn
+            x = x + self.fc_out(F.gelu(self.fc_in(self.ln_2(x)),
+                                       approximate=True))
+            return x, cache
         x = x + self.dropout(self.attn(self.ln_1(x)))
         return x + self.dropout(self.fc_out(F.gelu(self.fc_in(self.ln_2(x)),
                                                    approximate=True)))
@@ -126,10 +143,16 @@ class GPTModel(nn.Layer):
                                  dtype=kw["dtype"], device=kw["device"])
 
     def forward(self, input_ids, cache=None, start_pos=0):
-        _no_cache(cache)
         s = input_ids.shape[1]
-        pos = torch.arange(s, device=input_ids.device)[None, :]
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        pos = start_pos + torch.arange(s, device=input_ids.device)[None, :]
+        x = self.wte(input_ids) + self.wpe(pos)
+        if cache is not None:
+            new_cache = []
+            for i, block in enumerate(self.h):
+                x, c = block(x, cache=cache[i], start_pos=start_pos)
+                new_cache.append(c)
+            return self.ln_f(x), new_cache
+        x = self.drop(x)
         for block in self.h:
             x = block(x)
         return self.ln_f(x)
@@ -158,11 +181,66 @@ class GPTPretrainModel(nn.Layer):
                                      bias_attr=False, **kw)
 
     def forward(self, input_ids, cache=None, start_pos=0):
-        _no_cache(cache)
-        x = self.gpt(input_ids)
+        if cache is not None:
+            x, cache = self.gpt(input_ids, cache=cache, start_pos=start_pos)
+            return self._head(x), cache
+        return self._head(self.gpt(input_ids))
+
+    def _head(self, x):
         if self.cfg.tie_word_embeddings:
-            return torch.matmul(x, self.gpt.wte.weight.T)
+            return tied_unembed(x, self.gpt.wte.weight)
         return self.lm_head(x)
+
+    def init_cache(self, batch_size, max_len, dtype=torch.bfloat16):
+        """Preallocated KV cache: one {'k','v'} pair of (b, max_len, nh, hd)
+        buffers per layer, on the model's device."""
+        cfg = self.cfg
+        shape = (batch_size, max_len, cfg.num_heads,
+                 cfg.hidden_size // cfg.num_heads)
+        dev = self.device
+        return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                for _ in range(cfg.num_layers)]
+
+    def fused_decode_plan(self, state, probe=False):
+        """Plan of the fused decode step, gpt arch (``ops.fused_decode``
+        arch="gpt": LayerNorm with bias, MHA, biases on all four products,
+        tanh-GELU FFN, no rope): stacked per-layer weights plus embed/head
+        closures, or None when this config cannot ride it (odd head_dim,
+        non-standard state). ``rope_base`` is meta only: the gpt step takes
+        no rope. With probe=True only eligibility and static meta are
+        computed."""
+        cfg = self.cfg
+        hd = cfg.hidden_size // cfg.num_heads
+        if hd % 2 or "gpt.h.0.attn.qkv_proj.weight" not in state:
+            return None
+        from paddle_tpu_torch.ops import fused_decode as fd
+        h = cfg.hidden_size
+        blocks = fd.decode_block_plan(h, 3 * h, h, hd, cfg.ffn_size)
+        meta = {
+            "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_heads,
+            "head_dim": hd, "eps": cfg.layer_norm_epsilon,
+            "rope_base": 10000.0, "arch": "gpt", "blocks": blocks,
+        }
+        if probe:
+            return meta
+        params = fd.build_fused_params_gpt(state, cfg.num_layers)
+        wte = state["gpt.wte.weight"]
+        wpe = state["gpt.wpe.weight"]
+        lnf_w = state["gpt.ln_f.weight"]
+        lnf_b = state["gpt.ln_f.bias"]
+        eps = cfg.layer_norm_epsilon
+
+        def embed(tok, pos):      # (b,), scalar or (b,) -> (b, h)
+            return wte[tok] + wpe[pos]
+
+        def head(x):              # (b, h) -> (b, vocab)
+            xn = F.layer_norm(x, (h,), lnf_w, lnf_b, eps)
+            if cfg.tie_word_embeddings:
+                return tied_unembed(xn, wte)
+            return torch.matmul(xn, state["lm_head.weight"])
+
+        return dict(meta, params=params, embed=embed, head=head)
 
     def loss(self, logits, labels):
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),

@@ -401,6 +401,9 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     if needs_grad:
         return FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
                                     causal_offset)
-    return flash_attention_fwd(q, k, v, is_causal=is_causal, scale=scale,
-                               kv_lens=kv_lens,
+    # the kernel takes contiguous tensors: GPT's qkv split gives strided
+    # views (a no-op copy for the rest, as in FlashAttention)
+    return flash_attention_fwd(q.contiguous(), k.contiguous(),
+                               v.contiguous(), is_causal=is_causal,
+                               scale=scale, kv_lens=kv_lens,
                                causal_offset=causal_offset)[0]

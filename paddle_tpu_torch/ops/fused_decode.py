@@ -1,15 +1,21 @@
-"""Fused decode step — the fused_multi_transformer analog, llama arch.
+"""Fused decode step — the fused_multi_transformer analog, llama and gpt
+archs.
 
 Port of ``paddle_tpu/ops/fused_decode.py`` for the contiguous KV cache and
 the paged pool:
 
 * ``build_fused_params`` — stack a llama state dict into per-layer arrays
-  {ln1, wqkv, wo, ln2, wg, wu, wd} (q|k|v fused along the output dim).
-* ``fused_decode_reference`` — the plain version, llama arch.
+  {ln1, wqkv, wo, ln2, wg, wu, wd} (q|k|v fused along the output dim);
+  ``build_fused_params_gpt`` — a GPT state dict into {ln1, ln1_b, wqkv,
+  bqkv, wo, bo, ln2, ln2_b, wg, bg, wd, bd}.
+* ``fused_decode_reference`` — the plain version, arch llama, gpt
+  (LayerNorm with bias, biases on all four products, no rope, tanh-GELU
+  FFN without an up-projection) or moe.
 * ``fused_decode_step`` — the dispatch: CPU tensors take the plain version,
   CUDA tensors the hand-written kernel ``csrc/fused_decode.cu`` (K2,
   replaces the TPU kernel ``_fused_decode_pallas``,
-  ``paddle_tpu/ops/fused_decode.py:555``).
+  ``paddle_tpu/ops/fused_decode.py:555``; its gpt mode the same kernel's
+  ``fused_decode_gpt``).
 * ``paged_pool_shape``, ``fused_paged_decode_reference``,
   ``fused_paged_decode_step`` — the same step over the serving engine's
   paged pool (L, NB, BT, 2*nkv*hd) through per-row block tables and
@@ -28,6 +34,8 @@ the paged pool:
   replaces ``_fused_decode_moe_pallas``, :1049).
 * ``decode_block_plan`` — kept for its ``ffn_pad`` key only.
 
+K5 and K7 take arch llama and gpt, as the reference's paged steps do.
+
 The KV cache is COMBINED and FLAT, (L, b, S, 2*nkv*hd) with k in lanes
 [0, nkv*hd). Unlike the JAX functions, every version here updates the cache
 or pool in place (a 7B cache is gigabytes) and returns it.
@@ -36,7 +44,8 @@ RoPE: both versions take the cos/sin row of ``pos`` from ``rope_cos_sin``,
 as ``fused_decode_reference`` does, so rope costs the kernel no tolerance
 against the plain version. (The TPU kernel derives the angles in-kernel,
 ``fused_decode.py:729-736``, which agrees with the table to a few ulp of the
-angle.)
+angle.) The gpt arch takes no rope: its cos/sin arguments are ignored and
+may be None.
 """
 
 import ctypes
@@ -90,6 +99,22 @@ def build_fused_params(state: Dict[str, torch.Tensor], num_layers: int,
     return out
 
 
+def build_fused_params_gpt(state: Dict[str, torch.Tensor], num_layers: int,
+                           prefix: str = "gpt.h.") -> Dict[str, torch.Tensor]:
+    """GPT-block stacks (reference ``fused_decode.py:288``): LayerNorm scale
+    and bias, the qkv weight already packed (L, h, 3h) as q|k|v, biases on
+    every product, one GELU FFN (wg = fc_in, wd = fc_out, no wu)."""
+    g = lambda i, n: state[f"{prefix}{i}.{n}"]
+    names = {"ln1": "ln_1.weight", "ln1_b": "ln_1.bias",
+             "wqkv": "attn.qkv_proj.weight", "bqkv": "attn.qkv_proj.bias",
+             "wo": "attn.out_proj.weight", "bo": "attn.out_proj.bias",
+             "ln2": "ln_2.weight", "ln2_b": "ln_2.bias",
+             "wg": "fc_in.weight", "bg": "fc_in.bias",
+             "wd": "fc_out.weight", "bd": "fc_out.bias"}
+    return {k: torch.stack([g(i, n) for i in range(num_layers)])
+            for k, n in names.items()}
+
+
 def build_fused_params_moe(state: Dict[str, torch.Tensor], num_layers: int,
                            prefix: str = "model.layers."
                            ) -> Dict[str, torch.Tensor]:
@@ -132,6 +157,16 @@ def _rms(x, w, eps):
     return y.to(w.dtype) * w
 
 
+def _layernorm(x, w, b, eps):
+    """Two-pass fp32 mean and variance, normalise, cast to w.dtype, then
+    ``* w + b`` in w's dtype (the reference's ``_layernorm``, :377)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(w.dtype) * w + b
+
+
 def _rope1(x, cos, sin):
     """x (b, n, hd) fp32; cos/sin (1, 1, hd)."""
     hd = x.shape[-1]
@@ -148,14 +183,16 @@ def _wdot(act, w):
 
 
 def _refuse_unported(arch, params, kv_scales, row="4"):
-    """The contiguous step (row 4) takes arch llama and moe (row 7), the
-    paged ones llama only; none takes int8 weights or int8 KV yet."""
-    if arch == "moe" and row == "4":
-        row = "7"
-    elif arch != "llama":
+    """The contiguous step (row 4) takes arch llama, gpt and moe (row 7),
+    the paged ones llama and gpt, as the reference's; none takes int8
+    weights or int8 KV yet."""
+    archs = ("llama", "gpt", "moe") if row == "4" else ("llama", "gpt")
+    if arch not in archs:
         raise NotImplementedError(
-            f"fused decode arch={arch!r} is not ported yet (ROADMAP Queue B "
-            f"row {row})")
+            f"fused decode (ROADMAP Queue B row {row}) takes arch "
+            f"{'/'.join(archs)}, got {arch!r}")
+    if arch == "moe":
+        row = "7"
     if kv_scales is not None or "wqkv_s" in params:
         raise NotImplementedError(
             f"fused decode arch={arch!r} with int8 weights or int8 KV is not "
@@ -182,6 +219,51 @@ def _mlp_residual(xf, params, l, eps, dtype):
     u = _wdot(xn2, params["wu"][l])
     act = (torch.nn.functional.silu(gt) * u).to(dtype)
     return xf + _wdot(act, params["wd"][l])
+
+
+def _qkv_heads(xf, params, l, eps, cos_b, sin_b, nh, nkv, arch):
+    """The attention input of layer l, what the contiguous, paged and verify
+    versions share: the first norm (LayerNorm with bias for gpt, RMSNorm
+    otherwise), the qkv product (+ its bias for gpt), and rope on q and k
+    (not for gpt). Returns q (b, nh, hd) and the append (b, 2·nkv·hd),
+    fp32."""
+    gpt = arch == "gpt"
+    if gpt:
+        xn = _layernorm(xf, params["ln1"][l], params["ln1_b"][l], eps)
+    else:
+        xn = _rms(xf, params["ln1"][l], eps)
+    qkv = _wdot(xn, params["wqkv"][l])
+    if gpt:
+        qkv = qkv + params["bqkv"][l]
+    b = xf.shape[0]
+    hd = qkv.shape[1] // (nh + 2 * nkv)
+    dq, dkv = nh * hd, nkv * hd
+    q = qkv[:, :dq].reshape(b, nh, hd)
+    k = qkv[:, dq:dq + dkv].reshape(b, nkv, hd)
+    v = qkv[:, dq + dkv:].reshape(b, nkv, hd)
+    if not gpt:
+        q = _rope1(q, cos_b, sin_b)
+        k = _rope1(k, cos_b, sin_b)
+    return q, torch.cat([k.reshape(b, dkv), v.reshape(b, dkv)], dim=-1)
+
+
+def _layer_tail(xf, attn, params, l, eps, dtype, arch, top_k=2,
+                routing=None):
+    """What follows the attention in layer l, shared like ``_qkv_heads``:
+    the o-proj residual, then the FFN residual. gpt keeps the reference's
+    order, ``xf + (o + bo)`` and ``(xf + fc_out) + bd``, with a tanh-GELU
+    of ``fc_in + bg``; llama the SwiGLU, moe the routed experts."""
+    o = _wdot(attn, params["wo"][l])
+    if arch == "gpt":
+        xf = xf + (o + params["bo"][l])
+        xn2 = _layernorm(xf, params["ln2"][l], params["ln2_b"][l], eps)
+        g = _wdot(xn2, params["wg"][l]) + params["bg"][l]
+        act = torch.nn.functional.gelu(g, approximate="tanh").to(dtype)
+        return xf + _wdot(act, params["wd"][l]) + params["bd"][l]
+    xf = xf + o
+    if arch == "moe":
+        return _moe_residual(xf, params, l, eps, dtype, top_k, routing)
+    return _mlp_residual(xf, params, l, eps, dtype)
 
 
 def moe_route(xn2, gate_l, top_k, force=None):
@@ -241,6 +323,13 @@ def _moe_residual(xf, params, l, eps, dtype, top_k, routing):
     return xf
 
 
+def _rope_rows(cos, sin, b, hd, arch):
+    """cos/sin as (b, 1, hd) fp32 rows, or (None, None) for gpt (no rope)."""
+    if arch == "gpt":
+        return None, None
+    return (cos.reshape(b, 1, hd).float(), sin.reshape(b, 1, hd).float())
+
+
 def _stack_routing(routing):
     """Per-layer routing lists → (L, b, k) / (L, b) tensors, in place."""
     if routing is not None and "ids" in routing:
@@ -259,7 +348,9 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
     kv_cache). Residual stream fp32, attention over [0, pos] only, softmax
     fp32 — the reference's numerics (``fused_decode.py:406``).
 
-    arch="moe" (params of ``build_fused_params_moe``): the FFN is the
+    arch="gpt" (params of ``build_fused_params_gpt``): LayerNorm with bias,
+    biases on the four products, no rope (cos/sin are ignored), a tanh-GELU
+    FFN. arch="moe" (params of ``build_fused_params_moe``): the FFN is the
     top-``top_k`` routed experts plus the shared experts when present. A
     dict given as ``routing`` receives the router's per-layer ids (L, b, k),
     weights (L, b, k), k-th-to-(k+1)-th probability gaps (L, b) and
@@ -271,36 +362,32 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
     hd = dkv // nkv
-    dq = nh * hd
     dtype = x.dtype
     scale = 1.0 / math.sqrt(hd)
-    cos_b = cos.reshape(1, 1, hd).float()
-    sin_b = sin.reshape(1, 1, hd).float()
+    cos_b, sin_b = _rope_rows(cos, sin, 1, hd, arch)
     valid = torch.arange(S, device=x.device)[None, None, None] <= pos
     xf = x.float()
     for l in range(L):
-        xn = _rms(xf, params["ln1"][l], eps)
-        qkv = _wdot(xn, params["wqkv"][l])
-        q = qkv[:, :dq].reshape(b, nh, hd)
-        k = qkv[:, dq:dq + dkv].reshape(b, nkv, hd)
-        v = qkv[:, dq + dkv:].reshape(b, nkv, hd)
-        q = _rope1(q, cos_b, sin_b)
-        k = _rope1(k, cos_b, sin_b)
-        kv_new = torch.cat([k.reshape(b, dkv), v.reshape(b, dkv)], dim=-1)
+        q, kv_new = _qkv_heads(xf, params, l, eps, cos_b, sin_b, nh, nkv,
+                               arch)
         kv_cache[l, :, pos] = kv_new.to(kv_cache.dtype)
         kl = kv_cache[l, :, :, :dkv].float().reshape(b, S, nkv, hd)
         vl = kv_cache[l, :, :, dkv:].float().reshape(b, S, nkv, hd)
         attn = _attend(q, kl, vl, valid, scale).to(dtype)
-        xf = xf + _wdot(attn, params["wo"][l])
-        if arch == "moe":
-            xf = _moe_residual(xf, params, l, eps, dtype, top_k, routing)
-        else:
-            xf = _mlp_residual(xf, params, l, eps, dtype)
+        xf = _layer_tail(xf, attn, params, l, eps, dtype, arch, top_k,
+                         routing)
     _stack_routing(routing)
     return xf.to(dtype), kv_cache
 
 
 _PARAM_KEYS = ("ln1", "wqkv", "wo", "ln2", "wg", "wu", "wd")
+#: the gpt stacks, in the order the kernels' gpt entry points take them
+_GPT_KEYS = ("ln1", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2", "ln2_b",
+             "wg", "bg", "wd", "bd")
+
+
+def _keys(arch):
+    return _GPT_KEYS if arch == "gpt" else _PARAM_KEYS
 
 
 def _check_tensors(what, specs, device):
@@ -323,10 +410,11 @@ def _check_tensors(what, specs, device):
 
 
 def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
-                 max_rows=8):
-    """What K2, K5 and K7 share: x (rows, h), the stacked weights and the
-    cache (contiguous or paged; its last dim is 2·nkv·hd) in bf16, and the
-    shapes the kernels take. Returns (check specs, (b, h, hd, ffn))."""
+                 max_rows=8, arch="llama"):
+    """What K2, K5 and K7 share: x (rows, h), the stacked weights of `arch`
+    (llama or gpt) and the cache (contiguous or paged; its last dim is
+    2·nkv·hd) in bf16, and the shapes the kernels take. Returns (check
+    specs, (b, h, hd, ffn))."""
     L, dkv2 = cache.shape[0], cache.shape[-1]
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
@@ -347,57 +435,81 @@ def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
                          "multiples of 8")
     shapes = {"ln1": (L, h), "wqkv": (L, h, dq + 2 * dkv), "wo": (L, dq, h),
               "ln2": (L, h), "wg": (L, h, ffn), "wu": (L, h, ffn),
-              "wd": (L, ffn, h)}
+              "wd": (L, ffn, h), "ln1_b": (L, h), "bqkv": (L, dq + 2 * dkv),
+              "bo": (L, h), "ln2_b": (L, h), "bg": (L, ffn), "bd": (L, h)}
     bf = torch.bfloat16
     specs = [("x", x, bf, (b, h)), ("cache", cache, bf, cache.shape)]
-    specs += [(k, params[k], bf, shapes[k]) for k in _PARAM_KEYS]
+    specs += [(k, params[k], bf, shapes[k]) for k in _keys(arch)]
     return specs, (b, h, hd, ffn)
 
 
-def _scratch(lib, x, nh, nkv, hd, ffn):
-    """x_out and the step's scratch (xf, qkv, attn, act, split-K ws)."""
+def _rope_specs(cos, sin, shape, arch):
+    """The rope rows' check specs: none for gpt, whose kernels take none."""
+    if arch == "gpt":
+        return []
+    return [("cos", cos, torch.float32, shape),
+            ("sin", sin, torch.float32, shape)]
+
+
+def _scratch(lib, x, nh, nkv, hd, ffn, arch):
+    """x_out and the step's scratch: xf, [xn (gpt: the LayerNorm rows)],
+    qkv, attn, act, split-K ws."""
     b, h = x.shape
     dq, dkv = nh * hd, nkv * hd
     dev = x.device
-    return (torch.empty_like(x),
-            torch.empty((b, h), dtype=torch.float32, device=dev),
-            torch.empty((b, dq + 2 * dkv), dtype=torch.float32, device=dev),
-            torch.empty((b, dq), dtype=torch.bfloat16, device=dev),
-            torch.empty((b, ffn), dtype=torch.bfloat16, device=dev),
-            torch.empty(lib.fused_decode_llama_workspace(b, h, nh, nkv, hd,
-                                                         ffn),
-                        dtype=torch.float32, device=dev))
+    f32, bf = torch.float32, torch.bfloat16
+    xn = [torch.empty((b, h), dtype=bf, device=dev)] if arch == "gpt" else []
+    ws = (lib.fused_decode_gpt_workspace(b, h, nh, nkv, hd, ffn)
+          if arch == "gpt" else
+          lib.fused_decode_llama_workspace(b, h, nh, nkv, hd, ffn))
+    return (torch.empty_like(x), torch.empty((b, h), dtype=f32, device=dev),
+            *xn, torch.empty((b, dq + 2 * dkv), dtype=f32, device=dev),
+            torch.empty((b, dq), dtype=bf, device=dev),
+            torch.empty((b, ffn), dtype=bf, device=dev),
+            torch.empty(ws, dtype=f32, device=dev))
+
+
+def _check_arch(what, arch):
+    if arch not in ("llama", "gpt"):
+        raise ValueError(f"{what}: arch {arch!r} (llama|gpt)")
 
 
 def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
-                      num_kv_heads: int, eps: float = 1e-5):
+                      num_kv_heads: int, eps: float = 1e-5,
+                      arch: str = "llama"):
     """Wrapper of K2 (one call = one decode step through all L layers,
-    1 + 11L launches on the current stream). Checks dtype, shape,
-    contiguity and device and raises on anything else."""
+    1 + 11L launches on the current stream), arch llama
+    (``fused_decode_llama``) or gpt (``fused_decode_gpt``, which takes no
+    rope: cos/sin are ignored). Checks dtype, shape, contiguity and device
+    and raises on anything else."""
     what = "fused_decode_cuda"
+    _check_arch(what, arch)
     specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_cache,
-                                          num_heads, num_kv_heads)
+                                          num_heads, num_kv_heads, arch=arch)
     L, S = kv_cache.shape[0], kv_cache.shape[2]
     if kv_cache.dim() != 4 or kv_cache.shape[1] != b:
         raise ValueError(f"{what}: cache {tuple(kv_cache.shape)} is not "
                          f"(L, {b}, S, 2*nkv*hd)")
-    cos = cos.reshape(hd)
-    sin = sin.reshape(hd)
-    _check_tensors(what, specs + [("cos", cos, torch.float32, (hd,)),
-                                  ("sin", sin, torch.float32, (hd,))],
+    rope = []
+    if arch != "gpt":
+        cos, sin = cos.reshape(hd), sin.reshape(hd)
+        rope = [cos, sin]
+    _check_tensors(what, specs + _rope_specs(cos, sin, (hd,), arch),
                    x.device)
     pos = int(pos)
     if not 0 <= pos < S:
         raise ValueError(f"{what}: pos {pos} outside the cache length {S}")
     lib = _kernel_lib()
-    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn)
+    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn,
+                               arch)
     p = _build.ptr
-    err = lib.fused_decode_llama(
-        p(x), p(x_out), *(p(params[k]) for k in _PARAM_KEYS), p(kv_cache),
-        p(cos), p(sin), *(p(t) for t in scratch), L, b, h, num_heads,
-        num_kv_heads, hd, ffn, S, pos, float(eps), _build.stream_of(x))
+    fn = lib.fused_decode_gpt if arch == "gpt" else lib.fused_decode_llama
+    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)),
+             p(kv_cache), *(p(t) for t in rope), *(p(t) for t in scratch),
+             L, b, h, num_heads, num_kv_heads, hd, ffn, S, pos, float(eps),
+             _build.stream_of(x))
     fused_decode_cuda.launches += 1
-    _build.check(err, "fused_decode_llama")
+    _build.check(err, f"fused_decode_{arch}")
     return x_out, kv_cache
 
 
@@ -517,6 +629,18 @@ def _kernel_lib():
         mws = lib.fused_decode_moe_workspace
         mws.argtypes = [ci] * 8
         mws.restype = ctypes.c_long
+        gfn = lib.fused_decode_gpt
+        gfn.argtypes = [vp] * 21 + [ci] * 9 + [ctypes.c_float, vp]
+        gfn.restype = ctypes.c_int
+        gpfn = lib.fused_paged_decode_gpt
+        gpfn.argtypes = [vp] * 23 + [ci] * 10 + [ctypes.c_float, vp]
+        gpfn.restype = ctypes.c_int
+        gvfn = lib.fused_paged_verify_gpt
+        gvfn.argtypes = [vp] * 23 + [ci] * 11 + [ctypes.c_float, vp]
+        gvfn.restype = ctypes.c_int
+        gws = lib.fused_decode_gpt_workspace
+        gws.argtypes = [ci] * 6
+        gws.restype = ctypes.c_long
     return lib
 
 
@@ -524,8 +648,8 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
                       num_heads: int, num_kv_heads: int, eps: float = 1e-5,
                       arch: str = "llama", top_k: int = 2,
                       blocks: Optional[Dict] = None, kv_scales=None):
-    """Dispatch: the CUDA kernel on CUDA tensors (K2 for arch llama, K6 for
-    arch moe), the plain version on CPU tensors. Args follow
+    """Dispatch: the CUDA kernel on CUDA tensors (K2 for arch llama and
+    gpt, K6 for arch moe), the plain version on CPU tensors. Args follow
     fused_decode_reference; ``top_k`` applies to arch moe only; ``blocks``
     is checked against the cache dtype."""
     _refuse_unported(arch, params, kv_scales)
@@ -539,7 +663,8 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
     if arch == "moe":
         return fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin,
                                      **kw)
-    return fused_decode_cuda(x, params, kv_cache, pos, cos, sin, **kw)
+    return fused_decode_cuda(x, params, kv_cache, pos, cos, sin, arch=arch,
+                             **kw)
 
 
 def _check_plan(blocks, cache):
@@ -602,12 +727,12 @@ def fused_paged_decode_reference(x, params, kv_pool, block_tables, positions,
     pos = positions.to(x.device, torch.long)
     app_bid = torch.gather(tables, 1, (pos // BT)[:, None])[:, 0]
     x_out = _paged_token(x, params, kv_pool, tables, pos, app_bid, pos % BT,
-                         cos, sin, num_heads, num_kv_heads, eps)
+                         cos, sin, num_heads, num_kv_heads, eps, arch)
     return x_out, kv_pool
 
 
 def _paged_token(x, params, kv_pool, tables, pos, app_bid, app_off, cos,
-                 sin, nh, nkv, eps):
+                 sin, nh, nkv, eps, arch):
     """One token row block (b, h) through every layer over the paged pool:
     the body of ``fused_paged_decode_reference``, which the verify twin
     runs once per tail token. tables (b, MB) and pos (b,) are long tensors
@@ -618,64 +743,60 @@ def _paged_token(x, params, kv_pool, tables, pos, app_bid, app_off, cos,
     S = MB * BT
     dkv = dkv2 // 2
     hd = dkv // nkv
-    dq = nh * hd
     dtype = x.dtype
     scale = 1.0 / math.sqrt(hd)
     dev = x.device
-    cos_b = cos.reshape(b, 1, hd).float()
-    sin_b = sin.reshape(b, 1, hd).float()
+    cos_b, sin_b = _rope_rows(cos, sin, b, hd, arch)
     valid = (torch.arange(S, device=dev)[None] <= pos[:, None])[:, None, None]
     xf = x.float()
     for l in range(L):
-        xn = _rms(xf, params["ln1"][l], eps)
-        qkv = _wdot(xn, params["wqkv"][l])
-        q = qkv[:, :dq].reshape(b, nh, hd)
-        k = qkv[:, dq:dq + dkv].reshape(b, nkv, hd)
-        v = qkv[:, dq + dkv:].reshape(b, nkv, hd)
-        q = _rope1(q, cos_b, sin_b)
-        k = _rope1(k, cos_b, sin_b)
-        kv_new = torch.cat([k.reshape(b, dkv), v.reshape(b, dkv)], dim=-1)
+        q, kv_new = _qkv_heads(xf, params, l, eps, cos_b, sin_b, nh, nkv,
+                               arch)
         kv_pool[l, app_bid, app_off] = kv_new.to(kv_pool.dtype)
         kvl = kv_pool[l][tables].reshape(b, S, dkv2)
         kl = kvl[:, :, :dkv].float().reshape(b, S, nkv, hd)
         vl = kvl[:, :, dkv:].float().reshape(b, S, nkv, hd)
         attn = _attend(q, kl, vl, valid, scale).to(dtype)
-        xf = xf + _wdot(attn, params["wo"][l])
-        xf = _mlp_residual(xf, params, l, eps, dtype)
+        xf = _layer_tail(xf, attn, params, l, eps, dtype, arch)
     return xf.to(dtype)
 
 
 def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
                             sin, *, num_heads: int, num_kv_heads: int,
-                            eps: float = 1e-5):
+                            eps: float = 1e-5, arch: str = "llama"):
     """Wrapper of K5 (one call = one decode step through all L layers over
-    the paged pool, 1 + 11L launches on the current stream). Checks dtype,
-    shape, contiguity and device and raises on anything else. Positions
-    and tables are read on the device, never on the host: the caller keeps
-    every position below MB·BT."""
+    the paged pool, 1 + 11L launches on the current stream), arch llama or
+    gpt (no rope: cos/sin are ignored). Checks dtype, shape, contiguity and
+    device and raises on anything else. Positions and tables are read on
+    the device, never on the host: the caller keeps every position below
+    MB·BT."""
     what = "fused_paged_decode_cuda"
+    _check_arch(what, arch)
     if kv_pool.dim() != 4 or block_tables.dim() != 2:
         raise ValueError(f"{what}: pool {tuple(kv_pool.shape)} must be "
                          "(L, NB, BT, 2*nkv*hd) and block_tables (b, MB)")
     specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_pool,
-                                          num_heads, num_kv_heads)
+                                          num_heads, num_kv_heads, arch=arch)
     L, NB, BT, _ = kv_pool.shape
     MB = block_tables.shape[1]
     _check_tensors(what, specs + [
         ("block_tables", block_tables, torch.int32, (b, MB)),
-        ("positions", positions, torch.int32, (b,)),
-        ("cos", cos, torch.float32, (b, hd)),
-        ("sin", sin, torch.float32, (b, hd))], x.device)
+        ("positions", positions, torch.int32, (b,))]
+        + _rope_specs(cos, sin, (b, hd), arch), x.device)
     lib = _kernel_lib()
-    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn)
+    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn,
+                               arch)
+    rope = [] if arch == "gpt" else [cos, sin]
     p = _build.ptr
-    err = lib.fused_paged_decode_llama(
-        p(x), p(x_out), *(p(params[k]) for k in _PARAM_KEYS), p(kv_pool),
-        p(block_tables), p(positions), p(cos), p(sin),
-        *(p(t) for t in scratch), L, b, h, num_heads, num_kv_heads, hd, ffn,
-        NB, BT, MB, float(eps), _build.stream_of(x))
+    fn = (lib.fused_paged_decode_gpt if arch == "gpt"
+          else lib.fused_paged_decode_llama)
+    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)),
+             p(kv_pool), p(block_tables), p(positions),
+             *(p(t) for t in rope), *(p(t) for t in scratch), L, b, h,
+             num_heads, num_kv_heads, hd, ffn, NB, BT, MB, float(eps),
+             _build.stream_of(x))
     fused_paged_decode_cuda.launches += 1
-    _build.check(err, "fused_paged_decode_llama")
+    _build.check(err, f"fused_paged_decode_{arch}")
     return x_out, kv_pool
 
 
@@ -692,7 +813,8 @@ def fused_paged_decode_step(x, params, kv_pool, block_tables, positions,
     ``blocks`` is checked against the pool dtype."""
     _refuse_unported_paged(arch, params, kv_scales, mp_axis)
     _check_plan(blocks, kv_pool)
-    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps)
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps,
+              arch=arch)
     if x.device.type == "cpu":
         return fused_paged_decode_reference(
             x, params, kv_pool, block_tables, positions, cos, sin, **kw)
@@ -706,11 +828,14 @@ def fused_paged_decode_step(x, params, kv_pool, block_tables, positions,
 
 
 def _refuse_unported_verify(arch, params, kv_scales, mp_axis):
-    if arch != "llama" or kv_scales is not None or "wqkv_s" in params \
-            or mp_axis is not None:
+    if arch not in ("llama", "gpt"):
         raise NotImplementedError(
-            f"paged verify arch={arch!r}, int8 weights, the int8 pool and "
-            "mp_axis are not ported yet (ROADMAP Queue B row 6)")
+            f"paged verify (ROADMAP Queue B row 6) takes arch llama/gpt, "
+            f"got {arch!r}")
+    if kv_scales is not None or "wqkv_s" in params or mp_axis is not None:
+        raise NotImplementedError(
+            "paged verify with int8 weights, the int8 pool or mp_axis is "
+            "not ported yet (ROADMAP Queue B row 6)")
 
 
 def _verify_appends(tables, pos, BT):
@@ -757,7 +882,9 @@ def fused_paged_verify_reference(x, params, kv_pool, block_tables, positions,
         app_bid, app_off = _verify_appends(tables, pos, BT)
         outs.append(_paged_token(
             x[:, j].contiguous(), params, kv_pool, tables, pos, app_bid,
-            app_off, cos[:, j], sin[:, j], num_heads, num_kv_heads, eps))
+            app_off, None if cos is None else cos[:, j],
+            None if sin is None else sin[:, j], num_heads, num_kv_heads,
+            eps, arch))
     return torch.stack(outs, dim=1), kv_pool
 
 
@@ -768,13 +895,15 @@ VERIFY_MAX_ROWS = 64
 
 def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                             cos, sin, *, num_heads: int, num_kv_heads: int,
-                            eps: float = 1e-5):
+                            eps: float = 1e-5, arch: str = "llama"):
     """Wrapper of K7 (one call = one verify step through all L layers for
-    the b·K1 tail rows, 1 + 13L launches on the current stream). Checks
-    dtype, shape, contiguity and device and raises on anything else.
-    Positions and tables are read on the device; tail positions whose
-    block index reaches MB append to scratch block 0."""
+    the b·K1 tail rows, 1 + 13L launches on the current stream; 1 + 12L
+    for arch gpt, which takes no rope: cos/sin are ignored). Checks dtype,
+    shape, contiguity and device and raises on anything else. Positions
+    and tables are read on the device; tail positions whose block index
+    reaches MB append to scratch block 0."""
     what = "fused_paged_verify_cuda"
+    _check_arch(what, arch)
     if x.dim() != 3 or kv_pool.dim() != 4 or block_tables.dim() != 2:
         raise ValueError(f"{what}: x {tuple(x.shape)} must be (b, K1, h), "
                          f"the pool (L, NB, BT, 2*nkv*hd) and block_tables "
@@ -788,14 +917,14 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
     rows = x.view(b * K1, h)
     specs, (M, h, hd, ffn) = _stack_specs(what, rows, params, kv_pool,
                                           num_heads, num_kv_heads,
-                                          max_rows=VERIFY_MAX_ROWS)
+                                          max_rows=VERIFY_MAX_ROWS,
+                                          arch=arch)
     L, NB, BT, _ = kv_pool.shape
     MB = block_tables.shape[1]
     _check_tensors(what, specs + [
         ("block_tables", block_tables, torch.int32, (b, MB)),
-        ("positions", positions, torch.int32, (b,)),
-        ("cos", cos, torch.float32, (b, K1, hd)),
-        ("sin", sin, torch.float32, (b, K1, hd))], x.device)
+        ("positions", positions, torch.int32, (b,))]
+        + _rope_specs(cos, sin, (b, K1, hd), arch), x.device)
     lib = _kernel_lib()
     nh, nkv = num_heads, num_kv_heads
     dq, dkv = nh * hd, nkv * hd
@@ -809,14 +938,16 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                torch.empty((M, ffn), dtype=bf, device=dev),
                torch.empty(lib.fused_paged_verify_llama_workspace(
                    M, h, nh, nkv, hd, ffn), dtype=f32, device=dev))
+    rope = [] if arch == "gpt" else [cos, sin]
     p = _build.ptr
-    err = lib.fused_paged_verify_llama(
-        p(x), p(x_out), *(p(params[k]) for k in _PARAM_KEYS), p(kv_pool),
-        p(block_tables), p(positions), p(cos), p(sin),
-        *(p(t) for t in scratch), L, b, K1, h, nh, nkv, hd, ffn, NB, BT, MB,
-        float(eps), _build.stream_of(x))
+    fn = (lib.fused_paged_verify_gpt if arch == "gpt"
+          else lib.fused_paged_verify_llama)
+    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)),
+             p(kv_pool), p(block_tables), p(positions),
+             *(p(t) for t in rope), *(p(t) for t in scratch), L, b, K1, h,
+             nh, nkv, hd, ffn, NB, BT, MB, float(eps), _build.stream_of(x))
     fused_paged_verify_cuda.launches += 1
-    _build.check(err, "fused_paged_verify_llama")
+    _build.check(err, f"fused_paged_verify_{arch}")
     return x_out, kv_pool
 
 
@@ -835,7 +966,8 @@ def fused_paged_verify_step(x, params, kv_pool, block_tables, positions,
     prefix that matches its own stream."""
     _refuse_unported_verify(arch, params, kv_scales, mp_axis)
     _check_plan(blocks, kv_pool)
-    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps)
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps,
+              arch=arch)
     if x.device.type == "cpu":
         return fused_paged_verify_reference(
             x, params, kv_pool, block_tables, positions, cos, sin, **kw)

@@ -47,7 +47,9 @@ PyTorch runs eagerly, so the reference's jitted programs are plain methods
 and its program cache has no counterpart. Not ported yet (each raises
 NotImplementedError naming its ROADMAP item): an int8 pool, chunked prefill,
 the draft proposer, offload, tensor-parallel meshes, the sanitizer, bounded
-queues and shedding, the flight recorder, snapshot/restore, and gpt models.
+queues and shedding, the flight recorder and snapshot/restore. Models of
+arch llama and gpt ride the engine, as in the reference; any other arch
+(moe) is refused with a ValueError.
 The metrics registry and spans are left out; ``stats`` carries the counts.
 """
 
@@ -329,10 +331,14 @@ class ServingEngine:
         meta = (model.fused_decode_plan(state, probe=True)
                 if hasattr(model, "fused_decode_plan") else None)
         if meta is None:
-            raise _unported(
-                f"serving {type(model).__name__} (only llama models with a "
-                "fused_decode_plan ride the paged kernel; gpt models)",
-                "Queue A item 4")
+            raise ValueError(
+                "ServingEngine needs a fused_decode_plan-eligible model "
+                "(llama/gpt); this model/config cannot ride the paged "
+                "kernel")
+        self.arch = meta.get("arch", "llama")
+        if self.arch not in ("llama", "gpt"):
+            raise ValueError(
+                f"paged serving supports arch llama/gpt, got {self.arch!r}")
         if self.device.type == "cuda" and max_slots > 8:
             raise ValueError(f"max_slots {max_slots} > 8: the paged decode "
                              "kernel takes at most 8 rows")
@@ -812,7 +818,7 @@ class ServingEngine:
         x, self.kv_pool = fused_paged_decode_step(
             x, plan["params"], self.kv_pool, tables, positions, cos, sin,
             num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-            eps=meta["eps"], blocks=meta["blocks"])
+            eps=meta["eps"], arch=self.arch, blocks=meta["blocks"])
         # greedy draws no randomness: skip the key fold
         keys = (_fold_rows(_row_keys(seeds), counts)
                 if self.temperature != 0.0 else None)
@@ -853,7 +859,7 @@ class ServingEngine:
             x, plan["params"], self.kv_pool, tables, positions,
             self._cos_tab[pj], self._sin_tab[pj],
             num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-            eps=meta["eps"], blocks=meta["blocks"])
+            eps=meta["eps"], arch=self.arch, blocks=meta["blocks"])
         keys = (_fold_rows(_row_keys(seeds).repeat_interleave(K1, dim=0),
                            (counts[:, None] + offs[None]).reshape(-1))
                 if self.temperature != 0.0 else None)

@@ -128,12 +128,35 @@ def test_reference_matches_interpret_kernel_bf16():
 def test_dispatch_refuses_unported_modes():
     x = torch.zeros(1, 8)
     kv = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="llama/gpt/moe"):
         tfd.fused_decode_step(x, {}, kv, 0, None, None, num_heads=1,
-                              num_kv_heads=1, arch="gpt")
+                              num_kv_heads=1, arch="rwkv")
+    with pytest.raises(NotImplementedError, match="row 4"):
+        tfd.fused_decode_step(x, {"wqkv_s": None}, kv, 0, None, None,
+                              num_heads=1, num_kv_heads=1, arch="gpt")
     with pytest.raises(NotImplementedError):
         tfd.fused_decode_step(x, {"wqkv_s": None}, kv, 0, None, None,
                               num_heads=1, num_kv_heads=1)
     with pytest.raises(ValueError, match="cache"):
         tfd.fused_decode_step(x, {}, kv, 0, None, None, num_heads=1,
                               num_kv_heads=1, blocks={"cache_wbytes": 1})
+
+
+def test_gpt_arch_runs_on_cpu_tensors():
+    """arch="gpt" (ported) runs the plain step on CPU tensors, without
+    rope rows, and launches nothing."""
+    L, b, S, h, nh, ffn, pos = 2, 2, 8, 32, 2, 64, 3
+    r = np.random.RandomState(7)
+    f = lambda *s: torch.from_numpy((r.randn(*s) * 0.1).astype(np.float32))
+    p = {"ln1": 1 + f(L, h), "ln1_b": f(L, h), "wqkv": f(L, h, 3 * h),
+         "bqkv": f(L, 3 * h), "wo": f(L, h, h), "bo": f(L, h),
+         "ln2": 1 + f(L, h), "ln2_b": f(L, h), "wg": f(L, h, ffn),
+         "bg": f(L, ffn), "wd": f(L, ffn, h), "bd": f(L, h)}
+    kv = torch.zeros(L, b, S, 2 * h)
+    tfd.fused_decode_cuda.launches = 0
+    x, kv = tfd.fused_decode_step(f(b, h), p, kv, pos, None, None,
+                                  num_heads=nh, num_kv_heads=nh, arch="gpt")
+    assert tuple(x.shape) == (b, h) and bool(torch.isfinite(x).all())
+    assert bool(kv[:, :, pos].abs().sum() > 0)
+    assert float(kv[:, :, pos + 1:].abs().sum()) == 0.0
+    assert tfd.fused_decode_cuda.launches == 0

@@ -244,13 +244,19 @@ def test_weights_carry_bf16_bit_for_bit():
 
 
 def test_refusals():
-    """GPT decode over a cache and dropout in training are not ported: both
-    raise NotImplementedError naming the ROADMAP item."""
+    """GPT generation over an int8 KV cache and dropout in training are not
+    ported: both raise NotImplementedError naming the ROADMAP item. (GPT
+    decode over a bf16 or fp32 cache is ported: its cache forward runs.)"""
+    from paddle_tpu_torch.inference import generate
     from paddle_tpu_torch.nn import functional as TF
     _, tm = _pair()
     x = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue B row 4"):
-        tm(x, cache=[{}])
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        generate(tm, x, max_new_tokens=2, cache_dtype=torch.int8)
+    with torch.no_grad():
+        logits, cache = tm(x, cache=tm.init_cache(1, 8, torch.float32))
+    assert tuple(logits.shape) == (1, 4, tm.cfg.vocab_size)
+    assert bool(cache[0]["k"][:, :4].abs().sum() > 0)
     with pytest.raises(NotImplementedError, match="Queue A item 1"):
         TF.dropout(torch.ones(3), p=0.1, training=True)
     assert torch.equal(TF.dropout(torch.ones(3), p=0.1, training=False),

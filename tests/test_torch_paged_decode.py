@@ -162,12 +162,38 @@ def test_paged_dispatch_refuses_unported_modes():
     pos = torch.zeros(1, dtype=torch.int32)
     args = (x, {}, pool, tab, pos, None, None)
     kw = dict(num_heads=1, num_kv_heads=1)
-    for extra in (dict(arch="gpt"), dict(kv_scales=torch.ones(1)),
-                  dict(mp_axis="mp")):
+    for extra in (dict(kv_scales=torch.ones(1)), dict(mp_axis="mp"),
+                  dict(arch="gpt", kv_scales=torch.ones(1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfd.fused_paged_decode_step(*args, **kw, **extra)
+    # MoE rides no paged step, as in the reference
+    with pytest.raises(NotImplementedError, match="llama/gpt"):
+        tfd.fused_paged_decode_step(*args, **kw, arch="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfd.fused_paged_decode_step(x, {"wqkv_s": None}, pool, tab, pos,
                                     None, None, **kw)
     with pytest.raises(ValueError, match="cache"):
         tfd.fused_paged_decode_step(*args, **kw, blocks={"cache_wbytes": 1})
+
+
+def test_paged_gpt_arch_runs_on_cpu_tensors():
+    """arch="gpt" (ported) runs the paged plain step on CPU tensors,
+    without rope rows, and launches nothing."""
+    L, h, nh, ffn = 2, 32, 2, 64
+    r = np.random.RandomState(8)
+    f = lambda *s: torch.from_numpy((r.randn(*s) * 0.1).astype(np.float32))
+    p = {"ln1": 1 + f(L, h), "ln1_b": f(L, h), "wqkv": f(L, h, 3 * h),
+         "bqkv": f(L, 3 * h), "wo": f(L, h, h), "bo": f(L, h),
+         "ln2": 1 + f(L, h), "ln2_b": f(L, h), "wg": f(L, h, ffn),
+         "bg": f(L, ffn), "wd": f(L, ffn, h), "bd": f(L, h)}
+    pool = f(L, NB, BT, 2 * h)
+    before = pool.clone()
+    tfd.fused_paged_decode_cuda.launches = 0
+    x, pool = tfd.fused_paged_decode_step(
+        f(3, h), p, pool, torch.from_numpy(TABLES),
+        torch.from_numpy(POSITIONS), None, None, num_heads=nh,
+        num_kv_heads=nh, arch="gpt")
+    assert tuple(x.shape) == (3, h) and bool(torch.isfinite(x).all())
+    assert not torch.equal(pool[:, 3, 13 % BT], before[:, 3, 13 % BT])
+    assert torch.equal(pool[:, 4], before[:, 4])     # an unused block
+    assert tfd.fused_paged_decode_cuda.launches == 0

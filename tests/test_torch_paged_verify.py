@@ -207,8 +207,8 @@ def test_verify_dispatch_refuses_unported_modes():
     pos = torch.zeros(1, dtype=torch.int32)
     args = (x, {}, pool, tab, pos, None, None)
     kw = dict(num_heads=1, num_kv_heads=1)
-    for extra in (dict(arch="gpt"), dict(kv_scales=torch.ones(1)),
-                  dict(mp_axis="mp")):
+    for extra in (dict(arch="moe"), dict(kv_scales=torch.ones(1)),
+                  dict(mp_axis="mp"), dict(arch="gpt", mp_axis="mp")):
         with pytest.raises(NotImplementedError, match="Queue B row 6"):
             tfd.fused_paged_verify_step(*args, **kw, **extra)
     with pytest.raises(NotImplementedError, match="Queue B row 6"):
@@ -216,3 +216,30 @@ def test_verify_dispatch_refuses_unported_modes():
                                     None, None, **kw)
     with pytest.raises(ValueError, match="cache"):
         tfd.fused_paged_verify_step(*args, **kw, blocks={"cache_wbytes": 1})
+
+
+def test_verify_gpt_arch_runs_on_cpu_tensors():
+    """arch="gpt" (ported) runs the plain verify on CPU tensors, without
+    rope rows, and launches nothing; an all-accepted gpt verify is K1
+    sequential plain gpt paged steps, bit for bit."""
+    L, h, nh, ffn = 2, 32, 2, 64
+    r = np.random.RandomState(9)
+    f = lambda *s: torch.from_numpy((r.randn(*s) * 0.1).astype(np.float32))
+    p = {"ln1": 1 + f(L, h), "ln1_b": f(L, h), "wqkv": f(L, h, 3 * h),
+         "bqkv": f(L, 3 * h), "wo": f(L, h, h), "bo": f(L, h),
+         "ln2": 1 + f(L, h), "ln2_b": f(L, h), "wg": f(L, h, ffn),
+         "bg": f(L, ffn), "wd": f(L, ffn, h), "bd": f(L, h)}
+    pool = f(L, NB, BT, 2 * h)
+    x = f(3, K1, h)
+    tab, pos = torch.from_numpy(TABLES), torch.from_numpy(POSITIONS)
+    kw = dict(num_heads=nh, num_kv_heads=nh, arch="gpt")
+    tfd.fused_paged_verify_cuda.launches = 0
+    xv, pv = tfd.fused_paged_verify_step(x, p, pool.clone(), tab, pos, None,
+                                         None, **kw)
+    assert tfd.fused_paged_verify_cuda.launches == 0
+    ps = pool.clone()
+    for j in range(K1):
+        xs, ps = tfd.fused_paged_decode_step(x[:, j].contiguous(), p, ps,
+                                             tab, pos + j, None, None, **kw)
+        assert torch.equal(xv[:2, j], xs[:2])
+    assert torch.equal(pv[:, 1:], ps[:, 1:])

@@ -321,6 +321,47 @@ def test_cuda_wrappers_check_inputs():
         fa.flash_attention_bwd_dkv(q, q, q, q, rows, rows)
 
 
+def test_gpt_wrappers_refuse_what_their_kernels_do_not_take():
+    """The gpt modes of K2, K5 and K7 raise on CPU tensors, a missing bias
+    stack, a wrong dtype and an unknown arch, before any launch."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, h, nh, ffn, b = 1, 64, 1, 128, 2
+    bf = torch.bfloat16
+    z = lambda *s: torch.zeros(*s, dtype=bf)
+    p = {"ln1": z(L, h), "ln1_b": z(L, h), "wqkv": z(L, h, 3 * h),
+         "bqkv": z(L, 3 * h), "wo": z(L, h, h), "bo": z(L, h),
+         "ln2": z(L, h), "ln2_b": z(L, h), "wg": z(L, h, ffn),
+         "bg": z(L, ffn), "wd": z(L, ffn, h), "bd": z(L, h)}
+    kw = dict(num_heads=nh, num_kv_heads=nh, arch="gpt")
+    kv = z(L, b, 16, 2 * h)
+    pool = z(L, 4, 16, 2 * h)
+    tab = torch.zeros(b, 2, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    for c in (fd.fused_decode_cuda, fd.fused_paged_decode_cuda,
+              fd.fused_paged_verify_cuda):
+        c.launches = 0
+    with pytest.raises(ValueError, match="cuda"):
+        fd.fused_decode_cuda(z(b, h), p, kv, 3, None, None, **kw)
+    with pytest.raises(ValueError, match="cuda"):
+        fd.fused_paged_decode_cuda(z(b, h), p, pool, tab, pos, None, None,
+                                   **kw)
+    with pytest.raises(ValueError, match="cuda"):
+        fd.fused_paged_verify_cuda(z(b, 3, h), p, pool, tab, pos, None,
+                                   None, **kw)
+    with pytest.raises(TypeError, match="bqkv"):
+        fd.fused_decode_cuda(z(b, h), dict(p, bqkv=p["bqkv"].float()), kv, 3,
+                             None, None, **kw)
+    with pytest.raises(KeyError):
+        fd.fused_decode_cuda(z(b, h), {k: v for k, v in p.items()
+                                       if k != "bd"}, kv, 3, None, None, **kw)
+    with pytest.raises(ValueError, match="arch"):
+        fd.fused_decode_cuda(z(b, h), p, kv, 3, None, None, num_heads=nh,
+                             num_kv_heads=nh, arch="moe")
+    assert fd.fused_decode_cuda.launches == 0
+    assert fd.fused_paged_decode_cuda.launches == 0
+    assert fd.fused_paged_verify_cuda.launches == 0
+
+
 # ---- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -556,3 +597,144 @@ def test_moe_decode_kernel_matches_plain(cuda, nkv, k, fs):
     torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
                                rtol=2 ** -7)
     assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos])
+
+
+def _gpt_cuda_params(g, L, h, ffn):
+    """Random bf16 gpt stacks on the card (build_fused_params_gpt's keys)."""
+    mk = lambda *s, sc=0.05: (torch.randn(*s, generator=g, device="cuda")
+                              * sc).bfloat16()
+    return {"ln1": 1 + mk(L, h, sc=0.1), "ln1_b": mk(L, h, sc=0.1),
+            "wqkv": mk(L, h, 3 * h), "bqkv": mk(L, 3 * h, sc=0.1),
+            "wo": mk(L, h, h), "bo": mk(L, h, sc=0.1),
+            "ln2": 1 + mk(L, h, sc=0.1), "ln2_b": mk(L, h, sc=0.1),
+            "wg": mk(L, h, ffn), "bg": mk(L, ffn, sc=0.1),
+            "wd": mk(L, ffn, h), "bd": mk(L, h, sc=0.1)}
+
+
+@pytest.mark.cuda
+def test_fused_decode_gpt_kernel_matches_plain(cuda):
+    """K2's gpt mode against the plain gpt step: x_out and the cache at K2's
+    tolerance, the rest of the cache untouched, two launches bitwise
+    equal."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, b, S, nh, hd, pos = 2, 3, 256, 4, 64, 150
+    h, ffn = nh * hd, 4 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(6)
+    p = _gpt_cuda_params(g, L, h, ffn)
+    x = (torch.randn(b, h, generator=g, device=cuda) + 0.5).bfloat16()
+    kv = torch.randn(L, b, S, 2 * h, generator=g, device=cuda).bfloat16()
+    kv[:, :, pos:] = 0
+    kw = dict(num_heads=nh, num_kv_heads=nh, eps=1e-5, arch="gpt")
+    xk, kvk = fd.fused_decode_cuda(x, p, kv.clone(), pos, None, None, **kw)
+    xk2, kvk2 = fd.fused_decode_cuda(x, p, kv.clone(), pos, None, None, **kw)
+    xr, kvr = fd.fused_decode_reference(x, p, kv.clone(), pos, None, None,
+                                        **kw)
+    assert torch.equal(xk, xk2) and torch.equal(kvk, kvk2)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos])
+
+
+@pytest.mark.cuda
+def test_paged_decode_gpt_kernel_matches_plain_and_k2(cuda):
+    """K5's gpt mode against the plain paged gpt step over a shuffled table
+    with an idle row, and bitwise against K2's gpt mode with every row at
+    one position over the same KV."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, b, nh, hd, BT, MB = 2, 3, 4, 64, 16, 8
+    h, ffn = nh * hd, 4 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(7)
+    p = _gpt_cuda_params(g, L, h, ffn)
+    x = torch.randn(b, h, generator=g, device=cuda).bfloat16()
+    pool = torch.randn(L, 1 + b * MB, BT, 2 * h, generator=g,
+                       device=cuda).bfloat16()
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(0))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32).to(cuda)
+    tab[2] = 0                                        # an idle row
+    kw = dict(num_heads=nh, num_kv_heads=nh, eps=1e-5, arch="gpt")
+    pos = torch.tensor([77, 120, 5], dtype=torch.int32, device=cuda)
+    xk, pk = fd.fused_paged_decode_cuda(x, p, pool.clone(), tab, pos, None,
+                                        None, **kw)
+    xr, pr = fd.fused_paged_decode_reference(x, p, pool.clone(), tab, pos,
+                                             None, None, **kw)
+    torch.testing.assert_close(xk[:2].float(), xr[:2].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(pk[:, 1:].float(), pr[:, 1:].float(),
+                               atol=5e-2, rtol=2 ** -7)
+    tab[2] = (perm[2 * MB:] + 1).to(torch.int32).to(cuda)
+    at = 100
+    cache = torch.stack([pool[:, tab[r].long()].reshape(L, MB * BT, -1)
+                         for r in range(b)], dim=1)
+    x2, cache = fd.fused_decode_cuda(x, p, cache, at, None, None, **kw)
+    p5 = torch.full((b,), at, dtype=torch.int32, device=cuda)
+    x5, pool = fd.fused_paged_decode_cuda(x, p, pool, tab, p5, None, None,
+                                          **kw)
+    assert torch.equal(x5, x2)
+
+
+@pytest.mark.cuda
+def test_paged_verify_gpt_kernel_matches_plain(cuda):
+    """K7's gpt mode against the plain gpt verify over a shuffled table: a
+    tail crossing a block boundary, one past the table, an idle row."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, b, K1, nh, hd, BT, MB = 2, 4, 5, 4, 64, 16, 8
+    h, ffn = nh * hd, 4 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(8)
+    p = _gpt_cuda_params(g, L, h, ffn)
+    x = torch.randn(b, K1, h, generator=g, device=cuda).bfloat16()
+    pool = torch.randn(L, 1 + b * MB, BT, 2 * h, generator=g,
+                       device=cuda).bfloat16()
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(1))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32)
+    tab[1, 3:] = 0
+    tab[3] = 0
+    tab = tab.to(cuda)
+    positions = [30, 46, MB * BT - 2, 3]
+    mapped = [(0, j) for j in range(K1)] + [(1, 0), (1, 1)] + \
+        [(2, 0), (2, 1)]
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=nh, num_kv_heads=nh, eps=1e-5, arch="gpt")
+    xk, pk = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos, None,
+                                        None, **kw)
+    xr, pr = fd.fused_paged_verify_reference(x, p, pool.clone(), tab, pos,
+                                             None, None, **kw)
+    rr = torch.tensor([r for r, _ in mapped], device=cuda)
+    jj = torch.tensor([j for _, j in mapped], device=cuda)
+    torch.testing.assert_close(xk[rr, jj].float(), xr[rr, jj].float(),
+                               atol=5e-2, rtol=2 ** -7)
+    t = pos.long()[rr] + jj
+    bids, offs = tab.long()[rr, t // BT], t % BT
+    torch.testing.assert_close(pk[:, bids, offs].float(),
+                               pr[:, bids, offs].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    rest = torch.ones(pool.shape[1:3], dtype=torch.bool, device=cuda)
+    rest[bids, offs] = False
+    rest[0] = False
+    assert torch.equal(pk[:, rest], pool[:, rest])
+
+
+@pytest.mark.cuda
+def test_gpt_generate_on_the_card_runs_k1_and_k2(cuda):
+    """A small GPT generates on the card: the prefill's strided q/k/v views
+    reach K1 without a gradient (one launch per layer), and every decode
+    step is one K2 launch in its gpt mode."""
+    from paddle_tpu_torch.inference import generate
+    from paddle_tpu_torch.models import GPTConfig, GPTPretrainModel
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_decode as fd
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=4, max_position_embeddings=256,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    m = GPTPretrainModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         seed=0).eval()
+    ids = torch.randint(0, 512, (2, 40), generator=torch.Generator()
+                        .manual_seed(0))
+    fa.flash_attention_fwd.launches = 0
+    fd.fused_decode_cuda.launches = 0
+    out = generate(m, ids, max_new_tokens=6)
+    assert fa.flash_attention_fwd.launches == cfg.num_layers
+    assert fd.fused_decode_cuda.launches == 5
+    assert tuple(out.shape) == (2, 46)
+    assert torch.equal(out[:, :40].cpu(), ids)

@@ -233,10 +233,13 @@ def test_request_validation_and_unported_options(pair):
                dict(flight_dump_path="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(tm, **ENGINE, **kw)
-    from paddle_tpu_torch.models import GPTConfig, GPTPretrainModel
-    gpt = GPTPretrainModel(GPTConfig.tiny(), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(gpt, device="cpu")
+    # any arch but llama and gpt is refused, as in the reference
+    import dataclasses
+    from paddle_tpu_torch.models import MixtralConfig, MixtralForCausalLM
+    moe = MixtralForCausalLM(dataclasses.replace(
+        MixtralConfig.tiny(), num_experts=8), device="cpu", seed=0)
+    with pytest.raises(ValueError, match="llama/gpt"):
+        ServingEngine(moe, **ENGINE)
     with pytest.raises(ValueError, match="multiple"):
         ServingEngine(tm, **dict(ENGINE, max_seq_len=120))
     eng = ServingEngine(tm, **ENGINE)
@@ -244,3 +247,27 @@ def test_request_validation_and_unported_options(pair):
                  lambda: ServingEngine.restore(tm, {})):
         with pytest.raises(NotImplementedError, match="snapshot"):
             call()
+
+
+def test_gpt_engine_runs_on_cpu_with_counters_at_zero():
+    """A GPT (arch gpt, ported) serves on CPU tensors through the paged
+    plain step: K5, K2 and K1 count no launch, no block leaks."""
+    from paddle_tpu_torch.models import GPTConfig, GPTPretrainModel
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    gpt = GPTPretrainModel(GPTConfig.tiny(vocab_size=256),
+                           dtype=torch.bfloat16, device="cpu", seed=0)
+    gpt.eval()
+    for c in (tfd.fused_paged_decode_cuda, tfd.fused_decode_cuda,
+              tfa.flash_attention_fwd):
+        c.launches = 0
+    eng = ServingEngine(gpt, **ENGINE, temperature=0.7, top_k=10)
+    prompts = np.random.RandomState(1).randint(0, 256, (4, 9))
+    rids = [eng.submit(Request(p, max_new_tokens=5)) for p in prompts]
+    eng.drain()
+    assert eng.arch == "gpt"
+    assert all(len(eng.results[r].tokens) == 5 for r in rids)
+    assert tfd.fused_paged_decode_cuda.launches == 0
+    assert tfd.fused_decode_cuda.launches == 0
+    assert tfa.flash_attention_fwd.launches == 0
+    eng.prefix_cache.clear()
+    assert eng.pool.used_blocks == 0
