@@ -8,6 +8,7 @@
     PYTHONPATH=. python3 examples/torch_decode_profile.py --serve
     PYTHONPATH=. python3 examples/torch_decode_profile.py --moe
     PYTHONPATH=. python3 examples/torch_decode_profile.py --gpt
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --int8
 
 Default: builds a Llama-2-7B-width stack (random bf16 weights, seed 0) and
 a KV cache filled up to `pos`, times paddle_tpu_torch's fused decode step
@@ -42,6 +43,12 @@ layers, h 1024, 16 heads of 64, ffn 4096; random bf16 weights and biases),
 b=8, pos 576 (the mean position of a 512 + 128-token generate). Its step
 is 1 + 11 × 24 launches of small products, so the device-busy time beside
 the step time shows how much of the step is launch gaps.
+
+--int8: the same split for K2's int8 mode at the default shape: the layer
+weights of a random model quantized per out channel to int8 (quantize_model,
+stacked by its fused decode plan) and the cache quantized per (layer, kv
+head) to int8 (quantize_kv_cache, as generate(cache_dtype=int8) does); the
+byte bounds count one byte a weight and a cached value.
 
 --serve: a Llama-2-7B ServingEngine (8 slots, block 128) with 8 requests
 of 500-token prompts decoding; traces 32 ticks and prints the wall time
@@ -117,25 +124,40 @@ def generate_split(card):
                       "top_device_ms_per_step": top}))
 
 
-def contiguous_step(L, b, pos, nkv, h, nh, hd, ffn):
-    """K2 over a contiguous cache filled up to `pos`."""
+def contiguous_step(L, b, pos, nkv, h, nh, hd, ffn, int8=False):
+    """K2 over a contiguous cache filled up to `pos`; int8: int8 weights
+    with their scale rows and an int8 cache with its scales."""
     S = -(-(pos + 1) // 128) * 128
     dq, dkv = nh * hd, nkv * hd
     g = torch.Generator(device="cuda").manual_seed(0)
     mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
         0, sc, generator=g).bfloat16()
-    p = {"ln1": torch.ones(L, h, device="cuda").bfloat16(),
-         "wqkv": mk(L, h, dq + 2 * dkv), "wo": mk(L, dq, h),
-         "ln2": torch.ones(L, h, device="cuda").bfloat16(),
-         "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
+    if int8:       # the stacks the int8 generate path builds
+        from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+        from paddle_tpu_torch.quantization import quantize_model
+        cfg = LlamaConfig(vocab_size=256, hidden_size=h,
+                          intermediate_size=ffn, num_layers=L, num_heads=nh,
+                          num_kv_heads=nkv)
+        model = quantize_model(LlamaForCausalLM(
+            cfg, dtype=torch.bfloat16, device="cuda", seed=0))
+        p = model.fused_decode_plan(
+            model.state_dict(include_buffers=False))["params"]
+    else:
+        p = {"ln1": torch.ones(L, h, device="cuda").bfloat16(),
+             "wqkv": mk(L, h, dq + 2 * dkv), "wo": mk(L, dq, h),
+             "ln2": torch.ones(L, h, device="cuda").bfloat16(),
+             "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
     kv = torch.zeros(L, b, S, 2 * dkv, device="cuda", dtype=torch.bfloat16)
     kv[:, :, :pos] = mk(L, b, pos, 2 * dkv, sc=1.0)
     x = mk(b, h, sc=1.0)
     cos, sin = rope_cos_sin(S, hd, device="cuda")
+    scales = None
+    if int8:
+        kv, scales = fd.quantize_kv_cache(kv, nkv)
     step = lambda: fd.fused_decode_cuda(
         x, p, kv, pos, cos[pos:pos + 1], sin[pos:pos + 1], num_heads=nh,
-        num_kv_heads=nkv)
-    return step, p, L * b * (pos + 1) * 2 * dkv * 2
+        num_kv_heads=nkv, kv_scales=scales)
+    return step, p, L * b * (pos + 1) * 2 * dkv * kv.element_size()
 
 
 def gpt_step(L=24, b=8, pos=576, h=1024, nh=16, ffn=4096):
@@ -267,6 +289,7 @@ def main():
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--moe", action="store_true")
     ap.add_argument("--gpt", action="store_true")
+    ap.add_argument("--int8", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -294,7 +317,8 @@ def main():
         step, p, kvb, pos = paged_step(L, b, nkv,
                                        tail=VERIFY_TAIL if a.verify else 0)
     else:
-        step, p, kvb = contiguous_step(L, b, pos, nkv, h, nh, hd, ffn)
+        step, p, kvb = contiguous_step(L, b, pos, nkv, h, nh, hd, ffn,
+                                       int8=a.int8)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -307,7 +331,7 @@ def main():
     step_ms = e0.elapsed_time(e1) / a.steps
     _, per_kernel = traced(lambda: [step() for _ in range(a.steps)])
     per_kernel = {k: v / a.steps for k, v in per_kernel.items()}
-    wb = lambda *ks: sum(p[k].numel() * 2 for k in ks)
+    wb = lambda *ks: sum(p[k].numel() * p[k].element_size() for k in ks)
     bounds_ms = {"qkv gemm": wb("wqkv") / bw * 1e3,
                  "o-proj gemm": wb("wo") / bw * 1e3,
                  "attention (filled KV)": kvb / bw * 1e3}
@@ -329,7 +353,9 @@ def main():
                                  if a.verify else
                                  "K6 (MoE), DeepSeekMoE-16B" if a.moe else
                                  "K2 (gpt), GPT-2 345M" if a.gpt else
-                                 "K5 (paged)" if a.paged else "K2"),
+                                 "K5 (paged)" if a.paged else
+                                 "K2 (int8 weights, int8 KV)" if a.int8
+                                 else "K2"),
                       "kv_heads": nkv, "step_ms": step_ms,
                       "device_ms_per_step_by_kernel": per_kernel,
                       "device_ms_per_step": sum(per_kernel.values()),

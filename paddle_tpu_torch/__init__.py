@@ -7,7 +7,8 @@ imports neither jax nor paddle_tpu.
 
 It serves Llama through ``inference.generate`` (prefill through the
 flash-attention forward kernel, decode through the fused decode-step
-kernel), serves it with continuous batching over a paged KV pool through
+kernel; weight-only int8 models from ``quantization.quantize_model`` and an
+int8 KV cache through that kernel's int8 modes), serves it with continuous batching over a paged KV pool through
 ``serving.ServingEngine`` (decode through the paged decode-step kernel), and
 pretrains GPT-2 (``models.GPTPretrainModel`` +
 ``optimizer.AdamW``, driven by ``python -m paddle_tpu_torch.bench``) with
@@ -32,4 +33,4 @@ from paddle_tpu_torch.core.dtype import (  # noqa: F401
 from paddle_tpu_torch.core.flags import get_flags, set_flags  # noqa: F401
 from paddle_tpu_torch.core.rng import seed  # noqa: F401
 from paddle_tpu_torch import (inference, models, nn, ops,  # noqa: F401
-                              optimizer, serving)
+                              optimizer, quantization, serving)

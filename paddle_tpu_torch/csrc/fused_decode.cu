@@ -55,6 +55,27 @@
 // product's bias after the fixed-order split-K sum, never in a partial; and
 // the attention kernels take a compile-time ROPE flag, false here. See the
 // gpt section near the end.
+//
+// The int8 modes of K2 (the TPU kernel's `int8` and `kvq` branches;
+// fused_decode_llama with scale rows, fused_decode_llama and
+// fused_decode_gpt with kv scales). Int8 weights (llama): the register GEMM
+// takes the weight type as a template parameter; an 8-byte load holds 8
+// int8 columns, so each thread keeps its 8 columns and the block its 64.
+// Four weight rows stay in flight per thread, for one weight and for two
+// (measured on an H100 against 8, 12 and 16: the int8 loop is bound by the
+// elements it handles rather than by bytes, and a longer unroll wastes more
+// of the last, partly masked, pass over a split). The int8 values become
+// fp32 exactly in registers (byte permutes and one add each, see unpack8)
+// and multiply the bf16 activations in fp32. The per-out-channel scale
+// multiplies each output once, after the fixed-order split-K sum, in the
+// epilogue: qkv, the o-proj before its residual add, gate and up before
+// SwiGLU, down before its residual add (the reference's y * s after the
+// full dot). Int8 KV (llama and gpt): a cache policy (ContigKV8) makes the
+// attention kernel store the append as rint(v / scale) clipped to +-127 and
+// read keys and values as int8; since a scale is one value per (layer, kv
+// head), the k scale folds into the staged q and the v scale multiplies the
+// attention output once. Bound: bytes, as the bf16 mode's, with half the
+// weight and KV bytes. The bf16 instantiations keep their code and bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +104,38 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
     f[2 * i + 1] = t.y;
   }
 }
+
+// 8 int8 values (8 bytes) to fp32, exactly: byte b, biased to u = b ^ 0x80
+// (= b + 128), becomes the mantissa of 2^23 (one byte permute), and the
+// float (2^23 + u) - (2^23 + 128) = b. This replaces 8 integer-to-float
+// conversions, a quarter-rate instruction that would otherwise bound the
+// GEMM's inner loop at an int8 stream's byte rate.
+__device__ __forceinline__ void unpack8(const uint2& u, float* f) {
+  const unsigned w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f[i] = __int_as_float(
+               __byte_perm(w[i / 4], 0x4B000000u, 0x7440 | (i % 4))) -
+           8388736.f;
+}
+
+// The register GEMM's weight types: the load that holds 8 columns, the rows
+// in flight per thread (one weight / two weights), and whether outputs carry
+// a per-out-channel scale.
+template <class W>
+struct WTraits;
+template <>
+struct WTraits<bf16> {
+  using V = uint4;
+  static constexpr int U1 = 8, U2 = 2;
+  static constexpr bool SCALED = false;
+};
+template <>
+struct WTraits<int8_t> {
+  using V = uint2;
+  static constexpr int U1 = 4, U2 = 4;
+  static constexpr bool SCALED = true;
+};
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -128,16 +181,18 @@ constexpr int TPC = 8;           // threads per 64-column group
 constexpr int COLS = TPC * 8;
 constexpr int RS = GT / TPC;     // contraction slices per block
 
-template <bool RMS, bool TWO, int B>
+template <bool RMS, bool TWO, int B, class W = bf16>
 __global__ void __launch_bounds__(GT)
 gemm_partial_kernel(const float* __restrict__ xf,
                     const float* __restrict__ rstd,
                     const bf16* __restrict__ xb, const bf16* __restrict__ lnw,
-                    const bf16* __restrict__ w0, const bf16* __restrict__ w1,
+                    const W* __restrict__ w0, const W* __restrict__ w1,
                     float* __restrict__ ws0, float* __restrict__ ws1, int b,
                     int in, int out, int kper) {
+  using V = typename WTraits<W>::V;
   constexpr int KCH = 4096 / B;  // staged rows (8 KB of bf16)
-  constexpr int U = TWO ? 2 : 8; // weight rows in flight per thread
+  // weight rows in flight per thread
+  constexpr int U = TWO ? WTraits<W>::U2 : WTraits<W>::U1;
   constexpr int NA = TWO ? 2 : 1;
   __shared__ __align__(16) bf16 xs[B][KCH];
   __shared__ float red[NA][NWG][B][COLS];
@@ -176,7 +231,7 @@ gemm_partial_kernel(const float* __restrict__ xf,
     __syncthreads();
     if (live) {
       for (int r = rs; r < kn; r += U * RS) {
-        uint4 wv[NA][U];
+        V wv[NA][U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int rr = r + u * RS;
@@ -184,8 +239,8 @@ gemm_partial_kernel(const float* __restrict__ xf,
 #pragma unroll
           for (int a = 0; a < NA; ++a)
             wv[a][u] = rr < kn
-                ? __ldg(reinterpret_cast<const uint4*>((a ? w1 : w0) + off))
-                : make_uint4(0, 0, 0, 0);
+                ? __ldg(reinterpret_cast<const V*>((a ? w1 : w0) + off))
+                : V{};
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -241,16 +296,22 @@ gemm_partial_kernel(const float* __restrict__ xf,
 
 // Sum the ks partials of each output in a fixed order (deterministic) and
 // apply MODE's epilogue: store fp32 (qkv), add into the fp32 residual
-// (optionally writing its bf16 copy), or SwiGLU into bf16 activations.
-template <int MODE>
+// (optionally writing its bf16 copy), or SwiGLU into bf16 activations. SC
+// (int8 weights) first multiplies each sum by its out channel's scale
+// (sc0; sc1 for SwiGLU's up; out columns a row).
+template <int MODE, bool SC = false>
 __global__ void gemm_epilogue_kernel(const float* __restrict__ ws0,
                                      const float* __restrict__ ws1, int ks,
                                      int n, float* __restrict__ yf,
-                                     bf16* __restrict__ yb) {
+                                     bf16* __restrict__ yb,
+                                     const float* __restrict__ sc0 = nullptr,
+                                     const float* __restrict__ sc1 = nullptr,
+                                     int out = 1) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int k = 0; k < ks; ++k) s += ws0[(long)k * n + i];
+  if (SC) s *= sc0[i % out];
   if (MODE == MODE_QKV) {
     yf[i] = s;
   } else if (MODE == MODE_RESID) {
@@ -260,6 +321,7 @@ __global__ void gemm_epilogue_kernel(const float* __restrict__ ws0,
   } else {
     float u = 0.f;
     for (int k = 0; k < ks; ++k) u += ws1[(long)k * n + i];
+    if (SC) u *= sc1[i % out];
     const float sg = s * (1.f / (1.f + expf(-s)));  // silu in fp32
     yb[i] = __float2bfloat16(sg * u);
   }
@@ -304,10 +366,13 @@ int ksplit_swiglu(int in, int out, int b) {
 // Contiguous (K2): the (b, S, 2*dkv) layer slab, one position and one rope
 // row for the whole batch.
 struct ContigKV {
+  using T = bf16;
+  static constexpr bool Q8 = false;
   bf16* kv;
   const float* cos;
   const float* sin;
   int S, dkv2, pos;
+  __device__ float scale(int) const { return 1.f; }
   __device__ int position(int) const { return pos; }
   __device__ const float* cos_row(int, int) const { return cos; }
   __device__ const float* sin_row(int, int) const { return sin; }
@@ -320,12 +385,15 @@ struct ContigKV {
 // the row's block table; per-row positions and rope rows, all read from
 // device memory (the host uploads nothing per step).
 struct PagedKV {
+  using T = bf16;
+  static constexpr bool Q8 = false;
   bf16* kv;
   const int* tables;      // (b, MB) physical block ids
   const int* positions;   // (b,)
   const float* cos;       // (b, HD)
   const float* sin;
   int MB, BT, dkv2;
+  __device__ float scale(int) const { return 1.f; }
   __device__ int position(int bi) const { return positions[bi]; }
   __device__ const float* cos_row(int bi, int hd) const {
     return cos + (long)bi * hd;
@@ -339,6 +407,45 @@ struct PagedKV {
   }
 };
 
+// Contiguous int8 (K2's int8 KV mode): ContigKV over an int8 layer slab
+// with the layer's lane scales (2*dkv fp32; one value per kv head,
+// replicated over its lanes).
+struct ContigKV8 {
+  using T = int8_t;
+  static constexpr bool Q8 = true;
+  int8_t* kv;
+  const float* cos;
+  const float* sin;
+  const float* scales;
+  int S, dkv2, pos;
+  __device__ float scale(int lane) const { return scales[lane]; }
+  __device__ int position(int) const { return pos; }
+  __device__ const float* cos_row(int, int) const { return cos; }
+  __device__ const float* sin_row(int, int) const { return sin; }
+  __device__ int8_t* row(int bi, int t) const {
+    return kv + ((long)bi * S + t) * dkv2;
+  }
+};
+
+// The append's store: bf16, or int8 as rint(v / scale) clipped to +-127
+// (rint rounds half to even, as the reference's round; IEEE division).
+__device__ __forceinline__ void put_kv(bf16* p, float v, float) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put_kv(int8_t* p, float v, float s) {
+  *p = (int8_t)fminf(fmaxf(rintf(v / s), -127.f), 127.f);
+}
+
+// Two adjacent cache values as floats (an int8 value is its integer; the
+// caller applies the scale).
+__device__ __forceinline__ float2 get2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 get2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+
 // One block per (kv head g, batch row bi): rope q (the rep heads of the
 // group) and k at the row's position, append k and v to the cache there,
 // then attend over the filled prefix [0, pos] with an online softmax, NW
@@ -347,8 +454,14 @@ struct PagedKV {
 // reads back only what it wrote itself or what no block of this launch
 // writes, so only idle rows — whose output is thrown away — see a race.
 // ROPE = false (the gpt mode) takes q and k as they are and reads no rope
-// row.
+// row. An int8 policy (KV::Q8) quantizes the append with the lane scales,
+// folds the head's k scale into q and applies its v scale to the output.
 constexpr int NWA = 16;
+
+// Dynamic shared memory of one attention block, per head_dim and group size.
+constexpr int attn_smem(int hd, int rep) {
+  return (rep * hd + 2 * NWA * rep + NWA * rep * hd) * 4;
+}
 
 template <int HD, int REP, class KV, bool ROPE>
 __global__ void __launch_bounds__(NWA * 32)
@@ -367,6 +480,7 @@ rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
   const int pos = cache.position(bi);
   const float* __restrict__ cosr = ROPE ? cache.cos_row(bi, HD) : nullptr;
   const float* __restrict__ sinr = ROPE ? cache.sin_row(bi, HD) : nullptr;
+  using T = typename KV::T;
 
   for (int i = tid; i < REP * HD; i += NWA * 32) {
     const int r = i / HD, d = i % HD;
@@ -377,17 +491,19 @@ rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
     } else {
       qs[i] = qh[d] * scale;
     }
+    if constexpr (KV::Q8) qs[i] *= cache.scale(g * HD);
   }
   for (int d = tid; d < HD; d += NWA * 32) {
     const float* kh = row + dq + g * HD;
-    bf16* dst = cache.row(bi, pos) + g * HD + d;
+    T* dst = cache.row(bi, pos) + g * HD + d;
     if (ROPE) {
       const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
-      dst[0] = __float2bfloat16(kh[d] * cosr[d] + rot * sinr[d]);
+      put_kv(dst, kh[d] * cosr[d] + rot * sinr[d], cache.scale(g * HD + d));
     } else {
-      dst[0] = __float2bfloat16(kh[d]);
+      put_kv(dst, kh[d], cache.scale(g * HD + d));
     }
-    dst[dkv] = __float2bfloat16(row[dq + dkv + g * HD + d]);
+    put_kv(dst + dkv, row[dq + dkv + g * HD + d],
+           cache.scale(dkv + g * HD + d));
   }
   __syncthreads();  // the appended row and q are visible to the block
 
@@ -411,13 +527,11 @@ rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
 #pragma unroll
       for (int j = 0; j < DPL; ++j) kf[u][j] = vf[u][j] = 0.f;
       if (t <= pos) {
-        const bf16* kr = cache.row(bi, t) + g * HD + lane * DPL;
+        const T* kr = cache.row(bi, t) + g * HD + lane * DPL;
 #pragma unroll
         for (int j = 0; j < DPL; j += 2) {
-          const float2 a = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(kr + j));
-          const float2 c = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(kr + dkv + j));
+          const float2 a = get2(kr + j);
+          const float2 c = get2(kr + dkv + j);
           kf[u][j] = a.x; kf[u][j + 1] = a.y;
           vf[u][j] = c.x; vf[u][j + 1] = c.y;
         }
@@ -465,7 +579,9 @@ rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
       L += wl[w * REP + r] * e;
       A += wacc[(w * REP + r) * HD + d] * e;
     }
-    attn[(long)bi * dq + (g * REP + r) * HD + d] = __float2bfloat16(A / L);
+    float o = A / L;
+    if constexpr (KV::Q8) o *= cache.scale(dkv + g * HD);
+    attn[(long)bi * dq + (g * REP + r) * HD + d] = __float2bfloat16(o);
   }
 }
 
@@ -475,46 +591,50 @@ __global__ void bf16_to_f32_kernel(const bf16* __restrict__ x,
   if (i < n) y[i] = __bfloat162float(x[i]);
 }
 
-template <bool RMS, bool TWO, int B>
+template <bool RMS, bool TWO, int B, class W = bf16>
 void partial_b(const float* xf, const float* rstd, const bf16* xb,
-               const bf16* lnw, const bf16* w0, const bf16* w1, float* ws0,
+               const bf16* lnw, const void* w0, const void* w1, float* ws0,
                float* ws1, int b, int in, int out, int ks, cudaStream_t st) {
   const int kper = (in + ks - 1) / ks;
-  gemm_partial_kernel<RMS, TWO, B><<<dim3((out + COLS - 1) / COLS, ks), GT,
-                                      0, st>>>(xf, rstd, xb, lnw, w0, w1,
-                                               ws0, ws1, b, in, out, kper);
+  gemm_partial_kernel<RMS, TWO, B, W>
+      <<<dim3((out + COLS - 1) / COLS, ks), GT, 0, st>>>(
+          xf, rstd, xb, lnw, (const W*)w0, (const W*)w1, ws0, ws1, b, in, out,
+          kper);
 }
 
-// One skinny GEMM: [rms stats] -> partial products -> epilogue.
-template <int MODE>
+// One skinny GEMM: [rms stats] -> partial products -> epilogue. W is the
+// weight type (bf16, or int8 with the per-out-channel scale rows sc0 / sc1).
+template <int MODE, class W = bf16>
 cudaError_t gemm(const float* xf, const bf16* xb, const bf16* lnw,
-                 const bf16* w0, const bf16* w1, float* yf, bf16* yb,
+                 const void* w0, const void* w1, float* yf, bf16* yb,
                  float* ws0, float* ws1, float* rstd, int b, int in, int out,
-                 float eps, cudaStream_t st) {
+                 float eps, cudaStream_t st, const float* sc0 = nullptr,
+                 const float* sc1 = nullptr) {
   constexpr bool RMS = MODE != MODE_RESID;
   constexpr bool TWO = MODE == MODE_SWIGLU;
   const int ks = TWO ? ksplit_swiglu(in, out, b) : ksplit(in, out);
   if (RMS) rms_stats_kernel<<<b, GT, 0, st>>>(xf, rstd, in, eps);
-  if (b <= 1) partial_b<RMS, TWO, 1>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  else if (b <= 2) partial_b<RMS, TWO, 2>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  else if (b <= 4) partial_b<RMS, TWO, 4>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  if (b <= 1) partial_b<RMS, TWO, 1, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  else if (b <= 2) partial_b<RMS, TWO, 2, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+  else if (b <= 4) partial_b<RMS, TWO, 4, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
   else if (b > 8) return cudaErrorInvalidValue;
   else if (TWO) {  // swiglu_two_pass: gate into ws0, then up into ws1
-    partial_b<RMS, false, 8>(xf, rstd, xb, lnw, w0, nullptr, ws0, nullptr, b, in, out, ks, st);
-    partial_b<RMS, false, 8>(xf, rstd, xb, lnw, w1, nullptr, ws1, nullptr, b, in, out, ks, st);
+    partial_b<RMS, false, 8, W>(xf, rstd, xb, lnw, w0, nullptr, ws0, nullptr, b, in, out, ks, st);
+    partial_b<RMS, false, 8, W>(xf, rstd, xb, lnw, w1, nullptr, ws1, nullptr, b, in, out, ks, st);
   } else {
-    partial_b<RMS, false, 8>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
+    partial_b<RMS, false, 8, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
   }
   const int n = b * out;
-  gemm_epilogue_kernel<MODE><<<(n + 255) / 256, 256, 0, st>>>(ws0, ws1, ks, n,
-                                                              yf, yb);
+  gemm_epilogue_kernel<MODE, WTraits<W>::SCALED>
+      <<<(n + 255) / 256, 256, 0, st>>>(ws0, ws1, ks, n, yf, yb, sc0, sc1,
+                                        out);
   return cudaGetLastError();
 }
 
 template <int HD, int REP, bool ROPE, class KV>
 cudaError_t attn_launch(const float* qkv, const KV& cache, bf16* attn, int b,
                         int nkv, float scale, cudaStream_t st) {
-  const int smem = (REP * HD + 2 * NWA * REP + NWA * REP * HD) * 4;
+  const int smem = attn_smem(HD, REP);
   static bool opted_in = false;  // above 48 KB needs the opt-in, once
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -566,6 +686,8 @@ long ws_layout(int b, int h, int dq, int dqkv, int ffn, long* n0) {
 // The gpt mode's operands follow, null for llama: the LayerNorm biases, the
 // four product biases (wg is fc_in and wd fc_out; wu is unused) and the
 // bf16 LayerNorm rows xn (b, h).
+// The int8-weight mode reads the five weight pointers as int8 and takes the
+// scale rows sqkv (L, dqkv), so, sg, su, sd (null for bf16 weights).
 struct Stack {
   const bf16 *x_in, *ln1, *wqkv, *wo, *ln2, *wg, *wu, *wd;
   bf16* x_out;
@@ -577,12 +699,24 @@ struct Stack {
   const bf16 *ln1_b = nullptr, *bqkv = nullptr, *bo = nullptr,
              *ln2_b = nullptr, *bg = nullptr, *bd = nullptr;
   bf16* xn = nullptr;
+  const float *sqkv = nullptr, *so = nullptr, *sg = nullptr, *su = nullptr,
+              *sd = nullptr;
 };
+
+// Layer l's slice of a weight stack of type W (`per` elements a layer), and
+// of a scale-row stack (null stays null).
+template <class W>
+const W* wslice(const bf16* stack, int l, long per) {
+  return reinterpret_cast<const W*>(stack) + l * per;
+}
+const float* srow(const float* rows, int l, int per) {
+  return rows ? rows + (long)l * per : nullptr;
+}
 
 // The attention half of layer l (K2's, K5's and K6's): qkv GEMM with the
 // RMSNorm prologue, rope + append + attention over kv, o-proj with the
 // residual epilogue into a.xf — 6 launches on `st`.
-template <class KV>
+template <class W = bf16, class KV>
 cudaError_t attention_half(const Stack& a, int l, const KV& kv, float* rstd,
                            float* ws0, float* ws1, cudaStream_t st) {
   const int b = a.b, h = a.h, hd = a.hd;
@@ -590,16 +724,17 @@ cudaError_t attention_half(const Stack& a, int l, const KV& kv, float* rstd,
   const int rep = a.nh / a.nkv;
   const float scale = 1.f / sqrtf((float)hd);
   const bf16* ln1l = a.ln1 + (long)l * h;
-  const bf16* wqkvl = a.wqkv + (long)l * h * dqkv;
-  const bf16* wol = a.wo + (long)l * dq * h;
-  cudaError_t e = gemm<MODE_QKV>(a.xf, nullptr, ln1l, wqkvl, nullptr, a.qkv,
-                                 nullptr, ws0, ws1, rstd, b, h, dqkv, a.eps,
-                                 st);
+  const W* wqkvl = wslice<W>(a.wqkv, l, (long)h * dqkv);
+  const W* wol = wslice<W>(a.wo, l, (long)dq * h);
+  cudaError_t e = gemm<MODE_QKV, W>(a.xf, nullptr, ln1l, wqkvl, nullptr,
+                                    a.qkv, nullptr, ws0, ws1, rstd, b, h, dqkv,
+                                    a.eps, st, srow(a.sqkv, l, dqkv));
   if (e != cudaSuccess) return e;
   e = attn_any<true>(hd, rep, a.qkv, kv, a.attn, b, a.nkv, scale, st);
   if (e != cudaSuccess) return e;
-  return gemm<MODE_RESID>(nullptr, a.attn, nullptr, wol, nullptr, a.xf,
-                          nullptr, ws0, ws1, rstd, b, dq, h, a.eps, st);
+  return gemm<MODE_RESID, W>(nullptr, a.attn, nullptr, wol, nullptr, a.xf,
+                             nullptr, ws0, ws1, rstd, b, dq, h, a.eps, st,
+                             srow(a.so, l, h));
 }
 
 // ---------------------------------------------------------------------------
@@ -749,9 +884,9 @@ cudaError_t gpt_layer(const Stack& a, int l, const KV& kv, cudaStream_t st) {
 }
 
 // Per layer: the attention half over layer_kv(l), then gate/up and down —
-// 1 + 11L launches on `st` (the gpt mode: gpt_layer, also 11 a layer).
-// Returns the first CUDA error.
-template <class LayerKV>
+// 1 + 11L launches on `st` (the gpt mode: gpt_layer, also 11 a layer). W is
+// the llama weight type. Returns the first CUDA error.
+template <class W = bf16, class LayerKV>
 cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
   const int L = a.L, b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
@@ -769,17 +904,18 @@ cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
       continue;
     }
     const bf16* ln2l = a.ln2 + (long)l * h;
-    const bf16* wgl = a.wg + (long)l * h * ffn;
-    const bf16* wul = a.wu + (long)l * h * ffn;
-    const bf16* wdl = a.wd + (long)l * ffn * h;
-    e = attention_half(a, l, layer_kv(l), rstd, ws0, ws1, st);
+    const W* wgl = wslice<W>(a.wg, l, (long)h * ffn);
+    const W* wul = wslice<W>(a.wu, l, (long)h * ffn);
+    const W* wdl = wslice<W>(a.wd, l, (long)ffn * h);
+    e = attention_half<W>(a, l, layer_kv(l), rstd, ws0, ws1, st);
     if (e != cudaSuccess) break;
-    e = gemm<MODE_SWIGLU>(a.xf, nullptr, ln2l, wgl, wul, nullptr, a.act, ws0,
-                          ws1, rstd, b, h, ffn, a.eps, st);
+    e = gemm<MODE_SWIGLU, W>(a.xf, nullptr, ln2l, wgl, wul, nullptr, a.act,
+                             ws0, ws1, rstd, b, h, ffn, a.eps, st,
+                             srow(a.sg, l, ffn), srow(a.su, l, ffn));
     if (e != cudaSuccess) break;
-    e = gemm<MODE_RESID>(nullptr, a.act, nullptr, wdl, nullptr, a.xf,
-                         l == L - 1 ? a.x_out : nullptr, ws0, ws1, rstd, b,
-                         ffn, h, a.eps, st);
+    e = gemm<MODE_RESID, W>(nullptr, a.act, nullptr, wdl, nullptr, a.xf,
+                            l == L - 1 ? a.x_out : nullptr, ws0, ws1, rstd, b,
+                            ffn, h, a.eps, st, srow(a.sd, l, h));
   }
   return e;
 }
@@ -1044,11 +1180,16 @@ VSplit vsplit(int in, int out, int slots = 1) {
   return VSplit{(in + kper - 1) / kper, kper};
 }
 
+// Dynamic shared memory of one tensor-core product block of MT row tiles.
+constexpr int tc_smem(int mt) {
+  return VSTAGES * (VK * VN + mt * 16 * VK) * (int)sizeof(bf16);
+}
+
 // One launch of gz product blocks' worth of tiles (blockIdx.z < gz).
 template <int MT, class Ops>
 cudaError_t tc_launch(const Ops& ops, int in, int out, const VSplit& s,
                       int gz, cudaStream_t st) {
-  const int smem = VSTAGES * (VK * VN + MT * 16 * VK) * (int)sizeof(bf16);
+  const int smem = tc_smem(MT);
   static bool opted_in = false;  // above 48 KB needs the opt-in, once
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1308,11 +1449,17 @@ verify_attn_kernel(const float* __restrict__ qkv, const VerifyKV kv,
   }
 }
 
+// Dynamic shared memory of one verify attention block: QG queries of
+// head_dim hd and a block table of mb entries.
+constexpr int verify_smem(int hd, int qg, int mb) {
+  return (qg * hd + 2 * VNW * qg + VNW * qg * hd) * 4 + mb * 4;
+}
+
 template <int HD, int QG, bool ROPE>
 cudaError_t verify_attn_group(const float* qkv, const VerifyKV& kv,
                               bf16* attn, int b, int K1, int nkv, int rep,
                               float scale, cudaStream_t st) {
-  const int smem = (QG * HD + 2 * VNW * QG + VNW * QG * HD) * 4 + kv.MB * 4;
+  const int smem = verify_smem(HD, QG, kv.MB);
   static int opted_in = 0;  // above 48 KB needs the opt-in
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1853,23 +2000,43 @@ extern "C" long fused_decode_llama_workspace(int b, int h, int nh, int nkv,
 // K2 — one decode step through all L layers. Stacked weights (L, ...) as
 // built by build_fused_params; kv (L, b, S, 2*nkv*hd) is updated in place at
 // `pos`. Scratch: xf (b,h) f32, qkv (b,dqkv) f32, attn (b,dq) bf16,
-// act (b,ffn) bf16, ws (fused_decode_llama_workspace floats). Returns the
-// first CUDA error, 0 on success.
+// act (b,ffn) bf16, ws (fused_decode_llama_workspace floats). The int8
+// modes: scale rows sqkv, so, sg, su, sd ((L, out) fp32 each) make the five
+// weight stacks int8; kv scales kvs ((L, 2*nkv*hd) fp32) make kv int8. Null
+// pointers select bf16. Returns the first CUDA error, 0 on success.
 extern "C" int fused_decode_llama(
     const void* x_in, void* x_out, const void* ln1, const void* wqkv,
     const void* wo, const void* ln2, const void* wg, const void* wu,
-    const void* wd, void* kv, const void* cosr, const void* sinr, void* xf,
-    void* qkv, void* attn, void* act, void* ws, int L, int b, int h, int nh,
-    int nkv, int hd, int ffn, int S, int pos, float eps, void* stream) {
-  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
-                             qkv, attn, act, ws, L, b, h, nh, nkv, hd, ffn,
-                             eps);
+    const void* wd, const void* sqkv, const void* so, const void* sg,
+    const void* su, const void* sd, void* kv, const void* kvs,
+    const void* cosr, const void* sinr, void* xf, void* qkv, void* attn,
+    void* act, void* ws, int L, int b, int h, int nh, int nkv, int hd,
+    int ffn, int S, int pos, float eps, void* stream) {
+  Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf, qkv,
+                       attn, act, ws, L, b, h, nh, nkv, hd, ffn, eps);
+  a.sqkv = (const float*)sqkv;
+  a.so = (const float*)so;
+  a.sg = (const float*)sg;
+  a.su = (const float*)su;
+  a.sd = (const float*)sd;
+  const bool w8 = sqkv != nullptr;
   const int dkv2 = 2 * nkv * hd;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (kvs != nullptr) {
+    auto layer_kv = [=](int l) {
+      return ContigKV8{(int8_t*)kv + (long)l * b * S * dkv2,
+                       (const float*)cosr, (const float*)sinr,
+                       (const float*)kvs + (long)l * dkv2, S, dkv2, pos};
+    };
+    return (int)(w8 ? decode_stack<int8_t>(a, layer_kv, st)
+                    : decode_stack<bf16>(a, layer_kv, st));
+  }
   auto layer_kv = [=](int l) {
     return ContigKV{(bf16*)kv + (long)l * b * S * dkv2, (const float*)cosr,
                     (const float*)sinr, S, dkv2, pos};
   };
-  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+  return (int)(w8 ? decode_stack<int8_t>(a, layer_kv, st)
+                  : decode_stack<bf16>(a, layer_kv, st));
 }
 
 // K5 — one decode step through all L layers over the PAGED pool. Replaces
@@ -1986,18 +2153,28 @@ extern "C" long fused_decode_gpt_workspace(int b, int h, int nh, int nkv,
 
 // K2, gpt mode — one decode step through all L layers over the contiguous
 // cache (L, b, S, 2*nkv*hd), updated in place at `pos`; 1 + 11L launches.
+// Non-null kv scales kvs ((L, 2*nkv*hd) fp32) make kv int8 (the int8 KV
+// mode); the gpt mode takes bf16 weights only, as the reference's.
 extern "C" int fused_decode_gpt(
     const void* x_in, void* x_out, const void* ln1, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* ln2, const void* ln2_b, const void* wg, const void* bg,
-    const void* wd, const void* bd, void* kv, void* xf, void* xn, void* qkv,
-    void* attn, void* act, void* ws, int L, int b, int h, int nh, int nkv,
-    int hd, int ffn, int S, int pos, float eps, void* stream) {
+    const void* wd, const void* bd, void* kv, const void* kvs, void* xf,
+    void* xn, void* qkv, void* attn, void* act, void* ws, int L, int b, int h,
+    int nh, int nkv, int hd, int ffn, int S, int pos, float eps,
+    void* stream) {
   const Stack a = make_gpt_stack(x_in, x_out, ln1, ln1_b, wqkv, bqkv, wo, bo,
                                  ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
                                  attn, act, ws, L, b, h, nh, nkv, hd, ffn,
                                  eps);
   const int dkv2 = 2 * nkv * hd;
+  if (kvs != nullptr) {
+    auto layer_kv8 = [=](int l) {
+      return ContigKV8{(int8_t*)kv + (long)l * b * S * dkv2, nullptr, nullptr,
+                       (const float*)kvs + (long)l * dkv2, S, dkv2, pos};
+    };
+    return (int)decode_stack(a, layer_kv8, (cudaStream_t)stream);
+  }
   auto layer_kv = [=](int l) {
     return ContigKV{(bf16*)kv + (long)l * b * S * dkv2, nullptr, nullptr, S,
                     dkv2, pos};
@@ -2055,4 +2232,19 @@ extern "C" int fused_paged_verify_gpt(
   return (int)verify_stack(a, (bf16*)kv_pool, (const int*)tables,
                            (const int*)positions, nullptr, nullptr, NB, BT,
                            MB, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory a block of these kernels asks for: kind 0 the
+// decode attention (a = head_dim, b = query heads per kv head), 1 the
+// tensor-core product (a = 16-row tiles), 2 the verify attention (a =
+// head_dim, b = queries per block, c = block-table entries). -1 for an
+// unknown kind. The launchers compute their requests with the same
+// functions, so a caller can hold them to the device's opt-in budget.
+extern "C" int fused_decode_dynamic_smem(int kind, int a, int b, int c) {
+  switch (kind) {
+    case 0: return attn_smem(a, b);
+    case 1: return tc_smem(a);
+    case 2: return verify_smem(a, b, c);
+  }
+  return -1;
 }

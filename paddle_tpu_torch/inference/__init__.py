@@ -121,16 +121,19 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
     trimmed. ``return_lengths=True`` also returns the per-row generated
     length (tokens before the first eos) as an int32 numpy array.
 
-    Not ported yet (they raise NotImplementedError): ``cache_dtype=int8``,
-    ``deadline_s`` and the OOM degradation ladder (``_kv_chunk``) — ROADMAP
-    Queue A item 6.
+    ``cache_dtype=torch.int8`` is the int8 KV-cache decode mode: the
+    prompt prefills in bf16 (the calibration pass), the stacked cache is
+    quantized with per-(layer, kv head) scales (``quantize_kv_cache``), and
+    every decode step reads int8 KV. It needs the fused plan (llama and gpt;
+    ValueError otherwise). A weight-only int8 model
+    (``quantization.quantize_model``) decodes on its int8 stacks with
+    either cache.
+
+    Not ported yet (they raise NotImplementedError): ``deadline_s`` and the
+    OOM degradation ladder (``_kv_chunk``) — ROADMAP Queue A item 6.
     """
     from paddle_tpu_torch.core.flags import flag
 
-    if cache_dtype == torch.int8:
-        raise NotImplementedError(
-            "cache_dtype=int8 (int8 KV decode) is not ported yet "
-            "(ROADMAP Queue A item 6)")
     if deadline_s is not None:
         raise NotImplementedError(
             "deadline_s is not ported yet (ROADMAP Queue A item 6)")
@@ -149,15 +152,23 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
             and hasattr(model, "fused_decode_plan") else None)
     if plan is not None and b > plan.get("max_batch", b):
         plan = None     # e.g. MoE: no drops only while b <= capacity
-    if plan is not None and torch.empty((), dtype=cache_dtype).element_size() != 2:
+    kv_int8 = cache_dtype == torch.int8
+    if plan is not None and not kv_int8 \
+            and torch.empty((), dtype=cache_dtype).element_size() != 2:
         plan = None     # an fp32 cache rides the layered path (reference)
+    if kv_int8 and plan is None:
+        raise ValueError(
+            "cache_dtype=int8 requires the fused decode path (an eligible "
+            "fused_decode_plan); this model/config cannot ride it")
     if plan is not None:
         total = -(-total // 128) * 128
     eos = -1 if eos_token_id is None else int(eos_token_id)
     seeds0 = _request_seeds(request_seeds, seed, b, device=dev)
 
     with torch.inference_mode():
-        out, cache = prefill(model, input_ids, total, cache_dtype,
+        # the int8 mode prefills in bf16: the calibration pass
+        out, cache = prefill(model, input_ids, total,
+                             torch.bfloat16 if kv_int8 else cache_dtype,
                              fused=plan is not None)
         keys = _row_keys(seeds0)
         tok = _sample_logits(out[:, -1, :], _fold_rows(keys, 0),
@@ -165,10 +176,17 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
         del out
         finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         toks = [tok]
+        kv_scales = None
         if plan is not None:
             from paddle_tpu_torch.ops import rope as rope_ops
-            from paddle_tpu_torch.ops.fused_decode import fused_decode_step
+            from paddle_tpu_torch.ops.fused_decode import (fused_decode_step,
+                                                          quantize_kv_cache)
             plan = model.fused_decode_plan(state)
+            blocks = plan["blocks"]
+            if kv_int8:
+                cache, kv_scales = quantize_kv_cache(cache,
+                                                     plan["num_kv_heads"])
+                blocks = dict(blocks, cache_wbytes=1)
             cos_tab, sin_tab = rope_ops.rope_cos_sin(
                 total, plan["head_dim"], base=plan["rope_base"], device=dev)
         for i in range(1, max_new_tokens):
@@ -183,7 +201,8 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,
                     sin_tab[pos:pos + 1], num_heads=plan["num_heads"],
                     num_kv_heads=plan["num_kv_heads"], eps=plan["eps"],
                     arch=plan.get("arch", "llama"),
-                    top_k=plan.get("top_k", 2), blocks=plan["blocks"])
+                    top_k=plan.get("top_k", 2), blocks=blocks,
+                    kv_scales=kv_scales)
                 logits = plan["head"](x)
             else:
                 logits, cache = model(tok[:, None], cache=cache,

@@ -207,9 +207,10 @@ class GPTPretrainModel(nn.Layer):
         arch="gpt": LayerNorm with bias, MHA, biases on all four products,
         tanh-GELU FFN, no rope): stacked per-layer weights plus embed/head
         closures, or None when this config cannot ride it (odd head_dim,
-        non-standard state). ``rope_base`` is meta only: the gpt step takes
-        no rope. With probe=True only eligibility and static meta are
-        computed."""
+        non-standard state, a weight-only int8 state: the reference builds
+        no int8 gpt stacks). It takes a bf16 or an int8 KV cache.
+        ``rope_base`` is meta only: the gpt step takes no rope. With
+        probe=True only eligibility and static meta are computed."""
         cfg = self.cfg
         hd = cfg.hidden_size // cfg.num_heads
         if hd % 2 or "gpt.h.0.attn.qkv_proj.weight" not in state:

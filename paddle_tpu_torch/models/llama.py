@@ -255,14 +255,19 @@ class LlamaForCausalLM(CausalLMBase):
         """Plan for the fused decode-step path (ops.fused_decode): stacked
         per-layer weights plus embed/head closures, or None when this
         config can't ride it (odd head_dim, non-standard state). llama,
-        bf16 or fp32 weights; the CUDA kernel itself takes bf16 only.
+        bf16 or fp32 weights, or a weight-only int8 state
+        (``quantization.quantize_model``: int8 stacks with per-out-channel
+        scale rows, the head ``weight_only_linear``'s product on the
+        dequantized ``lm_head``); the CUDA kernel itself takes bf16 or int8
+        weights.
 
         With probe=True only eligibility + static meta are computed."""
         cfg = self.cfg
         if cfg.head_dim % 2:
             return None
-        if "model.layers.0.self_attn.q_proj.weight" not in state:
-            return None     # non-standard state (e.g. int8, not ported)
+        int8 = "model.layers.0.self_attn.q_proj.weight_q" in state
+        if not int8 and "model.layers.0.self_attn.q_proj.weight" not in state:
+            return None     # non-standard state
         from paddle_tpu_torch.ops import fused_decode as fd
         from paddle_tpu_torch.ops.rms_norm import rms_norm
         hd = cfg.head_dim
@@ -281,14 +286,26 @@ class LlamaForCausalLM(CausalLMBase):
                                        ffn_pad=blocks["ffn_pad"])
         embed_w = state["model.embed_tokens.weight"]
         norm_w = state["model.norm.weight"]
-        head_w = state["lm_head.weight"]
 
         def embed(tok, pos):          # (b,), scalar or (b,) -> (b, h)
             del pos                   # rope positions, not learned
             return embed_w[tok]
 
+        if int8 and "lm_head.weight_q" in state:
+            hq, hs = state["lm_head.weight_q"], state["lm_head.weight_scale"]
+            deq = {}
+
+            def head_mm(xn):
+                # weight_only_linear(xn, hq, hs), its dequantized weight
+                # made once for the plan's life rather than once per step
+                w = deq.get(xn.dtype)
+                if w is None:
+                    w = deq[xn.dtype] = hq.to(xn.dtype) * hs.to(xn.dtype)
+                return torch.matmul(xn, w)
+        else:
+            head_mm = lambda xn: torch.matmul(xn, state["lm_head.weight"])
+
         def head(x):                          # (b, h) -> (b, vocab)
-            return torch.matmul(rms_norm(x, norm_w, cfg.rms_norm_eps),
-                                head_w)
+            return head_mm(rms_norm(x, norm_w, cfg.rms_norm_eps))
 
         return dict(meta, params=params, embed=embed, head=head)

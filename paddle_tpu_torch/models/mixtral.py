@@ -209,7 +209,7 @@ class MixtralForCausalLM(CausalLMBase):
         dq = cfg.num_heads * hd
         blocks = fd.decode_block_plan(
             cfg.hidden_size, dq + 2 * cfg.kv_heads * hd, dq, hd,
-            cfg.intermediate_size, wbytes=2)
+            cfg.intermediate_size)
         meta = {
             "num_heads": cfg.num_heads, "num_kv_heads": cfg.kv_heads,
             "head_dim": hd, "eps": cfg.rms_norm_eps,

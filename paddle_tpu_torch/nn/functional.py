@@ -19,7 +19,12 @@ def gelu(x, approximate=False):
 
 
 def linear(x, weight, bias=None):
-    """y = x @ W (+ b). Weight layout (in, out) — matches the reference."""
+    """y = x @ W (+ b). Weight layout (in, out) — matches the reference.
+    Mixed dtypes promote as ``jnp.matmul`` does (an fp32 model reading a
+    weight-only int8 layer's bf16 dequantized weight runs in fp32)."""
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     y = torch.matmul(x, weight)
     if bias is not None:
         y = y + bias

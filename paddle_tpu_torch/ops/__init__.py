@@ -1,5 +1,6 @@
 """Ops: RMSNorm, RoPE, attention and the fused decode step, each CUDA kernel
-beside its plain PyTorch version; and the tied unembedding."""
+beside its plain PyTorch version; the shared-memory probe; and the tied
+unembedding."""
 
 import torch
 

@@ -32,9 +32,17 @@ the paged pool:
   routed-expert SwiGLU, optional shared experts) over the flat cache; CUDA
   tensors launch K6 (``fused_decode_moe`` in the same source file;
   replaces ``_fused_decode_moe_pallas``, :1049).
-* ``decode_block_plan`` — kept for its ``ffn_pad`` key only.
+* ``decode_block_plan`` — kept for its ``ffn_pad`` and ``cache_wbytes``
+  keys. ``dynamic_smem_bytes`` gives the kernels' shared-memory requests,
+  which a caller can hold to the probed budget (``ops/smem_probe.py``).
+* The int8 modes of the contiguous step (reference :235-287, :353,
+  :437-474): ``build_fused_params`` of a weight-only int8 state gives int8
+  stacks with per-out-channel scale rows (llama), ``quantize_kv_cache``
+  an int8 cache with per-(layer, kv head) scales (llama and gpt); both
+  ride K2 (``fused_decode_cuda``) and the plain version.
 
-K5 and K7 take arch llama and gpt, as the reference's paged steps do.
+K5 and K7 take arch llama and gpt, as the reference's paged steps do, and
+no int8 mode yet (ROADMAP Queue B rows 5 and 6); K6 no int8 KV (row 7).
 
 The KV cache is COMBINED and FLAT, (L, b, S, 2*nkv*hd) with k in lanes
 [0, nkv*hd). Unlike the JAX functions, every version here updates the cache
@@ -60,11 +68,15 @@ NEG_INF = -1e30
 
 
 def decode_block_plan(h: int, dqkv: int, dq: int, hd: int, ffn: int,
-                      wbytes: int = 2, cache_wbytes: int = 2) -> Dict:
+                      cache_wbytes: int = 2) -> Dict:
     """The TPU plan picks VMEM column blocks and pads the FFN to them; that
-    has no meaning on Hopper. Only ``ffn_pad`` is kept, unpadded (= ffn),
-    with ``cache_wbytes`` for the consistency check."""
+    has no meaning on Hopper. Kept: ``ffn_pad``, unpadded (= ffn), and
+    ``cache_wbytes`` (1 = the int8 cache) for the consistency check."""
     return {"ffn_pad": ffn, "cache_wbytes": cache_wbytes}
+
+
+#: the int8 weight stacks, each with a scale row stack "<key>_s"
+_SCALED_KEYS = ("wqkv", "wo", "wg", "wu", "wd")
 
 
 def build_fused_params(state: Dict[str, torch.Tensor], num_layers: int,
@@ -73,29 +85,48 @@ def build_fused_params(state: Dict[str, torch.Tensor], num_layers: int,
     """Stack a Llama-style flat state dict into per-layer-stacked arrays:
     {ln1 (L,h), wqkv (L,h,(nh+2nkv)*hd), wo (L,nh*hd,h), ln2 (L,h),
     wg (L,h,ffn), wu (L,h,ffn), wd (L,ffn,h)}. ``ffn_pad`` > ffn zero-pads
-    the FFN (SwiGLU pad columns contribute silu(0)*0 = 0 exactly)."""
-    if f"{prefix}0.self_attn.q_proj.weight_q" in state:
-        raise NotImplementedError(
-            "int8 weight stacks are not ported yet (ROADMAP Queue B row 4)")
+    the FFN (SwiGLU pad columns contribute silu(0)*0 = 0 exactly).
+
+    A weight-only int8 state (``quantization``: ``weight_q`` +
+    ``weight_scale`` keys) gives int8 weight stacks plus per-out-channel
+    fp32 scale rows {wqkv_s (L,1,dqkv), wo_s, wg_s, wu_s, wd_s} that scale
+    the products' outputs (reference ``fused_decode.py:235-287``)."""
+    int8 = f"{prefix}0.self_attn.q_proj.weight_q" in state
+
+    def layer(i, name):
+        if int8:
+            return (state[f"{prefix}{i}.{name}.weight_q"],
+                    state[f"{prefix}{i}.{name}.weight_scale"])
+        return state[f"{prefix}{i}.{name}.weight"], None
+
     g = lambda i, n: state[f"{prefix}{i}.{n}"]
     cols = {k: [] for k in ("ln1", "wqkv", "wo", "ln2", "wg", "wu", "wd")}
+    scales = {k: [] for k in _SCALED_KEYS}
     for i in range(num_layers):
+        qkv = [layer(i, f"self_attn.{n}_proj") for n in ("q", "k", "v")]
+        ws = {"wqkv": (torch.cat([w for w, _ in qkv], dim=1),
+                       torch.cat([sc for _, sc in qkv]) if int8 else None),
+              "wo": layer(i, "self_attn.o_proj"),
+              "wg": layer(i, "mlp.gate_proj"), "wu": layer(i, "mlp.up_proj"),
+              "wd": layer(i, "mlp.down_proj")}
         cols["ln1"].append(g(i, "input_layernorm.weight"))
-        cols["wqkv"].append(torch.cat(
-            [g(i, f"self_attn.{n}_proj.weight") for n in ("q", "k", "v")],
-            dim=1))
-        cols["wo"].append(g(i, "self_attn.o_proj.weight"))
         cols["ln2"].append(g(i, "post_attention_layernorm.weight"))
-        cols["wg"].append(g(i, "mlp.gate_proj.weight"))
-        cols["wu"].append(g(i, "mlp.up_proj.weight"))
-        cols["wd"].append(g(i, "mlp.down_proj.weight"))
+        for k, (w, sc) in ws.items():
+            cols[k].append(w)
+            scales[k].append(sc)
     out = {k: torch.stack(v) for k, v in cols.items()}
+    if int8:
+        for k, v in scales.items():
+            out[f"{k}_s"] = torch.stack(v).float()[:, None, :]
     ffn = out["wg"].shape[2]
     if ffn_pad > ffn:
         p = ffn_pad - ffn
         out["wg"] = torch.nn.functional.pad(out["wg"], (0, p))
         out["wu"] = torch.nn.functional.pad(out["wu"], (0, p))
         out["wd"] = torch.nn.functional.pad(out["wd"], (0, 0, 0, p))
+        for k in ("wg_s", "wu_s"):      # pad weights are 0: scale inert
+            if k in out:
+                out[k] = torch.nn.functional.pad(out[k], (0, p), value=1.0)
     return out
 
 
@@ -149,6 +180,26 @@ def build_fused_params_moe(state: Dict[str, torch.Tensor], num_layers: int,
     return {k: torch.stack(v) for k, v in cols.items()}
 
 
+def quantize_kv_cache(kv, num_kv_heads: int):
+    """Quantize a flat KV cache (L, b, S, 2*nkv*hd) to int8 with symmetric
+    per-(layer, kv head) scales calibrated from its contents (reference
+    ``fused_decode.py:353``): scale = max(absmax / 127, 1e-8), replicated
+    over each head's hd lanes. Returns (cache int8, scales (L, 1,
+    2*nkv*hd) fp32). Runs one layer at a time, so the fp32 temporaries are
+    one layer's."""
+    L, b, S, dkv2 = kv.shape
+    hd = dkv2 // (2 * num_kv_heads)
+    q = torch.empty(kv.shape, dtype=torch.int8, device=kv.device)
+    lanes = torch.empty((L, 1, dkv2), dtype=torch.float32, device=kv.device)
+    for l in range(L):
+        kf = kv[l].float()
+        amax = kf.abs().amax(dim=(0, 1)).reshape(2 * num_kv_heads, hd)
+        scales = torch.clamp(amax.amax(dim=-1) / 127.0, min=1e-8)
+        lanes[l, 0] = scales.repeat_interleave(hd)
+        q[l] = torch.clamp(torch.round(kf / lanes[l]), -127, 127)
+    return q, lanes
+
+
 def _rms(x, w, eps):
     """fp32 rms-normalize, cast to w.dtype, times w (ops.rms_norm path)."""
     xf = x.float()
@@ -184,19 +235,44 @@ def _wdot(act, w):
 
 def _refuse_unported(arch, params, kv_scales, row="4"):
     """The contiguous step (row 4) takes arch llama, gpt and moe (row 7),
-    the paged ones llama and gpt, as the reference's; none takes int8
-    weights or int8 KV yet."""
+    the paged ones (row 5) llama and gpt, as the reference's. Int8 weights
+    ride the contiguous llama step, and an int8 KV cache its llama and gpt
+    steps; the paged steps and the MoE step take no int8 mode yet. The
+    reference has no int8-weight mode for gpt or moe at all."""
     archs = ("llama", "gpt", "moe") if row == "4" else ("llama", "gpt")
     if arch not in archs:
         raise NotImplementedError(
             f"fused decode (ROADMAP Queue B row {row}) takes arch "
             f"{'/'.join(archs)}, got {arch!r}")
-    if arch == "moe":
-        row = "7"
-    if kv_scales is not None or "wqkv_s" in params:
+    int8_w = "wqkv_s" in params
+    if row != "4" and (kv_scales is not None or int8_w):
         raise NotImplementedError(
-            f"fused decode arch={arch!r} with int8 weights or int8 KV is not "
-            f"ported yet (ROADMAP Queue B row {row})")
+            f"paged decode with int8 weights or the int8 pool is not ported "
+            f"yet (ROADMAP Queue B row {row})")
+    if arch == "moe" and kv_scales is not None:
+        raise NotImplementedError(
+            "fused decode arch='moe' with an int8 KV cache is not ported "
+            "yet (ROADMAP Queue B row 7)")
+    if int8_w and arch != "llama":
+        raise NotImplementedError(
+            f"fused decode arch={arch!r} takes no int8 weights: the "
+            f"reference has no such mode (ROADMAP Queue B row "
+            f"{'7' if arch == 'moe' else '4'})")
+
+
+def _check_kv_mode(kv_cache, kv_scales):
+    if (kv_scales is not None) != (kv_cache.dtype == torch.int8):
+        raise ValueError("an int8 KV cache needs kv_scales, and kv_scales "
+                         f"an int8 cache (the cache is {kv_cache.dtype})")
+
+
+def _pdot(act, params, key, l):
+    """act @ params[key][l] in fp32; with int8 weights the product's output
+    times the per-out-channel scale row params[key + "_s"][l] (the
+    reference's ``y * s`` after the full dot, :437-443)."""
+    y = _wdot(act, params[key][l])
+    s = params.get(f"{key}_s")
+    return y if s is None else y * s[l]
 
 
 def _attend(q, kl, vl, valid, scale):
@@ -215,10 +291,10 @@ def _attend(q, kl, vl, valid, scale):
 def _mlp_residual(xf, params, l, eps, dtype):
     """The attention-free tail of a layer: x + down(silu(gate) * up)."""
     xn2 = _rms(xf, params["ln2"][l], eps)
-    gt = _wdot(xn2, params["wg"][l])
-    u = _wdot(xn2, params["wu"][l])
+    gt = _pdot(xn2, params, "wg", l)
+    u = _pdot(xn2, params, "wu", l)
     act = (torch.nn.functional.silu(gt) * u).to(dtype)
-    return xf + _wdot(act, params["wd"][l])
+    return xf + _pdot(act, params, "wd", l)
 
 
 def _qkv_heads(xf, params, l, eps, cos_b, sin_b, nh, nkv, arch):
@@ -232,7 +308,7 @@ def _qkv_heads(xf, params, l, eps, cos_b, sin_b, nh, nkv, arch):
         xn = _layernorm(xf, params["ln1"][l], params["ln1_b"][l], eps)
     else:
         xn = _rms(xf, params["ln1"][l], eps)
-    qkv = _wdot(xn, params["wqkv"][l])
+    qkv = _pdot(xn, params, "wqkv", l)
     if gpt:
         qkv = qkv + params["bqkv"][l]
     b = xf.shape[0]
@@ -253,7 +329,7 @@ def _layer_tail(xf, attn, params, l, eps, dtype, arch, top_k=2,
     the o-proj residual, then the FFN residual. gpt keeps the reference's
     order, ``xf + (o + bo)`` and ``(xf + fc_out) + bd``, with a tanh-GELU
     of ``fc_in + bg``; llama the SwiGLU, moe the routed experts."""
-    o = _wdot(attn, params["wo"][l])
+    o = _pdot(attn, params, "wo", l)
     if arch == "gpt":
         xf = xf + (o + params["bo"][l])
         xn2 = _layernorm(xf, params["ln2"][l], params["ln2_b"][l], eps)
@@ -356,8 +432,16 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
     weights (L, b, k), k-th-to-(k+1)-th probability gaps (L, b) and
     (k+1)-th ids (L, b); where it holds ``force_ids`` (L, b, k), those
     experts are taken instead of each layer's top-k (a check that follows
-    another router's choices)."""
+    another router's choices).
+
+    Int8 modes (reference :437-474): params with scale rows (``wqkv_s`` …,
+    ``build_fused_params`` of a quantized state) scale each product's
+    fp32 output per out channel; an int8 ``kv_cache`` with ``kv_scales``
+    (L, 1, 2*nkv*hd) (``quantize_kv_cache``) takes the append as
+    round(kv / scale) clipped to ±127 and dequantizes the keys and values
+    it reads with the lane scales."""
     _refuse_unported(arch, params, kv_scales)
+    _check_kv_mode(kv_cache, kv_scales)
     L, b, S, dkv2 = kv_cache.shape
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
@@ -370,9 +454,16 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
     for l in range(L):
         q, kv_new = _qkv_heads(xf, params, l, eps, cos_b, sin_b, nh, nkv,
                                arch)
+        if kv_scales is not None:   # quantize the append, static scales
+            kv_new = torch.clamp(torch.round(kv_new / kv_scales[l]), -127,
+                                 127)
         kv_cache[l, :, pos] = kv_new.to(kv_cache.dtype)
-        kl = kv_cache[l, :, :, :dkv].float().reshape(b, S, nkv, hd)
-        vl = kv_cache[l, :, :, dkv:].float().reshape(b, S, nkv, hd)
+        kl = kv_cache[l, :, :, :dkv].float()
+        vl = kv_cache[l, :, :, dkv:].float()
+        if kv_scales is not None:   # dequantize with the per-head scales
+            kl = kl * kv_scales[l, :, :dkv]
+            vl = vl * kv_scales[l, :, dkv:]
+        kl, vl = kl.reshape(b, S, nkv, hd), vl.reshape(b, S, nkv, hd)
         attn = _attend(q, kl, vl, valid, scale).to(dtype)
         xf = _layer_tail(xf, attn, params, l, eps, dtype, arch, top_k,
                          routing)
@@ -410,11 +501,14 @@ def _check_tensors(what, specs, device):
 
 
 def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
-                 max_rows=8, arch="llama"):
+                 max_rows=8, arch="llama", int8_row=None):
     """What K2, K5 and K7 share: x (rows, h), the stacked weights of `arch`
     (llama or gpt) and the cache (contiguous or paged; its last dim is
-    2·nkv·hd) in bf16, and the shapes the kernels take. Returns (check
-    specs, (b, h, hd, ffn))."""
+    2·nkv·hd) in bf16, and the shapes the kernels take. K2's int8 modes:
+    with scale rows in `params`, the five weight stacks in int8 and their
+    (L, 1, out) fp32 scales; an int8 cache in int8. A kernel with no int8
+    mode names its Queue B row as ``int8_row`` and refuses both. Returns
+    (check specs, (b, h, hd, ffn))."""
     L, dkv2 = cache.shape[0], cache.shape[-1]
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
@@ -438,8 +532,19 @@ def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
               "wd": (L, ffn, h), "ln1_b": (L, h), "bqkv": (L, dq + 2 * dkv),
               "bo": (L, h), "ln2_b": (L, h), "bg": (L, ffn), "bd": (L, h)}
     bf = torch.bfloat16
-    specs = [("x", x, bf, (b, h)), ("cache", cache, bf, cache.shape)]
-    specs += [(k, params[k], bf, shapes[k]) for k in _keys(arch)]
+    w8 = "wqkv_s" in params
+    cdt = torch.int8 if cache.dtype == torch.int8 else bf
+    if int8_row is not None and (w8 or cdt == torch.int8):
+        raise NotImplementedError(
+            f"{what}: int8 weights or an int8 cache are not ported yet "
+            f"(ROADMAP Queue B row {int8_row})")
+    specs = [("x", x, bf, (b, h)), ("cache", cache, cdt, cache.shape)]
+    specs += [(k, params[k],
+               torch.int8 if w8 and k in _SCALED_KEYS else bf, shapes[k])
+              for k in _keys(arch)]
+    if w8:
+        specs += [(f"{k}_s", params[f"{k}_s"], torch.float32,
+                   (L, 1, shapes[k][2])) for k in _SCALED_KEYS]
     return specs, (b, h, hd, ffn)
 
 
@@ -476,14 +581,18 @@ def _check_arch(what, arch):
 
 def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
                       num_kv_heads: int, eps: float = 1e-5,
-                      arch: str = "llama"):
+                      arch: str = "llama", kv_scales=None):
     """Wrapper of K2 (one call = one decode step through all L layers,
     1 + 11L launches on the current stream), arch llama
     (``fused_decode_llama``) or gpt (``fused_decode_gpt``, which takes no
-    rope: cos/sin are ignored). Checks dtype, shape, contiguity and device
-    and raises on anything else."""
+    rope: cos/sin are ignored). Its int8 modes: int8 weight stacks with
+    their scale rows (llama), and an int8 cache with ``kv_scales`` (L, 1,
+    2*nkv*hd) fp32 (llama and gpt). Checks dtype, shape, contiguity and
+    device and raises on anything else."""
     what = "fused_decode_cuda"
     _check_arch(what, arch)
+    _refuse_unported(arch, params, kv_scales)
+    _check_kv_mode(kv_cache, kv_scales)
     specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_cache,
                                           num_heads, num_kv_heads, arch=arch)
     L, S = kv_cache.shape[0], kv_cache.shape[2]
@@ -494,6 +603,9 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
     if arch != "gpt":
         cos, sin = cos.reshape(hd), sin.reshape(hd)
         rope = [cos, sin]
+    if kv_scales is not None:
+        specs.append(("kv_scales", kv_scales, torch.float32,
+                      (L, 1, kv_cache.shape[3])))
     _check_tensors(what, specs + _rope_specs(cos, sin, (hd,), arch),
                    x.device)
     pos = int(pos)
@@ -503,11 +615,15 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
     x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn,
                                arch)
     p = _build.ptr
+    none = ctypes.c_void_p(0)
+    opt = lambda t: none if t is None else p(t)
+    scales = ([] if arch == "gpt" else
+              [opt(params.get(f"{k}_s")) for k in _SCALED_KEYS])
     fn = lib.fused_decode_gpt if arch == "gpt" else lib.fused_decode_llama
-    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)),
-             p(kv_cache), *(p(t) for t in rope), *(p(t) for t in scratch),
-             L, b, h, num_heads, num_kv_heads, hd, ffn, S, pos, float(eps),
-             _build.stream_of(x))
+    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)), *scales,
+             p(kv_cache), opt(kv_scales), *(p(t) for t in rope),
+             *(p(t) for t in scratch), L, b, h, num_heads, num_kv_heads, hd,
+             ffn, S, pos, float(eps), _build.stream_of(x))
     fused_decode_cuda.launches += 1
     _build.check(err, f"fused_decode_{arch}")
     return x_out, kv_cache
@@ -609,7 +725,7 @@ def _kernel_lib():
     fn = lib.fused_decode_llama
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 17 + [ci] * 9 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 23 + [ci] * 9 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         pfn = lib.fused_paged_decode_llama
         pfn.argtypes = [vp] * 19 + [ci] * 10 + [ctypes.c_float, vp]
@@ -630,7 +746,7 @@ def _kernel_lib():
         mws.argtypes = [ci] * 8
         mws.restype = ctypes.c_long
         gfn = lib.fused_decode_gpt
-        gfn.argtypes = [vp] * 21 + [ci] * 9 + [ctypes.c_float, vp]
+        gfn.argtypes = [vp] * 22 + [ci] * 9 + [ctypes.c_float, vp]
         gfn.restype = ctypes.c_int
         gpfn = lib.fused_paged_decode_gpt
         gpfn.argtypes = [vp] * 23 + [ci] * 10 + [ctypes.c_float, vp]
@@ -641,7 +757,25 @@ def _kernel_lib():
         gws = lib.fused_decode_gpt_workspace
         gws.argtypes = [ci] * 6
         gws.restype = ctypes.c_long
+        sm = lib.fused_decode_dynamic_smem
+        sm.argtypes = [ci] * 4
+        sm.restype = ci
     return lib
+
+
+#: the kernels that opt in to dynamic shared memory, by the kind number of
+#: ``fused_decode_dynamic_smem`` in the source
+_SMEM_KINDS = {"attention": 0, "tensor_core_gemm": 1, "verify_attention": 2}
+
+
+def dynamic_smem_bytes(kernel: str, a: int, b: int = 0, c: int = 0) -> int:
+    """The dynamic shared memory one block of `kernel` asks for, as its
+    launcher computes it: "attention" (K2/K5/K6; a = head_dim, b = query
+    heads per kv head), "tensor_core_gemm" (K6/K7's products; a = 16-row
+    tiles), "verify_attention" (K7; a = head_dim, b = queries per block,
+    c = block-table entries). Needs the built library (a CUDA machine)."""
+    return int(_kernel_lib().fused_decode_dynamic_smem(
+        _SMEM_KINDS[kernel], a, b, c))
 
 
 def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
@@ -651,7 +785,8 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
     """Dispatch: the CUDA kernel on CUDA tensors (K2 for arch llama and
     gpt, K6 for arch moe), the plain version on CPU tensors. Args follow
     fused_decode_reference; ``top_k`` applies to arch moe only; ``blocks``
-    is checked against the cache dtype."""
+    is checked against the cache dtype; ``kv_scales`` with an int8 cache
+    selects the int8 KV mode."""
     _refuse_unported(arch, params, kv_scales)
     _check_plan(blocks, kv_cache)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps)
@@ -659,12 +794,12 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
         kw["top_k"] = top_k
     if x.device.type == "cpu":
         return fused_decode_reference(x, params, kv_cache, pos, cos, sin,
-                                      arch=arch, **kw)
+                                      arch=arch, kv_scales=kv_scales, **kw)
     if arch == "moe":
         return fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin,
                                      **kw)
     return fused_decode_cuda(x, params, kv_cache, pos, cos, sin, arch=arch,
-                             **kw)
+                             kv_scales=kv_scales, **kw)
 
 
 def _check_plan(blocks, cache):
@@ -776,7 +911,8 @@ def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
         raise ValueError(f"{what}: pool {tuple(kv_pool.shape)} must be "
                          "(L, NB, BT, 2*nkv*hd) and block_tables (b, MB)")
     specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_pool,
-                                          num_heads, num_kv_heads, arch=arch)
+                                          num_heads, num_kv_heads, arch=arch,
+                                          int8_row="5")
     L, NB, BT, _ = kv_pool.shape
     MB = block_tables.shape[1]
     _check_tensors(what, specs + [
@@ -918,7 +1054,7 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
     specs, (M, h, hd, ffn) = _stack_specs(what, rows, params, kv_pool,
                                           num_heads, num_kv_heads,
                                           max_rows=VERIFY_MAX_ROWS,
-                                          arch=arch)
+                                          arch=arch, int8_row="6")
     L, NB, BT, _ = kv_pool.shape
     MB = block_tables.shape[1]
     _check_tensors(what, specs + [

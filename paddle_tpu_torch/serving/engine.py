@@ -335,6 +335,9 @@ class ServingEngine:
                 "ServingEngine needs a fused_decode_plan-eligible model "
                 "(llama/gpt); this model/config cannot ride the paged "
                 "kernel")
+        if any(k.endswith(".weight_q") for k in state):
+            raise _unported("a weight-only int8 model (the paged steps' "
+                            "int8 weights)", "Queue B row 5")
         self.arch = meta.get("arch", "llama")
         if self.arch not in ("llama", "gpt"):
             raise ValueError(

@@ -26,6 +26,15 @@ from paddle_tpu_torch.ops.rope import rope_cos_sin as trope_cos_sin
 from paddle_tpu_torch.utils.convert import jax_state_to_torch
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Several test workers share the CPU: one torch thread per test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _state(nkv, dtype=jnp.float32):
     cfg = JLlamaConfig(vocab_size=64, hidden_size=64, intermediate_size=96,
                        num_layers=2, num_heads=4, num_kv_heads=nkv,
@@ -126,17 +135,37 @@ def test_reference_matches_interpret_kernel_bf16():
 
 
 def test_dispatch_refuses_unported_modes():
+    """The int8 modes still to port refuse, naming their Queue B row: int8
+    KV on the MoE step (row 7), int8 weights on gpt and moe (the reference
+    has no such mode), every int8 mode of the paged decode (row 5) and
+    verify (row 6) steps; so do an unknown arch and a plan made for
+    another cache width."""
     x = torch.zeros(1, 8)
     kv = torch.zeros(1, 1, 4, 8)
+    kw = dict(num_heads=1, num_kv_heads=1)
     with pytest.raises(NotImplementedError, match="llama/gpt/moe"):
-        tfd.fused_decode_step(x, {}, kv, 0, None, None, num_heads=1,
-                              num_kv_heads=1, arch="rwkv")
+        tfd.fused_decode_step(x, {}, kv, 0, None, None, arch="rwkv", **kw)
     with pytest.raises(NotImplementedError, match="row 4"):
         tfd.fused_decode_step(x, {"wqkv_s": None}, kv, 0, None, None,
-                              num_heads=1, num_kv_heads=1, arch="gpt")
-    with pytest.raises(NotImplementedError):
-        tfd.fused_decode_step(x, {"wqkv_s": None}, kv, 0, None, None,
-                              num_heads=1, num_kv_heads=1)
+                              arch="gpt", **kw)
+    for extra in (dict(params={"wqkv_s": None}),
+                  dict(params={}, kv_scales=torch.ones(1, 1, 8))):
+        p = extra.pop("params")
+        with pytest.raises(NotImplementedError, match="row 7"):
+            tfd.fused_decode_step(x, p, kv, 0, None, None, arch="moe",
+                                  **extra, **kw)
+    pool = torch.zeros(1, 2, 4, 8)
+    tab = torch.zeros(1, 1, dtype=torch.int32)
+    pos = torch.zeros(1, dtype=torch.int32)
+    for step, row in ((tfd.fused_paged_decode_step, "row 5"),
+                      (tfd.fused_paged_verify_step, "row 6")):
+        for arch in ("llama", "gpt"):
+            with pytest.raises(NotImplementedError, match=row):
+                step(x, {"wqkv_s": None}, pool, tab, pos, None, None,
+                     arch=arch, **kw)
+            with pytest.raises(NotImplementedError, match=row):
+                step(x, {}, pool, tab, pos, None, None, arch=arch,
+                     kv_scales=torch.ones(1, 1, 8), **kw)
     with pytest.raises(ValueError, match="cache"):
         tfd.fused_decode_step(x, {}, kv, 0, None, None, num_heads=1,
                               num_kv_heads=1, blocks={"cache_wbytes": 1})

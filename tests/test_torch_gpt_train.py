@@ -244,15 +244,16 @@ def test_weights_carry_bf16_bit_for_bit():
 
 
 def test_refusals():
-    """GPT generation over an int8 KV cache and dropout in training are not
+    """GPT generation with a deadline and dropout in training are not
     ported: both raise NotImplementedError naming the ROADMAP item. (GPT
-    decode over a bf16 or fp32 cache is ported: its cache forward runs.)"""
+    decode over a bf16, fp32 or int8 cache is ported: its cache forward
+    runs.)"""
     from paddle_tpu_torch.inference import generate
     from paddle_tpu_torch.nn import functional as TF
     _, tm = _pair()
     x = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        generate(tm, x, max_new_tokens=2, cache_dtype=torch.int8)
+        generate(tm, x, max_new_tokens=2, deadline_s=1.0)
     with torch.no_grad():
         logits, cache = tm(x, cache=tm.init_cache(1, 8, torch.float32))
     assert tuple(logits.shape) == (1, 4, tm.cfg.vocab_size)

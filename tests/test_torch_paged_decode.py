@@ -25,6 +25,16 @@ from paddle_tpu.ops import fused_decode as jfd
 from paddle_tpu_torch.ops import fused_decode as tfd
 from paddle_tpu_torch.ops.rope import rope_cos_sin as trope_cos_sin
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Several test workers share the CPU: one torch thread per test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # rows 0 and 1 active at their own positions through private shuffled
 # blocks; row 2 idle (table all scratch) at a position inside block 0
 BT, MB, NB = 8, 4, 12

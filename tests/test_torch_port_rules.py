@@ -55,7 +55,10 @@ def test_scan_covers_the_package():
             "examples/torch_train_profile.py",
             "examples/torch_decode_profile.py",
             "paddle_tpu_torch/nn/layers/moe.py",
-            "paddle_tpu_torch/models/mixtral.py"} <= names
+            "paddle_tpu_torch/models/mixtral.py",
+            "paddle_tpu_torch/quantization/__init__.py",
+            "paddle_tpu_torch/ops/rms_norm.py",
+            "paddle_tpu_torch/ops/smem_probe.py"} <= names
     assert len(names) >= 20
 
 
@@ -738,3 +741,92 @@ def test_gpt_generate_on_the_card_runs_k1_and_k2(cuda):
     assert fd.fused_decode_cuda.launches == 5
     assert tuple(out.shape) == (2, 46)
     assert torch.equal(out[:, :40].cpu(), ids)
+
+
+def _llama_cuda_params(L, h, nh, nkv, ffn, int8):
+    """A random bf16 llama's fused stacks (seed 8); int8: the model
+    through quantize_model first, as the int8 generate path builds them."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    cfg = LlamaConfig(vocab_size=64, hidden_size=h, intermediate_size=ffn,
+                      num_layers=L, num_heads=nh, num_kv_heads=nkv)
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda",
+                             seed=8)
+    if int8:
+        quantize_model(model)
+    state = model.state_dict(include_buffers=False)
+    return model.fused_decode_plan(state)["params"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8,kv8", [(True, False), (False, True),
+                                    (True, True)])
+def test_fused_decode_int8_modes_match_plain(cuda, w8, kv8):
+    """K2's int8 modes (llama) against the plain int8 step: x_out at K2's
+    tolerance, the appended int8 rows within one int8 step, the rest of the
+    cache untouched, two launches bitwise equal."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, S, nh, nkv, hd, pos = 2, 3, 256, 8, 2, 64, 150
+    h, ffn = nh * hd, 3 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(8)
+    p = _llama_cuda_params(L, h, nh, nkv, ffn, w8)
+    x = torch.randn(b, h, generator=g, device=cuda).bfloat16()
+    kv = torch.randn(L, b, S, 2 * nkv * hd, generator=g,
+                     device=cuda).bfloat16()
+    kv[:, :, pos:] = 0
+    scales = None
+    if kv8:
+        kv, scales = fd.quantize_kv_cache(kv, nkv)
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, kv_scales=scales)
+    xk, kvk = fd.fused_decode_cuda(x, p, kv.clone(), pos, c, s, **kw)
+    xk2, kvk2 = fd.fused_decode_cuda(x, p, kv.clone(), pos, c, s, **kw)
+    xr, kvr = fd.fused_decode_reference(x, p, kv.clone(), pos, c, s, **kw)
+    assert torch.equal(xk, xk2) and torch.equal(kvk, kvk2)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    if kv8:
+        assert (kvk[:, :, pos].int() - kvr[:, :, pos].int()).abs().max() <= 1
+    else:
+        torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
+                                   rtol=2 ** -7)
+    assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_kernel_matches_plain(cuda, dtype):
+    """K8 against the plain rms_norm: bf16 within two bf16 ulp (2^-6
+    relative: the normalised value may round on either side of a boundary,
+    and the weight product rounds again), fp32 within 1e-5 relative
+    (rsqrtf and the sum order)."""
+    from paddle_tpu_torch.ops import rms_norm as rn
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = (torch.randn(3, 70, 1024, generator=g, device=cuda) * 2).to(dtype)
+    w = (1 + 0.1 * torch.randn(1024, generator=g, device=cuda)).to(dtype)
+    n0 = rn.rms_norm_cuda.launches
+    for weight in (w, None):
+        out = rn.rms_norm_cuda(x, weight, 1e-5)
+        ref = rn.rms_norm(x, weight, 1e-5)
+        rtol = 2 ** -6 if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-6,
+                                   rtol=rtol)
+    assert rn.rms_norm_cuda.launches == n0 + 2
+    with pytest.raises(ValueError, match="d % 8"):
+        rn.rms_norm_cuda(torch.zeros(2, 12, dtype=torch.bfloat16,
+                                     device=cuda))
+
+
+@pytest.mark.cuda
+def test_smem_probe_reads_the_opt_in_budget(cuda):
+    """K9: the probe equals the device's opt-in shared memory per block,
+    a launch at it runs and one a step above is refused."""
+    from paddle_tpu_torch.ops import smem_probe
+    got = smem_probe.probe_usable_smem_bytes(cuda)
+    optin = getattr(torch.cuda.get_device_properties(cuda),
+                    "shared_memory_per_block_optin", got)
+    assert got == optin > 48 * 1024
+    assert smem_probe.smem_probe_cuda(got, cuda)
+    assert not smem_probe.smem_probe_cuda(got + smem_probe.STEP, cuda)

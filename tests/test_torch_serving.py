@@ -33,6 +33,16 @@ from paddle_tpu_torch.serving import (PoolExhausted, Request,
                                       ServingEngine)
 from paddle_tpu_torch.utils.convert import load_jax_state
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Several test workers share the CPU: one torch thread per test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ENGINE = dict(max_slots=3, block_tokens=16, max_seq_len=128, device="cpu")
 SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9)
 
