@@ -7,15 +7,22 @@ Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
   2. build  — nvcc builds paddle_tpu_torch/csrc/*.cu (sm_90a) at first use.
   3. k1     — flash-attention forward kernel vs its plain fp32 version at the
-              prefill shape, a GQA shape, a ragged shape and sq=1 decode.
+              prefill shape, a GQA shape, a ragged shape and sq=1 decode,
+              and the edges of its 128-row query tile and 128-key TMA ring
+              (sq 1, 65, 127, 129, 200; sk off the tile; an offset inside a
+              key tile; GQA 4 and 8; a batch row of kv_len 0, whose rows
+              must give 0 and lse NEG_INF exactly; d 64 and 128).
   4. k2     — fused decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, MHA and GQA (nkv=8): x_out and the
               appended cache row.
   5. k3     — flash-attention backward kernels (K3 dq, K4 dk/dv) through
               the autograd Function vs the plain fp32 backward on the same
               forward's (out, lse): the GPT-2 training shape, a GQA d=128
-              shape, a ragged causal shape, a non-causal one and one with a
-              fully-masked batch row.
+              shape, a ragged causal shape, a non-causal one, one with a
+              fully-masked batch row, and K4's tile edges (sq 1, 65, 127,
+              129, 200; sk off the 128-key block; an offset; GQA 4 and 8;
+              d 64 and 128); K4 launched twice on each case's inputs must
+              give the same bits.
   6. k5     — paged decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, b=8 over a shuffled block table (BT 128,
               16 blocks per row): rows at mixed positions with one idle row,
@@ -71,7 +78,8 @@ Phases, each printing one JSON line:
               teacher-forced decode step through the kernel and the plain
               path, logits compared.
  10. timing — K1 (prefill shape) and K2 times beside the bound, the plain
-              version and (flash attention) PyTorch's sdpa; K2 also over the
+              version and (flash attention) PyTorch's sdpa, with K1's and
+              sdpa's TFLOP/s and K1's share of its bound; K2 also over the
               same cache quantized to int8 (its int8-KV mode).
  11. serve  — Llama-2-7B (the e2e phase's model, its plan and cache freed)
               through serving.ServingEngine (max_slots 8, block_tokens 128,
@@ -147,7 +155,7 @@ Phases, each printing one JSON line:
               fp32 through the plain versions; loss and every gradient.
  16. timing_train — K1, K3 and K4 at the training shape beside the bound,
               the plain version and PyTorch's sdpa (forward; backward for
-              the K3/K4 pair).
+              the K3/K4 pair), with TFLOP/s and the share of the bound.
 
 --quick stops after phase 8d. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
@@ -246,6 +254,25 @@ def time_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fn, iters=10, warmup=2):
+    """The card's time of fn's kernels per call, summed from a
+    torch.profiler trace (for a call whose host work outlasts its kernels,
+    where CUDA events time the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / iters / 1e3
+
+
 def rand(shape, gen, scale=1.0, dtype=torch.bfloat16):
     t = torch.empty(shape, dtype=torch.float32, device="cuda")
     return (t.normal_(0.0, scale, generator=gen)).to(dtype)
@@ -253,26 +280,35 @@ def rand(shape, gen, scale=1.0, dtype=torch.bfloat16):
 
 # ---- K1 -----------------------------------------------------------------------
 
-def k1_case(fa, gen, b, h, nkv, sq, sk, d, q_off, kv_len):
+def k1_case(fa, gen, b, h, nkv, sq, sk, d, q_off, kv_len, causal=True):
+    """K1 against its plain version; kv_len is one length for every row or
+    a list (a 0 gives a batch row with no visible key), q_off None the
+    bottom-right causal alignment."""
     q = rand((b, sq, h, d), gen)
     k = rand((b, sk, nkv, d), gen)
     v = rand((b, sk, nkv, d), gen)
-    kl = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
-    out, lse = fa.flash_attention_fwd(q, k, v, is_causal=True,
+    lens = [kv_len] * b if isinstance(kv_len, int) else list(kv_len)
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, is_causal=causal,
                                       causal_offset=q_off, kv_lens=kl)
     torch.cuda.synchronize()
-    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, is_causal=True,
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, is_causal=causal,
                                                 causal_offset=q_off,
                                                 kv_lens=kl)
     err = (out.float() - ref.float()).abs().max().item()
     live = ref_lse > -1e29
     lerr = (lse - ref_lse)[live].abs().max().item() if live.any() else 0.0
-    ok = (err <= K1_TOL_OUT and lerr <= K1_TOL_LSE
+    # rows with no visible key: out 0 and lse NEG_INF, exactly
+    dead = ~live
+    dead_ok = bool((lse[dead] == ref_lse[dead]).all()
+                   and not out.transpose(1, 2)[dead].any())
+    ok = (err <= K1_TOL_OUT and lerr <= K1_TOL_LSE and dead_ok
           and bool(torch.isfinite(out.float()).all()))
     return {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
-            "q_off": q_off, "kv_len": kv_len, "max_abs_err": err,
-            "lse_max_abs_err": lerr, "tol": K1_TOL_OUT,
-            "lse_tol": K1_TOL_LSE, "ok": ok}
+            "q_off": q_off, "kv_len": kv_len, "causal": causal,
+            "max_abs_err": err, "lse_max_abs_err": lerr,
+            "dead_rows": int(dead.sum().item()), "dead_rows_ok": dead_ok,
+            "tol": K1_TOL_OUT, "lse_tol": K1_TOL_LSE, "ok": ok}
 
 
 def phase_k1(fa, gen):
@@ -282,6 +318,16 @@ def phase_k1(fa, gen):
         k1_case(fa, gen, 2, 8, 8, 1000, 1000, 128, 0, 1000),    # ragged
         k1_case(fa, gen, 3, 8, 2, 1000, 1100, 64, 100, 1037),   # d=64 GQA
         k1_case(fa, gen, 4, 32, 32, 1, 1152, 128, 1056, 1057),  # decode
+        # the edges of a 128-row query tile and a 128-key TMA ring: sq
+        # around the tile, sk not a multiple of it, an offset that starts
+        # inside a key tile, GQA 4 and 8, a batch row of kv_len 0
+        k1_case(fa, gen, 2, 16, 4, 1, 300, 128, 299, [300, 0]),
+        k1_case(fa, gen, 2, 16, 2, 65, 333, 64, 200, [333, 100]),
+        k1_case(fa, gen, 2, 8, 2, 127, 127, 128, None, 127),
+        k1_case(fa, gen, 2, 8, 1, 129, 200, 64, 71, [200, 0]),
+        k1_case(fa, gen, 1, 16, 4, 200, 1000, 128, 777, 1000),
+        k1_case(fa, gen, 2, 8, 1, 200, 260, 64, None, [260, 3],
+                causal=False),
     ]
     emit({"phase": "k1", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
@@ -856,26 +902,32 @@ def phase_k6(fd, rope, gen):
 
 # ---- K3 / K4 ------------------------------------------------------------------
 
-def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None):
+def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
+            q_off=None):
     q = rand((b, sq, h, d), gen)
     k = rand((b, sk, nkv, d), gen)
     v = rand((b, sk, nkv, d), gen)
     do = rand((b, sq, h, d), gen)
     kl = None if kv_lens is None else torch.tensor(kv_lens, dtype=torch.int32,
                                                    device="cuda")
+    kw = dict(is_causal=causal, kv_lens=kl, causal_offset=q_off)
     with torch.no_grad():
-        out, lse = fa.flash_attention_fwd(q, k, v, is_causal=causal,
-                                          kv_lens=kl)
-    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                       is_causal=causal, kv_lens=kl)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    o = fa.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                        kv_lens=kl)
+    o = fa.scaled_dot_product_attention(*leaves, **kw)
     o.backward(do)
+    # K4 sums the GQA heads in a fixed order without atomics: two launches
+    # on the same inputs give the same bits
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk1, dv1 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
+    bitwise = bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2))
     res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
-           "causal": causal, "kv_lens": kv_lens, "tol_of_max_ref": K3_TOL,
-           "ok": True}
+           "causal": causal, "kv_lens": kv_lens, "q_off": q_off,
+           "tol_of_max_ref": K3_TOL, "k4_two_launches_bitwise": bitwise,
+           "ok": bitwise}
     for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
         g = t.grad.float()
         err = (g - r).abs().max().item()
@@ -895,6 +947,13 @@ def phase_k3(fa, gen):
         k3_case(fa, gen, 2, 8, 8, 1000, 1000, 64, True),       # ragged
         k3_case(fa, gen, 2, 8, 2, 512, 700, 128, False),       # non-causal
         k3_case(fa, gen, 2, 8, 2, 384, 384, 64, True, [300, 0]),  # masked row
+        # K4's edges: 64-query tiles streamed past 128-key blocks, sq and sk
+        # off the tiles, an offset inside a key block, GQA 4 and 8
+        k3_case(fa, gen, 2, 16, 4, 65, 333, 128, True, [333, 0], 200),
+        k3_case(fa, gen, 2, 16, 2, 127, 200, 64, True, [150, 200], 50),
+        k3_case(fa, gen, 2, 8, 1, 129, 129, 128, True),
+        k3_case(fa, gen, 2, 8, 2, 1, 300, 64, True, None, 299),
+        k3_case(fa, gen, 1, 8, 2, 200, 1000, 64, False, [777]),
     ]
     emit({"phase": "k3", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
@@ -1334,7 +1393,9 @@ def phase_timing(fa, fd, model, plan, kv, bw, flops, launches, k1_err, k2_err):
          "launches": launches["flash_attention_fwd"], "max_abs_err": k1_err,
          "ms": ms1, "plain_ms": plain1, "bound_ms": max(t_bytes1, t_ops1),
          "bound_by": "bytes" if t_bytes1 >= t_ops1 else "operations",
-         "library_ms": lib1},
+         "library_ms": lib1, "tflops": flops1 / ms1 / 1e9,
+         "library_tflops": flops1 / lib1 / 1e9,
+         "bound_share": max(t_bytes1, t_ops1) / ms1},
         {"name": "fused_decode_step", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/fused_decode.cu",
          "replaces": "paddle_tpu/ops/fused_decode.py:555",
@@ -2878,10 +2939,12 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
     dot = do.transpose(1, 2)
     with torch.no_grad():
         lib1 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=20)
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=20)
-    lib_fb = time_ms(lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), iters=20)
-    lib_bwd = lib_fb - lib_fwd
+    # sdpa's backward alone, over one retained graph, as the card's time of
+    # its kernels: CUDA events around autograd's calls time the host, which
+    # here takes longer than the kernels and varies from run to run
+    o_lib = sdpa(qt, kt, vt, is_causal=True)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), dot, retain_graph=True), iters=20)
     pairs = b * h * s * (s + 1) // 2
     row = b * h * s * 4                      # one fp32 (b, h, s) tensor
     t_bf = b * s * h * d * 2                 # one bf16 (b, s, h, d) tensor
@@ -2896,15 +2959,19 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
     k1["at_train_shape"] = {
         "shape_b_s_h_d": [b, s, h, d], "causal": True, "ms": ms1,
         "plain_ms": plain1, "bound_ms": bound["k1"][0],
-        "bound_by": bound["k1"][1], "library_ms": lib1}
+        "bound_by": bound["k1"][1], "library_ms": lib1,
+        "tflops": work["k1"][1] / ms1 / 1e9,
+        "library_tflops": work["k1"][1] / lib1 / 1e9,
+        "bound_share": bound["k1"][0] / ms1}
     k1["launches_by_path"] = {"generate": k1["launches"],
                               "train": train_launches["flash_attention_fwd"]}
     kernels[1]["launches_by_path"] = {
         "generate": kernels[1]["launches"],
         "train": train_launches["fused_decode_step"]}
     pair = {"plain_ms_covers": "flash_attention_bwd_plain: dq, dk and dv",
-            "library_ms_covers": "backward of torch sdpa (its fwd+bwd less "
-                                 "its fwd): dq, dk and dv"}
+            "library_ms_covers": "backward of torch sdpa over a retained "
+                                 "graph, its kernels' device time "
+                                 "(torch.profiler): dq, dk and dv"}
     for name, line, ms, key, err in (
             ("flash_attention_bwd_dq", 668, ms3, "k3", k3_errs[0]),
             ("flash_attention_bwd_dkv", 787, ms4, "k4", k3_errs[1])):
@@ -2916,10 +2983,13 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
             "plain_ms": plain_bwd, "bound_ms": bound[key][0],
             "bound_by": bound[key][1], "library_ms": lib_bwd,
             "launches_by_path": {"generate": 0, "train": train_launches[name]},
-            "shape_b_s_h_d": [b, s, h, d], "causal": True}, **pair))
+            "shape_b_s_h_d": [b, s, h, d], "causal": True,
+            "tflops": work[key][1] / ms / 1e9,
+            "bound_share": bound[key][0] / ms}, **pair))
     emit({"phase": "timing_train", "shape_b_s_h_d": [b, s, h, d],
           "causal": True, "visible_pairs": pairs, "delta_ms": delta_ms,
-          "sdpa_fwd_ms_with_grad": lib_fwd, "sdpa_fwd_bwd_ms": lib_fb,
+          "sdpa_bwd_ms": lib_bwd,
+          "sdpa_bwd_tflops": (work["k3"][1] + work["k4"][1]) / lib_bwd / 1e9,
           "work_bytes_flops": work, "kernels": kernels[:1] + kernels[2:]})
     return kernels
 
@@ -2941,6 +3011,7 @@ def main(argv):
     t0 = time.perf_counter()
     _build.build_all(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "seconds_by_source": dict(_build.build_seconds),
           "libraries": sorted(_build._libs)})
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

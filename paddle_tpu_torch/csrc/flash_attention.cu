@@ -1,224 +1,355 @@
-// Flash-attention forward for Hopper (sm_90a): blockwise online softmax,
-// bf16 tensor-core products (mma.sync m16n8k16) with fp32 accumulation.
+// Flash-attention forward for Hopper (sm_90a): blockwise online softmax on
+// wgmma tensor-core products, K/V streamed by TMA through a ring of shared
+// memory stages, one producer warpgroup and two consumer warpgroups.
 //
 // Replaces the TPU kernel paddle_tpu/ops/flash_attention.py::_fwd_kernels
-// (pallas_call at :648) on the serving path: causal with an explicit query
-// offset (k_pos <= q_off + i), GQA by indexing kv head hi / rep (k and v are
-// never repeated), per-batch kv_lens, and fully-masked rows giving 0.
+// (:526, pallas_call at :648) on every prefill and on the training forward:
+// causal with an explicit query offset (k_pos <= q_off + i), GQA by
+// indexing kv head hi / rep (k and v are never repeated), per-batch
+// kv_lens, and fully-masked rows giving 0 with lse NEG_INF. The lse is the
+// natural log of the scaled scores, as the backward kernels
+// (csrc/flash_attention_bwd.cu) read it.
 //
 // What bounds it on the H100: at prefill shapes (sq ~ sk ~ 1k, d = 128) the
-// work is ~4·d FLOPs per (query, key) pair against ~4·d bytes per query row,
-// so it is compute bound: tensor-core rate, 989 TFLOP/s bf16 dense. The design
-// keeps the (sq, sk) score matrix out of device memory (one 64×64 tile of it
-// lives in registers at a time), skips every k tile past the causal or
-// kv_len limit, and feeds Q from registers and K/V from padded shared memory
-// (row stride d+8 bf16, so the B-fragment reads of K hit 32 distinct banks).
-// It is a first, simple kernel: synchronous tile loads, mma.sync instead of
-// wgmma, no TMA and no warp specialisation.
+// work is 4·d FLOPs per visible (query, key) pair against ~4·d bytes per
+// query row, so it is compute bound: the tensor cores' 989 TFLOP/s bf16
+// dense, reached only through wgmma fed from shared memory that TMA fills.
 //
+// Design. A block owns BQ = 128 query rows of one (batch, head):
+//  * Producer (warpgroup 2; one thread issues, setmaxnreg drops the group to
+//    24 registers): TMA-loads the Q tile once, then K and V tiles of BK =
+//    128 keys into an ST-stage ring, each stage guarded by a full barrier
+//    for K and one for V (transaction bytes) and an empty barrier for each
+//    (256 consumer arrivals): K(j) is released as soon as S(j) completes,
+//    a step before V(j), so the next K loads a step ahead with 2 stages.
+//    Tiles wholly past the causal or kv_len limit of the block's last row
+//    are never loaded. TMA's zero fill covers the ragged sq and sk tails;
+//    q (b, sq, h, d) and k/v (b, sk, nkv, d) are read in place through 4-d
+//    tensor maps (row stride h·d or nkv·d).
+//  * Consumers (warpgroups 0 and 1, 64 query rows each, setmaxnreg raises
+//    them to 240): S = Q·Kᵀ by wgmma m64n128k16 with Q and K both from
+//    128-byte-swizzled shared memory (K-major); the online softmax in
+//    registers in the log2 domain (scale·log2 e folded into one FFMA before
+//    ex2); O += P·V by wgmma m64nDk16 with P from registers (the bf16 pack
+//    of S's accumulator is the A fragment) and V from shared memory as an
+//    MN-major B. Each step issues S(j+1) and then P·V(j); the softmax of
+//    S(j+1) runs while P·V(j) is on the tensor cores. Only tiles that
+//    straddle the causal diagonal or the kv_len edge for this group's rows
+//    take the per-element mask.
+//  * Scheduling: a 1-d grid in the order of block_order
+//    (hopper_sm90.cuh): (batch, head) units in groups whose K/V fits 4 MB
+//    of L2, and inside a group the heaviest causal query tiles (most keys)
+//    first, so the light ones fill the tail (a static longest-first order;
+//    a persistent grid would add a tile scheduler for the same end). At
+//    prefill K/V (75 MB) outgrows L2, and one longest-first order over all
+//    units would read it from device memory again for every query tile.
+//  * sq = 1 (the layered decode path) and sq < 128 run the same kernel: rows
+//    past sq are TMA zero fill and are not stored.
+//  * ptxas keeps the wgmmas asynchronous only when each wait matches its
+//    group statically: every wgmma in the main loop is issued
+//    unconditionally (the last tile's P·V is peeled off), and P is
+//    repacked into the registers P·V(j) reads only after P·V(j) completes.
+//
+// Shared memory: Q 128·d·2 + ST·2·128·d·2 bytes (d = 128, ST = 2: 160 KB;
+// d = 64, ST = 3: 112 KB) + barriers; one block per SM. Registers (nvcc
+// 12.9 -Xptxas -v, sm_90a): 168 at entry for 384 threads (consumers 240,
+// producer 24 after setmaxnreg), 0 bytes spilled, no wgmma serialisation
+// warning, both head dims.
+
 // Layouts: q (b, sq, h, d), k/v (b, sk, nkv, d), out (b, sq, h, d), all
-// bf16 and contiguous; lse (b, h, sq) fp32; kv_lens (b,) int32 or null.
-// Grid (ceil(sq/64), h, b); 128 threads = 4 warps, 16 query rows each.
+// bf16 and contiguous (16-byte aligned); lse (b, h, sq) fp32; kv_lens (b,)
+// int32 or null.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_sm90.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace sm90;
 
 #define NEG_INF (-1e30f)
 
 namespace {
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> bf16x2 register, lower column in the low half
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_b2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
+constexpr int BQ = 128;       // query rows per block (64 per consumer group)
+constexpr int BK = 128;       // keys per tile
+constexpr int THREADS = 384;  // consumer groups 0, 1; producer group 2
 
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, const int* __restrict__ kv_lens,
-                 int sq, int sk, int h, int nkv, int causal, int q_off,
-                 float scale) {
-  constexpr int LD = D + 8;  // padded smem row (bf16 elements)
-  __shared__ __align__(16) bf16 Ks[BK * LD];
-  __shared__ __align__(16) bf16 Vs[BK * LD];
+struct Fwd {
+  static constexpr int ST = D == 128 ? 2 : 3;   // ring stages
+  static constexpr int NCH = D / 64;            // 64-column tiles a row
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;   // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 2 * ST * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + (1 + 4 * ST) * 8 + 1024;
+};
 
-  const int qt = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
+// S (64 x BK) = Q (this group's 64 rows) · K(tile)ᵀ, issued and committed
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint64_t dq,
+                                         uint64_t dk) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns inside a 64-column tile: +32 bytes; next tile: +rows·128
+    const uint32_t oq = ((kk >> 2) * BQ * 128 + (kk & 3) * 32) >> 4;
+    const uint32_t ok = ((kk >> 2) * BK * 128 + (kk & 3) * 32) >> 4;
+    wgmma_ss_n128(s, dq + oq, dk + ok, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Mask tile k0 where it straddles the causal diagonal or the kv_len edge
+// for this group's rows (rw0 … rw0+63), then the online-softmax update in
+// the log2 domain: m, l per row (l a per-thread partial), s -> p =
+// 2^(s·sl2 − m), alpha the factor that rescales the rows of O.
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int k0, int r0, int rw0, int tg,
+                                             int kvlen, int causal, int q_off,
+                                             float sl2) {
+  if (k0 + BK > kvlen || (causal && k0 + BK - 1 > q_off + rw0)) {
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kc = k0 + c * 8 + tg * 2 + j;
+          if (kc >= kvlen || (causal && kc > q_off + r0 + 8 * i))
+            s[4 * c + 2 * i + j] = -INFINITY;
+        }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+      mx = fmaxf(mx, fmaxf(s[4 * c + 2 * i], s[4 * c + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+    const float mnew = fmaxf(m[i], mx * sl2);
+    // a row with no visible key yet keeps m = -inf: its p must be 0
+    const float muse = mnew == -INFINITY ? 0.f : mnew;
+    alpha[i] = ex2(m[i] - muse);
+    m[i] = mnew;
+    float rs = 0.f;
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float v = ex2(fmaf(s[4 * c + 2 * i + j], sl2, -muse));
+        s[4 * c + 2 * i + j] = v;
+        rs += v;
+      }
+    l[i] = l[i] * alpha[i] + rs;
+  }
+}
+
+// O += P·V(tile): V is the MN-major B, 16 keys = +2048 bytes; committed
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[BK / 16][4],
+                                         uint64_t dv) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<D>(o, p[kk], dv + ((kk * 16 * 128) >> 4), 1);
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
+               const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out,
+               float* __restrict__ lse, const int* __restrict__ kv_lens,
+               int sq, int sk, int h, int nkv, int causal, int q_off,
+               float scale, int group) {
+  using C = Fwd<D>;
+  constexpr int ST = C::ST;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm;
+  uint8_t* Ks = sm + C::Q_BYTES;                      // stage s at s·KV_BYTES
+  uint8_t* Vs = sm + C::Q_BYTES + ST * C::KV_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* qbar = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = bars + 1 + ST;
+  uint64_t* empty_k = bars + 1 + 2 * ST;
+  uint64_t* empty_v = bars + 1 + 3 * ST;
+
+  // (batch, head) units in groups whose K/V stays in L2, the heaviest
+  // causal query tiles (the last: most keys) first inside a group
+  const int nqt = (sq + BQ - 1) / BQ;
+  const BlockOrder ord = block_order(blockIdx.x, gridDim.x / nqt, nqt, group);
+  const int qt = nqt - 1 - ord.tile;
+  const int hi = ord.unit % h, bi = ord.unit / h;
   const int kh = hi / (h / nkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const long q_rs = (long)h * D;
-  const long kv_rs = (long)nkv * D;
-  const bf16* qb = q + (long)bi * sq * q_rs + (long)hi * D;
-  const bf16* kb = k + (long)bi * sk * kv_rs + (long)kh * D;
-  const bf16* vb = v + (long)bi * sk * kv_rs + (long)kh * D;
+  const int q0 = qt * BQ;
 
   int kvlen = sk;
   if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[bi], sk));
-  const int r0 = qt * BQ + warp * 16 + g;  // rows held in c0/c1 ...
-  const int r1 = r0 + 8;                   // ... and in c2/c3
-
-  // Q as A fragments, straight from device memory (read once).
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + tg * 2;
-    qf[kk][0] = r0 < sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_rs + c) : 0u;
-    qf[kk][1] = r1 < sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_rs + c) : 0u;
-    qf[kk][2] = r0 < sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_rs + c + 8) : 0u;
-    qf[kk][3] = r1 < sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_rs + c + 8) : 0u;
-  }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  // k tiles that can hold a visible key for any row of this block
+  // keys that can be visible to some row of this block
   int kend = kvlen;
-  if (causal) {
-    const int last_q = min(qt * BQ + BQ - 1, sq - 1);
-    kend = min(kend, q_off + last_q + 1);
-  }
+  if (causal) kend = min(kend, q_off + min(q0 + BQ, sq));
   const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile is consumed
-    constexpr int CH = D / 8;  // 16-byte chunks per row
-    for (int idx = tid; idx < BK * CH; idx += 128) {
-      const int r = idx / CH, c = (idx % CH) * 8;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (k0 + r < sk) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (long)(k0 + r) * kv_rs + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (long)(k0 + r) * kv_rs + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * LD + c]) = kv4;
-      *reinterpret_cast<uint4*>(&Vs[r * LD + c]) = vv4;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 256);
+      mbar_init(&empty_v[s], 256);
     }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows × 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* kp = &Ks[(n * 8 + g) * LD + kk * 16 + tg * 2];
-        uint32_t bfr[2];
-        bfr[0] = *reinterpret_cast<const uint32_t*>(kp);
-        bfr[1] = *reinterpret_cast<const uint32_t*>(kp + 8);
-        mma16816(s[n], qf[kk], bfr);
-      }
-    }
-
-    // scale + mask, then the online-softmax update
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kc = k0 + n * 8 + tg * 2 + j;
-        const bool ok0 = kc < kvlen && (!causal || kc <= q_off + r0);
-        const bool ok1 = kc < kvlen && (!causal || kc <= q_off + r1);
-        s[n][j] = ok0 ? s[n][j] * scale : NEG_INF;
-        s[n][2 + j] = ok1 ? s[n][2 + j] * scale : NEG_INF;
-        mx0 = fmaxf(mx0, s[n][j]);
-        mx1 = fmaxf(mx1, s[n][2 + j]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 2));
-    // rows with no visible key yet keep m at NEG_INF: their p must be 0
-    const bool dead0 = mx0 <= NEG_INF * 0.5f, dead1 = mx1 <= NEG_INF * 0.5f;
-    const float a0 = __expf(m0 - mx0), a1 = __expf(m1 - mx1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[n][j] = dead0 ? 0.f : __expf(s[n][j] - mx0);
-        s[n][2 + j] = dead1 ? 0.f : __expf(s[n][2 + j] - mx1);
-        rs0 += s[n][j];
-        rs1 += s[n][2 + j];
-      }
-    }
-    l0 = l0 * a0 + rs0;  // per-thread partial row sums, reduced at the end
-    l1 = l1 * a1 + rs1;
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= a0; o[dn][1] *= a0;
-      o[dn][2] *= a1; o[dn][3] *= a1;
-    }
-
-    // O += P V: the S accumulators of two adjacent key octets form one
-    // 16-key A fragment
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const bf16* vp = &Vs[(kk * 16 + tg * 2) * LD + dn * 8 + g];
-        uint32_t bfr[2];
-        bfr[0] = pack_b2(vp[0], vp[LD]);
-        bfr[1] = pack_b2(vp[8 * LD], vp[9 * LD]);
-        mma16816(o[dn], pa, bfr);
-      }
-    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffff, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffff, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffff, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffff, l1, 2);
-  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-  bf16* ob = out + (long)bi * sq * q_rs + (long)hi * D;
+  // warp-uniform for the compiler, so that setmaxnreg applies per group
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x >> 7, 0);
+  if (wg == 2) {
+    // ---- producer ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256 && ntiles > 0) {
+      tma_prefetch_map(&mq);
+      tma_prefetch_map(&mk);
+      tma_prefetch_map(&mv);
+      mbar_arrive_tx(qbar, C::Q_BYTES);
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + tg * 2;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_rs + c) =
-          pack_f2(o[dn][0] * inv0, o[dn][1] * inv0);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_rs + c) =
-          pack_f2(o[dn][2] * inv1, o[dn][3] * inv1);
-  }
-  if (tg == 0) {
+      for (int c = 0; c < C::NCH; ++c)
+        tma_load_4d(Qs + c * BQ * 128, &mq, qbar, c * 64, hi, q0, bi);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        const uint32_t par = ((it / ST) & 1) ^ 1;
+        mbar_wait(&empty_k[s], par);
+        mbar_arrive_tx(&full_k[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load_4d(Ks + s * C::KV_BYTES + c * BK * 128, &mk, &full_k[s],
+                      c * 64, kh, it * BK, bi);
+        mbar_wait(&empty_v[s], par);
+        mbar_arrive_tx(&full_v[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load_4d(Vs + s * C::KV_BYTES + c * BK * 128, &mv, &full_v[s],
+                      c * 64, kh, it * BK, bi);
+      }
+    }
+  } else {
+    // ---- consumers: rows q0 + 64·wg … +63 ----
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x & 127, wl = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int rw0 = q0 + wg * 64;                 // the group's first row
+    const int r0 = rw0 + wl * 16 + g;             // rows of d[4c + j] ...
+    const float sl2 = scale * 1.4426950408889634f;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    if (ntiles > 0) {
+      float s[BK / 2];
+      uint32_t p[BK / 16][4];
+      float alpha[2];
+      // descriptors: Q rows of this group, K and V of stage 0; a stage is
+      // +KV_BYTES >> 4 on the start address
+      const uint64_t dq = desc_sw128(Qs + wg * 64 * 128, 16, 1024);
+      const uint64_t dk0 = desc_sw128(Ks, 16, 1024);
+      const uint64_t dv0 = desc_sw128(Vs, BK * 128, 1024);
+      constexpr uint32_t STAGE = C::KV_BYTES >> 4;
+
+      mbar_wait(qbar, 0);
+      mbar_wait(&full_k[0], 0);
+      issue_qk<D>(s, dq, dk0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(&empty_k[0]);
+      softmax_tile(s, m, l, alpha, 0, r0, rw0, tg, kvlen, causal, q_off, sl2);
+      pack_a<BK>(s, p);
+      // A pass issues S(it+1) and then P·V(it) (every wgmma unconditional,
+      // so ptxas matches each wait to its group and keeps them
+      // asynchronous). The older group, S(it+1), is waited for first and its
+      // softmax runs while P·V(it) is on the tensor cores; P is packed into
+      // the registers P·V(it) read, and O rescaled, only once P·V(it) is
+      // done. The last tile's P·V is peeled off.
+      for (int it = 0; it + 1 < ntiles; ++it) {
+        const int st = it % ST, sn = (it + 1) % ST;
+        mbar_wait(&full_k[sn], ((it + 1) / ST) & 1);
+        issue_qk<D>(s, dq, dk0 + sn * STAGE);
+        mbar_wait(&full_v[st], (it / ST) & 1);
+        issue_pv<D>(o, p, dv0 + st * STAGE);
+        wgmma_wait<1>();
+        fence_regs(s);
+        mbar_arrive(&empty_k[sn]);   // K(it+1) is read: its stage may refill
+        softmax_tile(s, m, l, alpha, (it + 1) * BK, r0, rw0, tg, kvlen,
+                     causal, q_off, sl2);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        mbar_arrive(&empty_v[st]);
+        pack_a<BK>(s, p);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          o[4 * c] *= alpha[0];
+          o[4 * c + 1] *= alpha[0];
+          o[4 * c + 2] *= alpha[1];
+          o[4 * c + 3] *= alpha[1];
+        }
+      }
+      const int last = ntiles - 1;
+      mbar_wait(&full_v[last % ST], (last / ST) & 1);
+      issue_pv<D>(o, p, dv0 + (last % ST) * STAGE);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    // epilogue: rows r0 and r0 + 8
+    const long q_rs = (long)h * D;
+    bf16* ob = out + (long)bi * sq * q_rs + (long)hi * D;
     float* lb = lse + ((long)bi * h + hi) * sq;
-    if (r0 < sq) lb[r0] = m0 + logf(l0 == 0.f ? 1.f : l0);
-    if (r1 < sq) lb[r1] = m1 + logf(l1 == 0.f ? 1.f : l1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffff, li, 1);
+      li += __shfl_xor_sync(0xffffffff, li, 2);
+      const float inv = li == 0.f ? 0.f : 1.f / li;
+      const int r = r0 + 8 * i;
+      if (r < sq) {
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
+              pack_f2(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
+        if (tg == 0)
+          lb[r] = li == 0.f ? NEG_INF
+                            : m[i] * 0.6931471805599453f + logf(li);
+      }
+    }
   }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           const void* kv_lens, int b, int sq, int sk, int h, int nkv,
+           int causal, int q_off, float scale, cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
+  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK);
+  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
+  if (err) return err;
+  auto kern = flash_fwd_sm90<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<D>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // a (batch, head) unit shares its kv head's K and V: sk·d·2·2 bytes
+  const int group = sm90_group((long long)sk * D * 4);
+  const int grid = ((sq + BQ - 1) / BQ) * h * b;
+  kern<<<grid, THREADS, Fwd<D>::SMEM, st>>>(
+      mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
+      nkv, causal, q_off, scale, group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -228,21 +359,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int b, int sq, int sk, int h, int nkv,
                                    int d, int causal, int q_off, float scale,
                                    void* stream) {
-  dim3 grid((sq + BQ - 1) / BQ, h, b);
   cudaStream_t st = (cudaStream_t)stream;
-  const bf16* qp = (const bf16*)q;
-  const bf16* kp = (const bf16*)k;
-  const bf16* vp = (const bf16*)v;
-  if (d == 128) {
-    flash_fwd_kernel<128><<<grid, 128, 0, st>>>(
-        qp, kp, vp, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-        nkv, causal, q_off, scale);
-  } else if (d == 64) {
-    flash_fwd_kernel<64><<<grid, 128, 0, st>>>(
-        qp, kp, vp, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-        nkv, causal, q_off, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (d == 128)
+    return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
+                       q_off, scale, st);
+  if (d == 64)
+    return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
+                      q_off, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

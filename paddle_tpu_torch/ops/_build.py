@@ -6,8 +6,9 @@ together, into a shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-and loaded with ``ctypes``. The library name carries a hash of the source,
-so an edited source rebuilds and an unchanged one is reused. The build
+and loaded with ``ctypes``. The library name carries a hash of the source
+and of the shared headers (``csrc/*.cuh``), so an edited source or header
+rebuilds and an unchanged one is reused. The build
 directory is ``paddle_tpu_torch/_kernels_build/`` (listed in .gitignore).
 
 Each C entry point launches on the stream it is given and returns
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -30,6 +32,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _libs = {}
+build_seconds = {}   # source stem -> nvcc wall seconds, for sources built here
 
 
 def _nvcc() -> str:
@@ -43,7 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):   # headers a source may include
+        h.update(hdr.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
@@ -56,7 +62,7 @@ def build_all(verbose: bool = False):
         if not todo:
             return dict(_libs)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = []
+        procs, t0 = [], time.perf_counter()
         for src in todo:
             out = _target(src)
             if out.exists():
@@ -71,12 +77,26 @@ def build_all(verbose: bool = False):
             procs.append((src, out, (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))))
+        # drain every compiler's output at once (a full pipe would stall
+        # it) and note when each finishes
+        logs = {}
+
+        def drain(src, p):
+            logs[src.stem] = p.communicate()[0]
+            build_seconds[src.stem] = time.perf_counter() - t0
+
+        waiters = [threading.Thread(target=drain, args=(src, job[1]))
+                   for src, _, job in procs if job is not None]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         errors = []
         for src, out, job in procs:
             if job is None:
                 continue
             tmp, p = job
-            log, _ = p.communicate()
+            log = logs[src.stem]
             if p.returncode != 0:
                 errors.append(f"{src.name}:\n{log}")
                 continue

@@ -180,8 +180,9 @@ def _kv_lens_arg(kv_lens, b, device):
 
 def _check_kernel_inputs(what, q, k, v, *more):
     """Raise on what the CUDA kernels do not take: q/k/v and the bf16
-    tensors in `more` on q's CUDA device, bf16, contiguous, head_dim 64 or
-    128, kv heads dividing the heads. Returns (b, sq, sk, h, nkv, d)."""
+    tensors in `more` on q's CUDA device, bf16, contiguous, 16-byte aligned
+    (K1 and K4 read them through TMA tensor maps), head_dim 64 or 128, kv
+    heads dividing the heads. Returns (b, sq, sk, h, nkv, d)."""
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)) + more:
@@ -193,6 +194,8 @@ def _check_kernel_inputs(what, q, k, v, *more):
                             "bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} not 16-byte aligned")
     if d not in (64, 128) or k.shape != (b, sk, nkv, d) or v.shape != k.shape:
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} (head_dim 64 "

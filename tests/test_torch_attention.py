@@ -116,6 +116,52 @@ def test_flash_fwd_cpu_twin(q_off, lens):
     assert tfa.flash_attention_fwd.launches == 0   # CPU: no kernel launch
 
 
+# The edges of the CUDA kernel's tiles (128 query rows a block, 128 keys a
+# TMA stage) at which its plain twin is the card's yardstick: sq around the
+# tile, sk off it, a causal offset that starts inside a key tile, GQA 4 and
+# 8, a batch row of kv_len 0, head dims 64 and 128.
+# (b, h, nkv, sq, sk, d, causal_offset, kv_lens)
+TILE_EDGES = [
+    (2, 8, 2, 1, 300, 128, 299, [300, 0]),
+    (2, 8, 1, 65, 333, 64, 200, [333, 100]),
+    (2, 8, 2, 127, 127, 128, None, [127, 127]),
+    (2, 8, 1, 129, 200, 64, 71, [200, 0]),
+    (1, 8, 2, 200, 1000, 128, 777, [1000]),
+]
+
+
+@pytest.mark.parametrize("b,h,nkv,sq,sk,d,q_off,lens", TILE_EDGES,
+                         ids=[f"sq{c[3]}-sk{c[4]}-d{c[5]}-gqa{c[1] // c[2]}"
+                              for c in TILE_EDGES])
+def test_flash_fwd_twin_at_kernel_tile_edges(b, h, nkv, sq, sk, d, q_off,
+                                             lens):
+    """The plain twin at the kernel's tile edges: out equals the reference
+    sdpa over the equivalent dense mask (rows with no visible key 0), lse
+    equals logsumexp of the visible scaled scores (-1e30 where none)."""
+    q, k, v = _qkv(7, b, sq, sk, h, nkv, d)
+    kl = torch.tensor(lens, dtype=torch.int32)
+    ot, lse = tfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        is_causal=True, causal_offset=q_off, kv_lens=kl)
+    off = sk - sq if q_off is None else q_off
+    mask = ((np.arange(sk)[None, :] <= off + np.arange(sq)[:, None])[None]
+            & (np.arange(sk)[None, None, :] < np.array(lens)[:, None, None]))
+    oj = np.asarray(jfa.scaled_dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        attn_mask=jnp.asarray(mask[:, None])))
+    live = mask.any(-1)                              # (b, sq)
+    oj = np.where(live[..., None, None], oj, 0.0)
+    np.testing.assert_allclose(ot.numpy(), oj, atol=ATOL)
+    kr = np.repeat(k, h // nkv, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q, kr) / np.sqrt(d)
+    s = np.where(mask[:, None], s, -np.inf)
+    with np.errstate(invalid="ignore"):
+        ref = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+            + s.max(-1)
+    ref = np.where(live[:, None], ref, -1e30)
+    np.testing.assert_allclose(lse.numpy(), ref, rtol=1e-6, atol=1e-5)
+
+
 def test_cuda_path_refuses_what_it_does_not_take():
     q = torch.zeros(1, 2, 2, 16)
     with pytest.raises(NotImplementedError):

@@ -7,7 +7,8 @@ its plain backward, ``flash_attention_bwd_plain`` fed with the plain
 forward's (out, lse), and the autograd Function ``FlashAttention`` that
 ``scaled_dot_product_attention`` goes through when a gradient is needed.
 Inputs are fp32, made with numpy from a seed; dq, dk and dv are held to the
-reference at atol 1e-5 (fp32 sums over at most 40 keys of O(1) terms).
+reference at atol 1e-5 (fp32 sums of O(1) terms over at most 333 keys or
+200 queries; fp32 rounding there stays near 1e-6).
 """
 
 import jax
@@ -30,6 +31,14 @@ CASES = [
     (2, 8, 8, 4, 2, 128, True, None),           # GQA, d = 128
     (3, 6, 10, 4, 2, 32, False, [10, 4, 0]),    # kv_lens, a row of 0
     (2, 5, 40, 4, 1, 64, True, [33, 0]),        # MQA, causal + kv_lens
+    # the edges of the CUDA kernels' tiles (64-query tiles streamed past
+    # 128-key blocks, 128-row forward tiles): sq around the tiles, sk off
+    # them, a causal offset sk - sq inside a key block, GQA 4 and 8
+    (2, 1, 300, 8, 2, 64, True, [300, 0]),      # sq 1, GQA 4
+    (2, 65, 333, 8, 1, 128, True, [333, 100]),  # sq 65, GQA 8, d 128
+    (2, 127, 127, 8, 2, 64, True, None),        # sq 127
+    (2, 129, 200, 8, 1, 128, True, [200, 0]),   # sq 129, GQA 8, a row of 0
+    (1, 200, 333, 8, 2, 64, False, [300]),      # sq 200, non-causal
 ]
 IDS = [f"b{c[0]}-sq{c[1]}-sk{c[2]}-h{c[3]}-kv{c[4]}-d{c[5]}"
        f"-{'causal' if c[6] else 'full'}-{'lens' if c[7] else 'nolens'}"

@@ -378,7 +378,10 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,nkv,sq,sk,d,q_off,kv_len", [
     (8, 8, 200, 260, 128, 60, 250), (8, 2, 1, 300, 64, 299, 300),
-    (4, 4, 130, 130, 128, None, 130)])
+    (4, 4, 130, 130, 128, None, 130),
+    # the edges of the 128-row query tile and the 128-key TMA ring
+    (16, 4, 65, 333, 64, 200, 333), (8, 2, 127, 127, 128, None, 127),
+    (16, 2, 129, 200, 64, 71, 150), (8, 1, 1, 300, 128, 299, 300)])
 def test_flash_kernel_matches_plain(cuda, h, nkv, sq, sk, d, q_off, kv_len):
     from paddle_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -430,7 +433,12 @@ def test_fused_decode_kernel_matches_plain(cuda, nkv):
     (4, 4, 200, 200, 64, True, [200, 0]),
     (8, 2, 130, 300, 128, True, [300, 257]),
     (4, 4, 70, 90, 64, False, None),
-    (4, 2, 300, 200, 64, True, None)])         # sq > sk: empty top rows
+    (4, 2, 300, 200, 64, True, None),          # sq > sk: empty top rows
+    # K4's tile edges: 64-query tiles past 128-key blocks, GQA 4 and 8
+    (16, 4, 65, 333, 128, True, [333, 0]),
+    (16, 2, 127, 200, 64, True, [150, 200]),
+    (8, 1, 129, 129, 128, True, None),
+    (8, 2, 1, 300, 64, True, None)])
 def test_flash_bwd_kernels_match_plain(cuda, h, nkv, sq, sk, d, causal,
                                        lens):
     """K3/K4 through FlashAttention against flash_attention_bwd_plain on the
@@ -458,6 +466,25 @@ def test_flash_bwd_kernels_match_plain(cuda, h, nkv, sq, sk, d, causal,
         assert err <= 2 ** -6 * r.abs().max().item(), err
     if lens is not None and 0 in lens:
         assert all(not t.grad[1].any() for t in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,d", [(16, 2, 64), (16, 4, 128)])
+def test_flash_dkv_kernel_two_launches_bitwise(cuda, h, nkv, d):
+    """K4 sums the GQA heads of a kv head in fp32 in a fixed order, with no
+    atomics: two launches on the same inputs give the same bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v, do = mk(2, 300, h, d), mk(2, 300, nkv, d), mk(2, 300, nkv, d), \
+        mk(2, 300, h, d)
+    out, lse = fa.flash_attention_fwd(q, k, v, is_causal=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    first = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                       is_causal=True)
+    second = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                        is_causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
