@@ -19,10 +19,12 @@ Phases, each printing one JSON line:
               the autograd Function vs the plain fp32 backward on the same
               forward's (out, lse): the GPT-2 training shape, a GQA d=128
               shape, a ragged causal shape, a non-causal one, one with a
-              fully-masked batch row, and K4's tile edges (sq 1, 65, 127,
-              129, 200; sk off the 128-key block; an offset; GQA 4 and 8;
-              d 64 and 128); K4 launched twice on each case's inputs must
-              give the same bits.
+              fully-masked batch row, K4's tile edges (sq 1, 65, 127, 129,
+              200; sk off the 128-key block; an offset; GQA 4 and 8; d 64
+              and 128) and K3's (sq 64, where the second consumer group has
+              no rows, and 193; sk 65; an offset inside a 64-key tile; GQA
+              8 at d 128); K3 and K4 each launched twice on each case's
+              inputs must give the same bits.
   6. k5     — paged decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, b=8 over a shuffled block table (BT 128,
               16 blocks per row): rows at mixed positions with one idle row,
@@ -64,8 +66,12 @@ Phases, each printing one JSON line:
               of the cache unchanged, two launches bitwise equal.
   8c. k8    — RMSNorm rows (K8) vs the plain rms_norm at the Llama-2-7B
               prefill shape (4·1024, 4096) bf16, with and without the
-              weight, and an fp32 case; timed beside its byte bound, the
-              plain version and torch.nn.functional.rms_norm.
+              weight (the one-pass kernel), a (1024, 8192) bf16 case (the
+              two-pass kernel, above the one-pass width) and an fp32 case;
+              timed beside its byte bound, the plain version and
+              torch.nn.functional.rms_norm, by CUDA events and by the
+              kernels' device time (device_ms: CUDA events over calls
+              queued behind a sleep kernel).
   8d. k9    — the shared-memory probe (K9): it equals the device's opt-in
               shared memory per block, a launch one step above is refused,
               and every dynamic shared-memory request of the kernels at the
@@ -155,7 +161,8 @@ Phases, each printing one JSON line:
               fp32 through the plain versions; loss and every gradient.
  16. timing_train — K1, K3 and K4 at the training shape beside the bound,
               the plain version and PyTorch's sdpa (forward; backward for
-              the K3/K4 pair), with TFLOP/s and the share of the bound.
+              the K3/K4 pair), with TFLOP/s, the share of the bound, and
+              K3 + K4 over sdpa's backward.
 
 --quick stops after phase 8d. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
@@ -255,22 +262,37 @@ def time_ms(fn, iters=10, warmup=2):
 
 
 def device_ms(fn, iters=10, warmup=2):
-    """The card's time of fn's kernels per call, summed from a
-    torch.profiler trace (for a call whose host work outlasts its kernels,
-    where CUDA events time the host)."""
-    from torch.profiler import ProfilerActivity, profile
+    """The card's time of fn's kernels per call, for a call whose host work
+    outlasts its kernels (where time_ms times the host): CUDA events around
+    `iters` calls queued behind a sleep kernel that outlasts the host's
+    enqueueing of all of them, so the card runs them back to back. Raises
+    if the queue ran dry before the last call was enqueued. (A sum over a
+    torch.profiler trace, the earlier way, lost kernel records in some
+    runs and read low.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    # 2e9 cycles a second is above the card's clock: the sleep lasts at
+    # least twice the calibrated enqueue time, plus 0.5 ms
+    torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if enqueue_ms >= ev[0].elapsed_time(ev[1]):
+        raise RuntimeError(f"device_ms: enqueueing took {enqueue_ms:.3f} ms, "
+                           "longer than the sleep ahead of it")
+    return ev[1].elapsed_time(ev[2]) / iters
 
 
 def rand(shape, gen, scale=1.0, dtype=torch.bfloat16):
@@ -917,17 +939,21 @@ def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     o = fa.scaled_dot_product_attention(*leaves, **kw)
     o.backward(do)
-    # K4 sums the GQA heads in a fixed order without atomics: two launches
-    # on the same inputs give the same bits
+    # K3 sums the key tiles and K4 the GQA heads in a fixed order without
+    # atomics: two launches on the same inputs give the same bits
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq1 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk1, dv1 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    bitwise = bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2))
+    bitwise3 = bool(torch.equal(dq1, dq2))
+    bitwise4 = bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2))
     res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
            "causal": causal, "kv_lens": kv_lens, "q_off": q_off,
-           "tol_of_max_ref": K3_TOL, "k4_two_launches_bitwise": bitwise,
-           "ok": bitwise}
+           "tol_of_max_ref": K3_TOL, "k3_two_launches_bitwise": bitwise3,
+           "k4_two_launches_bitwise": bitwise4,
+           "ok": bitwise3 and bitwise4}
     for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
         g = t.grad.float()
         err = (g - r).abs().max().item()
@@ -954,6 +980,20 @@ def phase_k3(fa, gen):
         k3_case(fa, gen, 2, 8, 1, 129, 129, 128, True),
         k3_case(fa, gen, 2, 8, 2, 1, 300, 64, True, None, 299),
         k3_case(fa, gen, 1, 8, 2, 200, 1000, 64, False, [777]),
+    ]
+    # K3's edges: 128-query blocks (64 rows a consumer group) past 64-key
+    # tiles: sq 64 (the second group has no rows), sq 193, sk 65 (one key
+    # in the last tile, a batch row of one key), a causal offset inside a
+    # key tile, GQA 8 at d = 128. Their inputs come from a generator of
+    # their own, so the later phases' inputs stay as they were.
+    edge = torch.Generator(device="cuda")
+    edge.manual_seed(3)
+    cases += [
+        k3_case(fa, edge, 2, 8, 2, 64, 300, 64, True, None, 100),
+        k3_case(fa, edge, 1, 8, 2, 193, 260, 64, True, [197]),
+        k3_case(fa, edge, 2, 4, 4, 64, 65, 128, True, [65, 1]),
+        k3_case(fa, edge, 2, 8, 8, 300, 300, 64, True, None, 37),
+        k3_case(fa, edge, 2, 16, 2, 256, 512, 128, True, None, 200),
     ]
     emit({"phase": "k3", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
@@ -1082,6 +1122,7 @@ def phase_k8(gen, bw):
     from paddle_tpu_torch.ops import rms_norm as rn
     cases = []
     for shape, dtype in (((4 * 1024, 4096), torch.bfloat16),
+                         ((1024, 8192), torch.bfloat16),
                          ((3, 300, 1024), torch.float32)):
         x = rand(shape, gen, 2.0, dtype)
         w = (1.0 + rand((shape[-1],), gen, 0.1, torch.float32)).to(dtype)
@@ -1096,12 +1137,21 @@ def phase_k8(gen, bw):
     x = rand((4 * 1024, 4096), gen, 2.0)
     w = (1.0 + rand((4096,), gen, 0.1, torch.float32)).bfloat16()
     n0 = rn.rms_norm_cuda.launches
-    ms = time_ms(lambda: rn.rms_norm_cuda(x, w, 1e-5), iters=50, warmup=5)
+    k8 = lambda: rn.rms_norm_cuda(x, w, 1e-5)
+    # the wrapper's checks and ctypes call take about as long on the host as
+    # the kernel on the card, so CUDA events around back-to-back calls time
+    # the host: the row's times are the kernels' device time, the events'
+    # times are kept beside them
+    event_ms = time_ms(k8, iters=50, warmup=5)
+    ms = device_ms(k8, iters=50, warmup=5)
     rn.rms_norm_cuda.launches = n0
     plain = time_ms(lambda: rn.rms_norm(x, w, 1e-5), iters=20)
     lib_fn = getattr(torch.nn.functional, "rms_norm", None)
-    lib = (time_ms(lambda: lib_fn(x, (4096,), w, 1e-5), iters=50, warmup=5)
-           if lib_fn is not None else None)
+    lib_event = lib = None
+    if lib_fn is not None:
+        lib_call = lambda: lib_fn(x, (4096,), w, 1e-5)
+        lib_event = time_ms(lib_call, iters=50, warmup=5)
+        lib = device_ms(lib_call, iters=50, warmup=5)
     nbytes = 2 * x.numel() * 2 + w.numel() * 2
     nops = 5 * x.numel()        # square-add, scale, round, weight, round
     tb, to = nbytes / bw * 1e3, nops / FP32_FLOPS * 1e3
@@ -1113,6 +1163,9 @@ def phase_k8(gen, bw):
            "ms": ms, "plain_ms": plain, "bound_ms": max(tb, to),
            "bound_by": "bytes" if tb >= to else "operations",
            "library_ms": lib, "library": "torch.nn.functional.rms_norm",
+           "ms_is": "device time (device_ms), one-pass kernel",
+           "event_ms": event_ms, "library_event_ms": lib_event,
+           "plain_ms_is": "CUDA events",
            "at_shape": {"rows": 4 * 1024, "d": 4096, "dtype": "bfloat16",
                         "weight": True},
            "bytes": nbytes}
@@ -2928,6 +2981,7 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
     f4 = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                             is_causal=True)
     ms1, ms3, ms4 = (time_ms(f, iters=20) for f in (f1, f3, f4))
+    dev3, dev4 = (device_ms(f, iters=20) for f in (f3, f4))
     delta_ms = time_ms(delta_fn, iters=20)
     plain1 = time_ms(lambda: fa.flash_attention_fwd_plain(
         q, k, v, is_causal=True), iters=3, warmup=1)
@@ -2971,10 +3025,13 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
     pair = {"plain_ms_covers": "flash_attention_bwd_plain: dq, dk and dv",
             "library_ms_covers": "backward of torch sdpa over a retained "
                                  "graph, its kernels' device time "
-                                 "(torch.profiler): dq, dk and dv"}
-    for name, line, ms, key, err in (
-            ("flash_attention_bwd_dq", 668, ms3, "k3", k3_errs[0]),
-            ("flash_attention_bwd_dkv", 787, ms4, "k4", k3_errs[1])):
+                                 "(device_ms): dq, dk and dv"}
+    for name, line, ms, dev, key, err, design in (
+            ("flash_attention_bwd_dq", 668, ms3, dev3, "k3", k3_errs[0],
+             "redesigned: TMA ring, wgmma, warp specialisation, the next "
+             "tile's products issued before this tile's dq"),
+            ("flash_attention_bwd_dkv", 787, ms4, dev4, "k4", k3_errs[1],
+             "redesigned: TMA ring, wgmma, warp specialisation")):
         kernels.append(dict({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2985,11 +3042,14 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
             "launches_by_path": {"generate": 0, "train": train_launches[name]},
             "shape_b_s_h_d": [b, s, h, d], "causal": True,
             "tflops": work[key][1] / ms / 1e9,
-            "bound_share": bound[key][0] / ms}, **pair))
+            "bound_share": bound[key][0] / ms, "device_ms": dev,
+            "design": design}, **pair))
     emit({"phase": "timing_train", "shape_b_s_h_d": [b, s, h, d],
           "causal": True, "visible_pairs": pairs, "delta_ms": delta_ms,
           "sdpa_bwd_ms": lib_bwd,
           "sdpa_bwd_tflops": (work["k3"][1] + work["k4"][1]) / lib_bwd / 1e9,
+          "k3_plus_k4_over_sdpa_bwd": (ms3 + ms4) / lib_bwd,
+          "k3_plus_k4_device_over_sdpa_bwd": (dev3 + dev4) / lib_bwd,
           "work_bytes_flops": work, "kernels": kernels[:1] + kernels[2:]})
     return kernels
 

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): dq (K3) and dk/dv (K4),
-// bf16 tensor-core products with fp32 accumulation: K3 on mma.sync
-// m16n8k16, K4 on wgmma fed by TMA (see the K4 section below).
+// bf16 wgmma tensor-core products with fp32 accumulation, fed by TMA through
+// a ring of shared-memory stages, one producer warpgroup and two consumer
+// warpgroups each.
 //
 // Replaces the TPU kernels paddle_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (pallas_call at :776) and ::_bwd_dkv_kernel (pallas_call at :919) on the
@@ -22,30 +23,15 @@
 // device memory: one tile of S, dP and dS lives in registers at a time, and
 // each kernel skips the tiles past the causal or kv_len limit.
 //
-// K3 (a first, simple design: synchronous tile loads, mma.sync): grid
-// (ceil(sq/64), h, b), 4 warps × 16 query rows. The Q and dO A-fragments
-// stay in registers while the block walks the k tiles (64 keys at d = 64,
-// 32 at d = 128); per tile S = Q·Kᵀ and dP = dO·Vᵀ (B-fragments: contiguous
-// pairs of K/V rows in padded shared memory), then dS, whose accumulators
-// of two adjacent key octets form one A-fragment of dq += dS·K.
-//
-// K4: a 1-d grid of ceil(sk/128) key blocks × nkv × b in the order of
-// block_order (hopper_sm90.cuh: (batch, kv head) units grouped so their
-// heads' Q and dO fit 4 MB of L2, the heaviest causal key blocks first),
-// 384 threads: two consumer warpgroups of 64 keys each and a producer
-// warpgroup (one warp streams; setmaxnreg: producer 24 registers,
-// consumers 240). It works in the transposed form, so nothing is ever
-// transposed: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ give Pᵀ and dSᵀ with keys on the
-// accumulator rows, which pack straight into the register A operand of
-// dv += Pᵀ·dO and dk += dSᵀ·Q. At d = 128 each group holds dk and dv (2 ×
-// 64 fp32 a thread) and a 64-query tile (Sᵀ, dPᵀ: 2 × 32) in registers.
-// Each query tile's products are waited for inside its pass, so no wgmma
-// is in flight across the loop edge (ptxas serialises them otherwise); the
-// two consumer groups overlap each other. Shared memory: K, V 2·128·d·2 +
-// ST·(2·64·d·2 + 512) bytes (d = 128, ST = 2: 129 KB; d = 64, ST = 3: 81.5
-// KB). Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at entry for 384
-// threads, 0 bytes spilled, no wgmma serialisation warning, both head
-// dims.
+// ptxas keeps the wgmmas asynchronous only when every wgmma in a loop is
+// issued unconditionally and each wait matches its group statically, and no
+// register that an in-flight wgmma reads is repacked before its wait (it
+// serialises them otherwise, warnings C7513-C7515). K4 waits for each
+// pass's products inside the pass; K3 overlaps the next tile's products
+// with this one's (below); in both the two consumer groups overlap each
+// other. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at entry for 384
+// threads (consumers 240, producer 24 after setmaxnreg), 0 bytes spilled,
+// no wgmma serialisation warning, both kernels, both head dims.
 //
 // Layouts: q, dout (b, sq, h, d), k/v (b, sk, nkv, d), dq (b, sq, h, d),
 // dk/dv (b, sk, nkv, d), all bf16 and contiguous; lse, delta (b, h, sq)
@@ -63,195 +49,336 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// Both kernels pair a 128-row tile held for the whole block (K3: Q and dO;
+// K4: K and V) with 64-row tiles streamed through the ring (K3: K and V;
+// K4: Q and dO). Each consumer group owns 64 rows of the held tile.
+constexpr int HELD = 128;       // rows of the held tile (64 per consumer group)
+constexpr int STREAM = 64;      // rows of a streamed tile
+constexpr int THREADS = 384;    // consumer groups 0, 1; producer group 2
 
-// two floats -> bf16x2 register, lower column in the low half
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_b2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + ROWS) of a (rows, rs)-strided bf16 tensor -> padded smem
-// tile (row stride D + 8), zero past `nrows`
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long rs, int r0, int nrows,
-                                          int tid) {
-  constexpr int LD = D + 8, CH = D / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < ROWS * CH; idx += 128) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < nrows)
-      v = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(&dst[r * LD + c]) = v;
-  }
-}
-
-// B-fragment of a product whose B operand is an smem tile T read along its
-// rows (B[k][n] = T[k0 + k][n0 + n]): two scalar reads per register
-__device__ __forceinline__ void frag_b_rows(uint32_t* b, const bf16* t,
-                                            int ld) {
-  b[0] = pack_b2(t[0], t[ld]);
-  b[1] = pack_b2(t[8 * ld], t[9 * ld]);
-}
-
-constexpr int BQ3 = 64;   // K3: query rows per block
-
+// X (64 x 64) = A (this group's 64 rows of the held tile) · B (a streamed
+// tile)ᵀ over d, both K-major: K3's S = Q·Kᵀ and dP = dO·Vᵀ, K4's Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ. `ob` is the streamed tile's stage offset (start address
+// >> 4). Issued and committed as one group.
 template <int D>
-struct Tiles {
-  static constexpr int K3_KEYS = D == 128 ? 32 : 64;  // K3 keys per tile
-};
+__device__ __forceinline__ void issue_hs(float (&x)[STREAM / 2], uint64_t da,
+                                         uint64_t db, uint32_t ob) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns inside a 64-column tile: +32 bytes; next tile: +rows·128
+    const uint32_t oa = ((kk >> 2) * HELD * 128 + (kk & 3) * 32) >> 4;
+    const uint32_t o = ob + (((kk >> 2) * STREAM * 128 + (kk & 3) * 32) >> 4);
+    sm90::wgmma_ss_n64(x, da + oa, db + o, kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// acc (64 rows x d) += A (registers: 64 rows x 64 of the streamed tile's
+// rows) · B (a streamed tile, MN-major: 16 rows = +2048 bytes): K3's dq +=
+// dS·K, K4's dv += Pᵀ·dO and dk += dSᵀ·Q; committed
+template <int D>
+__device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
+                                          const uint32_t (&a)[STREAM / 16][4],
+                                          uint64_t db) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < STREAM / 16; ++kk)
+    sm90::wgmma_rs<D>(acc, a[kk], db + ((kk * 16 * 128) >> 4), 1);
+  sm90::wgmma_commit();
+}
 
 // ---- K3: dq ------------------------------------------------------------------
+//
+// K1's data flow with K4's roles swapped. A block owns 128 query rows of one
+// (batch, head), 64 per consumer group, on a 1-d grid of ceil(sq/128) × h ×
+// b in the order of block_order (hopper_sm90.cuh: (batch, head) units
+// grouped so their kv head's K/V fits 4 MB of L2, the heaviest causal query
+// tiles, the last, first). The producer warp TMA-loads the block's Q and dO
+// once, then streams K and V tiles of 64 keys through an ST-stage ring
+// (one full barrier a stage with the transaction bytes of both, one empty
+// barrier of 256 consumer arrivals); tiles wholly past the causal or kv_len
+// limit of the block's last row are never loaded, and TMA's zero fill
+// covers the ragged sq and sk tails. Each consumer group, per key tile:
+//  * S = Q·Kᵀ and dP = dO·Vᵀ by wgmma m64n64k16, both operands K-major from
+//    shared memory (K1's S form);
+//  * P = 2^(S·scale·log2 e − lse·log2 e), the per-element mask only on
+//    tiles that straddle the causal diagonal or the kv_len edge for the
+//    group's rows, and dS = P∘(dP − Δ) in place of dP; each thread's two
+//    rows' lse·log2 e (+inf for a row with no visible key or past sq, so its
+//    P is exactly 0) and Δ stay in registers for the whole walk;
+//  * dq += dS·K by wgmma m64nDk16, dS packed into the register A operand,
+//    K as an MN-major B from the same stage (K1's P·V form, K in V's role).
+// Scheduling within a group (K1's): a pass issues S(j+1) and dP(j+1), then
+// dq(j); it waits for the older two, forms dS(j+1) while dq(j) is on the
+// tensor cores, and packs dS(j+1) into the registers dq(j) read only once
+// dq(j) is done; the last tile's dq is peeled off. (Against passes that wait
+// for their own products, as K4's do, it was faster at d = 64 and 128 in
+// development runs on the H100, with the same bits.) A group walks
+// only the tiles its own rows can see; it releases the block's further
+// tiles (the first group's on the causal diagonal; all of them for a group
+// past sq) unread.
+//
+// Why 64-key tiles: S and dP (2 × 32 fp32 a thread), dq (d/2) and the packed
+// dS (16) are live together, ≈ 150 registers at d = 128; 128-key tiles
+// would hold ≈ 230 and spill. Why one empty barrier a stage (K1 releases K
+// a step before V): K is read until the pass's last product, and with
+// ST = 4 stages the ring already holds three tiles ahead. Shared memory:
+// Q, dO 2·128·d·2 + ST·2·64·d·2 bytes (d = 128: 192 KB; d = 64: 96 KB);
+// one block per SM (the 384 threads' registers fill the SM).
+//
+// Determinism: no atomics. dq is written once, by the block that owns its
+// rows, after a fixed-order sum over key tiles: two launches give equal
+// bits. (Folding dq into K4 by atomic adds would change its bits from run
+// to run.)
+
+constexpr int BQ3 = HELD;       // K3: query rows per block
+constexpr int BK3 = STREAM;     // K3: keys per streamed tile
 
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    const int* __restrict__ kv_lens, int sq, int sk, int h,
-                    int nkv, int causal, int q_off, float scale) {
-  constexpr int BK = Tiles<D>::K3_KEYS;
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 Ks[BK * LD];
-  __shared__ __align__(16) bf16 Vs[BK * LD];
+struct Dq {
+  static constexpr int ST = 4;                  // ring stages
+  static constexpr int NCH = D / 64;            // 64-column tiles a row
+  static constexpr int Q_BYTES = BQ3 * D * 2;   // Q or dO
+  static constexpr int KT_BYTES = BK3 * D * 2;  // a K or V tile
+  static constexpr int O_OFF = Q_BYTES;                     // dO
+  static constexpr int K_OFF = 2 * Q_BYTES;                 // K stages
+  static constexpr int V_OFF = K_OFF + ST * KT_BYTES;       // V stages
+  static constexpr int BAR_OFF = V_OFF + ST * KT_BYTES;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * ST) * 8 + 1024;
+};
 
-  const int qt = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z;
+// dS = P∘(dP − Δ) in place of dP, P = 2^(S·sl2 − lse·log2 e) from the S
+// accumulator (rows r0 + 8i, keys k0 + 8c + 2·tg + j); 0 where the key is
+// masked for the row (only `edge` tiles test)
+__device__ __forceinline__ void k3_ds(const float (&sa)[BK3 / 2],
+                                      float (&dp)[BK3 / 2],
+                                      const float (&l2)[2],
+                                      const float (&dl)[2], bool edge, int k0,
+                                      int r0, int tg, int kvlen, int causal,
+                                      int q_off, float sl2) {
+#pragma unroll
+  for (int c = 0; c < BK3 / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * c + 2 * i + j;
+        float p = sm90::ex2(fmaf(sa[e], sl2, -l2[i]));
+        if (edge) {
+          const int key = k0 + c * 8 + tg * 2 + j;
+          if (key >= kvlen || (causal && key > q_off + r0 + 8 * i)) p = 0.f;
+        }
+        dp[e] = p * (dp[e] - dl[i]);
+      }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const __grid_constant__ CUtensorMap mo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  const int* __restrict__ kv_lens, int sq, int sk, int h,
+                  int nkv, int causal, int q_off, float scale, int group) {
+  using C = Dq<D>;
+  constexpr int ST = C::ST;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = sm90::align1024(smem_raw);
+  uint8_t* Qs = sm;
+  uint8_t* Os = sm + C::O_OFF;
+  uint8_t* Ks = sm + C::K_OFF;                 // stage s at s·KT_BYTES
+  uint8_t* Vs = sm + C::V_OFF;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
+
+  // (batch, head) units in groups whose K/V stays in L2, the heaviest
+  // causal query tiles (the last: most keys) first inside a group
+  const int nqt = (sq + BQ3 - 1) / BQ3;
+  const sm90::BlockOrder ord =
+      sm90::block_order(blockIdx.x, gridDim.x / nqt, nqt, group);
+  const int qt = nqt - 1 - ord.tile;
+  const int hi = ord.unit % h, bi = ord.unit / h;
   const int kh = hi / (h / nkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const long q_rs = (long)h * D;
-  const long kv_rs = (long)nkv * D;
-  const long q_base = (long)bi * sq * q_rs + (long)hi * D;
-  const bf16* qb = q + q_base;
-  const bf16* ob = dout + q_base;
-  const bf16* kb = k + (long)bi * sk * kv_rs + (long)kh * D;
-  const bf16* vb = v + (long)bi * sk * kv_rs + (long)kh * D;
+  const int q0 = qt * BQ3;
 
   int kvlen = sk;
   if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[bi], sk));
-  const int r0 = qt * BQ3 + warp * 16 + g;  // rows held in c0/c1 ...
-  const int r1 = r0 + 8;                    // ... and in c2/c3
-
-  // Q and dO as A fragments, straight from device memory (read once)
-  uint32_t qf[D / 16][4], of[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + tg * 2;
-    qf[kk][0] = r0 < sq ? ld32(qb + r0 * q_rs + c) : 0u;
-    qf[kk][1] = r1 < sq ? ld32(qb + r1 * q_rs + c) : 0u;
-    qf[kk][2] = r0 < sq ? ld32(qb + r0 * q_rs + c + 8) : 0u;
-    qf[kk][3] = r1 < sq ? ld32(qb + r1 * q_rs + c + 8) : 0u;
-    of[kk][0] = r0 < sq ? ld32(ob + r0 * q_rs + c) : 0u;
-    of[kk][1] = r1 < sq ? ld32(ob + r1 * q_rs + c) : 0u;
-    of[kk][2] = r0 < sq ? ld32(ob + r0 * q_rs + c + 8) : 0u;
-    of[kk][3] = r1 < sq ? ld32(ob + r1 * q_rs + c + 8) : 0u;
-  }
-  const float* lb = lse + ((long)bi * h + hi) * sq;
-  const float* db = delta + ((long)bi * h + hi) * sq;
-  const float lse0 = r0 < sq ? lb[r0] : NEG_INF;
-  const float lse1 = r1 < sq ? lb[r1] : NEG_INF;
-  const float dl0 = r0 < sq ? db[r0] : 0.f;
-  const float dl1 = r1 < sq ? db[r1] : 0.f;
-  // a row with no visible key (lse NEG_INF) has P = 0 everywhere
-  const bool live0 = lse0 > NEG_INF * 0.5f, live1 = lse1 > NEG_INF * 0.5f;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  // k tiles that can hold a visible key for any row of this block
+  // keys that can be visible to some row of this block
   int kend = kvlen;
-  if (causal) {
-    const int last_q = min(qt * BQ3 + BQ3 - 1, sq - 1);
-    kend = min(kend, q_off + last_q + 1);
+  if (causal) kend = min(kend, q_off + min(q0 + BQ3, sq));
+  const int ntiles = kend > 0 ? (kend + BK3 - 1) / BK3 : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::mbar_init_fence();
   }
-  const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
+  __syncthreads();
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D, BK>(Ks, kb, kv_rs, k0, sk, tid);
-    load_tile<D, BK>(Vs, vb, kv_rs, k0, sk, tid);
-    __syncthreads();
+  // warp-uniform for the compiler, so that setmaxnreg applies per group
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x >> 7, 0);
+  if (wg == 2) {
+    // ---- producer: one thread issues, the group only gives up registers ----
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256 && ntiles > 0) {
+      sm90::tma_prefetch_map(&mq);
+      sm90::tma_prefetch_map(&mo);
+      sm90::tma_prefetch_map(&mk);
+      sm90::tma_prefetch_map(&mv);
+      sm90::mbar_arrive_tx(qbar, 2 * C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c) {
+        sm90::tma_load_4d(Qs + c * BQ3 * 128, &mq, qbar, c * 64, hi, q0, bi);
+        sm90::tma_load_4d(Os + c * BQ3 * 128, &mo, qbar, c * 64, hi, q0, bi);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        sm90::mbar_arrive_tx(&full[s], 2 * C::KT_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c) {
+          sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK3 * 128, &mk,
+                            &full[s], c * 64, kh, it * BK3, bi);
+          sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK3 * 128, &mv,
+                            &full[s], c * 64, kh, it * BK3, bi);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: rows q0 + 64·wg … +63 ----
+    sm90::setmaxnreg_inc<240>();
+    const int t = threadIdx.x & 127, wl = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int rw0 = q0 + wg * 64;                 // the group's first row
+    const int r0 = rw0 + wl * 16 + g;             // rows of d[4c + j] ...
+    const float sl2 = scale * 1.4426950408889634f;
 
-    // S = Q Kᵀ and dP = dO Vᵀ for this warp's 16 rows × BK keys
-    float s[BK / 8][4], dp[BK / 8][4];
+    // this thread's rows r0 and r0 + 8: lse·log2 e (+inf where P is 0) and Δ
+    float l2[2], dl[2];
+    const float* lb = lse + ((long)bi * h + hi) * sq;
+    const float* db = delta + ((long)bi * h + hi) * sq;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      const float l = r < sq ? lb[r] : NEG_INF;
+      l2[i] = l > NEG_INF * 0.5f ? l * 1.4426950408889634f : INFINITY;
+      dl[i] = r < sq ? db[r] : 0.f;
+    }
+
+    float acc[D / 2];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (n * 8 + g) * LD + kk * 16 + tg * 2;
-        uint32_t bk[2] = {ld32(&Ks[off]), ld32(&Ks[off + 8])};
-        uint32_t bv[2] = {ld32(&Vs[off]), ld32(&Vs[off + 8])};
-        mma16816(s[n], qf[kk], bk);
-        mma16816(dp[n], of[kk], bv);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    if (ntiles > 0) {
+      // K-major descriptors (this group's Q, dO rows as A; K, V as B) and
+      // the MN-major one (K as B of dq += dS·K); a stage is +KT_BYTES >> 4
+      // on the start address
+      const uint64_t dQ = sm90::desc_sw128(Qs + wg * 64 * 128, 16, 1024);
+      const uint64_t dO = sm90::desc_sw128(Os + wg * 64 * 128, 16, 1024);
+      const uint64_t dK = sm90::desc_sw128(Ks, 16, 1024);
+      const uint64_t dV = sm90::desc_sw128(Vs, 16, 1024);
+      const uint64_t dKt = sm90::desc_sw128(Ks, BK3 * 128, 1024);
+      constexpr uint32_t STAGE = C::KT_BYTES >> 4;
+
+      sm90::mbar_wait(qbar, 0);
+      // the tiles this group's rows can see: [0, nt)
+      int kg = kvlen;
+      if (causal) kg = min(kg, q_off + min(rw0 + 64, sq));
+      const int nt = rw0 >= sq ? 0 : (kg > 0 ? (kg + BK3 - 1) / BK3 : 0);
+      // tile k0 straddles the causal diagonal or the kv_len edge for the
+      // group's rows: only then the per-element mask
+      auto edge = [&](int k0) {
+        return k0 + BK3 > kvlen || (causal && k0 + BK3 - 1 > q_off + rw0);
+      };
+      if (nt > 0) {
+        float sa[BK3 / 2], dp[BK3 / 2];
+        uint32_t da[BK3 / 16][4];
+        sm90::mbar_wait(&full[0], 0);
+        issue_hs<D>(sa, dQ, dK, 0);
+        issue_hs<D>(dp, dO, dV, 0);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sa);
+        sm90::fence_regs(dp);
+        k3_ds(sa, dp, l2, dl, edge(0), 0, r0, tg, kvlen, causal, q_off, sl2);
+        sm90::pack_a<BK3>(dp, da);
+        // K1's overlap (see "Scheduling within a group" above)
+        for (int it = 0; it + 1 < nt; ++it) {
+          const int st = it % ST, sn = (it + 1) % ST, k1 = (it + 1) * BK3;
+          sm90::mbar_wait(&full[sn], ((it + 1) / ST) & 1);
+          issue_hs<D>(sa, dQ, dK, sn * STAGE);
+          issue_hs<D>(dp, dO, dV, sn * STAGE);
+          issue_acc<D>(acc, da, dKt + st * STAGE);
+          sm90::wgmma_wait<1>();
+          sm90::fence_regs(sa);
+          sm90::fence_regs(dp);
+          k3_ds(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen, causal, q_off,
+                sl2);
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(acc);
+          sm90::fence_regs(da);
+          sm90::mbar_arrive(&empty[st]);
+          sm90::pack_a<BK3>(dp, da);
+        }
+        const int last = nt - 1;
+        issue_acc<D>(acc, da, dKt + (last % ST) * STAGE);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        sm90::mbar_arrive(&empty[last % ST]);
+      }
+      // tiles past this group's rows: released unread
+      for (int it = nt; it < ntiles; ++it) {
+        sm90::mbar_wait(&full[it % ST], (it / ST) & 1);
+        sm90::mbar_arrive(&empty[it % ST]);
       }
     }
 
-    // P = exp(S·scale − lse) on visible keys, then dS = P∘(dP − Δ) into s
+    // epilogue: dq × scale for rows r0 and r0 + 8 below sq
+    const long q_rs = (long)h * D;
+    bf16* qo = dq + (long)bi * sq * q_rs + (long)hi * D;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < sq) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kc = k0 + n * 8 + tg * 2 + j;
-        const bool ok0 = live0 && kc < kvlen && (!causal || kc <= q_off + r0);
-        const bool ok1 = live1 && kc < kvlen && (!causal || kc <= q_off + r1);
-        const float p0 = ok0 ? __expf(s[n][j] * scale - lse0) : 0.f;
-        const float p1 = ok1 ? __expf(s[n][2 + j] * scale - lse1) : 0.f;
-        s[n][j] = p0 * (dp[n][j] - dl0);
-        s[n][2 + j] = p1 * (dp[n][2 + j] - dl1);
-      }
-    }
-
-    // dq += dS K: the dS accumulators of two adjacent key octets form one
-    // 16-key A fragment; K is the B operand read along its rows
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        uint32_t bfr[2];
-        frag_b_rows(bfr, &Ks[(kk * 16 + tg * 2) * LD + dn * 8 + g], LD);
-        mma16816(acc[dn], pa, bfr);
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<uint32_t*>(qo + r * q_rs + c * 8 + tg * 2) =
+              sm90::pack_f2(acc[4 * c + 2 * i] * scale,
+                            acc[4 * c + 2 * i + 1] * scale);
       }
     }
   }
+}
 
-  bf16* qo = dq + q_base;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + tg * 2;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(qo + r0 * q_rs + c) =
-          pack_f2(acc[dn][0] * scale, acc[dn][1] * scale);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(qo + r1 * q_rs + c) =
-          pack_f2(acc[dn][2] * scale, acc[dn][3] * scale);
-  }
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq,
+              const void* kv_lens, int b, int sq, int sk, int h, int nkv,
+              int causal, int q_off, float scale, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo;
+  int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
+  if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
+  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK3);
+  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK3);
+  if (err) return err;
+  auto kern = flash_bwd_dq_sm90<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // a (batch, head) unit streams its kv head's K and V: sk·d·2·2 bytes
+  const int group = sm90_group((long long)sk * D * 4);
+  const int grid = ((sq + BQ3 - 1) / BQ3) * h * b;
+  kern<<<grid, THREADS, Dq<D>::SMEM, st>>>(
+      mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
+      (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, scale, group);
+  return (int)cudaGetLastError();
 }
 
 // ---- K4: dk, dv --------------------------------------------------------------
@@ -267,11 +394,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // m64nDk16 with Pᵀ, dSᵀ from registers and dO, Q as MN-major B from the
 // same tiles: no transpose, no scalar fragment assembly. dk and dv stay in
 // fp32 registers over all the group's heads (fixed order, no atomics: two
-// launches give equal bits).
+// launches give equal bits). At d = 128 each group holds dk and dv (2 × 64
+// fp32 a thread) and a 64-query tile (Sᵀ, dPᵀ: 2 × 32) in registers.
+// Shared memory: K, V 2·128·d·2 + ST·(2·64·d·2 + 512) bytes (d = 128,
+// ST = 2: 129 KB; d = 64, ST = 3: 81.5 KB).
 
-constexpr int BKEY = 128;       // K4: keys per block (64 per consumer group)
-constexpr int BQ4 = 64;         // K4: query rows per streamed tile
-constexpr int K4_THREADS = 384; // consumer groups 0, 1; producer group 2
+constexpr int BKEY = HELD;      // K4: keys per block (64 per consumer group)
+constexpr int BQ4 = STREAM;     // K4: query rows per streamed tile
 
 template <int D>
 struct Dkv {
@@ -285,36 +414,6 @@ struct Dkv {
   static constexpr int BAR_OFF = ROW_OFF + ST * 2 * BQ4 * 4;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * ST) * 8 + 1024;
 };
-
-// X (64 keys x 64 queries) = A (this group's K or V rows) · B (a Q or dO
-// tile)ᵀ over d, both K-major; `ob` is the tile's stage offset (start
-// address >> 4). Issued and committed as one group.
-template <int D>
-__device__ __forceinline__ void issue_kq(float (&x)[BQ4 / 2], uint64_t da,
-                                         uint64_t db, uint32_t ob) {
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // 16 columns inside a 64-column tile: +32 bytes; next tile: +rows·128
-    const uint32_t oa = ((kk >> 2) * BKEY * 128 + (kk & 3) * 32) >> 4;
-    const uint32_t o = ob + (((kk >> 2) * BQ4 * 128 + (kk & 3) * 32) >> 4);
-    sm90::wgmma_ss_n64(x, da + oa, db + o, kk > 0);
-  }
-  sm90::wgmma_commit();
-}
-
-// acc (64 keys x d) += A (registers: Pᵀ or dSᵀ, 64 keys x 64 queries) ·
-// B (a dO or Q tile, MN-major: 16 query rows = +2048 bytes); committed
-template <int D>
-__device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
-                                          const uint32_t (&a)[BQ4 / 16][4],
-                                          uint64_t db) {
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BQ4 / 16; ++kk)
-    sm90::wgmma_rs<D>(acc, a[kk], db + ((kk * 16 * 128) >> 4), 1);
-  sm90::wgmma_commit();
-}
 
 // Pᵀ = 2^(Sᵀ·sl2 − lse·log2 e) in place, 0 where the key is masked for the
 // query (only `edge` tiles test); ls holds the tile's lse·log2 e
@@ -358,7 +457,7 @@ __device__ __forceinline__ void k4_ds(const float (&sa)[BQ4 / 2],
 }
 
 template <int D>
-__global__ void __launch_bounds__(K4_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv,
@@ -506,8 +605,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           const bool edge = kw0 + 63 >= kvlen ||
                             (causal && kw0 + 63 > q_off + q0);
           const uint32_t so = s * STAGE;
-          issue_kq<D>(sa, dK, dQ, so);   // Sᵀ
-          issue_kq<D>(dp, dV, dO, so);   // dPᵀ
+          issue_hs<D>(sa, dK, dQ, so);   // Sᵀ
+          issue_hs<D>(dp, dV, dO, so);   // dPᵀ
           sm90::wgmma_wait<0>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
@@ -537,10 +636,10 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
         for (int c = 0; c < D / 8; ++c) {
           const int col = c * 8 + tg * 2;
           *reinterpret_cast<uint32_t*>(dkb + key * kv_rs + col) =
-              pack_f2(dka[4 * c + 2 * i] * scale,
+              sm90::pack_f2(dka[4 * c + 2 * i] * scale,
                       dka[4 * c + 2 * i + 1] * scale);
           *reinterpret_cast<uint32_t*>(dvb + key * kv_rs + col) =
-              pack_f2(dva[4 * c + 2 * i], dva[4 * c + 2 * i + 1]);
+              sm90::pack_f2(dva[4 * c + 2 * i], dva[4 * c + 2 * i + 1]);
         }
       }
     }
@@ -565,7 +664,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   // a (batch, kv head) unit streams its n_rep heads' Q and dO
   const int group = sm90_group((long long)(h / nkv) * sq * D * 4);
   const int grid = ((sk + BKEY - 1) / BKEY) * nkv * b;
-  kern<<<grid, K4_THREADS, Dkv<D>::SMEM, st>>>(
+  kern<<<grid, THREADS, Dkv<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, scale,
       group);
@@ -581,21 +680,14 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int sq, int sk, int h, int nkv, int d,
                                       int causal, int q_off, float scale,
                                       void* stream) {
-  dim3 grid((sq + BQ3 - 1) / BQ3, h, b);
   cudaStream_t st = (cudaStream_t)stream;
-#define K3_ARGS                                                              \
-  (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,         \
-      (const float*)lse, (const float*)delta, (bf16*)dq,                     \
-      (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, scale
-  if (d == 128) {
-    flash_bwd_dq_kernel<128><<<grid, 128, 0, st>>>(K3_ARGS);
-  } else if (d == 64) {
-    flash_bwd_dq_kernel<64><<<grid, 128, 0, st>>>(K3_ARGS);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef K3_ARGS
-  return (int)cudaGetLastError();
+  if (d == 128)
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
+                          h, nkv, causal, q_off, scale, st);
+  if (d == 64)
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
+                         h, nkv, causal, q_off, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,

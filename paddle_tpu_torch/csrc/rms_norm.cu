@@ -8,15 +8,24 @@
 // by the weight in that type).
 //
 // What bounds it on the H100: bytes. It reads each input byte once and
-// writes each output byte once (the weight is d elements, read from L1/L2)
+// writes each output byte once (the weight is d elements, read through L1)
 // and does a few operations per element, far below the ~295 FLOP/byte
-// ridge. The design: one warp per row, 16-byte loads (8 bf16 or 4 fp32 a
-// lane, neighbouring lanes on neighbouring addresses), four loads in flight
-// a lane, the sum of squares reduced by shuffles; a second pass over the row
-// (from L1/L2, the row was just read), four loads in flight again, scales
-// and stores with 16-byte stores. Eight rows a block. Like the TPU kernel
-// it is off the default path: ops.rms_norm() stays the plain version, and
-// this is timed beside it.
+// ridge. Two kernels, one warp per row and 16-byte accesses (8 bf16 or 4
+// fp32 a lane, neighbouring lanes on neighbouring addresses) in both; the
+// wrapper picks by width:
+//  * one pass (rows up to ONE_PASS_LOADS · 32 · 16 bytes: d <= 4096 bf16,
+//    2048 fp32): each lane loads its whole share of the row into registers
+//    (N 16-byte loads, all in flight, N the next power of two of the row's
+//    loads per lane), the sum of squares is reduced by shuffles, and the
+//    lane scales and stores from the same registers. The row's bytes come
+//    from device memory once and from nowhere a second time. Sixteen rows
+//    a block (the fastest of 2, 4, 8 and 16 in a development sweep on the
+//    H100).
+//  * two passes (wider rows): the sum of squares with four loads in flight
+//    a lane, then a second pass over the row (from L1/L2, the row was just
+//    read) that scales and stores. Eight rows a block.
+// Like the TPU kernel it is off the default path: ops.rms_norm() stays the
+// plain version, and this is timed beside it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,8 +35,10 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int WARPS = 8;  // rows per block
-constexpr int UNROLL = 4;  // 16-byte loads in flight a lane
+constexpr int WARPS = 8;           // two passes: rows per block
+constexpr int UNROLL = 4;          // two passes: 16-byte loads in flight a lane
+constexpr int WARPS1 = 16;         // one pass: rows per block
+constexpr int ONE_PASS_LOADS = 16; // one pass: most 16-byte loads a lane
 
 __device__ __forceinline__ void to_f(const uint4& u, const bf16*, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -63,6 +74,7 @@ __device__ __forceinline__ uint4 from_f(const float* f, const float*) {
                     __float_as_uint(f[2]), __float_as_uint(f[3]));
 }
 
+// two passes: any width
 template <class T, bool HAS_W>
 __global__ void __launch_bounds__(WARPS * 32)
 rms_norm_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -124,17 +136,88 @@ rms_norm_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// one pass: the row in registers, N 16-byte loads a lane (load i of the
+// row is lane i % 32's load i / 32)
+template <class T, bool HAS_W, int N>
+__global__ void __launch_bounds__(WARPS1 * 32)
+rms_norm_rows_1pass(const T* __restrict__ x, const T* __restrict__ w,
+                    T* __restrict__ y, long n, int d, float eps) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
+  const int lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * WARPS1 + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+  uint4* yr = reinterpret_cast<uint4*>(y + row * d);
+  const uint4* wr = reinterpret_cast<const uint4*>(w);
+  const int nv = d / V;
+  const T* tag = nullptr;
+
+  uint4 u[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int i = lane + 32 * k;
+    u[k] = i < nv ? __ldcs(xr + i) : make_uint4(0, 0, 0, 0);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float f[V];
+    to_f(u[k], tag, f);
+#pragma unroll
+    for (int j = 0; j < V; ++j) ss = fmaf(f[j], f[j], ss);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffff, ss, o);
+  const float r = rsqrtf(ss / (float)d + eps);
+
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int i = lane + 32 * k;
+    if (i < nv) {
+      float f[V], wf[V];
+      to_f(u[k], tag, f);
+      if (HAS_W) to_f(__ldg(wr + i), tag, wf);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        f[j] = rnd(f[j] * r, tag);
+        if (HAS_W) f[j] = rnd(f[j] * wf[j], tag);
+      }
+      __stcs(yr + i, from_f(f, tag));
+    }
+  }
+}
+
+template <class T, bool HAS_W>
+cudaError_t launch_rows(const T* x, const T* w, T* y, long n, int d,
+                        float eps, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_lane = (d / V + 31) / 32;   // 16-byte loads a lane
+  const unsigned b1 = (unsigned)((n + WARPS1 - 1) / WARPS1);
+  if (per_lane <= 1)
+    rms_norm_rows_1pass<T, HAS_W, 1><<<b1, WARPS1 * 32, 0, st>>>(x, w, y, n, d, eps);
+  else if (per_lane <= 2)
+    rms_norm_rows_1pass<T, HAS_W, 2><<<b1, WARPS1 * 32, 0, st>>>(x, w, y, n, d, eps);
+  else if (per_lane <= 4)
+    rms_norm_rows_1pass<T, HAS_W, 4><<<b1, WARPS1 * 32, 0, st>>>(x, w, y, n, d, eps);
+  else if (per_lane <= 8)
+    rms_norm_rows_1pass<T, HAS_W, 8><<<b1, WARPS1 * 32, 0, st>>>(x, w, y, n, d, eps);
+  else if (per_lane <= ONE_PASS_LOADS)
+    rms_norm_rows_1pass<T, HAS_W, ONE_PASS_LOADS>
+        <<<b1, WARPS1 * 32, 0, st>>>(x, w, y, n, d, eps);
+  else
+    rms_norm_rows_kernel<T, HAS_W>
+        <<<(unsigned)((n + WARPS - 1) / WARPS), WARPS * 32, 0, st>>>(
+            x, w, y, n, d, eps);
+  return cudaGetLastError();
+}
+
 template <class T>
 cudaError_t launch(const void* x, const void* w, void* y, long n, int d,
                    float eps, cudaStream_t st) {
-  const unsigned blocks = (unsigned)((n + WARPS - 1) / WARPS);
   if (w != nullptr)
-    rms_norm_rows_kernel<T, true><<<blocks, WARPS * 32, 0, st>>>(
-        (const T*)x, (const T*)w, (T*)y, n, d, eps);
-  else
-    rms_norm_rows_kernel<T, false><<<blocks, WARPS * 32, 0, st>>>(
-        (const T*)x, nullptr, (T*)y, n, d, eps);
-  return cudaGetLastError();
+    return launch_rows<T, true>((const T*)x, (const T*)w, (T*)y, n, d, eps,
+                                st);
+  return launch_rows<T, false>((const T*)x, nullptr, (T*)y, n, d, eps, st);
 }
 
 }  // namespace

@@ -8,9 +8,12 @@ weight (a bf16 × bf16 product for a bf16 model).
 
 ``rms_norm_cuda`` wraps K8, the hand-written counterpart of
 ``_rms_norm_pallas`` (``csrc/rms_norm.cu``): one warp per row, 16-byte
-loads, an fp32 sum of squares. Like the Pallas kernel it is off the default
-path; ``chip_smoke.py`` checks and times it. Given CPU tensors it runs the
-plain version; given CUDA tensors it launches the kernel or raises.
+loads, an fp32 sum of squares; rows up to 4096 bf16 (2048 fp32) elements
+are read into registers once and scaled from there, wider rows take a
+two-pass kernel (the C entry picks by width). Like the Pallas kernel it is
+off the default path; ``chip_smoke.py`` checks and times it. Given CPU
+tensors it runs the plain version; given CUDA tensors it launches the
+kernel or raises.
 """
 
 import ctypes

@@ -39,6 +39,12 @@ CASES = [
     (2, 127, 127, 8, 2, 64, True, None),        # sq 127
     (2, 129, 200, 8, 1, 128, True, [200, 0]),   # sq 129, GQA 8, a row of 0
     (1, 200, 333, 8, 2, 64, False, [300]),      # sq 200, non-causal
+    # K3's edges (128-query blocks, 64 rows a consumer group, past 64-key
+    # tiles): sq 193 with an offset inside a key tile; sq 64 (no rows for
+    # the second group) with sk 65 (one key in the last tile) and a batch
+    # row of one key
+    (1, 193, 260, 8, 2, 64, True, [197]),       # sq 193, GQA 4
+    (2, 64, 65, 4, 4, 128, True, [65, 1]),      # sq 64, sk 65, d 128
 ]
 IDS = [f"b{c[0]}-sq{c[1]}-sk{c[2]}-h{c[3]}-kv{c[4]}-d{c[5]}"
        f"-{'causal' if c[6] else 'full'}-{'lens' if c[7] else 'nolens'}"

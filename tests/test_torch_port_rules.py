@@ -469,10 +469,12 @@ def test_flash_bwd_kernels_match_plain(cuda, h, nkv, sq, sk, d, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
 @pytest.mark.parametrize("h,nkv,d", [(16, 2, 64), (16, 4, 128)])
-def test_flash_dkv_kernel_two_launches_bitwise(cuda, h, nkv, d):
-    """K4 sums the GQA heads of a kv head in fp32 in a fixed order, with no
-    atomics: two launches on the same inputs give the same bits."""
+def test_flash_dkv_kernel_two_launches_bitwise(cuda, h, nkv, d, kernel):
+    """K4 sums the GQA heads of a kv head, and K3 the key tiles of a query
+    row, in fp32 in a fixed order, with no atomics: two launches on the
+    same inputs give the same bits."""
     from paddle_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=cuda).manual_seed(3)
     mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
@@ -480,10 +482,11 @@ def test_flash_dkv_kernel_two_launches_bitwise(cuda, h, nkv, d):
         mk(2, 300, h, d)
     out, lse = fa.flash_attention_fwd(q, k, v, is_causal=True)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    first = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                       is_causal=True)
-    second = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                        is_causal=True)
+    fn = getattr(fa, f"flash_attention_bwd_{kernel}")
+    first = fn(q, k, v, do, lse, delta, is_causal=True)
+    second = fn(q, k, v, do, lse, delta, is_causal=True)
+    if kernel == "dq":
+        first, second = (first,), (second,)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -823,16 +826,18 @@ def test_fused_decode_int8_modes_match_plain(cuda, w8, kv8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1024, 4096, 8192])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_rms_norm_kernel_matches_plain(cuda, dtype):
-    """K8 against the plain rms_norm: bf16 within two bf16 ulp (2^-6
-    relative: the normalised value may round on either side of a boundary,
-    and the weight product rounds again), fp32 within 1e-5 relative
-    (rsqrtf and the sum order)."""
+def test_rms_norm_kernel_matches_plain(cuda, dtype, d):
+    """K8 against the plain rms_norm at widths of both its kernels (one
+    pass up to 4096 bf16 / 2048 fp32, two passes above): bf16 within two
+    bf16 ulp (2^-6 relative: the normalised value may round on either side
+    of a boundary, and the weight product rounds again), fp32 within 1e-5
+    relative (rsqrtf and the sum order)."""
     from paddle_tpu_torch.ops import rms_norm as rn
     g = torch.Generator(device=cuda).manual_seed(9)
-    x = (torch.randn(3, 70, 1024, generator=g, device=cuda) * 2).to(dtype)
-    w = (1 + 0.1 * torch.randn(1024, generator=g, device=cuda)).to(dtype)
+    x = (torch.randn(3, 70, d, generator=g, device=cuda) * 2).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(dtype)
     n0 = rn.rms_norm_cuda.launches
     for weight in (w, None):
         out = rn.rms_norm_cuda(x, weight, 1e-5)

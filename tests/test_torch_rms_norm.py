@@ -5,7 +5,9 @@ paddle_tpu.ops.rms_norm, and the shared-memory probe's refusals.
   runs on CPU tensors) against the JAX ``_rms_norm_ref`` — the contract
   ``tests_tpu/test_pallas_parity.py`` holds ``_rms_norm_pallas`` to — on the
   same numpy input, bf16 and fp32, with and without a weight, (…, d)
-  inputs. fp32: atol 1e-6, rtol 1e-6 (the mean's sum in another order).
+  inputs, at the widths of K8's two kernels (up to 4096 the one-pass
+  kernel's, 8192 the two-pass kernel's on bf16 rows). fp32: atol 1e-6,
+  rtol 1e-6 (the mean's sum in another order).
   bf16: within two bf16 ulp (rtol 2^-6; one ulp is up to 2^-7 of the
   value): the fp32 normalised value may round to bf16 on either side of a
   boundary, and the weight product rounds that difference again.
@@ -35,7 +37,8 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
 @pytest.mark.parametrize("with_weight", [True, False])
-@pytest.mark.parametrize("shape", [(4, 8, 256), (12, 1024)])
+@pytest.mark.parametrize("shape", [(4, 8, 256), (12, 1024), (8, 4096),
+                                   (2, 8192)])
 def test_rms_norm_matches_jax_reference(dtype, with_weight, shape):
     r = np.random.RandomState(shape[-1])
     xj = jnp.asarray(r.randn(*shape) * 3 + 0.5, dtype)
