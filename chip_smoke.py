@@ -14,7 +14,9 @@ Phases, each printing one JSON line:
               must give 0 and lse NEG_INF exactly; d 64 and 128).
   4. k2     — fused decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, MHA and GQA (nkv=8): x_out and the
-              appended cache row.
+              appended cache row; then at 1, 9, 16, 33 and 64 rows (the
+              product engine's wgmma widths N = 8 … 64, on inputs from a
+              generator of their own), two launches bitwise equal.
   5. k3     — flash-attention backward kernels (K3 dq, K4 dk/dv) through
               the autograd Function vs the plain fp32 backward on the same
               forward's (out, lse): the GPT-2 training shape, a GQA d=128
@@ -30,7 +32,9 @@ Phases, each printing one JSON line:
               16 blocks per row): rows at mixed positions with one idle row,
               MHA and GQA (nkv=8); then x_out and the appended rows bitwise
               against K2 with every row at one position over the same KV,
-              in the llama mode and (GPT-2 345M width) in the gpt mode.
+              in the llama mode and (GPT-2 345M width) in the gpt mode;
+              then at 1, 9, 16, 33 and 64 rows (drawn positions, the last
+              row idle) and bitwise against K2 at 33 rows, both modes.
   7. k7     — paged verify kernel (K7) vs its plain version at Llama-2-7B
               width with 2 layers, b=8, a 5-token tail per row, over a
               shuffled table (BT 128, 16 blocks per row), MHA and GQA:
@@ -56,14 +60,16 @@ Phases, each printing one JSON line:
               (b=4, S 1152, pos 1056), k5's rows (b=8, shuffled table,
               mixed positions, an idle row) and k7's edge cases (b=8 × a
               5-token tail); x_out, the appended rows, the rest of the
-              cache or pool unchanged, two launches bitwise equal.
+              cache or pool unchanged, two launches bitwise equal; k2g and
+              k5g also at 1, 9, 16, 33 and 64 rows.
   8b. k2q   — K2's int8 modes vs their plain versions, 2 layers, b=4, S 1152,
               pos 1056: Llama-2-7B width with int8 weights (per-out-channel
               scales), with an int8 KV cache (per-(layer, kv head) scales),
               with both (MHA and GQA nkv=8), and GPT-2 345M width with an
               int8 KV cache; x_out at K2's tolerance, the appended int8 rows
               within one int8 step (lanes one step apart counted), the rest
-              of the cache unchanged, two launches bitwise equal.
+              of the cache unchanged, two launches bitwise equal; then
+              int8 weights at 1, 9, 16, 33 and 64 rows (bf16, int8 KV).
   8c. k8    — RMSNorm rows (K8) vs the plain rms_norm at the Llama-2-7B
               prefill shape (4·1024, 4096) bf16, with and without the
               weight (the one-pass kernel), a (1024, 8192) bf16 case (the
@@ -75,7 +81,8 @@ Phases, each printing one JSON line:
   8d. k9    — the shared-memory probe (K9): it equals the device's opt-in
               shared memory per block, a launch one step above is refused,
               and every dynamic shared-memory request of the kernels at the
-              smoke's shapes fits it.
+              smoke's shapes (the product engine's at each N, bf16 and int8
+              weights, among them) fits it.
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -99,6 +106,12 @@ Phases, each printing one JSON line:
               version on the logits; K5 timed at 8 rows averaging ~700
               cached tokens; then a second engine serves 8 sampled requests
               (temperature 0.8, top-k 50, top-p 0.9) with their own seeds.
+ 11b. serve32 — the same model through ServingEngine at 32 slots (block
+              128, max_seq_len 2048, a 34 GB pool): 32 greedy requests
+              drawn as serve's 16 are, from seed 32, every slot busy at
+              once; launch counts; a teacher-forced 32-row, 32-layer K5
+              step vs the plain paged version on the logits; K5 timed at
+              32 rows (the K5 row's "b32").
  12. spec   — the same model through ServingEngine(speculate=SpecConfig(k=4))
               (8 slots, block 128): 16 greedy requests from seed 0 with
               32–128 new tokens, 8 of 400–1000-token prompts tiling a
@@ -397,9 +410,30 @@ def stack_params(gen, arch, L, nkv):
     return fused_params(gen, L, w["h"], w["nh"], nkv, w["hd"], w["ffn"])
 
 
-def k2_case(fd, rope, gen, nkv, L=2, b=4, S=1152, pos=1056, arch="llama"):
-    """K2 against its plain version; the gpt mode also launches twice and
-    holds the two results bitwise equal."""
+#: the row counts the product engine's cases add beside each phase's own:
+#: one row, each of its wgmma widths N = 16, 32 and 64 entered just past the
+#: one below (9, 16, 33) and the cap (DECODE_MAX_ROWS)
+WIDE_ROWS = (1, 9, 16, 33, 64)
+
+
+def wide_nkv(b):
+    """The llama wide cases' kv heads: MHA at 1 and 16 rows, GQA (8) at
+    the others, which keeps the 64-row cache and pool small."""
+    return 32 if b in (1, 16) else 8
+
+
+def wide_gen(seed):
+    """A generator of the wide cases' own, so that the shared one's stream,
+    and with it every later phase's inputs, stays as it was."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def k2_case(fd, rope, gen, nkv, L=2, b=4, S=1152, pos=1056, arch="llama",
+            twice=False):
+    """K2 against its plain version; the gpt mode (and `twice`) also
+    launches twice and holds the two results bitwise equal."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     dkv = nkv * hd
@@ -415,7 +449,7 @@ def k2_case(fd, rope, gen, nkv, L=2, b=4, S=1152, pos=1056, arch="llama"):
     kv_k = kv.clone()
     xo, _ = fd.fused_decode_cuda(x, params, kv_k, pos, c, s, **kw)
     repeat = None
-    if arch == "gpt":
+    if twice or arch == "gpt":
         kv_k2 = kv.clone()
         xo2, _ = fd.fused_decode_cuda(x, params, kv_k2, pos, c, s, **kw)
         repeat = bool(torch.equal(xo, xo2) and torch.equal(kv_k, kv_k2))
@@ -434,14 +468,18 @@ def k2_case(fd, rope, gen, nkv, L=2, b=4, S=1152, pos=1056, arch="llama"):
            "rest_of_cache_unchanged": untouched, "atol": K2_ATOL,
            "rtol": K2_RTOL, "ok": ok}
     if arch == "gpt":
-        res.update(arch="gpt", two_launches_bitwise_equal=repeat)
+        res["arch"] = "gpt"
+    if repeat is not None:
+        res["two_launches_bitwise_equal"] = repeat
     return res
 
 
 def phase_k2g(fd, rope, gen):
     """K2's gpt mode at GPT-2 345M width (h 1024, 16 heads of 64, ffn 4096),
-    2 layers, b=4, S 1152, pos 1056."""
+    2 layers, b=4, S 1152, pos 1056, then at WIDE_ROWS rows."""
     cases = [k2_case(fd, rope, gen, 16, arch="gpt")]
+    wg = wide_gen(21)
+    cases += [k2_case(fd, rope, wg, 16, b=b, arch="gpt") for b in WIDE_ROWS]
     emit({"phase": "k2g", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -451,7 +489,12 @@ def phase_k2g(fd, rope, gen):
 
 
 def phase_k2(fd, rope, gen):
+    """K2 at Llama-2-7B width, 2 layers, b=4 (MHA and GQA nkv=8), then at
+    WIDE_ROWS rows (wide_nkv's heads, two launches bitwise equal)."""
     cases = [k2_case(fd, rope, gen, 32), k2_case(fd, rope, gen, 8)]
+    wg = wide_gen(20)
+    cases += [k2_case(fd, rope, wg, wide_nkv(b), b=b, twice=True)
+              for b in WIDE_ROWS]
     emit({"phase": "k2", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -485,9 +528,18 @@ def k5_pool(gen, L, dkv2, positions, idle=()):
     return pool, tables.cuda()
 
 
-def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama"):
-    """K5 against its plain version; the gpt mode also launches twice and
-    holds the two results bitwise equal."""
+def wide_positions(b, seed):
+    """b positions drawn from `seed` over the table's span, and the last
+    row idle when b > 1."""
+    r = np.random.RandomState(seed)
+    pos = [int(p) for p in r.randint(0, K5_BT * K5_MB, b)]
+    return pos, ((b - 1,) if b > 1 else ())
+
+
+def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
+            twice=False):
+    """K5 against its plain version; the gpt mode (and `twice`) also
+    launches twice and holds the two results bitwise equal."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     b = len(positions)
@@ -504,7 +556,7 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama"):
     xo, _ = fd.fused_paged_decode_cuda(x, params, pool_k, tables, pos, c, s,
                                        **kw)
     repeat = None
-    if arch == "gpt":
+    if twice or arch == "gpt":
         pool_k2 = pool.clone()
         xo2, _ = fd.fused_paged_decode_cuda(x, params, pool_k2, tables, pos,
                                             c, s, **kw)
@@ -532,7 +584,9 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama"):
            "row_max_abs_err": row_err, "rest_of_pool_unchanged": untouched,
            "atol": K2_ATOL, "rtol": K2_RTOL, "ok": ok}
     if arch == "gpt":
-        res.update(arch="gpt", two_launches_bitwise_equal=repeat)
+        res["arch"] = "gpt"
+    if repeat is not None:
+        res["two_launches_bitwise_equal"] = repeat
     return res
 
 
@@ -575,17 +629,30 @@ def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300, arch="llama"):
 
 
 def phase_k5(fd, rope, gen):
+    """K5 at Llama-2-7B width, 2 layers, b=8 at mixed positions with an
+    idle row (MHA and GQA), bitwise against K2 at b=8 (llama and gpt);
+    then at WIDE_ROWS rows (drawn positions, the last row idle; two
+    launches bitwise equal) and bitwise against K2 at b=33."""
     mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
     cases = [k5_case(fd, rope, gen, 32, mixed, idle=(4,)),
              k5_case(fd, rope, gen, 8, mixed, idle=(4,))]
     bitwise = k5_vs_k2(fd, rope, gen)
     bitwise_gpt = k5_vs_k2(fd, rope, gen, nkv=16, pos=1000, arch="gpt")
+    wg = wide_gen(22)
+    for b in WIDE_ROWS:
+        positions, idle = wide_positions(b, 100 + b)
+        cases.append(k5_case(fd, rope, wg, wide_nkv(b), positions, idle,
+                             twice=True))
+    bitwise33 = k5_vs_k2(fd, rope, wg, b=33)
+    bitwise33_gpt = k5_vs_k2(fd, rope, wg, nkv=16, b=33, pos=1000,
+                             arch="gpt")
     emit({"phase": "k5", "cases": cases, "vs_k2": bitwise,
-          "vs_k2_gpt": bitwise_gpt})
+          "vs_k2_gpt": bitwise_gpt, "vs_k2_b33": bitwise33,
+          "vs_k2_gpt_b33": bitwise33_gpt})
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K5 disagrees with its plain version: {bad}")
-    for b in (bitwise, bitwise_gpt):
+    for b in (bitwise, bitwise_gpt, bitwise33, bitwise33_gpt):
         if not b["ok"]:
             raise AssertionError(f"K5 does not give K2's bits: {b}")
     return max(c["max_abs_err"] for c in cases)
@@ -593,9 +660,14 @@ def phase_k5(fd, rope, gen):
 
 def phase_k5g(fd, rope, gen):
     """K5's gpt mode at GPT-2 345M width, 2 layers, b=8 over a shuffled
-    table at mixed positions with one idle row (phase k5's rows)."""
+    table at mixed positions with one idle row (phase k5's rows), then at
+    WIDE_ROWS rows."""
     mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
     cases = [k5_case(fd, rope, gen, 16, mixed, idle=(4,), arch="gpt")]
+    wg = wide_gen(23)
+    for b in WIDE_ROWS:
+        positions, idle = wide_positions(b, 200 + b)
+        cases.append(k5_case(fd, rope, wg, 16, positions, idle, arch="gpt"))
     emit({"phase": "k5g", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -1090,12 +1162,18 @@ K2Q_MODES = (("llama_int8w", "llama", True, False),
 def phase_k2q(fd, rope, gen):
     """K2's int8 modes at Llama-2-7B width (MHA; both int8 modes also GQA
     nkv=8) and GPT-2 345M width (int8 KV), 2 layers, b=4, S 1152,
-    pos 1056. Returns {mode: max |x_out - plain|}."""
+    pos 1056; then int8 weights at WIDE_ROWS rows (GQA, bf16 and int8 KV
+    in turn). Returns {mode: max |x_out - plain|}."""
     cases = {}
     for name, arch, w8, kv8 in K2Q_MODES:
         cases[name] = [k2q_case(fd, rope, gen, 16 if arch == "gpt" else 32,
                                 w8, kv8, arch=arch)]
     cases["llama_int8w_int8kv"].append(k2q_case(fd, rope, gen, 8, True, True))
+    # the engine's int8 path at every width: int8 weights, bf16 and int8 KV
+    wg = wide_gen(24)
+    for i, b in enumerate(WIDE_ROWS):
+        name = "llama_int8w" if i % 2 == 0 else "llama_int8w_int8kv"
+        cases[name].append(k2q_case(fd, rope, wg, 8, True, i % 2 == 1, b=b))
     emit({"phase": "k2q", "cases": cases})
     bad = [c for cs in cases.values() for c in cs if not c["ok"]]
     if bad:
@@ -1200,6 +1278,10 @@ def phase_k9(fd, bw):
     for mt in (1, 2, 3, 4):
         requests[f"tensor_core_gemm mt{mt}"] = fd.dynamic_smem_bytes(
             "tensor_core_gemm", mt)
+    for n in (8, 16, 32, 64):
+        for w8 in (0, 1):
+            requests[f"product_engine n{n}{' int8' if w8 else ''}"] = \
+                fd.dynamic_smem_bytes("product_engine", n, w8)
     too_big = {k: v for k, v in requests.items() if not 0 < v <= got}
     out = torch.zeros((2, 4), device=dev)
     lib = sp._lib()
@@ -1470,19 +1552,19 @@ SERVE = dict(max_slots=8, block_tokens=128, max_seq_len=2048)
 PREFIX = 256
 
 
-def serve_requests(vocab, max_prompt=1000):
-    """16 requests from seed 0: 8 behind a shared 256-token prefix (prompts
-    300–max_prompt tokens), 8 without (100–max_prompt); 16–96 new tokens
-    each."""
-    r = np.random.RandomState(0)
+def serve_requests(vocab, max_prompt=1000, n=16, seed=0):
+    """n requests from `seed`: n/2 behind a shared 256-token prefix
+    (prompts 300–max_prompt tokens), n/2 without (100–max_prompt); 16–96
+    new tokens each."""
+    r = np.random.RandomState(seed)
     prefix = r.randint(0, vocab, PREFIX)
     shared, other = [], []
-    for _ in range(8):
-        n = r.randint(300, max_prompt + 1)
+    for _ in range(n // 2):
+        n_tok = r.randint(300, max_prompt + 1)
         shared.append((np.concatenate([prefix, r.randint(0, vocab,
-                                                        n - PREFIX)]),
+                                                        n_tok - PREFIX)]),
                        int(r.randint(16, 97))))
-    for _ in range(8):
+    for _ in range(n // 2):
         other.append((r.randint(0, vocab, r.randint(100, max_prompt + 1)),
                       int(r.randint(16, 97))))
     return shared, other
@@ -1531,15 +1613,15 @@ def borrow_blocks(eng, n):
         eng.prefix_cache.evict_free(short)
 
 
-def time_k5(fd, eng, bw, flops, span=(100, 1300)):
-    """K5 and its plain version at 8 rows at positions evenly over `span`
-    (~700 cached tokens on average by default), over the engine's pool
-    (blocks borrowed from its free list)."""
-    positions = [int(p) for p in np.linspace(*span, 8)]
+def time_k5(fd, eng, bw, flops, span=(100, 1300), rows=8):
+    """K5 and its plain version at `rows` rows at positions evenly over
+    `span` (~700 cached tokens on average by default), over the engine's
+    pool (blocks borrowed from its free list)."""
+    positions = [int(p) for p in np.linspace(*span, rows)]
     BT, L = eng.block_tokens, eng._num_layers
     borrow_blocks(eng, sum(p // BT + 1 for p in positions))
     borrowed = []
-    tables = np.zeros((8, eng.max_blocks_per_slot), np.int32)
+    tables = np.zeros((rows, eng.max_blocks_per_slot), np.int32)
     for i, p in enumerate(positions):
         bids = eng.pool.alloc(p // BT + 1)
         tables[i, :len(bids)] = bids
@@ -1550,7 +1632,7 @@ def time_k5(fd, eng, bw, flops, span=(100, 1300)):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     h = plan["params"]["ln1"].shape[1]
-    x = rand((8, h), gen)
+    x = rand((rows, h), gen)
     cos = eng._cos_tab.index_select(0, pos)
     sin = eng._sin_tab.index_select(0, pos)
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
@@ -1568,11 +1650,12 @@ def time_k5(fd, eng, bw, flops, span=(100, 1300)):
     wbytes = sum(t.numel() * t.element_size() for t in params.values())
     row = eng.kv_pool.shape[3] * eng.kv_pool.element_size()
     keys = sum(p + 1 for p in positions)
-    nbytes = wbytes + L * row * keys + L * row * 8 + 2 * x.numel() * 2
-    nflops = 2 * 8 * sum(t.numel() for t in params.values()) \
+    nbytes = wbytes + L * row * keys + L * row * rows + 2 * x.numel() * 2
+    nflops = 2 * rows * sum(t.numel() for t in params.values()) \
         + L * meta["num_heads"] * 4 * meta["head_dim"] * keys
     tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
-    return {"positions": positions, "mean_cached_tokens": keys / 8,
+    return {"rows": rows, "positions": positions,
+            "mean_cached_tokens": keys / rows,
             "ms": ms, "plain_ms": plain, "bytes": nbytes, "flops": nflops,
             "bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations"}
@@ -1717,6 +1800,92 @@ def phase_serve(fa, fd, model, bw, flops, k5_err, phase="serve",
            "at_shape": {"b": 8, "layers": L,
                         "positions": timing["positions"]}}
     return row, total
+
+
+SERVE32 = dict(max_slots=32, block_tokens=128, max_seq_len=2048)
+
+
+def phase_serve32(fa, fd, model, bw, flops):
+    """`model` through ServingEngine(**SERVE32) (a 34 GB pool beside the
+    weights): 32 greedy requests drawn as serve_requests draws its 16, from
+    seed 32 (their own, so no later phase's inputs change), half behind the
+    shared prefix; every slot busy at once; a teacher-forced 32-layer,
+    32-row K5 step over the live pool against the plain paged version on
+    the logits; K5 timed at 32 rows. Returns (K5's 32-row timing, the run's
+    launch counts)."""
+    from paddle_tpu_torch.serving import Request, ServingEngine
+
+    cfg = model.cfg
+    shared, other = serve_requests(cfg.vocab_size, n=32, seed=32)
+    reqs = shared + other
+    slots = SERVE32["max_slots"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, **SERVE32)
+    reset_counts(fa, fd)
+    t0 = time.perf_counter()
+    rids = [eng.submit(Request(shared[0][0], max_new_tokens=shared[0][1]))]
+    eng.step()        # its prefix blocks land in the cache before the rest
+    rids += [eng.submit(Request(p, max_new_tokens=n)) for p, n in reqs[1:]]
+    for _ in range(8):
+        eng.step()
+        if eng.active_slots == slots:
+            break
+    busy = eng.active_slots
+    forced = teacher_forced_k5(fd, eng)
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(eng.stats)
+    got = counts(fa, fd)
+    results = [eng.pop_result(i) for i in rids]
+    want = [n for _, n in reqs]
+    lengths = [len(res.tokens) for res in results]
+    ttft = sorted(res.ttft_s for res in results)
+    timing = time_k5(fd, eng, bw, flops, rows=slots)
+    eng.prefix_cache.clear()
+    leaked = eng.pool.used_blocks
+    peak = torch.cuda.max_memory_allocated()
+    pool_bytes = eng.kv_pool.numel() * eng.kv_pool.element_size()
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    L = cfg.num_layers
+    steps = st["steps"]
+    res = {"phase": "serve32", "model": "llama2_7b", "layers": L,
+           "dtype": "bfloat16", **SERVE32, "pool_bytes": pool_bytes,
+           "requests": len(rids), "shared_prefix_tokens": PREFIX,
+           "slots_busy_at_once": busy,
+           "prompt_lens": [len(p) for p, _ in reqs], "max_new": want,
+           "generated": lengths, "wall_s": wall,
+           "tokens_per_s": sum(lengths) / wall,
+           "decode_ms_per_tick": 1e3 * (st["step_dispatch_s"]
+                                        + st["step_sync_s"]) / steps,
+           "prefill_s": st["step_prefill_s"],
+           "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+           "ttft_p99_ms": 1e3 * ttft[min(len(ttft) - 1,
+                                         int(0.99 * len(ttft)))],
+           "stats": st, "launches": got, "teacher_forced": forced,
+           "k5_timing": timing, "pool_used_blocks_after_clear": leaked,
+           "max_memory_allocated": peak}
+    emit(res)
+    checks = {
+        "every slot busy at once": busy == slots,
+        "every request at its full length": lengths == want,
+        "K5 once per tick and replayed token": got["fused_paged_decode_step"]
+        == steps + st["replay_tokens"],
+        "K2 never": got["fused_decode_step"] == 0,
+        f"K1 {L} per prefill group": got["flash_attention_fwd"]
+        == L * st["prefill_groups"],
+        "15 siblings reuse the prefix": st["prefill_tokens_reused"]
+        >= 15 * PREFIX,
+        "no leaked block": leaked == 0,
+        "teacher-forced logits": forced["ok"],
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"serve32: failed {bad}")
+    return timing, got
 
 
 # ---- speculative serving --------------------------------------------------------
@@ -3098,6 +3267,9 @@ def main(argv):
     with torch.no_grad():
         k5_row, serve_launches = phase_serve(fa, fd, model, bw, flops, k5_err)
         gc.collect()
+        k5_row["b32"], serve32_launches = phase_serve32(fa, fd, model, bw,
+                                                        flops)
+        gc.collect()
         k7_row, spec_launches = phase_spec(fa, fd, model, bw, flops, k7_err)
         gc.collect()
         int8_timing, int8_runs = phase_int8(fa, fd, model, bw, flops)
@@ -3136,6 +3308,7 @@ def main(argv):
         k["launches_by_path"]["generate_int8kv"] = int8kv_launches[k["name"]]
         k["launches_by_path"]["int8_generate"] = int8_launches[k["name"]]
         k["launches_by_path"]["serve"] = serve_launches[k["name"]]
+        k["launches_by_path"]["serve32"] = serve32_launches[k["name"]]
         k["launches_by_path"]["spec"] = spec_launches[k["name"]]
         k["launches_by_path"]["moe"] = moe_launches[k["name"]]
         for path, got in gpt_launches.items():

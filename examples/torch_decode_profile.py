@@ -21,9 +21,19 @@ prompt 1024, 64 new tokens) and the same call with one new token, and
 prints the wall time and the device-busy time of the 63 decode steps
 (their difference), so the device's idle share during decode shows.
 
---paged: the same split for the paged decode step (K5) at 8 rows whose
-positions run evenly from 100 to 1300 (700 cached tokens on average),
-each through its own shuffled blocks of 128 tokens.
+--paged: the same split for the paged decode step (K5) at 8 rows (or
+--rows) whose positions run evenly from 100 to 1300 (700 cached tokens on
+average), each through its own shuffled blocks of 128 tokens.
+
+Each line also carries "products": the products' kernel (K2/K5's
+engine_kernel; K7's tc_gemm_partial_kernel; K6's attention-half products
+on the engine), the weight bytes it streams per step, its device time and,
+for the engine, its exclusive share of the step (the step time less every
+other kernel's device time: an engine launch starts while the kernel
+before it still runs, so its device time overlaps that kernel's), and the
+rate in TB/s over the exclusive share; and "device_ms_over_step_ms", the
+trace's sum against the CUDA-event step time (a trace that lost kernel
+records reads low; overlapping kernels read above 1).
 
 --verify: the same split for the paged verify step (K7) at the same 8 rows
 with a tail of 5 tokens each (the last token and k = 4 proposals, the
@@ -82,7 +92,8 @@ def device_ms(prof):
         dt = ev.self_device_time_total
         if not dt:
             continue
-        # "void (anonymous namespace)::gemm_partial_kernel<true, ...>(...)"
+        # "void (anonymous namespace)::engine_kernel<8, bf16>(...)" ->
+        # "engine_kernel<8, __nv_bfloat16>"
         name = ev.key.replace("void ", "").replace(
             "(anonymous namespace)::", "").split("(")[0]
         per_kernel[name] = per_kernel.get(name, 0.0) + dt / 1e3
@@ -290,6 +301,8 @@ def main():
     ap.add_argument("--moe", action="store_true")
     ap.add_argument("--gpt", action="store_true")
     ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--rows", type=int, default=8,
+                    help="--paged / --verify: rows of the step")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -313,7 +326,7 @@ def main():
         L, b, pos, nkv = 28, 4, 1056, 16
         step, p, kvb, distinct = moe_step(b, pos, L)
     elif a.paged or a.verify:
-        b = 8
+        b = a.rows
         step, p, kvb, pos = paged_step(L, b, nkv,
                                        tail=VERIFY_TAIL if a.verify else 0)
     else:
@@ -348,6 +361,29 @@ def main():
     else:
         bounds_ms.update({"gate/up gemm": wb("wg", "wu") / bw * 1e3,
                           "down gemm": wb("wd") / bw * 1e3})
+    # the products' kernel and the weight bytes it streams per step: K2/K5's
+    # engine (K6: its attention half's qkv and o-proj), K7's mma.sync GEMM
+    prod_name = "tc_gemm_partial_kernel" if a.verify else "engine_kernel"
+    prod_keys = (("wqkv", "wo") if a.moe else ("wqkv", "wo", "wg", "wd")
+                 if a.gpt else ("wqkv", "wo", "wg", "wu", "wd"))
+    if a.moe:    # K6's routed and shared experts run on tc_gemm_partial
+        prod_name = "engine_kernel"
+    prod_ms = sum(v for k, v in per_kernel.items()
+                  if k.startswith(prod_name))
+    # An engine launch starts while the kernel before it runs (programmatic
+    # dependent launch) and streams weights then, so its device time
+    # overlaps that kernel's. Its exclusive share of the step is the step
+    # time less every other kernel's device time (launch gaps included).
+    excl = step_ms - sum(v for k, v in per_kernel.items()
+                         if not k.startswith(prod_name))
+    nbytes = wb(*prod_keys)
+    products = {"kernel": prod_name, "weights": list(prod_keys),
+                "bytes": nbytes, "device_ms": prod_ms,
+                "exclusive_ms": excl if prod_name == "engine_kernel" else
+                prod_ms,
+                "tb_per_s": nbytes / (excl if prod_name == "engine_kernel"
+                                      else prod_ms) / 1e9
+                if prod_ms else None}
     print(json.dumps({"card": card, "layers": L, "batch": b, "pos": pos,
                       "kernel": ("K7 (verify), tail %d" % VERIFY_TAIL
                                  if a.verify else
@@ -359,6 +395,12 @@ def main():
                       "kv_heads": nkv, "step_ms": step_ms,
                       "device_ms_per_step_by_kernel": per_kernel,
                       "device_ms_per_step": sum(per_kernel.values()),
+                      # the trace's sum against the CUDA-event step time: a
+                      # trace that lost kernel records reads low; above 1,
+                      # kernels overlapped (the engine's early starts)
+                      "device_ms_over_step_ms":
+                          sum(per_kernel.values()) / step_ms,
+                      "products": products,
                       "bound_ms_by_part": bounds_ms,
                       "bound_ms": sum(bounds_ms.values())}))
 

@@ -4,31 +4,71 @@
 // Replaces the TPU kernel paddle_tpu/ops/fused_decode.py::_fused_decode_pallas
 // (pallas_call at :940), llama arch, bf16 mode. Per layer, on one stream,
 // issued by one C call for the whole stack:
-//   1. skinny GEMM  qkv = rms(x, ln1) @ wqkv            (RMSNorm prologue)
+//   1. skinny GEMM  qkv = rms(x, ln1) @ wqkv            (RMSNorm rows)
 //   2. rope + cache append at pos + attention over the filled prefix [0, pos]
 //   3. skinny GEMM  x += attn @ wo                       (residual epilogue)
 //   4. skinny GEMM  act = silu(rms(x, ln2) @ wg) * (rms(x, ln2) @ wu)
 //   5. skinny GEMM  x += act @ wd                        (residual epilogue)
-// A skinny GEMM is two or three launches: the RMSNorm statistics (b
-// floats), the split-K partial products with the norm applied while x is
-// staged, and an epilogue that sums the partials in a fixed order and
-// applies the residual add or SwiGLU — 1 + 11 launches per layer.
+// A skinny GEMM is three launches: a row kernel that writes the normalised
+// bf16 rows (RMSNorm; the o-proj and down products read their bf16 input as
+// it is), the split-K partial products on the product engine below, and an
+// epilogue that sums the partials in a fixed order and applies the residual
+// add or SwiGLU (gate and up are one engine launch over two weights) —
+// 1 + 11 launches per layer.
 // Casts sit where fused_decode_reference puts them: activations are rounded
 // to bf16 before each product, products accumulate in fp32, q/k/v and the
 // residual stay fp32, k and v are rounded to bf16 by the cache append.
 //
-// What bounds it on the H100: bytes. At b <= 8 every weight element is used
-// b times, far below the ~295 FLOP/byte ridge, so a step can take no less
-// than (all layer weights + the filled KV prefix) / 3.35 TB/s. The design
-// streams each weight byte exactly once with 16-byte loads (each thread owns
-// 8 adjacent output columns of the row-major (in, out) weight, neighbouring
-// threads neighbouring columns), keeps several loads in flight per thread,
-// splits the contraction dim across the warps of a block and across ~4
-// blocks per SM (a 4096-wide output alone fills only 64 blocks), and fuses
-// the norm, residual and SwiGLU into the products so activations
-// cross device memory only as tiny (b, ·) vectors. Attention reads only the
-// filled prefix, never the unfilled tail. First design: no CUDA graph, no
-// persistent megakernel, no split over the KV length.
+// What bounds it on the H100: bytes. At b <= 64 every weight element is used
+// at most 64 times, far below the ~295 FLOP/byte ridge, so a step can take
+// no less than (all layer weights + the filled KV prefix) / 3.35 TB/s.
+// Attention reads only the filled prefix, never the unfilled tail. First
+// design: no CUDA graph, no persistent megakernel, no split over the KV
+// length.
+//
+// The product engine (engine_kernel; K2, K5 and K6's attention half). The
+// weight stream has to keep ~3.35 TB/s in flight, and a register GEMM that
+// unpacks every weight element and issues b FMAs for it on the CUDA cores
+// is bound by the instructions it issues long before that (on an H100 such
+// a GEMM's products ran at about 1.1 TB/s at b = 8). The engine moves the arithmetic onto the
+// tensor cores and the loads onto the TMA, so no thread touches a weight
+// element on its way to a product:
+//  * Operands swapped: the weight tile is wgmma's A (64 output columns x 16
+//    of the contraction, MN-major as (in, out) stores it, tnspA = 1), the
+//    activation rows are B (K-major, N = the rows rounded up to 8, 16, 32
+//    or 64), so the accumulator is 64 x N fp32 a warpgroup (<= 32 registers
+//    a thread) and rows up to 64 cost the stream nothing.
+//  * One persistent block per SM walks the product's units (128 output
+//    columns x one contraction split; SwiGLU's gate and up are two unit
+//    sets of one launch). One producer warp issues TMA loads of 64 (bf16)
+//    or 128 (int8) contraction rows x 128 columns of the weight (one 3-d
+//    map per weight stack, the layer a coordinate) and the matching columns
+//    of the rows (a 2-d map) into a ring of 4-12 stages (64-200 KB of
+//    weights in flight per SM), with full and empty mbarriers; consumer
+//    warpgroups, one per 64 columns (int8: two, see below), issue the
+//    wgmmas. The ring runs across unit boundaries, so one unit's partial
+//    store overlaps the next unit's loads.
+//  * Each launch is the programmatic dependent of the kernel before it (the
+//    norm rows, the attention or the SwiGLU/GELU epilogue, which let it
+//    start at once): its first ring's worth of weight tiles streams while
+//    that kernel runs, and only the rows wait for it (griddepcontrol).
+//  * The splits are chosen on the host so that the busiest SM's share of
+//    the weight stream (whole waves of units) plus the partials' traffic
+//    is least; the partials ws[ks][row][col] are summed in a fixed order by
+//    the epilogue kernels, with no atomics, so two launches give the same
+//    bits and K5 gives K2's.
+//  * Int8 weights (K2's int8 modes): the TMA loads the int8 tile (half the
+//    bytes, 128 contraction rows a stage); a consumer group turns its 64
+//    columns into a bf16 tile in shared memory, exactly (|q| <= 127 fits a
+//    bf16), then fence.proxy.async and a group barrier, and runs the bf16
+//    wgmma on it; a second group barrier after the wgmmas keeps the next
+//    stage's conversion off the copy until all four warps have read it. Four groups, two a column half taking the stages in turn,
+//    so one converts while the other multiplies; each writes its own
+//    partial set, and the epilogue sums the 2 x ks sets in a fixed order.
+//    A shared-memory copy rather than a register A operand: the register
+//    form needs the tile transposed into the A fragment, which the MN-major
+//    tile does not give without a byte shuffle per element. The
+//    per-out-channel scale stays in the epilogue, after the fixed-order sum.
 //
 // Two entry points share every launch above: fused_decode_llama (K2) over
 // the contiguous cache (L, b, S, 2*nkv*hd) at one position, and
@@ -39,8 +79,8 @@
 //
 // A third entry point, fused_paged_verify_llama (K7, speculative decoding's
 // verify step), runs up to 64 tail rows through the stack on tensor-core
-// GEMMs of its own; it shares only the epilogue, norm-sum and cast kernels
-// with K2/K5, whose code it leaves as it is (see the K7 section). A fourth,
+// GEMMs of its own (mma.sync with cp.async); it shares the epilogue,
+// norm-row and cast kernels with K2/K5 (see the K7 section). A fourth,
 // fused_decode_moe (K6, the MoE step), runs K2's attention half and then
 // the routed and shared experts on K7's tensor-core GEMMs (see the K6
 // section).
@@ -50,36 +90,27 @@
 // with bias, biases on all four products, no rope, a tanh-GELU FFN with no
 // up-projection. It adds kernels beside the llama ones and changes none of
 // theirs: a LayerNorm kernel (layernorm_rows_kernel) writes the bf16 rows
-// the products read, so the register GEMM runs its existing bf16-input path
-// (no LayerNorm prologue); bias epilogues (bias_epilogue_kernel) add each
-// product's bias after the fixed-order split-K sum, never in a partial; and
-// the attention kernels take a compile-time ROPE flag, false here. See the
-// gpt section near the end.
+// the product engine reads, as the RMSNorm kernel does for llama; bias
+// epilogues (bias_epilogue_kernel) add each product's bias after the
+// fixed-order split-K sum, never in a partial; and the attention kernels
+// take a compile-time ROPE flag, false here. See the gpt section near the
+// end.
 //
 // The int8 modes of K2 (the TPU kernel's `int8` and `kvq` branches;
 // fused_decode_llama with scale rows, fused_decode_llama and
-// fused_decode_gpt with kv scales). Int8 weights (llama): the register GEMM
-// takes the weight type as a template parameter; an 8-byte load holds 8
-// int8 columns, so each thread keeps its 8 columns and the block its 64.
-// Four weight rows stay in flight per thread, for one weight and for two
-// (measured on an H100 against 8, 12 and 16: the int8 loop is bound by the
-// elements it handles rather than by bytes, and a longer unroll wastes more
-// of the last, partly masked, pass over a split). The int8 values become
-// fp32 exactly in registers (byte permutes and one add each, see unpack8)
-// and multiply the bf16 activations in fp32. The per-out-channel scale
-// multiplies each output once, after the fixed-order split-K sum, in the
-// epilogue: qkv, the o-proj before its residual add, gate and up before
-// SwiGLU, down before its residual add (the reference's y * s after the
-// full dot). Int8 KV (llama and gpt): a cache policy (ContigKV8) makes the
+// fused_decode_gpt with kv scales). Int8 weights (llama): int8 stacks
+// stream through the product engine's int8 path (above); the
+// per-out-channel scale multiplies each output once, after the fixed-order
+// split-K sum, in the epilogue: qkv, the o-proj before its residual add,
+// gate and up before SwiGLU, down before its residual add (the reference's
+// y * s after the full dot). Int8 KV (llama and gpt): a cache policy (ContigKV8) makes the
 // attention kernel store the append as rint(v / scale) clipped to +-127 and
 // read keys and values as int8; since a scale is one value per (layer, kv
 // head), the k scale folds into the staged q and the v scale multiplies the
 // attention output once. Bound: bytes, as the bf16 mode's, with half the
-// weight and KV bytes. The bf16 instantiations keep their code and bits.
+// weight and KV bytes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_sm90.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -105,38 +136,6 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-// 8 int8 values (8 bytes) to fp32, exactly: byte b, biased to u = b ^ 0x80
-// (= b + 128), becomes the mantissa of 2^23 (one byte permute), and the
-// float (2^23 + u) - (2^23 + 128) = b. This replaces 8 integer-to-float
-// conversions, a quarter-rate instruction that would otherwise bound the
-// GEMM's inner loop at an int8 stream's byte rate.
-__device__ __forceinline__ void unpack8(const uint2& u, float* f) {
-  const unsigned w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    f[i] = __int_as_float(
-               __byte_perm(w[i / 4], 0x4B000000u, 0x7440 | (i % 4))) -
-           8388736.f;
-}
-
-// The register GEMM's weight types: the load that holds 8 columns, the rows
-// in flight per thread (one weight / two weights), and whether outputs carry
-// a per-out-channel scale.
-template <class W>
-struct WTraits;
-template <>
-struct WTraits<bf16> {
-  using V = uint4;
-  static constexpr int U1 = 8, U2 = 2;
-  static constexpr bool SCALED = false;
-};
-template <>
-struct WTraits<int8_t> {
-  using V = uint2;
-  static constexpr int U1 = 4, U2 = 4;
-  static constexpr bool SCALED = true;
-};
-
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
@@ -154,146 +153,6 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// RMSNorm statistics, one block per batch row: rstd = 1/sqrt(mean(x^2)+eps)
-__global__ void __launch_bounds__(GT)
-rms_stats_kernel(const float* __restrict__ xf, float* __restrict__ rstd,
-                 int in, float eps) {
-  __shared__ float tmp[NWG];
-  const int bi = blockIdx.x;
-  float ss = 0.f;
-  for (int k = threadIdx.x; k < in; k += GT) {
-    const float t = xf[(long)bi * in + k];
-    ss += t * t;
-  }
-  ss = block_sum(ss, tmp);
-  if (threadIdx.x == 0) rstd[bi] = 1.f / sqrtf(ss / (float)in + eps);
-}
-
-// Partial products of y(b, out) = x(b, in) @ W(in, out), b <= B: block
-// (blockIdx.x, blockIdx.y) owns 64 output columns (8 per thread, 8 column
-// groups) and the contraction rows [ks*kper, (ks+1)*kper); its 32 row
-// slices stride those rows and are reduced through shuffles and shared
-// memory into ws[ks][bi][col]. The prologue stages x in shared memory KCH
-// rows at a time: RMS applies the norm (rstd precomputed, bf16(x*rstd)*w
-// rounded to bf16, the reference rounding); otherwise x is bf16 already.
-// TWO streams a second weight (SwiGLU's up) against the same x.
-constexpr int TPC = 8;           // threads per 64-column group
-constexpr int COLS = TPC * 8;
-constexpr int RS = GT / TPC;     // contraction slices per block
-
-template <bool RMS, bool TWO, int B, class W = bf16>
-__global__ void __launch_bounds__(GT)
-gemm_partial_kernel(const float* __restrict__ xf,
-                    const float* __restrict__ rstd,
-                    const bf16* __restrict__ xb, const bf16* __restrict__ lnw,
-                    const W* __restrict__ w0, const W* __restrict__ w1,
-                    float* __restrict__ ws0, float* __restrict__ ws1, int b,
-                    int in, int out, int kper) {
-  using V = typename WTraits<W>::V;
-  constexpr int KCH = 4096 / B;  // staged rows (8 KB of bf16)
-  // weight rows in flight per thread
-  constexpr int U = TWO ? WTraits<W>::U2 : WTraits<W>::U1;
-  constexpr int NA = TWO ? 2 : 1;
-  __shared__ __align__(16) bf16 xs[B][KCH];
-  __shared__ float red[NA][NWG][B][COLS];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int cg = tid % TPC, rs = tid / TPC;
-  const int col = blockIdx.x * COLS + cg * 8;
-  const bool live = col < out;
-  const int k0 = blockIdx.y * kper, k1 = min(in, k0 + kper);
-
-  float acc[NA][B][8];
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int bi = 0; bi < B; ++bi)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[a][bi][j] = 0.f;
-
-  for (int kc = k0; kc < k1; kc += KCH) {
-    const int kn = min(KCH, k1 - kc);
-    __syncthreads();  // the previous chunk is consumed
-    for (int idx = tid; idx < B * KCH; idx += GT) {
-      const int bi = idx / KCH, r = idx % KCH;
-      bf16 val = __float2bfloat16(0.f);
-      if (bi < b && r < kn) {
-        const long off = (long)bi * in + kc + r;
-        if (RMS) {
-          const float y = bf16_round(xf[off] * rstd[bi]);
-          val = __float2bfloat16(y * __bfloat162float(lnw[kc + r]));
-        } else {
-          val = xb[off];
-        }
-      }
-      xs[bi][r] = val;
-    }
-    __syncthreads();
-    if (live) {
-      for (int r = rs; r < kn; r += U * RS) {
-        V wv[NA][U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int rr = r + u * RS;
-          const long off = (long)(kc + rr) * out + col;
-#pragma unroll
-          for (int a = 0; a < NA; ++a)
-            wv[a][u] = rr < kn
-                ? __ldg(reinterpret_cast<const V*>((a ? w1 : w0) + off))
-                : V{};
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int rr = min(r + u * RS, kn - 1);  // zero weights past kn
-          float xv[B];
-#pragma unroll
-          for (int bi = 0; bi < B; ++bi) xv[bi] = __bfloat162float(xs[bi][rr]);
-#pragma unroll
-          for (int a = 0; a < NA; ++a) {
-            float wf[8];
-            unpack8(wv[a][u], wf);
-#pragma unroll
-            for (int bi = 0; bi < B; ++bi)
-#pragma unroll
-              for (int j = 0; j < 8; ++j)
-                acc[a][bi][j] = fmaf(xv[bi], wf[j], acc[a][bi][j]);
-          }
-        }
-      }
-    }
-  }
-
-  // reduce the row slices: lanes cg, cg+8, cg+16, cg+24 of a warp by
-  // shuffles, then the warps through shared memory
-#pragma unroll
-  for (int o = TPC; o < 32; o <<= 1)
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-#pragma unroll
-      for (int bi = 0; bi < B; ++bi)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[a][bi][j] += __shfl_xor_sync(0xffffffff, acc[a][bi][j], o);
-  if (lane < TPC) {
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-#pragma unroll
-      for (int bi = 0; bi < B; ++bi)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) red[a][warp][bi][cg * 8 + j] = acc[a][bi][j];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < NA * b * COLS; idx += GT) {
-    const int a = idx / (b * COLS), bi = (idx / COLS) % b, c = idx % COLS;
-    const int oc = blockIdx.x * COLS + c;
-    if (oc >= out) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWG; ++w) s += red[a][w][bi][c];
-    (a ? ws1 : ws0)[((long)blockIdx.y * b + bi) * out + oc] = s;
-  }
-}
-
 // Sum the ks partials of each output in a fixed order (deterministic) and
 // apply MODE's epilogue: store fp32 (qkv), add into the fp32 residual
 // (optionally writing its bf16 copy), or SwiGLU into bf16 activations. SC
@@ -307,6 +166,7 @@ __global__ void gemm_epilogue_kernel(const float* __restrict__ ws0,
                                      const float* __restrict__ sc0 = nullptr,
                                      const float* __restrict__ sc1 = nullptr,
                                      int out = 1) {
+  sm90::griddep_launch_dependents();   // the next product's weights may load
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
@@ -338,26 +198,405 @@ int num_sms() {
   return n;
 }
 
-// contraction splits: about eight 256-thread blocks per SM in all (four
-// when each streams two weights), each split at least 256 rows long.
-// Measured on an H100 (examples/torch_decode_profile.py): more splits or
-// more rows in flight for the two-weight GEMM make it slower.
-int ksplit(int in, int out, bool two = false) {
-  const int cb = (out + COLS - 1) / COLS;
-  int ks = ((two ? 4 : 8) * num_sms() + cb - 1) / cb;
-  ks = min(ks, max(1, in / 256));
-  return max(ks, 1);
+// RMSNorm of each row into bf16, one block per row, the plain version's
+// rounding bf16(bf16(x * rstd) * w): the rows K2's, K5's, K6's and K7's
+// products read.
+__global__ void __launch_bounds__(GT)
+rms_rows_kernel(const float* __restrict__ xf, const bf16* __restrict__ lnw,
+                bf16* __restrict__ xn, int in, float eps) {
+  sm90::griddep_launch_dependents();   // the next product's weights may load
+  __shared__ float tmp[NWG];
+  const float* x = xf + (long)blockIdx.x * in;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < in; k += GT) ss += x[k] * x[k];
+  ss = block_sum(ss, tmp);
+  const float rstd = 1.f / sqrtf(ss / (float)in + eps);
+  for (int k = threadIdx.x; k < in; k += GT)
+    xn[(long)blockIdx.x * in + k] = __float2bfloat16(
+        bf16_round(x[k] * rstd) * __bfloat162float(lnw[k]));
 }
 
-// Above 4 rows the two-weight (gate/up) partial kernel holds 2 x B x 8
-// fp32 accumulators per thread — 189 registers at B=8, one block per SM —
-// so there gate and up stream as two one-weight passes (two blocks per
-// SM each); the SwiGLU epilogue sums both partial sets as before.
-bool swiglu_two_pass(int b) { return b > 4; }
+// ---------------------------------------------------------------------------
+// The product engine (see the note at the top): split-K partial products
+// ws[z][ks][row][col] of Y(rows, out) = X(rows, in) @ W_z(in, out) for rows
+// <= 64, one launch per product (z = 0; SwiGLU's gate and up z = 0, 1).
+// ---------------------------------------------------------------------------
 
-int ksplit_swiglu(int in, int out, int b) {
-  return ksplit(in, out, !swiglu_two_pass(b));
+constexpr int EKP = 128;        // contraction rows a split is a multiple of
+constexpr int ECOLS = 128;      // output columns per unit (2 x 64)
+constexpr int ERING = 216 * 1024;   // shared memory for the ring (+ copies)
+
+// The rows rounded up to wgmma's N: 8, 16, 32 or 64 (0: more than 64).
+constexpr int erows(int b) {
+  return b <= 8 ? 8 : b <= 16 ? 16 : b <= 32 ? 32 : b <= 64 ? 64 : 0;
 }
+
+// The weight types: the consumer warpgroups, the contraction rows of a
+// stage (EK), the bytes of its weight tile (EK x ECOLS) and of the
+// consumer groups' bf16 copies (int8 only: one EK x 64 tile a group). The
+// int8 path's consumers convert before they multiply, so it runs two
+// groups a column half that take the stages in turn (one converts while
+// the other's wgmmas run), and its stages are twice as deep as bf16 ones,
+// so the copy's fixed costs a stage (the proxy fence, the group barrier)
+// fall on as many weight bytes.
+template <class W>
+struct EngW;
+template <>
+struct EngW<bf16> {
+  static constexpr bool I8 = false;
+  static constexpr int CG = 2;   // consumer warpgroups: one per 64 columns
+  static constexpr int PSETS = 1;   // partial sets a split writes
+  static constexpr int EK = 64;
+  static constexpr int WBYTES = EK * ECOLS * 2;
+  static constexpr int CBUF = 0;
+};
+template <>
+struct EngW<int8_t> {
+  static constexpr bool I8 = true;
+  static constexpr int CG = 4;   // two per 64 columns: even and odd stages
+  static constexpr int PSETS = 2;   // the even and the odd stages' sums
+  static constexpr int EK = 128;
+  static constexpr int WBYTES = EK * ECOLS;
+  static constexpr int CBUF = CG * EK * 64 * 2;
+};
+
+// threads of an engine block: the consumer warpgroups, then the producer
+// warp
+template <class W>
+constexpr int ethreads() {
+  return EngW<W>::CG * 128 + 32;
+}
+
+// Shared memory: [bf16 copies][stage 0: W tile, X tiles][stage 1]...
+// [full and empty barriers]; every region 1024-byte aligned (a W tile is
+// EK rows of 128 bytes per 64 (bf16) or 128 (int8) columns, an X tile N
+// rows of 128 bytes per 64 contraction columns).
+template <int N, class W>
+struct ELayout {
+  static constexpr int XBYTES = N * EngW<W>::EK * 2;
+  static constexpr int STAGE = EngW<W>::WBYTES + XBYTES;
+  static constexpr int ST = (ERING - EngW<W>::CBUF) / STAGE;
+  static constexpr int BAR_OFF = EngW<W>::CBUF + ST * STAGE;
+  static constexpr int SMEM = BAR_OFF + 2 * ST * 8 + 1024;
+};
+
+// A product's walk: ks contraction splits of kper rows (a multiple of EKP),
+// nct column tiles, units = nz * nct * ks; unit u is weight z = u / (nct *
+// ks), column tile (u % (nct * ks)) % nct, split (u % (nct * ks)) / nct.
+struct EPlan {
+  int ks, kper, nct, units, in;
+};
+
+// A block's walk over its chunks (one stage each): unit u = blockIdx.x,
+// blockIdx.x + gridDim.x, ...; in a unit, contraction rows k = k0, k0 + EK,
+// ... below k1.
+struct ECursor {
+  const EPlan& p;
+  int u, z, n0, k, k1;
+  __device__ explicit ECursor(const EPlan& p_) : p(p_) {
+    start(blockIdx.x);
+  }
+  __device__ void start(int uu) {
+    u = uu;
+    const int per_z = p.nct * p.ks, r = u % per_z;
+    z = u / per_z;
+    n0 = (r % p.nct) * ECOLS;
+    k = (r / p.nct) * p.kper;
+    k1 = min(p.in, k + p.kper);
+  }
+  __device__ void next(int ek) {
+    k += ek;
+    if (k >= k1) start(u + gridDim.x);
+  }
+};
+
+// 16 int8 weights (one row, 16 columns) to 16 bf16, exactly: byte q, biased
+// to u = q ^ 0x80 (= q + 128), becomes the mantissa of 2^23 (one byte
+// permute), and (2^23 + u) - (2^23 + 128) = q, then a bf16 pair per two.
+__device__ __forceinline__ void int8x16_to_bf16(const uint4& v, uint4& lo,
+                                                uint4& hi) {
+  const uint32_t w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u,
+                         v.z ^ 0x80808080u, v.w ^ 0x80808080u};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t x = w[i / 2];
+    const int b0 = (i % 2) * 2;
+    const float f0 = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7440 | b0)) -
+                     8388736.f;
+    const float f1 =
+        __int_as_float(__byte_perm(x, 0x4B000000u, 0x7440 | (b0 + 1))) -
+        8388736.f;
+    o[i] = sm90::pack_f2(f0, f1);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+template <int N, class W>
+__global__ void __launch_bounds__(ethreads<W>(), 1)
+engine_kernel(const __grid_constant__ CUtensorMap w0,
+              const __grid_constant__ CUtensorMap w1,
+              const __grid_constant__ CUtensorMap xm, float* __restrict__ ws0,
+              float* __restrict__ ws1, const EPlan p, int layer, int rows,
+              int out) {
+  using Ly = ELayout<N, W>;
+  constexpr int ST = Ly::ST;
+  constexpr bool I8 = EngW<W>::I8;
+  constexpr int EK = EngW<W>::EK;
+  extern __shared__ uint8_t esm_raw[];
+  uint8_t* sm = sm90::align1024(esm_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Ly::BAR_OFF);
+  uint64_t* empty = full + ST;
+  uint8_t* stages = sm + EngW<W>::CBUF;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  const int per_z = p.nct * p.ks;
+  // warp-uniform for the compiler: the producer warp and the groups
+  const int warp = __shfl_sync(0xffffffff, threadIdx.x >> 5, 0);
+
+  if (warp == EngW<W>::CG * 4) {
+    // ---- producer: one thread issues every load ----
+    if ((threadIdx.x & 31) == 0) {
+      sm90::tma_prefetch_map(&w0);
+      sm90::tma_prefetch_map(&w1);
+      sm90::tma_prefetch_map(&xm);
+      // The weights are never written, so the first ring's worth of weight
+      // tiles loads while the kernel before this one still runs (launched
+      // as its programmatic dependent); the rows it writes load only after
+      // griddep_wait. Two cursors walk the block's chunks: w for the
+      // weight tiles, x for the rows.
+      ECursor w(p), x(p);
+      int total = 0;
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+        const int k0 = (u % per_z) / p.nct * p.kper;
+        total += (min(p.in, k0 + p.kper) - k0 + EK - 1) / EK;
+      }
+      const int pre = total < ST ? total : ST;
+      auto load_w = [&](int it) {
+        const int s = it % ST;
+        sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        uint8_t* stg = stages + s * Ly::STAGE;
+        const CUtensorMap* wm = w.z ? &w1 : &w0;
+        if (I8) {
+          sm90::mbar_arrive_tx(&full[s], Ly::STAGE);
+          sm90::tma_load_3d(stg, wm, &full[s], w.n0, w.k, layer);
+        } else {
+          // a second 64-column tile wholly past `out` is not loaded (its
+          // group's products are never stored)
+          const bool two = w.n0 + 64 < out;
+          sm90::mbar_arrive_tx(&full[s], Ly::STAGE - (two ? 0 : EK * 128));
+          sm90::tma_load_3d(stg, wm, &full[s], w.n0, w.k, layer);
+          if (two)
+            sm90::tma_load_3d(stg + EK * 128, wm, &full[s], w.n0 + 64, w.k,
+                              layer);
+        }
+        w.next(EK);
+      };
+      auto load_x = [&](int it) {
+        const int s = it % ST;
+        uint8_t* stg = stages + s * Ly::STAGE;
+#pragma unroll
+        for (int xb = 0; xb < EK / 64; ++xb)
+          sm90::tma_load_2d(stg + EngW<W>::WBYTES + xb * N * 128, &xm,
+                            &full[s], x.k + 64 * xb, 0);
+        x.next(EK);
+      };
+      for (int it = 0; it < pre; ++it) load_w(it);
+      sm90::griddep_wait();
+      for (int it = 0; it < pre; ++it) load_x(it);
+      for (int it = pre; it < total; ++it) {
+        load_w(it);
+        load_x(it);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: group g owns columns n0 + 64 half ... + 63 of a unit;
+  // int8: groups g and g + 2 take the unit's even and odd stages ----
+  const int g = warp >> 2, half = g & 1, par = g >> 1;
+  const int t = threadIdx.x & 127, wl = t >> 5, lane = t & 31;
+  // Every partial store comes after the kernel before this one (the last
+  // reader of ws0/ws1, e.g. the SwiGLU epilogue before the down product).
+  // A store after a full barrier is, since the rows load after the
+  // producer's wait; an int8 group left no stage by a one-stage unit stores
+  // zeros without one, so the consumers wait too (nothing to do before the
+  // rows land anyway).
+  sm90::griddep_wait();
+  uint8_t* cb = sm + g * (EK * 128);   // int8: the group's bf16 copy
+  float d[N / 2];
+  int it = 0;
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int z = u / per_z, r = u % per_z;
+    const int n0 = (r % p.nct) * ECOLS, ksi = r / p.nct;
+    const int k0 = ksi * p.kper, k1 = min(p.in, k0 + p.kper);
+    bool any = false;
+    for (int k = k0, c = 0; k < k1; k += EK, ++it, ++c) {
+      if (I8 && (c & 1) != par) continue;
+      const int s = it % ST;
+      uint8_t* stg = stages + s * Ly::STAGE;
+      sm90::mbar_wait(&full[s], (it / ST) & 1);
+      const uint8_t* wt = stg + half * EK * 128;
+      if (I8) {
+        // raw tile: EK rows of 128 int8 columns; the copy: EK rows of this
+        // group's 64 columns in bf16; both 128-byte swizzled (16-byte chunk
+        // c of row r at c ^ (r % 8): the raw reads spread over the banks)
+#pragma unroll
+        for (int i = 0; i < EK / 32; ++i) {
+          const int idx = t + 128 * i, kr = idx >> 2, j = idx & 3;
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              stg + kr * 128 + (((half * 4 + j) ^ (kr & 7)) << 4));
+          uint4 lo, hi;
+          int8x16_to_bf16(v, lo, hi);
+          uint8_t* row = cb + kr * 128;
+          *reinterpret_cast<uint4*>(row + (((2 * j) ^ (kr & 7)) << 4)) = lo;
+          *reinterpret_cast<uint4*>(row + (((2 * j + 1) ^ (kr & 7)) << 4)) =
+              hi;
+        }
+        sm90::fence_proxy_async();
+        sm90::bar_sync(1 + g, 128);    // the group's copy is whole
+        wt = cb;
+      }
+      // A: the weight tile, MN-major, 16 contraction rows = +2048 bytes; B:
+      // the X tiles, K-major, 16 columns = +32 bytes, the next 64 columns
+      // the next tile (+N x 128 bytes)
+      const uint64_t da = sm90::desc_sw128(wt, EK * 128, 1024);
+      const uint64_t db = sm90::desc_sw128(stg + EngW<W>::WBYTES, 16, 1024);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < EK / 16; ++kk)
+        sm90::wgmma_tn<N>(d, da + ((kk * 2048) >> 4),
+                          db + (((kk / 4) * N * 128 + (kk % 4) * 32) >> 4),
+                          any || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(d);
+      // int8: a warp's wgmma_wait covers only its own 16 rows of the A
+      // tile, but the next conversion rewrites all of the group's copy, so
+      // the group meets once every warp's share is read (a barrier rather
+      // than a second copy: the ring keeps the shared memory)
+      if (I8) sm90::bar_sync(1 + g, 128);
+      sm90::mbar_arrive(&empty[s]);   // the stage (its X tile too) is read
+      any = true;
+    }
+    if (!any) {   // int8: a one-stage unit leaves the odd groups nothing
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+    }
+    // d[4c + 2i + j]: column n0 + 64 half + 16 wl + lane/4 + 8i, row 8c +
+    // 2 (lane % 4) + j; int8: split ksi's even and odd stages are partial
+    // sets 2 ksi and 2 ksi + 1
+    float* o = (z ? ws1 : ws0) + (long)(I8 ? 2 * ksi + par : ksi) * rows * out;
+    const int col = n0 + half * 64 + wl * 16 + (lane >> 2);
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = 8 * c + 2 * (lane & 3) + j, m = col + 8 * i;
+          if (n < rows && m < out) o[(long)n * out + m] = d[4 * c + 2 * i + j];
+        }
+  }
+}
+
+// The split of a product of `rows` rows over nz weights: of the split
+// counts that leave no split empty, the one whose busiest SM streams the
+// least weight (whole waves of units over the SMs, each unit kper rows of
+// 128 bf16 columns) plus its share of the partials' traffic (written once,
+// read once by the epilogue); the fewer splits on a tie.
+EPlan eplan(int rows, int in, int out, int nz) {
+  const int nct = (out + ECOLS - 1) / ECOLS;
+  const int chunks = (in + EKP - 1) / EKP;
+  const int sms = num_sms();
+  EPlan best{1, chunks * EKP, nct, nz * nct, in};
+  double bcost = 1e300;
+  for (int ks = 1; ks <= chunks && ks <= 256; ++ks) {
+    const int kc = (chunks + ks - 1) / ks;
+    if ((chunks + kc - 1) / kc != ks) continue;   // a split would be empty
+    const long units = (long)nz * nct * ks;
+    const long waves = (units + sms - 1) / sms;
+    const double cost = (double)waves * kc * EKP * ECOLS * 2 +
+                        (double)ks * nz * rows * out * 8 / sms;
+    if (cost < bcost) {
+      bcost = cost;
+      best = EPlan{ks, kc * EKP, nct, (int)units, in};
+    }
+  }
+  return best;
+}
+
+template <int N, class W>
+cudaError_t elaunch(const CUtensorMap& w0, const CUtensorMap& w1,
+                    const CUtensorMap& x, const EPlan& p, int layer,
+                    float* ws0, float* ws1, int rows, int out,
+                    cudaStream_t st) {
+  constexpr int smem = ELayout<N, W>::SMEM;
+  static bool opted_in = false;  // above 48 KB needs the opt-in, once
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        engine_kernel<N, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  // the programmatic dependent of the kernel before (its rows' writer):
+  // see the producer
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.units < num_sms() ? p.units : num_sms());
+  cfg.blockDim = dim3(ethreads<W>());
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, engine_kernel<N, W>, w0, w1, x,
+                                     ws0, ws1, p, layer, rows, out);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// One product's partials: W-typed weight maps w0 (and w1, SwiGLU's up,
+// when the plan has nz = 2), the rows' map x (box rows = erows(rows)).
+template <class W>
+cudaError_t eproduct(const CUtensorMap& w0, const CUtensorMap& w1,
+                     const CUtensorMap& x, const EPlan& p, int layer,
+                     float* ws0, float* ws1, int rows, int out,
+                     cudaStream_t st) {
+  switch (erows(rows)) {
+    case 8: return elaunch<8, W>(w0, w1, x, p, layer, ws0, ws1, rows, out, st);
+    case 16: return elaunch<16, W>(w0, w1, x, p, layer, ws0, ws1, rows, out, st);
+    case 32: return elaunch<32, W>(w0, w1, x, p, layer, ws0, ws1, rows, out, st);
+    case 64: return elaunch<64, W>(w0, w1, x, p, layer, ws0, ws1, rows, out, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one engine block, by N and weight type.
+int engine_smem(int n, bool int8) {
+  switch (n) {
+    case 8: return int8 ? ELayout<8, int8_t>::SMEM : ELayout<8, bf16>::SMEM;
+    case 16: return int8 ? ELayout<16, int8_t>::SMEM : ELayout<16, bf16>::SMEM;
+    case 32: return int8 ? ELayout<32, int8_t>::SMEM : ELayout<32, bf16>::SMEM;
+    case 64: return int8 ? ELayout<64, int8_t>::SMEM : ELayout<64, bf16>::SMEM;
+  }
+  return -1;
+}
+
+// The tensor maps of one C call: the five weight stacks (null stacks get
+// none) and the three bf16 row buffers the products read (xn, attn, act).
+struct EMaps {
+  CUtensorMap wqkv, wo, wg, wu, wd, xn, attn, act;
+};
+
 
 // How the attention kernel finds a batch row's position, rope row and key
 // row t in one layer's cache. The kernel is written once over these two,
@@ -467,6 +706,7 @@ template <int HD, int REP, class KV, bool ROPE>
 __global__ void __launch_bounds__(NWA * 32)
 rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
                         bf16* __restrict__ attn, int nkv, float scale) {
+  sm90::griddep_launch_dependents();   // the o-proj's weights may load
   constexpr int DPL = HD / 32;  // head dims per lane
   const int g = blockIdx.x, bi = blockIdx.y;
   const int dkv = nkv * HD, dq = nkv * REP * HD, dqkv = dq + 2 * dkv;
@@ -591,43 +831,23 @@ __global__ void bf16_to_f32_kernel(const bf16* __restrict__ x,
   if (i < n) y[i] = __bfloat162float(x[i]);
 }
 
-template <bool RMS, bool TWO, int B, class W = bf16>
-void partial_b(const float* xf, const float* rstd, const bf16* xb,
-               const bf16* lnw, const void* w0, const void* w1, float* ws0,
-               float* ws1, int b, int in, int out, int ks, cudaStream_t st) {
-  const int kper = (in + ks - 1) / ks;
-  gemm_partial_kernel<RMS, TWO, B, W>
-      <<<dim3((out + COLS - 1) / COLS, ks), GT, 0, st>>>(
-          xf, rstd, xb, lnw, (const W*)w0, (const W*)w1, ws0, ws1, b, in, out,
-          kper);
-}
-
-// One skinny GEMM: [rms stats] -> partial products -> epilogue. W is the
-// weight type (bf16, or int8 with the per-out-channel scale rows sc0 / sc1).
+// One skinny GEMM on the engine: partials of the rows behind map x against
+// the layer's weight w0 (and w1, SwiGLU's up) -> MODE's epilogue. W is the
+// weight type (bf16, or int8 with the per-out-channel scale rows sc0 /
+// sc1).
 template <int MODE, class W = bf16>
-cudaError_t gemm(const float* xf, const bf16* xb, const bf16* lnw,
-                 const void* w0, const void* w1, float* yf, bf16* yb,
-                 float* ws0, float* ws1, float* rstd, int b, int in, int out,
-                 float eps, cudaStream_t st, const float* sc0 = nullptr,
+cudaError_t gemm(const CUtensorMap& w0, const CUtensorMap& w1,
+                 const CUtensorMap& x, int l, float* yf, bf16* yb,
+                 float* ws0, float* ws1, int b, int in, int out,
+                 cudaStream_t st, const float* sc0 = nullptr,
                  const float* sc1 = nullptr) {
-  constexpr bool RMS = MODE != MODE_RESID;
-  constexpr bool TWO = MODE == MODE_SWIGLU;
-  const int ks = TWO ? ksplit_swiglu(in, out, b) : ksplit(in, out);
-  if (RMS) rms_stats_kernel<<<b, GT, 0, st>>>(xf, rstd, in, eps);
-  if (b <= 1) partial_b<RMS, TWO, 1, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  else if (b <= 2) partial_b<RMS, TWO, 2, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  else if (b <= 4) partial_b<RMS, TWO, 4, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  else if (b > 8) return cudaErrorInvalidValue;
-  else if (TWO) {  // swiglu_two_pass: gate into ws0, then up into ws1
-    partial_b<RMS, false, 8, W>(xf, rstd, xb, lnw, w0, nullptr, ws0, nullptr, b, in, out, ks, st);
-    partial_b<RMS, false, 8, W>(xf, rstd, xb, lnw, w1, nullptr, ws1, nullptr, b, in, out, ks, st);
-  } else {
-    partial_b<RMS, false, 8, W>(xf, rstd, xb, lnw, w0, w1, ws0, ws1, b, in, out, ks, st);
-  }
+  const EPlan p = eplan(b, in, out, MODE == MODE_SWIGLU ? 2 : 1);
+  cudaError_t e = eproduct<W>(w0, w1, x, p, l, ws0, ws1, b, out, st);
+  if (e != cudaSuccess) return e;
   const int n = b * out;
-  gemm_epilogue_kernel<MODE, WTraits<W>::SCALED>
-      <<<(n + 255) / 256, 256, 0, st>>>(ws0, ws1, ks, n, yf, yb, sc0, sc1,
-                                        out);
+  gemm_epilogue_kernel<MODE, EngW<W>::I8>
+      <<<(n + 255) / 256, 256, 0, st>>>(ws0, ws1, p.ks * EngW<W>::PSETS, n,
+                                        yf, yb, sc0, sc1, out);
   return cudaGetLastError();
 }
 
@@ -670,22 +890,37 @@ cudaError_t attn_any(int hd, int rep, const float* qkv, const KV& cache,
                     : cudaErrorInvalidValue;
 }
 
-// Floats of split-K workspace one step needs: 8 for the RMSNorm rstd, then
-// the partial sums of the widest GEMM, then the up-projection's partials.
+// Floats of the partials of a product of b rows (nz weights' worth), psets
+// partial sets a split.
+long eparts(int b, int in, int out, int nz = 1, int psets = 1) {
+  return (long)eplan(b, in, out, nz).ks * psets * b * out;
+}
+
+// Floats of the normalised bf16 rows (b, h) at the head of K2/K5's llama
+// workspace, kept 256-byte aligned (the rows' TMA map and the partials).
+long xn_floats(int b, int h) {
+  return (((long)b * h + 1) / 2 + 63) & ~63L;
+}
+
+// Floats of workspace one llama step needs: the normalised rows, the
+// partial sums of the widest product, then the up-projection's partials
+// (room for the int8 path's two partial sets a split).
 long ws_layout(int b, int h, int dq, int dqkv, int ffn, long* n0) {
-  const long up = (long)ksplit_swiglu(h, ffn, b) * b * ffn;
-  long a = (long)ksplit(h, dqkv) * b * dqkv;
-  a = a > (long)ksplit(dq, h) * b * h ? a : (long)ksplit(dq, h) * b * h;
+  constexpr int ps = EngW<int8_t>::PSETS;
+  const long up = eparts(b, h, ffn, 2, ps);
+  long a = eparts(b, h, dqkv, 1, ps);
+  a = a > eparts(b, dq, h, 1, ps) ? a : eparts(b, dq, h, 1, ps);
   a = a > up ? a : up;
-  a = a > (long)ksplit(ffn, h) * b * h ? a : (long)ksplit(ffn, h) * b * h;
+  a = a > eparts(b, ffn, h, 1, ps) ? a : eparts(b, ffn, h, 1, ps);
   *n0 = a;
-  return 8 + a + up;
+  return xn_floats(b, h) + a + up;
 }
 
 // The operands of one decode step through the stack, shared by K2 and K5.
-// The gpt mode's operands follow, null for llama: the LayerNorm biases, the
-// four product biases (wg is fc_in and wd fc_out; wu is unused) and the
-// bf16 LayerNorm rows xn (b, h).
+// xn (b, h) holds the normalised bf16 rows the qkv and gate/up products
+// read (RMSNorm for llama, LayerNorm for gpt). The gpt mode's operands
+// follow, null for llama: the LayerNorm biases and the four product biases
+// (wg is fc_in and wd fc_out; wu is unused).
 // The int8-weight mode reads the five weight pointers as int8 and takes the
 // scale rows sqkv (L, dqkv), so, sg, su, sd (null for bf16 weights).
 struct Stack {
@@ -703,38 +938,57 @@ struct Stack {
               *sd = nullptr;
 };
 
-// Layer l's slice of a weight stack of type W (`per` elements a layer), and
-// of a scale-row stack (null stays null).
-template <class W>
-const W* wslice(const bf16* stack, int l, long per) {
-  return reinterpret_cast<const W*>(stack) + l * per;
+// The maps of a's weight stacks (int8: int8 stacks) and row buffers.
+int emaps(EMaps* m, const Stack& a, bool int8) {
+  const int dq = a.nh * a.hd, dqkv = dq + 2 * a.nkv * a.hd;
+  const int n = erows(a.b);
+  if (n == 0) return (int)cudaErrorInvalidValue;
+  int e = 0;
+  auto w = [&](CUtensorMap* mp, const bf16* base, int in, int out) {
+    if (e == 0 && base != nullptr)
+      e = sm90_map_wstack(mp, base, a.L, in, out, int8, int8 ? ECOLS : 64,
+                          int8 ? EngW<int8_t>::EK : EngW<bf16>::EK);
+  };
+  auto x = [&](CUtensorMap* mp, const bf16* base, int cols) {
+    if (e == 0 && base != nullptr) e = sm90_map_rows(mp, base, a.b, cols, n);
+  };
+  w(&m->wqkv, a.wqkv, a.h, dqkv);
+  w(&m->wo, a.wo, dq, a.h);
+  w(&m->wg, a.wg, a.h, a.ffn);
+  w(&m->wu, a.wu, a.h, a.ffn);
+  w(&m->wd, a.wd, a.ffn, a.h);
+  x(&m->xn, a.xn, a.h);
+  x(&m->attn, a.attn, dq);
+  x(&m->act, a.act, a.ffn);
+  return e;
 }
+
+// Layer l's row of a scale-row stack (null stays null).
 const float* srow(const float* rows, int l, int per) {
   return rows ? rows + (long)l * per : nullptr;
 }
 
-// The attention half of layer l (K2's, K5's and K6's): qkv GEMM with the
-// RMSNorm prologue, rope + append + attention over kv, o-proj with the
+// The attention half of layer l (K2's, K5's and K6's): RMSNorm rows into
+// a.xn, the qkv product, rope + append + attention over kv, o-proj with the
 // residual epilogue into a.xf — 6 launches on `st`.
 template <class W = bf16, class KV>
-cudaError_t attention_half(const Stack& a, int l, const KV& kv, float* rstd,
-                           float* ws0, float* ws1, cudaStream_t st) {
+cudaError_t attention_half(const Stack& a, const EMaps& m, int l,
+                           const KV& kv, float* ws0, float* ws1,
+                           cudaStream_t st) {
   const int b = a.b, h = a.h, hd = a.hd;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
   const int rep = a.nh / a.nkv;
   const float scale = 1.f / sqrtf((float)hd);
-  const bf16* ln1l = a.ln1 + (long)l * h;
-  const W* wqkvl = wslice<W>(a.wqkv, l, (long)h * dqkv);
-  const W* wol = wslice<W>(a.wo, l, (long)dq * h);
-  cudaError_t e = gemm<MODE_QKV, W>(a.xf, nullptr, ln1l, wqkvl, nullptr,
-                                    a.qkv, nullptr, ws0, ws1, rstd, b, h, dqkv,
-                                    a.eps, st, srow(a.sqkv, l, dqkv));
+  rms_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h, a.xn, h,
+                                    a.eps);
+  cudaError_t e = gemm<MODE_QKV, W>(m.wqkv, m.wqkv, m.xn, l, a.qkv, nullptr,
+                                    ws0, ws1, b, h, dqkv, st,
+                                    srow(a.sqkv, l, dqkv));
   if (e != cudaSuccess) return e;
   e = attn_any<true>(hd, rep, a.qkv, kv, a.attn, b, a.nkv, scale, st);
   if (e != cudaSuccess) return e;
-  return gemm<MODE_RESID, W>(nullptr, a.attn, nullptr, wol, nullptr, a.xf,
-                             nullptr, ws0, ws1, rstd, b, dq, h, a.eps, st,
-                             srow(a.so, l, h));
+  return gemm<MODE_RESID, W>(m.wo, m.wo, m.attn, l, a.xf, nullptr, ws0, ws1,
+                             b, dq, h, st, srow(a.so, l, h));
 }
 
 // ---------------------------------------------------------------------------
@@ -748,9 +1002,8 @@ cudaError_t attention_half(const Stack& a, int l, const KV& kv, float* rstd,
 //   5. LayerNorm into xn (ln2, ln2_b)
 //   6. act = bf16(gelu_tanh(xn @ wg + bg)), one weight (no up-projection)
 //   7. x = (x + act @ wd) + bd
-// The products are K2's register GEMM on its bf16-input path (RMS = false,
-// the path the o-proj and down products already take), so the GEMM's inner
-// loop has no third prologue. Bound: bytes, as llama's.
+// The products run on the engine, as llama's, over the LayerNorm rows and
+// the bf16 attention and GELU rows. Bound: bytes, as llama's.
 // ---------------------------------------------------------------------------
 
 // LayerNorm of each fp32 row into bf16, one block per row: a two-pass fp32
@@ -762,6 +1015,7 @@ layernorm_rows_kernel(const float* __restrict__ xf,
                       const bf16* __restrict__ lnw,
                       const bf16* __restrict__ lnb, bf16* __restrict__ xn,
                       int in, float eps) {
+  sm90::griddep_launch_dependents();   // the next product's weights may load
   __shared__ float tmp[NWG];
   const float* x = xf + (long)blockIdx.x * in;
   float s = 0.f;
@@ -793,6 +1047,7 @@ __global__ void bias_epilogue_kernel(const float* __restrict__ ws, int ks,
                                      const bf16* __restrict__ bias,
                                      float* __restrict__ yf,
                                      bf16* __restrict__ yb) {
+  sm90::griddep_launch_dependents();   // the next product's weights may load
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
@@ -822,28 +1077,23 @@ cudaError_t bias_epilogue(const float* ws, int ks, int rows, int out,
   return cudaGetLastError();
 }
 
-// One skinny GEMM of the gpt mode: the split-K partials of the bf16 rows
-// xb (b, in) @ W (in, out) on K2's register GEMM, then MODE's bias epilogue.
+// One skinny GEMM of the gpt mode: the engine's partials of the rows
+// behind map x against the layer's weight w, then MODE's bias epilogue.
 template <int MODE>
-cudaError_t gemm_bias(const bf16* xb, const bf16* w, const bf16* bias,
-                      float* yf, bf16* yb, float* ws, int b, int in, int out,
-                      cudaStream_t st) {
-  const int ks = ksplit(in, out);
-  if (b <= 1) partial_b<false, false, 1>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
-  else if (b <= 2) partial_b<false, false, 2>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
-  else if (b <= 4) partial_b<false, false, 4>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
-  else if (b <= 8) partial_b<false, false, 8>(nullptr, nullptr, xb, nullptr, w, nullptr, ws, nullptr, b, in, out, ks, st);
-  else return cudaErrorInvalidValue;
-  return bias_epilogue<MODE>(ws, ks, b, out, bias, yf, yb, st);
+cudaError_t gemm_bias(const CUtensorMap& w, const CUtensorMap& x, int l,
+                      const bf16* bias, float* yf, bf16* yb, float* ws,
+                      int b, int in, int out, cudaStream_t st) {
+  const EPlan p = eplan(b, in, out, 1);
+  cudaError_t e = eproduct<bf16>(w, w, x, p, l, ws, ws, b, out, st);
+  if (e != cudaSuccess) return e;
+  return bias_epilogue<MODE>(ws, p.ks, b, out, bias, yf, yb, st);
 }
 
 // Floats of the gpt mode's split-K workspace: the widest of its four
 // one-weight products' partial sums.
 long gws_layout(int b, int h, int dq, int dqkv, int ffn) {
-  const long p[4] = {(long)ksplit(h, dqkv) * b * dqkv,
-                     (long)ksplit(dq, h) * b * h,
-                     (long)ksplit(h, ffn) * b * ffn,
-                     (long)ksplit(ffn, h) * b * h};
+  const long p[4] = {eparts(b, h, dqkv), eparts(b, dq, h), eparts(b, h, ffn),
+                     eparts(b, ffn, h)};
   long a = 0;
   for (long v : p) a = v > a ? v : a;
   return a;
@@ -851,7 +1101,8 @@ long gws_layout(int b, int h, int dq, int dqkv, int ffn) {
 
 // Layer l of the gpt mode over kv (steps 1-7 above) — 11 launches on `st`.
 template <class KV>
-cudaError_t gpt_layer(const Stack& a, int l, const KV& kv, cudaStream_t st) {
+cudaError_t gpt_layer(const Stack& a, const EMaps& m, int l, const KV& kv,
+                      cudaStream_t st) {
   const int b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
   const float scale = 1.f / sqrtf((float)hd);
@@ -859,63 +1110,70 @@ cudaError_t gpt_layer(const Stack& a, int l, const KV& kv, cudaStream_t st) {
   layernorm_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h,
                                           a.ln1_b + (long)l * h, a.xn, h,
                                           a.eps);
-  cudaError_t e = gemm_bias<MODE_QKV_B>(a.xn, a.wqkv + (long)l * h * dqkv,
+  cudaError_t e = gemm_bias<MODE_QKV_B>(m.wqkv, m.xn, l,
                                         a.bqkv + (long)l * dqkv, a.qkv,
                                         nullptr, ws, b, h, dqkv, st);
   if (e != cudaSuccess) return e;
   e = attn_any<false>(hd, a.nh / a.nkv, a.qkv, kv, a.attn, b, a.nkv, scale,
                       st);
   if (e != cudaSuccess) return e;
-  e = gemm_bias<MODE_ORES_B>(a.attn, a.wo + (long)l * dq * h,
-                             a.bo + (long)l * h, a.xf, nullptr, ws, b, dq, h,
-                             st);
+  e = gemm_bias<MODE_ORES_B>(m.wo, m.attn, l, a.bo + (long)l * h, a.xf,
+                             nullptr, ws, b, dq, h, st);
   if (e != cudaSuccess) return e;
   layernorm_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln2 + (long)l * h,
                                           a.ln2_b + (long)l * h, a.xn, h,
                                           a.eps);
-  e = gemm_bias<MODE_GELU_B>(a.xn, a.wg + (long)l * h * ffn,
-                             a.bg + (long)l * ffn, nullptr, a.act, ws, b, h,
-                             ffn, st);
+  e = gemm_bias<MODE_GELU_B>(m.wg, m.xn, l, a.bg + (long)l * ffn, nullptr,
+                             a.act, ws, b, h, ffn, st);
   if (e != cudaSuccess) return e;
-  return gemm_bias<MODE_FRES_B>(a.act, a.wd + (long)l * ffn * h,
-                                a.bd + (long)l * h, a.xf,
+  return gemm_bias<MODE_FRES_B>(m.wd, m.act, l, a.bd + (long)l * h, a.xf,
                                 l == a.L - 1 ? a.x_out : nullptr, ws, b, ffn,
                                 h, st);
 }
 
 // Per layer: the attention half over layer_kv(l), then gate/up and down —
 // 1 + 11L launches on `st` (the gpt mode: gpt_layer, also 11 a layer). W is
-// the llama weight type. Returns the first CUDA error.
+// the llama weight type; the llama mode's normalised rows sit at the head
+// of a.ws (ws_layout). The tensor maps are encoded once here, for the whole
+// stack. Returns the first CUDA error.
 template <class W = bf16, class LayerKV>
-cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
-  const int L = a.L, b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
-  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
-  long n0;
-  ws_layout(b, h, dq, dqkv, ffn, &n0);
-  float* rstd = a.ws;
-  float* ws0 = rstd + 8;
-  float* ws1 = ws0 + n0;
+cudaError_t decode_stack(const Stack& a_in, LayerKV layer_kv,
+                         cudaStream_t st) {
+  const int L = a_in.L, b = a_in.b, h = a_in.h, hd = a_in.hd, ffn = a_in.ffn;
+  const int dq = a_in.nh * hd, dkv = a_in.nkv * hd, dqkv = dq + 2 * dkv;
+  if (b < 1 || b > 64) return cudaErrorInvalidValue;
+  Stack a = a_in;
+  float* ws0 = a.ws;
+  float* ws1 = nullptr;
+  if (!a.gpt) {
+    long n0;
+    ws_layout(b, h, dq, dqkv, ffn, &n0);
+    a.xn = reinterpret_cast<bf16*>(a.ws);
+    ws0 = a.ws + xn_floats(b, h);
+    ws1 = ws0 + n0;
+  }
+  EMaps m;
+  const int me = emaps(&m, a, EngW<W>::I8);
+  if (me != 0) return (cudaError_t)me;
   bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
                                                            b * h);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
     if (a.gpt) {
-      e = gpt_layer(a, l, layer_kv(l), st);
+      e = gpt_layer(a, m, l, layer_kv(l), st);
       continue;
     }
-    const bf16* ln2l = a.ln2 + (long)l * h;
-    const W* wgl = wslice<W>(a.wg, l, (long)h * ffn);
-    const W* wul = wslice<W>(a.wu, l, (long)h * ffn);
-    const W* wdl = wslice<W>(a.wd, l, (long)ffn * h);
-    e = attention_half<W>(a, l, layer_kv(l), rstd, ws0, ws1, st);
+    e = attention_half<W>(a, m, l, layer_kv(l), ws0, ws1, st);
     if (e != cudaSuccess) break;
-    e = gemm<MODE_SWIGLU, W>(a.xf, nullptr, ln2l, wgl, wul, nullptr, a.act,
-                             ws0, ws1, rstd, b, h, ffn, a.eps, st,
-                             srow(a.sg, l, ffn), srow(a.su, l, ffn));
+    rms_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln2 + (long)l * h, a.xn, h,
+                                      a.eps);
+    e = gemm<MODE_SWIGLU, W>(m.wg, m.wu, m.xn, l, nullptr, a.act, ws0, ws1,
+                             b, h, ffn, st, srow(a.sg, l, ffn),
+                             srow(a.su, l, ffn));
     if (e != cudaSuccess) break;
-    e = gemm<MODE_RESID, W>(nullptr, a.act, nullptr, wdl, nullptr, a.xf,
-                            l == L - 1 ? a.x_out : nullptr, ws0, ws1, rstd, b,
-                            ffn, h, a.eps, st, srow(a.sd, l, h));
+    e = gemm<MODE_RESID, W>(m.wd, m.wd, m.act, l, a.xf,
+                            l == L - 1 ? a.x_out : nullptr, ws0, ws1, b, ffn,
+                            h, st, srow(a.sd, l, h));
   }
   return e;
 }
@@ -941,8 +1199,8 @@ cudaError_t decode_stack(const Stack& a, LayerKV layer_kv, cudaStream_t st) {
 //
 // What bounds it on the H100: bytes, as K5 — every layer weight once per
 // step plus each row's filled KV — while the products do K1 times K5's
-// work. K5's register-accumulator GEMM stops at 8 rows (at B=8 it already
-// holds 103-109 registers), so K7's products run on the tensor cores:
+// work. K7's products run on tensor cores of their own (K2/K5's product
+// engine came later; whether K7 moves onto it is open, ROADMAP Queue B):
 // mma.sync m16n8k16 bf16 -> fp32 over rows padded to 16, one block per
 // (64 output columns, contraction split), the weight tile and the rows
 // streamed through shared memory by cp.async in 16-byte pieces, four
@@ -1234,22 +1492,6 @@ cudaError_t vgemm(const bf16* A, const bf16* w0, const bf16* w1, float* ws0,
   gemm_epilogue_kernel<MODE><<<(n + 255) / 256, 256, 0, st>>>(
       ws0, ws1, vsplit(in, out).ks, n, yf, yb);
   return cudaGetLastError();
-}
-
-// RMSNorm of each row into bf16, one block per row, K5's rounding:
-// bf16(bf16(x * rstd) * w).
-__global__ void __launch_bounds__(GT)
-rms_rows_kernel(const float* __restrict__ xf, const bf16* __restrict__ lnw,
-                bf16* __restrict__ xn, int in, float eps) {
-  __shared__ float tmp[NWG];
-  const float* x = xf + (long)blockIdx.x * in;
-  float ss = 0.f;
-  for (int k = threadIdx.x; k < in; k += GT) ss += x[k] * x[k];
-  ss = block_sum(ss, tmp);
-  const float rstd = 1.f / sqrtf(ss / (float)in + eps);
-  for (int k = threadIdx.x; k < in; k += GT)
-    xn[(long)blockIdx.x * in + k] = __float2bfloat16(
-        bf16_round(x[k] * rstd) * __bfloat162float(lnw[k]));
 }
 
 // One layer's slab of the pool, as the verify kernels address it: row bi's
@@ -1639,8 +1881,9 @@ cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
 // router, the routed experts' SwiGLU and, where the model has them, the
 // DeepSeekMoE shared experts, one token per row over the flat cache
 // (L, b, S, 2*nkv*hd). Per layer, on one stream, from one C call:
-//   1. the attention half of K2, unchanged (attention_half: qkv GEMM with
-//      the RMSNorm prologue, rope + append + attention, o-proj + residual)
+//   1. the attention half of K2 (attention_half: RMSNorm rows into xn, the
+//      qkv product on K2's engine, rope + append + attention, o-proj +
+//      residual)
 //   2. the router, one block per row: xn2 = bf16(rms(x) * ln2) (the bf16
 //      value both the router and the experts read), fp32 logits against
 //      the (E, h) gate, fp32 softmax, k argmaxes in turn (the lowest index
@@ -1673,7 +1916,7 @@ cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
 // overlap of the shared and routed products, no persistent kernel.
 // ---------------------------------------------------------------------------
 
-constexpr int MOE_MAX_B = 8;       // rows per step (attention_half's limit)
+constexpr int MOE_MAX_B = 8;       // rows per step
 constexpr int MOE_MAX_PAIRS = 64;  // routed (row, choice) pairs per step
 
 // A layer's routed experts for one tensor-core product launch. gridDim.z =
@@ -1854,8 +2097,8 @@ __global__ void moe_combine_kernel(const float* __restrict__ dpart, int ksd,
   if (x_out != nullptr) x_out[i] = __float2bfloat16(nx);
 }
 
-// The splits of K6's products and its workspace, in floats: the rstd, the
-// attention half's partials, then the routed gate, up and down partials
+// The splits of K6's products and its workspace, in floats: the attention
+// half's partials, then the routed gate, up and down partials
 // and the shared ones, each region even (float2 stores).
 struct MoEPlan {
   VSplit gu, dn, sgu, sdn;
@@ -1870,10 +2113,10 @@ MoEPlan moe_plan(int b, int h, int dq, int dqkv, int k, int f, int fs) {
   p.sgu = vsplit(h, fsw, 2);
   p.sdn = vsplit(fsw, h);
   auto even = [](long n) { return (n + 1) & ~1L; };
-  long a = (long)ksplit(h, dqkv) * b * dqkv;
-  a = a > (long)ksplit(dq, h) * b * h ? a : (long)ksplit(dq, h) * b * h;
+  long a = eparts(b, h, dqkv);
+  a = a > eparts(b, dq, h) ? a : eparts(b, dq, h);
   const long sh = fs > 0 ? 1 : 0;
-  p.attn = 8;
+  p.attn = 0;
   p.g = p.attn + even(a);
   p.u = p.g + even((long)p.gu.ks * nslot * f);
   p.d = p.u + even((long)p.gu.ks * nslot * f);
@@ -1903,14 +2146,16 @@ cudaError_t moe_stack(const Stack& a, const MoEArgs& m, bf16* kv,
       h + E > 12000)   // the router's shared memory stays under 48 KB
     return cudaErrorInvalidValue;
   const MoEPlan p = moe_plan(b, h, dq, dqkv, k, f, fs);
-  float* rstd = a.ws;
   float* ws0 = a.ws + p.attn;
+  EMaps maps;   // the attention half's: wqkv, wo, xn (the router's), attn
+  const int me = emaps(&maps, a, false);
+  if (me != 0) return (cudaError_t)me;
   bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
                                                            b * h);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
     const ContigKV kvl{kv + (long)l * b * S * dkv2, cosr, sinr, S, dkv2, pos};
-    e = attention_half(a, l, kvl, rstd, ws0, ws0, st);
+    e = attention_half(a, maps, l, kvl, ws0, ws0, st);
     if (e != cudaSuccess) break;
     int* ids = m.ids + (long)l * nslot;
     float* wts = m.wts + (long)l * nslot;
@@ -2124,9 +2369,10 @@ extern "C" int fused_decode_moe(
     void* wts, void* xf, void* qkv, void* attn, void* xn, void* act,
     void* sact, void* ws, int L, int b, int h, int nh, int nkv, int hd, int E,
     int k, int f, int fs, int S, int pos, float eps, void* stream) {
-  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, nullptr,
-                             nullptr, nullptr, xf, qkv, attn, nullptr, ws, L,
-                             b, h, nh, nkv, hd, 0, eps);
+  Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, nullptr, nullptr,
+                       nullptr, xf, qkv, attn, nullptr, ws, L, b, h, nh, nkv,
+                       hd, 0, eps);
+  a.xn = (bf16*)xn;   // the router's rows; the attention half's first
   const MoEArgs m{(const bf16*)gate, (const bf16*)weg, (const bf16*)weu,
                   (const bf16*)wed,  (const bf16*)wsg, (const bf16*)wsu,
                   (const bf16*)wsd,  (int*)ids,        (float*)wts,
@@ -2237,7 +2483,8 @@ extern "C" int fused_paged_verify_gpt(
 // The dynamic shared memory a block of these kernels asks for: kind 0 the
 // decode attention (a = head_dim, b = query heads per kv head), 1 the
 // tensor-core product (a = 16-row tiles), 2 the verify attention (a =
-// head_dim, b = queries per block, c = block-table entries). -1 for an
+// head_dim, b = queries per block, c = block-table entries), 3 the product
+// engine (a = its N: 8, 16, 32 or 64; b = 1 for int8 weights). -1 for an
 // unknown kind. The launchers compute their requests with the same
 // functions, so a caller can hold them to the device's opt-in budget.
 extern "C" int fused_decode_dynamic_smem(int kind, int a, int b, int c) {
@@ -2245,6 +2492,7 @@ extern "C" int fused_decode_dynamic_smem(int kind, int a, int b, int c) {
     case 0: return attn_smem(a, b);
     case 1: return tc_smem(a);
     case 2: return verify_smem(a, b, c);
+    case 3: return engine_smem(a, b != 0);
   }
   return -1;
 }

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA tile loads, wgmma with shared-memory descriptors, and the
-// host side of a TMA tensor map. Inline PTX, no CUTLASS.
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels and
+// the decode steps' product engine: mbarriers, TMA tile loads, wgmma with
+// shared-memory descriptors, and the host side of TMA tensor maps. Inline
+// PTX, no CUTLASS.
 //
 // Shared-memory tiles are what a TMA load with a 128-byte swizzle leaves:
 // a tile of R rows by 64 bf16 columns (128 bytes a row), 1024-byte aligned,
@@ -118,6 +119,53 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// a 3-d box (c0 innermost), as tma_load_4d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a 2-d box (c0 innermost), as tma_load_4d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared-memory writes of this thread (generic proxy) become visible to
+// the async proxy (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Programmatic dependent launch: a kernel launched with the programmatic
+// stream serialization attribute may start once every block of the kernel
+// before it has run griddep_launch_dependents (or exited);
+// griddep_wait then waits for that kernel to complete and its writes to be
+// visible. Both are no-ops where the launches are ordinary.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// barrier `id` (1..15) over `count` threads of the block
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -247,6 +295,60 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D (64 x N, fp32) (+)= A (64 x 16, smem, MN-major) * B (N x 16, smem,
+// K-major)^T, N = 8, 16, 32 or 64: the transposed-A form (tnspA = 1) for a
+// weight tile stored (k, 64 output columns) with the columns contiguous.
+// The accumulator holds N / 2 floats a thread, laid out as wgmma_ss_n64's
+// with N columns.
+template <int N>
+__device__ __forceinline__ void wgmma_tn(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tn<8>(float (&d)[4], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<16>(float (&d)[8], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<32>(float (&d)[16], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<64>(float (&d)[32], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+
 // an m64nN accumulator (N columns) packed into the bf16 register A
 // operands of N/16 k-steps
 template <int N>
@@ -340,6 +442,51 @@ static inline sm90_encode_tiled_fn sm90_encode_tiled() {
 static inline int sm90_group(long long unit_bytes) {
   const long long g = (4ll << 20) / (unit_bytes > 0 ? unit_bytes : 1);
   return g < 1 ? 1 : (g > (1 << 20) ? (1 << 20) : (int)g);
+}
+
+// A stack of L row-major (in, out) matrices, contiguous, read in boxes of
+// `box_cols` output columns by `box_k` rows of one matrix, 128-byte
+// swizzle: bf16 (box_cols 64) or int8 (`int8`, box_cols 128).
+// Coordinates (col, k, layer); boxes past in or out read as zeros. The
+// global strides must be multiples of 16 bytes. Returns 0 on success.
+static inline int sm90_map_wstack(CUtensorMap* map, const void* base, int L,
+                                  int in, int out, bool int8, int box_cols,
+                                  int box_k) {
+  sm90_encode_tiled_fn enc = sm90_encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t es = int8 ? 1 : 2;
+  if (((cuuint64_t)out * es) % 16) return (int)cudaErrorInvalidValue;
+  cuuint64_t dims[3] = {(cuuint64_t)out, (cuuint64_t)in, (cuuint64_t)L};
+  cuuint64_t strides[2] = {(cuuint64_t)out * es, (cuuint64_t)in * out * es};
+  cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_k, 1};
+  cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = enc(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   3, const_cast<void*>(base), dims, strides, box, estr,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A bf16 matrix (rows, cols), contiguous, read in boxes of `box_rows` rows
+// by 64 columns, 128-byte swizzle; rows past `rows` and columns past
+// `cols` read as zeros. Coordinates (col, row). Returns 0 on success.
+static inline int sm90_map_rows(CUtensorMap* map, const void* base, int rows,
+                                int cols, int box_rows) {
+  sm90_encode_tiled_fn enc = sm90_encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if (cols % 8) return (int)cudaErrorInvalidValue;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                   const_cast<void*>(base), dims, strides, box, estr,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // A bf16 tensor (batch, seq, heads, d), contiguous, read in boxes of `rows`

@@ -500,8 +500,13 @@ def _check_tensors(what, specs, device):
                              f"{device} (cuda)")
 
 
+#: rows K2 and K5 take per step: the product engine's widest wgmma N
+#: (``csrc/fused_decode.cu``, ``erows``), K7's ``VERIFY_MAX_ROWS`` too
+DECODE_MAX_ROWS = 64
+
+
 def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
-                 max_rows=8, arch="llama", int8_row=None):
+                 max_rows=DECODE_MAX_ROWS, arch="llama", int8_row=None):
     """What K2, K5 and K7 share: x (rows, h), the stacked weights of `arch`
     (llama or gpt) and the cache (contiguous or paged; its last dim is
     2·nkv·hd) in bf16, and the shapes the kernels take. K2's int8 modes:
@@ -527,12 +532,17 @@ def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
     if h % 8 or ffn % 8 or (dq + 2 * dkv) % 8:
         raise ValueError(f"{what}: h, ffn and the qkv width must be "
                          "multiples of 8")
+    w8 = "wqkv_s" in params
+    if w8 and (h % 16 or ffn % 16 or (dq + 2 * dkv) % 16):
+        # the engine's TMA map of an int8 (L, in, out) stack needs rows of
+        # a multiple of 16 bytes
+        raise ValueError(f"{what}: int8 weights need h, ffn and the qkv "
+                         "width to be multiples of 16")
     shapes = {"ln1": (L, h), "wqkv": (L, h, dq + 2 * dkv), "wo": (L, dq, h),
               "ln2": (L, h), "wg": (L, h, ffn), "wu": (L, h, ffn),
               "wd": (L, ffn, h), "ln1_b": (L, h), "bqkv": (L, dq + 2 * dkv),
               "bo": (L, h), "ln2_b": (L, h), "bg": (L, ffn), "bd": (L, h)}
     bf = torch.bfloat16
-    w8 = "wqkv_s" in params
     cdt = torch.int8 if cache.dtype == torch.int8 else bf
     if int8_row is not None and (w8 or cdt == torch.int8):
         raise NotImplementedError(
@@ -633,7 +643,7 @@ fused_decode_cuda.launches = 0
 
 _MOE_KEYS = ("ln1", "wqkv", "wo", "ln2", "gate", "weg", "weu", "wed")
 _SHARED_KEYS = ("wsg", "wsu", "wsd")
-#: K6's bounds: rows per step (its attention half is K2's, b <= 8) and
+#: K6's bounds: rows per step (its router and expert slots take 8) and
 #: routed (row, choice) pairs per step
 MOE_MAX_ROWS, MOE_MAX_PAIRS = 8, 64
 
@@ -765,7 +775,8 @@ def _kernel_lib():
 
 #: the kernels that opt in to dynamic shared memory, by the kind number of
 #: ``fused_decode_dynamic_smem`` in the source
-_SMEM_KINDS = {"attention": 0, "tensor_core_gemm": 1, "verify_attention": 2}
+_SMEM_KINDS = {"attention": 0, "tensor_core_gemm": 1, "verify_attention": 2,
+               "product_engine": 3}
 
 
 def dynamic_smem_bytes(kernel: str, a: int, b: int = 0, c: int = 0) -> int:
@@ -773,7 +784,9 @@ def dynamic_smem_bytes(kernel: str, a: int, b: int = 0, c: int = 0) -> int:
     launcher computes it: "attention" (K2/K5/K6; a = head_dim, b = query
     heads per kv head), "tensor_core_gemm" (K6/K7's products; a = 16-row
     tiles), "verify_attention" (K7; a = head_dim, b = queries per block,
-    c = block-table entries). Needs the built library (a CUDA machine)."""
+    c = block-table entries), "product_engine" (K2/K5's products and K6's
+    attention half; a = the rows rounded up to 8, 16, 32 or 64, b = 1 for
+    int8 weights). Needs the built library (a CUDA machine)."""
     return int(_kernel_lib().fused_decode_dynamic_smem(
         _SMEM_KINDS[kernel], a, b, c))
 

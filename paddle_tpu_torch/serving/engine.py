@@ -273,7 +273,7 @@ class ServingEngine:
     """Continuous-batching decode over a paged KV pool.
 
     ``max_slots`` is the decode batch width (one K5 launch serves all
-    slots; at most 8 on the card). The pool holds ``num_blocks`` blocks of
+    slots; at most 64 on the card). The pool holds ``num_blocks`` blocks of
     ``block_tokens`` tokens — sized directly, by byte budget
     (``pool_bytes``), or defaulted to the worst case (every slot filled to
     ``max_seq_len``). Admission reserves each request's worst-case blocks
@@ -342,9 +342,11 @@ class ServingEngine:
         if self.arch not in ("llama", "gpt"):
             raise ValueError(
                 f"paged serving supports arch llama/gpt, got {self.arch!r}")
-        if self.device.type == "cuda" and max_slots > 8:
-            raise ValueError(f"max_slots {max_slots} > 8: the paged decode "
-                             "kernel takes at most 8 rows")
+        from paddle_tpu_torch.ops.fused_decode import DECODE_MAX_ROWS
+        if self.device.type == "cuda" and max_slots > DECODE_MAX_ROWS:
+            raise ValueError(f"max_slots {max_slots} > {DECODE_MAX_ROWS}: "
+                             "the paged decode kernel takes at most "
+                             f"{DECODE_MAX_ROWS} rows")
         if max_seq_len % block_tokens:
             raise ValueError(
                 f"max_seq_len {max_seq_len} must be a multiple of "

@@ -2,7 +2,7 @@
 
 * build_fused_params: the same stacks, bit for bit, from the same weights.
 * fused_decode_reference (the plain version a CPU tensor runs) against the
-  JAX reference in fp32: atol 2e-5 (sums in another order).
+  JAX reference in fp32, 3 and 12 rows: atol 2e-5 (sums in another order).
 * The same against the TPU kernel itself, run the way the JAX package's
   own tests run it on the CPU (_fused_decode_pallas(..., interpret=True)),
   bf16, one small case (nkv·hd = 128, S = 128). Tolerance: atol 2e-2,
@@ -72,9 +72,10 @@ def test_build_fused_params_equal(dtype):
 
 @pytest.mark.parametrize("nkv", [4, 2])   # MHA, GQA
 @pytest.mark.parametrize("pos", [0, 9])
-def test_reference_matches_jax_reference_fp32(nkv, pos):
+@pytest.mark.parametrize("b", [3, 12])    # 12: past the kernels' old 8
+def test_reference_matches_jax_reference_fp32(nkv, pos, b):
     cfg, sd = _state(nkv)
-    L, b, S = cfg.num_layers, 3, 16
+    L, S = cfg.num_layers, 16
     dkv = nkv * cfg.head_dim
     r = np.random.RandomState(pos + nkv)
     x = r.randn(b, cfg.hidden_size).astype(np.float32)

@@ -10,7 +10,8 @@ utils/convert.py; inputs from numpy seeds.
 * The gpt arch of ``fused_decode_reference``, ``fused_paged_decode_reference``
   and ``fused_paged_verify_reference`` (the plain versions a CPU tensor
   runs) against the JAX functions of the same name in fp32: atol 2e-5,
-  rtol 1e-5 (sums in another order), x_out and the whole cache or pool.
+  rtol 1e-5 (sums in another order), x_out and the whole cache or pool;
+  the decode steps at 3 and 12 rows.
 * The same three steps against the TPU kernels themselves in bf16, run as
   the JAX package runs them on the CPU (``_fused_decode_pallas``,
   ``_fused_paged_decode_pallas``, ``_fused_paged_verify_pallas`` with
@@ -148,8 +149,9 @@ def _jt(params):
 
 
 @pytest.mark.parametrize("pos", [0, 11])
-def test_gpt_reference_matches_jax_reference_fp32(pos):
-    L, b, S, nh, hd, ffn = 2, 3, 16, 4, 16, 96
+@pytest.mark.parametrize("b", [3, 12])    # 12: past the kernels' old 8
+def test_gpt_reference_matches_jax_reference_fp32(pos, b):
+    L, S, nh, hd, ffn = 2, 16, 4, 16, 96
     h = nh * hd
     r = np.random.RandomState(pos)
     pj, pt = _jt(_gpt_params(r, L, h, ffn))
@@ -177,23 +179,41 @@ TABLES = np.array([[7, 3, 0, 0], [5, 9, 2, 11], [0, 0, 0, 0]], np.int32)
 POSITIONS = np.array([13, 29, 5], np.int32)
 
 
-def test_gpt_paged_reference_matches_jax_reference_fp32():
+def _layout(b):
+    """(tables, positions, pool blocks) of b rows: TABLES for 3; for 12,
+    rows 0..10 own private blocks drawn from a shuffle, at positions across
+    their span, and row 11 idle as row 2 of TABLES."""
+    if b == 3:
+        return TABLES, POSITIONS, NB
+    nb = 1 + (b - 1) * MB
+    tables = np.zeros((b, MB), np.int32)
+    tables[:-1] = (np.random.RandomState(b).permutation(nb - 1)
+                   + 1).reshape(b - 1, MB)
+    positions = np.array([0, 3, 7, 8, 13, 17, 22, 26, 29, 30, 31, 5],
+                         np.int32)
+    return tables, positions, nb
+
+
+@pytest.mark.parametrize("b", [3, 12])    # 12: past the kernels' old 8
+def test_gpt_paged_reference_matches_jax_reference_fp32(b):
     L, nh, hd, ffn = 2, 4, 16, 96
     h = nh * hd
+    tables, positions, nb = _layout(b)
     r = np.random.RandomState(3)
     pj, pt = _jt(_gpt_params(r, L, h, ffn))
-    x = r.randn(3, h).astype(np.float32)
-    pool = r.randn(L, NB, BT, 2 * h).astype(np.float32)
+    x = r.randn(b, h).astype(np.float32)
+    pool = r.randn(L, nb, BT, 2 * h).astype(np.float32)
     kw = dict(num_heads=nh, num_kv_heads=nh, eps=1e-5)
-    ones = jnp.ones((3, hd), jnp.float32)
+    ones = jnp.ones((b, hd), jnp.float32)
     xj, poolj = jfd.fused_paged_decode_reference(
-        jnp.asarray(x), pj, jnp.asarray(pool), jnp.asarray(TABLES),
-        jnp.asarray(POSITIONS), ones, ones, arch="gpt", **kw)
+        jnp.asarray(x), pj, jnp.asarray(pool), jnp.asarray(tables),
+        jnp.asarray(positions), ones, ones, arch="gpt", **kw)
     xt, poolt = tfd.fused_paged_decode_step(
         torch.from_numpy(x), pt, torch.from_numpy(pool.copy()),
-        torch.from_numpy(TABLES), torch.from_numpy(POSITIONS), None, None,
+        torch.from_numpy(tables), torch.from_numpy(positions), None, None,
         arch="gpt", **kw)
-    np.testing.assert_allclose(xt[:2].numpy(), np.asarray(xj)[:2],
+    # the active rows (all but the last)
+    np.testing.assert_allclose(xt[:-1].numpy(), np.asarray(xj)[:-1],
                                atol=2e-5, rtol=1e-5)
     # every block but scratch (where the idle row's append lands)
     np.testing.assert_allclose(poolt[:, 1:].numpy(), np.asarray(poolj)[:, 1:],

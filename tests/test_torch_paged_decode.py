@@ -1,9 +1,9 @@
 """The paged decode step of paddle_tpu_torch against paddle_tpu's.
 
 * fused_paged_decode_reference (the plain version a CPU tensor runs) against
-  the JAX ``fused_paged_decode_reference`` in fp32, MHA and GQA: three rows
-  at different positions, one of them idle (its table all scratch), over a
-  shuffled block table. x_out and the whole pool after the appends agree
+  the JAX ``fused_paged_decode_reference`` in fp32, MHA and GQA: three (and
+  twelve) rows at different positions, the last idle (its table all
+  scratch), over a shuffled block table. x_out and the whole pool after the appends agree
   within atol 2e-5 (sums in another order).
 * The same against the TPU kernel itself, run as the JAX package runs it on
   the CPU (``_fused_paged_decode_pallas(..., interpret=True)``), bf16,
@@ -50,6 +50,21 @@ def _params(r, L, h, nh, nkv, hd, ffn, sc=0.05):
             "wg": f(L, h, ffn), "wu": f(L, h, ffn), "wd": f(L, ffn, h)}
 
 
+def _layout(b):
+    """(tables, positions, pool blocks) of b rows: TABLES for 3; for 12,
+    rows 0..10 own private blocks drawn from a shuffle, at positions across
+    their span, and row 11 idle as row 2 of TABLES."""
+    if b == 3:
+        return TABLES, POSITIONS, NB
+    nb = 1 + (b - 1) * MB
+    tables = np.zeros((b, MB), np.int32)
+    tables[:-1] = (np.random.RandomState(b).permutation(nb - 1)
+                   + 1).reshape(b - 1, MB)
+    positions = np.array([0, 3, 7, 8, 13, 17, 22, 26, 29, 30, 31, 5],
+                         np.int32)
+    return tables, positions, nb
+
+
 def _rope_rows(hd, positions):
     c, s = trope_cos_sin(MB * BT, hd)
     idx = torch.from_numpy(positions.astype(np.int64))
@@ -57,23 +72,25 @@ def _rope_rows(hd, positions):
 
 
 @pytest.mark.parametrize("nkv", [4, 2])          # MHA, GQA
-def test_paged_reference_matches_jax_reference_fp32(nkv):
+@pytest.mark.parametrize("b", [3, 12])           # 12: past the kernels' old 8
+def test_paged_reference_matches_jax_reference_fp32(nkv, b):
     L, h, nh, hd, ffn = 2, 64, 4, 16, 96
+    tables, positions, nb = _layout(b)
     r = np.random.RandomState(nkv)
     params = _params(r, L, h, nh, nkv, hd, ffn)
-    x = r.randn(3, h).astype(np.float32)
-    pool = r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32)
-    cos, sin = _rope_rows(hd, POSITIONS)
+    x = r.randn(b, h).astype(np.float32)
+    pool = r.randn(L, nb, BT, 2 * nkv * hd).astype(np.float32)
+    cos, sin = _rope_rows(hd, positions)
     kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
     xj, pj = jfd.fused_paged_decode_reference(
         jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},
-        jnp.asarray(pool), jnp.asarray(TABLES), jnp.asarray(POSITIONS),
+        jnp.asarray(pool), jnp.asarray(tables), jnp.asarray(positions),
         jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()), **kw)
     xt, pt = tfd.fused_paged_decode_step(
         torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in
                               params.items()},
-        torch.from_numpy(pool.copy()), torch.from_numpy(TABLES),
-        torch.from_numpy(POSITIONS), cos, sin, **kw)
+        torch.from_numpy(pool.copy()), torch.from_numpy(tables),
+        torch.from_numpy(positions), cos, sin, **kw)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=2e-5,
                                rtol=1e-5)
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=2e-5,

@@ -261,6 +261,73 @@ def test_moe_step_refuses_int8_and_what_k6_does_not_take():
     assert fd.fused_decode_moe_cuda.launches == 0
 
 
+def test_decode_wrappers_take_64_rows():
+    """K2 and K5 (llama and gpt) take 1..64 rows: at b = 64 their wrappers
+    get as far as the device check (CPU tensors), at b = 65 they refuse the
+    width; K6 keeps its 8 (its refusal of b = 9 is checked above). Nothing
+    launches."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    assert fd.DECODE_MAX_ROWS == 64 == fd.VERIFY_MAX_ROWS
+    assert fd.MOE_MAX_ROWS == 8
+    L, h, nh, hd, ffn, BT, MB = 1, 128, 2, 64, 256, 16, 2
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    llama = {"ln1": z(L, h), "wqkv": z(L, h, 3 * h), "wo": z(L, h, h),
+             "ln2": z(L, h), "wg": z(L, h, ffn), "wu": z(L, h, ffn),
+             "wd": z(L, ffn, h)}
+    gpt = dict(llama, ln1_b=z(L, h), bqkv=z(L, 3 * h), bo=z(L, h),
+               ln2_b=z(L, h), bg=z(L, ffn), bd=z(L, h))
+    del gpt["wu"]
+    kw = dict(num_heads=nh, num_kv_heads=nh)
+    fd.fused_decode_cuda.launches = 0
+    fd.fused_paged_decode_cuda.launches = 0
+    for arch, p in (("llama", llama), ("gpt", gpt)):
+        for b, match in ((64, "cuda"), (65, "unsupported b=65")):
+            rope = torch.zeros(1, hd), torch.zeros(1, hd)
+            with pytest.raises(ValueError, match=match):
+                fd.fused_decode_cuda(z(b, h), p, z(L, b, 32, 2 * h), 3,
+                                     *rope, arch=arch, **kw)
+            rows = torch.zeros(b, hd), torch.zeros(b, hd)
+            with pytest.raises(ValueError, match=match):
+                fd.fused_paged_decode_cuda(
+                    z(b, h), p, z(L, 1 + MB, BT, 2 * h),
+                    torch.zeros(b, MB, dtype=torch.int32),
+                    torch.zeros(b, dtype=torch.int32), *rows, arch=arch,
+                    **kw)
+    assert fd.fused_decode_cuda.launches == 0
+    assert fd.fused_paged_decode_cuda.launches == 0
+
+
+def test_int8_decode_wrapper_needs_16_byte_rows():
+    """The engine reads an int8 (L, in, out) stack through a TMA map,
+    whose row stride must be a multiple of 16 bytes: K2's wrapper refuses
+    int8 stacks with an out width that is a multiple of 8 but not 16, and
+    takes one that is (as far as the device check on CPU tensors)."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, b, h, nh, hd = 1, 2, 128, 2, 64
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)
+    i8 = torch.int8
+
+    def params(ffn):
+        p = {"ln1": z(L, h), "wqkv": z(L, h, 3 * h, dt=i8),
+             "wo": z(L, h, h, dt=i8), "ln2": z(L, h),
+             "wg": z(L, h, ffn, dt=i8), "wu": z(L, h, ffn, dt=i8),
+             "wd": z(L, ffn, h, dt=i8)}
+        outs = {"wqkv": 3 * h, "wo": h, "wg": ffn, "wu": ffn, "wd": h}
+        p.update({f"{k}_s": torch.ones(L, 1, n) for k, n in outs.items()})
+        return p
+
+    rope = torch.zeros(1, hd), torch.zeros(1, hd)
+    call = lambda p: fd.fused_decode_cuda(z(b, h), p, z(L, b, 32, 2 * h), 3,
+                                          *rope, num_heads=nh,
+                                          num_kv_heads=nh)
+    fd.fused_decode_cuda.launches = 0
+    with pytest.raises(ValueError, match="multiples of 16"):
+        call(params(264))
+    with pytest.raises(ValueError, match="cuda"):
+        call(params(256))
+    assert fd.fused_decode_cuda.launches == 0
+
+
 def test_serving_engine_default_device_raises_without_cuda():
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
@@ -823,6 +890,67 @@ def test_fused_decode_int8_modes_match_plain(cuda, w8, kv8):
         torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
                                    rtol=2 ** -7)
     assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16, 33, 64])
+@pytest.mark.parametrize("w8", [False, True])
+def test_decode_kernels_take_wide_rows(cuda, b, w8):
+    """K2 at b = 16, 33 and 64 rows (the product engine's N of 16, 64 and
+    64), bf16 and int8 weights, against its plain version, five launches
+    bitwise equal (int8: at these widths the down product's units are one
+    stage each, so half the consumer groups store zero partials with no
+    stage to wait on, while the SwiGLU epilogue before it may still read
+    the same workspace); with bf16 weights also K5 over a shuffled table
+    against its plain version and, every row at one position over the same
+    KV, bitwise against K2."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, S, nh, nkv, hd, pos, BT = 2, 256, 8, 2, 64, 150, 16
+    MB = S // BT
+    h, ffn = nh * hd, 3 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(b)
+    p = _llama_cuda_params(L, h, nh, nkv, ffn, w8)
+    x = torch.randn(b, h, generator=g, device=cuda).bfloat16()
+    kv = torch.randn(L, b, S, 2 * nkv * hd, generator=g,
+                     device=cuda).bfloat16()
+    kv[:, :, pos:] = 0
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xk, kvk = fd.fused_decode_cuda(x, p, kv.clone(), pos, c, s, **kw)
+    for _ in range(4):
+        xk2, _ = fd.fused_decode_cuda(x, p, kv.clone(), pos, c, s, **kw)
+        assert torch.equal(xk, xk2)
+    xr, kvr = fd.fused_decode_reference(x, p, kv.clone(), pos, c, s, **kw)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    if w8:
+        return
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(b))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32).to(cuda)
+    pool = torch.zeros(L, 1 + b * MB, BT, 2 * nkv * hd, dtype=torch.bfloat16,
+                       device=cuda)
+    for r in range(b):
+        pool[:, tab[r].long()] = kv[:, r].reshape(L, MB, BT, -1)
+    p5 = torch.randint(0, pos + 1, (b,), generator=torch.Generator()
+                       .manual_seed(b), dtype=torch.int32).to(cuda)
+    c5, s5 = cos.index_select(0, p5), sin.index_select(0, p5)
+    x5, pk = fd.fused_paged_decode_cuda(x, p, pool.clone(), tab, p5, c5, s5,
+                                        **kw)
+    xr5, pr = fd.fused_paged_decode_reference(x, p, pool.clone(), tab, p5,
+                                              c5, s5, **kw)
+    torch.testing.assert_close(x5.float(), xr5.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(pk.float(), pr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    at = torch.full((b,), pos, dtype=torch.int32, device=cuda)
+    xs, pool = fd.fused_paged_decode_cuda(x, p, pool, tab, at,
+                                          cos.index_select(0, at),
+                                          sin.index_select(0, at), **kw)
+    assert torch.equal(xs, xk)
 
 
 @pytest.mark.cuda

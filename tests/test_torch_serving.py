@@ -7,6 +7,8 @@ CPU, where the decode step is the paged plain version:
 * 4 mixed-length requests through 3 slots (joins and leaves interleave):
   every request's tokens EQUAL the JAX engine's and the port's own isolated
   ``generate``, greedy and sampled (per-request seeds);
+* 14 greedy requests through 12 slots (past the kernels' old 8 rows): the
+  JAX engine's tokens and steps;
 * shared prefix blocks stay byte-unchanged while a second request adopts
   them (copy-on-write), and ``prefill_tokens_reused`` counts them;
 * eos retires a slot and frees its blocks at once;
@@ -99,6 +101,33 @@ def test_tokens_equal_jax_engine_and_isolated_generate(pair, mode):
     assert eng.pool.used_blocks == cache_held
     eng.prefix_cache.clear()
     assert eng.pool.used_blocks == 0
+    assert tfd.fused_paged_decode_cuda.launches == 0
+
+
+def test_serving_engine_twelve_slots_matches_jax(pair):
+    """14 greedy requests through 12 slots (two wait for a slot): the
+    port's engine on the CPU gives the JAX engine's tokens and steps."""
+    jm, tm = pair
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(3, 256, (int(n),))
+               for n in rng.randint(4, 40, 14)]
+    max_new = [int(n) for n in rng.randint(3, 12, 14)]
+    engine = dict(max_slots=12, block_tokens=16, max_seq_len=64)
+    eng = ServingEngine(tm, **engine, device="cpu")
+    rids = [eng.submit(Request(p, max_new_tokens=n))
+            for p, n in zip(prompts, max_new)]
+    eng.step()
+    assert eng.active_slots == 12        # one step admits 12 of the 14
+    eng.drain(max_steps=400)
+    je = jserving.ServingEngine(jm, **engine)
+    jrids = [je.submit(jserving.Request(p, max_new_tokens=n))
+             for p, n in zip(prompts, max_new)]
+    je.drain(max_steps=400)
+    for rid, jrid, n in zip(rids, jrids, max_new):
+        got = eng.results[rid].tokens.tolist()
+        assert len(got) == n
+        assert got == je.results[jrid].tokens.tolist()
+    assert eng.stats["steps"] == je.stats["steps"]
     assert tfd.fused_paged_decode_cuda.launches == 0
 
 
