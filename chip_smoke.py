@@ -14,9 +14,10 @@ Phases, each printing one JSON line:
               must give 0 and lse NEG_INF exactly; d 64 and 128).
   4. k2     — fused decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, MHA and GQA (nkv=8): x_out and the
-              appended cache row; then at 1, 9, 16, 33 and 64 rows (the
-              product engine's wgmma widths N = 8 … 64, on inputs from a
-              generator of their own), two launches bitwise equal.
+              appended cache row; then at 1, 9, 16, 33, 64 and 65 rows (the
+              product engine's wgmma widths N = 8 … 64, and two launches of
+              33 + 32 rows, on inputs from a generator of their own), two
+              launches bitwise equal.
   5. k3     — flash-attention backward kernels (K3 dq, K4 dk/dv) through
               the autograd Function vs the plain fp32 backward on the same
               forward's (out, lse): the GPT-2 training shape, a GQA d=128
@@ -33,15 +34,18 @@ Phases, each printing one JSON line:
               MHA and GQA (nkv=8); then x_out and the appended rows bitwise
               against K2 with every row at one position over the same KV,
               in the llama mode and (GPT-2 345M width) in the gpt mode;
-              then at 1, 9, 16, 33 and 64 rows (drawn positions, the last
-              row idle) and bitwise against K2 at 33 rows, both modes.
+              then at 1, 9, 16, 33, 64 and 65 rows (drawn positions, the
+              last row idle) and bitwise against K2 at 33 and 65 rows, both
+              modes.
   7. k7     — paged verify kernel (K7) vs its plain version at Llama-2-7B
               width with 2 layers, b=8, a 5-token tail per row, over a
               shuffled table (BT 128, 16 blocks per row), MHA and GQA:
               mixed positions, a tail straddling a block boundary, an idle
               row, a tail past its last mapped block and one past the
               table; x_out of mapped tokens, the appended rows, the rest of
-              the pool unchanged; then an all-accepted K7 step against 5
+              the pool unchanged; then 16 slots at drawn positions (80 tail
+              rows: two launches of 8 slots); every case launched twice,
+              bitwise equal; then an all-accepted K7 step against 5
               sequential K5 steps on a copy of the pool, per token.
   8. k6     — MoE decode-step kernel (K6) vs its plain version, 2 layers,
               b=1 and b=4, pos 1056, S 1152, at DeepSeekMoE-16B width (MHA,
@@ -52,7 +56,15 @@ Phases, each printing one JSON line:
               near-tie at the top-k boundary, K6_FLIP_GAP), the rest of the
               cache unchanged, two launches bitwise equal, every row routed
               alike (one expert slot serves all 4 rows), and the gate ×8
-              held strictly.
+              held strictly; then b=9 and b=16 (two launches of rows).
+  8e. wide  — steps wider than one launch through the entry points, tiny
+              models at head width 64 against the same weights on the CPU:
+              Llama `generate` at b=65 (K2 in 33 + 32 rows) and a 65-slot
+              ServingEngine (K5 in two launches a tick); a Mixtral with
+              capacity_factor 4 (the fused plan's max_batch 64) `generate`
+              at b=9 and 16 (K6 in groups of 8 rows); tokens equal the
+              CPU's or part only at a near tie (NEAR_TIE), each `generate`
+              run twice on the card with equal tokens.
   8a. k2g, k5g, k7g — the gpt modes of K2, K5 and K7 (LayerNorm with bias,
               biased products, no rope, tanh-GELU FFN) vs their plain
               versions at GPT-2 345M width (h 1024, 16 heads of 64, ffn
@@ -126,7 +138,11 @@ Phases, each printing one JSON line:
               the accepted run, and a K5 step over K7's appended history
               against one over K5's); then an adaptive engine (k_min 0) on
               the random half with a teacher-forced 32-layer K7 step over
-              its live pool vs the plain verify on the logits.
+              its live pool vs the plain verify on the logits; then the 16
+              requests (new tokens capped at 32) through a 16-slot k = 4
+              engine (80 tail rows: two K7 launches a tick, a teacher-forced
+              80-row K7 step) beside a plain 16-slot one, tokens equal or
+              parted only at a near tie.
  12b. int8  — the same model through quantization.quantize_model (in place:
               int8 weights, per-out-channel scales, embeddings bf16), then
               inference.generate, b=4, prompt 1024, 64 new tokens, greedy and
@@ -412,8 +428,9 @@ def stack_params(gen, arch, L, nkv):
 
 #: the row counts the product engine's cases add beside each phase's own:
 #: one row, each of its wgmma widths N = 16, 32 and 64 entered just past the
-#: one below (9, 16, 33) and the cap (DECODE_MAX_ROWS)
-WIDE_ROWS = (1, 9, 16, 33, 64)
+#: one below (9, 16, 33), a full launch (GROUP_ROWS) and one row past it (65:
+#: two launches, 33 + 32 rows)
+WIDE_ROWS = (1, 9, 16, 33, 64, 65)
 
 
 def wide_nkv(b):
@@ -632,7 +649,8 @@ def phase_k5(fd, rope, gen):
     """K5 at Llama-2-7B width, 2 layers, b=8 at mixed positions with an
     idle row (MHA and GQA), bitwise against K2 at b=8 (llama and gpt);
     then at WIDE_ROWS rows (drawn positions, the last row idle; two
-    launches bitwise equal) and bitwise against K2 at b=33."""
+    launches bitwise equal) and bitwise against K2 at b=33 and b=65 (two
+    launches of rows each)."""
     mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
     cases = [k5_case(fd, rope, gen, 32, mixed, idle=(4,)),
              k5_case(fd, rope, gen, 8, mixed, idle=(4,))]
@@ -646,13 +664,18 @@ def phase_k5(fd, rope, gen):
     bitwise33 = k5_vs_k2(fd, rope, wg, b=33)
     bitwise33_gpt = k5_vs_k2(fd, rope, wg, nkv=16, b=33, pos=1000,
                              arch="gpt")
+    bitwise65 = k5_vs_k2(fd, rope, wg, b=65)
+    bitwise65_gpt = k5_vs_k2(fd, rope, wg, nkv=16, b=65, pos=1000,
+                             arch="gpt")
     emit({"phase": "k5", "cases": cases, "vs_k2": bitwise,
           "vs_k2_gpt": bitwise_gpt, "vs_k2_b33": bitwise33,
-          "vs_k2_gpt_b33": bitwise33_gpt})
+          "vs_k2_gpt_b33": bitwise33_gpt, "vs_k2_b65": bitwise65,
+          "vs_k2_gpt_b65": bitwise65_gpt})
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K5 disagrees with its plain version: {bad}")
-    for b in (bitwise, bitwise_gpt, bitwise33, bitwise33_gpt):
+    for b in (bitwise, bitwise_gpt, bitwise33, bitwise33_gpt, bitwise65,
+              bitwise65_gpt):
         if not b["ok"]:
             raise AssertionError(f"K5 does not give K2's bits: {b}")
     return max(c["max_abs_err"] for c in cases)
@@ -712,8 +735,8 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
     """K7 against the plain verify. Compared: x_out of every mapped tail
     token (its position and all before it in mapped blocks), the appended
     rows at mapped positions, and every other row of every block but
-    scratch (untouched by both); the gpt mode also launches twice and holds
-    the two results bitwise equal."""
+    scratch (untouched by both); K7 also launches twice and the two
+    results must be bitwise equal."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     b, K1 = len(positions), K7_K1
@@ -726,13 +749,13 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
     x = rand((b, K1, h), gen)
     kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
     pool_k = pool.clone()
+    n0 = fd.fused_paged_verify_cuda.launches
     xo, _ = fd.fused_paged_verify_cuda(x, params, pool_k, tables, pos, c, s,
                                        **kw)
-    pool_k2 = xo2 = None
-    if arch == "gpt":
-        pool_k2 = pool.clone()
-        xo2, _ = fd.fused_paged_verify_cuda(x, params, pool_k2, tables, pos,
-                                            c, s, **kw)
+    launches = fd.fused_paged_verify_cuda.launches - n0
+    pool_k2 = pool.clone()
+    xo2, _ = fd.fused_paged_verify_cuda(x, params, pool_k2, tables, pos, c,
+                                        s, **kw)
     torch.cuda.synchronize()
     xr, pool_r = fd.fused_paged_verify_reference(x, params, pool, tables,
                                                  pos, c, s, **kw)
@@ -754,29 +777,34 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
     # scratch: idle rows and tails past their blocks write scratch block 0
     # from several rows at once and read it back, so it holds no defined
     # value (as in K5)
-    repeat = None
-    if arch == "gpt":
-        repeat = bool(torch.equal(xo[rr, jj], xo2[rr, jj])
-                      and torch.equal(pool_k[:, 1:], pool_k2[:, 1:]))
-        del pool_k2, xo2
-    ok = (ok_x and ok_row and untouched and repeat is not False
+    repeat = bool(torch.equal(xo[rr, jj], xo2[rr, jj])
+                  and torch.equal(pool_k[:, 1:], pool_k2[:, 1:]))
+    del pool_k2, xo2
+    # whole slots of K1 tail rows, at most GROUP_ROWS tail rows a launch
+    want_launches = len(fd.row_groups(b, fd.GROUP_ROWS // K1))
+    ok = (ok_x and ok_row and untouched and repeat
+          and launches == want_launches
           and bool(torch.isfinite(xo.float()).all()))
-    res = {"nkv": nkv, "L": L, "b": b, "K1": K1, "block_tokens": K5_BT,
-           "blocks_per_row": K5_MB, "positions": positions,
-           "mapped_blocks": nmap, "mapped_tokens": len(mapped),
+    res = {"arch": arch, "nkv": nkv, "L": L, "b": b, "K1": K1,
+           "block_tokens": K5_BT, "blocks_per_row": K5_MB,
+           "positions": positions, "mapped_blocks": nmap,
+           "mapped_tokens": len(mapped), "launches": launches,
            "max_abs_err": err, "row_max_abs_err": row_err,
-           "rest_of_pool_unchanged": untouched, "atol": K2_ATOL,
+           "rest_of_pool_unchanged": untouched,
+           "two_launches_bitwise_equal": repeat, "atol": K2_ATOL,
            "rtol": K2_RTOL, "ok": ok}
-    if arch == "gpt":
-        res.update(arch="gpt", two_launches_bitwise_equal=repeat)
     return res
 
 
-def k7_vs_k5(fd, rope, gen, nkv=32, L=2):
+def k7_vs_k5(fd, rope, gen, nkv=32, L=2, fp32=False):
     """An all-accepted K7 step against K1 sequential K5 steps over a clone
     of the same pool: token j's x_out against K5's step at pos + j, and
-    the appended rows. Sums run in other orders (tensor cores vs K5's
-    split-K), so the bound is K2's tolerance, per token."""
+    the appended rows. Sums run in other orders (K7's products over 40
+    rows, K5's over 8, split differently; K7's attention on tensor cores),
+    so the bound is K2's tolerance, per token. With `fp32`, each token's
+    x_out of both kernels is also compared with the plain verify in fp32
+    (weights, pool and x upcast): which of the two strays from the exact
+    function, and by how much."""
     h, nh, hd, ffn = 4096, 32, 128, 11008
     K1 = K7_K1
     positions = [1037, 126, 700, 3, 200, 5, 1900, 1500]
@@ -790,6 +818,11 @@ def k7_vs_k5(fd, rope, gen, nkv=32, L=2):
     c, s = k7_rope(rope, hd, positions, K1)
     x = rand((b, K1, h), gen)
     kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    x32 = None
+    if fp32:
+        x32, _ = fd.fused_paged_verify_reference(
+            x.float(), {k: v.float() for k, v in params.items()},
+            pool.float(), tables, pos, c, s, **kw)
     pool7 = pool.clone()
     x7, _ = fd.fused_paged_verify_cuda(x, params, pool7, tables, pos, c, s,
                                        **kw)
@@ -808,13 +841,33 @@ def k7_vs_k5(fd, rope, gen, nkv=32, L=2):
                               pool[:, bids, t % K5_BT], K2_ATOL, K2_RTOL)
         per_token.append({"j": j, "x_out_max_abs_diff": err,
                           "appended_row_max_abs_diff": row_err})
+        if x32 is not None:
+            ref = x32[active, j]
+            per_token[-1].update(
+                k7_vs_fp32=(x7[active, j].float() - ref).abs().max().item(),
+                k5_vs_fp32=(x5[active].float() - ref).abs().max().item())
         ok &= ok_j and ok_r
     return {"nkv": nkv, "L": L, "b": b, "K1": K1, "positions": positions,
             "idle_rows": list(idle), "per_token": per_token,
+            "x_out_absmax": x7[active].float().abs().max().item(),
             "atol": K2_ATOL, "rtol": K2_RTOL, "ok": ok}
 
 
+def k7_wide(seed, b=16):
+    """b slots at drawn positions whose tails lie in their mapped blocks,
+    the last slot idle: (positions, nmap)."""
+    r = np.random.RandomState(seed)
+    positions = [int(p) for p in r.randint(0, K5_BT * K5_MB - K7_K1, b)]
+    nmap = [(p + K7_K1 - 1) // K5_BT + 1 for p in positions]
+    nmap[-1] = 0
+    return positions, nmap
+
+
 def phase_k7(fd, rope, gen):
+    """K7 at Llama-2-7B width, 2 layers, b=8 x a 5-token tail over phase
+    k7's edge cases, MHA and GQA; then 16 slots (80 tail rows: two launches
+    of whole slots) at drawn positions; then all-accepted against 5
+    sequential K5 steps."""
     # row 1 straddles a block boundary (126..130), row 3 is idle, row 4's
     # tail runs past its last mapped block (254..258 with 2 blocks), row 6
     # past the table itself (2045..2049, blocks 16 and beyond: scratch)
@@ -822,6 +875,7 @@ def phase_k7(fd, rope, gen):
     nmap = [9, 2, 6, 0, 2, 1, K5_MB, 12]
     cases = [k7_case(fd, rope, gen, 32, positions, nmap),
              k7_case(fd, rope, gen, 8, positions, nmap)]
+    cases.append(k7_case(fd, rope, wide_gen(25), 32, *k7_wide(300)))
     seq = k7_vs_k5(fd, rope, gen)
     emit({"phase": "k7", "cases": cases, "vs_k5_sequential": seq})
     bad = [c for c in cases if not c["ok"]]
@@ -835,10 +889,13 @@ def phase_k7(fd, rope, gen):
 def phase_k7g(fd, rope, gen):
     """K7's gpt mode at GPT-2 345M width, 2 layers, b=8 × a 5-token tail,
     with phase k7's edge cases (a tail across a block boundary, an idle
-    row, tails past the last mapped block and past the table)."""
+    row, tails past the last mapped block and past the table), then 16
+    slots (two launches) at drawn positions."""
     positions = [1037, 126, 700, 3, 254, 5, 2045, 1500]
     nmap = [9, 2, 6, 0, 2, 1, K5_MB, 12]
-    cases = [k7_case(fd, rope, gen, 16, positions, nmap, arch="gpt")]
+    cases = [k7_case(fd, rope, gen, 16, positions, nmap, arch="gpt"),
+             k7_case(fd, rope, wide_gen(26), 16, *k7_wide(301),
+                     arch="gpt")]
     emit({"phase": "k7g", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -962,6 +1019,8 @@ def k6_case(fd, rope, gen, width, params, b, same_rows=False, strict=False,
           and (not strict or swaps == 0)
           and (not same_rows or distinct == [k] * L))
     return {"width": width, "b": b, "L": L, "S": S, "pos": pos,
+            "launches_per_step": len(fd.row_groups(
+                b, min(fd.MOE_MAX_ROWS, fd.MOE_MAX_PAIRS // k))),
             "same_rows": same_rows, "strict": strict,
             "gate_scale": 8.0 if strict else 1.0,
             "distinct_experts_per_layer": distinct,
@@ -975,14 +1034,17 @@ def k6_case(fd, rope, gen, width, params, b, same_rows=False, strict=False,
 def phase_k6(fd, rope, gen):
     """K6 against its plain version at both widths, 2 layers, b=1 and b=4:
     random routing (the swap rule), one routing shared by all 4 rows, and
-    the gate ×8 held strictly."""
+    the gate ×8 held strictly; then b=9 and b=16 (two launches of rows
+    each, inputs from a generator of their own)."""
     cases = []
+    wg = wide_gen(27)
     for width, w in K6_WIDTHS.items():
         params = moe_params(gen, 2, **w)
         cases.append(k6_case(fd, rope, gen, width, params, 1))
         cases.append(k6_case(fd, rope, gen, width, params, 4))
         cases.append(k6_case(fd, rope, gen, width, params, 4,
                              same_rows=True))
+        cases += [k6_case(fd, rope, wg, width, params, b) for b in (9, 16)]
         params["gate"] = params["gate"] * 8      # exact in bf16
         cases.append(k6_case(fd, rope, gen, width, params, 4, strict=True))
         del params
@@ -992,6 +1054,133 @@ def phase_k6(fd, rope, gen):
     if bad:
         raise AssertionError(f"K6 disagrees with its plain version: {bad}")
     return max(c["max_abs_err"] for c in cases)
+
+
+def wide_tokens(model, cpu, ids, new, fa, fd, counter, groups):
+    """`generate` of `ids` on the card twice (the tokens must repeat) and
+    on the CPU copy `cpu` of the same weights (the plain steps): launches
+    of the fused step `counter` read around the first card run (`groups`
+    a step) and K1 once a layer; rows whose tokens part from the CPU's
+    must part at a near tie (`first_parting`)."""
+    from paddle_tpu_torch.inference import generate
+    b, n = ids.shape
+    reset_counts(fa, fd)
+    out = generate(model, ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    got = counts(fa, fd)
+    again = generate(model, ids, max_new_tokens=new)
+    ref = generate(cpu, ids, max_new_tokens=new)
+    partings = [first_parting(cpu, ids[i], out[i, n:].cpu().numpy(),
+                              ref[i, n:].cpu().numpy()) for i in range(b)]
+    run = {"b": b, "launches_per_step": groups, "launches": got,
+           "repeat_equal": bool(torch.equal(out, again)),
+           "rows_equal_cpu": sum(q is None for q in partings),
+           "first_parting": [q for q in partings if q is not None]}
+    run["ok"] = (run["repeat_equal"]
+                 and got[counter] == groups * (new - 1)
+                 and got["flash_attention_fwd"] == model.cfg.num_layers
+                 and all(q is None or q["near_tie"] for q in partings))
+    return run
+
+
+def wide_engine(fa, fd, model, cpu, slots):
+    """`slots` + 1 greedy requests through ServingEngine(max_slots=slots)
+    on the card and on the CPU copy: every slot busy at once, K5 in
+    row_groups(slots, GROUP_ROWS) launches a tick, no leaked block, each
+    request's tokens equal to the CPU engine's or parted at a near tie."""
+    from paddle_tpu_torch.serving import Request, ServingEngine
+    r = np.random.RandomState(slots)
+    reqs = [(r.randint(0, model.cfg.vocab_size, int(n)), int(m)) for n, m in
+            zip(r.randint(4, 24, slots + 1), r.randint(3, 9, slots + 1))]
+    toks, stats = {}, {}
+    for name, m in (("card", model), ("cpu", cpu)):
+        eng = ServingEngine(m, max_slots=slots, block_tokens=16,
+                            max_seq_len=64, device=m.device)
+        reset_counts(fa, fd)
+        rids = [eng.submit(Request(p, max_new_tokens=n)) for p, n in reqs]
+        eng.step()
+        busy = eng.active_slots
+        eng.drain(max_steps=400)
+        got = counts(fa, fd)
+        toks[name] = [eng.results[i].tokens.tolist() for i in rids]
+        eng.prefix_cache.clear()
+        stats[name] = {"busy": busy, "launches": got, "stats": dict(eng.stats),
+                       "leaked": eng.pool.used_blocks}
+        eng.close()
+    partings = [first_parting(cpu, p, np.asarray(a), np.asarray(c))
+                for (p, _), a, c in zip(reqs, toks["card"], toks["cpu"])]
+    st = stats["card"]["stats"]
+    groups = len(fd.row_groups(slots, fd.GROUP_ROWS))
+    ok = (stats["card"]["busy"] == stats["cpu"]["busy"] == slots
+          and [len(t) for t in toks["card"]] == [n for _, n in reqs]
+          and stats["card"]["launches"]["fused_paged_decode_step"]
+          == groups * (st["steps"] + st["replay_tokens"])
+          and stats["card"]["leaked"] == 0
+          and all(q is None or q["near_tie"] for q in partings))
+    return {"slots": slots, "requests": len(reqs), "k5_launches_per_tick":
+            groups, "card": stats["card"], "rows_equal_cpu":
+            sum(q is None for q in partings),
+            "first_parting": [q for q in partings if q is not None],
+            "ok": ok}
+
+
+def phase_wide(fa, fd):
+    """Steps wider than one launch through the entry points, on tiny
+    models at the kernels' head width (64), each against the same weights
+    on the CPU (the plain steps) and run twice on the card:
+      * Llama (h 256, 4 heads, 2 kv heads, 2 layers) `generate` at b = 65,
+        prompt 16, 8 new tokens, greedy: K2 2 x 7 launches (33 + 32 rows);
+      * the same model through ServingEngine(max_slots=65): K5 in two
+        launches a tick;
+      * a Mixtral (h 128, 2 heads of 64, 1 kv head, 8 experts of 96, top-2,
+        2 shared experts, the gate x8 for decisive routing) with
+        capacity_factor 4, so the fused plan's max_batch is 64 (no drops
+        up to 64 rows), `generate` at b = 9 and 16: K6 2 x 7 launches
+        (groups of at most MOE_MAX_ROWS rows).
+    Tokens equal the CPU's, or part only at a near tie."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         MixtralConfig, MixtralForCausalLM)
+    r = np.random.RandomState(16)
+
+    def pair(cls, cfg, scale_gate=False):
+        model = cls(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+        state = model.state_dict(include_buffers=False)
+        if scale_gate:
+            for i in range(cfg.num_layers):
+                key = f"model.layers.{i}.moe.gate.proj.weight"
+                state[key] = state[key] * 8          # exact in bf16
+            model.set_state_dict(state)
+        cpu = cls(cfg, dtype=torch.bfloat16, device="cpu", seed=0)
+        cpu.set_state_dict({k: v.cpu() for k, v in state.items()})
+        return model, cpu, state
+
+    lcfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=4, num_kv_heads=2)
+    model, cpu, _ = pair(LlamaForCausalLM, lcfg)
+    llama = wide_tokens(model, cpu, r.randint(0, 256, (65, 16)), 8, fa, fd,
+                        "fused_decode_step",
+                        len(fd.row_groups(65, fd.GROUP_ROWS)))
+    engine = wide_engine(fa, fd, model, cpu, 65)
+    del model, cpu
+    mcfg = dataclasses.replace(MixtralConfig.tiny(), hidden_size=128,
+                               num_heads=2, num_kv_heads=1, num_experts=8,
+                               num_shared_experts=2, capacity_factor=4.0)
+    model, cpu, state = pair(MixtralForCausalLM, mcfg, scale_gate=True)
+    plan = model.fused_decode_plan(state, probe=True)
+    cap = min(fd.MOE_MAX_ROWS, fd.MOE_MAX_PAIRS // mcfg.top_k)
+    moe = [wide_tokens(model, cpu, r.randint(0, mcfg.vocab_size, (b, 16)), 8,
+                       fa, fd, "fused_decode_moe_step",
+                       len(fd.row_groups(b, cap))) for b in (9, 16)]
+    ok = (llama["ok"] and engine["ok"] and all(m["ok"] for m in moe)
+          and plan is not None and plan["max_batch"] >= 16)
+    res = {"phase": "wide", "llama_generate": llama, "llama_engine": engine,
+           "moe_max_batch": None if plan is None else plan["max_batch"],
+           "moe_generate": moe, "ok": ok}
+    emit(res)
+    if not ok:
+        raise AssertionError(f"wide: {res}")
+    del model, cpu
+    gc.collect()
 
 
 # ---- K3 / K4 ------------------------------------------------------------------
@@ -1272,9 +1461,8 @@ def phase_k9(fd, bw):
         for rep in (1, 2, 4, 8):
             requests[f"attention hd{hd} rep{rep}"] = fd.dynamic_smem_bytes(
                 "attention", hd, rep)
-        for qg in (2, 4, 6, 8):
-            requests[f"verify_attention hd{hd} qg{qg} mb16"] = \
-                fd.dynamic_smem_bytes("verify_attention", hd, qg, 16)
+        requests[f"verify_attention hd{hd}"] = fd.dynamic_smem_bytes(
+            "verify_attention", hd)
     for mt in (1, 2, 3, 4):
         requests[f"tensor_core_gemm mt{mt}"] = fd.dynamic_smem_bytes(
             "tensor_core_gemm", mt)
@@ -2059,6 +2247,116 @@ def engine_metrics(eng, wall, results, want):
             "prefill_s": st["step_prefill_s"], "stats": st}
 
 
+#: two greedy runs whose logits each carry their path's bf16 noise (up to
+#: SERVE_LOGIT_ATOL against the plain path) may take different tokens only
+#: where the model's top two logits lie within twice that of each other;
+#: random weights make such near ties common (phase spec's own A/B of the
+#: 8-slot engines parts after 1 to 73 tokens), a wrong kernel parts at
+#: gaps of O(1)
+NEAR_TIE = 2 * SERVE_LOGIT_ATOL
+
+
+def first_parting(model, prompt, a, b):
+    """Where two greedy continuations `a`, `b` of `prompt` first differ
+    (None: never), and whether that parting is a near tie: in the model's
+    logits there (one full forward over the prompt and the shared prefix,
+    on the model's device) both tokens lie within NEAR_TIE of the
+    largest."""
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        return None
+    ids = torch.tensor(np.concatenate([np.asarray(prompt), a[:j]]),
+                       device=model.device)[None]
+    with torch.no_grad():
+        out = model(ids)
+        logits = (out[0] if isinstance(out, tuple) else out)[0, -1].float()
+    top = float(logits.max())
+    below = [top - float(logits[int(t)]) for t in (a[j], b[j])]
+    return {"token": j, "tokens": [int(a[j]), int(b[j])],
+            "below_max": below, "near_tie": max(below) <= NEAR_TIE}
+
+
+#: the wide speculative engine: 16 slots x (k + 1) = 80 tail rows a tick,
+#: two K7 launches of whole slots (at most GROUP_ROWS tail rows each)
+SPEC_WIDE = dict(SERVE, max_slots=16)
+
+
+def spec_wide(fa, fd, model, reqs):
+    """A plain and a k = 4 speculative 16-slot engine on the same greedy
+    requests (new tokens capped at 32), every slot busy at once: launch
+    counts (K7 in two groups of slots each speculative tick, K5 once per
+    plain tick and replayed token), a teacher-forced 32-layer K7 step over
+    the speculative engine's live pool (80 tail rows) against the plain
+    verify, and the two engines' tokens equal or parted only at a near tie
+    (`first_parting`)."""
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+    reqs = [(p, min(n, 32)) for p, n in reqs]
+    runs, tokens = {}, {}
+    for name, spec in (("plain", None), ("spec", SpecConfig(k=SPEC_K))):
+        torch.cuda.empty_cache()
+        eng = ServingEngine(model, **SPEC_WIDE, speculate=spec)
+        reset_counts(fa, fd)
+        rids = [eng.submit(Request(p, max_new_tokens=n)) for p, n in reqs]
+        busy, tf = 0, None
+        t0 = time.perf_counter()
+        while not eng.idle:
+            eng.step()
+            busy = max(busy, eng.active_slots)
+            if spec is not None and tf is None \
+                    and eng.active_slots == SPEC_WIDE["max_slots"] \
+                    and eng.stats["spec_ticks"] >= 2:
+                tf = teacher_forced_k7(fd, eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(fa, fd)
+        res = [eng.pop_result(i) for i in rids]
+        st = dict(eng.stats)
+        eng.prefix_cache.clear()
+        runs[name] = {"wall_s": wall, "launches": got, "stats": st,
+                      "most_slots_busy": busy,
+                      "generated": [len(r.tokens) for r in res],
+                      "pool_used_blocks_after_clear": eng.pool.used_blocks}
+        if spec is not None:
+            runs[name]["teacher_forced"] = tf
+        tokens[name] = [r.tokens.tolist() for r in res]
+        eng.close()
+        del eng
+        gc.collect()
+    partings = [first_parting(model, p, a, b) for (p, _), a, b in
+                zip(reqs, tokens["spec"], tokens["plain"])]
+    sp, pl = runs["spec"], runs["plain"]
+    groups = len(fd.row_groups(SPEC_WIDE["max_slots"],
+                               fd.GROUP_ROWS // (SPEC_K + 1)))
+    sst, pst = sp["stats"], pl["stats"]
+    checks = {
+        "every request at its full length": all(
+            r["generated"] == [n for _, n in reqs] for r in runs.values()),
+        "every slot busy at once": sp["most_slots_busy"]
+        == pl["most_slots_busy"] == SPEC_WIDE["max_slots"],
+        "no leaked block": sp["pool_used_blocks_after_clear"]
+        == pl["pool_used_blocks_after_clear"] == 0,
+        "K7 in groups each speculative tick": groups == 2
+        and sp["launches"]["fused_paged_verify_step"]
+        == groups * sst["spec_ticks"] > 0,
+        "K5 once per plain tick and replayed token":
+            sp["launches"]["fused_paged_decode_step"]
+            == sst["steps"] - sst["spec_ticks"] + sst["replay_tokens"]
+            and pl["launches"]["fused_paged_decode_step"]
+            == pst["steps"] + pst["replay_tokens"]
+            and pl["launches"]["fused_paged_verify_step"] == 0,
+        "teacher-forced logits": sp["teacher_forced"] is not None
+        and sp["teacher_forced"]["ok"],
+        "tokens equal the plain engine's, or part at a near tie": all(
+            q is None or q["near_tie"] for q in partings),
+    }
+    return {"slots": SPEC_WIDE["max_slots"], "k": SPEC_K,
+            "k7_launches_per_tick": groups, "requests": len(reqs),
+            "spec": sp, "plain": pl, "first_parting": partings,
+            "requests_equal": sum(q is None for q in partings),
+            "near_tie": NEAR_TIE, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def forced_acceptance(fa, fd, model, reqs, plain_tokens):
     """A speculative engine (k=4) on `reqs` whose proposals, on one tick,
     are the plain engine's next k greedy tokens: random weights accept
@@ -2316,6 +2614,9 @@ def phase_spec(fa, fd, model, bw, flops, k7_err):
                 "teacher_forced": tf,
                 "pool_used_blocks_after_clear": aleaked}
 
+    # 16 slots (80 tail rows, two K7 launches a tick) on all 16 requests
+    wide = spec_wide(fa, fd, model, motif + rand_)
+
     sp, pl = runs["spec"], runs["plain"]
     st = sp["stats"]
     res = {"phase": "spec", "model": "llama2_7b", "layers": L,
@@ -2323,7 +2624,7 @@ def phase_spec(fa, fd, model, bw, flops, k7_err):
            "prompt_lens": [len(p) for p, _ in lows + highs],
            "max_new": want, "spec": sp, "plain": pl,
            "first_parting_token": parting, "forced_acceptance": forced,
-           "adaptive_random_half": adaptive}
+           "adaptive_random_half": adaptive, "wide_16_slots": wide}
     emit(res)
     checks = {
         "every request at its full length": sp["full_length"]
@@ -2346,6 +2647,7 @@ def phase_spec(fa, fd, model, bw, flops, k7_err):
         "adaptive launches split": agot["fused_paged_verify_step"]
         == ast["spec_ticks"] and agot["fused_paged_decode_step"]
         == ast["steps"] - ast["spec_ticks"] + ast["replay_tokens"],
+        "16 slots speculating (two K7 launches a tick)": wide["ok"],
     }
     bad = [k for k, v in checks.items() if not v]
     if bad:
@@ -3250,6 +3552,7 @@ def main(argv):
     k5_err = phase_k5(fd, rope, gen)
     k7_err = phase_k7(fd, rope, gen)
     k6_err = phase_k6(fd, rope, gen)
+    phase_wide(fa, fd)
     gpt_errs = {"k2g": phase_k2g(fd, rope, gen),
                 "k5g": phase_k5g(fd, rope, gen),
                 "k7g": phase_k7g(fd, rope, gen)}

@@ -25,10 +25,9 @@ prints the wall time and the device-busy time of the 63 decode steps
 --rows) whose positions run evenly from 100 to 1300 (700 cached tokens on
 average), each through its own shuffled blocks of 128 tokens.
 
-Each line also carries "products": the products' kernel (K2/K5's
-engine_kernel; K7's tc_gemm_partial_kernel; K6's attention-half products
-on the engine), the weight bytes it streams per step, its device time and,
-for the engine, its exclusive share of the step (the step time less every
+Each line also carries "products": the products' kernel (engine_kernel:
+K2's, K5's and K7's products, K6's attention half), the weight bytes it
+streams per step, its device time and its exclusive share of the step (the step time less every
 other kernel's device time: an engine launch starts while the kernel
 before it still runs, so its device time overlaps that kernel's), and the
 rate in TB/s over the exclusive share; and "device_ms_over_step_ms", the
@@ -37,9 +36,13 @@ records reads low; overlapping kernels read above 1).
 
 --verify: the same split for the paged verify step (K7) at the same 8 rows
 with a tail of 5 tokens each (the last token and k = 4 proposals, the
-speculative engine's step), 40 tail rows in all. The
-tensor-core product kernel serves all four products; its epilogues tell
-them apart by mode (QKV, RESID for o-proj and down, SWIGLU).
+speculative engine's step), 40 tail rows in all: the products on the
+engine at N = 64, and "attention": the device time of K7's appends, its
+split-KV attention kernel and its merge (each starts early behind the
+kernel before it and waits, so the sum of their device times counts
+overlaps twice): "exclusive_ms", the time only they run (the step's busy
+time less the time any other kernel runs), and "span_ms", the union of
+their intervals, beside their byte bound.
 
 --moe: the same split for the MoE decode step (K6) at DeepSeekMoE-16B's
 shape (28 layers, h 2048, 16 heads, 64 experts of 1408, top-6, 2 shared
@@ -83,6 +86,13 @@ BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
 VERIFY_TAIL = 5             # --verify: the last token and k = 4 proposals
 
 
+def kernel_name(key):
+    # "void (anonymous namespace)::engine_kernel<8, bf16>(...)" ->
+    # "engine_kernel<8, __nv_bfloat16>"
+    return key.replace("void ", "").replace("(anonymous namespace)::",
+                                            "").split("(")[0]
+
+
 def device_ms(prof):
     """Device time (ms) of every CUDA kernel in a trace, by kernel name."""
     per_kernel = {}
@@ -92,15 +102,38 @@ def device_ms(prof):
         dt = ev.self_device_time_total
         if not dt:
             continue
-        # "void (anonymous namespace)::engine_kernel<8, bf16>(...)" ->
-        # "engine_kernel<8, __nv_bfloat16>"
-        name = ev.key.replace("void ", "").replace(
-            "(anonymous namespace)::", "").split("(")[0]
+        name = kernel_name(ev.key)
         per_kernel[name] = per_kernel.get(name, 0.0) + dt / 1e3
     return per_kernel
 
 
-def traced(fn):
+def span_ms(prof, keep):
+    """The device time (ms) during which at least one kernel whose name
+    `keep` accepts runs: the union of their intervals in the trace. A
+    kernel launched as the programmatic dependent of the one before it
+    starts early and waits, so its interval overlaps that kernel's; the
+    union counts such overlaps once, where a sum of device times counts
+    them twice."""
+    iv = sorted((ev.time_range.start, ev.time_range.end)
+                for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and keep(kernel_name(ev.name)))
+    total, start, end = 0.0, None, None
+    for s, e in iv:
+        if end is None or s > end:
+            if end is not None:
+                total += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    if end is not None:
+        total += end - start
+    return total / 1e3
+
+
+def traced(fn, spans=None):
+    """Wall ms of fn and its device ms by kernel; with `spans` ({name:
+    keep}), also each span_ms."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -109,7 +142,10 @@ def traced(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall * 1e3, device_ms(prof)
+    if spans is None:
+        return wall * 1e3, device_ms(prof)
+    return wall * 1e3, device_ms(prof), {k: span_ms(prof, f)
+                                         for k, f in spans.items()}
 
 
 def generate_split(card):
@@ -342,8 +378,15 @@ def main():
     e1.record()
     torch.cuda.synchronize()
     step_ms = e0.elapsed_time(e1) / a.steps
-    _, per_kernel = traced(lambda: [step() for _ in range(a.steps)])
+    prod_name = "engine_kernel"
+    _, per_kernel, spans = traced(
+        lambda: [step() for _ in range(a.steps)],
+        {"other": lambda k: not k.startswith(prod_name),
+         "attention": lambda k: k.startswith("verify_"),
+         "all": lambda k: True,
+         "not_attention": lambda k: not k.startswith("verify_")})
     per_kernel = {k: v / a.steps for k, v in per_kernel.items()}
+    spans = {k: v / a.steps for k, v in spans.items()}
     wb = lambda *ks: sum(p[k].numel() * p[k].element_size() for k in ks)
     bounds_ms = {"qkv gemm": wb("wqkv") / bw * 1e3,
                  "o-proj gemm": wb("wo") / bw * 1e3,
@@ -361,29 +404,34 @@ def main():
     else:
         bounds_ms.update({"gate/up gemm": wb("wg", "wu") / bw * 1e3,
                           "down gemm": wb("wd") / bw * 1e3})
-    # the products' kernel and the weight bytes it streams per step: K2/K5's
-    # engine (K6: its attention half's qkv and o-proj), K7's mma.sync GEMM
-    prod_name = "tc_gemm_partial_kernel" if a.verify else "engine_kernel"
+    # the products' kernel and the weight bytes it streams per step: the
+    # engine (K6: its attention half's qkv and o-proj; its routed and
+    # shared experts run on tc_gemm_partial_kernel)
     prod_keys = (("wqkv", "wo") if a.moe else ("wqkv", "wo", "wg", "wd")
                  if a.gpt else ("wqkv", "wo", "wg", "wu", "wd"))
-    if a.moe:    # K6's routed and shared experts run on tc_gemm_partial
-        prod_name = "engine_kernel"
     prod_ms = sum(v for k, v in per_kernel.items()
                   if k.startswith(prod_name))
     # An engine launch starts while the kernel before it runs (programmatic
     # dependent launch) and streams weights then, so its device time
     # overlaps that kernel's. Its exclusive share of the step is the step
-    # time less every other kernel's device time (launch gaps included).
-    excl = step_ms - sum(v for k, v in per_kernel.items()
-                         if not k.startswith(prod_name))
+    # time less the time any other kernel runs (launch gaps included; K7's
+    # attention kernels overlap each other the same way, so their union).
+    excl = step_ms - spans["other"]
     nbytes = wb(*prod_keys)
     products = {"kernel": prod_name, "weights": list(prod_keys),
-                "bytes": nbytes, "device_ms": prod_ms,
-                "exclusive_ms": excl if prod_name == "engine_kernel" else
-                prod_ms,
-                "tb_per_s": nbytes / (excl if prod_name == "engine_kernel"
-                                      else prod_ms) / 1e9
-                if prod_ms else None}
+                "bytes": nbytes, "device_ms": prod_ms, "exclusive_ms": excl,
+                "tb_per_s": nbytes / excl / 1e9 if prod_ms else None}
+    attention = None
+    if a.verify:   # K7's appends, split-KV attention and merge
+        attention = {
+            # the time only they run: the step's busy time less the time
+            # any other kernel runs (the appends start early behind the qkv
+            # epilogue, the o-proj's engine behind the merge)
+            "exclusive_ms": spans["all"] - spans["not_attention"],
+            "span_ms": spans["attention"],
+            "device_ms_summed": sum(v for k, v in per_kernel.items()
+                                    if k.startswith("verify_")),
+            "bound_ms": bounds_ms["attention (filled KV)"]}
     print(json.dumps({"card": card, "layers": L, "batch": b, "pos": pos,
                       "kernel": ("K7 (verify), tail %d" % VERIFY_TAIL
                                  if a.verify else
@@ -400,7 +448,7 @@ def main():
                       # kernels overlapped (the engine's early starts)
                       "device_ms_over_step_ms":
                           sum(per_kernel.values()) / step_ms,
-                      "products": products,
+                      "products": products, "attention": attention,
                       "bound_ms_by_part": bounds_ms,
                       "bound_ms": sum(bounds_ms.values())}))
 

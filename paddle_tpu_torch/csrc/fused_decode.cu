@@ -23,8 +23,8 @@
 // at most 64 times, far below the ~295 FLOP/byte ridge, so a step can take
 // no less than (all layer weights + the filled KV prefix) / 3.35 TB/s.
 // Attention reads only the filled prefix, never the unfilled tail. First
-// design: no CUDA graph, no persistent megakernel, no split over the KV
-// length.
+// design: no CUDA graph, no persistent megakernel; K2/K5's one-query
+// attention has no split over the KV length (K7's has, below).
 //
 // The product engine (engine_kernel; K2, K5 and K6's attention half). The
 // weight stream has to keep ~3.35 TB/s in flight, and a register GEMM that
@@ -78,12 +78,23 @@
 // is bytes as well: the layer weights plus each row's own filled KV.
 //
 // A third entry point, fused_paged_verify_llama (K7, speculative decoding's
-// verify step), runs up to 64 tail rows through the stack on tensor-core
-// GEMMs of its own (mma.sync with cp.async); it shares the epilogue,
-// norm-row and cast kernels with K2/K5 (see the K7 section). A fourth,
+// verify step), runs up to 64 tail rows (b rows x K1 tail tokens) through
+// the same stack: the same products on the engine, norm-row and epilogue
+// kernels, over M = b*K1 rows, with an attention of its own, split over
+// the KV length on tensor cores (see the K7 section). A fourth,
 // fused_decode_moe (K6, the MoE step), runs K2's attention half and then
-// the routed and shared experts on K7's tensor-core GEMMs (see the K6
-// section).
+// the routed and shared experts on an mma.sync tensor-core GEMM (see the
+// K6 section).
+//
+// Row caps: one launch of K2, K5 or K7 takes at most 64 rows (the engine's
+// widest wgmma N), K6 at most 8 rows and 64 (row, choice) pairs. A step
+// with more rows is run by the Python wrappers as consecutive launches
+// over groups of rows on one stream (ops/fused_decode.py, row_groups);
+// the rows are independent through the whole stack, so a group computes
+// what the whole batch would, up to the split choices eplan makes by the
+// group's row count. The contiguous cache's entry points take the cache's
+// batch extent `cb` apart from the group's rows b, so a group reads and
+// appends its rows in place (layer stride cb*S*2*nkv*hd).
 //
 // The gpt mode of K2, K5 and K7 (fused_decode_gpt, fused_paged_decode_gpt,
 // fused_paged_verify_gpt; the TPU kernels' arch="gpt" branches): LayerNorm
@@ -196,6 +207,54 @@ int num_sms() {
     if (n <= 0) n = 132;
   }
   return n;
+}
+
+// ---- mma.sync building blocks (K7's attention, K6's experts) ----------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; ok == false writes 16 zero
+// bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // RMSNorm of each row into bf16, one block per row, the plain version's
@@ -533,6 +592,26 @@ EPlan eplan(int rows, int in, int out, int nz) {
   return best;
 }
 
+// Launch k on st as the programmatic dependent of the kernel before it: k
+// may start once every block of that kernel has run
+// griddep_launch_dependents (or exited), and reads what it writes only
+// after griddep_wait.
+template <class... P, class... A>
+cudaError_t launch_dependent(void (*k)(P...), dim3 grid, int threads,
+                             int smem, cudaStream_t st, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, k, args...);
+}
+
 template <int N, class W>
 cudaError_t elaunch(const CUtensorMap& w0, const CUtensorMap& w1,
                     const CUtensorMap& x, const EPlan& p, int layer,
@@ -549,18 +628,9 @@ cudaError_t elaunch(const CUtensorMap& w0, const CUtensorMap& w1,
   }
   // the programmatic dependent of the kernel before (its rows' writer):
   // see the producer
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.units < num_sms() ? p.units : num_sms());
-  cfg.blockDim = dim3(ethreads<W>());
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  at[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, engine_kernel<N, W>, w0, w1, x,
-                                     ws0, ws1, p, layer, rows, out);
+  cudaError_t e = launch_dependent(
+      engine_kernel<N, W>, dim3(p.units < num_sms() ? p.units : num_sms()),
+      ethreads<W>(), smem, st, w0, w1, x, ws0, ws1, p, layer, rows, out);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -968,6 +1038,576 @@ const float* srow(const float* rows, int l, int per) {
   return rows ? rows + (long)l * per : nullptr;
 }
 
+// The attention of one layer over a decode policy (ContigKV, PagedKV,
+// ContigKV8): rope + append + attention of a.b one-token rows, one launch.
+// K7's policy (VerifyKV, below) takes the overload for it.
+template <bool ROPE, class KV>
+cudaError_t layer_attention(const Stack& a, const KV& kv, cudaStream_t st) {
+  return attn_any<ROPE>(a.hd, a.nh / a.nkv, a.qkv, kv, a.attn, a.b, a.nkv,
+                        1.f / sqrtf((float)a.hd), st);
+}
+
+// ---------------------------------------------------------------------------
+// K7's attention: the K1-token tails of speculative decoding's verify step
+// against the paged pool, split over the KV length, on tensor cores.
+//
+// Replaces the attention of paddle_tpu/ops/fused_decode.py::
+// _fused_paged_verify_pallas (pallas_call at :3055). Row bi brings K1 tail
+// tokens at positions pos .. pos+K1-1 (pos = positions[bi]); its K1*rep
+// queries per kv head g (query q is tail token q/rep, head g*rep + q%rep)
+// attend over the row's keys [0, tmax], tmax = min(pos + K1 - 1, MB*BT -
+// 1), query q limited to keys <= min(pos + q/rep, MB*BT - 1), so it sees
+// the tail tokens before it and not those after. Three launches a layer,
+// each the programmatic dependent of the kernel before it:
+//   1. the appends (verify_append_kernel): rope'd k and v of every tail
+//      token, rounded to bf16, through the table (past it: scratch block 0)
+//   2. the attention (verify_attn_kernel): work items of (row, chunk of
+//      VA_CHUNK keys, kv head, 16 queries); each writes its chunk's
+//      unnormalised (m, l, O) per query into the workspace
+//   3. the merge (verify_merge_kernel): per (row, kv head), each query's
+//      chunks combined in chunk order, normalised, written as bf16 attn
+//
+// What bounds it on the H100: bytes, each row's filled KV read once (0.88
+// ms of K7's 4.76 ms bound at Llama-2-7B, b = 8 rows x 5 over ~700 cached
+// tokens). The kernel this replaces walked a row's whole prefix in one
+// block per (kv head, row), one key per warp-iteration on the CUDA cores
+// (an FMA chain, a 5-step shuffle sum and an exp per (key, query)):
+// instruction-bound, 4.60 ms. Here:
+//  * The products run on tensor cores: mma.sync m16n8k16 with the 16
+//    queries as M, in FlashAttention-2's register layout (S = Q Kᵀ from
+//    ldmatrix'd K; P reused from the S accumulator as the A operand of
+//    O += P V, V through ldmatrix.trans). q and P are each split into a
+//    pair of bf16 (hi + lo, about 16 significant bits), so the scores and
+//    the weighted sum keep about the fp32 plain version's precision, at
+//    twice the tensor work (far below the bytes' time: dropping the lo
+//    halves changed little on the card).
+//  * The KV length is split into VA_CHUNK-key chunks, so a row's prefix
+//    spreads over many SMs. The work list comes from the positions on the
+//    device (no host sync): persistent blocks, as many as fit on the SMs,
+//    take items round-robin, every row's full chunks first and the
+//    shorter last chunks after; an item's result depends on its inputs
+//    only, so the bits do not depend on which block takes it, and the
+//    merge sums the chunks in a fixed order with no atomics. 512-key
+//    chunks measured faster than 128, 256, 384 and 1024 (fewer item
+//    starts against enough items to fill the SMs).
+//  * Keys stream through a VA_ST-stage ring of 64-key stages, 16 keys a
+//    warp. With block_tokens a multiple of 8 one thread loads a stage by
+//    TMA, in boxes of gcd(BT, 64) key rows (a box never crosses a pool
+//    block, each box's block id from the table) onto the stage's mbarrier,
+//    128-byte swizzled. 16-byte cp.async pieces from every thread, the
+//    fallback for other block sizes, held the kernel far below the bytes'
+//    rate even with no compute (the SM's outstanding small requests cap
+//    the bytes in flight).
+//  * Online softmax in fp32 in the log2 domain (q pre-scaled by scale *
+//    log2 e, ex2.approx as K1); the causal limits are applied on the edge
+//    tiles only; the four warps' (m, l, O) meet through shared memory in
+//    warp order.
+// ---------------------------------------------------------------------------
+
+constexpr int VA_T = 128;        // threads of an attention block (4 warps)
+constexpr int VA_KT = 64;        // keys a ring stage (16 a warp)
+constexpr int VA_ST = 3;         // ring stages
+constexpr int VA_CHUNK = 512;    // keys a work item (a multiple of VA_KT)
+constexpr int VA_MAXB = 64;      // rows of one launch (tail rows <= 64)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One layer's slab of the pool, as K7 addresses it: row bi's tail token j
+// appends at position positions[bi] + j, its key t is read from
+// pool[tables[bi, t/BT], t%BT]; (b, K1, HD) rope rows; the attention's
+// chunk partials.
+struct VerifyKV {
+  CUtensorMap map;        // the whole pool (L*NB*BT rows, dkv2 columns) in
+                          // boxes of `box` rows by 64 columns (box > 0)
+  bf16* kv;
+  const int* tables;      // (b, MB)
+  const int* positions;   // (b,)
+  const float* cos;       // (b, K1, HD); null in the gpt mode
+  const float* sin;
+  float* part;            // (b, nkv, nch, K1*rep) x O[HD], then x (m, l)
+  int b, K1, MB, BT, dkv2, nch;
+  int box;                // gcd(BT, 64) when BT % 8 == 0 (TMA), else 0
+  int lrow0;              // the layer's first row in the pool
+  // an append past the table (block index >= MB) goes to scratch block 0;
+  // the table is never read at MB or beyond
+  __device__ bf16* append_row(int bi, int t) const {
+    const int cb = t / BT;
+    const int bid = cb < MB ? tables[(long)bi * MB + cb] : 0;
+    return kv + ((long)bid * BT + t % BT) * dkv2;
+  }
+  // the last key row bi reads: its last tail token's, capped at the table
+  __device__ int last_key(int bi) const {
+    return min(positions[bi] + K1 - 1, MB * BT - 1);
+  }
+  // the pool row of key t of a row whose table row is tab
+  __device__ long key_row(const int* tab, int t) const {
+    return (long)__ldg(tab + t / BT) * BT + t % BT;
+  }
+};
+
+// The K1 appends of row bi, kv head g: rope k with each token's own rope
+// row (ROPE; the gpt mode takes k as it is), round k and v to bf16, write
+// them through the table. Several idle rows (tables all scratch) may write
+// one scratch address: only their thrown-away outputs can read it, as in
+// K5. Launched behind the qkv epilogue (it reads qkv after griddep_wait).
+template <int HD, bool ROPE>
+__global__ void verify_append_kernel(const float* __restrict__ qkv,
+                                     const VerifyKV kv, int nkv, int rep) {
+  sm90::griddep_launch_dependents();   // the attention may launch
+  sm90::griddep_wait();
+  const int g = blockIdx.x, bi = blockIdx.y, K1 = kv.K1;
+  const int dkv = nkv * HD, dq = dkv * rep, dqkv = dq + 2 * dkv;
+  const int pos = kv.positions[bi];
+  for (int i = threadIdx.x; i < K1 * HD; i += blockDim.x) {
+    const int j = i / HD, d = i % HD, m = bi * K1 + j;
+    const float* kh = qkv + (long)m * dqkv + dq + g * HD;
+    bf16* dst = kv.append_row(bi, pos + j) + g * HD + d;
+    if (ROPE) {
+      const float* cr = kv.cos + (long)m * HD;
+      const float* sr = kv.sin + (long)m * HD;
+      const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
+      dst[0] = __float2bfloat16(kh[d] * cr[d] + rot * sr[d]);
+    } else {
+      dst[0] = __float2bfloat16(kh[d]);
+    }
+    dst[dkv] = __float2bfloat16(kh[dkv + d]);
+  }
+}
+
+// two floats -> a hi bf16x2 and the lo bf16x2 of what hi leaves
+__device__ __forceinline__ void split2(float x, float y, unsigned& hi,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = sm90::pack_f2(x - hf.x, y - hf.y);
+}
+
+// Dynamic shared memory of one attention block at head_dim hd: the K and
+// V ring (1024-byte aligned), the queries' bf16 pair, the rows' first work
+// items (two lists), the ring's barriers.
+constexpr int va_smem(int hd) {
+  return 1024 + 2 * VA_ST * VA_KT * hd * 2 + 2 * 16 * hd * 2 +
+         2 * (VA_MAXB + 8) * 4 + VA_ST * 8;
+}
+
+// Element row r, 16-byte chunk ch of an R-row, HD-wide bf16 tile (a
+// stage's K or V, R = VA_KT; the queries, R = 16): HD/64 sub-tiles of 64
+// columns (a TMA box's 128-byte rows), one after the other, 16-byte chunks
+// XOR-swizzled by r % 8 as TMA's 128-byte swizzle leaves them (the 8 rows
+// one ldmatrix reads fall in distinct banks).
+template <int R>
+__device__ __forceinline__ bf16* va_at(bf16* tile, int r, int ch) {
+  return tile + (ch >> 3) * (R * 64) + r * 64 + (((ch & 7) ^ (r & 7)) << 3);
+}
+
+// The attention of the work items (see the section's note). Items come in
+// two lists: first every row's chunks but its last (each VA_CHUNK keys),
+// then every row's last chunk (at most VA_CHUNK keys), so the blocks start
+// on the full chunks and the short ones fill the tail.
+template <int HD, bool ROPE>
+__global__ void __launch_bounds__(VA_T)
+verify_attn_kernel(const float* __restrict__ qkv,
+                   const __grid_constant__ VerifyKV kv, int nkv, int rep,
+                   float qscale) {
+  constexpr int CPR = HD / 8;   // 16-byte chunks of a key row
+  constexpr int KS = HD / 16;   // k16 steps over the head
+  constexpr int TILE = VA_KT * HD;   // elements of a stage's K (or V)
+  extern __shared__ uint8_t vsm_raw[];
+  uint8_t* vsm = sm90::align1024(vsm_raw);
+  bf16* kst = reinterpret_cast<bf16*>(vsm);        // [VA_ST][K, V][TILE]
+  bf16* qhi = kst + VA_ST * 2 * TILE;              // [16][HD]
+  bf16* qlo = qhi + 16 * HD;                       // [16][HD]
+  int* full = reinterpret_cast<int*>(qlo + 16 * HD);   // [b + 1]
+  int* last = full + VA_MAXB + 8;                       // [b + 1]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(last + VA_MAXB + 8);
+  const bool tma = kv.box > 0;
+  // after an item's walk the ring holds the four warps' (O, m, l)
+  float* ro = reinterpret_cast<float*>(vsm);       // [4][16][HD]
+  float* rm = ro + 4 * 16 * HD;                    // [4][16]
+  float* rl = rm + 4 * 16;                         // [4][16]
+  sm90::griddep_launch_dependents();   // the merge may launch
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lr = lane >> 2, lc = lane & 3;
+  const int dkv = nkv * HD, dq = dkv * rep, dqkv = dq + 2 * dkv;
+  const int NQ = kv.K1 * rep, QG = (NQ + 15) / 16, per = nkv * QG;
+  const int tcap = kv.MB * kv.BT - 1;
+  const long otot = (long)kv.b * nkv * kv.nch * NQ * HD;
+  // row bi's full-chunk items start at full[bi], its last chunk's at
+  // last[bi] (after all the full ones); the positions are uploaded before
+  // the step, so this overlaps the appends' tail
+  if (tid < kv.b) {
+    full[tid + 1] = (kv.last_key(tid) / VA_CHUNK) * per;
+    last[tid + 1] = per;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    full[0] = 0;
+    for (int i = 1; i <= kv.b; ++i) full[i] += full[i - 1];
+    last[0] = full[kv.b];
+    for (int i = 1; i <= kv.b; ++i) last[i] += last[i - 1];
+    for (int st = 0; st < VA_ST; ++st) sm90::mbar_init(&bars[st], 1);
+    sm90::mbar_init_fence();
+    if (tma) sm90::tma_prefetch_map(&kv.map);
+  }
+  __syncthreads();
+  const int items = last[kv.b];
+  // ring stages issued and consumed so far over the block's items: stage
+  // n sits in slot n % VA_ST (TMA: its barrier's phase n / VA_ST)
+  int issued = 0, used = 0;
+  // qkv (its epilogue) and the tail keys (the appends) are complete: the
+  // appends waited for the epilogue, this waits for the appends
+  sm90::griddep_wait();
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const bool is_last = it >= full[kv.b];
+    const int* first = is_last ? last : full;
+    int bi = 0;
+    while (first[bi + 1] <= it) ++bi;
+    const int r0 = it - first[bi];
+    const int z = r0 % QG, g = (r0 / QG) % nkv;
+    const int pos = kv.positions[bi], tmax = kv.last_key(bi);
+    const int c = is_last ? tmax / VA_CHUNK : r0 / per;
+    const int k0 = c * VA_CHUNK, k1 = min(k0 + VA_CHUNK, tmax + 1);
+    const int nst = (k1 - k0 + VA_KT - 1) / VA_KT;
+    const int q0 = z * 16, nq = min(16, NQ - q0);
+    const int lmin = min(pos + q0 / rep, tcap);   // the block's least limit
+    const int* tab = kv.tables + (long)bi * kv.MB;
+
+    // stage s of the item: keys k0 + 64 s ..., K and V of head g, into
+    // slot `issued % VA_ST`. TMA (BT % 8 == 0): one thread loads boxes of
+    // kv.box rows (a box never crosses a pool block), 64 columns each,
+    // onto the slot's barrier; a box wholly past k1 loads k1 - 1's box
+    // again (finite, and masked). Else every thread copies 16-byte pieces
+    // by cp.async, keys past k1 as zeros.
+    auto load = [&](int s) {
+      const int slot = issued % VA_ST;
+      ++issued;
+      bf16* ks = kst + slot * 2 * TILE;
+      bf16* vs = ks + TILE;
+      if (tma) {
+        if (tid != 0) return;
+        sm90::mbar_arrive_tx(&bars[slot], 2 * TILE * 2);
+        for (int r = 0; r < VA_KT; r += kv.box) {
+          const int t = k0 + s * VA_KT + r;
+          const int tb = t < k1 ? t : (k1 - 1) / kv.box * kv.box;
+          const int row = kv.lrow0 + (int)kv.key_row(tab, tb);
+#pragma unroll
+          for (int hh = 0; hh < HD / 64; ++hh) {
+            sm90::tma_load_2d(ks + hh * VA_KT * 64 + r * 64, &kv.map,
+                              &bars[slot], g * HD + hh * 64, row);
+            sm90::tma_load_2d(vs + hh * VA_KT * 64 + r * 64, &kv.map,
+                              &bars[slot], dkv + g * HD + hh * 64, row);
+          }
+        }
+        return;
+      }
+#pragma unroll
+      for (int i = tid; i < VA_KT * CPR; i += VA_T) {
+        const int r = i / CPR, ch = i % CPR, t = k0 + s * VA_KT + r;
+        const bool ok = t < k1;
+        const bf16* src = kv.kv;
+        if (ok) src += kv.key_row(tab, t) * kv.dkv2 + g * HD + ch * 8;
+        cp_async16(va_at<VA_KT>(ks, r, ch), src, ok);
+        cp_async16(va_at<VA_KT>(vs, r, ch), ok ? src + dkv : src, ok);
+      }
+      cp_async_commit();
+    };
+    // every thread is done with the previous item's ro, and its generic
+    // writes there are ordered before the loads that refill the ring
+    sm90::fence_proxy_async();
+    __syncthreads();
+    for (int s = 0; s < VA_ST - 1; ++s) {
+      if (s < nst) load(s);
+      else if (!tma) cp_async_commit();
+    }
+    // the queries: rope'd, scaled into the log2 domain, split into a bf16
+    // pair (rows past nq are zeros, never written out). A thread takes one
+    // head dim of RPT rows and issues all their loads before it uses any.
+    {
+      constexpr int RPT = 16 * HD / VA_T;
+      const int d = tid % HD, r0 = tid / HD;
+      float qv[RPT], rv[RPT], cv[RPT], sv[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int qi = r0 + (VA_T / HD) * j, q = q0 + qi;
+        qv[j] = rv[j] = cv[j] = sv[j] = 0.f;
+        if (qi < nq) {
+          const int m = bi * kv.K1 + q / rep;
+          const float* qh = qkv + (long)m * dqkv + (g * rep + q % rep) * HD;
+          qv[j] = qh[d];
+          if (ROPE) {
+            rv[j] = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
+            cv[j] = kv.cos[(long)m * HD + d];
+            sv[j] = kv.sin[(long)m * HD + d];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int qi = r0 + (VA_T / HD) * j;
+        const float v = (ROPE ? qv[j] * cv[j] + rv[j] * sv[j] : qv[j]) *
+                        qscale;
+        const bf16 hi = __float2bfloat16(v);
+        va_at<16>(qhi, qi, d >> 3)[d & 7] = hi;
+        va_at<16>(qlo, qi, d >> 3)[d & 7] =
+            __float2bfloat16(v - __bfloat162float(hi));
+      }
+    }
+    __syncthreads();   // the queries are staged
+    unsigned qa[KS][4], qb[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int r = (lane & 7) + 8 * ((lane >> 3) & 1);
+      const int ch = 2 * kk + (lane >> 4);
+      ldsm_x4(qa[kk], va_at<16>(qhi, r, ch));
+      ldsm_x4(qb[kk], va_at<16>(qlo, r, ch));
+    }
+    // this thread's two query rows (lr, lr + 8) and their key limits
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = lr + 8 * i;
+      lim[i] = qi < nq ? min(pos + (q0 + qi) / rep, tcap) : 0x7fffffff;
+    }
+    float o[HD / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+    for (int s = 0; s < nst; ++s) {
+      const int slot = used % VA_ST;
+      if (tma)                      // stage s has landed
+        sm90::mbar_wait(&bars[slot], (used / VA_ST) & 1);
+      else
+        cp_async_wait<VA_ST - 2>();
+      ++used;
+      __syncthreads();              // ... for every thread; s-1 is consumed
+      if (s + VA_ST - 1 < nst) load(s + VA_ST - 1);
+      else if (!tma) cp_async_commit();
+      const int t0 = k0 + s * VA_KT + 16 * warp;   // this warp's first key
+      if (t0 > tmax) continue;
+      bf16* ks = kst + slot * 2 * TILE;
+      bf16* vs = ks + TILE;
+      // S (16 queries x 16 keys) = (q_hi + q_lo) K^T, hi and lo into
+      // separate accumulators (two short dependency chains, not one long)
+      float sh[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float sl[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned kb[4];
+        ldsm_x4(kb, va_at<VA_KT>(ks,
+                                 16 * warp + (lane & 7) + 8 * (lane >> 4),
+                                 2 * kk + ((lane >> 3) & 1)));
+        mma16816(sh[0], qa[kk], kb[0], kb[1]);
+        mma16816(sh[1], qa[kk], kb[2], kb[3]);
+        mma16816(sl[0], qb[kk], kb[0], kb[1]);
+        mma16816(sl[1], qb[kk], kb[2], kb[3]);
+      }
+      float sc[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = sh[j][e] + sl[j][e];
+      // sc[j][e]: query lr + 8 (e / 2), key t0 + 8 j + 2 lc + e % 2
+      if (t0 + 15 > lmin) {         // an edge tile: the causal limits
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (t0 + 8 * j + 2 * lc + (e & 1) > lim[e >> 1])
+              sc[j][e] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(fmaxf(sc[0][2 * i], sc[0][2 * i + 1]),
+                         fmaxf(sc[1][2 * i], sc[1][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+        const float mn = fmaxf(m[i], mx);
+        const float al = sm90::ex2(m[i] - mn);
+        m[i] = mn;
+        l[i] *= al;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][2 * i] *= al;
+          o[n][2 * i + 1] *= al;
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          sc[j][2 * i] = sm90::ex2(sc[j][2 * i] - mn);
+          sc[j][2 * i + 1] = sm90::ex2(sc[j][2 * i + 1] - mn);
+          l[i] += sc[j][2 * i] + sc[j][2 * i + 1];
+        }
+      }
+      // P as the A operand (keys 0..15 of the warp's tile), hi and lo
+      unsigned pa[4], pb[4];
+      split2(sc[0][0], sc[0][1], pa[0], pb[0]);
+      split2(sc[0][2], sc[0][3], pa[1], pb[1]);
+      split2(sc[1][0], sc[1][1], pa[2], pb[2]);
+      split2(sc[1][2], sc[1][3], pa[3], pb[3]);
+#pragma unroll
+      for (int n2 = 0; n2 < HD / 16; ++n2) {
+        unsigned vb[4];
+        ldsm_x4_trans(vb, va_at<VA_KT>(vs,
+                                       16 * warp + (lane & 7) +
+                                           8 * ((lane >> 3) & 1),
+                                       2 * n2 + (lane >> 4)));
+        mma16816(o[2 * n2], pa, vb[0], vb[1]);
+        mma16816(o[2 * n2 + 1], pa, vb[2], vb[3]);
+        mma16816(o[2 * n2], pb, vb[0], vb[1]);
+        mma16816(o[2 * n2 + 1], pb, vb[2], vb[3]);
+      }
+    }
+    if (!tma) cp_async_wait<0>();
+    __syncthreads();   // every warp is done with the ring: it becomes ro
+    // o[n][e]: query lr + 8 (e / 2), head dim 8 n + 2 lc + e % 2
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffff, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
+      const int row = warp * 16 + lr + 8 * i;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(ro + row * HD + 8 * n + 2 * lc) =
+            make_float2(o[n][2 * i], o[n][2 * i + 1]);
+      if (lc == 0) {
+        rm[row] = m[i];
+        rl[row] = l[i];
+      }
+    }
+    __syncthreads();
+    // the item's partial: the four warps merged in warp order
+    const long pq = ((long)(bi * nkv + g) * kv.nch + c) * NQ + q0;
+    for (int i = tid; i < nq * HD; i += VA_T) {
+      const int qi = i / HD, d = i % HD;
+      float M = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) M = fmaxf(M, rm[w * 16 + qi]);
+      float A = 0.f, Ls = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float e = sm90::ex2(rm[w * 16 + qi] - M);
+        A += ro[(w * 16 + qi) * HD + d] * e;
+        Ls += rl[w * 16 + qi] * e;
+      }
+      kv.part[(pq + qi) * HD + d] = A;
+      if (d == 0) {
+        kv.part[otot + (pq + qi) * 2] = M;
+        kv.part[otot + (pq + qi) * 2 + 1] = Ls;
+      }
+    }
+    // (the next item's barrier frees the ring for its loads)
+  }
+}
+
+// Per (kv head g, row bi): each of the row's K1*rep queries (one warp a
+// query) combines its chunks' partials in chunk order and writes attn
+// (M, dq) in bf16. Launched behind the attention (its partials are read
+// after griddep_wait).
+template <int HD>
+__global__ void __launch_bounds__(128)
+verify_merge_kernel(const VerifyKV kv, bf16* __restrict__ attn, int nkv,
+                    int rep) {
+  sm90::griddep_launch_dependents();   // the o-proj's weights may load
+  sm90::griddep_wait();
+  const int g = blockIdx.x, bi = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int NQ = kv.K1 * rep, dq = nkv * rep * HD;
+  const int nc = kv.last_key(bi) / VA_CHUNK + 1;        // chunks
+  const float* ml = kv.part + (long)kv.b * nkv * kv.nch * NQ * HD;
+  const long p0 = (long)(bi * nkv + g) * kv.nch * NQ;   // chunk 0, query 0
+  for (int q = warp; q < NQ; q += 4) {
+    // lane i holds chunks i, i + 32, ...: the max and the weighted l sum
+    // over lanes (a fixed xor tree), then each chunk's weight is
+    // broadcast from its lane while every lane sums HD/32 of O
+    float M = NEG_INF;
+    for (int c = lane; c < nc; c += 32)
+      M = fmaxf(M, ml[(p0 + (long)c * NQ + q) * 2]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffff, M, o));
+    float A[HD / 32], Ls = 0.f;
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) A[j] = 0.f;
+    for (int c0 = 0; c0 < nc; c0 += 32) {
+      float e = 0.f;
+      if (c0 + lane < nc) {
+        const long pi = p0 + (long)(c0 + lane) * NQ + q;
+        e = sm90::ex2(ml[pi * 2] - M);
+        Ls += ml[pi * 2 + 1] * e;
+      }
+      const int n = min(32, nc - c0);
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float w = __shfl_sync(0xffffffff, e, i);
+        const float* op = kv.part + (p0 + (long)(c0 + i) * NQ + q) * HD;
+#pragma unroll
+        for (int j = 0; j < HD / 32; ++j) A[j] += op[lane + 32 * j] * w;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      Ls += __shfl_xor_sync(0xffffffff, Ls, o);
+    bf16* out = attn + (long)(bi * kv.K1 + q / rep) * dq +
+                (g * rep + q % rep) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j)
+      out[lane + 32 * j] = __float2bfloat16(A[j] / Ls);
+  }
+}
+
+// Floats of the attention's chunk partials: (O, m, l) per (row, kv head,
+// chunk, query), chunks of the table's span S = MB*BT.
+long verify_part_floats(int b, int K1, int nkv, int rep, int hd, int S) {
+  const long nch = (S + VA_CHUNK - 1) / VA_CHUNK;
+  return (long)b * nkv * nch * K1 * rep * (hd + 2);
+}
+
+// The appends, the attention, the merge: each the programmatic dependent
+// of the kernel before it (qkv's epilogue, the appends, the attention).
+template <int HD, bool ROPE>
+cudaError_t verify_attention(const Stack& a, const VerifyKV& kv,
+                             cudaStream_t st) {
+  const int rep = a.nh / a.nkv;
+  if (kv.b < 1 || kv.b > VA_MAXB) return cudaErrorInvalidValue;
+  cudaError_t e = launch_dependent(verify_append_kernel<HD, ROPE>,
+                                   dim3(a.nkv, kv.b), 128, 0, st, a.qkv, kv,
+                                   a.nkv, rep);
+  if (e != cudaSuccess) return e;
+  const int smem = va_smem(HD);
+  static int per_sm = 0;   // blocks an SM holds; the opt-in above 48 KB, once
+  if (per_sm == 0) {
+    e = cudaFuncSetAttribute(verify_attn_kernel<HD, ROPE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, verify_attn_kernel<HD, ROPE>, VA_T, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const long items = (long)kv.b * kv.nch * a.nkv * ((kv.K1 * rep + 15) / 16);
+  const long cap = (long)num_sms() * per_sm;
+  e = launch_dependent(verify_attn_kernel<HD, ROPE>,
+                       dim3((int)(items < cap ? items : cap)), VA_T, smem,
+                       st, (const float*)a.qkv, kv, a.nkv, rep,
+                       LOG2E / sqrtf((float)HD));
+  if (e != cudaSuccess) return e;
+  e = launch_dependent(verify_merge_kernel<HD>, dim3(a.nkv, kv.b), 128, 0,
+                       st, kv, a.attn, a.nkv, rep);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// K7's attention of one layer (the appends, the chunks, the merge) at
+// head_dim 64 or 128.
+template <bool ROPE>
+cudaError_t layer_attention(const Stack& a, const VerifyKV& kv,
+                            cudaStream_t st) {
+  return a.hd == 128 ? verify_attention<128, ROPE>(a, kv, st)
+         : a.hd == 64 ? verify_attention<64, ROPE>(a, kv, st)
+                      : cudaErrorInvalidValue;
+}
+
 // The attention half of layer l (K2's, K5's and K6's): RMSNorm rows into
 // a.xn, the qkv product, rope + append + attention over kv, o-proj with the
 // residual epilogue into a.xf — 6 launches on `st`.
@@ -977,15 +1617,13 @@ cudaError_t attention_half(const Stack& a, const EMaps& m, int l,
                            cudaStream_t st) {
   const int b = a.b, h = a.h, hd = a.hd;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
-  const int rep = a.nh / a.nkv;
-  const float scale = 1.f / sqrtf((float)hd);
   rms_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h, a.xn, h,
                                     a.eps);
   cudaError_t e = gemm<MODE_QKV, W>(m.wqkv, m.wqkv, m.xn, l, a.qkv, nullptr,
                                     ws0, ws1, b, h, dqkv, st,
                                     srow(a.sqkv, l, dqkv));
   if (e != cudaSuccess) return e;
-  e = attn_any<true>(hd, rep, a.qkv, kv, a.attn, b, a.nkv, scale, st);
+  e = layer_attention<true>(a, kv, st);
   if (e != cudaSuccess) return e;
   return gemm<MODE_RESID, W>(m.wo, m.wo, m.attn, l, a.xf, nullptr, ws0, ws1,
                              b, dq, h, st, srow(a.so, l, h));
@@ -1105,7 +1743,6 @@ cudaError_t gpt_layer(const Stack& a, const EMaps& m, int l, const KV& kv,
                       cudaStream_t st) {
   const int b = a.b, h = a.h, hd = a.hd, ffn = a.ffn;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
-  const float scale = 1.f / sqrtf((float)hd);
   float* ws = a.ws;
   layernorm_rows_kernel<<<b, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h,
                                           a.ln1_b + (long)l * h, a.xn, h,
@@ -1114,8 +1751,7 @@ cudaError_t gpt_layer(const Stack& a, const EMaps& m, int l, const KV& kv,
                                         a.bqkv + (long)l * dqkv, a.qkv,
                                         nullptr, ws, b, h, dqkv, st);
   if (e != cudaSuccess) return e;
-  e = attn_any<false>(hd, a.nh / a.nkv, a.qkv, kv, a.attn, b, a.nkv, scale,
-                      st);
+  e = layer_attention<false>(a, kv, st);
   if (e != cudaSuccess) return e;
   e = gemm_bias<MODE_ORES_B>(m.wo, m.attn, l, a.bo + (long)l * h, a.xf,
                              nullptr, ws, b, dq, h, st);
@@ -1179,85 +1815,17 @@ cudaError_t decode_stack(const Stack& a_in, LayerKV layer_kv,
 }
 
 // ---------------------------------------------------------------------------
-// K7 — the paged verify step (speculative decoding's scoring pass).
-//
-// Replaces paddle_tpu/ops/fused_decode.py::_fused_paged_verify_pallas
-// (pallas_call at :3055), llama arch, bf16 weights, bf16 pool. Each of b
-// rows brings a tail of K1 tokens (its last sampled token and k proposals)
-// at positions pos .. pos+K1-1; all M = b*K1 tail rows (row m = bi*K1 + j,
-// the (b, K1, h) layout of x) go through the stack together. Per layer:
-//   1. RMSNorm of the M rows into bf16, then the qkv product
-//   2. rope of q and k at pos+j; the K1 appends of every row through its
-//      block table (a block index >= MB goes to scratch block 0), then
-//      attention over the filled prefix with query j limited to pos+j
-//   3. o-proj with the residual epilogue
-//   4. RMSNorm, gate and up, SwiGLU epilogue
-//   5. down with the residual epilogue
-// 1 + 13 launches per layer. Casts as in K5: bf16 activations into each
-// product, fp32 accumulators and residual, k/v rounded to bf16 at the
-// append.
-//
-// What bounds it on the H100: bytes, as K5 — every layer weight once per
-// step plus each row's filled KV — while the products do K1 times K5's
-// work. K7's products run on tensor cores of their own (K2/K5's product
-// engine came later; whether K7 moves onto it is open, ROADMAP Queue B):
-// mma.sync m16n8k16 bf16 -> fp32 over rows padded to 16, one block per
-// (64 output columns, contraction split), the weight tile and the rows
-// streamed through shared memory by cp.async in 16-byte pieces, four
-// stages deep, so each weight byte is read once per step for all M rows.
-// Split-K partials are summed in a fixed order by K5's epilogue kernels.
-// First design: mma.sync, not wgmma/TMA; no persistent kernel.
+// K6's tensor-core GEMM (its routed and shared experts): mma.sync m16n8k16
+// bf16 -> fp32 over rows padded to 16, one block per (64 output columns,
+// contraction split, operand set z), the weight tile and the rows streamed
+// through shared memory by cp.async in 16-byte pieces, four stages deep.
+// Split-K partials are summed in a fixed order by the epilogue kernels.
 // ---------------------------------------------------------------------------
 
-constexpr int VT = 256;      // threads per verify GEMM block (8 warps)
+constexpr int VT = 256;      // threads per GEMM block (8 warps)
 constexpr int VN = 64;       // output columns per block
 constexpr int VK = 64;       // contraction rows per pipeline stage
 constexpr int VSTAGES = 4;   // shared-memory stages (three loads ahead)
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy global -> shared; ok == false writes 16 zero
-// bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Element (r, c) of a 64-wide bf16 tile in shared memory whose 16-byte
 // chunks are XOR-swizzled by the row: the 8 rows one ldmatrix reads (rows
@@ -1272,9 +1840,9 @@ __device__ __forceinline__ int swz(int r, int c) {
 // prepare() runs first in every block, with every thread, over a small
 // shared array; a block whose prepare() returns false exits.
 //
-// DenseOps, K7's products: one activation matrix A (M, in), the weight w0
-// and the partial sums o0 (ks, M, out); z = 1 takes w1 and o1 (two weights
-// against the same rows in one launch).
+// DenseOps, K6's shared experts: one activation matrix A (M, in), the
+// weight w0 and the partial sums o0 (ks, M, out); z = 1 takes w1 and o1
+// (two weights against the same rows in one launch).
 struct DenseOps {
   static constexpr int CTX = 1;
   const bf16* A;
@@ -1461,416 +2029,82 @@ cudaError_t tc_launch(const Ops& ops, int in, int out, const VSplit& s,
   return cudaGetLastError();
 }
 
-template <int MT>
-cudaError_t tc_partial(const bf16* A, const bf16* W, float* ws, int M, int in,
-                       int out, cudaStream_t st) {
-  return tc_launch<MT>(DenseOps{A, W, W, ws, ws, M, in}, in, out,
-                       vsplit(in, out), 1, st);
-}
+// ---------------------------------------------------------------------------
+// K7 — the paged verify step (speculative decoding's scoring pass).
+//
+// Replaces paddle_tpu/ops/fused_decode.py::_fused_paged_verify_pallas
+// (pallas_call at :3055), llama and gpt archs, bf16 weights, bf16 pool.
+// Each of b rows brings a tail of K1 tokens (its last sampled token and k
+// proposals) at positions pos .. pos+K1-1; all M = b*K1 tail rows (row m =
+// bi*K1 + j, the (b, K1, h) layout of x) go through decode_stack together,
+// as M one-token rows of K2/K5: the same norm rows, products on the engine
+// (N = M rounded up to 8 ... 64) and epilogues, with K7's attention in
+// place of K5's (layer_attention over a VerifyKV, the K7 attention section
+// above: the K1 appends of every row through its block table — a block
+// index >= MB goes to scratch block 0 — then the split-KV tensor-core
+// attention with query j limited to pos+j, then the merge). 1 + 13L
+// launches, both modes. Casts as in K5: bf16 activations into each
+// product, fp32 accumulators and residual, k/v rounded to bf16 at the
+// append.
+//
+// What bounds it on the H100: bytes, as K5 — every layer weight once per
+// step plus each row's filled KV — while the products do K1 times K5's
+// work, still far below the card's bf16 rate.
+// ---------------------------------------------------------------------------
 
-cudaError_t tc_partial_rows(const bf16* A, const bf16* W, float* ws, int M,
-                            int in, int out, cudaStream_t st) {
-  switch ((M + 15) / 16) {
-    case 1: return tc_partial<1>(A, W, ws, M, in, out, st);
-    case 2: return tc_partial<2>(A, W, ws, M, in, out, st);
-    case 3: return tc_partial<3>(A, W, ws, M, in, out, st);
-    case 4: return tc_partial<4>(A, W, ws, M, in, out, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// One verify product: partials (two weights for SwiGLU) -> K5's epilogue.
-template <int MODE>
-cudaError_t vgemm(const bf16* A, const bf16* w0, const bf16* w1, float* ws0,
-                  float* ws1, float* yf, bf16* yb, int M, int in, int out,
-                  cudaStream_t st) {
-  cudaError_t e = tc_partial_rows(A, w0, ws0, M, in, out, st);
-  if (e == cudaSuccess && MODE == MODE_SWIGLU)
-    e = tc_partial_rows(A, w1, ws1, M, in, out, st);
-  if (e != cudaSuccess) return e;
-  const int n = M * out;
-  gemm_epilogue_kernel<MODE><<<(n + 255) / 256, 256, 0, st>>>(
-      ws0, ws1, vsplit(in, out).ks, n, yf, yb);
-  return cudaGetLastError();
-}
-
-// One layer's slab of the pool, as the verify kernels address it: row bi's
-// tail token j appends at position positions[bi] + j, its key t is read
-// from pool[tables[bi, t/BT], t%BT] (the attention kernel stages the
-// table row in shared memory); (b, K1, HD) rope rows.
-struct VerifyKV {
-  bf16* kv;
-  const int* tables;      // (b, MB)
-  const int* positions;   // (b,)
-  const float* cos;       // (b, K1, HD)
-  const float* sin;
-  int MB, BT, dkv2;
-  // an append past the table (block index >= MB) goes to scratch block 0;
-  // the table is never read at MB or beyond
-  __device__ bf16* append_row(int bi, int t) const {
-    const int cb = t / BT;
-    const int bid = cb < MB ? tables[(long)bi * MB + cb] : 0;
-    return kv + ((long)bid * BT + t % BT) * dkv2;
-  }
-};
-
-// The K1 appends of row bi, kv head g: rope k with each token's own rope
-// row (ROPE; the gpt mode takes k as it is), round k and v to bf16, write
-// them through the table. Several idle rows (tables all scratch) may write
-// one scratch address: only their thrown-away outputs can read it, as in
-// K5.
-template <int HD, bool ROPE>
-__global__ void verify_append_kernel(const float* __restrict__ qkv,
-                                     const VerifyKV kv, int K1, int nkv,
-                                     int rep) {
-  const int g = blockIdx.x, bi = blockIdx.y;
-  const int dkv = nkv * HD, dq = dkv * rep, dqkv = dq + 2 * dkv;
-  const int pos = kv.positions[bi];
-  for (int i = threadIdx.x; i < K1 * HD; i += blockDim.x) {
-    const int j = i / HD, d = i % HD, m = bi * K1 + j;
-    const float* kh = qkv + (long)m * dqkv + dq + g * HD;
-    bf16* dst = kv.append_row(bi, pos + j) + g * HD + d;
-    if (ROPE) {
-      const float* cr = kv.cos + (long)m * HD;
-      const float* sr = kv.sin + (long)m * HD;
-      const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
-      dst[0] = __float2bfloat16(kh[d] * cr[d] + rot * sr[d]);
-    } else {
-      dst[0] = __float2bfloat16(kh[d]);
-    }
-    dst[dkv] = __float2bfloat16(kh[dkv + d]);
-  }
-}
-
-// Attention of up to QG tail queries of row bi, kv head g (query q of the
-// row's K1*rep is token q/rep, head g*rep + q%rep; blockIdx.z picks the
-// group): one walk over the keys [0, min(pos + jmax, MB*BT - 1)] serves
-// them all, query j counting only keys t <= pos + j, so it sees the tail
-// tokens before it and not those after. VNW warps stride the keys, U keys
-// in flight per warp, with an online softmax per query, and merge through
-// shared memory, as K5's kernel. A key is one dependent load: the row's
-// table sits in shared memory. The U keys' shuffle sums for all queries
-// are independent and interleave; each query then rescales once per U
-// keys and takes one fast exp (__expf, as K1) per key. ROPE = false (the
-// gpt mode) takes q as it is.
-constexpr int VNW = 16;
-
-template <int HD, int QG, bool ROPE>
-__global__ void __launch_bounds__(VNW * 32)
-verify_attn_kernel(const float* __restrict__ qkv, const VerifyKV kv,
-                   bf16* __restrict__ attn, int K1, int nkv, int rep,
-                   float scale) {
-  constexpr int DPL = HD / 32;          // head dims per lane
-  constexpr int U = QG <= 6 ? 4 : 2;    // keys in flight per warp
-  const int g = blockIdx.x, bi = blockIdx.y, q0 = blockIdx.z * QG;
-  const int dkv = nkv * HD, dq = dkv * rep, dqkv = dq + 2 * dkv;
-  const int nq = min(QG, K1 * rep - q0);
-  extern __shared__ float vsa[];
-  float* qs = vsa;                     // [QG][HD]
-  float* wm = qs + QG * HD;            // [VNW][QG]
-  float* wl = wm + VNW * QG;           // [VNW][QG]
-  float* wacc = wl + VNW * QG;         // [VNW][QG][HD]
-  int* tab = reinterpret_cast<int*>(wacc + VNW * QG * HD);   // [MB]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int pos = kv.positions[bi];
-  const int tcap = kv.MB * kv.BT - 1;
-  const int tmax = min(pos + (q0 + nq - 1) / rep, tcap);
-
-  for (int i = tid; i < QG * HD; i += VNW * 32) {
-    const int qi = i / HD, d = i % HD;
-    float val = 0.f;
-    if (qi < nq) {
-      const int q = q0 + qi, m = bi * K1 + q / rep;
-      const float* qh = qkv + (long)m * dqkv + (g * rep + q % rep) * HD;
-      if (ROPE) {
-        const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
-        val = (qh[d] * kv.cos[(long)m * HD + d] +
-               rot * kv.sin[(long)m * HD + d]) * scale;
-      } else {
-        val = qh[d] * scale;
-      }
-    }
-    qs[i] = val;
-  }
-  for (int i = tid; i <= tmax / kv.BT; i += VNW * 32)
-    tab[i] = kv.tables[(long)bi * kv.MB + i];
-  __syncthreads();
-
-  int lim[QG];
-  float mx[QG], l[QG], acc[QG][DPL];
-#pragma unroll
-  for (int qi = 0; qi < QG; ++qi) {
-    lim[qi] = qi < nq ? min(pos + (q0 + qi) / rep, tcap) : -1;
-    mx[qi] = NEG_INF;
-    l[qi] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[qi][j] = 0.f;
-  }
-  for (int t0 = warp; t0 <= tmax; t0 += U * VNW) {
-    float kf[U][DPL], vf[U][DPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u * VNW;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) kf[u][j] = vf[u][j] = 0.f;
-      if (t <= tmax) {
-        const bf16* kr = kv.kv + ((long)tab[t / kv.BT] * kv.BT + t % kv.BT)
-                                     * kv.dkv2 + g * HD + lane * DPL;
-#pragma unroll
-        for (int j = 0; j < DPL; j += 2) {
-          const float2 a = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(kr + j));
-          const float2 c = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(kr + dkv + j));
-          kf[u][j] = a.x; kf[u][j + 1] = a.y;
-          vf[u][j] = c.x; vf[u][j + 1] = c.y;
-        }
-      }
-    }
-    // the U keys' scores for every query (independent shuffle sums), then
-    // per query one rescale to the new running max and one exp per key
-    float sc[U][QG];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int qi = 0; qi < QG; ++qi) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j)
-          s = fmaf(qs[qi * HD + lane * DPL + j], kf[u][j], s);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffff, s, o);
-        sc[u][qi] = s;
-      }
-#pragma unroll
-    for (int qi = 0; qi < QG; ++qi) {
-      float mn = mx[qi];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (t0 + u * VNW <= lim[qi]) mn = fmaxf(mn, sc[u][qi]);
-      const float a = __expf(mx[qi] - mn);
-      l[qi] *= a;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[qi][j] *= a;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p =
-            t0 + u * VNW <= lim[qi] ? __expf(sc[u][qi] - mn) : 0.f;
-        l[qi] += p;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[qi][j] = fmaf(p, vf[u][j], acc[qi][j]);
-      }
-      mx[qi] = mn;
-    }
-  }
-#pragma unroll
-  for (int qi = 0; qi < QG; ++qi) {
-    if (lane == 0) {
-      wm[warp * QG + qi] = mx[qi];
-      wl[warp * QG + qi] = l[qi];
-    }
-#pragma unroll
-    for (int j = 0; j < DPL; ++j)
-      wacc[(warp * QG + qi) * HD + lane * DPL + j] = acc[qi][j];
-  }
-  __syncthreads();
-  for (int i = tid; i < nq * HD; i += VNW * 32) {
-    const int qi = i / HD, d = i % HD;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < VNW; ++w) M = fmaxf(M, wm[w * QG + qi]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < VNW; ++w) {
-      const float e = expf(wm[w * QG + qi] - M);
-      L += wl[w * QG + qi] * e;
-      A += wacc[(w * QG + qi) * HD + d] * e;
-    }
-    const int q = q0 + qi, m = bi * K1 + q / rep;
-    attn[(long)m * dq + (g * rep + q % rep) * HD + d] = __float2bfloat16(A / L);
-  }
-}
-
-// Dynamic shared memory of one verify attention block: QG queries of
-// head_dim hd and a block table of mb entries.
-constexpr int verify_smem(int hd, int qg, int mb) {
-  return (qg * hd + 2 * VNW * qg + VNW * qg * hd) * 4 + mb * 4;
-}
-
-template <int HD, int QG, bool ROPE>
-cudaError_t verify_attn_group(const float* qkv, const VerifyKV& kv,
-                              bf16* attn, int b, int K1, int nkv, int rep,
-                              float scale, cudaStream_t st) {
-  const int smem = verify_smem(HD, QG, kv.MB);
-  static int opted_in = 0;  // above 48 KB needs the opt-in
-  if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        verify_attn_kernel<HD, QG, ROPE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    opted_in = smem;
-  }
-  const int groups = (K1 * rep + QG - 1) / QG;
-  verify_attn_kernel<HD, QG, ROPE>
-      <<<dim3(nkv, b, groups), VNW * 32, smem, st>>>(qkv, kv, attn, K1, nkv,
-                                                     rep, scale);
-  return cudaGetLastError();
-}
-
-// The appends, then the attention with the query group sized to the row's
-// K1*rep queries (2, 4, 6 or 8 per block; more make several groups).
-template <int HD, bool ROPE>
-cudaError_t verify_attn_launch(const float* qkv, const VerifyKV& kv,
-                               bf16* attn, int b, int K1, int nkv, int rep,
-                               float scale, cudaStream_t st) {
-  verify_append_kernel<HD, ROPE><<<dim3(nkv, b), 128, 0, st>>>(qkv, kv, K1,
-                                                               nkv, rep);
-  const int nq = K1 * rep;
-  if (nq <= 2)
-    return verify_attn_group<HD, 2, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
-  if (nq <= 4)
-    return verify_attn_group<HD, 4, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
-  if (nq <= 6)
-    return verify_attn_group<HD, 6, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
-  return verify_attn_group<HD, 8, ROPE>(qkv, kv, attn, b, K1, nkv, rep, scale, st);
-}
-
-// The verify attention of one layer at head_dim 64 or 128.
-template <bool ROPE>
-cudaError_t verify_attn_any(int hd, const float* qkv, const VerifyKV& kv,
-                            bf16* attn, int b, int K1, int nkv, int rep,
-                            float scale, cudaStream_t st) {
-  return hd == 128 ? verify_attn_launch<128, ROPE>(qkv, kv, attn, b, K1, nkv,
-                                                   rep, scale, st)
-         : hd == 64 ? verify_attn_launch<64, ROPE>(qkv, kv, attn, b, K1, nkv,
-                                                   rep, scale, st)
-                    : cudaErrorInvalidValue;
-}
-
-// Floats of verify workspace: the widest product's split-K partials, then
-// the up-projection's (kept 8-byte aligned for the float2 stores).
-long vws_layout(int M, int h, int dq, int dqkv, int ffn, long* n0) {
-  auto part = [M](int in, int out) {
-    return (long)vsplit(in, out).ks * M * out;
-  };
-  const long up = part(h, ffn);
-  long a = part(h, dqkv);
-  a = a > part(dq, h) ? a : part(dq, h);
-  a = a > up ? a : up;
-  a = a > part(ffn, h) ? a : part(ffn, h);
-  a = (a + 1) & ~1L;
-  *n0 = a;
-  return a + up;
-}
-
-// K7's operands; the gpt mode's biases follow, null for llama (as Stack's).
-struct VStack {
-  const bf16 *x_in, *ln1, *wqkv, *wo, *ln2, *wg, *wu, *wd;
-  bf16* x_out;
-  float *xf, *qkv, *ws;
-  bf16 *xn, *attn, *act;
-  int L, b, K1, h, nh, nkv, hd, ffn;
-  float eps;
-  bool gpt = false;
-  const bf16 *ln1_b = nullptr, *bqkv = nullptr, *bo = nullptr,
-             *ln2_b = nullptr, *bg = nullptr, *bd = nullptr;
-};
-
-// One verify product of the gpt mode: tensor-core partials, then MODE's
-// bias epilogue.
-template <int MODE>
-cudaError_t vgemm_bias(const bf16* A, const bf16* w, const bf16* bias,
-                       float* ws, float* yf, bf16* yb, int M, int in, int out,
-                       cudaStream_t st) {
-  cudaError_t e = tc_partial_rows(A, w, ws, M, in, out, st);
-  if (e != cudaSuccess) return e;
-  return bias_epilogue<MODE>(ws, vsplit(in, out).ks, M, out, bias, yf, yb,
-                             st);
-}
-
-// Layer l of K7's gpt mode: LayerNorm, qkv + bias, the appends and the
-// attention without rope, o-proj + bias, LayerNorm, fc_in + bias with the
-// GELU, fc_out + bias — 12 launches on `st`.
-cudaError_t verify_gpt_layer(const VStack& a, int l, const VerifyKV& kv,
-                             float* ws, cudaStream_t st) {
-  const int M = a.b * a.K1, h = a.h, hd = a.hd, ffn = a.ffn;
-  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
-  const float scale = 1.f / sqrtf((float)hd);
-  layernorm_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h,
-                                          a.ln1_b + (long)l * h, a.xn, h,
-                                          a.eps);
-  cudaError_t e = vgemm_bias<MODE_QKV_B>(a.xn, a.wqkv + (long)l * h * dqkv,
-                                         a.bqkv + (long)l * dqkv, ws, a.qkv,
-                                         nullptr, M, h, dqkv, st);
-  if (e != cudaSuccess) return e;
-  e = verify_attn_any<false>(hd, a.qkv, kv, a.attn, a.b, a.K1, a.nkv,
-                             a.nh / a.nkv, scale, st);
-  if (e != cudaSuccess) return e;
-  e = vgemm_bias<MODE_ORES_B>(a.attn, a.wo + (long)l * dq * h,
-                              a.bo + (long)l * h, ws, a.xf, nullptr, M, dq, h,
-                              st);
-  if (e != cudaSuccess) return e;
-  layernorm_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln2 + (long)l * h,
-                                          a.ln2_b + (long)l * h, a.xn, h,
-                                          a.eps);
-  e = vgemm_bias<MODE_GELU_B>(a.xn, a.wg + (long)l * h * ffn,
-                              a.bg + (long)l * ffn, ws, nullptr, a.act, M, h,
-                              ffn, st);
-  if (e != cudaSuccess) return e;
-  return vgemm_bias<MODE_FRES_B>(a.act, a.wd + (long)l * ffn * h,
-                                 a.bd + (long)l * h, ws, a.xf,
-                                 l == a.L - 1 ? a.x_out : nullptr, M, ffn, h,
-                                 st);
-}
-
-cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
-                         const int* positions, const float* cosr,
-                         const float* sinr, int NB, int BT, int MB,
-                         cudaStream_t st) {
-  const int L = a.L, M = a.b * a.K1, h = a.h, hd = a.hd, ffn = a.ffn;
-  const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
-  const int rep = a.nh / a.nkv;
-  const float scale = 1.f / sqrtf((float)hd);
-  if (M < 1 || M > 64) return cudaErrorInvalidValue;
+// Floats of K7's workspace: its products' (K2/K5's layout over M = b*K1
+// rows: the llama mode's normalised rows at its head), 256-byte aligned,
+// then the attention's chunk partials over the table's span S = MB*BT.
+// *prod receives the products' share.
+long verify_ws(int b, int K1, int h, int nh, int nkv, int hd, int ffn,
+               int S, bool gpt, long* prod) {
+  const int M = b * K1, dq = nh * hd, dqkv = dq + 2 * nkv * hd;
   long n0;
-  vws_layout(M, h, dq, dqkv, ffn, &n0);
-  float* ws0 = a.ws;
-  float* ws1 = ws0 + n0;
-  bf16_to_f32_kernel<<<(M * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
-                                                           M * h);
-  cudaError_t e = cudaGetLastError();
-  for (int l = 0; l < L && e == cudaSuccess; ++l) {
-    const VerifyKV kv{pool + (long)l * NB * BT * 2 * dkv, tables, positions,
-                      cosr, sinr, MB, BT, 2 * dkv};
-    if (a.gpt) {
-      e = verify_gpt_layer(a, l, kv, ws0, st);
-      continue;
-    }
-    const bf16* wqkvl = a.wqkv + (long)l * h * dqkv;
-    const bf16* wol = a.wo + (long)l * dq * h;
-    const bf16* wgl = a.wg + (long)l * h * ffn;
-    const bf16* wul = a.wu + (long)l * h * ffn;
-    const bf16* wdl = a.wd + (long)l * ffn * h;
-    rms_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln1 + (long)l * h, a.xn, h,
-                                      a.eps);
-    e = vgemm<MODE_QKV>(a.xn, wqkvl, nullptr, ws0, ws1, a.qkv, nullptr, M, h,
-                        dqkv, st);
-    if (e != cudaSuccess) break;
-    e = verify_attn_any<true>(hd, a.qkv, kv, a.attn, a.b, a.K1, a.nkv, rep,
-                              scale, st);
-    if (e != cudaSuccess) break;
-    e = vgemm<MODE_RESID>(a.attn, wol, nullptr, ws0, ws1, a.xf, nullptr, M,
-                          dq, h, st);
-    if (e != cudaSuccess) break;
-    rms_rows_kernel<<<M, GT, 0, st>>>(a.xf, a.ln2 + (long)l * h, a.xn, h,
-                                      a.eps);
-    e = vgemm<MODE_SWIGLU>(a.xn, wgl, wul, ws0, ws1, nullptr, a.act, M, h,
-                           ffn, st);
-    if (e != cudaSuccess) break;
-    e = vgemm<MODE_RESID>(a.act, wdl, nullptr, ws0, ws1, a.xf,
-                          l == L - 1 ? a.x_out : nullptr, M, ffn, h, st);
+  long p = gpt ? gws_layout(M, h, dq, dqkv, ffn)
+               : ws_layout(M, h, dq, dqkv, ffn, &n0);
+  p = (p + 63) & ~63L;
+  *prod = p;
+  return p + verify_part_floats(b, K1, nkv, nh / nkv, hd, S);
+}
+
+// K7's stack over the pool (L, NB, BT, 2*nkv*hd): a holds the M = b*K1
+// tail rows (a.b == b*K1 <= 64).
+cudaError_t verify_stack(const Stack& a, int b, int K1, bf16* pool,
+                         const int* tables, const int* positions,
+                         const float* cosr, const float* sinr, int NB,
+                         int BT, int MB, cudaStream_t st) {
+  if (b < 1 || K1 < 1 || a.b != b * K1) return cudaErrorInvalidValue;
+  long prod;
+  verify_ws(b, K1, a.h, a.nh, a.nkv, a.hd, a.ffn, MB * BT, a.gpt, &prod);
+  float* part = a.ws + prod;
+  const int dkv2 = 2 * a.nkv * a.hd;
+  const int nch = (MB * BT + VA_CHUNK - 1) / VA_CHUNK;
+  // the attention's TMA map of the whole pool, in boxes of gcd(BT, 64)
+  // rows (block_tokens not a multiple of 8: cp.async instead)
+  VerifyKV v{};
+  v.box = BT % 8 == 0 ? (BT & -BT) < 64 ? (BT & -BT) : 64 : 0;
+  if (v.box > 0) {
+    const int e = sm90_map_rows(&v.map, pool, a.L * NB * BT, dkv2, v.box);
+    if (e != 0) return (cudaError_t)e;
   }
-  return e;
+  v.tables = tables;
+  v.positions = positions;
+  v.cos = cosr;
+  v.sin = sinr;
+  v.part = part;
+  v.b = b;
+  v.K1 = K1;
+  v.MB = MB;
+  v.BT = BT;
+  v.dkv2 = dkv2;
+  v.nch = nch;
+  auto layer_kv = [=](int l) {
+    VerifyKV w = v;
+    w.kv = pool + (long)l * NB * BT * dkv2;
+    w.lrow0 = l * NB * BT;
+    return w;
+  };
+  return decode_stack(a, layer_kv, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -1911,13 +2145,17 @@ cudaError_t verify_stack(const VStack& a, bf16* pool, const int* tables,
 // which choice, come with it); a slot past the distinct count exits. So
 // each routed expert is streamed once per layer for all the rows that
 // chose it (one 16-row tensor-core tile holds them), and the host never
-// reads the routing: no sync inside a step. The products run on K7's
-// tensor-core engine (mma.sync with a cp.async pipeline). First design: no
-// overlap of the shared and routed products, no persistent kernel.
+// reads the routing: no sync inside a step. The products run on the
+// mma.sync tensor-core GEMM above (with a cp.async pipeline). First design:
+// no overlap of the shared and routed products, no persistent kernel. A
+// launch takes up to MOE_MAX_B rows and MOE_MAX_PAIRS (row, choice) pairs;
+// a wider step runs as consecutive launches over groups of rows (the
+// Python wrapper), each reading and appending its rows of the cache in
+// place (cb: the cache's batch extent).
 // ---------------------------------------------------------------------------
 
-constexpr int MOE_MAX_B = 8;       // rows per step
-constexpr int MOE_MAX_PAIRS = 64;  // routed (row, choice) pairs per step
+constexpr int MOE_MAX_B = 8;       // rows per launch
+constexpr int MOE_MAX_PAIRS = 64;  // routed (row, choice) pairs per launch
 
 // A layer's routed experts for one tensor-core product launch. gridDim.z =
 // 2 * nslot for gate and up (z >= nslot takes w1 and o1), nslot for down.
@@ -2136,13 +2374,14 @@ struct MoEArgs {
 };
 
 cudaError_t moe_stack(const Stack& a, const MoEArgs& m, bf16* kv,
-                      const float* cosr, const float* sinr, int S, int pos,
-                      cudaStream_t st) {
+                      const float* cosr, const float* sinr, int S, int cb,
+                      int pos, cudaStream_t st) {
   const int L = a.L, b = a.b, h = a.h, hd = a.hd, k = m.k, f = m.f,
             fs = m.fs, E = m.E;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
   const int nslot = b * k, dkv2 = 2 * dkv;
-  if (b < 1 || b > MOE_MAX_B || k < 1 || k > E || nslot > MOE_MAX_PAIRS ||
+  if (b < 1 || b > MOE_MAX_B || cb < b || k < 1 || k > E ||
+      nslot > MOE_MAX_PAIRS ||
       h + E > 12000)   // the router's shared memory stays under 48 KB
     return cudaErrorInvalidValue;
   const MoEPlan p = moe_plan(b, h, dq, dqkv, k, f, fs);
@@ -2154,7 +2393,8 @@ cudaError_t moe_stack(const Stack& a, const MoEArgs& m, bf16* kv,
                                                            b * h);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
-    const ContigKV kvl{kv + (long)l * b * S * dkv2, cosr, sinr, S, dkv2, pos};
+    const ContigKV kvl{kv + (long)l * cb * S * dkv2, cosr, sinr, S, dkv2,
+                       pos};
     e = attention_half(a, maps, l, kvl, ws0, ws0, st);
     if (e != cudaSuccess) break;
     int* ids = m.ids + (long)l * nslot;
@@ -2243,9 +2483,11 @@ extern "C" long fused_decode_llama_workspace(int b, int h, int nh, int nkv,
 }
 
 // K2 — one decode step through all L layers. Stacked weights (L, ...) as
-// built by build_fused_params; kv (L, b, S, 2*nkv*hd) is updated in place at
-// `pos`. Scratch: xf (b,h) f32, qkv (b,dqkv) f32, attn (b,dq) bf16,
-// act (b,ffn) bf16, ws (fused_decode_llama_workspace floats). The int8
+// built by build_fused_params; kv holds the b rows of a cache (L, cb, S,
+// 2*nkv*hd), cb >= b (a group of rows of a wider batch: the layer stride
+// is cb*S*2*nkv*hd), updated in place at `pos`. Scratch: xf (b,h) f32,
+// qkv (b,dqkv) f32, attn (b,dq) bf16, act (b,ffn) bf16, ws
+// (fused_decode_llama_workspace floats). The int8
 // modes: scale rows sqkv, so, sg, su, sd ((L, out) fp32 each) make the five
 // weight stacks int8; kv scales kvs ((L, 2*nkv*hd) fp32) make kv int8. Null
 // pointers select bf16. Returns the first CUDA error, 0 on success.
@@ -2256,7 +2498,8 @@ extern "C" int fused_decode_llama(
     const void* su, const void* sd, void* kv, const void* kvs,
     const void* cosr, const void* sinr, void* xf, void* qkv, void* attn,
     void* act, void* ws, int L, int b, int h, int nh, int nkv, int hd,
-    int ffn, int S, int pos, float eps, void* stream) {
+    int ffn, int S, int cb, int pos, float eps, void* stream) {
+  if (cb < b) return (int)cudaErrorInvalidValue;
   Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf, qkv,
                        attn, act, ws, L, b, h, nh, nkv, hd, ffn, eps);
   a.sqkv = (const float*)sqkv;
@@ -2269,7 +2512,7 @@ extern "C" int fused_decode_llama(
   const cudaStream_t st = (cudaStream_t)stream;
   if (kvs != nullptr) {
     auto layer_kv = [=](int l) {
-      return ContigKV8{(int8_t*)kv + (long)l * b * S * dkv2,
+      return ContigKV8{(int8_t*)kv + (long)l * cb * S * dkv2,
                        (const float*)cosr, (const float*)sinr,
                        (const float*)kvs + (long)l * dkv2, S, dkv2, pos};
     };
@@ -2277,7 +2520,7 @@ extern "C" int fused_decode_llama(
                     : decode_stack<bf16>(a, layer_kv, st));
   }
   auto layer_kv = [=](int l) {
-    return ContigKV{(bf16*)kv + (long)l * b * S * dkv2, (const float*)cosr,
+    return ContigKV{(bf16*)kv + (long)l * cb * S * dkv2, (const float*)cosr,
                     (const float*)sinr, S, dkv2, pos};
   };
   return (int)(w8 ? decode_stack<int8_t>(a, layer_kv, st)
@@ -2313,35 +2556,32 @@ extern "C" int fused_paged_decode_llama(
   return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
 }
 
-extern "C" long fused_paged_verify_llama_workspace(int M, int h, int nh,
-                                                   int nkv, int hd, int ffn) {
-  long n0;
-  return vws_layout(M, h, nh * hd, (nh + 2 * nkv) * hd, ffn, &n0);
+extern "C" long fused_paged_verify_workspace(int b, int K1, int h, int nh,
+                                             int nkv, int hd, int ffn, int S,
+                                             int gpt) {
+  long prod;
+  return verify_ws(b, K1, h, nh, nkv, hd, ffn, S, gpt != 0, &prod);
 }
 
 // K7 — one verify step through all L layers for b rows of K1 tail tokens
 // (see the K7 section above). x_in/x_out (b, K1, h) bf16; kv_pool
 // (L, NB, BT, 2*nkv*hd) updated in place at positions[bi] + j, j < K1;
 // tables (b, MB) and positions (b,) int32 and the (b, K1, hd) rope rows
-// read on the device. Scratch: xf (M, h) f32, xn (M, h) bf16, qkv
-// (M, dqkv) f32, attn (M, dq) bf16, act (M, ffn) bf16, ws
-// (fused_paged_verify_llama_workspace floats), M = b*K1 <= 64. Returns
-// the first CUDA error, 0 on success.
+// read on the device. Scratch as for K2 over M = b*K1 rows: xf (M, h)
+// f32, qkv (M, dqkv) f32, attn (M, dq) bf16, act (M, ffn) bf16, ws
+// (fused_paged_verify_workspace(..., S = MB*BT, gpt = 0) floats); M <= 64.
+// Returns the first CUDA error, 0 on success.
 extern "C" int fused_paged_verify_llama(
     const void* x_in, void* x_out, const void* ln1, const void* wqkv,
     const void* wo, const void* ln2, const void* wg, const void* wu,
     const void* wd, void* kv_pool, const void* tables, const void* positions,
-    const void* cosr, const void* sinr, void* xf, void* xn, void* qkv,
-    void* attn, void* act, void* ws, int L, int b, int K1, int h, int nh,
-    int nkv, int hd, int ffn, int NB, int BT, int MB, float eps,
-    void* stream) {
-  const VStack a{(const bf16*)x_in, (const bf16*)ln1, (const bf16*)wqkv,
-                 (const bf16*)wo,   (const bf16*)ln2, (const bf16*)wg,
-                 (const bf16*)wu,   (const bf16*)wd,  (bf16*)x_out,
-                 (float*)xf,        (float*)qkv,      (float*)ws,
-                 (bf16*)xn,         (bf16*)attn,      (bf16*)act,
-                 L, b, K1, h, nh, nkv, hd, ffn, eps};
-  return (int)verify_stack(a, (bf16*)kv_pool, (const int*)tables,
+    const void* cosr, const void* sinr, void* xf, void* qkv, void* attn,
+    void* act, void* ws, int L, int b, int K1, int h, int nh, int nkv,
+    int hd, int ffn, int NB, int BT, int MB, float eps, void* stream) {
+  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
+                             qkv, attn, act, ws, L, b * K1, h, nh, nkv, hd,
+                             ffn, eps);
+  return (int)verify_stack(a, b, K1, (bf16*)kv_pool, (const int*)tables,
                            (const int*)positions, (const float*)cosr,
                            (const float*)sinr, NB, BT, MB,
                            (cudaStream_t)stream);
@@ -2359,7 +2599,8 @@ extern "C" long fused_decode_moe_workspace(int b, int h, int nh, int nkv,
 // updated in place at `pos`. Outputs: x_out (b, h) bf16, the routing ids
 // (L, b, k) int32 and weights (L, b, k) fp32. Scratch: xf (b, h) f32, qkv
 // (b, dqkv) f32, attn (b, dq) bf16, xn (b, h) bf16, act (b*k, f) bf16, sact
-// (b, fs) bf16, ws (fused_decode_moe_workspace floats). b <= 8, b*k <= 64.
+// (b, fs) bf16, ws (fused_decode_moe_workspace floats). b <= 8, b*k <= 64;
+// kv holds the b rows of a cache (L, cb, S, 2*nkv*hd), cb >= b, as K2's.
 // Returns the first CUDA error, 0 on success.
 extern "C" int fused_decode_moe(
     const void* x_in, void* x_out, const void* ln1, const void* wqkv,
@@ -2368,7 +2609,7 @@ extern "C" int fused_decode_moe(
     const void* wsd, void* kv, const void* cosr, const void* sinr, void* ids,
     void* wts, void* xf, void* qkv, void* attn, void* xn, void* act,
     void* sact, void* ws, int L, int b, int h, int nh, int nkv, int hd, int E,
-    int k, int f, int fs, int S, int pos, float eps, void* stream) {
+    int k, int f, int fs, int S, int cb, int pos, float eps, void* stream) {
   Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, nullptr, nullptr,
                        nullptr, xf, qkv, attn, nullptr, ws, L, b, h, nh, nkv,
                        hd, 0, eps);
@@ -2380,7 +2621,7 @@ extern "C" int fused_decode_moe(
                   E,                 k,                f,
                   fs};
   return (int)moe_stack(a, m, (bf16*)kv, (const float*)cosr,
-                        (const float*)sinr, S, pos, (cudaStream_t)stream);
+                        (const float*)sinr, S, cb, pos, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -2389,7 +2630,7 @@ extern "C" int fused_decode_moe(
 // stacks come in build_fused_params_gpt's order; no rope rows are taken.
 // Scratch as for the llama entry points plus xn (rows, h) bf16, the
 // LayerNorm rows; K2/K5's ws holds fused_decode_gpt_workspace floats, K7's
-// fused_paged_verify_llama_workspace floats (with nkv = the kv heads).
+// fused_paged_verify_workspace(..., gpt = 1) floats.
 // ---------------------------------------------------------------------------
 
 extern "C" long fused_decode_gpt_workspace(int b, int h, int nh, int nkv,
@@ -2397,8 +2638,9 @@ extern "C" long fused_decode_gpt_workspace(int b, int h, int nh, int nkv,
   return gws_layout(b, h, nh * hd, (nh + 2 * nkv) * hd, ffn);
 }
 
-// K2, gpt mode — one decode step through all L layers over the contiguous
-// cache (L, b, S, 2*nkv*hd), updated in place at `pos`; 1 + 11L launches.
+// K2, gpt mode — one decode step through all L layers over the b rows of
+// a contiguous cache (L, cb, S, 2*nkv*hd), updated in place at `pos`;
+// 1 + 11L launches.
 // Non-null kv scales kvs ((L, 2*nkv*hd) fp32) make kv int8 (the int8 KV
 // mode); the gpt mode takes bf16 weights only, as the reference's.
 extern "C" int fused_decode_gpt(
@@ -2407,8 +2649,9 @@ extern "C" int fused_decode_gpt(
     const void* ln2, const void* ln2_b, const void* wg, const void* bg,
     const void* wd, const void* bd, void* kv, const void* kvs, void* xf,
     void* xn, void* qkv, void* attn, void* act, void* ws, int L, int b, int h,
-    int nh, int nkv, int hd, int ffn, int S, int pos, float eps,
+    int nh, int nkv, int hd, int ffn, int S, int cb, int pos, float eps,
     void* stream) {
+  if (cb < b) return (int)cudaErrorInvalidValue;
   const Stack a = make_gpt_stack(x_in, x_out, ln1, ln1_b, wqkv, bqkv, wo, bo,
                                  ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
                                  attn, act, ws, L, b, h, nh, nkv, hd, ffn,
@@ -2416,13 +2659,13 @@ extern "C" int fused_decode_gpt(
   const int dkv2 = 2 * nkv * hd;
   if (kvs != nullptr) {
     auto layer_kv8 = [=](int l) {
-      return ContigKV8{(int8_t*)kv + (long)l * b * S * dkv2, nullptr, nullptr,
+      return ContigKV8{(int8_t*)kv + (long)l * cb * S * dkv2, nullptr, nullptr,
                        (const float*)kvs + (long)l * dkv2, S, dkv2, pos};
     };
     return (int)decode_stack(a, layer_kv8, (cudaStream_t)stream);
   }
   auto layer_kv = [=](int l) {
-    return ContigKV{(bf16*)kv + (long)l * b * S * dkv2, nullptr, nullptr, S,
+    return ContigKV{(bf16*)kv + (long)l * cb * S * dkv2, nullptr, nullptr, S,
                     dkv2, pos};
   };
   return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
@@ -2453,7 +2696,7 @@ extern "C" int fused_paged_decode_gpt(
 }
 
 // K7, gpt mode — one verify step for b rows of K1 tail tokens (M = b*K1 <=
-// 64) over the paged pool, appends at positions[bi] + j; 1 + 12L launches.
+// 64) over the paged pool, appends at positions[bi] + j; 1 + 13L launches.
 extern "C" int fused_paged_verify_gpt(
     const void* x_in, void* x_out, const void* ln1, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
@@ -2462,36 +2705,27 @@ extern "C" int fused_paged_verify_gpt(
     const void* positions, void* xf, void* xn, void* qkv, void* attn,
     void* act, void* ws, int L, int b, int K1, int h, int nh, int nkv,
     int hd, int ffn, int NB, int BT, int MB, float eps, void* stream) {
-  VStack a{(const bf16*)x_in, (const bf16*)ln1, (const bf16*)wqkv,
-           (const bf16*)wo,   (const bf16*)ln2, (const bf16*)wg,
-           nullptr,           (const bf16*)wd,  (bf16*)x_out,
-           (float*)xf,        (float*)qkv,      (float*)ws,
-           (bf16*)xn,         (bf16*)attn,      (bf16*)act,
-           L, b, K1, h, nh, nkv, hd, ffn, eps};
-  a.gpt = true;
-  a.ln1_b = (const bf16*)ln1_b;
-  a.bqkv = (const bf16*)bqkv;
-  a.bo = (const bf16*)bo;
-  a.ln2_b = (const bf16*)ln2_b;
-  a.bg = (const bf16*)bg;
-  a.bd = (const bf16*)bd;
-  return (int)verify_stack(a, (bf16*)kv_pool, (const int*)tables,
+  const Stack a = make_gpt_stack(x_in, x_out, ln1, ln1_b, wqkv, bqkv, wo, bo,
+                                 ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
+                                 attn, act, ws, L, b * K1, h, nh, nkv, hd,
+                                 ffn, eps);
+  return (int)verify_stack(a, b, K1, (bf16*)kv_pool, (const int*)tables,
                            (const int*)positions, nullptr, nullptr, NB, BT,
                            MB, (cudaStream_t)stream);
 }
 
 // The dynamic shared memory a block of these kernels asks for: kind 0 the
-// decode attention (a = head_dim, b = query heads per kv head), 1 the
-// tensor-core product (a = 16-row tiles), 2 the verify attention (a =
-// head_dim, b = queries per block, c = block-table entries), 3 the product
-// engine (a = its N: 8, 16, 32 or 64; b = 1 for int8 weights). -1 for an
-// unknown kind. The launchers compute their requests with the same
-// functions, so a caller can hold them to the device's opt-in budget.
-extern "C" int fused_decode_dynamic_smem(int kind, int a, int b, int c) {
+// decode attention (a = head_dim, b = query heads per kv head), 1 K6's
+// tensor-core product (a = 16-row tiles), 2 K7's split-KV attention (a =
+// head_dim), 3 the product engine (a = its N: 8, 16, 32 or 64; b = 1 for
+// int8 weights). -1 for an unknown kind. The launchers compute their
+// requests with the same functions, so a caller can hold them to the
+// device's opt-in budget.
+extern "C" int fused_decode_dynamic_smem(int kind, int a, int b, int) {
   switch (kind) {
     case 0: return attn_smem(a, b);
     case 1: return tc_smem(a);
-    case 2: return verify_smem(a, b, c);
+    case 2: return a == 64 || a == 128 ? va_smem(a) : -1;
     case 3: return engine_smem(a, b != 0);
   }
   return -1;

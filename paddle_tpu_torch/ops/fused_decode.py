@@ -32,6 +32,11 @@ the paged pool:
   routed-expert SwiGLU, optional shared experts) over the flat cache; CUDA
   tensors launch K6 (``fused_decode_moe`` in the same source file;
   replaces ``_fused_decode_moe_pallas``, :1049).
+* ``row_groups``, ``in_row_groups`` — a step with more rows than one
+  kernel launch takes runs as consecutive launches over groups of rows (K2,
+  K5: ``GROUP_ROWS``; K7: whole slots of K1 tail rows within
+  ``GROUP_ROWS``; K6: ``MOE_MAX_ROWS`` rows and ``MOE_MAX_PAIRS`` (row,
+  choice) pairs), so no wrapper caps the batch: the reference takes any.
 * ``decode_block_plan`` — kept for its ``ffn_pad`` and ``cache_wbytes``
   keys. ``dynamic_smem_bytes`` gives the kernels' shared-memory requests,
   which a caller can hold to the probed budget (``ops/smem_probe.py``).
@@ -500,13 +505,42 @@ def _check_tensors(what, specs, device):
                              f"{device} (cuda)")
 
 
-#: rows K2 and K5 take per step: the product engine's widest wgmma N
-#: (``csrc/fused_decode.cu``, ``erows``), K7's ``VERIFY_MAX_ROWS`` too
-DECODE_MAX_ROWS = 64
+#: rows one launch of K2, K5 or K7 takes: the product engine's widest
+#: wgmma N (``csrc/fused_decode.cu``, ``erows``). Wider steps run in groups.
+GROUP_ROWS = 64
+
+
+def row_groups(n: int, cap: int):
+    """Consecutive (start, stop) ranges covering rows 0..n-1, in order,
+    each of at most `cap` rows and as even as possible (65 rows at cap 64:
+    33 + 32)."""
+    if n < 1 or cap < 1:
+        raise ValueError(f"row_groups: {n} rows in groups of {cap}")
+    k = -(-n // cap)
+    q, r = divmod(n, k)
+    out, start = [], 0
+    for i in range(k):
+        stop = start + q + (i < r)
+        out.append((start, stop))
+        start = stop
+    return out
+
+
+def in_row_groups(step, n: int, cap: int):
+    """Run a step of `n` rows as consecutive calls ``step(slice)`` over
+    ``row_groups(n, cap)``, in order on the current stream, and stack the
+    outputs on dim 0. The rows of a decode, paged or verify step are
+    independent through the whole stack (a row reads only its own KV, the
+    pool is shared but each row writes only its own blocks or scratch), so
+    grouping changes which launch a row rides in, not what it computes;
+    the kernels' bits may still depend on a group's row count, through the
+    product engine's split choice (``eplan``)."""
+    outs = [step(slice(a, b)) for a, b in row_groups(n, cap)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
-                 max_rows=DECODE_MAX_ROWS, arch="llama", int8_row=None):
+                 arch="llama", int8_row=None):
     """What K2, K5 and K7 share: x (rows, h), the stacked weights of `arch`
     (llama or gpt) and the cache (contiguous or paged; its last dim is
     2·nkv·hd) in bf16, and the shapes the kernels take. K2's int8 modes:
@@ -525,9 +559,8 @@ def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
     b, h = x.shape
     dq = nh * hd
     ffn = params["wg"].shape[2]
-    if not 1 <= b <= max_rows or hd not in (64, 128) \
-            or rep not in (1, 2, 4, 8):
-        raise ValueError(f"{what}: unsupported b={b} (1..{max_rows}), "
+    if b < 1 or hd not in (64, 128) or rep not in (1, 2, 4, 8):
+        raise ValueError(f"{what}: unsupported b={b} (>= 1), "
                          f"head_dim={hd} (64|128), rep={rep} (1|2|4|8)")
     if h % 8 or ffn % 8 or (dq + 2 * dkv) % 8:
         raise ValueError(f"{what}: h, ffn and the qkv width must be "
@@ -566,22 +599,27 @@ def _rope_specs(cos, sin, shape, arch):
             ("sin", sin, torch.float32, shape)]
 
 
-def _scratch(lib, x, nh, nkv, hd, ffn, arch):
-    """x_out and the step's scratch: xf, [xn (gpt: the LayerNorm rows)],
-    qkv, attn, act, split-K ws."""
+def _scratch(x, nh, nkv, hd, ffn, arch, ws_floats):
+    """The step's scratch for the rows of x (rows, h): xf, [xn (gpt: the
+    LayerNorm rows)], qkv, attn, act, then the C entry's ws of `ws_floats`
+    floats."""
     b, h = x.shape
     dq, dkv = nh * hd, nkv * hd
     dev = x.device
     f32, bf = torch.float32, torch.bfloat16
     xn = [torch.empty((b, h), dtype=bf, device=dev)] if arch == "gpt" else []
-    ws = (lib.fused_decode_gpt_workspace(b, h, nh, nkv, hd, ffn)
-          if arch == "gpt" else
-          lib.fused_decode_llama_workspace(b, h, nh, nkv, hd, ffn))
-    return (torch.empty_like(x), torch.empty((b, h), dtype=f32, device=dev),
-            *xn, torch.empty((b, dq + 2 * dkv), dtype=f32, device=dev),
+    return (torch.empty((b, h), dtype=f32, device=dev), *xn,
+            torch.empty((b, dq + 2 * dkv), dtype=f32, device=dev),
             torch.empty((b, dq), dtype=bf, device=dev),
             torch.empty((b, ffn), dtype=bf, device=dev),
-            torch.empty(ws, dtype=f32, device=dev))
+            torch.empty(ws_floats, dtype=f32, device=dev))
+
+
+def _decode_ws(lib, b, h, nh, nkv, hd, ffn, arch):
+    """Floats of K2's / K5's workspace for a launch of b rows."""
+    fn = (lib.fused_decode_gpt_workspace if arch == "gpt"
+          else lib.fused_decode_llama_workspace)
+    return fn(b, h, nh, nkv, hd, ffn)
 
 
 def _check_arch(what, arch):
@@ -592,13 +630,16 @@ def _check_arch(what, arch):
 def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
                       num_kv_heads: int, eps: float = 1e-5,
                       arch: str = "llama", kv_scales=None):
-    """Wrapper of K2 (one call = one decode step through all L layers,
-    1 + 11L launches on the current stream), arch llama
+    """Wrapper of K2: one decode step through all L layers, arch llama
     (``fused_decode_llama``) or gpt (``fused_decode_gpt``, which takes no
-    rope: cos/sin are ignored). Its int8 modes: int8 weight stacks with
-    their scale rows (llama), and an int8 cache with ``kv_scales`` (L, 1,
-    2*nkv*hd) fp32 (llama and gpt). Checks dtype, shape, contiguity and
-    device and raises on anything else."""
+    rope: cos/sin are ignored). One launch takes up to ``GROUP_ROWS`` rows
+    (1 + 11L kernels on the current stream); a wider batch runs as
+    consecutive launches over ``row_groups`` of rows, each reading and
+    appending its rows of the cache in place. ``launches`` counts launches,
+    one per group. Its int8 modes: int8 weight stacks with their scale rows
+    (llama), and an int8 cache with ``kv_scales`` (L, 1, 2*nkv*hd) fp32
+    (llama and gpt). Checks dtype, shape, contiguity and device and raises
+    on anything else."""
     what = "fused_decode_cuda"
     _check_arch(what, arch)
     _refuse_unported(arch, params, kv_scales)
@@ -622,41 +663,58 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
     if not 0 <= pos < S:
         raise ValueError(f"{what}: pos {pos} outside the cache length {S}")
     lib = _kernel_lib()
-    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn,
-                               arch)
     p = _build.ptr
     none = ctypes.c_void_p(0)
     opt = lambda t: none if t is None else p(t)
     scales = ([] if arch == "gpt" else
               [opt(params.get(f"{k}_s")) for k in _SCALED_KEYS])
     fn = lib.fused_decode_gpt if arch == "gpt" else lib.fused_decode_llama
-    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)), *scales,
-             p(kv_cache), opt(kv_scales), *(p(t) for t in rope),
-             *(p(t) for t in scratch), L, b, h, num_heads, num_kv_heads, hd,
-             ffn, S, pos, float(eps), _build.stream_of(x))
-    fused_decode_cuda.launches += 1
-    _build.check(err, f"fused_decode_{arch}")
-    return x_out, kv_cache
+    weights = [p(params[k]) for k in _keys(arch)]
+
+    def step(rows):
+        xg = x[rows]
+        bg = xg.shape[0]
+        x_out = torch.empty_like(xg)
+        scratch = _scratch(xg, num_heads, num_kv_heads, hd, ffn, arch,
+                           _decode_ws(lib, bg, h, num_heads, num_kv_heads,
+                                      hd, ffn, arch))
+        # the group's rows of the cache, in place: the layer stride stays
+        # the whole cache's (cb = b rows)
+        err = fn(p(xg), p(x_out), *weights, *scales, p(kv_cache[:, rows]),
+                 opt(kv_scales), *(p(t) for t in rope),
+                 *(p(t) for t in scratch), L, bg, h, num_heads, num_kv_heads,
+                 hd, ffn, S, b, pos, float(eps), _build.stream_of(x))
+        fused_decode_cuda.launches += 1
+        _build.check(err, f"fused_decode_{arch}")
+        return x_out
+
+    return in_row_groups(step, b, GROUP_ROWS), kv_cache
 
 
 fused_decode_cuda.launches = 0
 
 _MOE_KEYS = ("ln1", "wqkv", "wo", "ln2", "gate", "weg", "weu", "wed")
 _SHARED_KEYS = ("wsg", "wsu", "wsd")
-#: K6's bounds: rows per step (its router and expert slots take 8) and
-#: routed (row, choice) pairs per step
+#: K6's bounds per launch: rows (its router and expert slots take 8) and
+#: routed (row, choice) pairs; a wider step runs in groups of rows
 MOE_MAX_ROWS, MOE_MAX_PAIRS = 8, 64
 
 
 def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
                           num_heads: int, num_kv_heads: int,
                           eps: float = 1e-5, top_k: int = 2, routing=None):
-    """Wrapper of K6 (one call = one MoE decode step through all L layers,
-    1 + 11L launches, 1 + 14L with shared experts, on the current stream).
-    Checks dtype, shape, contiguity and device and raises on anything else.
-    A dict given as ``routing`` receives the kernel's per-layer ids (L, b,
-    k) int32 and weights (L, b, k) fp32 (device tensors; the step itself
-    never reads them on the host)."""
+    """Wrapper of K6: one MoE decode step through all L layers. One launch
+    takes up to ``MOE_MAX_ROWS`` rows and ``MOE_MAX_PAIRS`` (row, choice)
+    pairs (1 + 11L kernels, 1 + 14L with shared experts, on the current
+    stream); a wider batch runs as consecutive launches over ``row_groups``
+    of rows, each reading and appending its rows of the cache in place
+    (the router is per row, and the fused MoE plan holds only with no
+    drops, so a row's experts do not depend on the others). ``launches``
+    counts launches, one per group. Checks dtype, shape, contiguity and
+    device and raises on anything else. A dict given as ``routing``
+    receives the kernel's per-layer ids (L, b, k) int32 and weights (L, b,
+    k) fp32 (device tensors; the step itself never reads them on the
+    host)."""
     what = "fused_decode_moe_cuda"
     if kv_cache.dim() != 4 or x.dim() != 2 or kv_cache.shape[1] != x.shape[0]:
         raise ValueError(f"{what}: cache {tuple(kv_cache.shape)} is not "
@@ -672,12 +730,11 @@ def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
     shared = "wsg" in params
     fs = params["wsg"].shape[2] if shared else 0
     k = int(top_k)
-    if not 1 <= b <= MOE_MAX_ROWS or not 1 <= k <= E \
-            or b * k > MOE_MAX_PAIRS or hd not in (64, 128) \
-            or rep not in (1, 2, 4, 8):
-        raise ValueError(f"{what}: unsupported b={b} (1..{MOE_MAX_ROWS}), "
-                         f"top_k={k} (b*k <= {MOE_MAX_PAIRS}, <= E={E}), "
-                         f"head_dim={hd} (64|128), rep={rep} (1|2|4|8)")
+    if b < 1 or not 1 <= k <= min(E, MOE_MAX_PAIRS) \
+            or hd not in (64, 128) or rep not in (1, 2, 4, 8):
+        raise ValueError(f"{what}: unsupported b={b} (>= 1), top_k={k} "
+                         f"(<= E={E}, <= {MOE_MAX_PAIRS}), head_dim={hd} "
+                         f"(64|128), rep={rep} (1|2|4|8)")
     dq = nh * hd
     if h % 8 or f % 8 or fs % 8 or (dq + 2 * dkv) % 8:
         raise ValueError(f"{what}: h, the expert widths and the qkv width "
@@ -701,29 +758,38 @@ def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
     lib = _kernel_lib()
     dev = x.device
     f32 = torch.float32
-    x_out = torch.empty_like(x)
-    ids = torch.empty((L, b, k), dtype=torch.int32, device=dev)
-    wts = torch.empty((L, b, k), dtype=f32, device=dev)
-    scratch = (torch.empty((b, h), dtype=f32, device=dev),        # xf
-               torch.empty((b, dq + 2 * dkv), dtype=f32, device=dev),
-               torch.empty((b, dq), dtype=bf, device=dev),          # attn
-               torch.empty((b, h), dtype=bf, device=dev),           # xn2
-               torch.empty((b * k, f), dtype=bf, device=dev),       # act
-               torch.empty((b, max(fs, 8)), dtype=bf, device=dev),  # sact
-               torch.empty(lib.fused_decode_moe_workspace(
-                   b, h, nh, nkv, hd, k, f, fs), dtype=f32, device=dev))
     p = _build.ptr
     none = ctypes.c_void_p(0)
-    err = lib.fused_decode_moe(
-        p(x), p(x_out), *(p(params[n]) for n in _MOE_KEYS),
-        *((p(params[n]) for n in _SHARED_KEYS) if shared else (none,) * 3),
-        p(kv_cache), p(cos), p(sin), p(ids), p(wts),
-        *(p(t) for t in scratch), L, b, h, nh, nkv, hd, E, k, f, fs, S, pos,
-        float(eps), _build.stream_of(x))
-    fused_decode_moe_cuda.launches += 1
-    _build.check(err, "fused_decode_moe")
+    weights = [p(params[n]) for n in _MOE_KEYS] + (
+        [p(params[n]) for n in _SHARED_KEYS] if shared else [none] * 3)
+    ids, wts = [], []
+
+    def step(rows):
+        xg = x[rows]
+        bg = xg.shape[0]
+        x_out = torch.empty_like(xg)
+        ids.append(torch.empty((L, bg, k), dtype=torch.int32, device=dev))
+        wts.append(torch.empty((L, bg, k), dtype=f32, device=dev))
+        scratch = (torch.empty((bg, h), dtype=f32, device=dev),        # xf
+                   torch.empty((bg, dq + 2 * dkv), dtype=f32, device=dev),
+                   torch.empty((bg, dq), dtype=bf, device=dev),      # attn
+                   torch.empty((bg, h), dtype=bf, device=dev),       # xn2
+                   torch.empty((bg * k, f), dtype=bf, device=dev),   # act
+                   torch.empty((bg, max(fs, 8)), dtype=bf, device=dev),
+                   torch.empty(lib.fused_decode_moe_workspace(
+                       bg, h, nh, nkv, hd, k, f, fs), dtype=f32,
+                       device=dev))
+        err = lib.fused_decode_moe(
+            p(xg), p(x_out), *weights, p(kv_cache[:, rows]), p(cos), p(sin),
+            p(ids[-1]), p(wts[-1]), *(p(t) for t in scratch), L, bg, h, nh,
+            nkv, hd, E, k, f, fs, S, b, pos, float(eps), _build.stream_of(x))
+        fused_decode_moe_cuda.launches += 1
+        _build.check(err, "fused_decode_moe")
+        return x_out
+
+    x_out = in_row_groups(step, b, min(MOE_MAX_ROWS, MOE_MAX_PAIRS // k))
     if routing is not None:
-        routing["ids"], routing["w"] = ids, wts
+        routing["ids"], routing["w"] = torch.cat(ids, 1), torch.cat(wts, 1)
     return x_out, kv_cache
 
 
@@ -735,28 +801,28 @@ def _kernel_lib():
     fn = lib.fused_decode_llama
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 23 + [ci] * 9 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 23 + [ci] * 10 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         pfn = lib.fused_paged_decode_llama
         pfn.argtypes = [vp] * 19 + [ci] * 10 + [ctypes.c_float, vp]
         pfn.restype = ctypes.c_int
         vfn = lib.fused_paged_verify_llama
-        vfn.argtypes = [vp] * 20 + [ci] * 11 + [ctypes.c_float, vp]
+        vfn.argtypes = [vp] * 19 + [ci] * 11 + [ctypes.c_float, vp]
         vfn.restype = ctypes.c_int
-        vws = lib.fused_paged_verify_llama_workspace
-        vws.argtypes = [ci] * 6
+        vws = lib.fused_paged_verify_workspace
+        vws.argtypes = [ci] * 9
         vws.restype = ctypes.c_long
         wsf = lib.fused_decode_llama_workspace
         wsf.argtypes = [ci] * 6
         wsf.restype = ctypes.c_long
         mfn = lib.fused_decode_moe
-        mfn.argtypes = [vp] * 25 + [ci] * 12 + [ctypes.c_float, vp]
+        mfn.argtypes = [vp] * 25 + [ci] * 13 + [ctypes.c_float, vp]
         mfn.restype = ctypes.c_int
         mws = lib.fused_decode_moe_workspace
         mws.argtypes = [ci] * 8
         mws.restype = ctypes.c_long
         gfn = lib.fused_decode_gpt
-        gfn.argtypes = [vp] * 22 + [ci] * 9 + [ctypes.c_float, vp]
+        gfn.argtypes = [vp] * 22 + [ci] * 10 + [ctypes.c_float, vp]
         gfn.restype = ctypes.c_int
         gpfn = lib.fused_paged_decode_gpt
         gpfn.argtypes = [vp] * 23 + [ci] * 10 + [ctypes.c_float, vp]
@@ -782,11 +848,11 @@ _SMEM_KINDS = {"attention": 0, "tensor_core_gemm": 1, "verify_attention": 2,
 def dynamic_smem_bytes(kernel: str, a: int, b: int = 0, c: int = 0) -> int:
     """The dynamic shared memory one block of `kernel` asks for, as its
     launcher computes it: "attention" (K2/K5/K6; a = head_dim, b = query
-    heads per kv head), "tensor_core_gemm" (K6/K7's products; a = 16-row
-    tiles), "verify_attention" (K7; a = head_dim, b = queries per block,
-    c = block-table entries), "product_engine" (K2/K5's products and K6's
-    attention half; a = the rows rounded up to 8, 16, 32 or 64, b = 1 for
-    int8 weights). Needs the built library (a CUDA machine)."""
+    heads per kv head), "tensor_core_gemm" (K6's experts; a = 16-row
+    tiles), "verify_attention" (K7's split-KV attention; a = head_dim),
+    "product_engine" (K2/K5/K7's products and K6's attention half; a = the
+    rows rounded up to 8, 16, 32 or 64, b = 1 for int8 weights). Needs the
+    built library (a CUDA machine)."""
     return int(_kernel_lib().fused_decode_dynamic_smem(
         _SMEM_KINDS[kernel], a, b, c))
 
@@ -912,12 +978,15 @@ def _paged_token(x, params, kv_pool, tables, pos, app_bid, app_off, cos,
 def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
                             sin, *, num_heads: int, num_kv_heads: int,
                             eps: float = 1e-5, arch: str = "llama"):
-    """Wrapper of K5 (one call = one decode step through all L layers over
-    the paged pool, 1 + 11L launches on the current stream), arch llama or
-    gpt (no rope: cos/sin are ignored). Checks dtype, shape, contiguity and
-    device and raises on anything else. Positions and tables are read on
-    the device, never on the host: the caller keeps every position below
-    MB·BT."""
+    """Wrapper of K5: one decode step through all L layers over the paged
+    pool, arch llama or gpt (no rope: cos/sin are ignored). One launch
+    takes up to ``GROUP_ROWS`` rows (1 + 11L kernels on the current
+    stream); a wider batch runs as consecutive launches over
+    ``row_groups`` of rows (their x, tables, positions and rope rows; the
+    pool is shared). ``launches`` counts launches, one per group. Checks
+    dtype, shape, contiguity and device and raises on anything else.
+    Positions and tables are read on the device, never on the host: the
+    caller keeps every position below MB·BT."""
     what = "fused_paged_decode_cuda"
     _check_arch(what, arch)
     if kv_pool.dim() != 4 or block_tables.dim() != 2:
@@ -933,20 +1002,29 @@ def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
         ("positions", positions, torch.int32, (b,))]
         + _rope_specs(cos, sin, (b, hd), arch), x.device)
     lib = _kernel_lib()
-    x_out, *scratch = _scratch(lib, x, num_heads, num_kv_heads, hd, ffn,
-                               arch)
-    rope = [] if arch == "gpt" else [cos, sin]
     p = _build.ptr
     fn = (lib.fused_paged_decode_gpt if arch == "gpt"
           else lib.fused_paged_decode_llama)
-    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)),
-             p(kv_pool), p(block_tables), p(positions),
-             *(p(t) for t in rope), *(p(t) for t in scratch), L, b, h,
-             num_heads, num_kv_heads, hd, ffn, NB, BT, MB, float(eps),
-             _build.stream_of(x))
-    fused_paged_decode_cuda.launches += 1
-    _build.check(err, f"fused_paged_decode_{arch}")
-    return x_out, kv_pool
+    weights = [p(params[k]) for k in _keys(arch)]
+
+    def step(rows):
+        xg = x[rows]
+        bg = xg.shape[0]
+        x_out = torch.empty_like(xg)
+        scratch = _scratch(xg, num_heads, num_kv_heads, hd, ffn, arch,
+                           _decode_ws(lib, bg, h, num_heads, num_kv_heads,
+                                      hd, ffn, arch))
+        rope = [] if arch == "gpt" else [cos[rows], sin[rows]]
+        err = fn(p(xg), p(x_out), *weights, p(kv_pool),
+                 p(block_tables[rows]), p(positions[rows]),
+                 *(p(t) for t in rope), *(p(t) for t in scratch), L, bg, h,
+                 num_heads, num_kv_heads, hd, ffn, NB, BT, MB, float(eps),
+                 _build.stream_of(x))
+        fused_paged_decode_cuda.launches += 1
+        _build.check(err, f"fused_paged_decode_{arch}")
+        return x_out
+
+    return in_row_groups(step, b, GROUP_ROWS), kv_pool
 
 
 fused_paged_decode_cuda.launches = 0
@@ -1037,20 +1115,19 @@ def fused_paged_verify_reference(x, params, kv_pool, block_tables, positions,
     return torch.stack(outs, dim=1), kv_pool
 
 
-#: K7 takes at most this many tail rows (b·K1) in one launch: the GEMMs
-#: pad the rows to 16-row tensor-core tiles, at most four
-VERIFY_MAX_ROWS = 64
-
-
 def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                             cos, sin, *, num_heads: int, num_kv_heads: int,
                             eps: float = 1e-5, arch: str = "llama"):
-    """Wrapper of K7 (one call = one verify step through all L layers for
-    the b·K1 tail rows, 1 + 13L launches on the current stream; 1 + 12L
-    for arch gpt, which takes no rope: cos/sin are ignored). Checks dtype,
-    shape, contiguity and device and raises on anything else. Positions
-    and tables are read on the device; tail positions whose block index
-    reaches MB append to scratch block 0."""
+    """Wrapper of K7: one verify step through all L layers for the b·K1
+    tail rows, arch llama or gpt (no rope: cos/sin are ignored). One launch
+    takes whole slots, up to ``GROUP_ROWS`` tail rows (1 + 13L kernels on
+    the current stream); more slots run as consecutive launches over
+    ``row_groups`` of slots (their x, tables, positions and rope rows; the
+    pool is shared). ``launches`` counts launches, one per group. Checks
+    dtype, shape, contiguity and device and raises on anything else
+    (K1 above ``GROUP_ROWS``: one slot's tail would not fit a launch).
+    Positions and tables are read on the device; tail positions whose
+    block index reaches MB append to scratch block 0."""
     what = "fused_paged_verify_cuda"
     _check_arch(what, arch)
     if x.dim() != 3 or kv_pool.dim() != 4 or block_tables.dim() != 2:
@@ -1058,15 +1135,14 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                          f"the pool (L, NB, BT, 2*nkv*hd) and block_tables "
                          "(b, MB)")
     b, K1, h = x.shape
-    if not 1 <= b * K1 <= VERIFY_MAX_ROWS:
-        raise ValueError(f"{what}: b·K1 = {b}·{K1} rows; K7 takes 1.."
-                         f"{VERIFY_MAX_ROWS}")
+    if b < 1 or not 1 <= K1 <= GROUP_ROWS:
+        raise ValueError(f"{what}: b·K1 = {b}·{K1}; K7 takes b >= 1 and a "
+                         f"tail of 1..{GROUP_ROWS} tokens")
     if not x.is_contiguous():
         raise ValueError(f"{what}: x not contiguous")
     rows = x.view(b * K1, h)
     specs, (M, h, hd, ffn) = _stack_specs(what, rows, params, kv_pool,
                                           num_heads, num_kv_heads,
-                                          max_rows=VERIFY_MAX_ROWS,
                                           arch=arch, int8_row="6")
     L, NB, BT, _ = kv_pool.shape
     MB = block_tables.shape[1]
@@ -1076,28 +1152,30 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
         + _rope_specs(cos, sin, (b, K1, hd), arch), x.device)
     lib = _kernel_lib()
     nh, nkv = num_heads, num_kv_heads
-    dq, dkv = nh * hd, nkv * hd
-    dev = x.device
-    f32, bf = torch.float32, torch.bfloat16
-    x_out = torch.empty_like(x)
-    scratch = (torch.empty((M, h), dtype=f32, device=dev),
-               torch.empty((M, h), dtype=bf, device=dev),
-               torch.empty((M, dq + 2 * dkv), dtype=f32, device=dev),
-               torch.empty((M, dq), dtype=bf, device=dev),
-               torch.empty((M, ffn), dtype=bf, device=dev),
-               torch.empty(lib.fused_paged_verify_llama_workspace(
-                   M, h, nh, nkv, hd, ffn), dtype=f32, device=dev))
-    rope = [] if arch == "gpt" else [cos, sin]
     p = _build.ptr
     fn = (lib.fused_paged_verify_gpt if arch == "gpt"
           else lib.fused_paged_verify_llama)
-    err = fn(p(x), p(x_out), *(p(params[k]) for k in _keys(arch)),
-             p(kv_pool), p(block_tables), p(positions),
-             *(p(t) for t in rope), *(p(t) for t in scratch), L, b, K1, h,
-             nh, nkv, hd, ffn, NB, BT, MB, float(eps), _build.stream_of(x))
-    fused_paged_verify_cuda.launches += 1
-    _build.check(err, f"fused_paged_verify_{arch}")
-    return x_out, kv_pool
+    weights = [p(params[k]) for k in _keys(arch)]
+
+    def step(slots):
+        xg = x[slots]
+        bg = xg.shape[0]
+        x_out = torch.empty_like(xg)
+        scratch = _scratch(xg.view(bg * K1, h), nh, nkv, hd, ffn, arch,
+                           lib.fused_paged_verify_workspace(
+                               bg, K1, h, nh, nkv, hd, ffn, MB * BT,
+                               int(arch == "gpt")))
+        rope = [] if arch == "gpt" else [cos[slots], sin[slots]]
+        err = fn(p(xg), p(x_out), *weights, p(kv_pool),
+                 p(block_tables[slots]), p(positions[slots]),
+                 *(p(t) for t in rope), *(p(t) for t in scratch), L, bg, K1,
+                 h, nh, nkv, hd, ffn, NB, BT, MB, float(eps),
+                 _build.stream_of(x))
+        fused_paged_verify_cuda.launches += 1
+        _build.check(err, f"fused_paged_verify_{arch}")
+        return x_out
+
+    return in_row_groups(step, b, GROUP_ROWS // K1), kv_pool
 
 
 fused_paged_verify_cuda.launches = 0

@@ -272,8 +272,10 @@ class _PriorityQueue:
 class ServingEngine:
     """Continuous-batching decode over a paged KV pool.
 
-    ``max_slots`` is the decode batch width (one K5 launch serves all
-    slots; at most 64 on the card). The pool holds ``num_blocks`` blocks of
+    ``max_slots`` is the decode batch width (one K5 call serves all
+    slots: one launch up to 64 rows, consecutive launches over groups of
+    rows beyond; a speculative tick's K7 call groups whole slots of k + 1
+    tail rows the same way). The pool holds ``num_blocks`` blocks of
     ``block_tokens`` tokens — sized directly, by byte budget
     (``pool_bytes``), or defaulted to the worst case (every slot filled to
     ``max_seq_len``). Admission reserves each request's worst-case blocks
@@ -342,11 +344,6 @@ class ServingEngine:
         if self.arch not in ("llama", "gpt"):
             raise ValueError(
                 f"paged serving supports arch llama/gpt, got {self.arch!r}")
-        from paddle_tpu_torch.ops.fused_decode import DECODE_MAX_ROWS
-        if self.device.type == "cuda" and max_slots > DECODE_MAX_ROWS:
-            raise ValueError(f"max_slots {max_slots} > {DECODE_MAX_ROWS}: "
-                             "the paged decode kernel takes at most "
-                             f"{DECODE_MAX_ROWS} rows")
         if max_seq_len % block_tokens:
             raise ValueError(
                 f"max_seq_len {max_seq_len} must be a multiple of "
@@ -364,13 +361,6 @@ class ServingEngine:
                 raise ValueError(
                     f"speculate k {speculate.k} must be < max_seq_len "
                     f"{max_seq_len}")
-            from paddle_tpu_torch.ops.fused_decode import VERIFY_MAX_ROWS
-            if self.device.type == "cuda" \
-                    and (speculate.k + 1) * max_slots > VERIFY_MAX_ROWS:
-                raise ValueError(
-                    f"(k + 1) · max_slots = {speculate.k + 1} · {max_slots}"
-                    f" > {VERIFY_MAX_ROWS}: the paged verify kernel takes "
-                    f"at most {VERIFY_MAX_ROWS} tail rows")
         self.meta = meta
         self.cache_dtype = cache_dtype
         self.block_tokens = int(block_tokens)

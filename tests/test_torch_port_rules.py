@@ -172,7 +172,9 @@ def test_spec_engine_counters_stay_zero_on_cpu():
 
 def test_verify_wrapper_refuses_what_k7_does_not_take():
     """fused_paged_verify_cuda raises on CPU tensors, a wrong dtype, a
-    non-contiguous x and more than 64 tail rows, before any launch."""
+    non-contiguous x and a tail longer than one launch takes (65 tokens),
+    before any launch; 8 slots x 9 tokens (72 tail rows, two launches of
+    whole slots) get as far as the device check."""
     from paddle_tpu_torch.ops import fused_decode as fd
     L, h, nh, nkv, hd, ffn, b, k1 = 1, 64, 2, 1, 64, 64, 2, 3
     bf = torch.bfloat16
@@ -199,9 +201,14 @@ def test_verify_wrapper_refuses_what_k7_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         call(torch.zeros(b, h, k1, dtype=bf).transpose(1, 2), p, pool, tab,
              pos, rows, rows)
-    big = torch.zeros(8, 9, h, dtype=bf)
-    with pytest.raises(ValueError, match="64"):
-        call(big, p, pool, tab, pos, rows, rows)
+    long_tail = torch.zeros(1, 65, h, dtype=bf)
+    with pytest.raises(ValueError, match="1..64"):
+        call(long_tail, p, pool, tab[:1], pos[:1], rows[:1], rows[:1])
+    wide = torch.zeros(8, 9, h, dtype=bf)
+    with pytest.raises(ValueError, match="cuda"):
+        call(wide, p, pool, torch.zeros(8, 2, dtype=torch.int32),
+             torch.zeros(8, dtype=torch.int32), torch.zeros(8, 9, hd),
+             torch.zeros(8, 9, hd))
     assert fd.fused_paged_verify_cuda.launches == 0
 
 
@@ -234,7 +241,8 @@ def test_moe_counter_stays_zero_through_a_cpu_generate():
 def test_moe_step_refuses_int8_and_what_k6_does_not_take():
     """fused_decode_step(arch="moe") raises on int8 KV scales and int8
     weights (ROADMAP Queue B row 7); the K6 wrapper raises on CPU tensors,
-    a wrong dtype and more rows than it takes, before any launch."""
+    a wrong dtype and a top_k above the experts, before any launch; b = 9
+    (two launches of rows) gets as far as the device check."""
     from paddle_tpu_torch.ops import fused_decode as fd
     m = _tiny_moe(hidden_size=128, num_heads=2, num_kv_heads=1)   # hd 64
     params = fd.build_fused_params_moe(m.state_dict(include_buffers=False),
@@ -255,19 +263,22 @@ def test_moe_step_refuses_int8_and_what_k6_does_not_take():
         call(x, params, kv)                                # CPU tensors
     with pytest.raises(TypeError, match="float32"):
         call(x.float(), params, kv)
-    with pytest.raises(ValueError, match="unsupported b=9"):
+    with pytest.raises(ValueError, match="cuda"):
         call(torch.zeros(9, 128, dtype=torch.bfloat16), params,
              torch.zeros(2, 9, 16, 128, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="top_k=9"):
+        fd.fused_decode_moe_cuda(x, params, kv, 3, rows, rows, num_heads=2,
+                                 num_kv_heads=1, top_k=9)
     assert fd.fused_decode_moe_cuda.launches == 0
 
 
 def test_decode_wrappers_take_64_rows():
-    """K2 and K5 (llama and gpt) take 1..64 rows: at b = 64 their wrappers
-    get as far as the device check (CPU tensors), at b = 65 they refuse the
-    width; K6 keeps its 8 (its refusal of b = 9 is checked above). Nothing
-    launches."""
+    """K2 and K5 (llama and gpt) take 64 rows a launch and any batch in
+    groups of rows: at b = 64 and b = 65 their wrappers get as far as the
+    device check (CPU tensors), at b = 0 they refuse; K6 takes 8 rows a
+    launch (its b = 9 is checked above). Nothing launches."""
     from paddle_tpu_torch.ops import fused_decode as fd
-    assert fd.DECODE_MAX_ROWS == 64 == fd.VERIFY_MAX_ROWS
+    assert fd.GROUP_ROWS == 64
     assert fd.MOE_MAX_ROWS == 8
     L, h, nh, hd, ffn, BT, MB = 1, 128, 2, 64, 256, 16, 2
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
@@ -281,7 +292,7 @@ def test_decode_wrappers_take_64_rows():
     fd.fused_decode_cuda.launches = 0
     fd.fused_paged_decode_cuda.launches = 0
     for arch, p in (("llama", llama), ("gpt", gpt)):
-        for b, match in ((64, "cuda"), (65, "unsupported b=65")):
+        for b, match in ((64, "cuda"), (65, "cuda"), (0, "unsupported b=0")):
             rope = torch.zeros(1, hd), torch.zeros(1, hd)
             with pytest.raises(ValueError, match=match):
                 fd.fused_decode_cuda(z(b, h), p, z(L, b, 32, 2 * h), 3,
@@ -893,12 +904,12 @@ def test_fused_decode_int8_modes_match_plain(cuda, w8, kv8):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [16, 33, 64])
+@pytest.mark.parametrize("b", [16, 33, 64, 65])
 @pytest.mark.parametrize("w8", [False, True])
 def test_decode_kernels_take_wide_rows(cuda, b, w8):
-    """K2 at b = 16, 33 and 64 rows (the product engine's N of 16, 64 and
-    64), bf16 and int8 weights, against its plain version, five launches
-    bitwise equal (int8: at these widths the down product's units are one
+    """K2 at b = 16, 33, 64 and 65 rows (the product engine's N of 16, 64
+    and 64; 65 rows run as two launches of 33 and 32), bf16 and int8
+    weights, against its plain version, five launches bitwise equal (int8: at these widths the down product's units are one
     stage each, so half the consumer groups store zero partials with no
     stage to wait on, while the SwiGLU epilogue before it may still read
     the same workspace); with bf16 weights also K5 over a shuffled table
@@ -990,3 +1001,174 @@ def test_smem_probe_reads_the_opt_in_budget(cuda):
     assert got == optin > 48 * 1024
     assert smem_probe.smem_probe_cuda(got, cuda)
     assert not smem_probe.smem_probe_cuda(got + smem_probe.STEP, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama", "gpt"])
+def test_paged_verify_kernel_takes_wide_rows(cuda, arch):
+    """K7 at 16 slots x a 5-token tail (80 tail rows: two launches of 8
+    slots) against its plain version over a shuffled table, the last slot
+    idle: x_out of every token, the appended rows, the rest of the pool
+    untouched; two steps bitwise equal; one launch per group."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, K1, nh, nkv, hd, BT, MB = 2, 16, 5, 4, 2, 64, 16, 8
+    h, ffn = nh * hd, 3 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(16)
+    if arch == "gpt":
+        nkv = nh
+        p = _gpt_cuda_params(g, L, h, ffn)
+    else:
+        p = _llama_cuda_params(L, h, nh, nkv, ffn, False)
+    x = torch.randn(b, K1, h, generator=g, device=cuda).bfloat16()
+    pool = torch.randn(L, 1 + b * MB, BT, 2 * nkv * hd, generator=g,
+                       device=cuda).bfloat16()
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(2))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32)
+    tab[-1] = 0
+    tab = tab.to(cuda)
+    positions = np.random.RandomState(3).randint(0, MB * BT - K1, b)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    c = s = None
+    if arch == "llama":
+        cos, sin = rope_cos_sin(MB * BT, hd, device=cuda)
+        pj = pos.long()[:, None] + torch.arange(K1, device=cuda)[None]
+        c, s = cos[pj], sin[pj]
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
+    n0 = fd.fused_paged_verify_cuda.launches
+    xk, pk = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos, c, s,
+                                        **kw)
+    assert fd.fused_paged_verify_cuda.launches - n0 == 2
+    xk2, pk2 = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos, c,
+                                          s, **kw)
+    assert torch.equal(xk[:-1], xk2[:-1])
+    assert torch.equal(pk[:, 1:], pk2[:, 1:])
+    xr, pr = fd.fused_paged_verify_reference(x, p, pool.clone(), tab, pos,
+                                             c, s, **kw)
+    torch.testing.assert_close(xk[:-1].float(), xr[:-1].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(pk[:, 1:].float(), pr[:, 1:].float(),
+                               atol=5e-2, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BT", [8, 12, 48])
+def test_paged_verify_kernel_takes_any_block_tokens(cuda, BT):
+    """K7's attention loads a stage's keys by TMA boxes of gcd(BT, 64)
+    rows when BT is a multiple of 8 (8, 48), else by cp.async (12); either
+    way against the plain verify, tails crossing pool blocks, the last row
+    idle; two steps bitwise equal."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, K1, nh, nkv, hd = 2, 4, 5, 4, 2, 128
+    h, ffn = nh * hd, 2 * nh * hd
+    MB = 600 // BT
+    g = torch.Generator(device=cuda).manual_seed(BT)
+    p = _llama_cuda_params(L, h, nh, nkv, ffn, False)
+    x = torch.randn(b, K1, h, generator=g, device=cuda).bfloat16()
+    pool = torch.randn(L, 1 + b * MB, BT, 2 * nkv * hd, generator=g,
+                       device=cuda).bfloat16()
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(3))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32)
+    tab[-1] = 0
+    tab = tab.to(cuda)
+    positions = [MB * BT - 1 - K1 - 3 * BT, 2 * BT - 2, 513, 7]
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    cos, sin = rope_cos_sin(MB * BT, hd, device=cuda)
+    pj = pos.long()[:, None] + torch.arange(K1, device=cuda)[None]
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xk, pk = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos,
+                                        cos[pj], sin[pj], **kw)
+    xk2, pk2 = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos,
+                                          cos[pj], sin[pj], **kw)
+    assert torch.equal(xk[:-1], xk2[:-1])
+    assert torch.equal(pk[:, 1:], pk2[:, 1:])
+    xr, pr = fd.fused_paged_verify_reference(x, p, pool.clone(), tab, pos,
+                                             cos[pj], sin[pj], **kw)
+    torch.testing.assert_close(xk[:-1].float(), xr[:-1].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(pk[:, 1:].float(), pr[:, 1:].float(),
+                               atol=5e-2, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [9, 16])
+def test_moe_decode_kernel_takes_wide_rows(cuda, b):
+    """K6 at b = 9 and 16 rows (two launches of rows, top-2 of 8 experts)
+    against its plain version taking K6's experts, two steps bitwise
+    equal, the routing of every row returned."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    m = _tiny_moe(hidden_size=128, num_heads=2, num_kv_heads=1)
+    m = m.to(cuda)
+    params = {k: v.to(cuda) for k, v in fd.build_fused_params_moe(
+        m.state_dict(include_buffers=False), 2).items()}
+    g = torch.Generator(device=cuda).manual_seed(b)
+    S, pos = 64, 40
+    x = torch.randn(b, 128, generator=g, device=cuda).bfloat16()
+    kv = torch.randn(2, b, S, 2 * 64, generator=g, device=cuda).bfloat16()
+    kv[:, :, pos:] = 0
+    cos, sin = rope_cos_sin(S, 64, device=cuda)
+    kw = dict(num_heads=2, num_kv_heads=1, eps=1e-5, top_k=2)
+    rk, rk2 = {}, {}
+    n0 = fd.fused_decode_moe_cuda.launches
+    xk, kvk = fd.fused_decode_moe_cuda(x, params, kv.clone(), pos,
+                                       cos[pos:pos + 1], sin[pos:pos + 1],
+                                       routing=rk, **kw)
+    assert fd.fused_decode_moe_cuda.launches - n0 == 2
+    xk2, kvk2 = fd.fused_decode_moe_cuda(x, params, kv.clone(), pos,
+                                         cos[pos:pos + 1], sin[pos:pos + 1],
+                                         routing=rk2, **kw)
+    assert torch.equal(xk, xk2) and torch.equal(kvk, kvk2)
+    assert tuple(rk["ids"].shape) == (2, b, 2)
+    assert torch.equal(rk["ids"], rk2["ids"])
+    forced = {"force_ids": rk["ids"].long()}
+    xr, kvr = fd.fused_decode_reference(x, params, kv.clone(), pos,
+                                        cos[pos:pos + 1], sin[pos:pos + 1],
+                                        arch="moe", routing=forced, **kw)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,k", [(65, 0), (16, 4)])
+def test_wide_engines_run_on_the_card(cuda, slots, k):
+    """ServingEngine at 65 slots (K5 in two launches a tick) and at 16
+    slots speculating k = 4 (K7 in two launches a tick) on a tiny llama:
+    every slot busy at once, every request at its full length, the
+    launches as the row groups say, no leaked block."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2)
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda",
+                             seed=0)
+    eng = ServingEngine(model, max_slots=slots, block_tokens=16,
+                        max_seq_len=64, device="cuda",
+                        speculate=SpecConfig(k=k) if k else None)
+    r = np.random.RandomState(slots)
+    reqs = [(r.randint(0, 256, int(n)), int(m)) for n, m in
+            zip(r.randint(4, 24, slots), r.randint(3, 9, slots))]
+    fd.fused_paged_decode_cuda.launches = 0
+    fd.fused_paged_verify_cuda.launches = 0
+    rids = [eng.submit(Request(p, max_new_tokens=m)) for p, m in reqs]
+    eng.step()
+    assert eng.active_slots == slots
+    eng.drain(max_steps=200)
+    assert [len(eng.results[i].tokens) for i in rids] == [m for _, m in reqs]
+    st = eng.stats
+    groups = len(fd.row_groups(slots, fd.GROUP_ROWS // (k + 1)))
+    assert groups == 2
+    if k:
+        assert fd.fused_paged_verify_cuda.launches == \
+            groups * st["spec_ticks"] > 0
+        assert fd.fused_paged_decode_cuda.launches == \
+            st["steps"] - st["spec_ticks"] + st["replay_tokens"]
+    else:
+        assert fd.fused_paged_decode_cuda.launches == \
+            groups * (st["steps"] + st["replay_tokens"])
+    eng.prefix_cache.clear()
+    assert eng.pool.used_blocks == 0

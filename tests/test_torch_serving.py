@@ -8,7 +8,8 @@ CPU, where the decode step is the paged plain version:
   every request's tokens EQUAL the JAX engine's and the port's own isolated
   ``generate``, greedy and sampled (per-request seeds);
 * 14 greedy requests through 12 slots (past the kernels' old 8 rows): the
-  JAX engine's tokens and steps;
+  JAX engine's tokens and steps; 66 through 65 slots and 17 through 16
+  slots speculating k = 4 (wider than one launch on the card), likewise;
 * shared prefix blocks stay byte-unchanged while a second request adopts
   them (copy-on-write), and ``prefill_tokens_reused`` counts them;
 * eos retires a slot and frees its blocks at once;
@@ -129,6 +130,47 @@ def test_serving_engine_twelve_slots_matches_jax(pair):
         assert got == je.results[jrid].tokens.tolist()
     assert eng.stats["steps"] == je.stats["steps"]
     assert tfd.fused_paged_decode_cuda.launches == 0
+
+
+@pytest.mark.parametrize("case", ["65_slots", "16_slots_spec_k4"])
+def test_wide_serving_engines_match_jax(pair, case):
+    """Engines wider than one kernel launch (on the card, K5 takes 64 rows
+    a launch and K7 64 tail rows, whole slots; wider steps run in groups of
+    rows): 65 slots, and 16 slots speculating k = 4 (80 tail rows). Every
+    slot is busy at once; the greedy tokens (and the speculative counts)
+    equal the JAX engine's."""
+    jm, tm = pair
+    slots = 65 if case == "65_slots" else 16
+    rng = np.random.RandomState(slots)
+    motif = rng.randint(3, 256, (6,))
+    prompts = [np.tile(motif, 3) if i % 3 == 0 else
+               rng.randint(3, 256, (int(rng.randint(4, 24)),))
+               for i in range(slots + 1)]
+    max_new = [int(n) for n in rng.randint(3, 9, slots + 1)]
+    engine = dict(max_slots=slots, block_tokens=16, max_seq_len=48)
+    spec = case != "65_slots"
+    tspec = dict(speculate=tserving.SpecConfig(k=4)) if spec else {}
+    from paddle_tpu.serving import spec as jspec_mod
+    jspec = dict(speculate=jspec_mod.SpecConfig(k=4)) if spec else {}
+    eng = ServingEngine(tm, **engine, device="cpu", **tspec)
+    rids = [eng.submit(Request(p, max_new_tokens=n))
+            for p, n in zip(prompts, max_new)]
+    eng.step()
+    assert eng.active_slots == slots
+    eng.drain(max_steps=400)
+    je = jserving.ServingEngine(jm, **engine, **jspec)
+    jrids = [je.submit(jserving.Request(p, max_new_tokens=n))
+             for p, n in zip(prompts, max_new)]
+    je.drain(max_steps=400)
+    for rid, jrid, n in zip(rids, jrids, max_new):
+        got = eng.results[rid].tokens.tolist()
+        assert len(got) == n
+        assert got == je.results[jrid].tokens.tolist()
+    keys = ("steps", "decode_tokens") + (
+        ("spec_ticks", "spec_proposed", "spec_accepted") if spec else ())
+    assert {k: eng.stats[k] for k in keys} == {k: je.stats[k] for k in keys}
+    assert tfd.fused_paged_decode_cuda.launches == 0
+    assert tfd.fused_paged_verify_cuda.launches == 0
 
 
 def test_prefix_reuse_copy_on_write(pair):
