@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
               appended cache row; then at 1, 9, 16, 33, 64 and 65 rows (the
               product engine's wgmma widths N = 8 … 64, and two launches of
               33 + 32 rows, on inputs from a generator of their own), two
-              launches bitwise equal.
+              launches bitwise equal; then at the split-KV attention's
+              chunk edges (EDGE_POS: positions 0, 1, 511, 512, 513, 1023,
+              1024, 1500 of a 1501-row cache; b=2, MHA), two launches
+              bitwise equal.
   5. k3     — flash-attention backward kernels (K3 dq, K4 dk/dv) through
               the autograd Function vs the plain fp32 backward on the same
               forward's (out, lse): the GPT-2 training shape, a GQA d=128
@@ -36,7 +39,9 @@ Phases, each printing one JSON line:
               in the llama mode and (GPT-2 345M width) in the gpt mode;
               then at 1, 9, 16, 33, 64 and 65 rows (drawn positions, the
               last row idle) and bitwise against K2 at 33 and 65 rows, both
-              modes.
+              modes; then one row at each chunk edge over blocks of 128,
+              16 and 12 tokens (12: the cp.async path), two launches
+              bitwise equal, and K5 = K2 bitwise at each edge, both modes.
   7. k7     — paged verify kernel (K7) vs its plain version at Llama-2-7B
               width with 2 layers, b=8, a 5-token tail per row, over a
               shuffled table (BT 128, 16 blocks per row), MHA and GQA:
@@ -56,7 +61,8 @@ Phases, each printing one JSON line:
               near-tie at the top-k boundary, K6_FLIP_GAP), the rest of the
               cache unchanged, two launches bitwise equal, every row routed
               alike (one expert slot serves all 4 rows), and the gate ×8
-              held strictly; then b=9 and b=16 (two launches of rows).
+              held strictly; then b=9 and b=16 (two launches of rows); at
+              DeepSeekMoE-16B width also b=2 at each chunk edge (S 1501).
   8e. wide  — steps wider than one launch through the entry points, tiny
               models at head width 64 against the same weights on the CPU:
               Llama `generate` at b=65 (K2 in 33 + 32 rows) and a 65-slot
@@ -73,7 +79,8 @@ Phases, each printing one JSON line:
               mixed positions, an idle row) and k7's edge cases (b=8 × a
               5-token tail); x_out, the appended rows, the rest of the
               cache or pool unchanged, two launches bitwise equal; k2g and
-              k5g also at 1, 9, 16, 33 and 64 rows.
+              k5g also at 1, 9, 16, 33 and 64 rows, k5g with one row at
+              each chunk edge.
   8b. k2q   — K2's int8 modes vs their plain versions, 2 layers, b=4, S 1152,
               pos 1056: Llama-2-7B width with int8 weights (per-out-channel
               scales), with an int8 KV cache (per-(layer, kv head) scales),
@@ -81,7 +88,9 @@ Phases, each printing one JSON line:
               int8 KV cache; x_out at K2's tolerance, the appended int8 rows
               within one int8 step (lanes one step apart counted), the rest
               of the cache unchanged, two launches bitwise equal; then
-              int8 weights at 1, 9, 16, 33 and 64 rows (bf16, int8 KV).
+              int8 weights at 1, 9, 16, 33 and 64 rows (bf16, int8 KV);
+              then the int8 cache at each chunk edge (llama and gpt, one
+              layer, b=2, S 1501).
   8c. k8    — RMSNorm rows (K8) vs the plain rms_norm at the Llama-2-7B
               prefill shape (4·1024, 4096) bf16, with and without the
               weight (the one-pass kernel), a (1024, 8192) bf16 case (the
@@ -93,8 +102,9 @@ Phases, each printing one JSON line:
   8d. k9    — the shared-memory probe (K9): it equals the device's opt-in
               shared memory per block, a launch one step above is refused,
               and every dynamic shared-memory request of the kernels at the
-              smoke's shapes (the product engine's at each N, bf16 and int8
-              weights, among them) fits it.
+              smoke's shapes (the split-KV attention's at head_dim 64 and
+              128 over bf16 and int8 caches, the product engine's at each
+              N, bf16 and int8 weights, among them) fits it.
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -432,6 +442,14 @@ def stack_params(gen, arch, L, nkv):
 #: two launches, 33 + 32 rows)
 WIDE_ROWS = (1, 9, 16, 33, 64, 65)
 
+#: the split-KV attention's chunk edges (512-key chunks): one key, two, a
+#: full chunk, one key past it and two, two full chunks and one key past
+#: them, and a third chunk part-filled; the contiguous cases run over a
+#: cache of EDGE_S rows, so the last position is the cache's last row
+#: (its boxes reach past the slab, which reads as zeros)
+EDGE_POS = (0, 1, 511, 512, 513, 1023, 1024, 1500)
+EDGE_S = 1501
+
 
 def wide_nkv(b):
     """The llama wide cases' kv heads: MHA at 1 and 16 rows, GQA (8) at
@@ -507,12 +525,17 @@ def phase_k2g(fd, rope, gen):
 
 def phase_k2(fd, rope, gen):
     """K2 at Llama-2-7B width, 2 layers, b=4 (MHA and GQA nkv=8), then at
-    WIDE_ROWS rows (wide_nkv's heads, two launches bitwise equal)."""
+    WIDE_ROWS rows (wide_nkv's heads, two launches bitwise equal), then at
+    the chunk edges EDGE_POS (b=2, MHA, two launches bitwise equal)."""
     cases = [k2_case(fd, rope, gen, 32), k2_case(fd, rope, gen, 8)]
     wg = wide_gen(20)
     cases += [k2_case(fd, rope, wg, wide_nkv(b), b=b, twice=True)
               for b in WIDE_ROWS]
-    emit({"phase": "k2", "cases": cases})
+    eg = wide_gen(30)
+    edges = [k2_case(fd, rope, eg, 32, b=2, S=EDGE_S, pos=p, twice=True)
+             for p in EDGE_POS]
+    emit({"phase": "k2", "cases": cases, "chunk_edges": edges})
+    cases += edges
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K2 disagrees with its plain version: {bad}")
@@ -524,24 +547,24 @@ def phase_k2(fd, rope, gen):
 K5_BT, K5_MB = 128, 16     # the serve phase's block size and blocks per row
 
 
-def k5_pool(gen, L, dkv2, positions, idle=()):
-    """A random pool and a shuffled block table: row r owns
-    ceil((pos_r + 1) / BT) private blocks drawn from a permutation, the
-    rest of its table (and all of an idle row's) points at scratch block 0.
-    Returns (pool, tables (b, MB) int32 cuda)."""
+def k5_pool(gen, L, dkv2, positions, idle=(), bt=K5_BT, mb=K5_MB):
+    """A random pool of bt-token blocks and a shuffled block table of mb
+    blocks a row: row r owns ceil((pos_r + 1) / bt) private blocks drawn
+    from a permutation, the rest of its table (and all of an idle row's)
+    points at scratch block 0. Returns (pool, tables (b, mb) int32 cuda)."""
     b = len(positions)
-    nb = 1 + b * K5_MB
+    nb = 1 + b * mb
     perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
         len(positions) + L)) + 1
-    tables = torch.zeros((b, K5_MB), dtype=torch.int32)
+    tables = torch.zeros((b, mb), dtype=torch.int32)
     nxt = 0
     for r, pos in enumerate(positions):
         if r in idle:
             continue
-        need = pos // K5_BT + 1
+        need = pos // bt + 1
         tables[r, :need] = perm[nxt:nxt + need].to(torch.int32)
         nxt += need
-    pool = rand((L, nb, K5_BT, dkv2), gen)
+    pool = rand((L, nb, bt, dkv2), gen)
     return pool, tables.cuda()
 
 
@@ -554,18 +577,19 @@ def wide_positions(b, seed):
 
 
 def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
-            twice=False):
-    """K5 against its plain version; the gpt mode (and `twice`) also
-    launches twice and holds the two results bitwise equal."""
+            twice=False, bt=K5_BT, mb=K5_MB):
+    """K5 against its plain version over a pool of bt-token blocks, mb a
+    row; the gpt mode (and `twice`) also launches twice and holds the two
+    results bitwise equal."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     b = len(positions)
     params = stack_params(gen, arch, L, nkv)
-    pool, tables = k5_pool(gen, L, 2 * nkv * hd, positions, idle)
+    pool, tables = k5_pool(gen, L, 2 * nkv * hd, positions, idle, bt, mb)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     c = s = None
     if arch != "gpt":
-        cos, sin = rope.rope_cos_sin(K5_BT * K5_MB, hd, device="cuda")
+        cos, sin = rope.rope_cos_sin(bt * mb, hd, device="cuda")
         c, s = cos.index_select(0, pos), sin.index_select(0, pos)
     x = rand((b, h), gen)
     kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
@@ -584,8 +608,8 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
                                                  pos, c, s, **kw)
     active = [r for r in range(b) if r not in idle]
     err, ok_x = close(xo[active], xr[active], K2_ATOL, K2_RTOL)
-    bids = tables.long()[active, pos.long()[active] // K5_BT]
-    offs = pos.long()[active] % K5_BT
+    bids = tables.long()[active, pos.long()[active] // bt]
+    offs = pos.long()[active] % bt
     row_err, ok_row = close(pool_k[:, bids, offs], pool_r[:, bids, offs],
                             K2_ATOL, K2_RTOL)
     # every other row of every block but scratch is untouched by both
@@ -595,8 +619,8 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
     untouched = bool(torch.equal(pool_k[:, mask], pool_r[:, mask]))
     ok = (ok_x and ok_row and untouched and repeat is not False
           and bool(torch.isfinite(xo.float()).all()))
-    res = {"nkv": nkv, "L": L, "b": b, "block_tokens": K5_BT,
-           "blocks_per_row": K5_MB, "positions": positions,
+    res = {"nkv": nkv, "L": L, "b": b, "block_tokens": bt,
+           "blocks_per_row": mb, "positions": positions,
            "idle_rows": list(idle), "max_abs_err": err,
            "row_max_abs_err": row_err, "rest_of_pool_unchanged": untouched,
            "atol": K2_ATOL, "rtol": K2_RTOL, "ok": ok}
@@ -609,7 +633,8 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
 
 def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300, arch="llama"):
     """Every row at one position over the same KV: K5 through a shuffled
-    block table must give K2's bits (same products, same attention code)."""
+    block table must give K2's bits (same products, same attention code,
+    the same chunks merged in the same order)."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     dkv2 = 2 * nkv * hd
@@ -650,7 +675,8 @@ def phase_k5(fd, rope, gen):
     idle row (MHA and GQA), bitwise against K2 at b=8 (llama and gpt);
     then at WIDE_ROWS rows (drawn positions, the last row idle; two
     launches bitwise equal) and bitwise against K2 at b=33 and b=65 (two
-    launches of rows each)."""
+    launches of rows each); then at the chunk edges EDGE_POS, over blocks of
+    128, 16 and 12 tokens, and bitwise against K2 at each edge."""
     mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
     cases = [k5_case(fd, rope, gen, 32, mixed, idle=(4,)),
              k5_case(fd, rope, gen, 8, mixed, idle=(4,))]
@@ -667,15 +693,28 @@ def phase_k5(fd, rope, gen):
     bitwise65 = k5_vs_k2(fd, rope, wg, b=65)
     bitwise65_gpt = k5_vs_k2(fd, rope, wg, nkv=16, b=65, pos=1000,
                              arch="gpt")
+    # the chunk edges: one row at each of EDGE_POS, over blocks of 128
+    # tokens (MHA), 16 (GQA 4) and 12 (GQA 2: the cp.async path), two
+    # launches bitwise equal; K5 = K2 bitwise at each edge, both modes
+    eg = wide_gen(31)
+    edge = list(EDGE_POS)
+    edges = [k5_case(fd, rope, eg, 32, edge, (), twice=True),
+             k5_case(fd, rope, eg, 8, edge, (), twice=True, bt=16, mb=128),
+             k5_case(fd, rope, eg, 16, edge, (), twice=True, bt=12, mb=126)]
+    edges_vs_k2 = ([k5_vs_k2(fd, rope, eg, b=2, pos=p) for p in EDGE_POS]
+                   + [k5_vs_k2(fd, rope, eg, nkv=16, b=2, pos=p, arch="gpt")
+                      for p in EDGE_POS])
     emit({"phase": "k5", "cases": cases, "vs_k2": bitwise,
           "vs_k2_gpt": bitwise_gpt, "vs_k2_b33": bitwise33,
           "vs_k2_gpt_b33": bitwise33_gpt, "vs_k2_b65": bitwise65,
-          "vs_k2_gpt_b65": bitwise65_gpt})
+          "vs_k2_gpt_b65": bitwise65_gpt, "chunk_edges": edges,
+          "chunk_edges_vs_k2": edges_vs_k2})
+    cases += edges
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K5 disagrees with its plain version: {bad}")
-    for b in (bitwise, bitwise_gpt, bitwise33, bitwise33_gpt, bitwise65,
-              bitwise65_gpt):
+    for b in [bitwise, bitwise_gpt, bitwise33, bitwise33_gpt, bitwise65,
+              bitwise65_gpt] + edges_vs_k2:
         if not b["ok"]:
             raise AssertionError(f"K5 does not give K2's bits: {b}")
     return max(c["max_abs_err"] for c in cases)
@@ -684,14 +723,17 @@ def phase_k5(fd, rope, gen):
 def phase_k5g(fd, rope, gen):
     """K5's gpt mode at GPT-2 345M width, 2 layers, b=8 over a shuffled
     table at mixed positions with one idle row (phase k5's rows), then at
-    WIDE_ROWS rows."""
+    WIDE_ROWS rows, then one row at each chunk edge EDGE_POS."""
     mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
     cases = [k5_case(fd, rope, gen, 16, mixed, idle=(4,), arch="gpt")]
     wg = wide_gen(23)
     for b in WIDE_ROWS:
         positions, idle = wide_positions(b, 200 + b)
         cases.append(k5_case(fd, rope, wg, 16, positions, idle, arch="gpt"))
-    emit({"phase": "k5g", "cases": cases})
+    edge = k5_case(fd, rope, wide_gen(32), 16, list(EDGE_POS), (),
+                   arch="gpt")
+    emit({"phase": "k5g", "cases": cases, "chunk_edges": edge})
+    cases.append(edge)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K5 (gpt) disagrees with its plain version: "
@@ -1035,9 +1077,11 @@ def phase_k6(fd, rope, gen):
     """K6 against its plain version at both widths, 2 layers, b=1 and b=4:
     random routing (the swap rule), one routing shared by all 4 rows, and
     the gate ×8 held strictly; then b=9 and b=16 (two launches of rows
-    each, inputs from a generator of their own)."""
+    each, inputs from a generator of their own); at DeepSeekMoE-16B width
+    also b=2 at the chunk edges EDGE_POS (S EDGE_S)."""
     cases = []
     wg = wide_gen(27)
+    eg = wide_gen(34)
     for width, w in K6_WIDTHS.items():
         params = moe_params(gen, 2, **w)
         cases.append(k6_case(fd, rope, gen, width, params, 1))
@@ -1045,6 +1089,9 @@ def phase_k6(fd, rope, gen):
         cases.append(k6_case(fd, rope, gen, width, params, 4,
                              same_rows=True))
         cases += [k6_case(fd, rope, wg, width, params, b) for b in (9, 16)]
+        if width == "deepseek_moe_16b":   # the attention half's chunk edges
+            cases += [k6_case(fd, rope, eg, width, params, 2, S=EDGE_S,
+                              pos=p) for p in EDGE_POS]
         params["gate"] = params["gate"] * 8      # exact in bf16
         cases.append(k6_case(fd, rope, gen, width, params, 4, strict=True))
         del params
@@ -1289,11 +1336,15 @@ def int8_rows(kv_k, kv_r, pos):
 
 
 def k2q_case(fd, rope, gen, nkv, w8, kv8, arch="llama", L=2, b=4, S=1152,
-             pos=1056):
+             pos=1056, calib_all=False):
     """One int8 mode of K2 against its plain version: x_out at K2's
     tolerance, the appended row (int8: within one int8 step, the lanes one
     step apart counted; bf16: K2's tolerance), the rest of the cache
-    unchanged, two launches bitwise equal."""
+    unchanged, two launches bitwise equal. calib_all: the int8 cache's
+    scales come from random rows at every position (the rows from pos on
+    are then zeroed), not from the filled prefix alone, which at pos 0 is
+    empty and leaves the floor scale 1e-8: an append then saturates to
+    ±127 by its sign, and any x noise flips it."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     params = int8_llama_params(L, nkv) if w8 else stack_params(gen, arch,
@@ -1303,7 +1354,13 @@ def k2q_case(fd, rope, gen, nkv, w8, kv8, arch="llama", L=2, b=4, S=1152,
     kv[:, :, :pos] = rand((L, b, pos, 2 * nkv * hd), gen)
     scales = None
     if kv8:
-        kv, scales = fd.quantize_kv_cache(kv, nkv)
+        src = kv
+        if calib_all:
+            src = kv.clone()
+            src[:, :, pos:] = rand((L, b, S - pos, 2 * nkv * hd), gen)
+        kv, scales = fd.quantize_kv_cache(src, nkv)
+        kv[:, :, pos:] = 0
+        del src
     x = rand((b, h), gen)
     c = s = None
     if arch != "gpt":
@@ -1352,7 +1409,8 @@ def phase_k2q(fd, rope, gen):
     """K2's int8 modes at Llama-2-7B width (MHA; both int8 modes also GQA
     nkv=8) and GPT-2 345M width (int8 KV), 2 layers, b=4, S 1152,
     pos 1056; then int8 weights at WIDE_ROWS rows (GQA, bf16 and int8 KV
-    in turn). Returns {mode: max |x_out - plain|}."""
+    in turn); then the int8 cache at the chunk edges EDGE_POS (one layer,
+    b=2, S EDGE_S, llama and gpt). Returns {mode: max |x_out - plain|}."""
     cases = {}
     for name, arch, w8, kv8 in K2Q_MODES:
         cases[name] = [k2q_case(fd, rope, gen, 16 if arch == "gpt" else 32,
@@ -1363,6 +1421,21 @@ def phase_k2q(fd, rope, gen):
     for i, b in enumerate(WIDE_ROWS):
         name = "llama_int8w" if i % 2 == 0 else "llama_int8w_int8kv"
         cases[name].append(k2q_case(fd, rope, wg, 8, True, i % 2 == 1, b=b))
+    # the int8 cache at the chunk edges (b=2, llama MHA and gpt), scales
+    # from random rows at every position (see k2q_case), one layer: over
+    # two, layer 1's appends are quantized from x that already carries bf16
+    # noise, hundreds of lanes land one int8 step apart, and at positions 1
+    # and 2 (one or two keys beside the append) that moves x_out past K2's
+    # tolerance for the kernel this one replaced as well
+    # (examples/torch_decode_accuracy.py --case int8kv)
+    eg = wide_gen(33)
+    for p in EDGE_POS:
+        cases["llama_int8kv"].append(k2q_case(fd, rope, eg, 32, False, True,
+                                              L=1, b=2, S=EDGE_S, pos=p,
+                                              calib_all=True))
+        cases["gpt_int8kv"].append(k2q_case(fd, rope, eg, 16, False, True,
+                                            arch="gpt", L=1, b=2, S=EDGE_S,
+                                            pos=p, calib_all=True))
     emit({"phase": "k2q", "cases": cases})
     bad = [c for cs in cases.values() for c in cs if not c["ok"]]
     if bad:
@@ -1458,9 +1531,9 @@ def phase_k9(fd, bw):
     over_refused = not sp.smem_probe_cuda(got + sp.STEP, dev)
     requests = {}
     for hd in (64, 128):
-        for rep in (1, 2, 4, 8):
-            requests[f"attention hd{hd} rep{rep}"] = fd.dynamic_smem_bytes(
-                "attention", hd, rep)
+        for kv8 in (0, 1):
+            requests[f"attention hd{hd}{' int8' if kv8 else ''}"] = \
+                fd.dynamic_smem_bytes("attention", hd, kv8)
         requests[f"verify_attention hd{hd}"] = fd.dynamic_smem_bytes(
             "verify_attention", hd)
     for mt in (1, 2, 3, 4):

@@ -7,7 +7,7 @@
     PYTHONPATH=. python3 examples/torch_decode_profile.py --verify
     PYTHONPATH=. python3 examples/torch_decode_profile.py --serve
     PYTHONPATH=. python3 examples/torch_decode_profile.py --moe
-    PYTHONPATH=. python3 examples/torch_decode_profile.py --gpt
+    PYTHONPATH=. python3 examples/torch_decode_profile.py --gpt [--paged]
     PYTHONPATH=. python3 examples/torch_decode_profile.py --int8
 
 Default: builds a Llama-2-7B-width stack (random bf16 weights, seed 0) and
@@ -36,13 +36,17 @@ records reads low; overlapping kernels read above 1).
 
 --verify: the same split for the paged verify step (K7) at the same 8 rows
 with a tail of 5 tokens each (the last token and k = 4 proposals, the
-speculative engine's step), 40 tail rows in all: the products on the
-engine at N = 64, and "attention": the device time of K7's appends, its
-split-KV attention kernel and its merge (each starts early behind the
-kernel before it and waits, so the sum of their device times counts
-overlaps twice): "exclusive_ms", the time only they run (the step's busy
-time less the time any other kernel runs), and "span_ms", the union of
-their intervals, beside their byte bound.
+speculative engine's step), 40 tail rows in all, the products on the
+engine at N = 64.
+
+Every line carries "attention": the device time of the split-KV attention
+kernel (split_attn_kernel; K2, K5 and K6 append and merge inside it, K7
+adds its appends kernel and its merge kernel, split_merge_kernel), each
+launched as the programmatic dependent of the kernel before it, so it
+starts early and waits and the sum of device times counts overlaps twice:
+"exclusive_ms", the time only they run (the step's busy time less the time
+any other kernel runs), and "span_ms", the union of their intervals,
+beside their byte bound (the filled KV).
 
 --moe: the same split for the MoE decode step (K6) at DeepSeekMoE-16B's
 shape (28 layers, h 2048, 16 heads, 64 experts of 1408, top-6, 2 shared
@@ -55,7 +59,8 @@ products.
 layers, h 1024, 16 heads of 64, ffn 4096; random bf16 weights and biases),
 b=8, pos 576 (the mean position of a 512 + 128-token generate). Its step
 is 1 + 11 × 24 launches of small products, so the device-busy time beside
-the step time shows how much of the step is launch gaps.
+the step time shows how much of the step is launch gaps. --gpt --paged:
+K5's gpt mode at 8 rows, positions 150 … 1000 (the gpt_serve cell's span).
 
 --int8: the same split for K2's int8 mode at the default shape: the layer
 weights of a random model quantized per out channel to int8 (quantize_model,
@@ -213,10 +218,7 @@ def gpt_step(L=24, b=8, pos=576, h=1024, nh=16, ffn=4096):
     g = torch.Generator(device="cuda").manual_seed(0)
     mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
         0, sc, generator=g).bfloat16()
-    p = {"ln1": 1 + mk(L, h), "ln1_b": mk(L, h), "wqkv": mk(L, h, 3 * h),
-         "bqkv": mk(L, 3 * h), "wo": mk(L, h, h), "bo": mk(L, h),
-         "ln2": 1 + mk(L, h), "ln2_b": mk(L, h), "wg": mk(L, h, ffn),
-         "bg": mk(L, ffn), "wd": mk(L, ffn, h), "bd": mk(L, h)}
+    p = gpt_params(L, h, ffn, mk)
     kv = torch.zeros(L, b, S, 2 * h, device="cuda", dtype=torch.bfloat16)
     kv[:, :, :pos] = mk(L, b, pos, 2 * h, sc=1.0)
     x = mk(b, h, sc=1.0)
@@ -252,21 +254,34 @@ def serve_split(card, ticks=32):
                       "top_device_ms_per_tick": top}))
 
 
+def gpt_params(L, h, ffn, mk):
+    """Random bf16 gpt stacks (build_fused_params_gpt's keys)."""
+    return {"ln1": 1 + mk(L, h), "ln1_b": mk(L, h), "wqkv": mk(L, h, 3 * h),
+            "bqkv": mk(L, 3 * h), "wo": mk(L, h, h), "bo": mk(L, h),
+            "ln2": 1 + mk(L, h), "ln2_b": mk(L, h), "wg": mk(L, h, ffn),
+            "bg": mk(L, ffn), "wd": mk(L, ffn, h), "bd": mk(L, h)}
+
+
 def paged_step(L, b, nkv, tail=0, h=4096, nh=32, hd=128, ffn=11008,
-               BT=128):
+               BT=128, span=(100, 1300), arch="llama"):
     """K5 (tail 0) or K7 (a tail of `tail` tokens per row) at 8 rows,
-    positions 100..1300 evenly, shuffled private blocks."""
-    positions = [int(100 + i * 1200 / (b - 1)) for i in range(b)]
+    positions spread evenly over `span`, shuffled private blocks; arch gpt:
+    K5's gpt mode (no rope)."""
+    positions = [int(span[0] + i * (span[1] - span[0]) / (b - 1))
+                 for i in range(b)]
     need = [(p + max(tail, 1) - 1) // BT + 1 for p in positions]
     nb = 1 + sum(need)
     g = torch.Generator(device="cuda").manual_seed(0)
     mk = lambda *s, sc=0.02: torch.empty(*s, device="cuda").normal_(
         0, sc, generator=g).bfloat16()
     dq, dkv = nh * hd, nkv * hd
-    p = {"ln1": torch.ones(L, h, device="cuda").bfloat16(),
-         "wqkv": mk(L, h, dq + 2 * dkv), "wo": mk(L, dq, h),
-         "ln2": torch.ones(L, h, device="cuda").bfloat16(),
-         "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
+    if arch == "gpt":
+        p = gpt_params(L, h, ffn, mk)
+    else:
+        p = {"ln1": torch.ones(L, h, device="cuda").bfloat16(),
+             "wqkv": mk(L, h, dq + 2 * dkv), "wo": mk(L, dq, h),
+             "ln2": torch.ones(L, h, device="cuda").bfloat16(),
+             "wg": mk(L, h, ffn), "wu": mk(L, h, ffn), "wd": mk(L, ffn, h)}
     pool = mk(L, nb, BT, 2 * dkv, sc=1.0)
     perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(0))
     tables = torch.zeros(b, 2048 // BT, dtype=torch.int32)
@@ -277,7 +292,7 @@ def paged_step(L, b, nkv, tail=0, h=4096, nh=32, hd=128, ffn=11008,
     tab = tables.cuda()
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     cos, sin = rope_cos_sin(2048, hd, device="cuda")
-    kw = dict(num_heads=nh, num_kv_heads=nkv)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, arch=arch)
     if tail:
         pj = pos.long()[:, None] + torch.arange(tail, device="cuda")[None]
         c, s = cos[pj], sin[pj]
@@ -339,6 +354,10 @@ def main():
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--rows", type=int, default=8,
                     help="--paged / --verify: rows of the step")
+    ap.add_argument("--attention-kernels", default="split_,verify_append",
+                    help="comma-separated name prefixes of the attention's "
+                         "kernels (another tree's kernel names, to profile "
+                         "it with this script)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -355,7 +374,12 @@ def main():
         return serve_split(card)
     L, b, pos, nkv = a.layers, a.batch, a.pos, a.kv_heads
     h, nh, hd, ffn = 4096, 32, 128, 11008
-    if a.gpt:
+    if a.gpt and a.paged:
+        L, b, nkv = 24, a.rows, 16
+        step, p, kvb, pos = paged_step(L, b, nkv, h=1024, nh=16, hd=64,
+                                       ffn=4096, span=(150, 1000),
+                                       arch="gpt")
+    elif a.gpt:
         L, b, pos, nkv = 24, 8, 576, 16
         step, p, kvb = gpt_step(L, b, pos)
     elif a.moe:
@@ -379,12 +403,15 @@ def main():
     torch.cuda.synchronize()
     step_ms = e0.elapsed_time(e1) / a.steps
     prod_name = "engine_kernel"
+    # the attention's kernels: the split-KV kernel (and K7's appends and
+    # merge kernels)
+    attn = lambda k: k.startswith(tuple(a.attention_kernels.split(",")))
     _, per_kernel, spans = traced(
         lambda: [step() for _ in range(a.steps)],
         {"other": lambda k: not k.startswith(prod_name),
-         "attention": lambda k: k.startswith("verify_"),
+         "attention": attn,
          "all": lambda k: True,
-         "not_attention": lambda k: not k.startswith("verify_")})
+         "not_attention": lambda k: not attn(k)})
     per_kernel = {k: v / a.steps for k, v in per_kernel.items()}
     spans = {k: v / a.steps for k, v in spans.items()}
     wb = lambda *ks: sum(p[k].numel() * p[k].element_size() for k in ks)
@@ -421,21 +448,21 @@ def main():
     products = {"kernel": prod_name, "weights": list(prod_keys),
                 "bytes": nbytes, "device_ms": prod_ms, "exclusive_ms": excl,
                 "tb_per_s": nbytes / excl / 1e9 if prod_ms else None}
-    attention = None
-    if a.verify:   # K7's appends, split-KV attention and merge
-        attention = {
-            # the time only they run: the step's busy time less the time
-            # any other kernel runs (the appends start early behind the qkv
-            # epilogue, the o-proj's engine behind the merge)
-            "exclusive_ms": spans["all"] - spans["not_attention"],
-            "span_ms": spans["attention"],
-            "device_ms_summed": sum(v for k, v in per_kernel.items()
-                                    if k.startswith("verify_")),
-            "bound_ms": bounds_ms["attention (filled KV)"]}
+    attention = {
+        # the time only they run: the step's busy time less the time any
+        # other kernel runs (they start early behind the qkv epilogue, the
+        # o-proj's engine behind them)
+        "exclusive_ms": spans["all"] - spans["not_attention"],
+        "span_ms": spans["attention"],
+        "device_ms_summed": sum(v for k, v in per_kernel.items()
+                                if attn(k)),
+        "bound_ms": bounds_ms["attention (filled KV)"]}
     print(json.dumps({"card": card, "layers": L, "batch": b, "pos": pos,
                       "kernel": ("K7 (verify), tail %d" % VERIFY_TAIL
                                  if a.verify else
                                  "K6 (MoE), DeepSeekMoE-16B" if a.moe else
+                                 "K5 (gpt), GPT-2 345M" if a.gpt and a.paged
+                                 else
                                  "K2 (gpt), GPT-2 345M" if a.gpt else
                                  "K5 (paged)" if a.paged else
                                  "K2 (int8 weights, int8 KV)" if a.int8

@@ -6,6 +6,7 @@
 // issued by one C call for the whole stack:
 //   1. skinny GEMM  qkv = rms(x, ln1) @ wqkv            (RMSNorm rows)
 //   2. rope + cache append at pos + attention over the filled prefix [0, pos]
+//      (the split-KV attention section: one launch)
 //   3. skinny GEMM  x += attn @ wo                       (residual epilogue)
 //   4. skinny GEMM  act = silu(rms(x, ln2) @ wg) * (rms(x, ln2) @ wu)
 //   5. skinny GEMM  x += act @ wd                        (residual epilogue)
@@ -22,9 +23,9 @@
 // What bounds it on the H100: bytes. At b <= 64 every weight element is used
 // at most 64 times, far below the ~295 FLOP/byte ridge, so a step can take
 // no less than (all layer weights + the filled KV prefix) / 3.35 TB/s.
-// Attention reads only the filled prefix, never the unfilled tail. First
-// design: no CUDA graph, no persistent megakernel; K2/K5's one-query
-// attention has no split over the KV length (K7's has, below).
+// Attention reads only the filled prefix, never the unfilled tail (split
+// over the KV length into 512-key chunks on persistent blocks, below). No
+// CUDA graph, no persistent megakernel.
 //
 // The product engine (engine_kernel; K2, K5 and K6's attention half). The
 // weight stream has to keep ~3.35 TB/s in flight, and a register GEMM that
@@ -74,14 +75,16 @@
 // the contiguous cache (L, b, S, 2*nkv*hd) at one position, and
 // fused_paged_decode_llama (K5, the serving engine's step) over the paged
 // pool (L, NB, BT, 2*nkv*hd) through per-row block tables and positions.
-// Only step 2's addressing differs (ContigKV / PagedKV below). K5's bound
-// is bytes as well: the layer weights plus each row's own filled KV.
+// Only step 2's addressing differs (the key policies ContigKV / PagedKV of
+// the split-KV attention). K5's bound is bytes as well: the layer weights
+// plus each row's own filled KV.
 //
 // A third entry point, fused_paged_verify_llama (K7, speculative decoding's
 // verify step), runs up to 64 tail rows (b rows x K1 tail tokens) through
 // the same stack: the same products on the engine, norm-row and epilogue
-// kernels, over M = b*K1 rows, with an attention of its own, split over
-// the KV length on tensor cores (see the K7 section). A fourth,
+// kernels, over M = b*K1 rows, and the same split-KV attention kernel with
+// its appends and merge as kernels of their own (see the K7 section). A
+// fourth,
 // fused_decode_moe (K6, the MoE step), runs K2's attention half and then
 // the routed and shared experts on an mma.sync tensor-core GEMM (see the
 // K6 section).
@@ -103,8 +106,8 @@
 // theirs: a LayerNorm kernel (layernorm_rows_kernel) writes the bf16 rows
 // the product engine reads, as the RMSNorm kernel does for llama; bias
 // epilogues (bias_epilogue_kernel) add each product's bias after the
-// fixed-order split-K sum, never in a partial; and the attention kernels
-// take a compile-time ROPE flag, false here. See the gpt section near the
+// fixed-order split-K sum, never in a partial; and the attention kernel
+// takes a compile-time ROPE flag, false here. See the gpt section near the
 // end.
 //
 // The int8 modes of K2 (the TPU kernel's `int8` and `kvq` branches;
@@ -114,12 +117,13 @@
 // per-out-channel scale multiplies each output once, after the fixed-order
 // split-K sum, in the epilogue: qkv, the o-proj before its residual add,
 // gate and up before SwiGLU, down before its residual add (the reference's
-// y * s after the full dot). Int8 KV (llama and gpt): a cache policy (ContigKV8) makes the
-// attention kernel store the append as rint(v / scale) clipped to +-127 and
-// read keys and values as int8; since a scale is one value per (layer, kv
-// head), the k scale folds into the staged q and the v scale multiplies the
-// attention output once. Bound: bytes, as the bf16 mode's, with half the
-// weight and KV bytes.
+// y * s after the full dot). Int8 KV (llama and gpt): a cache policy
+// (ContigKV<int8_t>) makes the attention kernel store the append as
+// rint(v / scale) clipped to +-127 and read keys and values as int8 (TMA
+// boxes of int8, widened to bf16 in shared memory, exactly); since a scale
+// is one value per (layer, kv head), the k scale folds into the staged q
+// and the v scale multiplies the attention output once. Bound: bytes, as
+// the bf16 mode's, with half the weight and KV bytes.
 
 #include "hopper_sm90.cuh"
 
@@ -209,7 +213,7 @@ int num_sms() {
   return n;
 }
 
-// ---- mma.sync building blocks (K7's attention, K6's experts) ----------------
+// ---- mma.sync building blocks (the split-KV attention, K6's experts) ---------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -245,6 +249,16 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// the transpose of an 8 x 8 b16 matrix in mma's fragment layout (thread
+// t holds row t/4, columns 2 (t%4) and 2 (t%4) + 1) across the warp
+__device__ __forceinline__ unsigned movmatrix_trans(unsigned a) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
 }
 
 // c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
@@ -668,236 +682,13 @@ struct EMaps {
 };
 
 
-// How the attention kernel finds a batch row's position, rope row and key
-// row t in one layer's cache. The kernel is written once over these two,
-// so K5 computes K2's bits when the KV content and positions are the same.
-//
-// Contiguous (K2): the (b, S, 2*dkv) layer slab, one position and one rope
-// row for the whole batch.
-struct ContigKV {
-  using T = bf16;
-  static constexpr bool Q8 = false;
-  bf16* kv;
-  const float* cos;
-  const float* sin;
-  int S, dkv2, pos;
-  __device__ float scale(int) const { return 1.f; }
-  __device__ int position(int) const { return pos; }
-  __device__ const float* cos_row(int, int) const { return cos; }
-  __device__ const float* sin_row(int, int) const { return sin; }
-  __device__ bf16* row(int bi, int t) const {
-    return kv + ((long)bi * S + t) * dkv2;
-  }
-};
-
-// Paged (K5): the (NB, BT, 2*dkv) layer slab of the pool, addressed through
-// the row's block table; per-row positions and rope rows, all read from
-// device memory (the host uploads nothing per step).
-struct PagedKV {
-  using T = bf16;
-  static constexpr bool Q8 = false;
-  bf16* kv;
-  const int* tables;      // (b, MB) physical block ids
-  const int* positions;   // (b,)
-  const float* cos;       // (b, HD)
-  const float* sin;
-  int MB, BT, dkv2;
-  __device__ float scale(int) const { return 1.f; }
-  __device__ int position(int bi) const { return positions[bi]; }
-  __device__ const float* cos_row(int bi, int hd) const {
-    return cos + (long)bi * hd;
-  }
-  __device__ const float* sin_row(int bi, int hd) const {
-    return sin + (long)bi * hd;
-  }
-  __device__ bf16* row(int bi, int t) const {
-    const int bid = __ldg(tables + (long)bi * MB + t / BT);
-    return kv + ((long)bid * BT + t % BT) * dkv2;
-  }
-};
-
-// Contiguous int8 (K2's int8 KV mode): ContigKV over an int8 layer slab
-// with the layer's lane scales (2*dkv fp32; one value per kv head,
-// replicated over its lanes).
-struct ContigKV8 {
-  using T = int8_t;
-  static constexpr bool Q8 = true;
-  int8_t* kv;
-  const float* cos;
-  const float* sin;
-  const float* scales;
-  int S, dkv2, pos;
-  __device__ float scale(int lane) const { return scales[lane]; }
-  __device__ int position(int) const { return pos; }
-  __device__ const float* cos_row(int, int) const { return cos; }
-  __device__ const float* sin_row(int, int) const { return sin; }
-  __device__ int8_t* row(int bi, int t) const {
-    return kv + ((long)bi * S + t) * dkv2;
-  }
-};
-
-// The append's store: bf16, or int8 as rint(v / scale) clipped to +-127
-// (rint rounds half to even, as the reference's round; IEEE division).
-__device__ __forceinline__ void put_kv(bf16* p, float v, float) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ void put_kv(int8_t* p, float v, float s) {
-  *p = (int8_t)fminf(fmaxf(rintf(v / s), -127.f), 127.f);
-}
-
-// Two adjacent cache values as floats (an int8 value is its integer; the
-// caller applies the scale).
-__device__ __forceinline__ float2 get2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 get2(const int8_t* p) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  return make_float2((float)c.x, (float)c.y);
-}
-
-// One block per (kv head g, batch row bi): rope q (the rep heads of the
-// group) and k at the row's position, append k and v to the cache there,
-// then attend over the filled prefix [0, pos] with an online softmax, NW
-// warps striding the keys, merged through shared memory. Several paged
-// rows may append to the same scratch address (idle rows); each block
-// reads back only what it wrote itself or what no block of this launch
-// writes, so only idle rows — whose output is thrown away — see a race.
-// ROPE = false (the gpt mode) takes q and k as they are and reads no rope
-// row. An int8 policy (KV::Q8) quantizes the append with the lane scales,
-// folds the head's k scale into q and applies its v scale to the output.
-constexpr int NWA = 16;
-
-// Dynamic shared memory of one attention block, per head_dim and group size.
-constexpr int attn_smem(int hd, int rep) {
-  return (rep * hd + 2 * NWA * rep + NWA * rep * hd) * 4;
-}
-
-template <int HD, int REP, class KV, bool ROPE>
-__global__ void __launch_bounds__(NWA * 32)
-rope_append_attn_kernel(const float* __restrict__ qkv, const KV cache,
-                        bf16* __restrict__ attn, int nkv, float scale) {
-  sm90::griddep_launch_dependents();   // the o-proj's weights may load
-  constexpr int DPL = HD / 32;  // head dims per lane
-  const int g = blockIdx.x, bi = blockIdx.y;
-  const int dkv = nkv * HD, dq = nkv * REP * HD, dqkv = dq + 2 * dkv;
-  extern __shared__ float sm[];
-  float* qs = sm;                       // [REP][HD]
-  float* wm = qs + REP * HD;            // [NWA][REP]
-  float* wl = wm + NWA * REP;           // [NWA][REP]
-  float* wacc = wl + NWA * REP;         // [NWA][REP][HD]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* row = qkv + (long)bi * dqkv;
-  const int pos = cache.position(bi);
-  const float* __restrict__ cosr = ROPE ? cache.cos_row(bi, HD) : nullptr;
-  const float* __restrict__ sinr = ROPE ? cache.sin_row(bi, HD) : nullptr;
-  using T = typename KV::T;
-
-  for (int i = tid; i < REP * HD; i += NWA * 32) {
-    const int r = i / HD, d = i % HD;
-    const float* qh = row + (g * REP + r) * HD;
-    if (ROPE) {
-      const float rot = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
-      qs[i] = (qh[d] * cosr[d] + rot * sinr[d]) * scale;
-    } else {
-      qs[i] = qh[d] * scale;
-    }
-    if constexpr (KV::Q8) qs[i] *= cache.scale(g * HD);
-  }
-  for (int d = tid; d < HD; d += NWA * 32) {
-    const float* kh = row + dq + g * HD;
-    T* dst = cache.row(bi, pos) + g * HD + d;
-    if (ROPE) {
-      const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
-      put_kv(dst, kh[d] * cosr[d] + rot * sinr[d], cache.scale(g * HD + d));
-    } else {
-      put_kv(dst, kh[d], cache.scale(g * HD + d));
-    }
-    put_kv(dst + dkv, row[dq + dkv + g * HD + d],
-           cache.scale(dkv + g * HD + d));
-  }
-  __syncthreads();  // the appended row and q are visible to the block
-
-  float qr[REP][DPL], m[REP], l[REP], acc[REP][DPL];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      qr[r][j] = qs[r * HD + lane * DPL + j];
-      acc[r][j] = 0.f;
-    }
-  }
-  constexpr int U = 4;  // keys in flight per warp
-  for (int t0 = warp; t0 <= pos; t0 += U * NWA) {
-    float kf[U][DPL], vf[U][DPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u * NWA;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) kf[u][j] = vf[u][j] = 0.f;
-      if (t <= pos) {
-        const T* kr = cache.row(bi, t) + g * HD + lane * DPL;
-#pragma unroll
-        for (int j = 0; j < DPL; j += 2) {
-          const float2 a = get2(kr + j);
-          const float2 c = get2(kr + dkv + j);
-          kf[u][j] = a.x; kf[u][j + 1] = a.y;
-          vf[u][j] = c.x; vf[u][j + 1] = c.y;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (t0 + u * NWA > pos) break;
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) s = fmaf(qr[r][j], kf[u][j], s);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffff, s, o);
-        const float mn = fmaxf(m[r], s);
-        const float a = expf(m[r] - mn), p = expf(s - mn);
-        l[r] = l[r] * a + p;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[r][j] = fmaf(p, vf[u][j], acc[r][j] * a);
-        m[r] = mn;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (lane == 0) {
-      wm[warp * REP + r] = m[r];
-      wl[warp * REP + r] = l[r];
-    }
-#pragma unroll
-    for (int j = 0; j < DPL; ++j)
-      wacc[(warp * REP + r) * HD + lane * DPL + j] = acc[r][j];
-  }
-  __syncthreads();
-  for (int i = tid; i < REP * HD; i += NWA * 32) {
-    const int r = i / HD, d = i % HD;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NWA; ++w) M = fmaxf(M, wm[w * REP + r]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWA; ++w) {
-      const float e = expf(wm[w * REP + r] - M);
-      L += wl[w * REP + r] * e;
-      A += wacc[(w * REP + r) * HD + d] * e;
-    }
-    float o = A / L;
-    if constexpr (KV::Q8) o *= cache.scale(dkv + g * HD);
-    attn[(long)bi * dq + (g * REP + r) * HD + d] = __float2bfloat16(o);
-  }
-}
-
+// x (bf16) -> y (fp32), one thread per value; the first nz threads also
+// zero the split attention's counters (FUSE) for the step's first layer.
 __global__ void bf16_to_f32_kernel(const bf16* __restrict__ x,
-                                   float* __restrict__ y, int n) {
+                                   float* __restrict__ y, int n,
+                                   int* __restrict__ zero, int nz) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nz) zero[i] = 0;
   if (i < n) y[i] = __bfloat162float(x[i]);
 }
 
@@ -919,45 +710,6 @@ cudaError_t gemm(const CUtensorMap& w0, const CUtensorMap& w1,
       <<<(n + 255) / 256, 256, 0, st>>>(ws0, ws1, p.ks * EngW<W>::PSETS, n,
                                         yf, yb, sc0, sc1, out);
   return cudaGetLastError();
-}
-
-template <int HD, int REP, bool ROPE, class KV>
-cudaError_t attn_launch(const float* qkv, const KV& cache, bf16* attn, int b,
-                        int nkv, float scale, cudaStream_t st) {
-  const int smem = attn_smem(HD, REP);
-  static bool opted_in = false;  // above 48 KB needs the opt-in, once
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rope_append_attn_kernel<HD, REP, KV, ROPE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
-  rope_append_attn_kernel<HD, REP, KV, ROPE>
-      <<<dim3(nkv, b), NWA * 32, smem, st>>>(qkv, cache, attn, nkv, scale);
-  return cudaGetLastError();
-}
-
-template <int HD, bool ROPE, class KV>
-cudaError_t attn_hd(int rep, const float* qkv, const KV& cache, bf16* attn,
-                    int b, int nkv, float scale, cudaStream_t st) {
-  switch (rep) {
-    case 1: return attn_launch<HD, 1, ROPE>(qkv, cache, attn, b, nkv, scale, st);
-    case 2: return attn_launch<HD, 2, ROPE>(qkv, cache, attn, b, nkv, scale, st);
-    case 4: return attn_launch<HD, 4, ROPE>(qkv, cache, attn, b, nkv, scale, st);
-    case 8: return attn_launch<HD, 8, ROPE>(qkv, cache, attn, b, nkv, scale, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// Attention of one layer at head_dim 64 or 128, with or without rope.
-template <bool ROPE, class KV>
-cudaError_t attn_any(int hd, int rep, const float* qkv, const KV& cache,
-                     bf16* attn, int b, int nkv, float scale,
-                     cudaStream_t st) {
-  return hd == 128 ? attn_hd<128, ROPE>(rep, qkv, cache, attn, b, nkv, scale, st)
-         : hd == 64 ? attn_hd<64, ROPE>(rep, qkv, cache, attn, b, nkv, scale, st)
-                    : cudaErrorInvalidValue;
 }
 
 // Floats of the partials of a product of b rows (nz weights' worth), psets
@@ -993,6 +745,8 @@ long ws_layout(int b, int h, int dq, int dqkv, int ffn, long* n0) {
 // (wg is fc_in and wd fc_out; wu is unused).
 // The int8-weight mode reads the five weight pointers as int8 and takes the
 // scale rows sqkv (L, dqkv), so, sg, su, sd (null for bf16 weights).
+// count: the decode attention's ncount counters, zeroed by the step's first
+// kernel (null for K7).
 struct Stack {
   const bf16 *x_in, *ln1, *wqkv, *wo, *ln2, *wg, *wu, *wd;
   bf16* x_out;
@@ -1006,6 +760,8 @@ struct Stack {
   bf16* xn = nullptr;
   const float *sqkv = nullptr, *so = nullptr, *sg = nullptr, *su = nullptr,
               *sd = nullptr;
+  int* count = nullptr;
+  int ncount = 0;
 };
 
 // The maps of a's weight stacks (int8: int8 stacks) and row buffers.
@@ -1038,95 +794,138 @@ const float* srow(const float* rows, int l, int per) {
   return rows ? rows + (long)l * per : nullptr;
 }
 
-// The attention of one layer over a decode policy (ContigKV, PagedKV,
-// ContigKV8): rope + append + attention of a.b one-token rows, one launch.
-// K7's policy (VerifyKV, below) takes the overload for it.
-template <bool ROPE, class KV>
-cudaError_t layer_attention(const Stack& a, const KV& kv, cudaStream_t st) {
-  return attn_any<ROPE>(a.hd, a.nh / a.nkv, a.qkv, kv, a.attn, a.b, a.nkv,
-                        1.f / sqrtf((float)a.hd), st);
-}
-
 // ---------------------------------------------------------------------------
-// K7's attention: the K1-token tails of speculative decoding's verify step
-// against the paged pool, split over the KV length, on tensor cores.
+// The split-KV attention: K2's, K5's and K6's decode attention and K7's
+// verify attention, one kernel over three key layouts, on tensor cores.
 //
 // Replaces the attention of paddle_tpu/ops/fused_decode.py::
-// _fused_paged_verify_pallas (pallas_call at :3055). Row bi brings K1 tail
-// tokens at positions pos .. pos+K1-1 (pos = positions[bi]); its K1*rep
-// queries per kv head g (query q is tail token q/rep, head g*rep + q%rep)
-// attend over the row's keys [0, tmax], tmax = min(pos + K1 - 1, MB*BT -
-// 1), query q limited to keys <= min(pos + q/rep, MB*BT - 1), so it sees
-// the tail tokens before it and not those after. Three launches a layer,
-// each the programmatic dependent of the kernel before it:
-//   1. the appends (verify_append_kernel): rope'd k and v of every tail
-//      token, rounded to bf16, through the table (past it: scratch block 0)
-//   2. the attention (verify_attn_kernel): work items of (row, chunk of
-//      VA_CHUNK keys, kv head, 16 queries); each writes its chunk's
-//      unnormalised (m, l, O) per query into the workspace
-//   3. the merge (verify_merge_kernel): per (row, kv head), each query's
-//      chunks combined in chunk order, normalised, written as bf16 attn
+// _fused_decode_pallas (pallas_call at :940; its bf16 and int8 caches),
+// _fused_decode_moe_pallas (:1464), _fused_paged_decode_pallas (:2267) and
+// _fused_paged_verify_pallas (:3055). Row bi brings K1 tokens at positions
+// pos .. pos+K1-1 (a decode row: K1 = 1); its K1*rep queries per kv head g
+// (query q is token q/rep, head g*rep + q%rep) attend over the row's keys
+// [0, tmax], tmax = min(pos + K1 - 1, the cache's last key), query q
+// limited to keys <= min(pos + q/rep, the cache's last key), so a verify
+// token sees the tail tokens before it and not those after. The keys come
+// from one of three layouts (the policies below): the paged pool through
+// the rows' block tables (K5, K7), the contiguous (L, cb, S, 2*nkv*hd)
+// cache (K2, K6), and its int8 form with per-(layer, kv head) lane scales
+// (K2's int8 KV modes; the k scale folds into q, the v scale multiplies
+// the output once).
 //
-// What bounds it on the H100: bytes, each row's filled KV read once (0.88
-// ms of K7's 4.76 ms bound at Llama-2-7B, b = 8 rows x 5 over ~700 cached
-// tokens). The kernel this replaces walked a row's whole prefix in one
-// block per (kv head, row), one key per warp-iteration on the CUDA cores
-// (an FMA chain, a 5-step shuffle sum and an exp per (key, query)):
-// instruction-bound, 4.60 ms. Here:
-//  * The products run on tensor cores: mma.sync m16n8k16 with the 16
-//    queries as M, in FlashAttention-2's register layout (S = Q Kᵀ from
-//    ldmatrix'd K; P reused from the S accumulator as the A operand of
-//    O += P V, V through ldmatrix.trans). q and P are each split into a
-//    pair of bf16 (hi + lo, about 16 significant bits), so the scores and
-//    the weighted sum keep about the fp32 plain version's precision, at
-//    twice the tensor work (far below the bytes' time: dropping the lo
-//    halves changed little on the card).
+// What bounds it on the H100: bytes, each row's filled KV read once (0.66
+// ms of K2's bound at Llama-2-7B, b = 4, pos 1056; 0.88 ms of K5's and
+// K7's at b = 8 rows over ~700 cached tokens). The kernel this replaced
+// walked a row's whole prefix in one block per (kv head, row), one key row
+// a warp at a time on the CUDA cores (an FMA chain, a 5-step shuffle sum
+// and an exp per key), four keys in flight a warp: at b = 4 its 128 blocks
+// on 132 SMs each walked 1,057 keys alone, the longest row of a mixed
+// batch set the pace, and few bytes were in flight per SM (K5's attention
+// 2.8x its bound, K7's old one 5.3x). Here:
+//  * The products run on tensor cores: mma.sync m16n8k16 with 16 queries
+//    as M, in FlashAttention-2's register layout (S = Q Kᵀ from ldmatrix'd
+//    K; P reused from the S accumulator as the A operand of O += P V, V
+//    through ldmatrix.trans). q and P are each split into bf16 terms: K7
+//    a pair (hi + lo, about 16 significant bits), the decode steps three
+//    (hi + mid + lo, fp32's 24 bits), so the scores and the weighted sum
+//    are the fp32 products summed in fp32 and the bf16 output rounds where
+//    the fp32 plain version's does (with a pair, the ~2^-18 relative error
+//    of each term moved about one attention output in a thousand across a
+//    bf16 rounding boundary, and at Mixtral-8x7B width with a decisive
+//    router that moved x_out past the check's tolerance on some draws). A
+//    decode item has at most 8 queries (one in an MHA model): they are the
+//    N of its products, Sᵀ = K Qᵀ with 16 keys as M and Oᵀ += Vᵀ Pᵀ with
+//    16 head dims as M (Pᵀ from Sᵀ's accumulator by movmatrix.trans), so
+//    the three terms cost no more tensor work than K7's pair over 16
+//    padded queries.
 //  * The KV length is split into VA_CHUNK-key chunks, so a row's prefix
-//    spreads over many SMs. The work list comes from the positions on the
-//    device (no host sync): persistent blocks, as many as fit on the SMs,
-//    take items round-robin, every row's full chunks first and the
-//    shorter last chunks after; an item's result depends on its inputs
-//    only, so the bits do not depend on which block takes it, and the
-//    merge sums the chunks in a fixed order with no atomics. 512-key
-//    chunks measured faster than 128, 256, 384 and 1024 (fewer item
-//    starts against enough items to fill the SMs).
+//    spreads over many SMs. The work list of (row, chunk, kv head, 16
+//    queries) items comes from the positions on the device (no host sync):
+//    persistent blocks, as many as fit on the SMs, take items round-robin,
+//    every row's full chunks first and the shorter last chunks after; an
+//    item's result depends on its inputs only, so the bits do not depend on
+//    which block takes it, and the chunks are merged in a fixed order with
+//    no atomics in the sums. 512-key chunks measured faster than 128, 256,
+//    384 and 1024 (fewer item starts against enough items to fill the SMs).
 //  * Keys stream through a VA_ST-stage ring of 64-key stages, 16 keys a
-//    warp. With block_tokens a multiple of 8 one thread loads a stage by
-//    TMA, in boxes of gcd(BT, 64) key rows (a box never crosses a pool
-//    block, each box's block id from the table) onto the stage's mbarrier,
-//    128-byte swizzled. 16-byte cp.async pieces from every thread, the
-//    fallback for other block sizes, held the kernel far below the bytes'
-//    rate even with no compute (the SM's outstanding small requests cap
-//    the bytes in flight).
+//    warp, loaded by one thread with TMA onto the stage's mbarrier: the
+//    paged pool in boxes of gcd(BT, 64) key rows (a box never crosses a
+//    pool block, each box's block id from the table), the contiguous cache
+//    in 64-row boxes of one (layer, row) slab of a 3-d map (rows past S read
+//    as zeros); bf16 boxes 128-byte swizzled, int8 boxes a head wide and
+//    unswizzled. 16-byte cp.async pieces from every thread, the paged
+//    fallback for block sizes that are not a multiple of 8, held the kernel
+//    far below the bytes' rate even with no compute (the SM's outstanding
+//    small requests cap the bytes in flight).
+//  * Int8 keys and values: all four warps widen a landed stage to bf16 in
+//    shared memory (|v| <= 127 is exact in bf16's 8-bit significand) before
+//    the products read it; the k scale is folded into q before its hi/lo
+//    split.
 //  * Online softmax in fp32 in the log2 domain (q pre-scaled by scale *
 //    log2 e, ex2.approx as K1); the causal limits are applied on the edge
 //    tiles only; the four warps' (m, l, O) meet through shared memory in
 //    warp order.
+//  * A decode step (K2, K5, K6; policies with FUSE) is one launch a layer:
+//    the item holding a row's last key for head g first writes that head's
+//    append (rope'd k and v at pos, rounded to the cache's type) and makes
+//    it visible to the TMA (fence.proxy.async.global, then the block's
+//    barrier) before its loads; a row of one chunk writes its output
+//    directly, and otherwise every item writes its chunk's (m, l, O) and
+//    bumps the (row, head)'s counter, and the block that brings it to the
+//    item count merges the chunks in chunk order (through L2) and resets it
+//    for the next layer. K7 (VerifyKV) keeps three launches: its K1 appends
+//    may fall in two chunks, so a separate kernel writes them first and a
+//    merge kernel runs after; each is the programmatic dependent of the
+//    kernel before it.
 // ---------------------------------------------------------------------------
 
 constexpr int VA_T = 128;        // threads of an attention block (4 warps)
 constexpr int VA_KT = 64;        // keys a ring stage (16 a warp)
 constexpr int VA_ST = 3;         // ring stages
 constexpr int VA_CHUNK = 512;    // keys a work item (a multiple of VA_KT)
-constexpr int VA_MAXB = 64;      // rows of one launch (tail rows <= 64)
+constexpr int VA_MAXB = 64;      // rows of one launch
 constexpr float LOG2E = 1.4426950408889634f;
 
-// One layer's slab of the pool, as K7 addresses it: row bi's tail token j
-// appends at position positions[bi] + j, its key t is read from
-// pool[tables[bi, t/BT], t%BT]; (b, K1, HD) rope rows; the attention's
-// chunk partials.
-struct VerifyKV {
-  CUtensorMap map;        // the whole pool (L*NB*BT rows, dkv2 columns) in
-                          // boxes of `box` rows by 64 columns (box > 0)
-  bf16* kv;
-  const int* tables;      // (b, MB)
-  const int* positions;   // (b,)
-  const float* cos;       // (b, K1, HD); null in the gpt mode
+// The append's store: bf16, or int8 as rint(v / scale) clipped to +-127
+// (rint rounds half to even, as the reference's round; IEEE division).
+__device__ __forceinline__ void put_kv(bf16* p, float v, float) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put_kv(int8_t* p, float v, float s) {
+  *p = (int8_t)fminf(fmaxf(rintf(v / s), -127.f), 127.f);
+}
+
+// What the key layouts share: the map the keys load through, the rope rows
+// (null in the gpt mode), the chunk partials and the fused decode's
+// counters.
+struct SplitKV {
+  CUtensorMap map;
+  const float* cos;
   const float* sin;
   float* part;            // (b, nkv, nch, K1*rep) x O[HD], then x (m, l)
-  int b, K1, MB, BT, dkv2, nch;
+  int* count;             // FUSE: (b, nkv) items done, 0 between launches
+  int b, K1, dkv2, nch;   // rows, tokens a row, cache row width, chunks
+};
+
+// The paged pool (K5): the map covers the whole pool (L*NB*BT rows, dkv2
+// columns) in boxes of `box` rows by 64 columns (box > 0); row bi's key t
+// is pool[tables[bi, t/BT], t%BT]; (b, K1, HD) rope rows.
+struct PagedKV : SplitKV {
+  using T = bf16;
+  static constexpr bool FUSE = true;
+  static constexpr bool CONTIG = false;
+  bf16* kv;               // the layer's slab (NB, BT, dkv2)
+  const int* tables;      // (b, MB)
+  const int* positions;   // (b,)
+  int MB, BT;
   int box;                // gcd(BT, 64) when BT % 8 == 0 (TMA), else 0
   int lrow0;              // the layer's first row in the pool
+  __device__ int position(int bi) const { return positions[bi]; }
+  __device__ int key_cap() const { return MB * BT - 1; }
+  __device__ const float* rope_row(const float* r, int m, int hd) const {
+    return r + (long)m * hd;
+  }
+  __device__ float lane_scale(int) const { return 1.f; }
   // an append past the table (block index >= MB) goes to scratch block 0;
   // the table is never read at MB or beyond
   __device__ bf16* append_row(int bi, int t) const {
@@ -1134,21 +933,94 @@ struct VerifyKV {
     const int bid = cb < MB ? tables[(long)bi * MB + cb] : 0;
     return kv + ((long)bid * BT + t % BT) * dkv2;
   }
-  // the last key row bi reads: its last tail token's, capped at the table
-  __device__ int last_key(int bi) const {
-    return min(positions[bi] + K1 - 1, MB * BT - 1);
-  }
   // the pool row of key t of a row whose table row is tab
   __device__ long key_row(const int* tab, int t) const {
     return (long)__ldg(tab + t / BT) * BT + t % BT;
   }
+  // K5 writes no append that lands in scratch block 0 (an idle row's):
+  // the idle row's chunk items all read block 0, and its own append there
+  // would race with them
+  __device__ bool keeps_append(int bi, int t) const {
+    const int cb = t / BT;
+    return cb < MB && tables[(long)bi * MB + cb] != 0;
+  }
 };
 
-// The K1 appends of row bi, kv head g: rope k with each token's own rope
-// row (ROPE; the gpt mode takes k as it is), round k and v to bf16, write
-// them through the table. Several idle rows (tables all scratch) may write
-// one scratch address: only their thrown-away outputs can read it, as in
-// K5. Launched behind the qkv epilogue (it reads qkv after griddep_wait).
+// K7's view of the pool: K1-token tails, appends and merge in kernels of
+// their own.
+struct VerifyKV : PagedKV {
+  static constexpr bool FUSE = false;
+};
+
+// The contiguous cache (K2, K6; T = int8_t: K2's int8 KV mode): the map
+// covers the launch's rows of the cache as ((L-1)*cb + b) slabs of S rows
+// (sm90_map_kv over the group's first row: slab l*cb + bi is layer l, row
+// bi); one position and one (HD) rope row for every row.
+template <class T_>
+struct ContigKV : SplitKV {
+  using T = T_;
+  static constexpr bool FUSE = true;
+  static constexpr bool CONTIG = true;
+  T* kv;                  // the layer's rows (b, S, dkv2), row stride S*dkv2
+  const float* scales;    // int8: the layer's lane scales (2*dkv), else null
+  int S, pos, z0;         // cache length, the rows' position, slab of row 0
+  __device__ int position(int) const { return pos; }
+  __device__ int key_cap() const { return S - 1; }
+  __device__ const float* rope_row(const float* r, int, int) const {
+    return r;
+  }
+  __device__ float lane_scale(int lane) const {
+    return sizeof(T) == 1 ? scales[lane] : 1.f;
+  }
+  __device__ T* append_row(int bi, int t) const {
+    return kv + ((long)bi * S + t) * dkv2;
+  }
+  __device__ bool keeps_append(int, int) const { return true; }
+};
+
+// Shared memory of one attention block, by head_dim, cache type and the
+// bf16 terms NT of a query (byte offsets after the 1024-byte alignment):
+// the ring of VA_ST slots (a stage's K then V, as loaded), int8's bf16 copy
+// of the stage being read, the queries' NT terms, the rows' first work
+// items (two lists), the ring's barriers, the merge flag. After an item's
+// walk the ring holds the four warps' (O, m, l).
+template <int HD, class T, int NT>
+struct VaLayout {
+  static constexpr int TILE = VA_KT * HD;                  // K (or V) values
+  static constexpr int SLOT = 2 * TILE * (int)sizeof(T);
+  static constexpr int CVT = sizeof(T) == 1 ? 2 * TILE * 2 : 0;
+  static constexpr int Q = VA_ST * SLOT + CVT;
+  static constexpr int LISTS = Q + NT * 16 * HD * 2;
+  static constexpr int BARS = LISTS + 2 * (VA_MAXB + 8) * 4;
+  static constexpr int FLAG = BARS + VA_ST * 8;
+  static constexpr int SMEM = 1024 + FLAG + 16;
+  static_assert(Q >= (4 * 16 * HD + 2 * 4 * 16) * 4, "(O, m, l) fit the ring");
+};
+
+// The bf16 terms of a query and of P: three for the decode policies
+// (FUSE), two for K7's (see the kernel).
+template <class KV>
+__host__ __device__ constexpr int va_terms() {
+  return KV::FUSE ? 3 : 2;
+}
+
+// Dynamic shared memory of one attention block at head_dim hd (64 or 128):
+// the decode steps' over a bf16 or an int8 cache (verify false), K7's
+// (verify true); -1 otherwise.
+int split_smem(int hd, bool int8, bool verify) {
+  if (hd != 64 && hd != 128) return -1;
+  if (verify) return hd == 64 ? VaLayout<64, bf16, 2>::SMEM
+                              : VaLayout<128, bf16, 2>::SMEM;
+  if (hd == 64) return int8 ? VaLayout<64, int8_t, 3>::SMEM
+                            : VaLayout<64, bf16, 3>::SMEM;
+  return int8 ? VaLayout<128, int8_t, 3>::SMEM : VaLayout<128, bf16, 3>::SMEM;
+}
+
+// The K1 appends of row bi, kv head g (K7): rope k with each token's own
+// rope row (ROPE; the gpt mode takes k as it is), round k and v to bf16,
+// write them through the table. Several idle rows (tables all scratch) may
+// write one scratch address: only their thrown-away outputs can read it.
+// Launched behind the qkv epilogue (it reads qkv after griddep_wait).
 template <int HD, bool ROPE>
 __global__ void verify_append_kernel(const float* __restrict__ qkv,
                                      const VerifyKV kv, int nkv, int rep) {
@@ -1182,12 +1054,18 @@ __device__ __forceinline__ void split2(float x, float y, unsigned& hi,
   lo = sm90::pack_f2(x - hf.x, y - hf.y);
 }
 
-// Dynamic shared memory of one attention block at head_dim hd: the K and
-// V ring (1024-byte aligned), the queries' bf16 pair, the rows' first work
-// items (two lists), the ring's barriers.
-constexpr int va_smem(int hd) {
-  return 1024 + 2 * VA_ST * VA_KT * hd * 2 + 2 * 16 * hd * 2 +
-         2 * (VA_MAXB + 8) * 4 + VA_ST * 8;
+// two floats -> three bf16x2 terms hi + mid + lo that sum to them exactly
+// (fp32's 24 significant bits, 8 a term; each difference is exact in fp32)
+__device__ __forceinline__ void split3(float x, float y, unsigned& hi,
+                                       unsigned& mid, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 md = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(md);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  mid = *reinterpret_cast<const unsigned*>(&md);
+  lo = sm90::pack_f2(rx - mf.x, ry - mf.y);
 }
 
 // Element row r, 16-byte chunk ch of an R-row, HD-wide bf16 tile (a
@@ -1200,43 +1078,116 @@ __device__ __forceinline__ bf16* va_at(bf16* tile, int r, int ch) {
   return tile + (ch >> 3) * (R * 64) + r * 64 + (((ch & 7) ^ (r & 7)) << 3);
 }
 
+// The queries of (row bi, kv head g) — warp w of nw takes queries w, w +
+// nw, ... — each combine the partials of the row's nc chunks in chunk
+// order and write attn (rows bi*K1 + token, dq) in bf16, times vs where VS
+// (the int8 cache's v scale). Lane i holds chunks i, i + 32, ...: the max
+// and the weighted l sum over lanes (a fixed xor tree), then each chunk's
+// weight is broadcast from its lane while every lane sums HD/32 of O. L2:
+// the partials were written by other blocks of this launch and are read
+// through L2 (ld.global.cg), never from a stale L1 line.
+template <int HD, bool L2, bool VS>
+__device__ __forceinline__ void merge_chunks(
+    const float* __restrict__ part, long otot, long p0, int nc, int NQ,
+    int K1, int rep, int dq, int g, int bi, float vs,
+    bf16* __restrict__ attn, int warp, int nw, int lane) {
+  auto ld = [](const float* p) {
+    if constexpr (L2) return __ldcg(p);
+    else return *p;
+  };
+  const float* ml = part + otot;
+  for (int q = warp; q < NQ; q += nw) {
+    float M = NEG_INF;
+    for (int c = lane; c < nc; c += 32)
+      M = fmaxf(M, ld(ml + (p0 + (long)c * NQ + q) * 2));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffff, M, o));
+    float A[HD / 32], Ls = 0.f;
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) A[j] = 0.f;
+    for (int c0 = 0; c0 < nc; c0 += 32) {
+      float e = 0.f;
+      if (c0 + lane < nc) {
+        const long pi = p0 + (long)(c0 + lane) * NQ + q;
+        e = sm90::ex2(ld(ml + pi * 2) - M);
+        Ls += ld(ml + pi * 2 + 1) * e;
+      }
+      const int n = min(32, nc - c0);
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float w = __shfl_sync(0xffffffff, e, i);
+        const float* op = part + (p0 + (long)(c0 + i) * NQ + q) * HD;
+#pragma unroll
+        for (int j = 0; j < HD / 32; ++j) A[j] += ld(op + lane + 32 * j) * w;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      Ls += __shfl_xor_sync(0xffffffff, Ls, o);
+    bf16* out = attn + (long)(bi * K1 + q / rep) * dq +
+                (g * rep + q % rep) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) {
+      float o = A[j] / Ls;
+      if (VS) o *= vs;
+      out[lane + 32 * j] = __float2bfloat16(o);
+    }
+  }
+}
+
 // The attention of the work items (see the section's note). Items come in
 // two lists: first every row's chunks but its last (each VA_CHUNK keys),
 // then every row's last chunk (at most VA_CHUNK keys), so the blocks start
 // on the full chunks and the short ones fill the tail.
-template <int HD, bool ROPE>
+template <int HD, bool ROPE, class KV>
 __global__ void __launch_bounds__(VA_T)
-verify_attn_kernel(const float* __restrict__ qkv,
-                   const __grid_constant__ VerifyKV kv, int nkv, int rep,
-                   float qscale) {
-  constexpr int CPR = HD / 8;   // 16-byte chunks of a key row
+split_attn_kernel(const float* __restrict__ qkv,
+                  const __grid_constant__ KV kv, bf16* __restrict__ attn,
+                  int nkv, int rep, float qscale) {
+  using T = typename KV::T;
+  // DEC, the decode policies: at most 8 queries an item (rep <= 8), the N
+  // of the products (see the DEC branch below); q and P are each NT = 3
+  // bf16 terms (fp32's 24 bits), so the scores and the weighted sum are
+  // fp32 products summed in fp32 and the bf16 output rounds as the fp32
+  // plain version's does. K7 (NT = 2: hi + lo, about 16 bits; its queries
+  // as M) keeps its bits.
+  constexpr bool DEC = KV::FUSE;
+  constexpr int NT = va_terms<KV>();
+  using Ly = VaLayout<HD, T, NT>;
+  constexpr bool Q8 = sizeof(T) == 1;
+  constexpr int CPR = HD / 8;   // 16-byte chunks of a bf16 key row
   constexpr int KS = HD / 16;   // k16 steps over the head
-  constexpr int TILE = VA_KT * HD;   // elements of a stage's K (or V)
+  constexpr int TILE = Ly::TILE;
   extern __shared__ uint8_t vsm_raw[];
   uint8_t* vsm = sm90::align1024(vsm_raw);
-  bf16* kst = reinterpret_cast<bf16*>(vsm);        // [VA_ST][K, V][TILE]
-  bf16* qhi = kst + VA_ST * 2 * TILE;              // [16][HD]
-  bf16* qlo = qhi + 16 * HD;                       // [16][HD]
-  int* full = reinterpret_cast<int*>(qlo + 16 * HD);   // [b + 1]
-  int* last = full + VA_MAXB + 8;                       // [b + 1]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(last + VA_MAXB + 8);
-  const bool tma = kv.box > 0;
+  bf16* cvt = reinterpret_cast<bf16*>(vsm + VA_ST * Ly::SLOT);  // int8
+  bf16* qt = reinterpret_cast<bf16*>(vsm + Ly::Q);          // [NT][16][HD]
+  int* full = reinterpret_cast<int*>(vsm + Ly::LISTS);         // [b + 1]
+  int* last = full + VA_MAXB + 8;                              // [b + 1]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vsm + Ly::BARS);
+  int* flag = reinterpret_cast<int*>(vsm + Ly::FLAG);
+  bool tma = true;
+  if constexpr (!KV::CONTIG) tma = kv.box > 0;
   // after an item's walk the ring holds the four warps' (O, m, l)
   float* ro = reinterpret_cast<float*>(vsm);       // [4][16][HD]
   float* rm = ro + 4 * 16 * HD;                    // [4][16]
   float* rl = rm + 4 * 16;                         // [4][16]
-  sm90::griddep_launch_dependents();   // the merge may launch
+  sm90::griddep_launch_dependents();   // the merge or the o-proj may launch
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int lr = lane >> 2, lc = lane & 3;
   const int dkv = nkv * HD, dq = dkv * rep, dqkv = dq + 2 * dkv;
   const int NQ = kv.K1 * rep, QG = (NQ + 15) / 16, per = nkv * QG;
-  const int tcap = kv.MB * kv.BT - 1;
+  const int tcap = kv.key_cap();
   const long otot = (long)kv.b * nkv * kv.nch * NQ * HD;
+  auto last_key = [&](int bi) {
+    return min(kv.position(bi) + kv.K1 - 1, tcap);
+  };
   // row bi's full-chunk items start at full[bi], its last chunk's at
   // last[bi] (after all the full ones); the positions are uploaded before
-  // the step, so this overlaps the appends' tail
+  // the step, so this overlaps the kernel before
   if (tid < kv.b) {
-    full[tid + 1] = (kv.last_key(tid) / VA_CHUNK) * per;
+    full[tid + 1] = (last_key(tid) / VA_CHUNK) * per;
     last[tid + 1] = per;
   }
   __syncthreads();
@@ -1254,9 +1205,13 @@ verify_attn_kernel(const float* __restrict__ qkv,
   // ring stages issued and consumed so far over the block's items: stage
   // n sits in slot n % VA_ST (TMA: its barrier's phase n / VA_ST)
   int issued = 0, used = 0;
-  // qkv (its epilogue) and the tail keys (the appends) are complete: the
-  // appends waited for the epilogue, this waits for the appends
-  sm90::griddep_wait();
+  // K7: qkv (its epilogue) and the tail keys (the appends kernel) are
+  // complete before any load. FUSE: the keys below pos were written by
+  // kernels that are complete when this launch starts (the qkv epilogue
+  // before it is an ordinary launch), so a block's first loads may go out
+  // before griddep_wait; qkv and the appends wait for it.
+  bool waited = !KV::FUSE;
+  if (waited) sm90::griddep_wait();
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const bool is_last = it >= full[kv.b];
     const int* first = is_last ? last : full;
@@ -1264,53 +1219,99 @@ verify_attn_kernel(const float* __restrict__ qkv,
     while (first[bi + 1] <= it) ++bi;
     const int r0 = it - first[bi];
     const int z = r0 % QG, g = (r0 / QG) % nkv;
-    const int pos = kv.positions[bi], tmax = kv.last_key(bi);
+    const int pos = kv.position(bi), tmax = last_key(bi);
     const int c = is_last ? tmax / VA_CHUNK : r0 / per;
     const int k0 = c * VA_CHUNK, k1 = min(k0 + VA_CHUNK, tmax + 1);
     const int nst = (k1 - k0 + VA_KT - 1) / VA_KT;
     const int q0 = z * 16, nq = min(16, NQ - q0);
     const int lmin = min(pos + q0 / rep, tcap);   // the block's least limit
-    const int* tab = kv.tables + (long)bi * kv.MB;
+    const int* tab = nullptr;
+    if constexpr (!KV::CONTIG) tab = kv.tables + (long)bi * kv.MB;
 
     // stage s of the item: keys k0 + 64 s ..., K and V of head g, into
-    // slot `issued % VA_ST`. TMA (BT % 8 == 0): one thread loads boxes of
-    // kv.box rows (a box never crosses a pool block), 64 columns each,
-    // onto the slot's barrier; a box wholly past k1 loads k1 - 1's box
-    // again (finite, and masked). Else every thread copies 16-byte pieces
-    // by cp.async, keys past k1 as zeros.
+    // slot `issued % VA_ST`. TMA: one thread loads the stage onto the
+    // slot's barrier — the contiguous cache as one 64-row box of the row's
+    // slab (two 64-column boxes a K or V at head_dim 128 in bf16); the pool
+    // in boxes of kv.box rows (a box never crosses a pool block), 64
+    // columns each, a box wholly past k1 loading k1 - 1's box again
+    // (finite, and masked). Else (the pool, BT % 8 != 0) every thread
+    // copies 16-byte pieces by cp.async, keys past k1 as zeros.
     auto load = [&](int s) {
       const int slot = issued % VA_ST;
       ++issued;
-      bf16* ks = kst + slot * 2 * TILE;
-      bf16* vs = ks + TILE;
+      T* ks = reinterpret_cast<T*>(vsm + slot * Ly::SLOT);
+      T* vs = ks + TILE;
       if (tma) {
         if (tid != 0) return;
-        sm90::mbar_arrive_tx(&bars[slot], 2 * TILE * 2);
-        for (int r = 0; r < VA_KT; r += kv.box) {
-          const int t = k0 + s * VA_KT + r;
-          const int tb = t < k1 ? t : (k1 - 1) / kv.box * kv.box;
-          const int row = kv.lrow0 + (int)kv.key_row(tab, tb);
+        sm90::mbar_arrive_tx(&bars[slot], Ly::SLOT);
+        if constexpr (KV::CONTIG) {
+          const int t = k0 + s * VA_KT, zs = kv.z0 + bi;
+          if constexpr (Q8) {
+            sm90::tma_load_3d(ks, &kv.map, &bars[slot], g * HD, t, zs);
+            sm90::tma_load_3d(vs, &kv.map, &bars[slot], dkv + g * HD, t, zs);
+          } else {
 #pragma unroll
-          for (int hh = 0; hh < HD / 64; ++hh) {
-            sm90::tma_load_2d(ks + hh * VA_KT * 64 + r * 64, &kv.map,
-                              &bars[slot], g * HD + hh * 64, row);
-            sm90::tma_load_2d(vs + hh * VA_KT * 64 + r * 64, &kv.map,
-                              &bars[slot], dkv + g * HD + hh * 64, row);
+            for (int hh = 0; hh < HD / 64; ++hh) {
+              sm90::tma_load_3d(ks + hh * VA_KT * 64, &kv.map, &bars[slot],
+                                g * HD + hh * 64, t, zs);
+              sm90::tma_load_3d(vs + hh * VA_KT * 64, &kv.map, &bars[slot],
+                                dkv + g * HD + hh * 64, t, zs);
+            }
+          }
+        } else {
+          for (int r = 0; r < VA_KT; r += kv.box) {
+            const int t = k0 + s * VA_KT + r;
+            const int tb = t < k1 ? t : (k1 - 1) / kv.box * kv.box;
+            const int row = kv.lrow0 + (int)kv.key_row(tab, tb);
+#pragma unroll
+            for (int hh = 0; hh < HD / 64; ++hh) {
+              sm90::tma_load_2d(ks + hh * VA_KT * 64 + r * 64, &kv.map,
+                                &bars[slot], g * HD + hh * 64, row);
+              sm90::tma_load_2d(vs + hh * VA_KT * 64 + r * 64, &kv.map,
+                                &bars[slot], dkv + g * HD + hh * 64, row);
+            }
           }
         }
         return;
       }
+      if constexpr (!KV::CONTIG) {
 #pragma unroll
-      for (int i = tid; i < VA_KT * CPR; i += VA_T) {
-        const int r = i / CPR, ch = i % CPR, t = k0 + s * VA_KT + r;
-        const bool ok = t < k1;
-        const bf16* src = kv.kv;
-        if (ok) src += kv.key_row(tab, t) * kv.dkv2 + g * HD + ch * 8;
-        cp_async16(va_at<VA_KT>(ks, r, ch), src, ok);
-        cp_async16(va_at<VA_KT>(vs, r, ch), ok ? src + dkv : src, ok);
+        for (int i = tid; i < VA_KT * CPR; i += VA_T) {
+          const int r = i / CPR, ch = i % CPR, t = k0 + s * VA_KT + r;
+          const bool ok = t < k1;
+          const bf16* src = kv.kv;
+          if (ok) src += kv.key_row(tab, t) * kv.dkv2 + g * HD + ch * 8;
+          cp_async16(va_at<VA_KT>(ks, r, ch), src, ok);
+          cp_async16(va_at<VA_KT>(vs, r, ch), ok ? src + dkv : src, ok);
+        }
+        cp_async_commit();
       }
-      cp_async_commit();
     };
+    // FUSE: the item holding the row's last key for head g writes the
+    // head's append at pos before any of its loads (no other item reads
+    // key pos of head g). An idle paged row (its table all scratch) writes
+    // none: its thrown-away output reads block 0 as it is, so two launches
+    // agree bit for bit
+    if (KV::FUSE && is_last && z == 0 && kv.keeps_append(bi, pos)) {
+      if (!waited) {
+        sm90::griddep_wait();
+        waited = true;
+      }
+      const float* kh = qkv + (long)bi * dqkv + dq + g * HD;
+      T* dst = kv.append_row(bi, pos) + g * HD;
+      const float* cr = ROPE ? kv.rope_row(kv.cos, bi, HD) : nullptr;
+      const float* sr = ROPE ? kv.rope_row(kv.sin, bi, HD) : nullptr;
+      for (int d = tid; d < HD; d += VA_T) {
+        float kval = kh[d];
+        if (ROPE) {
+          const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
+          kval = kh[d] * cr[d] + rot * sr[d];
+        }
+        put_kv(dst + d, kval, kv.lane_scale(g * HD + d));
+        put_kv(dst + dkv + d, kh[dkv + d], kv.lane_scale(dkv + g * HD + d));
+      }
+      sm90::fence_proxy_async_global();   // ... before the TMA reads it
+    }
     // every thread is done with the previous item's ro, and its generic
     // writes there are ordered before the loads that refill the ring
     sm90::fence_proxy_async();
@@ -1319,12 +1320,18 @@ verify_attn_kernel(const float* __restrict__ qkv,
       if (s < nst) load(s);
       else if (!tma) cp_async_commit();
     }
-    // the queries: rope'd, scaled into the log2 domain, split into a bf16
-    // pair (rows past nq are zeros, never written out). A thread takes one
-    // head dim of RPT rows and issues all their loads before it uses any.
+    if (!waited) {
+      sm90::griddep_wait();
+      waited = true;
+    }
+    // the queries: rope'd, scaled into the log2 domain (and by the int8
+    // cache's k scale), split into NT bf16 terms (rows past nq are zeros,
+    // never written out). A thread takes one head dim of RPT rows and
+    // issues all their loads before it uses any.
     {
       constexpr int RPT = 16 * HD / VA_T;
       const int d = tid % HD, r0 = tid / HD;
+      const float qs = Q8 ? qscale * kv.lane_scale(g * HD) : qscale;
       float qv[RPT], rv[RPT], cv[RPT], sv[RPT];
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
@@ -1336,147 +1343,313 @@ verify_attn_kernel(const float* __restrict__ qkv,
           qv[j] = qh[d];
           if (ROPE) {
             rv[j] = d < HD / 2 ? -qh[d + HD / 2] : qh[d - HD / 2];
-            cv[j] = kv.cos[(long)m * HD + d];
-            sv[j] = kv.sin[(long)m * HD + d];
+            cv[j] = kv.rope_row(kv.cos, m, HD)[d];
+            sv[j] = kv.rope_row(kv.sin, m, HD)[d];
           }
         }
       }
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int qi = r0 + (VA_T / HD) * j;
-        const float v = (ROPE ? qv[j] * cv[j] + rv[j] * sv[j] : qv[j]) *
-                        qscale;
+        const float v = (ROPE ? qv[j] * cv[j] + rv[j] * sv[j] : qv[j]) * qs;
         const bf16 hi = __float2bfloat16(v);
-        va_at<16>(qhi, qi, d >> 3)[d & 7] = hi;
-        va_at<16>(qlo, qi, d >> 3)[d & 7] =
-            __float2bfloat16(v - __bfloat162float(hi));
+        const float r1 = v - __bfloat162float(hi);
+        const bf16 mid = __float2bfloat16(r1);
+        va_at<16>(qt, qi, d >> 3)[d & 7] = hi;
+        va_at<16>(qt + 16 * HD, qi, d >> 3)[d & 7] = mid;
+        if (NT == 3)
+          va_at<16>(qt + 32 * HD, qi, d >> 3)[d & 7] =
+              __float2bfloat16(r1 - __bfloat162float(mid));
       }
     }
     __syncthreads();   // the queries are staged
-    unsigned qa[KS][4], qb[KS][4];
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int r = (lane & 7) + 8 * ((lane >> 3) & 1);
-      const int ch = 2 * kk + (lane >> 4);
-      ldsm_x4(qa[kk], va_at<16>(qhi, r, ch));
-      ldsm_x4(qb[kk], va_at<16>(qlo, r, ch));
-    }
-    // this thread's two query rows (lr, lr + 8) and their key limits
-    int lim[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qi = lr + 8 * i;
-      lim[i] = qi < nq ? min(pos + (q0 + qi) / rep, tcap) : 0x7fffffff;
-    }
-    float o[HD / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-    for (int s = 0; s < nst; ++s) {
+    // stage s: wait until it has landed for every thread (so s-1 is
+    // consumed), issue the load VA_ST - 1 stages ahead, and (int8) widen it
+    // into the bf16 copy; returns the stage's bf16 K tile (V follows it)
+    auto stage = [&](int s) {
       const int slot = used % VA_ST;
-      if (tma)                      // stage s has landed
+      if (tma)
         sm90::mbar_wait(&bars[slot], (used / VA_ST) & 1);
       else
         cp_async_wait<VA_ST - 2>();
       ++used;
-      __syncthreads();              // ... for every thread; s-1 is consumed
+      __syncthreads();
       if (s + VA_ST - 1 < nst) load(s + VA_ST - 1);
       else if (!tma) cp_async_commit();
-      const int t0 = k0 + s * VA_KT + 16 * warp;   // this warp's first key
-      if (t0 > tmax) continue;
-      bf16* ks = kst + slot * 2 * TILE;
-      bf16* vs = ks + TILE;
-      // S (16 queries x 16 keys) = (q_hi + q_lo) K^T, hi and lo into
-      // separate accumulators (two short dependency chains, not one long)
-      float sh[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      float sl[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      bf16* ks = reinterpret_cast<bf16*>(vsm + slot * Ly::SLOT);
+      if constexpr (Q8) {
+        // the int8 stage (rows of HD bytes) widened into the bf16 copy, 16
+        // values a thread at a time (the copy of stage s-1 is read: the
+        // barrier above)
+        const int8_t* raw = reinterpret_cast<const int8_t*>(ks);
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        unsigned kb[4];
-        ldsm_x4(kb, va_at<VA_KT>(ks,
-                                 16 * warp + (lane & 7) + 8 * (lane >> 4),
-                                 2 * kk + ((lane >> 3) & 1)));
-        mma16816(sh[0], qa[kk], kb[0], kb[1]);
-        mma16816(sh[1], qa[kk], kb[2], kb[3]);
-        mma16816(sl[0], qb[kk], kb[0], kb[1]);
-        mma16816(sl[1], qb[kk], kb[2], kb[3]);
+        for (int i = tid; i < 2 * TILE / 16; i += VA_T) {
+          const int kv2 = i / (TILE / 16), r = (i % (TILE / 16)) / (HD / 16),
+                    j = i % (HD / 16);
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              raw + kv2 * TILE + r * HD + 16 * j);
+          uint4 lo, hi;
+          int8x16_to_bf16(v, lo, hi);
+          bf16* tile = cvt + kv2 * TILE;
+          *reinterpret_cast<uint4*>(va_at<VA_KT>(tile, r, 2 * j)) = lo;
+          *reinterpret_cast<uint4*>(va_at<VA_KT>(tile, r, 2 * j + 1)) = hi;
+        }
+        __syncthreads();            // the copy is whole
+        ks = cvt;
       }
-      float sc[2][4];
+      return ks;
+    };
+    if constexpr (DEC) {
+      // The decode items: at most 8 queries, the N of the products. Sᵀ (16
+      // keys x 8 queries) = K Qᵀ with the warp's keys as mma's M, and Oᵀ
+      // (16 head dims x 8 queries) += Vᵀ Pᵀ with the head dims as M, so no
+      // product pads the queries to 16. Pᵀ comes from Sᵀ's accumulator by
+      // movmatrix.trans. Each q and P value is NT = 3 bf16 terms.
+      // qf[t][kk]: q term t, queries 0..7 (row lr), dims 16 kk + 2 lc (+8)
+      unsigned qf[NT][KS][2];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int t = 0; t < NT; ++t)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = sh[j][e] + sl[j][e];
-      // sc[j][e]: query lr + 8 (e / 2), key t0 + 8 j + 2 lc + e % 2
-      if (t0 + 15 > lmin) {         // an edge tile: the causal limits
+        for (int kk = 0; kk < KS; kk += 2) {
+          unsigned r4[4];
+          ldsm_x4(r4, va_at<16>(qt + t * 16 * HD, lane & 7,
+                                2 * kk + (lane >> 3)));
+          qf[t][kk][0] = r4[0];
+          qf[t][kk][1] = r4[1];
+          qf[t][kk + 1][0] = r4[2];
+          qf[t][kk + 1][1] = r4[3];
+        }
+      // this thread's two query columns (2 lc, 2 lc + 1) and their limits
+      int lim[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qi = 2 * lc + j;
+        lim[j] = qi < nq ? min(pos + (q0 + qi) / rep, tcap) : 0x7fffffff;
+      }
+      // oT[mt][e]: head dim 16 mt + lr + 8 (e / 2), query 2 lc + e % 2
+      float oT[HD / 16][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int mt = 0; mt < HD / 16; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oT[mt][e] = 0.f;
+      for (int s = 0; s < nst; ++s) {
+        const bf16* ks = stage(s);
+        const bf16* vs = ks + TILE;
+        const int t0 = k0 + s * VA_KT + 16 * warp;   // this warp's first key
+        if (t0 > tmax) continue;
+        // Sᵀ, each q term into its own accumulator (short chains)
+        float sa[NT][4];
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sa[t][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          unsigned ka[4];
+          ldsm_x4(ka, va_at<VA_KT>(const_cast<bf16*>(ks),
+                                   16 * warp + (lane & 7) +
+                                       8 * ((lane >> 3) & 1),
+                                   2 * kk + (lane >> 4)));
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+            mma16816(sa[t], ka, qf[t][kk][0], qf[t][kk][1]);
+        }
+        // sc[e]: key t0 + lr + 8 (e / 2), query 2 lc + e % 2
+        float sc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[e] = sa[0][e] + (sa[1][e] + sa[NT - 1][e]);
+        if (t0 + 15 > lmin) {       // an edge tile: the causal limits
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (t0 + lr + 8 * (e >> 1) > lim[e & 1]) sc[e] = -INFINITY;
+        }
+        float al[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {   // query 2 lc + j: its 16 keys
+          float mx = fmaxf(sc[j], sc[2 + j]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 4));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 8));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 16));
+          const float mn = fmaxf(m[j], mx);
+          al[j] = sm90::ex2(m[j] - mn);
+          m[j] = mn;
+          sc[j] = sm90::ex2(sc[j] - mn);
+          sc[2 + j] = sm90::ex2(sc[2 + j] - mn);
+          l[j] = l[j] * al[j] + (sc[j] + sc[2 + j]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < HD / 16; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) oT[mt][e] *= al[e & 1];
+        // Pᵀ as the B operand: P's bf16 terms for keys 0..7 and 8..15,
+        // each 8 x 8 block transposed (query lr, keys 2 lc, 2 lc + 1)
+        unsigned pb[NT][2];
+        split3(sc[0], sc[1], pb[0][0], pb[1][0], pb[NT - 1][0]);
+        split3(sc[2], sc[3], pb[0][1], pb[1][1], pb[NT - 1][1]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          pb[t][0] = movmatrix_trans(pb[t][0]);
+          pb[t][1] = movmatrix_trans(pb[t][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < HD / 16; ++mt) {
+          unsigned va[4];   // Vᵀ: head dims 16 mt .. + 15 x the 16 keys
+          ldsm_x4_trans(va, va_at<VA_KT>(const_cast<bf16*>(vs),
+                                         16 * warp + (lane & 7) +
+                                             8 * (lane >> 4),
+                                         2 * mt + ((lane >> 3) & 1)));
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+            mma16816(oT[mt], va, pb[t][0], pb[t][1]);
+        }
+      }
+      if (!tma) cp_async_wait<0>();
+      __syncthreads();   // every warp is done with the ring: it becomes ro
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        l[j] += __shfl_xor_sync(0xffffffff, l[j], 4);
+        l[j] += __shfl_xor_sync(0xffffffff, l[j], 8);
+        l[j] += __shfl_xor_sync(0xffffffff, l[j], 16);
+        const int row = warp * 16 + 2 * lc + j;
+#pragma unroll
+        for (int mt = 0; mt < HD / 16; ++mt) {
+          ro[row * HD + 16 * mt + lr] = oT[mt][j];
+          ro[row * HD + 16 * mt + lr + 8] = oT[mt][2 + j];
+        }
+        if (lr == 0) {
+          rm[row] = m[j];
+          rl[row] = l[j];
+        }
+      }
+    } else {
+      unsigned qf[NT][KS][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int r = (lane & 7) + 8 * ((lane >> 3) & 1);
+          const int ch = 2 * kk + (lane >> 4);
+          ldsm_x4(qf[t][kk], va_at<16>(qt + t * 16 * HD, r, ch));
+        }
+      // this thread's two query rows (lr, lr + 8) and their key limits
+      int lim[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = lr + 8 * i;
+        lim[i] = qi < nq ? min(pos + (q0 + qi) / rep, tcap) : 0x7fffffff;
+      }
+      float o[HD / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+      for (int s = 0; s < nst; ++s) {
+        bf16* ks = stage(s);
+        bf16* vs = ks + TILE;
+        const int t0 = k0 + s * VA_KT + 16 * warp;   // this warp's first key
+        if (t0 > tmax) continue;
+        // S (16 queries x 16 keys) = (q_hi + q_lo) K^T, hi and lo into
+        // separate accumulators (two short dependency chains, not one long)
+        float sa[NT][2][4];
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sa[t][j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          unsigned kb[4];
+          ldsm_x4(kb, va_at<VA_KT>(ks,
+                                   16 * warp + (lane & 7) + 8 * (lane >> 4),
+                                   2 * kk + ((lane >> 3) & 1)));
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            mma16816(sa[t][0], qf[t][kk], kb[0], kb[1]);
+            mma16816(sa[t][1], qf[t][kk], kb[2], kb[3]);
+          }
+        }
+        float sc[2][4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (t0 + 8 * j + 2 * lc + (e & 1) > lim[e >> 1])
-              sc[j][e] = -INFINITY;
+          for (int e = 0; e < 4; ++e) sc[j][e] = sa[0][j][e] + sa[1][j][e];
+        // sc[j][e]: query lr + 8 (e / 2), key t0 + 8 j + 2 lc + e % 2
+        if (t0 + 15 > lmin) {       // an edge tile: the causal limits
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (t0 + 8 * j + 2 * lc + (e & 1) > lim[e >> 1])
+                sc[j][e] = -INFINITY;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float mx = fmaxf(fmaxf(sc[0][2 * i], sc[0][2 * i + 1]),
+                           fmaxf(sc[1][2 * i], sc[1][2 * i + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+          const float mn = fmaxf(m[i], mx);
+          const float al = sm90::ex2(m[i] - mn);
+          m[i] = mn;
+          l[i] *= al;
+#pragma unroll
+          for (int n = 0; n < HD / 8; ++n) {
+            o[n][2 * i] *= al;
+            o[n][2 * i + 1] *= al;
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            sc[j][2 * i] = sm90::ex2(sc[j][2 * i] - mn);
+            sc[j][2 * i + 1] = sm90::ex2(sc[j][2 * i + 1] - mn);
+            l[i] += sc[j][2 * i] + sc[j][2 * i + 1];
+          }
+        }
+        // P as the A operand (keys 0..15 of the warp's tile), hi and lo
+        unsigned pf[NT][4];
+        split2(sc[0][0], sc[0][1], pf[0][0], pf[1][0]);
+        split2(sc[0][2], sc[0][3], pf[0][1], pf[1][1]);
+        split2(sc[1][0], sc[1][1], pf[0][2], pf[1][2]);
+        split2(sc[1][2], sc[1][3], pf[0][3], pf[1][3]);
+#pragma unroll
+        for (int n2 = 0; n2 < HD / 16; ++n2) {
+          unsigned vb[4];
+          ldsm_x4_trans(vb, va_at<VA_KT>(vs,
+                                         16 * warp + (lane & 7) +
+                                             8 * ((lane >> 3) & 1),
+                                         2 * n2 + (lane >> 4)));
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            mma16816(o[2 * n2], pf[t], vb[0], vb[1]);
+            mma16816(o[2 * n2 + 1], pf[t], vb[2], vb[3]);
+          }
+        }
       }
+      if (!tma) cp_async_wait<0>();
+      __syncthreads();   // every warp is done with the ring: it becomes ro
+      // o[n][e]: query lr + 8 (e / 2), head dim 8 n + 2 lc + e % 2
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        float mx = fmaxf(fmaxf(sc[0][2 * i], sc[0][2 * i + 1]),
-                         fmaxf(sc[1][2 * i], sc[1][2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
-        const float mn = fmaxf(m[i], mx);
-        const float al = sm90::ex2(m[i] - mn);
-        m[i] = mn;
-        l[i] *= al;
+        l[i] += __shfl_xor_sync(0xffffffff, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
+        const int row = warp * 16 + lr + 8 * i;
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          o[n][2 * i] *= al;
-          o[n][2 * i + 1] *= al;
+        for (int n = 0; n < HD / 8; ++n)
+          *reinterpret_cast<float2*>(ro + row * HD + 8 * n + 2 * lc) =
+              make_float2(o[n][2 * i], o[n][2 * i + 1]);
+        if (lc == 0) {
+          rm[row] = m[i];
+          rl[row] = l[i];
         }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          sc[j][2 * i] = sm90::ex2(sc[j][2 * i] - mn);
-          sc[j][2 * i + 1] = sm90::ex2(sc[j][2 * i + 1] - mn);
-          l[i] += sc[j][2 * i] + sc[j][2 * i + 1];
-        }
-      }
-      // P as the A operand (keys 0..15 of the warp's tile), hi and lo
-      unsigned pa[4], pb[4];
-      split2(sc[0][0], sc[0][1], pa[0], pb[0]);
-      split2(sc[0][2], sc[0][3], pa[1], pb[1]);
-      split2(sc[1][0], sc[1][1], pa[2], pb[2]);
-      split2(sc[1][2], sc[1][3], pa[3], pb[3]);
-#pragma unroll
-      for (int n2 = 0; n2 < HD / 16; ++n2) {
-        unsigned vb[4];
-        ldsm_x4_trans(vb, va_at<VA_KT>(vs,
-                                       16 * warp + (lane & 7) +
-                                           8 * ((lane >> 3) & 1),
-                                       2 * n2 + (lane >> 4)));
-        mma16816(o[2 * n2], pa, vb[0], vb[1]);
-        mma16816(o[2 * n2 + 1], pa, vb[2], vb[3]);
-        mma16816(o[2 * n2], pb, vb[0], vb[1]);
-        mma16816(o[2 * n2 + 1], pb, vb[2], vb[3]);
-      }
-    }
-    if (!tma) cp_async_wait<0>();
-    __syncthreads();   // every warp is done with the ring: it becomes ro
-    // o[n][e]: query lr + 8 (e / 2), head dim 8 n + 2 lc + e % 2
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffff, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
-      const int row = warp * 16 + lr + 8 * i;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<float2*>(ro + row * HD + 8 * n + 2 * lc) =
-            make_float2(o[n][2 * i], o[n][2 * i + 1]);
-      if (lc == 0) {
-        rm[row] = m[i];
-        rl[row] = l[i];
       }
     }
     __syncthreads();
-    // the item's partial: the four warps merged in warp order
+    // the item's partial: the four warps merged in warp order. FUSE, a row
+    // of one chunk: its output, at once.
+    const int nc = tmax / VA_CHUNK + 1;
+    const bool direct = KV::FUSE && nc == 1;
+    const float vsc = Q8 ? kv.lane_scale(dkv + g * HD) : 1.f;
     const long pq = ((long)(bi * nkv + g) * kv.nch + c) * NQ + q0;
     for (int i = tid; i < nq * HD; i += VA_T) {
       const int qi = i / HD, d = i % HD;
@@ -1490,121 +1663,137 @@ verify_attn_kernel(const float* __restrict__ qkv,
         A += ro[(w * 16 + qi) * HD + d] * e;
         Ls += rl[w * 16 + qi] * e;
       }
+      if (direct) {
+        const int q = q0 + qi;
+        float ov = A / Ls;
+        if (Q8) ov *= vsc;
+        attn[(long)(bi * kv.K1 + q / rep) * dq + (g * rep + q % rep) * HD +
+             d] = __float2bfloat16(ov);
+        continue;
+      }
       kv.part[(pq + qi) * HD + d] = A;
       if (d == 0) {
         kv.part[otot + (pq + qi) * 2] = M;
         kv.part[otot + (pq + qi) * 2 + 1] = Ls;
       }
     }
+    if (KV::FUSE && !direct) {
+      // the last of the (row, head)'s items to finish merges them: every
+      // item's partial is in L2 before its count (the fence), and the
+      // merging block reads them after seeing the full count
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) {
+        int* cnt = kv.count + bi * nkv + g;
+        const bool lastb = atomicAdd(cnt, 1) == nc * QG - 1;
+        if (lastb) {
+          *cnt = 0;   // for the next layer's launch
+          __threadfence();
+        }
+        *flag = lastb;
+      }
+      __syncthreads();
+      if (*flag)
+        merge_chunks<HD, true, Q8>(kv.part, otot,
+                                   (long)(bi * nkv + g) * kv.nch * NQ, nc,
+                                   NQ, kv.K1, rep, dq, g, bi, vsc, attn,
+                                   warp, VA_T / 32, lane);
+    }
     // (the next item's barrier frees the ring for its loads)
   }
 }
 
-// Per (kv head g, row bi): each of the row's K1*rep queries (one warp a
-// query) combines its chunks' partials in chunk order and writes attn
-// (M, dq) in bf16. Launched behind the attention (its partials are read
-// after griddep_wait).
+// K7's merge, per (kv head g, row bi): merge_chunks over the row's chunks,
+// four warps. Launched behind the attention (its partials are read after
+// griddep_wait).
 template <int HD>
 __global__ void __launch_bounds__(128)
-verify_merge_kernel(const VerifyKV kv, bf16* __restrict__ attn, int nkv,
-                    int rep) {
+split_merge_kernel(const VerifyKV kv, bf16* __restrict__ attn, int nkv,
+                   int rep) {
   sm90::griddep_launch_dependents();   // the o-proj's weights may load
   sm90::griddep_wait();
   const int g = blockIdx.x, bi = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int NQ = kv.K1 * rep, dq = nkv * rep * HD;
-  const int nc = kv.last_key(bi) / VA_CHUNK + 1;        // chunks
-  const float* ml = kv.part + (long)kv.b * nkv * kv.nch * NQ * HD;
-  const long p0 = (long)(bi * nkv + g) * kv.nch * NQ;   // chunk 0, query 0
-  for (int q = warp; q < NQ; q += 4) {
-    // lane i holds chunks i, i + 32, ...: the max and the weighted l sum
-    // over lanes (a fixed xor tree), then each chunk's weight is
-    // broadcast from its lane while every lane sums HD/32 of O
-    float M = NEG_INF;
-    for (int c = lane; c < nc; c += 32)
-      M = fmaxf(M, ml[(p0 + (long)c * NQ + q) * 2]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      M = fmaxf(M, __shfl_xor_sync(0xffffffff, M, o));
-    float A[HD / 32], Ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < HD / 32; ++j) A[j] = 0.f;
-    for (int c0 = 0; c0 < nc; c0 += 32) {
-      float e = 0.f;
-      if (c0 + lane < nc) {
-        const long pi = p0 + (long)(c0 + lane) * NQ + q;
-        e = sm90::ex2(ml[pi * 2] - M);
-        Ls += ml[pi * 2 + 1] * e;
-      }
-      const int n = min(32, nc - c0);
-#pragma unroll 4
-      for (int i = 0; i < n; ++i) {
-        const float w = __shfl_sync(0xffffffff, e, i);
-        const float* op = kv.part + (p0 + (long)(c0 + i) * NQ + q) * HD;
-#pragma unroll
-        for (int j = 0; j < HD / 32; ++j) A[j] += op[lane + 32 * j] * w;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      Ls += __shfl_xor_sync(0xffffffff, Ls, o);
-    bf16* out = attn + (long)(bi * kv.K1 + q / rep) * dq +
-                (g * rep + q % rep) * HD;
-#pragma unroll
-    for (int j = 0; j < HD / 32; ++j)
-      out[lane + 32 * j] = __float2bfloat16(A[j] / Ls);
-  }
+  const int NQ = kv.K1 * rep;
+  const int tmax = min(kv.positions[bi] + kv.K1 - 1, kv.key_cap());
+  merge_chunks<HD, false, false>(
+      kv.part, (long)kv.b * nkv * kv.nch * NQ * HD,
+      (long)(bi * nkv + g) * kv.nch * NQ, tmax / VA_CHUNK + 1, NQ, kv.K1,
+      rep, nkv * rep * HD, g, bi, 1.f, attn, threadIdx.x >> 5, 4,
+      threadIdx.x & 31);
 }
 
 // Floats of the attention's chunk partials: (O, m, l) per (row, kv head,
-// chunk, query), chunks of the table's span S = MB*BT.
-long verify_part_floats(int b, int K1, int nkv, int rep, int hd, int S) {
+// chunk, query), chunks of a key span S (the cache's length, or the
+// table's MB*BT).
+long split_part_floats(int b, int K1, int nkv, int rep, int hd, int S) {
   const long nch = (S + VA_CHUNK - 1) / VA_CHUNK;
   return (long)b * nkv * nch * K1 * rep * (hd + 2);
 }
 
-// The appends, the attention, the merge: each the programmatic dependent
-// of the kernel before it (qkv's epilogue, the appends, the attention).
-template <int HD, bool ROPE>
-cudaError_t verify_attention(const Stack& a, const VerifyKV& kv,
-                             cudaStream_t st) {
+// A decode step's workspace (K2, K5, K6): the products' `prod` floats,
+// then (256-byte aligned) the attention's chunk partials for b rows over a
+// key span S, then the (b, nkv) counters. Returns its floats; with ws,
+// also where the partials and the counters sit.
+long decode_ws(long prod, int b, int nkv, int rep, int hd, int S,
+               float* ws = nullptr, float** part = nullptr,
+               int** count = nullptr) {
+  const long p0 = (prod + 63) & ~63L;
+  const long pf = split_part_floats(b, 1, nkv, rep, hd, S);
+  if (ws != nullptr) {
+    *part = ws + p0;
+    *count = reinterpret_cast<int*>(ws + p0 + pf);
+  }
+  return p0 + pf + (long)b * nkv;
+}
+
+// One layer's attention over kv: the split kernel, as the programmatic
+// dependent of the qkv epilogue (FUSE: one launch); K7 also its appends
+// before it and its merge after, each the programmatic dependent of the
+// kernel before it.
+template <int HD, bool ROPE, class KV>
+cudaError_t split_attention(const Stack& a, const KV& kv, cudaStream_t st) {
+  using T = typename KV::T;
   const int rep = a.nh / a.nkv;
-  if (kv.b < 1 || kv.b > VA_MAXB) return cudaErrorInvalidValue;
-  cudaError_t e = launch_dependent(verify_append_kernel<HD, ROPE>,
-                                   dim3(a.nkv, kv.b), 128, 0, st, a.qkv, kv,
-                                   a.nkv, rep);
-  if (e != cudaSuccess) return e;
-  const int smem = va_smem(HD);
+  if (kv.b < 1 || kv.b > VA_MAXB ||
+      (KV::FUSE && (kv.K1 != 1 || rep > 8)))   // DEC: at most 8 queries
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if constexpr (!KV::FUSE) {
+    e = launch_dependent(verify_append_kernel<HD, ROPE>, dim3(a.nkv, kv.b),
+                         128, 0, st, (const float*)a.qkv, kv, a.nkv, rep);
+    if (e != cudaSuccess) return e;
+  }
+  const int smem = VaLayout<HD, T, va_terms<KV>()>::SMEM;
   static int per_sm = 0;   // blocks an SM holds; the opt-in above 48 KB, once
   if (per_sm == 0) {
-    e = cudaFuncSetAttribute(verify_attn_kernel<HD, ROPE>,
+    e = cudaFuncSetAttribute(split_attn_kernel<HD, ROPE, KV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, verify_attn_kernel<HD, ROPE>, VA_T, smem);
+        &per_sm, split_attn_kernel<HD, ROPE, KV>, VA_T, smem);
     if (e != cudaSuccess) return e;
     if (per_sm < 1) per_sm = 1;
   }
   const long items = (long)kv.b * kv.nch * a.nkv * ((kv.K1 * rep + 15) / 16);
   const long cap = (long)num_sms() * per_sm;
-  e = launch_dependent(verify_attn_kernel<HD, ROPE>,
+  e = launch_dependent(split_attn_kernel<HD, ROPE, KV>,
                        dim3((int)(items < cap ? items : cap)), VA_T, smem,
-                       st, (const float*)a.qkv, kv, a.nkv, rep,
+                       st, (const float*)a.qkv, kv, a.attn, a.nkv, rep,
                        LOG2E / sqrtf((float)HD));
   if (e != cudaSuccess) return e;
-  e = launch_dependent(verify_merge_kernel<HD>, dim3(a.nkv, kv.b), 128, 0,
-                       st, kv, a.attn, a.nkv, rep);
+  if constexpr (!KV::FUSE)
+    e = launch_dependent(split_merge_kernel<HD>, dim3(a.nkv, kv.b), 128, 0,
+                         st, kv, a.attn, a.nkv, rep);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// K7's attention of one layer (the appends, the chunks, the merge) at
-// head_dim 64 or 128.
-template <bool ROPE>
-cudaError_t layer_attention(const Stack& a, const VerifyKV& kv,
-                            cudaStream_t st) {
-  return a.hd == 128 ? verify_attention<128, ROPE>(a, kv, st)
-         : a.hd == 64 ? verify_attention<64, ROPE>(a, kv, st)
+// The attention of one layer (rope + append + attention) at head_dim 64 or
+// 128 over any of the policies above.
+template <bool ROPE, class KV>
+cudaError_t layer_attention(const Stack& a, const KV& kv, cudaStream_t st) {
+  return a.hd == 128 ? split_attention<128, ROPE>(a, kv, st)
+         : a.hd == 64 ? split_attention<64, ROPE>(a, kv, st)
                       : cudaErrorInvalidValue;
 }
 
@@ -1791,8 +1980,8 @@ cudaError_t decode_stack(const Stack& a_in, LayerKV layer_kv,
   EMaps m;
   const int me = emaps(&m, a, EngW<W>::I8);
   if (me != 0) return (cudaError_t)me;
-  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
-                                                           b * h);
+  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(
+      a.x_in, a.xf, b * h, a.count, a.ncount);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
     if (a.gpt) {
@@ -2038,11 +2227,11 @@ cudaError_t tc_launch(const Ops& ops, int in, int out, const VSplit& s,
 // proposals) at positions pos .. pos+K1-1; all M = b*K1 tail rows (row m =
 // bi*K1 + j, the (b, K1, h) layout of x) go through decode_stack together,
 // as M one-token rows of K2/K5: the same norm rows, products on the engine
-// (N = M rounded up to 8 ... 64) and epilogues, with K7's attention in
-// place of K5's (layer_attention over a VerifyKV, the K7 attention section
-// above: the K1 appends of every row through its block table — a block
-// index >= MB goes to scratch block 0 — then the split-KV tensor-core
-// attention with query j limited to pos+j, then the merge). 1 + 13L
+// (N = M rounded up to 8 ... 64) and epilogues, and the split-KV attention
+// as a VerifyKV policy (the split-KV attention section above: the K1
+// appends of every row through its block table — a block index >= MB goes
+// to scratch block 0 — then the attention with query j limited to pos+j,
+// then the merge, three launches). 1 + 13L
 // launches, both modes. Casts as in K5: bf16 activations into each
 // product, fp32 accumulators and residual, k/v rounded to bf16 at the
 // append.
@@ -2052,36 +2241,49 @@ cudaError_t tc_launch(const Ops& ops, int in, int out, const VSplit& s,
 // work, still far below the card's bf16 rate.
 // ---------------------------------------------------------------------------
 
-// Floats of K7's workspace: its products' (K2/K5's layout over M = b*K1
-// rows: the llama mode's normalised rows at its head), 256-byte aligned,
-// then the attention's chunk partials over the table's span S = MB*BT.
-// *prod receives the products' share.
-long verify_ws(int b, int K1, int h, int nh, int nkv, int hd, int ffn,
-               int S, bool gpt, long* prod) {
-  const int M = b * K1, dq = nh * hd, dqkv = dq + 2 * nkv * hd;
+// Floats of the products' share of a step's workspace over M rows: K2/K5's
+// layout (the llama mode's normalised rows at its head), or the gpt mode's.
+long prod_floats(int M, int h, int nh, int nkv, int hd, int ffn, bool gpt) {
+  const int dq = nh * hd, dqkv = dq + 2 * nkv * hd;
   long n0;
-  long p = gpt ? gws_layout(M, h, dq, dqkv, ffn)
-               : ws_layout(M, h, dq, dqkv, ffn, &n0);
-  p = (p + 63) & ~63L;
-  *prod = p;
-  return p + verify_part_floats(b, K1, nkv, nh / nkv, hd, S);
+  return gpt ? gws_layout(M, h, dq, dqkv, ffn)
+             : ws_layout(M, h, dq, dqkv, ffn, &n0);
 }
 
-// K7's stack over the pool (L, NB, BT, 2*nkv*hd): a holds the M = b*K1
-// tail rows (a.b == b*K1 <= 64).
-cudaError_t verify_stack(const Stack& a, int b, int K1, bf16* pool,
-                         const int* tables, const int* positions,
-                         const float* cosr, const float* sinr, int NB,
-                         int BT, int MB, cudaStream_t st) {
-  if (b < 1 || K1 < 1 || a.b != b * K1) return cudaErrorInvalidValue;
-  long prod;
-  verify_ws(b, K1, a.h, a.nh, a.nkv, a.hd, a.ffn, MB * BT, a.gpt, &prod);
-  float* part = a.ws + prod;
+// Floats of K7's workspace: its products' over M = b*K1 rows, 256-byte
+// aligned, then the attention's chunk partials over the table's span S =
+// MB*BT. *prod receives the products' share.
+long verify_ws(int b, int K1, int h, int nh, int nkv, int hd, int ffn,
+               int S, bool gpt, long* prod) {
+  const long p = (prod_floats(b * K1, h, nh, nkv, hd, ffn, gpt) + 63) & ~63L;
+  *prod = p;
+  return p + split_part_floats(b, K1, nkv, nh / nkv, hd, S);
+}
+
+// K5's and K7's stack over the pool (L, NB, BT, 2*nkv*hd) with the paged
+// policy KV (PagedKV: K5, b decode rows; VerifyKV: K7, a holds the M =
+// b*K1 tail rows, a.b == b*K1 <= 64): the attention's TMA map of the whole
+// pool, in boxes of gcd(BT, 64) rows (block_tokens not a multiple of 8:
+// cp.async instead), and its partials (and K5's counters) in a.ws.
+template <class KV>
+cudaError_t paged_stack(const Stack& a_in, int b, int K1, bf16* pool,
+                        const int* tables, const int* positions,
+                        const float* cosr, const float* sinr, int NB, int BT,
+                        int MB, cudaStream_t st) {
+  if (b < 1 || K1 < 1 || a_in.b != b * K1) return cudaErrorInvalidValue;
+  Stack a = a_in;
   const int dkv2 = 2 * a.nkv * a.hd;
-  const int nch = (MB * BT + VA_CHUNK - 1) / VA_CHUNK;
-  // the attention's TMA map of the whole pool, in boxes of gcd(BT, 64)
-  // rows (block_tokens not a multiple of 8: cp.async instead)
-  VerifyKV v{};
+  KV v{};
+  if (KV::FUSE) {
+    decode_ws(prod_floats(b, a.h, a.nh, a.nkv, a.hd, a.ffn, a.gpt), b,
+              a.nkv, a.nh / a.nkv, a.hd, MB * BT, a.ws, &v.part, &v.count);
+    a.count = v.count;
+    a.ncount = b * a.nkv;
+  } else {
+    long prod;
+    verify_ws(b, K1, a.h, a.nh, a.nkv, a.hd, a.ffn, MB * BT, a.gpt, &prod);
+    v.part = a.ws + prod;
+  }
   v.box = BT % 8 == 0 ? (BT & -BT) < 64 ? (BT & -BT) : 64 : 0;
   if (v.box > 0) {
     const int e = sm90_map_rows(&v.map, pool, a.L * NB * BT, dkv2, v.box);
@@ -2091,20 +2293,58 @@ cudaError_t verify_stack(const Stack& a, int b, int K1, bf16* pool,
   v.positions = positions;
   v.cos = cosr;
   v.sin = sinr;
-  v.part = part;
   v.b = b;
   v.K1 = K1;
   v.MB = MB;
   v.BT = BT;
   v.dkv2 = dkv2;
-  v.nch = nch;
+  v.nch = (MB * BT + VA_CHUNK - 1) / VA_CHUNK;
   auto layer_kv = [=](int l) {
-    VerifyKV w = v;
+    KV w = v;
     w.kv = pool + (long)l * NB * BT * dkv2;
     w.lrow0 = l * NB * BT;
     return w;
   };
   return decode_stack(a, layer_kv, st);
+}
+
+// The contiguous policy over the launch's b rows of a cache (L, cb, S,
+// 2*nkv*hd) at kv (T = int8_t: the int8 cache with kv scales kvs, (L,
+// 2*nkv*hd) fp32), one position and rope row for all: the cache's 3-d map
+// and the partials and counters in a->ws (after the products' `prod`
+// floats); a->count is set. Layer l's view: contig_layer.
+template <class T>
+int contig_kv(ContigKV<T>* v, Stack* a, long prod, void* kv, int S, int cb,
+              int pos, const float* cosr, const float* sinr) {
+  const int dkv2 = 2 * a->nkv * a->hd;
+  *v = ContigKV<T>{};
+  const int e = sm90_map_kv(&v->map, kv, (a->L - 1) * cb + a->b, S, dkv2,
+                            sizeof(T) == 1, a->hd, VA_KT);
+  if (e != 0) return e;
+  decode_ws(prod, a->b, a->nkv, a->nh / a->nkv, a->hd, S, a->ws, &v->part,
+            &v->count);
+  a->count = v->count;
+  a->ncount = a->b * a->nkv;
+  v->cos = cosr;
+  v->sin = sinr;
+  v->b = a->b;
+  v->K1 = 1;
+  v->dkv2 = dkv2;
+  v->nch = (S + VA_CHUNK - 1) / VA_CHUNK;
+  v->kv = (T*)kv;
+  v->S = S;
+  v->pos = pos;
+  return 0;
+}
+
+// Layer l of a contiguous policy over a cache of cb rows a layer (kvs: the
+// int8 cache's (L, 2*nkv*hd) lane scales, else null).
+template <class T>
+ContigKV<T> contig_layer(ContigKV<T> v, int l, int cb, const float* kvs) {
+  v.kv += (long)l * cb * v.S * v.dkv2;
+  v.z0 = l * cb;
+  v.scales = kvs != nullptr ? kvs + (long)l * v.dkv2 : nullptr;
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -2373,29 +2613,32 @@ struct MoEArgs {
   int E, k, f, fs;
 };
 
-cudaError_t moe_stack(const Stack& a, const MoEArgs& m, bf16* kv,
+cudaError_t moe_stack(const Stack& a_in, const MoEArgs& m, bf16* kv,
                       const float* cosr, const float* sinr, int S, int cb,
                       int pos, cudaStream_t st) {
+  Stack a = a_in;
   const int L = a.L, b = a.b, h = a.h, hd = a.hd, k = m.k, f = m.f,
             fs = m.fs, E = m.E;
   const int dq = a.nh * hd, dkv = a.nkv * hd, dqkv = dq + 2 * dkv;
-  const int nslot = b * k, dkv2 = 2 * dkv;
+  const int nslot = b * k;
   if (b < 1 || b > MOE_MAX_B || cb < b || k < 1 || k > E ||
       nslot > MOE_MAX_PAIRS ||
       h + E > 12000)   // the router's shared memory stays under 48 KB
     return cudaErrorInvalidValue;
   const MoEPlan p = moe_plan(b, h, dq, dqkv, k, f, fs);
   float* ws0 = a.ws + p.attn;
+  ContigKV<bf16> kv0;   // the attention's partials follow the plan's total
+  const int ce = contig_kv(&kv0, &a, p.total, kv, S, cb, pos, cosr, sinr);
+  if (ce != 0) return (cudaError_t)ce;
   EMaps maps;   // the attention half's: wqkv, wo, xn (the router's), attn
   const int me = emaps(&maps, a, false);
   if (me != 0) return (cudaError_t)me;
-  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(a.x_in, a.xf,
-                                                           b * h);
+  bf16_to_f32_kernel<<<(b * h + 255) / 256, 256, 0, st>>>(
+      a.x_in, a.xf, b * h, a.count, a.ncount);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
-    const ContigKV kvl{kv + (long)l * cb * S * dkv2, cosr, sinr, S, dkv2,
-                       pos};
-    e = attention_half(a, maps, l, kvl, ws0, ws0, st);
+    e = attention_half(a, maps, l, contig_layer(kv0, l, cb, nullptr), ws0,
+                       ws0, st);
     if (e != cudaSuccess) break;
     int* ids = m.ids + (long)l * nslot;
     float* wts = m.wts + (long)l * nslot;
@@ -2476,10 +2719,29 @@ Stack make_gpt_stack(const void* x_in, void* x_out, const void* ln1,
 
 }  // namespace
 
+// K2's stack over the contiguous policy of cache type T (W: the llama
+// mode's weight type; the gpt mode takes bf16): the policy's partials and
+// counters after the products' share of a.ws.
+template <class W, class T>
+cudaError_t contig_stack(Stack a, void* kv, const void* kvs, int S, int cb,
+                         int pos, const void* cosr, const void* sinr,
+                         cudaStream_t st) {
+  ContigKV<T> v;
+  const int e = contig_kv(
+      &v, &a, prod_floats(a.b, a.h, a.nh, a.nkv, a.hd, a.ffn, a.gpt), kv, S,
+      cb, pos, (const float*)cosr, (const float*)sinr);
+  if (e != 0) return (cudaError_t)e;
+  const float* sc = (const float*)kvs;
+  return decode_stack<W>(
+      a, [=](int l) { return contig_layer(v, l, cb, sc); }, st);
+}
+
+// Floats of K2's and K5's llama workspace for b rows over a key span S
+// (K2: the cache length; K5: the table's MB*BT).
 extern "C" long fused_decode_llama_workspace(int b, int h, int nh, int nkv,
-                                             int hd, int ffn) {
-  long n0;
-  return ws_layout(b, h, nh * hd, (nh + 2 * nkv) * hd, ffn, &n0);
+                                             int hd, int ffn, int S) {
+  return decode_ws(prod_floats(b, h, nh, nkv, hd, ffn, false), b, nkv,
+                   nh / nkv, hd, S);
 }
 
 // K2 — one decode step through all L layers. Stacked weights (L, ...) as
@@ -2508,23 +2770,16 @@ extern "C" int fused_decode_llama(
   a.su = (const float*)su;
   a.sd = (const float*)sd;
   const bool w8 = sqkv != nullptr;
-  const int dkv2 = 2 * nkv * hd;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (kvs != nullptr) {
-    auto layer_kv = [=](int l) {
-      return ContigKV8{(int8_t*)kv + (long)l * cb * S * dkv2,
-                       (const float*)cosr, (const float*)sinr,
-                       (const float*)kvs + (long)l * dkv2, S, dkv2, pos};
-    };
-    return (int)(w8 ? decode_stack<int8_t>(a, layer_kv, st)
-                    : decode_stack<bf16>(a, layer_kv, st));
-  }
-  auto layer_kv = [=](int l) {
-    return ContigKV{(bf16*)kv + (long)l * cb * S * dkv2, (const float*)cosr,
-                    (const float*)sinr, S, dkv2, pos};
-  };
-  return (int)(w8 ? decode_stack<int8_t>(a, layer_kv, st)
-                  : decode_stack<bf16>(a, layer_kv, st));
+  if (kvs != nullptr)
+    return (int)(w8 ? contig_stack<int8_t, int8_t>(a, kv, kvs, S, cb, pos,
+                                                   cosr, sinr, st)
+                    : contig_stack<bf16, int8_t>(a, kv, kvs, S, cb, pos,
+                                                 cosr, sinr, st));
+  return (int)(w8 ? contig_stack<int8_t, bf16>(a, kv, nullptr, S, cb, pos,
+                                               cosr, sinr, st)
+                  : contig_stack<bf16, bf16>(a, kv, nullptr, S, cb, pos,
+                                             cosr, sinr, st));
 }
 
 // K5 — one decode step through all L layers over the PAGED pool. Replaces
@@ -2534,9 +2789,10 @@ extern "C" int fused_decode_llama(
 // pool[l, tables[bi, pos/BT], pos%BT] for its own pos = positions[bi] and
 // reads key t from pool[l, tables[bi, t/BT], t%BT] for t <= pos. Positions,
 // block tables and the (b, hd) rope rows are read from device memory, so a
-// step uploads nothing. kv_pool (L, NB, BT, 2*nkv*hd) is updated in place;
-// scratch as for fused_decode_llama. Callers keep every positions[bi] below
-// MB*BT (the engine clamps at max_seq_len - 1).
+// step uploads nothing. kv_pool (L, NB, BT, 2*nkv*hd) is updated in place,
+// except that an idle row's append (its block is scratch block 0) is not
+// written; scratch as for fused_decode_llama. Callers keep every
+// positions[bi] below MB*BT (the engine clamps at max_seq_len - 1).
 extern "C" int fused_paged_decode_llama(
     const void* x_in, void* x_out, const void* ln1, const void* wqkv,
     const void* wo, const void* ln2, const void* wg, const void* wu,
@@ -2547,13 +2803,10 @@ extern "C" int fused_paged_decode_llama(
   const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
                              qkv, attn, act, ws, L, b, h, nh, nkv, hd, ffn,
                              eps);
-  const int dkv2 = 2 * nkv * hd;
-  auto layer_kv = [=](int l) {
-    return PagedKV{(bf16*)kv_pool + (long)l * NB * BT * dkv2,
-                   (const int*)tables, (const int*)positions,
-                   (const float*)cosr, (const float*)sinr, MB, BT, dkv2};
-  };
-  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+  return (int)paged_stack<PagedKV>(a, b, 1, (bf16*)kv_pool,
+                                   (const int*)tables, (const int*)positions,
+                                   (const float*)cosr, (const float*)sinr, NB,
+                                   BT, MB, (cudaStream_t)stream);
 }
 
 extern "C" long fused_paged_verify_workspace(int b, int K1, int h, int nh,
@@ -2581,15 +2834,17 @@ extern "C" int fused_paged_verify_llama(
   const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
                              qkv, attn, act, ws, L, b * K1, h, nh, nkv, hd,
                              ffn, eps);
-  return (int)verify_stack(a, b, K1, (bf16*)kv_pool, (const int*)tables,
-                           (const int*)positions, (const float*)cosr,
-                           (const float*)sinr, NB, BT, MB,
-                           (cudaStream_t)stream);
+  return (int)paged_stack<VerifyKV>(a, b, K1, (bf16*)kv_pool,
+                                    (const int*)tables, (const int*)positions,
+                                    (const float*)cosr, (const float*)sinr,
+                                    NB, BT, MB, (cudaStream_t)stream);
 }
 
 extern "C" long fused_decode_moe_workspace(int b, int h, int nh, int nkv,
-                                           int hd, int k, int f, int fs) {
-  return moe_plan(b, h, nh * hd, (nh + 2 * nkv) * hd, k, f, fs).total;
+                                           int hd, int k, int f, int fs,
+                                           int S) {
+  return decode_ws(moe_plan(b, h, nh * hd, (nh + 2 * nkv) * hd, k, f, fs).total,
+                   b, nkv, nh / nkv, hd, S);
 }
 
 // K6 — one MoE decode step through all L layers (see the K6 section above).
@@ -2634,8 +2889,9 @@ extern "C" int fused_decode_moe(
 // ---------------------------------------------------------------------------
 
 extern "C" long fused_decode_gpt_workspace(int b, int h, int nh, int nkv,
-                                           int hd, int ffn) {
-  return gws_layout(b, h, nh * hd, (nh + 2 * nkv) * hd, ffn);
+                                           int hd, int ffn, int S) {
+  return decode_ws(prod_floats(b, h, nh, nkv, hd, ffn, true), b, nkv,
+                   nh / nkv, hd, S);
 }
 
 // K2, gpt mode — one decode step through all L layers over the b rows of
@@ -2656,19 +2912,12 @@ extern "C" int fused_decode_gpt(
                                  ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
                                  attn, act, ws, L, b, h, nh, nkv, hd, ffn,
                                  eps);
-  const int dkv2 = 2 * nkv * hd;
-  if (kvs != nullptr) {
-    auto layer_kv8 = [=](int l) {
-      return ContigKV8{(int8_t*)kv + (long)l * cb * S * dkv2, nullptr, nullptr,
-                       (const float*)kvs + (long)l * dkv2, S, dkv2, pos};
-    };
-    return (int)decode_stack(a, layer_kv8, (cudaStream_t)stream);
-  }
-  auto layer_kv = [=](int l) {
-    return ContigKV{(bf16*)kv + (long)l * cb * S * dkv2, nullptr, nullptr, S,
-                    dkv2, pos};
-  };
-  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (kvs != nullptr)
+    return (int)contig_stack<bf16, int8_t>(a, kv, kvs, S, cb, pos, nullptr,
+                                           nullptr, st);
+  return (int)contig_stack<bf16, bf16>(a, kv, nullptr, S, cb, pos, nullptr,
+                                       nullptr, st);
 }
 
 // K5, gpt mode — the same step over the paged pool (L, NB, BT, 2*nkv*hd)
@@ -2686,13 +2935,10 @@ extern "C" int fused_paged_decode_gpt(
                                  ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
                                  attn, act, ws, L, b, h, nh, nkv, hd, ffn,
                                  eps);
-  const int dkv2 = 2 * nkv * hd;
-  auto layer_kv = [=](int l) {
-    return PagedKV{(bf16*)kv_pool + (long)l * NB * BT * dkv2,
-                   (const int*)tables, (const int*)positions, nullptr,
-                   nullptr, MB, BT, dkv2};
-  };
-  return (int)decode_stack(a, layer_kv, (cudaStream_t)stream);
+  return (int)paged_stack<PagedKV>(a, b, 1, (bf16*)kv_pool,
+                                   (const int*)tables, (const int*)positions,
+                                   nullptr, nullptr, NB, BT, MB,
+                                   (cudaStream_t)stream);
 }
 
 // K7, gpt mode — one verify step for b rows of K1 tail tokens (M = b*K1 <=
@@ -2709,23 +2955,24 @@ extern "C" int fused_paged_verify_gpt(
                                  ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
                                  attn, act, ws, L, b * K1, h, nh, nkv, hd,
                                  ffn, eps);
-  return (int)verify_stack(a, b, K1, (bf16*)kv_pool, (const int*)tables,
-                           (const int*)positions, nullptr, nullptr, NB, BT,
-                           MB, (cudaStream_t)stream);
+  return (int)paged_stack<VerifyKV>(a, b, K1, (bf16*)kv_pool,
+                                    (const int*)tables, (const int*)positions,
+                                    nullptr, nullptr, NB, BT, MB,
+                                    (cudaStream_t)stream);
 }
 
 // The dynamic shared memory a block of these kernels asks for: kind 0 the
-// decode attention (a = head_dim, b = query heads per kv head), 1 K6's
-// tensor-core product (a = 16-row tiles), 2 K7's split-KV attention (a =
-// head_dim), 3 the product engine (a = its N: 8, 16, 32 or 64; b = 1 for
-// int8 weights). -1 for an unknown kind. The launchers compute their
-// requests with the same functions, so a caller can hold them to the
-// device's opt-in budget.
+// split-KV attention of the decode steps K2, K5 and K6 (a = head_dim; b = 1
+// over the int8 cache), 1 K6's tensor-core product (a = 16-row tiles), 2
+// the same attention kernel as K7 launches it (a = head_dim), 3 the
+// product engine (a = its N: 8, 16, 32 or 64; b = 1 for int8 weights). -1
+// for an unknown kind. The launchers compute their requests with the same
+// functions, so a caller can hold them to the device's opt-in budget.
 extern "C" int fused_decode_dynamic_smem(int kind, int a, int b, int) {
   switch (kind) {
-    case 0: return attn_smem(a, b);
+    case 0: return split_smem(a, b != 0, false);
     case 1: return tc_smem(a);
-    case 2: return a == 64 || a == 128 ? va_smem(a) : -1;
+    case 2: return split_smem(a, false, true);
     case 3: return engine_smem(a, b != 0);
   }
   return -1;

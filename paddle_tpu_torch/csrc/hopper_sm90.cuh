@@ -150,6 +150,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// global-memory writes of this thread (generic proxy) become visible to the
+// async proxy (a TMA load that reads them, issued after a barrier)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // Programmatic dependent launch: a kernel launched with the programmatic
 // stream serialization attribute may start once every block of the kernel
 // before it has run griddep_launch_dependents (or exited);
@@ -484,6 +490,35 @@ static inline int sm90_map_rows(CUtensorMap* map, const void* base, int rows,
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                    const_cast<void*>(base), dims, strides, box, estr,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A contiguous KV cache viewed as (zs, S, cols): zs (layer, batch row)
+// slabs of S key rows of `cols` values, read in boxes of `box_rows` rows of
+// one slab. bf16: 64 columns a box, 128-byte swizzle; int8 (`int8`):
+// `box_cols` columns (a head, 64 or 128 bytes), unswizzled. Rows past S read
+// as zeros, so a box never reaches into the next slab. Coordinates (col,
+// row, slab). Returns 0 on success.
+static inline int sm90_map_kv(CUtensorMap* map, const void* base, int zs,
+                              int S, int cols, bool int8, int box_cols,
+                              int box_rows) {
+  sm90_encode_tiled_fn enc = sm90_encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t es = int8 ? 1 : 2;
+  if (((cuuint64_t)cols * es) % 16) return (int)cudaErrorInvalidValue;
+  cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)S, (cuuint64_t)zs};
+  cuuint64_t strides[2] = {(cuuint64_t)cols * es, (cuuint64_t)S * cols * es};
+  cuuint32_t box[3] = {int8 ? (cuuint32_t)box_cols : 64u,
+                       (cuuint32_t)box_rows, 1};
+  cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = enc(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   3, const_cast<void*>(base), dims, strides, box, estr,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   int8 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                        : CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

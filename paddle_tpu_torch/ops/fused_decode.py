@@ -615,11 +615,14 @@ def _scratch(x, nh, nkv, hd, ffn, arch, ws_floats):
             torch.empty(ws_floats, dtype=f32, device=dev))
 
 
-def _decode_ws(lib, b, h, nh, nkv, hd, ffn, arch):
-    """Floats of K2's / K5's workspace for a launch of b rows."""
+def _decode_ws(lib, b, h, nh, nkv, hd, ffn, arch, span):
+    """Floats of K2's / K5's workspace for a launch of b rows whose keys
+    span `span` positions (K2: the cache length; K5: the table's MB·BT):
+    the attention's chunk partials are sized by the span, never by the
+    positions, which stay on the device."""
     fn = (lib.fused_decode_gpt_workspace if arch == "gpt"
           else lib.fused_decode_llama_workspace)
-    return fn(b, h, nh, nkv, hd, ffn)
+    return fn(b, h, nh, nkv, hd, ffn, span)
 
 
 def _check_arch(what, arch):
@@ -677,7 +680,7 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
         x_out = torch.empty_like(xg)
         scratch = _scratch(xg, num_heads, num_kv_heads, hd, ffn, arch,
                            _decode_ws(lib, bg, h, num_heads, num_kv_heads,
-                                      hd, ffn, arch))
+                                      hd, ffn, arch, S))
         # the group's rows of the cache, in place: the layer stride stays
         # the whole cache's (cb = b rows)
         err = fn(p(xg), p(x_out), *weights, *scales, p(kv_cache[:, rows]),
@@ -777,7 +780,7 @@ def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
                    torch.empty((bg * k, f), dtype=bf, device=dev),   # act
                    torch.empty((bg, max(fs, 8)), dtype=bf, device=dev),
                    torch.empty(lib.fused_decode_moe_workspace(
-                       bg, h, nh, nkv, hd, k, f, fs), dtype=f32,
+                       bg, h, nh, nkv, hd, k, f, fs, S), dtype=f32,
                        device=dev))
         err = lib.fused_decode_moe(
             p(xg), p(x_out), *weights, p(kv_cache[:, rows]), p(cos), p(sin),
@@ -813,13 +816,13 @@ def _kernel_lib():
         vws.argtypes = [ci] * 9
         vws.restype = ctypes.c_long
         wsf = lib.fused_decode_llama_workspace
-        wsf.argtypes = [ci] * 6
+        wsf.argtypes = [ci] * 7
         wsf.restype = ctypes.c_long
         mfn = lib.fused_decode_moe
         mfn.argtypes = [vp] * 25 + [ci] * 13 + [ctypes.c_float, vp]
         mfn.restype = ctypes.c_int
         mws = lib.fused_decode_moe_workspace
-        mws.argtypes = [ci] * 8
+        mws.argtypes = [ci] * 9
         mws.restype = ctypes.c_long
         gfn = lib.fused_decode_gpt
         gfn.argtypes = [vp] * 22 + [ci] * 10 + [ctypes.c_float, vp]
@@ -831,7 +834,7 @@ def _kernel_lib():
         gvfn.argtypes = [vp] * 23 + [ci] * 11 + [ctypes.c_float, vp]
         gvfn.restype = ctypes.c_int
         gws = lib.fused_decode_gpt_workspace
-        gws.argtypes = [ci] * 6
+        gws.argtypes = [ci] * 7
         gws.restype = ctypes.c_long
         sm = lib.fused_decode_dynamic_smem
         sm.argtypes = [ci] * 4
@@ -847,9 +850,10 @@ _SMEM_KINDS = {"attention": 0, "tensor_core_gemm": 1, "verify_attention": 2,
 
 def dynamic_smem_bytes(kernel: str, a: int, b: int = 0, c: int = 0) -> int:
     """The dynamic shared memory one block of `kernel` asks for, as its
-    launcher computes it: "attention" (K2/K5/K6; a = head_dim, b = query
-    heads per kv head), "tensor_core_gemm" (K6's experts; a = 16-row
-    tiles), "verify_attention" (K7's split-KV attention; a = head_dim),
+    launcher computes it: "attention" (the split-KV attention as the
+    decode steps K2, K5 and K6 launch it; a = head_dim, b = 1 over K2's
+    int8 cache), "tensor_core_gemm" (K6's experts; a = 16-row tiles),
+    "verify_attention" (the same kernel as K7 launches it; a = head_dim),
     "product_engine" (K2/K5/K7's products and K6's attention half; a = the
     rows rounded up to 8, 16, 32 or 64, b = 1 for int8 weights). Needs the
     built library (a CUDA machine)."""
@@ -986,7 +990,9 @@ def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
     pool is shared). ``launches`` counts launches, one per group. Checks
     dtype, shape, contiguity and device and raises on anything else.
     Positions and tables are read on the device, never on the host: the
-    caller keeps every position below MB·BT."""
+    caller keeps every position below MB·BT. An idle row's append (its
+    block is scratch block 0) is not written; its output is garbage, as
+    the plain version's."""
     what = "fused_paged_decode_cuda"
     _check_arch(what, arch)
     if kv_pool.dim() != 4 or block_tables.dim() != 2:
@@ -1013,7 +1019,7 @@ def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
         x_out = torch.empty_like(xg)
         scratch = _scratch(xg, num_heads, num_kv_heads, hd, ffn, arch,
                            _decode_ws(lib, bg, h, num_heads, num_kv_heads,
-                                      hd, ffn, arch))
+                                      hd, ffn, arch, MB * BT))
         rope = [] if arch == "gpt" else [cos[rows], sin[rows]]
         err = fn(p(xg), p(x_out), *weights, p(kv_pool),
                  p(block_tables[rows]), p(positions[rows]),

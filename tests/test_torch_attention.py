@@ -19,6 +19,16 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import rms_norm as trms
 from paddle_tpu_torch.ops import rope as trope
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Several test workers share the CPU: one torch thread per test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 
 

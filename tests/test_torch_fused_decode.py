@@ -2,7 +2,9 @@
 
 * build_fused_params: the same stacks, bit for bit, from the same weights.
 * fused_decode_reference (the plain version a CPU tensor runs) against the
-  JAX reference in fp32, 3 and 12 rows: atol 2e-5 (sums in another order).
+  JAX reference in fp32, 3 and 12 rows, at positions 0 and 9 of a 16-row
+  cache and at the card attention's chunk edges (511, 512, 513, 1024) of a
+  1040-row one: atol 2e-5 (sums in another order).
 * The same against the TPU kernel itself, run the way the JAX package's
   own tests run it on the CPU (_fused_decode_pallas(..., interpret=True)),
   bf16, one small case (nkv·hd = 128, S = 128). Tolerance: atol 2e-2,
@@ -71,11 +73,14 @@ def test_build_fused_params_equal(dtype):
 
 
 @pytest.mark.parametrize("nkv", [4, 2])   # MHA, GQA
-@pytest.mark.parametrize("pos", [0, 9])
+# 511 … 1024: where the card's split-KV attention changes its work (512-key
+# chunks: the last key of a full chunk, one and two past it, two full), over
+# a cache of 1040 rows
+@pytest.mark.parametrize("pos", [0, 9, 511, 512, 513, 1024])
 @pytest.mark.parametrize("b", [3, 12])    # 12: past the kernels' old 8
 def test_reference_matches_jax_reference_fp32(nkv, pos, b):
     cfg, sd = _state(nkv)
-    L, S = cfg.num_layers, 16
+    L, S = cfg.num_layers, 16 if pos < 16 else 1040
     dkv = nkv * cfg.head_dim
     r = np.random.RandomState(pos + nkv)
     x = r.randn(b, cfg.hidden_size).astype(np.float32)

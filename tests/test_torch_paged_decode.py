@@ -2,8 +2,9 @@
 
 * fused_paged_decode_reference (the plain version a CPU tensor runs) against
   the JAX ``fused_paged_decode_reference`` in fp32, MHA and GQA: three (and
-  twelve) rows at different positions, the last idle (its table all
-  scratch), over a shuffled block table. x_out and the whole pool after the appends agree
+  twelve) rows at different positions, and five rows at the card
+  attention's chunk edges (511, 512, 513, 1024 over a 1040-position table),
+  the last idle (its table all scratch), over a shuffled block table. x_out and the whole pool after the appends agree
   within atol 2e-5 (sums in another order).
 * The same against the TPU kernel itself, run as the JAX package runs it on
   the CPU (``_fused_paged_decode_pallas(..., interpret=True)``), bf16,
@@ -50,12 +51,31 @@ def _params(r, L, h, nh, nkv, hd, ffn, sc=0.05):
             "wg": f(L, h, ffn), "wu": f(L, h, ffn), "wd": f(L, ffn, h)}
 
 
+#: rows at the card attention's chunk edges (512-key chunks: the last key of
+#: a full chunk, one and two past it, two full), then an idle row, over a
+#: table of EDGE_MB blocks (1040 positions)
+EDGE_POSITIONS = np.array([511, 512, 513, 1024, 5], np.int32)
+EDGE_MB = 130
+
+
 def _layout(b):
-    """(tables, positions, pool blocks) of b rows: TABLES for 3; for 12,
-    rows 0..10 own private blocks drawn from a shuffle, at positions across
+    """(tables, positions, pool blocks) of b rows: TABLES for 3; for 5, one
+    row at each chunk edge of EDGE_POSITIONS through private blocks drawn
+    from a shuffle over EDGE_MB blocks a row, and row 4 idle; for 12, rows
+    0..10 own private blocks drawn from a shuffle, at positions across
     their span, and row 11 idle as row 2 of TABLES."""
     if b == 3:
         return TABLES, POSITIONS, NB
+    if b == 5:
+        need = [int(p) // BT + 1 for p in EDGE_POSITIONS[:-1]]
+        nb = 1 + sum(need)
+        perm = np.random.RandomState(b).permutation(nb - 1) + 1
+        tables = np.zeros((b, EDGE_MB), np.int32)
+        at = 0
+        for r, n in enumerate(need):
+            tables[r, :n] = perm[at:at + n]
+            at += n
+        return tables, EDGE_POSITIONS, nb
     nb = 1 + (b - 1) * MB
     tables = np.zeros((b, MB), np.int32)
     tables[:-1] = (np.random.RandomState(b).permutation(nb - 1)
@@ -65,14 +85,15 @@ def _layout(b):
     return tables, positions, nb
 
 
-def _rope_rows(hd, positions):
-    c, s = trope_cos_sin(MB * BT, hd)
+def _rope_rows(hd, positions, span=MB * BT):
+    c, s = trope_cos_sin(span, hd)
     idx = torch.from_numpy(positions.astype(np.int64))
     return c[idx], s[idx]
 
 
 @pytest.mark.parametrize("nkv", [4, 2])          # MHA, GQA
-@pytest.mark.parametrize("b", [3, 12])           # 12: past the kernels' old 8
+# 12: past the kernels' old 8; 5: rows at the chunk edges
+@pytest.mark.parametrize("b", [3, 12, 5])
 def test_paged_reference_matches_jax_reference_fp32(nkv, b):
     L, h, nh, hd, ffn = 2, 64, 4, 16, 96
     tables, positions, nb = _layout(b)
@@ -80,7 +101,7 @@ def test_paged_reference_matches_jax_reference_fp32(nkv, b):
     params = _params(r, L, h, nh, nkv, hd, ffn)
     x = r.randn(b, h).astype(np.float32)
     pool = r.randn(L, nb, BT, 2 * nkv * hd).astype(np.float32)
-    cos, sin = _rope_rows(hd, positions)
+    cos, sin = _rope_rows(hd, positions, tables.shape[1] * BT)
     kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
     xj, pj = jfd.fused_paged_decode_reference(
         jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},

@@ -25,6 +25,16 @@ PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
     sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Several test workers share the CPU: one torch thread per test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -901,6 +911,158 @@ def test_fused_decode_int8_modes_match_plain(cuda, w8, kv8):
         torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
                                    rtol=2 ** -7)
     assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos])
+
+
+#: the split-KV attention's chunk edges (512-key chunks): one key, two, a
+#: full chunk, one and two keys past it, two full chunks and one past them,
+#: a third chunk part-filled
+EDGE_POS = (0, 1, 511, 512, 513, 1023, 1024, 1500)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,nkv,kv8", [("llama", 4, False),
+                                          ("llama", 1, False),
+                                          ("llama", 4, True),
+                                          ("gpt", 4, False), ("gpt", 4, True)])
+def test_decode_kernel_at_chunk_edges(cuda, arch, nkv, kv8):
+    """K2 (llama MHA and GQA 4, gpt; bf16 and int8 cache) at each of
+    EDGE_POS over a cache of 1501 rows (the last edge on its last row):
+    x_out at K2's tolerance, the appended row at K2's tolerance (int8:
+    within one int8 step), the rest of the cache untouched, two launches
+    bitwise equal. The int8 cache runs one layer, as chip_smoke.py's k2q
+    edges do (a second layer's appends are quantized from noisy x)."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, S, nh = 1 if kv8 else 2, 2, 1501, 4
+    hd = 128 if arch == "llama" else 64
+    h, ffn = nh * hd, 2 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(10)
+    p = (_gpt_cuda_params(g, L, h, ffn) if arch == "gpt"
+         else _llama_cuda_params(L, h, nh, nkv, ffn, False))
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    for pos in EDGE_POS:
+        x = torch.randn(b, h, generator=g, device=cuda).bfloat16()
+        kv = torch.randn(L, b, S, 2 * nkv * hd, generator=g,
+                         device=cuda).bfloat16()
+        kv[:, :, pos:] = 0
+        scales = None
+        if kv8:   # scales from random rows at every position: at pos 0 the
+            # filled prefix is empty and the floor scale 1e-8 would make
+            # each append ±127 by its sign alone
+            src = torch.randn(kv.shape, generator=g, device=cuda).bfloat16()
+            src[:, :, :pos] = kv[:, :, :pos]
+            kv, scales = fd.quantize_kv_cache(src, nkv)
+            kv[:, :, pos:] = 0
+        c, s = (None, None) if arch == "gpt" else (cos[pos:pos + 1],
+                                                   sin[pos:pos + 1])
+        kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch,
+                  kv_scales=scales)
+        xk, kvk = fd.fused_decode_cuda(x, p, kv.clone(), pos, c, s, **kw)
+        xk2, kvk2 = fd.fused_decode_cuda(x, p, kv.clone(), pos, c, s, **kw)
+        xr, kvr = fd.fused_decode_reference(x, p, kv.clone(), pos, c, s,
+                                            **kw)
+        assert torch.equal(xk, xk2) and torch.equal(kvk, kvk2), pos
+        torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                                   rtol=2 ** -7, msg=f"pos {pos}")
+        if kv8:
+            assert (kvk[:, :, pos].int() - kvr[:, :, pos].int()).abs().max() \
+                <= 1, pos
+        else:
+            torch.testing.assert_close(kvk[:, :, pos].float(),
+                                       kvr[:, :, pos].float(), atol=5e-2,
+                                       rtol=2 ** -7, msg=f"pos {pos}")
+        assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos]), pos
+        assert torch.equal(kvk[:, :, pos + 1:], kv[:, :, pos + 1:]), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,BT", [("llama", 16), ("llama", 12),
+                                     ("gpt", 16), ("gpt", 12)])
+def test_paged_decode_kernel_at_chunk_edges(cuda, arch, BT):
+    """K5 with one row at each of EDGE_POS over shuffled blocks of BT
+    tokens (16: TMA boxes of 16 rows; 12: the cp.async path) against its
+    plain version, two launches bitwise equal; then, for each edge, K5 with
+    two rows at it gives K2's bits over the same KV."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, nh = 2, 4
+    nkv, hd = (2, 128) if arch == "llama" else (4, 64)
+    h, ffn = nh * hd, 2 * nh * hd
+    MB, b = -(-1501 // BT), len(EDGE_POS)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    p = (_gpt_cuda_params(g, L, h, ffn) if arch == "gpt"
+         else _llama_cuda_params(L, h, nh, nkv, ffn, False))
+    x = torch.randn(b, h, generator=g, device=cuda).bfloat16()
+    pool = torch.randn(L, 1 + b * MB, BT, 2 * nkv * hd, generator=g,
+                       device=cuda).bfloat16()
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(2))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32).to(cuda)
+    pos = torch.tensor(EDGE_POS, dtype=torch.int32, device=cuda)
+    cos, sin = rope_cos_sin(MB * BT, hd, device=cuda)
+    rope = lambda q: ((None, None) if arch == "gpt" else
+                      (cos.index_select(0, q), sin.index_select(0, q)))
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
+    xk, pk = fd.fused_paged_decode_cuda(x, p, pool.clone(), tab, pos,
+                                        *rope(pos), **kw)
+    xk2, pk2 = fd.fused_paged_decode_cuda(x, p, pool.clone(), tab, pos,
+                                          *rope(pos), **kw)
+    xr, pr = fd.fused_paged_decode_reference(x, p, pool.clone(), tab, pos,
+                                             *rope(pos), **kw)
+    assert torch.equal(xk, xk2) and torch.equal(pk, pk2)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(pk.float(), pr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    cache = torch.stack([pool[:, tab[r].long()].reshape(L, MB * BT, -1)
+                         for r in range(2)], dim=1)
+    for at in EDGE_POS:
+        c2 = (None, None) if arch == "gpt" else (cos[at:at + 1],
+                                                 sin[at:at + 1])
+        x2, _ = fd.fused_decode_cuda(x[:2], p, cache.clone(), at, *c2, **kw)
+        p5 = torch.full((2,), at, dtype=torch.int32, device=cuda)
+        x5, _ = fd.fused_paged_decode_cuda(x[:2], p, pool.clone(), tab[:2],
+                                           p5, *rope(p5), **kw)
+        assert torch.equal(x5, x2), at
+
+
+@pytest.mark.cuda
+def test_moe_decode_kernel_at_chunk_edges(cuda):
+    """K6's attention half at each of EDGE_POS over a cache of 1501 rows,
+    the gate ×8 (decisive routing): the same expert sets as the plain MoE
+    step, x_out and the appended rows at K2's tolerance, two launches
+    bitwise equal."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, S, nh, nkv, hd, h, E, f, k = 2, 2, 1501, 4, 4, 128, 512, 16, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(12)
+    mk = lambda *s, sc=0.05: (torch.randn(*s, generator=g, device=cuda)
+                              * sc).bfloat16()
+    dq, dkv = nh * hd, nkv * hd
+    p = {"ln1": 1 + mk(L, h, sc=0.1), "wqkv": mk(L, h, dq + 2 * dkv),
+         "wo": mk(L, dq, h), "ln2": 1 + mk(L, h, sc=0.1),
+         "gate": mk(L, E, h, sc=0.4), "weg": mk(L, E, h, f),
+         "weu": mk(L, E, h, f), "wed": mk(L, E, f, h)}
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, top_k=k)
+    for pos in EDGE_POS:
+        x = mk(b, h, sc=1.0)
+        kv = mk(L, b, S, 2 * dkv, sc=1.0)
+        kv[:, :, pos:] = 0
+        c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+        kr, pr = {}, {}
+        xk, kvk = fd.fused_decode_moe_cuda(x, p, kv.clone(), pos, c, s,
+                                           routing=kr, **kw)
+        xk2, kvk2 = fd.fused_decode_moe_cuda(x, p, kv.clone(), pos, c, s,
+                                             **kw)
+        xr, kvr = fd.fused_decode_reference(x, p, kv.clone(), pos, c, s,
+                                            arch="moe", routing=pr, **kw)
+        assert torch.equal(xk, xk2) and torch.equal(kvk, kvk2), pos
+        assert torch.equal(kr["ids"].long().sort(-1).values,
+                           pr["ids"].sort(-1).values), pos
+        torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                                   rtol=2 ** -7, msg=f"pos {pos}")
+        torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
+                                   rtol=2 ** -7, msg=f"pos {pos}")
 
 
 @pytest.mark.cuda

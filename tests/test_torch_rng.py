@@ -15,6 +15,16 @@ import torch
 
 from paddle_tpu_torch.core import rng
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Several test workers share the CPU: one torch thread per test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 1, 42, 123456, 2 ** 31 - 1]
 
 
