@@ -41,7 +41,15 @@ Phases, each printing one JSON line:
               last row idle) and bitwise against K2 at 33 and 65 rows, both
               modes; then one row at each chunk edge over blocks of 128,
               16 and 12 tokens (12: the cp.async path), two launches
-              bitwise equal, and K5 = K2 bitwise at each edge, both modes.
+              bitwise equal, and K5 = K2 bitwise at each edge, both modes;
+              then the int8 modes (int8 weights × an int8 pool with
+              per-row scales, int8 weights over a bf16 pool, bf16 weights
+              over an int8 pool) at 8 rows (one idle), 65 rows (two row
+              groups) and one row at each chunk edge over blocks of 128 and
+              12 tokens (the int8 pool's edges over one layer), appended
+              int8 rows within one int8 step, two launches bitwise equal;
+              and the int8 pool's pin: with every row's scales K2's layer
+              scales, K5 gives K2-int8-KV's bits (8 and 65 rows, each edge).
   7. k7     — paged verify kernel (K7) vs its plain version at Llama-2-7B
               width with 2 layers, b=8, a 5-token tail per row, over a
               shuffled table (BT 128, 16 blocks per row), MHA and GQA:
@@ -51,7 +59,11 @@ Phases, each printing one JSON line:
               the pool unchanged; then 16 slots at drawn positions (80 tail
               rows: two launches of 8 slots); every case launched twice,
               bitwise equal; then an all-accepted K7 step against 5
-              sequential K5 steps on a copy of the pool, per token.
+              sequential K5 steps on a copy of the pool, per token; then
+              K7's three int8 modes over the edge rows and tails at the
+              chunk edges (the int8 pool's over one layer; its two-layer
+              edge rows reported against the fp32 plain verify) and 16
+              slots.
   8. k6     — MoE decode-step kernel (K6) vs its plain version, 2 layers,
               b=1 and b=4, pos 1056, S 1152, at DeepSeekMoE-16B width (MHA,
               64 experts of 1408, top-6, shared 2816) and Mixtral-8x7B width
@@ -80,7 +92,8 @@ Phases, each printing one JSON line:
               5-token tail); x_out, the appended rows, the rest of the
               cache or pool unchanged, two launches bitwise equal; k2g and
               k5g also at 1, 9, 16, 33 and 64 rows, k5g with one row at
-              each chunk edge.
+              each chunk edge; k5g and k7g then the int8 pool as phases k5
+              and k7 run it.
   8b. k2q   — K2's int8 modes vs their plain versions, 2 layers, b=4, S 1152,
               pos 1056: Llama-2-7B width with int8 weights (per-out-channel
               scales), with an int8 KV cache (per-(layer, kv head) scales),
@@ -161,6 +174,22 @@ Phases, each printing one JSON line:
               a teacher-forced 32-layer K2 step (int8 weights and KV) vs the
               plain int8 path on the logits and argmax; K2 timed in both
               int8-weight modes at b=4, pos 1056.
+ 12c. int8_pool — before phase int8 quantizes it, the bf16 Llama-2-7B
+              over an int8 pool: the serve mix's unshared half through an
+              8-slot engine, plain and speculating k = 4 (rows 6c, 7c):
+              launches, full lengths, no leaked block, no tick on a plain
+              version; K5 and K7 timed over its pool.
+ 12d. int8_serve — after phase int8, its quantized model through an
+              8-slot engine with an int8 pool (block 128, max_seq_len
+              2048) on the serve phase's mix (16 greedy requests, eight
+              behind a shared prefix, two preempting, then 8 sampled), the
+              checks and timings of phase serve (rows 6a); the same engine
+              speculating k = 4 on the spec phase's 16 requests (7a); int8
+              weights over a bf16 pool, plain and speculating (6b, 7b);
+              tiny engines on the card against the same weights on the
+              CPU: a Llama with int8 weights and an int8 pool at 65 slots
+              and a GPT with an int8 pool at 8 slots, tokens equal or
+              parted at a near tie.
  12a. gpt   — GPT-2 345M (24 layers, bf16, random weights from seed 0 with
               its biases and LayerNorms drawn too; the Llama model freed)
               through inference.generate, b=8, prompt 512, 128 new tokens,
@@ -178,6 +207,8 @@ Phases, each printing one JSON line:
               ServingEngine(speculate=SpecConfig(k=4)): K7 once per
               speculative tick, a teacher-forced 24-layer K7 step over the
               live pool, K7 timed at those rows × 5 tokens.
+      gpt_int8_pool — the serve mix's unshared half through the engine
+              over an int8 pool, plain and speculating (rows 6d, 7d).
  13. moe    — DeepSeekMoE-16B (28 layers, bf16, random weights from seed 0;
               the Llama model freed first) through inference.generate, b=4,
               prompt 1024, 64 new tokens, greedy and sampled: K1 28 and K6
@@ -576,28 +607,60 @@ def wide_positions(b, seed):
     return pos, ((b - 1,) if b > 1 else ())
 
 
+def int8_pool(fd, pool, tables, nkv):
+    """An int8 pool with per-ROW lane scales (L, b, 2*nkv*hd) from a bf16
+    one, as the engine keeps it: row r's scales calibrated over the blocks
+    of its table (random rows at every position, so no floor scale), its
+    blocks quantized with them; blocks no row maps with row 0's."""
+    L, b = pool.shape[0], tables.shape[0]
+    lanes = torch.stack([fd.quantize_kv_cache(
+        pool[:, tables[r].long()].reshape(L, 1, -1, pool.shape[3]), nkv)[1][
+        :, 0] for r in range(b)], dim=1).contiguous()
+    q = lambda v, sc: torch.clamp(torch.round(v.float() / sc[:, None, None]),
+                                  -127, 127).to(torch.int8)
+    out = q(pool, lanes[:, 0])
+    for r in range(b):
+        bids = tables[r].long()
+        out[:, bids] = q(pool[:, bids], lanes[:, r])
+    return out, lanes
+
+
+def int8_row_steps(a, b):
+    """(largest difference in int8 steps, lanes one step apart) of two int8
+    row sets."""
+    d = (a.int() - b.int()).abs()
+    return int(d.max()), int((d == 1).sum())
+
+
 def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
-            twice=False, bt=K5_BT, mb=K5_MB):
+            twice=False, bt=K5_BT, mb=K5_MB, w8=False, kv8=False):
     """K5 against its plain version over a pool of bt-token blocks, mb a
-    row; the gpt mode (and `twice`) also launches twice and holds the two
-    results bitwise equal."""
+    row; the gpt mode (and `twice`, and the int8 modes) also launches twice
+    and holds the two results bitwise equal. w8: int8 weight stacks (a
+    quantized model's, llama); kv8: an int8 pool with per-row scales
+    (`int8_pool`), the appended rows then held within one int8 step."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     b = len(positions)
-    params = stack_params(gen, arch, L, nkv)
+    params = int8_llama_params(L, nkv) if w8 else stack_params(gen, arch, L,
+                                                                 nkv)
     pool, tables = k5_pool(gen, L, 2 * nkv * hd, positions, idle, bt, mb)
+    scales = None
+    if kv8:
+        pool, scales = int8_pool(fd, pool, tables, nkv)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     c = s = None
     if arch != "gpt":
         cos, sin = rope.rope_cos_sin(bt * mb, hd, device="cuda")
         c, s = cos.index_select(0, pos), sin.index_select(0, pos)
     x = rand((b, h), gen)
-    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch,
+              kv_scales=scales)
     pool_k = pool.clone()
     xo, _ = fd.fused_paged_decode_cuda(x, params, pool_k, tables, pos, c, s,
                                        **kw)
     repeat = None
-    if twice or arch == "gpt":
+    if twice or arch == "gpt" or w8 or kv8:
         pool_k2 = pool.clone()
         xo2, _ = fd.fused_paged_decode_cuda(x, params, pool_k2, tables, pos,
                                             c, s, **kw)
@@ -610,8 +673,13 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
     err, ok_x = close(xo[active], xr[active], K2_ATOL, K2_RTOL)
     bids = tables.long()[active, pos.long()[active] // bt]
     offs = pos.long()[active] % bt
-    row_err, ok_row = close(pool_k[:, bids, offs], pool_r[:, bids, offs],
-                            K2_ATOL, K2_RTOL)
+    if kv8:
+        row_err, off = int8_row_steps(pool_k[:, bids, offs],
+                                      pool_r[:, bids, offs])
+        ok_row = row_err <= 1
+    else:
+        row_err, ok_row = close(pool_k[:, bids, offs], pool_r[:, bids, offs],
+                                K2_ATOL, K2_RTOL)
     # every other row of every block but scratch is untouched by both
     mask = torch.ones(pool.shape[1:3], dtype=torch.bool, device="cuda")
     mask[bids, offs] = False
@@ -626,24 +694,39 @@ def k5_case(fd, rope, gen, nkv, positions, idle, L=2, arch="llama",
            "atol": K2_ATOL, "rtol": K2_RTOL, "ok": ok}
     if arch == "gpt":
         res["arch"] = "gpt"
+    if w8 or kv8:
+        res.update(int8_weights=w8, int8_pool=kv8)
+    if kv8:
+        res.update(row_max_int8_steps=row_err, row_lanes_one_step_apart=off)
     if repeat is not None:
         res["two_launches_bitwise_equal"] = repeat
     return res
 
 
-def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300, arch="llama"):
+def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300, arch="llama",
+             w8=False, kv8=False):
     """Every row at one position over the same KV: K5 through a shuffled
     block table must give K2's bits (same products, same attention code,
-    the same chunks merged in the same order)."""
+    the same chunks merged in the same order). kv8: the bitwise pin of the
+    int8 pool — the cache quantized by quantize_kv_cache, the pool holding
+    its rows with every row's scales K2's layer scales; w8: int8 weights
+    on both."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     dkv2 = 2 * nkv * hd
     S = K5_BT * K5_MB
-    params = stack_params(gen, arch, L, nkv)
+    params = int8_llama_params(L, nkv) if w8 else stack_params(gen, arch, L,
+                                                                 nkv)
     cache = torch.zeros((L, b, S, dkv2), dtype=torch.bfloat16, device="cuda")
     cache[:, :, :pos] = rand((L, b, pos, dkv2), gen)
     positions = [pos] * b
     pool, tables = k5_pool(gen, L, dkv2, [S - 1] * b)   # every block mapped
+    kq2 = kq5 = {}
+    if kv8:
+        cache, lanes = fd.quantize_kv_cache(cache, nkv)
+        pool = pool.to(torch.int8)
+        kq2 = dict(kv_scales=lanes)
+        kq5 = dict(kv_scales=lanes.expand(L, b, dkv2).contiguous())
     for r in range(b):
         pool[:, tables[r].long()] = cache[:, r].reshape(L, K5_MB, K5_BT,
                                                         dkv2)
@@ -655,28 +738,64 @@ def k5_vs_k2(fd, rope, gen, nkv=8, L=2, b=8, pos=1300, arch="llama"):
         cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
         c2, s2 = cos[pos:pos + 1], sin[pos:pos + 1]
         c5, s5 = cos.index_select(0, p32), sin.index_select(0, p32)
-    x2, cache = fd.fused_decode_cuda(x, params, cache, pos, c2, s2, **kw)
+    x2, cache = fd.fused_decode_cuda(x, params, cache, pos, c2, s2, **kw,
+                                     **kq2)
     x5, pool = fd.fused_paged_decode_cuda(x, params, pool, tables, p32, c5,
-                                          s5, **kw)
+                                          s5, **kw, **kq5)
     torch.cuda.synchronize()
     rows_equal = all(
         torch.equal(pool[:, tables[r, pos // K5_BT].long(), pos % K5_BT],
                     cache[:, r, pos]) for r in range(b))
     ok = bool(torch.equal(x5, x2)) and rows_equal
     return {"arch": arch, "nkv": nkv, "L": L, "b": b, "pos": pos,
+            "int8_weights": w8, "int8_pool": kv8,
             "x_out_bitwise_equal_k2": bool(torch.equal(x5, x2)),
             "appended_rows_equal_k2": rows_equal,
             "x_out_max_abs_diff": (x5.float() - x2.float()).abs().max().item(),
             "ok": ok}
 
 
-def phase_k5(fd, rope, gen):
+#: the int8 sub-modes of K5 and K7 (Queue B rows 6 and 7, a–d): (name, sub-row
+#: letter, arch, int8 weights, int8 pool)
+PAGED_INT8_MODES = (("llama_int8w_int8kv", "a", "llama", True, True),
+                    ("llama_int8w", "b", "llama", True, False),
+                    ("llama_int8kv", "c", "llama", False, True),
+                    ("gpt_int8kv", "d", "gpt", False, True))
+
+
+def k5_int8_cases(fd, rope, arch, w8, kv8, seed):
+    """One int8 mode of K5 against its plain version (two launches bitwise
+    equal each): 8 rows at phase k5's mixed positions with one idle row, 65
+    rows (two row groups, the scales of each group read in place) at drawn
+    positions with the last row idle, and one row at each chunk edge over
+    blocks of 128 and of 12 tokens (the cp.async path). With an int8 pool
+    the edge cases run one layer (as phase k2q's int8 edges: over two,
+    layer 1's appends quantize bf16 noise, which at pos 1–2 moves x_out
+    past K2's tolerance for any kernel)."""
+    g = wide_gen(seed)
+    nkv = 16 if arch == "gpt" else 32
+    mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
+    pos65, idle65 = wide_positions(65, seed)
+    kw = dict(arch=arch, w8=w8, kv8=kv8)
+    edge, le = list(EDGE_POS), 1 if kv8 else 2
+    return [k5_case(fd, rope, g, nkv, mixed, (4,), **kw),
+            k5_case(fd, rope, g, 16 if arch == "gpt" else 8, pos65, idle65,
+                    **kw),
+            k5_case(fd, rope, g, nkv, edge, (), L=le, **kw),
+            k5_case(fd, rope, g, 16, edge, (), L=le, bt=12, mb=126, **kw)]
+
+
+def phase_k5(fd, rope, gen, int8_errs):
     """K5 at Llama-2-7B width, 2 layers, b=8 at mixed positions with an
     idle row (MHA and GQA), bitwise against K2 at b=8 (llama and gpt);
     then at WIDE_ROWS rows (drawn positions, the last row idle; two
     launches bitwise equal) and bitwise against K2 at b=33 and b=65 (two
     launches of rows each); then at the chunk edges EDGE_POS, over blocks of
-    128, 16 and 12 tokens, and bitwise against K2 at each edge."""
+    128, 16 and 12 tokens, and bitwise against K2 at each edge. Then the
+    llama int8 modes (`k5_int8_cases`) and the int8 pool's bitwise pin: with
+    every row's scales K2's layer scales, K5 gives K2-int8's bits (8 rows,
+    65 rows, each chunk edge over one layer; int8 weights and bf16). Fills
+    int8_errs[mode] with each int8 mode's largest x_out error."""
     mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
     cases = [k5_case(fd, rope, gen, 32, mixed, idle=(4,)),
              k5_case(fd, rope, gen, 8, mixed, idle=(4,))]
@@ -704,26 +823,38 @@ def phase_k5(fd, rope, gen):
     edges_vs_k2 = ([k5_vs_k2(fd, rope, eg, b=2, pos=p) for p in EDGE_POS]
                    + [k5_vs_k2(fd, rope, eg, nkv=16, b=2, pos=p, arch="gpt")
                       for p in EDGE_POS])
+    int8 = {name: k5_int8_cases(fd, rope, arch, w8, kv8, 40 + i)
+            for i, (name, _, arch, w8, kv8) in enumerate(PAGED_INT8_MODES)
+            if arch == "llama"}
+    pg = wide_gen(35)
+    pins = ([k5_vs_k2(fd, rope, pg, kv8=True, w8=w8) for w8 in (True, False)]
+            + [k5_vs_k2(fd, rope, pg, b=65, kv8=True, w8=True)]
+            + [k5_vs_k2(fd, rope, pg, L=1, b=2, pos=p, kv8=True)
+               for p in EDGE_POS])
     emit({"phase": "k5", "cases": cases, "vs_k2": bitwise,
           "vs_k2_gpt": bitwise_gpt, "vs_k2_b33": bitwise33,
           "vs_k2_gpt_b33": bitwise33_gpt, "vs_k2_b65": bitwise65,
           "vs_k2_gpt_b65": bitwise65_gpt, "chunk_edges": edges,
-          "chunk_edges_vs_k2": edges_vs_k2})
-    cases += edges
+          "chunk_edges_vs_k2": edges_vs_k2, "int8": int8,
+          "int8_pool_vs_k2_int8kv": pins})
+    cases += edges + [c for cs in int8.values() for c in cs]
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K5 disagrees with its plain version: {bad}")
+    for name, cs in int8.items():
+        int8_errs[name] = max(c["max_abs_err"] for c in cs)
     for b in [bitwise, bitwise_gpt, bitwise33, bitwise33_gpt, bitwise65,
-              bitwise65_gpt] + edges_vs_k2:
+              bitwise65_gpt] + edges_vs_k2 + pins:
         if not b["ok"]:
             raise AssertionError(f"K5 does not give K2's bits: {b}")
     return max(c["max_abs_err"] for c in cases)
 
 
-def phase_k5g(fd, rope, gen):
+def phase_k5g(fd, rope, gen, int8_errs):
     """K5's gpt mode at GPT-2 345M width, 2 layers, b=8 over a shuffled
     table at mixed positions with one idle row (phase k5's rows), then at
-    WIDE_ROWS rows, then one row at each chunk edge EDGE_POS."""
+    WIDE_ROWS rows, then one row at each chunk edge EDGE_POS; then the
+    int8 pool (`k5_int8_cases`), its error into int8_errs."""
     mixed = [1037, 5, 700, 1024, 3, 127, 1500, 256]   # row 4 idle
     cases = [k5_case(fd, rope, gen, 16, mixed, idle=(4,), arch="gpt")]
     wg = wide_gen(23)
@@ -732,8 +863,11 @@ def phase_k5g(fd, rope, gen):
         cases.append(k5_case(fd, rope, wg, 16, positions, idle, arch="gpt"))
     edge = k5_case(fd, rope, wide_gen(32), 16, list(EDGE_POS), (),
                    arch="gpt")
-    emit({"phase": "k5g", "cases": cases, "chunk_edges": edge})
-    cases.append(edge)
+    int8 = k5_int8_cases(fd, rope, "gpt", False, True, 43)
+    emit({"phase": "k5g", "cases": cases, "chunk_edges": edge,
+          "int8_pool": int8})
+    cases += [edge] + int8
+    int8_errs["gpt_int8kv"] = max(c["max_abs_err"] for c in int8)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K5 (gpt) disagrees with its plain version: "
@@ -773,23 +907,33 @@ def k7_rope(rope, hd, positions, K1):
     return cos[pj], sin[pj]
 
 
-def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
+def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama",
+            w8=False, kv8=False, fp32=False):
     """K7 against the plain verify. Compared: x_out of every mapped tail
     token (its position and all before it in mapped blocks), the appended
     rows at mapped positions, and every other row of every block but
     scratch (untouched by both); K7 also launches twice and the two
-    results must be bitwise equal."""
+    results must be bitwise equal. w8/kv8: the int8 modes, as k5_case's
+    (the appended int8 rows within one int8 step). fp32: also the plain
+    verify in fp32 (bf16 weights and x upcast, int8 stacks and pool as
+    they are), and each of K7 and the bf16 plain version against it on
+    the mapped tokens (reported)."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
     b, K1 = len(positions), K7_K1
-    params = stack_params(gen, arch, L, nkv)
+    params = int8_llama_params(L, nkv) if w8 else stack_params(gen, arch, L,
+                                                                 nkv)
     pool, tables = k7_pool(gen, L, 2 * nkv * hd, nmap)
+    scales = None
+    if kv8:
+        pool, scales = int8_pool(fd, pool, tables, nkv)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     c = s = None
     if arch != "gpt":
         c, s = k7_rope(rope, hd, positions, K1)
     x = rand((b, K1, h), gen)
-    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch,
+              kv_scales=scales)
     pool_k = pool.clone()
     n0 = fd.fused_paged_verify_cuda.launches
     xo, _ = fd.fused_paged_verify_cuda(x, params, pool_k, tables, pos, c, s,
@@ -799,6 +943,12 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
     xo2, _ = fd.fused_paged_verify_cuda(x, params, pool_k2, tables, pos, c,
                                         s, **kw)
     torch.cuda.synchronize()
+    x32 = None
+    if fp32:
+        x32, _ = fd.fused_paged_verify_reference(
+            x.float(), {k: v.float() if v.dtype == torch.bfloat16 else v
+                        for k, v in params.items()},
+            pool.clone() if kv8 else pool.float(), tables, pos, c, s, **kw)
     xr, pool_r = fd.fused_paged_verify_reference(x, params, pool, tables,
                                                  pos, c, s, **kw)
     mapped = [(r, j) for r in range(b) for j in range(K1)
@@ -809,8 +959,13 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
     t = pos.long()[rr] + jj
     bids = tables.long()[rr, t // K5_BT]
     offs = t % K5_BT
-    row_err, ok_row = close(pool_k[:, bids, offs], pool_r[:, bids, offs],
-                            K2_ATOL, K2_RTOL)
+    if kv8:
+        row_err, _ = int8_row_steps(pool_k[:, bids, offs],
+                                    pool_r[:, bids, offs])
+        ok_row = row_err <= 1
+    else:
+        row_err, ok_row = close(pool_k[:, bids, offs], pool_r[:, bids, offs],
+                                K2_ATOL, K2_RTOL)
     mask = torch.ones(pool.shape[1:3], dtype=torch.bool, device="cuda")
     mask[bids, offs] = False
     mask[0] = False
@@ -835,6 +990,13 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama"):
            "rest_of_pool_unchanged": untouched,
            "two_launches_bitwise_equal": repeat, "atol": K2_ATOL,
            "rtol": K2_RTOL, "ok": ok}
+    if w8 or kv8:
+        res.update(int8_weights=w8, int8_pool=kv8)
+    if x32 is not None:
+        ref = x32[rr, jj]
+        res["vs_fp32"] = {
+            "kernel": (xo[rr, jj].float() - ref).abs().max().item(),
+            "plain_bf16": (xr[rr, jj].float() - ref).abs().max().item()}
     return res
 
 
@@ -905,40 +1067,85 @@ def k7_wide(seed, b=16):
     return positions, nmap
 
 
-def phase_k7(fd, rope, gen):
+#: phase k7's edge rows: row 1 straddles a block boundary (126..130), row 3
+#: is idle, row 4's tail runs past its last mapped block (254..258 with 2
+#: blocks), row 6 past the table itself (2045..2049, blocks 16 and beyond:
+#: scratch)
+K7_EDGES = ([1037, 126, 700, 3, 254, 5, 2045, 1500],
+            [9, 2, 6, 0, 2, 1, K5_MB, 12])
+
+
+def k7_int8_cases(fd, rope, arch, w8, kv8, seed):
+    """One int8 mode of K7 against its plain version: 8 slots × 5 tail rows
+    over phase k7's edge rows, 16 slots (two launches) at drawn positions,
+    and 8 slots whose tails start at the chunk edges EDGE_POS (511..515
+    and 1023..1027 cross a chunk boundary); two launches bitwise equal
+    each. With an int8 pool the edge rows and the chunk edges run one
+    layer, as phase k2q's int8 edges: their tails start at
+    positions 3 and 5, where a tail token attends to a handful of keys
+    among its own tail's appends, and over two layers the appends of
+    layer 1, quantized from x that carries bf16 noise, land one int8 step
+    apart and move x_out past K2's tolerance (on an H100: 0.0625 at a value
+    below 1.6, bf16 weights); the two-layer edge case
+    still runs, reported with K7's and the bf16 plain version's distance
+    from the fp32 plain verify. Returns (cases, reported or None)."""
+    g = wide_gen(seed)
+    nkv = 16 if arch == "gpt" else 32
+    kw = dict(arch=arch, w8=w8, kv8=kv8)
+    le = 1 if kv8 else 2
+    chunk = [(p + K7_K1 - 1) // K5_BT + 1 for p in EDGE_POS]
+    cases = [k7_case(fd, rope, g, nkv, *K7_EDGES, L=le, **kw),
+             k7_case(fd, rope, g, 16 if arch == "gpt" else 8,
+                     *k7_wide(seed), **kw),
+             k7_case(fd, rope, g, nkv, list(EDGE_POS), chunk, L=le, **kw)]
+    report = (k7_case(fd, rope, g, nkv, *K7_EDGES, fp32=True, **kw)
+              if kv8 else None)
+    return cases, report
+
+
+def phase_k7(fd, rope, gen, int8_errs):
     """K7 at Llama-2-7B width, 2 layers, b=8 x a 5-token tail over phase
     k7's edge cases, MHA and GQA; then 16 slots (80 tail rows: two launches
     of whole slots) at drawn positions; then all-accepted against 5
-    sequential K5 steps."""
-    # row 1 straddles a block boundary (126..130), row 3 is idle, row 4's
-    # tail runs past its last mapped block (254..258 with 2 blocks), row 6
-    # past the table itself (2045..2049, blocks 16 and beyond: scratch)
-    positions = [1037, 126, 700, 3, 254, 5, 2045, 1500]
-    nmap = [9, 2, 6, 0, 2, 1, K5_MB, 12]
+    sequential K5 steps; then the llama int8 modes (`k7_int8_cases`),
+    each mode's largest x_out error into int8_errs."""
+    positions, nmap = K7_EDGES
     cases = [k7_case(fd, rope, gen, 32, positions, nmap),
              k7_case(fd, rope, gen, 8, positions, nmap)]
     cases.append(k7_case(fd, rope, wide_gen(25), 32, *k7_wide(300)))
     seq = k7_vs_k5(fd, rope, gen)
-    emit({"phase": "k7", "cases": cases, "vs_k5_sequential": seq})
+    runs = {name: k7_int8_cases(fd, rope, arch, w8, kv8, 50 + i)
+            for i, (name, _, arch, w8, kv8) in enumerate(PAGED_INT8_MODES)
+            if arch == "llama"}
+    int8 = {name: cs for name, (cs, _) in runs.items()}
+    emit({"phase": "k7", "cases": cases, "vs_k5_sequential": seq,
+          "int8": int8, "int8_two_layer_edges_reported":
+              {name: rep for name, (_, rep) in runs.items() if rep}})
+    cases += [c for cs in int8.values() for c in cs]
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K7 disagrees with its plain version: {bad}")
+    for name, cs in int8.items():
+        int8_errs[name] = max(c["max_abs_err"] for c in cs)
     if not seq["ok"]:
         raise AssertionError(f"K7 disagrees with sequential K5 steps: {seq}")
     return max(c["max_abs_err"] for c in cases)
 
 
-def phase_k7g(fd, rope, gen):
+def phase_k7g(fd, rope, gen, int8_errs):
     """K7's gpt mode at GPT-2 345M width, 2 layers, b=8 × a 5-token tail,
     with phase k7's edge cases (a tail across a block boundary, an idle
     row, tails past the last mapped block and past the table), then 16
-    slots (two launches) at drawn positions."""
-    positions = [1037, 126, 700, 3, 254, 5, 2045, 1500]
-    nmap = [9, 2, 6, 0, 2, 1, K5_MB, 12]
-    cases = [k7_case(fd, rope, gen, 16, positions, nmap, arch="gpt"),
+    slots (two launches) at drawn positions; then the int8 pool
+    (`k7_int8_cases`), its error into int8_errs."""
+    cases = [k7_case(fd, rope, gen, 16, *K7_EDGES, arch="gpt"),
              k7_case(fd, rope, wide_gen(26), 16, *k7_wide(301),
                      arch="gpt")]
-    emit({"phase": "k7g", "cases": cases})
+    int8, report = k7_int8_cases(fd, rope, "gpt", False, True, 53)
+    emit({"phase": "k7g", "cases": cases, "int8_pool": int8,
+          "int8_two_layer_edges_reported": report})
+    cases += int8
+    int8_errs["gpt_int8kv"] = max(c["max_abs_err"] for c in int8)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K7 (gpt) disagrees with its plain version: "
@@ -1130,11 +1337,12 @@ def wide_tokens(model, cpu, ids, new, fa, fd, counter, groups):
     return run
 
 
-def wide_engine(fa, fd, model, cpu, slots):
-    """`slots` + 1 greedy requests through ServingEngine(max_slots=slots)
-    on the card and on the CPU copy: every slot busy at once, K5 in
-    row_groups(slots, GROUP_ROWS) launches a tick, no leaked block, each
-    request's tokens equal to the CPU engine's or parted at a near tie."""
+def wide_engine(fa, fd, model, cpu, slots, **engine_kw):
+    """`slots` + 1 greedy requests through ServingEngine(max_slots=slots,
+    **engine_kw) on the card and on the CPU copy: every slot busy at once,
+    K5 in row_groups(slots, GROUP_ROWS) launches a tick, no leaked block,
+    each request's tokens equal to the CPU engine's or parted at a near
+    tie."""
     from paddle_tpu_torch.serving import Request, ServingEngine
     r = np.random.RandomState(slots)
     reqs = [(r.randint(0, model.cfg.vocab_size, int(n)), int(m)) for n, m in
@@ -1142,7 +1350,7 @@ def wide_engine(fa, fd, model, cpu, slots):
     toks, stats = {}, {}
     for name, m in (("card", model), ("cpu", cpu)):
         eng = ServingEngine(m, max_slots=slots, block_tokens=16,
-                            max_seq_len=64, device=m.device)
+                            max_seq_len=64, device=m.device, **engine_kw)
         reset_counts(fa, fd)
         rids = [eng.submit(Request(p, max_new_tokens=n)) for p, n in reqs]
         eng.step()
@@ -1845,7 +2053,7 @@ def teacher_forced_k5(fd, eng):
     cos = eng._cos_tab.index_select(0, positions)
     sin = eng._sin_tab.index_select(0, positions)
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"], arch=eng.arch)
+              eps=meta["eps"], arch=eng.arch, kv_scales=pool_scales(eng))
     n0 = fd.fused_paged_decode_cuda.launches
     xk, _ = fd.fused_paged_decode_cuda(x, plan["params"], eng.kv_pool, tables,
                                        positions, cos, sin, **kw)
@@ -1863,6 +2071,15 @@ def teacher_forced_k5(fd, eng):
             "logit_max_abs_err": err, "logit_absmax":
             lp[active].abs().max().item(), "argmax_agree": agree,
             "atol": SERVE_LOGIT_ATOL, "rtol": E2E_RTOL, "ok": ok}
+
+
+def pool_scales(eng, rows=None):
+    """The engine's per-slot int8 pool scales on the card (its first `rows`
+    slots), or None over a bf16 pool."""
+    if eng._kv_scales is None:
+        return None
+    sc = eng._kv_scales if rows is None else eng._kv_scales[:, :rows]
+    return torch.tensor(np.ascontiguousarray(sc), device="cuda")
 
 
 def borrow_blocks(eng, n):
@@ -1896,8 +2113,9 @@ def time_k5(fd, eng, bw, flops, span=(100, 1300), rows=8):
     x = rand((rows, h), gen)
     cos = eng._cos_tab.index_select(0, pos)
     sin = eng._sin_tab.index_select(0, pos)
+    scales = pool_scales(eng, rows)     # an int8 pool: slots' own scales
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"], arch=eng.arch)
+              eps=meta["eps"], arch=eng.arch, kv_scales=scales)
     n0 = fd.fused_paged_decode_cuda.launches
     ms = time_ms(lambda: fd.fused_paged_decode_cuda(
         x, plan["params"], eng.kv_pool, tab, pos, cos, sin, **kw), iters=20)
@@ -1911,7 +2129,8 @@ def time_k5(fd, eng, bw, flops, span=(100, 1300), rows=8):
     wbytes = sum(t.numel() * t.element_size() for t in params.values())
     row = eng.kv_pool.shape[3] * eng.kv_pool.element_size()
     keys = sum(p + 1 for p in positions)
-    nbytes = wbytes + L * row * keys + L * row * rows + 2 * x.numel() * 2
+    nbytes = wbytes + L * row * keys + L * row * rows + 2 * x.numel() * 2 \
+        + (0 if scales is None else 4 * scales.numel())
     nflops = 2 * rows * sum(t.numel() for t in params.values()) \
         + L * meta["num_heads"] * 4 * meta["head_dim"] * keys
     tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
@@ -1922,13 +2141,43 @@ def time_k5(fd, eng, bw, flops, span=(100, 1300), rows=8):
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
+class PlainCalls:
+    """Counts the calls of the paged steps' plain versions made while the
+    context is open: the engine's dispatch reads them from the module at
+    call time, so a step that fell to its plain version shows here. Opened
+    around an engine's own ticks only (not the checks that call the plain
+    versions on purpose); re-entrant, the count accumulates."""
+
+    NAMES = ("fused_paged_decode_reference", "fused_paged_verify_reference")
+
+    def __init__(self, fd):
+        self.fd, self.n = fd, 0
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.fd, k) for k in self.NAMES}
+        for k, f in self.saved.items():
+            setattr(self.fd, k, self._counted(f))
+        return self
+
+    def _counted(self, f):
+        def call(*a, **kw):
+            self.n += 1
+            return f(*a, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for k, f in self.saved.items():
+            setattr(self.fd, k, f)
+
+
 def phase_serve(fa, fd, model, bw, flops, k5_err, phase="serve",
                 name="llama2_7b", serve=SERVE, max_prompt=1000,
-                span=(100, 1300)):
-    """`model` through serving.ServingEngine(**serve): the greedy run with
-    a shared prefix and a preemption, then the sampled run (see the module
-    docstring's phase serve). Returns (K5's kernel-table row, the launch
-    counts of both runs)."""
+                span=(100, 1300), cache_dtype=torch.bfloat16):
+    """`model` through serving.ServingEngine(**serve, cache_dtype): the
+    greedy run with a shared prefix and a preemption, then the sampled run
+    (see the module docstring's phase serve); no tick falls to a plain
+    version. Returns (K5's kernel-table row, the launch counts of both
+    runs)."""
     from paddle_tpu_torch.inference import generate
     from paddle_tpu_torch.serving import Request, ServingEngine
 
@@ -1937,29 +2186,32 @@ def phase_serve(fa, fd, model, bw, flops, k5_err, phase="serve",
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServingEngine(model, **serve)
+    eng = ServingEngine(model, **serve, cache_dtype=cache_dtype)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     lows = shared + other[:6]
     highs = other[6:]
     reset_counts(fa, fd)
+    plain = PlainCalls(fd)
     t0 = time.perf_counter()
-    rids = [eng.submit(Request(shared[0][0], max_new_tokens=shared[0][1],
-                               priority="low"))]
-    eng.step()        # its prefix blocks land in the cache before the rest
-    rids += [eng.submit(Request(p, max_new_tokens=n, priority="low"))
-             for p, n in lows[1:]]
-    for _ in range(4):
-        if eng.active_slots == serve["max_slots"]:
-            break
-        eng.step()
-    rids += [eng.submit(Request(p, max_new_tokens=n, priority="high"))
-             for p, n in highs]
-    eng.step()        # the high requests preempt two low slots
+    with plain:
+        rids = [eng.submit(Request(shared[0][0], max_new_tokens=shared[0][1],
+                                   priority="low"))]
+        eng.step()    # its prefix blocks land in the cache before the rest
+        rids += [eng.submit(Request(p, max_new_tokens=n, priority="low"))
+                 for p, n in lows[1:]]
+        for _ in range(4):
+            if eng.active_slots == serve["max_slots"]:
+                break
+            eng.step()
+        rids += [eng.submit(Request(p, max_new_tokens=n, priority="high"))
+                 for p, n in highs]
+        eng.step()    # the high requests preempt two low slots
     if eng.stats["preemptions"] < 1 or eng.active_slots < 8:
         raise AssertionError(f"{phase}: no preemption ({eng.stats})")
     forced = teacher_forced_k5(fd, eng)
-    eng.drain()
+    with plain:
+        eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = dict(eng.stats)
@@ -1980,17 +2232,20 @@ def phase_serve(fa, fd, model, bw, flops, k5_err, phase="serve",
     # ulp in the prompt's KV can part greedy tokens at a near-tie
     agree = []
     for res, (p, n) in zip(results[:2], lows[:2]):
-        iso = generate(model, p[None], max_new_tokens=n)[0, len(p):].tolist()
+        iso = generate(model, p[None], max_new_tokens=n,
+                       cache_dtype=cache_dtype)[0, len(p):].tolist()
         agree.append(next((j for j, (a, b) in enumerate(zip(iso, res.tokens))
                            if a != b), n))
 
     # sampled: the knobs live on the engine, each request has its own seed
-    eng = ServingEngine(model, **serve, temperature=0.8, top_k=50, top_p=0.9)
+    eng = ServingEngine(model, **serve, temperature=0.8, top_k=50, top_p=0.9,
+                        cache_dtype=cache_dtype)
     reset_counts(fa, fd)
     t1 = time.perf_counter()
-    srids = [eng.submit(Request(p, max_new_tokens=n, seed=1000 + i))
-             for i, (p, n) in enumerate(other)]
-    eng.drain()
+    with plain:
+        srids = [eng.submit(Request(p, max_new_tokens=n, seed=1000 + i))
+                 for i, (p, n) in enumerate(other)]
+        eng.drain()
     torch.cuda.synchronize()
     swall = time.perf_counter() - t1
     sst = dict(eng.stats)
@@ -2007,7 +2262,8 @@ def phase_serve(fa, fd, model, bw, flops, k5_err, phase="serve",
     steps = st["steps"]
     res = {
         "phase": phase, "model": name, "layers": L,
-        "dtype": "bfloat16", **serve, "engine_init_s": init_s,
+        "dtype": "bfloat16", "cache_dtype": str(cache_dtype).split(".")[-1],
+        **serve, "engine_init_s": init_s, "plain_version_calls": plain.n,
         "requests": len(rids), "shared_prefix_tokens": PREFIX,
         "prompt_lens": [len(p) for p, _ in lows + highs],
         "max_new": want, "generated": lengths,
@@ -2044,6 +2300,7 @@ def phase_serve(fa, fd, model, bw, flops, k5_err, phase="serve",
         "7 siblings reuse the prefix": st["prefill_tokens_reused"]
         >= 7 * PREFIX,
         "no leaked block": leaked == 0 and sleaked == 0,
+        "no plain-version call": plain.n == 0,
         "teacher-forced logits": forced["ok"],
         "sampled tokens in range": int(stoks.min()) >= 0
         and int(stoks.max()) < cfg.vocab_size,
@@ -2226,7 +2483,7 @@ def teacher_forced_k7(fd, eng):
     x = plan["embed"](tail.reshape(-1), pj.reshape(-1)).reshape(b, K1, -1)
     cos, sin = eng._cos_tab[pj], eng._sin_tab[pj]
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"], arch=eng.arch)
+              eps=meta["eps"], arch=eng.arch, kv_scales=pool_scales(eng))
     n0 = fd.fused_paged_verify_cuda.launches
     xk, _ = fd.fused_paged_verify_cuda(x, plan["params"], pool, tables,
                                        positions, cos, sin, **kw)
@@ -2275,8 +2532,9 @@ def time_k7(fd, eng, bw, flops, span=(100, 1300)):
     x = rand((8, K1, h), gen)
     pj = pos.long()[:, None] + torch.arange(K1, device="cuda")[None]
     cos, sin = eng._cos_tab[pj], eng._sin_tab[pj]
+    scales = pool_scales(eng, 8)        # an int8 pool: slots' own scales
     kw = dict(num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-              eps=meta["eps"], arch=eng.arch)
+              eps=meta["eps"], arch=eng.arch, kv_scales=scales)
     n0 = fd.fused_paged_verify_cuda.launches
     ms = time_ms(lambda: fd.fused_paged_verify_cuda(
         x, plan["params"], eng.kv_pool, tab, pos, cos, sin, **kw), iters=20)
@@ -2290,7 +2548,8 @@ def time_k7(fd, eng, bw, flops, span=(100, 1300)):
     wbytes = sum(t.numel() * t.element_size() for t in params.values())
     row = eng.kv_pool.shape[3] * eng.kv_pool.element_size()
     keys = sum(p + K1 for p in positions)           # rows each row reads
-    nbytes = wbytes + L * row * keys + L * row * 8 * K1 + 2 * x.numel() * 2
+    nbytes = wbytes + L * row * keys + L * row * 8 * K1 + 2 * x.numel() * 2 \
+        + (0 if scales is None else 4 * scales.numel())
     pairs = sum(p + j + 1 for p in positions for j in range(K1))
     nflops = 2 * 8 * K1 * sum(t.numel() for t in params.values()) \
         + L * meta["num_heads"] * 4 * meta["head_dim"] * pairs
@@ -2916,6 +3175,192 @@ def phase_int8(fa, fd, model, bw, flops):
                     for c in caches}
 
 
+# ---- the int8 serving engine ------------------------------------------------------
+
+def mode_run(fa, fd, model, reqs, bw, flops, serve, span, spec=False,
+             **engine_kw):
+    """A short run of one engine mode for its kernel-table sub-row: `reqs`
+    (greedy) through ServingEngine(model, **serve, **engine_kw), speculating
+    k = SPEC_K when `spec`: launches (K5 once per plain tick and replayed
+    token, K7 once per speculative tick), full lengths, no leaked block, no
+    tick on a plain version; then K5 (spec: K7) timed at 8 rows over its
+    pool, positions over `span`."""
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, **serve, **engine_kw,
+                        speculate=SpecConfig(k=SPEC_K) if spec else None)
+    reset_counts(fa, fd)
+    t0 = time.perf_counter()
+    with PlainCalls(fd) as plain:
+        rids = [eng.submit(Request(p, max_new_tokens=n)) for p, n in reqs]
+        eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(fa, fd)
+    m = engine_metrics(eng, wall, [eng.pop_result(i) for i in rids],
+                       [n for _, n in reqs])
+    m["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    st = m["stats"]
+    timing = (time_k7(fd, eng, bw, flops, span) if spec
+              else time_k5(fd, eng, bw, flops, span))
+    eng.prefix_cache.clear()
+    leaked = eng.pool.used_blocks
+    eng.close()
+    del eng
+    gc.collect()
+    ok = (m["full_length"] and leaked == 0 and plain.n == 0
+          and got["fused_paged_verify_step"] == st["spec_ticks"]
+          and got["fused_paged_decode_step"]
+          == st["steps"] - st["spec_ticks"] + st["replay_tokens"]
+          and (st["spec_ticks"] if spec else st["steps"]) > 0)
+    if not ok:
+        raise AssertionError(f"mode run {engine_kw} spec={spec}: {m}, "
+                             f"launches {got}, plain calls {plain.n}")
+    return dict(m, spec_k=SPEC_K if spec else 0, launches=got,
+                plain_version_calls=plain.n, timing=timing,
+                pool_used_blocks_after_clear=leaked, ok=ok)
+
+
+def mode_runs(fa, fd, model, reqs, bw, flops, serve, span, **engine_kw):
+    """`mode_run` plain and speculating: {"k5": run, "k7": run}."""
+    return {k: mode_run(fa, fd, model, reqs, bw, flops, serve, span,
+                        spec=k == "k7", **engine_kw) for k in ("k5", "k7")}
+
+
+def run_launches(runs):
+    """The launch counts of several mode runs ({mode: {"k5"|"k7": run}}),
+    summed kernel by kernel."""
+    tot = {}
+    for pair in runs.values():
+        for run in pair.values():
+            for k, v in run["launches"].items():
+                tot[k] = tot.get(k, 0) + v
+    return tot
+
+
+def sub_row(letter, timing, launches, path, err):
+    """A kernel-table sub-row (6a–6d, 7a–7d) from a run's timing (time_k5's
+    or time_k7's dict, or a phase's kernel row)."""
+    shape = timing.get("at_shape") or {k: timing[k] for k in
+                                       ("rows", "b", "K1", "positions")
+                                       if k in timing}
+    return {"row": letter, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": None, "max_abs_err": err, "launches": launches,
+            "launches_by_path": {path: launches}, "at_shape": shape}
+
+
+def phase_int8_pool(fa, fd, model, bw, flops):
+    """Llama-2-7B in bf16 (before phase int8 quantizes it) over an int8
+    pool (rows 6c and 7c): the serve mix's unshared half through an 8-slot
+    engine, plain and speculating, by `mode_run`. Returns {"llama_int8kv":
+    {"k5": run, "k7": run}}."""
+    other = serve_requests(model.cfg.vocab_size)[1]
+    runs = {"llama_int8kv": mode_runs(fa, fd, model, other, bw, flops,
+                                      SERVE, (100, 1300),
+                                      cache_dtype=torch.int8)}
+    emit({"phase": "int8_pool", "model": "llama2_7b", **SERVE,
+          "runs": runs})
+    return runs
+
+
+def phase_int8_serve(fa, fd, model, bw, flops, k5q_err, k7q_err):
+    """The int8 serving engine on phase int8's quantized Llama-2-7B (int8
+    weights in place): an 8-slot engine with an int8 pool (block 128,
+    max_seq_len 2048) on the serve phase's mix (16 greedy requests, eight
+    behind a shared prefix, two preempting, then 8 sampled: `phase_serve`),
+    then the same engine speculating k = 4 on the spec phase's 16 requests
+    (`serve_spec`); then int8 weights over a bf16 pool, plain and
+    speculating (`mode_run`, rows 6b and 7b); then tiny engines on the card
+    against the same engines on the CPU: a Llama with int8 weights and an
+    int8 pool at 65 slots (K5 in two launches a tick) and a GPT with an
+    int8 pool at 8 slots, tokens equal or parted at a near tie. Returns
+    ({row: {mode: sub-row}}, the 7B runs' launch counts)."""
+    cfg = model.cfg
+    k5, serve_launches = phase_serve(
+        fa, fd, model, bw, flops, k5q_err["llama_int8w_int8kv"],
+        phase="int8_serve", cache_dtype=torch.int8)
+    motif, rand_ = spec_requests(cfg.vocab_size)
+    k7, spec_launches = serve_spec(
+        fa, fd, model, bw, flops, k7q_err["llama_int8w_int8kv"],
+        phase="int8_serve_spec", name="llama2_7b", serve=SERVE,
+        reqs=(motif + rand_[:6], rand_[6:]), span=(100, 1300),
+        cache_dtype=torch.int8)
+    other = serve_requests(cfg.vocab_size)[1]
+    runs = {"llama_int8w": mode_runs(fa, fd, model, other, bw, flops, SERVE,
+                                     (100, 1300),
+                                     cache_dtype=torch.bfloat16)}
+    tiny = int8_tiny_engines(fa, fd)
+    emit({"phase": "int8_serve_modes", "runs": runs, "tiny_engines": tiny})
+    if not all(t["ok"] for t in tiny.values()):
+        raise AssertionError(f"int8_serve: tiny engines {tiny}")
+    launches = run_launches(runs)
+    for got in (serve_launches, spec_launches):
+        for k, v in got.items():
+            launches[k] += v
+    rows = {"fused_paged_decode_step": {}, "fused_paged_verify_step": {}}
+    for name, letter, timing, err, n in (
+            ("fused_paged_decode_step", "6a", k5,
+             k5q_err["llama_int8w_int8kv"],
+             serve_launches["fused_paged_decode_step"]),
+            ("fused_paged_verify_step", "7a", k7,
+             k7q_err["llama_int8w_int8kv"],
+             spec_launches["fused_paged_verify_step"])):
+        rows[name]["llama_int8w_int8kv"] = sub_row(letter, timing, n,
+                                                   "int8_serve", err)
+    add_mode_rows(rows, runs, "int8_serve", k5q_err, k7q_err)
+    return rows, launches
+
+
+def add_mode_rows(rows, runs, path, k5q_err, k7q_err):
+    """The sub-rows of `mode_runs` results ({mode: {"k5", "k7"}}) into
+    rows[kernel][mode]."""
+    letters = {m: letter for m, letter, _, _, _ in PAGED_INT8_MODES}
+    for mode, pair in runs.items():
+        for key, name, row, errs in (
+                ("k5", "fused_paged_decode_step", "6", k5q_err),
+                ("k7", "fused_paged_verify_step", "7", k7q_err)):
+            run = pair[key]
+            rows.setdefault(name, {})[mode] = sub_row(
+                row + letters[mode], run["timing"], run["launches"][name],
+                path, errs[mode])
+
+
+def int8_tiny_engines(fa, fd):
+    """Tiny engines over an int8 pool on the card against the same weights
+    on the CPU (`wide_engine`): a Llama (h 256, 4 heads, 2 kv heads, 2
+    layers) with int8 weights (quantize_model on the card, the state copied
+    to the CPU model) at 65 slots, and a GPT (h 256, 4 heads of 64, 2
+    layers) at 8 slots."""
+    from paddle_tpu_torch.models import (GPTConfig, GPTPretrainModel,
+                                         LlamaConfig, LlamaForCausalLM)
+    from paddle_tpu_torch.quantization import quantize_model
+    out = {}
+    lcfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=4, num_kv_heads=2)
+    gcfg = GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                     num_heads=4, max_position_embeddings=256,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    for name, cls, cfg, slots, w8 in (
+            ("llama_int8w_int8kv", LlamaForCausalLM, lcfg, 65, True),
+            ("gpt_int8kv", GPTPretrainModel, gcfg, 8, False)):
+        model = cls(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+        cpu = cls(cfg, dtype=torch.bfloat16, device="cpu", seed=0)
+        if w8:
+            quantize_model(model)
+            quantize_model(cpu)
+        model.eval()
+        cpu.eval()
+        cpu.set_state_dict({k: v.cpu() for k, v in
+                            model.state_dict(include_buffers=False).items()})
+        out[name] = wide_engine(fa, fd, model, cpu, slots,
+                                cache_dtype=torch.int8)
+        del model, cpu
+    gc.collect()
+    return out
+
+
 # ---- GPT-2 345M generation and serving --------------------------------------------
 
 GPT_B, GPT_PROMPT, GPT_NEW = 8, 512, 128
@@ -3120,63 +3565,75 @@ def gpt_generate(fa, fd, model, bw, flops, k2g_err):
     return row, runs["greedy"]["launches"]
 
 
-def gpt_spec(fa, fd, model, bw, flops, k7g_err):
-    """GPT-2 345M through ServingEngine(speculate=SpecConfig(k=4)) on the
-    gpt_serve phase's greedy requests (2 "high" preempt): K7 once per
-    speculative tick, K5 once per plain tick and replayed token; after the
-    first ticks that fill every slot, a teacher-forced 24-layer K7 step
+def serve_spec(fa, fd, model, bw, flops, k7_err, phase="gpt_spec",
+               name="gpt2_medium", serve=GPT_SERVE, reqs=None,
+               span=GPT_SPAN, cache_dtype=torch.bfloat16):
+    """`model` through ServingEngine(**serve, speculate=SpecConfig(k=4),
+    cache_dtype) on `reqs` ((lows, highs); default: the gpt_serve phase's
+    greedy requests, 2 "high" preempting): K7 once per speculative tick,
+    K5 once per plain tick and replayed token, no tick on a plain version;
+    after the first ticks that fill every slot, a teacher-forced K7 step
     over the live pool against the plain verify; K7 timed at b=8 × 5
-    tokens at GPT_SPAN's rows."""
+    tokens at `span`'s rows."""
     from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
 
     cfg = model.cfg
     L = cfg.num_layers
-    shared, other = serve_requests(cfg.vocab_size, 800)
-    lows, highs = shared + other[:6], other[6:]
+    if reqs is None:
+        shared, other = serve_requests(cfg.vocab_size, 800)
+        reqs = shared + other[:6], other[6:]
+    lows, highs = reqs
     want = [n for _, n in lows + highs]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(model, **GPT_SERVE, speculate=SpecConfig(k=SPEC_K))
+    eng = ServingEngine(model, **serve, speculate=SpecConfig(k=SPEC_K),
+                        cache_dtype=cache_dtype)
     reset_counts(fa, fd)
+    plain = PlainCalls(fd)
     t0 = time.perf_counter()
-    rids = [eng.submit(Request(p, max_new_tokens=n, priority="low"))
-            for p, n in lows]
-    for _ in range(8):
-        if eng.active_slots == GPT_SERVE["max_slots"]:
-            break
+    with plain:
+        rids = [eng.submit(Request(p, max_new_tokens=n, priority="low"))
+                for p, n in lows]
+        for _ in range(8):
+            if eng.active_slots == serve["max_slots"]:
+                break
+            eng.step()
+        rids += [eng.submit(Request(p, max_new_tokens=n, priority="high"))
+                 for p, n in highs]
         eng.step()
-    rids += [eng.submit(Request(p, max_new_tokens=n, priority="high"))
-             for p, n in highs]
-    eng.step()
-    if eng.stats["preemptions"] < 1:
-        raise AssertionError(f"gpt_spec: no preemption ({eng.stats})")
-    eng.step()
+        if eng.stats["preemptions"] < 1:
+            raise AssertionError(f"{phase}: no preemption ({eng.stats})")
+        eng.step()
     tf = teacher_forced_k7(fd, eng)
-    eng.drain()
+    with plain:
+        eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts(fa, fd)
     results = [eng.pop_result(i) for i in rids]
     m = engine_metrics(eng, wall, results, want)
     st = m["stats"]
-    timing = time_k7(fd, eng, bw, flops, GPT_SPAN)
+    timing = time_k7(fd, eng, bw, flops, span)
     eng.prefix_cache.clear()
     leaked = eng.pool.used_blocks
     peak = torch.cuda.max_memory_allocated()
     eng.close()
     del eng
     gc.collect()
-    res = {"phase": "gpt_spec", "model": "gpt2_medium", "layers": L,
-           "dtype": "bfloat16", **GPT_SERVE, "k": SPEC_K,
+    res = {"phase": phase, "model": name, "layers": L,
+           "dtype": "bfloat16", "cache_dtype": str(cache_dtype).split(".")[-1],
+           **serve, "k": SPEC_K,
            "requests": len(want), "max_new": want, **m,
            "acceptance": st["spec_accepted"] / max(st["spec_proposed"], 1),
-           "launches": got, "teacher_forced": tf, "k7_timing": timing,
+           "launches": got, "plain_version_calls": plain.n,
+           "teacher_forced": tf, "k7_timing": timing,
            "pool_used_blocks_after_clear": leaked,
            "max_memory_allocated": peak}
     emit(res)
     checks = {
         "every request at its full length": m["full_length"],
         "no leaked block": leaked == 0,
+        "no plain-version call": plain.n == 0,
         "K7 once per speculative tick": got["fused_paged_verify_step"]
         == st["spec_ticks"] > 0,
         "K5 once per plain tick and replayed token":
@@ -3191,10 +3648,10 @@ def gpt_spec(fa, fd, model, bw, flops, k7g_err):
     }
     bad = [k for k, v in checks.items() if not v]
     if bad:
-        raise AssertionError(f"gpt_spec: failed {bad}")
+        raise AssertionError(f"{phase}: failed {bad}")
     row = {"ms": timing["ms"], "plain_ms": timing["plain_ms"],
            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-           "library_ms": None, "max_abs_err": k7g_err,
+           "library_ms": None, "max_abs_err": k7_err,
            "at_shape": {"b": 8, "K1": timing["K1"], "layers": L,
                         "positions": timing["positions"]}}
     return row, got
@@ -3211,7 +3668,16 @@ def phase_gpt(fa, fd, bw, flops, errs):
             fa, fd, model, bw, flops, errs["k5g"], phase="gpt_serve",
             name="gpt2_medium", serve=GPT_SERVE, max_prompt=800,
             span=GPT_SPAN)
-        k7, spec_launches = gpt_spec(fa, fd, model, bw, flops, errs["k7g"])
+        k7, spec_launches = serve_spec(fa, fd, model, bw, flops,
+                                       errs["k7g"])
+        # the int8 pool (rows 6d and 7d): the other half of the serve mix,
+        # plain and speculating
+        other = serve_requests(model.cfg.vocab_size, 800)[1]
+        int8_runs = {
+            "gpt_int8kv": mode_runs(fa, fd, model, other, bw, flops,
+                                    GPT_SERVE, GPT_SPAN,
+                                    cache_dtype=torch.int8)}
+        emit({"phase": "gpt_int8_pool", "runs": int8_runs})
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3221,7 +3687,8 @@ def phase_gpt(fa, fd, bw, flops, errs):
     rows = {"fused_decode_step": k2, "fused_paged_decode_step": k5,
             "fused_paged_verify_step": k7}
     return rows, {"gpt_generate": gen_launches, "gpt_serve": serve_launches,
-                  "gpt_spec": spec_launches}
+                  "gpt_spec": spec_launches,
+                  "gpt_int8_pool": run_launches(int8_runs)}, int8_runs
 
 
 # ---- MoE generation -------------------------------------------------------------
@@ -3622,13 +4089,14 @@ def main(argv):
     k1_err = phase_k1(fa, gen)
     k2_err = phase_k2(fd, rope, gen)
     k3_errs = phase_k3(fa, gen)
-    k5_err = phase_k5(fd, rope, gen)
-    k7_err = phase_k7(fd, rope, gen)
+    k5q_errs, k7q_errs = {}, {}     # the int8 modes' errors (rows 6, 7)
+    k5_err = phase_k5(fd, rope, gen, k5q_errs)
+    k7_err = phase_k7(fd, rope, gen, k7q_errs)
     k6_err = phase_k6(fd, rope, gen)
     phase_wide(fa, fd)
     gpt_errs = {"k2g": phase_k2g(fd, rope, gen),
-                "k5g": phase_k5g(fd, rope, gen),
-                "k7g": phase_k7g(fd, rope, gen)}
+                "k5g": phase_k5g(fd, rope, gen, k5q_errs),
+                "k7g": phase_k7g(fd, rope, gen, k7q_errs)}
     k2q_errs = phase_k2q(fd, rope, gen)
     k8_row = phase_k8(gen, bw)
     k9_row = phase_k9(fd, bw)
@@ -3648,12 +4116,18 @@ def main(argv):
         gc.collect()
         k7_row, spec_launches = phase_spec(fa, fd, model, bw, flops, k7_err)
         gc.collect()
+        int8_pool_runs = phase_int8_pool(fa, fd, model, bw, flops)
+        gc.collect()
         int8_timing, int8_runs = phase_int8(fa, fd, model, bw, flops)
         int8_launches = int8_runs["int8"]
+        gc.collect()
+        paged_int8, int8_serve_launches = phase_int8_serve(
+            fa, fd, model, bw, flops, k5q_errs, k7q_errs)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    gpt_rows, gpt_launches = phase_gpt(fa, fd, bw, flops, gpt_errs)
+    gpt_rows, gpt_launches, gpt_int8_runs = phase_gpt(fa, fd, bw, flops,
+                                                      gpt_errs)
     k6_row, moe_launches = phase_moe(fa, fd, bw, flops, k6_err)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3673,6 +4147,15 @@ def main(argv):
     for mode, row in k2["int8"].items():
         row["max_abs_err"] = k2q_errs[mode]
         row.setdefault("launches", mode_launches.get(mode))
+    # rows 6 and 7's int8 sub-rows (a–d): int8_serve's runs, the bf16
+    # model's int8-pool runs and GPT-2's
+    add_mode_rows(paged_int8, int8_pool_runs, "int8_pool", k5q_errs,
+                  k7q_errs)
+    add_mode_rows(paged_int8, gpt_int8_runs, "gpt_int8_pool", k5q_errs,
+                  k7q_errs)
+    k5_row["int8"] = paged_int8["fused_paged_decode_step"]
+    k7_row["int8"] = paged_int8["fused_paged_verify_step"]
+    int8_pool_launches = run_launches(int8_pool_runs)
     for row in (k8_row, k9_row):
         row["launches"] = int8_launches[row["name"]]
         row["launches_by_path"] = {
@@ -3686,6 +4169,8 @@ def main(argv):
         k["launches_by_path"]["serve"] = serve_launches[k["name"]]
         k["launches_by_path"]["serve32"] = serve32_launches[k["name"]]
         k["launches_by_path"]["spec"] = spec_launches[k["name"]]
+        k["launches_by_path"]["int8_pool"] = int8_pool_launches[k["name"]]
+        k["launches_by_path"]["int8_serve"] = int8_serve_launches[k["name"]]
         k["launches_by_path"]["moe"] = moe_launches[k["name"]]
         for path, got in gpt_launches.items():
             k["launches_by_path"][path] = got[k["name"]]

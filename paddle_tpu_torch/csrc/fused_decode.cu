@@ -110,9 +110,9 @@
 // takes a compile-time ROPE flag, false here. See the gpt section near the
 // end.
 //
-// The int8 modes of K2 (the TPU kernel's `int8` and `kvq` branches;
-// fused_decode_llama with scale rows, fused_decode_llama and
-// fused_decode_gpt with kv scales). Int8 weights (llama): int8 stacks
+// The int8 modes of K2, K5 and K7 (the TPU kernels' `int8` and `kvq`
+// branches; the llama entry points with scale rows, the llama and gpt
+// entry points with kv scales). Int8 weights (llama): int8 stacks
 // stream through the product engine's int8 path (above); the
 // per-out-channel scale multiplies each output once, after the fixed-order
 // split-K sum, in the epilogue: qkv, the o-proj before its residual add,
@@ -122,8 +122,12 @@
 // rint(v / scale) clipped to +-127 and read keys and values as int8 (TMA
 // boxes of int8, widened to bf16 in shared memory, exactly); since a scale
 // is one value per (layer, kv head), the k scale folds into the staged q
-// and the v scale multiplies the attention output once. Bound: bytes, as
-// the bf16 mode's, with half the weight and KV bytes.
+// and the v scale multiplies the attention output once. The int8 pool of
+// K5 and K7 (PagedKV<int8_t>, VerifyKV<int8_t>) is the same with per-row
+// scales (a serving slot calibrates its own, (L, b, 2*nkv*hd)): the append
+// quantizes with the row's scales (K7's appends kernel too), and its k
+// scale folds into that row's q and its v scale into that row's output.
+// Bound: bytes, as the bf16 mode's, with half the weight and KV bytes.
 
 #include "hopper_sm90.cuh"
 
@@ -907,14 +911,19 @@ struct SplitKV {
   int b, K1, dkv2, nch;   // rows, tokens a row, cache row width, chunks
 };
 
-// The paged pool (K5): the map covers the whole pool (L*NB*BT rows, dkv2
-// columns) in boxes of `box` rows by 64 columns (box > 0); row bi's key t
-// is pool[tables[bi, t/BT], t%BT]; (b, K1, HD) rope rows.
+// The paged pool (K5; T = int8_t: the int8 pool): the map covers the whole
+// pool (L*NB*BT rows, dkv2 columns) in boxes of `box` rows (box > 0) by 64
+// columns (bf16, 128-byte swizzle) or a head (int8, unswizzled); row bi's
+// key t is pool[tables[bi, t/BT], t%BT]; (b, K1, HD) rope rows. The int8
+// pool's scales are per row (a serving slot's own calibration): row bi's
+// lane scales of the layer at scales + bi*dkv2.
+template <class T_>
 struct PagedKV : SplitKV {
-  using T = bf16;
+  using T = T_;
   static constexpr bool FUSE = true;
   static constexpr bool CONTIG = false;
-  bf16* kv;               // the layer's slab (NB, BT, dkv2)
+  T* kv;                  // the layer's slab (NB, BT, dkv2)
+  const float* scales;    // int8: the layer's (b, dkv2) lane scales, else null
   const int* tables;      // (b, MB)
   const int* positions;   // (b,)
   int MB, BT;
@@ -925,10 +934,12 @@ struct PagedKV : SplitKV {
   __device__ const float* rope_row(const float* r, int m, int hd) const {
     return r + (long)m * hd;
   }
-  __device__ float lane_scale(int) const { return 1.f; }
+  __device__ float lane_scale(int bi, int lane) const {
+    return sizeof(T) == 1 ? scales[(long)bi * dkv2 + lane] : 1.f;
+  }
   // an append past the table (block index >= MB) goes to scratch block 0;
   // the table is never read at MB or beyond
-  __device__ bf16* append_row(int bi, int t) const {
+  __device__ T* append_row(int bi, int t) const {
     const int cb = t / BT;
     const int bid = cb < MB ? tables[(long)bi * MB + cb] : 0;
     return kv + ((long)bid * BT + t % BT) * dkv2;
@@ -948,7 +959,8 @@ struct PagedKV : SplitKV {
 
 // K7's view of the pool: K1-token tails, appends and merge in kernels of
 // their own.
-struct VerifyKV : PagedKV {
+template <class T_>
+struct VerifyKV : PagedKV<T_> {
   static constexpr bool FUSE = false;
 };
 
@@ -969,7 +981,7 @@ struct ContigKV : SplitKV {
   __device__ const float* rope_row(const float* r, int, int) const {
     return r;
   }
-  __device__ float lane_scale(int lane) const {
+  __device__ float lane_scale(int, int lane) const {
     return sizeof(T) == 1 ? scales[lane] : 1.f;
   }
   __device__ T* append_row(int bi, int t) const {
@@ -1009,21 +1021,25 @@ __host__ __device__ constexpr int va_terms() {
 // (verify true); -1 otherwise.
 int split_smem(int hd, bool int8, bool verify) {
   if (hd != 64 && hd != 128) return -1;
-  if (verify) return hd == 64 ? VaLayout<64, bf16, 2>::SMEM
-                              : VaLayout<128, bf16, 2>::SMEM;
+  if (verify) {
+    if (hd == 64) return int8 ? VaLayout<64, int8_t, 2>::SMEM
+                              : VaLayout<64, bf16, 2>::SMEM;
+    return int8 ? VaLayout<128, int8_t, 2>::SMEM : VaLayout<128, bf16, 2>::SMEM;
+  }
   if (hd == 64) return int8 ? VaLayout<64, int8_t, 3>::SMEM
                             : VaLayout<64, bf16, 3>::SMEM;
   return int8 ? VaLayout<128, int8_t, 3>::SMEM : VaLayout<128, bf16, 3>::SMEM;
 }
 
 // The K1 appends of row bi, kv head g (K7): rope k with each token's own
-// rope row (ROPE; the gpt mode takes k as it is), round k and v to bf16,
-// write them through the table. Several idle rows (tables all scratch) may
-// write one scratch address: only their thrown-away outputs can read it.
-// Launched behind the qkv epilogue (it reads qkv after griddep_wait).
-template <int HD, bool ROPE>
+// rope row (ROPE; the gpt mode takes k as it is), round k and v to the
+// pool's type (int8: with the row's own lane scales), write them through
+// the table. Several idle rows (tables all scratch) may write one scratch
+// address: only their thrown-away outputs can read it. Launched behind the
+// qkv epilogue (it reads qkv after griddep_wait).
+template <int HD, bool ROPE, class T>
 __global__ void verify_append_kernel(const float* __restrict__ qkv,
-                                     const VerifyKV kv, int nkv, int rep) {
+                                     const VerifyKV<T> kv, int nkv, int rep) {
   sm90::griddep_launch_dependents();   // the attention may launch
   sm90::griddep_wait();
   const int g = blockIdx.x, bi = blockIdx.y, K1 = kv.K1;
@@ -1032,16 +1048,16 @@ __global__ void verify_append_kernel(const float* __restrict__ qkv,
   for (int i = threadIdx.x; i < K1 * HD; i += blockDim.x) {
     const int j = i / HD, d = i % HD, m = bi * K1 + j;
     const float* kh = qkv + (long)m * dqkv + dq + g * HD;
-    bf16* dst = kv.append_row(bi, pos + j) + g * HD + d;
+    T* dst = kv.append_row(bi, pos + j) + g * HD + d;
+    float kval = kh[d];
     if (ROPE) {
       const float* cr = kv.cos + (long)m * HD;
       const float* sr = kv.sin + (long)m * HD;
       const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
-      dst[0] = __float2bfloat16(kh[d] * cr[d] + rot * sr[d]);
-    } else {
-      dst[0] = __float2bfloat16(kh[d]);
+      kval = kh[d] * cr[d] + rot * sr[d];
     }
-    dst[dkv] = __float2bfloat16(kh[dkv + d]);
+    put_kv(dst, kval, kv.lane_scale(bi, g * HD + d));
+    put_kv(dst + dkv, kh[dkv + d], kv.lane_scale(bi, dkv + g * HD + d));
   }
 }
 
@@ -1263,26 +1279,46 @@ split_attn_kernel(const float* __restrict__ qkv,
             const int t = k0 + s * VA_KT + r;
             const int tb = t < k1 ? t : (k1 - 1) / kv.box * kv.box;
             const int row = kv.lrow0 + (int)kv.key_row(tab, tb);
+            if constexpr (Q8) {   // a head-wide int8 box: rows of HD bytes
+              sm90::tma_load_3d(ks + r * HD, &kv.map, &bars[slot], g * HD,
+                                row, 0);
+              sm90::tma_load_3d(vs + r * HD, &kv.map, &bars[slot],
+                                dkv + g * HD, row, 0);
+            } else {
 #pragma unroll
-            for (int hh = 0; hh < HD / 64; ++hh) {
-              sm90::tma_load_2d(ks + hh * VA_KT * 64 + r * 64, &kv.map,
-                                &bars[slot], g * HD + hh * 64, row);
-              sm90::tma_load_2d(vs + hh * VA_KT * 64 + r * 64, &kv.map,
-                                &bars[slot], dkv + g * HD + hh * 64, row);
+              for (int hh = 0; hh < HD / 64; ++hh) {
+                sm90::tma_load_2d(ks + hh * VA_KT * 64 + r * 64, &kv.map,
+                                  &bars[slot], g * HD + hh * 64, row);
+                sm90::tma_load_2d(vs + hh * VA_KT * 64 + r * 64, &kv.map,
+                                  &bars[slot], dkv + g * HD + hh * 64, row);
+              }
             }
           }
         }
         return;
       }
       if constexpr (!KV::CONTIG) {
+        if constexpr (Q8) {   // int8 rows of HD bytes, as the TMA lands them
+          constexpr int CR = HD / 16;
 #pragma unroll
-        for (int i = tid; i < VA_KT * CPR; i += VA_T) {
-          const int r = i / CPR, ch = i % CPR, t = k0 + s * VA_KT + r;
-          const bool ok = t < k1;
-          const bf16* src = kv.kv;
-          if (ok) src += kv.key_row(tab, t) * kv.dkv2 + g * HD + ch * 8;
-          cp_async16(va_at<VA_KT>(ks, r, ch), src, ok);
-          cp_async16(va_at<VA_KT>(vs, r, ch), ok ? src + dkv : src, ok);
+          for (int i = tid; i < VA_KT * CR; i += VA_T) {
+            const int r = i / CR, ch = i % CR, t = k0 + s * VA_KT + r;
+            const bool ok = t < k1;
+            const T* src = kv.kv;
+            if (ok) src += kv.key_row(tab, t) * kv.dkv2 + g * HD + ch * 16;
+            cp_async16(ks + r * HD + ch * 16, src, ok);
+            cp_async16(vs + r * HD + ch * 16, ok ? src + dkv : src, ok);
+          }
+        } else {
+#pragma unroll
+          for (int i = tid; i < VA_KT * CPR; i += VA_T) {
+            const int r = i / CPR, ch = i % CPR, t = k0 + s * VA_KT + r;
+            const bool ok = t < k1;
+            const bf16* src = kv.kv;
+            if (ok) src += kv.key_row(tab, t) * kv.dkv2 + g * HD + ch * 8;
+            cp_async16(va_at<VA_KT>(ks, r, ch), src, ok);
+            cp_async16(va_at<VA_KT>(vs, r, ch), ok ? src + dkv : src, ok);
+          }
         }
         cp_async_commit();
       }
@@ -1307,8 +1343,9 @@ split_attn_kernel(const float* __restrict__ qkv,
           const float rot = d < HD / 2 ? -kh[d + HD / 2] : kh[d - HD / 2];
           kval = kh[d] * cr[d] + rot * sr[d];
         }
-        put_kv(dst + d, kval, kv.lane_scale(g * HD + d));
-        put_kv(dst + dkv + d, kh[dkv + d], kv.lane_scale(dkv + g * HD + d));
+        put_kv(dst + d, kval, kv.lane_scale(bi, g * HD + d));
+        put_kv(dst + dkv + d, kh[dkv + d],
+               kv.lane_scale(bi, dkv + g * HD + d));
       }
       sm90::fence_proxy_async_global();   // ... before the TMA reads it
     }
@@ -1331,7 +1368,7 @@ split_attn_kernel(const float* __restrict__ qkv,
     {
       constexpr int RPT = 16 * HD / VA_T;
       const int d = tid % HD, r0 = tid / HD;
-      const float qs = Q8 ? qscale * kv.lane_scale(g * HD) : qscale;
+      const float qs = Q8 ? qscale * kv.lane_scale(bi, g * HD) : qscale;
       float qv[RPT], rv[RPT], cv[RPT], sv[RPT];
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
@@ -1649,7 +1686,7 @@ split_attn_kernel(const float* __restrict__ qkv,
     // of one chunk: its output, at once.
     const int nc = tmax / VA_CHUNK + 1;
     const bool direct = KV::FUSE && nc == 1;
-    const float vsc = Q8 ? kv.lane_scale(dkv + g * HD) : 1.f;
+    const float vsc = Q8 ? kv.lane_scale(bi, dkv + g * HD) : 1.f;
     const long pq = ((long)(bi * nkv + g) * kv.nch + c) * NQ + q0;
     for (int i = tid; i < nq * HD; i += VA_T) {
       const int qi = i / HD, d = i % HD;
@@ -1706,20 +1743,21 @@ split_attn_kernel(const float* __restrict__ qkv,
 // K7's merge, per (kv head g, row bi): merge_chunks over the row's chunks,
 // four warps. Launched behind the attention (its partials are read after
 // griddep_wait).
-template <int HD>
+template <int HD, class T>
 __global__ void __launch_bounds__(128)
-split_merge_kernel(const VerifyKV kv, bf16* __restrict__ attn, int nkv,
+split_merge_kernel(const VerifyKV<T> kv, bf16* __restrict__ attn, int nkv,
                    int rep) {
   sm90::griddep_launch_dependents();   // the o-proj's weights may load
   sm90::griddep_wait();
   const int g = blockIdx.x, bi = blockIdx.y;
   const int NQ = kv.K1 * rep;
   const int tmax = min(kv.positions[bi] + kv.K1 - 1, kv.key_cap());
-  merge_chunks<HD, false, false>(
+  // the int8 pool: the row's v scale on the merged output, once
+  merge_chunks<HD, false, sizeof(T) == 1>(
       kv.part, (long)kv.b * nkv * kv.nch * NQ * HD,
       (long)(bi * nkv + g) * kv.nch * NQ, tmax / VA_CHUNK + 1, NQ, kv.K1,
-      rep, nkv * rep * HD, g, bi, 1.f, attn, threadIdx.x >> 5, 4,
-      threadIdx.x & 31);
+      rep, nkv * rep * HD, g, bi, kv.lane_scale(bi, nkv * HD + g * HD),
+      attn, threadIdx.x >> 5, 4, threadIdx.x & 31);
 }
 
 // Floats of the attention's chunk partials: (O, m, l) per (row, kv head,
@@ -1759,8 +1797,9 @@ cudaError_t split_attention(const Stack& a, const KV& kv, cudaStream_t st) {
     return cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if constexpr (!KV::FUSE) {
-    e = launch_dependent(verify_append_kernel<HD, ROPE>, dim3(a.nkv, kv.b),
-                         128, 0, st, (const float*)a.qkv, kv, a.nkv, rep);
+    e = launch_dependent(verify_append_kernel<HD, ROPE, T>,
+                         dim3(a.nkv, kv.b), 128, 0, st, (const float*)a.qkv,
+                         kv, a.nkv, rep);
     if (e != cudaSuccess) return e;
   }
   const int smem = VaLayout<HD, T, va_terms<KV>()>::SMEM;
@@ -1783,8 +1822,8 @@ cudaError_t split_attention(const Stack& a, const KV& kv, cudaStream_t st) {
                        LOG2E / sqrtf((float)HD));
   if (e != cudaSuccess) return e;
   if constexpr (!KV::FUSE)
-    e = launch_dependent(split_merge_kernel<HD>, dim3(a.nkv, kv.b), 128, 0,
-                         st, kv, a.attn, a.nkv, rep);
+    e = launch_dependent(split_merge_kernel<HD, T>, dim3(a.nkv, kv.b), 128,
+                         0, st, kv, a.attn, a.nkv, rep);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -2222,7 +2261,8 @@ cudaError_t tc_launch(const Ops& ops, int in, int out, const VSplit& s,
 // K7 — the paged verify step (speculative decoding's scoring pass).
 //
 // Replaces paddle_tpu/ops/fused_decode.py::_fused_paged_verify_pallas
-// (pallas_call at :3055), llama and gpt archs, bf16 weights, bf16 pool.
+// (pallas_call at :3055), llama and gpt archs, bf16 or (llama) int8
+// weights, a bf16 or an int8 pool.
 // Each of b rows brings a tail of K1 tokens (its last sampled token and k
 // proposals) at positions pos .. pos+K1-1; all M = b*K1 tail rows (row m =
 // bi*K1 + j, the (b, K1, h) layout of x) go through decode_stack together,
@@ -2233,8 +2273,8 @@ cudaError_t tc_launch(const Ops& ops, int in, int out, const VSplit& s,
 // to scratch block 0 — then the attention with query j limited to pos+j,
 // then the merge, three launches). 1 + 13L
 // launches, both modes. Casts as in K5: bf16 activations into each
-// product, fp32 accumulators and residual, k/v rounded to bf16 at the
-// append.
+// product, fp32 accumulators and residual, k/v rounded to the pool's type
+// at the append.
 //
 // What bounds it on the H100: bytes, as K5 — every layer weight once per
 // step plus each row's filled KV — while the products do K1 times K5's
@@ -2262,15 +2302,24 @@ long verify_ws(int b, int K1, int h, int nh, int nkv, int hd, int ffn,
 
 // K5's and K7's stack over the pool (L, NB, BT, 2*nkv*hd) with the paged
 // policy KV (PagedKV: K5, b decode rows; VerifyKV: K7, a holds the M =
-// b*K1 tail rows, a.b == b*K1 <= 64): the attention's TMA map of the whole
+// b*K1 tail rows, a.b == b*K1 <= 64) and the weight type W (the llama
+// mode's; the gpt mode takes bf16): the attention's TMA map of the whole
 // pool, in boxes of gcd(BT, 64) rows (block_tokens not a multiple of 8:
-// cp.async instead), and its partials (and K5's counters) in a.ws.
-template <class KV>
-cudaError_t paged_stack(const Stack& a_in, int b, int K1, bf16* pool,
-                        const int* tables, const int* positions,
-                        const float* cosr, const float* sinr, int NB, int BT,
-                        int MB, cudaStream_t st) {
+// cp.async instead), and its partials (and K5's counters) in a.ws. The
+// int8 pool (KV::T = int8_t) takes its per-row lane scales kvs: row bi of
+// layer l at kvs + (l*sb + bi)*2*nkv*hd, sb the scales' row extent (a
+// launch over a group of rows of a wider step passes its first row's
+// scales and the whole step's sb).
+template <class W, class KV>
+cudaError_t paged_stack(const Stack& a_in, int b, int K1, void* pool,
+                        const float* kvs, int sb, const int* tables,
+                        const int* positions, const float* cosr,
+                        const float* sinr, int NB, int BT, int MB,
+                        cudaStream_t st) {
+  using T = typename KV::T;
   if (b < 1 || K1 < 1 || a_in.b != b * K1) return cudaErrorInvalidValue;
+  if ((sizeof(T) == 1) != (kvs != nullptr) || (kvs != nullptr && sb < b))
+    return cudaErrorInvalidValue;
   Stack a = a_in;
   const int dkv2 = 2 * a.nkv * a.hd;
   KV v{};
@@ -2286,7 +2335,12 @@ cudaError_t paged_stack(const Stack& a_in, int b, int K1, bf16* pool,
   }
   v.box = BT % 8 == 0 ? (BT & -BT) < 64 ? (BT & -BT) : 64 : 0;
   if (v.box > 0) {
-    const int e = sm90_map_rows(&v.map, pool, a.L * NB * BT, dkv2, v.box);
+    // int8: one slab of the pool's rows, head-wide unswizzled boxes
+    const int e =
+        sizeof(T) == 1
+            ? sm90_map_kv(&v.map, pool, 1, a.L * NB * BT, dkv2, true, a.hd,
+                          v.box)
+            : sm90_map_rows(&v.map, pool, a.L * NB * BT, dkv2, v.box);
     if (e != 0) return (cudaError_t)e;
   }
   v.tables = tables;
@@ -2301,11 +2355,39 @@ cudaError_t paged_stack(const Stack& a_in, int b, int K1, bf16* pool,
   v.nch = (MB * BT + VA_CHUNK - 1) / VA_CHUNK;
   auto layer_kv = [=](int l) {
     KV w = v;
-    w.kv = pool + (long)l * NB * BT * dkv2;
+    w.kv = static_cast<T*>(pool) + (long)l * NB * BT * dkv2;
+    w.scales = kvs != nullptr ? kvs + (long)l * sb * dkv2 : nullptr;
     w.lrow0 = l * NB * BT;
     return w;
   };
-  return decode_stack(a, layer_kv, st);
+  return decode_stack<W>(a, layer_kv, st);
+}
+
+// paged_stack dispatched on the weight type (a.sqkv non-null: int8 weights)
+// and the pool type (kvs non-null: the int8 pool), KV = PagedKV (K5) or
+// VerifyKV (K7).
+template <template <class> class KV>
+cudaError_t paged_modes(const Stack& a, int b, int K1, void* pool,
+                        const void* kvs, int sb, const void* tables,
+                        const void* positions, const void* cosr,
+                        const void* sinr, int NB, int BT, int MB,
+                        void* stream) {
+  const float* sc = (const float*)kvs;
+  const int* tab = (const int*)tables;
+  const int* ps = (const int*)positions;
+  const float* cr = (const float*)cosr;
+  const float* sr = (const float*)sinr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool w8 = a.sqkv != nullptr;
+  if (kvs != nullptr)
+    return w8 ? paged_stack<int8_t, KV<int8_t>>(a, b, K1, pool, sc, sb, tab,
+                                                ps, cr, sr, NB, BT, MB, st)
+              : paged_stack<bf16, KV<int8_t>>(a, b, K1, pool, sc, sb, tab, ps,
+                                              cr, sr, NB, BT, MB, st);
+  return w8 ? paged_stack<int8_t, KV<bf16>>(a, b, K1, pool, nullptr, sb, tab,
+                                            ps, cr, sr, NB, BT, MB, st)
+            : paged_stack<bf16, KV<bf16>>(a, b, K1, pool, nullptr, sb, tab,
+                                          ps, cr, sr, NB, BT, MB, st);
 }
 
 // The contiguous policy over the launch's b rows of a cache (L, cb, S,
@@ -2784,29 +2866,40 @@ extern "C" int fused_decode_llama(
 
 // K5 — one decode step through all L layers over the PAGED pool. Replaces
 // the TPU kernel paddle_tpu/ops/fused_decode.py::_fused_paged_decode_pallas
-// (pallas_call at :2267), llama arch, bf16 weights, bf16 pool. The products
-// are K2's; only the attention's addressing differs: row bi appends at
-// pool[l, tables[bi, pos/BT], pos%BT] for its own pos = positions[bi] and
-// reads key t from pool[l, tables[bi, t/BT], t%BT] for t <= pos. Positions,
-// block tables and the (b, hd) rope rows are read from device memory, so a
-// step uploads nothing. kv_pool (L, NB, BT, 2*nkv*hd) is updated in place,
-// except that an idle row's append (its block is scratch block 0) is not
-// written; scratch as for fused_decode_llama. Callers keep every
-// positions[bi] below MB*BT (the engine clamps at max_seq_len - 1).
+// (pallas_call at :2267), llama arch, bf16 or int8 weights, a bf16 or an
+// int8 pool. The products are K2's; only the attention's addressing
+// differs: row bi appends at pool[l, tables[bi, pos/BT], pos%BT] for its
+// own pos = positions[bi] and reads key t from pool[l, tables[bi, t/BT],
+// t%BT] for t <= pos. Positions, block tables and the (b, hd) rope rows are
+// read from device memory, so a step uploads nothing. kv_pool (L, NB, BT,
+// 2*nkv*hd) is updated in place, except that an idle row's append (its
+// block is scratch block 0) is not written; scratch as for
+// fused_decode_llama. The int8 modes: scale rows sqkv, so, sg, su, sd
+// ((L, out) fp32 each) make the five weight stacks int8, as K2's; per-row
+// kv scales kvs (row bi of layer l at kvs + (l*sb + bi)*2*nkv*hd, fp32;
+// the reference's (L, b, 2*nkv*hd) kv_scales with sb = b) make the pool
+// int8: the append is rint(kv / scale) clipped to +-127 with the row's own
+// scales, and the row's keys and values are read with them. Null pointers
+// select bf16. Callers keep every positions[bi] below MB*BT (the engine
+// clamps at max_seq_len - 1).
 extern "C" int fused_paged_decode_llama(
     const void* x_in, void* x_out, const void* ln1, const void* wqkv,
     const void* wo, const void* ln2, const void* wg, const void* wu,
-    const void* wd, void* kv_pool, const void* tables, const void* positions,
-    const void* cosr, const void* sinr, void* xf, void* qkv, void* attn,
-    void* act, void* ws, int L, int b, int h, int nh, int nkv, int hd,
-    int ffn, int NB, int BT, int MB, float eps, void* stream) {
-  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
-                             qkv, attn, act, ws, L, b, h, nh, nkv, hd, ffn,
-                             eps);
-  return (int)paged_stack<PagedKV>(a, b, 1, (bf16*)kv_pool,
-                                   (const int*)tables, (const int*)positions,
-                                   (const float*)cosr, (const float*)sinr, NB,
-                                   BT, MB, (cudaStream_t)stream);
+    const void* wd, const void* sqkv, const void* so, const void* sg,
+    const void* su, const void* sd, void* kv_pool, const void* kvs,
+    const void* tables, const void* positions, const void* cosr,
+    const void* sinr, void* xf, void* qkv, void* attn, void* act, void* ws,
+    int L, int b, int h, int nh, int nkv, int hd, int ffn, int NB, int BT,
+    int MB, int sb, float eps, void* stream) {
+  Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf, qkv,
+                       attn, act, ws, L, b, h, nh, nkv, hd, ffn, eps);
+  a.sqkv = (const float*)sqkv;
+  a.so = (const float*)so;
+  a.sg = (const float*)sg;
+  a.su = (const float*)su;
+  a.sd = (const float*)sd;
+  return (int)paged_modes<PagedKV>(a, b, 1, kv_pool, kvs, sb, tables,
+                                   positions, cosr, sinr, NB, BT, MB, stream);
 }
 
 extern "C" long fused_paged_verify_workspace(int b, int K1, int h, int nh,
@@ -2823,21 +2916,29 @@ extern "C" long fused_paged_verify_workspace(int b, int K1, int h, int nh,
 // read on the device. Scratch as for K2 over M = b*K1 rows: xf (M, h)
 // f32, qkv (M, dqkv) f32, attn (M, dq) bf16, act (M, ffn) bf16, ws
 // (fused_paged_verify_workspace(..., S = MB*BT, gpt = 0) floats); M <= 64.
-// Returns the first CUDA error, 0 on success.
+// The int8 modes as K5's: scale rows sqkv ... sd make the weights int8, the
+// per-row kv scales kvs (sb rows a layer) the pool int8 (row bi's K1
+// appends quantized with its own scales). Returns the first CUDA error, 0
+// on success.
 extern "C" int fused_paged_verify_llama(
     const void* x_in, void* x_out, const void* ln1, const void* wqkv,
     const void* wo, const void* ln2, const void* wg, const void* wu,
-    const void* wd, void* kv_pool, const void* tables, const void* positions,
-    const void* cosr, const void* sinr, void* xf, void* qkv, void* attn,
-    void* act, void* ws, int L, int b, int K1, int h, int nh, int nkv,
-    int hd, int ffn, int NB, int BT, int MB, float eps, void* stream) {
-  const Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf,
-                             qkv, attn, act, ws, L, b * K1, h, nh, nkv, hd,
-                             ffn, eps);
-  return (int)paged_stack<VerifyKV>(a, b, K1, (bf16*)kv_pool,
-                                    (const int*)tables, (const int*)positions,
-                                    (const float*)cosr, (const float*)sinr,
-                                    NB, BT, MB, (cudaStream_t)stream);
+    const void* wd, const void* sqkv, const void* so, const void* sg,
+    const void* su, const void* sd, void* kv_pool, const void* kvs,
+    const void* tables, const void* positions, const void* cosr,
+    const void* sinr, void* xf, void* qkv, void* attn, void* act, void* ws,
+    int L, int b, int K1, int h, int nh, int nkv, int hd, int ffn, int NB,
+    int BT, int MB, int sb, float eps, void* stream) {
+  Stack a = make_stack(x_in, x_out, ln1, wqkv, wo, ln2, wg, wu, wd, xf, qkv,
+                       attn, act, ws, L, b * K1, h, nh, nkv, hd, ffn, eps);
+  a.sqkv = (const float*)sqkv;
+  a.so = (const float*)so;
+  a.sg = (const float*)sg;
+  a.su = (const float*)su;
+  a.sd = (const float*)sd;
+  return (int)paged_modes<VerifyKV>(a, b, K1, kv_pool, kvs, sb, tables,
+                                    positions, cosr, sinr, NB, BT, MB,
+                                    stream);
 }
 
 extern "C" long fused_decode_moe_workspace(int b, int h, int nh, int nkv,
@@ -2923,48 +3024,53 @@ extern "C" int fused_decode_gpt(
 // K5, gpt mode — the same step over the paged pool (L, NB, BT, 2*nkv*hd)
 // through per-row block tables and positions read on the device; K2's
 // products and attention code, so K5 gives K2's bits at equal positions.
+// Non-null per-row kv scales kvs (sb rows a layer, as the llama mode's)
+// make the pool int8; the gpt mode takes bf16 weights only, as the
+// reference's.
 extern "C" int fused_paged_decode_gpt(
     const void* x_in, void* x_out, const void* ln1, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* ln2, const void* ln2_b, const void* wg, const void* bg,
-    const void* wd, const void* bd, void* kv_pool, const void* tables,
-    const void* positions, void* xf, void* xn, void* qkv, void* attn,
-    void* act, void* ws, int L, int b, int h, int nh, int nkv, int hd,
-    int ffn, int NB, int BT, int MB, float eps, void* stream) {
+    const void* wd, const void* bd, void* kv_pool, const void* kvs,
+    const void* tables, const void* positions, void* xf, void* xn, void* qkv,
+    void* attn, void* act, void* ws, int L, int b, int h, int nh, int nkv,
+    int hd, int ffn, int NB, int BT, int MB, int sb, float eps,
+    void* stream) {
   const Stack a = make_gpt_stack(x_in, x_out, ln1, ln1_b, wqkv, bqkv, wo, bo,
                                  ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
                                  attn, act, ws, L, b, h, nh, nkv, hd, ffn,
                                  eps);
-  return (int)paged_stack<PagedKV>(a, b, 1, (bf16*)kv_pool,
-                                   (const int*)tables, (const int*)positions,
-                                   nullptr, nullptr, NB, BT, MB,
-                                   (cudaStream_t)stream);
+  return (int)paged_modes<PagedKV>(a, b, 1, kv_pool, kvs, sb, tables,
+                                   positions, nullptr, nullptr, NB, BT, MB,
+                                   stream);
 }
 
 // K7, gpt mode — one verify step for b rows of K1 tail tokens (M = b*K1 <=
-// 64) over the paged pool, appends at positions[bi] + j; 1 + 13L launches.
+// 64) over the paged pool, appends at positions[bi] + j; 1 + 13L launches;
+// kvs as K5's gpt mode.
 extern "C" int fused_paged_verify_gpt(
     const void* x_in, void* x_out, const void* ln1, const void* ln1_b,
     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* ln2, const void* ln2_b, const void* wg, const void* bg,
-    const void* wd, const void* bd, void* kv_pool, const void* tables,
-    const void* positions, void* xf, void* xn, void* qkv, void* attn,
-    void* act, void* ws, int L, int b, int K1, int h, int nh, int nkv,
-    int hd, int ffn, int NB, int BT, int MB, float eps, void* stream) {
+    const void* wd, const void* bd, void* kv_pool, const void* kvs,
+    const void* tables, const void* positions, void* xf, void* xn, void* qkv,
+    void* attn, void* act, void* ws, int L, int b, int K1, int h, int nh,
+    int nkv, int hd, int ffn, int NB, int BT, int MB, int sb, float eps,
+    void* stream) {
   const Stack a = make_gpt_stack(x_in, x_out, ln1, ln1_b, wqkv, bqkv, wo, bo,
                                  ln2, ln2_b, wg, bg, wd, bd, xf, xn, qkv,
                                  attn, act, ws, L, b * K1, h, nh, nkv, hd,
                                  ffn, eps);
-  return (int)paged_stack<VerifyKV>(a, b, K1, (bf16*)kv_pool,
-                                    (const int*)tables, (const int*)positions,
-                                    nullptr, nullptr, NB, BT, MB,
-                                    (cudaStream_t)stream);
+  return (int)paged_modes<VerifyKV>(a, b, K1, kv_pool, kvs, sb, tables,
+                                    positions, nullptr, nullptr, NB, BT, MB,
+                                    stream);
 }
 
 // The dynamic shared memory a block of these kernels asks for: kind 0 the
 // split-KV attention of the decode steps K2, K5 and K6 (a = head_dim; b = 1
-// over the int8 cache), 1 K6's tensor-core product (a = 16-row tiles), 2
-// the same attention kernel as K7 launches it (a = head_dim), 3 the
+// over the int8 cache or pool), 1 K6's tensor-core product (a = 16-row
+// tiles), 2 the same attention kernel as K7 launches it (a = head_dim; b =
+// 1 over the int8 pool), 3 the
 // product engine (a = its N: 8, 16, 32 or 64; b = 1 for int8 weights). -1
 // for an unknown kind. The launchers compute their requests with the same
 // functions, so a caller can hold them to the device's opt-in budget.
@@ -2972,7 +3078,7 @@ extern "C" int fused_decode_dynamic_smem(int kind, int a, int b, int) {
   switch (kind) {
     case 0: return split_smem(a, b != 0, false);
     case 1: return tc_smem(a);
-    case 2: return split_smem(a, false, true);
+    case 2: return split_smem(a, b != 0, true);
     case 3: return engine_smem(a, b != 0);
   }
   return -1;

@@ -40,14 +40,17 @@ the paged pool:
 * ``decode_block_plan`` — kept for its ``ffn_pad`` and ``cache_wbytes``
   keys. ``dynamic_smem_bytes`` gives the kernels' shared-memory requests,
   which a caller can hold to the probed budget (``ops/smem_probe.py``).
-* The int8 modes of the contiguous step (reference :235-287, :353,
-  :437-474): ``build_fused_params`` of a weight-only int8 state gives int8
-  stacks with per-out-channel scale rows (llama), ``quantize_kv_cache``
+* The int8 modes (reference :235-287, :353, :437-474, :1824-1846,
+  :2579-2594): ``build_fused_params`` of a weight-only int8 state gives
+  int8 stacks with per-out-channel scale rows (llama), ``quantize_kv_cache``
   an int8 cache with per-(layer, kv head) scales (llama and gpt); both
-  ride K2 (``fused_decode_cuda``) and the plain version.
+  ride K2 (``fused_decode_cuda``) and the plain version. The paged steps
+  take the int8 weights (llama) and an int8 pool with per-ROW scales
+  ``kv_scales`` (L, b, 2*nkv*hd) fp32 — a serving slot calibrates its own
+  — on K5, K7 and their plain versions.
 
-K5 and K7 take arch llama and gpt, as the reference's paged steps do, and
-no int8 mode yet (ROADMAP Queue B rows 5 and 6); K6 no int8 KV (row 7).
+K5 and K7 take arch llama and gpt, as the reference's paged steps do; K6
+takes no int8 KV yet (ROADMAP Queue B row 7).
 
 The KV cache is COMBINED and FLAT, (L, b, S, 2*nkv*hd) with k in lanes
 [0, nkv*hd). Unlike the JAX functions, every version here updates the cache
@@ -240,20 +243,16 @@ def _wdot(act, w):
 
 def _refuse_unported(arch, params, kv_scales, row="4"):
     """The contiguous step (row 4) takes arch llama, gpt and moe (row 7),
-    the paged ones (row 5) llama and gpt, as the reference's. Int8 weights
-    ride the contiguous llama step, and an int8 KV cache its llama and gpt
-    steps; the paged steps and the MoE step take no int8 mode yet. The
-    reference has no int8-weight mode for gpt or moe at all."""
+    the paged ones (rows 5 and 6) llama and gpt, as the reference's. Int8
+    weights ride the llama steps, and an int8 KV cache or pool the llama
+    and gpt steps; the MoE step takes no int8 KV yet. The reference has no
+    int8-weight mode for gpt or moe at all."""
     archs = ("llama", "gpt", "moe") if row == "4" else ("llama", "gpt")
     if arch not in archs:
         raise NotImplementedError(
             f"fused decode (ROADMAP Queue B row {row}) takes arch "
             f"{'/'.join(archs)}, got {arch!r}")
     int8_w = "wqkv_s" in params
-    if row != "4" and (kv_scales is not None or int8_w):
-        raise NotImplementedError(
-            f"paged decode with int8 weights or the int8 pool is not ported "
-            f"yet (ROADMAP Queue B row {row})")
     if arch == "moe" and kv_scales is not None:
         raise NotImplementedError(
             "fused decode arch='moe' with an int8 KV cache is not ported "
@@ -262,7 +261,7 @@ def _refuse_unported(arch, params, kv_scales, row="4"):
         raise NotImplementedError(
             f"fused decode arch={arch!r} takes no int8 weights: the "
             f"reference has no such mode (ROADMAP Queue B row "
-            f"{'7' if arch == 'moe' else '4'})")
+            f"{'7' if arch == 'moe' else row})")
 
 
 def _check_kv_mode(kv_cache, kv_scales):
@@ -540,14 +539,13 @@ def in_row_groups(step, n: int, cap: int):
 
 
 def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
-                 arch="llama", int8_row=None):
+                 arch="llama"):
     """What K2, K5 and K7 share: x (rows, h), the stacked weights of `arch`
     (llama or gpt) and the cache (contiguous or paged; its last dim is
-    2·nkv·hd) in bf16, and the shapes the kernels take. K2's int8 modes:
+    2·nkv·hd) in bf16, and the shapes the kernels take. The int8 modes:
     with scale rows in `params`, the five weight stacks in int8 and their
-    (L, 1, out) fp32 scales; an int8 cache in int8. A kernel with no int8
-    mode names its Queue B row as ``int8_row`` and refuses both. Returns
-    (check specs, (b, h, hd, ffn))."""
+    (L, 1, out) fp32 scales; an int8 cache or pool in int8. Returns (check
+    specs, (b, h, hd, ffn))."""
     L, dkv2 = cache.shape[0], cache.shape[-1]
     dkv = dkv2 // 2
     nh, nkv = num_heads, num_kv_heads
@@ -577,10 +575,6 @@ def _stack_specs(what, x, params, cache, num_heads, num_kv_heads,
               "bo": (L, h), "ln2_b": (L, h), "bg": (L, ffn), "bd": (L, h)}
     bf = torch.bfloat16
     cdt = torch.int8 if cache.dtype == torch.int8 else bf
-    if int8_row is not None and (w8 or cdt == torch.int8):
-        raise NotImplementedError(
-            f"{what}: int8 weights or an int8 cache are not ported yet "
-            f"(ROADMAP Queue B row {int8_row})")
     specs = [("x", x, bf, (b, h)), ("cache", cache, cdt, cache.shape)]
     specs += [(k, params[k],
                torch.int8 if w8 and k in _SCALED_KEYS else bf, shapes[k])
@@ -625,6 +619,18 @@ def _decode_ws(lib, b, h, nh, nkv, hd, ffn, arch, span):
     return fn(b, h, nh, nkv, hd, ffn, span)
 
 
+def _opt_ptr(t):
+    """A tensor's pointer, or null for None."""
+    return ctypes.c_void_p(0) if t is None else _build.ptr(t)
+
+
+def _scale_rows(params, arch):
+    """The five weight scale-row pointers the llama entry points take
+    (null: bf16 weights); the gpt entry points take none."""
+    return [] if arch == "gpt" else [_opt_ptr(params.get(f"{k}_s"))
+                                     for k in _SCALED_KEYS]
+
+
 def _check_arch(what, arch):
     if arch not in ("llama", "gpt"):
         raise ValueError(f"{what}: arch {arch!r} (llama|gpt)")
@@ -667,12 +673,8 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
         raise ValueError(f"{what}: pos {pos} outside the cache length {S}")
     lib = _kernel_lib()
     p = _build.ptr
-    none = ctypes.c_void_p(0)
-    opt = lambda t: none if t is None else p(t)
-    scales = ([] if arch == "gpt" else
-              [opt(params.get(f"{k}_s")) for k in _SCALED_KEYS])
     fn = lib.fused_decode_gpt if arch == "gpt" else lib.fused_decode_llama
-    weights = [p(params[k]) for k in _keys(arch)]
+    weights = [p(params[k]) for k in _keys(arch)] + _scale_rows(params, arch)
 
     def step(rows):
         xg = x[rows]
@@ -683,8 +685,8 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
                                       hd, ffn, arch, S))
         # the group's rows of the cache, in place: the layer stride stays
         # the whole cache's (cb = b rows)
-        err = fn(p(xg), p(x_out), *weights, *scales, p(kv_cache[:, rows]),
-                 opt(kv_scales), *(p(t) for t in rope),
+        err = fn(p(xg), p(x_out), *weights, p(kv_cache[:, rows]),
+                 _opt_ptr(kv_scales), *(p(t) for t in rope),
                  *(p(t) for t in scratch), L, bg, h, num_heads, num_kv_heads,
                  hd, ffn, S, b, pos, float(eps), _build.stream_of(x))
         fused_decode_cuda.launches += 1
@@ -807,10 +809,10 @@ def _kernel_lib():
         fn.argtypes = [vp] * 23 + [ci] * 10 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         pfn = lib.fused_paged_decode_llama
-        pfn.argtypes = [vp] * 19 + [ci] * 10 + [ctypes.c_float, vp]
+        pfn.argtypes = [vp] * 25 + [ci] * 11 + [ctypes.c_float, vp]
         pfn.restype = ctypes.c_int
         vfn = lib.fused_paged_verify_llama
-        vfn.argtypes = [vp] * 19 + [ci] * 11 + [ctypes.c_float, vp]
+        vfn.argtypes = [vp] * 25 + [ci] * 12 + [ctypes.c_float, vp]
         vfn.restype = ctypes.c_int
         vws = lib.fused_paged_verify_workspace
         vws.argtypes = [ci] * 9
@@ -828,10 +830,10 @@ def _kernel_lib():
         gfn.argtypes = [vp] * 22 + [ci] * 10 + [ctypes.c_float, vp]
         gfn.restype = ctypes.c_int
         gpfn = lib.fused_paged_decode_gpt
-        gpfn.argtypes = [vp] * 23 + [ci] * 10 + [ctypes.c_float, vp]
+        gpfn.argtypes = [vp] * 24 + [ci] * 11 + [ctypes.c_float, vp]
         gpfn.restype = ctypes.c_int
         gvfn = lib.fused_paged_verify_gpt
-        gvfn.argtypes = [vp] * 23 + [ci] * 11 + [ctypes.c_float, vp]
+        gvfn.argtypes = [vp] * 24 + [ci] * 12 + [ctypes.c_float, vp]
         gvfn.restype = ctypes.c_int
         gws = lib.fused_decode_gpt_workspace
         gws.argtypes = [ci] * 7
@@ -852,8 +854,9 @@ def dynamic_smem_bytes(kernel: str, a: int, b: int = 0, c: int = 0) -> int:
     """The dynamic shared memory one block of `kernel` asks for, as its
     launcher computes it: "attention" (the split-KV attention as the
     decode steps K2, K5 and K6 launch it; a = head_dim, b = 1 over K2's
-    int8 cache), "tensor_core_gemm" (K6's experts; a = 16-row tiles),
-    "verify_attention" (the same kernel as K7 launches it; a = head_dim),
+    int8 cache or pool), "tensor_core_gemm" (K6's experts; a = 16-row
+    tiles), "verify_attention" (the same kernel as K7 launches it; a =
+    head_dim, b = 1 over the int8 pool),
     "product_engine" (K2/K5/K7's products and K6's attention half; a = the
     rows rounded up to 8, 16, 32 or 64, b = 1 for int8 weights). Needs the
     built library (a CUDA machine)."""
@@ -909,12 +912,18 @@ def paged_pool_shape(num_layers: int, num_blocks: int, block_tokens: int,
             2 * num_kv_heads * head_dim)
 
 
-def _refuse_unported_paged(arch, params, kv_scales, mp_axis):
-    _refuse_unported(arch, params, kv_scales, row="5")
+def _refuse_unported_paged(arch, params, kv_pool, kv_scales, mp_axis,
+                           row="5"):
+    """What the paged steps (row 5: decode; row 6: verify) still refuse:
+    an arch the reference's paged steps lack, gpt with int8 weights (no
+    reference mode), ``mp_axis``, and ``kv_scales`` that do not match the
+    pool's dtype (ValueError)."""
+    _refuse_unported(arch, params, kv_scales, row=row)
     if mp_axis is not None:
         raise NotImplementedError(
             "tensor-parallel paged decode (mp_axis) is not ported yet "
             "(ROADMAP Queue A item 8)")
+    _check_kv_mode(kv_pool, kv_scales)
 
 
 def fused_paged_decode_reference(x, params, kv_pool, block_tables, positions,
@@ -929,6 +938,13 @@ def fused_paged_decode_reference(x, params, kv_pool, block_tables, positions,
     already cached for it); cos/sin (b, hd) fp32 rope rows gathered at each
     row's position. Returns (x_out (b, h), kv_pool).
 
+    Int8 modes (reference :1824-1846): params with scale rows (int8
+    weights, llama) scale each product's output as the contiguous step's;
+    an int8 pool takes ``kv_scales`` (L, b, 2*nkv*hd) fp32, per-ROW scales
+    (a serving slot calibrates its own): each row's append is
+    round(kv / its scales) clipped to ±127, and its keys and values are
+    dequantized with them.
+
     The arithmetic is ``fused_decode_reference``'s, line for line, with the
     reference's numerics (``fused_decode.py:1742``). Unlike the reference,
     which injects each row's append into its gathered view and scatters
@@ -939,23 +955,26 @@ def fused_paged_decode_reference(x, params, kv_pool, block_tables, positions,
     meaningless, and where several idle rows write one scratch address the
     last write wins.
     """
-    _refuse_unported_paged(arch, params, kv_scales, mp_axis)
+    _refuse_unported_paged(arch, params, kv_pool, kv_scales, mp_axis)
     BT = kv_pool.shape[2]
     tables = block_tables.to(x.device, torch.long)
     pos = positions.to(x.device, torch.long)
     app_bid = torch.gather(tables, 1, (pos // BT)[:, None])[:, 0]
     x_out = _paged_token(x, params, kv_pool, tables, pos, app_bid, pos % BT,
-                         cos, sin, num_heads, num_kv_heads, eps, arch)
+                         cos, sin, num_heads, num_kv_heads, eps, arch,
+                         kv_scales)
     return x_out, kv_pool
 
 
 def _paged_token(x, params, kv_pool, tables, pos, app_bid, app_off, cos,
-                 sin, nh, nkv, eps, arch):
+                 sin, nh, nkv, eps, arch, kv_scales=None):
     """One token row block (b, h) through every layer over the paged pool:
     the body of ``fused_paged_decode_reference``, which the verify twin
     runs once per tail token. tables (b, MB) and pos (b,) are long tensors
     on x's device; each layer writes its appends at (app_bid, app_off) and
-    then gathers the rows' logical views, keys masked to ``<= pos``."""
+    then gathers the rows' logical views, keys masked to ``<= pos``; the
+    int8 pool quantizes the appends and dequantizes the views with each
+    row's ``kv_scales`` (L, b, 2*nkv*hd)."""
     L, NB, BT, dkv2 = kv_pool.shape
     b, MB = tables.shape
     S = MB * BT
@@ -970,48 +989,77 @@ def _paged_token(x, params, kv_pool, tables, pos, app_bid, app_off, cos,
     for l in range(L):
         q, kv_new = _qkv_heads(xf, params, l, eps, cos_b, sin_b, nh, nkv,
                                arch)
+        if kv_scales is not None:   # quantize with each row's own scales
+            kv_new = torch.clamp(torch.round(kv_new / kv_scales[l]), -127,
+                                 127)
         kv_pool[l, app_bid, app_off] = kv_new.to(kv_pool.dtype)
         kvl = kv_pool[l][tables].reshape(b, S, dkv2)
-        kl = kvl[:, :, :dkv].float().reshape(b, S, nkv, hd)
-        vl = kvl[:, :, dkv:].float().reshape(b, S, nkv, hd)
+        kl = kvl[:, :, :dkv].float()
+        vl = kvl[:, :, dkv:].float()
+        if kv_scales is not None:   # dequantize per row
+            kl = kl * kv_scales[l][:, None, :dkv]
+            vl = vl * kv_scales[l][:, None, dkv:]
+        kl, vl = kl.reshape(b, S, nkv, hd), vl.reshape(b, S, nkv, hd)
         attn = _attend(q, kl, vl, valid, scale).to(dtype)
         xf = _layer_tail(xf, attn, params, l, eps, dtype, arch)
     return xf.to(dtype)
 
 
+def _paged_specs(block_tables, positions, kv_scales, kv_pool, b):
+    """What K5 and K7 check beside the stacks: the (b, MB) block tables and
+    (b,) positions, int32, and an int8 pool's per-row kv scales (L, b,
+    2*nkv*hd) fp32, contiguous."""
+    specs = [("block_tables", block_tables, torch.int32,
+              (b, block_tables.shape[1])),
+             ("positions", positions, torch.int32, (b,))]
+    if kv_scales is not None:
+        specs.append(("kv_scales", kv_scales, torch.float32,
+                      (kv_pool.shape[0], b, kv_pool.shape[3])))
+    return specs
+
+
+def _rows_scales(kv_scales, rows):
+    """The kv scales' pointer for a launch over `rows` (a slice): the first
+    row's scales in layer 0; the kernel strides layers by the whole step's
+    row count (its ``sb``), so the group's rows are read in place."""
+    return _opt_ptr(None if kv_scales is None else kv_scales[:, rows])
+
+
 def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
                             sin, *, num_heads: int, num_kv_heads: int,
-                            eps: float = 1e-5, arch: str = "llama"):
+                            eps: float = 1e-5, arch: str = "llama",
+                            kv_scales=None):
     """Wrapper of K5: one decode step through all L layers over the paged
     pool, arch llama or gpt (no rope: cos/sin are ignored). One launch
     takes up to ``GROUP_ROWS`` rows (1 + 11L kernels on the current
     stream); a wider batch runs as consecutive launches over
-    ``row_groups`` of rows (their x, tables, positions and rope rows; the
-    pool is shared). ``launches`` counts launches, one per group. Checks
-    dtype, shape, contiguity and device and raises on anything else.
-    Positions and tables are read on the device, never on the host: the
-    caller keeps every position below MB·BT. An idle row's append (its
-    block is scratch block 0) is not written; its output is garbage, as
-    the plain version's."""
+    ``row_groups`` of rows (their x, tables, positions, rope rows and kv
+    scales; the pool is shared). ``launches`` counts launches, one per
+    group. Its int8 modes: int8 weight stacks with their scale rows
+    (llama), and an int8 pool with per-row ``kv_scales`` (L, b, 2*nkv*hd)
+    fp32 (llama and gpt). Checks dtype, shape, contiguity and device and
+    raises on anything else. Positions and tables are read on the device,
+    never on the host: the caller keeps every position below MB·BT. An
+    idle row's append (its block is scratch block 0) is not written; its
+    output is garbage, as the plain version's."""
     what = "fused_paged_decode_cuda"
     _check_arch(what, arch)
+    _refuse_unported_paged(arch, params, kv_pool, kv_scales, None)
     if kv_pool.dim() != 4 or block_tables.dim() != 2:
         raise ValueError(f"{what}: pool {tuple(kv_pool.shape)} must be "
                          "(L, NB, BT, 2*nkv*hd) and block_tables (b, MB)")
     specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_pool,
-                                          num_heads, num_kv_heads, arch=arch,
-                                          int8_row="5")
+                                          num_heads, num_kv_heads, arch=arch)
     L, NB, BT, _ = kv_pool.shape
     MB = block_tables.shape[1]
-    _check_tensors(what, specs + [
-        ("block_tables", block_tables, torch.int32, (b, MB)),
-        ("positions", positions, torch.int32, (b,))]
+    _check_tensors(what, specs + _paged_specs(
+        block_tables, positions, kv_scales, kv_pool, b)
         + _rope_specs(cos, sin, (b, hd), arch), x.device)
     lib = _kernel_lib()
     p = _build.ptr
     fn = (lib.fused_paged_decode_gpt if arch == "gpt"
           else lib.fused_paged_decode_llama)
-    weights = [p(params[k]) for k in _keys(arch)]
+    weights = [p(params[k]) for k in _keys(arch)] + _scale_rows(params, arch)
 
     def step(rows):
         xg = x[rows]
@@ -1022,9 +1070,10 @@ def fused_paged_decode_cuda(x, params, kv_pool, block_tables, positions, cos,
                                       hd, ffn, arch, MB * BT))
         rope = [] if arch == "gpt" else [cos[rows], sin[rows]]
         err = fn(p(xg), p(x_out), *weights, p(kv_pool),
-                 p(block_tables[rows]), p(positions[rows]),
-                 *(p(t) for t in rope), *(p(t) for t in scratch), L, bg, h,
-                 num_heads, num_kv_heads, hd, ffn, NB, BT, MB, float(eps),
+                 _rows_scales(kv_scales, rows), p(block_tables[rows]),
+                 p(positions[rows]), *(p(t) for t in rope),
+                 *(p(t) for t in scratch), L, bg, h, num_heads,
+                 num_kv_heads, hd, ffn, NB, BT, MB, b, float(eps),
                  _build.stream_of(x))
         fused_paged_decode_cuda.launches += 1
         _build.check(err, f"fused_paged_decode_{arch}")
@@ -1043,11 +1092,12 @@ def fused_paged_decode_step(x, params, kv_pool, block_tables, positions,
                             mp_axis=None):
     """Dispatch one PAGED decode step: K5 on CUDA tensors, the plain
     version on CPU tensors. Args follow ``fused_paged_decode_reference``;
-    ``blocks`` is checked against the pool dtype."""
-    _refuse_unported_paged(arch, params, kv_scales, mp_axis)
+    ``blocks`` is checked against the pool dtype; ``kv_scales`` with an
+    int8 pool selects the int8 pool mode."""
+    _refuse_unported_paged(arch, params, kv_pool, kv_scales, mp_axis)
     _check_plan(blocks, kv_pool)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps,
-              arch=arch)
+              arch=arch, kv_scales=kv_scales)
     if x.device.type == "cpu":
         return fused_paged_decode_reference(
             x, params, kv_pool, block_tables, positions, cos, sin, **kw)
@@ -1058,17 +1108,6 @@ def fused_paged_decode_step(x, params, kv_pool, block_tables, positions,
 # ---------------------------------------------------------------------------
 # The paged verify step (speculative decoding's scoring pass)
 # ---------------------------------------------------------------------------
-
-
-def _refuse_unported_verify(arch, params, kv_scales, mp_axis):
-    if arch not in ("llama", "gpt"):
-        raise NotImplementedError(
-            f"paged verify (ROADMAP Queue B row 6) takes arch llama/gpt, "
-            f"got {arch!r}")
-    if kv_scales is not None or "wqkv_s" in params or mp_axis is not None:
-        raise NotImplementedError(
-            "paged verify with int8 weights, the int8 pool or mp_axis is "
-            "not ported yet (ROADMAP Queue B row 6)")
 
 
 def _verify_appends(tables, pos, BT):
@@ -1102,9 +1141,12 @@ def fused_paged_verify_reference(x, params, kv_pool, block_tables, positions,
     layer writes the token's appends into the pool and then gathers, so
     query j sees tail tokens < j and not > j. An all-accepted verify is
     therefore bitwise K1 sequential plain paged steps. Positions whose
-    block index reaches MB append to scratch block 0.
+    block index reaches MB append to scratch block 0. The int8 modes are
+    the paged decode's (reference :2579-2594): every tail append of a row
+    is quantized with that row's ``kv_scales``.
     """
-    _refuse_unported_verify(arch, params, kv_scales, mp_axis)
+    _refuse_unported_paged(arch, params, kv_pool, kv_scales, mp_axis,
+                           row="6")
     b, K1, h = x.shape
     BT = kv_pool.shape[2]
     tables = block_tables.to(x.device, torch.long)
@@ -1117,25 +1159,29 @@ def fused_paged_verify_reference(x, params, kv_pool, block_tables, positions,
             x[:, j].contiguous(), params, kv_pool, tables, pos, app_bid,
             app_off, None if cos is None else cos[:, j],
             None if sin is None else sin[:, j], num_heads, num_kv_heads,
-            eps, arch))
+            eps, arch, kv_scales))
     return torch.stack(outs, dim=1), kv_pool
 
 
 def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                             cos, sin, *, num_heads: int, num_kv_heads: int,
-                            eps: float = 1e-5, arch: str = "llama"):
+                            eps: float = 1e-5, arch: str = "llama",
+                            kv_scales=None):
     """Wrapper of K7: one verify step through all L layers for the b·K1
     tail rows, arch llama or gpt (no rope: cos/sin are ignored). One launch
     takes whole slots, up to ``GROUP_ROWS`` tail rows (1 + 13L kernels on
     the current stream); more slots run as consecutive launches over
-    ``row_groups`` of slots (their x, tables, positions and rope rows; the
-    pool is shared). ``launches`` counts launches, one per group. Checks
-    dtype, shape, contiguity and device and raises on anything else
-    (K1 above ``GROUP_ROWS``: one slot's tail would not fit a launch).
-    Positions and tables are read on the device; tail positions whose
-    block index reaches MB append to scratch block 0."""
+    ``row_groups`` of slots (their x, tables, positions, rope rows and kv
+    scales; the pool is shared). ``launches`` counts launches, one per
+    group. The int8 modes are K5's (``kv_scales`` (L, b, 2*nkv*hd), one
+    row of scales a slot). Checks dtype, shape, contiguity and device and
+    raises on anything else (K1 above ``GROUP_ROWS``: one slot's tail
+    would not fit a launch). Positions and tables are read on the device;
+    tail positions whose block index reaches MB append to scratch block
+    0."""
     what = "fused_paged_verify_cuda"
     _check_arch(what, arch)
+    _refuse_unported_paged(arch, params, kv_pool, kv_scales, None, row="6")
     if x.dim() != 3 or kv_pool.dim() != 4 or block_tables.dim() != 2:
         raise ValueError(f"{what}: x {tuple(x.shape)} must be (b, K1, h), "
                          f"the pool (L, NB, BT, 2*nkv*hd) and block_tables "
@@ -1149,19 +1195,18 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
     rows = x.view(b * K1, h)
     specs, (M, h, hd, ffn) = _stack_specs(what, rows, params, kv_pool,
                                           num_heads, num_kv_heads,
-                                          arch=arch, int8_row="6")
+                                          arch=arch)
     L, NB, BT, _ = kv_pool.shape
     MB = block_tables.shape[1]
-    _check_tensors(what, specs + [
-        ("block_tables", block_tables, torch.int32, (b, MB)),
-        ("positions", positions, torch.int32, (b,))]
+    _check_tensors(what, specs + _paged_specs(
+        block_tables, positions, kv_scales, kv_pool, b)
         + _rope_specs(cos, sin, (b, K1, hd), arch), x.device)
     lib = _kernel_lib()
     nh, nkv = num_heads, num_kv_heads
     p = _build.ptr
     fn = (lib.fused_paged_verify_gpt if arch == "gpt"
           else lib.fused_paged_verify_llama)
-    weights = [p(params[k]) for k in _keys(arch)]
+    weights = [p(params[k]) for k in _keys(arch)] + _scale_rows(params, arch)
 
     def step(slots):
         xg = x[slots]
@@ -1173,10 +1218,10 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                                int(arch == "gpt")))
         rope = [] if arch == "gpt" else [cos[slots], sin[slots]]
         err = fn(p(xg), p(x_out), *weights, p(kv_pool),
-                 p(block_tables[slots]), p(positions[slots]),
-                 *(p(t) for t in rope), *(p(t) for t in scratch), L, bg, K1,
-                 h, nh, nkv, hd, ffn, NB, BT, MB, float(eps),
-                 _build.stream_of(x))
+                 _rows_scales(kv_scales, slots), p(block_tables[slots]),
+                 p(positions[slots]), *(p(t) for t in rope),
+                 *(p(t) for t in scratch), L, bg, K1, h, nh, nkv, hd, ffn,
+                 NB, BT, MB, b, float(eps), _build.stream_of(x))
         fused_paged_verify_cuda.launches += 1
         _build.check(err, f"fused_paged_verify_{arch}")
         return x_out
@@ -1197,10 +1242,11 @@ def fused_paged_verify_step(x, params, kv_pool, block_tables, positions,
     ``blocks`` is checked against the pool dtype. The engine samples each
     tail position's token from x_out and commits the longest proposal
     prefix that matches its own stream."""
-    _refuse_unported_verify(arch, params, kv_scales, mp_axis)
+    _refuse_unported_paged(arch, params, kv_pool, kv_scales, mp_axis,
+                           row="6")
     _check_plan(blocks, kv_pool)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps,
-              arch=arch)
+              arch=arch, kv_scales=kv_scales)
     if x.device.type == "cpu":
         return fused_paged_verify_reference(
             x, params, kv_pool, block_tables, positions, cos, sin, **kw)

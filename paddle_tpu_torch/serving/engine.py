@@ -43,13 +43,22 @@ committed-token history and the next tick's proposals stay on the device;
 a steady speculative tick uploads nothing and pulls one (b, 2k+3) array.
 An adaptive tick whose slots all sit at k = 0 runs the plain K5 step.
 
+Int8 (``cache_dtype=torch.int8``, and/or a weight-only int8 llama from
+``quantization.quantize_model``): the pool holds int8 KV with per-SLOT
+scales (L, max_slots, 2*nkv*hd), calibrated at each request's prefill over
+its original prompt positions (the scales an isolated ``generate`` with an
+int8 cache computes), and the paged steps run K5's and K7's int8 modes.
+Int8 blocks are never shared: the prefix cache keeps exact bf16 host copies
+of the prompt blocks and a hit requantizes them with the adopting request's
+own scales, so a hit saves prefill work but no pool capacity.
+
 PyTorch runs eagerly, so the reference's jitted programs are plain methods
 and its program cache has no counterpart. Not ported yet (each raises
-NotImplementedError naming its ROADMAP item): an int8 pool, chunked prefill,
-the draft proposer, offload, tensor-parallel meshes, the sanitizer, bounded
-queues and shedding, the flight recorder and snapshot/restore. Models of
-arch llama and gpt ride the engine, as in the reference; any other arch
-(moe) is refused with a ValueError.
+NotImplementedError naming its ROADMAP item): chunked prefill, the draft
+proposer, offload, tensor-parallel meshes, the sanitizer, bounded queues
+and shedding, the flight recorder and snapshot/restore. Models of arch
+llama and gpt ride the engine, as in the reference; any other arch (moe)
+is refused with a ValueError.
 The metrics registry and spans are left out; ``stats`` carries the counts.
 """
 
@@ -316,11 +325,10 @@ class ServingEngine:
                  "Queue A item 7: observability")):
             if on:
                 raise _unported(what, item)
-        if cache_dtype == torch.int8:
-            raise _unported("cache_dtype=int8 (the int8 pool)",
-                            "Queue A item 7: int8 pool")
-        if torch.empty((), dtype=cache_dtype).element_size() != 2:
-            raise ValueError(f"cache_dtype must be bf16-width, got "
+        self.kv_int8 = cache_dtype == torch.int8
+        if not self.kv_int8 \
+                and torch.empty((), dtype=cache_dtype).element_size() != 2:
+            raise ValueError(f"cache_dtype must be bf16-width or int8, got "
                              f"{cache_dtype}")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -337,9 +345,6 @@ class ServingEngine:
                 "ServingEngine needs a fused_decode_plan-eligible model "
                 "(llama/gpt); this model/config cannot ride the paged "
                 "kernel")
-        if any(k.endswith(".weight_q") for k in state):
-            raise _unported("a weight-only int8 model (the paged steps' "
-                            "int8 weights)", "Queue B row 5")
         self.arch = meta.get("arch", "llama")
         if self.arch not in ("llama", "gpt"):
             raise ValueError(
@@ -362,6 +367,9 @@ class ServingEngine:
                     f"speculate k {speculate.k} must be < max_seq_len "
                     f"{max_seq_len}")
         self.meta = meta
+        # the plan's cache-width consistency check, per pool dtype
+        self._blocks = (dict(meta["blocks"], cache_wbytes=1)
+                        if self.kv_int8 else meta["blocks"])
         self.cache_dtype = cache_dtype
         self.block_tokens = int(block_tokens)
         self.max_seq_len = int(max_seq_len)
@@ -370,7 +378,8 @@ class ServingEngine:
         L = self._num_layers = int(model.cfg.num_layers)
         nkv, hd = meta["num_kv_heads"], meta["head_dim"]
         self._dkv = nkv * hd
-        bpb = self.block_bytes = L * block_tokens * 2 * self._dkv * 2
+        bpb = self.block_bytes = (L * block_tokens * 2 * self._dkv
+                                  * (1 if self.kv_int8 else 2))
         if num_blocks is None:
             if pool_bytes is not None:
                 num_blocks = max(2, int(pool_bytes) // bpb)
@@ -405,10 +414,15 @@ class ServingEngine:
         self._toks = np.zeros(ms, np.int64)
         self._seeds = np.zeros(ms, np.int64)        # uint32 values
         self._counts = np.zeros(ms, np.int32)
+        # the int8 pool's per-slot scales (a slot's row is written at its
+        # adoption; ones until then)
+        self._kv_scales = (np.ones((L, ms, 2 * self._dkv), np.float32)
+                           if self.kv_int8 else None)
         # their device twins: re-uploaded only when a join/leave/new-block
         # event marks them dirty; the step advances positions/counts and
         # replaces the tokens on the device
         self._dev = None
+        self._dev_scales = None
         self._dirty = True
 
         # speculative decoding: the per-slot proposal cap (the adaptive k;
@@ -583,8 +597,11 @@ class ServingEngine:
             # worst case covers the FINAL sequence, identical for fresh
             # and resumed admissions
             worst = -(-(len(req.prompt) + req.max_new_tokens - 1) // BT)
-            short = worst - len(hits) - (self.pool.free_blocks
-                                         - self._reserved)
+            # bf16 hits ride the cached physical blocks; int8 hits only
+            # skip prefill work (the slot allocates every prompt block)
+            spare = 0 if self.kv_int8 else len(hits)
+            short = worst - spare - (self.pool.free_blocks
+                                     - self._reserved)
             if short > 0:
                 # feasibility BEFORE destroying live work: preempting a
                 # victim gains at most its full reservation, eviction at
@@ -609,8 +626,9 @@ class ServingEngine:
                 # the preempt's cache insert may have evicted stale hits
                 # and donated shareable blocks: re-probe
                 hits = self._lookup(feed, n_lookup)
+                spare = 0 if self.kv_int8 else len(hits)
             while True:
-                short = (worst - len(hits)
+                short = (worst - spare
                          - (self.pool.free_blocks - self._reserved))
                 if short <= 0:
                     break
@@ -622,6 +640,7 @@ class ServingEngine:
                     break
                 self._preempt(victim)
                 hits = self._lookup(feed, n_lookup)
+                spare = 0 if self.kv_int8 else len(hits)
             if short > 0:
                 break       # head-of-line within priority order
             self._queue.pop()
@@ -634,10 +653,13 @@ class ServingEngine:
             s_pad = -(-(P - R) // BT) * BT
             slot = _Slot(req, worst, len(hits), feed, resume)
             slot.R = R
-            for e in hits:  # the slot's own ref on shared blocks
-                self.pool.ref(e.block_id)
-            slot.blocks = ([e.block_id for e in hits]
-                           + self.pool.alloc(n0 - len(hits)))
+            if self.kv_int8:
+                slot.blocks = self.pool.alloc(n0)
+            else:
+                for e in hits:  # the slot's own ref on shared blocks
+                    self.pool.ref(e.block_id)
+                slot.blocks = ([e.block_id for e in hits]
+                               + self.pool.alloc(n0 - len(hits)))
             slot.ntab = n0
             row = self._tables[slot_idx]
             row[:] = SCRATCH_BLOCK
@@ -651,25 +673,38 @@ class ServingEngine:
             wave_idx.add(slot_idx)
 
     # ------------------------------------------------------------- prefill
-    def _prefill(self, R, s_pad, prefix, ids, last_idx, seeds, new_bids):
+    def _prefill(self, R, s_pad, prefix, ids, last_idx, seeds, new_bids,
+                 valid=None):
         """ONE batched prefill of ``n`` same-shape admissions (shared prefix
-        depth ``R``, padded prompt tail ``s_pad``): gather the prefix blocks
-        into a fresh contiguous cache, run the cache forward at
-        ``start_pos=R`` (the flash-attention kernel on the card), sample each
-        row's first token from its own last logits at ``fold_in(seed, 0)``,
-        and scatter the new blocks into the pool. Pad tokens sit after the
-        real ones, so the causal limit keeps them from every real token.
-        Returns the (n,) sampled ids on the device."""
+        depth ``R``, padded prompt tail ``s_pad``): fill a fresh contiguous
+        cache with the prefix, run the cache forward at ``start_pos=R``
+        (the flash-attention kernel on the card), sample each row's first
+        token from its own last logits at ``fold_in(seed, 0)``, and scatter
+        the new blocks into the pool. Pad tokens sit after the real ones,
+        so the causal limit keeps them from every real token.
+
+        bf16 pool: ``prefix`` holds the (n, R/BT) shared block ids, gathered
+        from the pool; ``new_bids`` the blocks after them. Int8 pool: the
+        cache is bf16, ``prefix`` holds the (L, n, R, 2*dkv) bf16 host
+        copies of the hit blocks, and each row's scales are calibrated over
+        its first ``valid[r]`` positions (its original prompt): amax per kv
+        head, max(amax / 127, 1e-8) repeated over hd (``quantize_kv_cache``'s
+        rule); every prompt block is quantized with them into ``new_bids``
+        (n, n0). Returns the (n,) sampled ids on the device, and for int8
+        also the (L, n, 2*dkv) scales and the bf16 cache."""
         from paddle_tpu_torch.inference import (_fold_rows, _row_keys,
                                                 _sample_logits)
         n = ids.shape[0]
         BT = self.block_tokens
         dkv = self._dkv
         nkv, hd = self.meta["num_kv_heads"], self.meta["head_dim"]
-        cache = self.model.init_cache(n, R + s_pad, dtype=self.cache_dtype)
+        T = R + s_pad
+        cache = self.model.init_cache(
+            n, T, dtype=torch.bfloat16 if self.kv_int8 else self.cache_dtype)
         for l, c in enumerate(cache):
             if R:
-                pk = self.kv_pool[l][prefix].reshape(n, R, 2 * dkv)
+                pk = (prefix[l] if self.kv_int8 else
+                      self.kv_pool[l][prefix].reshape(n, R, 2 * dkv))
                 c["k"][:, :R] = pk[:, :, :dkv].reshape(n, R, nkv, hd)
                 c["v"][:, :R] = pk[:, :, dkv:].reshape(n, R, nkv, hd)
         out, cache = self.model(ids, cache=cache, start_pos=R)
@@ -677,6 +712,23 @@ class ServingEngine:
         del out
         tok = _sample_logits(logits, _fold_rows(_row_keys(seeds), 0),
                              self.temperature, self.top_k, self.top_p)
+        if self.kv_int8:
+            lanes = torch.empty((len(cache), n, 2 * dkv),
+                                dtype=torch.float32, device=self.device)
+            mask = (torch.arange(T, device=self.device)[None]
+                    < valid[:, None])[:, :, None]               # (n, T, 1)
+            for l, c in enumerate(cache):   # one layer's temporaries
+                kf = torch.cat([c["k"].reshape(n, T, dkv),
+                                c["v"].reshape(n, T, dkv)], dim=-1).float()
+                a = torch.where(mask, kf.abs(), 0.0).amax(dim=1)
+                a = a.reshape(n, 2 * nkv, hd).amax(dim=-1)
+                lanes[l] = torch.clamp(a / 127.0, min=1e-8) \
+                    .repeat_interleave(hd, dim=-1)
+                q = torch.clamp(torch.round(kf / lanes[l][:, None]), -127,
+                                127)
+                self.kv_pool[l, new_bids] = q.to(torch.int8).reshape(
+                    n, T // BT, BT, 2 * dkv)
+            return tok, lanes, cache
         nb = s_pad // BT
         for l, c in enumerate(cache):
             self.kv_pool[l, new_bids, :, :dkv] = \
@@ -694,24 +746,65 @@ class ServingEngine:
         ids = np.zeros((n, s_pad), np.int64)
         last_idx = np.zeros(n, np.int64)
         seeds = np.zeros(n, np.int64)
+        # int8 calibration runs over the ORIGINAL prompt positions only:
+        # the whole feed for a fresh request; for a resume the scales the
+        # uninterrupted run calibrated at its own prefill
+        valid = np.zeros(n, np.int64)
         for r, (_, slot, _, _, _) in enumerate(grp):
             P = len(slot.feed)
             ids[r, :P - R] = slot.feed[R:]
             last_idx[r] = P - 1 - R
             seeds[r] = np.uint32(slot.req.seed)
-        prefix = np.asarray([[e.block_id for e in hits]
-                             for _, _, hits, _, _ in grp], np.int64) \
-            .reshape(n, hb)
-        new_bids = np.asarray([s.blocks[hb:] for _, s, _, _, _ in grp],
-                              np.int64)
-        tok = self._prefill(R, s_pad, self._up(prefix), self._up(ids),
-                            self._up(last_idx), self._up(seeds),
-                            self._up(new_bids))
+            valid[r] = len(slot.req.prompt)
+        lanes_np = cache = None
+        if self.kv_int8:
+            # no shared blocks: the prefix from the hits' bf16 host copies,
+            # every prompt block freshly quantized
+            new_bids = np.asarray([s.blocks for _, s, _, _, _ in grp],
+                                  np.int64)
+            prefix = (torch.stack([torch.cat(
+                [e.kv_host.to(self.device) for e in hits], dim=1)
+                for _, _, hits, _, _ in grp], dim=1) if hb else None)
+            tok, lanes, cache = self._prefill(
+                R, s_pad, prefix, self._up(ids), self._up(last_idx),
+                self._up(seeds), self._up(new_bids), self._up(valid))
+            lanes_np = lanes.cpu().numpy()  # once per group: the scales
+        else:
+            prefix = np.asarray([[e.block_id for e in hits]
+                                 for _, _, hits, _, _ in grp],
+                                np.int64).reshape(n, hb)
+            new_bids = np.asarray([s.blocks[hb:] for _, s, _, _, _ in grp],
+                                  np.int64)
+            tok = self._prefill(R, s_pad, self._up(prefix), self._up(ids),
+                                self._up(last_idx), self._up(seeds),
+                                self._up(new_bids))
         tok_np = tok.cpu().numpy()      # once per group: the first tokens
         self.stats["prefill_groups"] += 1
         for r, (slot_idx, slot, _, _, _) in enumerate(grp):
-            self._adopt_slot(slot_idx, slot, int(tok_np[r]))
+            self._adopt_slot(slot_idx, slot, int(tok_np[r]),
+                             None if lanes_np is None else lanes_np[:, r],
+                             None if cache is None else (cache, r))
         self._tick_prefill_s += time.perf_counter() - t_pf0
+
+    def _host_blocks(self, cache, r, c0, c1):
+        """Exact bf16 host copies (L, BT, 2*dkv) of blocks c0 .. c1-1 of
+        prefill row r (an int8 prefix-cache entry's ``kv_host``): one
+        contiguous tensor a block, each its own copy (a view would keep the
+        prefill cache alive). From a card they land in pinned memory: a
+        copy into fresh pageable memory ran at about 2 GB/s on an H100
+        host (examples/torch_int8_prefill_profile.py) and set the int8
+        engine's time to first token."""
+        BT, dkv = self.block_tokens, self._dkv
+        out = []
+        for i in range(c0, c1):
+            t = slice(i * BT, (i + 1) * BT)
+            blk = torch.stack([torch.cat(
+                [c["k"][r, t].reshape(BT, dkv), c["v"][r, t].reshape(BT, dkv)],
+                dim=-1) for c in cache])
+            host = torch.empty(blk.shape, dtype=blk.dtype,
+                               pin_memory=self.device.type == "cuda")
+            out.append(host.copy_(blk))
+        return out
 
     def _replay_resume(self, slot_idx: int, s: _Slot):
         """Replay a resumed request's generated-so-far tokens through the
@@ -735,20 +828,26 @@ class ServingEngine:
             toks[slot_idx] = int(tok)
             counts[slot_idx] = j + 1
             self._decode(*(self._up(a) for a in
-                           (tables, positions, toks, seeds, counts)))
+                           (tables, positions, toks, seeds, counts)),
+                         kv_scales=self._up_scales())
             s.pos += 1
         self.stats["replay_tokens"] += len(s.resume) - 1
 
-    def _adopt_slot(self, slot_idx: int, s: _Slot, tok: int):
-        """Join a prefilled slot to the running decode batch: resume/TTFT
-        bookkeeping, the prefix-cache insert and instant finishes. A
-        FRESH request's prefill sample is its first generated token; a
-        resumed slot's sample is discarded — its next token comes from the
-        next decode step at ``fold_in(seed, count)``."""
+    def _adopt_slot(self, slot_idx: int, s: _Slot, tok: int,
+                    lanes_row=None, kv_src=None):
+        """Join a prefilled slot to the running decode batch: the int8
+        slot's scale row (``lanes_row`` (L, 2*dkv), before any replay),
+        resume/TTFT bookkeeping, the prefix-cache insert (int8: host copies
+        of the prompt blocks from ``kv_src`` = (prefill cache, row)) and
+        instant finishes. A FRESH request's prefill sample is its first
+        generated token; a resumed slot's sample is discarded — its next
+        token comes from the next decode step at ``fold_in(seed, count)``."""
         req = s.req
         P = len(s.feed)
         BT = self.block_tokens
         self._dirty = True
+        if lanes_row is not None:
+            self._kv_scales[:, slot_idx, :] = lanes_row
         s.pos = P
         if s.resume:
             s.count = len(s.resume)
@@ -786,8 +885,14 @@ class ServingEngine:
             # AFTER the prefill, so a same-wave sibling never hits blocks
             # not written yet (it misses; the next wave sees them).
             nh = s.prefix_hit_blocks
-            self.prefix_cache.insert(s.feed, nh,
-                                     block_ids=s.blocks[nh:P // BT])
+            if self.kv_int8:
+                if P // BT > nh:
+                    self.prefix_cache.insert(s.feed, nh,
+                                             kv_host=self._host_blocks(
+                                                 *kv_src, nh, P // BT))
+            else:
+                self.prefix_cache.insert(s.feed, nh,
+                                         block_ids=s.blocks[nh:P // BT])
         eos = self.eos_token_id
         if (eos is not None and s.tok == int(eos)) \
                 or s.count >= req.max_new_tokens:
@@ -796,10 +901,16 @@ class ServingEngine:
                          and s.tok == int(eos) else "length")
 
     # -------------------------------------------------------------- decode
-    def _decode(self, tables, positions, toks, seeds, counts):
+    def _up_scales(self):
+        """The int8 pool's per-slot scales on the device (None for bf16)."""
+        return None if self._kv_scales is None else self._up(self._kv_scales)
+
+    def _decode(self, tables, positions, toks, seeds, counts,
+                kv_scales=None):
         """One paged decode step for every slot (K5 on the card): embed,
-        rope rows at each row's position, ``fused_paged_decode_step``,
-        head, and per-row sampling at ``fold_in(key(seed_r), count_r)``.
+        rope rows at each row's position, ``fused_paged_decode_step`` (the
+        int8 pool with the slots' ``kv_scales``), head, and per-row
+        sampling at ``fold_in(key(seed_r), count_r)``.
         Everything stays on the device. Returns (sampled ids, positions
         + 1 clamped at max_seq_len - 1, counts + 1); the clamp only binds
         on idle rows, keeping their table lookups in range."""
@@ -813,7 +924,8 @@ class ServingEngine:
         x, self.kv_pool = fused_paged_decode_step(
             x, plan["params"], self.kv_pool, tables, positions, cos, sin,
             num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-            eps=meta["eps"], arch=self.arch, blocks=meta["blocks"])
+            eps=meta["eps"], arch=self.arch, blocks=self._blocks,
+            kv_scales=kv_scales)
         # greedy draws no randomness: skip the key fold
         keys = (_fold_rows(_row_keys(seeds), counts)
                 if self.temperature != 0.0 else None)
@@ -824,7 +936,7 @@ class ServingEngine:
 
     # ---------------------------------------------------- speculative decode
     def _verify(self, tables, positions, toks, seeds, counts, props, nprop,
-                cap, K: int):
+                cap, K: int, kv_scales=None):
         """One speculative verify for every slot (K7 on the card): embed
         the K+1-token tail (last sampled token + K proposals) at positions
         ``pos + j`` (rope rows at ``min(pos + j, max_seq_len - 1)``; the
@@ -854,7 +966,8 @@ class ServingEngine:
             x, plan["params"], self.kv_pool, tables, positions,
             self._cos_tab[pj], self._sin_tab[pj],
             num_heads=meta["num_heads"], num_kv_heads=meta["num_kv_heads"],
-            eps=meta["eps"], arch=self.arch, blocks=meta["blocks"])
+            eps=meta["eps"], arch=self.arch, blocks=self._blocks,
+            kv_scales=kv_scales)
         keys = (_fold_rows(_row_keys(seeds).repeat_interleave(K1, dim=0),
                            (counts[:, None] + offs[None]).reshape(-1))
                 if self.temperature != 0.0 else None)
@@ -1051,9 +1164,10 @@ class ServingEngine:
         req = s.req
         req._resume_tokens = list(s.tokens)
         req._t_first = s.t_first
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not self.kv_int8:
             # feed = prompt + generated[:-1]: exactly the s.pos written
-            # positions; its full blocks are append-proof
+            # positions; its full blocks are append-proof (an int8 pool's
+            # blocks carry the slot's own scales: nothing to donate)
             full = s.pos // self.block_tokens
             if full:
                 self.prefix_cache.insert(
@@ -1121,6 +1235,7 @@ class ServingEngine:
                     self._dev = tuple(self._up(a) for a in (
                         self._tables, self._positions, self._toks,
                         self._seeds, self._counts))
+                    self._dev_scales = self._up_scales()
                     if self.speculate is not None:
                         # a join/leave tick drops the carried proposals:
                         # the matcher re-primes them at the end of this
@@ -1145,7 +1260,7 @@ class ServingEngine:
         (the tick's one sync: the pull of the sampled ids)."""
         tables, positions, toks, seeds, counts = self._dev
         nxt, pos2, cnt2 = self._decode(tables, positions, toks, seeds,
-                                       counts)
+                                       counts, self._dev_scales)
         self._dev = (tables, pos2, nxt, seeds, cnt2)
         t_s0 = time.perf_counter()
         nxt_np = nxt.cpu().numpy()
@@ -1188,7 +1303,7 @@ class ServingEngine:
         K1 = K + 1
         g, acc, pos2, tok2, cnt2, prop2, nprop2 = self._verify(
             tables, positions, toks, seeds, counts, props, nprop,
-            self._dev_cap, K)
+            self._dev_cap, K, self._dev_scales)
         self._dev = (tables, pos2, tok2, seeds, cnt2)
         self._dev_prop = (prop2, nprop2)
         t_s0 = time.perf_counter()
@@ -1276,7 +1391,7 @@ class ServingEngine:
             self.prefix_cache.clear()
         self.kv_pool = None
         self._plan = None
-        self._dev = None
+        self._dev = self._dev_scales = None
         self._dev_hist = self._dev_prop = self._dev_cap = None
         self._prop_zeros = {}
         self._cos_tab = self._sin_tab = None

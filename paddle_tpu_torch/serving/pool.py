@@ -15,11 +15,12 @@ hash, so a block's identity includes everything before it). Full prompt
 blocks are shared copy-on-write across requests: decode only ever
 *appends*, and only the partially-filled tail block of a prompt can
 receive appends, so full blocks are immutable and sharing them never needs
-a copy. The pool holds bf16 KV, so the cache shares physical blocks
-(refcounted).
+a copy. Over a bf16 pool the cache shares physical blocks (refcounted);
+over an int8 pool, whose blocks carry each slot's own scales, an entry
+holds the block's exact bf16 KV on the host (``PrefixEntry.kv_host``) and
+no pool reference, and a hit requantizes it.
 
-Not ported yet (ROADMAP Queue A item 7): the int8 pool's host-kept bf16
-block copies (``PrefixEntry.kv_host``), ``HostBlockStore`` (offload) and
+Not ported yet (ROADMAP Queue A item 7): ``HostBlockStore`` (offload) and
 ``TierPrefixStore`` (router).
 """
 
@@ -130,15 +131,19 @@ def chain_keys(tokens: Sequence[int], block_tokens: int) -> List[str]:
 
 
 class PrefixEntry:
-    """One cached full prompt block: ``block_id`` is the shared physical
-    block (the cache holds its own pool reference)."""
+    """One cached full prompt block. ``block_id`` — bf16 pools: the shared
+    physical block (the cache holds its own pool reference). ``kv_host`` —
+    int8 pools: the exact bf16 KV (L, block_tokens, 2*nkv*hd) kept on the
+    host, requantized with each adopting request's own scales."""
 
-    __slots__ = ("key", "depth", "block_id", "tick")
+    __slots__ = ("key", "depth", "block_id", "kv_host", "tick")
 
-    def __init__(self, key: bytes, depth: int, block_id: int):
+    def __init__(self, key: bytes, depth: int,
+                 block_id: Optional[int] = None, kv_host=None):
         self.key = key
         self.depth = depth          # chain position (0 = first block)
         self.block_id = block_id
+        self.kv_host = kv_host
         self.tick = 0
 
 
@@ -203,14 +208,16 @@ class PrefixCache:
             e.tick = self._tick
 
     def insert(self, prompt: Sequence[int], n_reused: int,
-               block_ids: Sequence[int]) -> int:
+               block_ids: Optional[Sequence[int]] = None,
+               kv_host: Optional[Sequence] = None) -> int:
         """Register the full blocks of a just-prefilled prompt.
 
         ``n_reused`` leading blocks came from this cache (already
-        present). Each NEW full block ``c`` is the physical
-        ``block_ids[c - n_reused]`` (the cache takes its own pool
-        reference, so the block outlives the producing request). Returns
-        the number of entries added.
+        present). For each NEW full block ``c`` give either its physical
+        ``block_ids[c - n_reused]`` (bf16 pool: the cache takes its own
+        pool reference, so the block outlives the producing request) or
+        its host copy ``kv_host[c - n_reused]`` (int8 pool: no pool
+        reference). Returns the number of entries added.
         """
         bt = self.pool.block_tokens
         prompt = np.asarray(prompt)
@@ -220,9 +227,14 @@ class PrefixCache:
         for c in range(n_full):
             key = _chain_hash(parent, prompt[c * bt:(c + 1) * bt])
             if c >= n_reused and key not in self._entries:
-                bid = block_ids[c - n_reused]
-                self.pool.ref(bid)
-                e = PrefixEntry(key, c, bid)
+                i = c - n_reused
+                bid = block_ids[i] if block_ids is not None else None
+                kv = kv_host[i] if kv_host is not None else None
+                if bid is None and kv is None:
+                    break       # the caller ran out of payload
+                if bid is not None:
+                    self.pool.ref(bid)
+                e = PrefixEntry(key, c, block_id=bid, kv_host=kv)
                 self._tick += 1
                 e.tick = self._tick
                 self._entries[key] = e
@@ -234,14 +246,16 @@ class PrefixCache:
     def _evict(self):
         while len(self._entries) > self.capacity:
             key = min(self._entries, key=lambda k: self._entries[k].tick)
-            self.pool.free(self._entries.pop(key).block_id)
+            e = self._entries.pop(key)
+            if e.block_id is not None:
+                self.pool.free(e.block_id)
 
     def evictable_count(self, keep: Sequence = ()) -> int:
         """How many physical blocks :meth:`evict_free` could reclaim
         right now (cache-only references, not in ``keep``)."""
         skip = {id(e) for e in keep}
         return sum(1 for e in self._entries.values()
-                   if id(e) not in skip
+                   if e.block_id is not None and id(e) not in skip
                    and self.pool.refcount(e.block_id) == 1)
 
     def evict_free(self, n_blocks: int, keep: Sequence = ()) -> int:
@@ -257,7 +271,7 @@ class PrefixCache:
             if freed >= n_blocks:
                 break
             e = self._entries[key]
-            if id(e) in skip:
+            if id(e) in skip or e.block_id is None:
                 continue
             if self.pool.refcount(e.block_id) == 1:
                 self.pool.free(e.block_id)
@@ -267,7 +281,8 @@ class PrefixCache:
 
     def clear(self):
         for e in self._entries.values():
-            self.pool.free(e.block_id)
+            if e.block_id is not None:
+                self.pool.free(e.block_id)
         self._entries.clear()
 
     @property

@@ -339,30 +339,59 @@ def test_int8_cache_without_a_plan_raises_in_both():
 
 
 def test_kernel_wrappers_refuse_int8_they_do_not_take():
-    """The plain step refuses an int8 cache without its scales; K5's
-    wrapper refuses int8 tensors (ROADMAP Queue B row 5) before any
-    launch, and nothing launches."""
+    """The plain step refuses an int8 cache without its scales; K5's and
+    K7's wrappers refuse an int8 pool without its scales, scales of the
+    wrong shape or dtype, and int8 weights on gpt (no reference mode),
+    all before any launch, and nothing launches."""
     x = torch.zeros(1, 8)
     kv8 = torch.zeros(1, 1, 4, 8, dtype=torch.int8)
     with pytest.raises(ValueError, match="kv_scales"):
         tfd.fused_decode_reference(x, {}, kv8, 0, None, None, num_heads=1,
                                    num_kv_heads=1, arch="gpt")
-    with pytest.raises(NotImplementedError, match="row 5"):
-        tfd.fused_paged_decode_cuda(
-            torch.zeros(1, 64, dtype=torch.bfloat16),
-            {"wg": torch.zeros(1, 64, 64)},
-            torch.zeros(1, 2, 16, 128, dtype=torch.int8),
-            torch.zeros(1, 1, dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32), None, None, num_heads=1,
-            num_kv_heads=1)
+    L, h, hd = 1, 64, 64
+    bf = torch.bfloat16
+    p = {"ln1": torch.ones(L, h, dtype=bf), "wqkv": torch.zeros(
+            L, h, 3 * hd, dtype=bf), "wo": torch.zeros(L, hd, h, dtype=bf),
+         "ln2": torch.ones(L, h, dtype=bf), "wg": torch.zeros(
+            L, h, 64, dtype=bf), "wu": torch.zeros(L, h, 64, dtype=bf),
+         "wd": torch.zeros(L, 64, h, dtype=bf)}
+    pool8 = torch.zeros(L, 2, 16, 2 * hd, dtype=torch.int8)
+    tab = torch.zeros(1, 1, dtype=torch.int32)
+    pos = torch.zeros(1, dtype=torch.int32)
+    rope = torch.zeros(1, hd)
+    args = (torch.zeros(1, h, dtype=bf), p, pool8, tab, pos, rope, rope)
+    kw = dict(num_heads=1, num_kv_heads=1)
+    with pytest.raises(ValueError, match="kv_scales"):
+        tfd.fused_paged_decode_cuda(*args, **kw)
+    for bad in (torch.ones(L, 2, 2 * hd), torch.ones(L, 1, 2 * hd,
+                                                     dtype=bf)):
+        with pytest.raises((ValueError, TypeError), match="kv_scales"):
+            tfd.fused_paged_decode_cuda(*args, kv_scales=bad, **kw)
+    with pytest.raises(NotImplementedError, match="row 6"):
+        tfd.fused_paged_verify_cuda(
+            torch.zeros(1, 2, h, dtype=bf), dict(p, wqkv_s=None), pool8,
+            tab, pos, None, None, arch="gpt",
+            kv_scales=torch.ones(L, 1, 2 * hd), **kw)
     assert tfd.fused_paged_decode_cuda.launches == 0
+    assert tfd.fused_paged_verify_cuda.launches == 0
 
 
 def test_engine_refuses_a_weight_only_int8_model(qllama):
-    """The paged steps take no int8 weights yet: the engine refuses a
-    quantized model up front, naming Queue B row 5."""
-    from paddle_tpu_torch.serving import ServingEngine
+    """The paged steps take int8 weights (Queue B rows 5 and 6, ported):
+    the engine no longer refuses a quantized model; it builds the int8
+    stacks and serves, on a bf16 and on an int8 pool. A quantized GPT has
+    no fused plan in either package, so the engine refuses it."""
+    from paddle_tpu_torch.serving import Request, ServingEngine
     _, tm = qllama
-    with pytest.raises(NotImplementedError, match="Queue B row 5"):
-        ServingEngine(tm, max_slots=2, block_tokens=16, max_seq_len=64,
+    for cache in (torch.bfloat16, torch.int8):
+        eng = ServingEngine(tm, max_slots=2, block_tokens=16,
+                            max_seq_len=64, device="cpu", cache_dtype=cache)
+        assert eng._plan["params"]["wqkv"].dtype == torch.int8
+        rid = eng.submit(Request(np.arange(3, 12), max_new_tokens=3))
+        eng.drain()
+        assert len(eng.results[rid].tokens) == 3
+    gpt = GPTPretrainModel(GPTConfig(**GPT_CFG), device="cpu", seed=0)
+    quantize_model(gpt)
+    with pytest.raises(ValueError, match="fused_decode_plan"):
+        ServingEngine(gpt, max_slots=2, block_tokens=16, max_seq_len=64,
                       device="cpu")

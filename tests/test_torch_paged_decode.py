@@ -13,7 +13,19 @@
   the kernel's in-kernel rope angles.
 * The paged plain version over a pool holding a contiguous cache's rows
   equals the contiguous plain version, bit for bit.
-* Block gather/scatter round-trip; unported modes raise naming ROADMAP.
+* The int8 modes (reference :1824-1846) — llama int8 weights, an int8 pool
+  with per-row scales, both, and the gpt int8 pool — against the JAX
+  reference in fp32 (MHA and GQA; three rows, and the five chunk-edge
+  rows): x_out atol 2e-5, rtol 1e-5, the appended int8 rows within one
+  int8 step (round(kv / scale) of values a few fp32 ulp apart can land on
+  either side of a .5), the rest of the pool equal; against the TPU
+  kernel in interpret mode in bf16 at K2's int8 tolerance (atol 2e-2, rtol
+  2^-6); and the paged int8 plain step over a pool holding an int8
+  contiguous cache's rows, with every row's scales equal to the cache's,
+  equals the contiguous int8 plain step bit for bit.
+* Block gather/scatter round-trip; what is still unported raises naming
+  ROADMAP, a kv_scales that does not match the pool's dtype raises
+  ValueError, and the int8 modes run.
 """
 
 import jax
@@ -83,6 +95,61 @@ def _layout(b):
     positions = np.array([0, 3, 7, 8, 13, 17, 22, 26, 29, 30, 31, 5],
                          np.int32)
     return tables, positions, nb
+
+
+def _int8_modes(params, pool, r, b, w8, kv8, nkv, hd):
+    """The int8 modes' inputs from fp32 ones: int8 weight stacks with
+    per-out-channel scale rows (w8; absmax / 127 over each column, as
+    ``quantize_model`` takes it) and an int8 pool with per-ROW lane scales
+    (L, b, 2*nkv*hd) (kv8), as numpy."""
+    p = dict(params)
+    if w8:
+        for k in tfd._SCALED_KEYS:
+            sc = np.maximum(np.abs(p[k]).max(axis=1, keepdims=True) / 127,
+                            1e-8).astype(np.float32)
+            p[k] = np.clip(np.round(p[k] / sc), -127, 127).astype(np.int8)
+            p[f"{k}_s"] = sc
+    scales = None
+    if kv8:
+        scales = np.repeat((r.rand(pool.shape[0], b, 2 * nkv) * 0.02 + 0.02)
+                           .astype(np.float32), hd, axis=-1)
+        pool = r.randint(-127, 128, pool.shape).astype(np.int8)
+    return p, pool, scales
+
+
+def _gpt_params(r, L, h, ffn, sc=0.05):
+    f = lambda *s, sc=sc: (r.randn(*s) * sc).astype(np.float32)
+    return {"ln1": 1 + f(L, h, sc=0.1), "ln1_b": f(L, h, sc=0.1),
+            "wqkv": f(L, h, 3 * h), "bqkv": f(L, 3 * h, sc=0.1),
+            "wo": f(L, h, h), "bo": f(L, h, sc=0.1),
+            "ln2": 1 + f(L, h, sc=0.1), "ln2_b": f(L, h, sc=0.1),
+            "wg": f(L, h, ffn), "bg": f(L, ffn, sc=0.1),
+            "wd": f(L, ffn, h), "bd": f(L, h, sc=0.1)}
+
+
+def _to_torch(a):
+    """A numpy or JAX array as a torch tensor, bit for bit (bf16 too)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _appends(tables, positions, BT):
+    """(block, offset) of each row's append."""
+    return [(int(tables[r, p // BT]), int(p % BT))
+            for r, p in enumerate(positions)]
+
+
+def _int8_pool_close(pt, pj, appends):
+    """The appended int8 rows within one step; the rest of the pool
+    equal."""
+    pt, pj = pt.astype(np.int32), pj.astype(np.int32)
+    rest = np.ones(pt.shape[1:3], bool)
+    for bid, off in appends:
+        assert np.abs(pt[:, bid, off] - pj[:, bid, off]).max() <= 1
+        rest[bid, off] = False
+    assert np.array_equal(pt[:, rest], pj[:, rest])
 
 
 def _rope_rows(hd, positions, span=MB * BT):
@@ -204,24 +271,50 @@ def test_block_gather_scatter_roundtrip():
 
 
 def test_paged_dispatch_refuses_unported_modes():
+    """Still refused: mp_axis (ROADMAP Queue A item 8), any arch but llama
+    and gpt, and int8 weights on gpt (the reference has no such mode); a
+    kv_scales that does not match the pool's dtype and a plan of another
+    cache width raise ValueError. The int8 modes run."""
     x = torch.zeros(1, 8)
     pool = torch.zeros(1, 2, 8, 8)
     tab = torch.zeros(1, 1, dtype=torch.int32)
     pos = torch.zeros(1, dtype=torch.int32)
     args = (x, {}, pool, tab, pos, None, None)
     kw = dict(num_heads=1, num_kv_heads=1)
-    for extra in (dict(kv_scales=torch.ones(1)), dict(mp_axis="mp"),
-                  dict(arch="gpt", kv_scales=torch.ones(1))):
+    for extra in (dict(mp_axis="mp"), dict(arch="gpt", mp_axis="mp")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfd.fused_paged_decode_step(*args, **kw, **extra)
     # MoE rides no paged step, as in the reference
     with pytest.raises(NotImplementedError, match="llama/gpt"):
         tfd.fused_paged_decode_step(*args, **kw, arch="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="no such mode"):
         tfd.fused_paged_decode_step(x, {"wqkv_s": None}, pool, tab, pos,
+                                    None, None, arch="gpt", **kw)
+    with pytest.raises(ValueError, match="kv_scales"):
+        tfd.fused_paged_decode_step(*args, **kw, kv_scales=torch.ones(1))
+    with pytest.raises(ValueError, match="kv_scales"):
+        tfd.fused_paged_decode_step(x, {}, pool.to(torch.int8), tab, pos,
                                     None, None, **kw)
     with pytest.raises(ValueError, match="cache"):
         tfd.fused_paged_decode_step(*args, **kw, blocks={"cache_wbytes": 1})
+    # every int8 mode runs on CPU tensors and launches nothing
+    L, h, nh, nkv, hd, ffn = 1, 32, 2, 2, 16, 64
+    r = np.random.RandomState(2)
+    for w8, kv8 in ((True, False), (False, True), (True, True)):
+        p, pl, sc = _int8_modes(_params(r, L, h, nh, nkv, hd, ffn),
+                                r.randn(L, NB, BT, 2 * nkv * hd)
+                                .astype(np.float32), r, 3, w8, kv8, nkv, hd)
+        cos, sin = _rope_rows(hd, POSITIONS)
+        xo, _ = tfd.fused_paged_decode_step(
+            torch.from_numpy(r.randn(3, h).astype(np.float32)),
+            {k: torch.from_numpy(v) for k, v in p.items()},
+            torch.from_numpy(pl), torch.from_numpy(TABLES),
+            torch.from_numpy(POSITIONS), cos, sin,
+            kv_scales=None if sc is None else torch.from_numpy(sc),
+            num_heads=nh, num_kv_heads=nkv, blocks={"cache_wbytes":
+                                                    1 if kv8 else 4})
+        assert bool(torch.isfinite(xo).all())
+    assert tfd.fused_paged_decode_cuda.launches == 0
 
 
 def test_paged_gpt_arch_runs_on_cpu_tensors():
@@ -245,3 +338,139 @@ def test_paged_gpt_arch_runs_on_cpu_tensors():
     assert not torch.equal(pool[:, 3, 13 % BT], before[:, 3, 13 % BT])
     assert torch.equal(pool[:, 4], before[:, 4])     # an unused block
     assert tfd.fused_paged_decode_cuda.launches == 0
+
+
+INT8_MODES = [("llama", True, False), ("llama", False, True),
+              ("llama", True, True), ("gpt", False, True)]
+INT8_IDS = ["llama-int8w", "llama-int8kv", "llama-int8w-int8kv",
+            "gpt-int8kv"]
+
+
+@pytest.mark.parametrize("b", [3, 5])            # 5: the chunk edges
+@pytest.mark.parametrize("nkv", [4, 2])          # MHA, GQA (gpt: MHA)
+@pytest.mark.parametrize("arch,w8,kv8", INT8_MODES, ids=INT8_IDS)
+def test_paged_reference_int8_modes_match_jax_reference_fp32(arch, w8, kv8,
+                                                            nkv, b):
+    L, hd, ffn = 2, 16, 96
+    nh = 4 if arch == "llama" else nkv
+    h = 64 if arch == "llama" else nh * hd
+    tables, positions, nb = _layout(b)
+    r = np.random.RandomState(10 * nkv + b)
+    params = (_params(r, L, h, nh, nkv, hd, ffn) if arch == "llama"
+              else _gpt_params(r, L, h, ffn))
+    pool = r.randn(L, nb, BT, 2 * nkv * hd).astype(np.float32)
+    params, pool, sc = _int8_modes(params, pool, r, b, w8, kv8, nkv, hd)
+    x = r.randn(b, h).astype(np.float32)
+    span = tables.shape[1] * BT
+    if arch == "llama":
+        cos, sin = _rope_rows(hd, positions, span)
+        cj, sj = jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy())
+    else:
+        cos = sin = None
+        cj = sj = jnp.ones((b, hd), jnp.float32)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch)
+    xj, pj = jfd.fused_paged_decode_reference(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},
+        jnp.asarray(pool), jnp.asarray(tables), jnp.asarray(positions),
+        cj, sj, kv_scales=None if sc is None else jnp.asarray(sc), **kw)
+    xt, pt = tfd.fused_paged_decode_step(
+        torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in
+                              params.items()},
+        torch.from_numpy(pool.copy()), torch.from_numpy(tables),
+        torch.from_numpy(positions), cos, sin,
+        kv_scales=None if sc is None else torch.from_numpy(sc), **kw)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=2e-5,
+                               rtol=1e-5)
+    if kv8:
+        assert pt.dtype == torch.int8
+        _int8_pool_close(pt.numpy(), np.asarray(pj),
+                         _appends(tables, positions, BT))
+    else:
+        np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=2e-5,
+                                   rtol=1e-5)
+    assert tfd.fused_paged_decode_cuda.launches == 0
+
+
+@pytest.mark.parametrize("w8,kv8", [(True, False), (False, True),
+                                    (True, True)],
+                         ids=["int8w", "int8kv", "int8w-int8kv"])
+def test_paged_reference_int8_modes_match_interpret_kernel_bf16(w8, kv8):
+    """The TPU kernel's int8 modes in interpret mode vs the port's plain
+    version; bf16 activations and norms, nkv·hd = 128."""
+    L, h, nh, nkv, hd, ffn = 2, 128, 4, 2, 64, 256
+    r = np.random.RandomState(4)
+    params = _params(r, L, h, nh, nkv, hd, ffn)
+    pool = r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32)
+    params, pool, sc = _int8_modes(params, pool, r, 3, w8, kv8, nkv, hd)
+    pj = {k: (jnp.asarray(v) if v.dtype != np.float32 or k.endswith("_s")
+              else jnp.asarray(v, jnp.bfloat16)) for k, v in params.items()}
+    pool_j = jnp.asarray(pool) if kv8 else jnp.asarray(pool, jnp.bfloat16)
+    x_j = jnp.asarray(r.randn(3, h).astype(np.float32), jnp.bfloat16)
+    scj = None if sc is None else jnp.asarray(sc)
+    xj, poolj = jax.jit(lambda x, p, c: jfd._fused_paged_decode_pallas(
+        x, p, c, jnp.asarray(TABLES), jnp.asarray(POSITIONS), num_heads=nh,
+        num_kv_heads=nkv, head_dim=hd, eps=1e-5, kv_scales=scj,
+        interpret=True))(x_j, pj, pool_j)
+    cos, sin = _rope_rows(hd, POSITIONS)
+    pool_t = _to_torch(pool_j)
+    xt, poolt = tfd.fused_paged_decode_step(
+        _to_torch(x_j), {k: _to_torch(v) for k, v in pj.items()},
+        pool_t.clone(), torch.from_numpy(TABLES),
+        torch.from_numpy(POSITIONS), cos, sin, num_heads=nh,
+        num_kv_heads=nkv, eps=1e-5,
+        kv_scales=None if sc is None else torch.from_numpy(sc))
+    active = [0, 1]                 # the idle row's output is thrown away
+    np.testing.assert_allclose(xt.float().numpy()[active],
+                               np.asarray(xj, np.float32)[active],
+                               atol=2e-2, rtol=2 ** -6)
+    apps = _appends(TABLES, POSITIONS, BT)[:2]
+    ref = np.asarray(poolj)
+    if kv8:
+        got, ref = poolt.numpy().copy(), ref.copy()
+        got[:, 0] = ref[:, 0] = 0       # scratch: the idle row's garbage
+        _int8_pool_close(got, ref, apps)
+    else:
+        for bid, off in apps:
+            np.testing.assert_allclose(poolt[:, bid, off].float().numpy(),
+                                       ref[:, bid, off].astype(np.float32),
+                                       atol=2e-2, rtol=2 ** -6)
+    touched = {0} | {bid for bid, _ in apps}
+    rest = [i for i in range(NB) if i not in touched]
+    assert torch.equal(poolt[:, rest], pool_t[:, rest])
+
+
+def test_paged_int8_equals_contiguous_int8_plain_bitwise():
+    """int8 weights and an int8 pool holding an int8 contiguous cache's
+    rows block by block, every row's scales the cache's (one position for
+    every row): the contiguous int8 plain version's bits."""
+    L, h, nh, nkv, hd, ffn, b, pos = 2, 64, 4, 2, 16, 96, 2, 19
+    S = MB * BT
+    r = np.random.RandomState(13)
+    params, _, _ = _int8_modes(_params(r, L, h, nh, nkv, hd, ffn), None, r,
+                               b, True, False, nkv, hd)
+    params = {k: (torch.from_numpy(v).bfloat16()
+                  if v.dtype == np.float32 and not k.endswith("_s")
+                  else torch.from_numpy(v)) for k, v in params.items()}
+    x = torch.from_numpy(r.randn(b, h).astype(np.float32)).bfloat16()
+    cache = torch.from_numpy(
+        r.randn(L, b, S, 2 * nkv * hd).astype(np.float32)).bfloat16()
+    cache[:, :, pos:] = 0
+    cache, lanes = tfd.quantize_kv_cache(cache, nkv)
+    tables = np.array([[4, 1, 10, 6], [2, 8, 3, 11]], np.int32)
+    pool = torch.zeros(L, NB, BT, 2 * nkv * hd, dtype=torch.int8)
+    for i in range(b):
+        pool[:, torch.from_numpy(tables[i]).long()] = cache[:, i].reshape(
+            L, MB, BT, -1)
+    c, s = trope_cos_sin(S, hd)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    xc, cache = tfd.fused_decode_step(x, params, cache, pos, c[pos:pos + 1],
+                                      s[pos:pos + 1], kv_scales=lanes, **kw)
+    positions = torch.full((b,), pos, dtype=torch.int32)
+    xp, pool = tfd.fused_paged_decode_step(
+        x, params, pool, torch.from_numpy(tables), positions,
+        c[positions.long()], s[positions.long()],
+        kv_scales=lanes.expand(L, b, -1).contiguous(), **kw)
+    assert torch.equal(xp, xc)
+    for i in range(b):
+        assert torch.equal(pool[:, torch.from_numpy(tables[i]).long()]
+                           .reshape(L, S, -1), cache[:, i])

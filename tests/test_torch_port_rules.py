@@ -1334,3 +1334,180 @@ def test_wide_engines_run_on_the_card(cuda, slots, k):
             groups * (st["steps"] + st["replay_tokens"])
     eng.prefix_cache.clear()
     assert eng.pool.used_blocks == 0
+
+
+def _per_row_scales(pool_bf16, tab, nkv):
+    """An int8 pool from a bf16 one with per-ROW lane scales (L, b,
+    2*nkv*hd): row r's scales calibrated over its own blocks, as a serving
+    slot's are over its prompt; blocks no row owns quantized with the
+    first row's."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    L, b = pool_bf16.shape[0], tab.shape[0]
+    lanes = torch.stack([fd.quantize_kv_cache(
+        pool_bf16[:, tab[r].long()].reshape(L, 1, -1, pool_bf16.shape[3]),
+        nkv)[1][:, 0] for r in range(b)], dim=1)
+    pool = torch.clamp(torch.round(pool_bf16.float() / lanes[:, 0, None,
+                                                             None]),
+                       -127, 127).to(torch.int8)
+    for r in range(b):
+        bids = tab[r].long()
+        pool[:, bids] = torch.clamp(torch.round(
+            pool_bf16[:, bids].float() / lanes[:, r, None, None]), -127,
+            127).to(torch.int8)
+    return pool, lanes.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BT", [16, 12])
+@pytest.mark.parametrize("w8,kv8", [(True, False), (False, True),
+                                    (True, True)])
+def test_paged_decode_int8_modes_match_plain(cuda, w8, kv8, BT):
+    """K5's int8 modes (llama) at each of EDGE_POS plus an idle row, over
+    shuffled blocks of BT tokens (16: TMA boxes; 12: the cp.async path):
+    x_out of the active rows at K2's tolerance, the appended int8 rows
+    within one int8 step, two launches bitwise equal; and with every row's
+    scales equal to K2's layer scales, K5 gives K2-int8's bits."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, nh, nkv, hd = 2, 8, 2, 64
+    h, ffn = nh * hd, 3 * nh * hd
+    MB, b = -(-1501 // BT), len(EDGE_POS) + 1
+    g = torch.Generator(device=cuda).manual_seed(21)
+    p = _llama_cuda_params(L, h, nh, nkv, ffn, w8)
+    x = torch.randn(b, h, generator=g, device=cuda).bfloat16()
+    pool = torch.randn(L, 1 + b * MB, BT, 2 * nkv * hd, generator=g,
+                       device=cuda).bfloat16()
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(3))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32).to(cuda)
+    tab[-1] = 0                                       # an idle row
+    sc = None
+    if kv8:
+        pool, sc = _per_row_scales(pool, tab, nkv)
+    pos = torch.tensor(EDGE_POS + (5,), dtype=torch.int32, device=cuda)
+    cos, sin = rope_cos_sin(MB * BT, hd, device=cuda)
+    c, s = cos.index_select(0, pos), sin.index_select(0, pos)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, kv_scales=sc)
+    xk, pk = fd.fused_paged_decode_cuda(x, p, pool.clone(), tab, pos, c, s,
+                                        **kw)
+    xk2, pk2 = fd.fused_paged_decode_cuda(x, p, pool.clone(), tab, pos, c,
+                                          s, **kw)
+    xr, pr = fd.fused_paged_decode_reference(x, p, pool.clone(), tab, pos,
+                                             c, s, **kw)
+    assert torch.equal(xk, xk2) and torch.equal(pk, pk2)
+    torch.testing.assert_close(xk[:-1].float(), xr[:-1].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    if kv8:
+        assert (pk[:, 1:].int() - pr[:, 1:].int()).abs().max() <= 1
+    else:
+        torch.testing.assert_close(pk[:, 1:].float(), pr[:, 1:].float(),
+                                   atol=5e-2, rtol=2 ** -7)
+    if not kv8:
+        return
+    # the pin: every row's scales K2's layer scales -> K2-int8's bits
+    cache8, lanes = fd.quantize_kv_cache(torch.stack(
+        [pool[:, tab[r].long()].reshape(L, MB * BT, -1).float()
+         for r in range(2)], dim=1), nkv)
+    pool2 = pool.clone()
+    for r in range(2):
+        pool2[:, tab[r].long()] = cache8[:, r].reshape(L, MB, BT, -1)
+    for at in (511, 1024):
+        x2, _ = fd.fused_decode_cuda(x[:2], p, cache8.clone(), at,
+                                     cos[at:at + 1], sin[at:at + 1],
+                                     num_heads=nh, num_kv_heads=nkv,
+                                     kv_scales=lanes)
+        p5 = torch.full((2,), at, dtype=torch.int32, device=cuda)
+        x5, _ = fd.fused_paged_decode_cuda(
+            x[:2], p, pool2.clone(), tab[:2], p5, cos.index_select(0, p5),
+            sin.index_select(0, p5), num_heads=nh, num_kv_heads=nkv,
+            kv_scales=lanes.expand(L, 2, -1).contiguous())
+        assert torch.equal(x5, x2), at
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,w8", [("llama", True), ("llama", False),
+                                     ("gpt", False)])
+def test_paged_verify_int8_pool_matches_plain(cuda, arch, w8):
+    """K7 over an int8 pool with per-row scales (llama with int8 weights or
+    bf16 ones, gpt): 16 slots x 5 tail rows (two launches), one slot idle;
+    mapped tail rows at K7's tolerance, the appended int8 rows within one
+    int8 step, two launches bitwise equal."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, b, K1, BT, MB = 2, 16, 5, 16, 8
+    nh, nkv, hd = (8, 2, 64) if arch == "llama" else (4, 4, 64)
+    h, ffn = nh * hd, 2 * nh * hd
+    g = torch.Generator(device=cuda).manual_seed(22)
+    p = (_gpt_cuda_params(g, L, h, ffn) if arch == "gpt"
+         else _llama_cuda_params(L, h, nh, nkv, ffn, w8))
+    x = torch.randn(b, K1, h, generator=g, device=cuda).bfloat16()
+    pool = torch.randn(L, 1 + b * MB, BT, 2 * nkv * hd, generator=g,
+                       device=cuda).bfloat16()
+    perm = torch.randperm(b * MB, generator=torch.Generator().manual_seed(4))
+    tab = (perm.reshape(b, MB) + 1).to(torch.int32).to(cuda)
+    tab[-1] = 0
+    pool, sc = _per_row_scales(pool, tab, nkv)
+    pos = torch.randint(0, MB * BT - K1, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    cos, sin = rope_cos_sin(MB * BT, hd, device=cuda)
+    pj = pos.long()[:, None] + torch.arange(K1, device=cuda)[None]
+    rope = (None, None) if arch == "gpt" else (cos[pj], sin[pj])
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, arch=arch,
+              kv_scales=sc)
+    fd.fused_paged_verify_cuda.launches = 0
+    xk, pk = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos, *rope,
+                                        **kw)
+    assert fd.fused_paged_verify_cuda.launches == 2
+    xk2, pk2 = fd.fused_paged_verify_cuda(x, p, pool.clone(), tab, pos,
+                                          *rope, **kw)
+    xr, pr = fd.fused_paged_verify_reference(x, p, pool.clone(), tab, pos,
+                                             *rope, **kw)
+    assert torch.equal(xk, xk2) and torch.equal(pk, pk2)
+    torch.testing.assert_close(xk[:-1].float(), xr[:-1].float(), atol=5e-2,
+                               rtol=2 ** -7)
+    assert (pk[:, 1:].int() - pr[:, 1:].int()).abs().max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,w8,k", [("llama", True, 0), ("llama", True, 4),
+                                       ("gpt", False, 0)])
+def test_int8_engines_run_on_the_card(cuda, arch, w8, k):
+    """ServingEngine with an int8 pool (llama also with int8 weights) on
+    the card, plain and speculating k = 4: every request at its full
+    length through K5's (K7's) int8 modes, no leaked block."""
+    from paddle_tpu_torch.models import (GPTConfig, GPTPretrainModel,
+                                         LlamaConfig, LlamaForCausalLM)
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.quantization import quantize_model
+    from paddle_tpu_torch.serving import Request, ServingEngine, SpecConfig
+    if arch == "gpt":
+        model = GPTPretrainModel(GPTConfig(
+            vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+            max_position_embeddings=256, hidden_dropout_prob=0.0,
+            attention_dropout_prob=0.0), dtype=torch.bfloat16,
+            device="cuda", seed=0)
+        model.eval()
+    else:
+        model = LlamaForCausalLM(LlamaConfig(
+            vocab_size=256, hidden_size=256, intermediate_size=512,
+            num_layers=2, num_heads=4, num_kv_heads=2),
+            dtype=torch.bfloat16, device="cuda", seed=0)
+        if w8:
+            quantize_model(model)
+    eng = ServingEngine(model, max_slots=4, block_tokens=16, max_seq_len=128,
+                        device="cuda", cache_dtype=torch.int8,
+                        speculate=SpecConfig(k=k) if k else None)
+    r = np.random.RandomState(7)
+    reqs = [(r.randint(0, 256, int(n)), int(m)) for n, m in
+            zip(r.randint(4, 40, 6), r.randint(3, 12, 6))]
+    fd.fused_paged_decode_cuda.launches = 0
+    fd.fused_paged_verify_cuda.launches = 0
+    rids = [eng.submit(Request(p, max_new_tokens=m)) for p, m in reqs]
+    eng.drain(max_steps=200)
+    assert [len(eng.results[i].tokens) for i in rids] == [m for _, m in reqs]
+    st = eng.stats
+    assert fd.fused_paged_verify_cuda.launches == st["spec_ticks"]
+    assert fd.fused_paged_decode_cuda.launches == \
+        st["steps"] - st["spec_ticks"] + st["replay_tokens"]
+    assert (st["spec_ticks"] if k else st["steps"]) > 0
+    eng.prefix_cache.clear()
+    assert eng.pool.used_blocks == 0

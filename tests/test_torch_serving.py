@@ -295,6 +295,9 @@ def test_deadline_retires_and_generate_convenience(pair):
 
 
 def test_request_validation_and_unported_options(pair):
+    """Bad requests raise ValueError; the options still unported (Queue A
+    items 7 and 8) raise NotImplementedError naming ROADMAP; the int8 pool
+    and a weight-only int8 model are ported: their engines serve."""
     _, tm = pair
     for bad in (dict(prompt=[]), dict(prompt=[1.5]),
                 dict(prompt=[1], max_new_tokens=0),
@@ -307,7 +310,7 @@ def test_request_validation_and_unported_options(pair):
     big = Request([1], request_id=10 ** 6).request_id
     assert Request([1]).request_id > big    # the id source moves past it
     draft = tserving.SpecConfig(k=2, proposer="draft", draft_model=tm)
-    for kw in (dict(cache_dtype=torch.int8), dict(chunk_tokens=16),
+    for kw in (dict(chunk_tokens=16),
                dict(speculate=draft), dict(offload=True),
                dict(mesh=object()), dict(sanitize=True),
                dict(max_queue=4), dict(shed_infeasible=True),
@@ -323,6 +326,19 @@ def test_request_validation_and_unported_options(pair):
         ServingEngine(moe, **ENGINE)
     with pytest.raises(ValueError, match="multiple"):
         ServingEngine(tm, **dict(ENGINE, max_seq_len=120))
+    with pytest.raises(ValueError, match="bf16-width or int8"):
+        ServingEngine(tm, **ENGINE, cache_dtype=torch.float32)
+    # ported: the int8 pool, and an int8-weight model over either pool
+    import copy
+    from paddle_tpu_torch.quantization import quantize_model
+    qm = quantize_model(copy.deepcopy(tm))
+    for model, dt in ((tm, torch.int8), (qm, torch.bfloat16),
+                      (qm, torch.int8)):
+        e8 = ServingEngine(model, **ENGINE, cache_dtype=dt)
+        rid = e8.submit(Request(np.arange(3, 20), max_new_tokens=3))
+        e8.drain()
+        assert len(e8.results[rid].tokens) == 3
+        assert e8.kv_pool.dtype == dt
     eng = ServingEngine(tm, **ENGINE)
     for call in (eng.snapshot, lambda: eng.save_snapshot("x"),
                  lambda: ServingEngine.restore(tm, {})):
