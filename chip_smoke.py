@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase; needs one card
     python3 chip_smoke.py --quick    # card, build, and the kernel checks only
+    python3 chip_smoke.py --int8-stress   # card, build, phase int8_stress
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -12,6 +13,18 @@ Phases, each printing one JSON line:
               (sq 1, 65, 127, 129, 200; sk off the tile; an offset inside a
               key tile; GQA 4 and 8; a batch row of kv_len 0, whose rows
               must give 0 and lse NEG_INF exactly; d 64 and 128).
+  3a. k1w   — K1's causal sliding window vs its plain fp32 version at the
+              kernel's edges: windows 1, 64, 127, 128, 129, 200 and 4096
+              over 384 query rows at offset 700 (the first block's t0
+              inside a key tile, query tiles straddling the window's lower
+              edge and the diagonal, rows with no key in the first loaded
+              tile), GQA 4 and 8, d 64 and 128, a batch row whose kv_len
+              ends below the window, sq = 1 decode with kv_lens at
+              Mistral-7B's decode shape; every case launched twice with the
+              same bits, and a window at or above the visible span gives
+              the windowless kernel's bits; then a tiny windowed Llama's
+              `generate` on the card against the CPU (the layered path:
+              K1 with the window once a layer a step, nothing else).
   4. k2     — fused decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, MHA and GQA (nkv=8): x_out and the
               appended cache row; then at 1, 9, 16, 33, 64 and 65 rows (the
@@ -104,6 +117,14 @@ Phases, each printing one JSON line:
               int8 weights at 1, 9, 16, 33 and 64 rows (bf16, int8 KV);
               then the int8 cache at each chunk edge (llama and gpt, one
               layer, b=2, S 1501).
+  8f. int8_stress — the product engine's int8 path repeated: K2, K5 and
+              K7 with the int8 weights of a quantized Llama-2-7B (32
+              layers, GQA 8) over int8 caches and pools, K2 at b = 8, 16
+              and 64, K5 at 8 and 64 rows, K7 at 2 and 8 rows × 5 tokens
+              (the engine's N of 8 … 64, rings of 8, 7 and 4 stages), 501
+              launches each: every x_out bitwise equal to the first, and a
+              launch not done within 30 s reported as a stall (the process
+              then ends); each step timed by CUDA events.
   8c. k8    — RMSNorm rows (K8) vs the plain rms_norm at the Llama-2-7B
               prefill shape (4·1024, 4096) bf16, with and without the
               weight (the one-pass kernel), a (1024, 8192) bf16 case (the
@@ -233,17 +254,37 @@ Phases, each printing one JSON line:
               the plain version and PyTorch's sdpa (forward; backward for
               the K3/K4 pair), with TFLOP/s, the share of the bound, and
               K3 + K4 over sdpa's backward.
+ 17. mistral — Mistral-7B (32 layers, GQA 32/8, ffn 14336, window 4096;
+              bf16, random weights from seed 0) through inference.generate,
+              b=2, prompt 8192, 64 new tokens, greedy, on the layered path
+              (no fused plan for a window): K1 32 + 63 x 32 launches and
+              nothing else, no call of a plain attention; TTFT, decode
+              ms/step, tokens/s, peak memory; the last decode step
+              teacher-forced: its attention held layer by layer against
+              K1's plain version over the cached K/V, its logits against a
+              windowed no-cache forward of the same tokens within a fixed
+              limit (the same noise read with and without the window on
+              the generated tokens and 3 random sequences), and the
+              weights without the window giving the same logits below
+              position 4096 and others past it; K1's window mode at the
+              prefill and decode calls held against its plain version
+              (out, lse, two launches bitwise) and timed beside its bound,
+              the plain version, the windowless kernel and sdpa over the
+              dense window mask (row 1a).
 
---quick stops after phase 8d. Every failure propagates and exits non-zero.
+--quick stops after phase 8d; --int8-stress runs phase 8f alone. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
 """
 
 import dataclasses
+import faulthandler
+import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -270,6 +311,9 @@ E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
 # The MoE phase's teacher-forced 28-layer step (4 rows × 102400 logits)
 # read 0.117 against the plain path taking K6's experts: the same noise.
 SERVE_LOGIT_ATOL = 0.15
+# The whole run, build included, takes about 150-250 s on an H100; past
+# this many seconds the watchdog reports a stall and ends the run.
+WATCHDOG_S = 1100
 # K3/K4: each gradient within K3_TOL · max|plain|. The kernels round P and
 # dS to bf16 before their products (2^-9 relative each, signs at random)
 # and their outputs to bf16 (2^-9); sums are fp32 and Δ is fp32, so the
@@ -372,35 +416,65 @@ def rand(shape, gen, scale=1.0, dtype=torch.bfloat16):
 
 # ---- K1 -----------------------------------------------------------------------
 
-def k1_case(fa, gen, b, h, nkv, sq, sk, d, q_off, kv_len, causal=True):
-    """K1 against its plain version; kv_len is one length for every row or
-    a list (a 0 gives a batch row with no visible key), q_off None the
-    bottom-right causal alignment."""
-    q = rand((b, sq, h, d), gen)
-    k = rand((b, sk, nkv, d), gen)
-    v = rand((b, sk, nkv, d), gen)
-    lens = [kv_len] * b if isinstance(kv_len, int) else list(kv_len)
-    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    out, lse = fa.flash_attention_fwd(q, k, v, is_causal=causal,
-                                      causal_offset=q_off, kv_lens=kl)
-    torch.cuda.synchronize()
-    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, is_causal=causal,
-                                                causal_offset=q_off,
-                                                kv_lens=kl)
+def k1_agreement(out, lse, ref, ref_lse):
+    """K1's (out, lse) against its plain version's: out within K1_TOL_OUT,
+    lse within K1_TOL_LSE on rows with a visible key, and rows with none
+    giving out 0 and lse NEG_INF exactly; out finite."""
     err = (out.float() - ref.float()).abs().max().item()
     live = ref_lse > -1e29
     lerr = (lse - ref_lse)[live].abs().max().item() if live.any() else 0.0
-    # rows with no visible key: out 0 and lse NEG_INF, exactly
     dead = ~live
     dead_ok = bool((lse[dead] == ref_lse[dead]).all()
                    and not out.transpose(1, 2)[dead].any())
     ok = (err <= K1_TOL_OUT and lerr <= K1_TOL_LSE and dead_ok
           and bool(torch.isfinite(out.float()).all()))
-    return {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
-            "q_off": q_off, "kv_len": kv_len, "causal": causal,
-            "max_abs_err": err, "lse_max_abs_err": lerr,
+    return {"max_abs_err": err, "lse_max_abs_err": lerr,
             "dead_rows": int(dead.sum().item()), "dead_rows_ok": dead_ok,
             "tol": K1_TOL_OUT, "lse_tol": K1_TOL_LSE, "ok": ok}
+
+
+def k1_case(fa, gen, b, h, nkv, sq, sk, d, q_off, kv_len, causal=True,
+            window=None):
+    """K1 against its plain version; kv_len is one length for every row or
+    a list (a 0 gives a batch row with no visible key), q_off None the
+    bottom-right causal alignment. With a window, K1 launches twice (the
+    same bits), a window at or above the visible span (off + sq keys, the
+    most a row sees) must give the windowless launch's bits, and t0, the
+    first key tile of the first query block, is reported with whether a
+    row of that block has no visible key in it."""
+    q = rand((b, sq, h, d), gen)
+    k = rand((b, sk, nkv, d), gen)
+    v = rand((b, sk, nkv, d), gen)
+    lens = [kv_len] * b if isinstance(kv_len, int) else list(kv_len)
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(is_causal=causal, causal_offset=q_off, kv_lens=kl)
+    if window is not None:
+        kw["window"] = window
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
+           "q_off": q_off, "kv_len": kv_len, "causal": causal,
+           **k1_agreement(out, lse, ref, ref_lse)}
+    ok = res["ok"]
+    if window is not None:
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+        off = sk - sq if q_off is None else q_off
+        t0 = max(0, off - window + 1) // 128
+        res.update(window=window, t0_first_block=t0,
+                   row_without_key_in_first_tile=(
+                       off + min(sq, 128) - window >= (t0 + 1) * 128),
+                   repeat_bitwise=bool(torch.equal(out, out2)
+                                       and torch.equal(lse, lse2)))
+        ok = ok and res["repeat_bitwise"]
+        if window >= off + sq:
+            kw.pop("window")
+            o0, l0 = fa.flash_attention_fwd(q, k, v, **kw)
+            res["windowless_bitwise"] = bool(torch.equal(out, o0)
+                                             and torch.equal(lse, l0))
+            ok = ok and res["windowless_bitwise"]
+    res["ok"] = ok
+    return res
 
 
 def phase_k1(fa, gen):
@@ -425,6 +499,78 @@ def phase_k1(fa, gen):
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+# ---- K1's sliding window -------------------------------------------------------
+
+def tiny_window_generate(fa, fd):
+    """A tiny windowed Llama (h 256, 4 heads of 64, 2 kv heads, 2 layers,
+    window 5) through `generate` on the card (bf16, the layered path: K1
+    with the window, prompt 12, 16 new tokens, b=2) twice, and on the CPU
+    copy of the same weights (the plain versions): tokens equal the CPU's
+    or part at a near tie; K1 once a layer a step, nothing else."""
+    from paddle_tpu_torch.inference import generate
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2,
+                      sliding_window=5)
+    n, new = 12, 16
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    cpu = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cpu", seed=0)
+    cpu.set_state_dict({k: v.cpu() for k, v in
+                        model.state_dict(include_buffers=False).items()})
+    ids = np.random.RandomState(14).randint(0, 256, (2, n))
+    reset_counts(fa, fd)
+    out = generate(model, ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    got = counts(fa, fd)
+    again = generate(model, ids, max_new_tokens=new)
+    ref = generate(cpu, ids, max_new_tokens=new)
+    partings = [first_parting(cpu, ids[i], out[i, n:].cpu().numpy(),
+                              ref[i, n:].cpu().numpy()) for i in range(2)]
+    want = dict.fromkeys(got, 0)
+    want["flash_attention_fwd"] = cfg.num_layers * new
+    run = {"window": cfg.sliding_window, "prompt": n, "new": new,
+           "launches": got, "repeat_equal": bool(torch.equal(out, again)),
+           "rows_equal_cpu": sum(q is None for q in partings),
+           "first_parting": [q for q in partings if q is not None]}
+    run["ok"] = (got == want and run["repeat_equal"]
+                 and all(q is None or q["near_tie"] for q in partings))
+    return run
+
+
+def phase_k1w(fa, fd, gen):
+    """K1's causal sliding window at the kernel's edges: windows 1, 64,
+    127, 128, 129, 200 and 4096 over a 384-row query span at offset 700
+    (the first block's t0 inside a key tile; windows below 128 make every
+    query tile straddle both the window's lower edge and the diagonal, and
+    at 1 and 64 the block's last rows see no key of the first loaded tile),
+    GQA 4 and 8, d 64 and 128, a batch row whose kv_len ends below the
+    window (rows with no visible key), bottom-right self-attention, sq = 1
+    decode with kv_lens at Mistral-7B's decode shape (the 8256-key cache at
+    position 8254, window 4096), and windows at and above the visible span
+    (the windowless bits); then the tiny windowed `generate`."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(141)
+    base = (2, 16, 4, 384, 1200, 128, 700, 1100)
+    cases = [k1_case(fa, g, *base, window=w)
+             for w in (1, 64, 127, 128, 129, 200, 1084, 4096)]
+    gqa8 = (2, 16, 2, 300, 700, 64, 333, [700, 500])
+    cases += [k1_case(fa, g, *gqa8, window=w) for w in (1, 129, 200, 4096)]
+    for shape, w in (
+            ((1, 8, 8, 1000, 1000, 128, None, 1000), 200),
+            ((1, 32, 8, 2048, 2048, 128, None, 2048), 512),
+            ((2, 32, 8, 1, 8256, 128, 8254, [8255, 8255]), 4096),
+            ((2, 32, 8, 1, 8256, 128, 8254, [8255, 100]), 4096),
+            ((2, 16, 2, 1, 1500, 64, 1300, 1301), 129)):
+        cases.append(k1_case(fa, g, *shape, window=w))
+    tiny = tiny_window_generate(fa, fd)
+    reset_counts(fa, fd)
+    emit({"phase": "k1w", "cases": cases, "tiny_generate": tiny})
+    bad = [c for c in cases if not c["ok"]]
+    if bad or not tiny["ok"]:
+        raise AssertionError(f"K1's window mode: {bad}, tiny {tiny}")
     return max(c["max_abs_err"] for c in cases)
 
 
@@ -1660,6 +1806,120 @@ def phase_k2q(fd, rope, gen):
 K8_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
 #: H100 fp32 rate outside the tensor cores (the operations of K8)
 FP32_FLOPS = 67e12
+
+
+# ---- the int8 product engine, launched many times ------------------------------
+
+#: phase int8_stress: the launches of each step after its first, the seconds
+#: one launch may take before the phase reports a stall, and the layers
+STRESS_LAUNCHES, STRESS_STALL_S, STRESS_LAYERS = 500, 30.0, 32
+
+
+def watched(fn, n, fault):
+    """fn() (it returns x_out) once and then n times more, each launch's
+    x_out bitwise against the first's. After each launch the host polls an
+    event for up to STRESS_STALL_S seconds. A launch that never completes
+    (a ring stage waiting on a fill that never comes) cannot be
+    synchronised, so fault(what) reports it and the process ends at once;
+    a launch that fails is reported the same way and its error raised.
+    Returns the launches whose x_out differed."""
+    first = None
+    differing = torch.zeros((), dtype=torch.int64, device="cuda")
+    for i in range(n + 1):
+        try:
+            x = fn()
+            if first is None:
+                first = x.clone()
+            else:
+                differing += (x != first).any().to(torch.int64)
+            ev = torch.cuda.Event()
+            ev.record()
+            t0 = time.perf_counter()
+            while not ev.query():
+                if time.perf_counter() - t0 > STRESS_STALL_S:
+                    fault({"launch": i, "stalled_s": STRESS_STALL_S})
+                    sys.stderr.flush()
+                    os._exit(1)
+                time.sleep(1e-4)
+        except Exception as e:
+            fault({"launch": i, "error": str(e).splitlines()[0]})
+            raise
+    return int(differing.item())
+
+
+def phase_int8_stress(fd, rope):
+    """The product engine's int8 path (the int8 weights of a quantized
+    Llama-2-7B, STRESS_LAYERS layers, GQA 8) launched many times, each step
+    STRESS_LAUNCHES times after its first under `watched`: K2 over an int8
+    cache (position 600) at b = 8, 16 and 64 (the engine's N of 8, 16 and
+    64: rings of 8, 7 and 4 stages), K5 over an int8 pool at 8 and 64 rows
+    (16 and 4 blocks of 128 tokens a row), K7 over an int8 pool at 2 and 8
+    rows × 5 tokens (N 16 and 64); every row active and every tail token
+    mapped. Every launch's x_out must equal the first's bits, and none may
+    stall or fail. Each step is timed by CUDA events (as the kernel table's
+    rows are) before any is repeated."""
+    L, nkv = STRESS_LAYERS, 8
+    w = WIDTHS["llama"]
+    h, nh, hd = w["h"], w["nh"], w["hd"]
+    dkv2 = 2 * nkv * hd
+    params = int8_llama_params(L, nkv)
+    g = wide_gen(60)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    steps = []   # (step, b, rows, a call of it)
+    S, pos = 640, 600
+    cos, sin = rope.rope_cos_sin(K5_BT * K5_MB, hd, device="cuda")
+    for b in (8, 16, 64):
+        kv = torch.zeros((L, b, S, dkv2), dtype=torch.bfloat16, device="cuda")
+        kv[:, :, :pos] = rand((L, b, pos, dkv2), g)
+        kv, sc = fd.quantize_kv_cache(kv, nkv)
+        x = rand((b, h), g)
+        steps.append(("fused_decode_step", b, b, functools.partial(
+            fd.fused_decode_cuda, x, params, kv, pos, cos[pos:pos + 1],
+            sin[pos:pos + 1], kv_scales=sc, **kw)))
+    for b, mb in ((8, K5_MB), (64, 4)):   # 64 rows: a 4.3 GB bf16 pool
+        positions = [int(p) for p in np.random.RandomState(b).randint(
+            0, K5_BT * mb - 1, b)]
+        pool, tables = k5_pool(g, L, dkv2, positions, mb=mb)
+        pool, sc = int8_pool(fd, pool, tables, nkv)
+        p32 = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        x = rand((b, h), g)
+        steps.append(("fused_paged_decode_step", b, b, functools.partial(
+            fd.fused_paged_decode_cuda, x, params, pool, tables, p32,
+            cos.index_select(0, p32), sin.index_select(0, p32),
+            kv_scales=sc, **kw)))
+    for b in (2, 8):
+        positions = [int(p) for p in np.random.RandomState(b).randint(
+            0, K5_BT * K5_MB - K7_K1, b)]
+        pool, tables = k7_pool(g, L, dkv2, [K5_MB] * b)
+        pool, sc = int8_pool(fd, pool, tables, nkv)
+        p32 = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        x = rand((b, K7_K1, h), g)
+        steps.append(("fused_paged_verify_step", b, b * K7_K1,
+                      functools.partial(
+                          fd.fused_paged_verify_cuda, x, params, pool,
+                          tables, p32, *k7_rope(rope, hd, positions, K7_K1),
+                          kv_scales=sc, **kw)))
+    # every step timed before any is repeated: a tree whose engine faults
+    # under repetition still reports its times
+    cases = [{"step": step, "b": b, "rows": rows,
+              "ms": time_ms(lambda: fn()[0], iters=20)}
+             for step, b, rows, fn in steps]
+    for case, (step, b, _, fn) in zip(cases, steps):
+        def fault(what):
+            emit({"phase": "int8_stress", "layers": L, "nkv": nkv,
+                  "cases": cases, "fault": dict(what, step=step, b=b)})
+        case["differing_launches"] = watched(lambda: fn()[0],
+                                             STRESS_LAUNCHES, fault)
+        case.update(launches=STRESS_LAUNCHES + 1,
+                    ok=case["differing_launches"] == 0)
+    del steps, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "int8_stress", "layers": L, "nkv": nkv, "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"the int8 product engine's launches differ: "
+                             f"{bad}")
 
 
 def phase_k8(gen, bw):
@@ -3877,6 +4137,406 @@ def phase_moe(fa, fd, bw, flops, k6_err):
     return row, runs["greedy"]["launches"]
 
 
+# ---- Mistral-7B: the causal sliding window through generate ------------------
+
+MISTRAL_B, MISTRAL_PROMPT, MISTRAL_NEW = 2, 8192, 64
+# The teacher-forced last decode step (the cache path: a prefill of 8192
+# rows and 63 one-row steps, K1 at sq = 1 with the window at position 8254).
+# Its attention is held layer by layer against K1's plain version over the
+# cached K/V the step read (`CheckedAttention`, K1's tolerances). Its logits
+# are held against a windowed no-cache forward of the same 8255 tokens (K1
+# at sq = 8255): every K/V row of the two sides comes out of products of
+# other row counts, so bf16 flips leave noise in all 32 layers' keys, larger
+# than one step's against its plain version. MISTRAL_TF_ATOL is that
+# noise's limit, fixed from its readings on an H100 (PERF.md §6): the
+# generated tokens and MISTRAL_TF_DRAWS random sequences, 2 rows each, with
+# the window and without it, 16 readings in 0.180-0.242 at logits of
+# |5.8|; the limit is 1.55x the largest, and a wrong attention moves a
+# logit by O(1) (the window's own effect is 6.5). The window's own effect on
+# the last logits (with it against without, no-cache) must stand
+# MISTRAL_EFFECT_FACTOR above every noise reading, and the logits below
+# position 4096, where the window masks nothing, must not move at all.
+MISTRAL_TF_ATOL, MISTRAL_TF_DRAWS, MISTRAL_EFFECT_FACTOR = 0.375, 3, 8.0
+
+
+class PlainAttention(PlainCalls):
+    """Counts calls of the attention's plain versions (the dispatch and
+    K1's wrapper look them up at call time): a `generate` on the card must
+    run none."""
+
+    NAMES = ("flash_attention_fwd_plain", "_xla_attention")
+
+
+class CheckedAttention:
+    """Holds every K1 call made while it is open against K1's plain version
+    on the same inputs as the call saw them (`k1_agreement`): a decode
+    step's attention, layer by layer, over the cached K/V it read."""
+
+    def __init__(self, fa):
+        self.fa, self.calls = fa, []
+
+    def __enter__(self):
+        self.saved = kernel = self.fa.flash_attention_fwd
+
+        def call(q, k, v, **kw):
+            out, lse = kernel(q, k, v, **kw)
+            self.calls.append(k1_agreement(
+                out, lse, *self.fa.flash_attention_fwd_plain(q, k, v, **kw)))
+            return out, lse
+        # the wrapper counts its launches on the module's name, this call
+        call.launches = kernel.launches
+        self.fa.flash_attention_fwd = call
+        return self
+
+    def __exit__(self, *exc):
+        self.saved.launches = self.fa.flash_attention_fwd.launches
+        self.fa.flash_attention_fwd = self.saved
+
+
+def traced_step(fn, reps=3):
+    """The card's side of a call that launches more kernels than the launch
+    queue holds (the layered decode step: device_ms cannot queue it behind
+    a sleep), from a torch.profiler trace over `reps` calls: per call the
+    busy time (the union of the device activities' intervals), the kernels
+    launched and K1's device time. None where the trace holds no device
+    activity (not measured)."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None
+    busy, start, end = 0.0, None, None
+    for a, b in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in evs):
+        if end is None or a > end:
+            busy += 0 if end is None else end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    busy += end - start
+    k1 = sum(ev.time_range.end - ev.time_range.start for ev in evs
+             if "flash_fwd_sm90" in ev.name)
+    return {"busy_ms": busy / reps / 1e3, "device_activities": len(evs) / reps,
+            "k1_ms": k1 / reps / 1e3}
+
+
+def window_pairs(sq, off, window, kv_len):
+    """Visible (query, key) pairs of one (batch, head) under the window:
+    row i sees keys max(0, off + i - window + 1) … min(off + i, kv_len - 1)."""
+    p = np.arange(sq) + off
+    hi = np.minimum(p, kv_len - 1)
+    lo = np.maximum(0, p - window + 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def k1_window_timing(fa, gen, bw, flops, b, h, nkv, sq, sk, d, q_off,
+                     kv_len, window, groups_plain=False):
+    """K1's window mode at one of the `mistral` path's call shapes: held
+    against its plain fp32 version as phase k1 holds it (`k1_agreement`:
+    out and lse within K1's tolerances, rows with no key exact) and
+    launched twice with the same bits ("ok"; at the prefill shape the plain
+    version runs one kv-head group after another: the whole shape's fp32
+    scores would take 17 GB a temporary); then CUDA events over its
+    wrapper, the device time, the plain version's time, torch sdpa with
+    the equivalent dense mask (`library_ms`), the bound from this shape's
+    visible pairs, and the windowless causal kernel at the same shape."""
+    q = rand((b, sq, h, d), gen)
+    k = rand((b, sk, nkv, d), gen)
+    v = rand((b, sk, nkv, d), gen)
+    kl = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+    kw = dict(is_causal=True, causal_offset=q_off, kv_lens=kl)
+    fw = lambda: fa.flash_attention_fwd(q, k, v, window=window, **kw)
+    ms = time_ms(fw, iters=20)
+    dev = device_ms(fw, iters=20)
+    ms_full = time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), iters=20)
+    out, lse = fw()
+    out2, lse2 = fw()
+    repeat = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+    del out2, lse2
+    rep = h // nkv
+    if groups_plain:
+        def plain():
+            return [fa.flash_attention_fwd_plain(
+                q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1],
+                v[:, :, g:g + 1], window=window, **kw) for g in range(nkv)]
+        groups = []
+        for g in range(nkv):   # one group's fp32 temporaries at a time
+            hs = slice(g * rep, (g + 1) * rep)
+            ref, ref_lse = fa.flash_attention_fwd_plain(
+                q[:, :, hs], k[:, :, g:g + 1], v[:, :, g:g + 1],
+                window=window, **kw)
+            groups.append(k1_agreement(out[:, :, hs], lse[:, hs], ref,
+                                       ref_lse))
+            del ref, ref_lse
+        check = {key: max(c[key] for c in groups)
+                 for key in ("max_abs_err", "lse_max_abs_err")}
+        check.update(dead_rows=sum(c["dead_rows"] for c in groups),
+                     dead_rows_ok=all(c["dead_rows_ok"] for c in groups),
+                     ok=all(c["ok"] for c in groups))
+    else:
+        plain = lambda: fa.flash_attention_fwd_plain(q, k, v, window=window,
+                                                     **kw)
+        check = k1_agreement(out, lse, *plain())
+    check["repeat_bitwise"] = repeat
+    check["ok"] = check["ok"] and repeat
+    del out, lse
+    plain_ms = time_ms(plain, iters=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qp = torch.arange(sq, device="cuda")[:, None] + q_off
+    kp = torch.arange(sk, device="cuda")[None, :]
+    mask = ((kp <= qp) & (kp > qp - window) & (kp < kv_len))[None, None]
+    # the kv heads repeated to h outside the timed call: sdpa's kernels
+    # that take a mask take no GQA
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(rep, dim=1) for t in (k, v))
+    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters=20)
+    pairs = window_pairs(sq, q_off, window, kv_len) * b * h
+    full_pairs = window_pairs(sq, q_off, sq + q_off + 1, kv_len) * b * h
+
+    def bound(k_lo, npairs):
+        # q and out, the keys and values some row sees (from k_lo), lse
+        k_used = min(kv_len, q_off + sq) - k_lo
+        nbytes = (2 * q.numel() * 2 + 2 * b * k_used * nkv * d * 2
+                  + b * h * sq * 4)
+        t_b, t_o = nbytes / bw * 1e3, 4 * d * npairs / flops * 1e3
+        return nbytes, max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    nbytes, bound_ms, bound_by = bound(max(0, q_off - window + 1), pairs)
+    return {"shape_b_sq_sk_h_nkv_d": [b, sq, sk, h, nkv, d],
+            "causal_offset": q_off, "kv_len": kv_len, "window": window,
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_covers": "torch sdpa over the dense bool window mask, "
+                              "kv heads repeated beforehand",
+            **check, "tol": K1_TOL_OUT, "lse_tol": K1_TOL_LSE,
+            "visible_pairs": pairs, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": 4 * d * pairs / ms / 1e9,
+            "bound_share": bound_ms / ms, "windowless_ms": ms_full,
+            "windowless_bound_ms": bound(0, full_pairs)[1]}
+
+
+def phase_mistral(fa, fd, bw, flops, k1w_err):
+    """Mistral-7B (32 layers, h 4096, ffn 14336, GQA 32/8, window 4096;
+    bf16, random weights from seed 0) through inference.generate, b=2,
+    prompt 8192, 64 new tokens, greedy: the layered path (the fused plan
+    refuses a window), K1 with the window 32 times for the prefill and 32
+    a decode step, nothing else, no plain attention; TTFT, decode ms/step,
+    tokens/s, peak memory; the last decode step teacher-forced, its
+    attention held layer by layer against K1's plain version
+    (`CheckedAttention`) and its logits against a windowed no-cache forward
+    of the same tokens within MISTRAL_TF_ATOL, that noise also read without
+    the window and on MISTRAL_TF_DRAWS random sequences; the same weights
+    without the window give the same logits below position 4096 and others
+    past it; K1's window mode held against its plain version and timed at
+    the prefill and the decode shape."""
+    from paddle_tpu_torch.inference import generate, prefill
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.mistral_7b()
+    L, b, n, new = cfg.num_layers, MISTRAL_B, MISTRAL_PROMPT, MISTRAL_NEW
+    w = cfg.sliding_window
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.num_params()
+    plan = model.fused_decode_plan(model.state_dict(include_buffers=False),
+                                   probe=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (b, n), device="cuda",
+                        generator=gen)
+    torch.cuda.synchronize()
+    reset_counts(fa, fd)
+    with PlainAttention(fa) as plain:
+        t0 = time.perf_counter()
+        out = generate(model, ids, max_new_tokens=new)
+        torch.cuda.synchronize()
+        first_wall = time.perf_counter() - t0
+    got = counts(fa, fd)
+    want = dict.fromkeys(got, 0)
+    want["flash_attention_fwd"] = L + (new - 1) * L
+    if got != want or plain.n or plan is not None:
+        raise AssertionError(f"mistral: launch counts {got} (expected "
+                             f"{want}), plain calls {plain.n}, plan {plan}")
+    gen_tokens = out[:, n:]
+    if tuple(out.shape) != (b, n + new) or not torch.equal(out[:, :n], ids) \
+            or int(gen_tokens.min()) < 0 \
+            or int(gen_tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"mistral: bad tokens {tuple(out.shape)}")
+    reset_counts(fa, fd)
+
+    def wall(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(model, ids, max_new_tokens=k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ttft_s = min(wall(1) for _ in range(2))
+    gen_s = wall(new)
+    gen_peak = torch.cuda.max_memory_allocated()
+
+    def cache_path(tokens, check=None):
+        """generate's decode steps again, teacher-forced with `tokens`
+        (b, n + new - 1): a prefill of n rows, then one row a step; the
+        last step (position n + new - 2) gives the last token's logits.
+        check: a CheckedAttention open around that last step. Also returns
+        that step as a call (rerun in place, it writes the same K/V row)."""
+        logits, cache = prefill(model, tokens[:, :n], n + new)
+        del logits
+        for i in range(1, new):
+            pos = n + i - 1
+            step = lambda: model(tokens[:, pos:pos + 1], cache=cache,
+                                 start_pos=pos)
+            if i == new - 1 and check is not None:
+                with check:
+                    lc, cache = step()
+            else:
+                lc, cache = step()
+        return lc[:, -1].float(), step
+
+    def noise(tokens):
+        """Per row, max |cache path − no-cache forward| over the last
+        logits, with the window and (cfg.sliding_window None: every layer
+        shares this config) without it."""
+        rows = {}
+        for key, win in (("window", w), ("no_window", None)):
+            cfg.sliding_window = win
+            try:
+                lc, _ = cache_path(tokens)
+                lf = model(tokens)[:, -1].float()
+            finally:
+                cfg.sliding_window = w
+            rows[key] = (lc - lf).abs().amax(-1).tolist()
+        return rows
+
+    seq = out[:, :n + new - 1]
+    checked = CheckedAttention(fa)
+    with torch.inference_mode():
+        lc, step = cache_path(seq, checked)
+        step_trace = traced_step(step)
+        del step
+        lw = model(seq)
+        lw_last, lw_in = lw[:, -1].float(), lw[:, :w].float()
+        del lw
+        cfg.sliding_window = None
+        try:
+            lc_full, _ = cache_path(seq)
+            lf = model(seq)
+        finally:
+            cfg.sliding_window = w
+        lf_last, lf_in = lf[:, -1].float(), lf[:, :w].float()
+        del lf
+        # the same readings on random sequences of the same length
+        draws = [noise(torch.randint(0, cfg.vocab_size, seq.shape,
+                                     device="cuda", generator=gen))
+                 for _ in range(MISTRAL_TF_DRAWS)]
+    readings = {"window": (lc - lw_last).abs().amax(-1).tolist(),
+                "no_window": (lc_full - lf_last).abs().amax(-1).tolist()}
+    for d in draws:
+        for key in readings:
+            readings[key] += d[key]
+    tf_err = max(readings["window"][:b])
+    noise_max = max(readings["window"] + readings["no_window"])
+    inside = (lf_in - lw_in).abs().max().item()
+    past = (lf_last - lw_last).abs().max().item()
+    full_vs_cache = (lf_last - lc).abs().max().item()
+    finite = bool(torch.isfinite(lc).all() and torch.isfinite(lw_last).all())
+    argmax_ok = bool(torch.equal(lc.argmax(-1), out[:, -1]))
+    del lw_in, lf_in
+    peak = torch.cuda.max_memory_allocated()
+    wbytes = sum(p.numel() * p.element_size()
+                 for name, p in model.named_parameters()
+                 if "embed_tokens" not in name)
+    kv_bytes = L * b * w * 2 * cfg.kv_heads * cfg.head_dim * 2
+    decode_s = (gen_s - ttft_s) / (new - 1)
+    attn = checked.calls
+    attention = {"layers": len(attn), "ok": len(attn) == L and all(
+                     c["ok"] for c in attn),
+                 "max_abs_err": max((c["max_abs_err"] for c in attn),
+                                    default=None),
+                 "lse_max_abs_err": max((c["lse_max_abs_err"] for c in attn),
+                                        default=None),
+                 "tol": K1_TOL_OUT, "lse_tol": K1_TOL_LSE}
+    tf = {"position": n + new - 2,
+          "last_step_attention_vs_plain": attention,
+          "logit_max_abs_err_vs_no_cache": tf_err,
+          "noise_readings_per_row": readings,
+          "random_draws": MISTRAL_TF_DRAWS, "tol": MISTRAL_TF_ATOL,
+          "argmax_equals_generated": argmax_ok, "finite": finite,
+          "logit_absmax": lw_last.abs().max().item(),
+          "no_window_vs_window_below_window_max_abs": inside,
+          "no_window_vs_window_last_max_abs": past,
+          "no_window_vs_window_cache_last_max_abs": full_vs_cache,
+          "window_effect_over_noise": past / max(noise_max, 1e-9)}
+    tf["ok"] = (finite and argmax_ok and attention["ok"]
+                and max(readings["window"]) <= MISTRAL_TF_ATOL
+                and inside == 0.0
+                and tf["window_effect_over_noise"] >= MISTRAL_EFFECT_FACTOR)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tg = torch.Generator(device="cuda")
+    tg.manual_seed(5)
+    h, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    pos = n + new - 2
+    timing = {
+        "prefill": k1_window_timing(fa, tg, bw, flops, b, h, nkv, n, n + new,
+                                    d, 0, n, w, groups_plain=True),
+        "decode": k1_window_timing(fa, tg, bw, flops, b, h, nkv, 1, n + new,
+                                   d, pos, pos + 1, w)}
+    reset_counts(fa, fd)
+    res = {"phase": "mistral", "model": "mistral_7b", "layers": L,
+           "dtype": "bfloat16", "params": n_params, "window": w,
+           "batch": b, "prompt": n, "new": new, "init_s": init_s,
+           "fused_plan": None, "launches": got, "plain_attention_calls": 0,
+           "first_call_wall_s": first_wall,
+           "first_tokens": gen_tokens[:, :8].tolist(),
+           "ttft_ms": ttft_s * 1e3, "decode_ms_per_step": decode_s * 1e3,
+           "generate_ms": gen_s * 1e3, "tokens_per_s": b * new / gen_s,
+           "decode_step_bound_ms": (wbytes + kv_bytes) / bw * 1e3,
+           "decode_step_bytes": {"weights_and_head": wbytes,
+                                 "kv_in_window": kv_bytes},
+           "max_memory_allocated_generate": gen_peak,
+           "max_memory_allocated": peak,
+           "decode_step_trace": step_trace,
+           "decode_step_device_idle_share": None if step_trace is None
+               else 1 - step_trace["busy_ms"] / (decode_s * 1e3),
+           "teacher_forced": tf,
+           "k1_window_timing": timing}
+    emit(res)
+    if not tf["ok"]:
+        raise AssertionError(f"mistral: teacher-forced check failed {tf}")
+    bad = {k: t for k, t in timing.items() if not t["ok"]}
+    if bad:
+        raise AssertionError(f"mistral: K1's window mode disagrees with its "
+                             f"plain version at the path's shapes: {bad}")
+    t = timing["prefill"]
+    row = {"name": "flash_attention_fwd", "mode": "causal sliding window",
+           "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+           "replaces": "paddle_tpu/ops/flash_attention.py:526 "
+                       "(window: _window_k0 :465, mask :411)",
+           "launches": got["flash_attention_fwd"], "max_abs_err": max(
+               k1w_err, t["max_abs_err"], timing["decode"]["max_abs_err"]),
+           "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+           "library_ms": t["library_ms"], "at_prefill": t,
+           "at_decode": timing["decode"]}
+    return row, got
+
+
 # ---- training -----------------------------------------------------------------
 
 def phase_train(fa, fd, flops):
@@ -4071,6 +4731,11 @@ def main(argv):
               "False)", file=sys.stderr)
         return 1
     quick = "--quick" in argv
+    # a stalled phase (a kernel that never completes leaves the host in a
+    # synchronize) prints every thread's Python stack and exits non-zero
+    # inside the run's budget; a SIGABRT from outside does the same
+    faulthandler.enable()
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_decode as fd
@@ -4084,9 +4749,13 @@ def main(argv):
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "seconds_by_source": dict(_build.build_seconds),
           "libraries": sorted(_build._libs)})
+    if "--int8-stress" in argv:
+        phase_int8_stress(fd, rope)
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1_err = phase_k1(fa, gen)
+    k1w_err = phase_k1w(fa, fd, gen)
     k2_err = phase_k2(fd, rope, gen)
     k3_errs = phase_k3(fa, gen)
     k5q_errs, k7q_errs = {}, {}     # the int8 modes' errors (rows 6, 7)
@@ -4098,6 +4767,7 @@ def main(argv):
                 "k5g": phase_k5g(fd, rope, gen, k5q_errs),
                 "k7g": phase_k7g(fd, rope, gen, k7q_errs)}
     k2q_errs = phase_k2q(fd, rope, gen)
+    phase_int8_stress(fd, rope)
     k8_row = phase_k8(gen, bw)
     k9_row = phase_k9(fd, bw)
     if quick:
@@ -4135,6 +4805,9 @@ def main(argv):
     phase_step(fa, fd)
     kernels = phase_timing_train(fa, bw, flops, kernels, train_launches,
                                  k3_errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    window_row, mistral_launches = phase_mistral(fa, fd, bw, flops, k1w_err)
     # row 4's int8 sub-rows: the modes' timings and their plain-version
     # errors (phase k2q); launches on the runs that drive each mode
     k2 = kernels[1]
@@ -4172,10 +4845,14 @@ def main(argv):
         k["launches_by_path"]["int8_pool"] = int8_pool_launches[k["name"]]
         k["launches_by_path"]["int8_serve"] = int8_serve_launches[k["name"]]
         k["launches_by_path"]["moe"] = moe_launches[k["name"]]
+        k["launches_by_path"]["mistral"] = mistral_launches[k["name"]]
         for path, got in gpt_launches.items():
             k["launches_by_path"][path] = got[k["name"]]
         if k["name"] in gpt_rows:
             k["gpt"] = gpt_rows[k["name"]]
+    # row 1a: K1's window mode, launched on path mistral
+    window_row["launches_by_path"] = {"mistral": window_row["launches"]}
+    kernels[0]["window"] = window_row
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4184,4 +4861,6 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    rc = main(sys.argv[1:])
+    faulthandler.cancel_dump_traceback_later()
+    sys.exit(rc)

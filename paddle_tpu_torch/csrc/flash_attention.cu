@@ -6,9 +6,11 @@
 // (:526, pallas_call at :648) on every prefill and on the training forward:
 // causal with an explicit query offset (k_pos <= q_off + i), GQA by
 // indexing kv head hi / rep (k and v are never repeated), per-batch
-// kv_lens, and fully-masked rows giving 0 with lse NEG_INF. The lse is the
-// natural log of the scaled scores, as the backward kernels
-// (csrc/flash_attention_bwd.cu) read it.
+// kv_lens, the causal sliding window (the query at p = q_off + i sees the
+// keys p - window < k <= p: the reference's window mode, `_window_k0` at
+// :465 and the mask at :411-412), and fully-masked rows giving 0 with lse
+// NEG_INF. The lse is the natural log of the scaled scores, as the backward
+// kernels (csrc/flash_attention_bwd.cu) read it.
 //
 // What bounds it on the H100: at prefill shapes (sq ~ sk ~ 1k, d = 128) the
 // work is 4·d FLOPs per visible (query, key) pair against ~4·d bytes per
@@ -45,6 +47,16 @@
 //    units would read it from device memory again for every query tile.
 //  * sq = 1 (the layered decode path) and sq < 128 run the same kernel: rows
 //    past sq are TMA zero fill and are not stored.
+//  * The sliding window is a second instantiation (WIN = true; the
+//    windowless kernel's code is unchanged). A block loads the key tiles
+//    from t0 = max(0, q_off + q0 - window + 1) / BK, the tile of its first
+//    row's first visible key, to the causal / kv_len limit as before,
+//    producer and consumers counting ring stages from t0 alike (the peeled
+//    last P·V and the matched waits stay unconditional); a tile that
+//    straddles the window's lower edge for the group's rows takes the
+//    per-element mask as the diagonal does. A row whose visible keys all
+//    lie in later tiles keeps m = -inf and p = 0 until it meets them. At
+//    sq = 1 a decode step reads only the window's tiles.
 //  * ptxas keeps the wgmmas asynchronous only when each wait matches its
 //    group statically: every wgmma in the main loop is issued
 //    unconditionally (the last tile's P·V is peeled off), and P is
@@ -97,16 +109,20 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint64_t dq,
   wgmma_commit();
 }
 
-// Mask tile k0 where it straddles the causal diagonal or the kv_len edge
-// for this group's rows (rw0 … rw0+63), then the online-softmax update in
-// the log2 domain: m, l per row (l a per-thread partial), s -> p =
-// 2^(s·sl2 − m), alpha the factor that rescales the rows of O.
+// Mask tile k0 where it straddles the causal diagonal, the kv_len edge or
+// (WIN) the window's lower edge for this group's rows (rw0 … rw0+63; key
+// kc is below row r's window when kc <= wlo + r, wlo = q_off - window),
+// then the online-softmax update in the log2 domain: m, l per row (l a
+// per-thread partial), s -> p = 2^(s·sl2 − m), alpha the factor that
+// rescales the rows of O.
+template <bool WIN>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              int k0, int r0, int rw0, int tg,
                                              int kvlen, int causal, int q_off,
-                                             float sl2) {
-  if (k0 + BK > kvlen || (causal && k0 + BK - 1 > q_off + rw0)) {
+                                             int wlo, float sl2) {
+  if (k0 + BK > kvlen || (causal && k0 + BK - 1 > q_off + rw0) ||
+      (WIN && k0 <= wlo + rw0 + 63)) {
 #pragma unroll
     for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -114,7 +130,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int kc = k0 + c * 8 + tg * 2 + j;
-          if (kc >= kvlen || (causal && kc > q_off + r0 + 8 * i))
+          if (kc >= kvlen || (causal && kc > q_off + r0 + 8 * i) ||
+              (WIN && kc <= wlo + r0 + 8 * i))
             s[4 * c + 2 * i + j] = -INFINITY;
         }
   }
@@ -156,14 +173,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_commit();
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out,
                float* __restrict__ lse, const int* __restrict__ kv_lens,
                int sq, int sk, int h, int nkv, int causal, int q_off,
-               float scale, int group) {
+               int window, float scale, int group) {
   using C = Fwd<D>;
   constexpr int ST = C::ST;
   extern __shared__ uint8_t smem_raw[];
@@ -192,7 +209,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
   // keys that can be visible to some row of this block
   int kend = kvlen;
   if (causal) kend = min(kend, q_off + min(q0 + BQ, sq));
-  const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
+  // WIN: the tile of the block's first row's first visible key; both roles
+  // load and walk tiles t0 … t0 + ntiles - 1 and count ring stages from t0
+  const int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
+  const int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
+  const int wlo = WIN ? q_off - window : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -227,13 +248,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
         for (int c = 0; c < C::NCH; ++c)
           tma_load_4d(Ks + s * C::KV_BYTES + c * BK * 128, &mk, &full_k[s],
-                      c * 64, kh, it * BK, bi);
+                      c * 64, kh, (t0 + it) * BK, bi);
         mbar_wait(&empty_v[s], par);
         mbar_arrive_tx(&full_v[s], C::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < C::NCH; ++c)
           tma_load_4d(Vs + s * C::KV_BYTES + c * BK * 128, &mv, &full_v[s],
-                      c * 64, kh, it * BK, bi);
+                      c * 64, kh, (t0 + it) * BK, bi);
       }
     }
   } else {
@@ -267,7 +288,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<0>();
       fence_regs(s);
       mbar_arrive(&empty_k[0]);
-      softmax_tile(s, m, l, alpha, 0, r0, rw0, tg, kvlen, causal, q_off, sl2);
+      softmax_tile<WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen, causal,
+                        q_off, wlo, sl2);
       pack_a<BK>(s, p);
       // A pass issues S(it+1) and then P·V(it) (every wgmma unconditional,
       // so ptxas matches each wait to its group and keeps them
@@ -284,8 +306,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         wgmma_wait<1>();
         fence_regs(s);
         mbar_arrive(&empty_k[sn]);   // K(it+1) is read: its stage may refill
-        softmax_tile(s, m, l, alpha, (it + 1) * BK, r0, rw0, tg, kvlen,
-                     causal, q_off, sl2);
+        softmax_tile<WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0, tg,
+                          kvlen, causal, q_off, wlo, sl2);
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(p);
@@ -333,13 +355,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-           int causal, int q_off, float scale, cudaStream_t st) {
+           int causal, int q_off, int window, float scale, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (err) return err;
-  auto kern = flash_fwd_sm90<D>;
+  // window > 0 (with causal): the windowed instantiation
+  auto kern = window > 0 ? flash_fwd_sm90<D, true> : flash_fwd_sm90<D, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -348,7 +371,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const int grid = ((sq + BQ - 1) / BQ) * h * b;
   kern<<<grid, THREADS, Fwd<D>::SMEM, st>>>(
       mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-      nkv, causal, q_off, scale, group);
+      nkv, causal, q_off, window, scale, group);
   return (int)cudaGetLastError();
 }
 
@@ -357,14 +380,15 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, const void* kv_lens,
                                    int b, int sq, int sk, int h, int nkv,
-                                   int d, int causal, int q_off, float scale,
-                                   void* stream) {
+                                   int d, int causal, int q_off, int window,
+                                   float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
   if (d == 128)
     return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, scale, st);
+                       q_off, window, scale, st);
   if (d == 64)
     return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                      q_off, scale, st);
+                      q_off, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -497,15 +497,15 @@ engine_kernel(const __grid_constant__ CUtensorMap w0,
   }
 
   // ---- consumers: group g owns columns n0 + 64 half ... + 63 of a unit;
-  // int8: groups g and g + 2 take the unit's even and odd stages ----
+  // int8: groups g and g + 2 take the even and the odd ring stages ----
   const int g = warp >> 2, half = g & 1, par = g >> 1;
   const int t = threadIdx.x & 127, wl = t >> 5, lane = t & 31;
   // Every partial store comes after the kernel before this one (the last
   // reader of ws0/ws1, e.g. the SwiGLU epilogue before the down product).
   // A store after a full barrier is, since the rows load after the
-  // producer's wait; an int8 group left no stage by a one-stage unit stores
-  // zeros without one, so the consumers wait too (nothing to do before the
-  // rows land anyway).
+  // producer's wait; an int8 group that a unit leaves no stage stores zeros
+  // without one, so the consumers wait too (nothing to do before the rows
+  // land anyway).
   sm90::griddep_wait();
   uint8_t* cb = sm + g * (EK * 128);   // int8: the group's bf16 copy
   float d[N / 2];
@@ -515,8 +515,15 @@ engine_kernel(const __grid_constant__ CUtensorMap w0,
     const int n0 = (r % p.nct) * ECOLS, ksi = r / p.nct;
     const int k0 = ksi * p.kper, k1 = min(p.in, k0 + p.kper);
     bool any = false;
-    for (int k = k0, c = 0; k < k1; k += EK, ++it, ++c) {
-      if (I8 && (c & 1) != par) continue;
+    for (int k = k0; k < k1; k += EK, ++it) {
+      // int8: a stage belongs to one group pair for good (by its index, not
+      // by the chunk's place in its unit), so a group waits on every fill
+      // of its stages in order. Were it to skip a fill of one of them, its
+      // parity wait for the next fill would pass while the skipped fill is
+      // still in flight (the barrier two phases behind reads as done): a
+      // read of the wrong tile, an early release, and in time a ring that
+      // never fills (a hang of the int8 products).
+      if (I8 && ((it % ST) & 1) != par) continue;
       const int s = it % ST;
       uint8_t* stg = stages + s * Ly::STAGE;
       sm90::mbar_wait(&full[s], (it / ST) & 1);
@@ -563,13 +570,13 @@ engine_kernel(const __grid_constant__ CUtensorMap w0,
       sm90::mbar_arrive(&empty[s]);   // the stage (its X tile too) is read
       any = true;
     }
-    if (!any) {   // int8: a one-stage unit leaves the odd groups nothing
+    if (!any) {   // int8: a unit may leave one group pair no stage
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
     }
     // d[4c + 2i + j]: column n0 + 64 half + 16 wl + lane/4 + 8i, row 8c +
-    // 2 (lane % 4) + j; int8: split ksi's even and odd stages are partial
-    // sets 2 ksi and 2 ksi + 1
+    // 2 (lane % 4) + j; int8: split ksi's chunks in even and odd stages are
+    // partial sets 2 ksi and 2 ksi + 1
     float* o = (z ? ws1 : ws0) + (long)(I8 ? 2 * ksi + par : ksi) * rows * out;
     const int col = n0 + half * 64 + wl * 16 + (lane >> 2);
 #pragma unroll

@@ -38,6 +38,10 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_base: float = 10000.0
     initializer_range: float = 0.02
+    # Mistral-style causal sliding-window attention (None = full causal):
+    # a query at position p sees the keys p - sliding_window < k <= p, in
+    # the no-cache forward and on the cache path alike (K1's window mode)
+    sliding_window: Optional[int] = None
 
     @property
     def kv_heads(self):
@@ -56,6 +60,15 @@ class LlamaConfig:
     @classmethod
     def llama2_7b(cls):
         return cls()
+
+    @classmethod
+    def mistral_7b(cls):
+        # the reference's numbers (paddle_tpu/models/llama.py:68-75): a
+        # 4096-key window over a 32k context, rope base 10000
+        return cls(vocab_size=32000, hidden_size=4096,
+                   intermediate_size=14336, num_layers=32, num_heads=32,
+                   num_kv_heads=8, max_position_embeddings=32768,
+                   sliding_window=4096)
 
 
 class LlamaAttention(nn.Layer):
@@ -94,9 +107,11 @@ class LlamaAttention(nn.Layer):
             # decode/prefill into the preallocated cache: write k/v at
             # [start_pos, start_pos+s) IN PLACE, attend to the filled
             # prefix. The reference passes the dense bool mask
-            # k_pos <= start_pos + i over the whole cache; the same limit
-            # goes here as structured arguments (causal offset start_pos,
-            # kv_len start_pos + s), which the kernel takes directly.
+            # k_pos <= start_pos + i (and, with a window,
+            # k_pos > start_pos + i - window) over the whole cache; the
+            # same limits go here as structured arguments (causal offset
+            # start_pos, kv_len start_pos + s, the window), which the
+            # kernel takes directly.
             if attn_mask is not None:
                 raise NotImplementedError(
                     "attn_mask with a KV cache is not ported yet")
@@ -105,12 +120,13 @@ class LlamaAttention(nn.Layer):
             out = F.scaled_dot_product_attention(
                 q, cache["k"], cache["v"], is_causal=True,
                 causal_offset=start_pos, kv_lens=start_pos + s,
-                training=False)
+                training=False, window_size=cfg.sliding_window)
             out = self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
             return out, cache
         # no cache: causal, bottom-right aligned (sq == sk here)
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                             is_causal=True, training=False)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, is_causal=True, training=False,
+            window_size=cfg.sliding_window)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
 
 
@@ -228,9 +244,12 @@ class LlamaForCausalLM(CausalLMBase):
     """Llama LM head model. ``device`` defaults to cuda (raises without a
     GPU); ``dtype`` is the parameter dtype the weights are drawn in; they
     are drawn from a ``torch.Generator`` on ``device`` seeded with ``seed``
-    (or from the global seed stream when ``seed`` is None). Tied
-    embeddings and sliding-window attention are not ported yet (ROADMAP
-    Queue A item 4)."""
+    (or from the global seed stream when ``seed`` is None). A
+    ``sliding_window`` config (Mistral) runs K1's window mode in the
+    no-cache forward and on the cache path, and decodes on the layered
+    path (its fused plan is None, as in the reference). Tied embeddings
+    and the windowed backward on the card are not ported yet (ROADMAP
+    Queue A item 4, Queue B rows 2-3)."""
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None,
                  seed: Optional[int] = None):
@@ -254,7 +273,9 @@ class LlamaForCausalLM(CausalLMBase):
     def fused_decode_plan(self, state, probe=False):
         """Plan for the fused decode-step path (ops.fused_decode): stacked
         per-layer weights plus embed/head closures, or None when this
-        config can't ride it (odd head_dim, non-standard state). llama,
+        config can't ride it (odd head_dim, a sliding window — the fused
+        step attends the whole filled prefix, so the layered path serves
+        it, as in the reference — non-standard state). llama,
         bf16 or fp32 weights, or a weight-only int8 state
         (``quantization.quantize_model``: int8 stacks with per-out-channel
         scale rows, the head ``weight_only_linear``'s product on the
@@ -263,7 +284,7 @@ class LlamaForCausalLM(CausalLMBase):
 
         With probe=True only eligibility + static meta are computed."""
         cfg = self.cfg
-        if cfg.head_dim % 2:
+        if cfg.head_dim % 2 or cfg.sliding_window is not None:
             return None
         int8 = "model.layers.0.self_attn.q_proj.weight_q" in state
         if not int8 and "model.layers.0.self_attn.q_proj.weight" not in state:

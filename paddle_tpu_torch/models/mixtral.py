@@ -184,13 +184,15 @@ class MixtralForCausalLM(CausalLMBase):
         """Plan of the fused MoE decode step (ops.fused_decode arch="moe"):
         stacked weights plus embed/head closures, or None when this config
         cannot ride it. Eligibility as the reference's: even head_dim,
-        E % 8 == 0, not dropless, a standard state. ``max_batch`` is the
+        E % 8 == 0, not dropless, no sliding window (the layered path
+        serves a windowed config), a standard state. ``max_batch`` is the
         largest b with b <= the gate's capacity(b): a token's top-k experts
         are distinct, so the worst load of one expert is b, and no copy is
         dropped. With probe=True only eligibility and static meta are
         computed."""
         cfg = self.cfg
-        if cfg.head_dim % 2 or cfg.num_experts % 8 or cfg.moe_dropless:
+        if (cfg.head_dim % 2 or cfg.num_experts % 8 or cfg.moe_dropless
+                or cfg.sliding_window is not None):
             return None
         if "model.layers.0.self_attn.q_proj.weight" not in state:
             return None     # non-standard state (e.g. int8, not ported)

@@ -125,14 +125,17 @@ def cross_entropy(logits, label, reduction="mean", ignore_index=-100):
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, scale=None,
-                                 kv_lens=None, causal_offset=None):
+                                 kv_lens=None, causal_offset=None,
+                                 window_size=None):
     """q/k/v: (batch, seq, heads, head_dim) — the reference's layout.
 
     On CUDA tensors this runs the hand-written flash-attention kernels
     (forward, and the backward ones when a gradient is needed); on CPU
-    tensors the plain versions (see ``ops.flash_attention``)."""
+    tensors the plain versions (see ``ops.flash_attention``).
+    ``window_size`` is the causal sliding window (Mistral)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     return fa.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
         is_causal=is_causal, training=training, scale=scale,
-        kv_lens=kv_lens, causal_offset=causal_offset)
+        kv_lens=kv_lens, causal_offset=causal_offset,
+        window_size=window_size)

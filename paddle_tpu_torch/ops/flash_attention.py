@@ -29,6 +29,14 @@ head_dim); GQA when k/v carry fewer heads than q.
 causal limit to ``k_pos <= causal_offset + i`` instead of the bottom-right
 alignment ``sk - sq``. The KV-cache prefill passes it (with ``kv_lens``)
 where the reference passes the equivalent dense bool mask.
+
+``window`` (``window_size`` at the dispatch) is the causal sliding window
+of the reference (Mistral): the query at absolute position
+``p = off + i`` sees the keys ``p - window < k <= p``, i.e. the
+reference's ``q_pos + off - k_pos < window`` (``:79-84``, ``:411-412``).
+It needs ``is_causal`` and ``window >= 1``. K1 computes it (skipping the
+key tiles below the block's first visible key); K3/K4 have no window mode
+yet, so a windowed call that needs a gradient on the card raises.
 """
 
 import ctypes
@@ -50,14 +58,31 @@ def _repeat_kv(k, n_rep):
         b, s, h * n_rep, d)
 
 
-def _structured_mask(sq, sk, is_causal, kv_lens, causal_offset, device):
+def _check_window(window, is_causal):
+    """The reference's validation of window_size (:196-202)."""
+    if window is None:
+        return None
+    window = int(window)
+    if not is_causal:
+        raise ValueError("window_size requires is_causal=True (causal "
+                         "sliding window)")
+    if window < 1:
+        raise ValueError(f"window_size must be >= 1, got {window}")
+    return window
+
+
+def _structured_mask(sq, sk, is_causal, kv_lens, causal_offset, device,
+                     window=None):
     """Dense (b|1, 1, sq, sk) bool mask of the structured arguments."""
+    window = _check_window(window, is_causal)
     masks = []
     if is_causal:
         off = sk - sq if causal_offset is None else int(causal_offset)
         q_pos = torch.arange(sq, device=device)[:, None] + off
-        masks.append((torch.arange(sk, device=device)[None, :]
-                      <= q_pos)[None, None])
+        k_pos = torch.arange(sk, device=device)[None, :]
+        masks.append((k_pos <= q_pos)[None, None])
+        if window is not None:
+            masks.append((k_pos > q_pos - window)[None, None])
     if kv_lens is not None:
         kl = torch.as_tensor(kv_lens, device=device).reshape(-1)
         masks.append((torch.arange(sk, device=device)[None, :]
@@ -71,7 +96,7 @@ def _structured_mask(sq, sk, is_causal, kv_lens, causal_offset, device):
 
 
 def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
-                   kv_lens=None, causal_offset=None):
+                   kv_lens=None, causal_offset=None, window=None):
     """The plain version: scores in fp32 (fp64 for fp64 inputs)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -82,7 +107,7 @@ def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
     acc = torch.promote_types(q.dtype, torch.float32)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     structured = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
-                                  q.device)
+                                  q.device, window)
     if structured is not None:
         scores = torch.where(structured, scores,
                              torch.tensor(NEG_INF, dtype=acc, device=q.device))
@@ -106,7 +131,7 @@ def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
 
 
 def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
-                              kv_lens=None, causal_offset=None):
+                              kv_lens=None, causal_offset=None, window=None):
     """Plain twin of the kernel: (out (b, sq, h, d) in q's dtype, lse
     (b, h, sq) fp32), computed in fp32. Fully-masked rows give out 0 and
     lse NEG_INF, as the kernel does."""
@@ -118,7 +143,7 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
     mask = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
-                            q.device)
+                            q.device, window)
     if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(-1, keepdim=True)
@@ -133,7 +158,8 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
-                              scale=None, kv_lens=None, causal_offset=None):
+                              scale=None, kv_lens=None, causal_offset=None,
+                              window=None):
     """Plain twin of the backward kernels: (dq, dk, dv) in fp32 from the
     forward's (out, lse), with the kernels' contract: P = exp(S·scale − lse)
     on visible keys and 0 on a row whose lse is NEG_INF, Δ = rowsum(dO∘O),
@@ -151,7 +177,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
     p = torch.exp(s - lse)
     keep = (lse > NEG_INF * 0.5).expand_as(p)
     mask = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
-                            q.device)
+                            q.device, window)
     if mask is not None:
         keep = keep & mask
     p = torch.where(keep, p, torch.zeros((), device=q.device))
@@ -228,7 +254,7 @@ def _refuse_grad(what, *ts):
 
 
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
-                        causal_offset=None):
+                        causal_offset=None, window=None):
     """Flash-attention forward: (out, lse) as flash_attention_fwd_plain.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64 or
@@ -236,9 +262,10 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
     plain twin. Inputs that require grad, with grad mode on, raise: the
     output of a raw kernel carries no gradient."""
     _refuse_grad("flash_attention_fwd", q, k, v)
+    window = _check_window(window, is_causal)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, is_causal, scale, kv_lens,
-                                         causal_offset)
+                                         causal_offset, window)
     b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
                                                 q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -246,12 +273,14 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
     kl = _kv_lens_arg(kv_lens, b, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 8)
+    lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9)
+    # window 0: the windowless kernel; a window takes the windowed one
+    # (beyond 2^30 it masks nothing and stays a C int)
     err = lib.flash_attention_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _build.ptr(kl) if kl is not None else None,
-        b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off, float(scale),
-        _build.stream_of(q))
+        b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
+        min(window or 0, 1 << 30), float(scale), _build.stream_of(q))
     flash_attention_fwd.launches += 1
     _build.check(err, "flash_attention_fwd")
     return out, lse
@@ -317,18 +346,27 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
 flash_attention_bwd_dkv.launches = 0
 
 
+def _refuse_window_grad(window):
+    if window is not None:
+        raise NotImplementedError(
+            "the backward of a sliding-window attention is not ported to the "
+            "card yet (K3/K4 have no window mode: ROADMAP Queue B rows 2-3); "
+            "run the windowed forward under torch.no_grad()")
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
-                        kv_lens=None, causal_offset=None):
+                        kv_lens=None, causal_offset=None, window=None):
     """Gradients (dq, dk, dv) of the attention whose forward gave (out,
     lse), in the dtypes of q, k, v. CPU tensors take
     ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O) in
     fp32 (as the reference does outside its kernels, :1059) and launch K3
-    and K4."""
+    and K4, which take no window (it raises)."""
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                is_causal, scale, kv_lens,
-                                               causal_offset)
+                                               causal_offset, window)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    _refuse_window_grad(window)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
               causal_offset=causal_offset)
@@ -359,14 +397,18 @@ class FlashAttention(torch.autograd.Function):
     incoming gradient contiguous itself, and saves those copies."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, scale, kv_lens, causal_offset):
+    def forward(ctx, q, k, v, is_causal, scale, kv_lens, causal_offset,
+                window=None):
+        if q.device.type != "cpu":
+            _refuse_window_grad(window)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = flash_attention_fwd(q, k, v, is_causal=is_causal,
                                        scale=scale, kv_lens=kv_lens,
-                                       causal_offset=causal_offset)
+                                       causal_offset=causal_offset,
+                                       window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
-                      causal_offset=causal_offset)
+                      causal_offset=causal_offset, window=window)
         return out
 
     @staticmethod
@@ -375,38 +417,44 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, scale=None,
-                                 kv_lens=None, causal_offset: Optional[int] = None):
+                                 kv_lens=None, causal_offset: Optional[int] = None,
+                                 window_size: Optional[int] = None):
     """Attention with the device dispatch (see the module docstring).
 
-    Left for later PRs on the kernel path: dense bool/float masks, segment
-    ids, sliding windows, ALiBi and dropout (ROADMAP Queue B row 1); those
-    raise on CUDA tensors. The plain version takes dense masks (and, on the
-    CPU, differentiates through them by torch's own autograd)."""
+    ``window_size`` is the causal sliding window (needs ``is_causal``): K1
+    computes it; its backward on the card is not ported yet (K3/K4, ROADMAP
+    Queue B rows 2-3) and raises. Left for later PRs on the kernel path:
+    dense bool/float masks, segment ids, ALiBi and dropout (ROADMAP Queue B
+    row 1); those raise on CUDA tensors. The plain version takes dense
+    masks (and, on the CPU, differentiates through them and the window by
+    torch's own autograd)."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "attention dropout is not ported yet (ROADMAP Queue B row 1); "
             "pass training=False or dropout_p=0")
+    window = _check_window(window_size, is_causal)
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     if q.device.type == "cpu" and (attn_mask is not None or not needs_grad):
         return _xla_attention(q, k, v, attn_mask=attn_mask,
                               is_causal=is_causal, scale=scale,
-                              kv_lens=kv_lens, causal_offset=causal_offset)
+                              kv_lens=kv_lens, causal_offset=causal_offset,
+                              window=window)
     if attn_mask is not None:
         raise NotImplementedError(
             "dense attn_mask on the CUDA kernel path is not ported yet "
             "(ROADMAP Queue B row 1); pass is_causal/causal_offset/kv_lens")
     if needs_grad:
         return FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
-                                    causal_offset)
+                                    causal_offset, window)
     # the kernel takes contiguous tensors: GPT's qkv split gives strided
     # views (a no-op copy for the rest, as in FlashAttention)
     return flash_attention_fwd(q.contiguous(), k.contiguous(),
                                v.contiguous(), is_causal=is_causal,
                                scale=scale, kv_lens=kv_lens,
-                               causal_offset=causal_offset)[0]
+                               causal_offset=causal_offset, window=window)[0]

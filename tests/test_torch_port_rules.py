@@ -487,6 +487,31 @@ def test_flash_kernel_matches_plain(cuda, h, nkv, sq, sk, d, q_off, kv_len):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,sq,sk,d,q_off,kv_len,window", [
+    (16, 4, 384, 1200, 128, 700, 1100, 1),
+    (16, 4, 384, 1200, 128, 700, 1100, 200),
+    (8, 2, 200, 260, 64, None, 250, 129),
+    (32, 8, 1, 8256, 128, 8254, 8255, 4096)])
+def test_flash_kernel_window_matches_plain(cuda, h, nkv, sq, sk, d, q_off,
+                                          kv_len, window):
+    """K1's causal sliding window against its plain version (batch row 1
+    holds no key: 0 and lse NEG_INF), two launches with the same bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v = mk(2, sq, h, d), mk(2, sk, nkv, d), mk(2, sk, nkv, d)
+    kl = torch.tensor([kv_len, 0], dtype=torch.int32, device=cuda)
+    kw = dict(is_causal=True, causal_offset=q_off, kv_lens=kl, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-3, rtol=0)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nkv", [4, 1])
 def test_fused_decode_kernel_matches_plain(cuda, nkv):
     from paddle_tpu_torch.ops import fused_decode as fd
@@ -1124,6 +1149,49 @@ def test_decode_kernels_take_wide_rows(cuda, b, w8):
                                           cos.index_select(0, at),
                                           sin.index_select(0, at), **kw)
     assert torch.equal(xs, xk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,b", [("decode", 8), ("decode", 16),
+                                    ("decode", 64), ("verify", 2),
+                                    ("verify", 8)])
+def test_int8_engine_repeats_its_bits(cuda, step, b):
+    """K2 at b rows and K7 at b slots × 5 tokens with int8 weights at
+    Llama-2-7B's widths (2 layers, GQA 4): the product engine's N of 8, 16
+    and 64, whose int8 rings hold 8, 7 and 4 stages. 300 launches give the
+    first launch's x_out bits. (Each int8 ring stage belongs to one
+    consumer pair by its index: a pair that skipped a fill of one of its
+    stages could pass its parity wait on a later fill still in flight,
+    read and release the wrong tile, and in time leave the ring unfilled.)"""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, S, nh, nkv, hd, K1, BT = 2, 640, 32, 8, 128, 5, 16
+    h, dkv2 = nh * hd, 2 * nkv * hd
+    p = _llama_cuda_params(L, h, nh, nkv, 11008, True)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    randn = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    if step == "decode":
+        pos = 600
+        x, kv = randn(b, h), randn(L, b, S, dkv2)
+        kv[:, :, pos:] = 0
+        call = lambda: fd.fused_decode_cuda(x, p, kv, pos, cos[pos:pos + 1],
+                                            sin[pos:pos + 1], **kw)[0]
+    else:
+        MB = S // BT
+        x, pool = randn(b, K1, h), randn(L, 1 + b * MB, BT, dkv2)
+        perm = torch.randperm(b * MB, generator=torch.Generator()
+                              .manual_seed(b))
+        tab = (perm.reshape(b, MB) + 1).to(torch.int32).to(cuda)
+        pos = torch.randint(0, S - K1, (b,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        pj = pos.long()[:, None] + torch.arange(K1, device=cuda)[None]
+        call = lambda: fd.fused_paged_verify_cuda(x, p, pool, tab, pos,
+                                                  cos[pj], sin[pj], **kw)[0]
+    first = call().clone()
+    differing = sum(int(not torch.equal(call(), first)) for _ in range(300))
+    assert differing == 0
 
 
 @pytest.mark.cuda
