@@ -3,6 +3,9 @@
     python3 chip_smoke.py            # every phase; needs one card
     python3 chip_smoke.py --quick    # card, build, and the kernel checks only
     python3 chip_smoke.py --int8-stress   # card, build, phase int8_stress
+    python3 chip_smoke.py --training      # card, build, k3w, llama_step,
+                                          # train_llama, train_mistral
+    python3 chip_smoke.py --bwd-times     # card, build, bwd_times
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -12,7 +15,8 @@ Phases, each printing one JSON line:
               and the edges of its 128-row query tile and 128-key TMA ring
               (sq 1, 65, 127, 129, 200; sk off the tile; an offset inside a
               key tile; GQA 4 and 8; a batch row of kv_len 0, whose rows
-              must give 0 and lse NEG_INF exactly; d 64 and 128).
+              must give 0 and lse NEG_INF exactly; d 64 and 128); and
+              train_llama's call (b 4, S 2048, 32 heads over 4, d 64).
   3a. k1w   — K1's causal sliding window vs its plain fp32 version at the
               kernel's edges: windows 1, 64, 127, 128, 129, 200 and 4096
               over 384 query rows at offset 700 (the first block's t0
@@ -42,8 +46,24 @@ Phases, each printing one JSON line:
               200; sk off the 128-key block; an offset; GQA 4 and 8; d 64
               and 128) and K3's (sq 64, where the second consumer group has
               no rows, and 193; sk 65; an offset inside a 64-key tile; GQA
-              8 at d 128); K3 and K4 each launched twice on each case's
+              8 at d 128) and train_llama's call (b 4, S 2048, 32 heads
+              over 4, d 64); K3 and K4 each launched twice on each case's
               inputs must give the same bits.
+  5a. k3w   — K3's and K4's causal sliding window (their windowed
+              instantiations, on K1's windowed forward) vs the plain fp32
+              backward with the window: windows 1, 63, 64, 65, 127, 128,
+              129, 200, 512 and 4096 over 384 query rows at offset 700
+              (inside a 64-key tile), GQA 4 and 8, d 64 and 128, a batch
+              row of kv_len 0 (zero gradients) and one ending early, sq 64,
+              bottom-right self-attention, windows at and above the visible
+              span (the windowless kernels' bits); every case launched
+              twice with the same bits; then train_mistral's attention
+              shape (b 1, S 8192, 32 heads over 8, d 128, window 4096):
+              K1's out and lse, then K3's and K4's gradients, held one
+              kv-head group at a time, and K3 and K4 timed there beside
+              their bounds, the windowless kernels, the plain backward and
+              torch sdpa's forward plus backward over the dense window
+              mask (rows 2a and 3a).
   6. k5     — paged decode-step kernel vs its plain version at Llama-2-7B
               width with 2 layers, b=8 over a shuffled block table (BT 128,
               16 blocks per row): rows at mixed positions with one idle row,
@@ -271,8 +291,43 @@ Phases, each printing one JSON line:
               (out, lse, two launches bitwise) and timed beside its bound,
               the plain version, the windowless kernel and sdpa over the
               dense window mask (row 1a).
+ 17a. llama_step — train_llama's model cut to 2 layers at full width
+              (b 4, S 2048, core_attn, 4 loss chunks): one loss and
+              gradient as train_llama computes them (the recompute saving
+              core_attn's names), again without recompute (bit for bit
+              the same), and against the same step in fp32 with the
+              attention's plain versions in place of K1, K3 and K4 (loss
+              and every gradient within phase step's tolerances).
+ 18. train_llama — TinyLlama-1.1B (train_bench's llama-1b: h 2048, 22
+              layers, GQA 32/4, ffn 5632, vocab 32000; bf16, random weights
+              from seed 0) through paddle_tpu_torch.train_bench's build and
+              train_step at the reference's settings: b 4, S 2048,
+              recompute core_attn, 4 loss chunks, AdamW(1e-4,
+              multi_precision=False); 2 warm-up and 10 counted, timed
+              steps: K1 twice a layer a step (the forward and its replay
+              under recompute), K3 and K4 once, no plain attention call, the
+              loss finite and falling; step ms, tokens/s, MFU (dense 6N
+              and over the visible pairs), peak memory and one traced step
+              by kernel family.
+ 19. train_mistral — Mistral-7B (LlamaConfig.mistral_7b(): 32 layers, h
+              4096, ffn 14336, GQA 32/8, window 4096; bf16, random weights
+              from seed 0) at b 1, S 8192 (twice the window), recompute
+              full, 8 loss chunks, AdamW(1e-4, multi_precision=False): 2
+              warm-up and 3 counted steps, every K1, K3 and K4 launch
+              windowed (the wrappers' `windowed` counts), nothing else, no
+              plain attention; layer 0's attention at this shape (K1's out
+              and lse, K3's and K4's gradients) against the plain versions
+              one kv-head group at a time; the same measurements as
+              train_llama.
+ bwd_times (--bwd-times alone) — the windowless K3 and K4 at GPT-2 345M's,
+              train_llama's and train_mistral's attention shapes, as phase
+              timing_train times them; the calls take no window, so the
+              script runs against a tree that predates it too (copy it
+              into the tree and run it there: the tree's own package is
+              imported), parent and change in turns in one call.
 
---quick stops after phase 8d; --int8-stress runs phase 8f alone. Every failure propagates and exits non-zero.
+--quick stops after phase 8d; --int8-stress runs phase 8f alone; --training
+runs phases 5a, 17a, 18 and 19. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -311,7 +366,7 @@ E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
 # The MoE phase's teacher-forced 28-layer step (4 rows × 102400 logits)
 # read 0.117 against the plain path taking K6's experts: the same noise.
 SERVE_LOGIT_ATOL = 0.15
-# The whole run, build included, takes about 150-250 s on an H100; past
+# The whole run, build included, takes about 240 s on an H100; past
 # this many seconds the watchdog reports a stall and ends the run.
 WATCHDOG_S = 1100
 # K3/K4: each gradient within K3_TOL · max|plain|. The kernels round P and
@@ -328,6 +383,15 @@ K3_TOL = 2.0 ** -6
 # ~1e-2 over 2 layers. A broken backward gives O(1).
 STEP_LOSS_ATOL = 2e-2
 STEP_GRAD_RTOL = 5e-2
+# train_llama's attention call (TinyLlama-1.1B at b 4, S 2048): b, heads,
+# kv heads, sq, sk, head_dim
+LLAMA_TRAIN_ATTN = (4, 32, 4, 2048, 2048, 64)
+# train_mistral's attention call: b, S, heads, kv heads, head_dim, window
+K3W_PATH = (1, 8192, 32, 8, 128, 4096)
+# train_mistral's depth: Mistral-7B's full 32 layers (bf16 weights, grads
+# and both AdamW moments, 8 bytes a parameter, 57.9 GB, + 2.1 GB of layer
+# boundaries at S 8192 fit one 80 GB card)
+MISTRAL_TRAIN_LAYERS = 32
 
 
 def close(a, ref, atol, rtol):
@@ -435,9 +499,9 @@ def k1_agreement(out, lse, ref, ref_lse):
 
 def k1_case(fa, gen, b, h, nkv, sq, sk, d, q_off, kv_len, causal=True,
             window=None):
-    """K1 against its plain version; kv_len is one length for every row or
-    a list (a 0 gives a batch row with no visible key), q_off None the
-    bottom-right causal alignment. With a window, K1 launches twice (the
+    """K1 against its plain version; kv_len is one length for every row, a
+    list (a 0 gives a batch row with no visible key) or None (no kv_lens,
+    as a training call), q_off None the bottom-right causal alignment. With a window, K1 launches twice (the
     same bits), a window at or above the visible span (off + sq keys, the
     most a row sees) must give the windowless launch's bits, and t0, the
     first key tile of the first query block, is reported with whether a
@@ -445,8 +509,11 @@ def k1_case(fa, gen, b, h, nkv, sq, sk, d, q_off, kv_len, causal=True,
     q = rand((b, sq, h, d), gen)
     k = rand((b, sk, nkv, d), gen)
     v = rand((b, sk, nkv, d), gen)
-    lens = [kv_len] * b if isinstance(kv_len, int) else list(kv_len)
-    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if kv_len is None:
+        kl = None
+    else:
+        lens = [kv_len] * b if isinstance(kv_len, int) else list(kv_len)
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     kw = dict(is_causal=causal, causal_offset=q_off, kv_lens=kl)
     if window is not None:
         kw["window"] = window
@@ -495,6 +562,11 @@ def phase_k1(fa, gen):
         k1_case(fa, gen, 2, 8, 1, 200, 260, 64, None, [260, 3],
                 causal=False),
     ]
+    # train_llama's call, from a generator of its own (the later phases'
+    # inputs stay as they were)
+    own = torch.Generator(device="cuda")
+    own.manual_seed(17)
+    cases.append(k1_case(fa, own, *LLAMA_TRAIN_ATTN, None, None))
     emit({"phase": "k1", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -1587,7 +1659,13 @@ def phase_wide(fa, fd):
 # ---- K3 / K4 ------------------------------------------------------------------
 
 def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
-            q_off=None):
+            q_off=None, window=None):
+    """K3/K4 through the autograd Function against the plain backward on
+    the kernel forward's (out, lse), and each launched twice with the same
+    bits. With a window (K3's and K4's windowed instantiations, the forward
+    K1's) also t0, the first key tile of the first query block, and, for
+    a window at or above the visible span (off + sq keys, the most a row
+    sees), the windowless launches' bits."""
     q = rand((b, sq, h, d), gen)
     k = rand((b, sk, nkv, d), gen)
     v = rand((b, sk, nkv, d), gen)
@@ -1595,19 +1673,22 @@ def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
     kl = None if kv_lens is None else torch.tensor(kv_lens, dtype=torch.int32,
                                                    device="cuda")
     kw = dict(is_causal=causal, kv_lens=kl, causal_offset=q_off)
+    wkw = {} if window is None else {"window": window}
     with torch.no_grad():
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw, **wkw)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw, **wkw)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    o = fa.scaled_dot_product_attention(*leaves, **kw)
+    o = fa.scaled_dot_product_attention(*leaves, **kw, window_size=window)
     o.backward(do)
     # K3 sums the key tiles and K4 the GQA heads in a fixed order without
     # atomics: two launches on the same inputs give the same bits
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq1 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk1, dv1 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq1 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw, **wkw)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw, **wkw)
+    dk1, dv1 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw,
+                                          **wkw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw,
+                                          **wkw)
     torch.cuda.synchronize()
     bitwise3 = bool(torch.equal(dq1, dq2))
     bitwise4 = bool(torch.equal(dk1, dk2) and torch.equal(dv1, dv2))
@@ -1616,16 +1697,51 @@ def k3_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
            "tol_of_max_ref": K3_TOL, "k3_two_launches_bitwise": bitwise3,
            "k4_two_launches_bitwise": bitwise4,
            "ok": bitwise3 and bitwise4}
+    if window is not None:
+        off = sk - sq if q_off is None else q_off
+        res.update(window=window, t0_first_block=max(0, off - window + 1)
+                   // 64)
+        if window >= off + sq:
+            dq0 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk0, dv0 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  **kw)
+            res["windowless_bitwise"] = bool(
+                torch.equal(dq1, dq0) and torch.equal(dk1, dk0)
+                and torch.equal(dv1, dv0))
+            res["ok"] &= res["windowless_bitwise"]
+    cancel = None
+    if window == 1:
+        cancel = cancel_noise(q, k, out, do)
+        res["window1_cancel_noise"] = cancel
     for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
         g = t.grad.float()
         err = (g - r).abs().max().item()
         tol = K3_TOL * r.abs().max().item()
+        if cancel is not None and name != "dv":
+            # dS = dP − Δ = 0 exactly: both sides hold fp32 noise
+            tol = max(tol, cancel)
         res[name] = {"max_abs_err": err, "tol": tol,
                      "max_abs_ref": r.abs().max().item()}
         res["ok"] &= bool(err <= tol and torch.isfinite(g).all())
         if kv_lens is not None and 0 in kv_lens:
             res["ok"] &= not bool(t.grad[kv_lens.index(0)].any())
     return res
+
+
+def cancel_noise(q, k, out, do):
+    """Under a window of 1 each row sees only its own key: P = 1, O = V,
+    and dS = P∘(dP − Δ) is 0 in exact arithmetic, dP = dO·V (the kernel's
+    fp32 wgmma sums) and Δ = rowsum(dO∘O) (fp32, another order) cancelling.
+    dq and dk are then that fp32 rounding noise on both sides, which no
+    relative tolerance of their (≈ 0) size can hold: their bound is the
+    noise of a d-term fp32 sum, d · 2^-22 · max Σ|dO∘O|, through scale ·
+    max(|Q|, |K|) and the GQA group's n_rep terms. A wrong mask or fragment
+    gives O(0.1) there."""
+    d, n_rep = q.shape[-1], q.shape[2] // k.shape[2]
+    terms = (do.float() * out.float()).abs().sum(-1).max().item()
+    scale = 1.0 / math.sqrt(d)
+    return (n_rep * d * 2.0 ** -22 * terms * scale
+            * max(q.float().abs().max().item(), k.float().abs().max().item()))
 
 
 def phase_k3(fa, gen):
@@ -1656,6 +1772,8 @@ def phase_k3(fa, gen):
         k3_case(fa, edge, 2, 4, 4, 64, 65, 128, True, [65, 1]),
         k3_case(fa, edge, 2, 8, 8, 300, 300, 64, True, None, 37),
         k3_case(fa, edge, 2, 16, 2, 256, 512, 128, True, None, 200),
+        # train_llama's call
+        k3_case(fa, edge, *LLAMA_TRAIN_ATTN, True),
     ]
     emit({"phase": "k3", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
@@ -1664,6 +1782,182 @@ def phase_k3(fa, gen):
     return (max(c["dq"]["max_abs_err"] for c in cases),
             max(max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
                 for c in cases))
+
+
+# ---- K3 / K4's sliding window ----------------------------------------------------
+
+def window_bwd_check(fa, q, k, v, do, window, kv_lens=None):
+    """K1, K3 and K4 with the window at one shape, one kv-head group at a
+    time (a whole 8192-row shape's fp32 scores would take 9 GB a
+    temporary): K1's (out, lse) against its plain version
+    (`k1_agreement`), then K3's and K4's gradients on that (out, lse)
+    against the plain backward, within K3_TOL · max|plain| of the group;
+    each kernel launched twice with the same bits."""
+    b, s, h, d = q.shape
+    nkv = k.shape[2]
+    rep = h // nkv
+    kw = dict(is_causal=True, kv_lens=kv_lens, window=window)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+    k1_bitwise = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+    del out2, lse2
+    k1 = []
+    for g in range(nkv):
+        hs = slice(g * rep, (g + 1) * rep)
+        k1.append(k1_agreement(out[:, :, hs], lse[:, hs],
+                               *fa.flash_attention_fwd_plain(
+                                   q[:, :, hs], k[:, :, g:g + 1],
+                                   v[:, :, g:g + 1], **kw)))
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    res = {"shape_b_s_h_nkv_d": [b, s, h, nkv, d], "window": window,
+           "k1": {"out_max_abs_err": max(c["max_abs_err"] for c in k1),
+                  "lse_max_abs_err": max(c["lse_max_abs_err"] for c in k1),
+                  "tol": K1_TOL_OUT, "lse_tol": K1_TOL_LSE,
+                  "dead_rows": sum(c["dead_rows"] for c in k1),
+                  "two_launches_bitwise": k1_bitwise,
+                  "ok": k1_bitwise and all(c["ok"] for c in k1)},
+           "tol_of_max_ref": K3_TOL,
+           "k3_two_launches_bitwise": bool(torch.equal(dq, dq2)),
+           "k4_two_launches_bitwise": bool(torch.equal(dk, dk2)
+                                           and torch.equal(dv, dv2))}
+    del dq2, dk2, dv2
+    errs = {"dq": [], "dk": [], "dv": []}
+    ok = (res["k1"]["ok"] and res["k3_two_launches_bitwise"]
+          and res["k4_two_launches_bitwise"])
+    for g in range(nkv):
+        hs = slice(g * rep, (g + 1) * rep)
+        ref = fa.flash_attention_bwd_plain(
+            q[:, :, hs], k[:, :, g:g + 1], v[:, :, g:g + 1], out[:, :, hs],
+            lse[:, hs], do[:, :, hs], **kw)
+        for name, got, r in zip(("dq", "dk", "dv"),
+                                (dq[:, :, hs], dk[:, :, g:g + 1],
+                                 dv[:, :, g:g + 1]), ref):
+            err = (got.float() - r).abs().max().item()
+            tol = K3_TOL * r.abs().max().item()
+            errs[name].append(err)
+            ok &= bool(err <= tol and torch.isfinite(got.float()).all())
+        del ref
+    res.update({f"{n}_max_abs_err_by_group": e for n, e in errs.items()})
+    res["max_abs_err"] = max(max(e) for e in errs.values())
+    res["ok"] = ok
+    return res
+
+
+def window_bwd_timing(fa, gen, bw, flops, b, s, h, nkv, d, window):
+    """K3's and K4's window mode at `train_mistral`'s attention shape:
+    `window_bwd_check`, then CUDA events over each wrapper and its device
+    time, the windowless kernels at the same shape, the plain backward
+    (every kv-head group in turn), torch sdpa's forward plus backward over
+    the dense window mask (kv heads repeated beforehand: `library_ms`), and
+    each kernel's bound from this shape's visible pairs (K3 6·d FLOPs a
+    pair, K4 8·d)."""
+    q, do = rand((b, s, h, d), gen), rand((b, s, h, d), gen)
+    k, v = rand((b, s, nkv, d), gen), rand((b, s, nkv, d), gen)
+    check = window_bwd_check(fa, q, k, v, do, window)
+    kw = dict(is_causal=True)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, window=window, **kw)
+        out0, lse0 = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    delta0 = (do.float() * out0.float()).sum(-1).transpose(1, 2).contiguous()
+    f3 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                           window=window, **kw)
+    f4 = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                            window=window, **kw)
+    g3 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse0, delta0, **kw)
+    g4 = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse0, delta0, **kw)
+    ms = {name: time_ms(f, iters=10) for name, f in
+          (("k3", f3), ("k4", f4), ("k3_windowless", g3),
+           ("k4_windowless", g4))}
+    dev = {"k3": device_ms(f3, iters=10), "k4": device_ms(f4, iters=10)}
+    rep = h // nkv
+
+    def plain():
+        for g in range(nkv):
+            hs = slice(g * rep, (g + 1) * rep)
+            fa.flash_attention_bwd_plain(
+                q[:, :, hs], k[:, :, g:g + 1], v[:, :, g:g + 1],
+                out[:, :, hs], lse[:, hs], do[:, :, hs], window=window, **kw)
+
+    plain_ms = time_ms(plain, iters=1, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(s, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - window))[None, None]
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(rep, dim=1).detach()
+              .requires_grad_(True) for t in (k, v))
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt), dot), iters=5)
+    pairs = window_pairs(s, 0, window, s) * b * h
+    t_bf, kv_bf, row = b * s * h * d * 2, b * s * nkv * d * 2, b * h * s * 4
+    work = {"k3": (3 * t_bf + 2 * kv_bf + 2 * row, 6 * d * pairs),
+            "k4": (2 * t_bf + 4 * kv_bf + 2 * row, 8 * d * pairs)}
+    rows = {}
+    for key, (nbytes, nflops) in work.items():
+        tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
+        rows[key] = {"ms": ms[key], "device_ms": dev[key],
+                     "windowless_ms": ms[f"{key}_windowless"],
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "bytes": nbytes, "flops": nflops,
+                     "tflops": nflops / ms[key] / 1e9,
+                     "bound_share": max(tb, to) / ms[key]}
+    return {"shape_b_s_h_nkv_d": [b, s, h, nkv, d], "window": window,
+            "visible_pairs": pairs, **check, "kernels": rows,
+            "plain_ms_covers": "flash_attention_bwd_plain with the window, "
+                               "the kv-head groups in turn: dq, dk and dv",
+            "library_covers": "torch sdpa forward + backward over the dense "
+                              "bool window mask, kv heads repeated "
+                              "beforehand"}
+
+
+def phase_k3w(fa, gen, bw, flops):
+    """K3's and K4's causal sliding window at the kernels' edges: windows
+    1, 63, 64, 65, 127, 128, 129, 200, 512 and 4096 over 384 query rows at
+    offset 700 (inside a 64-key tile; t0 inside the ring; query tiles
+    straddling the window's lower edge and the diagonal; K4 key blocks
+    that no query sees at window 1), a batch row whose kv_len ends early;
+    GQA 4 and 8, d 64 and 128; a batch row of kv_len 0 (zero gradients);
+    sq 64 (K3's second group without rows); bottom-right self-attention;
+    windows at and above the visible span (the windowless kernels' bits);
+    then the path's own shape (b 1, S 8192, 32 heads over 8, d 128, window
+    4096) checked one kv-head group at a time and timed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(151)
+    base = (2, 16, 4, 384, 1200, 128, True, [1100, 900], 700)
+    cases = [k3_case(fa, g, *base, window=w)
+             for w in (1, 63, 64, 65, 127, 128, 129, 200, 512, 4096)]
+    gqa8 = (2, 16, 2, 300, 700, 64, True, [700, 0], 333)
+    cases += [k3_case(fa, g, *gqa8, window=w) for w in (1, 64, 200, 4096)]
+    for shape, w in (
+            ((1, 8, 8, 1000, 1000, 128, True, None, None), 200),
+            ((1, 32, 8, 2048, 2048, 128, True, None, None), 512),
+            ((2, 8, 2, 64, 300, 64, True, None, 100), 37),
+            ((2, 8, 2, 200, 260, 64, True, [260, 3], None), 260),
+            ((2, 4, 4, 129, 129, 128, True, None, None), 129)):
+        cases.append(k3_case(fa, g, *shape, window=w))
+    path = window_bwd_timing(fa, g, bw, flops, *K3W_PATH)
+    emit({"phase": "k3w", "cases": cases, "path_shape": path})
+    bad = [c for c in cases if not c["ok"]]
+    if bad or not path["ok"]:
+        raise AssertionError(f"K3/K4's window mode disagrees with the plain "
+                             f"backward: {bad}, path {path['ok']}")
+    errs = (max(max(c["dq"]["max_abs_err"] for c in cases),
+                max(path["dq_max_abs_err_by_group"])),
+            max(max(max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
+                    for c in cases),
+                max(path["dk_max_abs_err_by_group"]
+                    + path["dv_max_abs_err_by_group"])))
+    return errs, path
 
 
 # ---- K2's int8 modes, K8, K9 -------------------------------------------------------
@@ -4184,21 +4478,35 @@ class CheckedAttention:
                 out, lse, *self.fa.flash_attention_fwd_plain(q, k, v, **kw)))
             return out, lse
         # the wrapper counts its launches on the module's name, this call
-        call.launches = kernel.launches
+        call.launches, call.windowed = kernel.launches, kernel.windowed
         self.fa.flash_attention_fwd = call
         return self
 
     def __exit__(self, *exc):
         self.saved.launches = self.fa.flash_attention_fwd.launches
+        self.saved.windowed = self.fa.flash_attention_fwd.windowed
         self.fa.flash_attention_fwd = self.saved
+
+
+KERNEL_FAMILIES = (
+    ("K1 flash_attention_fwd", ("flash_fwd_sm90",)),
+    ("K3 flash_attention_bwd_dq", ("flash_bwd_dq_sm90",)),
+    ("K4 flash_attention_bwd_dkv", ("flash_bwd_dkv_sm90",)),
+    ("matrix products (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass",
+                                  "gemv")),
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+    ("copies and dtype casts", ("copy",)))
+
 
 
 def traced_step(fn, reps=3):
     """The card's side of a call that launches more kernels than the launch
-    queue holds (the layered decode step: device_ms cannot queue it behind
-    a sleep), from a torch.profiler trace over `reps` calls: per call the
-    busy time (the union of the device activities' intervals), the kernels
-    launched and K1's device time. None where the trace holds no device
+    queue holds (a layered decode step, a train step: device_ms cannot
+    queue it behind a sleep), from a torch.profiler trace over `reps` calls
+    after an untraced one: per call the busy time (the union of the device
+    activities' intervals), the activities, the device time by kernel
+    family (K1, K3, K4 on their own, the products, the optimizer, copies,
+    the rest) and K1's alone. None where the trace holds no device
     activity (not measured)."""
     fn()
     torch.cuda.synchronize()
@@ -4212,6 +4520,14 @@ def traced_step(fn, reps=3):
            if ev.device_type == torch.autograd.DeviceType.CUDA]
     if not evs:
         return None
+    fams = {}
+    for ev in evs:
+        low = ev.name.lower()
+        fam = next((f for f, keys in KERNEL_FAMILIES
+                    if any(key.lower() in low for key in keys)),
+                   "other (elementwise, reductions)")
+        fams[fam] = fams.get(fam, 0.0) + (ev.time_range.end
+                                          - ev.time_range.start) / 1e3
     busy, start, end = 0.0, None, None
     for a, b in sorted((ev.time_range.start, ev.time_range.end)
                        for ev in evs):
@@ -4221,10 +4537,11 @@ def traced_step(fn, reps=3):
         else:
             end = max(end, b)
     busy += end - start
-    k1 = sum(ev.time_range.end - ev.time_range.start for ev in evs
-             if "flash_fwd_sm90" in ev.name)
     return {"busy_ms": busy / reps / 1e3, "device_activities": len(evs) / reps,
-            "k1_ms": k1 / reps / 1e3}
+            "device_ms_by_family": {f: v / reps for f, v in
+                                    sorted(fams.items(), key=lambda kv:
+                                           -kv[1])},
+            "k1_ms": fams.get(KERNEL_FAMILIES[0][0], 0.0) / reps}
 
 
 def window_pairs(sq, off, window, kv_len):
@@ -4539,6 +4856,43 @@ def phase_mistral(fa, fd, bw, flops, k1w_err):
 
 # ---- training -----------------------------------------------------------------
 
+# GPT-2 345M's, train_llama's and train_mistral's attention calls: b, S,
+# heads, kv heads, head_dim
+BWD_TIME_SHAPES = {"gpt2_345m": (8, 1024, 16, 16, 64),
+                   "tinyllama_1b": (4, 2048, 32, 4, 64),
+                   "mistral_7b": (1, 8192, 32, 8, 128)}
+
+
+def phase_bwd_times(fa):
+    """The windowless K3 and K4 at BWD_TIME_SHAPES, causal: CUDA events
+    over 20 launches and the kernels' device time (`device_ms`), as phase
+    timing_train times them. No call takes a window, so a tree from
+    before the window runs it too (the package imported is the tree's
+    beside this script)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    rows = {}
+    for name, (b, s, h, nkv, d) in BWD_TIME_SHAPES.items():
+        q, do = rand((b, s, h, d), gen), rand((b, s, h, d), gen)
+        k, v = rand((b, s, nkv, d), gen), rand((b, s, nkv, d), gen)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_fwd(q, k, v, is_causal=True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        f3 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               is_causal=True)
+        f4 = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                is_causal=True)
+        rows[name] = {"b_s_h_nkv_d": [b, s, h, nkv, d],
+                      "k3_ms": time_ms(f3, iters=20),
+                      "k4_ms": time_ms(f4, iters=20),
+                      "k3_device_ms": device_ms(f3, iters=20),
+                      "k4_device_ms": device_ms(f4, iters=20)}
+    emit({"phase": "bwd_times", "package": os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(fa.__file__)))), "causal": True,
+        "window": None, "shapes": rows})
+
+
 def phase_train(fa, fd, flops):
     from paddle_tpu_torch import bench
     cfg, b, s, steps = bench.config()
@@ -4725,6 +5079,302 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
     return kernels
 
 
+# ---- Llama-family training ----------------------------------------------------------
+
+class PlainTraining(PlainCalls):
+    """Counts calls of the attention's plain versions, forward and backward
+    (FlashAttention and the dispatch look them up at call time): a train
+    step on the card must run none."""
+
+    NAMES = ("flash_attention_fwd_plain", "flash_attention_bwd_plain",
+             "_xla_attention")
+
+
+class PlainKernelsOnCard:
+    """While open, FlashAttention's forward and backward run the plain
+    versions on the card in place of K1 and K3/K4 (the Function and the
+    dispatch look them up on the module at call time). The wrappers, and
+    their launch counts, are left as they were: read the counts outside."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def __enter__(self):
+        fa = self.fa
+        self.saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+        def bwd(q, k, v, out, lse, dout, **kw):
+            grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                 **kw)
+            return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+        fa.flash_attention_fwd, fa.flash_attention_bwd = (
+            fa.flash_attention_fwd_plain, bwd)
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_fwd, self.fa.flash_attention_bwd = self.saved
+
+
+def phase_llama_step(fa, fd):
+    """One loss and gradient of train_llama's model cut to 2 layers
+    (TinyLlama-1.1B's full width, b 4, S 2048, recompute core_attn, 4 loss
+    chunks) on the card, from the same weights and batch: as train_llama
+    computes them (the selective recompute must save exactly core_attn's
+    names; its replays run on autograd's device thread); without
+    recompute, which must give the same loss and gradients bit for bit
+    (the replays run the same kernels on the same inputs, and the
+    backward's graph is the same); and against the same step in fp32 with
+    the attention's plain versions (`PlainKernelsOnCard`), within
+    STEP_LOSS_ATOL and STEP_GRAD_RTOL as phase step holds GPT-2's. The bf16
+    step with the plain attention is read against that reference too: the
+    noise of bf16 alone."""
+    from paddle_tpu_torch import train_bench
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import RECOMPUTE_SAVES
+    from paddle_tpu_torch.utils import recompute as rc
+    cfg = dataclasses.replace(train_bench.config("llama-1b"), num_layers=2)
+    b, s = LLAMA_TRAIN_ATTN[0], LLAMA_TRAIN_ATTN[3]
+    model, _, x, y = train_bench.build(cfg, b, s, "cuda")
+    ref = LlamaForCausalLM(cfg, dtype=torch.float32, device="cuda", seed=1)
+    ref.set_state_dict({k: t.float() for k, t in
+                        model.state_dict(include_buffers=False).items()})
+
+    def grads(m):
+        loss = m.train_loss(x, y)
+        loss.backward()
+        got = {n: p.grad for n, p in m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), got
+
+    def rel(g, g_ref):
+        return {n: ((g[n].float() - r).norm() / r.norm()).item()
+                for n, r in g_ref.items()}
+
+    reset_counts(fa, fd)
+    with rc.record_saves() as saved:
+        loss, g = grads(model)
+    got = counts(fa, fd)
+    cfg.recompute = False
+    loss_n, g_n = grads(model)
+    cfg.recompute = True
+    got_n = counts(fa, fd)
+    with PlainKernelsOnCard(fa):
+        loss_p, g_p = grads(model)
+        loss_f, g_f = grads(ref)
+    got_p = counts(fa, fd)
+    reset_counts(fa, fd)
+    L = cfg.num_layers
+    want = dict.fromkeys(got, 0)
+    want.update(flash_attention_fwd=2 * L, flash_attention_bwd_dq=L,
+                flash_attention_bwd_dkv=L)
+    want_n = dict(want, flash_attention_fwd=3 * L,
+                  flash_attention_bwd_dq=2 * L, flash_attention_bwd_dkv=2 * L)
+    bitwise = loss == loss_n and all(torch.equal(g[n], g_n[n]) for n in g)
+    err, err_p = rel(g, g_f), rel(g_p, g_f)
+    worst = max(err, key=err.get)
+    res = {"phase": "llama_step", "model": "llama-1b (TinyLlama-1.1B)",
+           "layers": L, "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+           "kv_heads": cfg.kv_heads, "batch": b, "seq": s,
+           "recompute_granularity": cfg.recompute_granularity,
+           "loss_seq_chunks": cfg.loss_seq_chunks,
+           "saved_names": sorted(saved),
+           "saved_names_expected": sorted(RECOMPUTE_SAVES["core_attn"]),
+           "loss": loss, "loss_no_recompute": loss_n,
+           "no_recompute_bitwise": bitwise,
+           "loss_ref_fp32_plain_attention": loss_f,
+           "loss_abs_err": abs(loss - loss_f), "loss_atol": STEP_LOSS_ATOL,
+           "grad_rel_err_max": err[worst], "grad_rel_err_worst_param": worst,
+           "grad_rel_err_by_param": err, "grad_rel_tol": STEP_GRAD_RTOL,
+           "bf16_plain_attention": {
+               "loss_abs_err": abs(loss_p - loss_f),
+               "grad_rel_err_max": max(err_p.values()),
+               "grad_rel_err_by_param": err_p},
+           "launches": got, "launches_with_no_recompute_step": got_n,
+           "launches_after_plain_steps": got_p}
+    emit(res)
+    bad = []
+    if got != want or got_n != want_n or got_p != got_n:
+        bad.append(f"launches {got}, {got_n}, {got_p}: expected {want}, "
+                   f"then {want_n} twice")
+    if set(saved) != set(RECOMPUTE_SAVES["core_attn"]):
+        bad.append(f"saved {sorted(saved)}")
+    if not bitwise:
+        bad.append("recompute changed the loss or a gradient")
+    if not (res["loss_abs_err"] <= STEP_LOSS_ATOL
+            and err[worst] <= STEP_GRAD_RTOL):
+        bad.append(f"loss off by {res['loss_abs_err']}, or {worst}'s "
+                   f"gradient by {err[worst]} (relative)")
+    if bad:
+        raise AssertionError("llama_step: " + "; ".join(bad))
+
+
+def train_run(fa, fd, flops, cfg, b, s, warm, steps, phase):
+    """`train_bench`'s build and train_step over `cfg` at (b, s): `warm`
+    steps, then `steps` counted and timed (CUDA events; the loss read back
+    after each step, as the reference's per-step dispatch), then a step
+    and a traced one; the launch counts of the counted steps (windowed
+    launches apart), the plain attention calls of all of them, step ms,
+    tokens/s, the peak memory, and MFU on the dense-6N basis (the
+    reference's: 12·L·h·S attention FLOPs a token, every key of the
+    sequence) and on the visible pairs (12·L·h times the keys a row sees
+    on average: (S + 1)/2 causal, about 3/8 of S for Mistral's window at
+    S = 2w)."""
+    from paddle_tpu_torch import train_bench
+    from paddle_tpu_torch.bench import flops_per_token
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, x, y = train_bench.build(cfg, b, s, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.num_params()
+    step = lambda: train_bench.train_step(model, opt, x, y)
+    wins = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv)
+    with PlainTraining(fa) as plain:
+        t0 = time.perf_counter()
+        losses = [float(step()) for _ in range(warm)]
+        warm_s = time.perf_counter() - t0
+        reset_counts(fa, fd)
+        for w in wins:
+            w.windowed = 0
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        losses += [float(step()) for _ in range(steps)]
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(fa, fd)
+        windowed = {w.__name__: w.windowed for w in wins}
+        peak = torch.cuda.max_memory_allocated()
+        trace = traced_step(step, reps=1)
+    reset_counts(fa, fd)
+    dev_s = e0.elapsed_time(e1) / 1e3
+    tok_s = b * s * steps / dev_s
+    fpt = flops_per_token(cfg, n_params, s)
+    keys = window_pairs(s, 0, cfg.sliding_window or s, s) / s
+    fpt_vis = flops_per_token(cfg, n_params, keys)
+    res = {"phase": phase, "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+           "kv_heads": cfg.kv_heads, "ffn": cfg.intermediate_size,
+           "vocab": cfg.vocab_size, "window": cfg.sliding_window,
+           "dtype": "bfloat16", "params": n_params, "batch": b, "seq": s,
+           "recompute_granularity": cfg.recompute_granularity
+           if cfg.recompute else None,
+           "loss_seq_chunks": cfg.loss_seq_chunks,
+           "optimizer": "AdamW(1e-4, multi_precision=False)",
+           "warmup_steps": warm, "steps": steps, "init_s": init_s,
+           "warmup_s": warm_s, "step_ms": 1e3 * dev_s / steps,
+           "wall_step_ms": 1e3 * wall / steps, "tokens_per_s": tok_s,
+           "flops_per_token": fpt, "mfu": tok_s * fpt / flops,
+           "mfu_basis": "dense_6n", "keys_a_row_sees": keys,
+           "flops_per_token_visible_pairs": fpt_vis,
+           "mfu_visible_pairs": tok_s * fpt_vis / flops,
+           "max_memory_allocated": peak,
+           "losses": losses, "launches": got, "windowed_launches": windowed,
+           "plain_attention_calls": plain.n, "step_trace": trace,
+           "device_idle_share": None if trace is None
+           else 1 - trace["busy_ms"] / (1e3 * dev_s / steps)}
+    return res, model
+
+
+def check_train(res, steps_layers, windowed):
+    """A counted run's launches: K1 twice a layer a step (the forward and
+    its replay under recompute), K3 and K4 once, nothing else; with a
+    window every one of them windowed; no plain attention call; the loss
+    finite and falling."""
+    n = steps_layers
+    want = dict.fromkeys(res["launches"], 0)
+    want.update(flash_attention_fwd=2 * n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkv=n)
+    want_w = {"flash_attention_fwd": 2 * n if windowed else 0,
+              "flash_attention_bwd_dq": n if windowed else 0,
+              "flash_attention_bwd_dkv": n if windowed else 0}
+    losses = res["losses"]
+    bad = []
+    if res["launches"] != want:
+        bad.append(f"launches {res['launches']}, expected {want}")
+    if res["windowed_launches"] != want_w:
+        bad.append(f"windowed launches {res['windowed_launches']}, "
+                   f"expected {want_w}")
+    if res["plain_attention_calls"]:
+        bad.append(f"{res['plain_attention_calls']} plain attention calls")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        bad.append(f"loss not finite or not falling: {losses}")
+    if bad:
+        raise AssertionError(f"{res['phase']}: " + "; ".join(bad))
+
+
+def phase_train_llama(fa, fd, flops):
+    """TinyLlama-1.1B (`train_bench`'s llama-1b: h 2048, 22 layers, GQA
+    32/4, ffn 5632, vocab 32000) at the reference's settings: b 4, S 2048,
+    recompute core_attn, 4 loss chunks, pure-bf16 AdamW(1e-4); 2 warm-up
+    and 10 counted steps."""
+    from paddle_tpu_torch import train_bench
+    cfg = train_bench.config("llama-1b")
+    res, model = train_run(fa, fd, flops, cfg, 4, 2048, 2, 10, "train_llama")
+    res["model"] = "llama-1b (TinyLlama-1.1B)"
+    emit(res)
+    del model
+    check_train(res, cfg.num_layers * res["steps"], windowed=False)
+    return res
+
+
+def phase_train_mistral(fa, fd, flops):
+    """Mistral-7B (`LlamaConfig.mistral_7b()`: 32 layers, h 4096, ffn
+    14336, GQA 32/8, window 4096) at b 1, S 8192 (twice the window: it bites
+    in half the rows), recompute full, 8 loss chunks, pure-bf16
+    AdamW(1e-4); 2 warm-up and 3 counted steps; K3 and K4 windowed on every
+    layer; then layer 0's attention at this shape (its q, k, v from the
+    trained weights and the batch) held against the plain backward one
+    kv-head group at a time."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.ops import rope
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(),
+                              num_layers=MISTRAL_TRAIN_LAYERS, recompute=True,
+                              recompute_granularity="full", loss_seq_chunks=8)
+    b, s = K3W_PATH[:2]
+    res, model = train_run(fa, fd, flops, cfg, b, s, 2, 3, "train_mistral")
+    res["model"] = "mistral_7b"
+    res["state_bytes"] = {"params_grads_moments": 8 * res["params"],
+                          "layer_boundaries": 2 * b * s * cfg.hidden_size
+                          * cfg.num_layers}
+    # layer 0's attention inputs at the path's shape
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, s))).cuda()
+    layer = model.model.layers[0]
+    hd = cfg.head_dim
+    with torch.no_grad():
+        xn = layer.input_layernorm(model.model.embed_tokens(x))
+        cos, sin = rope.rope_cos_sin(s, hd, base=cfg.rope_base, device="cuda")
+        att = layer.self_attn
+        q = rope.apply_rotary_pos_emb(att.q_proj(xn).reshape(
+            b, s, cfg.num_heads, hd), cos, sin).contiguous()
+        k = rope.apply_rotary_pos_emb(att.k_proj(xn).reshape(
+            b, s, cfg.kv_heads, hd), cos, sin).contiguous()
+        v = att.v_proj(xn).reshape(b, s, cfg.kv_heads, hd).contiguous()
+    del model, xn
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    do = rand(q.shape, gen)
+    res["layer0_attention_grads"] = window_bwd_check(fa, q, k, v, do,
+                                                     cfg.sliding_window)
+    emit(res)
+    check_train(res, cfg.num_layers * res["steps"], windowed=True)
+    if not res["layer0_attention_grads"]["ok"]:
+        raise AssertionError("train_mistral: layer 0's attention (K1, K3, "
+                             "K4) disagrees with the plain versions")
+    return res
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4752,12 +5402,22 @@ def main(argv):
     if "--int8-stress" in argv:
         phase_int8_stress(fd, rope)
         return 0
+    if "--bwd-times" in argv:
+        phase_bwd_times(fa)
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if "--training" in argv:
+        phase_k3w(fa, gen, bw, flops)
+        phase_llama_step(fa, fd)
+        phase_train_llama(fa, fd, flops)
+        phase_train_mistral(fa, fd, flops)
+        return 0
     k1_err = phase_k1(fa, gen)
     k1w_err = phase_k1w(fa, fd, gen)
     k2_err = phase_k2(fd, rope, gen)
     k3_errs = phase_k3(fa, gen)
+    k3w_errs, k3w_path = phase_k3w(fa, gen, bw, flops)
     k5q_errs, k7q_errs = {}, {}     # the int8 modes' errors (rows 6, 7)
     k5_err = phase_k5(fd, rope, gen, k5q_errs)
     k7_err = phase_k7(fd, rope, gen, k7q_errs)
@@ -4808,6 +5468,11 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     window_row, mistral_launches = phase_mistral(fa, fd, bw, flops, k1w_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_llama_step(fa, fd)
+    llama_train = phase_train_llama(fa, fd, flops)
+    mistral_train = phase_train_mistral(fa, fd, flops)
     # row 4's int8 sub-rows: the modes' timings and their plain-version
     # errors (phase k2q); launches on the runs that drive each mode
     k2 = kernels[1]
@@ -4846,13 +5511,48 @@ def main(argv):
         k["launches_by_path"]["int8_serve"] = int8_serve_launches[k["name"]]
         k["launches_by_path"]["moe"] = moe_launches[k["name"]]
         k["launches_by_path"]["mistral"] = mistral_launches[k["name"]]
+        k["launches_by_path"]["train_llama"] = \
+            llama_train["launches"][k["name"]]
+        k["launches_by_path"]["train_mistral"] = \
+            mistral_train["launches"][k["name"]]
         for path, got in gpt_launches.items():
             k["launches_by_path"][path] = got[k["name"]]
         if k["name"] in gpt_rows:
             k["gpt"] = gpt_rows[k["name"]]
-    # row 1a: K1's window mode, launched on path mistral
-    window_row["launches_by_path"] = {"mistral": window_row["launches"]}
+    # row 1a: K1's window mode, launched on paths mistral and train_mistral
+    windowed = mistral_train["windowed_launches"]
+    window_row["launches_by_path"] = {
+        "mistral": window_row["launches"],
+        "train_mistral": windowed["flash_attention_fwd"],
+        "train_llama": llama_train["windowed_launches"]["flash_attention_fwd"]}
     kernels[0]["window"] = window_row
+    # rows 2a and 3a: K3's and K4's window modes (phase k3w at the
+    # train_mistral path's shape), launched on path train_mistral
+    layer0 = mistral_train["layer0_attention_grads"]
+    for row, key, err, line, where in (
+            (kernels[2], "k3", max(k3w_errs[0], max(
+                layer0["dq_max_abs_err_by_group"])), 668,
+             "_window_k0 :465, :749"),
+            (kernels[3], "k4", max(k3w_errs[1], max(
+                layer0["dk_max_abs_err_by_group"]
+                + layer0["dv_max_abs_err_by_group"])), 787,
+             "query range :884-891")):
+        t = k3w_path["kernels"][key]
+        row["window"] = {
+            "name": row["name"], "mode": "causal sliding window",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/ops/flash_attention.py:{line} "
+                        f"(window: {where})",
+            "launches": windowed[row["name"]], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "launches_by_path": {
+                "train_mistral": windowed[row["name"]],
+                "train_llama": llama_train["windowed_launches"][row["name"]]},
+            "at_path": dict(t, shape_b_s_h_nkv_d=k3w_path["shape_b_s_h_nkv_d"],
+                            window=k3w_path["window"])}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,10 @@
 // Replaces the TPU kernels paddle_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // (pallas_call at :776) and ::_bwd_dkv_kernel (pallas_call at :919) on the
 // training path: causal with an explicit query offset (k_pos <= q_off + i),
-// GQA by kv-head index, per-batch kv_lens, any sq/sk with ragged tails.
+// the causal sliding window (the query at p = q_off + i sees the keys
+// p - window < k <= p: the reference's window mode, `_window_k0` at :465,
+// :749 for dq and the query range at :884-891 for dk/dv), GQA by kv-head
+// index, per-batch kv_lens, any sq/sk with ragged tails.
 // Both recompute P = exp(S·scale − lse) from the forward's log-sum-exp
 // (csrc/flash_attention.cu: natural log of the scaled scores, NEG_INF for a
 // row with no visible key, whose P is 0 here as in the reference, :732/:859)
@@ -32,6 +35,13 @@
 // other. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at entry for 384
 // threads (consumers 240, producer 24 after setmaxnreg), 0 bytes spilled,
 // no wgmma serialisation warning, both kernels, both head dims.
+//
+// The window is a second instantiation of each kernel (WIN = true; the
+// windowless kernels' code is unchanged, as K1's in csrc/flash_attention.cu):
+// K3 walks the key tiles from the tile of its block's first row's first
+// visible key, K4 the query tiles up to the last row that sees its block's
+// last key; tiles straddling the window's lower edge take the per-element
+// mask as the diagonal does (see each kernel below).
 //
 // Layouts: q, dout (b, sq, h, d), k/v (b, sk, nkv, d), dq (b, sq, h, d),
 // dk/dv (b, sk, nkv, d), all bf16 and contiguous; lse, delta (b, h, sq)
@@ -119,6 +129,17 @@ __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
 // tiles (the first group's on the causal diagonal; all of them for a group
 // past sq) unread.
 //
+// Window (WIN): the block's producer loads the key tiles t0 … t0 + ntiles
+// - 1, t0 = max(0, q_off + q0 - window + 1) / 64 (the tile of the block's
+// first row's first visible key), and both roles count ring stages and
+// barrier parities by the ring index from t0 alike, as K1 does (a group
+// that counted from 0 would wait on the wrong phase of a stage).
+// A consumer group first releases, unread, the ring's tiles below its own
+// first row's window (at most two: its rows start 64 below the block's),
+// then walks from there as above; the `edge` test and k3_ds's mask also
+// catch a tile that straddles the window's lower edge for the group's rows
+// (key <= q_off - window + r).
+//
 // Why 64-key tiles: S and dP (2 × 32 fp32 a thread), dq (d/2) and the packed
 // dS (16) are live together, ≈ 150 registers at d = 128; 128-key tiles
 // would hold ≈ 230 and spill. Why one empty barrier a stage (K1 releases K
@@ -150,13 +171,15 @@ struct Dq {
 
 // dS = P∘(dP − Δ) in place of dP, P = 2^(S·sl2 − lse·log2 e) from the S
 // accumulator (rows r0 + 8i, keys k0 + 8c + 2·tg + j); 0 where the key is
-// masked for the row (only `edge` tiles test)
+// masked for the row (only `edge` tiles test): past kv_len, past the causal
+// diagonal, or (WIN) at or below wlo + r, wlo = q_off - window
+template <bool WIN>
 __device__ __forceinline__ void k3_ds(const float (&sa)[BK3 / 2],
                                       float (&dp)[BK3 / 2],
                                       const float (&l2)[2],
                                       const float (&dl)[2], bool edge, int k0,
                                       int r0, int tg, int kvlen, int causal,
-                                      int q_off, float sl2) {
+                                      int q_off, int wlo, float sl2) {
 #pragma unroll
   for (int c = 0; c < BK3 / 8; ++c)
 #pragma unroll
@@ -167,13 +190,15 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK3 / 2],
         float p = sm90::ex2(fmaf(sa[e], sl2, -l2[i]));
         if (edge) {
           const int key = k0 + c * 8 + tg * 2 + j;
-          if (key >= kvlen || (causal && key > q_off + r0 + 8 * i)) p = 0.f;
+          if (key >= kvlen || (causal && key > q_off + r0 + 8 * i) ||
+              (WIN && key <= wlo + r0 + 8 * i))
+            p = 0.f;
         }
         dp[e] = p * (dp[e] - dl[i]);
       }
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const __grid_constant__ CUtensorMap mk,
@@ -182,7 +207,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   const int* __restrict__ kv_lens, int sq, int sk, int h,
-                  int nkv, int causal, int q_off, float scale, int group) {
+                  int nkv, int causal, int q_off, int window, float scale,
+                  int group) {
   using C = Dq<D>;
   constexpr int ST = C::ST;
   extern __shared__ uint8_t smem_raw[];
@@ -211,7 +237,12 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
   // keys that can be visible to some row of this block
   int kend = kvlen;
   if (causal) kend = min(kend, q_off + min(q0 + BQ3, sq));
-  const int ntiles = kend > 0 ? (kend + BK3 - 1) / BK3 : 0;
+  // WIN: the tile of the block's first row's first visible key; both roles
+  // load and walk the ring's tiles t0 … t0 + ntiles - 1 and count ring
+  // stages from t0
+  const int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK3 : 0;
+  const int ntiles = kend > t0 * BK3 ? (kend + BK3 - 1) / BK3 - t0 : 0;
+  const int wlo = WIN ? q_off - window : 0;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(qbar, 1);
@@ -246,9 +277,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
         for (int c = 0; c < C::NCH; ++c) {
           sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK3 * 128, &mk,
-                            &full[s], c * 64, kh, it * BK3, bi);
+                            &full[s], c * 64, kh, (t0 + it) * BK3, bi);
           sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK3 * 128, &mv,
-                            &full[s], c * 64, kh, it * BK3, bi);
+                            &full[s], c * 64, kh, (t0 + it) * BK3, bi);
         }
       }
     }
@@ -289,29 +320,42 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       constexpr uint32_t STAGE = C::KT_BYTES >> 4;
 
       sm90::mbar_wait(qbar, 0);
-      // the tiles this group's rows can see: [0, nt)
+      // the ring's tiles this group's rows can see: [j0, nt) (ring index,
+      // tile t0 + j)
       int kg = kvlen;
       if (causal) kg = min(kg, q_off + min(rw0 + 64, sq));
-      const int nt = rw0 >= sq ? 0 : (kg > 0 ? (kg + BK3 - 1) / BK3 : 0);
-      // tile k0 straddles the causal diagonal or the kv_len edge for the
-      // group's rows: only then the per-element mask
+      const int nt = rw0 >= sq ? 0 : (kg > 0 ? (kg + BK3 - 1) / BK3 - t0 : 0);
+      const int j0 =
+          WIN ? min(ntiles, max(0, q_off + rw0 - window + 1) / BK3 - t0) : 0;
+      // tile k0 straddles the causal diagonal, the kv_len edge or (WIN) the
+      // window's lower edge for the group's rows: only then the per-element
+      // mask
       auto edge = [&](int k0) {
-        return k0 + BK3 > kvlen || (causal && k0 + BK3 - 1 > q_off + rw0);
+        return k0 + BK3 > kvlen || (causal && k0 + BK3 - 1 > q_off + rw0) ||
+               (WIN && k0 <= wlo + rw0 + 63);
       };
-      if (nt > 0) {
+      // WIN: tiles below this group's rows' windows: released unread
+      for (int it = 0; it < j0; ++it) {
+        sm90::mbar_wait(&full[it % ST], (it / ST) & 1);
+        sm90::mbar_arrive(&empty[it % ST]);
+      }
+      if (nt > j0) {
         float sa[BK3 / 2], dp[BK3 / 2];
         uint32_t da[BK3 / 16][4];
-        sm90::mbar_wait(&full[0], 0);
-        issue_hs<D>(sa, dQ, dK, 0);
-        issue_hs<D>(dp, dO, dV, 0);
+        sm90::mbar_wait(&full[j0 % ST], (j0 / ST) & 1);
+        issue_hs<D>(sa, dQ, dK, (j0 % ST) * STAGE);
+        issue_hs<D>(dp, dO, dV, (j0 % ST) * STAGE);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(sa);
         sm90::fence_regs(dp);
-        k3_ds(sa, dp, l2, dl, edge(0), 0, r0, tg, kvlen, causal, q_off, sl2);
+        const int kb = (t0 + j0) * BK3;
+        k3_ds<WIN>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen, causal, q_off,
+                   wlo, sl2);
         sm90::pack_a<BK3>(dp, da);
         // K1's overlap (see "Scheduling within a group" above)
-        for (int it = 0; it + 1 < nt; ++it) {
-          const int st = it % ST, sn = (it + 1) % ST, k1 = (it + 1) * BK3;
+        for (int it = j0; it + 1 < nt; ++it) {
+          const int st = it % ST, sn = (it + 1) % ST,
+                    k1 = (t0 + it + 1) * BK3;
           sm90::mbar_wait(&full[sn], ((it + 1) / ST) & 1);
           issue_hs<D>(sa, dQ, dK, sn * STAGE);
           issue_hs<D>(dp, dO, dV, sn * STAGE);
@@ -319,8 +363,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::wgmma_wait<1>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          k3_ds(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen, causal, q_off,
-                sl2);
+          k3_ds<WIN>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen, causal,
+                     q_off, wlo, sl2);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(acc);
           sm90::fence_regs(da);
@@ -334,7 +378,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::mbar_arrive(&empty[last % ST]);
       }
       // tiles past this group's rows: released unread
-      for (int it = nt; it < ntiles; ++it) {
+      for (int it = WIN ? max(nt, j0) : nt; it < ntiles; ++it) {
         sm90::mbar_wait(&full[it % ST], (it / ST) & 1);
         sm90::mbar_arrive(&empty[it % ST]);
       }
@@ -361,14 +405,17 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-              int causal, int q_off, float scale, cudaStream_t st) {
+              int causal, int q_off, int window, float scale,
+              cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK3);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK3);
   if (err) return err;
-  auto kern = flash_bwd_dq_sm90<D>;
+  // window > 0 (with causal): the windowed instantiation
+  auto kern = window > 0 ? flash_bwd_dq_sm90<D, true>
+                         : flash_bwd_dq_sm90<D, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -377,7 +424,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const int grid = ((sq + BQ3 - 1) / BQ3) * h * b;
   kern<<<grid, THREADS, Dq<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
-      (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, scale, group);
+      (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window, scale,
+      group);
   return (int)cudaGetLastError();
 }
 
@@ -398,6 +446,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // fp32 a thread) and a 64-query tile (Sᵀ, dPᵀ: 2 × 32) in registers.
 // Shared memory: K, V 2·128·d·2 + ST·(2·64·d·2 + 512) bytes (d = 128,
 // ST = 2: 129 KB; d = 64, ST = 3: 81.5 KB).
+//
+// Window (WIN): a block's query tiles end at the tile of the last row that
+// sees its last key (row k0 + 127 + window - 1 - q_off), so the walk per
+// head is qt0 … qhi - 1; a group skips a tile whose first row's window lies
+// wholly above the group's keys, and the edge test and k4_p's mask also
+// catch the window's lower edge (key <= q_off - window + row). A key block
+// that no query sees walks nothing and writes zeros.
 
 constexpr int BKEY = HELD;      // K4: keys per block (64 per consumer group)
 constexpr int BQ4 = STREAM;     // K4: query rows per streamed tile
@@ -416,10 +471,13 @@ struct Dkv {
 };
 
 // Pᵀ = 2^(Sᵀ·sl2 − lse·log2 e) in place, 0 where the key is masked for the
-// query (only `edge` tiles test); ls holds the tile's lse·log2 e
+// query (only `edge` tiles test: past kv_len, past the causal diagonal, or
+// (WIN) at or below wlo + the query's row, wlo = q_off - window); ls holds
+// the tile's lse·log2 e
+template <bool WIN>
 __device__ __forceinline__ void k4_p(float (&sa)[BQ4 / 2], const float* ls,
                                      bool edge, int c0, int tg, int kvlen,
-                                     int causal, int q_off, int q0,
+                                     int causal, int q_off, int q0, int wlo,
                                      float sl2) {
 #pragma unroll
   for (int c = 0; c < BQ4 / 8; ++c) {
@@ -433,7 +491,9 @@ __device__ __forceinline__ void k4_p(float (&sa)[BQ4 / 2], const float* ls,
         float p = sm90::ex2(fmaf(sa[e], sl2, -(j ? l2.y : l2.x)));
         if (edge) {
           const int key = c0 + 8 * i;
-          if (key >= kvlen || (causal && key > q_off + q0 + qi + j)) p = 0.f;
+          if (key >= kvlen || (causal && key > q_off + q0 + qi + j) ||
+              (WIN && key <= wlo + q0 + qi + j))
+            p = 0.f;
         }
         sa[e] = p;
       }
@@ -456,7 +516,7 @@ __device__ __forceinline__ void k4_ds(const float (&sa)[BQ4 / 2],
   }
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mk,
@@ -466,7 +526,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, const int* __restrict__ kv_lens,
                    int sq, int sk, int h, int nkv, int causal, int q_off,
-                   float scale, int group) {
+                   int window, float scale, int group) {
   using C = Dkv<D>;
   constexpr int ST = C::ST;
   extern __shared__ uint8_t smem_raw[];
@@ -497,7 +557,15 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
   const int nqt = (sq + BQ4 - 1) / BQ4;
   const int qt0 = k0 >= kvlen ? nqt
                               : (causal ? max(0, k0 - q_off) : 0) / BQ4;
-  const int per_head = max(0, nqt - qt0);
+  // WIN: the query tiles end at the one of the last row that sees the
+  // block's last key, row k0 + BKEY - 1 + window - 1 - q_off
+  int qhi = nqt;
+  if (WIN) {
+    const int last = k0 + BKEY + window - 2 - q_off;
+    qhi = last < 0 ? 0 : min(nqt, last / BQ4 + 1);
+  }
+  const int wlo = WIN ? q_off - window : 0;
+  const int per_head = max(0, qhi - qt0);
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kvbar, 1);
@@ -533,7 +601,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
         const int hi = kh * n_rep + r;
         const float* lb = lse + ((long)bi * h + hi) * sq;
         const float* db = delta + ((long)bi * h + hi) * sq;
-        for (int qt = qt0; qt < nqt; ++qt, ++it) {
+        for (int qt = qt0; qt < qhi; ++qt, ++it) {
           const int s = it % ST, q0 = qt * BQ4;
           sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
           float* ls = rows + s * 2 * BQ4;
@@ -588,8 +656,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
       // group whose keys no row of the tile can see skips it
       const int n = n_rep * per_head;
       auto skip = [&](int it) {
-        return kw0 >= kvlen ||
-               (causal && kw0 > q_off + (qt0 + it % per_head) * BQ4 + BQ4 - 1);
+        const int qa = (qt0 + it % per_head) * BQ4;
+        return kw0 >= kvlen || (causal && kw0 > q_off + qa + BQ4 - 1) ||
+               (WIN && kw0 + 63 <= wlo + qa);
       };
       // Each pass is self-contained (its products are waited for inside
       // it): no wgmma is in flight across the loop edge, which would make
@@ -603,14 +672,16 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           uint32_t pa[BQ4 / 16][4], da[BQ4 / 16][4];
           const float* ls = rows + s * 2 * BQ4;   // lse·log2 e, then Δ
           const bool edge = kw0 + 63 >= kvlen ||
-                            (causal && kw0 + 63 > q_off + q0);
+                            (causal && kw0 + 63 > q_off + q0) ||
+                            (WIN && kw0 <= wlo + q0 + 63);
           const uint32_t so = s * STAGE;
           issue_hs<D>(sa, dK, dQ, so);   // Sᵀ
           issue_hs<D>(dp, dV, dO, so);   // dPᵀ
           sm90::wgmma_wait<0>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          k4_p(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, sl2);
+          k4_p<WIN>(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, wlo,
+                    sl2);
           k4_ds(sa, dp, ls + BQ4, tg);
           sm90::pack_a<BQ4>(dp, da);
           sm90::pack_a<BQ4>(sa, pa);
@@ -650,14 +721,17 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-               int causal, int q_off, float scale, cudaStream_t st) {
+               int causal, int q_off, int window, float scale,
+               cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BKEY);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BKEY);
   if (err) return err;
-  auto kern = flash_bwd_dkv_sm90<D>;
+  // window > 0 (with causal): the windowed instantiation
+  auto kern = window > 0 ? flash_bwd_dkv_sm90<D, true>
+                         : flash_bwd_dkv_sm90<D, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -666,8 +740,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const int grid = ((sk + BKEY - 1) / BKEY) * nkv * b;
   kern<<<grid, THREADS, Dkv<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
-      (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, scale,
-      group);
+      (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window,
+      scale, group);
   return (int)cudaGetLastError();
 }
 
@@ -678,15 +752,18 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* lse, const void* delta,
                                       void* dq, const void* kv_lens, int b,
                                       int sq, int sk, int h, int nkv, int d,
-                                      int causal, int q_off, float scale,
-                                      void* stream) {
+                                      int causal, int q_off, int window,
+                                      float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // window: 0 = none; a window needs causal (the reference's validation)
+  if (window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, scale, st);
+                          h, nkv, causal, q_off, window, scale, st);
   if (d == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                         h, nkv, causal, q_off, scale, st);
+                         h, nkv, causal, q_off, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -696,14 +773,17 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv,
                                        const void* kv_lens, int b, int sq,
                                        int sk, int h, int nkv, int d,
-                                       int causal, int q_off, float scale,
-                                       void* stream) {
+                                       int causal, int q_off, int window,
+                                       float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // window: 0 = none; a window needs causal (the reference's validation)
+  if (window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                           sk, h, nkv, causal, q_off, scale, st);
+                           sk, h, nkv, causal, q_off, window, scale, st);
   if (d == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                          sk, h, nkv, causal, q_off, scale, st);
+                          sk, h, nkv, causal, q_off, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

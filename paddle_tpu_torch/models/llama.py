@@ -1,10 +1,18 @@
-"""Llama (port of ``paddle_tpu/models/llama.py``), single device, serving.
+"""Llama (port of ``paddle_tpu/models/llama.py``), single device: training,
+generation and serving.
 
 Same module tree and attribute names as the reference, so the state keys
-are the JAX ``state_dict(include_buffers=False)`` keys. The projections
-and ``lm_head`` are ``torch.matmul`` (the reference leaves them to XLA,
-outside any Pallas kernel); attention goes through
-``F.scaled_dot_product_attention`` — the flash-attention kernel on the card.
+are the JAX ``state_dict(include_buffers=False)`` keys (a tied model has no
+``lm_head``). The projections and the unembedding are ``torch.matmul`` (the
+reference leaves them to XLA, outside any Pallas kernel); attention goes
+through ``F.scaled_dot_product_attention`` — the flash-attention kernels on
+the card, forward and backward.
+
+Training: ``train_loss`` (the loss in ``loss_seq_chunks`` recomputed
+sequence chunks, so the (b, s, vocab) logits never exist at once) and
+per-layer recompute (``recompute``, ``recompute_granularity``) over the
+named values of the reference: ``attn_qkv`` (the q/k/v projections),
+``ffn_gate`` and ``ffn_up`` (``utils/recompute.py``).
 
 Entry points build on ``cuda`` unless a device is given; the weights are
 drawn directly on that device in the requested dtype from an explicit
@@ -23,7 +31,18 @@ from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as init
 from paddle_tpu_torch.ops import rope as rope_ops
+from paddle_tpu_torch.ops import tied_unembed
 from paddle_tpu_torch.parallel import mp_layers as mp
+from paddle_tpu_torch.utils import recompute as rc
+
+# recompute_granularity -> the names its policy saves besides the layer's
+# input (reference :276-292). attn_out is not saved: the flash backward
+# replays its forward for the LSE anyway.
+RECOMPUTE_SAVES = {
+    "full": None,
+    "full_attn": ("ffn_gate", "ffn_up"),
+    "core_attn": ("attn_qkv", "ffn_gate", "ffn_up"),
+}
 
 
 @dataclasses.dataclass
@@ -38,6 +57,17 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_base: float = 10000.0
     initializer_range: float = 0.02
+    tie_word_embeddings: bool = False
+    # per-layer activation recompute in the no-cache (training) forward;
+    # recompute_granularity names what is RECOMPUTED in the backward:
+    # 'full' the whole layer (its input saved), 'full_attn' the attention
+    # block (the FFN's gate/up products saved too), 'core_attn' only the
+    # attention core (q/k/v saved as well)
+    recompute: bool = False
+    recompute_granularity: str = "full"
+    # train_loss(): the final unembed -> cross entropy in this many sequence
+    # chunks under recompute; 1 = plain head + loss
+    loss_seq_chunks: int = 1
     # Mistral-style causal sliding-window attention (None = full causal):
     # a query at position p sees the keys p - sliding_window < k <= p, in
     # the no-cache forward and on the cache path alike (K1's window mode)
@@ -93,9 +123,13 @@ class LlamaAttention(nn.Layer):
                 start_pos=0):
         cfg = self.cfg
         b, s, _ = x.shape
-        q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        # named for the recompute_granularity save policies (the reference
+        # names q, k, v after the rotation; the products are what a saved
+        # name spares the backward, the rotation is recomputed)
+        with rc.checkpoint_name("attn_qkv"):
+            q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+            k = self.k_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+            v = self.v_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
         if cos is None or sin is None:
             pos = start_pos + torch.arange(s, device=x.device)
             cos, sin = rope_ops.rope_cos_sin(s, cfg.head_dim,
@@ -148,7 +182,11 @@ class LlamaMLP(nn.Layer):
             has_bias=False, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        with rc.checkpoint_name("ffn_gate"):
+            g = self.gate_proj(x)
+        with rc.checkpoint_name("ffn_up"):
+            u = self.up_proj(x)
+        return self.down_proj(F.silu(g) * u)
 
 
 class LlamaDecoderLayer(nn.Layer):
@@ -208,14 +246,32 @@ class LlamaModel(nn.Layer):
                              start_pos=start_pos)
                 new_cache.append(c)
             return self.norm(x), new_cache
-        for layer in self.layers:
-            x = layer(x, cos, sin, attn_mask)
+        if cfg.recompute:
+            # per-layer activation recompute (reference :264-294): the
+            # granularity's names saved, the rest of the layer recomputed
+            gran = cfg.recompute_granularity
+            if gran not in RECOMPUTE_SAVES:
+                raise ValueError(
+                    f"unknown recompute_granularity {gran!r}; expected "
+                    "'full', 'full_attn' or 'core_attn'")
+            names = RECOMPUTE_SAVES[gran]
+            policy = None if names is None else \
+                rc.save_only_these_names(*names)
+            for layer in self.layers:
+                x = rc.recompute(layer, x, cos, sin, attn_mask,
+                                 policy=policy)
+        else:
+            for layer in self.layers:
+                x = layer(x, cos, sin, attn_mask)
         return self.norm(x)
 
 
 class CausalLMBase(nn.Layer):
-    """What the decoder-only LMs share (``paddle_tpu/models/llama.py:303``):
-    the preallocated KV cache of the ``cfg``'s shape."""
+    """What the decoder-only LMs share (``paddle_tpu/models/llama.py:300``):
+    the preallocated KV cache of the ``cfg``'s shape, the parameter count,
+    the fused training loss and the unembedding (tied or ``lm_head``), over
+    ``.model`` (``embed_tokens`` / ``layers`` / ``norm``), ``.lm_head`` and
+    ``.loss_fn``."""
 
     def init_cache(self, batch_size, max_len, dtype=torch.bfloat16):
         """Preallocated KV cache: one {'k','v'} buffer pair per layer, on
@@ -226,6 +282,41 @@ class CausalLMBase(nn.Layer):
         return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
                 for _ in range(cfg.num_layers)]
+
+    def train_loss(self, input_ids, labels, attn_mask=None):
+        """Forward and mean LM loss over the labels that are not the loss's
+        ``ignore_index`` (reference :317-354). With ``cfg.loss_seq_chunks``
+        > 1 the unembedding and cross entropy run in that many sequence
+        chunks, each recomputed in the backward, so the (b, s, vocab)
+        logits never exist at once: the loss is the chunks' summed token
+        losses over the count of counted labels."""
+        chunks = self.cfg.loss_seq_chunks
+        x = self.model(input_ids, attn_mask)
+        if chunks <= 1:
+            return self.loss_fn(self._unembed(x), labels, reduction="mean")
+        s = x.shape[1]
+        if s % chunks:
+            raise ValueError(
+                f"loss_seq_chunks={chunks} does not divide seq {s}")
+        sc = s // chunks
+        ignore = getattr(self.loss_fn, "ignore_index", -100)
+
+        def chunk_sum(x_c, l_c):
+            return self.loss_fn(self._unembed(x_c), l_c,
+                                reduction="none").sum()
+
+        loss_sum, count = 0.0, 0
+        for c in range(chunks):
+            cut = slice(c * sc, (c + 1) * sc)
+            loss_sum = loss_sum + rc.recompute(chunk_sum, x[:, cut],
+                                               labels[:, cut])
+            count = count + (labels[:, cut] != ignore).sum()
+        return loss_sum / count.clamp_min(1)
+
+    def _unembed(self, x):
+        if self.cfg.tie_word_embeddings:
+            return tied_unembed(x, self.model.embed_tokens.weight)
+        return self.lm_head(x)
 
 
 def model_generator(device, seed):
@@ -245,11 +336,11 @@ class LlamaForCausalLM(CausalLMBase):
     GPU); ``dtype`` is the parameter dtype the weights are drawn in; they
     are drawn from a ``torch.Generator`` on ``device`` seeded with ``seed``
     (or from the global seed stream when ``seed`` is None). A
-    ``sliding_window`` config (Mistral) runs K1's window mode in the
-    no-cache forward and on the cache path, and decodes on the layered
-    path (its fused plan is None, as in the reference). Tied embeddings
-    and the windowed backward on the card are not ported yet (ROADMAP
-    Queue A item 4, Queue B rows 2-3)."""
+    ``sliding_window`` config (Mistral) runs the window modes of K1 (the
+    no-cache forward and the cache path) and of K3/K4 (the backward), and
+    decodes on the layered path (its fused plan is None, as in the
+    reference). ``tie_word_embeddings`` unembeds against the embedding
+    table (no ``lm_head``)."""
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None,
                  seed: Optional[int] = None):
@@ -258,17 +349,23 @@ class LlamaForCausalLM(CausalLMBase):
         self.cfg = cfg
         self.model = LlamaModel(cfg, dtype=dtype, device=dev,
                                 generator=generator)
-        self.lm_head = mp.ColumnParallelLinear(
-            cfg.hidden_size, cfg.vocab_size,
-            weight_attr=init.Normal(0.0, cfg.initializer_range),
-            has_bias=False, dtype=dtype, device=dev, generator=generator)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = mp.ColumnParallelLinear(
+                cfg.hidden_size, cfg.vocab_size,
+                weight_attr=init.Normal(0.0, cfg.initializer_range),
+                has_bias=False, dtype=dtype, device=dev, generator=generator)
+        self.loss_fn = mp.ParallelCrossEntropy()
 
     def forward(self, input_ids, attn_mask=None, cache=None, start_pos=0):
         if cache is not None:
             x, new_cache = self.model(input_ids, attn_mask, cache=cache,
                                       start_pos=start_pos)
-            return self.lm_head(x), new_cache
-        return self.lm_head(self.model(input_ids, attn_mask))
+            return self._unembed(x), new_cache
+        return self._unembed(self.model(input_ids, attn_mask))
+
+    def loss(self, logits, labels):
+        """Mean cross entropy over the labels that are not ignore_index."""
+        return self.loss_fn(logits, labels, reduction="mean")
 
     def fused_decode_plan(self, state, probe=False):
         """Plan for the fused decode-step path (ops.fused_decode): stacked
@@ -312,7 +409,9 @@ class LlamaForCausalLM(CausalLMBase):
             del pos                   # rope positions, not learned
             return embed_w[tok]
 
-        if int8 and "lm_head.weight_q" in state:
+        if cfg.tie_word_embeddings:
+            head_mm = lambda xn: tied_unembed(xn, embed_w)
+        elif int8 and "lm_head.weight_q" in state:
             hq, hs = state["lm_head.weight_q"], state["lm_head.weight_scale"]
             deq = {}
 

@@ -158,6 +158,9 @@ class MixtralForCausalLM(CausalLMBase):
     def __init__(self, cfg: MixtralConfig, dtype=torch.float32, device=None,
                  seed=None):
         super().__init__()
+        if cfg.tie_word_embeddings:
+            raise ValueError(
+                "MixtralForCausalLM does not support tie_word_embeddings")
         dev, generator = model_generator(device, seed)
         self.cfg = cfg
         self.model = MixtralModel(cfg, dtype=dtype, device=dev,

@@ -69,8 +69,9 @@ def rms_norm(x, weight=None, epsilon=1e-6):
 
 
 class _TokenNLL(torch.autograd.Function):
-    """Mean −log softmax(logits)[label] over the tokens whose label is not
-    ``ignore_index`` (port of ``_token_nll`` + ``cross_entropy``'s mean).
+    """Per-token −log softmax(logits)[label] of (tokens, classes) logits,
+    0 where the label is ``ignore_index`` (port of ``_token_nll`` and the
+    masking of ``cross_entropy``), in fp32 (fp64 for fp64 logits).
 
     Like the reference it keeps as residuals the logits in their own dtype
     and an fp32 lse per token, and its backward emits (softmax − onehot)·g
@@ -89,17 +90,15 @@ class _TokenNLL(torch.autograd.Function):
             lse[i:i + _CE_ROWS] = torch.logsumexp(z, dim=-1)
             picked[i:i + _CE_ROWS] = z.gather(
                 1, lab[i:i + _CE_ROWS, None])[:, 0]
-        count = valid.sum().clamp_min(1)
-        loss = torch.where(valid, lse - picked,
+        ctx.save_for_backward(logits, lab, valid, lse)
+        return torch.where(valid, lse - picked,
                            torch.zeros((), dtype=cdt, device=logits.device))
-        ctx.save_for_backward(logits, lab, valid, lse, count)
-        return loss.sum() / count
 
     @staticmethod
     def backward(ctx, g):
-        logits, lab, valid, lse, count = ctx.saved_tensors
+        logits, lab, valid, lse = ctx.saved_tensors
         cdt = lse.dtype
-        g_tok = valid.to(cdt) * (g.to(cdt) / count)
+        g_tok = valid.to(cdt) * g.to(cdt)
         dz = torch.empty_like(logits)
         for i in range(0, logits.shape[0], _CE_ROWS):
             p = torch.exp(logits[i:i + _CE_ROWS].to(cdt)
@@ -110,17 +109,33 @@ class _TokenNLL(torch.autograd.Function):
         return dz, None, None
 
 
-def cross_entropy(logits, label, reduction="mean", ignore_index=-100):
-    """Hard-label cross entropy over the last axis of (tokens, classes)
-    logits, mean over the tokens whose label is not ``ignore_index``. Soft
-    labels, label smoothing and the other reductions are not ported yet
-    (ROADMAP Queue A item 2)."""
-    if reduction != "mean" or logits.dim() != 2 or label.dim() != 1:
+def cross_entropy(logits, label, reduction="mean", soft_label=False,
+                  ignore_index=-100, axis=-1, label_smoothing=0.0):
+    """Hard-label cross entropy over the last axis of (..., classes) logits
+    with (...) integer labels (port of the reference's hard-label path):
+    the per-token loss is 0 where the label is ``ignore_index``;
+    ``reduction`` "mean" divides the sum by the count of the other tokens
+    (at least 1), "sum" sums, "none" returns the per-token losses in the
+    labels' shape; in fp32 (fp64 for fp64 logits). Soft labels, label
+    smoothing and another class axis are not ported yet (ROADMAP Queue A
+    item 2)."""
+    if (soft_label or label_smoothing > 0.0
+            or axis % logits.dim() != logits.dim() - 1
+            or tuple(label.shape) != tuple(logits.shape[:-1])):
         raise NotImplementedError(
-            "cross_entropy: only reduction='mean' over (tokens, classes) "
-            "logits with (tokens,) hard labels is ported (ROADMAP Queue A "
-            "item 2)")
-    return _TokenNLL.apply(logits, label.long(), ignore_index)
+            "cross_entropy: only hard labels of the logits' leading shape "
+            "over the last axis, without label smoothing, are ported "
+            "(ROADMAP Queue A item 2)")
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
+    flat = label.reshape(-1).long()
+    loss = _TokenNLL.apply(logits.reshape(-1, logits.shape[-1]), flat,
+                           ignore_index)
+    if reduction == "mean":
+        return loss.sum() / (flat != ignore_index).sum().clamp_min(1)
+    if reduction == "sum":
+        return loss.sum()
+    return loss.reshape(label.shape)
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,

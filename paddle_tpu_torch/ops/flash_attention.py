@@ -34,9 +34,12 @@ where the reference passes the equivalent dense bool mask.
 of the reference (Mistral): the query at absolute position
 ``p = off + i`` sees the keys ``p - window < k <= p``, i.e. the
 reference's ``q_pos + off - k_pos < window`` (``:79-84``, ``:411-412``).
-It needs ``is_causal`` and ``window >= 1``. K1 computes it (skipping the
-key tiles below the block's first visible key); K3/K4 have no window mode
-yet, so a windowed call that needs a gradient on the card raises.
+It needs ``is_causal`` and ``window >= 1``. K1, K3 and K4 compute it, each
+in a windowed instantiation that skips the tiles wholly outside the window
+(K1 and K3 the key tiles below the block's first visible key, K4 the query
+tiles past the last row that sees its block's last key). On the card a
+windowed call launches the windowed kernels or raises: it never runs
+without the window and never falls back to a plain version.
 """
 
 import ctypes
@@ -48,6 +51,9 @@ import torch
 from paddle_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+# the device type whose tensors the kernels take (a test sets "meta" to run
+# the wrappers' checks and argument marshalling up to the C call)
+KERNEL_DEVICE = "cuda"
 
 
 def _repeat_kv(k, n_rep):
@@ -212,7 +218,7 @@ def _check_kernel_inputs(what, q, k, v, *more):
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)) + more:
-        if t.device.type != "cuda" or t.device != q.device:
+        if t.device.type != KERNEL_DEVICE or t.device != q.device:
             raise ValueError(f"{what}: {name} on {t.device}, expected "
                              f"{q.device}")
         if t.dtype != torch.bfloat16:
@@ -282,15 +288,19 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
         b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
         min(window or 0, 1 << 30), float(scale), _build.stream_of(q))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.windowed += window is not None
     _build.check(err, "flash_attention_fwd")
     return out, lse
 
 
+# launches, and of them those of the windowed instantiation
 flash_attention_fwd.launches = 0
+flash_attention_fwd.windowed = 0
 
 
 def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
-              causal_offset):
+              causal_offset, window):
+    window = _check_window(window, is_causal)
     b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
                                                 ("dout", dout))
     if dout.shape != q.shape:
@@ -301,57 +311,58 @@ def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta)]
-    tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off, float(scale),
-            _build.stream_of(q)]
+    # window 0: the windowless kernels; a window takes the windowed ones
+    # (beyond 2^30 it masks nothing and stays a C int), as K1's wrapper
+    tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
+            min(window or 0, 1 << 30), float(scale), _build.stream_of(q)]
     return head, _build.ptr(kl) if kl is not None else None, tail
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
-                           scale=None, kv_lens=None, causal_offset=None):
+                           scale=None, kv_lens=None, causal_offset=None,
+                           window=None):
     """dq (bf16, q's shape) by the K3 kernel of ``csrc/flash_attention_bwd.cu``
-    from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq).
+    from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq);
+    ``window`` (with ``is_causal``) launches its windowed instantiation.
     CUDA tensors only (the CPU path is ``flash_attention_bwd_plain``)."""
     head, kl, tail = _bwd_args("flash_attention_bwd_dq", q, k, v, dout, lse,
                                delta, is_causal, scale, kv_lens,
-                               causal_offset)
+                               causal_offset, window)
     dq = torch.empty_like(q)
-    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 8)
+    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 9)
     err = lib.flash_attention_bwd_dq(*head, _build.ptr(dq), kl, *tail)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.windowed += window is not None
     _build.check(err, "flash_attention_bwd_dq")
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.windowed = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
-                            scale=None, kv_lens=None, causal_offset=None):
+                            scale=None, kv_lens=None, causal_offset=None,
+                            window=None):
     """(dk, dv) (bf16, k's shape) by the K4 kernel of
     ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
-    kernel. CUDA tensors only."""
+    kernel; ``window`` as in ``flash_attention_bwd_dq``. CUDA tensors only."""
     head, kl, tail = _bwd_args("flash_attention_bwd_dkv", q, k, v, dout,
                                lse, delta, is_causal, scale, kv_lens,
-                               causal_offset)
+                               causal_offset, window)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 8)
+    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9)
     err = lib.flash_attention_bwd_dkv(*head, _build.ptr(dk), _build.ptr(dv),
                                       kl, *tail)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.windowed += window is not None
     _build.check(err, "flash_attention_bwd_dkv")
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
-
-
-def _refuse_window_grad(window):
-    if window is not None:
-        raise NotImplementedError(
-            "the backward of a sliding-window attention is not ported to the "
-            "card yet (K3/K4 have no window mode: ROADMAP Queue B rows 2-3); "
-            "run the windowed forward under torch.no_grad()")
+flash_attention_bwd_dkv.windowed = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
@@ -360,16 +371,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
     lse), in the dtypes of q, k, v. CPU tensors take
     ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O) in
     fp32 (as the reference does outside its kernels, :1059) and launch K3
-    and K4, which take no window (it raises)."""
+    and K4 (their windowed instantiations under a window)."""
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                is_causal, scale, kv_lens,
                                                causal_offset, window)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    _refuse_window_grad(window)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
-              causal_offset=causal_offset)
+              causal_offset=causal_offset, window=window)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
@@ -399,8 +409,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, is_causal, scale, kv_lens, causal_offset,
                 window=None):
-        if q.device.type != "cpu":
-            _refuse_window_grad(window)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = flash_attention_fwd(q, k, v, is_causal=is_causal,
                                        scale=scale, kv_lens=kv_lens,
@@ -427,8 +435,7 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     """Attention with the device dispatch (see the module docstring).
 
     ``window_size`` is the causal sliding window (needs ``is_causal``): K1
-    computes it; its backward on the card is not ported yet (K3/K4, ROADMAP
-    Queue B rows 2-3) and raises. Left for later PRs on the kernel path:
+    computes it, and K3/K4 its backward. Left for later PRs on the kernel path:
     dense bool/float masks, segment ids, ALiBi and dropout (ROADMAP Queue B
     row 1); those raise on CUDA tensors. The plain version takes dense
     masks (and, on the CPU, differentiates through them and the window by

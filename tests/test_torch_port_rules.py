@@ -582,6 +582,63 @@ def test_flash_bwd_kernels_match_plain(cuda, h, nkv, sq, sk, d, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,sq,sk,d,q_off,lens,window", [
+    (16, 4, 384, 1200, 128, 700, [1100, 0], 1),
+    (16, 4, 384, 1200, 128, 700, [1100, 900], 64),
+    (16, 2, 300, 700, 64, 333, [700, 500], 200),
+    (8, 8, 256, 256, 64, None, None, 129),
+    (32, 8, 512, 512, 128, None, [512, 300], 100)])
+def test_flash_bwd_kernels_window_match_plain(cuda, h, nkv, sq, sk, d, q_off,
+                                              lens, window):
+    """K3/K4's causal sliding window through FlashAttention against
+    flash_attention_bwd_plain with the window, on the windowed forward's
+    (out, lse): each gradient within 2^-6 · max|plain| (K3/K4's tolerance;
+    at window 1, where dq and dk are 0 in exact arithmetic, within the fp32
+    noise of the cancelling sums); a kv_len of 0 gives zero gradients; K3 and K4 each launched twice on the
+    same inputs give the same bits; a window at or above every row's span
+    gives the windowless launches' bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(5)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v, do = mk(2, sq, h, d), mk(2, sk, nkv, d), mk(2, sk, nkv, d), \
+        mk(2, sq, h, d)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda)
+    kw = dict(is_causal=True, causal_offset=q_off, kv_lens=kl)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, window=window, **kw)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, window=window,
+                                       **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa.scaled_dot_product_attention(*leaves, window_size=window, **kw)
+    o.backward(do)
+    # window 1: P = 1 and dS = dP − Δ = 0 exactly, so dq and dk are the
+    # fp32 noise of dP and Δ's sums on both sides (chip_smoke.cancel_noise)
+    cancel = 0.0
+    if window == 1:
+        terms = (do.float() * out.float()).abs().sum(-1).max().item()
+        cancel = ((h // nkv) * d * 2.0 ** -22 * terms / math.sqrt(d)
+                  * max(q.float().abs().max().item(),
+                        k.float().abs().max().item()))
+    for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
+        err = (t.grad.float() - r).abs().max().item()
+        tol = 2 ** -6 * r.abs().max().item()
+        assert err <= (tol if name == "dv" else max(tol, cancel)), err
+    if lens is not None and 0 in lens:
+        assert all(not t.grad[1].any() for t in leaves)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        first = fn(q, k, v, do, lse, delta, window=window, **kw)
+        second = fn(q, k, v, do, lse, delta, window=window, **kw)
+        wide = fn(q, k, v, do, lse, delta, window=1 << 20, **kw)
+        plain = fn(q, k, v, do, lse, delta, **kw)
+        for a, b_, c, e in zip(*(t if isinstance(t, tuple) else (t,)
+                                 for t in (first, second, wide, plain))):
+            assert torch.equal(a, b_)
+            assert torch.equal(c, e)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["dkv", "dq"])
 @pytest.mark.parametrize("h,nkv,d", [(16, 2, 64), (16, 4, 128)])
 def test_flash_dkv_kernel_two_launches_bitwise(cuda, h, nkv, d, kernel):

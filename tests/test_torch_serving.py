@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu
 from paddle_tpu import serving as jserving
 from paddle_tpu.models.llama import LlamaConfig as JLlamaConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
@@ -52,6 +53,10 @@ SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9)
 
 @pytest.fixture(scope="module")
 def pair():
+    # the JAX model draws its weights from the package's global seed
+    # stream: seed it, so the weights do not depend on what an earlier
+    # test file drew in the same worker process
+    paddle_tpu.seed(0)
     jm = JLlama(JLlamaConfig.tiny())
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu", seed=0)
     load_jax_state(tm, {k: np.asarray(v) for k, v in

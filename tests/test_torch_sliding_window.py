@@ -20,9 +20,10 @@ package itself runs on the CPU, on the same numpy inputs:
   identical;
 * the refusals: the fused decode plans of a windowed Llama and Mixtral
   are None in both packages, so ``generate(cache_dtype=int8)`` and the
-  serving engine refuse a windowed model as the reference does; a
-  windowed call that needs a gradient on the card raises (K3/K4 have no
-  window mode yet).
+  serving engine refuse a windowed model as the reference does;
+* on non-CPU tensors a windowed call that needs a gradient hands the
+  window to K1, K3 and K4, and K3's and K4's C entry points take it (meta
+  tensors, no launch).
 """
 
 import dataclasses
@@ -207,25 +208,88 @@ def test_window_validation_as_the_reference():
         tfa.flash_attention_fwd(tq, tq, tq, window=3)
 
 
-def test_windowed_gradient_on_the_card_raises():
-    """K3/K4 take no window: on a non-CPU tensor a windowed call that needs
-    a gradient raises NotImplementedError naming Queue B rows 2-3 before
-    any launch (meta tensors reach the same checks as CUDA ones), and
-    never runs without the window."""
-    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16, device="meta",
-                    requires_grad=True)
-    tfa.flash_attention_fwd.launches = 0
-    with pytest.raises(NotImplementedError, match="Queue B rows 2-3"):
-        tfa.scaled_dot_product_attention(q, q, q, is_causal=True,
-                                         window_size=2)
-    with pytest.raises(NotImplementedError, match="Queue B rows 2-3"):
-        tfa.FlashAttention.apply(q, q, q, True, None, None, None, 2)
-    rows = torch.zeros(1, 2, 4, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B rows 2-3"):
-        tfa.flash_attention_bwd(q.detach(), q.detach(), q.detach(),
-                                q.detach(), rows, q.detach(), is_causal=True,
-                                window=2)
-    assert tfa.flash_attention_fwd.launches == 0
+def test_windowed_backward_on_the_card_passes_the_window_to_k3_and_k4(
+        monkeypatch):
+    """On a non-CPU tensor a windowed call that needs a gradient runs K1
+    forward and K3/K4 backward, each given the window: nothing refuses it
+    and nothing falls back (meta tensors take the CUDA tensors' path; the
+    three wrappers are replaced by recorders that launch nothing)."""
+    calls = {}
+
+    def recorder(name, result):
+        def call(*args, **kw):
+            calls.setdefault(name, []).append(kw)
+            return result(*args)
+        return call
+
+    meta = lambda *shape, dt=torch.bfloat16: torch.empty(
+        *shape, dtype=dt, device="meta")
+    b, s, h, nkv, d, w = 1, 200, 4, 2, 64, 37
+    monkeypatch.setattr(tfa, "flash_attention_fwd", recorder(
+        "fwd", lambda q, k, v: (meta(b, s, h, d), meta(b, h, s,
+                                                        dt=torch.float32))))
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq", recorder(
+        "dq", lambda q, *a: meta(*q.shape)))
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dkv", recorder(
+        "dkv", lambda q, k, *a: (meta(*k.shape), meta(*k.shape))))
+    q = meta(b, s, h, d).requires_grad_(True)
+    k, v = (meta(b, s, nkv, d).requires_grad_(True) for _ in range(2))
+    out = tfa.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           window_size=w)
+    out.backward(meta(b, s, h, d))
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+    assert set(calls) == {"fwd", "dq", "dkv"}
+    for name in calls:
+        assert [c["window"] for c in calls[name]] == [w], name
+        assert all(c["is_causal"] for c in calls[name])
+
+
+class _Captured(Exception):
+    pass
+
+
+def test_k3_k4_entry_points_take_the_window(monkeypatch):
+    """K3's and K4's wrappers check their inputs and hand the C entry
+    points the window as the int after the causal offset (0 without one,
+    clamped to 2^30); a window without is_causal, or below 1, raises before
+    any launch. The tensors are meta tensors taken as the kernels' device;
+    the C entry points are recorders that raise, so nothing launches and
+    the launch counters stay 0."""
+    from paddle_tpu_torch.ops import _build
+    ints = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                ints[name] = [a for a in args if isinstance(a, int)]
+                raise _Captured
+            return entry
+
+    monkeypatch.setattr(tfa, "KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(tfa, "_kernel_lib", lambda *a: Lib())
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        fn.launches = fn.windowed = 0
+    b, sq, sk, h, nkv, d = 2, 65, 333, 8, 2, 128
+    q, do = (torch.empty(b, sq, h, d, dtype=torch.bfloat16, device="meta")
+             for _ in range(2))
+    k, v = (torch.empty(b, sk, nkv, d, dtype=torch.bfloat16, device="meta")
+            for _ in range(2))
+    rows = torch.empty(b, h, sq, device="meta")
+    for window, want in ((4096, 4096), (None, 0), (1 << 40, 1 << 30),
+                         (1, 1)):
+        for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+            with pytest.raises(_Captured):
+                fn(q, k, v, do, rows, rows, is_causal=True,
+                   causal_offset=200, window=window)
+            assert ints[fn.__name__] == [b, sq, sk, h, nkv, d, 1, 200, want]
+    for kw in (dict(is_causal=False, window=5), dict(is_causal=True,
+                                                     window=0)):
+        for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+            with pytest.raises(ValueError):
+                fn(q, k, v, do, rows, rows, **kw)
+    for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        assert fn.launches == 0 and fn.windowed == 0
 
 
 # ---- models ---------------------------------------------------------------------
