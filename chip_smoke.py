@@ -6,6 +6,8 @@
     python3 chip_smoke.py --training      # card, build, k3w, llama_step,
                                           # train_llama, train_mistral
     python3 chip_smoke.py --bwd-times     # card, build, bwd_times
+    python3 chip_smoke.py --dropout       # card, build, dropout, k1d,
+                                          # train_dropout
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -90,8 +92,13 @@ Phases, each printing one JSON line:
               row, a tail past its last mapped block and one past the
               table; x_out of mapped tokens, the appended rows, the rest of
               the pool unchanged; then 16 slots at drawn positions (80 tail
-              rows: two launches of 8 slots); every case launched twice,
-              bitwise equal; then an all-accepted K7 step against 5
+              rows: two launches of 8 slots); then 4 slots with tails of 64
+              tokens (a launch a slot) and 100 (two chunks of 50 in turn,
+              the second over the first's appends), a tail from position 3
+              over one layer and over two held to the fp32 plain verify (K7
+              no further from it than the bf16 plain verify + K2's atol);
+              every case launched twice, bitwise equal; then an all-accepted
+              K7 step against 5
               sequential K5 steps on a copy of the pool, per token; then
               K7's three int8 modes over the edge rows and tails at the
               chunk edges (the int8 pool's over one layer; its two-layer
@@ -159,6 +166,32 @@ Phases, each printing one JSON line:
               smoke's shapes (the split-KV attention's at head_dim 64 and
               128 over bf16 and int8 caches, the product engine's at each
               N, bf16 and int8 weights, among them) fits it.
+  8g. dropout — the hidden-dropout kernel (csrc/dropout.cu) against its
+              plain version bit for bit: GPT-2 345M's (8, 1024, 1024) bf16
+              activations, an fp32 case, p 0.1, 0.5 and 1, dividing
+              by keep or not; the kept share within 5σ of 0.9, two launches
+              with one key bitwise equal, another key another mask; timed
+              beside its bound (the larger of its bytes and the hash's 69
+              integer instructions an element over the issue ceiling: SMs
+              × 128 × the maximum SM clock), the plain version and
+              torch.nn.functional.dropout.
+  8h. k1d   — K1, K3 and K4's dropout modes. Exact mask probes: with q = 0
+              every visible probability is 1/n, and V the identity over a
+              key tile makes K1's output the dropped probabilities, so
+              out·keep·n rounds to the keep bit — every tile in turn at
+              GPT-2's training shape (b 8, h 16, s 1024, d 64), causal and
+              not, and at d 128 with GQA 16/4 and kv_lens; K4's dv with dO
+              the identity over a query tile likewise; each bit for bit
+              against the port's torch threefry on the card. The kept share
+              of the training shape's 134 M draws within 5σ of 0.9. Cases
+              (training shape; d 128, GQA, kv_lens; non-causal; the window;
+              a causal offset with a kv_len-0 row): out, dq, dk, dv against
+              the plain versions with the same key (K1/K3 tolerances), lse
+              bit for bit the dropout-free kernel's, two launches bitwise
+              equal, another key another output. Times at the training
+              shape with and without dropout beside the bounds (bytes,
+              tensor FLOPs, the hash's integer operations), the plain
+              versions and torch sdpa with dropout_p 0.1 (its own mask).
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -274,6 +307,16 @@ Phases, each printing one JSON line:
               the plain version and PyTorch's sdpa (forward; backward for
               the K3/K4 pair), with TFLOP/s, the share of the bound, and
               K3 + K4 over sdpa's backward.
+ 16a. train_dropout — GPT-2 345M as published, GPTConfig.gpt2_medium()
+              with hidden and attention dropout 0.1, through the bench
+              twin's build and train_step (one "dropout" key a step from
+              the global generator), B 8, S 1024, AdamW 1e-4: 3 warm-up and
+              10 counted steps; K1, K3 and K4 24 a step each, all in their
+              dropout modes, the dropout kernel 49 a step forward and 49
+              backward, nothing else, no plain attention or dropout call;
+              step ms, tokens/s, MFU on phase train's basis, peak memory,
+              one traced step by kernel family; the loss finite and
+              falling.
  17. mistral — Mistral-7B (32 layers, GQA 32/8, ffn 14336, window 4096;
               bf16, random weights from seed 0) through inference.generate,
               b=2, prompt 8192, 64 new tokens, greedy, on the layered path
@@ -326,8 +369,8 @@ Phases, each printing one JSON line:
               into the tree and run it there: the tree's own package is
               imported), parent and change in turns in one call.
 
---quick stops after phase 8d; --int8-stress runs phase 8f alone; --training
-runs phases 5a, 17a, 18 and 19. Every failure propagates and exits non-zero.
+--quick stops after phase 8h; --int8-stress runs phase 8f alone; --training
+runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -1126,7 +1169,7 @@ def k7_rope(rope, hd, positions, K1):
 
 
 def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama",
-            w8=False, kv8=False, fp32=False):
+            w8=False, kv8=False, fp32=False, K1=K7_K1, x_vs_fp32=False):
     """K7 against the plain verify. Compared: x_out of every mapped tail
     token (its position and all before it in mapped blocks), the appended
     rows at mapped positions, and every other row of every block but
@@ -1135,10 +1178,15 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama",
     (the appended int8 rows within one int8 step). fp32: also the plain
     verify in fp32 (bf16 weights and x upcast, int8 stacks and pool as
     they are), and each of K7 and the bf16 plain version against it on
-    the mapped tokens (reported)."""
+    the mapped tokens (reported). K1: the tail's tokens (above GROUP_ROWS
+    the wrapper runs chunks of at most GROUP_ROWS tokens in turn).
+    x_vs_fp32 (with fp32): x_out is held to the fp32 plain verify instead,
+    K7 no further from it than the bf16 plain version plus K2_ATOL (where
+    both carry more bf16 noise than K2's tolerance; the appended rows and
+    the rest of the pool are held as always)."""
     w = WIDTHS[arch]
     h, nh, hd = w["h"], w["nh"], w["hd"]
-    b, K1 = len(positions), K7_K1
+    b = len(positions)
     params = int8_llama_params(L, nkv) if w8 else stack_params(gen, arch, L,
                                                                  nkv)
     pool, tables = k7_pool(gen, L, 2 * nkv * hd, nmap)
@@ -1195,8 +1243,10 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama",
     repeat = bool(torch.equal(xo[rr, jj], xo2[rr, jj])
                   and torch.equal(pool_k[:, 1:], pool_k2[:, 1:]))
     del pool_k2, xo2
-    # whole slots of K1 tail rows, at most GROUP_ROWS tail rows a launch
-    want_launches = len(fd.row_groups(b, fd.GROUP_ROWS // K1))
+    # whole slots of K1 tail rows, at most GROUP_ROWS tail rows a launch,
+    # for each chunk of at most GROUP_ROWS tail tokens
+    want_launches = sum(len(fd.row_groups(b, fd.GROUP_ROWS // (c1 - c0)))
+                        for c0, c1 in fd.row_groups(K1, fd.GROUP_ROWS))
     ok = (ok_x and ok_row and untouched and repeat
           and launches == want_launches
           and bool(torch.isfinite(xo.float()).all()))
@@ -1215,6 +1265,13 @@ def k7_case(fd, rope, gen, nkv, positions, nmap, L=2, arch="llama",
         res["vs_fp32"] = {
             "kernel": (xo[rr, jj].float() - ref).abs().max().item(),
             "plain_bf16": (xr[rr, jj].float() - ref).abs().max().item()}
+        if x_vs_fp32:
+            v = res["vs_fp32"]
+            res["x_out_held_to_fp32"] = True
+            res["ok"] = (ok_row and untouched and repeat
+                         and launches == want_launches
+                         and bool(torch.isfinite(xo.float()).all())
+                         and v["kernel"] <= v["plain_bf16"] + K2_ATOL)
     return res
 
 
@@ -1293,6 +1350,12 @@ K7_EDGES = ([1037, 126, 700, 3, 254, 5, 2045, 1500],
             [9, 2, 6, 0, 2, 1, K5_MB, 12])
 
 
+#: phase k7's long tails: K1 = 64 (the most one launch takes) and 100 (two
+#: chunks), from these positions
+K7_LONG_TAILS = (64, 100)
+K7_LONG_POS = [1037, 126, 700, 300]
+
+
 def k7_int8_cases(fd, rope, arch, w8, kv8, seed):
     """One int8 mode of K7 against its plain version: 8 slots × 5 tail rows
     over phase k7's edge rows, 16 slots (two launches) at drawn positions,
@@ -1331,6 +1394,23 @@ def phase_k7(fd, rope, gen, int8_errs):
     cases = [k7_case(fd, rope, gen, 32, positions, nmap),
              k7_case(fd, rope, gen, 8, positions, nmap)]
     cases.append(k7_case(fd, rope, wide_gen(25), 32, *k7_wide(300)))
+    # tails of 64 tokens (one slot a launch) and 100 (two chunks of 50,
+    # the second over the first's appends), GQA: four slots over 2 layers;
+    # a tail from position 3 over 1 layer, and over 2 layers held to the
+    # fp32 plain verify (its tokens attend mostly to the tail's own
+    # appends, whose layer-1 keys carry layer 0's bf16 rounding: there K7
+    # and the bf16 plain verify both stray ~0.13 from the fp32 one, past
+    # K2's tolerance, on an H100)
+    nmap_of = lambda pos, k1: [(p + k1 - 1) // K5_BT + 1 for p in pos]
+    for k1 in K7_LONG_TAILS:
+        g = wide_gen(27 + k1)
+        cases += [
+            k7_case(fd, rope, g, 8, K7_LONG_POS, nmap_of(K7_LONG_POS, k1),
+                    K1=k1),
+            k7_case(fd, rope, g, 8, [3, 900], nmap_of([3, 900], k1), L=1,
+                    K1=k1),
+            k7_case(fd, rope, g, 8, [3, 126], nmap_of([3, 126], k1), K1=k1,
+                    fp32=True, x_vs_fp32=True)]
     seq = k7_vs_k5(fd, rope, gen)
     runs = {name: k7_int8_cases(fd, rope, arch, w8, kv8, 50 + i)
             for i, (name, _, arch, w8, kv8) in enumerate(PAGED_INT8_MODES)
@@ -2339,7 +2419,8 @@ B, PROMPT, NEW = 4, 1024, 64
 
 
 def reset_counts(fa, fd):
-    from paddle_tpu_torch.ops import rms_norm, smem_probe
+    from paddle_tpu_torch.ops import dropout, rms_norm, smem_probe
+    dropout.dropout_cuda.launches = 0
     rms_norm.rms_norm_cuda.launches = 0
     smem_probe.smem_probe_cuda.launches = 0
     fa.flash_attention_fwd.launches = 0
@@ -2352,8 +2433,9 @@ def reset_counts(fa, fd):
 
 
 def counts(fa, fd):
-    from paddle_tpu_torch.ops import rms_norm, smem_probe
-    return {"rms_norm": rms_norm.rms_norm_cuda.launches,
+    from paddle_tpu_torch.ops import dropout, rms_norm, smem_probe
+    return {"dropout": dropout.dropout_cuda.launches,
+            "rms_norm": rms_norm.rms_norm_cuda.launches,
             "smem_probe": smem_probe.smem_probe_cuda.launches,
             "flash_attention_fwd": fa.flash_attention_fwd.launches,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
@@ -2391,7 +2473,7 @@ def phase_e2e(fa, fd):
         wall = time.perf_counter() - t0
         got = counts(fa, fd)
         new = out[:, PROMPT:]
-        if got != {"rms_norm": 0, "smem_probe": 0,
+        if got != {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
                    "flash_attention_fwd": cfg.num_layers,
                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                    "fused_decode_step": NEW - 1,
@@ -3592,7 +3674,8 @@ def phase_int8(fa, fd, model, bw, flops):
     gen.manual_seed(1)
     ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), device="cuda",
                         generator=gen)
-    want = {"rms_norm": 0, "smem_probe": 0, "flash_attention_fwd": L,
+    want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+            "flash_attention_fwd": L,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "fused_decode_step": NEW - 1, "fused_paged_decode_step": 0,
             "fused_paged_verify_step": 0, "fused_decode_moe_step": 0}
@@ -3997,7 +4080,7 @@ def gpt_generate(fa, fd, model, bw, flops, k2g_err):
     gen.manual_seed(1)
     ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_PROMPT), device="cuda",
                         generator=gen)
-    want = {"rms_norm": 0, "smem_probe": 0,
+    want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": GPT_NEW - 1,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -4296,7 +4379,7 @@ def phase_moe(fa, fd, bw, flops, k6_err):
     gen.manual_seed(1)
     ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), device="cuda",
                         generator=gen)
-    want = {"rms_norm": 0, "smem_probe": 0,
+    want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": 0,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -4466,6 +4549,8 @@ class CheckedAttention:
     on the same inputs as the call saw them (`k1_agreement`): a decode
     step's attention, layer by layer, over the cached K/V it read."""
 
+    COUNTS = ("launches", "windowed", "dropout")
+
     def __init__(self, fa):
         self.fa, self.calls = fa, []
 
@@ -4478,13 +4563,15 @@ class CheckedAttention:
                 out, lse, *self.fa.flash_attention_fwd_plain(q, k, v, **kw)))
             return out, lse
         # the wrapper counts its launches on the module's name, this call
-        call.launches, call.windowed = kernel.launches, kernel.windowed
+        for count in self.COUNTS:
+            setattr(call, count, getattr(kernel, count))
         self.fa.flash_attention_fwd = call
         return self
 
     def __exit__(self, *exc):
-        self.saved.launches = self.fa.flash_attention_fwd.launches
-        self.saved.windowed = self.fa.flash_attention_fwd.windowed
+        for count in self.COUNTS:
+            setattr(self.saved, count,
+                    getattr(self.fa.flash_attention_fwd, count))
         self.fa.flash_attention_fwd = self.saved
 
 
@@ -4495,7 +4582,8 @@ KERNEL_FAMILIES = (
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass",
                                   "gemv")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
-    ("copies and dtype casts", ("copy",)))
+    ("copies and dtype casts", ("copy",)),
+    ("hidden dropout (ops.dropout)", ("dropout_kernel",)))
 
 
 
@@ -4933,7 +5021,7 @@ def phase_train(fa, fd, flops):
            "losses_timed_pass": losses[steps:], "launches": got,
            "launches_expected": want}
     emit(res)
-    if got != {"rms_norm": 0, "smem_probe": 0,
+    if got != {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
                "flash_attention_fwd": want, "flash_attention_bwd_dq": want,
                "flash_attention_bwd_dkv": want, "fused_decode_step": 0,
                "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -4989,6 +5077,19 @@ def phase_step(fa, fd):
                              f"gradient off by {rel[worst]} (relative)")
 
 
+def causal_attention_work(b, h, s, d):
+    """(visible pairs, {k1, k3, k4: (bytes, FLOPs)}) of causal MHA at (b, s,
+    h, d): K1 reads q, k, v and writes out and lse; K3 reads q, k, v, dO,
+    lse, Δ and writes dq; K4 the same and writes dk, dv; 4·d, 6·d and 8·d
+    FLOPs a visible pair."""
+    pairs = b * h * s * (s + 1) // 2
+    row = b * h * s * 4                      # one fp32 (b, h, s) tensor
+    t_bf = b * s * h * d * 2                 # one bf16 (b, s, h, d) tensor
+    return pairs, {"k1": (4 * t_bf + row, 4 * d * pairs),
+                   "k3": (5 * t_bf + 2 * row, 6 * d * pairs),
+                   "k4": (6 * t_bf + 2 * row, 8 * d * pairs)}
+
+
 def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
     """K1, K3 and K4 at the GPT-2 345M training shape."""
     gen = torch.Generator(device="cuda")
@@ -5024,12 +5125,7 @@ def phase_timing_train(fa, bw, flops, kernels, train_launches, k3_errs):
     o_lib = sdpa(qt, kt, vt, is_causal=True)
     lib_bwd = device_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), dot, retain_graph=True), iters=20)
-    pairs = b * h * s * (s + 1) // 2
-    row = b * h * s * 4                      # one fp32 (b, h, s) tensor
-    t_bf = b * s * h * d * 2                 # one bf16 (b, s, h, d) tensor
-    work = {"k1": (4 * t_bf + row, 4 * d * pairs),
-            "k3": (5 * t_bf + 2 * row, 6 * d * pairs),
-            "k4": (6 * t_bf + 2 * row, 8 * d * pairs)}
+    pairs, work = causal_attention_work(b, h, s, d)
     bound = {}
     for key, (nbytes, nflops) in work.items():
         tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
@@ -5375,6 +5471,476 @@ def phase_train_mistral(fa, fd, flops):
     return res
 
 
+# ---- dropout: the hidden-dropout kernel, K1/K3/K4's dropout modes, GPT-2 at
+# its published dropout ------------------------------------------------------
+
+# the draw's key of phases dropout and k1d, and the rate of GPT-2's config
+DROP_P = 0.1
+# GPT-2 345M's hidden activations at B 8, S 1024 (phase train_dropout's
+# shape, 49 dropouts a step forward and 49 backward)
+DROPOUT_SHAPE = (8, 1024, 1024)
+# integer instructions of one element's keep bit, at the fewest:
+# threefry2x32's 20 rounds of add, rotate (one funnel shift) and xor (60),
+# five x2 key injections, the last x1 injection (the other four fold into
+# the next round's three-input add), the two input adds and the final xor
+# (csrc/threefry.cuh); the keep test's shift and compare aside
+HASH_OPS = 69
+# thread-instructions an SM issues a clock at most: four schedulers, one
+# warp instruction (32 lanes) each (NVIDIA H100 architecture white paper).
+# An integer instruction runs on the INT32 pipe (64 lanes a clock) or, as
+# ptxas schedules many adds and shifts, on the FMA pipe: the issue rate is
+# the ceiling both share
+ISSUE_PER_SM = 128
+
+
+def int_ops_per_s():
+    """The card's integer-instruction ceiling: SMs × 128 × the SM clock's
+    maximum (nvidia-smi clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ISSUE_PER_SM * mhz * 1e6
+
+
+def drop_key(n):
+    from paddle_tpu_torch.core import rng
+    return rng.fold_in(rng.PRNGKey(16), n)
+
+
+def bound3(nbytes, nflops, nint, bw, flops, iops):
+    """(ms, by): the larger of the bytes over the memory rate, the tensor
+    FLOPs over the bf16 peak and the hash's integer instructions over the
+    issue ceiling."""
+    t = {"bytes": nbytes / bw * 1e3, "operations": nflops / flops * 1e3,
+         "integer operations": nint / iops * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def phase_dropout(bw, flops, iops):
+    """The hidden-dropout kernel against its plain version, bit for bit:
+    GPT-2's (8, 1024, 1024) bf16 activations, an fp32 case, p 0.1,
+    0.5 and 1, both modes (divide by keep, or not); the kept share, two
+    launches with one key bitwise equal, another key another mask; timed
+    beside the larger of its byte and integer-operation bounds, the plain
+    version and torch.nn.functional.dropout (another mask: the time
+    only)."""
+    from paddle_tpu_torch.ops import dropout as dops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    key = drop_key(0)
+    cases, ok = [], True
+    for dt, shape in ((torch.bfloat16, DROPOUT_SHAPE),
+                      (torch.float32, (3, 1000, 7))):
+        x = rand(shape, gen, dtype=dt)
+        for p in (DROP_P, 0.5, 1.0):
+            for divide in (True, False):
+                a = dops.dropout_cuda(x, key, p, divide)
+                b = dops.dropout_plain(x, key, p, divide)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(a, b))
+                cases.append({"dtype": str(dt), "shape": list(shape),
+                              "p": p, "divide": divide, "bitwise": same})
+                ok &= same
+    x = rand(DROPOUT_SHAPE, gen)
+    y1 = dops.dropout_cuda(x, key, DROP_P)
+    y2 = dops.dropout_cuda(x, key, DROP_P)
+    y3 = dops.dropout_cuda(x, drop_key(1), DROP_P)
+    n = x.numel()
+    kept = ((y1 != 0) | (x == 0)).float().mean().item()
+    sigma = math.sqrt(DROP_P * (1 - DROP_P) / n)
+    stats = {"kept_share": kept, "expected": 1 - DROP_P, "sigma": sigma,
+             "within_5_sigma": abs(kept - (1 - DROP_P)) <= 5 * sigma,
+             "repeat_bitwise": bool(torch.equal(y1, y2)),
+             "other_key_differs": not bool(torch.equal(y1, y3))}
+    ok &= stats["within_5_sigma"] and stats["repeat_bitwise"] \
+        and stats["other_key_differs"]
+    f = lambda: dops.dropout_cuda(x, key, DROP_P)
+    ms, dev = time_ms(f, iters=50), device_ms(f, iters=50)
+    plain = time_ms(lambda: dops.dropout_plain(x, key, DROP_P), iters=3,
+                    warmup=1)
+    lib = time_ms(lambda: torch.nn.functional.dropout(x, DROP_P), iters=50)
+    bound, by = bound3(2 * n * x.element_size(), 0, HASH_OPS * n, bw, flops,
+                       iops)
+    row = {"name": "dropout", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/dropout.cu",
+           "replaces": "none: paddle_tpu/nn/functional.py:105 dropout runs "
+                       "in XLA, outside any Pallas kernel",
+           "launches": 0, "max_abs_err": 0.0 if ok else None, "ms": ms,
+           "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": by, "library_ms": lib,
+           "library_is": "torch.nn.functional.dropout (its own mask)",
+           "shape": list(DROPOUT_SHAPE), "dtype": "bfloat16", "p": DROP_P,
+           "bound_share": bound / ms,
+           "byte_bound_ms": 2 * n * x.element_size() / bw * 1e3,
+           "int_bound_ms": HASH_OPS * n / iops * 1e3,
+           "int_ops_per_s": iops}
+    emit({"phase": "dropout", "cases": cases, "stats": stats, "row": row})
+    if not ok:
+        raise AssertionError(f"dropout: kernel and plain version differ or "
+                             f"the mask's statistics fail: {cases} {stats}")
+    return row
+
+
+def probe_v(b, s, nkv, d, t):
+    """V of zeros with the identity over key tile t (keys t·d … t·d + d - 1):
+    with q = 0, K1's output row q is then P̃[q, tile t], the dropped
+    probabilities themselves."""
+    v = torch.zeros((b, s, nkv, d), dtype=torch.bfloat16, device="cuda")
+    w = min(d, s - t * d)
+    v[:, t * d:t * d + w] = torch.eye(
+        d, dtype=torch.bfloat16, device="cuda")[:w, None, :]
+    return v
+
+
+def k1_mask_probe(fa, dops, b, h, nkv, sq, sk, d, causal, kv_lens=None):
+    """K1's dropout mask read back exactly: q = 0 makes every visible
+    probability 1/n (n a row's visible keys), V the identity over one key
+    tile makes the output those probabilities dropped, so out·keep·n
+    rounds to the keep bit. Every key tile in turn; the bits against
+    attention_keep_mask (the port's torch threefry on the card) on the
+    visible elements, bit for bit. Returns (result, the full mask)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    key = drop_key(2)
+    q = torch.zeros((b, sq, h, d), dtype=torch.bfloat16, device="cuda")
+    k = rand((b, sk, nkv, d), gen)
+    kl = None if kv_lens is None else torch.tensor(
+        kv_lens, dtype=torch.int32, device="cuda")
+    mask = dops.attention_keep_mask(key, DROP_P, b, h, sq, sk, "cuda")
+    keys = torch.arange(sk, device="cuda")
+    rows = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+    lens = torch.tensor(kv_lens or [sk] * b, device="cuda")
+    vis = (keys[None, None, :] < lens[:, None, None]).expand(b, sq, sk)
+    if causal:
+        vis = vis & (keys[None, None, :] <= rows[None])
+    n = vis.sum(-1).clamp_min(1).float()                 # (b, sq)
+    keep = float(np.float32(1 - DROP_P))
+    bad = worst = 0
+    for t in range((sk + d - 1) // d):
+        out, _ = fa.flash_attention_fwd(q, k, probe_v(b, sk, nkv, d, t),
+                                        is_causal=causal, kv_lens=kl,
+                                        dropout_p=DROP_P, key=key)
+        z = out.float().permute(0, 2, 1, 3) * keep * n[:, None, :, None]
+        w = min(d, sk - t * d)
+        z = z[..., :w]
+        bits = z > 0.5
+        worst = max(worst, (z - z.round()).abs().max().item())
+        v = vis[:, None, :, t * d:t * d + w].expand_as(bits)
+        bad += int((bits != mask[..., t * d:t * d + w])[v].sum().item())
+    res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
+           "causal": causal, "kv_lens": kv_lens,
+           "visible": int(vis.sum().item()) * h, "bits_differing": bad,
+           "max_distance_from_integer": worst,
+           "ok": bad == 0 and worst < 0.05}
+    return res, mask
+
+
+def k4_mask_probe(fa, mask, b, h, s, d):
+    """K4's regenerated mask read back exactly (MHA, non-causal): q = 0,
+    the forward's lse from K1, dO the identity over query tile t; then
+    dv[k, j] = P̃[t·d + j, k] = Z/(keep·s), so dv·keep·s rounds to the
+    keep bit of query t·d + j. Every query tile in turn, against `mask`
+    (the same key's attention_keep_mask), bit for bit."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    key = drop_key(2)
+    q = torch.zeros((b, s, h, d), dtype=torch.bfloat16, device="cuda")
+    k, v = rand((b, s, h, d), gen), rand((b, s, h, d), gen)
+    kw = dict(is_causal=False, dropout_p=DROP_P, key=key)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    keep = float(np.float32(1 - DROP_P))
+    bad = worst = 0
+    for t in range(s // d):
+        do = probe_v(b, s, h, d, t)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        _, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        z = dv.float() * keep * s                     # (b, key, h, j)
+        worst = max(worst, (z - z.round()).abs().max().item())
+        bits = (z > 0.5).permute(0, 2, 3, 1)          # (b, h, j, key)
+        bad += int((bits != mask[:, :, t * d:(t + 1) * d]).sum().item())
+    return {"b": b, "h": h, "s": s, "d": d, "causal": False,
+            "bits_differing": bad, "max_distance_from_integer": worst,
+            "ok": bad == 0 and worst < 0.05}
+
+
+def k1d_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
+             q_off=None, window=None):
+    """K1, K3 and K4 in dropout mode against the plain versions with the
+    same key: out within K1_TOL_OUT, lse bit for bit the dropout-free
+    kernel's (the statistics take the undropped P), dq, dk, dv within
+    K3_TOL of the largest plain entry; two launches of each with one key
+    bitwise equal, another key another output."""
+    q, do = rand((b, sq, h, d), gen), rand((b, sq, h, d), gen)
+    k, v = rand((b, sk, nkv, d), gen), rand((b, sk, nkv, d), gen)
+    kl = None if kv_lens is None else torch.tensor(
+        kv_lens, dtype=torch.int32, device="cuda")
+    base = dict(is_causal=causal, kv_lens=kl, causal_offset=q_off,
+                window=window)
+    kw = dict(base, dropout_p=DROP_P, key=drop_key(3))
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+    out3, _ = fa.flash_attention_fwd(q, k, v, **dict(kw, key=drop_key(4)))
+    _, lse0 = fa.flash_attention_fwd(q, k, v, **base)
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq1 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk1, dv1 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
+           "causal": causal, "kv_lens": kv_lens, "q_off": q_off,
+           "window": window, **k1_agreement(out, lse, ref, ref_lse),
+           "lse_equals_dropout_free": bool(torch.equal(lse, lse0)),
+           "repeat_bitwise": bool(
+               torch.equal(out, out2) and torch.equal(lse, lse2)
+               and torch.equal(dq1, dq2) and torch.equal(dk1, dk2)
+               and torch.equal(dv1, dv2)),
+           "other_key_differs": not bool(torch.equal(out, out3))}
+    res["ok"] &= res["lse_equals_dropout_free"] and res["repeat_bitwise"] \
+        and res["other_key_differs"]
+    refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for name, g, r in zip(("dq", "dk", "dv"), (dq1, dk1, dv1), refs):
+        err = (g.float() - r).abs().max().item()
+        tol = K3_TOL * r.abs().max().item()
+        res[name] = {"max_abs_err": err, "tol": tol}
+        res["ok"] &= bool(err <= tol and torch.isfinite(g.float()).all())
+    return res
+
+
+def phase_k1d(fa, bw, flops, iops):
+    """K1, K3 and K4's dropout modes: the exact mask probes (K1 at GPT-2's
+    training shape, causal and not, and at d 128 with GQA and kv_lens; K4's
+    dv at the training shape), the kept share, the agreement cases (the
+    training shape; d 128, GQA and kv_lens; non-causal; the window; a
+    causal offset), and the times at the training shape with and without
+    dropout beside the bounds (now also the hash's integer operations) and
+    torch sdpa with dropout_p (its own mask: the time only)."""
+    from paddle_tpu_torch.ops import dropout as dops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    b, h, s, d = 8, 16, 1024, 64
+    probes = []
+    res, mask = k1_mask_probe(fa, dops, b, h, h, s, s, d, causal=False)
+    probes.append(res)
+    n = mask.numel()
+    kept = mask.float().mean().item()
+    sigma = math.sqrt(DROP_P * (1 - DROP_P) / n)
+    stats = {"elements": n, "kept_share": kept, "expected": 1 - DROP_P,
+             "sigma": sigma,
+             "within_5_sigma": abs(kept - (1 - DROP_P)) <= 5 * sigma}
+    probes.append(k4_mask_probe(fa, mask, b, h, s, d))
+    del mask
+    probes.append(k1_mask_probe(fa, dops, b, h, h, s, s, d, causal=True)[0])
+    probes.append(k1_mask_probe(fa, dops, 2, 16, 4, 512, 640, 128,
+                                causal=False, kv_lens=[640, 300])[0])
+    torch.cuda.empty_cache()
+    cases = [
+        k1d_case(fa, gen, b, h, h, s, s, d, True),              # training
+        k1d_case(fa, gen, 2, 16, 4, 512, 640, 128, True, [640, 300]),
+        k1d_case(fa, gen, 2, 8, 2, 300, 700, 64, False, [700, 123]),
+        k1d_case(fa, gen, 2, 8, 2, 384, 1084, 128, True, None, 700, 200),
+        k1d_case(fa, gen, 2, 8, 8, 200, 333, 64, True, [333, 0], 133),
+    ]
+    # times at the training shape, causal
+    q, k, v, do = (rand((b, s, h, d), gen) for _ in range(4))
+    kw = dict(is_causal=True, dropout_p=DROP_P, key=drop_key(3))
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        out0, lse0 = fa.flash_attention_fwd(q, k, v, is_causal=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    delta0 = (do.float() * out0.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    fns = {
+        "k1": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
+               lambda: fa.flash_attention_fwd(q, k, v, is_causal=True)),
+        "k3": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                 **kw),
+               lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse0, delta0,
+                                                 is_causal=True)),
+        "k4": (lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  **kw),
+               lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse0, delta0,
+                                                  is_causal=True))}
+    times = {}
+    for key_, (fd_, f0) in fns.items():
+        times[key_] = {"ms": time_ms(fd_, iters=20),
+                       "device_ms": device_ms(fd_, iters=20),
+                       "ms_without_dropout": time_ms(f0, iters=20),
+                       "device_ms_without_dropout": device_ms(f0, iters=20)}
+    plain_fwd = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
+                        iters=2, warmup=1)
+    plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, **kw), iters=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                       dropout_p=DROP_P), iters=20)
+    o_lib = sdpa(qt, kt, vt, is_causal=True, dropout_p=DROP_P)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+        iters=20)
+    pairs, work = causal_attention_work(b, h, s, d)
+    rows = {}
+    errs = {"k1": max(c["max_abs_err"] for c in cases),
+            "k3": max(c["dq"]["max_abs_err"] for c in cases),
+            "k4": max(max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
+                      for c in cases)}
+    for key_, name, line, where in (
+            ("k1", "flash_attention_fwd", 526, "_dropout_keep :605"),
+            ("k3", "flash_attention_bwd_dq", 668, "dropout :737"),
+            ("k4", "flash_attention_bwd_dkv", 787, "dropout :863")):
+        nbytes, nflops = work[key_]
+        bound, by = bound3(nbytes, nflops, HASH_OPS * pairs, bw, flops, iops)
+        t = times[key_]
+        rows[key_] = {
+            "name": f"{name} (dropout)", "mode": "dropout", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention"
+                      + ("_bwd" if key_ != "k1" else "") + ".cu",
+            "replaces": f"paddle_tpu/ops/flash_attention.py:{line} "
+                        f"({where})",
+            "launches": 0, "max_abs_err": errs[key_], "ms": t["ms"],
+            "device_ms": t["device_ms"],
+            "ms_without_dropout": t["ms_without_dropout"],
+            "device_ms_without_dropout": t["device_ms_without_dropout"],
+            "plain_ms": plain_fwd if key_ == "k1" else plain_bwd,
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_fwd if key_ == "k1" else lib_bwd,
+            "library_is": "torch sdpa, dropout_p 0.1 (its own mask), "
+                          + ("forward" if key_ == "k1" else
+                             "backward, dq+dk+dv, device time"),
+            "shape_b_s_h_d": [b, s, h, d], "causal": True,
+            "visible_pairs": pairs, "int_ops": HASH_OPS * pairs,
+            "bound_share": bound / t["ms"]}
+    res = {"phase": "k1d", "p": DROP_P, "probes": probes, "stats": stats,
+           "cases": cases, "kernels": rows}
+    emit(res)
+    bad = [c for c in probes + cases if not c["ok"]]
+    if bad or not stats["within_5_sigma"]:
+        raise AssertionError(f"k1d: {bad} {stats}")
+    return rows
+
+
+class PlainDropout(PlainCalls):
+    """Counts calls of the hidden dropout's plain version (the kernel's
+    wrapper looks it up at call time): a train step on the card must run
+    none."""
+
+    NAMES = ("dropout_plain",)
+
+
+def phase_train_dropout(fa, fd, flops):
+    """GPT-2 345M as published (`GPTConfig.gpt2_medium()`: hidden and
+    attention dropout 0.1) through the bench twin's build and train_step
+    (one "dropout" key a step from the global generator): 3 warm-up and 10
+    counted steps; K1, K3 and K4 24 a step, all in dropout mode, the
+    dropout kernel 49 a step forward and 49 backward, no plain attention
+    or dropout call; step ms, MFU on phase train's basis, peak memory, a
+    traced step; the loss finite and falling."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops import dropout as dops
+    cfg = GPTConfig.gpt2_medium()
+    _, b, s, _ = bench.config()
+    warm, steps = 3, 10
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, x, y = bench.build(cfg, b, s, "cuda")
+    n_params = model.num_params()
+    rng.seed(0)
+    step = lambda: bench.train_step(model, opt, x, y)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    with PlainTraining(fa) as plain, PlainDropout(dops) as plain_drop:
+        losses = [float(step()) for _ in range(warm)]
+        reset_counts(fa, fd)
+        for w in wrappers:
+            w.dropout = 0
+        dops.dropout_cuda.backward = 0
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        timed = [step() for _ in range(steps)]
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(fa, fd)
+        in_mode = {w.__name__: w.dropout for w in wrappers}
+        backward = dops.dropout_cuda.backward
+        peak = torch.cuda.max_memory_allocated()
+        trace = traced_step(step, reps=1)
+    reset_counts(fa, fd)
+    losses += [float(t) for t in timed]
+    dev_s = e0.elapsed_time(e1) / 1e3
+    tok_s = b * s * steps / dev_s
+    fpt = bench.flops_per_token(cfg, n_params, s)
+    L = cfg.num_layers
+    n_drop = (1 + 2 * L) * steps
+    res = {"phase": "train_dropout", "model": "gpt2_medium",
+           "hidden_dropout": cfg.hidden_dropout_prob,
+           "attention_dropout": cfg.attention_dropout_prob, "layers": L,
+           "dtype": "bfloat16", "params": n_params, "batch": b, "seq": s,
+           "optimizer": "AdamW(1e-4), fp32 masters", "warmup_steps": warm,
+           "steps": steps, "step_ms": 1e3 * dev_s / steps,
+           "wall_step_ms": 1e3 * wall / steps, "tokens_per_s": tok_s,
+           "flops_per_token": fpt, "mfu": tok_s * fpt / flops,
+           "mfu_basis": "dense_6n", "max_memory_allocated": peak,
+           "losses": losses, "launches": got,
+           "dropout_mode_launches": in_mode,
+           "dropout_kernel_backward_launches": backward,
+           "plain_attention_calls": plain.n,
+           "plain_dropout_calls": plain_drop.n, "step_trace": trace,
+           "device_idle_share": None if trace is None
+           else 1 - trace["busy_ms"] / (1e3 * dev_s / steps),
+           "rng_state": list(rng.get_rng_state())}
+    emit(res)
+    del model, opt
+    want = dict.fromkeys(got, 0)
+    want.update(flash_attention_fwd=L * steps, flash_attention_bwd_dq=L * steps,
+                flash_attention_bwd_dkv=L * steps, dropout=2 * n_drop)
+    bad = []
+    if got != want:
+        bad.append(f"launches {got}, expected {want}")
+    if in_mode != {w.__name__: L * steps for w in wrappers} \
+            or backward != n_drop:
+        bad.append(f"dropout-mode launches {in_mode}, backward dropout "
+                   f"{backward}, expected {L * steps} and {n_drop}")
+    if plain.n or plain_drop.n:
+        bad.append(f"{plain.n} plain attention and {plain_drop.n} plain "
+                   "dropout calls")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        bad.append(f"loss not finite or not falling: {losses}")
+    if bad:
+        raise AssertionError("train_dropout: " + "; ".join(bad))
+    return res
+
+
+def dropout_rows(drop_row, k1d_rows, train_res):
+    """The kernel table's dropout rows (1b, 2b, 3b and the hidden-dropout
+    kernel), their launches from phase train_dropout."""
+    got, in_mode = train_res["launches"], train_res["dropout_mode_launches"]
+    out = []
+    for key_, row in k1d_rows.items():
+        name = row["name"].split(" ")[0]
+        row = dict(row, launches=in_mode[name],
+                   launches_by_path={"train_dropout": in_mode[name]})
+        out.append(row)
+    out.append(dict(drop_row, launches=got["dropout"], launches_by_path={
+        "train_dropout": got["dropout"]},
+        backward_launches=train_res["dropout_kernel_backward_launches"]))
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5394,6 +5960,7 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name_line, kind, bw, flops = card()
+    iops = int_ops_per_s()
     t0 = time.perf_counter()
     _build.build_all(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -5413,6 +5980,12 @@ def main(argv):
         phase_train_llama(fa, fd, flops)
         phase_train_mistral(fa, fd, flops)
         return 0
+    if "--dropout" in argv:
+        rows = dropout_rows(phase_dropout(bw, flops, iops),
+                            phase_k1d(fa, bw, flops, iops),
+                            phase_train_dropout(fa, fd, flops))
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     k1_err = phase_k1(fa, gen)
     k1w_err = phase_k1w(fa, fd, gen)
     k2_err = phase_k2(fd, rope, gen)
@@ -5430,6 +6003,8 @@ def main(argv):
     phase_int8_stress(fd, rope)
     k8_row = phase_k8(gen, bw)
     k9_row = phase_k9(fd, bw)
+    drop_row = phase_dropout(bw, flops, iops)
+    k1d_rows = phase_k1d(fa, bw, flops, iops)
     if quick:
         return 0
     model, plan, kv, launches, int8kv_launches = phase_e2e(fa, fd)
@@ -5465,6 +6040,9 @@ def main(argv):
     phase_step(fa, fd)
     kernels = phase_timing_train(fa, bw, flops, kernels, train_launches,
                                  k3_errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_drop = phase_train_dropout(fa, fd, flops)
     gc.collect()
     torch.cuda.empty_cache()
     window_row, mistral_launches = phase_mistral(fa, fd, bw, flops, k1w_err)
@@ -5553,6 +6131,12 @@ def main(argv):
                 "train_llama": llama_train["windowed_launches"][row["name"]]},
             "at_path": dict(t, shape_b_s_h_nkv_d=k3w_path["shape_b_s_h_nkv_d"],
                             window=k3w_path["window"])}
+    for k in kernels:
+        k["launches_by_path"]["train_dropout"] = \
+            train_drop["launches"][k["name"]]
+    # rows 1b, 2b, 3b (K1, K3, K4's dropout modes) and the hidden-dropout
+    # kernel, launched on path train_dropout
+    kernels += dropout_rows(drop_row, k1d_rows, train_drop)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -31,6 +31,10 @@ from paddle_tpu_torch.core.dtype import (  # noqa: F401
     set_default_dtype,
 )
 from paddle_tpu_torch.core.flags import get_flags, set_flags  # noqa: F401
-from paddle_tpu_torch.core.rng import seed  # noqa: F401
+from paddle_tpu_torch.core.rng import (  # noqa: F401
+    get_rng_state,
+    seed,
+    set_rng_state,
+)
 from paddle_tpu_torch import (inference, models, nn, ops,  # noqa: F401
                               optimizer, quantization, serving)

@@ -5,7 +5,8 @@ JAX package's ``bench.py``).
     python -m paddle_tpu_torch.bench --device cpu --tiny  # a short CPU run
 
 The same configuration as ``bench.py``: ``GPTConfig.gpt2_medium()`` with
-both dropouts 0, bf16 parameters, ``AdamW(learning_rate=1e-4)`` with fp32
+both dropouts 0 (``config``; ``train_step`` takes a model at any dropout,
+binding one "dropout" key a step), bf16 parameters, ``AdamW(learning_rate=1e-4)`` with fp32
 masters and moments, B=8, S=1024, the same batch every step (ids from
 ``numpy.random.RandomState(0)``, shape (B, S+1), x/y shifted), and
 ``n_steps`` = 20. One warm-up pass of ``n_steps``, then a timed pass, timed
@@ -26,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.models import GPTConfig, GPTPretrainModel
 from paddle_tpu_torch.optimizer import AdamW
@@ -69,10 +71,14 @@ def build(cfg, B, S, device=None, dtype=torch.bfloat16, seed=0):
 
 
 def train_step(model, opt, x, y):
-    """One step: forward, loss, backward, AdamW. Returns the loss (a device
+    """One step: forward, loss, backward, AdamW, under a fresh "dropout"
+    key from the global generator, bound for the step as the reference's
+    train step binds one (``make_train_step(rng_streams=("dropout",))``,
+    ``paddle_tpu/parallel/fleet.py:391-396``). Returns the loss (a device
     tensor: no host sync)."""
-    loss = model.loss(model(x), y)
-    loss.backward()
+    with rng.rng_guard(dropout=rng.global_key()):
+        loss = model.loss(model(x), y)
+        loss.backward()
     opt.step()
     opt.clear_grad()
     return loss.detach()

@@ -57,6 +57,21 @@
 //    per-element mask as the diagonal does. A row whose visible keys all
 //    lie in later tiles keeps m = -inf and p = 0 until it meets them. At
 //    sq = 1 a decode step reads only the window's tiles.
+//  * Dropout is a third template flag (DROP = true; the kernels without it
+//    run the code they ran before, their registers untouched): after
+//    softmax_tile has taken a tile's undropped P into m and l (the lse stays
+//    the undropped one, as the reference's "probabilities drop AFTER the
+//    softmax statistics accumulate", :533-535), drop_tile zeroes the
+//    dropped elements and scales the kept ones by 1/keep before P is packed
+//    for P·V. An element's keep bit hashes its flat index ((b·h + hi)·sq +
+//    q)·sk + k (csrc/threefry.cuh), from the same accumulator-fragment
+//    coordinates the masks use, so K3 and K4 regenerate the mask whatever
+//    their tiling. The hash (about 70 integer instructions an element)
+//    runs while P·V(j) is on the tensor cores. A template and not a
+//    per-launch flag: the consumers run at 240 registers, and a flag would
+//    make every launch carry the hash's registers and a branch in the
+//    softmax pass (ptxas: 168 at entry and no spill in every
+//    instantiation; the build takes ~23 s with eight instantiations).
 //  * ptxas keeps the wgmmas asynchronous only when each wait matches its
 //    group statically: every wgmma in the main loop is issued
 //    unconditionally (the last tile's P·V is peeled off), and P is
@@ -73,6 +88,7 @@
 // int32 or null.
 
 #include "hopper_sm90.cuh"
+#include "threefry.cuh"
 
 using namespace sm90;
 
@@ -161,6 +177,25 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
   }
 }
 
+// Dropout on tile k0 of P (the thread's rows r0 and r0 + 8, whose flat
+// score indices start at rb and rb + rs8): a dropped element becomes 0, a
+// kept one P/keep
+__device__ __forceinline__ void drop_tile(float (&s)[BK / 2],
+                                          const tf::Drop& dr, uint64_t rb,
+                                          uint64_t rs8, int k0, int tg) {
+#pragma unroll
+  for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t idx =
+            rb + (i ? rs8 : 0) + (uint64_t)(k0 + c * 8 + tg * 2 + j);
+        float& v = s[4 * c + 2 * i + j];
+        v = tf::keep(dr, idx) ? v * dr.inv : 0.f;
+      }
+}
+
 // O += P·V(tile): V is the MN-major B, 16 keys = +2048 bytes; committed
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
@@ -173,14 +208,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_commit();
 }
 
-template <int D, bool WIN>
+template <int D, bool WIN, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out,
                float* __restrict__ lse, const int* __restrict__ kv_lens,
                int sq, int sk, int h, int nkv, int causal, int q_off,
-               int window, float scale, int group) {
+               int window, float scale, int group, tf::Drop dr) {
   using C = Fwd<D>;
   constexpr int ST = C::ST;
   extern __shared__ uint8_t smem_raw[];
@@ -265,6 +300,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
     const int rw0 = q0 + wg * 64;                 // the group's first row
     const int r0 = rw0 + wl * 16 + g;             // rows of d[4c + j] ...
     const float sl2 = scale * 1.4426950408889634f;
+    // DROP: flat score index of (bi, hi, r0, key 0), and +8 rows
+    const uint64_t rb = ((uint64_t)(bi * h + hi) * sq + r0) * sk;
+    const uint64_t rs8 = (uint64_t)8 * sk;
 
     float o[D / 2];
 #pragma unroll
@@ -290,6 +328,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       mbar_arrive(&empty_k[0]);
       softmax_tile<WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen, causal,
                         q_off, wlo, sl2);
+      if constexpr (DROP) drop_tile(s, dr, rb, rs8, t0 * BK, tg);
       pack_a<BK>(s, p);
       // A pass issues S(it+1) and then P·V(it) (every wgmma unconditional,
       // so ptxas matches each wait to its group and keeps them
@@ -308,6 +347,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         mbar_arrive(&empty_k[sn]);   // K(it+1) is read: its stage may refill
         softmax_tile<WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0, tg,
                           kvlen, causal, q_off, wlo, sl2);
+        if constexpr (DROP) drop_tile(s, dr, rb, rs8, (t0 + it + 1) * BK, tg);
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(p);
@@ -355,14 +395,19 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-           int causal, int q_off, int window, float scale, cudaStream_t st) {
+           int causal, int q_off, int window, float scale, int drop,
+           tf::Drop dr, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (err) return err;
-  // window > 0 (with causal): the windowed instantiation
-  auto kern = window > 0 ? flash_fwd_sm90<D, true> : flash_fwd_sm90<D, false>;
+  // window > 0 (with causal): the windowed instantiation; drop: the
+  // dropout one
+  auto kern = window > 0 ? (drop ? flash_fwd_sm90<D, true, true>
+                                 : flash_fwd_sm90<D, true, false>)
+                         : (drop ? flash_fwd_sm90<D, false, true>
+                                 : flash_fwd_sm90<D, false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -371,24 +416,29 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const int grid = ((sq + BQ - 1) / BQ) * h * b;
   kern<<<grid, THREADS, Fwd<D>::SMEM, st>>>(
       mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-      nkv, causal, q_off, window, scale, group);
+      nkv, causal, q_off, window, scale, group, dr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// drop: the dropout instantiation, keyed by (k1, k2), an element kept iff
+// its top 23 bits are below thr, a kept probability scaled by inv = 1/keep
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, const void* kv_lens,
                                    int b, int sq, int sk, int h, int nkv,
                                    int d, int causal, int q_off, int window,
-                                   float scale, void* stream) {
+                                   float scale, int drop, unsigned k1,
+                                   unsigned k2, unsigned thr, float inv,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
+  const tf::Drop dr{k1, k2, thr, inv};
   if (d == 128)
     return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, st);
+                       q_off, window, scale, drop, dr, st);
   if (d == 64)
     return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                      q_off, window, scale, st);
+                      q_off, window, scale, drop, dr, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -43,6 +43,15 @@
 // last key; tiles straddling the window's lower edge take the per-element
 // mask as the diagonal does (see each kernel below).
 //
+// Dropout is a third instantiation flag of each kernel (DROP = true, as
+// K1's; the kernels without it run the code they ran before). With Z the
+// keep mask and P̃ = P∘Z/keep the forward's dropped probabilities:
+//   dS = P∘(dP∘Z/keep − Δ), Δ = rowsum(dO∘O) over the dropped O as before,
+//   dv = P̃ᵀ·dO.
+// Each kernel regenerates Z from an element's flat score index ((b·h +
+// hi)·sq + q)·sk + k (csrc/threefry.cuh), from the coordinates its masks
+// already use: K3 in k3_ds, K4 in k4_drop_ds (dSᵀ, and Pᵀ dropped for dv).
+//
 // Layouts: q, dout (b, sq, h, d), k/v (b, sk, nkv, d), dq (b, sq, h, d),
 // dk/dv (b, sk, nkv, d), all bf16 and contiguous; lse, delta (b, h, sq)
 // fp32; kv_lens (b,) int32 or null.
@@ -52,6 +61,7 @@
 #include <stdint.h>
 
 #include "hopper_sm90.cuh"
+#include "threefry.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -172,14 +182,18 @@ struct Dq {
 // dS = P∘(dP − Δ) in place of dP, P = 2^(S·sl2 − lse·log2 e) from the S
 // accumulator (rows r0 + 8i, keys k0 + 8c + 2·tg + j); 0 where the key is
 // masked for the row (only `edge` tiles test): past kv_len, past the causal
-// diagonal, or (WIN) at or below wlo + r, wlo = q_off - window
-template <bool WIN>
+// diagonal, or (WIN) at or below wlo + r, wlo = q_off - window. DROP:
+// dS = P∘(dP∘Z/keep − Δ), Z hashed from the flat score index (rows r0 and
+// r0 + 8 start at rb and rb + rs8)
+template <bool WIN, bool DROP>
 __device__ __forceinline__ void k3_ds(const float (&sa)[BK3 / 2],
                                       float (&dp)[BK3 / 2],
                                       const float (&l2)[2],
                                       const float (&dl)[2], bool edge, int k0,
                                       int r0, int tg, int kvlen, int causal,
-                                      int q_off, int wlo, float sl2) {
+                                      int q_off, int wlo, float sl2,
+                                      const tf::Drop& dr, uint64_t rb,
+                                      uint64_t rs8) {
 #pragma unroll
   for (int c = 0; c < BK3 / 8; ++c)
 #pragma unroll
@@ -187,18 +201,23 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK3 / 2],
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int e = 4 * c + 2 * i + j;
+        const int key = k0 + c * 8 + tg * 2 + j;
         float p = sm90::ex2(fmaf(sa[e], sl2, -l2[i]));
         if (edge) {
-          const int key = k0 + c * 8 + tg * 2 + j;
           if (key >= kvlen || (causal && key > q_off + r0 + 8 * i) ||
               (WIN && key <= wlo + r0 + 8 * i))
             p = 0.f;
         }
-        dp[e] = p * (dp[e] - dl[i]);
+        if constexpr (DROP) {
+          const bool kp = tf::keep(dr, rb + (i ? rs8 : 0) + (uint64_t)key);
+          dp[e] = p * ((kp ? dp[e] * dr.inv : 0.f) - dl[i]);
+        } else {
+          dp[e] = p * (dp[e] - dl[i]);
+        }
       }
 }
 
-template <int D, bool WIN>
+template <int D, bool WIN, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const __grid_constant__ CUtensorMap mk,
@@ -208,7 +227,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   const int* __restrict__ kv_lens, int sq, int sk, int h,
                   int nkv, int causal, int q_off, int window, float scale,
-                  int group) {
+                  int group, tf::Drop dr) {
   using C = Dq<D>;
   constexpr int ST = C::ST;
   extern __shared__ uint8_t smem_raw[];
@@ -291,6 +310,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
     const int rw0 = q0 + wg * 64;                 // the group's first row
     const int r0 = rw0 + wl * 16 + g;             // rows of d[4c + j] ...
     const float sl2 = scale * 1.4426950408889634f;
+    // DROP: flat score index of (bi, hi, r0, key 0), and +8 rows
+    const uint64_t rb = ((uint64_t)(bi * h + hi) * sq + r0) * sk;
+    const uint64_t rs8 = (uint64_t)8 * sk;
 
     // this thread's rows r0 and r0 + 8: lse·log2 e (+inf where P is 0) and Δ
     float l2[2], dl[2];
@@ -349,8 +371,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::fence_regs(sa);
         sm90::fence_regs(dp);
         const int kb = (t0 + j0) * BK3;
-        k3_ds<WIN>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen, causal, q_off,
-                   wlo, sl2);
+        k3_ds<WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen, causal,
+                         q_off, wlo, sl2, dr, rb, rs8);
         sm90::pack_a<BK3>(dp, da);
         // K1's overlap (see "Scheduling within a group" above)
         for (int it = j0; it + 1 < nt; ++it) {
@@ -363,8 +385,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::wgmma_wait<1>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          k3_ds<WIN>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen, causal,
-                     q_off, wlo, sl2);
+          k3_ds<WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
+                           causal, q_off, wlo, sl2, dr, rb, rs8);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(acc);
           sm90::fence_regs(da);
@@ -405,17 +427,20 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-              int causal, int q_off, int window, float scale,
-              cudaStream_t st) {
+              int causal, int q_off, int window, float scale, int drop,
+              tf::Drop dr, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK3);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK3);
   if (err) return err;
-  // window > 0 (with causal): the windowed instantiation
-  auto kern = window > 0 ? flash_bwd_dq_sm90<D, true>
-                         : flash_bwd_dq_sm90<D, false>;
+  // window > 0 (with causal): the windowed instantiation; drop: the
+  // dropout one
+  auto kern = window > 0 ? (drop ? flash_bwd_dq_sm90<D, true, true>
+                                 : flash_bwd_dq_sm90<D, true, false>)
+                         : (drop ? flash_bwd_dq_sm90<D, false, true>
+                                 : flash_bwd_dq_sm90<D, false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -425,7 +450,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, Dq<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
       (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window, scale,
-      group);
+      group, dr);
   return (int)cudaGetLastError();
 }
 
@@ -500,6 +525,33 @@ __device__ __forceinline__ void k4_p(float (&sa)[BQ4 / 2], const float* ls,
   }
 }
 
+// DROP: dSᵀ = Pᵀ∘(dPᵀ∘Z/keep − Δ) in place of dPᵀ, then Pᵀ∘Z/keep in
+// place of Pᵀ (for dv); element (key c0 + 8i, query q0 + 8c + 2·tg + j) of
+// the scores of the head starting at flat index hb hashes hb + query·sk +
+// key; dl holds the tile's Δ
+__device__ __forceinline__ void k4_drop_ds(float (&sa)[BQ4 / 2],
+                                           float (&dp)[BQ4 / 2],
+                                           const float* dl, int tg, int c0,
+                                           int q0, int sk, uint64_t hb,
+                                           const tf::Drop& dr) {
+  // the thread's first element: query q0 + 2·tg, key c0
+  const uint64_t base = hb + (uint64_t)(q0 + tg * 2) * sk + (uint64_t)c0;
+#pragma unroll
+  for (int c = 0; c < BQ4 / 8; ++c) {
+    const float2 d2 = *reinterpret_cast<const float2*>(dl + c * 8 + tg * 2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * c + 2 * i + j;
+        const bool kp = tf::keep(
+            dr, base + (uint64_t)(c * 8 + j) * sk + (uint64_t)(8 * i));
+        dp[e] = sa[e] * ((kp ? dp[e] * dr.inv : 0.f) - (j ? d2.y : d2.x));
+        sa[e] = kp ? sa[e] * dr.inv : 0.f;
+      }
+  }
+}
+
 // dSᵀ = Pᵀ∘(dPᵀ − Δ) in place of dPᵀ; dl holds the tile's Δ
 __device__ __forceinline__ void k4_ds(const float (&sa)[BQ4 / 2],
                                       float (&dp)[BQ4 / 2], const float* dl,
@@ -516,7 +568,7 @@ __device__ __forceinline__ void k4_ds(const float (&sa)[BQ4 / 2],
   }
 }
 
-template <int D, bool WIN>
+template <int D, bool WIN, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mk,
@@ -526,7 +578,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, const int* __restrict__ kv_lens,
                    int sq, int sk, int h, int nkv, int causal, int q_off,
-                   int window, float scale, int group) {
+                   int window, float scale, int group, tf::Drop dr) {
   using C = Dkv<D>;
   constexpr int ST = C::ST;
   extern __shared__ uint8_t smem_raw[];
@@ -682,7 +734,14 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::fence_regs(dp);
           k4_p<WIN>(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, wlo,
                     sl2);
-          k4_ds(sa, dp, ls + BQ4, tg);
+          if constexpr (DROP) {
+            // the scores of head kh·n_rep + it / per_head
+            const uint64_t hb =
+                (uint64_t)(bi * h + kh * n_rep + it / per_head) * sq * sk;
+            k4_drop_ds(sa, dp, ls + BQ4, tg, c0, q0, sk, hb, dr);
+          } else {
+            k4_ds(sa, dp, ls + BQ4, tg);
+          }
           sm90::pack_a<BQ4>(dp, da);
           sm90::pack_a<BQ4>(sa, pa);
           issue_acc<D>(dva, pa, dOt + so);
@@ -721,17 +780,20 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-               int causal, int q_off, int window, float scale,
-               cudaStream_t st) {
+               int causal, int q_off, int window, float scale, int drop,
+               tf::Drop dr, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BKEY);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BKEY);
   if (err) return err;
-  // window > 0 (with causal): the windowed instantiation
-  auto kern = window > 0 ? flash_bwd_dkv_sm90<D, true>
-                         : flash_bwd_dkv_sm90<D, false>;
+  // window > 0 (with causal): the windowed instantiation; drop: the
+  // dropout one
+  auto kern = window > 0 ? (drop ? flash_bwd_dkv_sm90<D, true, true>
+                                 : flash_bwd_dkv_sm90<D, true, false>)
+                         : (drop ? flash_bwd_dkv_sm90<D, false, true>
+                                 : flash_bwd_dkv_sm90<D, false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -741,7 +803,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, Dkv<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window,
-      scale, group);
+      scale, group, dr);
   return (int)cudaGetLastError();
 }
 
@@ -753,17 +815,21 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dq, const void* kv_lens, int b,
                                       int sq, int sk, int h, int nkv, int d,
                                       int causal, int q_off, int window,
-                                      float scale, void* stream) {
+                                      float scale, int drop, unsigned k1,
+                                      unsigned k2, unsigned thr, float inv,
+                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // window: 0 = none; a window needs causal (the reference's validation)
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
+  // drop: the forward's draw, as K1 takes it
+  const tf::Drop dr{k1, k2, thr, inv};
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, window, scale, st);
+                          h, nkv, causal, q_off, window, scale, drop, dr, st);
   if (d == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                         h, nkv, causal, q_off, window, scale, st);
+                         h, nkv, causal, q_off, window, scale, drop, dr, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -774,16 +840,21 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* kv_lens, int b, int sq,
                                        int sk, int h, int nkv, int d,
                                        int causal, int q_off, int window,
-                                       float scale, void* stream) {
+                                       float scale, int drop, unsigned k1,
+                                       unsigned k2, unsigned thr, float inv,
+                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // window: 0 = none; a window needs causal (the reference's validation)
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
+  const tf::Drop dr{k1, k2, thr, inv};
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                           sk, h, nkv, causal, q_off, window, scale, st);
+                           sk, h, nkv, causal, q_off, window, scale, drop, dr,
+                           st);
   if (d == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                          sk, h, nkv, causal, q_off, window, scale, st);
+                          sk, h, nkv, causal, q_off, window, scale, drop, dr,
+                          st);
   return (int)cudaErrorInvalidValue;
 }

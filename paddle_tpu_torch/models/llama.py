@@ -145,10 +145,9 @@ class LlamaAttention(nn.Layer):
             # k_pos > start_pos + i - window) over the whole cache; the
             # same limits go here as structured arguments (causal offset
             # start_pos, kv_len start_pos + s, the window), which the
-            # kernel takes directly.
-            if attn_mask is not None:
-                raise NotImplementedError(
-                    "attn_mask with a KV cache is not ported yet")
+            # kernel takes directly. A caller's attn_mask is taken and
+            # ignored here, as the reference ignores it on its cache path
+            # (it builds its own position mask, :151-166).
             cache["k"][:, start_pos:start_pos + s] = k.to(cache["k"].dtype)
             cache["v"][:, start_pos:start_pos + s] = v.to(cache["v"].dtype)
             out = F.scaled_dot_product_attention(

@@ -35,16 +35,26 @@ def embedding(ids, weight):
     return weight[ids]
 
 
-def dropout(x, p=0.5, training=True):
-    """Identity when ``p == 0`` or not training. Random dropout needs the
-    named RNG streams, which are not ported yet, so p > 0 in training
-    raises."""
+def dropout(x, p=0.5, training=True, mode="upscale_in_train",
+            rng_name="dropout"):
+    """Port of the reference's ``dropout`` (``paddle_tpu/nn/functional.py:
+    105-115``). In training with p > 0 it draws one key from stream
+    `rng_name` (``core.rng.next_rng_key``) and keeps each element with
+    probability 1 - p by the reference's mask; "upscale_in_train" divides
+    the kept elements by 1 - p, "downscale_in_infer" keeps them as they
+    are and scales by 1 - p in eval instead. p = 1 gives zeros. On CUDA
+    tensors the dropout kernel (``ops.dropout``), on CPU tensors its plain
+    version; the backward regenerates the mask from the saved key."""
+    from paddle_tpu_torch.ops import dropout as drop_ops
     if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training and p > 0.0:
+            # the reference's infer scaling, 1 - p taken in x's dtype
+            return x * drop_ops.keep_in_dtype(p, x.dtype)
         return x
-    raise NotImplementedError(
-        "dropout with p > 0 in training needs the named RNG streams, not "
-        "ported yet (ROADMAP Queue A item 1); set the dropout probability "
-        "to 0 or call eval()")
+    from paddle_tpu_torch.core import rng
+    key = rng.next_rng_key(rng_name)
+    return drop_ops.Dropout.apply(x, key, float(p),
+                                  mode == "upscale_in_train")
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):

@@ -57,12 +57,16 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """``F.dropout`` with the layer's training flag (identity at p = 0 or
-    in eval mode; p > 0 in training raises until the RNG streams land)."""
+    """``F.dropout`` with the layer's training flag (port of
+    ``paddle_tpu/nn/layers/common.py:52-62``)."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, mode="upscale_in_train", name=None,
+                 rng_name="dropout"):
         super().__init__()
         self.p = p
+        self.mode = mode
+        self.rng_name = rng_name
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, training=self.training, mode=self.mode,
+                         rng_name=self.rng_name)

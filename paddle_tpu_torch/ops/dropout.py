@@ -1,0 +1,147 @@
+"""Dropout: the keep mask every dropout of the port draws, the hidden-dropout
+kernel and its plain version.
+
+The mask is the JAX package's CPU mask, ``jax.random.bernoulli(key, 1 - p,
+shape)`` (``paddle_tpu/nn/functional.py:112``, and over the attention's
+(b, h, sq, sk) probabilities at ``paddle_tpu/ops/flash_attention.py:138``):
+the element at flat row-major index i is kept iff ``uniform(key)[i] <
+float32(1 - p)``, which is ``(bits(i) >> 9) < keep_threshold(p)`` on the
+element's 32 threefry bits. ``keep_mask`` computes it in torch integer ops
+(``core/rng.py``), ``attention_keep_mask`` from the (b, h, q, k)
+coordinates as the flash-attention kernels index an element, and
+``csrc/threefry.cuh`` on the card.
+
+``dropout_cuda`` wraps the hand-written kernel ``csrc/dropout.cu`` (it
+replaces no TPU kernel: the reference leaves this dropout to XLA, and the
+port's plain version would be ~100 eager int64 passes a call); on CPU
+tensors it runs ``dropout_plain``. ``launches`` counts its launches,
+``backward`` those of them made for a gradient.
+"""
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.core import rng
+from paddle_tpu_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def keep_threshold(p) -> int:
+    """The integer t with ``uniform < float32(1 - p)`` ⟺ ``(bits >> 9) <
+    t``: ceil(float32(1 - p) · 2^23) (exact: a float32 times 2^23 is a
+    double exactly). p = 0 keeps every element (t = 2^23), p = 1 none."""
+    return math.ceil(float(np.float32(1.0 - p)) * 2.0 ** 23)
+
+
+def keep_in_dtype(p, dtype) -> float:
+    """1 - p rounded to `dtype`, as the reference's ``x / keep`` takes a
+    Python float in x's dtype (a bf16 keep for a bf16 x)."""
+    return float(torch.tensor(1.0 - p, dtype=torch.float64).to(dtype))
+
+
+def divide_by_keep(x, p):
+    """x / keep_in_dtype(p), divided as IEEE division in x's compute type
+    and rounded to x's dtype (the reference's ``x / keep``, and the
+    kernel's). The divisor is a tensor on x's device: on CUDA torch turns
+    a division by a Python scalar into a product with its reciprocal,
+    which rounds differently."""
+    return x / torch.full((), keep_in_dtype(p, x.dtype), dtype=x.dtype,
+                          device=x.device)
+
+
+def keep_mask(key, p, shape, device=None):
+    """Bool keep mask of `shape` for the draw `key`, on `device` (the key's
+    by default): ``bernoulli(key, 1 - p, shape)``."""
+    key = torch.as_tensor(key, dtype=torch.int64)
+    if device is not None:
+        key = key.to(device)
+    return (rng.random_bits(key, shape) >> 9) < keep_threshold(p)
+
+
+def attention_keep_mask(key, p, b, h, sq, sk, device=None):
+    """The keep mask over attention probabilities (b, h, sq, sk) as K1, K3
+    and K4 compute it: element (bi, hi, q, k) hashes its flat index
+    ``((bi·h + hi)·sq + q)·sk + k``, 64 bits, split into (hi, lo) words."""
+    key = torch.as_tensor(key, dtype=torch.int64)
+    if device is not None:
+        key = key.to(device)
+    dev = key.device
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
+    bh = (ar(b)[:, None] * h + ar(h)[None, :])[:, :, None, None]
+    idx = (bh * sq + ar(sq)[:, None]) * sk + ar(sk)[None, :]
+    y1, y2 = rng.threefry2x32(key[0], key[1], idx >> 32, idx & 0xFFFFFFFF)
+    return ((y1 ^ y2) >> 9) < keep_threshold(p)
+
+
+def dropout_plain(x, key, p, divide=True):
+    """The plain version: ``where(keep, x / keep_in_dtype, 0)`` in x's
+    dtype (``divide=False``: ``where(keep, x, 0)``, the downscale_in_infer
+    mode's training form)."""
+    z = keep_mask(key, p, x.shape, x.device)
+    y = divide_by_keep(x, p) if divide else x
+    return torch.where(z, y, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _lib():
+    lib = _build.library("dropout")
+    fn = lib.dropout_fwd
+    if fn.argtypes is None:
+        vp, cu = ctypes.c_void_p, ctypes.c_uint
+        fn.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, cu, cu, cu,
+                       ctypes.c_float, vp]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def dropout_cuda(x, key, p, divide=True, backward=False):
+    """The dropout kernel on a CUDA tensor x (fp32 or bf16; copied
+    contiguous and 16-byte aligned when it is not), the plain version on a
+    CPU tensor. `key` is the draw's key (2,); ``backward`` marks a launch
+    made for a gradient (counted on ``dropout_cuda.backward`` too)."""
+    if x.device.type == "cpu":
+        return dropout_plain(x, key, p, divide)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"dropout_cuda: x is {x.dtype}; the kernel takes "
+                        "float32 or bfloat16")
+    if x.device.type != "cuda":
+        raise ValueError(f"dropout_cuda: x on {x.device}, expected cuda")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    y = torch.empty_like(x)
+    k1, k2 = rng.key_words(key)
+    div = keep_in_dtype(p, x.dtype) if divide else 1.0
+    err = _lib().dropout_fwd(_build.ptr(x), _build.ptr(y), x.numel(),
+                             _DTYPES[x.dtype], k1, k2, keep_threshold(p),
+                             div, _build.stream_of(x))
+    dropout_cuda.launches += 1
+    dropout_cuda.backward += bool(backward)
+    _build.check(err, "dropout_fwd")
+    return y
+
+
+dropout_cuda.launches = 0
+dropout_cuda.backward = 0
+
+
+class Dropout(torch.autograd.Function):
+    """``dropout_cuda`` with a gradient. It saves the key and p, not the
+    mask: the backward regenerates the mask and applies the same function
+    to the gradient (d/dx of where(keep, x / k, 0) is where(keep, g / k, 0),
+    rounded as the forward rounds). At GPT-2 345M, 49 saved (8, 1024, 1024)
+    masks would cost about 400 MB a step."""
+
+    @staticmethod
+    def forward(ctx, x, key, p, divide):
+        ctx.key, ctx.p, ctx.divide = key, p, divide
+        return dropout_cuda(x, key, p, divide)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return (dropout_cuda(g, ctx.key, ctx.p, ctx.divide, backward=True),
+                None, None, None)

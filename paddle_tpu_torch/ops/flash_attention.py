@@ -30,6 +30,22 @@ causal limit to ``k_pos <= causal_offset + i`` instead of the bottom-right
 alignment ``sk - sq``. The KV-cache prefill passes it (with ``kv_lens``)
 where the reference passes the equivalent dense bool mask.
 
+``dropout_p`` with ``key`` is the attention dropout of the reference
+(``:135-140``): after the softmax (and after fully-masked rows are
+zeroed) each probability is kept with probability 1 - p and the kept ones
+are divided by 1 - p. The mask is the reference's CPU mask,
+``bernoulli(key, 1 - p, (b, h, sq, sk))`` (``ops.dropout``): element
+(bi, hi, q, k) hashes its flat index ``((bi·h + hi)·sq + q)·sk + k``.
+K1 drops the probabilities after its softmax statistics took them
+undropped (the lse stays the undropped one, as in the reference, ``:533``);
+K3 and K4 regenerate the mask from the same index: dS = P∘(dP̃∘Z/keep − Δ)
+with Δ = rowsum(dO∘O) over the dropped O, dv = (P∘Z/keep)ᵀ·dO. Each
+kernel drops in an instantiation of its own (``DROP``), so the kernels
+without dropout run the code they ran before. ``scaled_dot_product_
+attention`` draws one key a call from ``next_rng_key("dropout")`` on
+every path, as the reference does on both of its paths (``:137``,
+``:995``), so the streams advance alike on the CPU and on the card.
+
 ``window`` (``window_size`` at the dispatch) is the causal sliding window
 of the reference (Mistral): the query at absolute position
 ``p = off + i`` sees the keys ``p - window < k <= p``, i.e. the
@@ -46,9 +62,12 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import dropout as drop_ops
 
 NEG_INF = -1e30
 # the device type whose tensors the kernels take (a test sets "meta" to run
@@ -101,9 +120,30 @@ def _structured_mask(sq, sk, is_causal, kv_lens, causal_offset, device,
     return m
 
 
+def _check_dropout(dropout_p, key):
+    """The dropout arguments of the kernels' wrappers and plain versions:
+    p in [0, 1], and a key (2,) whenever p > 0."""
+    if not 0.0 <= dropout_p <= 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1], got {dropout_p}")
+    if dropout_p > 0.0 and key is None:
+        raise ValueError("attention dropout needs the draw's key")
+    return float(dropout_p)
+
+
+def _drop_probs(probs, z, dropout_p):
+    """where(z, probs / keep, 0), keep = 1 - p in probs' dtype (the
+    reference's ``probs / keep``)."""
+    return torch.where(z, drop_ops.divide_by_keep(probs, dropout_p),
+                       torch.zeros((), dtype=probs.dtype, device=probs.device))
+
+
 def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
-                   kv_lens=None, causal_offset=None, window=None):
-    """The plain version: scores in fp32 (fp64 for fp64 inputs)."""
+                   kv_lens=None, causal_offset=None, window=None,
+                   dropout_p=0.0, training=True, key=None):
+    """The plain version: scores in fp32 (fp64 for fp64 inputs). With
+    ``dropout_p`` in training the probabilities are dropped by the draw
+    `key` (by default the next key of stream "dropout", as the
+    reference's ``_xla_attention`` draws it)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     n_rep = h // k.shape[2]
@@ -131,16 +171,25 @@ def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
         probs = torch.where(structured.any(-1, keepdim=True), probs,
                             torch.zeros((), dtype=probs.dtype,
                                         device=q.device))
+    if dropout_p > 0.0 and training:
+        if key is None:
+            key = rng.next_rng_key("dropout")
+        probs = _drop_probs(probs, drop_ops.keep_mask(
+            key, dropout_p, probs.shape, q.device), dropout_p)
     pv = torch.promote_types(probs.dtype, v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(pv),
                         v.to(pv)).to(q.dtype)
 
 
 def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
-                              kv_lens=None, causal_offset=None, window=None):
+                              kv_lens=None, causal_offset=None, window=None,
+                              dropout_p=0.0, key=None):
     """Plain twin of the kernel: (out (b, sq, h, d) in q's dtype, lse
     (b, h, sq) fp32), computed in fp32. Fully-masked rows give out 0 and
-    lse NEG_INF, as the kernel does."""
+    lse NEG_INF, as the kernel does. With ``dropout_p`` the normalised
+    probabilities are dropped by ``attention_keep_mask(key)``; the lse
+    stays the undropped one."""
+    dropout_p = _check_dropout(dropout_p, key)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     n_rep = h // k.shape[2]
@@ -158,19 +207,25 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
         p = p * mask
     l = p.sum(-1, keepdim=True)
     lsafe = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / lsafe, vf).to(q.dtype)
+    pn = p / lsafe
+    if dropout_p > 0.0:
+        pn = _drop_probs(pn, drop_ops.attention_keep_mask(
+            key, dropout_p, b, h, sq, sk, q.device), dropout_p)
+    out = torch.einsum("bhqk,bkhd->bqhd", pn, vf).to(q.dtype)
     lse = (m + torch.log(lsafe))[..., 0]
     return out, lse
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
                               scale=None, kv_lens=None, causal_offset=None,
-                              window=None):
+                              window=None, dropout_p=0.0, key=None):
     """Plain twin of the backward kernels: (dq, dk, dv) in fp32 from the
     forward's (out, lse), with the kernels' contract: P = exp(S·scale − lse)
     on visible keys and 0 on a row whose lse is NEG_INF, Δ = rowsum(dO∘O),
     dS = P∘(dP − Δ), dq = scale·dS·K, dk = scale·dSᵀ·Q, dv = Pᵀ·dO, and the
-    GQA groups summed into their kv head."""
+    GQA groups summed into their kv head. With ``dropout_p`` (Z the keep
+    mask of `key`): dS = P∘(dP∘Z/keep − Δ) and dv = (P∘Z/keep)ᵀ·dO."""
+    dropout_p = _check_dropout(dropout_p, key)
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     n_rep = h // nkv
@@ -189,10 +244,16 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
     p = torch.where(keep, p, torch.zeros((), device=q.device))
     delta = (of * out.float()).sum(-1).transpose(1, 2)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", of, vf)
+    pd = p
+    if dropout_p > 0.0:
+        z = drop_ops.attention_keep_mask(key, dropout_p, b, h, sq, sk,
+                                         q.device)
+        dp = _drop_probs(dp, z, dropout_p)
+        pd = _drop_probs(p, z, dropout_p)
     ds = p * (dp - delta)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, of)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, of)
     if n_rep != 1:
         dk = dk.reshape(b, sk, nkv, n_rep, d).sum(3)
         dv = dv.reshape(b, sk, nkv, n_rep, d).sum(3)
@@ -259,19 +320,33 @@ def _refuse_grad(what, *ts):
             "torch.no_grad()")
 
 
+def _drop_args(dropout_p, key):
+    """The kernels' dropout arguments: (drop, k1, k2, thr, 1/keep)."""
+    if dropout_p <= 0.0:
+        return [0, 0, 0, 0, 1.0]
+    keep = float(np.float32(1.0 - dropout_p))
+    k1, k2 = rng.key_words(key)
+    return [1, k1, k2, drop_ops.keep_threshold(dropout_p),
+            float(np.float32(1.0) / np.float32(keep)) if keep > 0 else 0.0]
+
+
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
-                        causal_offset=None, window=None):
+                        causal_offset=None, window=None, dropout_p=0.0,
+                        key=None):
     """Flash-attention forward: (out, lse) as flash_attention_fwd_plain.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64 or
-    128, contiguous); anything else on CUDA raises. CPU tensors take the
-    plain twin. Inputs that require grad, with grad mode on, raise: the
-    output of a raw kernel carries no gradient."""
+    128, contiguous; with ``dropout_p`` its dropout instantiation, keyed
+    by `key`); anything else on CUDA raises. CPU tensors take the plain
+    twin. Inputs that require grad, with grad mode on, raise: the output
+    of a raw kernel carries no gradient."""
     _refuse_grad("flash_attention_fwd", q, k, v)
     window = _check_window(window, is_causal)
+    dropout_p = _check_dropout(dropout_p, key)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, is_causal, scale, kv_lens,
-                                         causal_offset, window)
+                                         causal_offset, window, dropout_p,
+                                         key)
     b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
                                                 q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -286,21 +361,26 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _build.ptr(kl) if kl is not None else None,
         b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
-        min(window or 0, 1 << 30), float(scale), _build.stream_of(q))
+        min(window or 0, 1 << 30), float(scale),
+        *_drop_args(dropout_p, key), _build.stream_of(q))
     flash_attention_fwd.launches += 1
     flash_attention_fwd.windowed += window is not None
+    flash_attention_fwd.dropout += dropout_p > 0.0
     _build.check(err, "flash_attention_fwd")
     return out, lse
 
 
-# launches, and of them those of the windowed instantiation
+# launches, and of them those of the windowed and the dropout
+# instantiations
 flash_attention_fwd.launches = 0
 flash_attention_fwd.windowed = 0
+flash_attention_fwd.dropout = 0
 
 
 def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
-              causal_offset, window):
+              causal_offset, window, dropout_p, key):
     window = _check_window(window, is_causal)
+    dropout_p = _check_dropout(dropout_p, key)
     b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
                                                 ("dout", dout))
     if dout.shape != q.shape:
@@ -314,42 +394,47 @@ def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
     # window 0: the windowless kernels; a window takes the windowed ones
     # (beyond 2^30 it masks nothing and stays a C int), as K1's wrapper
     tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
-            min(window or 0, 1 << 30), float(scale), _build.stream_of(q)]
+            min(window or 0, 1 << 30), float(scale),
+            *_drop_args(dropout_p, key), _build.stream_of(q)]
     return head, _build.ptr(kl) if kl is not None else None, tail
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
                            scale=None, kv_lens=None, causal_offset=None,
-                           window=None):
+                           window=None, dropout_p=0.0, key=None):
     """dq (bf16, q's shape) by the K3 kernel of ``csrc/flash_attention_bwd.cu``
     from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq);
-    ``window`` (with ``is_causal``) launches its windowed instantiation.
-    CUDA tensors only (the CPU path is ``flash_attention_bwd_plain``)."""
+    ``window`` (with ``is_causal``) launches its windowed instantiation,
+    ``dropout_p`` (with the forward's `key`) its dropout one. CUDA tensors
+    only (the CPU path is ``flash_attention_bwd_plain``)."""
     head, kl, tail = _bwd_args("flash_attention_bwd_dq", q, k, v, dout, lse,
                                delta, is_causal, scale, kv_lens,
-                               causal_offset, window)
+                               causal_offset, window, dropout_p, key)
     dq = torch.empty_like(q)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 9)
     err = lib.flash_attention_bwd_dq(*head, _build.ptr(dq), kl, *tail)
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.windowed += window is not None
+    flash_attention_bwd_dq.dropout += dropout_p > 0.0
     _build.check(err, "flash_attention_bwd_dq")
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.windowed = 0
+flash_attention_bwd_dq.dropout = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
                             scale=None, kv_lens=None, causal_offset=None,
-                            window=None):
+                            window=None, dropout_p=0.0, key=None):
     """(dk, dv) (bf16, k's shape) by the K4 kernel of
     ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
-    kernel; ``window`` as in ``flash_attention_bwd_dq``. CUDA tensors only."""
+    kernel; ``window`` and ``dropout_p`` as in ``flash_attention_bwd_dq``.
+    CUDA tensors only."""
     head, kl, tail = _bwd_args("flash_attention_bwd_dkv", q, k, v, dout,
                                lse, delta, is_causal, scale, kv_lens,
-                               causal_offset, window)
+                               causal_offset, window, dropout_p, key)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9)
@@ -357,29 +442,35 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
                                       kl, *tail)
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.windowed += window is not None
+    flash_attention_bwd_dkv.dropout += dropout_p > 0.0
     _build.check(err, "flash_attention_bwd_dkv")
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.windowed = 0
+flash_attention_bwd_dkv.dropout = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
-                        kv_lens=None, causal_offset=None, window=None):
+                        kv_lens=None, causal_offset=None, window=None,
+                        dropout_p=0.0, key=None):
     """Gradients (dq, dk, dv) of the attention whose forward gave (out,
     lse), in the dtypes of q, k, v. CPU tensors take
     ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O) in
     fp32 (as the reference does outside its kernels, :1059) and launch K3
-    and K4 (their windowed instantiations under a window)."""
+    and K4 (their windowed and dropout instantiations under a window and
+    a dropout)."""
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                is_causal, scale, kv_lens,
-                                               causal_offset, window)
+                                               causal_offset, window,
+                                               dropout_p, key)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
-              causal_offset=causal_offset, window=window)
+              causal_offset=causal_offset, window=window,
+              dropout_p=dropout_p, key=key)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
@@ -387,12 +478,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
 
 def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints):
     """The ctypes entry `fn_name` of csrc/<lib_name>.cu: n_ptrs pointers,
-    n_ints ints, the float scale and the stream; returns cudaError."""
+    n_ints ints, the float scale, the dropout arguments (drop, the key's
+    two words, the keep threshold, 1/keep) and the stream; returns
+    cudaError."""
     lib = _build.library(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * n_ptrs + [ci] * n_ints + [ctypes.c_float, vp]
+        vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_float)
+        fn.argtypes = ([vp] * n_ptrs + [ci] * n_ints + [cf]
+                       + [ci, cu, cu, cu, cf] + [vp])
         fn.restype = ctypes.c_int
     return lib
 
@@ -404,19 +499,19 @@ class FlashAttention(torch.autograd.Function):
 
     The kernels take contiguous tensors and raise on anything else, so the
     Function makes q, k, v (GPT's qkv split gives strided views) and the
-    incoming gradient contiguous itself, and saves those copies."""
+    incoming gradient contiguous itself, and saves those copies. Under
+    dropout it saves the key, not the mask: the backward regenerates it."""
 
     @staticmethod
     def forward(ctx, q, k, v, is_causal, scale, kv_lens, causal_offset,
-                window=None):
+                window=None, dropout_p=0.0, key=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_attention_fwd(q, k, v, is_causal=is_causal,
-                                       scale=scale, kv_lens=kv_lens,
-                                       causal_offset=causal_offset,
-                                       window=window)
+        kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
+                  causal_offset=causal_offset, window=window,
+                  dropout_p=dropout_p, key=key)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
-                      causal_offset=causal_offset, window=window)
+        ctx.kw = kw
         return out
 
     @staticmethod
@@ -425,7 +520,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -435,33 +530,36 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     """Attention with the device dispatch (see the module docstring).
 
     ``window_size`` is the causal sliding window (needs ``is_causal``): K1
-    computes it, and K3/K4 its backward. Left for later PRs on the kernel path:
-    dense bool/float masks, segment ids, ALiBi and dropout (ROADMAP Queue B
-    row 1); those raise on CUDA tensors. The plain version takes dense
-    masks (and, on the CPU, differentiates through them and the window by
-    torch's own autograd)."""
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP Queue B row 1); "
-            "pass training=False or dropout_p=0")
+    computes it, and K3/K4 its backward. ``dropout_p`` in training draws
+    one key from stream "dropout" on every path: K1 (and K3/K4) drop in
+    their dropout instantiations on the card, the plain versions on the
+    CPU. Left for later PRs on the kernel path: dense bool/float masks,
+    segment ids and ALiBi (ROADMAP Queue B row 1); those raise on CUDA
+    tensors. The plain version takes dense masks (and, on the CPU,
+    differentiates through them and the window by torch's own
+    autograd)."""
     window = _check_window(window_size, is_causal)
+    dropout_p = float(dropout_p) if training else 0.0
+    key = rng.next_rng_key("dropout") if dropout_p > 0.0 else None
+    _check_dropout(dropout_p, key)
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     if q.device.type == "cpu" and (attn_mask is not None or not needs_grad):
         return _xla_attention(q, k, v, attn_mask=attn_mask,
                               is_causal=is_causal, scale=scale,
                               kv_lens=kv_lens, causal_offset=causal_offset,
-                              window=window)
+                              window=window, dropout_p=dropout_p, key=key)
     if attn_mask is not None:
         raise NotImplementedError(
             "dense attn_mask on the CUDA kernel path is not ported yet "
             "(ROADMAP Queue B row 1); pass is_causal/causal_offset/kv_lens")
     if needs_grad:
         return FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
-                                    causal_offset, window)
+                                    causal_offset, window, dropout_p, key)
     # the kernel takes contiguous tensors: GPT's qkv split gives strided
     # views (a no-op copy for the rest, as in FlashAttention)
     return flash_attention_fwd(q.contiguous(), k.contiguous(),
                                v.contiguous(), is_causal=is_causal,
                                scale=scale, kv_lens=kv_lens,
-                               causal_offset=causal_offset, window=window)[0]
+                               causal_offset=causal_offset, window=window,
+                               dropout_p=dropout_p, key=key)[0]

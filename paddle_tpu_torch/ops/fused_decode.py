@@ -1163,6 +1163,22 @@ def fused_paged_verify_reference(x, params, kv_pool, block_tables, positions,
     return torch.stack(outs, dim=1), kv_pool
 
 
+def in_tail_chunks(step, x, positions, cos, sin, cap: int = GROUP_ROWS):
+    """Run a verify step of a K1-token tail as consecutive calls
+    ``step(x_c, positions + a, cos_c, sin_c)`` over the chunks [a, b) of
+    ``row_groups(K1, cap)`` tail tokens, in order on the current stream,
+    and join the outputs on dim 1 (x (b, K1, h); cos/sin (b, K1, hd) or
+    None). Each chunk appends its tokens' KV to the shared pool before the
+    next reads it, so tail token j of a later chunk sees the appends of
+    every token before it, as a whole-tail verify does (the plain verify
+    runs token by token: chunked and whole give the same bits)."""
+    sub = lambda t, a, b: None if t is None else t[:, a:b].contiguous()
+    outs = [step(sub(x, a, b), positions + a, sub(cos, a, b),
+                 sub(sin, a, b))
+            for a, b in row_groups(x.shape[1], cap)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                             cos, sin, *, num_heads: int, num_kv_heads: int,
                             eps: float = 1e-5, arch: str = "llama",
@@ -1172,13 +1188,14 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
     takes whole slots, up to ``GROUP_ROWS`` tail rows (1 + 13L kernels on
     the current stream); more slots run as consecutive launches over
     ``row_groups`` of slots (their x, tables, positions, rope rows and kv
-    scales; the pool is shared). ``launches`` counts launches, one per
-    group. The int8 modes are K5's (``kv_scales`` (L, b, 2*nkv*hd), one
-    row of scales a slot). Checks dtype, shape, contiguity and device and
-    raises on anything else (K1 above ``GROUP_ROWS``: one slot's tail
-    would not fit a launch). Positions and tables are read on the device;
-    tail positions whose block index reaches MB append to scratch block
-    0."""
+    scales; the pool is shared). A tail longer than ``GROUP_ROWS`` runs as
+    consecutive verifies over chunks of at most ``GROUP_ROWS`` tail tokens
+    (``in_tail_chunks``), each seeing the appends of those before it.
+    ``launches`` counts launches, one per group. The int8 modes are K5's
+    (``kv_scales`` (L, b, 2*nkv*hd), one row of scales a slot). Checks
+    dtype, shape, contiguity and device and raises on anything else.
+    Positions and tables are read on the device; tail positions whose block
+    index reaches MB append to scratch block 0."""
     what = "fused_paged_verify_cuda"
     _check_arch(what, arch)
     _refuse_unported_paged(arch, params, kv_pool, kv_scales, None, row="6")
@@ -1187,9 +1204,15 @@ def fused_paged_verify_cuda(x, params, kv_pool, block_tables, positions,
                          f"the pool (L, NB, BT, 2*nkv*hd) and block_tables "
                          "(b, MB)")
     b, K1, h = x.shape
-    if b < 1 or not 1 <= K1 <= GROUP_ROWS:
+    if b < 1 or K1 < 1:
         raise ValueError(f"{what}: b·K1 = {b}·{K1}; K7 takes b >= 1 and a "
-                         f"tail of 1..{GROUP_ROWS} tokens")
+                         "tail of at least 1 token")
+    if K1 > GROUP_ROWS:
+        chunk = lambda xc, pc, cc, sc: fused_paged_verify_cuda(
+            xc, params, kv_pool, block_tables, pc, cc, sc,
+            num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps,
+            arch=arch, kv_scales=kv_scales)[0]
+        return in_tail_chunks(chunk, x, positions, cos, sin), kv_pool
     if not x.is_contiguous():
         raise ValueError(f"{what}: x not contiguous")
     rows = x.view(b * K1, h)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.bench import flops_per_token, peak_rates
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
@@ -79,10 +80,13 @@ def build(cfg, batch, seq, device=None, dtype=torch.bfloat16, seed=0):
 
 
 def train_step(model, opt, x, y):
-    """One step: train_loss, backward, AdamW. Returns the loss (a device
-    tensor: no host sync)."""
-    loss = model.train_loss(x, y)
-    loss.backward()
+    """One step: train_loss, backward, AdamW, under a fresh "dropout" key
+    from the global generator (``bench.train_step``'s binding, the
+    reference's train step's). Returns the loss (a device tensor: no host
+    sync)."""
+    with rng.rng_guard(dropout=rng.global_key()):
+        loss = model.train_loss(x, y)
+        loss.backward()
     opt.step()
     opt.clear_grad()
     return loss.detach()

@@ -13,6 +13,15 @@ checkpoint: boundaries only.
 
     x = recompute(layer, x, cos, sin,
                   policy=save_only_these_names("ffn_gate", "ffn_up"))
+
+The replay draws the keys the forward drew: the reference gets that from
+``jax.checkpoint`` replaying the same traced keys (``paddle_tpu/utils/
+recompute.py:1-7``), while ``preserve_rng_state`` covers only torch's own
+generator. So a segment's first call records where the named streams and
+the global generator stand (``core.rng.stream_state``), and its replay
+runs from there, with the forward's frames as the stack even when their
+``rng_guard`` has exited; afterwards every counter is put back where the
+forward left it.
 """
 
 import contextlib
@@ -21,6 +30,8 @@ import threading
 
 import torch
 import torch.utils.checkpoint as _ckpt
+
+from paddle_tpu_torch.core import rng
 
 _local = threading.local()
 
@@ -72,6 +83,30 @@ def _context_fn(policy):
                              policy_fn)
 
 
+def _replaying_streams(function):
+    """`function` whose later calls (the checkpoint's replay) start from
+    the rng streams its first call started from, and leave them as they
+    found them."""
+    first = []
+
+    def run(*args, **kwargs):
+        if not first:
+            first.append(rng.stream_state())
+            return function(*args, **kwargs)
+        frames = first[0][0]
+        before = [dict(f.counters) for f in frames]
+        now = rng.stream_state()
+        rng.restore_stream_state(first[0])
+        try:
+            return function(*args, **kwargs)
+        finally:
+            for f, c in zip(frames, before):
+                f.counters = c
+            rng.restore_stream_state(now)
+
+    return run
+
+
 def recompute(function, *args, preserve_rng_state=True, use_reentrant=True,
               policy=None, **kwargs):
     """``function(*args, **kwargs)`` whose backward recomputes its forward,
@@ -80,7 +115,8 @@ def recompute(function, *args, preserve_rng_state=True, use_reentrant=True,
     non-reentrant, the form selective saving needs."""
     del use_reentrant
     extra = {} if policy is None else {"context_fn": _context_fn(policy)}
-    return _ckpt.checkpoint(function, *args, use_reentrant=False,
+    return _ckpt.checkpoint(_replaying_streams(function), *args,
+                            use_reentrant=False,
                             preserve_rng_state=preserve_rng_state, **extra,
                             **kwargs)
 

@@ -173,9 +173,32 @@ def test_flash_fwd_twin_at_kernel_tile_edges(b, h, nkv, sq, sk, d, q_off,
 
 
 def test_cuda_path_refuses_what_it_does_not_take():
-    q = torch.zeros(1, 2, 2, 16)
-    with pytest.raises(NotImplementedError):
-        tfa.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    """Attention dropout, once refused, runs on a CPU tensor: it equals the
+    reference's dropped attention under the same "dropout" key (fp32, atol
+    1e-5) and draws one key from the stream. The refusal that remains on
+    the kernel path is the dense mask, asserted by name on a meta tensor
+    (a non-CPU tensor takes the kernels' dispatch)."""
+    import jax
+    from paddle_tpu.core import rng as jrng
+    from paddle_tpu_torch.core import rng as trng
+    q, k, v = _qkv(11, 1, 5, 5, 2, 2, 16)
+    key = jax.random.PRNGKey(3)
+    tkey = torch.from_numpy(np.asarray(key).astype(np.int64))
+    with jrng.rng_guard(dropout=key):
+        ref = jfa.scaled_dot_product_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), dropout_p=0.1,
+            is_causal=True)
+    with trng.rng_guard(dropout=tkey) as frame:
+        out = tfa.scaled_dot_product_attention(
+            *(torch.from_numpy(a) for a in (q, k, v)), dropout_p=0.1,
+            is_causal=True)
+    assert frame.counters == {"dropout": 1}
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    m = torch.zeros(1, 2, 2, 16, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="dense attn_mask"):
+        tfa.scaled_dot_product_attention(
+            m, m, m, attn_mask=torch.ones(1, 1, 2, 2, dtype=torch.bool,
+                                          device="meta"))
 
 
 @pytest.mark.parametrize("start", [0, 37])

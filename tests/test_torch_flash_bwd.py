@@ -150,12 +150,29 @@ def test_no_grad_keeps_the_plain_path():
 
 
 def test_cpu_grad_path_refuses_dropout_and_keeps_dense_masks():
-    """Dropout still raises; a dense mask on the CPU differentiates through
-    the plain version by torch's autograd (the Function takes no mask)."""
+    """Dropout, once refused here, runs through the Function's plain
+    forward and backward: dq, dk and dv equal ``jax.vjp`` of the reference
+    with the same "dropout" key (atol 1e-5). A dense mask on the CPU
+    differentiates through the plain version by torch's autograd (the
+    Function takes no mask)."""
+    from paddle_tpu.core import rng as jrng
+    from paddle_tpu_torch.core import rng as trng
     q, k, v, do = _inputs(3, 2, 5, 7, 4, 4, 8)
     t = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
-    with pytest.raises(NotImplementedError):
-        tfa.scaled_dot_product_attention(*t, dropout_p=0.1)
+    key = jax.random.PRNGKey(5)
+    with trng.rng_guard(dropout=torch.from_numpy(
+            np.asarray(key).astype(np.int64))):
+        tfa.scaled_dot_product_attention(*t, dropout_p=0.1).backward(
+            torch.from_numpy(do))
+
+    def fd(q_, k_, v_):
+        with jrng.rng_guard(dropout=key):
+            return jfa.scaled_dot_product_attention(q_, k_, v_,
+                                                    dropout_p=0.1)
+    _, pull = jax.vjp(fd, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, r in zip((t[0].grad, t[1].grad, t[2].grad), pull(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL)
+    t = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
     mask = np.random.RandomState(3).rand(2, 1, 5, 7) > 0.3
     mask[..., 0] = True
     out = tfa.scaled_dot_product_attention(*t,

@@ -244,10 +244,11 @@ def test_weights_carry_bf16_bit_for_bit():
 
 
 def test_refusals():
-    """GPT generation with a deadline and dropout in training are not
-    ported: both raise NotImplementedError naming the ROADMAP item. (GPT
-    decode over a bf16, fp32 or int8 cache is ported: its cache forward
-    runs.)"""
+    """GPT generation with a deadline is not ported: it raises
+    NotImplementedError naming the ROADMAP item. (GPT decode over a bf16,
+    fp32 or int8 cache is ported: its cache forward runs.) Dropout in
+    training, once refused, runs: under the same "dropout" key it gives the
+    reference's output bit for bit; in eval it is the identity."""
     from paddle_tpu_torch.inference import generate
     from paddle_tpu_torch.nn import functional as TF
     _, tm = _pair()
@@ -258,8 +259,17 @@ def test_refusals():
         logits, cache = tm(x, cache=tm.init_cache(1, 8, torch.float32))
     assert tuple(logits.shape) == (1, 4, tm.cfg.vocab_size)
     assert bool(cache[0]["k"][:, :4].abs().sum() > 0)
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        TF.dropout(torch.ones(3), p=0.1, training=True)
+    from paddle_tpu.core import rng as jrng
+    from paddle_tpu.nn import functional as JF
+    from paddle_tpu_torch.core import rng as trng
+    key = jax.random.PRNGKey(9)
+    with jrng.rng_guard(dropout=key):
+        ref = JF.dropout(jnp.ones(64), p=0.1, training=True)
+    with trng.rng_guard(dropout=torch.from_numpy(
+            np.asarray(key).astype(np.int64))):
+        got = TF.dropout(torch.ones(64), p=0.1, training=True)
+    assert np.array_equal(got.numpy(), np.asarray(ref))
+    assert 0 < int((got == 0).sum()) < 64
     assert torch.equal(TF.dropout(torch.ones(3), p=0.1, training=False),
                        torch.ones(3))
 

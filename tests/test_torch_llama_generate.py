@@ -92,6 +92,35 @@ def test_forward_and_cache_forward_logits(fp32_pair):
     np.testing.assert_allclose(ot2.numpy(), np.asarray(oj2), atol=1e-5)
 
 
+def test_cache_forward_takes_and_ignores_attn_mask(fp32_pair):
+    """A cache forward given an attn_mask (once refused) takes it and
+    ignores it, as the reference's cache path does: the prefill and the
+    next step give the reference's logits with the same mask passed
+    (atol 1e-5), and the logits without a mask."""
+    cfg, jm, tm = fp32_pair
+    ids = _ids(2)
+    total = PROMPT + 3
+    mask = np.random.RandomState(3).rand(B, 1, PROMPT, PROMPT) > 0.5
+    cj = jm.init_cache(B, total, dtype=jnp.float32)
+    oj, cj = jm(jnp.asarray(ids), jnp.asarray(mask), cache=cj, start_pos=0)
+    nxt = np.argmax(np.asarray(oj)[:, -1], -1).astype(np.int32)[:, None]
+    oj2, _ = jm(jnp.asarray(nxt), jnp.asarray(mask[..., :1, :1]), cache=cj,
+                start_pos=PROMPT)
+    with torch.no_grad():
+        ct = tm.init_cache(B, total, dtype=torch.float32)
+        ot, ct = tm(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                    cache=ct, start_pos=0)
+        ot2, _ = tm(torch.from_numpy(nxt).long(),
+                    torch.from_numpy(mask[..., :1, :1]), cache=ct,
+                    start_pos=PROMPT)
+        plain, _ = tm(torch.from_numpy(ids).long(),
+                      cache=tm.init_cache(B, total, dtype=torch.float32),
+                      start_pos=0)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-5)
+    np.testing.assert_allclose(ot2.numpy(), np.asarray(oj2), atol=1e-5)
+    assert torch.equal(ot, plain)
+
+
 @pytest.mark.parametrize("kw", [
     dict(),                                                    # greedy
     dict(temperature=0.8, top_k=20, top_p=0.9, seed=5),

@@ -197,6 +197,40 @@ def test_all_accepted_verify_equals_sequential_plain_steps_bitwise():
     assert torch.equal(pool, pool_seq)
 
 
+@pytest.mark.parametrize("cap", [1, 3, 4])
+def test_tail_in_chunks_equals_the_whole_tail_bitwise(cap):
+    """A tail run as consecutive verifies over chunks of at most `cap`
+    tokens (``in_tail_chunks``, how K7's wrapper runs a tail longer than
+    one launch takes), the plain verify as the callee: x_out and the whole
+    pool bit for bit the whole tail's, bf16 (each chunk sees the appends
+    of the ones before it)."""
+    L, h, nh, nkv, hd, ffn, k1 = 2, 64, 4, 2, 16, 96, 7
+    r = np.random.RandomState(8)
+    params = {k: torch.from_numpy(v).bfloat16() for k, v in
+              _params(r, L, h, nh, nkv, hd, ffn).items()}
+    x = torch.from_numpy(r.randn(3, k1, h).astype(np.float32)).bfloat16()
+    pool = torch.from_numpy(
+        r.randn(L, NB, BT, 2 * nkv * hd).astype(np.float32)).bfloat16()
+    tables = torch.from_numpy(TABLES)
+    positions = torch.from_numpy(POSITIONS)
+    cos, sin = _rope_rows(hd, POSITIONS, k1=k1)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5)
+    pool_whole = pool.clone()
+    xw, _ = tfd.fused_paged_verify_reference(x, params, pool_whole, tables,
+                                             positions, cos, sin, **kw)
+    calls = []
+
+    def step(xc, pc, cc, sc):
+        calls.append(xc.shape[1])
+        return tfd.fused_paged_verify_reference(xc, params, pool, tables, pc,
+                                                cc, sc, **kw)[0]
+
+    xc = tfd.in_tail_chunks(step, x, positions, cos, sin, cap=cap)
+    assert calls == [b - a for a, b in tfd.row_groups(k1, cap)]
+    assert torch.equal(xc, xw)
+    assert torch.equal(pool, pool_whole)
+
+
 def test_appends_straddle_and_past_the_table_land_where_they_should():
     """Row 0's tail (6..9) crosses from its block 7 into block 3; row 1's
     (30..33) runs past its 4-entry table, so 32 and 33 land in scratch.

@@ -180,11 +180,13 @@ def test_spec_engine_counters_stay_zero_on_cpu():
     assert fd.fused_paged_decode_cuda.launches == 0
 
 
-def test_verify_wrapper_refuses_what_k7_does_not_take():
-    """fused_paged_verify_cuda raises on CPU tensors, a wrong dtype, a
-    non-contiguous x and a tail longer than one launch takes (65 tokens),
-    before any launch; 8 slots x 9 tokens (72 tail rows, two launches of
-    whole slots) get as far as the device check."""
+def test_verify_wrapper_refuses_what_k7_does_not_take(monkeypatch):
+    """fused_paged_verify_cuda raises on CPU tensors, a wrong dtype and a
+    non-contiguous x, before any launch; 8 slots x 9 tokens (72 tail rows,
+    two launches of whole slots) get as far as the device check. A tail
+    longer than one launch takes (65 tokens, once refused) runs as two
+    verifies in order, of 33 and 32 tail tokens at positions p and p + 33
+    (the inner calls recorded), their outputs joined in tail order."""
     from paddle_tpu_torch.ops import fused_decode as fd
     L, h, nh, nkv, hd, ffn, b, k1 = 1, 64, 2, 1, 64, 64, 2, 3
     bf = torch.bfloat16
@@ -212,8 +214,23 @@ def test_verify_wrapper_refuses_what_k7_does_not_take():
         call(torch.zeros(b, h, k1, dtype=bf).transpose(1, 2), p, pool, tab,
              pos, rows, rows)
     long_tail = torch.zeros(1, 65, h, dtype=bf)
-    with pytest.raises(ValueError, match="1..64"):
+    with pytest.raises(ValueError, match="cuda"):       # its first chunk
         call(long_tail, p, pool, tab[:1], pos[:1], rows[:1], rows[:1])
+    whole = fd.fused_paged_verify_cuda
+    seen = []
+
+    def chunk(xc, params, pool_, tab_, pos_, cos_, sin_, **kw_):
+        seen.append((xc.shape[1], int(pos_[0]), cos_.shape[1]))
+        return torch.full_like(xc, len(seen)), pool_
+
+    monkeypatch.setattr(fd, "fused_paged_verify_cuda", chunk)
+    rope65 = torch.zeros(1, 65, hd)
+    out, got_pool = whole(long_tail, p, pool, tab[:1], pos[:1] + 5, rope65,
+                          rope65, **kw)
+    monkeypatch.undo()
+    assert seen == [(33, 5, 33), (32, 38, 32)] and got_pool is pool
+    assert out.shape == long_tail.shape
+    assert bool((out[:, :33] == 1).all() and (out[:, 33:] == 2).all())
     wide = torch.zeros(8, 9, h, dtype=bf)
     with pytest.raises(ValueError, match="cuda"):
         call(wide, p, pool, torch.zeros(8, 2, dtype=torch.int32),
@@ -579,6 +596,70 @@ def test_flash_bwd_kernels_match_plain(cuda, h, nkv, sq, sk, d, causal,
         assert err <= 2 ** -6 * r.abs().max().item(), err
     if lens is not None and 0 in lens:
         assert all(not t.grad[1].any() for t in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (4, 333, 65)), (torch.float32, (3, 1000, 7)),
+    (torch.bfloat16, (5, 17))])
+def test_dropout_kernel_matches_plain_bitwise(cuda, dtype, shape):
+    """The hidden-dropout kernel against its plain version, bit for bit,
+    p 0.1, 0.5 and 1, dividing by keep or not; a misaligned view copied
+    first gives the same bits."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import dropout as dops
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    key = rng.fold_in(rng.PRNGKey(123), 4)
+    for p in (0.1, 0.5, 1.0):
+        for divide in (True, False):
+            assert torch.equal(dops.dropout_cuda(x, key, p, divide),
+                               dops.dropout_plain(x, key, p, divide))
+    flat = x.reshape(-1)[1:]
+    assert torch.equal(dops.dropout_cuda(flat, key, 0.1),
+                       dops.dropout_plain(flat, key, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,sq,sk,d,causal,q_off,lens,window", [
+    (4, 4, 256, 256, 64, True, None, None, None),
+    (16, 4, 300, 333, 128, True, 33, [333, 100], None),
+    (8, 2, 200, 500, 64, False, None, [450, 0], None),
+    (8, 2, 384, 1084, 128, True, 700, None, 200)])
+def test_flash_kernels_dropout_match_plain(cuda, h, nkv, sq, sk, d, causal,
+                                           q_off, lens, window):
+    """K1, K3 and K4's dropout modes against the plain versions with the
+    same key: out within K1's 3e-2, lse bit for bit the dropout-free
+    kernel's, each gradient within 2^-6 · max|plain|, two launches bitwise
+    equal."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(9)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v, do = mk(2, sq, h, d), mk(2, sk, nkv, d), mk(2, sk, nkv, d), \
+        mk(2, sq, h, d)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda)
+    base = dict(is_causal=causal, causal_offset=q_off, kv_lens=kl,
+                window=window)
+    kw = dict(base, dropout_p=0.1, key=rng.fold_in(rng.PRNGKey(3), 1))
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+    _, lse0 = fa.flash_attention_fwd(q, k, v, **base)
+    ref, _ = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= 3e-2
+    assert torch.equal(lse, lse0) and torch.equal(out, out2)
+    refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    for got, r in zip((dq, dk, dv), refs):
+        assert (got.float() - r).abs().max().item() <= \
+            2 ** -6 * r.abs().max().item()
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                     **kw))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)))
 
 
 @pytest.mark.cuda
