@@ -8,6 +8,8 @@
     python3 chip_smoke.py --bwd-times     # card, build, bwd_times
     python3 chip_smoke.py --dropout       # card, build, dropout, k1d,
                                           # train_dropout
+    python3 chip_smoke.py --moe           # card, build, k6, moe,
+                                          # train_moe
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -114,7 +116,13 @@ Phases, each printing one JSON line:
               cache unchanged, two launches bitwise equal, every row routed
               alike (one expert slot serves all 4 rows), and the gate ×8
               held strictly; then b=9 and b=16 (two launches of rows); at
-              DeepSeekMoE-16B width also b=2 at each chunk edge (S 1501).
+              DeepSeekMoE-16B width also b=2 at each chunk edge (S 1501);
+              then K6's int8 KV mode at both widths, b=1, 4 and 9 (two
+              launches of rows), over an int8 cache with its lane scales
+              (quantize_kv_cache): against the int8 plain version on the
+              same cache, routing first (the swap rule), x_out at K2's
+              tolerance, the appended int8 rows within one int8 step, the
+              rest of the cache unchanged, two launches bitwise equal.
   8e. wide  — steps wider than one launch through the entry points, tiny
               models at head width 64 against the same weights on the CPU:
               Llama `generate` at b=65 (K2 in 33 + 32 rows) and a 65-slot
@@ -292,7 +300,29 @@ Phases, each printing one JSON line:
               and every row's logits against the plain path taking K6's
               experts);
               K6 timed at b=4 and b=1 beside its bound (the distinct routed
-              experts of that step) and the plain version.
+              experts of that step) and the plain version; then the same
+              generate over an int8 KV cache (cache_dtype=int8: a bf16
+              prefill calibrates, every decode step on K6's int8 KV mode):
+              K1 28, K6 63 per call, all 63 in the int8 mode; TTFT, decode
+              ms/step, peak memory, tokens; a teacher-forced int8 step, K6
+              vs the int8 plain path (the swap rule, logits, appended rows
+              within MOE_INT8_DRIFT; fed one input, each layer's within one
+              step) and its agreement with the bf16 step; K6's
+              int8 mode timed at b=4 beside its bound (int8 KV bytes).
+ 13a. train_moe — DeepSeekMoE-16B at full width, 4 layers (the reference's
+              deepseek-16b-d4 cross-section; 2.77 B parameters), fused
+              dispatch, through the MoE twin's build and train_step
+              (paddle_tpu_torch.moe_bench): b 4, S 1024, bf16,
+              AdamW(1e-4, multi_precision=False), capacity 480 an expert;
+              2 warm-up and 5 counted steps: K1, K3 and K4 4 a step each,
+              nothing else, no plain attention call; step ms, tokens/s,
+              activated MFU, peak memory, the loss finite and falling, one
+              traced step by kernel bucket (moe_bench.step_breakdown). Then
+              the twin at its defaults (12 layers, 8 experts, h 1024,
+              fused) for its JSON line; then one step (loss and gradients)
+              at the twin's shape under scatter, sort and einsum against
+              fused, and dropless against fused at capacity factor 4.0
+              (nothing drops), within MODE_LOSS_ATOL / MODE_GRAD_RTOL.
  14. train  — GPT-2 345M (24 layers, bf16, random weights from seed 0)
               pretraining through the bench twin's step
               (paddle_tpu_torch.bench): B=8, S=1024, AdamW 1e-4, a warm-up
@@ -370,7 +400,8 @@ Phases, each printing one JSON line:
               imported), parent and change in turns in one call.
 
 --quick stops after phase 8h; --int8-stress runs phase 8f alone; --training
-runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a. Every failure propagates and exits non-zero.
+runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a; --moe
+phases 8, 13 and 13a. Every failure propagates and exits non-zero.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -409,7 +440,7 @@ E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
 # The MoE phase's teacher-forced 28-layer step (4 rows × 102400 logits)
 # read 0.117 against the plain path taking K6's experts: the same noise.
 SERVE_LOGIT_ATOL = 0.15
-# The whole run, build included, takes about 240 s on an H100; past
+# The whole run, build included, takes about 260 s on an H100; past
 # this many seconds the watchdog reports a stall and ends the run.
 WATCHDOG_S = 1100
 # K3/K4: each gradient within K3_TOL · max|plain|. The kernels round P and
@@ -1517,7 +1548,10 @@ def compare_routing(kr, pr, gap_tol):
 
 
 def k6_case(fd, rope, gen, width, params, b, same_rows=False, strict=False,
-            L=2, S=1152, pos=1056):
+            L=2, S=1152, pos=1056, kv8=False):
+    """K6 against its plain version on one input; kv8: over an int8 cache
+    (its lane scales from the filled prefix), the appended int8 rows held
+    within one int8 step, as phase k2q holds K2's."""
     w = K6_WIDTHS[width]
     nh, nkv, hd, k = w["nh"], w["nkv"], w["hd"], w["k"]
     dkv = nkv * hd
@@ -1527,9 +1561,14 @@ def k6_case(fd, rope, gen, width, params, b, same_rows=False, strict=False,
     if same_rows:       # every row the same: one expert slot serves all b
         kv[:, 1:] = kv[:, :1]
         x[1:] = x[:1]
+    scales = None
+    if kv8:
+        kv, scales = fd.quantize_kv_cache(kv, nkv)
+        kv[:, :, pos:] = 0
     cos, sin = rope.rope_cos_sin(S, hd, device="cuda")
     c, s = cos[pos:pos + 1], sin[pos:pos + 1]
-    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, top_k=k)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, top_k=k,
+              kv_scales=scales)
     kr, kr2, pr = {}, {}, {}
     kv_k, kv_k2 = kv.clone(), kv.clone()
     xo, _ = fd.fused_decode_moe_cuda(x, params, kv_k, pos, c, s, routing=kr,
@@ -1551,8 +1590,12 @@ def k6_case(fd, rope, gen, width, params, b, same_rows=False, strict=False,
     app_err, ok_app = 0.0, True
     for r in rows:
         lim = L if r["first_swap_layer"] is None else r["first_swap_layer"] + 1
-        e, o = close(kv_k[:lim, r["row"], pos], kv_r[:lim, r["row"], pos],
-                     K2_ATOL, K2_RTOL)
+        ka, ra = kv_k[:lim, r["row"], pos], kv_r[:lim, r["row"], pos]
+        if kv8:     # in int8 steps
+            e = int((ka.int() - ra.int()).abs().max())
+            o = e <= 1
+        else:
+            e, o = close(ka, ra, K2_ATOL, K2_RTOL)
         app_err, ok_app = max(app_err, e), ok_app and o
     untouched = bool(torch.equal(kv_k[:, :, :pos], kv_r[:, :, :pos])
                      and torch.equal(kv_k[:, :, pos + 1:],
@@ -1566,13 +1609,15 @@ def k6_case(fd, rope, gen, width, params, b, same_rows=False, strict=False,
           and (not strict or swaps == 0)
           and (not same_rows or distinct == [k] * L))
     return {"width": width, "b": b, "L": L, "S": S, "pos": pos,
+            "int8_kv": kv8,
             "launches_per_step": len(fd.row_groups(
                 b, min(fd.MOE_MAX_ROWS, fd.MOE_MAX_PAIRS // k))),
             "same_rows": same_rows, "strict": strict,
             "gate_scale": 8.0 if strict else 1.0,
             "distinct_experts_per_layer": distinct,
             "rows_swapped": swaps, "routing": rows,
-            "max_abs_err": err, "row_max_abs_err": app_err,
+            "max_abs_err": err,
+            ("row_max_int8_steps" if kv8 else "row_max_abs_err"): app_err,
             "rest_of_cache_unchanged": untouched,
             "two_launches_bitwise_equal": repeat, "atol": K2_ATOL,
             "rtol": K2_RTOL, "ok": ok}
@@ -1583,10 +1628,13 @@ def phase_k6(fd, rope, gen):
     random routing (the swap rule), one routing shared by all 4 rows, and
     the gate ×8 held strictly; then b=9 and b=16 (two launches of rows
     each, inputs from a generator of their own); at DeepSeekMoE-16B width
-    also b=2 at the chunk edges EDGE_POS (S EDGE_S)."""
+    also b=2 at the chunk edges EDGE_POS (S EDGE_S); then the int8 KV mode
+    at b=1, 4 and 9 at both widths. Returns the largest |x_out − plain| of
+    the bf16 cases and of the int8 ones."""
     cases = []
     wg = wide_gen(27)
     eg = wide_gen(34)
+    qg = wide_gen(35)
     for width, w in K6_WIDTHS.items():
         params = moe_params(gen, 2, **w)
         cases.append(k6_case(fd, rope, gen, width, params, 1))
@@ -1594,6 +1642,8 @@ def phase_k6(fd, rope, gen):
         cases.append(k6_case(fd, rope, gen, width, params, 4,
                              same_rows=True))
         cases += [k6_case(fd, rope, wg, width, params, b) for b in (9, 16)]
+        cases += [k6_case(fd, rope, qg, width, params, b, kv8=True)
+                  for b in (1, 4, 9)]
         if width == "deepseek_moe_16b":   # the attention half's chunk edges
             cases += [k6_case(fd, rope, eg, width, params, 2, S=EDGE_S,
                               pos=p) for p in EDGE_POS]
@@ -1605,7 +1655,8 @@ def phase_k6(fd, rope, gen):
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"K6 disagrees with its plain version: {bad}")
-    return max(c["max_abs_err"] for c in cases)
+    return (max(c["max_abs_err"] for c in cases if not c["int8_kv"]),
+            max(c["max_abs_err"] for c in cases if c["int8_kv"]))
 
 
 def wide_tokens(model, cpu, ids, new, fa, fd, counter, groups):
@@ -2430,6 +2481,7 @@ def reset_counts(fa, fd):
     fd.fused_paged_decode_cuda.launches = 0
     fd.fused_paged_verify_cuda.launches = 0
     fd.fused_decode_moe_cuda.launches = 0
+    fd.fused_decode_moe_cuda.int8_kv = 0
 
 
 def counts(fa, fd):
@@ -3643,6 +3695,16 @@ def phase_spec(fa, fd, model, bw, flops, k7_err):
 #: the lanes one step apart and 1% two steps apart. (Fed one input, each
 #: layer's appends are held to one step.)
 INT8_DRIFT = {"max_steps": 2, "one_step_share": 0.25, "two_step_share": 0.01}
+#: the same for phase moe's 28-layer int8 step (DeepSeekMoE-16B, K6 against
+#: the plain path taking K6's experts): each layer's routed experts add
+#: their outputs' bf16 noise on top of the attention's, so the residual
+#: noise below layer 0 is larger than Llama's. Its first full run on the
+#: H100 read at most 4 steps, 126,965 of 458,752 lanes (27.7%) one step
+#: apart and 4,888 (1.07%) two apart; held to 6 steps, 40% and 3%. A wrong
+#: scale, lane or position moves a whole row by tens of steps. (Fed one
+#: input, each layer's appends are held to one step.)
+MOE_INT8_DRIFT = {"max_steps": 6, "one_step_share": 0.4,
+                  "two_step_share": 0.03}
 
 def phase_int8(fa, fd, model, bw, flops):
     """Llama-2-7B (the model already in memory) through quantize_model, in
@@ -4330,11 +4392,12 @@ def phase_gpt(fa, fd, bw, flops, errs):
 
 # ---- MoE generation -------------------------------------------------------------
 
-def moe_bound(params, kv, pos, ids, b, bw, flops, nh, hd):
+def moe_bound(params, kv, pos, ids, b, bw, flops, nh, hd, kv_scales=None):
     """K6's least time for one step at these inputs: every attention, norm,
     gate and shared-expert weight once, the distinct routed experts the
-    step's routing `ids` (L, b, k) used, the filled KV and the appends, at
-    the card's memory rate; operations likewise at its bf16 peak."""
+    step's routing `ids` (L, b, k) used, the filled KV and the appends (in
+    the cache's type, int8 with its lane scales), at the card's memory
+    rate; operations likewise at its bf16 peak."""
     L = kv.shape[0]
     dense = [n for n in params if n not in ("weg", "weu", "wed")]
     dbytes = sum(params[n].numel() * params[n].element_size() for n in dense)
@@ -4345,6 +4408,8 @@ def moe_bound(params, kv, pos, ids, b, bw, flops, nh, hd):
     row = kv.shape[3] * kv.element_size()
     nbytes = dbytes + ebytes + L * b * row * (pos + 1) + L * b * row \
         + 2 * b * h * 2
+    if kv_scales is not None:
+        nbytes += kv_scales.numel() * kv_scales.element_size()
     k = ids.shape[2]
     nflops = 2 * b * dparams + 2 * L * b * k * 3 * h * f \
         + L * b * nh * 4 * hd * (pos + 1)
@@ -4355,7 +4420,7 @@ def moe_bound(params, kv, pos, ids, b, bw, flops, nh, hd):
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
-def phase_moe(fa, fd, bw, flops, k6_err):
+def phase_moe(fa, fd, bw, flops, k6_err, k6q_err):
     """DeepSeekMoE-16B (28 layers, bf16, random weights from seed 0)
     through inference.generate, b=4, prompt 1024, 64 new tokens: greedy
     and sampled with launch counts, TTFT and decode ms/step, a
@@ -4482,6 +4547,12 @@ def phase_moe(fa, fd, bw, flops, k6_err):
                               flops, cfg.num_heads, cfg.head_dim)
             timing[f"b{b}"] = dict(bound, ms=ms, plain_ms=plain, pos=tpos)
         reset_counts(fa, fd)
+        del plan, params, kv, kvb
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_res, int8_row, int8_launches = moe_int8(fa, fd, model, ids, lk, bw,
+                                                 flops, k6q_err)
+    del lk
     head_bytes = model.lm_head.weight.numel() * 2
     peak = torch.cuda.max_memory_allocated()
     decode_s = (gen_s - ttft_s) / (NEW - 1)
@@ -4494,10 +4565,13 @@ def phase_moe(fa, fd, bw, flops, k6_err):
                timing[f"b{B}"]["bound_ms"] + head_bytes / bw * 1e3,
            "teacher_forced": tf, "k6_timing": timing,
            "max_memory_allocated_generate": gen_peak,
-           "max_memory_allocated": peak}
+           "max_memory_allocated": peak, "int8_cache": int8_res}
     emit(res)
     if not tf["ok"]:
         raise AssertionError(f"moe: teacher-forced step failed {tf}")
+    if not int8_res["teacher_forced"]["ok"]:
+        raise AssertionError("moe: the int8 cache's teacher-forced step "
+                             f"failed {int8_res['teacher_forced']}")
     t = timing[f"b{B}"]
     row = {"name": "fused_decode_moe_step", "route": "cuda",
            "source": "paddle_tpu_torch/csrc/fused_decode.cu",
@@ -4511,7 +4585,186 @@ def phase_moe(fa, fd, bw, flops, k6_err):
            "at_b1": {k: timing["b1"][k] for k in
                      ("ms", "plain_ms", "bound_ms", "bound_by",
                       "mean_distinct_experts")}}
-    return row, runs["greedy"]["launches"]
+    return row, runs["greedy"]["launches"], int8_row, int8_launches
+
+
+def moe_int8(fa, fd, model, ids, lk_bf16, bw, flops, k6q_err):
+    """Phase moe's int8 cache: `model` (DeepSeekMoE-16B) through generate
+    with cache_dtype=int8, greedy and sampled: K1 L and K6 NEW - 1
+    launches per call, every K6 launch in its int8 KV mode; TTFT, decode
+    ms/step, tokens/s, peak memory. Then the teacher-forced first decode
+    step over the quantized prefill cache: K6 vs the int8 plain path (the
+    swap rule on the routing, the logits of unswapped rows), every row's
+    logits and appended int8 rows against the plain path taking K6's
+    experts (within MOE_INT8_DRIFT), every layer's appends fed one input
+    (K6 a layer at a time, each layer's plain step fed K6's own x into
+    that layer: within one int8 step; the append comes before the layer's
+    router, so routing plays no part), and the int8 step's logits against
+    the bf16 cache's K6 step `lk_bf16` (agreement, reported). K6's int8 mode
+    timed at b = B beside its bound and the plain version. Returns (the
+    record, the kernel-table row, the greedy run's launch counts)."""
+    from paddle_tpu_torch.inference import generate, prefill
+    from paddle_tpu_torch.ops import rope
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+            "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "fused_decode_step": 0,
+            "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
+            "fused_decode_moe_step": NEW - 1}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, kw in (("greedy", {}),
+                     ("sampled", dict(temperature=0.8, top_k=50, top_p=0.9,
+                                      seed=7))):
+        torch.cuda.synchronize()
+        reset_counts(fa, fd)
+        t0 = time.perf_counter()
+        out = generate(model, ids, max_new_tokens=NEW, cache_dtype=torch.int8,
+                       **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, in_int8 = counts(fa, fd), fd.fused_decode_moe_cuda.int8_kv
+        new = out[:, PROMPT:]
+        if got != want or in_int8 != NEW - 1:
+            raise AssertionError(f"moe int8 {name}: launch counts {got} "
+                                 f"({in_int8} in the int8 KV mode), "
+                                 f"expected {want}")
+        if tuple(out.shape) != (B, PROMPT + NEW) \
+                or not torch.equal(out[:, :PROMPT], ids) \
+                or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+            raise AssertionError(f"moe int8 {name}: bad tokens "
+                                 f"{tuple(out.shape)}")
+        runs[name] = {"wall_s": wall, "launches": got,
+                      "int8_kv_launches": in_int8,
+                      "first_tokens": new[:, :8].tolist()}
+    reset_counts(fa, fd)
+
+    def wall(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(model, ids, max_new_tokens=n, cache_dtype=torch.int8)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ttft_s = min(wall(1) for _ in range(2))
+    gen_s = wall(NEW)
+    gen_peak = torch.cuda.max_memory_allocated()
+    reset_counts(fa, fd)
+    total = -(-(PROMPT + NEW) // 128) * 128
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.kv_heads,
+              eps=cfg.rms_norm_eps, top_k=cfg.top_k)
+    with torch.inference_mode():
+        logits, kv = prefill(model, ids, total, fused=True)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        del logits
+        kvq, sc = fd.quantize_kv_cache(kv, cfg.kv_heads)
+        del kv
+        plan = model.fused_decode_plan(model.state_dict(include_buffers=False))
+        params = plan["params"]
+        cos, sin = rope.rope_cos_sin(total, cfg.head_dim, device="cuda")
+        pos = PROMPT
+        x = plan["embed"](tok, pos)
+        c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+        kq = dict(kw, kv_scales=sc)
+        kr, pr = {}, {}
+        xk, kv_k = fd.fused_decode_moe_cuda(x, params, kvq.clone(), pos, c,
+                                            s, routing=kr, **kq)
+        lk = plan["head"](xk).float()
+        xp, _ = fd.fused_decode_reference(x, params, kvq.clone(), pos, c, s,
+                                          arch="moe", routing=pr, **kq)
+        lp = plan["head"](xp).float()
+        xf_, kv_f = fd.fused_decode_reference(
+            x, params, kvq.clone(), pos, c, s, arch="moe",
+            routing={"force_ids": kr["ids"]}, **kq)
+        lf = plan["head"](xf_).float()
+        rows = compare_routing(kr, pr, K6_FLIP_GAP_DEEP)
+        kept = [r["row"] for r in rows if r["first_swap_layer"] is None]
+        logit_err, logits_ok = close(lk[kept], lp[kept], SERVE_LOGIT_ATOL,
+                                     E2E_RTOL) if kept else (0.0, True)
+        forced_err, forced_ok = close(lk, lf, SERVE_LOGIT_ATOL, E2E_RTOL)
+        steps, one, two = int8_rows(kv_k, kv_f, pos)
+        # every layer's appends on one input
+        n0, i0 = fd.fused_decode_moe_cuda.launches, \
+            fd.fused_decode_moe_cuda.int8_kv
+        kv_k.copy_(kvq)
+        kv_f.copy_(kvq)
+        xl = x
+        for layer in range(L):
+            sl = slice(layer, layer + 1)
+            p1 = {k: v[sl] for k, v in params.items()}
+            k1 = dict(kw, kv_scales=sc[sl])
+            xn, kv_k[sl] = fd.fused_decode_moe_cuda(xl, p1, kv_k[sl], pos, c,
+                                                    s, **k1)
+            kv_f[sl] = fd.fused_decode_reference(xl, p1, kv_f[sl], pos, c, s,
+                                                 arch="moe", **k1)[1]
+            xl = xn
+        fd.fused_decode_moe_cuda.launches = n0
+        fd.fused_decode_moe_cuda.int8_kv = i0
+        steps1, one1, _ = int8_rows(kv_k, kv_f, pos)
+        del kv_k, kv_f
+        lanes = L * B * 2 * cfg.kv_heads * cfg.head_dim
+        tf = {"rows_swapped": B - len(kept), "routing": rows,
+              "logit_max_abs_err_unswapped_rows": logit_err,
+              "argmax_agree": float((lk.argmax(-1) == lp.argmax(-1))
+                                    .float().mean()),
+              "logit_absmax": lp.abs().max().item(),
+              "kernel_routing_logit_max_abs_err": forced_err,
+              "per_layer_appended_rows_max_int8_steps": steps1,
+              "per_layer_appended_lanes_one_step_apart": one1,
+              "appended_rows_max_int8_steps": steps,
+              "appended_lanes_one_step_apart": one,
+              "appended_lanes_two_steps_apart": two,
+              "appended_lanes": lanes,
+              "vs_bf16_cache_logit_max_abs_diff":
+                  (lk - lk_bf16).abs().max().item(),
+              "vs_bf16_cache_argmax_agree": float(
+                  (lk.argmax(-1) == lk_bf16.argmax(-1)).float().mean()),
+              "atol": SERVE_LOGIT_ATOL, "rtol": E2E_RTOL,
+              "flip_gap": K6_FLIP_GAP_DEEP, "int8_drift": MOE_INT8_DRIFT,
+              "ok": (logits_ok and forced_ok and all(r["ok"] for r in rows)
+                     and steps1 <= 1
+                     and steps <= MOE_INT8_DRIFT["max_steps"]
+                     and one <= MOE_INT8_DRIFT["one_step_share"] * lanes
+                     and two <= MOE_INT8_DRIFT["two_step_share"] * lanes)}
+        tpos = PROMPT + 32
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        xb = rand((B, cfg.hidden_size), gen)
+        c, s = cos[tpos:tpos + 1], sin[tpos:tpos + 1]
+        route = {}
+        fd.fused_decode_moe_cuda(xb, params, kvq, tpos, c, s, routing=route,
+                                 **kq)
+        ms = time_ms(lambda: fd.fused_decode_moe_cuda(
+            xb, params, kvq, tpos, c, s, **kq), iters=20)
+        plain = time_ms(lambda: fd.fused_decode_reference(
+            xb, params, kvq, tpos, c, s, arch="moe", **kq), iters=2,
+            warmup=1)
+        bound = moe_bound(params, kvq, tpos, route["ids"].cpu(), B, bw, flops,
+                          cfg.num_heads, cfg.head_dim, kv_scales=sc)
+        reset_counts(fa, fd)
+        del plan, params, kvq
+    t = dict(bound, ms=ms, plain_ms=plain, pos=tpos)
+    res = {"cache": "int8 (quantize_kv_cache after a bf16 prefill)",
+           "runs": runs, "ttft_ms": ttft_s * 1e3,
+           "decode_ms_per_step": (gen_s - ttft_s) / (NEW - 1) * 1e3,
+           "generate_ms": gen_s * 1e3, "tokens_per_s": B * NEW / gen_s,
+           "max_memory_allocated_generate": gen_peak,
+           "teacher_forced": tf, "k6_timing": t}
+    row = {"name": "fused_decode_moe_step_int8kv", "mode": "int8 KV cache",
+           "route": "cuda", "source": "paddle_tpu_torch/csrc/fused_decode.cu",
+           "replaces": "paddle_tpu/ops/fused_decode.py:1049 (kv_scales: "
+                       ":1082, :1110-1112)",
+           "launches": runs["greedy"]["int8_kv_launches"],
+           "max_abs_err": k6q_err, "ms": ms, "plain_ms": plain,
+           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+           "library_ms": None,
+           "at_shape": {"b": B, "layers": L, "pos": tpos,
+                        "mean_distinct_experts": t["mean_distinct_experts"]},
+           "launches_by_path": {"moe_int8": runs["greedy"]["int8_kv_launches"]}}
+    return res, row, runs["greedy"]["launches"]
 
 
 # ---- Mistral-7B: the causal sliding window through generate ------------------
@@ -5471,6 +5724,173 @@ def phase_train_mistral(fa, fd, flops):
     return res
 
 
+# ---- MoE training: DeepSeekMoE-16B d4 and the twin's dispatch modes ----------
+
+# train_moe's model: DeepSeekMoE-16B at full width cut to 4 of its 28 layers
+# (the reference's deepseek-16b-d4 cross-section, examples/decode_bench.py)
+MOE_TRAIN_LAYERS = 4
+# train_moe (c): one step of each dispatch mode against fused's at the
+# twin's shape (12 layers, h 1024, 8 experts), bf16. Scatter, sort and
+# einsum move the same rows as fused and sum the same products, in another
+# order only in the combine and its backward; dropless runs each expert's
+# products on its own segment (cuBLAS may pick other kernels, other sum
+# orders). So the modes differ by bf16 roundings (2^-9 relative) that
+# compound over 12 layers, and by the rare token whose top-2 choice sits on
+# a near-tie that such noise flips. The loss (≈ ln 32000 = 10.4, a mean over
+# 4096 tokens) then moves by ~1e-3, a gradient's relative L2 error by ~1e-2,
+# as phase step's whole-step tolerances assume; a dispatch that loses or
+# misplaces rows moves the loss by O(1e-1) and a gradient by O(1).
+MODE_LOSS_ATOL, MODE_GRAD_RTOL = STEP_LOSS_ATOL, STEP_GRAD_RTOL
+MODE_GRADS = ("model.embed_tokens.weight",
+              "model.layers.0.self_attn.q_proj.weight",
+              "model.layers.0.moe.gate.proj.weight",
+              "model.layers.0.moe.experts.w_gate",
+              "model.layers.11.moe.experts.w_down", "lm_head.weight")
+
+
+def mode_step(moe_bench, dispatch, cf, state):
+    """Loss and MODE_GRADS of one forward + backward at the twin's shape
+    under `dispatch` with capacity factor `cf`, from `state` (None: the
+    twin's seed-0 weights). Returns (loss, grads, state, host reads)."""
+    from paddle_tpu_torch.nn.layers.moe import GroupedSwiGLUExperts
+    cfg = moe_bench.config(capacity_factor=cf, dispatch=dispatch)
+    model, _, x, y = moe_bench.build(cfg, 4, 1024, "cuda")
+    if state is not None:
+        model.load_state_dict(state)
+    reads = GroupedSwiGLUExperts.host_reads
+    loss = model.loss(model(x), y)
+    loss.backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()
+             if n in MODE_GRADS}
+    state = state or {n: t.detach().clone()
+                      for n, t in model.state_dict().items()}
+    out = (float(loss.detach()), grads, state,
+           GroupedSwiGLUExperts.host_reads - reads)
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe(fa, fd, flops):
+    """(a) DeepSeekMoE-16B at full width, MOE_TRAIN_LAYERS layers, fused
+    dispatch, through moe_bench's build and train_step: b 4, S 1024,
+    pure-bf16 AdamW(1e-4); 2 warm-up and 5 counted steps (CUDA events, the
+    loss read after the last): K1, K3 and K4 once a layer a step, nothing
+    else, no plain attention call, the loss finite and falling; step ms,
+    tokens/s, activated MFU, peak memory, one traced step by bucket.
+    (b) The twin at its defaults (its JSON line, with the bucket split).
+    (c) One step under scatter, sort and einsum against fused at the
+    twin's capacity factor, and dropless against fused at 4.0 (= E / k:
+    an expert's queue holds every token, so nothing drops): the loss within
+    MODE_LOSS_ATOL, each of MODE_GRADS within MODE_GRAD_RTOL relative L2."""
+    from paddle_tpu_torch import moe_bench
+    from paddle_tpu_torch.models import MixtralConfig
+    cfg = dataclasses.replace(MixtralConfig.deepseek_moe_16b(),
+                              num_layers=MOE_TRAIN_LAYERS,
+                              moe_dispatch="fused")
+    b, s, warm, steps = 4, 1024, 2, 5
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, x, y = moe_bench.build(cfg, b, s, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.num_params()
+    cap = model.model.layers[0].moe.gate.capacity(b * s)
+    step = lambda: moe_bench.train_step(model, opt, x, y)
+    with PlainTraining(fa) as plain:
+        losses = [float(step()) for _ in range(warm)]
+        reset_counts(fa, fd)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        counted = [step() for _ in range(steps)]
+        e1.record()
+        losses += [float(v) for v in counted]
+        wall = time.perf_counter() - t0
+        got = counts(fa, fd)
+        peak = torch.cuda.max_memory_allocated()
+        trace = moe_bench.step_breakdown(step)
+    reset_counts(fa, fd)
+    dev_s = e0.elapsed_time(e1) / 1e3
+    tok_s = b * s * steps / dev_s
+    fpt = moe_bench.flops_per_token(cfg, n_params, s)
+    res = {"phase": "train_moe", "model": "deepseek_moe_16b",
+           "layers": cfg.num_layers, "cut": "28 -> 4 layers",
+           "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+           "experts": cfg.num_experts, "top_k": cfg.top_k,
+           "expert_ffn": cfg.intermediate_size,
+           "shared_experts": cfg.num_shared_experts,
+           "vocab": cfg.vocab_size, "dispatch": "fused",
+           "capacity_per_expert": cap, "dtype": "bfloat16",
+           "params": n_params,
+           "params_activated": moe_bench.activated_params(cfg, n_params),
+           "batch": b, "seq": s,
+           "optimizer": "AdamW(1e-4, multi_precision=False)",
+           "warmup_steps": warm, "steps": steps, "init_s": init_s,
+           "step_ms": 1e3 * dev_s / steps, "wall_step_ms": 1e3 * wall / steps,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu": tok_s * fpt / flops, "mfu_basis": "activated",
+           "max_memory_allocated": peak, "losses": losses, "launches": got,
+           "plain_attention_calls": plain.n, "step_trace": trace}
+    del model, opt, x, y, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = cfg.num_layers * steps
+    want = dict.fromkeys(got, 0)
+    want.update(flash_attention_fwd=n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkv=n)
+    bad = []
+    if got != want:
+        bad.append(f"launches {got}, expected {want}")
+    if plain.n:
+        bad.append(f"{plain.n} plain attention calls")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        bad.append(f"loss not finite or not falling: {losses}")
+
+    # (b) the twin at its defaults
+    reset_counts(fa, fd)
+    res["twin"] = moe_bench.main(["--xplane_breakdown"])
+    res["twin_launches"] = counts(fa, fd)
+    reset_counts(fa, fd)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the other dispatch modes against fused, one step each
+    cf = 1.0
+    modes = {}
+    for ref_cf, others in ((cf, ("scatter", "sort", "einsum")),
+                           (4.0, ("dropless",))):
+        l0, g0, state, _ = mode_step(moe_bench, "fused", ref_cf, None)
+        for mode in others:
+            l1, g1, _, reads = mode_step(moe_bench, mode, ref_cf, state)
+            rel = {n: float((g1[n] - g0[n]).norm() / g0[n].norm())
+                   for n in MODE_GRADS}
+            ok = (abs(l1 - l0) <= MODE_LOSS_ATOL
+                  and all(v <= MODE_GRAD_RTOL for v in rel.values()))
+            modes[mode] = {"capacity_factor": ref_cf, "loss": l1,
+                           "fused_loss": l0, "loss_diff": l1 - l0,
+                           "grad_rel_l2": rel, "host_reads": reads,
+                           "ok": ok}
+            if not ok:
+                bad.append(f"{mode} disagrees with fused: {modes[mode]}")
+        del state, g0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["modes_vs_fused"] = {"shape": "the twin's defaults: 12 layers, "
+                             "8 experts, h 1024, ffn 2816, b 4, S 1024",
+                             "loss_atol": MODE_LOSS_ATOL,
+                             "grad_rtol": MODE_GRAD_RTOL, "modes": modes}
+    emit(res)
+    if bad:
+        raise AssertionError("train_moe: " + "; ".join(bad))
+    return res
+
+
 # ---- dropout: the hidden-dropout kernel, K1/K3/K4's dropout modes, GPT-2 at
 # its published dropout ------------------------------------------------------
 
@@ -5986,6 +6406,14 @@ def main(argv):
                             phase_train_dropout(fa, fd, flops))
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
+    if "--moe" in argv:
+        k6_errs = phase_k6(fd, rope, gen)
+        row, _, row8, _ = phase_moe(fa, fd, bw, flops, *k6_errs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_moe(fa, fd, flops)
+        print(json.dumps({"kernels": [row, row8]}), flush=True)
+        return 0
     k1_err = phase_k1(fa, gen)
     k1w_err = phase_k1w(fa, fd, gen)
     k2_err = phase_k2(fd, rope, gen)
@@ -5994,7 +6422,7 @@ def main(argv):
     k5q_errs, k7q_errs = {}, {}     # the int8 modes' errors (rows 6, 7)
     k5_err = phase_k5(fd, rope, gen, k5q_errs)
     k7_err = phase_k7(fd, rope, gen, k7q_errs)
-    k6_err = phase_k6(fd, rope, gen)
+    k6_errs = phase_k6(fd, rope, gen)
     phase_wide(fa, fd)
     gpt_errs = {"k2g": phase_k2g(fd, rope, gen),
                 "k5g": phase_k5g(fd, rope, gen, k5q_errs),
@@ -6033,7 +6461,11 @@ def main(argv):
     torch.cuda.empty_cache()
     gpt_rows, gpt_launches, gpt_int8_runs = phase_gpt(fa, fd, bw, flops,
                                                       gpt_errs)
-    k6_row, moe_launches = phase_moe(fa, fd, bw, flops, k6_err)
+    k6_row, moe_launches, k6q_row, moe_int8_launches = phase_moe(
+        fa, fd, bw, flops, *k6_errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_moe = phase_train_moe(fa, fd, flops)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train(fa, fd, flops)
@@ -6088,6 +6520,8 @@ def main(argv):
         k["launches_by_path"]["int8_pool"] = int8_pool_launches[k["name"]]
         k["launches_by_path"]["int8_serve"] = int8_serve_launches[k["name"]]
         k["launches_by_path"]["moe"] = moe_launches[k["name"]]
+        k["launches_by_path"]["moe_int8"] = moe_int8_launches[k["name"]]
+        k["launches_by_path"]["train_moe"] = train_moe["launches"][k["name"]]
         k["launches_by_path"]["mistral"] = mistral_launches[k["name"]]
         k["launches_by_path"]["train_llama"] = \
             llama_train["launches"][k["name"]]
@@ -6137,6 +6571,8 @@ def main(argv):
     # rows 1b, 2b, 3b (K1, K3, K4's dropout modes) and the hidden-dropout
     # kernel, launched on path train_dropout
     kernels += dropout_rows(drop_row, k1d_rows, train_drop)
+    # row 5a: K6's int8 KV mode, launched on path moe_int8
+    kernels.append(k6q_row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

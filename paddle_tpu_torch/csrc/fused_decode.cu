@@ -117,8 +117,8 @@
 // per-out-channel scale multiplies each output once, after the fixed-order
 // split-K sum, in the epilogue: qkv, the o-proj before its residual add,
 // gate and up before SwiGLU, down before its residual add (the reference's
-// y * s after the full dot). Int8 KV (llama and gpt): a cache policy
-// (ContigKV<int8_t>) makes the attention kernel store the append as
+// y * s after the full dot). Int8 KV (llama, gpt, and K6's moe): a cache
+// policy (ContigKV<int8_t>) makes the attention kernel store the append as
 // rint(v / scale) clipped to +-127 and read keys and values as int8 (TMA
 // boxes of int8, widened to bf16 in shared memory, exactly); since a scale
 // is one value per (layer, kv head), the k scale folds into the staged q
@@ -2440,7 +2440,10 @@ ContigKV<T> contig_layer(ContigKV<T> v, int l, int cb, const float* kvs) {
 // K6 — the MoE decode step (Mixtral / DeepSeekMoE).
 //
 // Replaces paddle_tpu/ops/fused_decode.py::_fused_decode_moe_pallas
-// (pallas_call at :1464), bf16 weights, bf16 KV: llama attention, a top-k
+// (pallas_call at :1464), bf16 weights, a bf16 or an int8 KV cache (the
+// TPU kernel's kv_scales mode, :1049-1120: K2's ContigKV<int8_t> policy
+// over the (L, 2*nkv*hd) lane scales, so the attention half is K2's int8
+// KV mode line for line): llama attention, a top-k
 // router, the routed experts' SwiGLU and, where the model has them, the
 // DeepSeekMoE shared experts, one token per row over the flat cache
 // (L, b, S, 2*nkv*hd). Per layer, on one stream, from one C call:
@@ -2702,9 +2705,10 @@ struct MoEArgs {
   int E, k, f, fs;
 };
 
-cudaError_t moe_stack(const Stack& a_in, const MoEArgs& m, bf16* kv,
-                      const float* cosr, const float* sinr, int S, int cb,
-                      int pos, cudaStream_t st) {
+template <class T>
+cudaError_t moe_stack(const Stack& a_in, const MoEArgs& m, T* kv,
+                      const float* kvs, const float* cosr, const float* sinr,
+                      int S, int cb, int pos, cudaStream_t st) {
   Stack a = a_in;
   const int L = a.L, b = a.b, h = a.h, hd = a.hd, k = m.k, f = m.f,
             fs = m.fs, E = m.E;
@@ -2716,7 +2720,7 @@ cudaError_t moe_stack(const Stack& a_in, const MoEArgs& m, bf16* kv,
     return cudaErrorInvalidValue;
   const MoEPlan p = moe_plan(b, h, dq, dqkv, k, f, fs);
   float* ws0 = a.ws + p.attn;
-  ContigKV<bf16> kv0;   // the attention's partials follow the plan's total
+  ContigKV<T> kv0;   // the attention's partials follow the plan's total
   const int ce = contig_kv(&kv0, &a, p.total, kv, S, cb, pos, cosr, sinr);
   if (ce != 0) return (cudaError_t)ce;
   EMaps maps;   // the attention half's: wqkv, wo, xn (the router's), attn
@@ -2726,8 +2730,8 @@ cudaError_t moe_stack(const Stack& a_in, const MoEArgs& m, bf16* kv,
       a.x_in, a.xf, b * h, a.count, a.ncount);
   cudaError_t e = cudaGetLastError();
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
-    e = attention_half(a, maps, l, contig_layer(kv0, l, cb, nullptr), ws0,
-                       ws0, st);
+    e = attention_half(a, maps, l, contig_layer(kv0, l, cb, kvs), ws0, ws0,
+                       st);
     if (e != cudaSuccess) break;
     int* ids = m.ids + (long)l * nslot;
     float* wts = m.wts + (long)l * nslot;
@@ -2959,7 +2963,11 @@ extern "C" long fused_decode_moe_workspace(int b, int h, int nh, int nkv,
 // Stacked weights as built by build_fused_params_moe: gate (L, E, h), weg /
 // weu (L, E, h, f), wed (L, E, f, h); wsg / wsu (L, h, fs) and wsd
 // (L, fs, h) when fs > 0 (nullptr otherwise). kv (L, b, S, 2*nkv*hd) is
-// updated in place at `pos`. Outputs: x_out (b, h) bf16, the routing ids
+// updated in place at `pos`; non-null kv scales kvs ((L, 2*nkv*hd) fp32,
+// the reference's (L, 1, 2*nkv*hd) kv_scales) make it int8: K2's int8 KV
+// mode (ContigKV<int8_t>), the append rint(kv / scale) clipped to +-127,
+// keys and values read with the lane scales. Outputs: x_out (b, h) bf16,
+// the routing ids
 // (L, b, k) int32 and weights (L, b, k) fp32. Scratch: xf (b, h) f32, qkv
 // (b, dqkv) f32, attn (b, dq) bf16, xn (b, h) bf16, act (b*k, f) bf16, sact
 // (b, fs) bf16, ws (fused_decode_moe_workspace floats). b <= 8, b*k <= 64;
@@ -2969,7 +2977,8 @@ extern "C" int fused_decode_moe(
     const void* x_in, void* x_out, const void* ln1, const void* wqkv,
     const void* wo, const void* ln2, const void* gate, const void* weg,
     const void* weu, const void* wed, const void* wsg, const void* wsu,
-    const void* wsd, void* kv, const void* cosr, const void* sinr, void* ids,
+    const void* wsd, void* kv, const void* kvs, const void* cosr,
+    const void* sinr, void* ids,
     void* wts, void* xf, void* qkv, void* attn, void* xn, void* act,
     void* sact, void* ws, int L, int b, int h, int nh, int nkv, int hd, int E,
     int k, int f, int fs, int S, int cb, int pos, float eps, void* stream) {
@@ -2983,8 +2992,13 @@ extern "C" int fused_decode_moe(
                   (bf16*)xn,         (bf16*)act,       (bf16*)sact,
                   E,                 k,                f,
                   fs};
-  return (int)moe_stack(a, m, (bf16*)kv, (const float*)cosr,
-                        (const float*)sinr, S, cb, pos, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (kvs != nullptr)
+    return (int)moe_stack(a, m, (int8_t*)kv, (const float*)kvs,
+                          (const float*)cosr, (const float*)sinr, S, cb, pos,
+                          st);
+  return (int)moe_stack(a, m, (bf16*)kv, nullptr, (const float*)cosr,
+                        (const float*)sinr, S, cb, pos, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Mixtral / DeepSeekMoE (port of ``paddle_tpu/models/mixtral.py``), one device.
 
 A Llama decoder (GQA attention, RMSNorm, RoPE) whose FFN is a token-choice
-MoE (``nn.layers.moe.MoELayer``, scatter dispatch), with the DeepSeekMoE
+MoE (``nn.layers.moe.MoELayer``, any one-device dispatch mode: scatter by
+default, sort, fused, einsum or dropless), with the DeepSeekMoE
 shared experts (an always-on SwiGLU beside the routed experts, the model's
 ``shared_mlp``) optional. Forward returns (logits, weighted aux loss); the
 cache forward returns logits only (``generate``'s contract). Same module
@@ -40,8 +41,9 @@ class MixtralConfig(LlamaConfig):
     aux_loss_weight: float = 0.01
     num_shared_experts: int = 0       # DeepSeekMoE: always-on experts
     moe_gate: str = "gshard"          # 'gshard' (top-k) | 'switch' (top-1)
-    moe_dispatch: str = "scatter"     # only 'scatter' is ported
-    moe_dropless: bool = False        # not ported
+    moe_dispatch: str = "scatter"     # 'scatter'|'sort'|'fused'|'einsum'
+                                      # |'alltoall' (alltoall: not ported)
+    moe_dropless: bool = False        # sort + segments, no capacity drops
     ep_axes: tuple = ("dp",)
 
     @classmethod

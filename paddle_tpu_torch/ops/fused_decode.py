@@ -43,14 +43,14 @@ the paged pool:
 * The int8 modes (reference :235-287, :353, :437-474, :1824-1846,
   :2579-2594): ``build_fused_params`` of a weight-only int8 state gives
   int8 stacks with per-out-channel scale rows (llama), ``quantize_kv_cache``
-  an int8 cache with per-(layer, kv head) scales (llama and gpt); both
-  ride K2 (``fused_decode_cuda``) and the plain version. The paged steps
+  an int8 cache with per-(layer, kv head) scales (llama, gpt and moe);
+  both ride K2 (``fused_decode_cuda``), the cache also K6
+  (``fused_decode_moe_cuda``), and the plain version. The paged steps
   take the int8 weights (llama) and an int8 pool with per-ROW scales
   ``kv_scales`` (L, b, 2*nkv*hd) fp32 — a serving slot calibrates its own
   — on K5, K7 and their plain versions.
 
-K5 and K7 take arch llama and gpt, as the reference's paged steps do; K6
-takes no int8 KV yet (ROADMAP Queue B row 7).
+K5 and K7 take arch llama and gpt, as the reference's paged steps do.
 
 The KV cache is COMBINED and FLAT, (L, b, S, 2*nkv*hd) with k in lanes
 [0, nkv*hd). Unlike the JAX functions, every version here updates the cache
@@ -241,22 +241,18 @@ def _wdot(act, w):
     return (act.float() @ w.float())
 
 
-def _refuse_unported(arch, params, kv_scales, row="4"):
+def _refuse_unported(arch, params, row="4"):
     """The contiguous step (row 4) takes arch llama, gpt and moe (row 7),
     the paged ones (rows 5 and 6) llama and gpt, as the reference's. Int8
-    weights ride the llama steps, and an int8 KV cache or pool the llama
-    and gpt steps; the MoE step takes no int8 KV yet. The reference has no
-    int8-weight mode for gpt or moe at all."""
+    weights ride the llama steps, and an int8 KV cache or pool every arch
+    a step takes. The reference has no int8-weight mode for gpt or moe at
+    all."""
     archs = ("llama", "gpt", "moe") if row == "4" else ("llama", "gpt")
     if arch not in archs:
         raise NotImplementedError(
             f"fused decode (ROADMAP Queue B row {row}) takes arch "
             f"{'/'.join(archs)}, got {arch!r}")
     int8_w = "wqkv_s" in params
-    if arch == "moe" and kv_scales is not None:
-        raise NotImplementedError(
-            "fused decode arch='moe' with an int8 KV cache is not ported "
-            "yet (ROADMAP Queue B row 7)")
     if int8_w and arch != "llama":
         raise NotImplementedError(
             f"fused decode arch={arch!r} takes no int8 weights: the "
@@ -444,7 +440,7 @@ def fused_decode_reference(x, params, kv_cache, pos, cos, sin, *,
     (L, 1, 2*nkv*hd) (``quantize_kv_cache``) takes the append as
     round(kv / scale) clipped to ±127 and dequantizes the keys and values
     it reads with the lane scales."""
-    _refuse_unported(arch, params, kv_scales)
+    _refuse_unported(arch, params)
     _check_kv_mode(kv_cache, kv_scales)
     L, b, S, dkv2 = kv_cache.shape
     dkv = dkv2 // 2
@@ -651,7 +647,7 @@ def fused_decode_cuda(x, params, kv_cache, pos, cos, sin, *, num_heads: int,
     on anything else."""
     what = "fused_decode_cuda"
     _check_arch(what, arch)
-    _refuse_unported(arch, params, kv_scales)
+    _refuse_unported(arch, params)
     _check_kv_mode(kv_cache, kv_scales)
     specs, (b, h, hd, ffn) = _stack_specs(what, x, params, kv_cache,
                                           num_heads, num_kv_heads, arch=arch)
@@ -707,7 +703,8 @@ MOE_MAX_ROWS, MOE_MAX_PAIRS = 8, 64
 
 def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
                           num_heads: int, num_kv_heads: int,
-                          eps: float = 1e-5, top_k: int = 2, routing=None):
+                          eps: float = 1e-5, top_k: int = 2, routing=None,
+                          kv_scales=None):
     """Wrapper of K6: one MoE decode step through all L layers. One launch
     takes up to ``MOE_MAX_ROWS`` rows and ``MOE_MAX_PAIRS`` (row, choice)
     pairs (1 + 11L kernels, 1 + 14L with shared experts, on the current
@@ -719,8 +716,11 @@ def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
     device and raises on anything else. A dict given as ``routing``
     receives the kernel's per-layer ids (L, b, k) int32 and weights (L, b,
     k) fp32 (device tensors; the step itself never reads them on the
-    host)."""
+    host). Its int8 KV mode: an int8 cache with ``kv_scales`` (L, 1,
+    2*nkv*hd) fp32 (``quantize_kv_cache``), as K2's; ``int8_kv`` counts
+    those launches."""
     what = "fused_decode_moe_cuda"
+    _check_kv_mode(kv_cache, kv_scales)
     if kv_cache.dim() != 4 or x.dim() != 2 or kv_cache.shape[1] != x.shape[0]:
         raise ValueError(f"{what}: cache {tuple(kv_cache.shape)} is not "
                          f"(L, b, S, 2*nkv*hd) for x {tuple(x.shape)}")
@@ -752,11 +752,15 @@ def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
     bf = torch.bfloat16
     cos = cos.reshape(hd)
     sin = sin.reshape(hd)
+    cdt = torch.int8 if kv_scales is not None else bf
+    scales = [] if kv_scales is None else [
+        ("kv_scales", kv_scales, torch.float32, (L, 1, dkv2))]
     _check_tensors(what, [("x", x, bf, (b, h)),
-                          ("cache", kv_cache, bf, kv_cache.shape),
+                          ("cache", kv_cache, cdt, kv_cache.shape),
                           ("cos", cos, torch.float32, (hd,)),
                           ("sin", sin, torch.float32, (hd,))]
-                   + [(n, params[n], bf, shapes[n]) for n in keys], x.device)
+                   + [(n, params[n], bf, shapes[n]) for n in keys] + scales,
+                   x.device)
     pos = int(pos)
     if not 0 <= pos < S:
         raise ValueError(f"{what}: pos {pos} outside the cache length {S}")
@@ -785,10 +789,12 @@ def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
                        bg, h, nh, nkv, hd, k, f, fs, S), dtype=f32,
                        device=dev))
         err = lib.fused_decode_moe(
-            p(xg), p(x_out), *weights, p(kv_cache[:, rows]), p(cos), p(sin),
+            p(xg), p(x_out), *weights, p(kv_cache[:, rows]),
+            _opt_ptr(kv_scales), p(cos), p(sin),
             p(ids[-1]), p(wts[-1]), *(p(t) for t in scratch), L, bg, h, nh,
             nkv, hd, E, k, f, fs, S, b, pos, float(eps), _build.stream_of(x))
         fused_decode_moe_cuda.launches += 1
+        fused_decode_moe_cuda.int8_kv += kv_scales is not None
         _build.check(err, "fused_decode_moe")
         return x_out
 
@@ -799,6 +805,7 @@ def fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin, *,
 
 
 fused_decode_moe_cuda.launches = 0
+fused_decode_moe_cuda.int8_kv = 0     # of them, launches over an int8 cache
 
 
 def _kernel_lib():
@@ -821,7 +828,7 @@ def _kernel_lib():
         wsf.argtypes = [ci] * 7
         wsf.restype = ctypes.c_long
         mfn = lib.fused_decode_moe
-        mfn.argtypes = [vp] * 25 + [ci] * 13 + [ctypes.c_float, vp]
+        mfn.argtypes = [vp] * 26 + [ci] * 13 + [ctypes.c_float, vp]
         mfn.restype = ctypes.c_int
         mws = lib.fused_decode_moe_workspace
         mws.argtypes = [ci] * 9
@@ -873,7 +880,7 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
     fused_decode_reference; ``top_k`` applies to arch moe only; ``blocks``
     is checked against the cache dtype; ``kv_scales`` with an int8 cache
     selects the int8 KV mode."""
-    _refuse_unported(arch, params, kv_scales)
+    _refuse_unported(arch, params)
     _check_plan(blocks, kv_cache)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, eps=eps)
     if arch == "moe":
@@ -883,7 +890,7 @@ def fused_decode_step(x, params, kv_cache, pos, cos, sin, *,
                                       arch=arch, kv_scales=kv_scales, **kw)
     if arch == "moe":
         return fused_decode_moe_cuda(x, params, kv_cache, pos, cos, sin,
-                                     **kw)
+                                     kv_scales=kv_scales, **kw)
     return fused_decode_cuda(x, params, kv_cache, pos, cos, sin, arch=arch,
                              kv_scales=kv_scales, **kw)
 
@@ -918,7 +925,7 @@ def _refuse_unported_paged(arch, params, kv_pool, kv_scales, mp_axis,
     an arch the reference's paged steps lack, gpt with int8 weights (no
     reference mode), ``mp_axis``, and ``kv_scales`` that do not match the
     pool's dtype (ValueError)."""
-    _refuse_unported(arch, params, kv_scales, row=row)
+    _refuse_unported(arch, params, row=row)
     if mp_axis is not None:
         raise NotImplementedError(
             "tensor-parallel paged decode (mp_axis) is not ported yet "

@@ -141,12 +141,12 @@ def test_reference_matches_interpret_kernel_bf16():
 
 
 def test_dispatch_refuses_unported_modes():
-    """The int8 modes still to port refuse, naming their Queue B row: int8
-    KV on the MoE step (row 7), int8 weights on gpt and moe (the reference
-    has no such mode), on the paged decode (row 5) and verify (row 6)
-    steps too; so do an unknown arch and a plan made for another cache
-    width. The paged steps' int8 modes are ported: kv_scales over a pool
-    that is not int8 is a ValueError there, as on the contiguous step."""
+    """Int8 weights on gpt and moe (the reference has no such mode) refuse,
+    naming their Queue B row, on the paged decode (row 5) and verify (row
+    6) steps too; so do an unknown arch and a plan made for another cache
+    width. The int8 KV modes are ported on every step, the MoE step's too
+    (row 7): kv_scales over a cache or pool that is not int8 is a
+    ValueError."""
     x = torch.zeros(1, 8)
     kv = torch.zeros(1, 1, 4, 8)
     kw = dict(num_heads=1, num_kv_heads=1)
@@ -155,12 +155,12 @@ def test_dispatch_refuses_unported_modes():
     with pytest.raises(NotImplementedError, match="row 4"):
         tfd.fused_decode_step(x, {"wqkv_s": None}, kv, 0, None, None,
                               arch="gpt", **kw)
-    for extra in (dict(params={"wqkv_s": None}),
-                  dict(params={}, kv_scales=torch.ones(1, 1, 8))):
-        p = extra.pop("params")
-        with pytest.raises(NotImplementedError, match="row 7"):
-            tfd.fused_decode_step(x, p, kv, 0, None, None, arch="moe",
-                                  **extra, **kw)
+    with pytest.raises(NotImplementedError, match="row 7"):
+        tfd.fused_decode_step(x, {"wqkv_s": None}, kv, 0, None, None,
+                              arch="moe", **kw)
+    with pytest.raises(ValueError, match="kv_scales"):
+        tfd.fused_decode_step(x, {}, kv, 0, None, None, arch="moe",
+                              kv_scales=torch.ones(1, 1, 8), **kw)
     pool = torch.zeros(1, 2, 4, 8)
     tab = torch.zeros(1, 1, dtype=torch.int32)
     pos = torch.zeros(1, dtype=torch.int32)

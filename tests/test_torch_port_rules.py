@@ -66,6 +66,7 @@ def test_scan_covers_the_package():
             "examples/torch_decode_profile.py",
             "paddle_tpu_torch/nn/layers/moe.py",
             "paddle_tpu_torch/models/mixtral.py",
+            "paddle_tpu_torch/moe_bench.py",
             "paddle_tpu_torch/quantization/__init__.py",
             "paddle_tpu_torch/ops/rms_norm.py",
             "paddle_tpu_torch/ops/smem_probe.py"} <= names
@@ -266,10 +267,12 @@ def test_moe_counter_stays_zero_through_a_cpu_generate():
 
 
 def test_moe_step_refuses_int8_and_what_k6_does_not_take():
-    """fused_decode_step(arch="moe") raises on int8 KV scales and int8
-    weights (ROADMAP Queue B row 7); the K6 wrapper raises on CPU tensors,
-    a wrong dtype and a top_k above the experts, before any launch; b = 9
-    (two launches of rows) gets as far as the device check."""
+    """fused_decode_step(arch="moe") raises on int8 weights (the reference
+    has no such mode, ROADMAP Queue B row 7) and on kv scales beside a
+    bf16 cache; the K6 wrapper raises on CPU tensors, a wrong dtype, int8
+    KV without its scales (or with scales of the wrong shape) and a top_k
+    above the experts, before any launch; b = 9 (two launches of rows) and
+    the int8 KV mode get as far as the device check."""
     from paddle_tpu_torch.ops import fused_decode as fd
     m = _tiny_moe(hidden_size=128, num_heads=2, num_kv_heads=1)   # hd 64
     params = fd.build_fused_params_moe(m.state_dict(include_buffers=False),
@@ -278,7 +281,7 @@ def test_moe_step_refuses_int8_and_what_k6_does_not_take():
     kv = torch.zeros(2, 2, 16, 2 * 64, dtype=torch.bfloat16)
     rows = torch.zeros(1, 64)
     kw = dict(num_heads=2, num_kv_heads=1, arch="moe", top_k=2)
-    with pytest.raises(NotImplementedError, match="row 7"):
+    with pytest.raises(ValueError, match="int8 KV cache needs kv_scales"):
         fd.fused_decode_step(x, params, kv, 3, rows, rows,
                              kv_scales=torch.ones(2, 1, 128), **kw)
     with pytest.raises(NotImplementedError, match="row 7"):
@@ -296,6 +299,16 @@ def test_moe_step_refuses_int8_and_what_k6_does_not_take():
     with pytest.raises(ValueError, match="top_k=9"):
         fd.fused_decode_moe_cuda(x, params, kv, 3, rows, rows, num_heads=2,
                                  num_kv_heads=1, top_k=9)
+    kv8 = torch.zeros(2, 2, 16, 128, dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8 KV cache needs kv_scales"):
+        call(x, params, kv8)
+    call8 = lambda sc: fd.fused_decode_moe_cuda(
+        x, params, kv8, 3, rows, rows, num_heads=2, num_kv_heads=1, top_k=2,
+        kv_scales=sc)
+    with pytest.raises(ValueError, match="kv_scales has shape"):
+        call8(torch.ones(2, 128))
+    with pytest.raises(ValueError, match="cuda"):
+        call8(torch.ones(2, 1, 128))
     assert fd.fused_decode_moe_cuda.launches == 0
 
 
@@ -401,6 +414,49 @@ def test_bench_twin_refuses_cpu_by_default():
         bench.main([])
     with pytest.raises(RuntimeError, match="cuda"):
         bench.build(*bench.config(tiny=True)[:3])
+
+
+def test_moe_twin_refuses_cpu_by_default():
+    """python -m paddle_tpu_torch.moe_bench runs on cuda unless --device
+    cpu is given; without a GPU it raises instead of timing the CPU."""
+    from paddle_tpu_torch import moe_bench
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        moe_bench.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        moe_bench.build(moe_bench.config(on_card=False), 1, 8)
+
+
+def _moe_backward_sources():
+    """The source of every autograd Function's backward in the MoE layer,
+    and of the module's helpers those call."""
+    import inspect
+    from paddle_tpu_torch.nn.layers import moe
+    fns = [cls.backward for cls in vars(moe).values()
+           if isinstance(cls, type)
+           and issubclass(cls, torch.autograd.Function)
+           and cls is not torch.autograd.Function]
+    assert len(fns) >= 3        # _PermuteRows, _GatherDispatch, _CombineGather
+    names = {n for fn in fns for n in fn.__code__.co_names}
+    helpers = [getattr(moe, n) for n in sorted(names)
+               if inspect.isfunction(getattr(moe, n, None))]
+    return [inspect.getsource(f) for f in fns + helpers]
+
+
+def test_moe_dispatch_backwards_scatter_no_rows():
+    """The dispatch Functions' backwards (sort, fused, dropless) move rows
+    by gathers only, the reference's design (its custom VJPs): no
+    index_put_, scatter_add_, index_add_ or subscript assignment."""
+    import ast
+    import textwrap
+    for src in _moe_backward_sources():
+        for bad in ("index_put", "scatter_add", "index_add", "scatter_"):
+            assert bad not in src, (bad, src)
+        tree = ast.parse(textwrap.dedent(src))
+        stores = [n for n in ast.walk(tree) if isinstance(n, ast.Subscript)
+                  and isinstance(n.ctx, ast.Store)]
+        assert not stores, src
 
 
 def test_default_device_raises_without_cuda():
@@ -881,6 +937,49 @@ def test_moe_decode_kernel_matches_plain(cuda, nkv, k, fs):
     torch.testing.assert_close(kvk.float(), kvr.float(), atol=5e-2,
                                rtol=2 ** -7)
     assert torch.equal(kvk[:, :, :pos], kv[:, :, :pos])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 9])
+def test_moe_decode_kernel_int8_kv_matches_plain(cuda, b):
+    """K6's int8 KV mode against the int8 plain version on the same int8
+    cache, gate ×8: the same expert sets, x_out at K2's tolerance, the
+    appended int8 rows within one int8 step, the rest of the cache
+    untouched, two launches bitwise equal (b = 9: two launches of rows)."""
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops.rope import rope_cos_sin
+    L, S, nh, nkv, hd, h, E, f, k, pos = 2, 256, 4, 2, 128, 512, 16, 256, 4, 150
+    g = torch.Generator(device=cuda).manual_seed(7)
+    mk = lambda *s, sc=0.05: (torch.randn(*s, generator=g, device=cuda)
+                              * sc).bfloat16()
+    dq, dkv = nh * hd, nkv * hd
+    p = {"ln1": 1 + mk(L, h, sc=0.1), "wqkv": mk(L, h, dq + 2 * dkv),
+         "wo": mk(L, dq, h), "ln2": 1 + mk(L, h, sc=0.1),
+         "gate": mk(L, E, h, sc=0.4), "weg": mk(L, E, h, f),
+         "weu": mk(L, E, h, f), "wed": mk(L, E, f, h)}
+    x = mk(b, h, sc=1.0)
+    kv8, sc = fd.quantize_kv_cache(mk(L, b, S, 2 * dkv, sc=1.0), nkv)
+    kv8[:, :, pos:] = 0
+    cos, sin = rope_cos_sin(S, hd, device=cuda)
+    c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+    kw = dict(num_heads=nh, num_kv_heads=nkv, eps=1e-5, top_k=k,
+              kv_scales=sc)
+    kr, pr = {}, {}
+    n0 = fd.fused_decode_moe_cuda.int8_kv
+    xk, kvk = fd.fused_decode_moe_cuda(x, p, kv8.clone(), pos, c, s,
+                                       routing=kr, **kw)
+    xk2, kvk2 = fd.fused_decode_moe_cuda(x, p, kv8.clone(), pos, c, s, **kw)
+    assert fd.fused_decode_moe_cuda.int8_kv - n0 == 2 * (1 + (b > 8))
+    xr, kvr = fd.fused_decode_reference(x, p, kv8.clone(), pos, c, s,
+                                        arch="moe", routing=pr, **kw)
+    assert torch.equal(xk, xk2) and torch.equal(kvk, kvk2)
+    assert torch.equal(kr["ids"].long().sort(-1).values,
+                       pr["ids"].sort(-1).values)
+    torch.testing.assert_close(xk.float(), xr.float(), atol=5e-2,
+                               rtol=2 ** -7)
+    assert int((kvk[:, :, pos].int() - kvr[:, :, pos].int()).abs().max()) <= 1
+    assert torch.equal(kvk[:, :, :pos], kv8[:, :, :pos])
+    assert torch.equal(kvk[:, :, pos + 1:], kv8[:, :, pos + 1:])
 
 
 def _gpt_cuda_params(g, L, h, ffn):
