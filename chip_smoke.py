@@ -10,6 +10,7 @@
                                           # train_dropout
     python3 chip_smoke.py --moe           # card, build, k6, moe,
                                           # train_moe
+    python3 chip_smoke.py --unet          # card, build, k1h, unet
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -200,6 +201,25 @@ Phases, each printing one JSON line:
               shape with and without dropout beside the bounds (bytes,
               tensor FLOPs, the hash's integer operations), the plain
               versions and torch sdpa with dropout_p 0.1 (its own mask).
+  8i. k1h   — K1 at head dim 256 and the dispatch's padded head dims: every
+              attention call of the SD-1.5 UNet at b 2, 8 heads, 64×64
+              latents (self-attention over 4096, 1024, 256 and 64 tokens
+              at head dims 40, 80, 160, 160, and cross-attention to 77
+              tokens) through scaled_dot_product_attention (the pad to 64,
+              128, 256, K1, the slice) against the plain version at the
+              unpadded d, out within K1_TOL_OUT, K1H_TOL_OF_MAX of
+              max|plain| and K1H_REL_L2; one K1 launch each at the padded
+              d, and K1 on the padded inputs held there (out, lse within
+              K1's tolerances, the padded columns exactly 0); timed there
+              beside the bounds at the padded and at the model's d, the
+              whole dispatch, the plain version and torch sdpa at the
+              unpadded d; then native
+              d 256 against the plain version (out and lse): causal with an
+              offset and a batch row of kv_len 0, GQA 4, sq 1, sq 127 and
+              129, non-causal sk 77 and 333 without kv_lens (keys past sk
+              are TMA zero fill and must be masked), a 64-key tile edge;
+              two launches of one d 256 call bitwise equal; a gradient at
+              kernel d 256 refused, naming ROADMAP Queue B rows 2-3.
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -392,6 +412,19 @@ Phases, each printing one JSON line:
               and lse, K3's and K4's gradients) against the plain versions
               one kv-head group at a time; the same measurements as
               train_llama.
+ 20. unet   — UNetConfig.sd15() (860 M parameters, bf16, random weights from
+              seed 0) through the UNet twin's build, inputs and denoise
+              (paddle_tpu_torch.unet_bench): b 2, latents (2, 4, 64, 64),
+              context (2, 77, 768), 2 warm-up and 10 counted denoise steps
+              with ε fed back: ms/step (CUDA events), images/s, MFU over
+              the twin's analytic FLOP count, peak memory; K1 32 launches
+              a forward (12 at d 256, 10 at 128, 10 at 64: the wrapper's
+              `by_d`), nothing else, no plain attention call; ε finite; one
+              traced step by kernel family (convolutions, products, norms,
+              K1, copies, the rest; each family's longest kernels by
+              name); then a full-width forward in bf16 at
+              b 1, 32×32 latents against the port's fp32 CPU forward of the
+              same weights, relative L2 of ε within UNET_REL_L2.
  bwd_times (--bwd-times alone) — the windowless K3 and K4 at GPT-2 345M's,
               train_llama's and train_mistral's attention shapes, as phase
               timing_train times them; the calls take no window, so the
@@ -399,9 +432,12 @@ Phases, each printing one JSON line:
               into the tree and run it there: the tree's own package is
               imported), parent and change in turns in one call.
 
---quick stops after phase 8h; --int8-stress runs phase 8f alone; --training
+--quick stops after phase 8i; --int8-stress runs phase 8f alone; --training
 runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a; --moe
-phases 8, 13 and 13a. Every failure propagates and exits non-zero.
+phases 8, 13 and 13a; --unet phases 8i and 20 (about 70 s with the
+build). Every failure propagates and exits non-zero. The whole run takes
+about 290 s on an H100, build included (phases 8i and 20 about 20 s of
+it); the watchdog (WATCHDOG_S) ends a run that stalls past 1,100 s.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -440,7 +476,7 @@ E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
 # The MoE phase's teacher-forced 28-layer step (4 rows × 102400 logits)
 # read 0.117 against the plain path taking K6's experts: the same noise.
 SERVE_LOGIT_ATOL = 0.15
-# The whole run, build included, takes about 260 s on an H100; past
+# The whole run, build included, takes about 290 s on an H100; past
 # this many seconds the watchdog reports a stall and ends the run.
 WATCHDOG_S = 1100
 # K3/K4: each gradient within K3_TOL · max|plain|. The kernels round P and
@@ -4802,7 +4838,7 @@ class CheckedAttention:
     on the same inputs as the call saw them (`k1_agreement`): a decode
     step's attention, layer by layer, over the cached K/V it read."""
 
-    COUNTS = ("launches", "windowed", "dropout")
+    COUNTS = ("launches", "windowed", "dropout", "by_d")
 
     def __init__(self, fa):
         self.fa, self.calls = fa, []
@@ -4840,15 +4876,17 @@ KERNEL_FAMILIES = (
 
 
 
-def traced_step(fn, reps=3):
+def traced_step(fn, reps=3, families=KERNEL_FAMILIES):
     """The card's side of a call that launches more kernels than the launch
     queue holds (a layered decode step, a train step: device_ms cannot
     queue it behind a sleep), from a torch.profiler trace over `reps` calls
     after an untraced one: per call the busy time (the union of the device
     activities' intervals), the activities, the device time by kernel
-    family (K1, K3, K4 on their own, the products, the optimizer, copies,
-    the rest) and K1's alone. None where the trace holds no device
-    activity (not measured)."""
+    family (`families`, the first matching a kernel's name; by default K1,
+    K3, K4 on their own, the products, the optimizer, copies, the rest) and
+    the first family's (K1's) alone, and each family's three longest
+    kernels by name (what the matching put there). None where the trace
+    holds no device activity (not measured)."""
     fn()
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CPU,
@@ -4861,14 +4899,16 @@ def traced_step(fn, reps=3):
            if ev.device_type == torch.autograd.DeviceType.CUDA]
     if not evs:
         return None
-    fams = {}
+    fams, names = {}, {}
     for ev in evs:
         low = ev.name.lower()
-        fam = next((f for f, keys in KERNEL_FAMILIES
+        fam = next((f for f, keys in families
                     if any(key.lower() in low for key in keys)),
                    "other (elementwise, reductions)")
-        fams[fam] = fams.get(fam, 0.0) + (ev.time_range.end
-                                          - ev.time_range.start) / 1e3
+        t = (ev.time_range.end - ev.time_range.start) / 1e3
+        fams[fam] = fams.get(fam, 0.0) + t
+        by_name = names.setdefault(fam, {})
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + t
     busy, start, end = 0.0, None, None
     for a, b in sorted((ev.time_range.start, ev.time_range.end)
                        for ev in evs):
@@ -4882,7 +4922,11 @@ def traced_step(fn, reps=3):
             "device_ms_by_family": {f: v / reps for f, v in
                                     sorted(fams.items(), key=lambda kv:
                                            -kv[1])},
-            "k1_ms": fams.get(KERNEL_FAMILIES[0][0], 0.0) / reps}
+            "k1_ms": fams.get(families[0][0], 0.0) / reps,
+            "top_kernels_by_family": {
+                f: [[n[:160], v / reps] for n, v in sorted(
+                    by.items(), key=lambda kv: -kv[1])[:3]]
+                for f, by in names.items()}}
 
 
 def window_pairs(sq, off, window, kv_len):
@@ -6361,6 +6405,293 @@ def dropout_rows(drop_row, k1d_rows, train_res):
     return out
 
 
+# ---- the SD-1.5 UNet: K1 at head dim 256 and the padded head dims ------------
+
+# The UNet's attention calls at b 2, 8 heads, 64×64 latents: (level, query
+# tokens, head dim, calls of each kind a forward); each kind is
+# self-attention (sk = sq) and cross-attention to the 77-token context
+UNET_ATTN = ((0, 4096, 40, 5), (1, 1024, 80, 5), (2, 256, 160, 5),
+             ("mid", 64, 160, 1))
+UNET_CTX = 77
+# The whole-model check: ε of a full-width forward in bf16 on the card
+# against the port's fp32 CPU forward of the same weights (b 1, 32×32
+# latents), as relative L2. Measured on one H100 it read 0.0133
+# (PERF.md): every activation of the card rounds to bf16 (2^-9
+# relative) through ~60 convolution, norm and attention layers, noise that
+# adds up in quadrature to ~1e-2 at random weights. 0.05 leaves that noise
+# ~4x room for other draws; a wrong kernel, mask, pad or scale moves every
+# attention output by O(1) of its size.
+UNET_REL_L2 = 0.05
+# Phase k1h holds each UNet attention shape relative to its reference, since
+# an absolute bound sized for max|v| ~ 4 is a typical |out| at 4096 keys
+# (out averages N(0, 1) values down to ~√(e/sk)). K1 and the plain version
+# both round out to bf16: where they round near-equal fp32 values to either
+# side of a boundary they differ by one ulp, at most 2^-7 of that entry and
+# so of max|plain|. 2^-6 allows two such flips at the largest entry; as
+# relative L2 the flips are a few per cent of the entries at ≤ 2^-8 each,
+# far inside 2^-7. A key tile dropped or mis-masked, or the scale of the
+# padded d (≈ 20% on every output), exceeds both by an order of magnitude.
+K1H_TOL_OF_MAX = 2.0 ** -6
+K1H_REL_L2 = 2.0 ** -7
+UNET_FAMILIES = (
+    ("K1 flash_attention_fwd", ("flash_fwd_sm90",)),
+    ("convolutions (cuDNN)", ("fprop", "implicit_gemm", "implicit_convolve",
+                              "winograd", "conv2d", "convolve")),
+    ("matrix products (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass",
+                                  "gemv")),
+    ("GroupNorm and LayerNorm", ("rowwisemoments", "computefusedparams",
+                                 "groupnorm", "group_norm", "layer_norm",
+                                 "layernorm")),
+    ("copies (the pad, layout transforms, concatenation, casts)",
+     ("copy", "cat", "fill", "pad", "nchwtonhwc", "nhwctonchw")))
+
+
+def k1h_bound(b, h, sq, sk, d, bw, flops):
+    """(bound ms, by) of one attention call at head dim d: q, k, v and out
+    in bf16 once and the lse, against 4·d FLOPs a (query, key) pair."""
+    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq
+    return bound3(nbytes, 4 * b * h * sq * sk * d, 0, bw, flops, 1.0)
+
+
+def k1h_shape(fa, gen, b, h, sq, sk, d, bw, flops):
+    """One UNet attention call at head dim d through the dispatch (the pad
+    to K1's d, K1, the slice), held against K1's plain version at the
+    unpadded d; K1 launched once at the padded d. K1 launched on the
+    dispatch's padded inputs is held as phase k1 holds it (out and lse
+    within K1_TOL_OUT and K1_TOL_LSE: the pad leaves lse exact), its
+    padded columns exactly 0, and out, relative to the reference,
+    within K1H_TOL_OF_MAX of max|plain| and K1H_REL_L2. Then K1's device
+    time at the padded d (device_ms: the wrapper's host work outlasts the
+    small launches), the dispatch's, torch sdpa's at the unpadded d and
+    the plain version's (CUDA events), beside the bound at the padded d
+    and at the model's own d."""
+    q, k, v = (rand((b, s, h, d), gen) for s in (sq, sk, sk))
+    dt = next(t for t in fa.FWD_DIMS if t >= d)
+    before = dict(fa.flash_attention_fwd.by_d)
+    with torch.no_grad():
+        out = fa.scaled_dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    launched = {t: fa.flash_attention_fwd.by_d[t] - before[t]
+                for t in fa.FWD_DIMS}
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v)
+    qp, kp, vp, scale, _ = fa._pad_head_dim(q, k, v, None)
+    with torch.no_grad():
+        out_k, lse_k = fa.flash_attention_fwd(qp, kp, vp, scale=scale)
+    agree = k1_agreement(out_k[..., :d], lse_k, ref, ref_lse)
+    ref_max = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = (torch.linalg.vector_norm(out.float() - ref.float())
+           / torch.linalg.vector_norm(ref.float())).item()
+    pad_zero = not out_k[..., d:].any().item()
+    with torch.no_grad():
+        ms = device_ms(lambda: fa.flash_attention_fwd(qp, kp, vp,
+                                                      scale=scale), iters=20)
+        dispatch_ms = device_ms(
+            lambda: fa.scaled_dot_product_attention(q, k, v), iters=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v),
+                       iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+        iters=20)
+    bound, by = k1h_bound(b, h, sq, sk, dt, bw, flops)
+    bound_d, by_d = k1h_bound(b, h, sq, sk, d, bw, flops)
+    ok = (err <= K1_TOL_OUT and err <= K1H_TOL_OF_MAX * ref_max
+          and rel <= K1H_REL_L2 and agree["ok"] and pad_zero
+          and launched == {t: int(t == dt) for t in fa.FWD_DIMS}
+          and bool(torch.isfinite(out.float()).all()))
+    return {"b": b, "h": h, "sq": sq, "sk": sk, "d": d, "kernel_d": dt,
+            "max_abs_err": err, "tol": K1_TOL_OUT, "ref_max_abs": ref_max,
+            "tol_of_max_ref": K1H_TOL_OF_MAX, "rel_l2": rel,
+            "rel_l2_tol": K1H_REL_L2, "k1_padded_inputs": agree,
+            "padded_columns_zero": pad_zero, "k1_launches": launched,
+            "ms": ms, "dispatch_ms": dispatch_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "bound_ms_model_d": bound_d, "bound_by_model_d": by_d, "ok": ok}
+
+
+def phase_k1h(fa, bw, flops):
+    """K1 at head dim 256 and the dispatch's padded head dims, against the
+    plain version (see the module docstring, phase 8i)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    shapes = []
+    for level, sq, d, calls in UNET_ATTN:
+        for sk in (sq, UNET_CTX):
+            shapes.append(dict(k1h_shape(fa, gen, 2, 8, sq, sk, d, bw, flops),
+                               level=level, calls_a_forward=calls))
+    # native d = 256 at the kernel's edges: causal with an offset, GQA 4,
+    # kv_lens with a zero-length row, sq 1, sq 127 and 129 around the query
+    # tile, ragged non-causal sk 77 and 333 without kv_lens (keys past sk
+    # arrive as TMA zero fill and must be masked), the key tile's edge
+    edges = [
+        k1_case(fa, gen, 2, 8, 8, 300, 1200, 256, 900, [1200, 0]),
+        k1_case(fa, gen, 2, 16, 4, 200, 700, 256, 450, 650),
+        k1_case(fa, gen, 2, 8, 2, 1, 1000, 256, 999, [1000, 0]),
+        k1_case(fa, gen, 2, 8, 8, 127, 127, 256, None, None),
+        k1_case(fa, gen, 2, 8, 8, 129, 333, 256, None, None, causal=False),
+        k1_case(fa, gen, 2, 8, 8, 129, 77, 256, None, None, causal=False),
+        k1_case(fa, gen, 2, 8, 8, 256, 77, 256, None, None, causal=False),
+        k1_case(fa, gen, 1, 8, 8, 64, 64, 256, None, [63], causal=False),
+        k1_case(fa, gen, 2, 16, 4, 128, 513, 256, 385, [513, 129]),
+    ]
+    # two launches of one d = 256 call: the same bits
+    q = rand((2, 256, 8, 256), gen)
+    k = rand((2, UNET_CTX, 8, 256), gen)
+    v = rand((2, UNET_CTX, 8, 256), gen)
+    o1, l1 = fa.flash_attention_fwd(q, k, v)
+    o2, l2 = fa.flash_attention_fwd(q, k, v)
+    repeat = bool(torch.equal(o1, o2) and torch.equal(l1, l2))
+    # a gradient at kernel d 256 raises, naming the ROADMAP item
+    leaves = [t.clone().requires_grad_() for t in (q[..., :160], k[..., :160],
+                                                   v[..., :160])]
+    try:
+        fa.scaled_dot_product_attention(*leaves)
+        grad_refused = None
+    except NotImplementedError as e:
+        grad_refused = str(e)
+    emit({"phase": "k1h", "unet_shapes": shapes, "d256_cases": edges,
+          "d256_repeat_bitwise": repeat, "d256_grad_refused": grad_refused})
+    bad = ([c for c in shapes + edges if not c["ok"]]
+           + ([] if repeat else ["two d 256 launches differ"])
+           + ([] if grad_refused and "Queue B rows 2-3" in grad_refused
+              else ["a d 256 gradient was not refused"]))
+    if bad:
+        raise AssertionError(f"K1 at the UNet's head dims: {bad}")
+    return shapes, max(c["max_abs_err"] for c in edges)
+
+
+def unet_rows(shapes, d256_err, launches):
+    """Rows 1c (K1 at d 256: the UNet's level-2 and mid calls, and the
+    native cases) and 1d (d 40 / 80 padded to 64 / 128): device times,
+    bounds, plain and sdpa times summed over one forward's calls of that
+    mode (calls_a_forward of each shape), max |out − plain|, the unet
+    path's launches (a run of UNET_STEPS denoise steps)."""
+    rows = []
+    for tag, dims, line in (("1c", (256,), "head dim 256 (SD-1.5's 160, "
+                                            "padded; native 256)"),
+                            ("1d", (64, 128), "head dims 40, 80 padded to "
+                                              "64, 128")):
+        mine = [c for c in shapes if c["kernel_d"] in dims]
+        tot = lambda key: sum(c[key] * c["calls_a_forward"] for c in mine)
+        rows.append({
+            "name": "flash_attention_fwd", "row": tag, "mode": line,
+            "route": "cuda", "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:526 (head dims: "
+                        "_pad_for_kernel :339, :351-352)",
+            "launches": sum(launches["by_d"][d] for d in dims),
+            "max_abs_err": max([c["max_abs_err"] for c in mine]
+                               + ([d256_err] if 256 in dims else [])),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"),
+            "bound_ms_model_d": tot("bound_ms_model_d"),
+            # the kind that makes up the larger share of the summed bound
+            "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+                c["bound_ms"] * c["calls_a_forward"] for c in mine
+                if c["bound_by"] == by)),
+            "library_ms": tot("library_ms"),
+            "dispatch_ms": tot("dispatch_ms"),
+            "per": "one forward's calls of this mode, b 2, 64x64 latents",
+            "launches_by_path": {"unet": sum(launches["by_d"][d]
+                                             for d in dims)},
+            "at_shapes": mine})
+    return rows
+
+
+UNET_STEPS, UNET_WARMUP = 10, 2
+
+
+def unet_whole_model(fa, model, cfg):
+    """A full-width forward on the card in bf16 (b 1, 32×32 latents, the
+    77-token context) against the port's fp32 CPU forward of the same
+    weights: relative L2 of ε. Moves the model to the CPU in fp32 (the
+    caller is done with it on the card)."""
+    from paddle_tpu_torch import unet_bench
+    x, t, ctx = unet_bench.inputs(cfg, 1, 32, UNET_CTX, "cuda", seed=1)
+    with torch.no_grad():
+        eps = model(x, t, ctx).float().cpu()
+    model.to(device="cpu", dtype=torch.float32)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = model(x.float().cpu(), t.cpu(), ctx.float().cpu())
+    cpu_s = time.perf_counter() - t0
+    rel = (torch.linalg.vector_norm(eps - ref)
+           / torch.linalg.vector_norm(ref)).item()
+    return {"shape": list(x.shape), "rel_l2": rel, "bound": UNET_REL_L2,
+            "max_abs_err": (eps - ref).abs().max().item(),
+            "ref_max_abs": ref.abs().max().item(),
+            "cpu_fp32_forward_s": cpu_s,
+            "finite": bool(torch.isfinite(eps).all()),
+            "ok": rel <= UNET_REL_L2 and bool(torch.isfinite(eps).all())}
+
+
+def phase_unet(fa, fd, flops):
+    """UNetConfig.sd15() in bf16 through the twin (see the module
+    docstring, phase 20). Returns the counted run's launches."""
+    from paddle_tpu_torch import unet_bench
+    from paddle_tpu_torch.models import UNetConfig
+    cfg = UNetConfig.sd15()
+    b = 2
+    model = unet_bench.build(cfg, "cuda")
+    x0, t, ctx = unet_bench.inputs(cfg, b, 64, UNET_CTX, "cuda")
+    count = unet_bench.forward_flops(model, x0, t, ctx)
+    unet_bench.denoise(model, x0, t, ctx, UNET_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, fd)
+    fa.flash_attention_fwd.by_d = dict.fromkeys(fa.FWD_DIMS, 0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with PlainAttention(fa) as plain:
+        ev[0].record()
+        t0 = time.perf_counter()
+        eps = unet_bench.denoise(model, x0, t, ctx, UNET_STEPS)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts(fa, fd)
+    launches["by_d"] = dict(fa.flash_attention_fwd.by_d)
+    step_ms = ev[0].elapsed_time(ev[1]) / UNET_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(eps.float()).all())
+    want = {"flash_attention_fwd": 32 * UNET_STEPS}
+    others = {k: v for k, v in launches.items()
+              if k not in ("flash_attention_fwd", "by_d") and v}
+    want_d = {64: 10 * UNET_STEPS, 128: 10 * UNET_STEPS,
+              256: 12 * UNET_STEPS}
+    trace = traced_step(lambda: unet_bench.denoise(model, x0, t, ctx, 1),
+                        families=UNET_FAMILIES)
+    whole = unet_whole_model(fa, model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"phase": "unet", "config": "UNetConfig.sd15()", "batch": b,
+           "latents": list(x0.shape), "context": list(ctx.shape),
+           "warmup_steps": UNET_WARMUP, "steps": UNET_STEPS,
+           "step_ms": step_ms, "wall_step_ms": wall * 1e3 / UNET_STEPS,
+           "images_per_s": b / step_ms * 1e3,
+           "flops_per_step": count,
+           "mfu": count["total"] / (step_ms / 1e3) / flops,
+           "floor_ms": count["total"] / flops * 1e3,
+           "peak_memory_gb": peak / 1e9, "eps_finite": finite,
+           "eps_shape": list(eps.shape), "launches": launches,
+           "plain_attention_calls": plain.n, "traced_step": trace,
+           "whole_model": whole}
+    ok = (launches["flash_attention_fwd"] == want["flash_attention_fwd"]
+          and launches["by_d"] == want_d and not others and plain.n == 0
+          and finite and tuple(eps.shape) == tuple(x0.shape)
+          and whole["ok"])
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError(
+            f"phase unet: K1 {launches['flash_attention_fwd']} (want "
+            f"{want['flash_attention_fwd']}), by d {launches['by_d']} (want "
+            f"{want_d}), other kernels {others}, plain calls {plain.n}, "
+            f"finite {finite}, whole model {whole}")
+    return launches
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6414,6 +6745,12 @@ def main(argv):
         phase_train_moe(fa, fd, flops)
         print(json.dumps({"kernels": [row, row8]}), flush=True)
         return 0
+    if "--unet" in argv:
+        shapes, d256_err = phase_k1h(fa, bw, flops)
+        print(json.dumps({"kernels": unet_rows(shapes, d256_err,
+                                               phase_unet(fa, fd, flops))}),
+              flush=True)
+        return 0
     k1_err = phase_k1(fa, gen)
     k1w_err = phase_k1w(fa, fd, gen)
     k2_err = phase_k2(fd, rope, gen)
@@ -6433,6 +6770,7 @@ def main(argv):
     k9_row = phase_k9(fd, bw)
     drop_row = phase_dropout(bw, flops, iops)
     k1d_rows = phase_k1d(fa, bw, flops, iops)
+    k1h_shapes, k1h_err = phase_k1h(fa, bw, flops)
     if quick:
         return 0
     model, plan, kv, launches, int8kv_launches = phase_e2e(fa, fd)
@@ -6483,6 +6821,9 @@ def main(argv):
     phase_llama_step(fa, fd)
     llama_train = phase_train_llama(fa, fd, flops)
     mistral_train = phase_train_mistral(fa, fd, flops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    unet_launches = phase_unet(fa, fd, flops)
     # row 4's int8 sub-rows: the modes' timings and their plain-version
     # errors (phase k2q); launches on the runs that drive each mode
     k2 = kernels[1]
@@ -6527,6 +6868,7 @@ def main(argv):
             llama_train["launches"][k["name"]]
         k["launches_by_path"]["train_mistral"] = \
             mistral_train["launches"][k["name"]]
+        k["launches_by_path"]["unet"] = unet_launches[k["name"]]
         for path, got in gpt_launches.items():
             k["launches_by_path"][path] = got[k["name"]]
         if k["name"] in gpt_rows:
@@ -6573,6 +6915,9 @@ def main(argv):
     kernels += dropout_rows(drop_row, k1d_rows, train_drop)
     # row 5a: K6's int8 KV mode, launched on path moe_int8
     kernels.append(k6q_row)
+    # rows 1c, 1d: K1 at head dim 256 and the padded head dims, launched
+    # on path unet
+    kernels += unet_rows(k1h_shapes, k1h_err, unet_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,7 +3,8 @@
 // memory stages, one producer warpgroup and two consumer warpgroups.
 //
 // Replaces the TPU kernel paddle_tpu/ops/flash_attention.py::_fwd_kernels
-// (:526, pallas_call at :648) on every prefill and on the training forward:
+// (:526, pallas_call at :648) on every prefill, on the training forward and
+// on the UNet's self- and cross-attention (non-causal, ragged sk = 77):
 // causal with an explicit query offset (k_pos <= q_off + i), GQA by
 // indexing kv head hi / rep (k and v are never repeated), per-batch
 // kv_lens, the causal sliding window (the query at p = q_off + i sees the
@@ -77,11 +78,18 @@
 //    unconditionally (the last tile's P·V is peeled off), and P is
 //    repacked into the registers P·V(j) reads only after P·V(j) completes.
 //
-// Shared memory: Q 128·d·2 + ST·2·128·d·2 bytes (d = 128, ST = 2: 160 KB;
-// d = 64, ST = 3: 112 KB) + barriers; one block per SM. Registers (nvcc
-// 12.9 -Xptxas -v, sm_90a): 168 at entry for 384 threads (consumers 240,
-// producer 24 after setmaxnreg), 0 bytes spilled, no wgmma serialisation
-// warning, both head dims.
+//  * Head dims 64, 128 and 256 (the reference's kernel widths). d = 256 is
+//    a fourth instantiation with its own key tile (Fwd<256>::BK = 64: S by
+//    m64n64k16, P·V by m64n256k16 into a 128-float O accumulator a
+//    thread); only its windowless, dropout-free kernel is built. Other
+//    head dims are zero-padded to the next of these by the caller
+//    (ops/flash_attention.py, as the reference's _pad_for_kernel, :339).
+//
+// Shared memory: Q 128·d·2 + ST·2·BK·d·2 bytes (d = 128, ST = 2: 160 KB;
+// d = 64, ST = 3: 112 KB; d = 256, BK = 64, ST = 2: 192 KB) + barriers;
+// one block per SM. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at
+// entry for 384 threads (consumers 240, producer 24 after setmaxnreg), 0
+// bytes spilled, no wgmma serialisation warning, d = 64 and 128.
 
 // Layouts: q (b, sq, h, d), k/v (b, sk, nkv, d), out (b, sq, h, d), all
 // bf16 and contiguous (16-byte aligned); lse (b, h, sq) fp32; kv_lens (b,)
@@ -97,12 +105,16 @@ using namespace sm90;
 namespace {
 
 constexpr int BQ = 128;       // query rows per block (64 per consumer group)
-constexpr int BK = 128;       // keys per tile
 constexpr int THREADS = 384;  // consumer groups 0, 1; producer group 2
 
 template <int D>
 struct Fwd {
-  static constexpr int ST = D == 128 ? 2 : 3;   // ring stages
+  // keys per tile: 128, and 64 at d = 256, where Q (64 KB) and two stages
+  // of 128-key K and V tiles (256 KB) would pass the 227 KB of shared
+  // memory a block may have; 64 keys make S an m64n64 product and P·V an
+  // m64n256 one (wgmma's widest N)
+  static constexpr int BK = D == 256 ? 64 : 128;
+  static constexpr int ST = D == 64 ? 3 : 2;    // ring stages
   static constexpr int NCH = D / 64;            // 64-column tiles a row
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;   // one K or V tile
@@ -112,15 +124,19 @@ struct Fwd {
 
 // S (64 x BK) = Q (this group's 64 rows) · K(tile)ᵀ, issued and committed
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint64_t dq,
-                                         uint64_t dk) {
+__device__ __forceinline__ void issue_qk(float (&s)[Fwd<D>::BK / 2],
+                                         uint64_t dq, uint64_t dk) {
+  constexpr int BK = Fwd<D>::BK;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     // 16 columns inside a 64-column tile: +32 bytes; next tile: +rows·128
     const uint32_t oq = ((kk >> 2) * BQ * 128 + (kk & 3) * 32) >> 4;
     const uint32_t ok = ((kk >> 2) * BK * 128 + (kk & 3) * 32) >> 4;
-    wgmma_ss_n128(s, dq + oq, dk + ok, kk > 0);
+    if constexpr (BK == 128)
+      wgmma_ss_n128(s, dq + oq, dk + ok, kk > 0);
+    else
+      wgmma_ss_n64(s, dq + oq, dk + ok, kk > 0);
   }
   wgmma_commit();
 }
@@ -131,7 +147,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint64_t dq,
 // then the online-softmax update in the log2 domain: m, l per row (l a
 // per-thread partial), s -> p = 2^(s·sl2 − m), alpha the factor that
 // rescales the rows of O.
-template <bool WIN>
+template <int BK, bool WIN>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              int k0, int r0, int rw0, int tg,
@@ -180,6 +196,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
 // Dropout on tile k0 of P (the thread's rows r0 and r0 + 8, whose flat
 // score indices start at rb and rb + rs8): a dropped element becomes 0, a
 // kept one P/keep
+template <int BK>
 __device__ __forceinline__ void drop_tile(float (&s)[BK / 2],
                                           const tf::Drop& dr, uint64_t rb,
                                           uint64_t rs8, int k0, int tg) {
@@ -198,12 +215,11 @@ __device__ __forceinline__ void drop_tile(float (&s)[BK / 2],
 
 // O += P·V(tile): V is the MN-major B, 16 keys = +2048 bytes; committed
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&p)[BK / 16][4],
-                                         uint64_t dv) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&p)[Fwd<D>::BK / 16][4], uint64_t dv) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
+  for (int kk = 0; kk < Fwd<D>::BK / 16; ++kk)
     wgmma_rs<D>(o, p[kk], dv + ((kk * 16 * 128) >> 4), 1);
   wgmma_commit();
 }
@@ -218,6 +234,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                int window, float scale, int group, tf::Drop dr) {
   using C = Fwd<D>;
   constexpr int ST = C::ST;
+  constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm;
@@ -326,9 +343,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<0>();
       fence_regs(s);
       mbar_arrive(&empty_k[0]);
-      softmax_tile<WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen, causal,
-                        q_off, wlo, sl2);
-      if constexpr (DROP) drop_tile(s, dr, rb, rs8, t0 * BK, tg);
+      softmax_tile<BK, WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen,
+                            causal, q_off, wlo, sl2);
+      if constexpr (DROP) drop_tile<BK>(s, dr, rb, rs8, t0 * BK, tg);
       pack_a<BK>(s, p);
       // A pass issues S(it+1) and then P·V(it) (every wgmma unconditional,
       // so ptxas matches each wait to its group and keeps them
@@ -345,9 +362,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         wgmma_wait<1>();
         fence_regs(s);
         mbar_arrive(&empty_k[sn]);   // K(it+1) is read: its stage may refill
-        softmax_tile<WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0, tg,
-                          kvlen, causal, q_off, wlo, sl2);
-        if constexpr (DROP) drop_tile(s, dr, rb, rs8, (t0 + it + 1) * BK, tg);
+        softmax_tile<BK, WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0,
+                              tg, kvlen, causal, q_off, wlo, sl2);
+        if constexpr (DROP)
+          drop_tile<BK>(s, dr, rb, rs8, (t0 + it + 1) * BK, tg);
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(p);
@@ -399,15 +417,22 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            tf::Drop dr, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
+  constexpr int BK = Fwd<D>::BK;
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
-  // dropout one
-  auto kern = window > 0 ? (drop ? flash_fwd_sm90<D, true, true>
-                                 : flash_fwd_sm90<D, true, false>)
-                         : (drop ? flash_fwd_sm90<D, false, true>
-                                 : flash_fwd_sm90<D, false, false>);
+  // dropout one. d = 256 has neither yet: only its plain instantiation is
+  // built
+  auto kern = flash_fwd_sm90<D, false, false>;
+  if constexpr (D == 256) {
+    if (window > 0 || drop) return (int)cudaErrorInvalidValue;
+  } else {
+    kern = window > 0 ? (drop ? flash_fwd_sm90<D, true, true>
+                              : flash_fwd_sm90<D, true, false>)
+                      : (drop ? flash_fwd_sm90<D, false, true>
+                              : flash_fwd_sm90<D, false, false>);
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -440,5 +465,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
                       q_off, window, scale, drop, dr, st);
+  if (d == 256)
+    return launch<256>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
+                       q_off, window, scale, drop, dr, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,3 +10,7 @@ from paddle_tpu_torch.models.mixtral import (  # noqa: F401
     MixtralConfig,
     MixtralForCausalLM,
 )
+from paddle_tpu_torch.models.unet import (  # noqa: F401
+    UNetConfig,
+    UNetModel,
+)

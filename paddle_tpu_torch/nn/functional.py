@@ -1,5 +1,5 @@
 """Functional ops — the subset of ``paddle_tpu/nn/functional.py`` that Llama
-serving and GPT pretraining call."""
+serving, GPT pretraining and the SD UNet call."""
 
 import torch
 
@@ -71,6 +71,78 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if bias is not None:
         y = y + bias
     return y
+
+
+def _nchw_only(what, data_format):
+    if data_format != "NCHW":
+        raise NotImplementedError(
+            f"{what}: only data_format 'NCHW' (the UNet's) is ported "
+            "(ROADMAP Queue A item 11)")
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    """Port of the reference's ``group_norm`` (``paddle_tpu/nn/functional.py:
+    162``), NCHW: each sample's channels in `num_groups` groups, normalised
+    by the group's mean and biased variance, then ``* weight + bias`` per
+    channel. One ``torch.nn.functional.group_norm`` (statistics in fp32;
+    the reference computes in XLA, outside any Pallas kernel). In bf16 the
+    reference rounds the statistics and the normalised value to bf16 before
+    the affine, the port once at the end: a bf16 ulp apart."""
+    _nchw_only("group_norm", data_format)
+    return torch.nn.functional.group_norm(x, num_groups, weight, bias,
+                                          epsilon)
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """Port of the reference's ``conv2d`` (``paddle_tpu/nn/functional.py:
+    190``), NCHW with an int or (h, w) padding: weight (out_ch, in_ch /
+    groups, kh, kw), the reference's layout and torch's. The convolution
+    is ``torch.nn.functional.conv2d`` (cuDNN on the card; the reference
+    leaves it to XLA, outside any Pallas kernel), its output in x's dtype,
+    then the bias added in that dtype as the reference adds it."""
+    _nchw_only("conv2d", data_format)
+    if isinstance(padding, str) or any(
+            isinstance(p, (tuple, list)) for p in _pair(padding)):
+        raise NotImplementedError(
+            "conv2d: only an int or (h, w) padding is ported (ROADMAP "
+            "Queue A item 11)")
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
+    y = torch.nn.functional.conv2d(x, weight, None, _pair(stride),
+                                   _pair(padding), _pair(dilation), groups)
+    if bias is not None:
+        y = y + bias.reshape(1, -1, 1, 1)
+    return y
+
+
+def interpolate(x, scale_factor=None, size=None, mode="nearest",
+                data_format="NCHW"):
+    """Port of the reference's ``interpolate`` (``paddle_tpu/nn/functional.py:
+    291``, ``jax.image.resize``) in its nearest mode at an integer scale,
+    NCHW, the mode the UNet's upsampler calls: every pixel repeated scale
+    times along each axis (``jax.image.resize``'s half-pixel nearest and
+    torch's "nearest" agree there). Other modes and fractional scales
+    raise."""
+    _nchw_only("interpolate", data_format)
+    h, w = x.shape[2], x.shape[3]
+    if size is None:
+        sf = _pair(scale_factor)
+        size = (int(h * sf[0]), int(w * sf[1]))
+    if (mode != "nearest" or size[0] % h or size[1] % w
+            or size[0] < h or size[1] < w):
+        raise NotImplementedError(
+            f"interpolate: only mode 'nearest' at an integer upscale is "
+            f"ported (got mode {mode!r}, {(h, w)} -> {tuple(size)}; ROADMAP "
+            "Queue A item 11)")
+    return torch.nn.functional.interpolate(x, size=tuple(size),
+                                           mode="nearest")
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):

@@ -1,4 +1,5 @@
-"""Linear, Embedding and Dropout (port of ``paddle_tpu/nn/layers/common.py``)."""
+"""Linear, Embedding, Dropout and Identity (port of
+``paddle_tpu/nn/layers/common.py``)."""
 
 import torch
 
@@ -70,3 +71,8 @@ class Dropout(Layer):
     def forward(self, x):
         return F.dropout(x, self.p, training=self.training, mode=self.mode,
                          rng_name=self.rng_name)
+
+
+class Identity(Layer):
+    def forward(self, x):
+        return x

@@ -1,4 +1,4 @@
-"""LayerNorm and RMSNorm (port of ``paddle_tpu/nn/layers/norm.py``)."""
+"""LayerNorm, RMSNorm and GroupNorm (port of ``paddle_tpu/nn/layers/norm.py``)."""
 
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as init
@@ -35,3 +35,27 @@ class LayerNorm(Layer):
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
                             self.epsilon)
+
+
+class GroupNorm(Layer):
+    """``weight`` (ones) and ``bias`` (zeros) over `num_channels`, unless
+    `weight_attr` / `bias_attr` is False (port of the reference's
+    ``GroupNorm``, ``paddle_tpu/nn/layers/norm.py:82``)."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 dtype=None, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.data_format = data_format
+        self.weight = (make_parameter((num_channels,), init.Constant(1.0),
+                                      dtype, device)
+                       if weight_attr is not False else None)
+        self.bias = (make_parameter((num_channels,), init.Constant(0.0),
+                                    dtype, device)
+                     if bias_attr is not False else None)
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.epsilon, self.data_format)

@@ -23,7 +23,10 @@ head_dim); GQA when k/v carry fewer heads than q.
   plain forward and backward. Otherwise CPU tensors take ``_xla_attention``
   and CUDA tensors K1 alone. There is no shape gate (the reference's
   ``_pallas_seq_ok`` is a TPU heuristic): every CUDA call, sq=1 included,
-  goes to the kernels, and what they do not take raises.
+  goes to the kernels, and what they do not take raises. There a head dim
+  other than K1's 64, 128 and 256 is zero-padded to the next of them
+  first, with the scale of the original d (the reference's
+  ``_pad_for_kernel``); the plain versions take any head dim.
 
 ``causal_offset`` is a port-side extension: with ``is_causal`` it sets the
 causal limit to ``k_pos <= causal_offset + i`` instead of the bottom-right
@@ -73,6 +76,11 @@ NEG_INF = -1e30
 # the device type whose tensors the kernels take (a test sets "meta" to run
 # the wrappers' checks and argument marshalling up to the C call)
 KERNEL_DEVICE = "cuda"
+# the head dims K1 is built for (the reference's kernel widths, :351); K3
+# and K4 take the first two. The dispatch zero-pads any other d <= 256 to
+# the next of them (_pad_head_dim)
+FWD_DIMS = (64, 128, 256)
+BWD_DIMS = (64, 128)
 
 
 def _repeat_kv(k, n_rep):
@@ -271,10 +279,10 @@ def _kv_lens_arg(kv_lens, b, device):
     return kl.to(torch.int32).contiguous()
 
 
-def _check_kernel_inputs(what, q, k, v, *more):
+def _check_kernel_inputs(what, q, k, v, *more, dims=BWD_DIMS):
     """Raise on what the CUDA kernels do not take: q/k/v and the bf16
     tensors in `more` on q's CUDA device, bf16, contiguous, 16-byte aligned
-    (K1 and K4 read them through TMA tensor maps), head_dim 64 or 128, kv
+    (K1 and K4 read them through TMA tensor maps), head_dim in `dims`, kv
     heads dividing the heads. Returns (b, sq, sk, h, nkv, d)."""
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
@@ -289,10 +297,10 @@ def _check_kernel_inputs(what, q, k, v, *more):
             raise ValueError(f"{what}: {name} not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} not 16-byte aligned")
-    if d not in (64, 128) or k.shape != (b, sk, nkv, d) or v.shape != k.shape:
+    if d not in dims or k.shape != (b, sk, nkv, d) or v.shape != k.shape:
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} (head_dim 64 "
-                         "or 128)")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (head_dim "
+                         f"{' or '.join(map(str, dims))})")
     if nkv == 0 or h % nkv:
         raise ValueError(f"{what}: {h} heads not a multiple of {nkv} kv "
                          "heads")
@@ -335,11 +343,12 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                         key=None):
     """Flash-attention forward: (out, lse) as flash_attention_fwd_plain.
 
-    CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64 or
-    128, contiguous; with ``dropout_p`` its dropout instantiation, keyed
-    by `key`); anything else on CUDA raises. CPU tensors take the plain
-    twin. Inputs that require grad, with grad mode on, raise: the output
-    of a raw kernel carries no gradient."""
+    CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64, 128
+    or 256, contiguous; with ``dropout_p`` its dropout instantiation, keyed
+    by `key`; the window and dropout modes at d 64 and 128 only); anything
+    else on CUDA raises. CPU tensors take the plain twin. Inputs that
+    require grad, with grad mode on, raise: the output of a raw kernel
+    carries no gradient."""
     _refuse_grad("flash_attention_fwd", q, k, v)
     window = _check_window(window, is_causal)
     dropout_p = _check_dropout(dropout_p, key)
@@ -348,7 +357,12 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                                          causal_offset, window, dropout_p,
                                          key)
     b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
-                                                q, k, v)
+                                                q, k, v, dims=FWD_DIMS)
+    if d == 256 and (window is not None or dropout_p > 0.0):
+        raise NotImplementedError(
+            "flash_attention_fwd: the sliding window and dropout at head_dim "
+            "256 are not ported yet (ROADMAP Queue B row 1); d 256 runs "
+            "windowless and without dropout")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
@@ -366,15 +380,17 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
     flash_attention_fwd.launches += 1
     flash_attention_fwd.windowed += window is not None
     flash_attention_fwd.dropout += dropout_p > 0.0
+    flash_attention_fwd.by_d[d] += 1
     _build.check(err, "flash_attention_fwd")
     return out, lse
 
 
 # launches, and of them those of the windowed and the dropout
-# instantiations
+# instantiations, and those at each head dim
 flash_attention_fwd.launches = 0
 flash_attention_fwd.windowed = 0
 flash_attention_fwd.dropout = 0
+flash_attention_fwd.by_d = dict.fromkeys(FWD_DIMS, 0)
 
 
 def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
@@ -523,6 +539,30 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
+def _pad_head_dim(q, k, v, scale):
+    """The head-dim half of the reference's ``_pad_for_kernel`` (:339-369):
+    a head dim d that K1 is not built for, d <= 256, is zero-padded to the
+    next of FWD_DIMS (SD-1.5's 40, 80, 160 to 64, 128, 256). Exact: the
+    zero lanes of q and k add 0 to every score, and the caller slices the
+    value's pad lanes off the output. The scale is 1/√d of the original d,
+    fixed before the pad. Returns (q, k, v, scale, d). The reference's
+    short-KV pad (sk to the next 128 with kv_lens) is a TPU tiling device:
+    K1 reads a ragged sk through TMA's zero fill and masks past it."""
+    d = q.shape[-1]
+    if d in FWD_DIMS:
+        return q, k, v, scale, d
+    dt = next((t for t in FWD_DIMS if t >= d), None)
+    if dt is None:
+        raise ValueError(
+            f"scaled_dot_product_attention: head_dim {d} > 256 has no kernel "
+            "on the card (the reference takes it to XLA; ROADMAP Queue B "
+            "row 1)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    pad = (0, dt - d)
+    return (torch.nn.functional.pad(q, pad), torch.nn.functional.pad(k, pad),
+            torch.nn.functional.pad(v, pad), scale, d)
+
+
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, scale=None,
                                  kv_lens=None, causal_offset: Optional[int] = None,
@@ -533,11 +573,15 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     computes it, and K3/K4 its backward. ``dropout_p`` in training draws
     one key from stream "dropout" on every path: K1 (and K3/K4) drop in
     their dropout instantiations on the card, the plain versions on the
-    CPU. Left for later PRs on the kernel path: dense bool/float masks,
-    segment ids and ALiBi (ROADMAP Queue B row 1); those raise on CUDA
-    tensors. The plain version takes dense masks (and, on the CPU,
-    differentiates through them and the window by torch's own
-    autograd)."""
+    CPU. On the kernels' device a head dim other than 64, 128 and 256 (up
+    to 256) is zero-padded for the kernels (``_pad_head_dim``) and the
+    output sliced back, so its gradient runs K3/K4 at the padded d through
+    torch's autograd of the pad and the slice; a gradient at kernel d 256
+    raises (K3/K4 at d 256: ROADMAP Queue B rows 2-3). Left for later PRs on the
+    kernel path: dense bool/float masks, segment ids and ALiBi (ROADMAP
+    Queue B row 1); those raise on CUDA tensors. The plain version takes
+    dense masks and any head dim (and, on the CPU, differentiates through
+    them and the window by torch's own autograd)."""
     window = _check_window(window_size, is_causal)
     dropout_p = float(dropout_p) if training else 0.0
     key = rng.next_rng_key("dropout") if dropout_p > 0.0 else None
@@ -553,13 +597,23 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
         raise NotImplementedError(
             "dense attn_mask on the CUDA kernel path is not ported yet "
             "(ROADMAP Queue B row 1); pass is_causal/causal_offset/kv_lens")
+    d = q.shape[-1]
+    if q.device.type != "cpu":   # the plain versions take any head dim
+        q, k, v, scale, d = _pad_head_dim(q, k, v, scale)
     if needs_grad:
-        return FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
-                                    causal_offset, window, dropout_p, key)
-    # the kernel takes contiguous tensors: GPT's qkv split gives strided
-    # views (a no-op copy for the rest, as in FlashAttention)
-    return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                               v.contiguous(), is_causal=is_causal,
-                               scale=scale, kv_lens=kv_lens,
-                               causal_offset=causal_offset, window=window,
-                               dropout_p=dropout_p, key=key)[0]
+        if q.shape[-1] == 256 and q.device.type != "cpu":
+            raise NotImplementedError(
+                f"scaled_dot_product_attention: a gradient at head_dim {d} "
+                "(kernel head_dim 256) needs K3/K4 at d 256, not ported yet "
+                "(ROADMAP Queue B rows 2-3, the next slice: UNet training)")
+        out = FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
+                                   causal_offset, window, dropout_p, key)
+    else:
+        # the kernel takes contiguous tensors: GPT's qkv split gives
+        # strided views (a no-op copy for the rest, as in FlashAttention)
+        out = flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), is_causal=is_causal,
+                                  scale=scale, kv_lens=kv_lens,
+                                  causal_offset=causal_offset, window=window,
+                                  dropout_p=dropout_p, key=key)[0]
+    return out if out.shape[-1] == d else out[..., :d]

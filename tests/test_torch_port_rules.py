@@ -69,7 +69,10 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/moe_bench.py",
             "paddle_tpu_torch/quantization/__init__.py",
             "paddle_tpu_torch/ops/rms_norm.py",
-            "paddle_tpu_torch/ops/smem_probe.py"} <= names
+            "paddle_tpu_torch/ops/smem_probe.py",
+            "paddle_tpu_torch/models/unet.py",
+            "paddle_tpu_torch/nn/layers/conv.py",
+            "paddle_tpu_torch/unet_bench.py"} <= names
     assert len(names) >= 20
 
 
@@ -459,6 +462,38 @@ def test_moe_dispatch_backwards_scatter_no_rows():
         assert not stores, src
 
 
+def test_unet_twin_refuses_cpu_by_default():
+    """python -m paddle_tpu_torch.unet_bench runs on cuda unless --device
+    cpu is given; without a GPU it raises instead of timing the CPU, and
+    --train raises naming the training slice."""
+    from paddle_tpu_torch import unet_bench
+    from paddle_tpu_torch.models import UNetConfig, UNetModel
+    with pytest.raises(NotImplementedError, match="Queue A step 11"):
+        unet_bench.main(["--train", "--device", "cpu"])
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        unet_bench.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        unet_bench.build(UNetConfig.tiny())
+    with pytest.raises(RuntimeError, match="cuda"):
+        UNetModel(UNetConfig.tiny())
+
+
+def test_k1_counters_stay_zero_through_a_cpu_unet_forward():
+    """The UNet twin on the CPU (the tiny UNet, two denoise steps, its
+    attention at head dims 8 and 16) runs the plain attention: K1 counts no
+    launch at any head dim."""
+    from paddle_tpu_torch import unet_bench
+    from paddle_tpu_torch.ops import flash_attention as fa
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.by_d = dict.fromkeys(fa.FWD_DIMS, 0)
+    rec = unet_bench.main(["--device", "cpu"])
+    assert rec["eps_finite"] and rec["flops_per_step"]["attention"] > 0
+    assert fa.flash_attention_fwd.launches == 0
+    assert set(fa.flash_attention_fwd.by_d.values()) == {0}
+
+
 def test_default_device_raises_without_cuda():
     from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -582,6 +617,50 @@ def test_flash_kernel_window_matches_plain(cuda, h, nkv, sq, sk, d, q_off,
     torch.testing.assert_close(lse, ref_lse, atol=2e-3, rtol=0)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,sq,sk,d,causal,q_off,kv_len", [
+    (8, 8, 256, 77, 256, False, None, None),
+    (8, 8, 129, 333, 256, False, None, None),
+    (8, 2, 200, 260, 256, True, 60, 250),
+    (8, 8, 1, 300, 256, True, 299, 300)])
+def test_flash_kernel_head_dim_256_matches_plain(cuda, h, nkv, sq, sk, d,
+                                                 causal, q_off, kv_len):
+    """K1 at d 256 (64-key tiles): ragged non-causal sk without kv_lens,
+    causal with an offset, GQA, sq 1; batch row 1 of a kv_lens case holds
+    no key (0 and lse NEG_INF)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(2)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v = mk(2, sq, h, d), mk(2, sk, nkv, d), mk(2, sk, nkv, d)
+    kl = (None if kv_len is None else
+          torch.tensor([kv_len, 0], dtype=torch.int32, device=cuda))
+    kw = dict(is_causal=causal, causal_offset=q_off, kv_lens=kl)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-3, rtol=0)
+    if kl is not None:
+        assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_attention_dispatch_pads_sd_head_dims_on_the_card(cuda, d):
+    """SD-1.5's head dims through the dispatch (K1 at the padded d) against
+    the plain version at the unpadded d: self-attention and 77-token
+    cross-attention."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    for sq, sk in ((256, 256), (256, 77)):
+        q, k, v = mk(2, sq, 8, d), mk(2, sk, 8, d), mk(2, sk, 8, d)
+        with torch.no_grad():
+            out = fa.scaled_dot_product_attention(q, k, v)
+        ref, _ = fa.flash_attention_fwd_plain(q, k, v)
+        torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                                   rtol=0)
 
 
 @pytest.mark.cuda
