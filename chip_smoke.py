@@ -10,7 +10,8 @@
                                           # train_dropout
     python3 chip_smoke.py --moe           # card, build, k6, moe,
                                           # train_moe
-    python3 chip_smoke.py --unet          # card, build, k1h, unet
+    python3 chip_smoke.py --unet          # card, build, k1h, k3h, unet,
+                                          # train_unet
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -218,8 +219,25 @@ Phases, each printing one JSON line:
               offset and a batch row of kv_len 0, GQA 4, sq 1, sq 127 and
               129, non-causal sk 77 and 333 without kv_lens (keys past sk
               are TMA zero fill and must be masked), a 64-key tile edge;
-              two launches of one d 256 call bitwise equal; a gradient at
-              kernel d 256 refused, naming ROADMAP Queue B rows 2-3.
+              two launches of one d 256 call bitwise equal; the window and
+              dropout at d 256 refused, naming ROADMAP Queue B row 1.
+  8j. k3h   — K3 and K4 at head dim 256 (K3: 32-key tiles under 128-row
+              blocks; K4: 64-key blocks, the consumer groups splitting
+              dk/dv's columns) through the autograd Function against the
+              plain fp32 backward on K1's (out, lse), each gradient within
+              K3_TOL · max|plain|, K3 and K4 each launched twice with the
+              same bits: the UNet's shapes at native d 256 (b 2, 8 heads,
+              non-causal: 256², 256 × 77, 64², 64 × 77) and d 256's edges
+              (sq 1, 64 over sk 65, 65, 129, 193; ragged sk 77 and 1000; a
+              causal offset inside a tile; GQA 4 and 8; a batch row of
+              kv_len 0, zero gradients); then SD-1.5's head dim 160 at the
+              UNet's shapes through the dispatch (the pad, K1, K3, K4 at
+              256 once each, the slice's backward) against the plain
+              backward at d 160, and K3's and K4's device time there beside
+              the bounds at the padded and the model's d, the plain
+              backward and torch sdpa's backward at d 160 (rows 2c, 3c);
+              the window and dropout at d 256 refused, naming Queue B rows
+              2-3.
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -425,6 +443,23 @@ Phases, each printing one JSON line:
               name); then a full-width forward in bf16 at
               b 1, 32×32 latents against the port's fp32 CPU forward of the
               same weights, relative L2 of ε within UNET_REL_L2.
+ 20a. train_unet — UNetConfig.sd15() trained through the UNet twin's
+              build, optimizer, train_inputs and train_step (unet_bench
+              --train: the reference's DDPM step, ε-MSE in fp32, pure-bf16
+              AdamW(1e-4, multi_precision=False)), b 2, 64×64 latents, the
+              77-token context: 2 warm-up and 5 counted steps; step ms,
+              images/s, MFU over 3 × the twin's forward FLOP count, peak
+              memory; K1, K3 and K4 32 launches a step each (12 at d 256, 10
+              at 128, 10 at 64: the wrappers' `by_d`), none windowed or
+              dropped, nothing else, no plain attention call; the loss
+              finite, the last below the first; one traced step by family
+              and one of the forward and backward alone (the optimizer is
+              the difference); then one bf16 loss and backward at full
+              width, b 1, 32×32, against the port's fp32 CPU loss and
+              backward of the same weights: the relative loss error within
+              UNET_LOSS_RTOL, the gradients' relative L2 over all
+              parameters within UNET_GRAD_REL_L2 and at the worst
+              parameter within UNET_GRAD_REL_L2_PARAM.
  bwd_times (--bwd-times alone) — the windowless K3 and K4 at GPT-2 345M's,
               train_llama's and train_mistral's attention shapes, as phase
               timing_train times them; the calls take no window, so the
@@ -432,12 +467,13 @@ Phases, each printing one JSON line:
               into the tree and run it there: the tree's own package is
               imported), parent and change in turns in one call.
 
---quick stops after phase 8i; --int8-stress runs phase 8f alone; --training
+--quick stops after phase 8j; --int8-stress runs phase 8f alone; --training
 runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a; --moe
-phases 8, 13 and 13a; --unet phases 8i and 20 (about 70 s with the
-build). Every failure propagates and exits non-zero. The whole run takes
-about 290 s on an H100, build included (phases 8i and 20 about 20 s of
-it); the watchdog (WATCHDOG_S) ends a run that stalls past 1,100 s.
+phases 8, 13 and 13a; --unet phases 8i, 8j, 20 and 20a (about 100 s with
+the build). Every failure propagates and exits non-zero. The whole run
+takes about 335 s on an H100, build included (phases 8i, 8j, 20 and 20a
+about 65 s of it); the watchdog (WATCHDOG_S) ends a run that stalls past
+1,100 s.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -476,7 +512,7 @@ E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
 # The MoE phase's teacher-forced 28-layer step (4 rows × 102400 logits)
 # read 0.117 against the plain path taking K6's experts: the same noise.
 SERVE_LOGIT_ATOL = 0.15
-# The whole run, build included, takes about 290 s on an H100; past
+# The whole run, build included, takes about 335 s on an H100; past
 # this many seconds the watchdog reports a stall and ends the run.
 WATCHDOG_S = 1100
 # K3/K4: each gradient within K3_TOL · max|plain|. The kernels round P and
@@ -549,38 +585,43 @@ def time_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters=10, warmup=2):
+def device_ms(fn, iters=10, warmup=2, tries=4):
     """The card's time of fn's kernels per call, for a call whose host work
     outlasts its kernels (where time_ms times the host): CUDA events around
     `iters` calls queued behind a sleep kernel that outlasts the host's
-    enqueueing of all of them, so the card runs them back to back. Raises
-    if the queue ran dry before the last call was enqueued. (A sum over a
-    torch.profiler trace, the earlier way, lost kernel records in some
-    runs and read low.)"""
+    enqueueing of all of them, so the card runs them back to back. A host
+    stall (the host's cores are shared) can outlast the sleep and let the
+    queue run dry: that measurement is thrown away and taken again behind
+    a sleep four times the stalled enqueue, up to `tries` times; raises if
+    the queue ran dry every time. (A sum over a torch.profiler trace, the
+    earlier way, lost kernel records in some runs and read low.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    enqueue_s = time.perf_counter() - t0
+    # twice the calibrated enqueue time, plus 0.5 ms
+    sleep_ms = 2 * (time.perf_counter() - t0) * 1e3 + 0.5
     torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    # 2e9 cycles a second is above the card's clock: the sleep lasts at
-    # least twice the calibrated enqueue time, plus 0.5 ms
-    torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1_000_000)
-    ev[1].record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    ev[2].record()
-    torch.cuda.synchronize()
-    if enqueue_ms >= ev[0].elapsed_time(ev[1]):
-        raise RuntimeError(f"device_ms: enqueueing took {enqueue_ms:.3f} ms, "
-                           "longer than the sleep ahead of it")
-    return ev[1].elapsed_time(ev[2]) / iters
+    for _ in range(tries):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        # 2e9 cycles a second is above the card's clock: the sleep lasts
+        # at least sleep_ms
+        torch.cuda._sleep(int(sleep_ms * 2e6))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if enqueue_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / iters
+        sleep_ms = max(sleep_ms, 4 * enqueue_ms)
+    raise RuntimeError(f"device_ms: enqueueing took {enqueue_ms:.3f} ms, "
+                       f"longer than the sleep ahead of it, {tries} times")
 
 
 def rand(shape, gen, scale=1.0, dtype=torch.bfloat16):
@@ -6446,6 +6487,22 @@ UNET_FAMILIES = (
      ("copy", "cat", "fill", "pad", "nchwtonhwc", "nhwctonchw")))
 
 
+def d256_refusals(call):
+    """{mode: the NotImplementedError's message, or None where it ran} of
+    `call(**kw)` under the window and under dropout, the modes the kernels
+    are not built for at head dim 256."""
+    from paddle_tpu_torch.core import rng
+    out = {}
+    for mode, kw in (("window", dict(is_causal=True, window=4)),
+                     ("dropout", dict(dropout_p=0.1, key=rng.PRNGKey(3)))):
+        try:
+            call(**kw)
+            out[mode] = None
+        except NotImplementedError as e:
+            out[mode] = str(e)
+    return out
+
+
 def k1h_bound(b, h, sq, sk, d, bw, flops):
     """(bound ms, by) of one attention call at head dim d: q, k, v and out
     in bf16 once and the lse, against 4·d FLOPs a (query, key) pair."""
@@ -6542,20 +6599,16 @@ def phase_k1h(fa, bw, flops):
     o1, l1 = fa.flash_attention_fwd(q, k, v)
     o2, l2 = fa.flash_attention_fwd(q, k, v)
     repeat = bool(torch.equal(o1, o2) and torch.equal(l1, l2))
-    # a gradient at kernel d 256 raises, naming the ROADMAP item
-    leaves = [t.clone().requires_grad_() for t in (q[..., :160], k[..., :160],
-                                                   v[..., :160])]
-    try:
-        fa.scaled_dot_product_attention(*leaves)
-        grad_refused = None
-    except NotImplementedError as e:
-        grad_refused = str(e)
+    # the window and dropout at d 256 raise, naming the ROADMAP row (the
+    # gradient at d 256 runs: phase k3h)
+    refused = d256_refusals(lambda **kw: fa.flash_attention_fwd(q, k, v,
+                                                                **kw))
     emit({"phase": "k1h", "unet_shapes": shapes, "d256_cases": edges,
-          "d256_repeat_bitwise": repeat, "d256_grad_refused": grad_refused})
+          "d256_repeat_bitwise": repeat, "d256_modes_refused": refused})
     bad = ([c for c in shapes + edges if not c["ok"]]
            + ([] if repeat else ["two d 256 launches differ"])
-           + ([] if grad_refused and "Queue B rows 2-3" in grad_refused
-              else ["a d 256 gradient was not refused"]))
+           + [f"the {m} at d 256 was not refused" for m, e in refused.items()
+              if not (e and "Queue B row 1" in e)])
     if bad:
         raise AssertionError(f"K1 at the UNet's head dims: {bad}")
     return shapes, max(c["max_abs_err"] for c in edges)
@@ -6596,6 +6649,186 @@ def unet_rows(shapes, d256_err, launches):
                                              for d in dims)},
             "at_shapes": mine})
     return rows
+
+
+# ---- K3/K4 at head dim 256: the UNet's backward --------------------------------
+
+# The UNet's backward calls at kernel d 256 (SD-1.5's head dim 160 at level
+# 2 and the middle, padded), b 2, 8 heads, non-causal: (query tokens, key
+# tokens, calls a step)
+UNET_BWD_256 = ((256, 256, 5), (256, UNET_CTX, 5), (64, 64, 1),
+                (64, UNET_CTX, 1))
+
+
+def k3h_work(b, h, sq, sk, d):
+    """{k3, k4: (bytes, FLOPs)} of one non-causal backward call at head dim
+    d: K3 reads q, k, v, dO, lse and Δ and writes dq, K4 reads the same and
+    writes dk and dv; 6·d and 8·d FLOPs a (query, key) pair."""
+    pairs = b * h * sq * sk
+    tq, tk, row = b * sq * h * d * 2, b * sk * h * d * 2, b * h * sq * 4
+    return {"k3": (3 * tq + 2 * tk + 2 * row, 6 * d * pairs),
+            "k4": (2 * tq + 4 * tk + 2 * row, 8 * d * pairs)}
+
+
+def k3h_shape(fa, gen, b, h, sq, sk, bw, flops):
+    """One UNet backward call at SD-1.5's head dim 160: the gradient
+    through the dispatch (the pad to 256, K1, K3 and K4 at d 256, the
+    slice's backward) against the plain backward at d 160 on the kernel
+    forward's (out, lse), each of dq, dk, dv within K3_TOL · max|plain|;
+    K1, K3 and K4 launched once each, at d 256. Then K3's and K4's device
+    time on the padded inputs (device_ms), beside the bounds at the padded
+    and at the model's d, the plain backward at d 160 and torch sdpa's
+    backward at d 160 over a retained graph (its kernels' device time)."""
+    d = 160
+    q, k, v, do = (rand((b, s, h, d), gen) for s in (sq, sk, sk, sq))
+    wraps = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dkv)
+    before = [dict(w.by_d) for w in wraps]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.scaled_dot_product_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    launched = {w.__name__: {t: w.by_d[t] - n[t] for t in n}
+                for w, n in zip(wraps, before)}
+    qp, kp, vp, scale, _ = fa._pad_head_dim(q, k, v, None)
+    dop = torch.nn.functional.pad(do, (0, 256 - d))
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(qp, kp, vp, scale=scale)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out[..., :d], lse, do)
+    ok = all(got == {t: int(t == 256) for t in got}
+             for got in launched.values())
+    res = {"b": b, "h": h, "sq": sq, "sk": sk, "d": d, "kernel_d": 256,
+           "tol_of_max_ref": K3_TOL, "launches": launched}
+    for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
+        g = t.grad.float()
+        err = (g - r).abs().max().item()
+        tol = K3_TOL * r.abs().max().item()
+        res[name] = {"max_abs_err": err, "tol": tol,
+                     "max_abs_ref": r.abs().max().item()}
+        ok &= bool(err <= tol and torch.isfinite(g).all())
+    res["ok"] = ok
+    delta = (dop.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        ms = {"k3": device_ms(lambda: fa.flash_attention_bwd_dq(
+                  qp, kp, vp, dop, lse, delta, scale=scale), iters=20),
+              "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
+                  qp, kp, vp, dop, lse, delta, scale=scale), iters=20)}
+    res["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out[..., :d], lse, do), iters=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    o_lib = sdpa(qt, kt, vt)
+    res["library_ms"] = device_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+        iters=20)
+    for at, dd in (("", 256), ("_model_d", d)):
+        for key, (nbytes, nflops) in k3h_work(b, h, sq, sk, dd).items():
+            tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
+            res.setdefault(key, {})
+            res[key].update({f"bound_ms{at}": max(tb, to),
+                             f"bound_by{at}": "bytes" if tb >= to
+                             else "operations"})
+    for key in ("k3", "k4"):
+        res[key]["ms"] = ms[key]
+    return res
+
+
+def phase_k3h(fa, bw, flops):
+    """K3 and K4 at head dim 256 against the plain backward (see the module
+    docstring, phase 8j). Returns (the UNet shapes' results, K3's and K4's
+    largest errors)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    b, h = 2, 8
+    # native d 256 at the UNet's shapes, and at d 256's edges (32-key K3
+    # tiles under 128-row blocks, 64-key K4 blocks split by columns): sq 1,
+    # 65, 129 and 193, sq 64 (K3's second group without rows) over sk 65,
+    # ragged sk 77 and 1000 (TMA zero fill past sk), causal offsets inside
+    # a tile, GQA 4 and 8, a batch row of kv_len 0 (zero gradients)
+    cases = [k3_case(fa, gen, b, h, h, sq, sk, 256, False)
+             for sq, sk, _ in UNET_BWD_256]
+    cases += [
+        k3_case(fa, gen, 2, 8, 2, 1, 300, 256, True, None, 299),
+        k3_case(fa, gen, 2, 16, 4, 65, 333, 256, True, [333, 0], 200),
+        k3_case(fa, gen, 2, 8, 1, 129, 129, 256, True),
+        k3_case(fa, gen, 2, 8, 8, 129, UNET_CTX, 256, False),
+        k3_case(fa, gen, 1, 8, 2, 193, 260, 256, True, [197]),
+        k3_case(fa, gen, 2, 4, 4, 64, 65, 256, True, [65, 1]),
+        k3_case(fa, gen, 1, 8, 2, 200, 1000, 256, False, [777]),
+        k3_case(fa, gen, 2, 16, 4, 300, 1200, 256, True, [1200, 0], 900),
+    ]
+    shapes = [dict(k3h_shape(fa, gen, b, h, sq, sk, bw, flops),
+                   calls_a_step=calls) for sq, sk, calls in UNET_BWD_256]
+    # the window and dropout at d 256 raise, naming the ROADMAP rows
+    q = rand((1, 64, 2, 256), gen)
+    lse = torch.zeros((1, 2, 64), dtype=torch.float32, device="cuda")
+    refused = d256_refusals(lambda **kw: fa.flash_attention_bwd_dq(
+        q, q, q, q, lse, lse, **kw))
+    emit({"phase": "k3h", "d256_cases": cases, "unet_shapes": shapes,
+          "d256_modes_refused": refused})
+    bad = ([c for c in cases + shapes if not c["ok"]]
+           + [f"the {m} at d 256 was not refused" for m, e in refused.items()
+              if not (e and "Queue B rows 2-3" in e)])
+    if bad:
+        raise AssertionError(f"K3/K4 at head dim 256: {bad}")
+    return shapes, (
+        max(c["dq"]["max_abs_err"] for c in cases + shapes),
+        max(max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
+            for c in cases + shapes))
+
+
+def k3h_rows(shapes, errs, launches):
+    """Rows 2c and 3c (K3 and K4 at d 256: SD-1.5's 160 padded, native
+    256): device times, bounds (at the padded d and the model's), the plain
+    and sdpa backward's times, each summed over one training step's calls
+    (calls_a_step of each shape); the largest error of phase k3h; launches
+    on path train_unet (its counted steps)."""
+    rows = []
+    for name, key, tag, line, err in (
+            ("flash_attention_bwd_dq", "k3", "2c", 668, errs[0]),
+            ("flash_attention_bwd_dkv", "k4", "3c", 787, errs[1])):
+        tot = lambda f: sum(f(c) * c["calls_a_step"] for c in shapes)
+        rows.append({
+            "name": name, "row": tag,
+            "mode": "head dim 256 (SD-1.5's 160, padded; native 256)",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/ops/flash_attention.py:{line} (head "
+                        "dims: _pad_for_kernel :339, :351-352)",
+            "launches": launches["by_d"][name][256], "max_abs_err": err,
+            "ms": tot(lambda c: c[key]["ms"]),
+            "plain_ms": tot(lambda c: c["plain_ms"]),
+            "bound_ms": tot(lambda c: c[key]["bound_ms"]),
+            "bound_ms_model_d": tot(lambda c: c[key]["bound_ms_model_d"]),
+            "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+                c[key]["bound_ms"] * c["calls_a_step"] for c in shapes
+                if c[key]["bound_by"] == by)),
+            "library_ms": tot(lambda c: c["library_ms"]),
+            "per": "one training step's calls at d 256, b 2, 64x64 latents",
+            "plain_ms_covers": "flash_attention_bwd_plain at d 160: dq, dk "
+                               "and dv",
+            "library_ms_covers": "backward of torch sdpa at d 160 over a "
+                                 "retained graph, its kernels' device "
+                                 "time: dq, dk and dv",
+            "launches_by_path": {"train_unet":
+                                 launches["by_d"][name][256]},
+            "at_shapes": [dict(c[key], sq=c["sq"], sk=c["sk"],
+                               calls_a_step=c["calls_a_step"])
+                          for c in shapes]})
+    return rows
+
+
+def train_unet_launches(row, launches):
+    """A kernel row's launches on path train_unet: the d-256 rows (1c, 2c,
+    3c) their kernel's at d 256, row 1d K1's at 64 and 128, a row of
+    another mode (window, dropout, int8) none (the step runs none of
+    them: phase train_unet checks), any other row its kernel's."""
+    tag, by_d = row.get("row"), launches["by_d"].get(row["name"], {})
+    if tag in ("1c", "2c", "3c"):
+        return by_d[256]
+    if tag == "1d":
+        return by_d[64] + by_d[128]
+    return 0 if "mode" in row else launches.get(row["name"], 0)
 
 
 UNET_STEPS, UNET_WARMUP = 10, 2
@@ -6692,6 +6925,184 @@ def phase_unet(fa, fd, flops):
     return launches
 
 
+# ---- SD-1.5 UNet training: the DDPM step ------------------------------------------
+
+UNET_TRAIN_STEPS, UNET_TRAIN_WARMUP = 5, 2
+# A training step's kernels by family: K1, K3, K4 apart, cuDNN's forward and
+# backward convolutions, the products, the norms, the optimizer, copies
+UNET_TRAIN_FAMILIES = (
+    ("K1 flash_attention_fwd", ("flash_fwd_sm90",)),
+    ("K3 flash_attention_bwd_dq", ("flash_bwd_dq_sm90",)),
+    ("K4 flash_attention_bwd_dkv", ("flash_bwd_dkv_sm90",)),
+    ("convolutions (cuDNN)", UNET_FAMILIES[1][1] + ("dgrad", "wgrad")),
+    UNET_FAMILIES[2], UNET_FAMILIES[3],
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+    UNET_FAMILIES[4])
+# The full-width gradient check: one loss and backward in bf16 on the card
+# (b 1, 32×32 latents) against the port's fp32 CPU loss and backward of the
+# same weights. Expected from ε's 0.0133 (phase unet: bf16 activations,
+# 2^-9 each, through ~60 layers) and the backward's own roundings: 2–4e-2
+# relative L2 over all parameters' gradients. Measured on one H100 it read
+# 0.0042, and 0.031 at the worst parameter (an attention key projection;
+# PERF.md): the total is dominated by the large convolution gradients,
+# whose bf16 noise averages over many terms. UNET_GRAD_REL_L2 0.02 and
+# UNET_GRAD_REL_L2_PARAM 0.15 leave that ~5x room for other draws; the
+# attention's projections hold a few per cent of the total norm, so it is
+# the per-parameter bound that a wrong K3/K4 tile, mask, pad or scale (an
+# O(1) error in every q, k, v projection's gradient) exceeds. The loss, a
+# mean over the 4096 latent entries of (ε − noise)² ≈ 1, read 3.3e-4
+# relative; 5e-3 leaves the same room.
+UNET_GRAD_REL_L2 = 0.02
+UNET_GRAD_REL_L2_PARAM = 0.15
+UNET_LOSS_RTOL = 5e-3
+
+
+def unet_grad_check(model, cfg):
+    """One loss and backward of the DDPM step on the card in bf16 (b 1,
+    32×32 latents, the 77-token context, train_inputs from seed 1) against
+    the port's fp32 CPU loss and backward of the same weights: the
+    relative loss difference and the relative L2 of the gradient over all
+    parameters (and the worst parameter's, reported). Moves the model to
+    the CPU in fp32 (the caller is done with it on the card)."""
+    from paddle_tpu_torch import unet_bench
+
+    def loss_grads(m, xt, t, ctx, noise):
+        eps = m(xt, t, ctx)
+        loss = torch.mean(torch.square(eps.float() - noise.float()))
+        loss.backward()
+        g = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+        return loss.item(), g
+
+    xt, t, ctx, noise = unet_bench.train_inputs(cfg, 1, 32, UNET_CTX,
+                                                "cuda", seed=1)
+    loss, g = loss_grads(model, xt, t, ctx, noise)
+    model.to(device="cpu", dtype=torch.float32)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss_ref, g_ref = loss_grads(model, xt.float().cpu(), t.cpu(),
+                                 ctx.float().cpu(), noise.float().cpu())
+    cpu_s = time.perf_counter() - t0
+    num = sum(float((g[n] - r).square().sum()) for n, r in g_ref.items())
+    den = sum(float(r.square().sum()) for r in g_ref.values())
+    rel = math.sqrt(num / den)
+    per = {n: float((g[n] - r).norm() / r.norm()) for n, r in g_ref.items()
+           if float(r.norm()) > 0}
+    worst = max(per, key=per.get)
+    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+    finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+    return {"shape": list(xt.shape), "loss": loss, "loss_ref_fp32": loss_ref,
+            "loss_rel_err": loss_rel, "loss_rtol": UNET_LOSS_RTOL,
+            "grad_rel_l2": rel, "grad_rel_l2_bound": UNET_GRAD_REL_L2,
+            "grad_rel_l2_worst_param": worst,
+            "grad_rel_l2_worst": per[worst],
+            "grad_rel_l2_param_bound": UNET_GRAD_REL_L2_PARAM,
+            "cpu_fp32_loss_and_backward_s": cpu_s, "finite": finite,
+            "ok": (finite and math.isfinite(loss) and rel <= UNET_GRAD_REL_L2
+                   and per[worst] <= UNET_GRAD_REL_L2_PARAM
+                   and loss_rel <= UNET_LOSS_RTOL)}
+
+
+def phase_train_unet(fa, fd, flops):
+    """UNetConfig.sd15() trained in bf16 through the twin's DDPM step (see
+    the module docstring, phase 20a). Returns the counted steps' launches
+    (with `by_d`: each attention kernel's launches by head dim)."""
+    from paddle_tpu_torch import unet_bench
+    from paddle_tpu_torch.models import UNetConfig
+    cfg = UNetConfig.sd15()
+    b = 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = unet_bench.build(cfg, "cuda")
+    opt = unet_bench.optimizer(model)
+    xt, t, ctx, noise = unet_bench.train_inputs(cfg, b, 64, UNET_CTX, "cuda")
+    count = unet_bench.forward_flops(model, xt, t, ctx)
+    step = lambda: unet_bench.train_step(model, opt, xt, t, ctx, noise)
+    wraps = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dkv)
+    with PlainTraining(fa) as plain:
+        losses = [step() for _ in range(UNET_TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, fd)
+        for w in wraps:
+            w.by_d = dict.fromkeys(w.by_d, 0)
+            w.windowed = w.dropout = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        losses += [step() for _ in range(UNET_TRAIN_STEPS)]
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(fa, fd)
+        launches["by_d"] = {w.__name__: dict(w.by_d) for w in wraps}
+        other_modes = {w.__name__: w.windowed + w.dropout for w in wraps}
+        peak = torch.cuda.max_memory_allocated()
+        trace = traced_step(step, reps=1, families=UNET_TRAIN_FAMILIES)
+
+        def forward_backward():
+            eps = model(xt, t, ctx)
+            torch.mean(torch.square(eps.float() - noise.float())).backward()
+            for p in model.parameters():
+                p.grad = None
+        # the step without the optimizer: what the optimizer adds is the
+        # difference
+        trace_fb = traced_step(forward_backward, reps=1,
+                               families=UNET_TRAIN_FAMILIES)
+    losses = [float(v) for v in losses]
+    step_ms = ev[0].elapsed_time(ev[1]) / UNET_TRAIN_STEPS
+    n_params = model.num_params()
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad = unet_grad_check(model, cfg)
+    del model
+    gc.collect()
+    n = UNET_TRAIN_STEPS
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention_fwd=32 * n, flash_attention_bwd_dq=32 * n,
+                flash_attention_bwd_dkv=32 * n,
+                by_d={w.__name__: {64: 10 * n, 128: 10 * n, 256: 12 * n}
+                      for w in wraps})
+    step_flops = 3 * count["total"]
+    res = {"phase": "train_unet", "config": "UNetConfig.sd15()",
+           "params": n_params, "batch": b, "latents": list(xt.shape),
+           "context": list(ctx.shape), "dtype": "bfloat16",
+           "optimizer": "AdamW(1e-4, multi_precision=False)",
+           "warmup_steps": UNET_TRAIN_WARMUP, "steps": n,
+           "step_ms": step_ms, "wall_step_ms": wall * 1e3 / n,
+           "images_per_s": b / step_ms * 1e3,
+           "flops_per_step": step_flops, "forward_flops": count,
+           "mfu": step_flops / (step_ms / 1e3) / flops,
+           "mfu_basis": "3 x unet_bench.forward_flops (forward + backward)",
+           "floor_ms": step_flops / flops * 1e3,
+           "peak_memory_gb": peak / 1e9, "losses": losses,
+           "launches": launches, "windowed_or_dropout_launches": other_modes,
+           "plain_attention_calls": plain.n,
+           "step_trace": trace, "device_idle_share": None if trace is None
+           else 1 - trace["busy_ms"] / step_ms,
+           "forward_backward_trace": trace_fb, "grad_check": grad}
+    bad = []
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if plain.n:
+        bad.append(f"{plain.n} plain attention calls")
+    if any(other_modes.values()):
+        bad.append(f"windowed or dropout launches {other_modes}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        bad.append(f"loss not finite or not falling: {losses}")
+    if not grad["ok"]:
+        bad.append(f"gradient check {grad}")
+    res["ok"] = not bad
+    emit(res)
+    if bad:
+        raise AssertionError("train_unet: " + "; ".join(bad))
+    return launches
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6747,9 +7158,14 @@ def main(argv):
         return 0
     if "--unet" in argv:
         shapes, d256_err = phase_k1h(fa, bw, flops)
-        print(json.dumps({"kernels": unet_rows(shapes, d256_err,
-                                               phase_unet(fa, fd, flops))}),
-              flush=True)
+        bwd_shapes, bwd_errs = phase_k3h(fa, bw, flops)
+        rows = unet_rows(shapes, d256_err, phase_unet(fa, fd, flops))
+        train_unet = phase_train_unet(fa, fd, flops)
+        rows += k3h_rows(bwd_shapes, bwd_errs, train_unet)
+        for row in rows:
+            row["launches_by_path"]["train_unet"] = train_unet_launches(
+                row, train_unet)
+        print(json.dumps({"kernels": rows}), flush=True)
         return 0
     k1_err = phase_k1(fa, gen)
     k1w_err = phase_k1w(fa, fd, gen)
@@ -6771,6 +7187,7 @@ def main(argv):
     drop_row = phase_dropout(bw, flops, iops)
     k1d_rows = phase_k1d(fa, bw, flops, iops)
     k1h_shapes, k1h_err = phase_k1h(fa, bw, flops)
+    k3h_shapes, k3h_errs = phase_k3h(fa, bw, flops)
     if quick:
         return 0
     model, plan, kv, launches, int8kv_launches = phase_e2e(fa, fd)
@@ -6824,6 +7241,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     unet_launches = phase_unet(fa, fd, flops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_unet = phase_train_unet(fa, fd, flops)
     # row 4's int8 sub-rows: the modes' timings and their plain-version
     # errors (phase k2q); launches on the runs that drive each mode
     k2 = kernels[1]
@@ -6918,6 +7338,12 @@ def main(argv):
     # rows 1c, 1d: K1 at head dim 256 and the padded head dims, launched
     # on path unet
     kernels += unet_rows(k1h_shapes, k1h_err, unet_launches)
+    # rows 2c, 3c: K3, K4 at head dim 256, launched on path train_unet;
+    # every row's launches there
+    kernels += k3h_rows(k3h_shapes, k3h_errs, train_unet)
+    for k in kernels:
+        k["launches_by_path"]["train_unet"] = train_unet_launches(
+            k, train_unet)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -33,8 +33,21 @@
 // pass's products inside the pass; K3 overlaps the next tile's products
 // with this one's (below); in both the two consumer groups overlap each
 // other. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at entry for 384
-// threads (consumers 240, producer 24 after setmaxnreg), 0 bytes spilled,
-// no wgmma serialisation warning, both kernels, both head dims.
+// threads (consumers 240, producer 24 after setmaxnreg), no wgmma
+// serialisation warning, every instantiation; 0 bytes spilled but in
+// flash_bwd_dkv_sm90<128, false, true> (K4's dropout mode at d 128: 16
+// bytes of spill stores, 24 of loads). d = 256 (flash_bwd_dq_sm90<256,
+// false, false>, flash_bwd_dkv_sm90<256, false, false>): 168 at entry, 0
+// bytes spilled, none of warnings C7513-C7515.
+//
+// Head dims 64, 128 and 256 (the reference's kernel widths; the caller
+// zero-pads others, ops/flash_attention.py). At d = 256 the tiles that fit
+// d 64 and 128 pass the 227 KB of shared memory and setmaxnreg's 240
+// registers, so the tile shapes are per-D traits (Dq<D>, Dkv<D>, as K1's
+// Fwd<D>::BK): K3 streams 32-key tiles, K4 owns 64 keys a block and its
+// two consumer groups split dk/dv's columns (see each kernel); d 64 and
+// 128 keep the shapes, and the code, they had. Only the windowless,
+// dropout-free kernels are built at d = 256.
 //
 // The window is a second instantiation of each kernel (WIN = true; the
 // windowless kernels' code is unchanged, as K1's in csrc/flash_attention.cu):
@@ -76,35 +89,42 @@ constexpr int HELD = 128;       // rows of the held tile (64 per consumer group)
 constexpr int STREAM = 64;      // rows of a streamed tile
 constexpr int THREADS = 384;    // consumer groups 0, 1; producer group 2
 
-// X (64 x 64) = A (this group's 64 rows of the held tile) · B (a streamed
-// tile)ᵀ over d, both K-major: K3's S = Q·Kᵀ and dP = dO·Vᵀ, K4's Sᵀ = K·Qᵀ
-// and dPᵀ = V·dOᵀ. `ob` is the streamed tile's stage offset (start address
-// >> 4). Issued and committed as one group.
-template <int D>
-__device__ __forceinline__ void issue_hs(float (&x)[STREAM / 2], uint64_t da,
+// X (64 x N) = A (this group's 64 rows of the held tile, whose 64-column
+// tiles are HR rows apart) · B (a streamed tile of N rows)ᵀ over d, both
+// K-major: K3's S = Q·Kᵀ and dP = dO·Vᵀ, K4's Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.
+// `ob` is the streamed tile's stage offset (start address >> 4). Issued and
+// committed as one group. (HR, N) = (HELD, STREAM) but at d = 256: K3's
+// (128, 32), K4's (64, 64).
+template <int D, int HR, int N>
+__device__ __forceinline__ void issue_hs(float (&x)[N / 2], uint64_t da,
                                          uint64_t db, uint32_t ob) {
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     // 16 columns inside a 64-column tile: +32 bytes; next tile: +rows·128
-    const uint32_t oa = ((kk >> 2) * HELD * 128 + (kk & 3) * 32) >> 4;
-    const uint32_t o = ob + (((kk >> 2) * STREAM * 128 + (kk & 3) * 32) >> 4);
-    sm90::wgmma_ss_n64(x, da + oa, db + o, kk > 0);
+    const uint32_t oa = ((kk >> 2) * HR * 128 + (kk & 3) * 32) >> 4;
+    const uint32_t o = ob + (((kk >> 2) * N * 128 + (kk & 3) * 32) >> 4);
+    if constexpr (N == 64)
+      sm90::wgmma_ss_n64(x, da + oa, db + o, kk > 0);
+    else
+      sm90::wgmma_ss_n32(x, da + oa, db + o, kk > 0);
   }
   sm90::wgmma_commit();
 }
 
-// acc (64 rows x d) += A (registers: 64 rows x 64 of the streamed tile's
-// rows) · B (a streamed tile, MN-major: 16 rows = +2048 bytes): K3's dq +=
-// dS·K, K4's dv += Pᵀ·dO and dk += dSᵀ·Q; committed
-template <int D>
-__device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
-                                          const uint32_t (&a)[STREAM / 16][4],
+// acc (64 rows x N columns) += A (registers: 64 rows x the KR rows of a
+// streamed tile) · B (that tile, MN-major: 16 rows = +2048 bytes): K3's dq
+// += dS·K, K4's dv += Pᵀ·dO and dk += dSᵀ·Q; committed. N is d but at
+// K4's d = 256 (128: a group's half of the columns); KR is STREAM but at
+// K3's d = 256 (32)
+template <int N, int KR>
+__device__ __forceinline__ void issue_acc(float (&acc)[N / 2],
+                                          const uint32_t (&a)[KR / 16][4],
                                           uint64_t db) {
   sm90::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < STREAM / 16; ++kk)
-    sm90::wgmma_rs<D>(acc, a[kk], db + ((kk * 16 * 128) >> 4), 1);
+  for (int kk = 0; kk < KR / 16; ++kk)
+    sm90::wgmma_rs<N>(acc, a[kk], db + ((kk * 16 * 128) >> 4), 1);
   sm90::wgmma_commit();
 }
 
@@ -115,7 +135,8 @@ __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
 // b in the order of block_order (hopper_sm90.cuh: (batch, head) units
 // grouped so their kv head's K/V fits 4 MB of L2, the heaviest causal query
 // tiles, the last, first). The producer warp TMA-loads the block's Q and dO
-// once, then streams K and V tiles of 64 keys through an ST-stage ring
+// once, then streams K and V tiles of 64 keys (32 at d = 256, below)
+// through an ST-stage ring
 // (one full barrier a stage with the transaction bytes of both, one empty
 // barrier of 256 consumer arrivals); tiles wholly past the causal or kv_len
 // limit of the block's last row are never loaded, and TMA's zero fill
@@ -162,16 +183,28 @@ __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
 // rows, after a fixed-order sum over key tiles: two launches give equal
 // bits. (Folding dq into K4 by atomic adds would change its bits from run
 // to run.)
+//
+// d = 256 (SD-1.5's head dim 160, zero-padded by the caller) takes 32-key
+// tiles (Dq<256>::BK): at 64 keys, Q and dO (128 rows, 64 KB each) and even
+// two stages of K and V (64 KB a stage) are 256 KB, past the 227 KB a block
+// may have, and dq (128 fp32 a thread) beside S, dP (32 each) and the
+// packed dS (16) would reach setmaxnreg's 240 before addresses and
+// indices. With 32-key tiles S and dP are m64n32k16 products (16 fp32 each),
+// dq += dS·K two m64n256k16 steps, ≈ 170 registers live; shared memory is
+// Q, dO 128 KB + 2 stages × 32 KB = 192 KB. The block keeps its 128 rows,
+// so no product is computed twice (a 64-row block splitting d between the
+// groups would recompute S and dP in both). Only the windowless,
+// dropout-free instantiation is built at d = 256.
 
 constexpr int BQ3 = HELD;       // K3: query rows per block
-constexpr int BK3 = STREAM;     // K3: keys per streamed tile
 
 template <int D>
 struct Dq {
-  static constexpr int ST = 4;                  // ring stages
+  static constexpr int BK = D == 256 ? 32 : STREAM;   // keys a streamed tile
+  static constexpr int ST = D == 256 ? 2 : 4;   // ring stages
   static constexpr int NCH = D / 64;            // 64-column tiles a row
   static constexpr int Q_BYTES = BQ3 * D * 2;   // Q or dO
-  static constexpr int KT_BYTES = BK3 * D * 2;  // a K or V tile
+  static constexpr int KT_BYTES = BK * D * 2;   // a K or V tile
   static constexpr int O_OFF = Q_BYTES;                     // dO
   static constexpr int K_OFF = 2 * Q_BYTES;                 // K stages
   static constexpr int V_OFF = K_OFF + ST * KT_BYTES;       // V stages
@@ -185,9 +218,9 @@ struct Dq {
 // diagonal, or (WIN) at or below wlo + r, wlo = q_off - window. DROP:
 // dS = P∘(dP∘Z/keep − Δ), Z hashed from the flat score index (rows r0 and
 // r0 + 8 start at rb and rb + rs8)
-template <bool WIN, bool DROP>
-__device__ __forceinline__ void k3_ds(const float (&sa)[BK3 / 2],
-                                      float (&dp)[BK3 / 2],
+template <int BK, bool WIN, bool DROP>
+__device__ __forceinline__ void k3_ds(const float (&sa)[BK / 2],
+                                      float (&dp)[BK / 2],
                                       const float (&l2)[2],
                                       const float (&dl)[2], bool edge, int k0,
                                       int r0, int tg, int kvlen, int causal,
@@ -195,7 +228,7 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK3 / 2],
                                       const tf::Drop& dr, uint64_t rb,
                                       uint64_t rs8) {
 #pragma unroll
-  for (int c = 0; c < BK3 / 8; ++c)
+  for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -230,6 +263,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   int group, tf::Drop dr) {
   using C = Dq<D>;
   constexpr int ST = C::ST;
+  constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = sm90::align1024(smem_raw);
   uint8_t* Qs = sm;
@@ -259,8 +293,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
   // WIN: the tile of the block's first row's first visible key; both roles
   // load and walk the ring's tiles t0 … t0 + ntiles - 1 and count ring
   // stages from t0
-  const int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK3 : 0;
-  const int ntiles = kend > t0 * BK3 ? (kend + BK3 - 1) / BK3 - t0 : 0;
+  const int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
+  const int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
   const int wlo = WIN ? q_off - window : 0;
 
   if (threadIdx.x == 0) {
@@ -295,10 +329,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::mbar_arrive_tx(&full[s], 2 * C::KT_BYTES);
 #pragma unroll
         for (int c = 0; c < C::NCH; ++c) {
-          sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK3 * 128, &mk,
-                            &full[s], c * 64, kh, (t0 + it) * BK3, bi);
-          sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK3 * 128, &mv,
-                            &full[s], c * 64, kh, (t0 + it) * BK3, bi);
+          sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK * 128, &mk,
+                            &full[s], c * 64, kh, (t0 + it) * BK, bi);
+          sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK * 128, &mv,
+                            &full[s], c * 64, kh, (t0 + it) * BK, bi);
         }
       }
     }
@@ -338,7 +372,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       const uint64_t dO = sm90::desc_sw128(Os + wg * 64 * 128, 16, 1024);
       const uint64_t dK = sm90::desc_sw128(Ks, 16, 1024);
       const uint64_t dV = sm90::desc_sw128(Vs, 16, 1024);
-      const uint64_t dKt = sm90::desc_sw128(Ks, BK3 * 128, 1024);
+      const uint64_t dKt = sm90::desc_sw128(Ks, BK * 128, 1024);
       constexpr uint32_t STAGE = C::KT_BYTES >> 4;
 
       sm90::mbar_wait(qbar, 0);
@@ -346,14 +380,14 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       // tile t0 + j)
       int kg = kvlen;
       if (causal) kg = min(kg, q_off + min(rw0 + 64, sq));
-      const int nt = rw0 >= sq ? 0 : (kg > 0 ? (kg + BK3 - 1) / BK3 - t0 : 0);
+      const int nt = rw0 >= sq ? 0 : (kg > 0 ? (kg + BK - 1) / BK - t0 : 0);
       const int j0 =
-          WIN ? min(ntiles, max(0, q_off + rw0 - window + 1) / BK3 - t0) : 0;
+          WIN ? min(ntiles, max(0, q_off + rw0 - window + 1) / BK - t0) : 0;
       // tile k0 straddles the causal diagonal, the kv_len edge or (WIN) the
       // window's lower edge for the group's rows: only then the per-element
       // mask
       auto edge = [&](int k0) {
-        return k0 + BK3 > kvlen || (causal && k0 + BK3 - 1 > q_off + rw0) ||
+        return k0 + BK > kvlen || (causal && k0 + BK - 1 > q_off + rw0) ||
                (WIN && k0 <= wlo + rw0 + 63);
       };
       // WIN: tiles below this group's rows' windows: released unread
@@ -362,39 +396,39 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::mbar_arrive(&empty[it % ST]);
       }
       if (nt > j0) {
-        float sa[BK3 / 2], dp[BK3 / 2];
-        uint32_t da[BK3 / 16][4];
+        float sa[BK / 2], dp[BK / 2];
+        uint32_t da[BK / 16][4];
         sm90::mbar_wait(&full[j0 % ST], (j0 / ST) & 1);
-        issue_hs<D>(sa, dQ, dK, (j0 % ST) * STAGE);
-        issue_hs<D>(dp, dO, dV, (j0 % ST) * STAGE);
+        issue_hs<D, HELD, BK>(sa, dQ, dK, (j0 % ST) * STAGE);
+        issue_hs<D, HELD, BK>(dp, dO, dV, (j0 % ST) * STAGE);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(sa);
         sm90::fence_regs(dp);
-        const int kb = (t0 + j0) * BK3;
-        k3_ds<WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen, causal,
+        const int kb = (t0 + j0) * BK;
+        k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen, causal,
                          q_off, wlo, sl2, dr, rb, rs8);
-        sm90::pack_a<BK3>(dp, da);
+        sm90::pack_a<BK>(dp, da);
         // K1's overlap (see "Scheduling within a group" above)
         for (int it = j0; it + 1 < nt; ++it) {
           const int st = it % ST, sn = (it + 1) % ST,
-                    k1 = (t0 + it + 1) * BK3;
+                    k1 = (t0 + it + 1) * BK;
           sm90::mbar_wait(&full[sn], ((it + 1) / ST) & 1);
-          issue_hs<D>(sa, dQ, dK, sn * STAGE);
-          issue_hs<D>(dp, dO, dV, sn * STAGE);
-          issue_acc<D>(acc, da, dKt + st * STAGE);
+          issue_hs<D, HELD, BK>(sa, dQ, dK, sn * STAGE);
+          issue_hs<D, HELD, BK>(dp, dO, dV, sn * STAGE);
+          issue_acc<D, BK>(acc, da, dKt + st * STAGE);
           sm90::wgmma_wait<1>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          k3_ds<WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
+          k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
                            causal, q_off, wlo, sl2, dr, rb, rs8);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(acc);
           sm90::fence_regs(da);
           sm90::mbar_arrive(&empty[st]);
-          sm90::pack_a<BK3>(dp, da);
+          sm90::pack_a<BK>(dp, da);
         }
         const int last = nt - 1;
-        issue_acc<D>(acc, da, dKt + (last % ST) * STAGE);
+        issue_acc<D, BK>(acc, da, dKt + (last % ST) * STAGE);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(acc);
         sm90::mbar_arrive(&empty[last % ST]);
@@ -432,15 +466,22 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
-  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK3);
-  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK3);
+  constexpr int BK = Dq<D>::BK;
+  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK);
+  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
-  // dropout one
-  auto kern = window > 0 ? (drop ? flash_bwd_dq_sm90<D, true, true>
-                                 : flash_bwd_dq_sm90<D, true, false>)
-                         : (drop ? flash_bwd_dq_sm90<D, false, true>
-                                 : flash_bwd_dq_sm90<D, false, false>);
+  // dropout one. d = 256 has neither yet: only its plain instantiation is
+  // built
+  auto kern = flash_bwd_dq_sm90<D, false, false>;
+  if constexpr (D == 256) {
+    if (window > 0 || drop) return (int)cudaErrorInvalidValue;
+  } else {
+    kern = window > 0 ? (drop ? flash_bwd_dq_sm90<D, true, true>
+                              : flash_bwd_dq_sm90<D, true, false>)
+                      : (drop ? flash_bwd_dq_sm90<D, false, true>
+                              : flash_bwd_dq_sm90<D, false, false>);
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -456,8 +497,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 // ---- K4: dk, dv --------------------------------------------------------------
 //
-// One block owns BKEY = 128 keys of one kv head (64 per consumer warpgroup)
-// and walks the query tiles of every query head of its GQA group. The
+// One block owns BKEY = 128 keys of one kv head (64 per consumer warpgroup;
+// at d = 256 64 keys, below) and walks the query tiles of every query head of its GQA group. The
 // producer warp TMA-loads K and V once, then streams Q, dO (64 rows each) and
 // the tile's lse (as lse·log2 e; +inf for a row with no visible key or past
 // sq, so its P is exactly 0) and Δ through an ST-stage ring. Each consumer
@@ -478,13 +519,31 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // wholly above the group's keys, and the edge test and k4_p's mask also
 // catch the window's lower edge (key <= q_off - window + row). A key block
 // that no query sees walks nothing and writes zeros.
+//
+// d = 256 (SD-1.5's head dim 160, zero-padded by the caller): a group that
+// held dk and dv for 64 keys would hold 2 × 128 fp32 a thread, past
+// setmaxnreg's 240 before Sᵀ and dPᵀ, and K, V for 128 keys are 128 KB on
+// their own. So a block owns 64 keys (Dkv<256>::BKEY) and both consumer
+// groups take all 64 (SPLIT): group g accumulates dk and dv for the columns
+// 128·g … 128·g + 127 only (NA = 128: dv += Pᵀ·dO and dk += dSᵀ·Q by
+// m64n128k16 over that half of the dO and Q tiles), and each recomputes
+// the whole Sᵀ and dPᵀ (over all 256 columns) that it needs. A thread then
+// holds what it holds at d = 128 (dk, dv 2 × 64 fp32, Sᵀ, dPᵀ 2 × 32, the
+// packed Pᵀ and dSᵀ), and shared memory is K, V 64 KB + 2 stages × 64 KB
+// of Q and dO + the rows: 193 KB. The price is Sᵀ and dPᵀ twice, 6 of the
+// 8·d FLOPs a pair counted double (the alternative split, dv in one group
+// and dk in the other, balances no better: 2 products against 3). Only the
+// windowless, dropout-free instantiation is built at d = 256.
 
-constexpr int BKEY = HELD;      // K4: keys per block (64 per consumer group)
 constexpr int BQ4 = STREAM;     // K4: query rows per streamed tile
 
 template <int D>
 struct Dkv {
-  static constexpr int ST = D == 128 ? 2 : 3;   // ring stages
+  static constexpr bool SPLIT = D == 256;       // groups split the columns
+  // keys a block: 64 per consumer group, or 64 shared by both (SPLIT)
+  static constexpr int BKEY = SPLIT ? 64 : HELD;
+  static constexpr int NA = SPLIT ? D / 2 : D;   // dk, dv columns a group
+  static constexpr int ST = D == 64 ? 3 : 2;    // ring stages
   static constexpr int NCH = D / 64;            // 64-column tiles a row
   static constexpr int KV_BYTES = BKEY * D * 2; // K or V
   static constexpr int QT_BYTES = BQ4 * D * 2;  // a Q or dO tile
@@ -581,6 +640,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    int window, float scale, int group, tf::Drop dr) {
   using C = Dkv<D>;
   constexpr int ST = C::ST;
+  constexpr int BKEY = C::BKEY;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = sm90::align1024(smem_raw);
   uint8_t* Ks = sm;
@@ -683,24 +743,30 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
     sm90::setmaxnreg_inc<240>();
     const int t = threadIdx.x & 127, wl = t >> 5, lane = t & 31;
     const int g = lane >> 2, tg = lane & 3;
-    const int kw0 = k0 + wg * 64;              // the group's first key
+    // the group's first key, and (SPLIT) its first dk/dv column
+    const int kw0 = k0 + (C::SPLIT ? 0 : wg * 64);
+    const int col0 = C::SPLIT ? wg * C::NA : 0;
     const int c0 = kw0 + wl * 16 + g;          // keys of the rows i = 0, 1
     const float sl2 = scale * 1.4426950408889634f;
 
-    float dva[D / 2], dka[D / 2];
+    float dva[C::NA / 2], dka[C::NA / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dva[i] = dka[i] = 0.f;
+    for (int i = 0; i < C::NA / 2; ++i) dva[i] = dka[i] = 0.f;
 
     if (per_head > 0) {
       // K-major descriptors (K, V rows of this group as A; Q, dO as B) and
-      // MN-major ones (dO, Q as B of the dv/dk products); a stage is
-      // +QT_BYTES >> 4 on the start address
-      const uint64_t dK = sm90::desc_sw128(Ks + wg * 64 * 128, 16, 1024);
-      const uint64_t dV = sm90::desc_sw128(Vs + wg * 64 * 128, 16, 1024);
+      // MN-major ones (dO, Q as B of the dv/dk products, from the group's
+      // first column's 64-column tile); a stage is +QT_BYTES >> 4 on the
+      // start address
+      const int kr = C::SPLIT ? 0 : wg * 64, ct = col0 / 64;
+      const uint64_t dK = sm90::desc_sw128(Ks + kr * 128, 16, 1024);
+      const uint64_t dV = sm90::desc_sw128(Vs + kr * 128, 16, 1024);
       const uint64_t dQ = sm90::desc_sw128(Qs, 16, 1024);
       const uint64_t dO = sm90::desc_sw128(Os, 16, 1024);
-      const uint64_t dQt = sm90::desc_sw128(Qs, BQ4 * 128, 1024);
-      const uint64_t dOt = sm90::desc_sw128(Os, BQ4 * 128, 1024);
+      const uint64_t dQt =
+          sm90::desc_sw128(Qs + ct * BQ4 * 128, BQ4 * 128, 1024);
+      const uint64_t dOt =
+          sm90::desc_sw128(Os + ct * BQ4 * 128, BQ4 * 128, 1024);
       constexpr uint32_t STAGE = C::QT_BYTES >> 4;
 
       sm90::mbar_wait(kvbar, 0);
@@ -727,8 +793,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                             (causal && kw0 + 63 > q_off + q0) ||
                             (WIN && kw0 <= wlo + q0 + 63);
           const uint32_t so = s * STAGE;
-          issue_hs<D>(sa, dK, dQ, so);   // Sᵀ
-          issue_hs<D>(dp, dV, dO, so);   // dPᵀ
+          issue_hs<D, BKEY, BQ4>(sa, dK, dQ, so);   // Sᵀ
+          issue_hs<D, BKEY, BQ4>(dp, dV, dO, so);   // dPᵀ
           sm90::wgmma_wait<0>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
@@ -744,8 +810,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           }
           sm90::pack_a<BQ4>(dp, da);
           sm90::pack_a<BQ4>(sa, pa);
-          issue_acc<D>(dva, pa, dOt + so);
-          issue_acc<D>(dka, da, dQt + so);
+          issue_acc<C::NA, BQ4>(dva, pa, dOt + so);
+          issue_acc<C::NA, BQ4>(dka, da, dQt + so);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(dva);
           sm90::fence_regs(dka);
@@ -755,7 +821,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
     }
 
     const long kv_rs = (long)nkv * D;
-    const long kv_base = (long)bi * sk * kv_rs + (long)kh * D;
+    const long kv_base = (long)bi * sk * kv_rs + (long)kh * D + col0;
     bf16* dkb = dk + kv_base;
     bf16* dvb = dv + kv_base;
 #pragma unroll
@@ -763,7 +829,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
       const int key = c0 + 8 * i;
       if (key < sk) {
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
+        for (int c = 0; c < C::NA / 8; ++c) {
           const int col = c * 8 + tg * 2;
           *reinterpret_cast<uint32_t*>(dkb + key * kv_rs + col) =
               sm90::pack_f2(dka[4 * c + 2 * i] * scale,
@@ -785,15 +851,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ4);
+  constexpr int BKEY = Dkv<D>::BKEY;
   if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BKEY);
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BKEY);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
-  // dropout one
-  auto kern = window > 0 ? (drop ? flash_bwd_dkv_sm90<D, true, true>
-                                 : flash_bwd_dkv_sm90<D, true, false>)
-                         : (drop ? flash_bwd_dkv_sm90<D, false, true>
-                                 : flash_bwd_dkv_sm90<D, false, false>);
+  // dropout one. d = 256 has neither yet: only its plain instantiation is
+  // built
+  auto kern = flash_bwd_dkv_sm90<D, false, false>;
+  if constexpr (D == 256) {
+    if (window > 0 || drop) return (int)cudaErrorInvalidValue;
+  } else {
+    kern = window > 0 ? (drop ? flash_bwd_dkv_sm90<D, true, true>
+                              : flash_bwd_dkv_sm90<D, true, false>)
+                      : (drop ? flash_bwd_dkv_sm90<D, false, true>
+                              : flash_bwd_dkv_sm90<D, false, false>);
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -830,6 +903,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   if (d == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
                          h, nkv, causal, q_off, window, scale, drop, dr, st);
+  if (d == 256)
+    return launch_dq<256>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
+                          h, nkv, causal, q_off, window, scale, drop, dr, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -856,5 +932,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                           sk, h, nkv, causal, q_off, window, scale, drop, dr,
                           st);
+  if (d == 256)
+    return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
+                           sk, h, nkv, causal, q_off, window, scale, drop, dr,
+                           st);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,8 +13,10 @@ the card the hand-written K1, at SD-1.5's head dims 40 / 80 / 160
 zero-padded to 64 / 128 / 256 (``ops.flash_attention._pad_head_dim``).
 
 Weight init follows the reference's defaults: Conv2D ``KaimingUniform``,
-Linear ``XavierNormal``, norms weight 1 and bias 0. ``ddpm_loss`` (training)
-is not ported yet (ROADMAP Queue A step 11).
+Linear ``XavierNormal``, norms weight 1 and bias 0. ``ddpm_loss`` is the
+reference's training objective (ε-prediction MSE); its gradient runs every
+attention backward on K3/K4 on the card (head dim 160 on their d-256
+kernels).
 """
 
 import dataclasses
@@ -291,3 +293,20 @@ def cosine_alphas_cumprod(T=1000, s=0.008):
     t = torch.arange(T + 1, dtype=torch.float32) / T
     f = torch.cos((t + s) / (1 + s) * math.pi / 2) ** 2
     return torch.clip(f[1:] / f[0], 1e-5, 1.0)
+
+
+def ddpm_loss(model_or_state, model, x0, t, noise, context=None,
+              alphas_cumprod=None):
+    """ε-prediction MSE, the SD pretrain objective (port of
+    ``paddle_tpu/models/unet.py:265-276``): x_t = √ᾱ_t·x0 + √(1 − ᾱ_t)·noise
+    with ᾱ = ``alphas_cumprod[t]``, then mean((ε(x_t, t, context) −
+    noise)²). A dict `model_or_state` runs `model` with that state bound
+    (``nn.functional_call``); otherwise `model` runs as it is."""
+    a = torch.as_tensor(alphas_cumprod, device=x0.device)[t][:, None, None,
+                                                             None]
+    xt = torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
+    if isinstance(model_or_state, dict):
+        eps = nn.functional_call(model, model_or_state, xt, t, context)
+    else:
+        eps = model(xt, t, context)
+    return torch.mean((eps - noise) ** 2)

@@ -4,7 +4,7 @@ pretraining and the SD UNet use)."""
 from torch.nn import ModuleList as LayerList  # noqa: F401
 
 from paddle_tpu_torch.nn import functional, initializer  # noqa: F401
-from paddle_tpu_torch.nn.layer import Layer  # noqa: F401
+from paddle_tpu_torch.nn.layer import Layer, functional_call  # noqa: F401
 from paddle_tpu_torch.nn.layers import (  # noqa: F401
     Conv2D,
     Dropout,

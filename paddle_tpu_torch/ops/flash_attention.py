@@ -24,9 +24,10 @@ head_dim); GQA when k/v carry fewer heads than q.
   and CUDA tensors K1 alone. There is no shape gate (the reference's
   ``_pallas_seq_ok`` is a TPU heuristic): every CUDA call, sq=1 included,
   goes to the kernels, and what they do not take raises. There a head dim
-  other than K1's 64, 128 and 256 is zero-padded to the next of them
-  first, with the scale of the original d (the reference's
-  ``_pad_for_kernel``); the plain versions take any head dim.
+  other than the kernels' 64, 128 and 256 is zero-padded to the next of
+  them first, with the scale of the original d (the reference's
+  ``_pad_for_kernel``), forward and backward; the plain versions take any
+  head dim.
 
 ``causal_offset`` is a port-side extension: with ``is_causal`` it sets the
 causal limit to ``k_pos <= causal_offset + i`` instead of the bottom-right
@@ -76,11 +77,11 @@ NEG_INF = -1e30
 # the device type whose tensors the kernels take (a test sets "meta" to run
 # the wrappers' checks and argument marshalling up to the C call)
 KERNEL_DEVICE = "cuda"
-# the head dims K1 is built for (the reference's kernel widths, :351); K3
-# and K4 take the first two. The dispatch zero-pads any other d <= 256 to
-# the next of them (_pad_head_dim)
+# the head dims K1, K3 and K4 are built for (the reference's kernel widths,
+# :351); at 256 only their windowless, dropout-free kernels. The dispatch
+# zero-pads any other d <= 256 to the next of them (_pad_head_dim)
 FWD_DIMS = (64, 128, 256)
-BWD_DIMS = (64, 128)
+BWD_DIMS = (64, 128, 256)
 
 
 def _repeat_kv(k, n_rep):
@@ -338,6 +339,16 @@ def _drop_args(dropout_p, key):
             float(np.float32(1.0) / np.float32(keep)) if keep > 0 else 0.0]
 
 
+def _refuse_d256_modes(what, d, window, dropout_p, rows):
+    """At head dim 256 the kernels are built windowless and without dropout
+    only: those modes raise, naming their ROADMAP Queue B rows."""
+    if d == 256 and (window is not None or dropout_p > 0.0):
+        raise NotImplementedError(
+            f"{what}: the sliding window and dropout at head_dim 256 are not "
+            f"ported yet (ROADMAP Queue B {rows}); d 256 runs windowless and "
+            "without dropout")
+
+
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                         causal_offset=None, window=None, dropout_p=0.0,
                         key=None):
@@ -358,11 +369,7 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                                          key)
     b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
                                                 q, k, v, dims=FWD_DIMS)
-    if d == 256 and (window is not None or dropout_p > 0.0):
-        raise NotImplementedError(
-            "flash_attention_fwd: the sliding window and dropout at head_dim "
-            "256 are not ported yet (ROADMAP Queue B row 1); d 256 runs "
-            "windowless and without dropout")
+    _refuse_d256_modes("flash_attention_fwd", d, window, dropout_p, "row 1")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
@@ -399,6 +406,7 @@ def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
     dropout_p = _check_dropout(dropout_p, key)
     b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
                                                 ("dout", dout))
+    _refuse_d256_modes(what, d, window, dropout_p, "rows 2-3")
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} is not q's "
                          f"shape {tuple(q.shape)}")
@@ -412,7 +420,7 @@ def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
     tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
             min(window or 0, 1 << 30), float(scale),
             *_drop_args(dropout_p, key), _build.stream_of(q)]
-    return head, _build.ptr(kl) if kl is not None else None, tail
+    return head, _build.ptr(kl) if kl is not None else None, tail, d
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
@@ -420,25 +428,30 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
                            window=None, dropout_p=0.0, key=None):
     """dq (bf16, q's shape) by the K3 kernel of ``csrc/flash_attention_bwd.cu``
     from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq);
-    ``window`` (with ``is_causal``) launches its windowed instantiation,
-    ``dropout_p`` (with the forward's `key`) its dropout one. CUDA tensors
-    only (the CPU path is ``flash_attention_bwd_plain``)."""
-    head, kl, tail = _bwd_args("flash_attention_bwd_dq", q, k, v, dout, lse,
-                               delta, is_causal, scale, kv_lens,
-                               causal_offset, window, dropout_p, key)
+    head_dim 64, 128 or 256; ``window`` (with ``is_causal``) launches its
+    windowed instantiation, ``dropout_p`` (with the forward's `key`) its
+    dropout one (both at d 64 and 128 only). CUDA tensors only (the CPU path
+    is ``flash_attention_bwd_plain``)."""
+    head, kl, tail, d = _bwd_args("flash_attention_bwd_dq", q, k, v, dout,
+                                  lse, delta, is_causal, scale, kv_lens,
+                                  causal_offset, window, dropout_p, key)
     dq = torch.empty_like(q)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 9)
     err = lib.flash_attention_bwd_dq(*head, _build.ptr(dq), kl, *tail)
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.windowed += window is not None
     flash_attention_bwd_dq.dropout += dropout_p > 0.0
+    flash_attention_bwd_dq.by_d[d] += 1
     _build.check(err, "flash_attention_bwd_dq")
     return dq
 
 
+# launches, and of them those of the windowed and the dropout
+# instantiations, and those at each head dim (as flash_attention_fwd's)
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.windowed = 0
 flash_attention_bwd_dq.dropout = 0
+flash_attention_bwd_dq.by_d = dict.fromkeys(BWD_DIMS, 0)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
@@ -446,11 +459,11 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
                             window=None, dropout_p=0.0, key=None):
     """(dk, dv) (bf16, k's shape) by the K4 kernel of
     ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
-    kernel; ``window`` and ``dropout_p`` as in ``flash_attention_bwd_dq``.
-    CUDA tensors only."""
-    head, kl, tail = _bwd_args("flash_attention_bwd_dkv", q, k, v, dout,
-                               lse, delta, is_causal, scale, kv_lens,
-                               causal_offset, window, dropout_p, key)
+    kernel; head dims, ``window`` and ``dropout_p`` as in
+    ``flash_attention_bwd_dq``. CUDA tensors only."""
+    head, kl, tail, d = _bwd_args("flash_attention_bwd_dkv", q, k, v, dout,
+                                  lse, delta, is_causal, scale, kv_lens,
+                                  causal_offset, window, dropout_p, key)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9)
@@ -459,6 +472,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.windowed += window is not None
     flash_attention_bwd_dkv.dropout += dropout_p > 0.0
+    flash_attention_bwd_dkv.by_d[d] += 1
     _build.check(err, "flash_attention_bwd_dkv")
     return dk, dv
 
@@ -466,6 +480,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.windowed = 0
 flash_attention_bwd_dkv.dropout = 0
+flash_attention_bwd_dkv.by_d = dict.fromkeys(BWD_DIMS, 0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
@@ -576,10 +591,11 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     CPU. On the kernels' device a head dim other than 64, 128 and 256 (up
     to 256) is zero-padded for the kernels (``_pad_head_dim``) and the
     output sliced back, so its gradient runs K3/K4 at the padded d through
-    torch's autograd of the pad and the slice; a gradient at kernel d 256
-    raises (K3/K4 at d 256: ROADMAP Queue B rows 2-3). Left for later PRs on the
-    kernel path: dense bool/float masks, segment ids and ALiBi (ROADMAP
-    Queue B row 1); those raise on CUDA tensors. The plain version takes
+    torch's autograd of the pad and the slice (SD-1.5's 160 on K3/K4 at
+    256). The window and dropout at kernel d 256 raise (ROADMAP Queue B
+    rows 1-3). Left for later PRs on the kernel path: dense bool/float
+    masks, segment ids and ALiBi (ROADMAP Queue B row 1); those raise on
+    CUDA tensors. The plain version takes
     dense masks and any head dim (and, on the CPU, differentiates through
     them and the window by torch's own autograd)."""
     window = _check_window(window_size, is_causal)
@@ -601,11 +617,6 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     if q.device.type != "cpu":   # the plain versions take any head dim
         q, k, v, scale, d = _pad_head_dim(q, k, v, scale)
     if needs_grad:
-        if q.shape[-1] == 256 and q.device.type != "cpu":
-            raise NotImplementedError(
-                f"scaled_dot_product_attention: a gradient at head_dim {d} "
-                "(kernel head_dim 256) needs K3/K4 at d 256, not ported yet "
-                "(ROADMAP Queue B rows 2-3, the next slice: UNet training)")
         out = FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
                                    causal_offset, window, dropout_p, key)
     else:

@@ -8,7 +8,8 @@ forward's (out, lse), and the autograd Function ``FlashAttention`` that
 ``scaled_dot_product_attention`` goes through when a gradient is needed.
 Inputs are fp32, made with numpy from a seed; dq, dk and dv are held to the
 reference at atol 1e-5 (fp32 sums of O(1) terms over at most 333 keys or
-200 queries; fp32 rounding there stays near 1e-6).
+200 queries, and scores over at most 256 lanes; fp32 rounding there stays
+near 1e-6).
 """
 
 import jax
@@ -45,6 +46,14 @@ CASES = [
     # row of one key
     (1, 193, 260, 8, 2, 64, True, [197]),       # sq 193, GQA 4
     (2, 64, 65, 4, 4, 128, True, [65, 1]),      # sq 64, sk 65, d 128
+    # head dim 256 (on the card K3's 32-key tiles and K4's 64-key blocks
+    # whose consumer groups split the columns) and SD-1.5's 160 (padded to
+    # 256 there): the UNet's non-causal cross-attention to 77 keys, a
+    # causal offset (sk - sq) with GQA 2 and a batch row of kv_len 0, and a
+    # 16 x 16 self-attention at d 160
+    (2, 64, 77, 4, 4, 256, False, None),        # cross-attention, d 256
+    (2, 9, 40, 4, 2, 256, True, [40, 0]),       # offset, GQA, a row of 0
+    (2, 16, 16, 4, 4, 160, False, None),        # d 160
 ]
 IDS = [f"b{c[0]}-sq{c[1]}-sk{c[2]}-h{c[3]}-kv{c[4]}-d{c[5]}"
        f"-{'causal' if c[6] else 'full'}-{'lens' if c[7] else 'nolens'}"

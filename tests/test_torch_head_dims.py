@@ -4,11 +4,12 @@ the reference's ``_pad_for_kernel``, ``paddle_tpu/ops/flash_attention.py:339``).
 * The zero pad is exact: K1's plain twin over the padded q, k, v, with the
   scale of the original d, gives the unpadded plain twin's output (sliced)
   and lse, at SD-1.5's head dims 40, 80 and 160.
-* On the kernels' device (meta tensors stand for CUDA tensors; the C entry
-  is a recorder that raises, so nothing launches) the dispatch hands K1
-  d 64, 128, 256 for 40, 80, 160, the original d's scale, and native 256 as
-  it is; d > 256, a gradient at kernel d 256 and the window or dropout at
-  d 256 raise, naming their ROADMAP items.
+* On the kernels' device (meta tensors stand for CUDA tensors; the C
+  entries are recorders, so nothing launches) the dispatch hands K1 d 64,
+  128, 256 for 40, 80, 160, the original d's scale, and native 256 as it
+  is, and a gradient there reaches K3 and K4 at the same padded d; d > 256
+  and the window or dropout at d 256 (forward or backward) raise, naming
+  their ROADMAP items.
 * The CPU path (``_xla_attention``) equals the reference's
   ``_xla_attention`` at those head dims over a 77-token context, and the
   kernel path's gradient composition (the pad, FlashAttention at the
@@ -70,22 +71,37 @@ class _Captured(Exception):
     pass
 
 
+class _Calls(dict):
+    """The recorded C-entry arguments by entry name; with `succeed` set an
+    entry returns 0 (success) instead of raising _Captured."""
+    succeed = False
+
+
 @pytest.fixture
 def kernel_calls(monkeypatch):
-    """K1's C entry replaced by a recorder of its int and float arguments
-    that raises; meta tensors taken as the kernels' device."""
-    got = {}
+    """The kernels' C entries (K1, K3, K4) replaced by a recorder of their
+    int and float arguments that raises (or, with ``.succeed``, returns
+    success: the meta outputs need no data); meta tensors taken as the
+    kernels' device; the wrappers' launch counts restored afterwards."""
+    got = _Calls()
 
     class Lib:
         def __getattr__(self, name):
             def entry(*args):
                 got[name] = [a for a in args if isinstance(a, (int, float))]
-                raise _Captured
+                if not got.succeed:
+                    raise _Captured
+                return 0
             return entry
 
     monkeypatch.setattr(tfa, "KERNEL_DEVICE", "meta")
     monkeypatch.setattr(tfa, "_kernel_lib", lambda *a: Lib())
     monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    for w in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv):
+        for count in ("launches", "windowed", "dropout"):
+            monkeypatch.setattr(w, count, getattr(w, count))
+        monkeypatch.setattr(w, "by_d", dict(w.by_d))
     return got
 
 
@@ -114,37 +130,70 @@ def test_dispatch_marshals_the_padded_head_dim(kernel_calls, d, dt, sq, sk):
 
 def test_dispatch_refuses_what_k1_does_not_take(kernel_calls):
     """d > 256 raises (no kernel, no fallback); a gradient at kernel d 256
-    (native, or 160 padded) names Queue B rows 2-3; the window and dropout
-    at d 256 name Queue B row 1; K1's own wrapper takes no d outside 64,
-    128, 256. Nothing reaches the C entry."""
+    (native, or 160 padded) reaches K1, K3 and K4's C entries with d 256
+    and the scale of the unpadded d, one launch each at 256; the window and
+    dropout at d 256 name Queue B row 1 (K1) and rows 2-3 (K3, K4); the
+    kernels' own wrappers take no d outside 64, 128, 256. Nothing else
+    reaches a C entry."""
     with pytest.raises(ValueError, match="head_dim 300"):
         tfa.scaled_dot_product_attention(*(_meta(1, 8, 2, 300)
                                            for _ in range(3)))
+    wraps = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+             tfa.flash_attention_bwd_dkv)
+    kernel_calls.succeed = True
     for d in (160, 256):
-        with pytest.raises(NotImplementedError, match="Queue B rows 2-3"):
-            tfa.scaled_dot_product_attention(*(_meta(1, 8, 2, d, grad=True)
-                                               for _ in range(3)))
+        before = [dict(w.by_d) for w in wraps]
+        leaves = [_meta(1, 8, 2, d, grad=True) for _ in range(3)]
+        out = tfa.scaled_dot_product_attention(*leaves)
+        assert out.shape == (1, 8, 2, d)
+        out.backward(torch.empty_like(out))
+        assert all(t.grad.shape == (1, 8, 2, d) for t in leaves)
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            assert kernel_calls[name][5] == 256, (d, name)
+            assert kernel_calls[name][9] == 1.0 / math.sqrt(d), (d, name)
+        for w, n in zip(wraps, before):
+            assert w.by_d == {t: n[t] + (t == 256) for t in n}, w.__name__
+    kernel_calls.succeed = False
+    kernel_calls.clear()
     q = _meta(1, 8, 2, 256)
     with pytest.raises(NotImplementedError, match="Queue B row 1"):
         tfa.flash_attention_fwd(q, q, q, is_causal=True, window=4)
     with pytest.raises(NotImplementedError, match="Queue B row 1"):
         tfa.flash_attention_fwd(q, q, q, dropout_p=0.1,
                                 key=torch.zeros(2, dtype=torch.int64))
+    lse = torch.empty(1, 2, 8, device="meta")
+    for bwd in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        with pytest.raises(NotImplementedError, match="Queue B rows 2-3"):
+            bwd(q, q, q, q, lse, lse, is_causal=True, window=4)
+        with pytest.raises(NotImplementedError, match="Queue B rows 2-3"):
+            bwd(q, q, q, q, lse, lse, dropout_p=0.1,
+                key=torch.zeros(2, dtype=torch.int64))
     q40 = _meta(1, 8, 2, 40)
     with pytest.raises(ValueError, match="head_dim 64 or 128 or 256"):
         tfa.flash_attention_fwd(q40, q40, q40)
+    with pytest.raises(ValueError, match="head_dim 64 or 128 or 256"):
+        tfa.flash_attention_bwd_dq(q40, q40, q40, q40, lse, lse)
     assert kernel_calls == {}
 
 
-@pytest.mark.parametrize("d,dt", SD_DIMS[:2])
+@pytest.mark.parametrize("d,dt", SD_DIMS)
 def test_gradient_rides_the_padded_kernel_d(kernel_calls, d, dt):
-    """A gradient at d 40 or 80 takes FlashAttention (K1 + K3/K4) at the
-    padded d: its forward reaches K1 with d 64 or 128. (At 160, kernel d
-    256, it raises: test_dispatch_refuses_what_k1_does_not_take.)"""
+    """A gradient at d 40, 80 or 160 takes FlashAttention (K1 + K3/K4) at
+    the padded d: its forward reaches K1 with d 64, 128 or 256, and its
+    backward K3 and K4 with the same d, each with the scale of the
+    unpadded d."""
     with pytest.raises(_Captured):
         tfa.scaled_dot_product_attention(*(_meta(2, 64, 2, d, grad=True)
                                            for _ in range(3)))
     assert kernel_calls["flash_attention_fwd"][5] == dt
+    kernel_calls.succeed = True
+    out = tfa.scaled_dot_product_attention(*(_meta(2, 64, 2, d, grad=True)
+                                             for _ in range(3)))
+    out.backward(torch.empty_like(out))
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert kernel_calls[name][5] == dt, name
+        assert kernel_calls[name][9] == 1.0 / math.sqrt(d), name
 
 
 @pytest.mark.parametrize("d", [d for d, _ in SD_DIMS])

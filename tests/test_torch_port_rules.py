@@ -464,16 +464,16 @@ def test_moe_dispatch_backwards_scatter_no_rows():
 
 def test_unet_twin_refuses_cpu_by_default():
     """python -m paddle_tpu_torch.unet_bench runs on cuda unless --device
-    cpu is given; without a GPU it raises instead of timing the CPU, and
-    --train raises naming the training slice."""
+    cpu is given; without a GPU it raises instead of timing the CPU, the
+    DDPM training steps (--train) too."""
     from paddle_tpu_torch import unet_bench
     from paddle_tpu_torch.models import UNetConfig, UNetModel
-    with pytest.raises(NotImplementedError, match="Queue A step 11"):
-        unet_bench.main(["--train", "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         unet_bench.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        unet_bench.main(["--train"])
     with pytest.raises(RuntimeError, match="cuda"):
         unet_bench.build(UNetConfig.tiny())
     with pytest.raises(RuntimeError, match="cuda"):
@@ -643,6 +643,41 @@ def test_flash_kernel_head_dim_256_matches_plain(cuda, h, nkv, sq, sk, d,
     torch.testing.assert_close(lse, ref_lse, atol=2e-3, rtol=0)
     if kl is not None:
         assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,nkv,sq,sk,causal,q_off,kv_len", [
+    (8, 8, 256, 77, False, None, None),
+    (8, 2, 65, 333, True, 200, 333),
+    (8, 8, 1, 300, True, 299, 300)])
+def test_flash_bwd_kernels_head_dim_256_match_plain(cuda, h, nkv, sq, sk,
+                                                    causal, q_off, kv_len):
+    """K3/K4 at d 256 (32-key K3 tiles; 64-key K4 blocks whose consumer
+    groups split the columns) on K1's (out, lse) against the plain
+    backward: each gradient within 2^-6 · max|plain|, batch row 1 of a
+    kv_lens case (no key) zero, two launches bitwise equal."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(6)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v, do = mk(2, sq, h, 256), mk(2, sk, nkv, 256), \
+        mk(2, sk, nkv, 256), mk(2, sq, h, 256)
+    kl = (None if kv_len is None else
+          torch.tensor([kv_len, 0], dtype=torch.int32, device=cuda))
+    kw = dict(is_causal=causal, causal_offset=q_off, kv_lens=kl)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    for got, r in zip((dq, dk, dv), refs):
+        assert (got.float() - r).abs().max().item() <= \
+            2 ** -6 * r.abs().max().item()
+        if kl is not None:
+            assert not got[1].any()
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                     **kw))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)))
 
 
 @pytest.mark.cuda

@@ -8,7 +8,10 @@ on a small config with SD-1.5's own head dims (model_channels 40, one head:
 head dims 40, 80, 160, the ones K1 reaches padded on the card) at 16×16
 latents and a 77-token context: fp32 within 1e-4 + 1e-4·|ref| on ε, bf16
 within 2e-2 relative L2. The JAX side runs eagerly on the CPU, as
-``tests/test_unet.py`` runs it.
+``tests/test_unet.py`` runs it. Training on the same config: ``ddpm_loss``
+and every parameter's gradient against ``jax.value_and_grad`` of the
+reference's (jitted), three AdamW steps against the reference's update,
+the twin's DDPM draws bit for bit, and ``unet_bench --train`` on the CPU.
 """
 
 import jax.numpy as jnp
@@ -252,3 +255,162 @@ def test_cosine_alphas_cumprod():
     ref = np.asarray(ju.cosine_alphas_cumprod(100))
     out = tu.cosine_alphas_cumprod(100).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-7)
+
+
+# ---- training: ddpm_loss, its gradients, AdamW, the twin's DDPM step -------
+
+# ddpm_loss on the small config: latents, noise, timesteps, a 77-token
+# context, the reference's cosine schedule (one numpy array to both sides)
+TRAIN_T = np.array([3, 700])
+
+
+@pytest.fixture(scope="module")
+def ddpm_reference():
+    """The JAX UNet on the small config in fp32 (seeded here), its state,
+    and jax.value_and_grad of the reference's ddpm_loss over that state
+    (jitted: ~35 s to compile here), with the inputs."""
+    import jax
+    paddle_tpu.seed(0)
+    jm = ju.UNetModel(ju.UNetConfig(**SMALL))
+    jm.eval()
+    x0, noise = _rand(21, B, 4, RES, RES), _rand(22, B, 4, RES, RES)
+    ctx = _rand(23, B, CTX, 32)
+    alphas = np.asarray(ju.cosine_alphas_cumprod(1000))
+    vg = jax.jit(jax.value_and_grad(lambda s: ju.ddpm_loss(
+        s, jm, jnp.asarray(x0), jnp.asarray(TRAIN_T), jnp.asarray(noise),
+        jnp.asarray(ctx), jnp.asarray(alphas))))
+    state = jm.trainable_state()
+    loss, grads = vg(state)
+    return {"vg": vg, "state": state, "loss": float(loss),
+            "grads": {k: np.asarray(g) for k, g in grads.items()},
+            "args": (x0, TRAIN_T, noise, ctx, alphas)}
+
+
+def _port_args(ref):
+    return [torch.from_numpy(np.array(a)) for a in ref["args"]]
+
+
+@pytest.mark.parametrize("form", ["state_dict", "model"])
+def test_ddpm_loss_and_every_gradient_match_jax(ddpm_reference, form):
+    """The port's ddpm_loss and the gradient of every parameter against
+    jax.value_and_grad of the reference's (fp32): through a state dict
+    (nn.functional_call) and through the model itself. The loss within
+    1e-5 (read: 2.4e-7); each parameter's gradient within 1e-4 of its
+    largest entry: both sides sum the same fp32 products in other orders
+    through ~60 layers, which here leaves at most 2.8e-6 of it; a wrong
+    layer, mask or schedule moves a gradient by O(1) of its size."""
+    ref = ddpm_reference
+    x0, t, noise, ctx, alphas = _port_args(ref)
+    tm = tu.UNetModel(tu.UNetConfig(**SMALL), dtype=torch.float32,
+                      device="cpu", seed=1)
+    if form == "state_dict":
+        state = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
+                 for k, v in ref["state"].items()}
+        loss = tu.ddpm_loss(state, tm, x0, t, noise, ctx, alphas)
+        grads = dict(zip(state, torch.autograd.grad(loss,
+                                                    list(state.values()))))
+        # the model's own parameters took no part
+        assert all(p.grad is None for p in tm.parameters())
+    else:
+        load_jax_state(tm, {k: np.asarray(v) for k, v in ref["state"].items()})
+        loss = tu.ddpm_loss(tm, tm, x0, t, noise, ctx, alphas)
+        loss.backward()
+        grads = {k: p.grad for k, p in tm.named_parameters()}
+    assert abs(loss.item() - ref["loss"]) <= 1e-5, (loss.item(), ref["loss"])
+    assert set(grads) == set(ref["grads"])
+    for k, g in grads.items():
+        r = ref["grads"][k]
+        err = np.abs(g.numpy() - r).max()
+        assert err <= 1e-4 * np.abs(r).max(), (k, err, np.abs(r).max())
+
+
+def test_three_adamw_steps_match_jax(ddpm_reference):
+    """Three AdamW(1e-4, multi_precision=False) steps (the twin's
+    optimizer) on the UNet's fp32 parameters, each on the same gradients
+    (the reference's ddpm_loss gradient at the reference's parameters):
+    the port's functional update against the reference's AdamW.update,
+    parameters and both moments within 1e-6 after every step (fp32 bias
+    corrections on both sides); the port's ddpm_loss at its own
+    parameters follows the reference's loss within 1e-5."""
+    import jax
+    from paddle_tpu.optimizer import AdamW as JAdamW
+    from paddle_tpu_torch.optimizer import AdamW
+    ref = ddpm_reference
+    x0, t, noise, ctx, alphas = _port_args(ref)
+    tm = tu.UNetModel(tu.UNetConfig(**SMALL), dtype=torch.float32,
+                      device="cpu", seed=1)
+    jopt = JAdamW(learning_rate=1e-4, multi_precision=False)
+    topt = AdamW(learning_rate=1e-4, multi_precision=False)
+    jupdate = jax.jit(jopt.update)
+    js = ref["state"]
+    jst = jopt.init_state(js)
+    ts = {k: torch.from_numpy(np.array(v)) for k, v in js.items()}
+    tst = topt.init_state(ts)
+    losses = []
+    for step in range(3):
+        loss, g = (ref["loss"], ref["grads"]) if step == 0 else ref["vg"](js)
+        with torch.no_grad():
+            port_loss = tu.ddpm_loss(ts, tm, x0, t, noise, ctx, alphas)
+        assert abs(port_loss.item() - float(loss)) <= 1e-5, step
+        losses.append(float(loss))
+        js, jst = jupdate({k: jnp.asarray(v) for k, v in g.items()}, jst, js)
+        ts, tst = topt.update({k: torch.from_numpy(np.array(v))
+                               for k, v in g.items()}, tst, ts)
+        for k in js:
+            np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]),
+                                       atol=1e-6, err_msg=f"{step} {k}")
+            for slot in ("moment1", "moment2"):
+                np.testing.assert_allclose(
+                    tst[slot][k].numpy(), np.asarray(jst[slot][k]),
+                    atol=1e-6, err_msg=f"{step} {slot} {k}")
+    assert losses[-1] < losses[0]
+
+
+def test_train_inputs_follow_the_reference_draws():
+    """unet_bench.train_inputs against examples/unet_bench.py's draws
+    (:70-95): x0, t, ctx, then the noise and ᾱ from the same RandomState,
+    x_t = √ᾱ·x0 + √(1 − ᾱ)·noise in fp32 from the bf16 x0 and noise, cast
+    to bf16; every tensor bit for bit."""
+    from paddle_tpu_torch import unet_bench
+    cfg = tu.UNetConfig.tiny()
+    b, res, n = 2, 16, 8
+    rng = np.random.RandomState(0)
+    x0 = jnp.asarray(rng.standard_normal((b, cfg.in_channels, res, res)),
+                     jnp.bfloat16)
+    t = rng.randint(0, 1000, (b,))
+    ctx = jnp.asarray(rng.standard_normal((b, n, cfg.context_dim)),
+                      jnp.bfloat16)
+    noise = jnp.asarray(rng.standard_normal(x0.shape), jnp.bfloat16)
+    abar = jnp.asarray(rng.uniform(0.2, 0.98, (b, 1, 1, 1)), jnp.float32)
+    xt = (jnp.sqrt(abar) * x0.astype(jnp.float32)
+          + jnp.sqrt(1 - abar) * noise.astype(jnp.float32)).astype(
+        jnp.bfloat16)
+    got = unet_bench.train_inputs(cfg, b, res, n, "cpu")
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.int64,
+                                      torch.bfloat16, torch.bfloat16]
+    bits = lambda a: np.asarray(a).view(np.int16)
+    for g, r in zip(got, (xt, t, ctx, noise)):
+        if g.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(g.view(torch.int16).numpy(),
+                                          bits(r))
+        else:
+            np.testing.assert_array_equal(g.numpy(), r)
+
+
+def test_unet_twin_trains_on_the_cpu():
+    """python -m paddle_tpu_torch.unet_bench --train --device cpu: the
+    reference's CPU shape (the tiny UNet, 16×16, an 8-token context, b 1),
+    two warm-up and two timed DDPM steps: finite losses, falling, and the
+    record's fields (MFU on the 3 × forward basis is for the card)."""
+    from paddle_tpu_torch import unet_bench
+    rec = unet_bench.main(["--train", "--device", "cpu"])
+    assert rec["mode"] == "train" and rec["batch"] == 1 and rec["steps"] == 2
+    assert rec["res"] == 16 and rec["context_len"] == 8
+    losses = rec["losses"]
+    assert len(losses) == unet_bench.WARMUP + 2
+    assert rec["loss_finite"] and all(np.isfinite(losses))
+    assert rec["loss_first"] == losses[0] and rec["loss_last"] == losses[-1]
+    assert losses[-1] < losses[0]
+    assert rec["optimizer"] == "AdamW(1e-4, multi_precision=False)"
+    assert rec["mfu_basis"].startswith("3 x forward_flops")
+    assert rec["flops_per_step"]["total"] > 0 and rec["mfu"] is None
