@@ -12,6 +12,7 @@
                                           # train_moe
     python3 chip_smoke.py --unet          # card, build, k1h, k3h, unet,
                                           # train_unet
+    python3 chip_smoke.py --ernie         # card, build, k1m, ernie
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -238,6 +239,30 @@ Phases, each printing one JSON line:
               backward and torch sdpa's backward at d 160 (rows 2c, 3c);
               the window and dropout at d 256 refused, naming Queue B rows
               2-3.
+  8k. k1m   — K1, K3 and K4's dense-mask modes (bool or fp32, read through
+              broadcast strides; tiles of `mask_bounds`) against their
+              plain versions on the same inputs (K3/K4's on K1's (out,
+              (m, log l) pairs)): ERNIE-base and Titan key padding
+              ((b, 1, 1, s) bool, lengths s/8..s from a seed; b 32, h 12,
+              s 512, d 64 and b 8, h 96, d 128), TinyLlama's causal +
+              padding (b 4, 32/4 heads, s 2048, d 64), a (b, h, s, s) fp32
+              mask of -1e4 soft entries, rows of -1e10 and -inf tiles, a
+              2-D block-sparse bool mask with a row hidden at every key (its
+              block walks every tile: the mean of v), a 3-D (h, s, s) mask
+              under GQA and causal, cross-attention 512 × 77 with a key
+              mask: out within K1_TOL_OUT, the pairs' lse within
+              K1_TOL_LSE (+ 2^-22·|m|), each gradient within K3_TOL ·
+              max|plain|, each kernel twice with the same bits, and
+              `mask_bounds` free of host syncs; each case timed (device_ms)
+              beside torch sdpa with the same mask (forward; backward over
+              a retained graph), the plain versions and the bound from
+              the bytes (q, k, v, o, the mask at its broadcast shape) and
+              the operations of the pairs the mask leaves (rows 1e, 2d,
+              3d at the ERNIE-base case); a float row at -inf gives NaN
+              as the plain version; d 40 and 80 through the dispatch
+              (padded, K1/K3/K4 once each in mask mode); the mask beside
+              the window, dropout or d 256 refused, naming Queue B rows
+              1-3.
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -460,6 +485,29 @@ Phases, each printing one JSON line:
               UNET_LOSS_RTOL, the gradients' relative L2 over all
               parameters within UNET_GRAD_REL_L2 and at the worst
               parameter within UNET_GRAD_REL_L2_PARAM.
+ 21. ernie  — ERNIE-3.0 at Titan width through the twin of examples/
+              scale_report.py ernie-titan-step (scale_report.run: hidden
+              12288, 96 heads, ffn 49152, the reference's 1 + 1 layers of
+              48 + 12, 6.43 B parameters, bf16, SGD 1e-4 with fp32
+              masters, 2 + 6 steps) at its defaults (seq 128, b 1) and at
+              seq 512, b 8: step ms, tokens/s, MFU (6 × trained params ×
+              tokens), peak memory, every loss finite and the last below
+              the first, K1/K3/K4 2 a step each without a mask; one
+              traced step at the defaults by kernel family, and its
+              forward and backward alone (the SGD update the difference);
+              then
+              ErnieConfig() (ERNIE-base, uncut: 12 layers, d 64) as the
+              backbone ErnieModel in bf16 on a padded batch (b 32, s 512)
+              with its (b, 1, 1, s) bool mask: forward and backward with
+              every attention call on the mask instantiations (12 each, no
+              plain call), against the same model over the plain twins on
+              the card (PlainKernelsOnCard): output within
+              ERNIE_OUT_REL_L2, all gradients within ERNIE_GRAD_REL_L2,
+              the worst parameter within ERNIE_GRAD_REL_L2_PARAM, and at
+              the first layer's attention output the mask's own effect
+              (the plain twins without it) ERNIE_MASK_MARGIN times the
+              kernels' difference or more; the path's launches (the twin's runs and the backbone's first
+              step) for the kernel table's rows 1e, 2d, 3d.
  bwd_times (--bwd-times alone) — the windowless K3 and K4 at GPT-2 345M's,
               train_llama's and train_mistral's attention shapes, as phase
               timing_train times them; the calls take no window, so the
@@ -467,12 +515,12 @@ Phases, each printing one JSON line:
               into the tree and run it there: the tree's own package is
               imported), parent and change in turns in one call.
 
---quick stops after phase 8j; --int8-stress runs phase 8f alone; --training
+--quick stops after phase 8k; --int8-stress runs phase 8f alone; --training
 runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a; --moe
 phases 8, 13 and 13a; --unet phases 8i, 8j, 20 and 20a (about 100 s with
-the build). Every failure propagates and exits non-zero. The whole run
-takes about 335 s on an H100, build included (phases 8i, 8j, 20 and 20a
-about 65 s of it); the watchdog (WATCHDOG_S) ends a run that stalls past
+the build); --ernie phases 8k and 21 (about 140 s with the build). Every failure propagates and exits non-zero. The whole run
+takes about 420 s on an H100, build included (phases 8i, 8j, 20 and 20a
+about 65 s of it, 8k and 21 about 30 s); the watchdog (WATCHDOG_S) ends a run that stalls past
 1,100 s.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
@@ -512,7 +560,7 @@ E2E_ATOL, E2E_RTOL = 0.1, 2.0 ** -5  # logits after 32 layers
 # The MoE phase's teacher-forced 28-layer step (4 rows × 102400 logits)
 # read 0.117 against the plain path taking K6's experts: the same noise.
 SERVE_LOGIT_ATOL = 0.15
-# The whole run, build included, takes about 335 s on an H100; past
+# The whole run, build included, takes about 420 s on an H100; past
 # this many seconds the watchdog reports a stall and ends the run.
 WATCHDOG_S = 1100
 # K3/K4: each gradient within K3_TOL · max|plain|. The kernels round P and
@@ -2551,9 +2599,9 @@ def reset_counts(fa, fd):
     dropout.dropout_cuda.launches = 0
     rms_norm.rms_norm_cuda.launches = 0
     smem_probe.smem_probe_cuda.launches = 0
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
+    for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv):
+        w.launches = w.masked = 0
     fd.fused_decode_cuda.launches = 0
     fd.fused_paged_decode_cuda.launches = 0
     fd.fused_paged_verify_cuda.launches = 0
@@ -4879,7 +4927,7 @@ class CheckedAttention:
     on the same inputs as the call saw them (`k1_agreement`): a decode
     step's attention, layer by layer, over the cached K/V it read."""
 
-    COUNTS = ("launches", "windowed", "dropout", "by_d")
+    COUNTS = ("launches", "windowed", "dropout", "masked", "by_d")
 
     def __init__(self, fa):
         self.fa, self.calls = fa, []
@@ -5537,12 +5585,15 @@ class PlainKernelsOnCard:
         fa = self.fa
         self.saved = fa.flash_attention_fwd, fa.flash_attention_bwd
 
-        def bwd(q, k, v, out, lse, dout, **kw):
-            grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                                 **kw)
+        def fwd(q, k, v, bounds=None, **kw):   # the kernels' tile bounds
+            return self.saved_plain[0](q, k, v, **kw)
+
+        def bwd(q, k, v, out, lse, dout, bounds=None, **kw):
+            grads = self.saved_plain[1](q, k, v, out, lse, dout, **kw)
             return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
-        fa.flash_attention_fwd, fa.flash_attention_bwd = (
-            fa.flash_attention_fwd_plain, bwd)
+        self.saved_plain = (fa.flash_attention_fwd_plain,
+                            fa.flash_attention_bwd_plain)
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
         return self
 
     def __exit__(self, *exc):
@@ -7103,6 +7154,553 @@ def phase_train_unet(fa, fd, flops):
     return launches
 
 
+# ---- K1, K3, K4's mask modes (phase k1m) --------------------------------------
+
+# Dense-mask cases of phase k1m: (name, b, h, nkv, sq, sk, d, causal, the
+# mask's form). The ERNIE-base case is the shape of phase ernie's masked
+# backbone, which the rows 1e, 2d and 3d time.
+K1M_CASES = (
+    ("ernie_base_key_padding", 32, 12, 12, 512, 512, 64, False, "padding"),
+    ("ernie_titan_key_padding", 8, 96, 96, 512, 512, 128, False, "padding"),
+    ("tinyllama_causal_padding", 4, 32, 4, 2048, 2048, 64, True, "padding"),
+    ("full_4d_fp32", 2, 8, 8, 512, 512, 64, False, "fp32_4d"),
+    ("block_sparse_2d_bool", 2, 8, 8, 1024, 1024, 128, False, "blocks_2d"),
+    ("mask_3d_gqa", 2, 8, 2, 384, 384, 64, True, "bool_3d"),
+    ("cross_512x77_key_mask", 4, 8, 8, 512, 77, 64, False, "padding"),
+)
+K1M_MAIN = "ernie_base_key_padding"
+
+
+def k1m_mask(form, b, h, sq, sk, gen):
+    """The mask of a k1m case, made from `gen` on the card."""
+    u = lambda *s: torch.rand(s, generator=gen, device="cuda")
+    if form == "padding":           # (b, 1, 1, sk) bool, lengths 1/8..1 sk
+        lens = (sk // 8 + (u(b) * (sk - sk // 8 + 1)).long()).clamp(max=sk)
+        return (torch.arange(sk, device="cuda")[None] < lens[:, None])[
+            :, None, None, :]
+    if form == "fp32_4d":           # PaddleNLP's -1e4 soft padding, whole
+        m = torch.where(u(b, h, sq, sk) < 0.2, -1e4, 0.0)   # rows of -1e10
+        m[:, :, 5::37] = -1e10                              # and -inf tiles
+        m[:, :, :256, 256:] = float("-inf")
+        m[:, :, 256:, 128:256] = float("-inf")
+        return m
+    if form == "blocks_2d":         # 128 x 128 blocks of a bool pattern,
+        blk = u(sq // 128, sk // 128) < 0.4            # diagonal kept, and
+        blk |= torch.eye(sq // 128, dtype=torch.bool, device="cuda")
+        m = blk.repeat_interleave(128, 0).repeat_interleave(128, 1)
+        m[300] = False              # a row hidden at every key (dead)
+        return m
+    if form == "bool_3d":           # (h, sq, sk) bool, a head's own rows
+        m = u(h, sq, sk) < 0.7
+        m[..., 0] = True
+        return m
+    raise ValueError(form)
+
+
+def k1m_library_mask(mask, sq, sk, causal):
+    """The case's mask with the causal mask folded in, as torch sdpa takes
+    it (it takes no is_causal beside a mask)."""
+    if not causal:
+        return mask
+    s = torch.ones((sq, sk), dtype=torch.bool, device="cuda").tril(sk - sq)
+    return mask & s if mask.dtype == torch.bool else mask + torch.where(
+        s, 0.0, float("-inf"))
+
+
+def k1m_work(fa, mask, b, h, nkv, sq, sk, d, causal):
+    """(pairs, {k1, k3, k4: bytes}) of a masked call: the (query, key) pairs
+    this run's mask and structure leave (a tile of -inf or False entries
+    is no work; a dead row needs all sk keys), and the bytes each kernel
+    must move: q, k, v (and dO) in bf16 once, the mask once at its
+    broadcast shape, the outputs once, the (m, log l) pairs (and Δ)."""
+    m4 = fa.dense_mask(mask, b, h, sq, sk)
+    ok = m4 if m4.dtype == torch.bool else m4 != float("-inf")
+    live = m4 if m4.dtype == torch.bool else m4 > -5e29
+    vis = fa._visible_keys(b, sq, sk, causal, None, None, m4.device)
+    keys = torch.arange(sk, device="cuda")
+    seen = (keys[None, None, None] < vis[:, None, :, None])
+    pairs = int((ok & seen).expand(b, h, sq, sk).sum().item())
+    dead = ~(live & seen).any(-1) & (vis[:, None] > 0)
+    pairs += int(dead.expand(b, h, sq).sum().item()) * sk
+    tq, tk = b * sq * h * d * 2, b * sk * nkv * d * 2
+    mb = m4.numel() * m4.element_size()
+    rows = b * h * sq
+    return pairs, {"k1": 2 * tq + 2 * tk + mb + 8 * rows,
+                   "k3": 3 * tq + 2 * tk + mb + 12 * rows,
+                   "k4": 2 * tq + 4 * tk + mb + 12 * rows}
+
+
+def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
+    """K1, K3 and K4 in mask mode against their plain versions on the same
+    inputs: out within K1_TOL_OUT and the pair's lse m + log l within
+    K1_TOL_LSE (plus 2^-22·|m|: rows at -1e10); each gradient within
+    K3_TOL · max|plain| (the plain backward on K1's (out, pairs)); each
+    kernel launched twice with the same bits. Then the device times of
+    the three kernels, torch sdpa's with the same mask (forward, and
+    backward over a retained graph), the plain versions', and the
+    bounds."""
+    q, k, v, do = (rand(s, gen) for s in ((b, sq, h, d), (b, sk, nkv, d),
+                                           (b, sk, nkv, d), (b, sq, h, d)))
+    mask = k1m_mask(form, b, h, sq, sk, gen)
+    kw = dict(is_causal=causal, attn_mask=mask)
+    m4 = fa.dense_mask(mask, b, h, sq, sk)
+    bounds = fa.mask_bounds(m4, b, h, nkv, sq, sk, causal)
+    with torch.no_grad():
+        out, st = fa.flash_attention_fwd(q, k, v, **kw, bounds=bounds)
+        out2, st2 = fa.flash_attention_fwd(q, k, v, **kw, bounds=bounds)
+    ref, ref_st = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse, ref_lse = st.double().sum(-1), ref_st.double().sum(-1)
+    lerr = ((lse - ref_lse).abs() - 2.0 ** -22 * ref_st[..., 0].double()
+            .abs()).max().item()
+    res = {"case": name, "b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk,
+           "d": d, "causal": causal, "mask": form,
+           "mask_shape": list(m4.shape), "mask_dtype": str(m4.dtype),
+           "max_abs_err": err, "tol": K1_TOL_OUT, "lse_max_abs_err": lerr,
+           "lse_tol": K1_TOL_LSE,
+           "k1_two_launches_bitwise": bool(torch.equal(out, out2)
+                                          and torch.equal(st, st2)),
+           "finite": bool(torch.isfinite(out.float()).all())}
+    res["ok"] = (err <= K1_TOL_OUT and lerr <= K1_TOL_LSE and res["finite"]
+                 and res["k1_two_launches_bitwise"])
+    del ref, ref_st
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bkw = dict(kw, bounds=bounds)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **bkw)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **bkw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **bkw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **bkw)
+    res["k3_two_launches_bitwise"] = bool(torch.equal(dq, dq2))
+    res["k4_two_launches_bitwise"] = bool(torch.equal(dk, dk2)
+                                          and torch.equal(dv, dv2))
+    res["ok"] &= res["k3_two_launches_bitwise"] and \
+        res["k4_two_launches_bitwise"]
+    grads = fa.flash_attention_bwd_plain(q, k, v, out, st, do, **kw)
+    for gname, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        e = (g.float() - r).abs().max().item()
+        tol = K3_TOL * r.abs().max().item()
+        res[gname] = {"max_abs_err": e, "tol": tol}
+        res["ok"] &= bool(e <= tol and torch.isfinite(g.float()).all())
+    del grads
+    pairs, nbytes = k1m_work(fa, mask, b, h, nkv, sq, sk, d, causal)
+    res["pairs"] = pairs
+    res["pairs_of_all"] = pairs / (b * h * sq * sk)
+    with torch.no_grad():
+        ms = {"k1": device_ms(lambda: fa.flash_attention_fwd(
+                  q, k, v, **kw, bounds=bounds), iters=10),
+              "k3": device_ms(lambda: fa.flash_attention_bwd_dq(
+                  q, k, v, do, st, delta, **bkw), iters=10),
+              "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
+                  q, k, v, do, st, delta, **bkw), iters=10)}
+    res["bounds_ms"] = time_ms(lambda: fa.mask_bounds(
+        m4, b, h, nkv, sq, sk, causal), iters=10)
+    res["bounds_host_syncs"] = host_syncs(lambda: fa.mask_bounds(
+        m4, b, h, nkv, sq, sk, causal))
+    plain = {"k1": time_ms(lambda: fa.flash_attention_fwd_plain(
+                 q, k, v, **kw), iters=2, warmup=1),
+             "k3": time_ms(lambda: fa.flash_attention_bwd_plain(
+                 q, k, v, out, st, do, **kw), iters=2, warmup=1)}
+    plain["k4"] = plain["k3"]     # one plain backward gives dq, dk and dv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lm = k1m_library_mask(mask, sq, sk, causal)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    gqa = {"enable_gqa": True} if nkv != h else {}
+    with torch.no_grad():
+        lib_fwd = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=lm, **gqa),
+                            iters=10)
+    o_lib = sdpa(qt, kt, vt, attn_mask=lm, **gqa)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+        iters=10)
+    del o_lib
+    lib = {"k1": lib_fwd, "k3": lib_bwd, "k4": lib_bwd}
+    for key, per_pair in (("k1", 4), ("k3", 6), ("k4", 8)):
+        bound, by = bound3(nbytes[key], per_pair * d * pairs, 0, bw, flops,
+                           1.0)
+        res[key] = dict(res.get(key, {}), ms=ms[key], plain_ms=plain[key],
+                        library_ms=lib[key], bound_ms=bound, bound_by=by)
+    res["library_covers"] = ("torch sdpa with the same mask (structured "
+                             "masks folded in): k1 its forward, k3 and k4 "
+                             "its backward (dq, dk, dv)")
+    res["plain_covers"] = "k3 and k4: one plain backward gives dq, dk, dv"
+    return res
+
+
+def host_syncs(fn):
+    """[(file:line, message)] of the synchronizing CUDA operations fn runs
+    (torch's sync debug mode)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename}:{w.lineno}: {str(w.message)[:120]}" for w in got]
+
+
+def k1m_nan_row(fa, gen):
+    """A float row at -inf at every key gives NaN out and NaN log l in K1,
+    as in its plain version; the other rows agree as in phase k1m."""
+    q, k, v = (rand((1, 200, 2, 64), gen) for _ in range(3))
+    m = torch.zeros((1, 1, 200, 200), device="cuda")
+    m[..., 77, :] = float("-inf")
+    with torch.no_grad():
+        out, st = fa.flash_attention_fwd(q, k, v, attn_mask=m)
+    ref, _ = fa.flash_attention_fwd_plain(q, k, v, attn_mask=m)
+    nan_row = bool(torch.isnan(out[0, 77].float()).all()
+                   and torch.isnan(ref[0, 77].float()).all()
+                   and torch.isnan(st[0, :, 77, 1]).all())
+    keep = torch.ones(200, dtype=torch.bool, device="cuda")
+    keep[77] = False
+    err = (out[0, keep].float() - ref[0, keep].float()).abs().max().item()
+    return {"nan_row": nan_row, "other_rows_max_abs_err": err,
+            "ok": nan_row and err <= K1_TOL_OUT}
+
+
+def k1m_padded_dims(fa, gen):
+    """The dispatch at SD-1.5's head dims 40 and 80 with a (b, 1, 1, sk)
+    key mask: padded to 64 and 128, K1, K3 and K4 in mask mode once each,
+    the output and gradients against the plain versions at the unpadded
+    d (K1_TOL_OUT; K3_TOL · max|plain|)."""
+    cases = []
+    for d in (40, 80):
+        b, h, s = 2, 8, 320
+        q, k, v, do = (rand((b, s, h, d), gen) for _ in range(4))
+        mask = k1m_mask("padding", b, h, s, s, gen)
+        before = (fa.flash_attention_fwd.masked,
+                  fa.flash_attention_bwd_dq.masked,
+                  fa.flash_attention_bwd_dkv.masked)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fa.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        o.backward(do)
+        launched = [w.masked - n for w, n in zip(
+            (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dkv), before)]
+        ref, st = fa.flash_attention_fwd_plain(q, k, v, attn_mask=mask)
+        grads = fa.flash_attention_bwd_plain(q, k, v, ref, st, do,
+                                             attn_mask=mask)
+        err = (o.float() - ref.float()).abs().max().item()
+        res = {"d": d, "kernel_d": 64 if d == 40 else 128,
+               "max_abs_err": err, "mask_launches": launched,
+               "ok": err <= K1_TOL_OUT and launched == [1, 1, 1]}
+        for name, t, r in zip(("dq", "dk", "dv"), leaves, grads):
+            e = (t.grad.float() - r).abs().max().item()
+            res[name] = {"max_abs_err": e,
+                         "tol": K3_TOL * r.abs().max().item()}
+            res["ok"] &= e <= res[name]["tol"]
+        cases.append(res)
+    return cases
+
+
+def mask_refusals(fa):
+    """{mode: the NotImplementedError's message, or None where it ran} of a
+    masked call beside the window, dropout, and at head dim 256."""
+    from paddle_tpu_torch.core import rng
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device="cuda")
+    q256 = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device="cuda")
+    m = torch.ones((64, 64), dtype=torch.bool, device="cuda")
+    out = {}
+    for mode, args, kw in (
+            ("window", (q, q, q), dict(is_causal=True, window=4)),
+            ("dropout", (q, q, q), dict(dropout_p=0.1, key=rng.PRNGKey(3))),
+            ("d256", (q256, q256, q256), {})):
+        try:
+            fa.flash_attention_fwd(*args, attn_mask=m, **kw)
+            out[mode] = None
+        except NotImplementedError as e:
+            out[mode] = str(e)
+    return out
+
+
+def phase_k1m(fa, bw, flops):
+    """K1, K3 and K4's mask modes against their plain versions (see the
+    module docstring, phase 8k)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    cases = []
+    for case in K1M_CASES:
+        cases.append(k1m_case(fa, gen, *case, bw, flops))
+        emit({"phase": "k1m_case", **cases[-1]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    nan_row = k1m_nan_row(fa, gen)
+    padded = k1m_padded_dims(fa, gen)
+    refused = mask_refusals(fa)
+    emit({"phase": "k1m", "cases": cases, "nan_row": nan_row,
+          "padded_head_dims": padded, "modes_refused": refused})
+    bad = ([c["case"] for c in cases if not c["ok"]]
+           + ([] if nan_row["ok"] else ["nan_row"])
+           + [f"d {c['d']}" for c in padded if not c["ok"]]
+           + [f"the mask with {m} was not refused"
+              for m, e in refused.items()
+              if not (e and "Queue B rows 1-3" in e)]
+           + [f"{c['case']}: mask_bounds synchronizes the host"
+              for c in cases if c["bounds_host_syncs"]])
+    if bad:
+        raise AssertionError(f"K1, K3, K4 mask modes: {bad}")
+    return cases
+
+
+def mask_rows(cases, launches):
+    """Rows 1e, 2d and 3d (K1, K3, K4's mask modes): device time, bound,
+    plain and sdpa-with-the-mask times at the main path's call (phase
+    ernie's masked ERNIE-base backbone: K1M_MAIN's shape), every k1m case
+    beside them, the largest error over the cases, and the launches of
+    the mask instantiations on path ernie."""
+    main = next(c for c in cases if c["case"] == K1M_MAIN)
+    rows = []
+    for name, key, tag, line, what in (
+            ("flash_attention_fwd", "k1", "1e", 526, "_fwd_kernels"),
+            ("flash_attention_bwd_dq", "k3", "2d", 668, "_bwd_dq_kernel"),
+            ("flash_attention_bwd_dkv", "k4", "3d", 787, "_bwd_dkv_kernel")):
+        err = max(c["max_abs_err"] if key == "k1"
+                  else c["dq"]["max_abs_err"] if key == "k3"
+                  else max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
+                  for c in cases)
+        t = main[key]
+        rows.append({
+            "name": name, "row": tag,
+            "mode": "dense attn_mask (bool or fp32, broadcast strides)",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/" + (
+                "flash_attention.cu" if key == "k1"
+                else "flash_attention_bwd.cu"),
+            "replaces": f"paddle_tpu/ops/flash_attention.py:{line} ({what}"
+                        ", mask: _mask_block_bounds :445)",
+            "launches": launches["masked"][name], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "per": f"one call at {K1M_MAIN}: b {main['b']}, h {main['h']}, "
+                   f"s {main['sq']}, d {main['d']}, (b, 1, 1, s) bool",
+            "launches_by_path": {"ernie": launches["masked"][name]},
+            "at_cases": [dict(c[key], case=c["case"]) for c in cases]})
+    return rows
+
+
+# ---- ERNIE (phase ernie) --------------------------------------------------------
+
+# The twin's runs: (tag, seq, batch) — the reference's defaults, and a
+# longer, wider batch
+ERNIE_TITAN_RUNS = (("reference_defaults", 128, 1), ("s512_b8", 512, 8))
+# ERNIE-base's masked backbone: b, s (K1M_MAIN's attention shape)
+ERNIE_BASE_SHAPE = (32, 512)
+# The backbone on the kernels against the same bf16 model over the plain
+# twins on the card: both round every activation to bf16, and only the
+# attention differs (the kernels round P and dS to bf16 before their
+# products, the plain versions compute in fp32 and round the result); those
+# flips feed the next layers. The output's relative L2 over 12 post-norm
+# layers is a few bf16 ulps (2^-9 each); each gradient sums such roundings
+# per layer through the backward. One parameter's gradient sums them with
+# little signal: the token-type embedding's two rows are sums over 16,384
+# tokens of sum(out·w)'s random-sign terms, whose signal cancels and whose
+# bf16 noise does not, and its norm dominates all gradients' together.
+# On an H100 (bf16, seed 21) the output read 0.0109, every parameter but
+# that one 0.013 or less, that one 0.064, all together 0.022. So, as
+# phase train_unet sets its bounds from such a reading: all gradients
+# within ERNIE_GRAD_REL_L2, the worst parameter within
+# ERNIE_GRAD_REL_L2_PARAM.
+# What the mask itself does to the output (the plain twins with and
+# without it) is small at random weights: the attention is near uniform
+# and a mean over all keys or the valid ones of random values is near 0
+# either way (read 0.072 at the output, 0.019 at the first layer's output
+# after its norms and FFN), while the random post-norm stack grows any
+# difference layer by layer (the kernels' 0.0020 at the first layer,
+# 0.0109 at the last). So the sharp check is where the mask acts, the
+# first layer's attention output: there the kernels' difference from the
+# plain twins must sit ERNIE_MASK_MARGIN times or more below the mask's
+# own effect, which a kernel that dropped or added keys would match.
+ERNIE_OUT_REL_L2 = 2.0 ** -6
+ERNIE_GRAD_REL_L2 = 5e-2
+ERNIE_GRAD_REL_L2_PARAM = 0.15
+ERNIE_MASK_MARGIN = 10
+
+
+def mask_counts(fa):
+    """The launches of K1's, K3's and K4's mask instantiations."""
+    return {w.__name__: w.masked for w in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+        fa.flash_attention_bwd_dkv)}
+
+
+def ernie_titan_runs(fa):
+    """The twin (paddle_tpu_torch.scale_report ernie-titan-step) at each of
+    ERNIE_TITAN_RUNS: Titan width, the reference's 1 + 1 cut, SGD 1e-4, 2
+    warm-up and 6 counted steps. Each run's record, with whether every
+    loss is finite and the last below the first."""
+    import argparse
+    from paddle_tpu_torch import scale_report
+    runs = {}
+    for tag, seq, b in ERNIE_TITAN_RUNS:
+        rec = scale_report.run(argparse.Namespace(
+            steps=6, seq=seq, batch=b, layers=1, task_layers=1,
+            device="cuda", tiny=False))
+        losses = rec["warmup_losses"] + rec["losses"]
+        rec["finite"] = all(math.isfinite(x) for x in losses)
+        rec["last_below_first"] = losses[-1] < losses[0]
+        rec["ok"] = rec["finite"] and rec["last_below_first"]
+        runs[tag] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def ernie_titan_trace():
+    """Where the Titan step's time goes (the twin's defaults: b 1, seq
+    128): the twin's model, optimizer and batch, two steps, then one
+    traced step by kernel family and one traced forward and backward
+    alone (the SGD update is the difference)."""
+    from paddle_tpu_torch import scale_report
+    cfg = scale_report.config()
+    model, opt, state = scale_report.build(cfg, "cuda")
+    x, y = scale_report.batch(cfg, 1, 128, "cuda")
+    params = list(model.trainable_state().values())
+
+    def step():
+        scale_report.train_step(model, opt, state, x, y)
+
+    def forward_backward():
+        torch.autograd.grad(model.loss(model(x), y), params,
+                            allow_unused=True)
+    step()
+    res = {"step": traced_step(step),
+           "forward_backward": traced_step(forward_backward)}
+    del model, opt, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ernie_base_backbone(fa, fd):
+    """ErnieConfig() (ERNIE-base: 12 layers, hidden 768, 12 heads of d 64)
+    as the backbone ErnieModel in bf16, eval (no hidden dropout), on a
+    padded batch (lengths from a seed, 1/8 s to s) with its (b, 1, 1, s)
+    bool mask and random token types: forward and the gradients of
+    sum(out · w), w fixed random weights, on the kernels (every attention
+    call on the mask instantiations, no plain call) and over the plain
+    twins on the card (PlainKernelsOnCard); the output's relative L2
+    within ERNIE_OUT_REL_L2, all gradients' within ERNIE_GRAD_REL_L2 and
+    the worst parameter's within ERNIE_GRAD_REL_L2_PARAM.
+    Also the step's device time on the kernels and on the plain twins."""
+    from paddle_tpu_torch.models import ErnieConfig, ErnieModel
+    b, s = ERNIE_BASE_SHAPE
+    cfg = ErnieConfig()
+    model = ErnieModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    model.eval()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)   # ERNIE-base's own draws
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device="cuda")
+    types = torch.randint(0, 2, (b, s), generator=gen, device="cuda")
+    mask = k1m_mask("padding", b, cfg.num_heads, s, s, gen)
+    w = rand((b, s, cfg.hidden_size), gen, scale=1.0 / math.sqrt(b * s),
+             dtype=torch.float32)
+    params = model.trainable_state()
+    # the first layer's attention output and the outputs of layers 0, 5,
+    # 11 of the last forward
+    seen = {}
+    for i, mod in (("attn0", model.layers[0].attn), (0, model.layers[0]),
+                   (5, model.layers[5]), (11, model.layers[11])):
+        mod.register_forward_hook(
+            lambda mod, inp, out, i=i: seen.__setitem__(i, out.detach()))
+
+    def step():
+        out = model(ids, types, mask)
+        grads = torch.autograd.grad((out.float() * w).sum(),
+                                    list(params.values()))
+        return out, grads
+    before = (dict(mask_counts(fa)), fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    with PlainTraining(fa) as plain_calls:
+        out, grads = step()
+    torch.cuda.synchronize()
+    layers_k = dict(seen)
+    # the path's counts end here (the timing below drives the step again)
+    path_launches = {"all": counts(fa, fd), "masked": mask_counts(fa)}
+    masked = {k: v - before[0][k] for k, v in mask_counts(fa).items()}
+    launched = [fa.flash_attention_fwd.launches - before[1],
+                fa.flash_attention_bwd_dq.launches - before[2],
+                fa.flash_attention_bwd_dkv.launches - before[3]]
+    ms = time_ms(step, iters=3, warmup=1)
+    with PlainKernelsOnCard(fa):
+        out_p, grads_p = step()
+        layers_p = dict(seen)
+        with torch.no_grad():
+            out_nomask = model(ids, types)
+        layers_n = dict(seen)
+        plain_ms = time_ms(step, iters=2, warmup=1)
+    rel = lambda a, r: (torch.linalg.vector_norm(a.float() - r.float())
+                        / torch.linalg.vector_norm(r.float())).item()
+    out_rel = rel(out, out_p)
+    mask_effect = rel(out_nomask, out_p)
+    by_layer = {i: {"kernels_vs_plain": rel(layers_k[i], layers_p[i]),
+                    "mask_effect": rel(layers_n[i], layers_p[i])}
+                for i in layers_k}
+    grad_rel = {k: rel(g, r) for k, g, r in zip(params, grads, grads_p)}
+    worst = sorted(grad_rel, key=grad_rel.get)[::-1]
+    cat = lambda gs: torch.cat([g.float().reshape(-1) for g in gs])
+    all_rel = rel(cat(grads), cat(grads_p))
+    n = cfg.num_hidden_layers
+    res = {"config": "ErnieConfig() (ERNIE-base)", "layers": n, "b": b,
+           "s": s, "heads": cfg.num_heads,
+           "head_dim": cfg.hidden_size // cfg.num_heads,
+           "mask": "(b, 1, 1, s) bool padding",
+           "valid_keys_of_all": mask.float().mean().item(),
+           "mask_launches": masked, "launches": launched,
+           "plain_calls": plain_calls.n, "out_rel_l2": out_rel,
+           "out_tol": ERNIE_OUT_REL_L2, "mask_effect_rel_l2": mask_effect,
+           "rel_l2_by_layer": by_layer, "mask_margin": ERNIE_MASK_MARGIN,
+           "grad_rel_l2": all_rel, "grad_tol": ERNIE_GRAD_REL_L2,
+           "grad_rel_l2_worst_params": {k: grad_rel[k] for k in worst[:5]},
+           "grad_param_tol": ERNIE_GRAD_REL_L2_PARAM,
+           "step_ms_kernels": ms, "step_ms_plain_twins": plain_ms,
+           "finite": bool(torch.isfinite(out.float()).all())}
+    res["ok"] = (out_rel <= ERNIE_OUT_REL_L2
+                 and ERNIE_MASK_MARGIN * by_layer["attn0"]["kernels_vs_plain"]
+                 <= by_layer["attn0"]["mask_effect"]
+                 and all_rel <= ERNIE_GRAD_REL_L2
+                 and grad_rel[worst[0]] <= ERNIE_GRAD_REL_L2_PARAM
+                 and masked == dict.fromkeys(masked, n)
+                 and launched == [n, n, n] and plain_calls.n == 0
+                 and res["finite"])
+    del model, out, grads, out_p, grads_p, out_nomask, seen, layers_k, \
+        layers_p, layers_n
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, path_launches
+
+
+def phase_ernie(fa, fd):
+    """ERNIE-3.0 at Titan width through the twin, and ERNIE-base's masked
+    backbone on the mask instantiations (see the module docstring, phase
+    21). Returns the path's launches: {all: every kernel's, masked: the
+    mask instantiations'} over the twin's runs and the backbone's first
+    step on the kernels (not its timing)."""
+    reset_counts(fa, fd)
+    titan = ernie_titan_runs(fa)
+    titan_launches = counts(fa, fd)
+    trace = ernie_titan_trace()
+    backbone, launches = ernie_base_backbone(fa, fd)
+    # the twin's runs launch no mask instantiation; the backbone only them
+    titan_ok = titan_launches["flash_attention_fwd"] == sum(
+        2 * (r["warmup_steps"] + r["steps"]) for r in titan.values())
+    emit({"phase": "ernie", "titan": titan, "titan_launches": titan_launches,
+          "titan_traced_b1_s128": trace,
+          "titan_launches_ok": titan_ok, "ernie_base_backbone": backbone,
+          "launches": launches})
+    bad = ([f"titan {t}" for t, r in titan.items() if not r["ok"]]
+           + ([] if titan_ok else ["titan launches"])
+           + ([] if backbone["ok"] else ["ernie-base backbone"]))
+    if bad:
+        raise AssertionError(f"phase ernie: {bad}")
+    return launches
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7156,6 +7754,10 @@ def main(argv):
         phase_train_moe(fa, fd, flops)
         print(json.dumps({"kernels": [row, row8]}), flush=True)
         return 0
+    if "--ernie" in argv:
+        rows = mask_rows(phase_k1m(fa, bw, flops), phase_ernie(fa, fd))
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     if "--unet" in argv:
         shapes, d256_err = phase_k1h(fa, bw, flops)
         bwd_shapes, bwd_errs = phase_k3h(fa, bw, flops)
@@ -7188,6 +7790,7 @@ def main(argv):
     k1d_rows = phase_k1d(fa, bw, flops, iops)
     k1h_shapes, k1h_err = phase_k1h(fa, bw, flops)
     k3h_shapes, k3h_errs = phase_k3h(fa, bw, flops)
+    k1m_cases = phase_k1m(fa, bw, flops)
     if quick:
         return 0
     model, plan, kv, launches, int8kv_launches = phase_e2e(fa, fd)
@@ -7244,6 +7847,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     train_unet = phase_train_unet(fa, fd, flops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ernie = phase_ernie(fa, fd)
     # row 4's int8 sub-rows: the modes' timings and their plain-version
     # errors (phase k2q); launches on the runs that drive each mode
     k2 = kernels[1]
@@ -7344,6 +7950,13 @@ def main(argv):
     for k in kernels:
         k["launches_by_path"]["train_unet"] = train_unet_launches(
             k, train_unet)
+    # rows 1e, 2d, 3d: the mask modes, launched on path ernie; every
+    # other row's launches there (the Titan twin's K1, K3, K4 without a
+    # mask)
+    for k in kernels:
+        k["launches_by_path"]["ernie"] = 0 if "mode" in k else \
+            ernie["all"].get(k["name"], 0) - ernie["masked"].get(k["name"], 0)
+    kernels += mask_rows(k1m_cases, ernie)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -78,6 +78,22 @@
 //    unconditionally (the last tile's P·V is peeled off), and P is
 //    repacked into the registers P·V(j) reads only after P·V(j) completes.
 //
+//  * Dense masks are a fourth flag (MASK = true, at d 64 and 128; the
+//    kernels without it run the code they ran before): bool or fp32,
+//    read in place through four element strides (0 on a broadcast dim, so
+//    a (b, 1, 1, sk) key-padding mask is never expanded), the contract and
+//    the natural-domain softmax of csrc/attn_mask.cuh. A block walks the
+//    key tiles [lo, hi) that the caller's bounds give it (ops/
+//    flash_attention.py `mask_bounds`, the device-side port of the
+//    reference's _mask_block_bounds, :445, at this kernel's 128 x 128
+//    tiles, the structured limits folded in): a tile is left out only when
+//    no entry can change a row, every entry bool False or float -inf, or
+//    hidden by kv_len or the diagonal; a block holding a row that the mask
+//    hides at every visible key walks all tiles (that row's softmax is the
+//    uniform one over every key, csrc/attn_mask.cuh). The bounds stay on
+//    the device. Every tile takes the per-element mask. The row statistics
+//    are written as the pair (m, log l) in place of the lse.
+//
 //  * Head dims 64, 128 and 256 (the reference's kernel widths). d = 256 is
 //    a fourth instantiation with its own key tile (Fwd<256>::BK = 64: S by
 //    m64n64k16, P·V by m64n256k16 into a 128-float O accumulator a
@@ -95,6 +111,7 @@
 // bf16 and contiguous (16-byte aligned); lse (b, h, sq) fp32; kv_lens (b,)
 // int32 or null.
 
+#include "attn_mask.cuh"
 #include "hopper_sm90.cuh"
 #include "threefry.cuh"
 
@@ -193,6 +210,53 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
   }
 }
 
+// MASK: tile k0's scores through the dense mask (csrc/attn_mask.cuh; the
+// thread's rows r0 and r0 + 8 read the mask from elements mr[0], mr[1]),
+// then the online-softmax update in the natural domain: m, l per row,
+// s -> p = 2^((t − m)·log2 e), alpha the factor that rescales O
+template <int BK>
+__device__ __forceinline__ void softmax_tile_mask(
+    float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    int k0, int r0, int tg, int sk, int kvlen, int causal, int q_off,
+    float scale, const am::Mask& mk, const long long (&mr)[2]) {
+#pragma unroll
+  for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kc = k0 + c * 8 + tg * 2 + j;
+        bool g;
+        float& v = s[4 * c + 2 * i + j];
+        v = am::score(mk, mr[i], kc, sk, v, scale,
+                      kc >= kvlen || (causal && kc > q_off + r0 + 8 * i), g);
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+      mx = fmaxf(mx, fmaxf(s[4 * c + 2 * i], s[4 * c + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+    const float mnew = fmaxf(m[i], mx);
+    // a row with no key yet (every entry -inf) keeps m = -inf: p = 0
+    const float muse = mnew == -INFINITY ? 0.f : mnew;
+    alpha[i] = ex2((m[i] - muse) * am::LOG2E);
+    m[i] = mnew;
+    float rs = 0.f;
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float v = ex2((s[4 * c + 2 * i + j] - muse) * am::LOG2E);
+        s[4 * c + 2 * i + j] = v;
+        rs += v;
+      }
+    l[i] = l[i] * alpha[i] + rs;
+  }
+}
+
 // Dropout on tile k0 of P (the thread's rows r0 and r0 + 8, whose flat
 // score indices start at rb and rb + rs8): a dropped element becomes 0, a
 // kept one P/keep
@@ -224,14 +288,15 @@ __device__ __forceinline__ void issue_pv(
   wgmma_commit();
 }
 
-template <int D, bool WIN, bool DROP>
+template <int D, bool WIN, bool DROP, bool MASK = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out,
                float* __restrict__ lse, const int* __restrict__ kv_lens,
                int sq, int sk, int h, int nkv, int causal, int q_off,
-               int window, float scale, int group, tf::Drop dr) {
+               int window, float scale, int group, tf::Drop dr,
+               am::Mask msk) {
   using C = Fwd<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
@@ -263,9 +328,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
   if (causal) kend = min(kend, q_off + min(q0 + BQ, sq));
   // WIN: the tile of the block's first row's first visible key; both roles
   // load and walk tiles t0 … t0 + ntiles - 1 and count ring stages from t0
-  const int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
-  const int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
+  int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
+  int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
   const int wlo = WIN ? q_off - window : 0;
+  if constexpr (MASK) {
+    // the tiles [lo, hi) of this block's bounds, the structured limits
+    // folded in (and every tile for a block with a dead row)
+    const int* bd = msk.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
+    t0 = bd[0];
+    ntiles = max(0, bd[1] - bd[0]);
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -320,6 +392,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
     // DROP: flat score index of (bi, hi, r0, key 0), and +8 rows
     const uint64_t rb = ((uint64_t)(bi * h + hi) * sq + r0) * sk;
     const uint64_t rs8 = (uint64_t)8 * sk;
+    // MASK: the first mask element of rows r0 and r0 + 8 (-1 past sq)
+    long long mr[2] = {-1, -1};
+    if constexpr (MASK) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (r0 + 8 * i < sq)
+          mr[i] = bi * msk.sb + hi * msk.sh + (long long)(r0 + 8 * i) * msk.sq;
+    }
 
     float o[D / 2];
 #pragma unroll
@@ -343,8 +423,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<0>();
       fence_regs(s);
       mbar_arrive(&empty_k[0]);
-      softmax_tile<BK, WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen,
-                            causal, q_off, wlo, sl2);
+      if constexpr (MASK)
+        softmax_tile_mask<BK>(s, m, l, alpha, t0 * BK, r0, tg, sk, kvlen,
+                              causal, q_off, scale, msk, mr);
+      else
+        softmax_tile<BK, WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen,
+                              causal, q_off, wlo, sl2);
       if constexpr (DROP) drop_tile<BK>(s, dr, rb, rs8, t0 * BK, tg);
       pack_a<BK>(s, p);
       // A pass issues S(it+1) and then P·V(it) (every wgmma unconditional,
@@ -362,8 +446,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         wgmma_wait<1>();
         fence_regs(s);
         mbar_arrive(&empty_k[sn]);   // K(it+1) is read: its stage may refill
-        softmax_tile<BK, WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0,
-                              tg, kvlen, causal, q_off, wlo, sl2);
+        if constexpr (MASK)
+          softmax_tile_mask<BK>(s, m, l, alpha, (t0 + it + 1) * BK, r0, tg,
+                                sk, kvlen, causal, q_off, scale, msk, mr);
+        else
+          softmax_tile<BK, WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0,
+                                tg, kvlen, causal, q_off, wlo, sl2);
         if constexpr (DROP)
           drop_tile<BK>(s, dr, rb, rs8, (t0 + it + 1) * BK, tg);
         wgmma_wait<0>();
@@ -395,16 +483,38 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       float li = l[i];
       li += __shfl_xor_sync(0xffffffff, li, 1);
       li += __shfl_xor_sync(0xffffffff, li, 2);
-      const float inv = li == 0.f ? 0.f : 1.f / li;
+      float inv = li == 0.f ? 0.f : 1.f / li;
       const int r = r0 + 8 * i;
+      if constexpr (MASK) {
+        // a row the structured masks hide wholly gives 0 (the reference's
+        // `structured.any` rule); any other row without a key (a float
+        // row at -inf everywhere) gives NaN, as the twin
+        const int vis = min(kvlen, causal ? q_off + r + 1 : sk);
+        if (vis <= 0) {
+          inv = 0.f;
+          m[i] = am::NEG;
+          li = 0.f;
+        } else if (li == 0.f) {
+          inv = NAN;
+          m[i] = -INFINITY;
+          li = NAN;
+        }
+      }
       if (r < sq) {
 #pragma unroll
         for (int c = 0; c < D / 8; ++c)
           *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
               pack_f2(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
-        if (tg == 0)
+        if constexpr (MASK) {
+          // the pair (m, log l) of (b, h, sq, 2) statistics
+          if (tg == 0)
+            *reinterpret_cast<float2*>(lse + 2 * (((long)bi * h + hi) * sq +
+                                                  r)) =
+                make_float2(m[i], logf(li));
+        } else if (tg == 0) {
           lb[r] = li == 0.f ? NEG_INF
                             : m[i] * 0.6931471805599453f + logf(li);
+        }
       }
     }
   }
@@ -414,7 +524,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const void* kv_lens, int b, int sq, int sk, int h, int nkv,
            int causal, int q_off, int window, float scale, int drop,
-           tf::Drop dr, cudaStream_t st) {
+           tf::Drop dr, const am::Mask& msk, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
   constexpr int BK = Fwd<D>::BK;
@@ -424,9 +534,13 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   // window > 0 (with causal): the windowed instantiation; drop: the
   // dropout one. d = 256 has neither yet: only its plain instantiation is
   // built
+  // a mask (msk.p): the mask one, without the window or dropout
   auto kern = flash_fwd_sm90<D, false, false>;
   if constexpr (D == 256) {
+    if (window > 0 || drop || msk.p) return (int)cudaErrorInvalidValue;
+  } else if (msk.p) {
     if (window > 0 || drop) return (int)cudaErrorInvalidValue;
+    kern = flash_fwd_sm90<D, false, false, true>;
   } else {
     kern = window > 0 ? (drop ? flash_fwd_sm90<D, true, true>
                               : flash_fwd_sm90<D, true, false>)
@@ -441,32 +555,36 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const int grid = ((sq + BQ - 1) / BQ) * h * b;
   kern<<<grid, THREADS, Fwd<D>::SMEM, st>>>(
       mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-      nkv, causal, q_off, window, scale, group, dr);
+      nkv, causal, q_off, window, scale, group, dr, msk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // drop: the dropout instantiation, keyed by (k1, k2), an element kept iff
-// its top 23 bits are below thr, a kept probability scaled by inv = 1/keep
+// its top 23 bits are below thr, a kept probability scaled by inv = 1/keep.
+// mask (or null): the dense mask (csrc/attn_mask.cuh), its bounds
+// (b, h, ceil(sq/128), 2) int32, each block's [lo, hi) of 128-key tiles;
+// lse is then the (b, h, sq, 2) pairs (m, log l)
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, const void* kv_lens,
                                    int b, int sq, int sk, int h, int nkv,
                                    int d, int causal, int q_off, int window,
-                                   float scale, int drop, unsigned k1,
-                                   unsigned k2, unsigned thr, float inv,
-                                   void* stream) {
+                                   float scale, const am::Mask* mask,
+                                   int drop, unsigned k1, unsigned k2,
+                                   unsigned thr, float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
   const tf::Drop dr{k1, k2, thr, inv};
+  const am::Mask msk = mask ? *mask : am::Mask{};
   if (d == 128)
     return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, drop, dr, st);
+                       q_off, window, scale, drop, dr, msk, st);
   if (d == 64)
     return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                      q_off, window, scale, drop, dr, st);
+                      q_off, window, scale, drop, dr, msk, st);
   if (d == 256)
     return launch<256>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, drop, dr, st);
+                       q_off, window, scale, drop, dr, msk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -65,14 +65,33 @@
 // hi)·sq + q)·sk + k (csrc/threefry.cuh), from the coordinates its masks
 // already use: K3 in k3_ds, K4 in k4_drop_ds (dSᵀ, and Pᵀ dropped for dv).
 //
+// Dense masks are a fourth flag (MASK = true, at d 64 and 128; the kernels
+// without it run the code they ran before), K1's mask mode's backward
+// (csrc/flash_attention.cu, csrc/attn_mask.cuh): each element's masked
+// score t is recomputed as the forward took it, P = 2^((t − m)·log2 e −
+// log2 l) from the forward's pair (m, log l), and
+//   dS = P∘(dP − Δ) where t depends on s (a float mask, or a bool True
+//        the structured masks leave visible), 0 elsewhere;
+//   dv = Pᵀ·dO over every element (P is nonzero off those only in a dead
+//        row, whose uniform softmax weighs every key, csrc/attn_mask.cuh).
+// K3 walks each 128-row block's [lo, hi) of 64-key tiles and K4 each
+// 128-key block's [lo, hi) of 64-row query tiles from the caller's bounds
+// (ops/flash_attention.py `mask_bounds`: the reference's
+// _mask_block_bounds, :445, per query block for dq and per key block,
+// axis_q=False, for dk/dv; under GQA the union over the kv head's query
+// heads, whose own mask rows K4 reads). Every tile takes the per-element
+// mask, and the mask modes skip no tile of the range.
+//
 // Layouts: q, dout (b, sq, h, d), k/v (b, sk, nkv, d), dq (b, sq, h, d),
 // dk/dv (b, sk, nkv, d), all bf16 and contiguous; lse, delta (b, h, sq)
-// fp32; kv_lens (b,) int32 or null.
+// fp32 ((b, h, sq, 2) pairs (m, log l) for lse in the mask modes); kv_lens
+// (b,) int32 or null.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_mask.cuh"
 #include "hopper_sm90.cuh"
 #include "threefry.cuh"
 
@@ -250,7 +269,33 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK / 2],
       }
 }
 
-template <int D, bool WIN, bool DROP>
+// MASK: dS = P∘(dP − Δ) in place of dP where t depends on s, else 0, with
+// t the masked score of csrc/attn_mask.cuh (rows r0 + 8i read the mask
+// from element mr[i]) and P from the row's (m, log2 l) in (mm, lg)
+template <int BK>
+__device__ __forceinline__ void k3_ds_mask(
+    const float (&sa)[BK / 2], float (&dp)[BK / 2], const float (&mm)[2],
+    const float (&lg)[2], const float (&dl)[2], int k0, int r0, int tg,
+    int sk, int kvlen, int causal, int q_off, float scale, const am::Mask& mk,
+    const long long (&mr)[2]) {
+#pragma unroll
+  for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * c + 2 * i + j;
+        const int key = k0 + c * 8 + tg * 2 + j;
+        bool g;
+        const float t = am::score(
+            mk, mr[i], key, sk, sa[e], scale,
+            key >= kvlen || (causal && key > q_off + r0 + 8 * i), g);
+        const float p = am::prob(t, mm[i], lg[i]);
+        dp[e] = g ? p * (dp[e] - dl[i]) : 0.f;
+      }
+}
+
+template <int D, bool WIN, bool DROP, bool MASK = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const __grid_constant__ CUtensorMap mk,
@@ -260,7 +305,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   const int* __restrict__ kv_lens, int sq, int sk, int h,
                   int nkv, int causal, int q_off, int window, float scale,
-                  int group, tf::Drop dr) {
+                  int group, tf::Drop dr, am::Mask msk) {
   using C = Dq<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
@@ -293,9 +338,16 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
   // WIN: the tile of the block's first row's first visible key; both roles
   // load and walk the ring's tiles t0 … t0 + ntiles - 1 and count ring
   // stages from t0
-  const int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
-  const int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
+  int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
+  int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
   const int wlo = WIN ? q_off - window : 0;
+  if constexpr (MASK) {
+    // the tiles [lo, hi) of this block's bounds (structured limits folded
+    // in; every tile for a block with a dead row)
+    const int* bd = msk.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
+    t0 = bd[0];
+    ntiles = max(0, bd[1] - bd[0]);
+  }
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(qbar, 1);
@@ -352,11 +404,20 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
     float l2[2], dl[2];
     const float* lb = lse + ((long)bi * h + hi) * sq;
     const float* db = delta + ((long)bi * h + hi) * sq;
+    // MASK: the rows' m (in mm; l2 holds log2 l) and first mask elements
+    float mm[2] = {0.f, 0.f};
+    long long mr[2] = {-1, -1};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
-      const float l = r < sq ? lb[r] : NEG_INF;
-      l2[i] = l > NEG_INF * 0.5f ? l * 1.4426950408889634f : INFINITY;
+      if constexpr (MASK) {
+        am::row_stats(lse + 2 * ((long)bi * h + hi) * sq, r, sq, mm[i],
+                      l2[i]);
+        if (r < sq) mr[i] = bi * msk.sb + hi * msk.sh + (long long)r * msk.sq;
+      } else {
+        const float l = r < sq ? lb[r] : NEG_INF;
+        l2[i] = l > NEG_INF * 0.5f ? l * 1.4426950408889634f : INFINITY;
+      }
       dl[i] = r < sq ? db[r] : 0.f;
     }
 
@@ -380,7 +441,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       // tile t0 + j)
       int kg = kvlen;
       if (causal) kg = min(kg, q_off + min(rw0 + 64, sq));
-      const int nt = rw0 >= sq ? 0 : (kg > 0 ? (kg + BK - 1) / BK - t0 : 0);
+      const int nt = rw0 >= sq ? 0
+                     : MASK   ? ntiles
+                              : (kg > 0 ? (kg + BK - 1) / BK - t0 : 0);
       const int j0 =
           WIN ? min(ntiles, max(0, q_off + rw0 - window + 1) / BK - t0) : 0;
       // tile k0 straddles the causal diagonal, the kv_len edge or (WIN) the
@@ -405,8 +468,12 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::fence_regs(sa);
         sm90::fence_regs(dp);
         const int kb = (t0 + j0) * BK;
-        k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen, causal,
-                         q_off, wlo, sl2, dr, rb, rs8);
+        if constexpr (MASK)
+          k3_ds_mask<BK>(sa, dp, mm, l2, dl, kb, r0, tg, sk, kvlen, causal,
+                         q_off, scale, msk, mr);
+        else
+          k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen,
+                               causal, q_off, wlo, sl2, dr, rb, rs8);
         sm90::pack_a<BK>(dp, da);
         // K1's overlap (see "Scheduling within a group" above)
         for (int it = j0; it + 1 < nt; ++it) {
@@ -419,8 +486,12 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::wgmma_wait<1>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
-                           causal, q_off, wlo, sl2, dr, rb, rs8);
+          if constexpr (MASK)
+            k3_ds_mask<BK>(sa, dp, mm, l2, dl, k1, r0, tg, sk, kvlen, causal,
+                           q_off, scale, msk, mr);
+          else
+            k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
+                                 causal, q_off, wlo, sl2, dr, rb, rs8);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(acc);
           sm90::fence_regs(da);
@@ -462,7 +533,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* kv_lens, int b, int sq, int sk, int h, int nkv,
               int causal, int q_off, int window, float scale, int drop,
-              tf::Drop dr, cudaStream_t st) {
+              tf::Drop dr, const am::Mask& msk, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
@@ -475,7 +546,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   // built
   auto kern = flash_bwd_dq_sm90<D, false, false>;
   if constexpr (D == 256) {
+    if (window > 0 || drop || msk.p) return (int)cudaErrorInvalidValue;
+  } else if (msk.p) {
     if (window > 0 || drop) return (int)cudaErrorInvalidValue;
+    kern = flash_bwd_dq_sm90<D, false, false, true>;
   } else {
     kern = window > 0 ? (drop ? flash_bwd_dq_sm90<D, true, true>
                               : flash_bwd_dq_sm90<D, true, false>)
@@ -491,7 +565,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, Dq<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
       (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window, scale,
-      group, dr);
+      group, dr, msk);
   return (int)cudaGetLastError();
 }
 
@@ -550,7 +624,8 @@ struct Dkv {
   static constexpr int Q_OFF = 2 * KV_BYTES;                // Q stages
   static constexpr int O_OFF = Q_OFF + ST * QT_BYTES;       // dO stages
   static constexpr int ROW_OFF = O_OFF + ST * QT_BYTES;     // lse·log2e, Δ
-  static constexpr int BAR_OFF = ROW_OFF + ST * 2 * BQ4 * 4;
+  // (the mask modes: log2 l, Δ and m)
+  static constexpr int BAR_OFF = ROW_OFF + ST * 3 * BQ4 * 4;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * ST) * 8 + 1024;
 };
 
@@ -627,7 +702,40 @@ __device__ __forceinline__ void k4_ds(const float (&sa)[BQ4 / 2],
   }
 }
 
-template <int D, bool WIN, bool DROP>
+// MASK: Pᵀ in place of Sᵀ and dSᵀ in place of dPᵀ (k4_p and k4_ds in one
+// pass), with t the masked score of csrc/attn_mask.cuh for (key c0 + 8i,
+// query q0 + 8c + 2·tg + j) of query head hq: mh = b·sb + hq·sh; ls holds
+// the tile's log2 l, then Δ, then m
+__device__ __forceinline__ void k4_pds_mask(float (&sa)[BQ4 / 2],
+                                            float (&dp)[BQ4 / 2],
+                                            const float* ls, int c0, int tg,
+                                            int q0, int sq, int sk, int kvlen,
+                                            int causal, int q_off, float scale,
+                                            const am::Mask& mk, long long mh) {
+#pragma unroll
+  for (int c = 0; c < BQ4 / 8; ++c) {
+    const int qi = c * 8 + tg * 2;
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+    const float2 d2 = *reinterpret_cast<const float2*>(ls + BQ4 + qi);
+    const float2 m2 = *reinterpret_cast<const float2*>(ls + 2 * BQ4 + qi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * c + 2 * i + j;
+        const int key = c0 + 8 * i, q = q0 + qi + j;
+        bool g;
+        const float t = am::score(
+            mk, q < sq ? mh + (long long)q * mk.sq : -1, key, sk, sa[e],
+            scale, key >= kvlen || (causal && key > q_off + q), g);
+        const float p = am::prob(t, j ? m2.y : m2.x, j ? l2.y : l2.x);
+        dp[e] = g ? p * (dp[e] - (j ? d2.y : d2.x)) : 0.f;
+        sa[e] = p;
+      }
+  }
+}
+
+template <int D, bool WIN, bool DROP, bool MASK = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mk,
@@ -637,7 +745,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, const int* __restrict__ kv_lens,
                    int sq, int sk, int h, int nkv, int causal, int q_off,
-                   int window, float scale, int group, tf::Drop dr) {
+                   int window, float scale, int group, tf::Drop dr,
+                   am::Mask msk) {
   using C = Dkv<D>;
   constexpr int ST = C::ST;
   constexpr int BKEY = C::BKEY;
@@ -667,8 +776,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
   if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[bi], sk));
   // the first query row that can see a key of this block
   const int nqt = (sq + BQ4 - 1) / BQ4;
-  const int qt0 = k0 >= kvlen ? nqt
-                              : (causal ? max(0, k0 - q_off) : 0) / BQ4;
+  int qt0 = k0 >= kvlen ? nqt : (causal ? max(0, k0 - q_off) : 0) / BQ4;
   // WIN: the query tiles end at the one of the last row that sees the
   // block's last key, row k0 + BKEY - 1 + window - 1 - q_off
   int qhi = nqt;
@@ -677,6 +785,13 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
     qhi = last < 0 ? 0 : min(nqt, last / BQ4 + 1);
   }
   const int wlo = WIN ? q_off - window : 0;
+  if constexpr (MASK) {
+    // the query tiles [lo, hi) of this key block's bounds (the union over
+    // the kv head's query heads, the structured limits folded in)
+    const int* bd = msk.bounds + 2 * (((long)bi * nkv + kh) * nkt + ord.tile);
+    qt0 = bd[0];
+    qhi = bd[1];
+  }
   const int per_head = max(0, qhi - qt0);
 
   if (threadIdx.x == 0) {
@@ -716,11 +831,16 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
         for (int qt = qt0; qt < qhi; ++qt, ++it) {
           const int s = it % ST, q0 = qt * BQ4;
           sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
-          float* ls = rows + s * 2 * BQ4;
+          float* ls = rows + s * 3 * BQ4;
           for (int i = lane; i < BQ4; i += 32) {
             const int q = q0 + i;
-            const float l = q < sq ? lb[q] : NEG_INF;
-            ls[i] = l > NEG_INF * 0.5f ? l * 1.4426950408889634f : INFINITY;
+            if constexpr (MASK) {
+              am::row_stats(lse + 2 * ((long)bi * h + hi) * sq, q, sq,
+                            ls[2 * BQ4 + i], ls[i]);
+            } else {
+              const float l = q < sq ? lb[q] : NEG_INF;
+              ls[i] = l > NEG_INF * 0.5f ? l * 1.4426950408889634f : INFINITY;
+            }
             ls[BQ4 + i] = q < sq ? db[q] : 0.f;
           }
           if (lane == 0) {
@@ -775,8 +895,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
       const int n = n_rep * per_head;
       auto skip = [&](int it) {
         const int qa = (qt0 + it % per_head) * BQ4;
-        return kw0 >= kvlen || (causal && kw0 > q_off + qa + BQ4 - 1) ||
-               (WIN && kw0 + 63 <= wlo + qa);
+        return !MASK && (kw0 >= kvlen || (causal && kw0 > q_off + qa + BQ4 - 1) ||
+               (WIN && kw0 + 63 <= wlo + qa));
       };
       // Each pass is self-contained (its products are waited for inside
       // it): no wgmma is in flight across the loop edge, which would make
@@ -788,7 +908,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
         if (!skip(it)) {
           float sa[BQ4 / 2], dp[BQ4 / 2];
           uint32_t pa[BQ4 / 16][4], da[BQ4 / 16][4];
-          const float* ls = rows + s * 2 * BQ4;   // lse·log2 e, then Δ
+          const float* ls = rows + s * 3 * BQ4;   // lse·log2 e, then Δ
           const bool edge = kw0 + 63 >= kvlen ||
                             (causal && kw0 + 63 > q_off + q0) ||
                             (WIN && kw0 <= wlo + q0 + 63);
@@ -798,9 +918,17 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::wgmma_wait<0>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          k4_p<WIN>(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, wlo,
-                    sl2);
-          if constexpr (DROP) {
+          if constexpr (MASK) {
+            // the mask rows of query head kh·n_rep + it / per_head
+            k4_pds_mask(sa, dp, ls, c0, tg, q0, sq, sk, kvlen, causal, q_off,
+                        scale, msk,
+                        bi * msk.sb + (kh * n_rep + it / per_head) * msk.sh);
+          } else {
+            k4_p<WIN>(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, wlo,
+                      sl2);
+          }
+          if constexpr (MASK) {
+          } else if constexpr (DROP) {
             // the scores of head kh·n_rep + it / per_head
             const uint64_t hb =
                 (uint64_t)(bi * h + kh * n_rep + it / per_head) * sq * sk;
@@ -847,7 +975,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* kv_lens, int b, int sq, int sk, int h, int nkv,
                int causal, int q_off, int window, float scale, int drop,
-               tf::Drop dr, cudaStream_t st) {
+               tf::Drop dr, const am::Mask& msk, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ4);
@@ -860,7 +988,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   // built
   auto kern = flash_bwd_dkv_sm90<D, false, false>;
   if constexpr (D == 256) {
+    if (window > 0 || drop || msk.p) return (int)cudaErrorInvalidValue;
+  } else if (msk.p) {
     if (window > 0 || drop) return (int)cudaErrorInvalidValue;
+    kern = flash_bwd_dkv_sm90<D, false, false, true>;
   } else {
     kern = window > 0 ? (drop ? flash_bwd_dkv_sm90<D, true, true>
                               : flash_bwd_dkv_sm90<D, true, false>)
@@ -876,7 +1007,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, Dkv<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window,
-      scale, group, dr);
+      scale, group, dr, msk);
   return (int)cudaGetLastError();
 }
 
@@ -888,24 +1019,30 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dq, const void* kv_lens, int b,
                                       int sq, int sk, int h, int nkv, int d,
                                       int causal, int q_off, int window,
-                                      float scale, int drop, unsigned k1,
-                                      unsigned k2, unsigned thr, float inv,
-                                      void* stream) {
+                                      float scale, const am::Mask* mask,
+                                      int drop, unsigned k1, unsigned k2,
+                                      unsigned thr, float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // window: 0 = none; a window needs causal (the reference's validation)
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   // drop: the forward's draw, as K1 takes it
   const tf::Drop dr{k1, k2, thr, inv};
+  // mask (or null): as K1 takes it, its bounds (b, h, ceil(sq/128), 2)
+  // each block's [lo, hi) of 64-key tiles; lse the (b, h, sq, 2) pairs
+  const am::Mask msk = mask ? *mask : am::Mask{};
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, window, scale, drop, dr, st);
+                          h, nkv, causal, q_off, window, scale, drop, dr,
+                          msk, st);
   if (d == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                         h, nkv, causal, q_off, window, scale, drop, dr, st);
+                         h, nkv, causal, q_off, window, scale, drop, dr,
+                          msk, st);
   if (d == 256)
     return launch_dq<256>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, window, scale, drop, dr, st);
+                          h, nkv, causal, q_off, window, scale, drop, dr,
+                          msk, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -916,25 +1053,28 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* kv_lens, int b, int sq,
                                        int sk, int h, int nkv, int d,
                                        int causal, int q_off, int window,
-                                       float scale, int drop, unsigned k1,
-                                       unsigned k2, unsigned thr, float inv,
-                                       void* stream) {
+                                       float scale, const am::Mask* mask,
+                                       int drop, unsigned k1, unsigned k2,
+                                       unsigned thr, float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // window: 0 = none; a window needs causal (the reference's validation)
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const tf::Drop dr{k1, k2, thr, inv};
+  // mask (or null): as K1 takes it, its bounds (b, nkv, ceil(sk/128), 2)
+  // each key block's [lo, hi) of 64-row query tiles
+  const am::Mask msk = mask ? *mask : am::Mask{};
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                            sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                           st);
+                           msk, st);
   if (d == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                           sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                          st);
+                          msk, st);
   if (d == 256)
     return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                            sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                           st);
+                           msk, st);
   return (int)cudaErrorInvalidValue;
 }

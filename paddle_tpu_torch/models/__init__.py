@@ -1,3 +1,8 @@
+from paddle_tpu_torch.models.ernie import (  # noqa: F401
+    ErnieConfig,
+    ErnieForPretraining,
+    ErnieModel,
+)
 from paddle_tpu_torch.models.gpt import (  # noqa: F401
     GPTConfig,
     GPTPretrainModel,

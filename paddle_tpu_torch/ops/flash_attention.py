@@ -60,6 +60,24 @@ in a windowed instantiation that skips the tiles wholly outside the window
 tiles past the last row that sees its block's last key). On the card a
 windowed call launches the windowed kernels or raises: it never runs
 without the window and never falls back to a plain version.
+
+``attn_mask`` is the reference's dense mask, bool (False hides a key) or
+float (added to the scaled score), broadcast right-aligned against
+``(b, h, sq, sk)`` as ``jnp.where`` does (2-D ``(sq, sk)``, 3-D
+``(h|1, sq, sk)``, any dim 1). The contract is ``_xla_attention``'s: a
+hidden key scores ``NEG_INF``, a float mask adds in fp32 after the
+structured masks put ``NEG_INF`` on their keys, and a row whose every key
+is hidden by a bool mask takes the uniform softmax over all sk keys (the
+mean of v; the reference's Pallas kernel gives 0 there, ROADMAP Queue C).
+K1, K3 and K4 compute it in their mask instantiations (``MASK``, d 64 and
+128; csrc/attn_mask.cuh), reading the mask in place through four element
+strides, each block walking the tiles of ``mask_bounds`` (the device-side
+port of the reference's ``_mask_block_bounds``). The mask mode keeps a
+row's statistics as the pair (m, log l), shape (b, h, sq, 2), in place of
+the lse: a float mask can put a whole row at −1e10 and a bool mask at
+−1e30, where an fp32 lse m + log l loses log l, and with it the backward's
+1/l. A dense mask with the window, with dropout, or at kernel d 256 raises
+(ROADMAP Queue B rows 1-3).
 """
 
 import ctypes
@@ -82,6 +100,11 @@ KERNEL_DEVICE = "cuda"
 # zero-pads any other d <= 256 to the next of them (_pad_head_dim)
 FWD_DIMS = (64, 128, 256)
 BWD_DIMS = (64, 128, 256)
+# the kernels' tiles, which the mask bounds count in: K1 and K3 walk 128-
+# (K1) or 64-key (K3) tiles for blocks of 128 query rows, K4 64-row query
+# tiles for blocks of 128 keys
+BLOCK_ROWS, K1_KEYS, K3_KEYS = 128, 128, 64
+K4_KEYS, K4_ROWS = 128, 64
 
 
 def _repeat_kv(k, n_rep):
@@ -127,6 +150,166 @@ def _structured_mask(sq, sk, is_causal, kv_lens, causal_offset, device,
     for extra in masks[1:]:
         m = m & extra
     return m
+
+
+def dense_mask(attn_mask, b, h, sq, sk, device=None):
+    """The dense mask as the kernels and the plain twins take it: a 4-d
+    view whose dims are each 1 or (b, h, sq, sk), right-aligned as
+    ``jnp.where`` broadcasts it; bool stays bool, any other dtype becomes
+    fp32 (exact for bf16 and fp16, as the reference's ``_kernel_mask``).
+    Raises on a shape that does not broadcast."""
+    m = torch.as_tensor(attn_mask, device=device)
+    if m.dim() > 4 or any(n not in (1, t) for n, t in zip(
+            m.shape[::-1], (sk, sq, h, b))):
+        raise ValueError(f"attn_mask of shape {tuple(m.shape)} does not "
+                         f"broadcast to (b, h, sq, sk) = {(b, h, sq, sk)}")
+    m = m.reshape((1,) * (4 - m.dim()) + tuple(m.shape))
+    return m if m.dtype == torch.bool else m.float()
+
+
+def _visible_keys(b, sq, sk, is_causal, kv_lens, causal_offset, device):
+    """(b|1, sq): the keys [0, n) the structured masks leave each row."""
+    vis = torch.full((1, sq), sk, dtype=torch.int64, device=device)
+    if kv_lens is not None:
+        kl = torch.as_tensor(kv_lens, device=device).reshape(-1)
+        vis = torch.minimum(vis, kl.to(torch.int64).clamp(0, sk).expand(
+            b)[:, None])
+    if is_causal:
+        off = sk - sq if causal_offset is None else int(causal_offset)
+        vis = torch.minimum(vis, (torch.arange(sq, device=device) + off
+                                  + 1).clamp(min=0)[None])
+    return vis
+
+
+def _tiles_any(x, n, t):
+    """(..., n·t) bool padded with False, then any over tiles of t along
+    the last axis: (..., n)."""
+    buf = torch.zeros(x.shape[:-1] + (n * t,), dtype=torch.bool,
+                      device=x.device)
+    buf[..., :x.shape[-1]] = x
+    return buf.reshape(x.shape[:-1] + (n, t)).any(-1)
+
+
+def _first_last(x, empty):
+    """(lo, hi): the first True along the last axis and one past the last
+    one; (empty, 0) where there is none."""
+    n = x.shape[-1]
+    has = x.any(-1)
+    lo = torch.where(has, x.to(torch.uint8).argmax(-1), empty)
+    hi = torch.where(has, n - x.flip(-1).to(torch.uint8).argmax(-1), 0)
+    return lo, hi
+
+
+def _pairs(lo, hi, shape):
+    """int32 (*shape, 2) of [lo, hi), an empty range as (0, 0)."""
+    empty = lo >= hi
+    lo = torch.where(empty, 0, lo)
+    hi = torch.where(empty, 0, hi)
+    return torch.stack([lo.expand(shape), hi.expand(shape)],
+                       -1).to(torch.int32).contiguous()
+
+
+def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
+                causal_offset=None):
+    """The tiles each block of K1, K3 and K4 walks under a dense mask: the
+    reference's ``_mask_block_bounds`` (:445, all-masked prefix and suffix
+    blocks skipped, per row block or, ``axis_q=False``, per key block) at
+    the port kernels' own tiles, computed on the mask's device with no host
+    sync. `mask` is ``dense_mask``'s view. Returns int32 [lo, hi) pairs:
+    ``fwd`` (b, h, ceil(sq/128), 2) of K1's 128-key tiles, ``dq`` the same
+    of K3's 64-key tiles, ``dkv`` (b, nkv, ceil(sk/128), 2) of K4's 64-row
+    query tiles, the union over a kv head's query heads.
+
+    A tile is left out only when no entry can change a row: every entry
+    bool False or float −inf, or hidden by the structured masks (kv_lens,
+    causal), which are folded in. A "dead" row, some key visible to the
+    structured masks but none of them valid (bool True, or a float entry
+    above NEG_INF / 2), takes the softmax over every key (the uniform one
+    for a bool mask: the mean of v), so its row block walks every key tile
+    and its query tile lies in every key block's range."""
+    dev = mask.device
+    mb, mh, mq = mask.shape[:3]
+    if mask.dtype == torch.bool:
+        skip_ok, live = mask, mask
+    else:
+        skip_ok = mask != float("-inf")   # NaN stays in
+        live = mask > NEG_INF * 0.5
+    skip_ok = skip_ok.expand(mb, mh, mq, sk)
+    live = live.expand(mb, mh, mq, sk)
+    vis = _visible_keys(b, sq, sk, is_causal, kv_lens, causal_offset, dev)
+    first = torch.where(live.any(-1), live.to(torch.uint8).argmax(-1), sk)
+    dead = (vis[:, None] > 0) & (first >= vis[:, None])    # (B, mh, sq)
+
+    nqb = -(-sq // BLOCK_ROWS)
+    nk3 = -(-sk // K3_KEYS)
+    nk1 = -(-sk // K1_KEYS)
+    dead_b = _tiles_any(dead, nqb, BLOCK_ROWS)              # (B, mh, nqb)
+    tiles = _tiles_any(skip_ok, nk3, K3_KEYS)               # (mb, mh, mq, nk3)
+    if mq != 1:
+        tiles = _tiles_any(tiles.transpose(2, 3), nqb,
+                           BLOCK_ROWS).transpose(2, 3)      # (mb, mh, nqb, nk3)
+    lo3, hi3 = _first_last(tiles, nk3)
+    # the structured limit of each block: its last row's visible keys
+    last = torch.clamp(torch.arange(nqb, device=dev) * BLOCK_ROWS
+                       + BLOCK_ROWS - 1, max=sq - 1)
+    kend = vis[:, last][:, None]                           # (vb, 1, nqb)
+    hi3 = torch.minimum(hi3, -(-kend // K3_KEYS))
+    lo1, hi1 = lo3 // 2, (hi3 + 1) // 2
+    lo3, hi3 = torch.where(dead_b, 0, lo3), torch.where(dead_b, nk3, hi3)
+    lo1, hi1 = torch.where(dead_b, 0, lo1), torch.where(dead_b, nk1, hi1)
+
+    nkb = -(-sk // K4_KEYS)
+    nqt = -(-sq // K4_ROWS)
+    keys = _tiles_any(skip_ok, nkb, K4_KEYS)                # (mb, mh, mq, nkb)
+    if mq == 1:
+        rows = keys.expand(mb, mh, nqt, nkb)
+    else:
+        rows = _tiles_any(keys.transpose(2, 3), nqt,
+                          K4_ROWS).transpose(2, 3)          # (mb, mh, nqt, nkb)
+    dead_t = _tiles_any(dead, nqt, K4_ROWS)                 # (B, mh, nqt)
+    if mh == h and nkv < h:   # a kv head walks its query heads' union
+        rows = rows.reshape(mb, nkv, h // nkv, nqt, nkb).any(2)
+        dead_t = dead_t.reshape(dead_t.shape[0], nkv, h // nkv, nqt).any(2)
+    lo4, hi4 = _first_last(rows.transpose(2, 3), nqt)       # (mb, mh', nkb)
+    # the structured lower limit: no row sees a key past its kv_len; under
+    # causal the first row that sees key k0 is k0 - offset (K4's qt0)
+    k0 = torch.arange(nkb, device=dev) * K4_KEYS
+    kvlen = _visible_keys(b, 1, sk, False, kv_lens, None, dev)   # (vb, 1)
+    off = sk - sq if causal_offset is None else int(causal_offset)
+    qs0 = ((k0 - off).clamp(min=0) // K4_ROWS if is_causal
+           else torch.zeros_like(k0))[None]
+    qs0 = torch.where(k0[None] >= kvlen, nqt, qs0)          # (vb, nkb)
+    lo4 = torch.maximum(lo4, qs0[:, None])
+    empty4 = lo4 >= hi4
+    lo4, hi4 = torch.where(empty4, nqt, lo4), torch.where(empty4, 0, hi4)
+    lox, hix = _first_last(dead_t, nqt)                     # (B, mh')
+    lo4 = torch.minimum(lo4, lox[..., None])
+    hi4 = torch.maximum(hi4, hix[..., None])
+    return {"fwd": _pairs(lo1, hi1, (b, h, nqb)),
+            "dq": _pairs(lo3, hi3, (b, h, nqb)),
+            "dkv": _pairs(lo4, hi4, (b, nkv, nkb))}
+
+
+def _call_bounds(q, k, attn_mask, is_causal, kv_lens, causal_offset):
+    """``mask_bounds`` of a call's mask on (b, sq, h, d) q and (b, sk,
+    nkv, d) k."""
+    b, sq, h, _ = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    return mask_bounds(dense_mask(attn_mask, b, h, sq, sk), b, h, nkv, sq,
+                       sk, is_causal, kv_lens, causal_offset)
+
+
+def _masked_scores(s, mask, structured):
+    """The scores of ``_xla_attention`` under a dense mask (s scaled, fp32):
+    t = where(structured, s, NEG_INF), then where(mask, t, NEG_INF) for a
+    bool mask or t + mask for a float one; and g, where t depends on s."""
+    neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
+    t = s if structured is None else torch.where(structured, s, neg)
+    g = torch.ones((), dtype=torch.bool, device=s.device) \
+        if structured is None else structured
+    if mask.dtype == torch.bool:
+        return torch.where(mask, t, neg), g & mask
+    return t + mask.to(s.dtype), g
 
 
 def _check_dropout(dropout_p, key):
@@ -192,12 +375,14 @@ def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
 
 def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
                               kv_lens=None, causal_offset=None, window=None,
-                              dropout_p=0.0, key=None):
+                              dropout_p=0.0, key=None, attn_mask=None):
     """Plain twin of the kernel: (out (b, sq, h, d) in q's dtype, lse
     (b, h, sq) fp32), computed in fp32. Fully-masked rows give out 0 and
     lse NEG_INF, as the kernel does. With ``dropout_p`` the normalised
     probabilities are dropped by ``attention_keep_mask(key)``; the lse
-    stays the undropped one."""
+    stays the undropped one. With ``attn_mask`` the scores are
+    ``_xla_attention``'s and the lse is the pair (m, log l), (b, h, sq, 2)
+    (``_masked_fwd_plain``)."""
     dropout_p = _check_dropout(dropout_p, key)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -208,6 +393,10 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
     mask = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
                             q.device, window)
+    if attn_mask is not None:
+        _refuse_mask_modes("flash_attention_fwd_plain", window, dropout_p)
+        return _masked_fwd_plain(s, vf, mask, dense_mask(
+            attn_mask, b, h, sq, sk, q.device), q.dtype)
     if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(-1, keepdim=True)
@@ -225,15 +414,54 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
     return out, lse
 
 
+def _masked_fwd_plain(s, vf, structured, mask, dtype):
+    """The mask mode of the forward twin: out = softmax(t)·v over every key
+    with t ``_masked_scores``'s, and the pair (m, log l); a row the
+    structured masks hide wholly gives 0 and (NEG_INF, −inf), a float row
+    at −inf everywhere NaN (as ``_xla_attention``'s softmax)."""
+    t, _ = _masked_scores(s, mask, structured)
+    m = t.amax(-1, keepdim=True)
+    p = torch.exp(t - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vf)
+    stats = torch.cat([m, torch.log(l)], -1)
+    if structured is not None:
+        live = structured.any(-1, keepdim=True)                # (., 1, sq, 1)
+        out = torch.where(live[..., 0].transpose(1, 2)[..., None], out,
+                          torch.zeros((), device=out.device))
+        stats = torch.where(live, stats, torch.tensor(
+            [NEG_INF, -math.inf], device=out.device))
+    return out.to(dtype), stats.expand(t.shape[:3] + (2,)).contiguous()
+
+
+def _masked_bwd_plain(s, qf, kf, vf, of, out, stats, structured, mask,
+                      scale):
+    """The mask mode of the backward twin: P = exp(t − m − log l) from the
+    forward's pair (0 where l = 0), dS = P∘(dP − Δ) where t depends on s
+    and 0 elsewhere, dv = Pᵀ·dO over every element."""
+    t, g = _masked_scores(s, mask, structured)
+    m, logl = stats.float()[..., :1], stats.float()[..., 1:]
+    p = torch.exp(t - m - torch.where(logl == -math.inf, math.inf, logl))
+    delta = (of * out.float()).sum(-1).transpose(1, 2)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", of, vf)
+    ds = torch.where(g, p * (dp - delta), torch.zeros((), device=s.device))
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, of))
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
                               scale=None, kv_lens=None, causal_offset=None,
-                              window=None, dropout_p=0.0, key=None):
+                              window=None, dropout_p=0.0, key=None,
+                              attn_mask=None):
     """Plain twin of the backward kernels: (dq, dk, dv) in fp32 from the
     forward's (out, lse), with the kernels' contract: P = exp(S·scale − lse)
     on visible keys and 0 on a row whose lse is NEG_INF, Δ = rowsum(dO∘O),
     dS = P∘(dP − Δ), dq = scale·dS·K, dk = scale·dSᵀ·Q, dv = Pᵀ·dO, and the
     GQA groups summed into their kv head. With ``dropout_p`` (Z the keep
-    mask of `key`): dS = P∘(dP∘Z/keep − Δ) and dv = (P∘Z/keep)ᵀ·dO."""
+    mask of `key`): dS = P∘(dP∘Z/keep − Δ) and dv = (P∘Z/keep)ᵀ·dO. With
+    ``attn_mask`` `lse` is the forward's pair (m, log l)
+    (``_masked_bwd_plain``)."""
     dropout_p = _check_dropout(dropout_p, key)
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
@@ -243,6 +471,16 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
     qf, of = q.float(), dout.float()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if attn_mask is not None:
+        _refuse_mask_modes("flash_attention_bwd_plain", window, dropout_p)
+        dq, dk, dv = _masked_bwd_plain(
+            s, qf, kf, vf, of, out, lse, _structured_mask(
+                sq, sk, is_causal, kv_lens, causal_offset, q.device),
+            dense_mask(attn_mask, b, h, sq, sk, q.device), scale)
+        if n_rep != 1:
+            dk = dk.reshape(b, sk, nkv, n_rep, d).sum(3)
+            dv = dv.reshape(b, sk, nkv, n_rep, d).sum(3)
+        return dq, dk, dv
     lse = lse.float()[..., None]
     p = torch.exp(s - lse)
     keep = (lse > NEG_INF * 0.5).expand_as(p)
@@ -310,13 +548,15 @@ def _check_kernel_inputs(what, q, k, v, *more, dims=BWD_DIMS):
     return b, sq, sk, h, nkv, d
 
 
-def _check_rows(what, b, h, sq, q, **rows):
-    """lse / delta: fp32 (b, h, sq), contiguous, on q's device."""
+def _check_rows(what, b, h, sq, q, masked=False, **rows):
+    """lse / delta: fp32 (b, h, sq), contiguous, on q's device; a masked
+    call's lse the (b, h, sq, 2) pairs."""
     for name, t in rows.items():
+        shape = (b, h, sq, 2) if masked and name == "lse" else (b, h, sq)
         if (t.device != q.device or t.dtype != torch.float32
-                or tuple(t.shape) != (b, h, sq) or not t.is_contiguous()):
+                or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be contiguous float32 "
-                             f"{(b, h, sq)} on {q.device}, got {t.dtype} "
+                             f"{shape} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
 
 
@@ -339,6 +579,44 @@ def _drop_args(dropout_p, key):
             float(np.float32(1.0) / np.float32(keep)) if keep > 0 else 0.0]
 
 
+def _refuse_mask_modes(what, window, dropout_p, d=None):
+    """A dense mask runs without the window and dropout, at kernel d 64 and
+    128: the rest raises, naming ROADMAP Queue B rows 1-3."""
+    if window is not None or dropout_p > 0.0 or d == 256:
+        raise NotImplementedError(
+            f"{what}: a dense attn_mask with the sliding window, with "
+            "dropout or at head_dim 256 is not ported yet (ROADMAP Queue B "
+            "rows 1-3); the mask runs alone at head_dim 64 and 128")
+
+
+class _MaskArg(ctypes.Structure):
+    """csrc/attn_mask.cuh's am::Mask: the mask's pointer, its element
+    strides (b, h, q, k; 0 on a broadcast dim), fp32 or bool, and the
+    block bounds."""
+    _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_longlong),
+                ("sh", ctypes.c_longlong), ("sq", ctypes.c_longlong),
+                ("sk", ctypes.c_longlong), ("f32", ctypes.c_int),
+                ("bounds", ctypes.c_void_p)]
+
+
+def _mask_arg(what, attn_mask, bounds, part, q, b, h, sq, sk):
+    """The kernels' mask argument (a pointer to _MaskArg, None without a
+    mask) and the tensors it points into, which the caller keeps alive
+    over the launch. `part` is the kernel's entry of ``mask_bounds``'s
+    dict `bounds`."""
+    if attn_mask is None:
+        return None, None
+    m = dense_mask(attn_mask, b, h, sq, sk)
+    if m.device != q.device:
+        raise ValueError(f"{what}: attn_mask on {m.device}, expected "
+                         f"{q.device}")
+    bd = bounds[part]
+    arg = _MaskArg(m.data_ptr(), *(0 if m.shape[i] == 1 else m.stride(i)
+                                   for i in range(4)),
+                   int(m.dtype != torch.bool), bd.data_ptr())
+    return ctypes.pointer(arg), (m, bd, arg)
+
+
 def _refuse_d256_modes(what, d, window, dropout_p, rows):
     """At head dim 256 the kernels are built windowless and without dropout
     only: those modes raise, naming their ROADMAP Queue B rows."""
@@ -351,30 +629,39 @@ def _refuse_d256_modes(what, d, window, dropout_p, rows):
 
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                         causal_offset=None, window=None, dropout_p=0.0,
-                        key=None):
+                        key=None, attn_mask=None, bounds=None):
     """Flash-attention forward: (out, lse) as flash_attention_fwd_plain.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64, 128
     or 256, contiguous; with ``dropout_p`` its dropout instantiation, keyed
-    by `key`; the window and dropout modes at d 64 and 128 only); anything
-    else on CUDA raises. CPU tensors take the plain twin. Inputs that
-    require grad, with grad mode on, raise: the output of a raw kernel
-    carries no gradient."""
+    by `key`; with ``attn_mask`` its mask instantiation, walking `bounds`
+    (``mask_bounds``, computed here when None); the window, dropout and
+    mask modes at d 64 and 128 only); anything else on CUDA raises. CPU
+    tensors take the plain twin. Inputs that require grad, with grad mode
+    on, raise: the output of a raw kernel carries no gradient."""
     _refuse_grad("flash_attention_fwd", q, k, v)
     window = _check_window(window, is_causal)
     dropout_p = _check_dropout(dropout_p, key)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, is_causal, scale, kv_lens,
                                          causal_offset, window, dropout_p,
-                                         key)
+                                         key, attn_mask)
     b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
                                                 q, k, v, dims=FWD_DIMS)
+    if attn_mask is not None:
+        _refuse_mask_modes("flash_attention_fwd", window, dropout_p, d)
+        if bounds is None:
+            bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
+                                  causal_offset)
     _refuse_d256_modes("flash_attention_fwd", d, window, dropout_p, "row 1")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    marg, keep = _mask_arg("flash_attention_fwd", attn_mask, bounds, "fwd",
+                           q, b, h, sq, sk)
+    lse = torch.empty((b, h, sq) + ((2,) if keep else ()),
+                      dtype=torch.float32, device=q.device)
     lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9)
     # window 0: the windowless kernel; a window takes the windowed one
     # (beyond 2^30 it masks nothing and stays a C int)
@@ -382,88 +669,105 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _build.ptr(kl) if kl is not None else None,
         b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
-        min(window or 0, 1 << 30), float(scale),
+        min(window or 0, 1 << 30), float(scale), marg,
         *_drop_args(dropout_p, key), _build.stream_of(q))
     flash_attention_fwd.launches += 1
     flash_attention_fwd.windowed += window is not None
     flash_attention_fwd.dropout += dropout_p > 0.0
+    flash_attention_fwd.masked += keep is not None
     flash_attention_fwd.by_d[d] += 1
     _build.check(err, "flash_attention_fwd")
     return out, lse
 
 
-# launches, and of them those of the windowed and the dropout
+# launches, and of them those of the windowed, the dropout and the mask
 # instantiations, and those at each head dim
 flash_attention_fwd.launches = 0
 flash_attention_fwd.windowed = 0
 flash_attention_fwd.dropout = 0
+flash_attention_fwd.masked = 0
 flash_attention_fwd.by_d = dict.fromkeys(FWD_DIMS, 0)
 
 
-def _bwd_args(what, q, k, v, dout, lse, delta, is_causal, scale, kv_lens,
-              causal_offset, window, dropout_p, key):
+def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
+              kv_lens, causal_offset, window, dropout_p, key, attn_mask,
+              bounds):
     window = _check_window(window, is_causal)
     dropout_p = _check_dropout(dropout_p, key)
     b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
                                                 ("dout", dout))
+    if attn_mask is not None:
+        _refuse_mask_modes(what, window, dropout_p, d)
+        if bounds is None:
+            bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
+                                  causal_offset)
     _refuse_d256_modes(what, d, window, dropout_p, "rows 2-3")
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} is not q's "
                          f"shape {tuple(q.shape)}")
-    _check_rows(what, b, h, sq, q, lse=lse, delta=delta)
+    _check_rows(what, b, h, sq, q, attn_mask is not None, lse=lse,
+                delta=delta)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta)]
+    marg, keep = _mask_arg(what, attn_mask, bounds, part, q, b, h, sq, sk)
     # window 0: the windowless kernels; a window takes the windowed ones
     # (beyond 2^30 it masks nothing and stays a C int), as K1's wrapper
     tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
-            min(window or 0, 1 << 30), float(scale),
+            min(window or 0, 1 << 30), float(scale), marg,
             *_drop_args(dropout_p, key), _build.stream_of(q)]
-    return head, _build.ptr(kl) if kl is not None else None, tail, d
+    return head, _build.ptr(kl) if kl is not None else None, tail, d, keep
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
                            scale=None, kv_lens=None, causal_offset=None,
-                           window=None, dropout_p=0.0, key=None):
+                           window=None, dropout_p=0.0, key=None,
+                           attn_mask=None, bounds=None):
     """dq (bf16, q's shape) by the K3 kernel of ``csrc/flash_attention_bwd.cu``
     from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq);
     head_dim 64, 128 or 256; ``window`` (with ``is_causal``) launches its
     windowed instantiation, ``dropout_p`` (with the forward's `key`) its
-    dropout one (both at d 64 and 128 only). CUDA tensors only (the CPU path
-    is ``flash_attention_bwd_plain``)."""
-    head, kl, tail, d = _bwd_args("flash_attention_bwd_dq", q, k, v, dout,
-                                  lse, delta, is_causal, scale, kv_lens,
-                                  causal_offset, window, dropout_p, key)
+    dropout one, ``attn_mask`` (with the forward's (m, log l) pairs as
+    `lse`; `bounds` as K1's) its mask one (each at d 64 and 128 only).
+    CUDA tensors only (the CPU path is ``flash_attention_bwd_plain``)."""
+    head, kl, tail, d, keep = _bwd_args(
+        "flash_attention_bwd_dq", "dq", q, k, v, dout, lse, delta, is_causal,
+        scale, kv_lens, causal_offset, window, dropout_p, key, attn_mask,
+        bounds)
     dq = torch.empty_like(q)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 9)
     err = lib.flash_attention_bwd_dq(*head, _build.ptr(dq), kl, *tail)
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.windowed += window is not None
     flash_attention_bwd_dq.dropout += dropout_p > 0.0
+    flash_attention_bwd_dq.masked += keep is not None
     flash_attention_bwd_dq.by_d[d] += 1
     _build.check(err, "flash_attention_bwd_dq")
     return dq
 
 
-# launches, and of them those of the windowed and the dropout
+# launches, and of them those of the windowed, the dropout and the mask
 # instantiations, and those at each head dim (as flash_attention_fwd's)
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.windowed = 0
 flash_attention_bwd_dq.dropout = 0
+flash_attention_bwd_dq.masked = 0
 flash_attention_bwd_dq.by_d = dict.fromkeys(BWD_DIMS, 0)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
                             scale=None, kv_lens=None, causal_offset=None,
-                            window=None, dropout_p=0.0, key=None):
+                            window=None, dropout_p=0.0, key=None,
+                            attn_mask=None, bounds=None):
     """(dk, dv) (bf16, k's shape) by the K4 kernel of
     ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
-    kernel; head dims, ``window`` and ``dropout_p`` as in
+    kernel; head dims, ``window``, ``dropout_p`` and ``attn_mask`` as in
     ``flash_attention_bwd_dq``. CUDA tensors only."""
-    head, kl, tail, d = _bwd_args("flash_attention_bwd_dkv", q, k, v, dout,
-                                  lse, delta, is_causal, scale, kv_lens,
-                                  causal_offset, window, dropout_p, key)
+    head, kl, tail, d, keep = _bwd_args(
+        "flash_attention_bwd_dkv", "dkv", q, k, v, dout, lse, delta,
+        is_causal, scale, kv_lens, causal_offset, window, dropout_p, key,
+        attn_mask, bounds)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9)
@@ -472,6 +776,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.windowed += window is not None
     flash_attention_bwd_dkv.dropout += dropout_p > 0.0
+    flash_attention_bwd_dkv.masked += keep is not None
     flash_attention_bwd_dkv.by_d[d] += 1
     _build.check(err, "flash_attention_bwd_dkv")
     return dk, dv
@@ -480,28 +785,31 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.windowed = 0
 flash_attention_bwd_dkv.dropout = 0
+flash_attention_bwd_dkv.masked = 0
 flash_attention_bwd_dkv.by_d = dict.fromkeys(BWD_DIMS, 0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
                         kv_lens=None, causal_offset=None, window=None,
-                        dropout_p=0.0, key=None):
+                        dropout_p=0.0, key=None, attn_mask=None,
+                        bounds=None):
     """Gradients (dq, dk, dv) of the attention whose forward gave (out,
     lse), in the dtypes of q, k, v. CPU tensors take
     ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O) in
     fp32 (as the reference does outside its kernels, :1059) and launch K3
-    and K4 (their windowed and dropout instantiations under a window and
-    a dropout)."""
+    and K4 (their windowed, dropout and mask instantiations under a
+    window, a dropout and a dense mask)."""
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                is_causal, scale, kv_lens,
                                                causal_offset, window,
-                                               dropout_p, key)
+                                               dropout_p, key, attn_mask)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
               causal_offset=causal_offset, window=window,
-              dropout_p=dropout_p, key=key)
+              dropout_p=dropout_p, key=key, attn_mask=attn_mask,
+              bounds=bounds)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
@@ -509,15 +817,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
 
 def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints):
     """The ctypes entry `fn_name` of csrc/<lib_name>.cu: n_ptrs pointers,
-    n_ints ints, the float scale, the dropout arguments (drop, the key's
-    two words, the keep threshold, 1/keep) and the stream; returns
-    cudaError."""
+    n_ints ints, the float scale, the mask (a pointer to _MaskArg, or
+    null), the dropout arguments (drop, the key's two words, the keep
+    threshold, 1/keep) and the stream; returns cudaError."""
     lib = _build.library(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
         fn.argtypes = ([vp] * n_ptrs + [ci] * n_ints + [cf]
+                       + [ctypes.POINTER(_MaskArg)]
                        + [ci, cu, cu, cu, cf] + [vp])
         fn.restype = ctypes.c_int
     return lib
@@ -531,15 +840,21 @@ class FlashAttention(torch.autograd.Function):
     The kernels take contiguous tensors and raise on anything else, so the
     Function makes q, k, v (GPT's qkv split gives strided views) and the
     incoming gradient contiguous itself, and saves those copies. Under
-    dropout it saves the key, not the mask: the backward regenerates it."""
+    dropout it saves the key, not the mask: the backward regenerates it.
+    A dense mask is carried with its bounds (computed once for K1, K3 and
+    K4) and gets no gradient, as the reference's VJP gives it a zero
+    cotangent (:1108-1112)."""
 
     @staticmethod
     def forward(ctx, q, k, v, is_causal, scale, kv_lens, causal_offset,
-                window=None, dropout_p=0.0, key=None):
+                window=None, dropout_p=0.0, key=None, attn_mask=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
                   causal_offset=causal_offset, window=window,
-                  dropout_p=dropout_p, key=key)
+                  dropout_p=dropout_p, key=key, attn_mask=attn_mask)
+        if attn_mask is not None and q.device.type != "cpu":
+            kw["bounds"] = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
+                                        causal_offset)
         out, lse = flash_attention_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
@@ -551,7 +866,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def _pad_head_dim(q, k, v, scale):
@@ -593,32 +908,41 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     output sliced back, so its gradient runs K3/K4 at the padded d through
     torch's autograd of the pad and the slice (SD-1.5's 160 on K3/K4 at
     256). The window and dropout at kernel d 256 raise (ROADMAP Queue B
-    rows 1-3). Left for later PRs on the kernel path: dense bool/float
-    masks, segment ids and ALiBi (ROADMAP Queue B row 1); those raise on
-    CUDA tensors. The plain version takes
-    dense masks and any head dim (and, on the CPU, differentiates through
-    them and the window by torch's own autograd)."""
+    rows 1-3). A dense ``attn_mask`` runs on the card through K1, K3 and
+    K4's mask instantiations (d 64 and 128, the padded 40 and 80
+    included); with the window, with dropout or at kernel d 256 it raises
+    (ROADMAP Queue B rows 1-3), and it never falls back. Segment ids and
+    ALiBi are not ported (ROADMAP Queue B row 1). The plain versions take
+    any head dim; on the CPU a masked call that needs a gradient runs the
+    Function over the plain twins, as an unmasked one does (with the
+    window or dropout beside the mask, torch's autograd of the plain
+    version)."""
     window = _check_window(window_size, is_causal)
     dropout_p = float(dropout_p) if training else 0.0
     key = rng.next_rng_key("dropout") if dropout_p > 0.0 else None
     _check_dropout(dropout_p, key)
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if q.device.type == "cpu" and (attn_mask is not None or not needs_grad):
+    if q.device.type == "cpu" and (not needs_grad or (
+            attn_mask is not None and (window is not None
+                                       or dropout_p > 0.0))):
         return _xla_attention(q, k, v, attn_mask=attn_mask,
                               is_causal=is_causal, scale=scale,
                               kv_lens=kv_lens, causal_offset=causal_offset,
                               window=window, dropout_p=dropout_p, key=key)
     if attn_mask is not None:
-        raise NotImplementedError(
-            "dense attn_mask on the CUDA kernel path is not ported yet "
-            "(ROADMAP Queue B row 1); pass is_causal/causal_offset/kv_lens")
+        attn_mask = dense_mask(attn_mask, q.shape[0], q.shape[2], q.shape[1],
+                               k.shape[1], q.device)
     d = q.shape[-1]
     if q.device.type != "cpu":   # the plain versions take any head dim
         q, k, v, scale, d = _pad_head_dim(q, k, v, scale)
+        if attn_mask is not None:
+            _refuse_mask_modes("scaled_dot_product_attention", window,
+                               dropout_p, q.shape[-1])
     if needs_grad:
         out = FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
-                                   causal_offset, window, dropout_p, key)
+                                   causal_offset, window, dropout_p, key,
+                                   attn_mask)
     else:
         # the kernel takes contiguous tensors: GPT's qkv split gives
         # strided views (a no-op copy for the rest, as in FlashAttention)
@@ -626,5 +950,6 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                   v.contiguous(), is_causal=is_causal,
                                   scale=scale, kv_lens=kv_lens,
                                   causal_offset=causal_offset, window=window,
-                                  dropout_p=dropout_p, key=key)[0]
+                                  dropout_p=dropout_p, key=key,
+                                  attn_mask=attn_mask)[0]
     return out if out.shape[-1] == d else out[..., :d]

@@ -29,9 +29,16 @@ the low-precision mode steps through the parameters in groups of at most
 parameters. The eager veneer writes each group's new values straight into
 the parameters.
 
+``SGD`` (reference :243-250) has no slots: p − lr·(g + wd·p), the L2
+decay coupled on the gradients (``apply_decay_param_fun`` may exclude a
+parameter), on the fp32 masters under ``multi_precision`` and in the
+parameter dtype without; it steps tensor by tensor, in place on the
+masters, so its fp32 temporaries stay those of one tensor (ERNIE-3.0
+Titan's 6.4 B parameters carry 25.7 GB of masters beside them).
+
 Not ported yet (ROADMAP Queue A item 5): LR schedulers, gradient clipping,
-L1 decay, SGD / Momentum / Lamb and the other siblings; they raise
-``NotImplementedError``.
+L1 decay and other regularizer objects, Momentum / Lamb and the other
+siblings; they raise ``NotImplementedError``.
 """
 
 from typing import Dict
@@ -335,3 +342,51 @@ class AdamW(Adam):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, multi_precision,
                          apply_decay_param_fun)
+
+
+class SGD(Optimizer):
+    """Plain SGD (reference :243-250, over the base class's masters and
+    decay :40-133, :187-188): new = p − lr·g with g = grad + wd·p where
+    ``apply_decay_param_fun`` allows. With ``multi_precision`` (the
+    default) p is the fp32 master of a low-precision parameter, advanced in
+    place, and the parameter its cast; fp32 parameters step in fp32.
+    Without, p is the parameter itself, the update in fp32 from it and
+    rounded back, wd·p rounded in the parameter dtype (a weak Python scalar
+    times a low-precision array in the reference). lr·g is rounded before
+    the subtraction, as the reference's separate multiply and subtract."""
+
+    def _init_slots(self, params):
+        return {}
+
+    def update_(self, grads, state, params, step=None, out=None):
+        step_ = state["step"] if step is None else step
+        masters = state.get("master", {}) if self.multi_precision else {}
+        keys = list(params)
+        lr, wd = self._lr, self.weight_decay
+        new = {} if out is None else out
+        for k, on in zip(keys, self._decay_mask(keys)):
+            p = params[k].detach()
+            g = grads[k].detach().float()
+            w = masters.get(k)
+            with torch.no_grad():
+                if w is not None or p.dtype == torch.float32 \
+                        or self.multi_precision:
+                    base = w if w is not None else p.float()
+                    if wd and on:
+                        g = g + base * wd
+                    if w is not None:          # the master, in place
+                        w.sub_(g * lr)
+                        val = w
+                    else:
+                        val = base - g * lr
+                else:
+                    if wd and on:
+                        g = g + (p * _in_dtype(wd, p.dtype)).float()
+                    val = p.float() - g * lr
+                if out is None:
+                    new[k] = val.to(p.dtype)
+                else:
+                    out[k].copy_(val)
+            del g
+        state["step"] = step_ + 1
+        return {k: new[k] for k in keys}, state

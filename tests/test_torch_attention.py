@@ -175,9 +175,10 @@ def test_flash_fwd_twin_at_kernel_tile_edges(b, h, nkv, sq, sk, d, q_off,
 def test_cuda_path_refuses_what_it_does_not_take():
     """Attention dropout, once refused, runs on a CPU tensor: it equals the
     reference's dropped attention under the same "dropout" key (fp32, atol
-    1e-5) and draws one key from the stream. The refusal that remains on
-    the kernel path is the dense mask, asserted by name on a meta tensor
-    (a non-CPU tensor takes the kernels' dispatch)."""
+    1e-5) and draws one key from the stream. The dense mask, once refused,
+    runs on the kernels; what stays refused on the kernel path is a mask
+    beside the window (or dropout, or at head dim 256), asserted by name
+    on a meta tensor (a non-CPU tensor takes the kernels' dispatch)."""
     import jax
     from paddle_tpu.core import rng as jrng
     from paddle_tpu_torch.core import rng as trng
@@ -198,7 +199,8 @@ def test_cuda_path_refuses_what_it_does_not_take():
     with pytest.raises(NotImplementedError, match="dense attn_mask"):
         tfa.scaled_dot_product_attention(
             m, m, m, attn_mask=torch.ones(1, 1, 2, 2, dtype=torch.bool,
-                                          device="meta"))
+                                          device="meta"), is_causal=True,
+            window_size=1)
 
 
 @pytest.mark.parametrize("start", [0, 37])

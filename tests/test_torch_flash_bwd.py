@@ -162,8 +162,8 @@ def test_cpu_grad_path_refuses_dropout_and_keeps_dense_masks():
     """Dropout, once refused here, runs through the Function's plain
     forward and backward: dq, dk and dv equal ``jax.vjp`` of the reference
     with the same "dropout" key (atol 1e-5). A dense mask on the CPU
-    differentiates through the plain version by torch's autograd (the
-    Function takes no mask)."""
+    differentiates through the Function's plain forward and backward too
+    (the Function carries the mask, which gets no gradient)."""
     from paddle_tpu.core import rng as jrng
     from paddle_tpu_torch.core import rng as trng
     q, k, v, do = _inputs(3, 2, 5, 7, 4, 4, 8)
@@ -186,6 +186,7 @@ def test_cpu_grad_path_refuses_dropout_and_keeps_dense_masks():
     mask[..., 0] = True
     out = tfa.scaled_dot_product_attention(*t,
                                            attn_mask=torch.from_numpy(mask))
+    assert "FlashAttention" in type(out.grad_fn).__name__
     out.backward(torch.from_numpy(do))
     f = lambda q_, k_, v_: jfa.scaled_dot_product_attention(
         q_, k_, v_, attn_mask=jnp.asarray(mask))

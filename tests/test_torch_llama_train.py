@@ -118,6 +118,31 @@ def test_train_loss_and_every_gradient_match_jax(chunks, tied, window):
     np.testing.assert_allclose(lt.item(), float(lj), atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["bool", "float"])
+def test_train_loss_with_a_padding_mask_matches_jax(kind):
+    """train_loss(x, y, attn_mask) under a (b, 1, 1, s) padding mask, bool
+    or additive −1e4, which composes with the causal mask (reference
+    :185-190, :314), the padded labels ignored: the loss and every
+    gradient against jax.value_and_grad (atol 1e-6 / 1e-5). The port's
+    plain attention takes the mask through the FlashAttention Function."""
+    jm, tm = _pair()
+    x, y = _batch(4, ignore=[(1, s) for s in range(15, S)])
+    keep = np.arange(S)[None, :] < np.array([S, 15])[:, None]
+    mask = (keep if kind == "bool" else np.where(keep, 0.0, -1e4).astype(
+        np.float32))[:, None, None, :]
+    loss_j, grads_j = jax.value_and_grad(
+        lambda st: functional_call(jm, st, jnp.asarray(x), jnp.asarray(y),
+                                   jnp.asarray(mask), method="train_loss"))(
+        jm.trainable_state())
+    loss_t = tm.train_loss(torch.from_numpy(x), torch.from_numpy(y),
+                           torch.from_numpy(mask))
+    loss_t.backward()
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), atol=1e-6)
+    for k, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(grads_j[k]),
+                                   atol=1e-5, err_msg=k)
+
+
 @pytest.mark.parametrize("gran", ["full", "full_attn", "core_attn"])
 def test_recompute_granularities(gran, monkeypatch):
     """Per-layer recompute at each granularity gives the port's gradients

@@ -72,7 +72,9 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/ops/smem_probe.py",
             "paddle_tpu_torch/models/unet.py",
             "paddle_tpu_torch/nn/layers/conv.py",
-            "paddle_tpu_torch/unet_bench.py"} <= names
+            "paddle_tpu_torch/unet_bench.py",
+            "paddle_tpu_torch/models/ernie.py",
+            "paddle_tpu_torch/scale_report.py"} <= names
     assert len(names) >= 20
 
 
@@ -419,6 +421,94 @@ def test_bench_twin_refuses_cpu_by_default():
         bench.build(*bench.config(tiny=True)[:3])
 
 
+def test_ernie_twin_refuses_cpu_by_default():
+    """python -m paddle_tpu_torch.scale_report ernie-titan-step runs on cuda
+    unless --device cpu is given; without a GPU it raises instead of
+    timing the CPU; its other subcommands exit non-zero."""
+    from paddle_tpu_torch import scale_report
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        scale_report.main(["ernie-titan-step", "--tiny"])
+    assert scale_report.main(["65b"]) != 0
+
+
+def test_k1_counters_stay_zero_through_a_cpu_ernie_step():
+    """The twin's ERNIE step on CPU tensors, and the backbone under a
+    padding mask, launch no kernel: K1, K3 and K4 and their mask
+    instantiations keep their counts."""
+    from paddle_tpu_torch import scale_report
+    from paddle_tpu_torch.models import ErnieConfig, ErnieModel
+    from paddle_tpu_torch.ops import flash_attention as fa
+    wraps = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dkv)
+    before = [(w.launches, w.masked) for w in wraps]
+    cfg = scale_report.config(tiny=True, seq=16)
+    model, opt, state = scale_report.build(cfg, "cpu")
+    scale_report.train_step(model, opt, state,
+                            *scale_report.batch(cfg, 2, 16, "cpu"))
+    bb = ErnieModel(ErnieConfig.tiny(), device="cpu", seed=0)
+    ids = torch.zeros((2, 16), dtype=torch.long)
+    mask = torch.ones((2, 1, 1, 16), dtype=torch.bool)
+    mask[1, ..., 9:] = False
+    bb(ids, attn_mask=mask).sum().backward()
+    assert [(w.launches, w.masked) for w in wraps] == before
+
+
+def test_mask_kernel_entries_take_the_mask(monkeypatch):
+    """On the kernels' device (meta tensors stand for CUDA ones), K1's,
+    K3's and K4's C entry points get the dense mask as one pointer to its
+    am::Mask: the broadcast dims' strides 0, the others the mask's own,
+    the fp32 flag, and the bounds of the kernel (mask_bounds' fwd, dq and
+    dkv); the lse K3 and K4 take is the (b, h, sq, 2) pairs. Without a
+    mask the pointer is null. The entry points raise, so nothing
+    launches."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    got = {}
+
+    class Captured(Exception):
+        pass
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                got[name] = args
+                raise Captured
+            return entry
+
+    monkeypatch.setattr(fa, "KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(fa, "_kernel_lib", lambda *a: Lib())
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    b, sq, sk, h, nkv, d = 2, 200, 300, 8, 2, 64
+    meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt,
+                                                     device="meta")
+    q, do, k, v = meta(b, sq, h, d), meta(b, sq, h, d), meta(b, sk, nkv, d), \
+        meta(b, sk, nkv, d)
+    pairs, rows = meta(b, h, sq, 2, dt=torch.float32), \
+        meta(b, h, sq, dt=torch.float32)
+    for mask, f32, strides in (
+            (meta(b, 1, 1, sk, dt=torch.bool), 0, (sk, 0, 0, 1)),
+            (meta(h, sq, sk, dt=torch.float32), 1, (0, sq * sk, sk, 1))):
+        calls = ((fa.flash_attention_fwd, (q, k, v), 16),
+                 (fa.flash_attention_bwd_dq, (q, k, v, do, pairs, rows), 18),
+                 (fa.flash_attention_bwd_dkv, (q, k, v, do, pairs, rows),
+                  19))
+        for fn, args, at in calls:
+            with pytest.raises(Captured):
+                fn(*args, attn_mask=mask)
+            arg = got[fn.__name__][at].contents
+            assert (arg.sb, arg.sh, arg.sq, arg.sk) == strides
+            assert arg.f32 == f32
+            with pytest.raises(Captured):
+                fn(*args[:4], rows, rows) if fn is not fa.flash_attention_fwd \
+                    else fn(*args)
+            assert not got[fn.__name__][at]
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_dq(q, k, v, do, rows, rows,
+                                  attn_mask=meta(sq, sk, dt=torch.bool))
+
+
 def test_moe_twin_refuses_cpu_by_default():
     """python -m paddle_tpu_torch.moe_bench runs on cuda unless --device
     cpu is given; without a GPU it raises instead of timing the CPU."""
@@ -592,6 +682,55 @@ def test_flash_kernel_matches_plain(cuda, h, nkv, sq, sk, d, q_off, kv_len):
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=2e-3, rtol=0)
     assert bool((out[1] == 0).all())              # kv_len 0: fully masked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["key_padding", "fp32_4d", "bool_3d_gqa",
+                                  "dead_row"])
+def test_flash_kernels_mask_match_plain(cuda, form):
+    """K1, K3 and K4's mask modes against their plain versions: out within
+    3e-2, the pairs' lse within 2e-3 (plus 2^-22·|m|), each gradient within
+    2^-6 · max|plain|, and two launches of each with the same bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, h, nkv, sq, sk, d = 2, 8, 8, 300, 333, 64
+    causal = False
+    if form == "key_padding":
+        mask = torch.arange(sk, device=cuda)[None, None, None] < torch.tensor(
+            [sk, 100], device=cuda)[:, None, None, None]
+    elif form == "fp32_4d":
+        mask = torch.where(torch.rand(b, h, sq, sk, generator=g,
+                                      device=cuda) < 0.2, -1e4, 0.0)
+        mask[:, :, 7::31] = -1e10
+        mask[:, :, :128, 128:256] = float("-inf")
+    elif form == "bool_3d_gqa":
+        nkv, causal, d = 2, True, 128
+        mask = torch.rand(h, sq, sk, generator=g, device=cuda) < 0.7
+        mask[..., 0] = True
+    else:
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=cuda)
+        mask[150] = False
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v, do = mk(b, sq, h, d), mk(b, sk, nkv, d), mk(b, sk, nkv, d), \
+        mk(b, sq, h, d)
+    kw = dict(is_causal=causal, attn_mask=mask)
+    out, st = fa.flash_attention_fwd(q, k, v, **kw)
+    out2, st2 = fa.flash_attention_fwd(q, k, v, **kw)
+    ref, ref_st = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    assert torch.equal(out, out2) and torch.equal(st, st2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    lerr = (st.double().sum(-1) - ref_st.double().sum(-1)).abs() \
+        - 2.0 ** -22 * ref_st[..., 0].double().abs()
+    assert lerr.max().item() <= 2e-3
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **kw)
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, st, delta,
+                                                     **kw))
+    ref_g = fa.flash_attention_bwd_plain(q, k, v, out, st, do, **kw)
+    for got_g, r in zip((dq, dk, dv), ref_g):
+        assert (got_g.float() - r).abs().max().item() <= \
+            2.0 ** -6 * r.abs().max().item()
 
 
 @pytest.mark.cuda
