@@ -13,6 +13,9 @@
     python3 chip_smoke.py --unet          # card, build, k1h, k3h, unet,
                                           # train_unet
     python3 chip_smoke.py --ernie         # card, build, k1m, ernie
+    python3 chip_smoke.py --modes         # card, build, k1s,
+                                          # train_mistral_pad
+    python3 chip_smoke.py --k1s           # card, build, k1s
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -261,8 +264,35 @@ Phases, each printing one JSON line:
               3d at the ERNIE-base case); a float row at -inf gives NaN
               as the plain version; d 40 and 80 through the dispatch
               (padded, K1/K3/K4 once each in mask mode); the mask beside
-              the window, dropout or d 256 refused, naming Queue B rows
-              1-3.
+              the window and dropout running, at d 256 refused, naming
+              Queue B rows 1-3.
+  8m. k1s   — the rest of flash attention: K1, K3 and K4's general
+              instantiations (segment ids, ALiBi, the dense mask beside the
+              window, each beside dropout) and flash_fwd_lse, at the
+              models' own attention shapes: segment ids (8 packed documents
+              a row, lengths from a seed) at Mistral-7B's (b 1, s 8192,
+              32/8 heads, d 128) and GPT-2 345M's (b 8, s 1024, 16 heads,
+              d 64) causal shape, and non-causal cross-attention (1024 ×
+              1536, kv_segment_ids, a row no key matches: 0); ALiBi (slopes
+              2^(-8i/h)) alone, with the window (4096; 256 at GPT-2's) and
+              with kv_lens at both; the (b, 1, 1, s) bool mask with the
+              window at train_mistral_pad's b 2 (row 1 left-padded by
+              3,072: its pad queries are dead rows); dropout 0.1 beside the
+              mask, the segment ids and ALiBi at GPT-2's; flash_fwd_lse
+              under a random g_lse at both. Each case first through the
+              public entry point (nn.functional.flash_attention, or
+              flash_fwd_lse), forward and backward, every count at 0 just
+              before and read just after (the path's launches); then the
+              wrappers twice each, bitwise equal and equal to the entry
+              point's bits, against the plain twins one kv-head group at a
+              time (K1_TOL_OUT, K1_TOL_LSE on the pairs, K3_TOL · max|plain|
+              on each gradient); timed (device_ms) beside the plain twins,
+              torch sdpa over the equivalent dense mask and bf16 ALiBi bias,
+              and the bound from the bytes and the operations (and the
+              hash's integer instructions) of the pairs the run's structure
+              leaves (rows 1f–1j, 2e–2i, 3e–3i); the general mode's keep
+              mask read back bit for bit (k1_mask_probe, general); every
+              new mode at kernel d 256 refused, naming Queue B rows 1-3.
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -455,6 +485,19 @@ Phases, each printing one JSON line:
               and lse, K3's and K4's gradients) against the plain versions
               one kv-head group at a time; the same measurements as
               train_llama.
+ 19a. train_mistral_pad — Mistral-7B at full width (32 layers, h 4096,
+              32/8 heads, d 128, window 4096) on a padded batch: b 2,
+              S 8192, row 1 left-padded by 3,072 tokens (labels there at
+              the loss's ignore_index), a (b, 1, 1, S) bool mask,
+              train_loss(x, y, attn_mask) under full recompute and 8 loss
+              chunks, pure-bf16 AdamW; 1 warm-up and 3 counted steps: K1
+              twice a layer a step and K3, K4 once, every one on the
+              general instantiations with the mask beside the window, no
+              plain attention call, the loss finite and falling; step ms,
+              tokens/s over the real tokens, MFU, peak memory; then at 2
+              layers the loss and every gradient on the kernels against
+              the plain twins on the card (bf16, one kv-head group at a
+              time): STEP_LOSS_ATOL, STEP_GRAD_RTOL.
  20. unet   — UNetConfig.sd15() (860 M parameters, bf16, random weights from
               seed 0) through the UNet twin's build, inputs and denoise
               (paddle_tpu_torch.unet_bench): b 2, latents (2, 4, 64, 64),
@@ -515,13 +558,15 @@ Phases, each printing one JSON line:
               into the tree and run it there: the tree's own package is
               imported), parent and change in turns in one call.
 
---quick stops after phase 8k; --int8-stress runs phase 8f alone; --training
+--quick stops after phase 8m; --int8-stress runs phase 8f alone; --training
 runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a; --moe
 phases 8, 13 and 13a; --unet phases 8i, 8j, 20 and 20a (about 100 s with
-the build); --ernie phases 8k and 21 (about 140 s with the build). Every failure propagates and exits non-zero. The whole run
-takes about 420 s on an H100, build included (phases 8i, 8j, 20 and 20a
-about 65 s of it, 8k and 21 about 30 s); the watchdog (WATCHDOG_S) ends a run that stalls past
-1,100 s.
+the build); --ernie phases 8k and 21 (about 140 s with the build);
+--modes phases 8m and 19a (about 115 s with the build). Every failure
+propagates and exits non-zero. The whole run takes about 420 s on an
+H100, build included (phases 8i, 8j, 20 and 20a about 65 s of it, 8k and
+21 about 30 s, 8m and 19a about 65 s); the watchdog (WATCHDOG_S) ends a
+run that stalls past 1,100 s.
 The line before the last is the kernel table ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}. Imports nothing of jax or
 paddle_tpu.
@@ -4927,10 +4972,11 @@ class CheckedAttention:
     on the same inputs as the call saw them (`k1_agreement`): a decode
     step's attention, layer by layer, over the cached K/V it read."""
 
-    COUNTS = ("launches", "windowed", "dropout", "masked", "by_d")
-
     def __init__(self, fa):
         self.fa, self.calls = fa, []
+        # the wrapper's counters (ops.flash_attention: launches, by_d and
+        # each mode's), which it bumps on the module's name
+        self.counts = ("launches", "by_d") + fa.MODE_COUNTERS
 
     def __enter__(self):
         self.saved = kernel = self.fa.flash_attention_fwd
@@ -4941,13 +4987,13 @@ class CheckedAttention:
                 out, lse, *self.fa.flash_attention_fwd_plain(q, k, v, **kw)))
             return out, lse
         # the wrapper counts its launches on the module's name, this call
-        for count in self.COUNTS:
+        for count in self.counts:
             setattr(call, count, getattr(kernel, count))
         self.fa.flash_attention_fwd = call
         return self
 
     def __exit__(self, *exc):
-        for count in self.COUNTS:
+        for count in self.counts:
             setattr(self.saved, count,
                     getattr(self.fa.flash_attention_fwd, count))
         self.fa.flash_attention_fwd = self.saved
@@ -5575,8 +5621,10 @@ class PlainTraining(PlainCalls):
 class PlainKernelsOnCard:
     """While open, FlashAttention's forward and backward run the plain
     versions on the card in place of K1 and K3/K4 (the Function and the
-    dispatch look them up on the module at call time). The wrappers, and
-    their launch counts, are left as they were: read the counts outside."""
+    dispatch look them up on the module at call time), one kv-head group
+    at a time (`grouped_plain`: an 8192-row batch's fp32 scores a group at
+    once). The wrappers, and their launch counts, are left as they were:
+    read the counts outside."""
 
     def __init__(self, fa):
         self.fa = fa
@@ -5586,13 +5634,11 @@ class PlainKernelsOnCard:
         self.saved = fa.flash_attention_fwd, fa.flash_attention_bwd
 
         def fwd(q, k, v, bounds=None, **kw):   # the kernels' tile bounds
-            return self.saved_plain[0](q, k, v, **kw)
+            return grouped_plain(fa, q, k, v, kw)
 
-        def bwd(q, k, v, out, lse, dout, bounds=None, **kw):
-            grads = self.saved_plain[1](q, k, v, out, lse, dout, **kw)
+        def bwd(q, k, v, out, lse, dout, bounds=None, g_lse=None, **kw):
+            grads = grouped_plain(fa, q, k, v, kw, out, lse, dout, g_lse)
             return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
-        self.saved_plain = (fa.flash_attention_fwd_plain,
-                            fa.flash_attention_bwd_plain)
         fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
         return self
 
@@ -6151,13 +6197,16 @@ def probe_v(b, s, nkv, d, t):
     return v
 
 
-def k1_mask_probe(fa, dops, b, h, nkv, sq, sk, d, causal, kv_lens=None):
+def k1_mask_probe(fa, dops, b, h, nkv, sq, sk, d, causal, kv_lens=None,
+                  general=False):
     """K1's dropout mask read back exactly: q = 0 makes every visible
     probability 1/n (n a row's visible keys), V the identity over one key
     tile makes the output those probabilities dropped, so out·keep·n
     rounds to the keep bit. Every key tile in turn; the bits against
     attention_keep_mask (the port's torch threefry on the card) on the
-    visible elements, bit for bit. Returns (result, the full mask)."""
+    visible elements, bit for bit. `general`: the lengths as a (b, 1, 1,
+    sk) bool mask, K1's general instantiation with dropout. Returns
+    (result, the full mask)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     key = drop_key(2)
@@ -6175,10 +6224,13 @@ def k1_mask_probe(fa, dops, b, h, nkv, sq, sk, d, causal, kv_lens=None):
     n = vis.sum(-1).clamp_min(1).float()                 # (b, sq)
     keep = float(np.float32(1 - DROP_P))
     bad = worst = 0
+    lkw = dict(kv_lens=kl)
+    if general:
+        lkw = dict(attn_mask=(keys[None, :] < lens[:, None])[:, None, None])
     for t in range((sk + d - 1) // d):
         out, _ = fa.flash_attention_fwd(q, k, probe_v(b, sk, nkv, d, t),
-                                        is_causal=causal, kv_lens=kl,
-                                        dropout_p=DROP_P, key=key)
+                                        is_causal=causal, dropout_p=DROP_P,
+                                        key=key, **lkw)
         z = out.float().permute(0, 2, 1, 3) * keep * n[:, None, :, None]
         w = min(d, sk - t * d)
         z = z[..., :w]
@@ -6187,7 +6239,7 @@ def k1_mask_probe(fa, dops, b, h, nkv, sq, sk, d, causal, kv_lens=None):
         v = vis[:, None, :, t * d:t * d + w].expand_as(bits)
         bad += int((bits != mask[..., t * d:t * d + w])[v].sum().item())
     res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
-           "causal": causal, "kv_lens": kv_lens,
+           "causal": causal, "kv_lens": kv_lens, "general": general,
            "visible": int(vis.sum().item()) * h, "bits_differing": bad,
            "max_distance_from_integer": worst,
            "ok": bad == 0 and worst < 0.05}
@@ -7207,11 +7259,29 @@ def k1m_library_mask(mask, sq, sk, causal):
         s, 0.0, float("-inf"))
 
 
+# The tensor operations a (query, key) pair costs each kernel, over the
+# head dim: QKᵀ and P·V in K1 (4·d), S, dP and dq in K3 (6·d), S, dP, dv
+# and dk in K4 (8·d). A dead row's key under a bool mask (the uniform
+# softmax over every key, csrc/attn_mask.cuh) has a score that does not
+# depend on s: K1 needs its P·V alone and K4 its dv alone (2·d), K3
+# nothing (the row's dq is 0). A float mask's dead row is a softmax like
+# any other and costs a pair's operations.
+PAIR_OPS = {"k1": 4, "k3": 6, "k4": 8}
+DEAD_KEY_OPS = {"k1": 2, "k3": 0, "k4": 2}
+
+
+def attention_ops(key, d, pairs, dead_pairs, bool_mask):
+    """Kernel `key`'s tensor operations over `pairs` visible pairs and the
+    `dead_pairs` (dead rows × sk) of a mask call."""
+    dead = DEAD_KEY_OPS[key] if bool_mask else PAIR_OPS[key]
+    return d * (PAIR_OPS[key] * pairs + dead * dead_pairs)
+
+
 def k1m_work(fa, mask, b, h, nkv, sq, sk, d, causal):
-    """(pairs, {k1, k3, k4: bytes}) of a masked call: the (query, key) pairs
-    this run's mask and structure leave (a tile of -inf or False entries
-    is no work; a dead row needs all sk keys), and the bytes each kernel
-    must move: q, k, v (and dO) in bf16 once, the mask once at its
+    """(pairs, dead pairs, {k1, k3, k4: bytes}) of a masked call: the
+    (query, key) pairs this run's mask and structure leave (a tile of -inf
+    or False entries is no work), sk for each dead row, and the bytes each
+    kernel must move: q, k, v (and dO) in bf16 once, the mask once at its
     broadcast shape, the outputs once, the (m, log l) pairs (and Δ)."""
     m4 = fa.dense_mask(mask, b, h, sq, sk)
     ok = m4 if m4.dtype == torch.bool else m4 != float("-inf")
@@ -7221,11 +7291,11 @@ def k1m_work(fa, mask, b, h, nkv, sq, sk, d, causal):
     seen = (keys[None, None, None] < vis[:, None, :, None])
     pairs = int((ok & seen).expand(b, h, sq, sk).sum().item())
     dead = ~(live & seen).any(-1) & (vis[:, None] > 0)
-    pairs += int(dead.expand(b, h, sq).sum().item()) * sk
+    dead_pairs = int(dead.expand(b, h, sq).sum().item()) * sk
     tq, tk = b * sq * h * d * 2, b * sk * nkv * d * 2
     mb = m4.numel() * m4.element_size()
     rows = b * h * sq
-    return pairs, {"k1": 2 * tq + 2 * tk + mb + 8 * rows,
+    return pairs, dead_pairs, {"k1": 2 * tq + 2 * tk + mb + 8 * rows,
                    "k3": 3 * tq + 2 * tk + mb + 12 * rows,
                    "k4": 2 * tq + 4 * tk + mb + 12 * rows}
 
@@ -7282,9 +7352,11 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
         res[gname] = {"max_abs_err": e, "tol": tol}
         res["ok"] &= bool(e <= tol and torch.isfinite(g.float()).all())
     del grads
-    pairs, nbytes = k1m_work(fa, mask, b, h, nkv, sq, sk, d, causal)
+    pairs, dead_pairs, nbytes = k1m_work(fa, mask, b, h, nkv, sq, sk, d,
+                                         causal)
     res["pairs"] = pairs
-    res["pairs_of_all"] = pairs / (b * h * sq * sk)
+    res["dead_row_pairs"] = dead_pairs
+    res["pairs_of_all"] = (pairs + dead_pairs) / (b * h * sq * sk)
     with torch.no_grad():
         ms = {"k1": device_ms(lambda: fa.flash_attention_fwd(
                   q, k, v, **kw, bounds=bounds), iters=10),
@@ -7315,9 +7387,10 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
         iters=10)
     del o_lib
     lib = {"k1": lib_fwd, "k3": lib_bwd, "k4": lib_bwd}
-    for key, per_pair in (("k1", 4), ("k3", 6), ("k4", 8)):
-        bound, by = bound3(nbytes[key], per_pair * d * pairs, 0, bw, flops,
-                           1.0)
+    for key in ("k1", "k3", "k4"):
+        bound, by = bound3(nbytes[key], attention_ops(
+            key, d, pairs, dead_pairs, m4.dtype == torch.bool), 0, bw, flops,
+            1.0)
         res[key] = dict(res.get(key, {}), ms=ms[key], plain_ms=plain[key],
                         library_ms=lib[key], bound_ms=bound, bound_by=by)
     res["library_covers"] = ("torch sdpa with the same mask (structured "
@@ -7398,7 +7471,8 @@ def k1m_padded_dims(fa, gen):
 
 def mask_refusals(fa):
     """{mode: the NotImplementedError's message, or None where it ran} of a
-    masked call beside the window, dropout, and at head dim 256."""
+    masked call beside the window, dropout, and at head dim 256: the
+    window and dropout run (the general instantiations), d 256 raises."""
     from paddle_tpu_torch.core import rng
     q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device="cuda")
     q256 = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device="cuda")
@@ -7409,7 +7483,8 @@ def mask_refusals(fa):
             ("dropout", (q, q, q), dict(dropout_p=0.1, key=rng.PRNGKey(3))),
             ("d256", (q256, q256, q256), {})):
         try:
-            fa.flash_attention_fwd(*args, attn_mask=m, **kw)
+            with torch.no_grad():
+                fa.flash_attention_fwd(*args, attn_mask=m, **kw)
             out[mode] = None
         except NotImplementedError as e:
             out[mode] = str(e)
@@ -7435,9 +7510,8 @@ def phase_k1m(fa, bw, flops):
     bad = ([c["case"] for c in cases if not c["ok"]]
            + ([] if nan_row["ok"] else ["nan_row"])
            + [f"d {c['d']}" for c in padded if not c["ok"]]
-           + [f"the mask with {m} was not refused"
-              for m, e in refused.items()
-              if not (e and "Queue B rows 1-3" in e)]
+           + [f"the mask with {m}: {e}" for m, e in refused.items()
+              if (m == "d256") != bool(e and "Queue B rows 1-3" in e)]
            + [f"{c['case']}: mask_bounds synchronizes the host"
               for c in cases if c["bounds_host_syncs"]])
     if bad:
@@ -7701,6 +7775,667 @@ def phase_ernie(fa, fd):
     return launches
 
 
+# ---- the rest of flash attention (phases k1s, train_mistral_pad) --------------
+
+# (b, sq, sk, h, nkv, d) of the models' attention calls: Mistral-7B's
+# training call (train_mistral: b 1, S 8192), its padded batch's
+# (train_mistral_pad: b 2), GPT-2 345M's (train: b 8, S 1024), and a
+# cross-attention at GPT-2's heads over a 1536-key context
+K1S_SHAPES = {"mistral": (1, 8192, 8192, 32, 8, 128),
+              "mistral_pad": (2, 8192, 8192, 32, 8, 128),
+              "gpt2": (8, 1024, 1024, 16, 16, 64),
+              "gpt2_cross": (8, 1024, 1536, 16, 16, 64)}
+# the window at each shape: Mistral-7B's own, and a quarter of GPT-2's
+# sequence (GPT-2 has none: a window that bites in most rows)
+K1S_WINDOW = {"mistral": 4096, "mistral_pad": 4096, "gpt2": 256}
+# Mistral's padded batch: row 1 left-padded by this many tokens (its pad
+# queries see no valid key: dead rows, the mean of v over every key)
+MISTRAL_PAD = 3072
+# packed documents a row in the segment-id cases
+K1S_DOCS = 8
+# K1's out in phase k1s: K1_TOL_OUT + this · |plain| (one bf16 ulp of an
+# output above 4: dropout's 1/keep on a row of a few keys; k1s_case)
+K1S_OUT_RTOL = 2.0 ** -7
+# (case, shape, causal, modes)
+K1S_CASES = (
+    ("seg_mistral", "mistral", True, ("seg",)),
+    ("seg_gpt2", "gpt2", True, ("seg",)),
+    ("seg_cross_gpt2", "gpt2_cross", False, ("seg_cross",)),
+    ("alibi_mistral", "mistral", True, ("alibi",)),
+    ("alibi_window_mistral", "mistral", True, ("alibi", "window")),
+    ("alibi_kv_lens_mistral", "mistral", True, ("alibi", "kv_lens")),
+    ("alibi_gpt2", "gpt2", True, ("alibi",)),
+    ("alibi_window_gpt2", "gpt2", True, ("alibi", "window")),
+    ("alibi_kv_lens_gpt2", "gpt2", True, ("alibi", "kv_lens")),
+    ("mask_window_mistral", "mistral_pad", True, ("pad", "window")),
+    ("mask_dropout_gpt2", "gpt2", True, ("padding", "dropout")),
+    ("seg_dropout_gpt2", "gpt2", True, ("seg", "dropout")),
+    ("alibi_dropout_gpt2", "gpt2", True, ("alibi", "dropout")),
+    ("lse_mistral", "mistral", True, ("lse",)),
+    ("lse_gpt2", "gpt2", True, ("lse",)),
+)
+# the kernel-table rows of the new modes: (tags of K1, K3, K4; the
+# wrappers' counter of the mode, or "lse"; the modes of its cases; the
+# case whose times the row shows; what it ports)
+K1S_ROWS = (
+    (("1f", "2e", "3e"), "segmented", ("seg", "seg_cross"), "seg_mistral",
+     "segment ids (_block_mask :415-416)"),
+    (("1g", "2f", "3f"), "alibi", ("alibi",), "alibi_mistral",
+     "ALiBi (_block_mask :407-408)"),
+    (("1h", "2g", "3g"), "mask_window", ("pad",), "mask_window_mistral",
+     "dense mask beside the window (_block_mask :411-412, :417-423)"),
+    (("1i", "2h", "3h"), "dropout", ("dropout",), "mask_dropout_gpt2",
+     "the general mode with dropout (_dropout_keep :426)"),
+    (("1j", "2i", "3i"), "lse", ("lse",), "lse_mistral",
+     "flash_fwd_lse, g_lse in delta (:1177-1215, :1061-1062)"),
+)
+
+
+def mode_counts(fa):
+    """{wrapper: {counter: launches}} of the attention wrappers' mode
+    counters (ops.flash_attention.MODE_COUNTERS)."""
+    return {w.__name__: {c: getattr(w, c) for c in fa.MODE_COUNTERS}
+            for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                      fa.flash_attention_bwd_dkv)}
+
+
+def reset_mode_counts(fa):
+    for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv):
+        for c in fa.MODE_COUNTERS:
+            setattr(w, c, 0)
+
+
+def alibi_slopes(h):
+    """ALiBi's geometric slopes 2^(-8i/h), i = 1 … h, on the card."""
+    return torch.tensor([2.0 ** (-8.0 * (i + 1) / h) for i in range(h)],
+                        device="cuda")
+
+
+def packed_docs(gen, b, s):
+    """(b, s) int32 ids of K1S_DOCS packed documents a row, the cuts drawn
+    from `gen`."""
+    cuts = (torch.rand((b, K1S_DOCS - 1), generator=gen, device="cuda")
+            * s).long()
+    return (torch.arange(s, device="cuda")[None, None]
+            >= cuts[..., None]).sum(1).to(torch.int32)
+
+
+def k1s_inputs(shape, causal, modes, gen):
+    """q, k, v, dO and a case's modes as the kernels' wrappers take them,
+    drawn from `gen` on the card."""
+    b, sq, sk, h, nkv, d = K1S_SHAPES[shape]
+    q, do = rand((b, sq, h, d), gen), rand((b, sq, h, d), gen)
+    k, v = rand((b, sk, nkv, d), gen), rand((b, sk, nkv, d), gen)
+    kw = {"is_causal": causal}
+    if "seg" in modes:
+        kw["seg_q"] = kw["seg_k"] = packed_docs(gen, b, sq)
+    if "seg_cross" in modes:
+        kw["seg_q"], kw["seg_k"] = packed_docs(gen, b, sq), \
+            packed_docs(gen, b, sk)
+        kw["seg_q"][1, 100:103] = K1S_DOCS       # a segment no key has
+    if "alibi" in modes:
+        kw["alibi_slopes"] = alibi_slopes(h)
+    if "window" in modes:
+        kw["window"] = K1S_WINDOW[shape]
+    if "kv_lens" in modes:
+        kw["kv_lens"] = (sk // 2 + (torch.rand(b, generator=gen,
+                                               device="cuda")
+                                    * (sk // 2 + 1)).long()).clamp(
+            max=sk).to(torch.int32)
+    if "pad" in modes:               # row 0 full, row 1 left-padded
+        m = torch.ones((b, 1, 1, sk), dtype=torch.bool, device="cuda")
+        m[1:, ..., :MISTRAL_PAD] = False
+        kw["attn_mask"] = m
+    if "padding" in modes:
+        kw["attn_mask"] = k1m_mask("padding", b, h, sq, sk, gen)
+    if "dropout" in modes:
+        kw.update(dropout_p=DROP_P, key=None)
+    return (q, k, v, do), kw
+
+
+def head_group(kw, h, hs):
+    """A case's modes for the query heads `hs` (the slopes' and a per-head
+    mask's slices)."""
+    out = dict(kw)
+    if out.get("alibi_slopes") is not None:
+        out["alibi_slopes"] = out["alibi_slopes"][hs]
+    m = out.get("attn_mask")
+    if m is not None and m.dim() == 4 and m.shape[1] == h:
+        out["attn_mask"] = m[:, hs]
+    return out
+
+
+def grouped_plain(fa, q, k, v, kw, out=None, st=None, do=None, g_lse=None):
+    """The plain twins one kv-head group at a time (an 8192-row shape's
+    fp32 scores take gigabytes a temporary): the forward's (out, stats),
+    or, given the kernels' (out, st) and dO, the backward's (dq, dk, dv),
+    the groups' pieces joined along the heads. Under dropout in one
+    piece: the keep mask hashes the element's index over all heads."""
+    h, nkv = q.shape[2], k.shape[2]
+    if kw.get("dropout_p", 0.0) > 0.0:
+        if do is None:
+            return fa.flash_attention_fwd_plain(q, k, v, **kw)
+        return fa.flash_attention_bwd_plain(q, k, v, out, st, do, **kw,
+                                            g_lse=g_lse)
+    rep = h // nkv
+    parts = []
+    for g in range(nkv):
+        hs = slice(g * rep, (g + 1) * rep)
+        gkw = head_group(kw, h, hs)
+        args = (q[:, :, hs], k[:, :, g:g + 1], v[:, :, g:g + 1])
+        if do is None:
+            parts.append(fa.flash_attention_fwd_plain(*args, **gkw))
+        else:
+            parts.append(fa.flash_attention_bwd_plain(
+                *args, out[:, :, hs], st[:, hs], do[:, :, hs], **gkw,
+                g_lse=None if g_lse is None else g_lse[:, hs]))
+    if do is None:
+        return torch.cat([p[0] for p in parts], 2), \
+            torch.cat([p[1] for p in parts], 1)
+    return tuple(torch.cat([p[i] for p in parts], 2) for i in range(3))
+
+
+def timed(fn):
+    """(fn(), its ms by CUDA events around one call)."""
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    got = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return got, ev[0].elapsed_time(ev[1])
+
+
+def k1s_structure(fa, kw, b, h, sq, sk):
+    """(pairs, dead rows) of a case: the (query, key) pairs this run's
+    structure and mask leave over all heads, and the count of dead rows (a
+    row some key reaches through the structured masks but no valid one:
+    its softmax weighs every key)."""
+    st = fa._structured_mask(sq, sk, kw["is_causal"], kw.get("kv_lens"),
+                             None, "cuda", kw.get("window"), kw.get("seg_q"),
+                             kw.get("seg_k"))
+    if st is None:
+        st = torch.ones((1, 1, sq, sk), dtype=torch.bool, device="cuda")
+    m = kw.get("attn_mask")
+    live = st if m is None else st & fa.dense_mask(m, b, h, sq, sk)
+    heads = h if live.shape[1] == 1 else 1
+    dead = st.any(-1) & ~live.any(-1)
+    n_dead = int(dead.expand(b, live.shape[1], sq).sum().item()) * heads
+    pairs = int(live.expand(b, live.shape[1], sq, sk).sum().item()) * heads
+    return pairs, n_dead
+
+
+def k1s_library(kw, q, k, v, do, h, nkv):
+    """torch sdpa's forward and backward device times over the case's
+    equivalent dense mask (structured masks, segment ids and the dense
+    mask folded into one bool mask) and additive ALiBi bias (then one
+    bf16 (b|1, h, sq, sk) bias with -inf off the mask), with its own
+    dropout at the case's p."""
+    b, sq, _, d = q.shape
+    sk = k.shape[1]
+    from paddle_tpu_torch.ops import flash_attention as fa
+    st = fa._structured_mask(sq, sk, kw["is_causal"], kw.get("kv_lens"),
+                             None, "cuda", kw.get("window"), kw.get("seg_q"),
+                             kw.get("seg_k"))
+    m = kw.get("attn_mask")
+    if m is not None:
+        dm = fa.dense_mask(m, b, h, sq, sk)
+        st = dm if st is None else st & dm
+    if kw.get("alibi_slopes") is not None:
+        bias = fa._alibi_bias(kw["alibi_slopes"], sq, sk, None,
+                              torch.float32)
+        st = torch.where(st, bias, float("-inf")).to(torch.bfloat16)
+        del bias
+    lib_kw = {"attn_mask": st, "dropout_p": kw.get("dropout_p", 0.0)}
+    if not any(kw.get(n) is not None for n in (
+            "attn_mask", "seg_q", "alibi_slopes", "window", "kv_lens")):
+        lib_kw = {"is_causal": kw["is_causal"]}     # flash_fwd_lse's cases
+    if nkv != h:
+        lib_kw["enable_gqa"] = True
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    with torch.no_grad():
+        fwd = device_ms(lambda: sdpa(qt, kt, vt, **lib_kw), iters=5)
+    o = sdpa(qt, kt, vt, **lib_kw)
+    bwd = device_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=5)
+    return fwd, bwd
+
+
+def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
+             path):
+    """One k1s case. First the main path: the public entry point
+    (``nn.functional.flash_attention``, or ``flash_fwd_lse``), forward and
+    backward, with every launch count at 0 just before and read just after
+    (added to `path`). Then K1, K3 and K4 through their wrappers on the
+    same inputs: two launches of each bitwise equal and equal to the entry
+    point's bits; K1's out within K1_TOL_OUT of the plain twin and its
+    statistics within K1_TOL_LSE (the pairs' m + log l, plus 2^-22·|m|);
+    each gradient within K3_TOL · max|plain| of the plain backward on K1's
+    (out, statistics); a row no key matches at 0. Then the device times,
+    the plain twins' and sdpa's, and each kernel's bound. K1's out is held
+    within K1_TOL_OUT + K1S_OUT_RTOL·|plain| (`close`): dropout scales a
+    kept probability by 1/keep, and a row that sees a few keys (a short
+    document, a causal row near the start) gives |out| near max|v|·1/keep,
+    past the 4 K1_TOL_OUT assumes, where one bf16 ulp is 2^-7·|out|."""
+    from paddle_tpu_torch.core import rng
+    b, sq, sk, h, nkv, d = K1S_SHAPES[shape]
+    (q, k, v, do), kw = k1s_inputs(shape, causal, modes, gen)
+    lse_mode = "lse" in modes
+    g_lse = rand((b, h, sq), gen, dtype=torch.float32) if lse_mode else None
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_counts(fa, fd)
+    reset_mode_counts(fa)
+    if lse_mode:
+        o, lse_e = fa.flash_fwd_lse(*leaves, is_causal=causal)
+        torch.autograd.backward([o, lse_e], [do, g_lse])
+    else:
+        with rng.rng_guard(dropout=drop_key(21)):
+            o, _ = nnf.flash_attention(
+                *leaves, dropout=kw.get("dropout_p", 0.0), causal=causal,
+                attn_mask=kw.get("attn_mask"), kv_lens=kw.get("kv_lens"),
+                segment_ids=kw.get("seg_q"),
+                kv_segment_ids=kw.get("seg_k") if shape == "gpt2_cross"
+                else None, window_size=kw.get("window"),
+                alibi_slopes=kw.get("alibi_slopes"))
+        o.backward(do)
+    torch.cuda.synchronize()
+    got = counts(fa, fd)
+    got["modes"] = mode_counts(fa)
+    path.append(got)
+    if "dropout" in modes:   # the draw the entry point took
+        kw["key"] = rng.fold_in(drop_key(21), 0)
+    wkw = {n: t for n, t in kw.items() if n not in ("dropout_p", "key")
+           or "dropout" in modes}
+    general = fa._general(kw.get("attn_mask"), kw.get("seg_q"),
+                          kw.get("alibi_slopes"))
+    if general:
+        wkw["bounds"] = fa._call_bounds(
+            q, k, kw.get("attn_mask"), causal, kw.get("kv_lens"), None,
+            kw.get("window"), kw.get("seg_q"), kw.get("seg_k"))
+    with torch.no_grad():
+        out, st = fa.flash_attention_fwd(q, k, v, **wkw)
+        out2, st2 = fa.flash_attention_fwd(q, k, v, **wkw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse
+    delta = delta.contiguous()
+    grads = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **wkw),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **wkw))
+    grads2 = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **wkw),
+              *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **wkw))
+    entry = [o.detach()] + [t.grad for t in leaves]
+    res = {"case": name, "shape": shape, "b": b, "sq": sq, "sk": sk,
+           "h": h, "nkv": nkv, "d": d, "causal": causal,
+           "modes": list(modes), "window": kw.get("window"),
+           "general_instantiation": general,
+           "two_launches_bitwise": bool(
+               torch.equal(out, out2) and torch.equal(st, st2)
+               and all(torch.equal(x, y) for x, y in zip(grads, grads2))),
+           "entry_point_equals_wrappers": bool(all(
+               torch.equal(x, y) for x, y in zip(entry, (out,) + grads))
+               and (not lse_mode or torch.equal(lse_e.detach(), st))),
+           "entry_point_launches": {n: got[n] for n in (
+               "flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")}}
+    del out2, st2, grads2, entry, o, leaves
+    pkw = {n: t for n, t in wkw.items() if n != "bounds"}
+    (ref, ref_st), plain_fwd = timed(lambda: grouped_plain(fa, q, k, v, pkw))
+    err, out_ok = close(out, ref, K1_TOL_OUT, K1S_OUT_RTOL)
+    if general:
+        live = ref_st[..., 1] > float("-inf")
+        lerr = ((st.double().sum(-1) - ref_st.double().sum(-1)).abs()
+                - 2.0 ** -22 * ref_st[..., 0].double().abs())[live]
+        lerr = lerr.max().item() if lerr.numel() else 0.0
+        stats_ok = bool(torch.equal(st[~live], ref_st[~live]))
+    else:
+        lerr = (st - ref_st).abs().max().item()
+        stats_ok = True
+    res.update(max_abs_err=err, tol=K1_TOL_OUT, rtol=K1S_OUT_RTOL,
+               lse_max_abs_err=lerr, lse_tol=K1_TOL_LSE,
+               hidden_rows_stats_exact=stats_ok,
+               finite=bool(torch.isfinite(out.float()).all()))
+    res["ok"] = (out_ok and lerr <= K1_TOL_LSE and stats_ok
+                 and res["finite"] and res["two_launches_bitwise"]
+                 and res["entry_point_equals_wrappers"])
+    if shape == "gpt2_cross":
+        res["unmatched_row_zero"] = bool((out[1, 100:103] == 0).all())
+        res["ok"] &= res["unmatched_row_zero"]
+    del ref, ref_st
+    refs, plain_bwd = timed(lambda: grouped_plain(
+        fa, q, k, v, pkw, out, st, do, g_lse))
+    for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        e = (g.float() - r).abs().max().item()
+        tol = K3_TOL * r.abs().max().item()
+        res[gname] = {"max_abs_err": e, "tol": tol}
+        res["ok"] &= bool(e <= tol and torch.isfinite(g.float()).all())
+    del refs, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    pairs, n_dead = k1s_structure(fa, kw, b, h, sq, sk)
+    dead_pairs = n_dead * sk
+    res.update(pairs=pairs, dead_row_pairs=dead_pairs,
+               pairs_of_all=(pairs + dead_pairs) / (b * h * sq * sk),
+               dead_rows=n_dead)
+    with torch.no_grad():
+        ms = {"k1": device_ms(lambda: fa.flash_attention_fwd(
+                  q, k, v, **wkw), iters=5),
+              "k3": device_ms(lambda: fa.flash_attention_bwd_dq(
+                  q, k, v, do, st, delta, **wkw), iters=5),
+              "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
+                  q, k, v, do, st, delta, **wkw), iters=5)}
+    lib_fwd, lib_bwd = k1s_library(kw, q, k, v, do, h, nkv)
+    tq, tk = b * sq * h * d * 2, b * sk * nkv * d * 2
+    rows = b * h * sq
+    extra = sum(t.numel() * t.element_size() for t in (
+        kw.get("attn_mask"), kw.get("seg_q"), kw.get("seg_k"),
+        kw.get("kv_lens"), kw.get("alibi_slopes")) if t is not None)
+    st_bytes = st.numel() * 4
+    nbytes = {"k1": 2 * tq + 2 * tk + extra + st_bytes,
+              "k3": 3 * tq + 2 * tk + extra + st_bytes + 4 * rows,
+              "k4": 2 * tq + 4 * tk + extra + st_bytes + 4 * rows}
+    # the k1s masks are bool; dropout hashes every pair the kernel weighs
+    # (a dead row's keys for out and dv, not for K3's zero dq)
+    for key, plain, lib in (("k1", plain_fwd, lib_fwd),
+                            ("k3", plain_bwd, lib_bwd),
+                            ("k4", plain_bwd, lib_bwd)):
+        hashed = pairs + (dead_pairs if DEAD_KEY_OPS[key] else 0)
+        nint = HASH_OPS * hashed if "dropout" in modes else 0
+        bound, by = bound3(nbytes[key], attention_ops(
+            key, d, pairs, dead_pairs, True), nint, bw, flops, iops)
+        res[key] = dict(res.get(key, {}), ms=ms[key], plain_ms=plain,
+                        library_ms=lib, bound_ms=bound, bound_by=by)
+    res["library_covers"] = (
+        "torch sdpa over the case's equivalent dense bool mask (and a bf16 "
+        "ALiBi bias with -inf off it; its own dropout at the case's p): k1 "
+        "its forward, k3 and k4 its backward (dq, dk, dv)")
+    res["plain_covers"] = ("the plain twins one kv-head group at a time: "
+                           "k1 the forward, k3 and k4 one backward")
+    del q, k, v, do, out, st, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_k1s(fa, fd, bw, flops, iops):
+    """The rest of flash attention on the card (see the module docstring,
+    phase 8m): K1S_CASES through the public entry points and against the
+    plain twins; the general mode's dropout mask read back exactly at
+    GPT-2's shape; the modifiers at kernel d 256 refused. Returns (cases,
+    the main path's launches summed over the cases' entry-point runs)."""
+    from paddle_tpu_torch.nn import functional as nnf
+    from paddle_tpu_torch.ops import dropout as dops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    cases, path = [], []
+    for name, shape, causal, modes in K1S_CASES:
+        cases.append(k1s_case(fa, fd, nnf, gen, name, shape, causal, modes,
+                              bw, flops, iops, path))
+        emit({"phase": "k1s_case", **cases[-1]})
+    launches = {n: sum(p[n] for p in path) for n in path[0]
+                if n != "modes"}
+    launches["modes"] = {w: {c: sum(p["modes"][w][c] for p in path)
+                             for c in fa.MODE_COUNTERS}
+                         for w in path[0]["modes"]}
+    b, sq, _, h, nkv, d = K1S_SHAPES["gpt2"]
+    probe, _ = k1_mask_probe(fa, dops, b, h, nkv, sq, sq, d, True,
+                             [sq, sq // 2 + 7] * (b // 2), general=True)
+    refused = d256_mode_refusals(fa)
+    emit({"phase": "k1s", "cases": [c["case"] for c in cases],
+          "launches": launches, "general_dropout_mask_probe": probe,
+          "d256_refused": refused})
+    bad = ([c["case"] for c in cases if not c["ok"]]
+           + ([] if probe["ok"] else ["the general mode's dropout mask"])
+           + [f"d256 {m} ran or raised otherwise: {e}"
+              for m, e in refused.items()
+              if not (e and "Queue B rows 1-3" in e)])
+    modes = launches["modes"]["flash_attention_fwd"]
+    if not all(launches[n] > 0 and modes["general"] > 0 for n in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")):
+        bad.append(f"the kernels were not launched on the path: {launches}")
+    if bad:
+        raise AssertionError(f"phase k1s: {bad}")
+    return cases, launches
+
+
+def d256_mode_refusals(fa):
+    """{mode: the NotImplementedError's message, or None where it ran} of
+    the dispatch at head dim 256 with each of the general mode's
+    modifiers (ROADMAP Queue B rows 1-3)."""
+    q = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device="cuda")
+    m = torch.ones((1, 1, 1, 64), dtype=torch.bool, device="cuda")
+    out = {}
+    for mode, kw in (
+            ("segment_ids", dict(is_causal=True, segment_ids=torch.zeros(
+                (1, 64), dtype=torch.int32, device="cuda"))),
+            ("alibi", dict(is_causal=True, alibi_slopes=alibi_slopes(2))),
+            ("mask_window", dict(is_causal=True, attn_mask=m,
+                                 window_size=16)),
+            ("mask_dropout", dict(attn_mask=m, dropout_p=0.1))):
+        try:
+            fa.scaled_dot_product_attention(q, q, q, **kw)
+            out[mode] = None
+        except NotImplementedError as e:
+            out[mode] = str(e)
+    return out
+
+
+def k1s_rows(cases, k1s_launches, pad_launches):
+    """Rows 1f–1j, 2e–2i, 3e–3i (K1, K3, K4's new modes): each row's
+    launches on paths k1s and train_mistral_pad (its mode's counter; the
+    lse rows the plain instantiations' launches of the lse cases), the
+    largest error over its cases, and the times, bounds, plain and sdpa
+    times of its main case, every case of the mode beside them."""
+    rows = []
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    for tags, counter, case_modes, main_name, what in K1S_ROWS:
+        main = next(c for c in cases if c["case"] == main_name)
+        mine = [c for c in cases if set(case_modes) & set(c["modes"])]
+        for name, key, tag, line, fn in zip(
+                names, ("k1", "k3", "k4"), tags, (526, 668, 787),
+                ("_fwd_kernels", "_bwd_dq_kernel", "_bwd_dkv_kernel")):
+            def on(launches):
+                if counter == "lse":
+                    return launches[name] - launches["modes"][name]["general"]
+                return launches["modes"][name][counter]
+            by_path = {"k1s": on(k1s_launches),
+                       "train_mistral_pad": on(pad_launches)}
+            err = max(c["max_abs_err"] if key == "k1"
+                      else c["dq"]["max_abs_err"] if key == "k3"
+                      else max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
+                      for c in mine)
+            t = main[key]
+            rows.append({
+                "name": name, "row": tag, "mode": what, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/" + (
+                    "flash_attention.cu" if key == "k1"
+                    else "flash_attention_bwd.cu"),
+                "replaces": f"paddle_tpu/ops/flash_attention.py:{line} "
+                            f"({fn}, {what})",
+                "launches": sum(by_path.values()), "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "per": f"one call at {main_name}: b {main['b']}, h "
+                       f"{main['h']}/{main['nkv']}, s {main['sq']}, d "
+                       f"{main['d']}",
+                "launches_by_path": by_path,
+                "at_cases": [dict(c[key], case=c["case"]) for c in mine]})
+    return rows
+
+
+# train_mistral_pad's depth: Mistral-7B's 32 layers. train_mistral's b 1
+# run peaks at 61.4 GB: 57.9 GB of bf16 weights, gradients and both AdamW
+# moments, ≈ 3.5 GB of activations at S 8192 under full recompute. b 2
+# doubles the activations, ≈ 65 GB in all, under the card's 80 GB
+MISTRAL_PAD_LAYERS = 32
+
+
+def mistral_pad_batch(cfg, b, s, ignore_index):
+    """train_bench's batch (ids from RandomState(0)) at (b, s) with row 1
+    left-padded by MISTRAL_PAD tokens (pad id 0), its pad labels at the
+    loss's ignore_index, and the (b, 1, 1, s) bool mask hiding its pad
+    keys."""
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    x, y = ids[:, :-1].clone(), ids[:, 1:].clone()
+    x[1:, :MISTRAL_PAD] = 0
+    y[1:, :MISTRAL_PAD] = ignore_index
+    mask = torch.ones((b, 1, 1, s), dtype=torch.bool, device="cuda")
+    mask[1:, ..., :MISTRAL_PAD] = False
+    return x, y, mask
+
+
+def mistral_pad_grad_check(fa, fd, cfg, b, s):
+    """train_mistral_pad's model cut to 2 layers (the same width, window,
+    recompute and loss chunks), its loss and every gradient on the padded
+    batch through the kernels (the general instantiations, counted) and
+    through the plain twins on the card (one kv-head group at a time),
+    both bf16 from the same weights: the loss within STEP_LOSS_ATOL, each
+    gradient within STEP_GRAD_RTOL (relative L2), as phase llama_step
+    holds TinyLlama's."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    c2 = dataclasses.replace(cfg, num_layers=2)
+    model = LlamaForCausalLM(c2, dtype=torch.bfloat16, device="cuda", seed=0)
+    x, y, mask = mistral_pad_batch(
+        c2, b, s, getattr(model.loss_fn, "ignore_index", -100))
+
+    def grads():
+        loss = model.train_loss(x, y, mask)
+        loss.backward()
+        got = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), got
+    reset_counts(fa, fd)
+    reset_mode_counts(fa)
+    loss, g = grads()
+    launched = counts(fa, fd)
+    mw = {w: m["mask_window"] for w, m in mode_counts(fa).items()}
+    with PlainKernelsOnCard(fa):
+        loss_p, g_p = grads()
+    err = {n: ((g[n].float() - r.float()).norm() / r.float().norm()).item()
+           for n, r in g_p.items()}
+    worst = max(err, key=err.get)
+    want = {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 2,
+            "flash_attention_bwd_dkv": 2}
+    res = {"layers": 2, "loss": loss, "loss_plain_twins": loss_p,
+           "loss_abs_err": abs(loss - loss_p), "loss_atol": STEP_LOSS_ATOL,
+           "grad_rel_err_max": err[worst], "grad_rel_err_worst_param": worst,
+           "grad_rel_err_by_param": err, "grad_rel_tol": STEP_GRAD_RTOL,
+           "mask_window_launches": mw}
+    res["ok"] = (abs(loss - loss_p) <= STEP_LOSS_ATOL
+                 and err[worst] <= STEP_GRAD_RTOL and math.isfinite(loss)
+                 and all(launched[n] == want[n] == mw[n]
+                         for n in want))
+    del model, g, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_mistral_pad(fa, fd, flops):
+    """Mistral-7B (`LlamaConfig.mistral_7b()`: h 4096, 32/8 heads, d 128,
+    window 4096) at MISTRAL_PAD_LAYERS layers on a padded batch: b 2,
+    S 8192, row 1 left-padded by MISTRAL_PAD tokens (pad labels at the
+    loss's ignore_index, a (b, 1, 1, S) bool mask), `train_loss(x, y,
+    attn_mask)` under full recompute and 8 loss chunks, pure-bf16
+    AdamW(1e-4): 1 warm-up and 3 counted steps (CUDA events), every launch
+    count at 0 just before the counted steps and read just after: K1
+    twice a layer a step, K3 and K4 once, all on the general
+    instantiations with the mask beside the window, no plain attention
+    call; the loss finite and falling; step ms, tokens/s over the real
+    tokens, MFU (dense-6N basis over the real tokens), peak memory and a
+    traced step by kernel family. Then the 2-layer gradient check
+    (`mistral_pad_grad_check`)."""
+    from paddle_tpu_torch import train_bench
+    from paddle_tpu_torch.bench import flops_per_token
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(),
+                              num_layers=MISTRAL_PAD_LAYERS, recompute=True,
+                              recompute_granularity="full", loss_seq_chunks=8)
+    b, s = K1S_SHAPES["mistral_pad"][:2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, _, _ = train_bench.build(cfg, b, s, "cuda")
+    x, y, mask = mistral_pad_batch(
+        cfg, b, s, getattr(model.loss_fn, "ignore_index", -100))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.num_params()
+    step = lambda: train_bench.train_step(model, opt, x, y, mask)
+    with PlainTraining(fa) as plain:
+        losses = [float(step())]
+        reset_counts(fa, fd)
+        reset_mode_counts(fa)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        counted = [float(step()) for _ in range(3)]
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(fa, fd)
+        launches["modes"] = mode_counts(fa)
+        peak = torch.cuda.max_memory_allocated()
+        trace = traced_step(step, reps=1)
+    reset_counts(fa, fd)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = ev[0].elapsed_time(ev[1]) / 3
+    real = int(mask.sum().item())
+    tok_s = real / step_ms * 1e3
+    fpt = flops_per_token(cfg, n_params, s)
+    L = cfg.num_layers
+    res = {"phase": "train_mistral_pad", "model": "mistral_7b", "layers": L,
+           "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+           "kv_heads": cfg.kv_heads, "window": cfg.sliding_window,
+           "params": n_params, "batch": b, "seq": s, "left_pad": MISTRAL_PAD,
+           "mask": "(b, 1, 1, s) bool", "real_tokens_a_step": real,
+           "recompute_granularity": "full", "loss_seq_chunks": 8,
+           "optimizer": "AdamW(1e-4, multi_precision=False)",
+           "init_s": init_s, "warmup_steps": 1, "steps": 3,
+           "step_ms": step_ms, "wall_step_ms": wall * 1e3 / 3,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu": tok_s * fpt / flops,
+           "mfu_basis": "dense_6n + 12·L·h·S a real token",
+           "peak_memory_gb": peak / 1e9, "losses": losses + counted,
+           "launches": launches, "plain_attention_calls": plain.n,
+           "step_trace": trace, "device_idle_share": None if trace is None
+           else 1 - trace["busy_ms"] / step_ms}
+    res["grad_check_2_layers"] = mistral_pad_grad_check(fa, fd, cfg, b, s)
+    emit(res)
+    n = 3 * L
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n}
+    bad = []
+    for w, k in want.items():
+        m = launches["modes"][w]
+        if not launches[w] == k == m["general"] == m["mask_window"]:
+            bad.append(f"{w}: {launches[w]} launches, {m}, expected {k} "
+                       "on the general instantiation with the mask and the "
+                       "window")
+    if plain.n:
+        bad.append(f"{plain.n} plain attention calls")
+    if not all(math.isfinite(v) for v in counted) or \
+            not counted[-1] < counted[0]:
+        bad.append(f"loss not finite or not falling: {counted}")
+    if not res["grad_check_2_layers"]["ok"]:
+        bad.append("the 2-layer loss or gradients off the plain twins")
+    if bad:
+        raise AssertionError("train_mistral_pad: " + "; ".join(bad))
+    return res
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7758,6 +8493,16 @@ def main(argv):
         rows = mask_rows(phase_k1m(fa, bw, flops), phase_ernie(fa, fd))
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
+    if "--k1s" in argv:
+        phase_k1s(fa, fd, bw, flops, iops)
+        return 0
+    if "--modes" in argv:
+        cases, k1s_launches = phase_k1s(fa, fd, bw, flops, iops)
+        pad = phase_train_mistral_pad(fa, fd, flops)
+        print(json.dumps({"kernels": k1s_rows(cases, k1s_launches,
+                                              pad["launches"])}),
+              flush=True)
+        return 0
     if "--unet" in argv:
         shapes, d256_err = phase_k1h(fa, bw, flops)
         bwd_shapes, bwd_errs = phase_k3h(fa, bw, flops)
@@ -7791,6 +8536,7 @@ def main(argv):
     k1h_shapes, k1h_err = phase_k1h(fa, bw, flops)
     k3h_shapes, k3h_errs = phase_k3h(fa, bw, flops)
     k1m_cases = phase_k1m(fa, bw, flops)
+    k1s_cases, k1s_launches = phase_k1s(fa, fd, bw, flops, iops)
     if quick:
         return 0
     model, plan, kv, launches, int8kv_launches = phase_e2e(fa, fd)
@@ -7841,6 +8587,9 @@ def main(argv):
     phase_llama_step(fa, fd)
     llama_train = phase_train_llama(fa, fd, flops)
     mistral_train = phase_train_mistral(fa, fd, flops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pad_launches = phase_train_mistral_pad(fa, fd, flops)["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     unet_launches = phase_unet(fa, fd, flops)
@@ -7957,6 +8706,24 @@ def main(argv):
         k["launches_by_path"]["ernie"] = 0 if "mode" in k else \
             ernie["all"].get(k["name"], 0) - ernie["masked"].get(k["name"], 0)
     kernels += mask_rows(k1m_cases, ernie)
+    # paths k1s and train_mistral_pad: the plain instantiations' launches
+    # (flash_fwd_lse's cases) on rows 1, 2, 3, the mask rows' (1e, 2d, 3d:
+    # the general instantiations, with a mask) on theirs; then rows 1f–1j,
+    # 2e–2i, 3e–3i
+    for k in kernels:
+        for path, got in (("k1s", k1s_launches),
+                          ("train_mistral_pad", pad_launches)):
+            modes = got["modes"].get(k["name"])
+            if modes is None:
+                k["launches_by_path"][path] = 0 if "mode" in k else \
+                    got[k["name"]]
+            elif "mode" in k:
+                k["launches_by_path"][path] = modes["masked"] \
+                    if k["mode"].startswith("dense attn_mask") else 0
+            else:
+                k["launches_by_path"][path] = got[k["name"]] - \
+                    modes["general"]
+    kernels += k1s_rows(k1s_cases, k1s_launches, pad_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,16 +1,19 @@
 """Compare one kernel source's machine code between two trees.
 
     python3 examples/torch_sass_diff.py --other _parent \\
-        [--source flash_attention_bwd] [--out chiprun_out]
+        [--source flash_attention_bwd] [--out DIR]
 
 Compiles ``paddle_tpu_torch/csrc/<source>.cu`` of this tree and of the tree
 at ``--other`` (an unpacked ``git archive`` of another commit) with the
 package's own nvcc flags (``ops._build``: sm_90a, -O3, -lineinfo) and
 ``-Xptxas -v`` into cubins, disassembles both with ``cuobjdump -sass``, and
 prints one JSON line: for every kernel instantiation whether its SASS is
-the same in both trees (instruction text, addresses and the anonymous
-namespace's hash left out), present in one tree only, or different, and
-each tree's ptxas lines that report spilled bytes. Use it to show that a
+the same in both trees (instruction text, addresses, runs of spaces and
+the anonymous namespace's hash left out), present in one tree only, or
+different, and each tree's ptxas lines that report spilled bytes. Kernels
+are matched by mangled name with the names of the ``am`` namespace's
+argument types left out, so that a kernel whose argument struct was
+renamed is still compared with its counterpart. Use it to show that a
 change to a shared kernel source leaves the instantiations it did not mean
 to touch compiled to the same code. Writes the ptxas logs and the
 disassembly under ``--out``.
@@ -33,6 +36,9 @@ sys.path.insert(0, str(ROOT))
 from paddle_tpu_torch.ops import _build  # noqa: E402
 
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+# a type of the am namespace in a mangled name: N2am, its name's length
+# and the name, E
+AM_TYPE = re.compile(r"N2am(\d+)")
 ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 
 
@@ -44,15 +50,32 @@ def compile_cubin(src: Path, cubin: Path, log: Path):
                             stderr=subprocess.STDOUT)
 
 
+def normalise(name: str) -> str:
+    """A mangled kernel name with the anonymous namespace's hash and the
+    names of am:: types left out."""
+    name = ANON.sub("ANON", name)
+    out, at = [], 0
+    for m in AM_TYPE.finditer(name):
+        if m.start() < at:
+            continue
+        end = m.end() + int(m.group(1))
+        if name[end:end + 1] != "E":
+            continue
+        out.append(name[at:m.start()] + "N2amE")
+        at = end + 1
+    return "".join(out) + name[at:]
+
+
 def kernels(sass: str):
-    """{kernel name (anonymous namespace normalised): [instructions]}."""
+    """{kernel name (normalised): [instructions]}."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
-            cur = out.setdefault(ANON.sub("ANON", m.group(1)), [])
+            cur = out.setdefault(normalise(m.group(1)), [])
         elif cur is not None:
-            ins = ADDR.sub("", line).strip()
+            # runs of spaces vary with the widest line of the listing
+            ins = " ".join(ADDR.sub("", line).split())
             if ins:
                 cur.append(ins)
     return out
@@ -64,7 +87,7 @@ def spills(log: str):
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = ANON.sub("ANON", m.group(1))
+            name = normalise(m.group(1))
         elif "spill stores" in line and " 0 bytes spill stores" not in line:
             found.append([name, line.strip()])
     return found

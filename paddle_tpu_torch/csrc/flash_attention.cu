@@ -71,28 +71,42 @@
 //    runs while P·V(j) is on the tensor cores. A template and not a
 //    per-launch flag: the consumers run at 240 registers, and a flag would
 //    make every launch carry the hash's registers and a branch in the
-//    softmax pass (ptxas: 168 at entry and no spill in every
-//    instantiation; the build takes ~23 s with eight instantiations).
+//    softmax pass (ptxas: 168 at entry and no spill in the DROP
+//    instantiations without MOD; see the register note below).
 //  * ptxas keeps the wgmmas asynchronous only when each wait matches its
 //    group statically: every wgmma in the main loop is issued
 //    unconditionally (the last tile's P·V is peeled off), and P is
 //    repacked into the registers P·V(j) reads only after P·V(j) completes.
 //
-//  * Dense masks are a fourth flag (MASK = true, at d 64 and 128; the
-//    kernels without it run the code they ran before): bool or fp32,
-//    read in place through four element strides (0 on a broadcast dim, so
-//    a (b, 1, 1, sk) key-padding mask is never expanded), the contract and
-//    the natural-domain softmax of csrc/attn_mask.cuh. A block walks the
-//    key tiles [lo, hi) that the caller's bounds give it (ops/
+//  * The general mode is a fourth flag (MOD = true, at d 64 and 128, with
+//    or without DROP; the kernels without it run the code they ran
+//    before): the dense mask, the segment ids and ALiBi beside the causal
+//    mask, kv_lens and the window, each a runtime field of one argument
+//    (am::Mod, csrc/attn_mask.cuh, with this mode's contract and its
+//    natural-domain softmax). The mask is bool or fp32, read in place
+//    through four element strides (0 on a broadcast dim, so a (b, 1, 1,
+//    sk) key-padding mask is never expanded); a row's segment ids are read
+//    once, a key's per element; the ALiBi bias slope_h·(k - q - q_off) is
+//    added to the scaled score before every mask. A block walks the key
+//    tiles [lo, hi) that the caller's bounds give it (ops/
 //    flash_attention.py `mask_bounds`, the device-side port of the
 //    reference's _mask_block_bounds, :445, at this kernel's 128 x 128
-//    tiles, the structured limits folded in): a tile is left out only when
-//    no entry can change a row, every entry bool False or float -inf, or
-//    hidden by kv_len or the diagonal; a block holding a row that the mask
-//    hides at every visible key walks all tiles (that row's softmax is the
-//    uniform one over every key, csrc/attn_mask.cuh). The bounds stay on
-//    the device. Every tile takes the per-element mask. The row statistics
-//    are written as the pair (m, log l) in place of the lse.
+//    tiles, the structured limits and the window folded in): a tile is
+//    left out only when no entry can change a row; a block holding a row
+//    that the mask hides at every visible key walks all tiles (that row's
+//    softmax is the uniform one over every key, csrc/attn_mask.cuh), so
+//    neither the window's t0 nor the diagonal bounds this mode's walk. The
+//    bounds stay on the device. Every tile takes the per-element test. A
+//    row no key reaches through the structured masks (tracked per row
+//    while the tiles pass) gives 0. The row statistics are written as the
+//    pair (m, log l) in place of the lse. Dropout applies after the
+//    statistics, as in DROP. Inside MOD, WIN picks the loop with the
+//    window, segment ids and ALiBi (EXTRA: the per-row ids, the slope and
+//    the tracking of which rows some key reaches); without it a dense mask
+//    alone (the padded batches of the encoders) runs a lean loop whose
+//    test is kv_len, the diagonal and the mask, and kv_len and the
+//    diagonal say which rows no key reaches. The host picks the pair from
+//    the argument's fields; the windowed walk (t0) is never MOD's.
 //
 //  * Head dims 64, 128 and 256 (the reference's kernel widths). d = 256 is
 //    a fourth instantiation with its own key tile (Fwd<256>::BK = 64: S by
@@ -105,7 +119,11 @@
 // d = 64, ST = 3: 112 KB; d = 256, BK = 64, ST = 2: 192 KB) + barriers;
 // one block per SM. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at
 // entry for 384 threads (consumers 240, producer 24 after setmaxnreg), 0
-// bytes spilled, no wgmma serialisation warning, d = 64 and 128.
+// bytes spilled, no wgmma serialisation warning, d = 64 and 128, in every
+// instantiation but the general mode with EXTRA and dropout at d = 128
+// (flash_fwd_sm90<128, true, true, true>: the hash's registers beside the
+// modifiers' per-row state; the spill is in the records of the port's
+// kernel table, PERF.md).
 
 // Layouts: q (b, sq, h, d), k/v (b, sk, nkv, d), out (b, sq, h, d), all
 // bf16 and contiguous (16-byte aligned); lse (b, h, sq) fp32; kv_lens (b,)
@@ -210,15 +228,21 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
   }
 }
 
-// MASK: tile k0's scores through the dense mask (csrc/attn_mask.cuh; the
+// MOD: tile k0's scores through the modifiers (csrc/attn_mask.cuh; the
 // thread's rows r0 and r0 + 8 read the mask from elements mr[0], mr[1]),
 // then the online-softmax update in the natural domain: m, l per row,
-// s -> p = 2^((t − m)·log2 e), alpha the factor that rescales O
-template <int BK>
-__device__ __forceinline__ void softmax_tile_mask(
+// s -> p = 2^((t − m)·log2 e), alpha the factor that rescales O. EXTRA:
+// the window, segment ids or ALiBi are present (rows r0 + 8i have segment
+// ids sg[i] against the keys' at segk, and the bias slope·(k - q -
+// q_off)), and `seen` marks a row that the structured masks leave some
+// key; without EXTRA (a dense mask alone) the per-element test is kv_len,
+// the diagonal and the mask, as in the mask-only kernel
+template <int BK, bool EXTRA>
+__device__ __forceinline__ void softmax_tile_mod(
     float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    int k0, int r0, int tg, int sk, int kvlen, int causal, int q_off,
-    float scale, const am::Mask& mk, const long long (&mr)[2]) {
+    bool (&seen)[2], int k0, int r0, int tg, int sk, int kvlen, int causal,
+    int q_off, float scale, const am::Mod& md, const long long (&mr)[2],
+    const int (&sg)[2], const int* segk, float slope) {
 #pragma unroll
   for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -228,8 +252,19 @@ __device__ __forceinline__ void softmax_tile_mask(
         const int kc = k0 + c * 8 + tg * 2 + j;
         bool g;
         float& v = s[4 * c + 2 * i + j];
-        v = am::score(mk, mr[i], kc, sk, v, scale,
-                      kc >= kvlen || (causal && kc > q_off + r0 + 8 * i), g);
+        if constexpr (EXTRA) {
+          const int qp = q_off + r0 + 8 * i;
+          const bool st = am::hidden(
+              md, kc, kvlen, causal, qp,
+              segk != nullptr && kc < sk && __ldg(segk + kc) != sg[i]);
+          seen[i] |= !st;
+          v = am::score(md, mr[i], kc, sk, v, scale,
+                        slope * (float)(kc - qp), st, g);
+        } else {
+          v = am::mask_score(md, mr[i], kc, sk, v, scale,
+                             kc >= kvlen || (causal && kc > q_off + r0 + 8 * i),
+                             g);
+        }
       }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -288,7 +323,7 @@ __device__ __forceinline__ void issue_pv(
   wgmma_commit();
 }
 
-template <int D, bool WIN, bool DROP, bool MASK = false>
+template <int D, bool WIN, bool DROP, bool MOD = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mk,
@@ -296,10 +331,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                float* __restrict__ lse, const int* __restrict__ kv_lens,
                int sq, int sk, int h, int nkv, int causal, int q_off,
                int window, float scale, int group, tf::Drop dr,
-               am::Mask msk) {
+               am::Mod md) {
   using C = Fwd<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
+  // the general mode (MOD) reads its window from md and walks the tiles of
+  // its bounds: there WIN picks the loop with the window, segment ids and
+  // ALiBi (EXTRA), and the windowed walk (WND) is the WIN kernel's alone
+  constexpr bool WND = WIN && !MOD;
+  constexpr bool EXTRA = WIN && MOD;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm;
@@ -326,15 +366,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
   // keys that can be visible to some row of this block
   int kend = kvlen;
   if (causal) kend = min(kend, q_off + min(q0 + BQ, sq));
-  // WIN: the tile of the block's first row's first visible key; both roles
+  // WND: the tile of the block's first row's first visible key; both roles
   // load and walk tiles t0 … t0 + ntiles - 1 and count ring stages from t0
-  int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
+  int t0 = WND ? max(0, q_off + q0 - window + 1) / BK : 0;
   int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
-  const int wlo = WIN ? q_off - window : 0;
-  if constexpr (MASK) {
+  const int wlo = WND ? q_off - window : 0;
+  if constexpr (MOD) {
     // the tiles [lo, hi) of this block's bounds, the structured limits
     // folded in (and every tile for a block with a dead row)
-    const int* bd = msk.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
+    const int* bd = md.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
     t0 = bd[0];
     ntiles = max(0, bd[1] - bd[0]);
   }
@@ -392,13 +432,26 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
     // DROP: flat score index of (bi, hi, r0, key 0), and +8 rows
     const uint64_t rb = ((uint64_t)(bi * h + hi) * sq + r0) * sk;
     const uint64_t rs8 = (uint64_t)8 * sk;
-    // MASK: the first mask element of rows r0 and r0 + 8 (-1 past sq)
+    // MOD: the first mask element of rows r0 and r0 + 8 (-1 past sq; 0
+    // without a mask); EXTRA: their segment ids, the keys' ids, the head's
+    // slope
     long long mr[2] = {-1, -1};
-    if constexpr (MASK) {
+    int sg[2] = {0, 0};
+    bool seen[2] = {false, false};
+    const int* segk = nullptr;
+    float slope = 0.f;
+    if constexpr (MOD) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        if (r0 + 8 * i < sq)
-          mr[i] = bi * msk.sb + hi * msk.sh + (long long)(r0 + 8 * i) * msk.sq;
+        if (r0 + 8 * i < sq) {
+          mr[i] = bi * md.sb + hi * md.sh + (long long)(r0 + 8 * i) * md.sq;
+          if constexpr (EXTRA)
+            sg[i] = am::seg_id(md.seg_q, (long long)bi * sq + r0 + 8 * i);
+        }
+      if constexpr (EXTRA) {
+        if (md.seg_k != nullptr) segk = md.seg_k + (long long)bi * sk;
+        if (md.slopes != nullptr) slope = md.slopes[hi];
+      }
     }
 
     float o[D / 2];
@@ -423,9 +476,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       wgmma_wait<0>();
       fence_regs(s);
       mbar_arrive(&empty_k[0]);
-      if constexpr (MASK)
-        softmax_tile_mask<BK>(s, m, l, alpha, t0 * BK, r0, tg, sk, kvlen,
-                              causal, q_off, scale, msk, mr);
+      if constexpr (MOD)
+        softmax_tile_mod<BK, EXTRA>(s, m, l, alpha, seen, t0 * BK, r0, tg,
+                                    sk, kvlen, causal, q_off, scale, md, mr,
+                                    sg, segk, slope);
       else
         softmax_tile<BK, WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen,
                               causal, q_off, wlo, sl2);
@@ -446,9 +500,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         wgmma_wait<1>();
         fence_regs(s);
         mbar_arrive(&empty_k[sn]);   // K(it+1) is read: its stage may refill
-        if constexpr (MASK)
-          softmax_tile_mask<BK>(s, m, l, alpha, (t0 + it + 1) * BK, r0, tg,
-                                sk, kvlen, causal, q_off, scale, msk, mr);
+        if constexpr (MOD)
+          softmax_tile_mod<BK, EXTRA>(s, m, l, alpha, seen,
+                                      (t0 + it + 1) * BK, r0, tg, sk, kvlen,
+                                      causal, q_off, scale, md, mr, sg, segk,
+                                      slope);
         else
           softmax_tile<BK, WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0,
                                 tg, kvlen, causal, q_off, wlo, sl2);
@@ -485,12 +541,20 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       li += __shfl_xor_sync(0xffffffff, li, 2);
       float inv = li == 0.f ? 0.f : 1.f / li;
       const int r = r0 + 8 * i;
-      if constexpr (MASK) {
+      if constexpr (MOD) {
         // a row the structured masks hide wholly gives 0 (the reference's
         // `structured.any` rule); any other row without a key (a float
-        // row at -inf everywhere) gives NaN, as the twin
-        const int vis = min(kvlen, causal ? q_off + r + 1 : sk);
-        if (vis <= 0) {
+        // row at -inf everywhere) gives NaN, as the twin. Without EXTRA
+        // kv_len and the diagonal say which rows some key reaches
+        int any;
+        if constexpr (EXTRA) {
+          any = seen[i];
+          any |= __shfl_xor_sync(0xffffffff, any, 1);
+          any |= __shfl_xor_sync(0xffffffff, any, 2);
+        } else {
+          any = min(kvlen, causal ? q_off + r + 1 : sk) > 0;
+        }
+        if (!any) {
           inv = 0.f;
           m[i] = am::NEG;
           li = 0.f;
@@ -505,7 +569,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         for (int c = 0; c < D / 8; ++c)
           *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
               pack_f2(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
-        if constexpr (MASK) {
+        if constexpr (MOD) {
           // the pair (m, log l) of (b, h, sq, 2) statistics
           if (tg == 0)
             *reinterpret_cast<float2*>(lse + 2 * (((long)bi * h + hi) * sq +
@@ -524,7 +588,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const void* kv_lens, int b, int sq, int sk, int h, int nkv,
            int causal, int q_off, int window, float scale, int drop,
-           tf::Drop dr, const am::Mask& msk, cudaStream_t st) {
+           tf::Drop dr, const am::Mod* mod, cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
   constexpr int BK = Fwd<D>::BK;
@@ -532,15 +596,20 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
-  // dropout one. d = 256 has neither yet: only its plain instantiation is
-  // built
-  // a mask (msk.p): the mask one, without the window or dropout
+  // dropout one; the general argument (mod): the general one, with or
+  // without dropout, and with the window, segment ids or ALiBi (WIN) or a
+  // dense mask alone. d = 256 has none of them yet: only its plain
+  // instantiation is built
   auto kern = flash_fwd_sm90<D, false, false>;
   if constexpr (D == 256) {
-    if (window > 0 || drop || msk.p) return (int)cudaErrorInvalidValue;
-  } else if (msk.p) {
-    if (window > 0 || drop) return (int)cudaErrorInvalidValue;
-    kern = flash_fwd_sm90<D, false, false, true>;
+    if (window > 0 || drop || mod) return (int)cudaErrorInvalidValue;
+  } else if (mod) {
+    if (mod->window > 0 || mod->seg_k || mod->slopes)
+      kern = drop ? flash_fwd_sm90<D, true, true, true>
+                  : flash_fwd_sm90<D, true, false, true>;
+    else
+      kern = drop ? flash_fwd_sm90<D, false, true, true>
+                  : flash_fwd_sm90<D, false, false, true>;
   } else {
     kern = window > 0 ? (drop ? flash_fwd_sm90<D, true, true>
                               : flash_fwd_sm90<D, true, false>)
@@ -555,7 +624,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const int grid = ((sq + BQ - 1) / BQ) * h * b;
   kern<<<grid, THREADS, Fwd<D>::SMEM, st>>>(
       mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-      nkv, causal, q_off, window, scale, group, dr, msk);
+      nkv, causal, q_off, window, scale, group, dr, mod ? *mod : am::Mod{});
   return (int)cudaGetLastError();
 }
 
@@ -563,28 +632,28 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 // drop: the dropout instantiation, keyed by (k1, k2), an element kept iff
 // its top 23 bits are below thr, a kept probability scaled by inv = 1/keep.
-// mask (or null): the dense mask (csrc/attn_mask.cuh), its bounds
+// mod (or null): the general mode's argument (csrc/attn_mask.cuh: the
+// dense mask, the window, the segment ids, the ALiBi slopes), its bounds
 // (b, h, ceil(sq/128), 2) int32, each block's [lo, hi) of 128-key tiles;
 // lse is then the (b, h, sq, 2) pairs (m, log l)
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, const void* kv_lens,
                                    int b, int sq, int sk, int h, int nkv,
                                    int d, int causal, int q_off, int window,
-                                   float scale, const am::Mask* mask,
+                                   float scale, const am::Mod* mod,
                                    int drop, unsigned k1, unsigned k2,
                                    unsigned thr, float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
   const tf::Drop dr{k1, k2, thr, inv};
-  const am::Mask msk = mask ? *mask : am::Mask{};
   if (d == 128)
     return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, drop, dr, msk, st);
+                       q_off, window, scale, drop, dr, mod, st);
   if (d == 64)
     return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                      q_off, window, scale, drop, dr, msk, st);
+                      q_off, window, scale, drop, dr, mod, st);
   if (d == 256)
     return launch<256>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, drop, dr, msk, st);
+                       q_off, window, scale, drop, dr, mod, st);
   return (int)cudaErrorInvalidValue;
 }

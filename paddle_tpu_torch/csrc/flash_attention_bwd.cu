@@ -34,11 +34,13 @@
 // with this one's (below); in both the two consumer groups overlap each
 // other. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at entry for 384
 // threads (consumers 240, producer 24 after setmaxnreg), no wgmma
-// serialisation warning, every instantiation; 0 bytes spilled but in
-// flash_bwd_dkv_sm90<128, false, true> (K4's dropout mode at d 128: 16
-// bytes of spill stores, 24 of loads). d = 256 (flash_bwd_dq_sm90<256,
-// false, false>, flash_bwd_dkv_sm90<256, false, false>): 168 at entry, 0
-// bytes spilled, none of warnings C7513-C7515.
+// serialisation warning, every instantiation; 0 bytes spilled but in K4's
+// dropout modes at d 128 (flash_bwd_dkv_sm90<128, false, true>: 12 bytes
+// of spill stores, 16 of loads; <128, true, true>: 16 and 20). d = 256
+// (flash_bwd_dq_sm90<256, false, false>, flash_bwd_dkv_sm90<256, false,
+// false>): 168 at entry, 0 bytes spilled, none of warnings C7513-C7515.
+// The general instantiations (MOD, with and without EXTRA and DROP, d 64
+// and 128): 168 at entry, 0 bytes spilled.
 //
 // Head dims 64, 128 and 256 (the reference's kernel widths; the caller
 // zero-pads others, ops/flash_attention.py). At d = 256 the tiles that fit
@@ -65,22 +67,30 @@
 // hi)·sq + q)·sk + k (csrc/threefry.cuh), from the coordinates its masks
 // already use: K3 in k3_ds, K4 in k4_drop_ds (dSᵀ, and Pᵀ dropped for dv).
 //
-// Dense masks are a fourth flag (MASK = true, at d 64 and 128; the kernels
-// without it run the code they ran before), K1's mask mode's backward
-// (csrc/flash_attention.cu, csrc/attn_mask.cuh): each element's masked
-// score t is recomputed as the forward took it, P = 2^((t − m)·log2 e −
-// log2 l) from the forward's pair (m, log l), and
-//   dS = P∘(dP − Δ) where t depends on s (a float mask, or a bool True
-//        the structured masks leave visible), 0 elsewhere;
-//   dv = Pᵀ·dO over every element (P is nonzero off those only in a dead
-//        row, whose uniform softmax weighs every key, csrc/attn_mask.cuh).
+// The general mode is a fourth flag (MOD = true, at d 64 and 128, with or
+// without DROP; the kernels without it run the code they ran before), K1's
+// general mode's backward (csrc/flash_attention.cu, csrc/attn_mask.cuh:
+// the dense mask, the segment ids and ALiBi beside the causal mask,
+// kv_lens and the window, runtime fields of one argument): each element's
+// score t is recomputed as the forward took it, the ALiBi bias included,
+// P = 2^((t − m)·log2 e − log2 l) from the forward's pair (m, log l), and
+//   dS = P∘(dP∘[Z/keep] − Δ) where t depends on s (no bias term: the bias
+//        is constant in s; a float mask, or a key the structured masks and
+//        a bool mask leave visible), 0 elsewhere;
+//   dv = (P∘[Z/keep])ᵀ·dO over every element (P is nonzero off those only
+//        in a dead row, whose uniform softmax weighs every key,
+//        csrc/attn_mask.cuh).
 // K3 walks each 128-row block's [lo, hi) of 64-key tiles and K4 each
 // 128-key block's [lo, hi) of 64-row query tiles from the caller's bounds
 // (ops/flash_attention.py `mask_bounds`: the reference's
 // _mask_block_bounds, :445, per query block for dq and per key block,
 // axis_q=False, for dk/dv; under GQA the union over the kv head's query
-// heads, whose own mask rows K4 reads). Every tile takes the per-element
-// mask, and the mask modes skip no tile of the range.
+// heads, whose own mask rows, segment ids and slopes K4 reads; the window
+// folded in, a block that holds a dead row past every limit). Every tile
+// takes the per-element test, and this mode skips no tile of the range.
+// Inside MOD, WIN picks the loop with the window, segment ids and ALiBi
+// (EXTRA), as in K1; without it a dense mask alone runs the lean loop
+// (kv_len, the diagonal and the mask).
 //
 // Layouts: q, dout (b, sq, h, d), k/v (b, sk, nkv, d), dq (b, sq, h, d),
 // dk/dv (b, sk, nkv, d), all bf16 and contiguous; lse, delta (b, h, sq)
@@ -269,15 +279,20 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK / 2],
       }
 }
 
-// MASK: dS = P∘(dP − Δ) in place of dP where t depends on s, else 0, with
-// t the masked score of csrc/attn_mask.cuh (rows r0 + 8i read the mask
-// from element mr[i]) and P from the row's (m, log2 l) in (mm, lg)
-template <int BK>
-__device__ __forceinline__ void k3_ds_mask(
+// MOD: dS = P∘(dP − Δ) in place of dP where t depends on s, else 0, with
+// t the score of csrc/attn_mask.cuh (rows r0 + 8i read the mask from
+// element mr[i], have segment ids sg[i] against the keys' at segk, and the
+// bias slope·(k - q - q_off)) and P from the row's (m, log2 l) in (mm,
+// lg). DROP: dS = P∘(dP∘Z/keep − Δ), Z hashed as in k3_ds. EXTRA: the
+// window, segment ids or ALiBi are present; without them (a dense mask
+// alone) the per-element test is kv_len, the diagonal and the mask only
+template <int BK, bool DROP, bool EXTRA>
+__device__ __forceinline__ void k3_ds_mod(
     const float (&sa)[BK / 2], float (&dp)[BK / 2], const float (&mm)[2],
     const float (&lg)[2], const float (&dl)[2], int k0, int r0, int tg,
-    int sk, int kvlen, int causal, int q_off, float scale, const am::Mask& mk,
-    const long long (&mr)[2]) {
+    int sk, int kvlen, int causal, int q_off, float scale, const am::Mod& md,
+    const long long (&mr)[2], const int (&sg)[2], const int* segk,
+    float slope, const tf::Drop& dr, uint64_t rb, uint64_t rs8) {
 #pragma unroll
   for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -287,15 +302,29 @@ __device__ __forceinline__ void k3_ds_mask(
         const int e = 4 * c + 2 * i + j;
         const int key = k0 + c * 8 + tg * 2 + j;
         bool g;
-        const float t = am::score(
-            mk, mr[i], key, sk, sa[e], scale,
-            key >= kvlen || (causal && key > q_off + r0 + 8 * i), g);
+        float t;
+        if constexpr (EXTRA) {
+          const int qp = q_off + r0 + 8 * i;
+          const bool st = am::hidden(
+              md, key, kvlen, causal, qp,
+              segk != nullptr && key < sk && __ldg(segk + key) != sg[i]);
+          t = am::score(md, mr[i], key, sk, sa[e], scale,
+                        slope * (float)(key - qp), st, g);
+        } else {
+          t = am::mask_score(
+              md, mr[i], key, sk, sa[e], scale,
+              key >= kvlen || (causal && key > q_off + r0 + 8 * i), g);
+        }
         const float p = am::prob(t, mm[i], lg[i]);
-        dp[e] = g ? p * (dp[e] - dl[i]) : 0.f;
+        float d = dp[e];
+        if constexpr (DROP)
+          d = tf::keep(dr, rb + (i ? rs8 : 0) + (uint64_t)key) ? d * dr.inv
+                                                               : 0.f;
+        dp[e] = g ? p * (d - dl[i]) : 0.f;
       }
 }
 
-template <int D, bool WIN, bool DROP, bool MASK = false>
+template <int D, bool WIN, bool DROP, bool MOD = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const __grid_constant__ CUtensorMap mk,
@@ -305,10 +334,15 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   const int* __restrict__ kv_lens, int sq, int sk, int h,
                   int nkv, int causal, int q_off, int window, float scale,
-                  int group, tf::Drop dr, am::Mask msk) {
+                  int group, tf::Drop dr, am::Mod md) {
   using C = Dq<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
+  // the general mode (MOD) reads its window from md and walks the tiles of
+  // its bounds: there WIN picks the loop with the window, segment ids and
+  // ALiBi (EXTRA), and the windowed walk (WND) is the WIN kernel's alone
+  constexpr bool WND = WIN && !MOD;
+  constexpr bool EXTRA = WIN && MOD;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = sm90::align1024(smem_raw);
   uint8_t* Qs = sm;
@@ -335,16 +369,16 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
   // keys that can be visible to some row of this block
   int kend = kvlen;
   if (causal) kend = min(kend, q_off + min(q0 + BQ3, sq));
-  // WIN: the tile of the block's first row's first visible key; both roles
+  // WND: the tile of the block's first row's first visible key; both roles
   // load and walk the ring's tiles t0 … t0 + ntiles - 1 and count ring
   // stages from t0
-  int t0 = WIN ? max(0, q_off + q0 - window + 1) / BK : 0;
+  int t0 = WND ? max(0, q_off + q0 - window + 1) / BK : 0;
   int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
-  const int wlo = WIN ? q_off - window : 0;
-  if constexpr (MASK) {
+  const int wlo = WND ? q_off - window : 0;
+  if constexpr (MOD) {
     // the tiles [lo, hi) of this block's bounds (structured limits folded
     // in; every tile for a block with a dead row)
-    const int* bd = msk.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
+    const int* bd = md.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
     t0 = bd[0];
     ntiles = max(0, bd[1] - bd[0]);
   }
@@ -404,16 +438,28 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
     float l2[2], dl[2];
     const float* lb = lse + ((long)bi * h + hi) * sq;
     const float* db = delta + ((long)bi * h + hi) * sq;
-    // MASK: the rows' m (in mm; l2 holds log2 l) and first mask elements
+    // MOD: the rows' m (in mm; l2 holds log2 l) and first mask elements;
+    // EXTRA: their segment ids, the keys' ids, the head's slope
     float mm[2] = {0.f, 0.f};
     long long mr[2] = {-1, -1};
+    int sg[2] = {0, 0};
+    const int* segk = nullptr;
+    float slope = 0.f;
+    if constexpr (EXTRA) {
+      if (md.seg_k != nullptr) segk = md.seg_k + (long long)bi * sk;
+      if (md.slopes != nullptr) slope = md.slopes[hi];
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
-      if constexpr (MASK) {
+      if constexpr (MOD) {
         am::row_stats(lse + 2 * ((long)bi * h + hi) * sq, r, sq, mm[i],
                       l2[i]);
-        if (r < sq) mr[i] = bi * msk.sb + hi * msk.sh + (long long)r * msk.sq;
+        if (r < sq) {
+          mr[i] = bi * md.sb + hi * md.sh + (long long)r * md.sq;
+          if constexpr (EXTRA)
+            sg[i] = am::seg_id(md.seg_q, (long long)bi * sq + r);
+        }
       } else {
         const float l = r < sq ? lb[r] : NEG_INF;
         l2[i] = l > NEG_INF * 0.5f ? l * 1.4426950408889634f : INFINITY;
@@ -442,10 +488,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       int kg = kvlen;
       if (causal) kg = min(kg, q_off + min(rw0 + 64, sq));
       const int nt = rw0 >= sq ? 0
-                     : MASK   ? ntiles
+                     : MOD    ? ntiles
                               : (kg > 0 ? (kg + BK - 1) / BK - t0 : 0);
       const int j0 =
-          WIN ? min(ntiles, max(0, q_off + rw0 - window + 1) / BK - t0) : 0;
+          WND ? min(ntiles, max(0, q_off + rw0 - window + 1) / BK - t0) : 0;
       // tile k0 straddles the causal diagonal, the kv_len edge or (WIN) the
       // window's lower edge for the group's rows: only then the per-element
       // mask
@@ -453,7 +499,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         return k0 + BK > kvlen || (causal && k0 + BK - 1 > q_off + rw0) ||
                (WIN && k0 <= wlo + rw0 + 63);
       };
-      // WIN: tiles below this group's rows' windows: released unread
+      // WND: tiles below this group's rows' windows: released unread
       for (int it = 0; it < j0; ++it) {
         sm90::mbar_wait(&full[it % ST], (it / ST) & 1);
         sm90::mbar_arrive(&empty[it % ST]);
@@ -468,9 +514,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::fence_regs(sa);
         sm90::fence_regs(dp);
         const int kb = (t0 + j0) * BK;
-        if constexpr (MASK)
-          k3_ds_mask<BK>(sa, dp, mm, l2, dl, kb, r0, tg, sk, kvlen, causal,
-                         q_off, scale, msk, mr);
+        if constexpr (MOD)
+          k3_ds_mod<BK, DROP, EXTRA>(sa, dp, mm, l2, dl, kb, r0, tg, sk,
+                                     kvlen, causal, q_off, scale, md, mr, sg,
+                                     segk, slope, dr, rb, rs8);
         else
           k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen,
                                causal, q_off, wlo, sl2, dr, rb, rs8);
@@ -486,9 +533,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::wgmma_wait<1>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          if constexpr (MASK)
-            k3_ds_mask<BK>(sa, dp, mm, l2, dl, k1, r0, tg, sk, kvlen, causal,
-                           q_off, scale, msk, mr);
+          if constexpr (MOD)
+            k3_ds_mod<BK, DROP, EXTRA>(sa, dp, mm, l2, dl, k1, r0, tg, sk,
+                                       kvlen, causal, q_off, scale, md, mr,
+                                       sg, segk, slope, dr, rb, rs8);
           else
             k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
                                  causal, q_off, wlo, sl2, dr, rb, rs8);
@@ -505,7 +553,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::mbar_arrive(&empty[last % ST]);
       }
       // tiles past this group's rows: released unread
-      for (int it = WIN ? max(nt, j0) : nt; it < ntiles; ++it) {
+      for (int it = WND ? max(nt, j0) : nt; it < ntiles; ++it) {
         sm90::mbar_wait(&full[it % ST], (it / ST) & 1);
         sm90::mbar_arrive(&empty[it % ST]);
       }
@@ -533,7 +581,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* kv_lens, int b, int sq, int sk, int h, int nkv,
               int causal, int q_off, int window, float scale, int drop,
-              tf::Drop dr, const am::Mask& msk, cudaStream_t st) {
+              tf::Drop dr, const am::Mod* mod, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
@@ -542,14 +590,20 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
-  // dropout one. d = 256 has neither yet: only its plain instantiation is
-  // built
+  // dropout one; the general argument (mod): the general one, with or
+  // without dropout, and with the window, segment ids or ALiBi (WIN) or a
+  // dense mask alone. d = 256 has none of them yet: only its plain
+  // instantiation is built
   auto kern = flash_bwd_dq_sm90<D, false, false>;
   if constexpr (D == 256) {
-    if (window > 0 || drop || msk.p) return (int)cudaErrorInvalidValue;
-  } else if (msk.p) {
-    if (window > 0 || drop) return (int)cudaErrorInvalidValue;
-    kern = flash_bwd_dq_sm90<D, false, false, true>;
+    if (window > 0 || drop || mod) return (int)cudaErrorInvalidValue;
+  } else if (mod) {
+    if (mod->window > 0 || mod->seg_k || mod->slopes)
+      kern = drop ? flash_bwd_dq_sm90<D, true, true, true>
+                  : flash_bwd_dq_sm90<D, true, false, true>;
+    else
+      kern = drop ? flash_bwd_dq_sm90<D, false, true, true>
+                  : flash_bwd_dq_sm90<D, false, false, true>;
   } else {
     kern = window > 0 ? (drop ? flash_bwd_dq_sm90<D, true, true>
                               : flash_bwd_dq_sm90<D, true, false>)
@@ -565,7 +619,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, Dq<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
       (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window, scale,
-      group, dr, msk);
+      group, dr, mod ? *mod : am::Mod{});
   return (int)cudaGetLastError();
 }
 
@@ -702,16 +756,21 @@ __device__ __forceinline__ void k4_ds(const float (&sa)[BQ4 / 2],
   }
 }
 
-// MASK: Pᵀ in place of Sᵀ and dSᵀ in place of dPᵀ (k4_p and k4_ds in one
-// pass), with t the masked score of csrc/attn_mask.cuh for (key c0 + 8i,
-// query q0 + 8c + 2·tg + j) of query head hq: mh = b·sb + hq·sh; ls holds
-// the tile's log2 l, then Δ, then m
-__device__ __forceinline__ void k4_pds_mask(float (&sa)[BQ4 / 2],
-                                            float (&dp)[BQ4 / 2],
-                                            const float* ls, int c0, int tg,
-                                            int q0, int sq, int sk, int kvlen,
-                                            int causal, int q_off, float scale,
-                                            const am::Mask& mk, long long mh) {
+// MOD: Pᵀ in place of Sᵀ and dSᵀ in place of dPᵀ (k4_p and k4_ds in one
+// pass), with t the score of csrc/attn_mask.cuh for (key c0 + 8i, query
+// q0 + 8c + 2·tg + j) of query head hq: mh = b·sb + hq·sh, the queries'
+// segment ids at segq against the keys' sgk[i], the bias slope·(k - q -
+// q_off); ls holds the tile's log2 l, then Δ, then m. DROP: dSᵀ = Pᵀ∘(dPᵀ∘
+// Z/keep − Δ), then Pᵀ∘Z/keep in place of Pᵀ (for dv), Z hashed from the
+// head's flat index hb + query·sk + key as in k4_drop_ds. EXTRA: the
+// window, segment ids or ALiBi are present; without them (a dense mask
+// alone) the per-element test is kv_len, the diagonal and the mask only
+template <bool DROP, bool EXTRA>
+__device__ __forceinline__ void k4_pds_mod(
+    float (&sa)[BQ4 / 2], float (&dp)[BQ4 / 2], const float* ls, int c0,
+    int tg, int q0, int sq, int sk, int kvlen, int causal, int q_off,
+    float scale, const am::Mod& md, long long mh, const int* segq,
+    const int (&sgk)[2], float slope, const tf::Drop& dr, uint64_t hb) {
 #pragma unroll
   for (int c = 0; c < BQ4 / 8; ++c) {
     const int qi = c * 8 + tg * 2;
@@ -724,18 +783,34 @@ __device__ __forceinline__ void k4_pds_mask(float (&sa)[BQ4 / 2],
       for (int j = 0; j < 2; ++j) {
         const int e = 4 * c + 2 * i + j;
         const int key = c0 + 8 * i, q = q0 + qi + j;
+        const long long row = q < sq ? mh + (long long)q * md.sq : -1;
         bool g;
-        const float t = am::score(
-            mk, q < sq ? mh + (long long)q * mk.sq : -1, key, sk, sa[e],
-            scale, key >= kvlen || (causal && key > q_off + q), g);
+        float t;
+        if constexpr (EXTRA) {
+          const bool st = am::hidden(
+              md, key, kvlen, causal, q_off + q,
+              segq != nullptr && q < sq && __ldg(segq + q) != sgk[i]);
+          t = am::score(md, row, key, sk, sa[e], scale,
+                        slope * (float)(key - q_off - q), st, g);
+        } else {
+          t = am::mask_score(md, row, key, sk, sa[e], scale,
+                             key >= kvlen || (causal && key > q_off + q), g);
+        }
         const float p = am::prob(t, j ? m2.y : m2.x, j ? l2.y : l2.x);
-        dp[e] = g ? p * (dp[e] - (j ? d2.y : d2.x)) : 0.f;
-        sa[e] = p;
+        float d = dp[e], pd = p;
+        if constexpr (DROP) {
+          const bool kp =
+              tf::keep(dr, hb + (uint64_t)q * sk + (uint64_t)key);
+          d = kp ? d * dr.inv : 0.f;
+          pd = kp ? p * dr.inv : 0.f;
+        }
+        dp[e] = g ? p * (d - (j ? d2.y : d2.x)) : 0.f;
+        sa[e] = pd;
       }
   }
 }
 
-template <int D, bool WIN, bool DROP, bool MASK = false>
+template <int D, bool WIN, bool DROP, bool MOD = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mk,
@@ -746,10 +821,15 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    bf16* __restrict__ dv, const int* __restrict__ kv_lens,
                    int sq, int sk, int h, int nkv, int causal, int q_off,
                    int window, float scale, int group, tf::Drop dr,
-                   am::Mask msk) {
+                   am::Mod md) {
   using C = Dkv<D>;
   constexpr int ST = C::ST;
   constexpr int BKEY = C::BKEY;
+  // the general mode (MOD) reads its window from md and walks the tiles of
+  // its bounds: there WIN picks the loop with the window, segment ids and
+  // ALiBi (EXTRA), and the windowed walk (WND) is the WIN kernel's alone
+  constexpr bool WND = WIN && !MOD;
+  constexpr bool EXTRA = WIN && MOD;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = sm90::align1024(smem_raw);
   uint8_t* Ks = sm;
@@ -777,18 +857,19 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
   // the first query row that can see a key of this block
   const int nqt = (sq + BQ4 - 1) / BQ4;
   int qt0 = k0 >= kvlen ? nqt : (causal ? max(0, k0 - q_off) : 0) / BQ4;
-  // WIN: the query tiles end at the one of the last row that sees the
+  // WND: the query tiles end at the one of the last row that sees the
   // block's last key, row k0 + BKEY - 1 + window - 1 - q_off
   int qhi = nqt;
-  if (WIN) {
+  if (WND) {
     const int last = k0 + BKEY + window - 2 - q_off;
     qhi = last < 0 ? 0 : min(nqt, last / BQ4 + 1);
   }
-  const int wlo = WIN ? q_off - window : 0;
-  if constexpr (MASK) {
+  const int wlo = WND ? q_off - window : 0;
+  if constexpr (MOD) {
     // the query tiles [lo, hi) of this key block's bounds (the union over
-    // the kv head's query heads, the structured limits folded in)
-    const int* bd = msk.bounds + 2 * (((long)bi * nkv + kh) * nkt + ord.tile);
+    // the kv head's query heads, the structured limits and the window
+    // folded in; every tile that holds a dead row)
+    const int* bd = md.bounds + 2 * (((long)bi * nkv + kh) * nkt + ord.tile);
     qt0 = bd[0];
     qhi = bd[1];
   }
@@ -834,7 +915,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           float* ls = rows + s * 3 * BQ4;
           for (int i = lane; i < BQ4; i += 32) {
             const int q = q0 + i;
-            if constexpr (MASK) {
+            if constexpr (MOD) {
               am::row_stats(lse + 2 * ((long)bi * h + hi) * sq, q, sq,
                             ls[2 * BQ4 + i], ls[i]);
             } else {
@@ -868,6 +949,16 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
     const int col0 = C::SPLIT ? wg * C::NA : 0;
     const int c0 = kw0 + wl * 16 + g;          // keys of the rows i = 0, 1
     const float sl2 = scale * 1.4426950408889634f;
+    // EXTRA: the segment ids of the keys c0 and c0 + 8, the queries'
+    int sgk[2] = {0, 0};
+    const int* segq = nullptr;
+    if constexpr (EXTRA) {
+      if (md.seg_q != nullptr) segq = md.seg_q + (long long)bi * sq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (c0 + 8 * i < sk)
+          sgk[i] = am::seg_id(md.seg_k, (long long)bi * sk + c0 + 8 * i);
+    }
 
     float dva[C::NA / 2], dka[C::NA / 2];
 #pragma unroll
@@ -895,7 +986,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
       const int n = n_rep * per_head;
       auto skip = [&](int it) {
         const int qa = (qt0 + it % per_head) * BQ4;
-        return !MASK && (kw0 >= kvlen || (causal && kw0 > q_off + qa + BQ4 - 1) ||
+        return !MOD && (kw0 >= kvlen || (causal && kw0 > q_off + qa + BQ4 - 1) ||
                (WIN && kw0 + 63 <= wlo + qa));
       };
       // Each pass is self-contained (its products are waited for inside
@@ -918,16 +1009,21 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::wgmma_wait<0>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
-          if constexpr (MASK) {
-            // the mask rows of query head kh·n_rep + it / per_head
-            k4_pds_mask(sa, dp, ls, c0, tg, q0, sq, sk, kvlen, causal, q_off,
-                        scale, msk,
-                        bi * msk.sb + (kh * n_rep + it / per_head) * msk.sh);
+          if constexpr (MOD) {
+            // the mask rows, the slope and the scores of query head
+            // kh·n_rep + it / per_head
+            const int hq = kh * n_rep + it / per_head;
+            const long long mh = bi * md.sb + hq * md.sh;
+            const uint64_t hb = (uint64_t)(bi * h + hq) * sq * sk;
+            k4_pds_mod<DROP, EXTRA>(
+                sa, dp, ls, c0, tg, q0, sq, sk, kvlen, causal, q_off, scale,
+                md, mh, segq, sgk,
+                EXTRA && md.slopes != nullptr ? md.slopes[hq] : 0.f, dr, hb);
           } else {
             k4_p<WIN>(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, wlo,
                       sl2);
           }
-          if constexpr (MASK) {
+          if constexpr (MOD) {
           } else if constexpr (DROP) {
             // the scores of head kh·n_rep + it / per_head
             const uint64_t hb =
@@ -975,7 +1071,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* kv_lens, int b, int sq, int sk, int h, int nkv,
                int causal, int q_off, int window, float scale, int drop,
-               tf::Drop dr, const am::Mask& msk, cudaStream_t st) {
+               tf::Drop dr, const am::Mod* mod, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ4);
@@ -984,14 +1080,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BKEY);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
-  // dropout one. d = 256 has neither yet: only its plain instantiation is
-  // built
+  // dropout one; the general argument (mod): the general one, with or
+  // without dropout, and with the window, segment ids or ALiBi (WIN) or a
+  // dense mask alone. d = 256 has none of them yet: only its plain
+  // instantiation is built
   auto kern = flash_bwd_dkv_sm90<D, false, false>;
   if constexpr (D == 256) {
-    if (window > 0 || drop || msk.p) return (int)cudaErrorInvalidValue;
-  } else if (msk.p) {
-    if (window > 0 || drop) return (int)cudaErrorInvalidValue;
-    kern = flash_bwd_dkv_sm90<D, false, false, true>;
+    if (window > 0 || drop || mod) return (int)cudaErrorInvalidValue;
+  } else if (mod) {
+    if (mod->window > 0 || mod->seg_k || mod->slopes)
+      kern = drop ? flash_bwd_dkv_sm90<D, true, true, true>
+                  : flash_bwd_dkv_sm90<D, true, false, true>;
+    else
+      kern = drop ? flash_bwd_dkv_sm90<D, false, true, true>
+                  : flash_bwd_dkv_sm90<D, false, false, true>;
   } else {
     kern = window > 0 ? (drop ? flash_bwd_dkv_sm90<D, true, true>
                               : flash_bwd_dkv_sm90<D, true, false>)
@@ -1007,7 +1109,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, Dkv<D>::SMEM, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window,
-      scale, group, dr, msk);
+      scale, group, dr, mod ? *mod : am::Mod{});
   return (int)cudaGetLastError();
 }
 
@@ -1019,7 +1121,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dq, const void* kv_lens, int b,
                                       int sq, int sk, int h, int nkv, int d,
                                       int causal, int q_off, int window,
-                                      float scale, const am::Mask* mask,
+                                      float scale, const am::Mod* mod,
                                       int drop, unsigned k1, unsigned k2,
                                       unsigned thr, float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -1028,21 +1130,21 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   // drop: the forward's draw, as K1 takes it
   const tf::Drop dr{k1, k2, thr, inv};
-  // mask (or null): as K1 takes it, its bounds (b, h, ceil(sq/128), 2)
-  // each block's [lo, hi) of 64-key tiles; lse the (b, h, sq, 2) pairs
-  const am::Mask msk = mask ? *mask : am::Mask{};
+  // mod (or null): the general argument as K1 takes it, its bounds (b, h,
+  // ceil(sq/128), 2) each block's [lo, hi) of 64-key tiles; lse the (b, h,
+  // sq, 2) pairs
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
                           h, nkv, causal, q_off, window, scale, drop, dr,
-                          msk, st);
+                          mod, st);
   if (d == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
                          h, nkv, causal, q_off, window, scale, drop, dr,
-                          msk, st);
+                          mod, st);
   if (d == 256)
     return launch_dq<256>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
                           h, nkv, causal, q_off, window, scale, drop, dr,
-                          msk, st);
+                          mod, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1053,7 +1155,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* kv_lens, int b, int sq,
                                        int sk, int h, int nkv, int d,
                                        int causal, int q_off, int window,
-                                       float scale, const am::Mask* mask,
+                                       float scale, const am::Mod* mod,
                                        int drop, unsigned k1, unsigned k2,
                                        unsigned thr, float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -1061,20 +1163,19 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const tf::Drop dr{k1, k2, thr, inv};
-  // mask (or null): as K1 takes it, its bounds (b, nkv, ceil(sk/128), 2)
+  // mod (or null): as K1 takes it, its bounds (b, nkv, ceil(sk/128), 2)
   // each key block's [lo, hi) of 64-row query tiles
-  const am::Mask msk = mask ? *mask : am::Mask{};
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                            sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                           msk, st);
+                           mod, st);
   if (d == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                           sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                          msk, st);
+                          mod, st);
   if (d == 256)
     return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                            sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                           msk, st);
+                           mod, st);
   return (int)cudaErrorInvalidValue;
 }

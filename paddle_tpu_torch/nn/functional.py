@@ -222,17 +222,26 @@ def cross_entropy(logits, label, reduction="mean", soft_label=False,
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, scale=None,
-                                 kv_lens=None, causal_offset=None,
-                                 window_size=None):
-    """q/k/v: (batch, seq, heads, head_dim) — the reference's layout.
+                                 kv_lens=None, segment_ids=None,
+                                 kv_segment_ids=None, window_size=None,
+                                 alibi_slopes=None, causal_offset=None):
+    """q/k/v: (batch, seq, heads, head_dim) — the reference's layout and
+    signature (``causal_offset`` beside it, the port's).
 
     On CUDA tensors this runs the hand-written flash-attention kernels
     (forward, and the backward ones when a gradient is needed); on CPU
-    tensors the plain versions (see ``ops.flash_attention``).
-    ``window_size`` is the causal sliding window (Mistral)."""
+    tensors the plain versions (see ``ops.flash_attention``, looked up at
+    call time). ``window_size`` is the causal sliding window (Mistral),
+    ``segment_ids`` / ``kv_segment_ids`` the packed-sequence ids,
+    ``alibi_slopes`` the ALiBi slopes (causal only)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     return fa.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
         is_causal=is_causal, training=training, scale=scale,
-        kv_lens=kv_lens, causal_offset=causal_offset,
-        window_size=window_size)
+        kv_lens=kv_lens, segment_ids=segment_ids,
+        kv_segment_ids=kv_segment_ids, window_size=window_size,
+        alibi_slopes=alibi_slopes, causal_offset=causal_offset)
+
+
+# reference path: paddle.nn.functional.flash_attention.flash_attention
+from paddle_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401,E402

@@ -1,6 +1,7 @@
 """Ops: RMSNorm, RoPE, attention and the fused decode step, each CUDA kernel
-beside its plain PyTorch version; the shared-memory probe; and the tied
-unembedding."""
+beside its plain PyTorch version; the shared-memory probe; the tied
+unembedding; and ``flash_attn``, the reference's ``ops.flash_attn``
+(``flash_attention.flash_attention``)."""
 
 import torch
 
@@ -11,3 +12,6 @@ def tied_unembed(x, embed_w):
     ``paddle_tpu/ops/__init__.py:36``). A plain large product outside any
     kernel, so ``torch.matmul``."""
     return torch.matmul(x, embed_w.t())
+
+
+from paddle_tpu_torch.ops.flash_attention import flash_attention as flash_attn  # noqa: F401,E402

@@ -69,15 +69,37 @@ hidden key scores ``NEG_INF``, a float mask adds in fp32 after the
 structured masks put ``NEG_INF`` on their keys, and a row whose every key
 is hidden by a bool mask takes the uniform softmax over all sk keys (the
 mean of v; the reference's Pallas kernel gives 0 there, ROADMAP Queue C).
-K1, K3 and K4 compute it in their mask instantiations (``MASK``, d 64 and
+K1, K3 and K4 compute it in their general instantiations (below; d 64 and
 128; csrc/attn_mask.cuh), reading the mask in place through four element
 strides, each block walking the tiles of ``mask_bounds`` (the device-side
 port of the reference's ``_mask_block_bounds``). The mask mode keeps a
 row's statistics as the pair (m, log l), shape (b, h, sq, 2), in place of
 the lse: a float mask can put a whole row at −1e10 and a bool mask at
 −1e30, where an fp32 lse m + log l loses log l, and with it the backward's
-1/l. A dense mask with the window, with dropout, or at kernel d 256 raises
-(ROADMAP Queue B rows 1-3).
+1/l.
+
+``seg_q`` / ``seg_k`` (``segment_ids`` / ``kv_segment_ids`` at the
+dispatch) are the reference's packed-sequence ids, int32 (b, sq) and
+(b, sk): a key whose id differs from the query's is hidden like the other
+structured masks (``:91-93``). ``alibi_slopes`` (h,) fp32 is the reference's
+ALiBi: with ``is_causal`` the scaled score gains ``slope_h · (k_pos − q_pos −
+off)``, ``off`` the causal offset, before every mask; the slopes get no
+gradient (``:203-217``). A row that no key reaches through the structured
+masks gives 0. The dense mask, the segment ids and ALiBi run on the card in
+the general mode of K1, K3 and K4 (``MOD``, with or without dropout; d 64
+and 128), whose modifiers are runtime fields of one argument
+(csrc/attn_mask.cuh ``am::Mod``): the mask, the window, the segment ids and
+the slopes, in any combination, with the mask mode's (m, log l) pairs and
+its natural-domain softmax. One instantiation takes the window, segment ids
+or ALiBi; a dense mask alone runs a leaner one, picked from the argument. ``mask_bounds`` gives every such call
+its tiles, the window folded into the structured limits; a block holding a
+dead row walks every key tile, later ones included. Any of these modes, the
+window or dropout at kernel d 256 raises (ROADMAP Queue B rows 1-3).
+
+``flash_fwd_lse`` is the reference's (out, lse) forward (``:1177-1215``)
+with a differentiable lse: its cotangent enters Δ = rowsum(dO∘O) − g_lse,
+which K3 and K4 take as they take Δ. ``flash_attention`` is the reference's
+``paddle.nn.functional.flash_attention`` (``:144``): (out, None).
 """
 
 import ctypes
@@ -128,8 +150,50 @@ def _check_window(window, is_causal):
     return window
 
 
+def _check_segments(seg_q, seg_k, sq, sk):
+    """The reference's pairing of segment_ids / kv_segment_ids (:186-195):
+    (seg_q, seg_k), seg_k defaulting to seg_q when sq == sk."""
+    if seg_k is None and seg_q is not None:
+        if sq != sk:
+            raise ValueError(
+                "segment_ids alone requires sq == sk; pass kv_segment_ids "
+                f"explicitly for cross-attention (sq={sq}, sk={sk})")
+        seg_k = seg_q
+    if (seg_q is None) != (seg_k is None):
+        raise ValueError("segment_ids and kv_segment_ids must be given "
+                         "together (or segment_ids alone when sq == sk)")
+    return seg_q, seg_k
+
+
+def _check_alibi(alibi_slopes, is_causal, h, device):
+    """The reference's validation of alibi_slopes (:203-217): causal only,
+    shape (h,); fp32 with no gradient (the slopes are constants)."""
+    if alibi_slopes is None:
+        return None
+    if not is_causal:
+        raise ValueError(
+            "alibi_slopes requires is_causal=True (the ALiBi bias is "
+            "defined over causal distances; a non-causal form would "
+            "reward distant FUTURE keys)")
+    slopes = torch.as_tensor(alibi_slopes, device=device).detach().to(
+        torch.float32)
+    if tuple(slopes.shape) != (h,):
+        raise ValueError(f"alibi_slopes must be (num_heads,)=({h},), got "
+                         f"{tuple(slopes.shape)}")
+    return slopes
+
+
+def _alibi_bias(slopes, sq, sk, causal_offset, dtype):
+    """(1, h, sq, sk): slope_h · (k_pos − q_pos − off) in `dtype`."""
+    off = sk - sq if causal_offset is None else int(causal_offset)
+    dev = slopes.device
+    dist = (torch.arange(sk, device=dev)[None, :]
+            - (torch.arange(sq, device=dev)[:, None] + off)).to(dtype)
+    return slopes.to(dtype)[None, :, None, None] * dist[None, None]
+
+
 def _structured_mask(sq, sk, is_causal, kv_lens, causal_offset, device,
-                     window=None):
+                     window=None, seg_q=None, seg_k=None):
     """Dense (b|1, 1, sq, sk) bool mask of the structured arguments."""
     window = _check_window(window, is_causal)
     masks = []
@@ -144,6 +208,10 @@ def _structured_mask(sq, sk, is_causal, kv_lens, causal_offset, device,
         kl = torch.as_tensor(kv_lens, device=device).reshape(-1)
         masks.append((torch.arange(sk, device=device)[None, :]
                       < kl[:, None])[:, None, None, :])
+    if seg_q is not None:
+        sq_ids = torch.as_tensor(seg_q, device=device)
+        sk_ids = torch.as_tensor(seg_k, device=device)
+        masks.append((sq_ids[:, :, None] == sk_ids[:, None, :])[:, None])
     if not masks:
         return None
     m = masks[0]
@@ -181,6 +249,40 @@ def _visible_keys(b, sq, sk, is_causal, kv_lens, causal_offset, device):
     return vis
 
 
+def _window_start(sq, sk, causal_offset, window, device):
+    """(1, sq): each row's first key the window leaves (0 without one),
+    at most sk."""
+    if window is None:
+        return torch.zeros((1, sq), dtype=torch.int64, device=device)
+    off = sk - sq if causal_offset is None else int(causal_offset)
+    return (torch.arange(sq, device=device) + off - window + 1).clamp(
+        0, sk)[None]
+
+
+def _dead_rows(live, lo, hi, seg_q, seg_k):
+    """(B, mh, sq) bool: the rows that some key reaches through the
+    structured masks (keys [lo, hi) of (b|1, sq) lo, hi, and equal segment
+    ids) but no live one. `live` (mb, mh, mq, sk) is the dense mask's
+    valid entries. A key-padding mask (mq = 1) without segment ids counts
+    its live keys by a prefix sum; any other form tests (sq, sk) at once."""
+    mb, mh, mq, sk = live.shape
+    dev = live.device
+    if mq == 1 and seg_q is None:
+        csum = torch.nn.functional.pad(
+            live[:, :, 0].to(torch.int32).cumsum(-1), (1, 0))  # (mb, mh, sk+1)
+        nb = max(mb, lo.shape[0], hi.shape[0])
+        csum = csum.expand(nb, mh, sk + 1)
+        at = lambda i: torch.gather(csum, -1, i[:, None].expand(
+            nb, mh, i.shape[-1]))
+        lo = torch.minimum(lo, hi)
+        return (hi > lo)[:, None] & (at(hi) == at(lo))
+    keys = torch.arange(sk, device=dev)
+    reach = ((keys >= lo[..., None]) & (keys < hi[..., None]))[:, None]
+    if seg_q is not None:
+        reach = reach & (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
+    return reach.any(-1) & ~(reach & live).any(-1)
+
+
 def _tiles_any(x, n, t):
     """(..., n·t) bool padded with False, then any over tiles of t along
     the last axis: (..., n)."""
@@ -210,35 +312,46 @@ def _pairs(lo, hi, shape):
 
 
 def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
-                causal_offset=None):
-    """The tiles each block of K1, K3 and K4 walks under a dense mask: the
-    reference's ``_mask_block_bounds`` (:445, all-masked prefix and suffix
-    blocks skipped, per row block or, ``axis_q=False``, per key block) at
-    the port kernels' own tiles, computed on the mask's device with no host
-    sync. `mask` is ``dense_mask``'s view. Returns int32 [lo, hi) pairs:
-    ``fwd`` (b, h, ceil(sq/128), 2) of K1's 128-key tiles, ``dq`` the same
-    of K3's 64-key tiles, ``dkv`` (b, nkv, ceil(sk/128), 2) of K4's 64-row
-    query tiles, the union over a kv head's query heads.
+                causal_offset=None, window=None, seg_q=None, seg_k=None,
+                device=None):
+    """The tiles each block of K1, K3 and K4 walks in their general mode:
+    the reference's ``_mask_block_bounds`` (:445, all-masked prefix and
+    suffix blocks skipped, per row block or, ``axis_q=False``, per key
+    block) at the port kernels' own tiles, computed on the device with no
+    host sync. `mask` is ``dense_mask``'s view, or None (segment ids or
+    ALiBi alone: the structured limits only; `device` then names the
+    device). Returns int32 [lo, hi) pairs: ``fwd`` (b, h, ceil(sq/128), 2)
+    of K1's 128-key tiles, ``dq`` the same of K3's 64-key tiles, ``dkv``
+    (b, nkv, ceil(sk/128), 2) of K4's 64-row query tiles, the union over a
+    kv head's query heads.
 
     A tile is left out only when no entry can change a row: every entry
     bool False or float −inf, or hidden by the structured masks (kv_lens,
-    causal), which are folded in. A "dead" row, some key visible to the
-    structured masks but none of them valid (bool True, or a float entry
-    above NEG_INF / 2), takes the softmax over every key (the uniform one
-    for a bool mask: the mean of v), so its row block walks every key tile
-    and its query tile lies in every key block's range."""
-    dev = mask.device
-    mb, mh, mq = mask.shape[:3]
-    if mask.dtype == torch.bool:
-        skip_ok, live = mask, mask
-    else:
-        skip_ok = mask != float("-inf")   # NaN stays in
-        live = mask > NEG_INF * 0.5
-    skip_ok = skip_ok.expand(mb, mh, mq, sk)
-    live = live.expand(mb, mh, mq, sk)
+    causal, the window), which are folded in; segment ids skip no tile. A
+    "dead" row, some key visible to the structured masks (segment ids
+    included) but none of them valid (bool True, or a float entry above
+    NEG_INF / 2), takes the softmax over every key (the uniform one for a
+    bool mask: the mean of v), so its row block walks every key tile, past
+    its window and its diagonal, and its query tile lies in every key
+    block's range."""
+    dev = mask.device if mask is not None else torch.device(device)
+    window = _check_window(window, is_causal)
     vis = _visible_keys(b, sq, sk, is_causal, kv_lens, causal_offset, dev)
-    first = torch.where(live.any(-1), live.to(torch.uint8).argmax(-1), sk)
-    dead = (vis[:, None] > 0) & (first >= vis[:, None])    # (B, mh, sq)
+    wlo = _window_start(sq, sk, causal_offset, window, dev)
+    if mask is None:
+        skip_ok = torch.ones((1, 1, 1, sk), dtype=torch.bool, device=dev)
+        dead = torch.zeros((1, 1, sq), dtype=torch.bool, device=dev)
+    else:
+        if mask.dtype == torch.bool:
+            skip_ok, live = mask, mask
+        else:
+            skip_ok = mask != float("-inf")   # NaN stays in
+            live = mask > NEG_INF * 0.5
+        mb, mh, mq = mask.shape[:3]
+        skip_ok = skip_ok.expand(mb, mh, mq, sk)
+        dead = _dead_rows(live.expand(mb, mh, mq, sk), wlo, vis, seg_q,
+                          seg_k)                            # (B, mh, sq)
+    mb, mh, mq = skip_ok.shape[:3]
 
     nqb = -(-sq // BLOCK_ROWS)
     nk3 = -(-sk // K3_KEYS)
@@ -249,11 +362,13 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
         tiles = _tiles_any(tiles.transpose(2, 3), nqb,
                            BLOCK_ROWS).transpose(2, 3)      # (mb, mh, nqb, nk3)
     lo3, hi3 = _first_last(tiles, nk3)
-    # the structured limit of each block: its last row's visible keys
-    last = torch.clamp(torch.arange(nqb, device=dev) * BLOCK_ROWS
-                       + BLOCK_ROWS - 1, max=sq - 1)
+    # the structured limits of each block: its last row's visible keys and
+    # (window) its first row's first key
+    rows0 = torch.arange(nqb, device=dev) * BLOCK_ROWS
+    last = torch.clamp(rows0 + BLOCK_ROWS - 1, max=sq - 1)
     kend = vis[:, last][:, None]                           # (vb, 1, nqb)
     hi3 = torch.minimum(hi3, -(-kend // K3_KEYS))
+    lo3 = torch.maximum(lo3, wlo[:, rows0][:, None] // K3_KEYS)
     lo1, hi1 = lo3 // 2, (hi3 + 1) // 2
     lo3, hi3 = torch.where(dead_b, 0, lo3), torch.where(dead_b, nk3, hi3)
     lo1, hi1 = torch.where(dead_b, 0, lo1), torch.where(dead_b, nk1, hi1)
@@ -280,6 +395,11 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
            else torch.zeros_like(k0))[None]
     qs0 = torch.where(k0[None] >= kvlen, nqt, qs0)          # (vb, nkb)
     lo4 = torch.maximum(lo4, qs0[:, None])
+    if window is not None:
+        # the last row that sees the block's last key k0 + 127 (K4's qhi)
+        qlast = k0 + K4_KEYS - 1 - off + window - 1
+        hi4 = torch.minimum(hi4, torch.where(
+            qlast < 0, 0, torch.clamp(qlast // K4_ROWS + 1, max=nqt)))
     empty4 = lo4 >= hi4
     lo4, hi4 = torch.where(empty4, nqt, lo4), torch.where(empty4, 0, hi4)
     lox, hix = _first_last(dead_t, nqt)                     # (B, mh')
@@ -290,23 +410,28 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
             "dkv": _pairs(lo4, hi4, (b, nkv, nkb))}
 
 
-def _call_bounds(q, k, attn_mask, is_causal, kv_lens, causal_offset):
-    """``mask_bounds`` of a call's mask on (b, sq, h, d) q and (b, sk,
-    nkv, d) k."""
+def _call_bounds(q, k, attn_mask, is_causal, kv_lens, causal_offset,
+                 window=None, seg_q=None, seg_k=None):
+    """``mask_bounds`` of a call on (b, sq, h, d) q and (b, sk, nkv, d) k
+    (its dense mask, or None)."""
     b, sq, h, _ = q.shape
     sk, nkv = k.shape[1], k.shape[2]
-    return mask_bounds(dense_mask(attn_mask, b, h, sq, sk), b, h, nkv, sq,
-                       sk, is_causal, kv_lens, causal_offset)
+    mask = None if attn_mask is None else dense_mask(attn_mask, b, h, sq, sk)
+    return mask_bounds(mask, b, h, nkv, sq, sk, is_causal, kv_lens,
+                       causal_offset, window, seg_q, seg_k, device=q.device)
 
 
 def _masked_scores(s, mask, structured):
-    """The scores of ``_xla_attention`` under a dense mask (s scaled, fp32):
-    t = where(structured, s, NEG_INF), then where(mask, t, NEG_INF) for a
-    bool mask or t + mask for a float one; and g, where t depends on s."""
+    """The scores of ``_xla_attention`` in the general mode (s scaled, the
+    ALiBi bias added, fp32): t = where(structured, s, NEG_INF), then, with a
+    dense mask, where(mask, t, NEG_INF) for a bool one or t + mask for a
+    float one; and g, where t depends on s."""
     neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
     t = s if structured is None else torch.where(structured, s, neg)
     g = torch.ones((), dtype=torch.bool, device=s.device) \
         if structured is None else structured
+    if mask is None:
+        return t, g
     if mask.dtype == torch.bool:
         return torch.where(mask, t, neg), g & mask
     return t + mask.to(s.dtype), g
@@ -331,11 +456,13 @@ def _drop_probs(probs, z, dropout_p):
 
 def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
                    kv_lens=None, causal_offset=None, window=None,
-                   dropout_p=0.0, training=True, key=None):
-    """The plain version: scores in fp32 (fp64 for fp64 inputs). With
-    ``dropout_p`` in training the probabilities are dropped by the draw
-    `key` (by default the next key of stream "dropout", as the
-    reference's ``_xla_attention`` draws it)."""
+                   dropout_p=0.0, training=True, key=None, seg_q=None,
+                   seg_k=None, alibi_slopes=None):
+    """The plain version: scores in fp32 (fp64 for fp64 inputs), the ALiBi
+    bias added before every mask. With ``dropout_p`` in training the
+    probabilities are dropped by the draw `key` (by default the next key
+    of stream "dropout", as the reference's ``_xla_attention`` draws
+    it)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     n_rep = h // k.shape[2]
@@ -344,8 +471,11 @@ def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     acc = torch.promote_types(q.dtype, torch.float32)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
+    if alibi_slopes is not None:
+        scores = scores + _alibi_bias(alibi_slopes, sq, sk, causal_offset,
+                                      acc)
     structured = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
-                                  q.device, window)
+                                  q.device, window, seg_q, seg_k)
     if structured is not None:
         scores = torch.where(structured, scores,
                              torch.tensor(NEG_INF, dtype=acc, device=q.device))
@@ -373,30 +503,50 @@ def _xla_attention(q, k, v, attn_mask=None, is_causal=False, scale=None,
                         v.to(pv)).to(q.dtype)
 
 
+def _general(attn_mask, seg_q, alibi_slopes):
+    """The call runs the kernels' general mode (a dense mask, segment ids
+    or ALiBi), whose row statistics are the pairs (m, log l)."""
+    return (attn_mask is not None or seg_q is not None
+            or alibi_slopes is not None)
+
+
+def _plain_scores(q, k, scale, sq, sk, causal_offset, alibi_slopes):
+    """fp32 (b, h, sq, sk) scaled scores over repeated k, the ALiBi bias
+    added."""
+    n_rep = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     _repeat_kv(k, n_rep).float()) * scale
+    if alibi_slopes is not None:
+        s = s + _alibi_bias(alibi_slopes, sq, sk, causal_offset,
+                            torch.float32)
+    return s
+
+
 def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
                               kv_lens=None, causal_offset=None, window=None,
-                              dropout_p=0.0, key=None, attn_mask=None):
+                              dropout_p=0.0, key=None, attn_mask=None,
+                              seg_q=None, seg_k=None, alibi_slopes=None):
     """Plain twin of the kernel: (out (b, sq, h, d) in q's dtype, lse
     (b, h, sq) fp32), computed in fp32. Fully-masked rows give out 0 and
     lse NEG_INF, as the kernel does. With ``dropout_p`` the normalised
     probabilities are dropped by ``attention_keep_mask(key)``; the lse
-    stays the undropped one. With ``attn_mask`` the scores are
-    ``_xla_attention``'s and the lse is the pair (m, log l), (b, h, sq, 2)
-    (``_masked_fwd_plain``)."""
+    stays the undropped one. In the general mode (``attn_mask``, segment
+    ids or ALiBi) the scores are ``_xla_attention``'s and the lse is the
+    pair (m, log l), (b, h, sq, 2) (``_masked_fwd_plain``)."""
     dropout_p = _check_dropout(dropout_p, key)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    n_rep = h // k.shape[2]
-    kf = _repeat_kv(k, n_rep).float()
-    vf = _repeat_kv(v, n_rep).float()
+    vf = _repeat_kv(v, h // k.shape[2]).float()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    s = _plain_scores(q, k, scale, sq, sk, causal_offset, alibi_slopes)
     mask = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
-                            q.device, window)
-    if attn_mask is not None:
-        _refuse_mask_modes("flash_attention_fwd_plain", window, dropout_p)
-        return _masked_fwd_plain(s, vf, mask, dense_mask(
-            attn_mask, b, h, sq, sk, q.device), q.dtype)
+                            q.device, window, seg_q, seg_k)
+    z = None if dropout_p == 0.0 else drop_ops.attention_keep_mask(
+        key, dropout_p, b, h, sq, sk, q.device)
+    if _general(attn_mask, seg_q, alibi_slopes):
+        dm = None if attn_mask is None else dense_mask(attn_mask, b, h, sq,
+                                                       sk, q.device)
+        return _masked_fwd_plain(s, vf, mask, dm, q.dtype, z, dropout_p)
     if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(-1, keepdim=True)
@@ -406,24 +556,27 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
     l = p.sum(-1, keepdim=True)
     lsafe = torch.where(l == 0, torch.ones_like(l), l)
     pn = p / lsafe
-    if dropout_p > 0.0:
-        pn = _drop_probs(pn, drop_ops.attention_keep_mask(
-            key, dropout_p, b, h, sq, sk, q.device), dropout_p)
+    if z is not None:
+        pn = _drop_probs(pn, z, dropout_p)
     out = torch.einsum("bhqk,bkhd->bqhd", pn, vf).to(q.dtype)
     lse = (m + torch.log(lsafe))[..., 0]
     return out, lse
 
 
-def _masked_fwd_plain(s, vf, structured, mask, dtype):
-    """The mask mode of the forward twin: out = softmax(t)·v over every key
-    with t ``_masked_scores``'s, and the pair (m, log l); a row the
-    structured masks hide wholly gives 0 and (NEG_INF, −inf), a float row
-    at −inf everywhere NaN (as ``_xla_attention``'s softmax)."""
+def _masked_fwd_plain(s, vf, structured, mask, dtype, z=None, dropout_p=0.0):
+    """The general mode of the forward twin: out = softmax(t)·v over every
+    key with t ``_masked_scores``'s (dropped by the keep mask `z` after the
+    statistics), and the pair (m, log l); a row the structured masks hide
+    wholly gives 0 and (NEG_INF, −inf), a float row at −inf everywhere NaN
+    (as ``_xla_attention``'s softmax)."""
     t, _ = _masked_scores(s, mask, structured)
     m = t.amax(-1, keepdim=True)
     p = torch.exp(t - m)
     l = p.sum(-1, keepdim=True)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vf)
+    pn = p / l
+    if z is not None:
+        pn = _drop_probs(pn, z, dropout_p)
+    out = torch.einsum("bhqk,bkhd->bqhd", pn, vf)
     stats = torch.cat([m, torch.log(l)], -1)
     if structured is not None:
         live = structured.any(-1, keepdim=True)                # (., 1, sq, 1)
@@ -434,34 +587,40 @@ def _masked_fwd_plain(s, vf, structured, mask, dtype):
     return out.to(dtype), stats.expand(t.shape[:3] + (2,)).contiguous()
 
 
-def _masked_bwd_plain(s, qf, kf, vf, of, out, stats, structured, mask,
-                      scale):
-    """The mask mode of the backward twin: P = exp(t − m − log l) from the
-    forward's pair (0 where l = 0), dS = P∘(dP − Δ) where t depends on s
-    and 0 elsewhere, dv = Pᵀ·dO over every element."""
+def _masked_bwd_plain(s, qf, kf, vf, of, delta, stats, structured, mask,
+                      scale, z=None, dropout_p=0.0):
+    """The general mode of the backward twin: P = exp(t − m − log l) from
+    the forward's pair (0 where l = 0), dS = P∘(dP∘Z/keep − Δ) where t
+    depends on s and 0 elsewhere, dv = (P∘Z/keep)ᵀ·dO over every element
+    (Z/keep = 1 without dropout)."""
     t, g = _masked_scores(s, mask, structured)
     m, logl = stats.float()[..., :1], stats.float()[..., 1:]
     p = torch.exp(t - m - torch.where(logl == -math.inf, math.inf, logl))
-    delta = (of * out.float()).sum(-1).transpose(1, 2)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", of, vf)
+    pd = p
+    if z is not None:
+        dp = _drop_probs(dp, z, dropout_p)
+        pd = _drop_probs(p, z, dropout_p)
     ds = torch.where(g, p * (dp - delta), torch.zeros((), device=s.device))
     return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale,
             torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale,
-            torch.einsum("bhqk,bqhd->bkhd", p, of))
+            torch.einsum("bhqk,bqhd->bkhd", pd, of))
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
                               scale=None, kv_lens=None, causal_offset=None,
                               window=None, dropout_p=0.0, key=None,
-                              attn_mask=None):
+                              attn_mask=None, seg_q=None, seg_k=None,
+                              alibi_slopes=None, g_lse=None):
     """Plain twin of the backward kernels: (dq, dk, dv) in fp32 from the
     forward's (out, lse), with the kernels' contract: P = exp(S·scale − lse)
-    on visible keys and 0 on a row whose lse is NEG_INF, Δ = rowsum(dO∘O),
+    on visible keys and 0 on a row whose lse is NEG_INF, Δ = rowsum(dO∘O)
+    (minus ``g_lse``, the cotangent of a differentiable lse, (b, h, sq)),
     dS = P∘(dP − Δ), dq = scale·dS·K, dk = scale·dSᵀ·Q, dv = Pᵀ·dO, and the
     GQA groups summed into their kv head. With ``dropout_p`` (Z the keep
-    mask of `key`): dS = P∘(dP∘Z/keep − Δ) and dv = (P∘Z/keep)ᵀ·dO. With
-    ``attn_mask`` `lse` is the forward's pair (m, log l)
-    (``_masked_bwd_plain``)."""
+    mask of `key`): dS = P∘(dP∘Z/keep − Δ) and dv = (P∘Z/keep)ᵀ·dO. In the
+    general mode (``attn_mask``, segment ids or ALiBi) `lse` is the
+    forward's pair (m, log l) (``_masked_bwd_plain``)."""
     dropout_p = _check_dropout(dropout_p, key)
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
@@ -470,37 +629,35 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
     vf = _repeat_kv(v, n_rep).float()
     qf, of = q.float(), dout.float()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    if attn_mask is not None:
-        _refuse_mask_modes("flash_attention_bwd_plain", window, dropout_p)
-        dq, dk, dv = _masked_bwd_plain(
-            s, qf, kf, vf, of, out, lse, _structured_mask(
-                sq, sk, is_causal, kv_lens, causal_offset, q.device),
-            dense_mask(attn_mask, b, h, sq, sk, q.device), scale)
-        if n_rep != 1:
-            dk = dk.reshape(b, sk, nkv, n_rep, d).sum(3)
-            dv = dv.reshape(b, sk, nkv, n_rep, d).sum(3)
-        return dq, dk, dv
-    lse = lse.float()[..., None]
-    p = torch.exp(s - lse)
-    keep = (lse > NEG_INF * 0.5).expand_as(p)
+    s = _plain_scores(q, k, scale, sq, sk, causal_offset, alibi_slopes)
     mask = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
-                            q.device, window)
-    if mask is not None:
-        keep = keep & mask
-    p = torch.where(keep, p, torch.zeros((), device=q.device))
+                            q.device, window, seg_q, seg_k)
     delta = (of * out.float()).sum(-1).transpose(1, 2)[..., None]
-    dp = torch.einsum("bqhd,bkhd->bhqk", of, vf)
-    pd = p
-    if dropout_p > 0.0:
-        z = drop_ops.attention_keep_mask(key, dropout_p, b, h, sq, sk,
-                                         q.device)
-        dp = _drop_probs(dp, z, dropout_p)
-        pd = _drop_probs(p, z, dropout_p)
-    ds = p * (dp - delta)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", pd, of)
+    if g_lse is not None:
+        delta = delta - g_lse.float()[..., None]
+    z = None if dropout_p == 0.0 else drop_ops.attention_keep_mask(
+        key, dropout_p, b, h, sq, sk, q.device)
+    if _general(attn_mask, seg_q, alibi_slopes):
+        dm = None if attn_mask is None else dense_mask(attn_mask, b, h, sq,
+                                                       sk, q.device)
+        dq, dk, dv = _masked_bwd_plain(s, qf, kf, vf, of, delta, lse, mask,
+                                       dm, scale, z, dropout_p)
+    else:
+        lse = lse.float()[..., None]
+        p = torch.exp(s - lse)
+        keep = (lse > NEG_INF * 0.5).expand_as(p)
+        if mask is not None:
+            keep = keep & mask
+        p = torch.where(keep, p, torch.zeros((), device=q.device))
+        dp = torch.einsum("bqhd,bkhd->bhqk", of, vf)
+        pd = p
+        if z is not None:
+            dp = _drop_probs(dp, z, dropout_p)
+            pd = _drop_probs(p, z, dropout_p)
+        ds = p * (dp - delta)
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+        dv = torch.einsum("bhqk,bqhd->bkhd", pd, of)
     if n_rep != 1:
         dk = dk.reshape(b, sk, nkv, n_rep, d).sum(3)
         dv = dv.reshape(b, sk, nkv, n_rep, d).sum(3)
@@ -548,11 +705,11 @@ def _check_kernel_inputs(what, q, k, v, *more, dims=BWD_DIMS):
     return b, sq, sk, h, nkv, d
 
 
-def _check_rows(what, b, h, sq, q, masked=False, **rows):
-    """lse / delta: fp32 (b, h, sq), contiguous, on q's device; a masked
+def _check_rows(what, b, h, sq, q, general=False, **rows):
+    """lse / delta: fp32 (b, h, sq), contiguous, on q's device; a general
     call's lse the (b, h, sq, 2) pairs."""
     for name, t in rows.items():
-        shape = (b, h, sq, 2) if masked and name == "lse" else (b, h, sq)
+        shape = (b, h, sq, 2) if general and name == "lse" else (b, h, sq)
         if (t.device != q.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be contiguous float32 "
@@ -579,139 +736,181 @@ def _drop_args(dropout_p, key):
             float(np.float32(1.0) / np.float32(keep)) if keep > 0 else 0.0]
 
 
-def _refuse_mask_modes(what, window, dropout_p, d=None):
-    """A dense mask runs without the window and dropout, at kernel d 64 and
-    128: the rest raises, naming ROADMAP Queue B rows 1-3."""
-    if window is not None or dropout_p > 0.0 or d == 256:
-        raise NotImplementedError(
-            f"{what}: a dense attn_mask with the sliding window, with "
-            "dropout or at head_dim 256 is not ported yet (ROADMAP Queue B "
-            "rows 1-3); the mask runs alone at head_dim 64 and 128")
-
-
-class _MaskArg(ctypes.Structure):
-    """csrc/attn_mask.cuh's am::Mask: the mask's pointer, its element
-    strides (b, h, q, k; 0 on a broadcast dim), fp32 or bool, and the
-    block bounds."""
+class _ModArg(ctypes.Structure):
+    """csrc/attn_mask.cuh's am::Mod: the dense mask's pointer (or null), its
+    element strides (b, h, q, k; 0 on a broadcast dim), fp32 or bool, the
+    block bounds, the window (0: none), the segment ids' pointers (int32
+    (b, sq) and (b, sk), or null) and the ALiBi slopes' (fp32 (h,), or
+    null)."""
     _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_longlong),
                 ("sh", ctypes.c_longlong), ("sq", ctypes.c_longlong),
                 ("sk", ctypes.c_longlong), ("f32", ctypes.c_int),
-                ("bounds", ctypes.c_void_p)]
+                ("bounds", ctypes.c_void_p), ("window", ctypes.c_int),
+                ("seg_q", ctypes.c_void_p), ("seg_k", ctypes.c_void_p),
+                ("slopes", ctypes.c_void_p)]
 
 
-def _mask_arg(what, attn_mask, bounds, part, q, b, h, sq, sk):
-    """The kernels' mask argument (a pointer to _MaskArg, None without a
-    mask) and the tensors it points into, which the caller keeps alive
-    over the launch. `part` is the kernel's entry of ``mask_bounds``'s
-    dict `bounds`."""
-    if attn_mask is None:
+def _on(what, name, t, q, shape, dtype):
+    """`t` as the kernels take it: `dtype`, contiguous, of `shape` on q's
+    device."""
+    t = torch.as_tensor(t)
+    if t.device != q.device or tuple(t.shape) != shape:
+        raise ValueError(f"{what}: {name} must be {shape} on {q.device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.to(dtype).contiguous()
+
+
+def _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window, bounds, part,
+             q, b, h, sq, sk):
+    """The kernels' general-mode argument (a pointer to _ModArg; None for a
+    call without a dense mask, segment ids or ALiBi) and the tensors it
+    points into, which the caller keeps alive over the launch. `part` is
+    the kernel's entry of ``mask_bounds``'s dict `bounds`."""
+    if not _general(attn_mask, seg_q, slopes):
         return None, None
-    m = dense_mask(attn_mask, b, h, sq, sk)
-    if m.device != q.device:
-        raise ValueError(f"{what}: attn_mask on {m.device}, expected "
-                         f"{q.device}")
+    m, strides = None, (0, 0, 0, 0)
+    if attn_mask is not None:
+        m = dense_mask(attn_mask, b, h, sq, sk)
+        if m.device != q.device:
+            raise ValueError(f"{what}: attn_mask on {m.device}, expected "
+                             f"{q.device}")
+        strides = tuple(0 if m.shape[i] == 1 else m.stride(i)
+                        for i in range(4))
+    if seg_q is not None:
+        seg_q = _on(what, "seg_q", seg_q, q, (b, sq), torch.int32)
+        seg_k = _on(what, "seg_k", seg_k, q, (b, sk), torch.int32)
+    if slopes is not None:
+        slopes = _on(what, "alibi_slopes", slopes, q, (h,), torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()
     bd = bounds[part]
-    arg = _MaskArg(m.data_ptr(), *(0 if m.shape[i] == 1 else m.stride(i)
-                                   for i in range(4)),
-                   int(m.dtype != torch.bool), bd.data_ptr())
-    return ctypes.pointer(arg), (m, bd, arg)
+    arg = _ModArg(ptr(m), *strides, int(m is not None
+                                        and m.dtype != torch.bool),
+                  bd.data_ptr(), min(window or 0, 1 << 30), ptr(seg_q),
+                  ptr(seg_k), ptr(slopes))
+    return ctypes.pointer(arg), (m, bd, seg_q, seg_k, slopes, arg)
 
 
-def _refuse_d256_modes(what, d, window, dropout_p, rows):
-    """At head dim 256 the kernels are built windowless and without dropout
-    only: those modes raise, naming their ROADMAP Queue B rows."""
-    if d == 256 and (window is not None or dropout_p > 0.0):
+def _refuse_d256_modes(what, d, window, dropout_p, rows, general=False):
+    """At head dim 256 the kernels are built without the window, dropout
+    and the general mode: those raise, naming ROADMAP Queue B rows 1-3 and
+    the kernel's own row(s) there."""
+    if d == 256 and (window is not None or dropout_p > 0.0 or general):
         raise NotImplementedError(
-            f"{what}: the sliding window and dropout at head_dim 256 are not "
-            f"ported yet (ROADMAP Queue B {rows}); d 256 runs windowless and "
-            "without dropout")
+            f"{what}: the sliding window, dropout, a dense attn_mask, segment "
+            "ids and ALiBi at head_dim 256 are not ported yet (ROADMAP Queue "
+            f"B rows 1-3; this kernel's Queue B {rows}); d 256 runs without "
+            "them, and they run at head_dim 64 and 128")
+
+
+def _count(wrapper, d, window, dropout_p, attn_mask, seg_q, slopes):
+    """One launch on `wrapper`'s counters."""
+    wrapper.launches += 1
+    wrapper.windowed += window is not None
+    wrapper.dropout += dropout_p > 0.0
+    wrapper.general += _general(attn_mask, seg_q, slopes)
+    wrapper.masked += attn_mask is not None
+    wrapper.segmented += seg_q is not None
+    wrapper.alibi += slopes is not None
+    wrapper.mask_window += attn_mask is not None and window is not None
+    wrapper.by_d[d] += 1
+
+
+# the counters of each kernel wrapper: its launches, and of them those with
+# the window, with dropout, of the general instantiation, with a dense
+# mask, with segment ids, with ALiBi and with a mask beside the window
+MODE_COUNTERS = ("windowed", "dropout", "general", "masked", "segmented",
+                 "alibi", "mask_window")
+
+
+def _counters(wrapper, dims):
+    """Every counter of `wrapper` at 0, and its launches at each head dim
+    (``by_d``)."""
+    for name in ("launches",) + MODE_COUNTERS:
+        setattr(wrapper, name, 0)
+    wrapper.by_d = dict.fromkeys(dims, 0)
 
 
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                         causal_offset=None, window=None, dropout_p=0.0,
-                        key=None, attn_mask=None, bounds=None):
+                        key=None, attn_mask=None, bounds=None, seg_q=None,
+                        seg_k=None, alibi_slopes=None):
     """Flash-attention forward: (out, lse) as flash_attention_fwd_plain.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64, 128
-    or 256, contiguous; with ``dropout_p`` its dropout instantiation, keyed
-    by `key`; with ``attn_mask`` its mask instantiation, walking `bounds`
-    (``mask_bounds``, computed here when None); the window, dropout and
-    mask modes at d 64 and 128 only); anything else on CUDA raises. CPU
-    tensors take the plain twin. Inputs that require grad, with grad mode
-    on, raise: the output of a raw kernel carries no gradient."""
+    or 256, contiguous; with ``window`` its windowed instantiation, with
+    ``dropout_p`` its dropout one, keyed by `key`; with ``attn_mask``,
+    segment ids or ``alibi_slopes`` its general one (and the window and
+    dropout there), walking `bounds` (``mask_bounds``, computed here when
+    None); every mode but the plain one at d 64 and 128 only); anything
+    else on CUDA raises. CPU tensors take the plain twin. Inputs that
+    require grad, with grad mode on, raise: the output of a raw kernel
+    carries no gradient."""
     _refuse_grad("flash_attention_fwd", q, k, v)
     window = _check_window(window, is_causal)
     dropout_p = _check_dropout(dropout_p, key)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, is_causal, scale, kv_lens,
                                          causal_offset, window, dropout_p,
-                                         key, attn_mask)
+                                         key, attn_mask, seg_q, seg_k,
+                                         alibi_slopes)
     b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
                                                 q, k, v, dims=FWD_DIMS)
-    if attn_mask is not None:
-        _refuse_mask_modes("flash_attention_fwd", window, dropout_p, d)
-        if bounds is None:
-            bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
-                                  causal_offset)
-    _refuse_d256_modes("flash_attention_fwd", d, window, dropout_p, "row 1")
+    general = _general(attn_mask, seg_q, alibi_slopes)
+    _refuse_d256_modes("flash_attention_fwd", d, window, dropout_p, "row 1",
+                       general)
+    if general and bounds is None:
+        bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
+                              causal_offset, window, seg_q, seg_k)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     out = torch.empty_like(q)
-    marg, keep = _mask_arg("flash_attention_fwd", attn_mask, bounds, "fwd",
-                           q, b, h, sq, sk)
-    lse = torch.empty((b, h, sq) + ((2,) if keep else ()),
+    marg, keep = _mod_arg("flash_attention_fwd", attn_mask, seg_q, seg_k,
+                          alibi_slopes, window, bounds, "fwd", q, b, h, sq,
+                          sk)
+    lse = torch.empty((b, h, sq) + ((2,) if general else ()),
                       dtype=torch.float32, device=q.device)
     lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9)
     # window 0: the windowless kernel; a window takes the windowed one
-    # (beyond 2^30 it masks nothing and stays a C int)
+    # (beyond 2^30 it masks nothing and stays a C int); the general
+    # argument, the general one
     err = lib.flash_attention_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _build.ptr(kl) if kl is not None else None,
         b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
         min(window or 0, 1 << 30), float(scale), marg,
         *_drop_args(dropout_p, key), _build.stream_of(q))
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.windowed += window is not None
-    flash_attention_fwd.dropout += dropout_p > 0.0
-    flash_attention_fwd.masked += keep is not None
-    flash_attention_fwd.by_d[d] += 1
+    _count(flash_attention_fwd, d, window, dropout_p, attn_mask, seg_q,
+           alibi_slopes)
     _build.check(err, "flash_attention_fwd")
     return out, lse
 
 
-# launches, and of them those of the windowed, the dropout and the mask
-# instantiations, and those at each head dim
-flash_attention_fwd.launches = 0
-flash_attention_fwd.windowed = 0
-flash_attention_fwd.dropout = 0
-flash_attention_fwd.masked = 0
-flash_attention_fwd.by_d = dict.fromkeys(FWD_DIMS, 0)
+_counters(flash_attention_fwd, FWD_DIMS)
 
 
 def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
               kv_lens, causal_offset, window, dropout_p, key, attn_mask,
-              bounds):
+              bounds, seg_q, seg_k, slopes):
     window = _check_window(window, is_causal)
     dropout_p = _check_dropout(dropout_p, key)
     b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
                                                 ("dout", dout))
-    if attn_mask is not None:
-        _refuse_mask_modes(what, window, dropout_p, d)
-        if bounds is None:
-            bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
-                                  causal_offset)
-    _refuse_d256_modes(what, d, window, dropout_p, "rows 2-3")
+    general = _general(attn_mask, seg_q, slopes)
+    _refuse_d256_modes(what, d, window, dropout_p, "rows 2-3", general)
+    if general and bounds is None:
+        bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
+                              causal_offset, window, seg_q, seg_k)
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} is not q's "
                          f"shape {tuple(q.shape)}")
-    _check_rows(what, b, h, sq, q, attn_mask is not None, lse=lse,
-                delta=delta)
+    _check_rows(what, b, h, sq, q, general, lse=lse, delta=delta)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta)]
-    marg, keep = _mask_arg(what, attn_mask, bounds, part, q, b, h, sq, sk)
+    marg, keep = _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window,
+                          bounds, part, q, b, h, sq, sk)
     # window 0: the windowless kernels; a window takes the windowed ones
     # (beyond 2^30 it masks nothing and stays a C int), as K1's wrapper
     tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
@@ -723,93 +922,85 @@ def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
                            scale=None, kv_lens=None, causal_offset=None,
                            window=None, dropout_p=0.0, key=None,
-                           attn_mask=None, bounds=None):
+                           attn_mask=None, bounds=None, seg_q=None,
+                           seg_k=None, alibi_slopes=None):
     """dq (bf16, q's shape) by the K3 kernel of ``csrc/flash_attention_bwd.cu``
     from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq);
     head_dim 64, 128 or 256; ``window`` (with ``is_causal``) launches its
     windowed instantiation, ``dropout_p`` (with the forward's `key`) its
-    dropout one, ``attn_mask`` (with the forward's (m, log l) pairs as
-    `lse`; `bounds` as K1's) its mask one (each at d 64 and 128 only).
-    CUDA tensors only (the CPU path is ``flash_attention_bwd_plain``)."""
+    dropout one, ``attn_mask``, segment ids or ``alibi_slopes`` (with the
+    forward's (m, log l) pairs as `lse`; `bounds` as K1's) its general one
+    (each at d 64 and 128 only). CUDA tensors only (the CPU path is
+    ``flash_attention_bwd_plain``)."""
     head, kl, tail, d, keep = _bwd_args(
         "flash_attention_bwd_dq", "dq", q, k, v, dout, lse, delta, is_causal,
         scale, kv_lens, causal_offset, window, dropout_p, key, attn_mask,
-        bounds)
+        bounds, seg_q, seg_k, alibi_slopes)
     dq = torch.empty_like(q)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 9)
     err = lib.flash_attention_bwd_dq(*head, _build.ptr(dq), kl, *tail)
-    flash_attention_bwd_dq.launches += 1
-    flash_attention_bwd_dq.windowed += window is not None
-    flash_attention_bwd_dq.dropout += dropout_p > 0.0
-    flash_attention_bwd_dq.masked += keep is not None
-    flash_attention_bwd_dq.by_d[d] += 1
+    _count(flash_attention_bwd_dq, d, window, dropout_p, attn_mask, seg_q,
+           alibi_slopes)
     _build.check(err, "flash_attention_bwd_dq")
     return dq
 
 
-# launches, and of them those of the windowed, the dropout and the mask
-# instantiations, and those at each head dim (as flash_attention_fwd's)
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dq.windowed = 0
-flash_attention_bwd_dq.dropout = 0
-flash_attention_bwd_dq.masked = 0
-flash_attention_bwd_dq.by_d = dict.fromkeys(BWD_DIMS, 0)
+_counters(flash_attention_bwd_dq, BWD_DIMS)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
                             scale=None, kv_lens=None, causal_offset=None,
                             window=None, dropout_p=0.0, key=None,
-                            attn_mask=None, bounds=None):
+                            attn_mask=None, bounds=None, seg_q=None,
+                            seg_k=None, alibi_slopes=None):
     """(dk, dv) (bf16, k's shape) by the K4 kernel of
     ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
-    kernel; head dims, ``window``, ``dropout_p`` and ``attn_mask`` as in
-    ``flash_attention_bwd_dq``. CUDA tensors only."""
+    kernel; head dims and modes as in ``flash_attention_bwd_dq``. CUDA
+    tensors only."""
     head, kl, tail, d, keep = _bwd_args(
         "flash_attention_bwd_dkv", "dkv", q, k, v, dout, lse, delta,
         is_causal, scale, kv_lens, causal_offset, window, dropout_p, key,
-        attn_mask, bounds)
+        attn_mask, bounds, seg_q, seg_k, alibi_slopes)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9)
     err = lib.flash_attention_bwd_dkv(*head, _build.ptr(dk), _build.ptr(dv),
                                       kl, *tail)
-    flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.windowed += window is not None
-    flash_attention_bwd_dkv.dropout += dropout_p > 0.0
-    flash_attention_bwd_dkv.masked += keep is not None
-    flash_attention_bwd_dkv.by_d[d] += 1
+    _count(flash_attention_bwd_dkv, d, window, dropout_p, attn_mask, seg_q,
+           alibi_slopes)
     _build.check(err, "flash_attention_bwd_dkv")
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dkv.windowed = 0
-flash_attention_bwd_dkv.dropout = 0
-flash_attention_bwd_dkv.masked = 0
-flash_attention_bwd_dkv.by_d = dict.fromkeys(BWD_DIMS, 0)
+_counters(flash_attention_bwd_dkv, BWD_DIMS)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
                         kv_lens=None, causal_offset=None, window=None,
                         dropout_p=0.0, key=None, attn_mask=None,
-                        bounds=None):
+                        bounds=None, seg_q=None, seg_k=None,
+                        alibi_slopes=None, g_lse=None):
     """Gradients (dq, dk, dv) of the attention whose forward gave (out,
     lse), in the dtypes of q, k, v. CPU tensors take
-    ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O) in
-    fp32 (as the reference does outside its kernels, :1059) and launch K3
-    and K4 (their windowed, dropout and mask instantiations under a
-    window, a dropout and a dense mask)."""
+    ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O)
+    in fp32 (as the reference does outside its kernels, :1059), minus
+    ``g_lse`` (the cotangent of ``flash_fwd_lse``'s lse, :1061-1062), and
+    launch K3 and K4 (their windowed, dropout and general instantiations
+    under a window, a dropout and a dense mask, segment ids or ALiBi)."""
+    mods = dict(attn_mask=attn_mask, seg_q=seg_q, seg_k=seg_k,
+                alibi_slopes=alibi_slopes)
     if q.device.type == "cpu":
-        dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                               is_causal, scale, kv_lens,
-                                               causal_offset, window,
-                                               dropout_p, key, attn_mask)
+        dq, dk, dv = flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, is_causal, scale, kv_lens,
+            causal_offset, window, dropout_p, key, g_lse=g_lse, **mods)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    delta = delta.contiguous()
     kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
               causal_offset=causal_offset, window=window,
-              dropout_p=dropout_p, key=key, attn_mask=attn_mask,
-              bounds=bounds)
+              dropout_p=dropout_p, key=key, bounds=bounds, **mods)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
@@ -817,16 +1008,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
 
 def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints):
     """The ctypes entry `fn_name` of csrc/<lib_name>.cu: n_ptrs pointers,
-    n_ints ints, the float scale, the mask (a pointer to _MaskArg, or
-    null), the dropout arguments (drop, the key's two words, the keep
-    threshold, 1/keep) and the stream; returns cudaError."""
+    n_ints ints, the float scale, the general-mode argument (a pointer to
+    _ModArg, or null), the dropout arguments (drop, the key's two words,
+    the keep threshold, 1/keep) and the stream; returns cudaError."""
     lib = _build.library(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
         fn.argtypes = ([vp] * n_ptrs + [ci] * n_ints + [cf]
-                       + [ctypes.POINTER(_MaskArg)]
+                       + [ctypes.POINTER(_ModArg)]
                        + [ci, cu, cu, cu, cf] + [vp])
         fn.restype = ctypes.c_int
     return lib
@@ -841,20 +1032,24 @@ class FlashAttention(torch.autograd.Function):
     Function makes q, k, v (GPT's qkv split gives strided views) and the
     incoming gradient contiguous itself, and saves those copies. Under
     dropout it saves the key, not the mask: the backward regenerates it.
-    A dense mask is carried with its bounds (computed once for K1, K3 and
-    K4) and gets no gradient, as the reference's VJP gives it a zero
-    cotangent (:1108-1112)."""
+    A dense mask, segment ids and ALiBi slopes are carried with their
+    bounds (computed once for K1, K3 and K4) and get no gradient, as the
+    reference's VJP gives the mask a zero cotangent (:1108-1112) and
+    stops the slopes' gradient (:212)."""
 
     @staticmethod
     def forward(ctx, q, k, v, is_causal, scale, kv_lens, causal_offset,
-                window=None, dropout_p=0.0, key=None, attn_mask=None):
+                window=None, dropout_p=0.0, key=None, attn_mask=None,
+                seg_q=None, seg_k=None, alibi_slopes=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
                   causal_offset=causal_offset, window=window,
-                  dropout_p=dropout_p, key=key, attn_mask=attn_mask)
-        if attn_mask is not None and q.device.type != "cpu":
+                  dropout_p=dropout_p, key=key, attn_mask=attn_mask,
+                  seg_q=seg_q, seg_k=seg_k, alibi_slopes=alibi_slopes)
+        if _general(attn_mask, seg_q, alibi_slopes) and \
+                q.device.type != "cpu":
             kw["bounds"] = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
-                                        causal_offset)
+                                        causal_offset, window, seg_q, seg_k)
         out, lse = flash_attention_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
@@ -866,7 +1061,47 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * 11
+
+
+class FlashFwdLse(torch.autograd.Function):
+    """``flash_fwd_lse``'s Function: (out, lse) by K1 (the plain twin on
+    CPU tensors), and a backward that takes both cotangents, g_lse folded
+    into Δ for K3 and K4 (the reference's ``_fwd_lse_vjp_bwd``,
+    :1195-1212)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_fwd(q, k, v, is_causal=is_causal,
+                                       scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(is_causal=is_causal, scale=scale)
+        return out, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), g_lse=g_lse,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None
+
+
+def flash_fwd_lse(q, k, v, is_causal=False, scale=None):
+    """Attention forward returning (out (b, s, h, d), lse (b, h, s) fp32),
+    the pieces a caller merges blockwise (ring attention). Differentiable,
+    the lse included: its cotangent folds into Δ. On the card K1 and K3/K4
+    whatever the shape (the reference's ``_pallas_lse_ok`` sends short
+    sequences to XLA; here the device decides), a head dim the kernels are
+    not built for zero-padded as in ``scaled_dot_product_attention``; on
+    CPU tensors the plain twins."""
+    d = q.shape[-1]
+    if q.device.type != "cpu":
+        q, k, v, scale, d = _pad_head_dim(q, k, v, scale)
+    out, lse = FlashFwdLse.apply(q, k, v, is_causal, scale)
+    return (out if out.shape[-1] == d else out[..., :d]), lse
 
 
 def _pad_head_dim(q, k, v, scale):
@@ -895,54 +1130,58 @@ def _pad_head_dim(q, k, v, scale):
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, scale=None,
-                                 kv_lens=None, causal_offset: Optional[int] = None,
-                                 window_size: Optional[int] = None):
-    """Attention with the device dispatch (see the module docstring).
+                                 kv_lens=None, segment_ids=None,
+                                 kv_segment_ids=None,
+                                 window_size: Optional[int] = None,
+                                 alibi_slopes=None,
+                                 causal_offset: Optional[int] = None):
+    """Attention with the device dispatch (see the module docstring); the
+    reference's signature, and ``causal_offset``.
 
-    ``window_size`` is the causal sliding window (needs ``is_causal``): K1
-    computes it, and K3/K4 its backward. ``dropout_p`` in training draws
-    one key from stream "dropout" on every path: K1 (and K3/K4) drop in
-    their dropout instantiations on the card, the plain versions on the
-    CPU. On the kernels' device a head dim other than 64, 128 and 256 (up
-    to 256) is zero-padded for the kernels (``_pad_head_dim``) and the
-    output sliced back, so its gradient runs K3/K4 at the padded d through
-    torch's autograd of the pad and the slice (SD-1.5's 160 on K3/K4 at
-    256). The window and dropout at kernel d 256 raise (ROADMAP Queue B
-    rows 1-3). A dense ``attn_mask`` runs on the card through K1, K3 and
-    K4's mask instantiations (d 64 and 128, the padded 40 and 80
-    included); with the window, with dropout or at kernel d 256 it raises
-    (ROADMAP Queue B rows 1-3), and it never falls back. Segment ids and
-    ALiBi are not ported (ROADMAP Queue B row 1). The plain versions take
-    any head dim; on the CPU a masked call that needs a gradient runs the
-    Function over the plain twins, as an unmasked one does (with the
-    window or dropout beside the mask, torch's autograd of the plain
-    version)."""
+    ``window_size`` is the causal sliding window (needs ``is_causal``);
+    ``segment_ids`` / ``kv_segment_ids`` the packed-sequence ids and
+    ``alibi_slopes`` the ALiBi slopes (needs ``is_causal``), validated as
+    the reference validates them. ``dropout_p`` in training draws one key
+    from stream "dropout" on every path. On the kernels' device K1 (and
+    K3/K4 for a gradient) run every mode: the window and dropout in their
+    own instantiations, a dense ``attn_mask``, segment ids and ALiBi in
+    the general one, with the window and dropout beside them; a head dim
+    other than 64, 128 and 256 (up to 256) is zero-padded for the kernels
+    (``_pad_head_dim``) and the output sliced back, so its gradient runs
+    K3/K4 at the padded d through torch's autograd of the pad and the slice
+    (SD-1.5's 160 on K3/K4 at 256). Every mode but the plain one raises at
+    kernel d 256 (ROADMAP Queue B rows 1-3), and no call falls back. On the
+    CPU a call that needs a gradient runs the Function over the plain
+    twins, any other ``_xla_attention``."""
     window = _check_window(window_size, is_causal)
+    seg_q, seg_k = _check_segments(segment_ids, kv_segment_ids, q.shape[1],
+                                   k.shape[1])
+    slopes = _check_alibi(alibi_slopes, is_causal, q.shape[2], q.device)
     dropout_p = float(dropout_p) if training else 0.0
     key = rng.next_rng_key("dropout") if dropout_p > 0.0 else None
     _check_dropout(dropout_p, key)
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if q.device.type == "cpu" and (not needs_grad or (
-            attn_mask is not None and (window is not None
-                                       or dropout_p > 0.0))):
+    mods = dict(seg_q=seg_q, seg_k=seg_k, alibi_slopes=slopes)
+    if q.device.type == "cpu" and not needs_grad:
         return _xla_attention(q, k, v, attn_mask=attn_mask,
                               is_causal=is_causal, scale=scale,
                               kv_lens=kv_lens, causal_offset=causal_offset,
-                              window=window, dropout_p=dropout_p, key=key)
+                              window=window, dropout_p=dropout_p, key=key,
+                              **mods)
     if attn_mask is not None:
         attn_mask = dense_mask(attn_mask, q.shape[0], q.shape[2], q.shape[1],
                                k.shape[1], q.device)
     d = q.shape[-1]
     if q.device.type != "cpu":   # the plain versions take any head dim
         q, k, v, scale, d = _pad_head_dim(q, k, v, scale)
-        if attn_mask is not None:
-            _refuse_mask_modes("scaled_dot_product_attention", window,
-                               dropout_p, q.shape[-1])
+        _refuse_d256_modes("scaled_dot_product_attention", q.shape[-1],
+                           window, dropout_p, "rows 1-3",
+                           _general(attn_mask, seg_q, slopes))
     if needs_grad:
         out = FlashAttention.apply(q, k, v, is_causal, scale, kv_lens,
                                    causal_offset, window, dropout_p, key,
-                                   attn_mask)
+                                   attn_mask, seg_q, seg_k, slopes)
     else:
         # the kernel takes contiguous tensors: GPT's qkv split gives
         # strided views (a no-op copy for the rest, as in FlashAttention)
@@ -951,5 +1190,19 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                   scale=scale, kv_lens=kv_lens,
                                   causal_offset=causal_offset, window=window,
                                   dropout_p=dropout_p, key=key,
-                                  attn_mask=attn_mask)[0]
+                                  attn_mask=attn_mask, **mods)[0]
     return out if out.shape[-1] == d else out[..., :d]
+
+
+def flash_attention(q, k, v, dropout=0.0, causal=False, attn_mask=None,
+                    training=True, scale=None, kv_lens=None,
+                    segment_ids=None, kv_segment_ids=None, window_size=None,
+                    alibi_slopes=None):
+    """``paddle.nn.functional.flash_attention``: (out, None) of
+    ``scaled_dot_product_attention`` (the reference's :144-154)."""
+    out = scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask, dropout_p=dropout, is_causal=causal,
+        training=training, scale=scale, kv_lens=kv_lens,
+        segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+        window_size=window_size, alibi_slopes=alibi_slopes)
+    return out, None

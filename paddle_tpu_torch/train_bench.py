@@ -79,13 +79,13 @@ def build(cfg, batch, seq, device=None, dtype=torch.bfloat16, seed=0):
     return model, opt, ids[:, :-1], ids[:, 1:]
 
 
-def train_step(model, opt, x, y):
-    """One step: train_loss, backward, AdamW, under a fresh "dropout" key
-    from the global generator (``bench.train_step``'s binding, the
-    reference's train step's). Returns the loss (a device tensor: no host
-    sync)."""
+def train_step(model, opt, x, y, attn_mask=None):
+    """One step: train_loss (over `attn_mask`, a padded batch's mask, when
+    given), backward, AdamW, under a fresh "dropout" key from the global
+    generator (``bench.train_step``'s binding, the reference's train
+    step's). Returns the loss (a device tensor: no host sync)."""
     with rng.rng_guard(dropout=rng.global_key()):
-        loss = model.train_loss(x, y)
+        loss = model.train_loss(x, y, attn_mask)
         loss.backward()
     opt.step()
     opt.clear_grad()

@@ -176,9 +176,10 @@ def test_cuda_path_refuses_what_it_does_not_take():
     """Attention dropout, once refused, runs on a CPU tensor: it equals the
     reference's dropped attention under the same "dropout" key (fp32, atol
     1e-5) and draws one key from the stream. The dense mask, once refused,
-    runs on the kernels; what stays refused on the kernel path is a mask
-    beside the window (or dropout, or at head dim 256), asserted by name
-    on a meta tensor (a non-CPU tensor takes the kernels' dispatch)."""
+    runs on the kernels, beside the window and dropout too; what stays
+    refused on the kernel path is a mask at head dim 256 (beside the
+    window here), asserted by name on a meta tensor (a non-CPU tensor
+    takes the kernels' dispatch)."""
     import jax
     from paddle_tpu.core import rng as jrng
     from paddle_tpu_torch.core import rng as trng
@@ -195,7 +196,7 @@ def test_cuda_path_refuses_what_it_does_not_take():
             is_causal=True)
     assert frame.counters == {"dropout": 1}
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
-    m = torch.zeros(1, 2, 2, 16, dtype=torch.bfloat16, device="meta")
+    m = torch.zeros(1, 2, 2, 256, dtype=torch.bfloat16, device="meta")
     with pytest.raises(NotImplementedError, match="dense attn_mask"):
         tfa.scaled_dot_product_attention(
             m, m, m, attn_mask=torch.ones(1, 1, 2, 2, dtype=torch.bool,

@@ -223,24 +223,42 @@ def test_row_at_minus_1e10_is_the_softmax_of_its_scores():
 
 
 def test_mask_with_window_or_dropout_or_d256_raises_on_the_kernel_path():
-    """The mask modes that are not ported raise by name (ROADMAP Queue B
-    rows 1-3), on the kernels' dispatch (a meta tensor takes it)."""
+    """The mask at kernel head dim 256 (native, or 160 padded) raises by
+    name (ROADMAP Queue B rows 1-3) on the kernels' dispatch (a meta tensor
+    takes it). The mask beside the window and beside dropout, which raised
+    before the general instantiations, now run: beside the window the
+    dispatch's output and gradients equal the reference's (atol 1e-5), and
+    beside dropout the plain twin equals the plain version under the same
+    key."""
     m = torch.ones(1, 1, 4, 4, dtype=torch.bool, device="meta")
-    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B rows 1-3"):
-        tfa.scaled_dot_product_attention(q, q, q, attn_mask=m,
-                                         is_causal=True, window_size=2)
     q256 = torch.zeros(1, 4, 2, 256, dtype=torch.bfloat16, device="meta")
     with pytest.raises(NotImplementedError, match="Queue B rows 1-3"):
         tfa.scaled_dot_product_attention(q256, q256, q256, attn_mask=m)
     q160 = torch.zeros(1, 4, 2, 160, dtype=torch.bfloat16, device="meta")
     with pytest.raises(NotImplementedError, match="Queue B rows 1-3"):
         tfa.scaled_dot_product_attention(q160, q160, q160, attn_mask=m)
-    with pytest.raises(NotImplementedError, match="Queue B rows 1-3"):
-        tfa.flash_attention_fwd_plain(
-            *(torch.zeros(1, 4, 2, 8),) * 3, dropout_p=0.1,
-            key=torch.zeros(2, dtype=torch.int64),
-            attn_mask=torch.ones(4, 4, dtype=torch.bool))
+    # the mask beside the window: parity with the reference
+    q, k, v, do = _inputs(8, B, 12, 12, H, 2, 16)
+    mask = _mask("key_padding", B, H, 12, 12, 3)
+    t = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tfa.scaled_dot_product_attention(*t, attn_mask=mask,
+                                           is_causal=True, window_size=3)
+    out.backward(torch.from_numpy(do))
+    ref, pull = jax.vjp(lambda *a: jfa.scaled_dot_product_attention(
+        *a, attn_mask=_jax_mask(mask), is_causal=True, window_size=3),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=ATOL)
+    for g, r in zip(t, pull(jnp.asarray(do))):
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(r), atol=ATOL)
+    # the mask beside dropout: the plain twin against the plain version
+    key = torch.tensor([3, 9], dtype=torch.int64)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    twin, _ = tfa.flash_attention_fwd_plain(tq, tk, tv, dropout_p=0.1,
+                                            key=key, attn_mask=mask)
+    plain = tfa._xla_attention(tq, tk, tv, attn_mask=tfa.dense_mask(
+        mask, B, H, 12, 12), dropout_p=0.1, key=key)
+    np.testing.assert_allclose(twin.numpy(), plain.numpy(), atol=ATOL)
     with pytest.raises(ValueError, match="does not broadcast"):
         tfa.dense_mask(torch.ones(3, 4), 1, 2, 4, 4)
 

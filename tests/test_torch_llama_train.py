@@ -14,6 +14,7 @@ atol 1e-5 (fp32 sums in another order), a five-step loss curve at rtol
 """
 
 import dataclasses
+import inspect
 import json
 
 import jax
@@ -137,6 +138,51 @@ def test_train_loss_with_a_padding_mask_matches_jax(kind):
     loss_t = tm.train_loss(torch.from_numpy(x), torch.from_numpy(y),
                            torch.from_numpy(mask))
     loss_t.backward()
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), atol=1e-6)
+    for k, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(grads_j[k]),
+                                   atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("recompute", [False, True],
+                         ids=["plain", "recompute"])
+def test_windowed_train_loss_on_a_left_padded_batch_matches_jax(recompute,
+                                                               monkeypatch):
+    """A tiny Mistral (a 5-key sliding window at S=24) on a left-padded
+    batch: row 1's first 9 tokens are padding, hidden by a (b, 1, 1, s)
+    bool mask beside the window, their labels ignored. Its pad queries
+    see no valid key inside their window: dead rows, the mean of v over
+    every key in both packages. train_loss(x, y, attn_mask) and every
+    gradient against jax.value_and_grad of the reference's (atol 1e-6 /
+    1e-5), plain and under per-layer recompute (the masked, windowed
+    attention replayed in the backward)."""
+    fields = dict(sliding_window=5, loss_seq_chunks=2)
+    if recompute:
+        fields.update(recompute=True, recompute_granularity="full")
+    jm, tm = _pair(**fields)
+    pad = 9
+    x, y = _batch(6, ignore=[(1, s) for s in range(pad)])
+    x[1, :pad] = 0
+    mask = (np.arange(S)[None, :] >= np.array([0, pad])[:, None])[
+        :, None, None, :]
+    loss_j, grads_j = jax.value_and_grad(
+        lambda st: functional_call(jm, st, jnp.asarray(x), jnp.asarray(y),
+                                   jnp.asarray(mask), method="train_loss"))(
+        jm.trainable_state())
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    calls = []
+    real = tfa.flash_attention_fwd_plain
+
+    def spy(*args, **kw):
+        got = inspect.signature(real).bind(*args, **kw).arguments
+        calls.append((got.get("window"), got.get("attn_mask") is not None))
+        return real(*args, **kw)
+    monkeypatch.setattr(tfa, "flash_attention_fwd_plain", spy)
+    loss_t = tm.train_loss(torch.from_numpy(x), torch.from_numpy(y),
+                           torch.from_numpy(mask))
+    loss_t.backward()
+    # the forward of each layer, and under recompute its replay
+    assert calls == [(5, True)] * (4 if recompute else 2)
     np.testing.assert_allclose(loss_t.item(), float(loss_j), atol=1e-6)
     for k, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(grads_j[k]),

@@ -457,10 +457,11 @@ def test_k1_counters_stay_zero_through_a_cpu_ernie_step():
 
 def test_mask_kernel_entries_take_the_mask(monkeypatch):
     """On the kernels' device (meta tensors stand for CUDA ones), K1's,
-    K3's and K4's C entry points get the dense mask as one pointer to its
-    am::Mask: the broadcast dims' strides 0, the others the mask's own,
-    the fp32 flag, and the bounds of the kernel (mask_bounds' fwd, dq and
-    dkv); the lse K3 and K4 take is the (b, h, sq, 2) pairs. Without a
+    K3's and K4's C entry points get the dense mask as one pointer to
+    their general argument (am::Mod): the broadcast dims' strides 0, the
+    others the mask's own, the fp32 flag, and the bounds of the kernel
+    (mask_bounds' fwd, dq and dkv); the lse K3 and K4 take is the
+    (b, h, sq, 2) pairs. Without a
     mask the pointer is null. The entry points raise, so nothing
     launches."""
     from paddle_tpu_torch.ops import _build
