@@ -16,6 +16,7 @@
     python3 chip_smoke.py --modes         # card, build, k1s,
                                           # train_mistral_pad
     python3 chip_smoke.py --k1s           # card, build, k1s
+    python3 chip_smoke.py --k1m           # card, build, k1m
 
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
@@ -253,15 +254,24 @@ Phases, each printing one JSON line:
               2-D block-sparse bool mask with a row hidden at every key (its
               block walks every tile: the mean of v), a 3-D (h, s, s) mask
               under GQA and causal, cross-attention 512 × 77 with a key
-              mask: out within K1_TOL_OUT, the pairs' lse within
+              mask, and ERNIE-base's shape with two batch rows of
+              length 0 (whole blocks of dead rows) and with dead query rows
+              beside live ones ((b, 1, s, s) bool), PaddleNLP's additive
+              0 / -1e4 padding mask, float dead rows at -1e30 (their blocks
+              on the walk of every tile), a ragged sk (300 × 333, d 128,
+              causal): out within K1_TOL_OUT, the pairs' lse within
               K1_TOL_LSE (+ 2^-22·|m|), each gradient within K3_TOL ·
               max|plain|, each kernel twice with the same bits, and
               `mask_bounds` free of host syncs; each case timed (device_ms)
               beside torch sdpa with the same mask (forward; backward over
               a retained graph), the plain versions and the bound from
               the bytes (q, k, v, o, the mask at its broadcast shape) and
-              the operations of the pairs the mask leaves (rows 1e, 2d,
-              3d at the ERNIE-base case); a float row at -inf gives NaN
+              the operations of the pairs the mask leaves (a bool mask's
+              dead row the closed form, no pair's work; beside it the
+              bound that counts its sk keys at 2 / 0 / 2·d) (rows 1e, 2d,
+              3d at the ERNIE-base case); each case prints its tiles by
+              class (`tile_counts`: EMPTY, FULL, MIXED in K1's and K4's
+              grids) and dead rows; a float row at -inf gives NaN
               as the plain version; d 40 and 80 through the dispatch
               (padded, K1/K3/K4 once each in mask mode); the mask beside
               the window and dropout running, at d 256 refused, naming
@@ -279,7 +289,10 @@ Phases, each printing one JSON line:
               window at train_mistral_pad's b 2 (row 1 left-padded by
               3,072: its pad queries are dead rows); dropout 0.1 beside the
               mask, the segment ids and ALiBi at GPT-2's; flash_fwd_lse
-              under a random g_lse at both. Each case first through the
+              under a random g_lse at both; GPT-2's shape with
+              batch rows left-padded by GPT2_PAD (dead causal rows beside
+              live ones in a block), with and without dropout. Each case
+              first through the
               public entry point (nn.functional.flash_attention, or
               flash_fwd_lse), forward and backward, every count at 0 just
               before and read just after (the path's launches); then the
@@ -292,7 +305,10 @@ Phases, each printing one JSON line:
               hash's integer instructions) of the pairs the run's structure
               leaves (rows 1f–1j, 2e–2i, 3e–3i); the general mode's keep
               mask read back bit for bit (k1_mask_probe, general); every
-              new mode at kernel d 256 refused, naming Queue B rows 1-3.
+              new mode at kernel d 256 refused, naming Queue B rows 1-3;
+              the dead rows' row sums (csrc/attn_rows.cu: the mean of v and
+              dsum) at train_mistral_pad's call against their plain
+              version, twice bitwise, timed (row R).
   9. e2e    — Llama-2-7B (32 layers, bf16, random weights from seed 0)
               through inference.generate, b=4, prompt 1024, 64 new tokens,
               greedy and sampled; kernel launch counts read around each
@@ -2647,6 +2663,7 @@ def reset_counts(fa, fd):
     for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
               fa.flash_attention_bwd_dkv):
         w.launches = w.masked = 0
+    fa.dead_row_sums.launches = 0
     fd.fused_decode_cuda.launches = 0
     fd.fused_paged_decode_cuda.launches = 0
     fd.fused_paged_verify_cuda.launches = 0
@@ -2662,6 +2679,7 @@ def counts(fa, fd):
             "flash_attention_fwd": fa.flash_attention_fwd.launches,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+            "dead_row_sums": fa.dead_row_sums.launches,
             "fused_decode_step": fd.fused_decode_cuda.launches,
             "fused_paged_decode_step": fd.fused_paged_decode_cuda.launches,
             "fused_paged_verify_step": fd.fused_paged_verify_cuda.launches,
@@ -2696,6 +2714,7 @@ def phase_e2e(fa, fd):
         got = counts(fa, fd)
         new = out[:, PROMPT:]
         if got != {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+                   "dead_row_sums": 0,
                    "flash_attention_fwd": cfg.num_layers,
                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                    "fused_decode_step": NEW - 1,
@@ -3907,6 +3926,7 @@ def phase_int8(fa, fd, model, bw, flops):
     ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), device="cuda",
                         generator=gen)
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+            "dead_row_sums": 0,
             "flash_attention_fwd": L,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "fused_decode_step": NEW - 1, "fused_paged_decode_step": 0,
@@ -4313,6 +4333,7 @@ def gpt_generate(fa, fd, model, bw, flops, k2g_err):
     ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_PROMPT), device="cuda",
                         generator=gen)
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+            "dead_row_sums": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": GPT_NEW - 1,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -4615,6 +4636,7 @@ def phase_moe(fa, fd, bw, flops, k6_err, k6q_err):
     ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), device="cuda",
                         generator=gen)
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+            "dead_row_sums": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": 0,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -4779,6 +4801,7 @@ def moe_int8(fa, fd, model, ids, lk_bf16, bw, flops, k6q_err):
     cfg = model.cfg
     L = cfg.num_layers
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+            "dead_row_sums": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": 0,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -5454,6 +5477,7 @@ def phase_train(fa, fd, flops):
            "launches_expected": want}
     emit(res)
     if got != {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
+               "dead_row_sums": 0,
                "flash_attention_fwd": want, "flash_attention_bwd_dq": want,
                "flash_attention_bwd_dkv": want, "fused_decode_step": 0,
                "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -7219,6 +7243,12 @@ K1M_CASES = (
     ("block_sparse_2d_bool", 2, 8, 8, 1024, 1024, 128, False, "blocks_2d"),
     ("mask_3d_gqa", 2, 8, 2, 384, 384, 64, True, "bool_3d"),
     ("cross_512x77_key_mask", 4, 8, 8, 512, 77, 64, False, "padding"),
+    ("ernie_base_dead_blocks", 32, 12, 12, 512, 512, 64, False,
+     "padding_dead"),
+    ("ernie_base_dead_rows", 32, 12, 12, 512, 512, 64, False, "rows_dead"),
+    ("ernie_base_neg1e4", 32, 12, 12, 512, 512, 64, False, "neg1e4"),
+    ("fp32_dead_rows", 2, 8, 8, 512, 512, 64, False, "fp32_dead"),
+    ("ragged_sk_causal_padding", 2, 8, 2, 300, 333, 128, True, "padding"),
 )
 K1M_MAIN = "ernie_base_key_padding"
 
@@ -7246,6 +7276,23 @@ def k1m_mask(form, b, h, sq, sk, gen):
         m = u(h, sq, sk) < 0.7
         m[..., 0] = True
         return m
+    if form == "padding_dead":      # key padding, two batch rows of length
+        m = k1m_mask("padding", b, h, sq, sk, gen)     # 0: every row dead,
+        m[3] = m[17 % b] = False                        # whole blocks
+        return m
+    if form == "rows_dead":         # (b, 1, sq, sk): key padding and, in
+        m = k1m_mask("padding", b, h, sq, sk, gen)     # 8 batch rows, query
+        m = m.expand(b, 1, sq, sk).clone()              # rows hidden at every
+        m[:8, :, 100:140] = False                       # key (dead rows
+        m[:8, :, sq - 1] = False                        # beside live ones)
+        return m
+    if form == "neg1e4":            # PaddleNLP's additive padding mask,
+        keep = k1m_mask("padding", b, h, sq, sk, gen)  # (b, 1, 1, sk) fp32
+        return torch.where(keep, 0.0, -1e4)            # 0 / -1e4
+    if form == "fp32_dead":         # -1e4 soft entries, and rows at -1e30
+        m = torch.where(u(b, h, sq, sk) < 0.2, -1e4, 0.0)   # at every key:
+        m[:, :, 7::41] = -1e30      # float dead rows (their blocks walk
+        return m                    # every tile)
     raise ValueError(form)
 
 
@@ -7270,11 +7317,34 @@ PAIR_OPS = {"k1": 4, "k3": 6, "k4": 8}
 DEAD_KEY_OPS = {"k1": 2, "k3": 0, "k4": 2}
 
 
-def attention_ops(key, d, pairs, dead_pairs, bool_mask):
+def attention_ops(key, d, pairs, dead_pairs, bool_mask, closed=False):
     """Kernel `key`'s tensor operations over `pairs` visible pairs and the
-    `dead_pairs` (dead rows × sk) of a mask call."""
+    `dead_pairs` (dead rows × sk) of a mask call. `closed`: the dead rows
+    of a bool mask without dropout are the closed form (the mean of v, dO
+    / sk to every key's dv) and cost no pair's operations: reads of v and
+    dO, which the kernels' bytes count already."""
+    if closed:
+        return d * PAIR_OPS[key] * pairs
     dead = DEAD_KEY_OPS[key] if bool_mask else PAIR_OPS[key]
     return d * (PAIR_OPS[key] * pairs + dead * dead_pairs)
+
+
+def tile_counts(bounds, b, h, nkv):
+    """A call's tiles by class over every block: K1's (b, h, 128-row
+    blocks, 128-key tiles) and K4's (b, kv heads, 128-key blocks, 64-row
+    query tiles), and its dead rows (b, h) and whether they are off the
+    walk (a bool mask without dropout)."""
+    out = {}
+    for key, name, heads in (("k1", "fwd_cls", h), ("k4", "dkv_cls", nkv)):
+        c = bounds[name]
+        c = c.expand(b, heads, *c.shape[2:])
+        out[key] = {n: int((c == v).sum().item()) for n, v in (
+            ("empty", 0), ("full", 1), ("mixed", 2))}
+    dead = bounds["dead"]
+    out["dead_rows"] = int(dead.expand(b, dead.shape[1], dead.shape[2])
+                           .sum().item()) * (h // dead.shape[1])
+    out["dead_rows_off_walk"] = bool(bounds["dead_off"])
+    return out
 
 
 def k1m_work(fa, mask, b, h, nkv, sq, sk, d, causal):
@@ -7354,6 +7424,7 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
     del grads
     pairs, dead_pairs, nbytes = k1m_work(fa, mask, b, h, nkv, sq, sk, d,
                                          causal)
+    res["tiles"] = tile_counts(bounds, b, h, nkv)
     res["pairs"] = pairs
     res["dead_row_pairs"] = dead_pairs
     res["pairs_of_all"] = (pairs + dead_pairs) / (b * h * sq * sk)
@@ -7387,12 +7458,16 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
         iters=10)
     del o_lib
     lib = {"k1": lib_fwd, "k3": lib_bwd, "k4": lib_bwd}
+    is_bool = m4.dtype == torch.bool
     for key in ("k1", "k3", "k4"):
         bound, by = bound3(nbytes[key], attention_ops(
-            key, d, pairs, dead_pairs, m4.dtype == torch.bool), 0, bw, flops,
-            1.0)
+            key, d, pairs, dead_pairs, is_bool, closed=is_bool), 0, bw,
+            flops, 1.0)
+        bound_pr21, _ = bound3(nbytes[key], attention_ops(
+            key, d, pairs, dead_pairs, is_bool), 0, bw, flops, 1.0)
         res[key] = dict(res.get(key, {}), ms=ms[key], plain_ms=plain[key],
-                        library_ms=lib[key], bound_ms=bound, bound_by=by)
+                        library_ms=lib[key], bound_ms=bound, bound_by=by,
+                        bound_ms_dead_rows_as_pairs=bound_pr21)
     res["library_covers"] = ("torch sdpa with the same mask (structured "
                              "masks folded in): k1 its forward, k3 and k4 "
                              "its backward (dq, dk, dv)")
@@ -7791,6 +7866,9 @@ K1S_WINDOW = {"mistral": 4096, "mistral_pad": 4096, "gpt2": 256}
 # Mistral's padded batch: row 1 left-padded by this many tokens (its pad
 # queries see no valid key: dead rows, the mean of v over every key)
 MISTRAL_PAD = 3072
+# GPT-2's left-padded batch rows: 300 pad tokens (under causal its rows
+# 0-299 are dead: rows 256-299 share a 128-row block with live rows)
+GPT2_PAD = 300
 # packed documents a row in the segment-id cases
 K1S_DOCS = 8
 # K1's out in phase k1s: K1_TOL_OUT + this · |plain| (one bf16 ulp of an
@@ -7811,6 +7889,8 @@ K1S_CASES = (
     ("mask_dropout_gpt2", "gpt2", True, ("padding", "dropout")),
     ("seg_dropout_gpt2", "gpt2", True, ("seg", "dropout")),
     ("alibi_dropout_gpt2", "gpt2", True, ("alibi", "dropout")),
+    ("mask_dead_rows_gpt2", "gpt2", True, ("lpad",)),
+    ("mask_dead_rows_dropout_gpt2", "gpt2", True, ("lpad", "dropout")),
     ("lse_mistral", "mistral", True, ("lse",)),
     ("lse_gpt2", "gpt2", True, ("lse",)),
 )
@@ -7887,6 +7967,10 @@ def k1s_inputs(shape, causal, modes, gen):
         m = torch.ones((b, 1, 1, sk), dtype=torch.bool, device="cuda")
         m[1:, ..., :MISTRAL_PAD] = False
         kw["attn_mask"] = m
+    if "lpad" in modes:              # row 0 full, the others left-padded
+        m = torch.ones((b, 1, 1, sk), dtype=torch.bool, device="cuda")
+        m[1:, ..., :GPT2_PAD] = False   # (dead causal rows beside live ones
+        kw["attn_mask"] = m             # in one block)
     if "padding" in modes:
         kw["attn_mask"] = k1m_mask("padding", b, h, sq, sk, gen)
     if "dropout" in modes:
@@ -8054,7 +8138,9 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     if general:
         wkw["bounds"] = fa._call_bounds(
             q, k, kw.get("attn_mask"), causal, kw.get("kv_lens"), None,
-            kw.get("window"), kw.get("seg_q"), kw.get("seg_k"))
+            kw.get("window"), kw.get("seg_q"), kw.get("seg_k"),
+            kw.get("dropout_p", 0.0))
+        res_tiles = tile_counts(wkw["bounds"], b, h, nkv)
     with torch.no_grad():
         out, st = fa.flash_attention_fwd(q, k, v, **wkw)
         out2, st2 = fa.flash_attention_fwd(q, k, v, **wkw)
@@ -8079,7 +8165,9 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
                and (not lse_mode or torch.equal(lse_e.detach(), st))),
            "entry_point_launches": {n: got[n] for n in (
                "flash_attention_fwd", "flash_attention_bwd_dq",
-               "flash_attention_bwd_dkv")}}
+               "flash_attention_bwd_dkv", "dead_row_sums")}}
+    if general:
+        res["tiles"] = res_tiles
     del out2, st2, grads2, entry, o, leaves
     pkw = {n: t for n, t in wkw.items() if n != "bounds"}
     (ref, ref_st), plain_fwd = timed(lambda: grouped_plain(fa, q, k, v, pkw))
@@ -8137,16 +8225,21 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
               "k3": 3 * tq + 2 * tk + extra + st_bytes + 4 * rows,
               "k4": 2 * tq + 4 * tk + extra + st_bytes + 4 * rows}
     # the k1s masks are bool; dropout hashes every pair the kernel weighs
-    # (a dead row's keys for out and dv, not for K3's zero dq)
+    # (a dead row's keys for out and dv, not for K3's zero dq); without
+    # dropout a dead row is the closed form (no pair's work)
+    closed = "dropout" not in modes
     for key, plain, lib in (("k1", plain_fwd, lib_fwd),
                             ("k3", plain_bwd, lib_bwd),
                             ("k4", plain_bwd, lib_bwd)):
         hashed = pairs + (dead_pairs if DEAD_KEY_OPS[key] else 0)
         nint = HASH_OPS * hashed if "dropout" in modes else 0
         bound, by = bound3(nbytes[key], attention_ops(
+            key, d, pairs, dead_pairs, True, closed), nint, bw, flops, iops)
+        bound_pr21, _ = bound3(nbytes[key], attention_ops(
             key, d, pairs, dead_pairs, True), nint, bw, flops, iops)
         res[key] = dict(res.get(key, {}), ms=ms[key], plain_ms=plain,
-                        library_ms=lib, bound_ms=bound, bound_by=by)
+                        library_ms=lib, bound_ms=bound, bound_by=by,
+                        bound_ms_dead_rows_as_pairs=bound_pr21)
     res["library_covers"] = (
         "torch sdpa over the case's equivalent dense bool mask (and a bf16 "
         "ALiBi bias with -inf off it; its own dropout at the case's p): k1 "
@@ -8157,6 +8250,83 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+# The row sums against their plain version: fp32 sums of the same bf16
+# values in another order (up to 4 · 8192 rows), held within this share of
+# the largest |plain| (and 1e-6 near 0)
+ROW_SUMS_RTOL = 1e-4
+
+
+def dead_sums_case(fa, gen, bw):
+    """The dead rows' row-sum kernel (csrc/attn_rows.cu) at
+    train_mistral_pad's attention call (b 2, s 8192, 32/8 heads, d 128,
+    row 1 left-padded by MISTRAL_PAD under the window): the mean of v (K1's)
+    and dsum, the dead rows' dO summed over each kv head's query heads
+    (K4's), each launched twice with the same bits and against its plain
+    version; timed beside the plain version, torch.mean (the mean of v in
+    one call; dsum has no one-call counterpart) and the bytes' bound."""
+    b, sq, sk, h, nkv, d = K1S_SHAPES["mistral_pad"]
+    (q, k, v, do), kw = k1s_inputs("mistral_pad", True, ("pad", "window"),
+                                   gen)
+    bounds = fa._call_bounds(q, k, kw["attn_mask"], True, None, None,
+                             kw["window"])
+    dead, bits = bounds["dead"], bounds["dead_bits"]
+    n_dead = int(dead.expand(b, dead.shape[1], sq).sum().item()) * (
+        h // dead.shape[1])
+    res = {"b": b, "sq": sq, "sk": sk, "h": h, "nkv": nkv, "d": d,
+           "dead_rows": n_dead, "rtol": ROW_SUMS_RTOL}
+    calls = {
+        "vmean": (lambda: fa.dead_row_sums(v, nkv, 1.0 / sk),
+                  lambda: fa.dead_row_sums_plain(v, nkv, 1.0 / sk),
+                  lambda: torch.mean(v, 1, dtype=torch.float32),
+                  b * sk * nkv * d * 2 + b * nkv * d * 4),
+        "dsum": (lambda: fa.dead_row_sums(do, nkv, 1.0, dead, bits),
+                 lambda: fa.dead_row_sums_plain(do, nkv, 1.0, dead),
+                 None, n_dead * d * 2 + bits.numel() * 8 + b * nkv * d * 4)}
+    res["ok"] = True
+    for name, (kern, plain, lib, nbytes) in calls.items():
+        got, got2, ref = kern(), kern(), plain()
+        err = (got - ref).abs().max().item()
+        tol = ROW_SUMS_RTOL * ref.abs().max().item() + 1e-6
+        bound, by = bound3(nbytes, 0, 0, bw, 1.0, 1.0)
+        res[name] = {"max_abs_err": err, "tol": tol,
+                     "two_launches_bitwise": bool(torch.equal(got, got2)),
+                     "ms": device_ms(kern, iters=20),
+                     "plain_ms": time_ms(plain, iters=3, warmup=1),
+                     "library_ms": None if lib is None
+                     else device_ms(lib, iters=20),
+                     "bound_ms": bound, "bound_by": by}
+        if lib is None:
+            res[name]["library_covers"] = "none: no one PyTorch call sums "\
+                "the rows a bit mask selects"
+        res["ok"] &= err <= tol and res[name]["two_launches_bitwise"]
+    emit({"phase": "dead_row_sums", **res})
+    return res
+
+
+def dead_sums_row(res, k1s_launches, pad_launches):
+    """The row of the dead rows' row-sum kernel: its times at
+    train_mistral_pad's call (the mean of v; dsum beside it), its launches
+    on paths k1s and train_mistral_pad."""
+    by_path = {"k1s": k1s_launches["dead_row_sums"],
+               "train_mistral_pad": pad_launches["dead_row_sums"]}
+    t = res["vmean"]
+    return {"name": "dead_row_sums", "row": "R", "route": "cuda",
+            "mode": "the general mode's dead rows off the walk",
+            "source": "paddle_tpu_torch/csrc/attn_rows.cu",
+            "replaces": "none: the closed form of a dead row (_xla_attention's "
+                        "uniform softmax, paddle_tpu/ops/flash_attention.py"
+                        ":99-141), which K1 and K4 read",
+            "launches": sum(by_path.values()),
+            "max_abs_err": max(res["vmean"]["max_abs_err"],
+                               res["dsum"]["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "per": f"the mean of v at train_mistral_pad's call: b {res['b']},"
+                   f" s {res['sk']}, {res['nkv']} kv heads, d {res['d']}",
+            "dsum": res["dsum"], "launches_by_path": by_path}
 
 
 def phase_k1s(fa, fd, bw, flops, iops):
@@ -8183,22 +8353,24 @@ def phase_k1s(fa, fd, bw, flops, iops):
     probe, _ = k1_mask_probe(fa, dops, b, h, nkv, sq, sq, d, True,
                              [sq, sq // 2 + 7] * (b // 2), general=True)
     refused = d256_mode_refusals(fa)
+    sums = dead_sums_case(fa, gen, bw)
     emit({"phase": "k1s", "cases": [c["case"] for c in cases],
           "launches": launches, "general_dropout_mask_probe": probe,
           "d256_refused": refused})
     bad = ([c["case"] for c in cases if not c["ok"]]
            + ([] if probe["ok"] else ["the general mode's dropout mask"])
+           + ([] if sums["ok"] else ["the dead rows' row sums"])
            + [f"d256 {m} ran or raised otherwise: {e}"
               for m, e in refused.items()
               if not (e and "Queue B rows 1-3" in e)])
     modes = launches["modes"]["flash_attention_fwd"]
     if not all(launches[n] > 0 and modes["general"] > 0 for n in (
             "flash_attention_fwd", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv")):
+            "flash_attention_bwd_dkv", "dead_row_sums")):
         bad.append(f"the kernels were not launched on the path: {launches}")
     if bad:
         raise AssertionError(f"phase k1s: {bad}")
-    return cases, launches
+    return cases, launches, sums
 
 
 def d256_mode_refusals(fa):
@@ -8426,6 +8598,10 @@ def phase_train_mistral_pad(fa, fd, flops):
                        "window")
     if plain.n:
         bad.append(f"{plain.n} plain attention calls")
+    # the dead rows' sums: one mean of v a K1 launch, one dsum a K4 launch
+    if launches["dead_row_sums"] != 3 * n:
+        bad.append(f"dead_row_sums: {launches['dead_row_sums']} launches, "
+                   f"expected {3 * n} (one a K1 and a K4 launch)")
     if not all(math.isfinite(v) for v in counted) or \
             not counted[-1] < counted[0]:
         bad.append(f"loss not finite or not falling: {counted}")
@@ -8493,15 +8669,18 @@ def main(argv):
         rows = mask_rows(phase_k1m(fa, bw, flops), phase_ernie(fa, fd))
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
+    if "--k1m" in argv:
+        phase_k1m(fa, bw, flops)
+        return 0
     if "--k1s" in argv:
         phase_k1s(fa, fd, bw, flops, iops)
         return 0
     if "--modes" in argv:
-        cases, k1s_launches = phase_k1s(fa, fd, bw, flops, iops)
+        cases, k1s_launches, sums = phase_k1s(fa, fd, bw, flops, iops)
         pad = phase_train_mistral_pad(fa, fd, flops)
-        print(json.dumps({"kernels": k1s_rows(cases, k1s_launches,
-                                              pad["launches"])}),
-              flush=True)
+        rows = k1s_rows(cases, k1s_launches, pad["launches"])
+        rows.append(dead_sums_row(sums, k1s_launches, pad["launches"]))
+        print(json.dumps({"kernels": rows}), flush=True)
         return 0
     if "--unet" in argv:
         shapes, d256_err = phase_k1h(fa, bw, flops)
@@ -8536,7 +8715,7 @@ def main(argv):
     k1h_shapes, k1h_err = phase_k1h(fa, bw, flops)
     k3h_shapes, k3h_errs = phase_k3h(fa, bw, flops)
     k1m_cases = phase_k1m(fa, bw, flops)
-    k1s_cases, k1s_launches = phase_k1s(fa, fd, bw, flops, iops)
+    k1s_cases, k1s_launches, k1s_sums = phase_k1s(fa, fd, bw, flops, iops)
     if quick:
         return 0
     model, plan, kv, launches, int8kv_launches = phase_e2e(fa, fd)
@@ -8724,6 +8903,9 @@ def main(argv):
                 k["launches_by_path"][path] = got[k["name"]] - \
                     modes["general"]
     kernels += k1s_rows(k1s_cases, k1s_launches, pad_launches)
+    # row R: the dead rows' row sums, launched on paths k1s and
+    # train_mistral_pad
+    kernels.append(dead_sums_row(k1s_sums, k1s_launches, pad_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

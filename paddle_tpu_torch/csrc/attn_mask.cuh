@@ -27,24 +27,43 @@
 // A row that a bool mask hides at every key the structured masks leave it
 // sees every key at NEG: the softmax is uniform over all sk keys and the
 // row gives the mean of v (the reference's Pallas kernel gives 0 there,
-// :600-601). Such a row ("dead") needs every key, later ones and those
-// below its window included, so the block that holds it walks every key
-// tile; the bounds (ops/flash_attention.py `mask_bounds`) say so, and the
-// kernels of this mode take their tiles from the bounds alone. A row that
-// no key reaches through the structured masks gives 0; a float row at -inf
-// everywhere gives NaN, as the twin and the reference's CPU path do.
+// :600-601). Such a row ("dead") is a closed form when there is no
+// dropout: out = the mean of v over all sk keys, the pair (NEG, log sk),
+// dq = 0, nothing to dk, dO/sk to every key's dv. So K1 and K4 take dead
+// rows off their walks (K1's epilogue writes the mean, `red`; K4's adds
+// dsum/sk to dv, its producer zeroes the rows' P through log2 l = +inf),
+// and K3, which walks the bounds of every tile for a block that holds one,
+// reads the same pair. A float mask's dead row, or one under dropout, is
+// no closed form: its block walks every key tile, later ones and those
+// below its window included. A row that no key reaches through the
+// structured masks gives 0; a float row at -inf everywhere gives NaN, as
+// the twin and the reference's CPU path do.
+//
+// K1 and K4 walk lists of tiles (ops/flash_attention.py `mask_bounds`,
+// `_tile_classes`): a block's non-EMPTY tiles in order, each with its
+// class. EMPTY tiles (no entry can change a counted row) are never loaded.
+// A FULL tile's entries are all bool True (at the keys the structured
+// masks leave), or all the fp32 value c the entry carries: its scores take
+// no mask load (entry_score with keep = true or v = c). A MIXED bool tile
+// reads its entries as bits from shared memory, where the producer staged
+// the tile's packed words (`words`, 4 uint32 a row of 128 keys) by TMA
+// beside the tile's K (K1) or Q (K4); a MIXED fp32 tile reads the mask in
+// place. The structured test (kv_len, the diagonal, the window, segment
+// ids) runs per element only on a tile that one of them cuts for the
+// group's rows; a FULL tile does not turn MIXED for that. K3 walks its
+// [lo, hi) bounds and reads the mask in place (mask_score, score).
 //
 // The modifiers are runtime fields of one argument (Mod), not template
-// flags: the reference composes them in any combination, and this mode
-// already pays a global load an element for the mask, beside which a
-// branch on a few fields costs little. One template flag splits the mode
-// in two: a dense mask alone (beside the causal mask and kv_lens: the
-// padded batches of ERNIE and the like) runs mask_score and the kernels'
-// lean loop; the window, segment ids or ALiBi (EXTRA) take score, hidden
-// and the per-row tracking of which rows some key reaches.
+// flags: the reference composes them in any combination, and a branch on
+// a few fields costs little beside the scores. One template flag splits
+// the mode in two: a dense mask alone (beside the causal mask and kv_lens:
+// the padded batches of ERNIE and the like) runs the kernels' lean loop;
+// the window, segment ids or ALiBi (EXTRA) take hidden, the bias and the
+// per-row tracking of which rows some key reaches.
 
 #pragma once
 
+#include <cuda.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -56,9 +75,19 @@ constexpr float LOG2E = 1.4426950408889634f;
 // The general mode's argument. Element (b, h, q, k) of the dense mask (p,
 // or null without one) lies at p + b·sb + h·sh + q·sq + k·sk (elements; 0
 // on a broadcast dim), one byte a bool or an fp32; `bounds` holds each
-// block's [lo, hi) tile range; window > 0: the causal sliding window; seg_q
-// (b, sq) and seg_k (b, sk) int32, or null: the segment ids; slopes (h,)
-// fp32, or null: ALiBi
+// block's [lo, hi) tile range (K3); window > 0: the causal sliding window;
+// seg_q (b, sq) and seg_k (b, sk) int32, or null: the segment ids; slopes
+// (h,) fp32, or null: ALiBi.
+// Appended for K1's and K4's walks (K3 reads none of them): `list` holds a
+// block's walk at list + b·lsb + head·lsh + block·ln (K1: the query head
+// and 128-row block; K4: the kv head and 128-key block; 0 strides on a
+// broadcast dim): [n, entry 1 … entry n], an entry tile | class <<
+// TILE_SHIFT, its c at the same index of `cval`; `dead` (or null: dead
+// rows stay on the walk, or there is none) the dead rows' bits, 64 rows a
+// word, (b, head) at dead + b·dsb + head·dsh; `red` (b, nkv, d) fp32 the
+// dead rows' closed form (K1: the mean of v; K4: dsum, the sum of their
+// dO); `words` (or null: an fp32 mask or none) the bool mask packed 32 keys
+// a uint32, (wb, wh, wq, ww) words, each dim 1 where the mask broadcasts.
 struct Mod {
   const void* p;
   long long sb, sh, sq, sk;
@@ -68,7 +97,31 @@ struct Mod {
   const int* seg_q;
   const int* seg_k;
   const float* slopes;
+  const int* list;
+  const float* cval;
+  long long lsb, lsh;
+  int ln;
+  const unsigned long long* dead;
+  long long dsb, dsh;
+  const float* red;
+  const unsigned* words;
+  int wb, wh, wq, ww;
 };
+
+// K1's and K4's argument: Mod and the tensor map of its packed words
+// (boxes of 4 words by a block's rows, or 1 row for a key-padding mask),
+// which the producer's TMA reads from the kernel's parameters
+struct ModTile {
+  Mod m;
+  alignas(64) CUtensorMap words;
+};
+
+// a walk entry: tile | class << TILE_SHIFT
+constexpr int TILE_FULL = 1, TILE_MIXED = 2, TILE_SHIFT = 24;
+
+__device__ __forceinline__ int entry_tile(int e) {
+  return e & ((1 << TILE_SHIFT) - 1);
+}
 
 // The structured masks hide key kc from the query at position qp = q_off +
 // row (kv_len, the causal diagonal, the window's lower edge); `seg`: the
@@ -121,6 +174,21 @@ __device__ __forceinline__ float score(const Mod& md, long long row, int kc,
     return fmaf(s, scale, bias + v);
   }
   const bool keep = __ldg(reinterpret_cast<const uint8_t*>(md.p) + at) != 0;
+  g = keep && !st;
+  return g ? fmaf(s, scale, bias) : NEG;
+}
+
+// The score t of an element from its mask entry, whether t depends on s
+// (g), as mask_score and score take it: a bool entry `keep`, or an fp32
+// one v; st: the structured masks hide the key; bias: ALiBi's term (0
+// without it). A FULL tile passes keep = true or v = c
+__device__ __forceinline__ float entry_score(bool f32, bool keep, float v,
+                                             float s, float scale,
+                                             float bias, bool st, bool& g) {
+  if (f32) {
+    g = !st;
+    return st ? NEG + v : fmaf(s, scale, bias + v);
+  }
   g = keep && !st;
   return g ? fmaf(s, scale, bias) : NEG;
 }

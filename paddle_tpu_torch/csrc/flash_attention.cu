@@ -87,18 +87,28 @@
 //    through four element strides (0 on a broadcast dim, so a (b, 1, 1,
 //    sk) key-padding mask is never expanded); a row's segment ids are read
 //    once, a key's per element; the ALiBi bias slope_h·(k - q - q_off) is
-//    added to the scaled score before every mask. A block walks the key
-//    tiles [lo, hi) that the caller's bounds give it (ops/
-//    flash_attention.py `mask_bounds`, the device-side port of the
-//    reference's _mask_block_bounds, :445, at this kernel's 128 x 128
-//    tiles, the structured limits and the window folded in): a tile is
-//    left out only when no entry can change a row; a block holding a row
-//    that the mask hides at every visible key walks all tiles (that row's
-//    softmax is the uniform one over every key, csrc/attn_mask.cuh), so
-//    neither the window's t0 nor the diagonal bounds this mode's walk. The
-//    bounds stay on the device. Every tile takes the per-element test. A
-//    row no key reaches through the structured masks (tracked per row
-//    while the tiles pass) gives 0. The row statistics are written as the
+//    added to the scaled score before every mask. A block walks the list
+//    of key tiles the caller gives it (ops/flash_attention.py
+//    `mask_bounds`' fwd_list: the reference's _mask_block_bounds, :445,
+//    made per tile at this kernel's 128 x 128 tiles, the structured limits
+//    and the window folded in), producer and consumers counting ring
+//    stages over the list: an EMPTY tile (no entry can change a counted
+//    row) is never loaded, wherever it lies. A FULL tile (every entry True,
+//    or every fp32 entry one value c) takes no mask load; a MIXED tile of a
+//    bool mask reads its entries as bits from shared memory, its packed
+//    words (4 uint32 a row) TMA-loaded by the producer beside K on K's full
+//    barrier (2 KB, or 16 bytes for a key-padding mask; K's stage is then
+//    released after the softmax, which reads them); a MIXED fp32 tile reads
+//    the mask in place (staging it, 64 KB a tile, would not fit beside two
+//    stages of K and V at d 128). The structured test runs per element
+//    only on a tile that kv_len, the diagonal, the window or segment ids
+//    cut for the group's rows. A dead row of a bool mask without dropout
+//    (csrc/attn_mask.cuh) is off the walk: the epilogue writes it as the
+//    mean of v (`red`, from the row-sum kernel, csrc/attn_rows.cu) with the
+//    pair (NEG, log sk), and a block whose rows are all dead walks nothing;
+//    a float mask's or a dropout call's dead row keeps its block on every
+//    tile, each MIXED. A row no key reaches through the structured masks
+//    (tracked per row while the tiles pass) gives 0. The row statistics are written as the
 //    pair (m, log l) in place of the lse. Dropout applies after the
 //    statistics, as in DROP. Inside MOD, WIN picks the loop with the
 //    window, segment ids and ALiBi (EXTRA: the per-row ids, the slope and
@@ -117,12 +127,14 @@
 //
 // Shared memory: Q 128·d·2 + ST·2·BK·d·2 bytes (d = 128, ST = 2: 160 KB;
 // d = 64, ST = 3: 112 KB; d = 256, BK = 64, ST = 2: 192 KB) + barriers;
-// one block per SM. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at
-// entry for 384 threads (consumers 240, producer 24 after setmaxnreg), 0
-// bytes spilled, no wgmma serialisation warning, d = 64 and 128, in every
-// instantiation but the general mode with EXTRA and dropout at d = 128
-// (flash_fwd_sm90<128, true, true, true>: the hash's registers beside the
-// modifiers' per-row state; the spill is in the records of the port's
+// one block per SM; MOD adds a ring of packed-word stages and walk-entry
+// slots past the barriers (ST · 2 KB + ST · 8 bytes). Registers (nvcc
+// 12.9 -Xptxas -v, sm_90a): 168 at entry for 384 threads (consumers 240,
+// producer 24 after setmaxnreg), no wgmma serialisation warning, 0 bytes
+// spilled, d = 64 and 128, in every instantiation but the general mode
+// with dropout at d = 128 (flash_fwd_sm90<128, WIN, true, true>: the
+// hash's registers beside the walk's state, 16 / 20 bytes of spill stores
+// / loads without EXTRA and 32 / 32 with it; the records are in the port's
 // kernel table, PERF.md).
 
 // Layouts: q (b, sq, h, d), k/v (b, sk, nkv, d), out (b, sq, h, d), all
@@ -155,6 +167,13 @@ struct Fwd {
   static constexpr int KV_BYTES = BK * D * 2;   // one K or V tile
   static constexpr int BAR_OFF = Q_BYTES + 2 * ST * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + (1 + 4 * ST) * 8 + 1024;
+  // MOD: a ring stage of a MIXED bool tile's packed words (4 a row), and
+  // of the walk entry and its c, past the barriers, so that the other
+  // instantiations keep their layout
+  static constexpr int W_BYTES = BQ * 16;
+  static constexpr int W_OFF = (BAR_OFF + (1 + 4 * ST) * 8 + 127) / 128 * 128;
+  static constexpr int E_OFF = W_OFF + ST * W_BYTES;
+  static constexpr int SMEM_MOD = E_OFF + ST * 8 + 1024;
 };
 
 // S (64 x BK) = Q (this group's 64 rows) · K(tile)ᵀ, issued and committed
@@ -228,21 +247,34 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
   }
 }
 
-// MOD: tile k0's scores through the modifiers (csrc/attn_mask.cuh; the
-// thread's rows r0 and r0 + 8 read the mask from elements mr[0], mr[1]),
-// then the online-softmax update in the natural domain: m, l per row,
-// s -> p = 2^((t − m)·log2 e), alpha the factor that rescales O. EXTRA:
-// the window, segment ids or ALiBi are present (rows r0 + 8i have segment
-// ids sg[i] against the keys' at segk, and the bias slope·(k - q -
-// q_off)), and `seen` marks a row that the structured masks leave some
-// key; without EXTRA (a dense mask alone) the per-element test is kv_len,
-// the diagonal and the mask, as in the mask-only kernel
-template <int BK, bool EXTRA>
-__device__ __forceinline__ void softmax_tile_mod(
-    float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    bool (&seen)[2], int k0, int r0, int tg, int sk, int kvlen, int causal,
-    int q_off, float scale, const am::Mod& md, const long long (&mr)[2],
-    const int (&sg)[2], const int* segk, float slope) {
+// MOD: the sources of a walked tile's mask entries: a FULL tile's (every
+// entry True or the value c; a call without a mask too), a MIXED bool
+// tile's bits staged in shared memory, a MIXED fp32 tile's mask in place
+// (the (batch, head)'s elements from mb)
+enum { SRC_FULL, SRC_BITS, SRC_F32, SRC_ANY };
+
+// MOD: tile k0's scores t in place of s (csrc/attn_mask.cuh) from one
+// source: the thread's rows r0 and r0 + 8 read an fp32 mask from elements
+// mb + row·sq + key·sk and bits from wr[0], wr[1] (the 4 words
+// of the row's 128 keys); a FULL tile's entries are cv (0 for a bool mask).
+// The structured test runs per element only on an EDGE tile (kv_len, the
+// diagonal, the window, segment ids or the key range cut it for the
+// group's rows). EXTRA: the rows' segment ids sg[i] against the keys' at
+// segk, the bias slope·(k - q - q_off), and `seen` marks a row that the
+// structured masks leave some key. SRC_ANY takes the tile's source at run
+// time (`full`, else the words or the fp32 mask)
+template <int BK, bool EXTRA, int SRC, bool EDGE>
+__device__ __forceinline__ void mod_scores(
+    float (&s)[BK / 2], bool (&seen)[2], int k0, int r0, int tg, int sq,
+    int sk, int kvlen, int causal, int q_off, float scale,
+    const am::Mod& md, long long mb, const int (&sg)[2], const int* segk,
+    float slope, bool full, float cv, const uint4 (&wr)[2]) {
+  // a hidden key's score: NEG (+ c) beside a mask, -inf without one
+  const float hid = md.p != nullptr ? am::NEG + cv : -INFINITY;
+  if constexpr (EXTRA && !EDGE) {
+    seen[0] = true;
+    seen[1] = true;
+  }
 #pragma unroll
   for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -250,22 +282,106 @@ __device__ __forceinline__ void softmax_tile_mod(
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kc = k0 + c * 8 + tg * 2 + j;
-        bool g;
+        const int qp = q_off + r0 + 8 * i;
         float& v = s[4 * c + 2 * i + j];
-        if constexpr (EXTRA) {
-          const int qp = q_off + r0 + 8 * i;
-          const bool st = am::hidden(
-              md, kc, kvlen, causal, qp,
-              segk != nullptr && kc < sk && __ldg(segk + kc) != sg[i]);
-          seen[i] |= !st;
-          v = am::score(md, mr[i], kc, sk, v, scale,
-                        slope * (float)(kc - qp), st, g);
-        } else {
-          v = am::mask_score(md, mr[i], kc, sk, v, scale,
-                             kc >= kvlen || (causal && kc > q_off + r0 + 8 * i),
-                             g);
+        bool st = false;
+        if constexpr (EDGE) {
+          if constexpr (EXTRA) {
+            st = am::hidden(md, kc, kvlen, causal, qp,
+                            segk != nullptr && kc < sk &&
+                                __ldg(segk + kc) != sg[i]);
+            seen[i] |= !st;
+          } else {
+            st = kc >= kvlen || (causal && kc > qp);
+          }
         }
+        const float bias = EXTRA ? slope * (float)(kc - qp) : 0.f;
+        float t;
+        if (SRC == SRC_FULL || (SRC == SRC_ANY && full)) {
+          t = st ? hid : fmaf(v, scale, bias + cv);
+        } else if (SRC == SRC_BITS ||
+                   (SRC == SRC_ANY && md.words != nullptr)) {
+          const uint32_t w = (c >> 2) == 0   ? wr[i].x
+                             : (c >> 2) == 1 ? wr[i].y
+                             : (c >> 2) == 2 ? wr[i].z
+                                             : wr[i].w;
+          t = ((w >> ((c & 3) * 8 + tg * 2 + j)) & 1) && !st
+                  ? fmaf(v, scale, bias)
+                  : am::NEG;
+        } else if (r0 + 8 * i >= sq) {
+          t = -INFINITY;          // a row past sq: no entry to read
+        } else {
+          const float x = __ldg(reinterpret_cast<const float*>(md.p) + mb +
+                                (long long)(r0 + 8 * i) * md.sq +
+                                (long long)kc * md.sk);
+          t = st ? am::NEG + x : fmaf(v, scale, bias + x);
+        }
+        if constexpr (EDGE)
+          if (kc >= sk) t = -INFINITY;
+        v = t;
       }
+}
+
+// MOD: tile k0's scores through the modifiers (mod_scores, one loop per
+// source and edge, picked once a tile: `cls` its class, *cvp its c, ws the
+// words staged for it, lr r0's row in the block; FEW: a FULL tile on a
+// loop of its own, with and without the structured test, and the others
+// on one, SRC_ANY, which keeps the dropout instantiations' registers),
+// then the online-softmax
+// update in the natural domain: m, l per row, s -> p = 2^((t − m)·log2 e),
+// alpha the factor that rescales O
+template <int BK, bool EXTRA, bool FEW>
+__device__ __forceinline__ void softmax_tile_mod(
+    float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    bool (&seen)[2], int k0, int r0, int lr, int tg, int sq, int sk,
+    int kvlen, int causal, int q_off, float scale, const am::Mod& md,
+    int bi, int hi, const int (&sg)[2], const int* segk, float slope,
+    int cls, const float* cvp, const uint4* ws, bool edge) {
+#define MOD_SCORES(SRC, EDGE)                                                 \
+  mod_scores<BK, EXTRA, SRC, EDGE>(s, seen, k0, r0, tg, sq, sk, kvlen,        \
+                                   causal, q_off, scale, md, mb, sg, segk,    \
+                                   slope, cls == am::TILE_FULL, cv, wr)
+  if constexpr (FEW) {
+    const bool fl = cls == am::TILE_FULL;
+    const uint4 wr[2] = {
+        fl || md.words == nullptr ? make_uint4(0, 0, 0, 0)
+                                  : ws[md.wq > 1 ? lr : 0],
+        fl || md.words == nullptr ? make_uint4(0, 0, 0, 0)
+                                  : ws[md.wq > 1 ? lr + 8 : 0]};
+    const float cv = fl ? *cvp : 0.f;
+    const long long mb = bi * md.sb + hi * md.sh;
+    if (fl && !edge)
+      MOD_SCORES(SRC_FULL, false);
+    else if (fl)
+      MOD_SCORES(SRC_FULL, true);
+    else
+      MOD_SCORES(SRC_ANY, true);
+  } else if (cls == am::TILE_FULL) {
+    const uint4 wr[2] = {};
+    const float cv = *cvp;
+    const long long mb = 0;
+    if (edge)
+      MOD_SCORES(SRC_FULL, true);
+    else
+      MOD_SCORES(SRC_FULL, false);
+  } else if (md.words != nullptr) {
+    const uint4 wr[2] = {ws[md.wq > 1 ? lr : 0], ws[md.wq > 1 ? lr + 8 : 0]};
+    const float cv = 0.f;
+    const long long mb = 0;
+    if (edge)
+      MOD_SCORES(SRC_BITS, true);
+    else
+      MOD_SCORES(SRC_BITS, false);
+  } else {
+    const uint4 wr[2] = {};
+    const float cv = 0.f;
+    const long long mb = bi * md.sb + hi * md.sh;
+    if (edge)
+      MOD_SCORES(SRC_F32, true);
+    else
+      MOD_SCORES(SRC_F32, false);
+  }
+#undef MOD_SCORES
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float mx = -INFINITY;
@@ -331,15 +447,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                float* __restrict__ lse, const int* __restrict__ kv_lens,
                int sq, int sk, int h, int nkv, int causal, int q_off,
                int window, float scale, int group, tf::Drop dr,
-               am::Mod md) {
+               const __grid_constant__ am::ModTile mt) {
   using C = Fwd<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
   // the general mode (MOD) reads its window from md and walks the tiles of
-  // its bounds: there WIN picks the loop with the window, segment ids and
+  // its list: there WIN picks the loop with the window, segment ids and
   // ALiBi (EXTRA), and the windowed walk (WND) is the WIN kernel's alone
   constexpr bool WND = WIN && !MOD;
   constexpr bool EXTRA = WIN && MOD;
+  const am::Mod& md = mt.m;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm;
@@ -371,13 +488,22 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
   int t0 = WND ? max(0, q_off + q0 - window + 1) / BK : 0;
   int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
   const int wlo = WND ? q_off - window : 0;
+  // MOD: this block's walk, [n, entry 1 … entry n] (entry: tile | class),
+  // the entries' c at the same index of wc; ring index it is entry it + 1,
+  // which the producer passes to the consumers in stage it % ST's slot
+  // (went, wcv) beside the tile's words (Ws)
+  const int* walk = nullptr;
+  const float* wc = nullptr;
   if constexpr (MOD) {
-    // the tiles [lo, hi) of this block's bounds, the structured limits
-    // folded in (and every tile for a block with a dead row)
-    const int* bd = md.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
-    t0 = bd[0];
-    ntiles = max(0, bd[1] - bd[0]);
+    const long long at = bi * md.lsb + hi * md.lsh + (long long)qt * md.ln;
+    walk = md.list + at;
+    wc = md.cval + at;
+    t0 = 0;
+    ntiles = walk[0];
   }
+  uint8_t* Ws = sm + C::W_OFF;          // MOD: stage s at s·W_BYTES
+  int* went = reinterpret_cast<int*>(sm + C::E_OFF);
+  float* wcv = reinterpret_cast<float*>(sm + C::E_OFF + ST * 4);
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -404,21 +530,61 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int c = 0; c < C::NCH; ++c)
         tma_load_4d(Qs + c * BQ * 128, &mq, qbar, c * 64, hi, q0, bi);
-      for (int it = 0; it < ntiles; ++it) {
-        const int s = it % ST;
-        const uint32_t par = ((it / ST) & 1) ^ 1;
-        mbar_wait(&empty_k[s], par);
-        mbar_arrive_tx(&full_k[s], C::KV_BYTES);
+      if constexpr (MOD) {
+        // the walk's tiles; a MIXED tile of a bool mask brings its packed
+        // words (the block's rows, or the one row of a key-padding mask)
+        // on K's full barrier
+        const uint32_t wbytes = (md.wq > 1 ? BQ : 1) * 16;
+        if (md.words != nullptr) tma_prefetch_map(&mt.words);
+        int e_nx = walk[1];    // the next tile's entry and c, a tile ahead
+        float c_nx = wc[1];
+        for (int it = 0; it < ntiles; ++it) {
+          const int s = it % ST;
+          const uint32_t par = ((it / ST) & 1) ^ 1;
+          const int e = e_nx, tile = am::entry_tile(e);
+          const float cv = c_nx;
+          if (it + 1 < ntiles) {
+            e_nx = walk[2 + it];
+            c_nx = wc[2 + it];
+          }
+          const bool stage = md.words != nullptr &&
+                             (e >> am::TILE_SHIFT) == am::TILE_MIXED;
+          mbar_wait(&empty_k[s], par);
+          went[s] = e;
+          wcv[s] = cv;
+          mbar_arrive_tx(&full_k[s], C::KV_BYTES + (stage ? wbytes : 0));
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c)
-          tma_load_4d(Ks + s * C::KV_BYTES + c * BK * 128, &mk, &full_k[s],
-                      c * 64, kh, (t0 + it) * BK, bi);
-        mbar_wait(&empty_v[s], par);
-        mbar_arrive_tx(&full_v[s], C::KV_BYTES);
+          for (int c = 0; c < C::NCH; ++c)
+            tma_load_4d(Ks + s * C::KV_BYTES + c * BK * 128, &mk, &full_k[s],
+                        c * 64, kh, tile * BK, bi);
+          if (stage)
+            tma_load_4d(Ws + s * C::W_BYTES, &mt.words, &full_k[s], tile * 4,
+                        md.wq > 1 ? q0 : 0, md.wh > 1 ? hi : 0,
+                        md.wb > 1 ? bi : 0);
+          mbar_wait(&empty_v[s], par);
+          mbar_arrive_tx(&full_v[s], C::KV_BYTES);
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c)
-          tma_load_4d(Vs + s * C::KV_BYTES + c * BK * 128, &mv, &full_v[s],
-                      c * 64, kh, (t0 + it) * BK, bi);
+          for (int c = 0; c < C::NCH; ++c)
+            tma_load_4d(Vs + s * C::KV_BYTES + c * BK * 128, &mv, &full_v[s],
+                        c * 64, kh, tile * BK, bi);
+        }
+      } else {
+        for (int it = 0; it < ntiles; ++it) {
+          const int s = it % ST;
+          const uint32_t par = ((it / ST) & 1) ^ 1;
+          mbar_wait(&empty_k[s], par);
+          mbar_arrive_tx(&full_k[s], C::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < C::NCH; ++c)
+            tma_load_4d(Ks + s * C::KV_BYTES + c * BK * 128, &mk, &full_k[s],
+                        c * 64, kh, (t0 + it) * BK, bi);
+          mbar_wait(&empty_v[s], par);
+          mbar_arrive_tx(&full_v[s], C::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < C::NCH; ++c)
+            tma_load_4d(Vs + s * C::KV_BYTES + c * BK * 128, &mv, &full_v[s],
+                        c * 64, kh, (t0 + it) * BK, bi);
+        }
       }
     }
   } else {
@@ -432,10 +598,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
     // DROP: flat score index of (bi, hi, r0, key 0), and +8 rows
     const uint64_t rb = ((uint64_t)(bi * h + hi) * sq + r0) * sk;
     const uint64_t rs8 = (uint64_t)8 * sk;
-    // MOD: the first mask element of rows r0 and r0 + 8 (-1 past sq; 0
-    // without a mask); EXTRA: their segment ids, the keys' ids, the head's
-    // slope
-    long long mr[2] = {-1, -1};
+    // EXTRA: the segment ids of rows r0 and r0 + 8, the keys' ids, the
+    // head's slope
     int sg[2] = {0, 0};
     bool seen[2] = {false, false};
     const int* segk = nullptr;
@@ -444,7 +608,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         if (r0 + 8 * i < sq) {
-          mr[i] = bi * md.sb + hi * md.sh + (long long)(r0 + 8 * i) * md.sq;
           if constexpr (EXTRA)
             sg[i] = am::seg_id(md.seg_q, (long long)bi * sq + r0 + 8 * i);
         }
@@ -470,20 +633,40 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       const uint64_t dv0 = desc_sw128(Vs, BK * 128, 1024);
       constexpr uint32_t STAGE = C::KV_BYTES >> 4;
 
+      // MOD: the first key of ring entry it's tile, and its softmax: the
+      // tile's class and c, the words staged in K's stage, the structured
+      // test only where kv_len, the diagonal, the window or segment ids cut
+      // the tile for the group's rows; K's stage (and the words) released
+      // after it
+      // (its entry and c from the stage's slot)
+      auto mod_tile = [&](int stg) {
+        const int e = went[stg], k0 = am::entry_tile(e) * BK;
+        bool edge = k0 + BK > kvlen || (causal && k0 + BK - 1 > q_off + rw0);
+        if constexpr (EXTRA)
+          edge = edge || segk != nullptr ||
+                 (md.window > 0 && k0 <= q_off - md.window + rw0 + 63);
+        softmax_tile_mod<BK, EXTRA, DROP>(
+            s, m, l, alpha, seen, k0, r0, r0 - q0, tg, sq, sk, kvlen, causal,
+            q_off, scale, md, bi, hi, sg, segk, slope, e >> am::TILE_SHIFT,
+            wcv + stg,
+            reinterpret_cast<const uint4*>(Ws + stg * C::W_BYTES), edge);
+        mbar_arrive(&empty_k[stg]);
+        if constexpr (DROP) drop_tile<BK>(s, dr, rb, rs8, k0, tg);
+      };
+
       mbar_wait(qbar, 0);
       mbar_wait(&full_k[0], 0);
       issue_qk<D>(s, dq, dk0);
       wgmma_wait<0>();
       fence_regs(s);
-      mbar_arrive(&empty_k[0]);
-      if constexpr (MOD)
-        softmax_tile_mod<BK, EXTRA>(s, m, l, alpha, seen, t0 * BK, r0, tg,
-                                    sk, kvlen, causal, q_off, scale, md, mr,
-                                    sg, segk, slope);
-      else
+      if constexpr (MOD) {
+        mod_tile(0);
+      } else {
+        mbar_arrive(&empty_k[0]);
         softmax_tile<BK, WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen,
                               causal, q_off, wlo, sl2);
-      if constexpr (DROP) drop_tile<BK>(s, dr, rb, rs8, t0 * BK, tg);
+        if constexpr (DROP) drop_tile<BK>(s, dr, rb, rs8, t0 * BK, tg);
+      }
       pack_a<BK>(s, p);
       // A pass issues S(it+1) and then P·V(it) (every wgmma unconditional,
       // so ptxas matches each wait to its group and keeps them
@@ -499,17 +682,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         issue_pv<D>(o, p, dv0 + st * STAGE);
         wgmma_wait<1>();
         fence_regs(s);
-        mbar_arrive(&empty_k[sn]);   // K(it+1) is read: its stage may refill
-        if constexpr (MOD)
-          softmax_tile_mod<BK, EXTRA>(s, m, l, alpha, seen,
-                                      (t0 + it + 1) * BK, r0, tg, sk, kvlen,
-                                      causal, q_off, scale, md, mr, sg, segk,
-                                      slope);
-        else
+        if constexpr (MOD) {
+          mod_tile(sn);
+        } else {
+          mbar_arrive(&empty_k[sn]);   // K(it+1) is read: it may refill
           softmax_tile<BK, WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0,
                                 tg, kvlen, causal, q_off, wlo, sl2);
-        if constexpr (DROP)
-          drop_tile<BK>(s, dr, rb, rs8, (t0 + it + 1) * BK, tg);
+          if constexpr (DROP)
+            drop_tile<BK>(s, dr, rb, rs8, (t0 + it + 1) * BK, tg);
+        }
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(p);
@@ -565,6 +746,27 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         }
       }
       if (r < sq) {
+        if constexpr (MOD) {
+          // a dead row off the walk (a bool mask without dropout): the mean
+          // of v over all sk keys and the pair (NEG, log sk)
+          if (md.dead != nullptr &&
+              ((md.dead[bi * md.dsb + hi * md.dsh + (r >> 6)] >> (r & 63)) &
+               1)) {
+            const float* vm = md.red + ((long)bi * nkv + kh) * D;
+#pragma unroll
+            for (int c = 0; c < D / 8; ++c) {
+              const float2 v2 =
+                  *reinterpret_cast<const float2*>(vm + c * 8 + tg * 2);
+              *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
+                  pack_f2(v2.x, v2.y);
+            }
+            if (tg == 0)
+              *reinterpret_cast<float2*>(
+                  lse + 2 * (((long)bi * h + hi) * sq + r)) =
+                  make_float2(am::NEG, logf((float)sk));
+            continue;
+          }
+        }
 #pragma unroll
         for (int c = 0; c < D / 8; ++c)
           *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
@@ -616,15 +818,26 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
                       : (drop ? flash_fwd_sm90<D, false, true>
                               : flash_fwd_sm90<D, false, false>);
   }
+  // the general argument, and the tensor map of its packed words: boxes of
+  // 4 words by the block's 128 rows, or 1 row for a key-padding mask
+  am::ModTile mt{};
+  if (mod) {
+    mt.m = *mod;
+    if (mod->words != nullptr)
+      err = sm90_map_words(&mt.words, mod->words, mod->wb, mod->wh, mod->wq,
+                           mod->ww, mod->wq > 1 ? BQ : 1);
+    if (err) return err;
+  }
+  const int smem = mod ? Fwd<D>::SMEM_MOD : Fwd<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<D>::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   // a (batch, head) unit shares its kv head's K and V: sk·d·2·2 bytes
   const int group = sm90_group((long long)sk * D * 4);
   const int grid = ((sq + BQ - 1) / BQ) * h * b;
-  kern<<<grid, THREADS, Fwd<D>::SMEM, st>>>(
+  kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-      nkv, causal, q_off, window, scale, group, dr, mod ? *mod : am::Mod{});
+      nkv, causal, q_off, window, scale, group, dr, mt);
   return (int)cudaGetLastError();
 }
 
@@ -633,9 +846,11 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // drop: the dropout instantiation, keyed by (k1, k2), an element kept iff
 // its top 23 bits are below thr, a kept probability scaled by inv = 1/keep.
 // mod (or null): the general mode's argument (csrc/attn_mask.cuh: the
-// dense mask, the window, the segment ids, the ALiBi slopes), its bounds
-// (b, h, ceil(sq/128), 2) int32, each block's [lo, hi) of 128-key tiles;
-// lse is then the (b, h, sq, 2) pairs (m, log l)
+// dense mask, the window, the segment ids, the ALiBi slopes), its walk
+// lists (ops/flash_attention.py `mask_bounds`' fwd_list: each 128-row
+// block's 128-key tiles), the packed bool mask, and the dead rows with
+// their means of v (or null); lse is then the (b, h, sq, 2) pairs (m,
+// log l)
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, const void* kv_lens,
                                    int b, int sq, int sk, int h, int nkv,

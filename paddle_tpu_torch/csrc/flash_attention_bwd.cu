@@ -40,7 +40,13 @@
 // (flash_bwd_dq_sm90<256, false, false>, flash_bwd_dkv_sm90<256, false,
 // false>): 168 at entry, 0 bytes spilled, none of warnings C7513-C7515.
 // The general instantiations (MOD, with and without EXTRA and DROP, d 64
-// and 128): 168 at entry, 0 bytes spilled.
+// and 128): 168 at entry; K3's 0 bytes spilled; K4's 0 but at d 128 with
+// EXTRA or DROP (flash_bwd_dkv_sm90<128, true, false, true> 28 / 36 bytes
+// of spill stores / loads, <128, false, true, true> 28 / 40, <128, true,
+// true, true> 44 / 56) and <64, true, true, true> (4 / 8): loop-invariant
+// scalars stored once and reloaded at the loop's head and in the
+// epilogue (nvdisasm --print-line-info), the price of the walk's state
+// beside dk and dv's 128 accumulators.
 //
 // Head dims 64, 128 and 256 (the reference's kernel widths; the caller
 // zero-pads others, ops/flash_attention.py). At d = 256 the tiles that fit
@@ -80,17 +86,26 @@
 //   dv = (P∘[Z/keep])ᵀ·dO over every element (P is nonzero off those only
 //        in a dead row, whose uniform softmax weighs every key,
 //        csrc/attn_mask.cuh).
-// K3 walks each 128-row block's [lo, hi) of 64-key tiles and K4 each
-// 128-key block's [lo, hi) of 64-row query tiles from the caller's bounds
-// (ops/flash_attention.py `mask_bounds`: the reference's
-// _mask_block_bounds, :445, per query block for dq and per key block,
-// axis_q=False, for dk/dv; under GQA the union over the kv head's query
-// heads, whose own mask rows, segment ids and slopes K4 reads; the window
-// folded in, a block that holds a dead row past every limit). Every tile
-// takes the per-element test, and this mode skips no tile of the range.
-// Inside MOD, WIN picks the loop with the window, segment ids and ALiBi
-// (EXTRA), as in K1; without it a dense mask alone runs the lean loop
-// (kv_len, the diagonal and the mask).
+// K3 walks each 128-row block's [lo, hi) of 64-key tiles from the caller's
+// bounds (ops/flash_attention.py `mask_bounds`' dq: the reference's
+// _mask_block_bounds, :445, per query block; the window folded in, a block
+// that holds a dead row past every limit), every tile with the per-element
+// test. K4 walks each 128-key block's list of 64-row query tiles
+// (`mask_bounds`' dkv_list: the reference's per key block bounds,
+// axis_q=False, made per tile; under GQA the union over the kv head's
+// query heads, whose own mask rows, segment ids and slopes K4 reads), as
+// K1 walks its key tiles (csrc/flash_attention.cu, csrc/attn_mask.cuh):
+// EMPTY tiles never loaded, FULL tiles with no mask load, a MIXED bool
+// tile's packed words staged by the producer's TMA beside Q and dO (1 KB, or
+// 16 bytes for a key-padding mask), the structured test per element only
+// where kv_len, the diagonal, sq, the window or segment ids cut the tile.
+// A dead row of a bool mask without dropout is off K4's walk: where a tile
+// holds one beside live rows, the producer gives it log2 l = +inf (its Pᵀ
+// and dSᵀ are 0), and the epilogue adds dsum / sk to every key's dv (`red`,
+// the sum of the dead rows' dO from csrc/attn_rows.cu). Inside MOD, WIN
+// picks the loop with the window, segment ids and ALiBi (EXTRA), as in
+// K1; without it a dense mask alone runs the lean loop (kv_len, the
+// diagonal and the mask).
 //
 // Layouts: q, dout (b, sq, h, d), k/v (b, sk, nkv, d), dq (b, sq, h, d),
 // dk/dv (b, sk, nkv, d), all bf16 and contiguous; lse, delta (b, h, sq)
@@ -681,6 +696,13 @@ struct Dkv {
   // (the mask modes: log2 l, Δ and m)
   static constexpr int BAR_OFF = ROW_OFF + ST * 3 * BQ4 * 4;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * ST) * 8 + 1024;
+  // MOD: a ring stage of a MIXED bool tile's packed words (4 a query row)
+  // past the barriers, so that the other instantiations keep their layout
+  static constexpr int W_BYTES = BQ4 * 16;
+  static constexpr int W_OFF = (BAR_OFF + (1 + 2 * ST) * 8 + 127) / 128 * 128;
+  // MOD: a ring stage's walk entry and its c
+  static constexpr int E_OFF = W_OFF + ST * W_BYTES;
+  static constexpr int SMEM_MOD = E_OFF + ST * 8 + 1024;
 };
 
 // Pᵀ = 2^(Sᵀ·sl2 − lse·log2 e) in place, 0 where the key is masked for the
@@ -756,21 +778,104 @@ __device__ __forceinline__ void k4_ds(const float (&sa)[BQ4 / 2],
   }
 }
 
-// MOD: Pᵀ in place of Sᵀ and dSᵀ in place of dPᵀ (k4_p and k4_ds in one
-// pass), with t the score of csrc/attn_mask.cuh for (key c0 + 8i, query
-// q0 + 8c + 2·tg + j) of query head hq: mh = b·sb + hq·sh, the queries'
-// segment ids at segq against the keys' sgk[i], the bias slope·(k - q -
-// q_off); ls holds the tile's log2 l, then Δ, then m. DROP: dSᵀ = Pᵀ∘(dPᵀ∘
-// Z/keep − Δ), then Pᵀ∘Z/keep in place of Pᵀ (for dv), Z hashed from the
-// head's flat index hb + query·sk + key as in k4_drop_ds. EXTRA: the
-// window, segment ids or ALiBi are present; without them (a dense mask
-// alone) the per-element test is kv_len, the diagonal and the mask only
-template <bool DROP, bool EXTRA>
-__device__ __forceinline__ void k4_pds_mod(
-    float (&sa)[BQ4 / 2], float (&dp)[BQ4 / 2], const float* ls, int c0,
-    int tg, int q0, int sq, int sk, int kvlen, int causal, int q_off,
-    float scale, const am::Mod& md, long long mh, const int* segq,
-    const int (&sgk)[2], float slope, const tf::Drop& dr, uint64_t hb) {
+// MOD: the sources of a walked tile's mask entries: a FULL tile's (every
+// entry True or the value c; a call without a mask too), or any tile's,
+// taken at run time (FULL, else a MIXED bool tile's staged bits or a MIXED
+// fp32 tile's mask in place). One loop a source and edge, as K1's
+// (csrc/flash_attention.cu), holds more registers than K4 has beside dk
+// and dv at d 128
+enum { SRC_FULL, SRC_ANY };
+
+// MOD: the scores t of csrc/attn_mask.cuh in place of Sᵀ for (key c0 +
+// 8i, query q0 + 8c + 2·tg + j) of query head hq: a FULL tile's entries
+// *cvp (0 for a bool mask; the tile's entry at ent), a bool mask's from the
+// tile's words staged at ws (4 words a query row, one row for a
+// key-padding mask; the thread's keys are bits lk and lk + 8 of word lk /
+// 32, lk its first key's place in the block), an fp32 mask read in place
+// at mh + query·sq + key·sk (mh = b·sb + hq·sh). The structured test runs
+// per element only on an EDGE tile (kv_len, the diagonal, sq, the window
+// or segment ids cut it for the group's keys). EXTRA: the queries' segment
+// ids at segq against the keys' sgk[i], the bias slope·(k - q - q_off).
+// Returns the elements whose t depends on s (bit 4c + 2i + j): dS flows
+// only there
+template <bool EXTRA, int SRC, bool EDGE>
+__device__ __forceinline__ uint32_t k4_scores(
+    float (&sa)[BQ4 / 2], int c0, int tg, int q0, int sq, int sk, int kvlen,
+    int causal, int q_off, float scale, const am::Mod& md, int bi, int hq,
+    const int* segq, const int (&sgk)[2], float slope, const int* ent,
+    const float* cvp, const uint32_t* ws) {
+  // a FULL tile's c (the tile's entry and c in the stage's slot, ent and
+  // cvp), and a hidden key's score: NEG (+ c) beside a mask, -inf without
+  // one; an fp32 mask's elements of the (batch, head) from mh
+  const bool fl = SRC == SRC_FULL ||
+                  (SRC == SRC_ANY && (*ent >> am::TILE_SHIFT) == am::TILE_FULL);
+  const float cv = fl ? *cvp : 0.f;
+  const float hid = md.p != nullptr ? am::NEG + cv : -INFINITY;
+  const long long mh = SRC == SRC_ANY ? bi * md.sb + hq * md.sh : 0;
+  const int lk = c0 & 127;   // the thread's first key in its 128-key block
+  uint32_t gm = 0;
+#pragma unroll
+  for (int c = 0; c < BQ4 / 8; ++c) {
+    const int qi = c * 8 + tg * 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * c + 2 * i + j;
+        const int key = c0 + 8 * i, q = q0 + qi + j;
+        bool st = false;
+        if constexpr (EDGE) {
+          if constexpr (EXTRA)
+            st = am::hidden(
+                md, key, kvlen, causal, q_off + q,
+                segq != nullptr && q < sq && __ldg(segq + q) != sgk[i]);
+          else
+            st = key >= kvlen || (causal && key > q_off + q);
+        }
+        const float bias = EXTRA ? slope * (float)(key - q_off - q) : 0.f;
+        bool g = !st;
+        float t;
+        if (fl) {
+          t = st ? hid : fmaf(sa[e], scale, bias + cv);
+        } else if (md.words != nullptr) {
+          const uint32_t w = ws[(md.wq > 1 ? qi + j : 0) * 4 + (lk >> 5)];
+          g = ((w >> ((lk & 31) + 8 * i)) & 1) && !st;
+          t = g ? fmaf(sa[e], scale, bias) : am::NEG;
+        } else if (EDGE && q >= sq) {
+          t = -INFINITY;          // a row past sq: no entry to read
+        } else {
+          const float x =
+              __ldg(reinterpret_cast<const float*>(md.p) + mh +
+                    (long long)q * md.sq + (long long)key * md.sk);
+          t = st ? am::NEG + x : fmaf(sa[e], scale, bias + x);
+        }
+        if constexpr (EDGE)
+          if (q >= sq || key >= sk) {
+            t = -INFINITY;
+            g = false;
+          }
+        sa[e] = t;
+        gm |= (uint32_t)g << e;
+      }
+  }
+  return gm;
+}
+
+// MOD: Pᵀ in place of the scores t in sa and dSᵀ in place of dPᵀ (k4_p and
+// k4_ds in one pass): P = 2^((t − m)·log2 e − log2 l), dS = P∘(dP − Δ)
+// where t depends on s (gm, k4_scores), 0 elsewhere; ls holds the tile's
+// log2 l (+inf for a row whose P is 0: past sq, no key, or a dead row off
+// the walk), then Δ, then m. DROP: dSᵀ = Pᵀ∘(dPᵀ∘Z/keep − Δ), then
+// Pᵀ∘Z/keep in place of Pᵀ (for dv), Z hashed from query head hq's flat
+// index hb + query·sk + key as in k4_drop_ds (hb = (b·h + hq)·sq·sk)
+template <bool DROP>
+__device__ __forceinline__ void k4_pds_mod(float (&sa)[BQ4 / 2],
+                                           float (&dp)[BQ4 / 2],
+                                           const float* ls, uint32_t gm,
+                                           int c0, int tg, int q0, int sq,
+                                           int sk, int bi, int h, int hq,
+                                           const tf::Drop& dr) {
+  const uint64_t hb = DROP ? (uint64_t)(bi * h + hq) * sq * sk : 0;
 #pragma unroll
   for (int c = 0; c < BQ4 / 8; ++c) {
     const int qi = c * 8 + tg * 2;
@@ -782,29 +887,15 @@ __device__ __forceinline__ void k4_pds_mod(
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int e = 4 * c + 2 * i + j;
-        const int key = c0 + 8 * i, q = q0 + qi + j;
-        const long long row = q < sq ? mh + (long long)q * md.sq : -1;
-        bool g;
-        float t;
-        if constexpr (EXTRA) {
-          const bool st = am::hidden(
-              md, key, kvlen, causal, q_off + q,
-              segq != nullptr && q < sq && __ldg(segq + q) != sgk[i]);
-          t = am::score(md, row, key, sk, sa[e], scale,
-                        slope * (float)(key - q_off - q), st, g);
-        } else {
-          t = am::mask_score(md, row, key, sk, sa[e], scale,
-                             key >= kvlen || (causal && key > q_off + q), g);
-        }
-        const float p = am::prob(t, j ? m2.y : m2.x, j ? l2.y : l2.x);
+        const float p = am::prob(sa[e], j ? m2.y : m2.x, j ? l2.y : l2.x);
         float d = dp[e], pd = p;
         if constexpr (DROP) {
-          const bool kp =
-              tf::keep(dr, hb + (uint64_t)q * sk + (uint64_t)key);
+          const bool kp = tf::keep(
+              dr, hb + (uint64_t)(q0 + qi + j) * sk + (uint64_t)(c0 + 8 * i));
           d = kp ? d * dr.inv : 0.f;
           pd = kp ? p * dr.inv : 0.f;
         }
-        dp[e] = g ? p * (d - (j ? d2.y : d2.x)) : 0.f;
+        dp[e] = (gm >> e) & 1 ? p * (d - (j ? d2.y : d2.x)) : 0.f;
         sa[e] = pd;
       }
   }
@@ -821,7 +912,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    bf16* __restrict__ dv, const int* __restrict__ kv_lens,
                    int sq, int sk, int h, int nkv, int causal, int q_off,
                    int window, float scale, int group, tf::Drop dr,
-                   am::Mod md) {
+                   const __grid_constant__ am::ModTile mt) {
   using C = Dkv<D>;
   constexpr int ST = C::ST;
   constexpr int BKEY = C::BKEY;
@@ -830,6 +921,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
   // ALiBi (EXTRA), and the windowed walk (WND) is the WIN kernel's alone
   constexpr bool WND = WIN && !MOD;
   constexpr bool EXTRA = WIN && MOD;
+  const am::Mod& md = mt.m;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = sm90::align1024(smem_raw);
   uint8_t* Ks = sm;
@@ -865,15 +957,24 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
     qhi = last < 0 ? 0 : min(nqt, last / BQ4 + 1);
   }
   const int wlo = WND ? q_off - window : 0;
+  // MOD: this key block's walk of query tiles, [n, entry 1 … entry n]
+  // (the union over the kv head's query heads; entry: tile | class), the
+  // entries' c at the same index of wc; each query head walks it, the
+  // producer passing a tile's entry and c in its stage's slot (went, wcv)
+  const int* walk = nullptr;
+  const float* wc = nullptr;
   if constexpr (MOD) {
-    // the query tiles [lo, hi) of this key block's bounds (the union over
-    // the kv head's query heads, the structured limits and the window
-    // folded in; every tile that holds a dead row)
-    const int* bd = md.bounds + 2 * (((long)bi * nkv + kh) * nkt + ord.tile);
-    qt0 = bd[0];
-    qhi = bd[1];
+    const long long at =
+        bi * md.lsb + kh * md.lsh + (long long)ord.tile * md.ln;
+    walk = md.list + at;
+    wc = md.cval + at;
+    qt0 = 0;
+    qhi = walk[0];
   }
   const int per_head = max(0, qhi - qt0);
+  uint8_t* Ws = sm + C::W_OFF;          // MOD: stage s at s·W_BYTES
+  int* went = reinterpret_cast<int*>(sm + C::E_OFF);
+  float* wcv = reinterpret_cast<float*>(sm + C::E_OFF + ST * 4);
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kvbar, 1);
@@ -905,36 +1006,87 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
         }
       }
       int it = 0;
-      for (int r = 0; r < n_rep; ++r) {
-        const int hi = kh * n_rep + r;
-        const float* lb = lse + ((long)bi * h + hi) * sq;
-        const float* db = delta + ((long)bi * h + hi) * sq;
-        for (int qt = qt0; qt < qhi; ++qt, ++it) {
-          const int s = it % ST, q0 = qt * BQ4;
-          sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
-          float* ls = rows + s * 3 * BQ4;
-          for (int i = lane; i < BQ4; i += 32) {
-            const int q = q0 + i;
-            if constexpr (MOD) {
+      if constexpr (MOD) {
+        // the walk, per query head; a dead row off the walk takes log2 l =
+        // +inf (its P, dSᵀ 0: its dv is the epilogue's dsum / sk); a MIXED
+        // tile of a bool mask brings its packed words on the full barrier
+        const uint32_t wbytes = (md.wq > 1 ? BQ4 : 1) * 16;
+        if (lane == 0 && md.words != nullptr)
+          sm90::tma_prefetch_map(&mt.words);
+        int e_nx = walk[1];    // the next tile's entry and c, a tile ahead
+        float c_nx = wc[1];
+        for (int r = 0; r < n_rep; ++r) {
+          const int hi = kh * n_rep + r;
+          const float* db = delta + ((long)bi * h + hi) * sq;
+          for (int x = 0; x < per_head; ++x, ++it) {
+            const int s = it % ST, e = e_nx;
+            const float cv = c_nx;
+            e_nx = walk[1 + (x + 1 < per_head ? x + 1 : 0)];
+            c_nx = wc[1 + (x + 1 < per_head ? x + 1 : 0)];
+            const int qt = am::entry_tile(e), q0 = qt * BQ4;
+            const bool stage = md.words != nullptr &&
+                               (e >> am::TILE_SHIFT) == am::TILE_MIXED;
+            const unsigned long long dw =
+                md.dead != nullptr
+                    ? md.dead[bi * md.dsb + hi * md.dsh + qt]
+                    : 0ull;
+            sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+            float* ls = rows + s * 3 * BQ4;
+            for (int i = lane; i < BQ4; i += 32) {
+              const int q = q0 + i;
               am::row_stats(lse + 2 * ((long)bi * h + hi) * sq, q, sq,
                             ls[2 * BQ4 + i], ls[i]);
+              if ((dw >> i) & 1) ls[i] = INFINITY;
+              ls[BQ4 + i] = q < sq ? db[q] : 0.f;
+            }
+            if (lane == 0) {
+              went[s] = e;
+              wcv[s] = cv;
+              sm90::mbar_arrive_tx(&full[s],
+                                   2 * C::QT_BYTES + (stage ? wbytes : 0));
+#pragma unroll
+              for (int c = 0; c < C::NCH; ++c) {
+                sm90::tma_load_4d(Qs + s * C::QT_BYTES + c * BQ4 * 128, &mq,
+                                  &full[s], c * 64, hi, q0, bi);
+                sm90::tma_load_4d(Os + s * C::QT_BYTES + c * BQ4 * 128, &mo,
+                                  &full[s], c * 64, hi, q0, bi);
+              }
+              if (stage)
+                sm90::tma_load_4d(Ws + s * C::W_BYTES, &mt.words, &full[s],
+                                  k0 / 32, md.wq > 1 ? q0 : 0,
+                                  md.wh > 1 ? hi : 0, md.wb > 1 ? bi : 0);
             } else {
+              sm90::mbar_arrive(&full[s]);
+            }
+          }
+        }
+      } else {
+        for (int r = 0; r < n_rep; ++r) {
+          const int hi = kh * n_rep + r;
+          const float* lb = lse + ((long)bi * h + hi) * sq;
+          const float* db = delta + ((long)bi * h + hi) * sq;
+          for (int qt = qt0; qt < qhi; ++qt, ++it) {
+            const int s = it % ST, q0 = qt * BQ4;
+            sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+            float* ls = rows + s * 3 * BQ4;
+            for (int i = lane; i < BQ4; i += 32) {
+              const int q = q0 + i;
               const float l = q < sq ? lb[q] : NEG_INF;
               ls[i] = l > NEG_INF * 0.5f ? l * 1.4426950408889634f : INFINITY;
+              ls[BQ4 + i] = q < sq ? db[q] : 0.f;
             }
-            ls[BQ4 + i] = q < sq ? db[q] : 0.f;
-          }
-          if (lane == 0) {
-            sm90::mbar_arrive_tx(&full[s], 2 * C::QT_BYTES);
+            if (lane == 0) {
+              sm90::mbar_arrive_tx(&full[s], 2 * C::QT_BYTES);
 #pragma unroll
-            for (int c = 0; c < C::NCH; ++c) {
-              sm90::tma_load_4d(Qs + s * C::QT_BYTES + c * BQ4 * 128, &mq,
-                                &full[s], c * 64, hi, q0, bi);
-              sm90::tma_load_4d(Os + s * C::QT_BYTES + c * BQ4 * 128, &mo,
-                                &full[s], c * 64, hi, q0, bi);
+              for (int c = 0; c < C::NCH; ++c) {
+                sm90::tma_load_4d(Qs + s * C::QT_BYTES + c * BQ4 * 128, &mq,
+                                  &full[s], c * 64, hi, q0, bi);
+                sm90::tma_load_4d(Os + s * C::QT_BYTES + c * BQ4 * 128, &mo,
+                                  &full[s], c * 64, hi, q0, bi);
+              }
+            } else {
+              sm90::mbar_arrive(&full[s]);
             }
-          } else {
-            sm90::mbar_arrive(&full[s]);
           }
         }
       }
@@ -1013,12 +1165,39 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
             // the mask rows, the slope and the scores of query head
             // kh·n_rep + it / per_head
             const int hq = kh * n_rep + it / per_head;
-            const long long mh = bi * md.sb + hq * md.sh;
-            const uint64_t hb = (uint64_t)(bi * h + hq) * sq * sk;
-            k4_pds_mod<DROP, EXTRA>(
-                sa, dp, ls, c0, tg, q0, sq, sk, kvlen, causal, q_off, scale,
-                md, mh, segq, sgk,
-                EXTRA && md.slopes != nullptr ? md.slopes[hq] : 0.f, dr, hb);
+            // the tile (its entry in the stage's slot) and whether it takes
+            // the FULL loop without the structured test: no edge (kv_len,
+            // the diagonal, sq, the window or segment ids) cuts it for the
+            // group's keys
+            const int qm = am::entry_tile(went[s]) * BQ4;
+            bool ed = kw0 + 63 >= kvlen || (causal && kw0 + 63 > q_off + qm) ||
+                      qm + BQ4 > sq;
+            if constexpr (EXTRA)
+              ed = ed || segq != nullptr ||
+                   (md.window > 0 && kw0 <= q_off - md.window + qm + 63);
+            const bool full = (went[s] >> am::TILE_SHIFT) == am::TILE_FULL;
+            const float slope =
+                EXTRA && md.slopes != nullptr ? md.slopes[hq] : 0.f;
+#define K4_SCORES(SRC, EDGE)                                                 \
+  k4_scores<EXTRA, SRC, EDGE>(                                               \
+      sa, c0, tg, qm, sq, sk, kvlen, causal, q_off, scale, md, bi, hq, segq, \
+      sgk, slope, went + s, wcv + s,                                         \
+      reinterpret_cast<const uint32_t*>(Ws + s * C::W_BYTES))
+            uint32_t gm;
+            // a FULL tile that no edge cuts (most of a walk) on a loop of
+            // its own, and with EXTRA (segment ids cut every tile) a FULL
+            // edge tile too; the others through one loop that takes the
+            // source at run time (a loop for each source and edge spills
+            // at d 128)
+            if (full && !ed)
+              gm = K4_SCORES(SRC_FULL, false);
+            else if (EXTRA && full)
+              gm = K4_SCORES(SRC_FULL, true);
+            else
+              gm = K4_SCORES(SRC_ANY, true);
+#undef K4_SCORES
+            k4_pds_mod<DROP>(sa, dp, ls, gm, c0, tg, qm, sq, sk, bi, h, hq,
+                             dr);
           } else {
             k4_p<WIN>(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, wlo,
                       sl2);
@@ -1046,6 +1225,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
 
     const long kv_rs = (long)nkv * D;
     const long kv_base = (long)bi * sk * kv_rs + (long)kh * D + col0;
+    const float rsk = __frcp_rn((float)sk);    // MOD: 1 / sk
     bf16* dkb = dk + kv_base;
     bf16* dvb = dv + kv_base;
 #pragma unroll
@@ -1058,8 +1238,23 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
           *reinterpret_cast<uint32_t*>(dkb + key * kv_rs + col) =
               sm90::pack_f2(dka[4 * c + 2 * i] * scale,
                       dka[4 * c + 2 * i + 1] * scale);
+          if constexpr (MOD) {
+            // the dead rows off the walk: dO / sk at every key (dsum · rsk;
+            // a reciprocal, no division's slow-path call beside dk and dv)
+            float2 a = make_float2(0.f, 0.f);
+            if (md.red != nullptr) {
+              a = *reinterpret_cast<const float2*>(
+                  md.red + ((long)bi * nkv + kh) * D + col0 + col);
+              a.x *= rsk;
+              a.y *= rsk;
+            }
+            *reinterpret_cast<uint32_t*>(dvb + key * kv_rs + col) =
+                sm90::pack_f2(dva[4 * c + 2 * i] + a.x,
+                              dva[4 * c + 2 * i + 1] + a.y);
+          } else {
           *reinterpret_cast<uint32_t*>(dvb + key * kv_rs + col) =
               sm90::pack_f2(dva[4 * c + 2 * i], dva[4 * c + 2 * i + 1]);
+          }
         }
       }
     }
@@ -1100,16 +1295,27 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                       : (drop ? flash_bwd_dkv_sm90<D, false, true>
                               : flash_bwd_dkv_sm90<D, false, false>);
   }
+  // the general argument, and the tensor map of its packed words: boxes of
+  // 4 words by a query tile's 64 rows, or 1 row for a key-padding mask
+  am::ModTile mt{};
+  if (mod) {
+    mt.m = *mod;
+    if (mod->words != nullptr)
+      err = sm90_map_words(&mt.words, mod->words, mod->wb, mod->wh, mod->wq,
+                           mod->ww, mod->wq > 1 ? BQ4 : 1);
+    if (err) return err;
+  }
+  const int smem = mod ? Dkv<D>::SMEM_MOD : Dkv<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   // a (batch, kv head) unit streams its n_rep heads' Q and dO
   const int group = sm90_group((long long)(h / nkv) * sq * D * 4);
   const int grid = ((sk + BKEY - 1) / BKEY) * nkv * b;
-  kern<<<grid, THREADS, Dkv<D>::SMEM, st>>>(
+  kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window,
-      scale, group, dr, mod ? *mod : am::Mod{});
+      scale, group, dr, mt);
   return (int)cudaGetLastError();
 }
 
@@ -1163,8 +1369,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const tf::Drop dr{k1, k2, thr, inv};
-  // mod (or null): as K1 takes it, its bounds (b, nkv, ceil(sk/128), 2)
-  // each key block's [lo, hi) of 64-row query tiles
+  // mod (or null): as K1 takes it, its walk lists (`mask_bounds`'
+  // dkv_list: each key block's 64-row query tiles) and the dead rows' dsum
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
                            sk, h, nkv, causal, q_off, window, scale, drop, dr,

@@ -577,6 +577,30 @@ static inline int sm90_map_kv(CUtensorMap* map, const void* base, int zs,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A uint32 tensor (batch, heads, rows, words), contiguous, `words` a
+// multiple of 4, read in boxes of 4 words (16 bytes) by `box_rows` rows of
+// one (batch, head), unswizzled; rows past `rows` read as zeros.
+// Coordinates (word, row, head, batch). Returns 0 on success.
+static inline int sm90_map_words(CUtensorMap* map, const void* base,
+                                 int batch, int heads, int rows, int words,
+                                 int box_rows) {
+  sm90_encode_tiled_fn enc = sm90_encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if (words % 4) return (int)cudaErrorInvalidValue;
+  const cuuint64_t w = (cuuint64_t)words * 4;
+  cuuint64_t dims[4] = {(cuuint64_t)words, (cuuint64_t)rows,
+                        (cuuint64_t)heads, (cuuint64_t)batch};
+  cuuint64_t strides[3] = {w, w * rows, w * rows * heads};
+  cuuint32_t box[4] = {4, (cuuint32_t)box_rows, 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 4,
+                   const_cast<void*>(base), dims, strides, box, estr,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // A bf16 tensor (batch, seq, heads, d), contiguous, read in boxes of `rows`
 // rows of one (batch, head) by 64 columns, 128-byte swizzle; rows past seq
 // read as zeros. Coordinates (col, head, row, batch). Returns 0 on success.

@@ -70,9 +70,14 @@ structured masks put ``NEG_INF`` on their keys, and a row whose every key
 is hidden by a bool mask takes the uniform softmax over all sk keys (the
 mean of v; the reference's Pallas kernel gives 0 there, ROADMAP Queue C).
 K1, K3 and K4 compute it in their general instantiations (below; d 64 and
-128; csrc/attn_mask.cuh), reading the mask in place through four element
-strides, each block walking the tiles of ``mask_bounds`` (the device-side
-port of the reference's ``_mask_block_bounds``). The mask mode keeps a
+128; csrc/attn_mask.cuh), each block walking the tiles of ``mask_bounds``
+(the device-side port of the reference's ``_mask_block_bounds``): K3 a
+[lo, hi) range, reading the mask in place through four element strides;
+K1 and K4 per-tile lists that skip EMPTY tiles, read no mask on FULL ones
+and a bool mask's packed words (``mask_words``) on MIXED ones, with a bool
+mask's dead rows off the walk when there is no dropout (the mean of v and
+dO / sk to dv, ``dead_row_sums``). The bounds of the last call are cached
+(``_call_bounds``): the layers of a step share one mask. The mask mode keeps a
 row's statistics as the pair (m, log l), shape (b, h, sq, 2), in place of
 the lse: a float mask can put a whole row at −1e10 and a bool mask at
 −1e30, where an fp32 lse m + log l loses log l, and with it the backward's
@@ -311,9 +316,154 @@ def _pairs(lo, hi, shape):
                        -1).to(torch.int32).contiguous()
 
 
+# A tile's class in the walks of K1 and K4's general mode, and the walk
+# entry's layout: tile | class << TILE_SHIFT
+TILE_EMPTY, TILE_FULL, TILE_MIXED = 0, 1, 2
+TILE_SHIFT = 24
+
+
+def _pack_bits(x, n):
+    """(..., m) bool packed little-endian into (..., n // 8) uint8, n >= m a
+    multiple of 8: bit i of byte j is x[..., 8j + i], False past m."""
+    buf = torch.zeros(x.shape[:-1] + (n,), dtype=torch.uint8,
+                      device=x.device)
+    buf[..., :x.shape[-1]] = x
+    w = (2 ** torch.arange(8, device=x.device)).to(torch.uint8)
+    return (buf.reshape(x.shape[:-1] + (n // 8, 8)) * w).sum(
+        -1, dtype=torch.uint8)
+
+
+def mask_words(mask):
+    """A bool (mb, mh, mq, sk) mask packed into uint32 words (as int32)
+    (mb, mh, mq, W): bit i of word w is key 32w + i, W = ceil(sk / 32)
+    rounded up to a multiple of 4, so that every row is 16-byte aligned for
+    TMA. A (b, 1, 1, sk) key-padding mask packs to b·W words."""
+    sk = mask.shape[-1]
+    nw = -(-sk // 128) * 4
+    return _pack_bits(mask, nw * 32).view(torch.int32)
+
+
+def _walk_lists(cls, c):
+    """Per block (the last axis: its tiles' classes, (…, n)), the compact
+    walk of its non-EMPTY tiles in increasing order: int32 (…, 1 + n),
+    [count, tile | class << TILE_SHIFT, …], and fp32 (…, 1 + n), each
+    entry's c at the same index (entries past the count are 0)."""
+    n = cls.shape[-1]
+    ne = cls != TILE_EMPTY
+    order = torch.argsort((~ne).to(torch.int8), dim=-1, stable=True)
+    ent = order.to(torch.int32) | (torch.gather(cls, -1, order).to(
+        torch.int32) << TILE_SHIFT)
+    cv = torch.gather(c, -1, order)
+    count = ne.sum(-1, keepdim=True, dtype=torch.int32)
+    live = torch.arange(n, device=cls.device) < count
+    ent = torch.where(live, ent, 0)
+    cv = torch.where(live, cv, 0.0)
+    return (torch.cat([count, ent], -1).contiguous(),
+            torch.cat([torch.zeros_like(cv[..., :1]), cv], -1).contiguous())
+
+
+def _tile_classes(mask, b, h, nkv, sq, sk, vis, wlo, dead, walk_dead):
+    """The class of every tile of K1's grid (128-row blocks × 128-key
+    tiles, (B, mh, nqb, nk)) and of K4's (128-key blocks × 64-row query
+    tiles, the union over a kv head's query heads: (B, mh', nkb, nqt)),
+    with each tile's c (fp32 masks). The rows that count are those some
+    key reaches through kv_lens, causal and the window ([wlo, vis)) that
+    are not dead; a tile is EMPTY when no counting row has a valid entry
+    (bool True, float not −inf) at a key it reaches; FULL when every
+    counting row's reached entries are True (bool), or every entry of the
+    tile's rows equals one value c (fp32); MIXED otherwise. Without a mask
+    (segment ids or ALiBi alone) every tile with a reached key is FULL: no
+    entry to read.
+    `walk_dead`: a block holding a dead row takes every tile as MIXED (K1),
+    and every query tile holding one is MIXED in every key block (K4)."""
+    dev = vis.device
+    nk, nqb, nqt = -(-sk // K1_KEYS), -(-sq // BLOCK_ROWS), -(-sq // K4_ROWS)
+    t0 = torch.arange(nk, device=dev) * K1_KEYS
+    t1 = torch.clamp(t0 + K1_KEYS, max=sk)
+    hi = torch.minimum(torch.maximum(vis[..., None], t0), t1)   # (vb, sq, nk)
+    lo = torch.minimum(torch.maximum(wlo[..., None], t0), hi)
+    nvis = (hi - lo)[:, None]                              # (vb, 1, sq, nk)
+    reach = (vis > wlo)[:, None]                           # (vb, 1, sq)
+    count = reach & ~dead
+    f32 = mask is not None and mask.dtype != torch.bool
+    if mask is None:
+        ne_row, full_row = nvis > 0, torch.zeros((), dtype=torch.bool,
+                                                 device=dev)
+    else:
+        ok = mask if not f32 else mask != float("-inf")
+        csum = torch.nn.functional.pad(ok.to(torch.int32).cumsum(-1), (1, 0))
+        bx = max(csum.shape[0], hi.shape[0])
+        csum = csum.expand(bx, csum.shape[1], sq, sk + 1)
+        at = lambda i: torch.gather(csum, -1, i[:, None].expand(
+            bx, csum.shape[1], sq, nk).long())
+        nok = at(hi) - at(lo)
+        ne_row = nok > 0
+        full_row = nok == nvis
+    bx = max(ne_row.shape[0], count.shape[0])
+    mh = ne_row.shape[1] if mask is None else mask.shape[1]
+    mh = max(mh, count.shape[1])
+    shape = (bx, mh, sq, nk)
+    ne_row = (ne_row & count[..., None]).expand(shape)
+    full_row = (full_row | ~count[..., None]).expand(shape)
+    if f32:
+        # the tile's min and max entry over each of its rows' keys
+        pad = nk * K1_KEYS - sk
+        mn = torch.nn.functional.pad(mask, (0, pad), value=math.inf)
+        mx = torch.nn.functional.pad(mask, (0, pad), value=-math.inf)
+        mn = mn.reshape(mask.shape[:3] + (nk, K1_KEYS)).amin(-1)
+        mx = mx.reshape(mask.shape[:3] + (nk, K1_KEYS)).amax(-1)
+        mn = mn.expand(bx, mh, mask.shape[2], nk)
+        mx = mx.expand(bx, mh, mask.shape[2], nk)
+
+    def rows(x, n, t, fill, op):
+        """x (B, mh, sq|1, nk) reduced by `op` over row groups of t: (B, mh,
+        n, nk); rows past sq take `fill`."""
+        if x.shape[2] == 1:
+            return x.expand(x.shape[0], x.shape[1], n, x.shape[3])
+        buf = torch.full(x.shape[:2] + (n * t, x.shape[3]), fill,
+                         dtype=x.dtype, device=dev)
+        buf[:, :, :x.shape[2]] = x
+        return op(buf.reshape(x.shape[:2] + (n, t, x.shape[3])), 3)
+
+    def grid(n, t):
+        ne = rows(ne_row, n, t, False, torch.any)
+        full = rows(full_row, n, t, True, torch.all)
+        if f32:
+            return ne, full, rows(mn, n, t, math.inf, torch.amin), \
+                rows(mx, n, t, -math.inf, torch.amax)
+        return ne, full, None, None
+
+    def classes(ne, full, lo_v, hi_v, dead_t):
+        c = torch.zeros(ne.shape, device=dev)
+        if f32:
+            full = lo_v == hi_v
+            c = torch.where(full, lo_v, 0.0)
+        elif mask is None:
+            full = torch.ones_like(ne)
+        cls = torch.where(ne, torch.where(full, TILE_FULL, TILE_MIXED),
+                          TILE_EMPTY).to(torch.int32)
+        if walk_dead:
+            cls = torch.where(dead_t, TILE_MIXED, cls)
+            c = torch.where(dead_t, 0.0, c)
+        return cls, c
+
+    dead_b = _tiles_any(dead, nqb, BLOCK_ROWS)                 # (B, mh, nqb)
+    cls1, c1 = classes(*grid(nqb, BLOCK_ROWS), dead_b[..., None])
+    ne4, full4, lo4, hi4 = grid(nqt, K4_ROWS)                  # (., nqt, nk)
+    dead_t = _tiles_any(dead, nqt, K4_ROWS).expand(bx, mh, nqt)
+    if mh == h and nkv < h:   # a kv head walks its query heads' union
+        u = lambda x, op: op(x.reshape(bx, nkv, h // nkv, *x.shape[2:]), 2)
+        ne4, full4 = u(ne4, torch.any), u(full4, torch.all)
+        if f32:
+            lo4, hi4 = u(lo4, torch.amin), u(hi4, torch.amax)
+        dead_t = u(dead_t, torch.any)
+    cls4, c4 = classes(ne4, full4, lo4, hi4, dead_t[..., None])
+    return cls1, c1, cls4.transpose(2, 3), c4.transpose(2, 3)
+
+
 def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
                 causal_offset=None, window=None, seg_q=None, seg_k=None,
-                device=None):
+                device=None, dropout=False):
     """The tiles each block of K1, K3 and K4 walks in their general mode:
     the reference's ``_mask_block_bounds`` (:445, all-masked prefix and
     suffix blocks skipped, per row block or, ``axis_q=False``, per key
@@ -333,7 +483,23 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
     NEG_INF / 2), takes the softmax over every key (the uniform one for a
     bool mask: the mean of v), so its row block walks every key tile, past
     its window and its diagonal, and its query tile lies in every key
-    block's range."""
+    block's range. K3 walks ``dq``.
+
+    K1 and K4 walk lists instead (``_tile_classes``, ``_walk_lists``):
+    ``fwd_list`` (B, mh, ceil(sq/128), 1 + ceil(sk/128)) each 128-row
+    block's non-EMPTY 128-key tiles, ``dkv_list`` (B, mh', ceil(sk/128),
+    1 + ceil(sq/64)) each 128-key block's 64-row query tiles (mh' = nkv
+    when the mask has a head per query head under GQA: the union), each
+    entry ``tile | class << TILE_SHIFT`` with its c in ``fwd_c`` /
+    ``dkv_c``, and the classes themselves in ``fwd_cls`` / ``dkv_cls``;
+    a broadcast dim stays 1. With a bool mask and no ``dropout``
+    (``dead_off``) a dead row leaves the walks: K1 writes it as the mean
+    of v and K4 adds its dO / sk to every dv row, so a block of dead rows
+    walks nothing; otherwise a block holding a dead row walks every tile
+    as MIXED. ``dead`` (B, mh, sq) flags the dead rows, ``dead_bits``
+    packs them 64 rows a word (int64), ``dead_any`` says on the device
+    whether there is one, and ``words`` is a bool mask packed by
+    ``mask_words`` (None for an fp32 mask), which MIXED tiles read."""
     dev = mask.device if mask is not None else torch.device(device)
     window = _check_window(window, is_causal)
     vis = _visible_keys(b, sq, sk, is_causal, kv_lens, causal_offset, dev)
@@ -405,20 +571,81 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
     lox, hix = _first_last(dead_t, nqt)                     # (B, mh')
     lo4 = torch.minimum(lo4, lox[..., None])
     hi4 = torch.maximum(hi4, hix[..., None])
-    return {"fwd": _pairs(lo1, hi1, (b, h, nqb)),
-            "dq": _pairs(lo3, hi3, (b, h, nqb)),
-            "dkv": _pairs(lo4, hi4, (b, nkv, nkb))}
+    out = {"fwd": _pairs(lo1, hi1, (b, h, nqb)),
+           "dq": _pairs(lo3, hi3, (b, h, nqb)),
+           "dkv": _pairs(lo4, hi4, (b, nkv, nkb))}
+    # the walks of K1 and K4: dead rows of a bool mask without dropout are
+    # closed forms (the mean of v; dv += dsum / sk) and leave the walk
+    dead_off = mask is not None and mask.dtype == torch.bool and not dropout
+    m = None if mask is None else mask.expand(mask.shape[:3] + (sk,))
+    cls1, c1, cls4, c4 = _tile_classes(m, b, h, nkv, sq, sk, vis, wlo, dead,
+                                       not dead_off)
+    out["fwd_list"], out["fwd_c"] = _walk_lists(cls1, c1)
+    out["dkv_list"], out["dkv_c"] = _walk_lists(cls4, c4)
+    out.update(fwd_cls=cls1, dkv_cls=cls4, dead=dead, dead_off=dead_off,
+               dead_any=dead.any(),
+               dead_bits=_pack_bits(dead, -(-sq // 64) * 64).view(
+                   torch.int64),
+               words=None if mask is None or mask.dtype != torch.bool
+               else mask_words(m))
+    return out
+
+
+def _tensor_key(t):
+    """A hashable stand-in for a bounds argument: a tensor by its storage,
+    version, shape, strides, dtype and device (None where it has no
+    version: an inference tensor is never cached); a list as a tuple."""
+    if isinstance(t, torch.Tensor):
+        try:
+            return (t.data_ptr(), t._version, tuple(t.shape), t.stride(),
+                    t.dtype, str(t.device))
+        except RuntimeError:
+            return None
+    return tuple(t) if isinstance(t, list) else t
+
+
+# the last call's bounds: [key, the tensors the key names (kept alive, so
+# that no other tensor takes their storage), the bounds]
+_BOUNDS_CACHE = [None, None, None]
 
 
 def _call_bounds(q, k, attn_mask, is_causal, kv_lens, causal_offset,
-                 window=None, seg_q=None, seg_k=None):
+                 window=None, seg_q=None, seg_k=None, dropout_p=0.0):
     """``mask_bounds`` of a call on (b, sq, h, d) q and (b, sk, nkv, d) k
-    (its dense mask, or None)."""
+    (its dense mask, or None). One entry is cached, keyed on the mask, its
+    version, shape and dtype and the structured arguments: the layers of
+    a step share one mask, and K1 and K4 of a layer share the bounds
+    through the autograd context."""
     b, sq, h, _ = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     mask = None if attn_mask is None else dense_mask(attn_mask, b, h, sq, sk)
-    return mask_bounds(mask, b, h, nkv, sq, sk, is_causal, kv_lens,
-                       causal_offset, window, seg_q, seg_k, device=q.device)
+    args = (mask, kv_lens, seg_q, seg_k)
+    key = tuple(_tensor_key(t) for t in args)
+    key = None if any(t is not None and kt is None
+                      for t, kt in zip(args, key)) else key + (
+        b, h, nkv, sq, sk, bool(is_causal), causal_offset, window,
+        dropout_p > 0.0, str(q.device))
+    if key is not None and _BOUNDS_CACHE[0] == key:
+        return _BOUNDS_CACHE[2]
+    bounds = mask_bounds(mask, b, h, nkv, sq, sk, is_causal, kv_lens,
+                         causal_offset, window, seg_q, seg_k, device=q.device,
+                         dropout=dropout_p > 0.0)
+    if key is not None:
+        _BOUNDS_CACHE[:] = [key, args, bounds]
+    return bounds
+
+
+def _has_dead_rows(bounds):
+    """Whether a call's dead rows leave K1's and K4's walks and there is
+    one: the one host read of ``dead_any``, kept in the bounds, so that
+    the layers sharing them read it once (meta tensors carry no values:
+    none)."""
+    if not bounds["dead_off"]:
+        return False
+    if "has_dead" not in bounds:
+        d = bounds["dead_any"]
+        bounds["has_dead"] = d.device.type != "meta" and bool(d)
+    return bounds["has_dead"]
 
 
 def _masked_scores(s, mask, structured):
@@ -739,15 +966,26 @@ def _drop_args(dropout_p, key):
 class _ModArg(ctypes.Structure):
     """csrc/attn_mask.cuh's am::Mod: the dense mask's pointer (or null), its
     element strides (b, h, q, k; 0 on a broadcast dim), fp32 or bool, the
-    block bounds, the window (0: none), the segment ids' pointers (int32
-    (b, sq) and (b, sk), or null) and the ALiBi slopes' (fp32 (h,), or
-    null)."""
+    block bounds (K3), the window (0: none), the segment ids' pointers
+    (int32 (b, sq) and (b, sk), or null) and the ALiBi slopes' (fp32 (h,),
+    or null); then K1's and K4's walk (the list, its c values, its element
+    strides of a batch and a head, 0 on a broadcast dim, and a block's
+    entries), the dead rows' bits and word strides (null: none off the
+    walk), their closed form `red` (K1: the mean of v; K4: dsum), and the
+    packed bool mask with its dims (batches, heads, rows, words)."""
     _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_longlong),
                 ("sh", ctypes.c_longlong), ("sq", ctypes.c_longlong),
                 ("sk", ctypes.c_longlong), ("f32", ctypes.c_int),
                 ("bounds", ctypes.c_void_p), ("window", ctypes.c_int),
                 ("seg_q", ctypes.c_void_p), ("seg_k", ctypes.c_void_p),
-                ("slopes", ctypes.c_void_p)]
+                ("slopes", ctypes.c_void_p),
+                ("list", ctypes.c_void_p), ("cval", ctypes.c_void_p),
+                ("lsb", ctypes.c_longlong), ("lsh", ctypes.c_longlong),
+                ("ln", ctypes.c_int), ("dead", ctypes.c_void_p),
+                ("dsb", ctypes.c_longlong), ("dsh", ctypes.c_longlong),
+                ("red", ctypes.c_void_p), ("words", ctypes.c_void_p),
+                ("wb", ctypes.c_int), ("wh", ctypes.c_int),
+                ("wq", ctypes.c_int), ("ww", ctypes.c_int)]
 
 
 def _on(what, name, t, q, shape, dtype):
@@ -760,12 +998,20 @@ def _on(what, name, t, q, shape, dtype):
     return t.to(dtype).contiguous()
 
 
+def _strides0(t):
+    """The element strides of t's leading dims, 0 where a dim is 1."""
+    return [0 if n == 1 else st for n, st in zip(t.shape, t.stride())]
+
+
 def _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window, bounds, part,
-             q, b, h, sq, sk):
+             q, b, h, sq, sk, red=None):
     """The kernels' general-mode argument (a pointer to _ModArg; None for a
     call without a dense mask, segment ids or ALiBi) and the tensors it
     points into, which the caller keeps alive over the launch. `part` is
-    the kernel's entry of ``mask_bounds``'s dict `bounds`."""
+    the kernel's entry of ``mask_bounds``'s dict `bounds` (K1's "fwd" and
+    K4's "dkv" walk their lists; K3's "dq" its [lo, hi) bounds); `red`
+    the dead rows' closed form (K1 and K4, a call with dead rows off the
+    walk), or None."""
     if not _general(attn_mask, seg_q, slopes):
         return None, None
     m, strides = None, (0, 0, 0, 0)
@@ -787,7 +1033,22 @@ def _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window, bounds, part,
                                         and m.dtype != torch.bool),
                   bd.data_ptr(), min(window or 0, 1 << 30), ptr(seg_q),
                   ptr(seg_k), ptr(slopes))
-    return ctypes.pointer(arg), (m, bd, seg_q, seg_k, slopes, arg)
+    keep = [m, bd, seg_q, seg_k, slopes, arg, red]
+    if part != "dq":
+        lst, cv = bounds[part + "_list"], bounds[part + "_c"]
+        arg.list, arg.cval = lst.data_ptr(), cv.data_ptr()
+        arg.lsb, arg.lsh = _strides0(lst)[:2]
+        arg.ln = lst.shape[-1]
+        words = bounds["words"]
+        if words is not None:
+            arg.words = words.data_ptr()
+            arg.wb, arg.wh, arg.wq, arg.ww = words.shape
+        if red is not None:
+            dead = bounds["dead_bits"]
+            arg.dead, arg.red = dead.data_ptr(), red.data_ptr()
+            arg.dsb, arg.dsh = _strides0(dead)[:2]
+        keep += [lst, cv, words, bounds["dead_bits"]]
+    return ctypes.pointer(arg), keep
 
 
 def _refuse_d256_modes(what, d, window, dropout_p, rows, general=False):
@@ -830,6 +1091,85 @@ def _counters(wrapper, dims):
     wrapper.by_d = dict.fromkeys(dims, 0)
 
 
+def _bounds_for(what, bounds, q, k, attn_mask, is_causal, kv_lens,
+                causal_offset, window, seg_q, seg_k, dropout_p):
+    """The call's bounds: `bounds` as given (``mask_bounds``' dict, which
+    must say the call's dropout: a dead row leaves the walks only without
+    it), or computed (``_call_bounds``)."""
+    if bounds is None:
+        return _call_bounds(q, k, attn_mask, is_causal, kv_lens,
+                            causal_offset, window, seg_q, seg_k, dropout_p)
+    if bounds["dead_off"] != (bounds["words"] is not None
+                              and dropout_p == 0.0):
+        raise ValueError(f"{what}: the bounds were computed for another "
+                         "dropout setting (mask_bounds(..., dropout=...))")
+    return bounds
+
+
+# the row sums' launch: about this many blocks (two an H100 SM), each
+# summing at least ROW_SUM_ROWS rows
+ROW_SUM_BLOCKS, ROW_SUM_ROWS = 264, 256
+
+
+def dead_row_sums_plain(x, groups, scale, dead=None):
+    """Plain version of ``dead_row_sums``: fp32 (b, groups, d)."""
+    b, r, nh, d = x.shape
+    xf = x.float()
+    if dead is not None:
+        xf = torch.where(dead.transpose(1, 2)[..., None], xf,
+                         torch.zeros((), device=x.device))
+    return xf.reshape(b, r, groups, nh // groups, d).sum((1, 3)) * scale
+
+
+def dead_row_sums(x, groups, scale, dead=None, dead_bits=None):
+    """scale · the sum over the rows of x (b, R, NH, d) of each group of
+    NH / groups heads, fp32 (b, groups, d); with `dead` ((B|1, NH|1, R)
+    bool, ``mask_bounds``' dead) over the rows it flags only. The general
+    mode's dead rows off the walk (a bool mask without dropout) read it:
+    K1 the mean of v (x = v, scale 1 / sk), K4 dsum (x = dO over the dead
+    rows, its dead_bits). CUDA tensors launch ``csrc/attn_rows.cu`` (bf16,
+    contiguous, d 64, 128 or 256); CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return dead_row_sums_plain(x, groups, scale, dead)
+    b, r, nh, d = x.shape
+    if (x.device.type != KERNEL_DEVICE or x.dtype != torch.bfloat16
+            or not x.is_contiguous() or x.data_ptr() % 16
+            or d not in BWD_DIMS or nh % groups):
+        raise ValueError(f"dead_row_sums: x {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}: the kernel takes contiguous bf16 "
+                         f"(b, R, NH, d), d in {BWD_DIMS}, NH a multiple of "
+                         f"{groups}")
+    out = torch.empty((b, groups, d), dtype=torch.float32, device=x.device)
+    # a unit's rows over enough blocks for about two a SM, each at least
+    # ROW_SUM_ROWS rows
+    units = b * groups
+    nsplit = max(1, min(-(-ROW_SUM_BLOCKS // units),
+                        r * (nh // groups) // ROW_SUM_ROWS))
+    part = ticket = None
+    if nsplit > 1:
+        part = torch.empty((units * nsplit, d), dtype=torch.float32,
+                           device=x.device)
+        ticket = torch.zeros(units, dtype=torch.int32, device=x.device)
+    lib = _build.library("attn_rows")
+    fn = lib.attn_row_sums
+    if fn.argtypes is None:
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] * 5 + [cl, cl] + [ci] * 6
+                       + [ctypes.c_float, vp])
+        fn.restype = ctypes.c_int
+    bsb, bsh = (0, 0) if dead_bits is None else _strides0(dead_bits)[:2]
+    ptr = lambda t: None if t is None else _build.ptr(t)
+    err = fn(_build.ptr(x), _build.ptr(out), ptr(part), ptr(ticket),
+             ptr(dead_bits), bsb, bsh, b, r, nh, groups, d, nsplit,
+             float(scale), _build.stream_of(x))
+    dead_row_sums.launches += 1
+    _build.check(err, "dead_row_sums")
+    return out
+
+
+dead_row_sums.launches = 0
+
+
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                         causal_offset=None, window=None, dropout_p=0.0,
                         key=None, attn_mask=None, bounds=None, seg_q=None,
@@ -858,16 +1198,20 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
     general = _general(attn_mask, seg_q, alibi_slopes)
     _refuse_d256_modes("flash_attention_fwd", d, window, dropout_p, "row 1",
                        general)
-    if general and bounds is None:
-        bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
-                              causal_offset, window, seg_q, seg_k)
+    red = None
+    if general:
+        bounds = _bounds_for("flash_attention_fwd", bounds, q, k, attn_mask,
+                             is_causal, kv_lens, causal_offset, window,
+                             seg_q, seg_k, dropout_p)
+        if _has_dead_rows(bounds):      # their out: the mean of v
+            red = dead_row_sums(v, nkv, 1.0 / sk)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     out = torch.empty_like(q)
     marg, keep = _mod_arg("flash_attention_fwd", attn_mask, seg_q, seg_k,
                           alibi_slopes, window, bounds, "fwd", q, b, h, sq,
-                          sk)
+                          sk, red)
     lse = torch.empty((b, h, sq) + ((2,) if general else ()),
                       dtype=torch.float32, device=q.device)
     lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9)
@@ -898,9 +1242,11 @@ def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
                                                 ("dout", dout))
     general = _general(attn_mask, seg_q, slopes)
     _refuse_d256_modes(what, d, window, dropout_p, "rows 2-3", general)
-    if general and bounds is None:
-        bounds = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
-                              causal_offset, window, seg_q, seg_k)
+    red = None
+    if general:
+        bounds = _bounds_for(what, bounds, q, k, attn_mask, is_causal,
+                             kv_lens, causal_offset, window, seg_q, seg_k,
+                             dropout_p)
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} is not q's "
                          f"shape {tuple(q.shape)}")
@@ -909,8 +1255,12 @@ def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
     q_off = (sk - sq) if causal_offset is None else int(causal_offset)
     kl = _kv_lens_arg(kv_lens, b, q.device)
     head = [_build.ptr(t) for t in (q, k, v, dout, lse, delta)]
+    if part == "dkv" and general and _has_dead_rows(bounds):
+        # the dead rows' dv: their dO summed over the kv head's query heads
+        red = dead_row_sums(dout, nkv, 1.0, bounds["dead"],
+                            bounds["dead_bits"])
     marg, keep = _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window,
-                          bounds, part, q, b, h, sq, sk)
+                          bounds, part, q, b, h, sq, sk, red)
     # window 0: the windowless kernels; a window takes the windowed ones
     # (beyond 2^30 it masks nothing and stays a C int), as K1's wrapper
     tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
@@ -1049,7 +1399,8 @@ class FlashAttention(torch.autograd.Function):
         if _general(attn_mask, seg_q, alibi_slopes) and \
                 q.device.type != "cpu":
             kw["bounds"] = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
-                                        causal_offset, window, seg_q, seg_k)
+                                        causal_offset, window, seg_q, seg_k,
+                                        dropout_p)
         out, lse = flash_attention_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
