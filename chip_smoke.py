@@ -259,9 +259,14 @@ Phases, each printing one JSON line:
               beside live ones ((b, 1, s, s) bool), PaddleNLP's additive
               0 / -1e4 padding mask, float dead rows at -1e30 (their blocks
               on the walk of every tile), a ragged sk (300 × 333, d 128,
-              causal): out within K1_TOL_OUT, the pairs' lse within
-              K1_TOL_LSE (+ 2^-22·|m|), each gradient within K3_TOL ·
-              max|plain|, each kernel twice with the same bits, and
+              causal), dead query rows inside FULL tiles beside live ones
+              ((b, 1, s, s) bool, s 640, d 128, GQA, causal: K3's
+              log2 l = +inf rows) and ERNIE-base's whole dead blocks
+              under dropout 0.1 (off K3's walk, on K1's and K4's; the
+              keep mask the plain versions draw, out within K1_TOL_OUT +
+              K1S_OUT_RTOL·|plain|): out within K1_TOL_OUT, the pairs'
+              lse within K1_TOL_LSE (+ 2^-22·|m|), each gradient within
+              K3_TOL · max|plain|, each kernel twice with the same bits, and
               `mask_bounds` free of host syncs; each case timed (device_ms)
               beside torch sdpa with the same mask (forward; backward over
               a retained graph), the plain versions and the bound from
@@ -270,8 +275,8 @@ Phases, each printing one JSON line:
               dead row the closed form, no pair's work; beside it the
               bound that counts its sk keys at 2 / 0 / 2·d) (rows 1e, 2d,
               3d at the ERNIE-base case); each case prints its tiles by
-              class (`tile_counts`: EMPTY, FULL, MIXED in K1's and K4's
-              grids) and dead rows; a float row at -inf gives NaN
+              class (`tile_counts`: EMPTY, FULL, MIXED in K1's, K3's and
+              K4's grids) and dead rows; a float row at -inf gives NaN
               as the plain version; d 40 and 80 through the dispatch
               (padded, K1/K3/K4 once each in mask mode); the mask beside
               the window and dropout running, at d 256 refused, naming
@@ -7233,23 +7238,39 @@ def phase_train_unet(fa, fd, flops):
 # ---- K1, K3, K4's mask modes (phase k1m) --------------------------------------
 
 # Dense-mask cases of phase k1m: (name, b, h, nkv, sq, sk, d, causal, the
-# mask's form). The ERNIE-base case is the shape of phase ernie's masked
-# backbone, which the rows 1e, 2d and 3d time.
+# mask's form, the attention dropout). The ERNIE-base case is the shape of
+# phase ernie's masked backbone, which the rows 1e, 2d and 3d time.
 K1M_CASES = (
-    ("ernie_base_key_padding", 32, 12, 12, 512, 512, 64, False, "padding"),
-    ("ernie_titan_key_padding", 8, 96, 96, 512, 512, 128, False, "padding"),
-    ("tinyllama_causal_padding", 4, 32, 4, 2048, 2048, 64, True, "padding"),
-    ("full_4d_fp32", 2, 8, 8, 512, 512, 64, False, "fp32_4d"),
-    ("block_sparse_2d_bool", 2, 8, 8, 1024, 1024, 128, False, "blocks_2d"),
-    ("mask_3d_gqa", 2, 8, 2, 384, 384, 64, True, "bool_3d"),
-    ("cross_512x77_key_mask", 4, 8, 8, 512, 77, 64, False, "padding"),
+    ("ernie_base_key_padding", 32, 12, 12, 512, 512, 64, False, "padding",
+     0.0),
+    ("ernie_titan_key_padding", 8, 96, 96, 512, 512, 128, False, "padding",
+     0.0),
+    ("tinyllama_causal_padding", 4, 32, 4, 2048, 2048, 64, True, "padding",
+     0.0),
+    ("full_4d_fp32", 2, 8, 8, 512, 512, 64, False, "fp32_4d", 0.0),
+    ("block_sparse_2d_bool", 2, 8, 8, 1024, 1024, 128, False, "blocks_2d",
+     0.0),
+    ("mask_3d_gqa", 2, 8, 2, 384, 384, 64, True, "bool_3d", 0.0),
+    ("cross_512x77_key_mask", 4, 8, 8, 512, 77, 64, False, "padding", 0.0),
     ("ernie_base_dead_blocks", 32, 12, 12, 512, 512, 64, False,
-     "padding_dead"),
-    ("ernie_base_dead_rows", 32, 12, 12, 512, 512, 64, False, "rows_dead"),
-    ("ernie_base_neg1e4", 32, 12, 12, 512, 512, 64, False, "neg1e4"),
-    ("fp32_dead_rows", 2, 8, 8, 512, 512, 64, False, "fp32_dead"),
-    ("ragged_sk_causal_padding", 2, 8, 2, 300, 333, 128, True, "padding"),
+     "padding_dead", 0.0),
+    ("ernie_base_dead_rows", 32, 12, 12, 512, 512, 64, False, "rows_dead",
+     0.0),
+    ("ernie_base_neg1e4", 32, 12, 12, 512, 512, 64, False, "neg1e4", 0.0),
+    ("fp32_dead_rows", 2, 8, 8, 512, 512, 64, False, "fp32_dead", 0.0),
+    ("ragged_sk_causal_padding", 2, 8, 2, 300, 333, 128, True, "padding",
+     0.0),
+    # K3 takes a bool mask's dead rows off its walk by log2 l = +inf: dead
+    # rows inside FULL tiles beside live ones (d 128, GQA, causal), and
+    # whole blocks of dead rows under dropout (on K1's and K4's walks there)
+    ("full_tiles_dead_rows", 2, 8, 2, 640, 640, 128, True, "rows_dead_full",
+     0.0),
+    ("ernie_base_dead_blocks_dropout", 32, 12, 12, 512, 512, 64, False,
+     "padding_dead", 0.1),
 )
+# the cases that draw from a generator of their own (so that the others'
+# inputs stay those of the runs before them)
+K1M_OWN_GEN = ("full_tiles_dead_rows", "ernie_base_dead_blocks_dropout")
 K1M_MAIN = "ernie_base_key_padding"
 
 
@@ -7286,6 +7307,12 @@ def k1m_mask(form, b, h, sq, sk, gen):
         m[:8, :, 100:140] = False                       # key (dead rows
         m[:8, :, sq - 1] = False                        # beside live ones)
         return m
+    if form == "rows_dead_full":    # (b, 1, sq, sk) True but query rows
+        m = torch.ones((b, 1, sq, sk), dtype=torch.bool,   # hidden at
+                       device="cuda")                      # every key, in
+        m[0, :, [5, 77, 200, 450]] = False                 # FULL tiles
+        m[1 % b, :, 300:331] = False                       # beside live
+        return m                                           # rows
     if form == "neg1e4":            # PaddleNLP's additive padding mask,
         keep = k1m_mask("padding", b, h, sq, sk, gen)  # (b, 1, 1, sk) fp32
         return torch.where(keep, 0.0, -1e4)            # 0 / -1e4
@@ -7331,11 +7358,13 @@ def attention_ops(key, d, pairs, dead_pairs, bool_mask, closed=False):
 
 def tile_counts(bounds, b, h, nkv):
     """A call's tiles by class over every block: K1's (b, h, 128-row
-    blocks, 128-key tiles) and K4's (b, kv heads, 128-key blocks, 64-row
-    query tiles), and its dead rows (b, h) and whether they are off the
-    walk (a bool mask without dropout)."""
+    blocks, 128-key tiles), K3's (b, h, 128-row blocks, 64-key tiles) and
+    K4's (b, kv heads, 128-key blocks, 64-row query tiles), and its dead
+    rows (b, h) and whether they are off K1's and K4's walks (a bool mask
+    without dropout; K3's: any bool mask)."""
     out = {}
-    for key, name, heads in (("k1", "fwd_cls", h), ("k4", "dkv_cls", nkv)):
+    for key, name, heads in (("k1", "fwd_cls", h), ("k3", "dq_cls", h),
+                             ("k4", "dkv_cls", nkv)):
         c = bounds[name]
         c = c.expand(b, heads, *c.shape[2:])
         out[key] = {n: int((c == v).sum().item()) for n, v in (
@@ -7370,31 +7399,38 @@ def k1m_work(fa, mask, b, h, nkv, sq, sk, d, causal):
                    "k4": 2 * tq + 4 * tk + mb + 12 * rows}
 
 
-def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
+def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, dropout,
+             bw, flops, iops):
     """K1, K3 and K4 in mask mode against their plain versions on the same
-    inputs: out within K1_TOL_OUT and the pair's lse m + log l within
-    K1_TOL_LSE (plus 2^-22·|m|: rows at -1e10); each gradient within
-    K3_TOL · max|plain| (the plain backward on K1's (out, pairs)); each
-    kernel launched twice with the same bits. Then the device times of
-    the three kernels, torch sdpa's with the same mask (forward, and
-    backward over a retained graph), the plain versions', and the
-    bounds."""
+    inputs (with `dropout`, the same keep mask): out within K1_TOL_OUT (plus
+    K1S_OUT_RTOL·|plain| under dropout, whose 1/keep scales a kept
+    probability) and the pair's lse m + log l within K1_TOL_LSE (plus
+    2^-22·|m|: rows at -1e10); each gradient within K3_TOL · max|plain|
+    (the plain backward on K1's (out, pairs)); each kernel launched twice
+    with the same bits. Then the device times of the three kernels, torch
+    sdpa's with the same mask (forward, and backward over a retained
+    graph), the plain versions', and the bounds."""
+    from paddle_tpu_torch.core import rng
     q, k, v, do = (rand(s, gen) for s in ((b, sq, h, d), (b, sk, nkv, d),
                                            (b, sk, nkv, d), (b, sq, h, d)))
     mask = k1m_mask(form, b, h, sq, sk, gen)
     kw = dict(is_causal=causal, attn_mask=mask)
+    if dropout:
+        kw.update(dropout_p=dropout, key=rng.fold_in(drop_key(24), 0))
     m4 = fa.dense_mask(mask, b, h, sq, sk)
-    bounds = fa.mask_bounds(m4, b, h, nkv, sq, sk, causal)
+    bounds = fa.mask_bounds(m4, b, h, nkv, sq, sk, causal,
+                            dropout=dropout > 0.0)
     with torch.no_grad():
         out, st = fa.flash_attention_fwd(q, k, v, **kw, bounds=bounds)
         out2, st2 = fa.flash_attention_fwd(q, k, v, **kw, bounds=bounds)
     ref, ref_st = fa.flash_attention_fwd_plain(q, k, v, **kw)
-    err = (out.float() - ref.float()).abs().max().item()
+    err = ((out.float() - ref.float()).abs() - (K1S_OUT_RTOL if dropout
+           else 0.0) * ref.float().abs()).max().item()
     lse, ref_lse = st.double().sum(-1), ref_st.double().sum(-1)
     lerr = ((lse - ref_lse).abs() - 2.0 ** -22 * ref_st[..., 0].double()
             .abs()).max().item()
     res = {"case": name, "b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk,
-           "d": d, "causal": causal, "mask": form,
+           "d": d, "causal": causal, "mask": form, "dropout": dropout,
            "mask_shape": list(m4.shape), "mask_dtype": str(m4.dtype),
            "max_abs_err": err, "tol": K1_TOL_OUT, "lse_max_abs_err": lerr,
            "lse_tol": K1_TOL_LSE,
@@ -7436,9 +7472,9 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
               "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
                   q, k, v, do, st, delta, **bkw), iters=10)}
     res["bounds_ms"] = time_ms(lambda: fa.mask_bounds(
-        m4, b, h, nkv, sq, sk, causal), iters=10)
+        m4, b, h, nkv, sq, sk, causal, dropout=dropout > 0.0), iters=10)
     res["bounds_host_syncs"] = host_syncs(lambda: fa.mask_bounds(
-        m4, b, h, nkv, sq, sk, causal))
+        m4, b, h, nkv, sq, sk, causal, dropout=dropout > 0.0))
     plain = {"k1": time_ms(lambda: fa.flash_attention_fwd_plain(
                  q, k, v, **kw), iters=2, warmup=1),
              "k3": time_ms(lambda: fa.flash_attention_bwd_plain(
@@ -7449,6 +7485,7 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     gqa = {"enable_gqa": True} if nkv != h else {}
+    gqa["dropout_p"] = dropout      # sdpa's own keep mask
     with torch.no_grad():
         lib_fwd = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=lm, **gqa),
                             iters=10)
@@ -7460,11 +7497,17 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, bw, flops):
     lib = {"k1": lib_fwd, "k3": lib_bwd, "k4": lib_bwd}
     is_bool = m4.dtype == torch.bool
     for key in ("k1", "k3", "k4"):
+        # dropout hashes every pair the kernel weighs (a bool mask's dead
+        # row's keys for out and dv, not for K3's zero dq); without it a
+        # bool mask's dead row is the closed form
+        hashed = pairs + (dead_pairs if DEAD_KEY_OPS[key] or not is_bool
+                          else 0)
+        nint = HASH_OPS * hashed if dropout else 0
         bound, by = bound3(nbytes[key], attention_ops(
-            key, d, pairs, dead_pairs, is_bool, closed=is_bool), 0, bw,
-            flops, 1.0)
+            key, d, pairs, dead_pairs, is_bool,
+            closed=is_bool and not dropout), nint, bw, flops, iops)
         bound_pr21, _ = bound3(nbytes[key], attention_ops(
-            key, d, pairs, dead_pairs, is_bool), 0, bw, flops, 1.0)
+            key, d, pairs, dead_pairs, is_bool), nint, bw, flops, iops)
         res[key] = dict(res.get(key, {}), ms=ms[key], plain_ms=plain[key],
                         library_ms=lib[key], bound_ms=bound, bound_by=by,
                         bound_ms_dead_rows_as_pairs=bound_pr21)
@@ -7566,14 +7609,17 @@ def mask_refusals(fa):
     return out
 
 
-def phase_k1m(fa, bw, flops):
+def phase_k1m(fa, bw, flops, iops):
     """K1, K3 and K4's mask modes against their plain versions (see the
     module docstring, phase 8k)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
+    own = torch.Generator(device="cuda")
+    own.manual_seed(24)
     cases = []
     for case in K1M_CASES:
-        cases.append(k1m_case(fa, gen, *case, bw, flops))
+        cases.append(k1m_case(fa, own if case[0] in K1M_OWN_GEN else gen,
+                              *case, bw, flops, iops))
         emit({"phase": "k1m_case", **cases[-1]})
         gc.collect()
         torch.cuda.empty_cache()
@@ -8666,11 +8712,11 @@ def main(argv):
         print(json.dumps({"kernels": [row, row8]}), flush=True)
         return 0
     if "--ernie" in argv:
-        rows = mask_rows(phase_k1m(fa, bw, flops), phase_ernie(fa, fd))
+        rows = mask_rows(phase_k1m(fa, bw, flops, iops), phase_ernie(fa, fd))
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
     if "--k1m" in argv:
-        phase_k1m(fa, bw, flops)
+        phase_k1m(fa, bw, flops, iops)
         return 0
     if "--k1s" in argv:
         phase_k1s(fa, fd, bw, flops, iops)
@@ -8714,7 +8760,7 @@ def main(argv):
     k1d_rows = phase_k1d(fa, bw, flops, iops)
     k1h_shapes, k1h_err = phase_k1h(fa, bw, flops)
     k3h_shapes, k3h_errs = phase_k3h(fa, bw, flops)
-    k1m_cases = phase_k1m(fa, bw, flops)
+    k1m_cases = phase_k1m(fa, bw, flops, iops)
     k1s_cases, k1s_launches, k1s_sums = phase_k1s(fa, fd, bw, flops, iops)
     if quick:
         return 0

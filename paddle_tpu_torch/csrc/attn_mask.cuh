@@ -31,15 +31,16 @@
 // dropout: out = the mean of v over all sk keys, the pair (NEG, log sk),
 // dq = 0, nothing to dk, dO/sk to every key's dv. So K1 and K4 take dead
 // rows off their walks (K1's epilogue writes the mean, `red`; K4's adds
-// dsum/sk to dv, its producer zeroes the rows' P through log2 l = +inf),
-// and K3, which walks the bounds of every tile for a block that holds one,
-// reads the same pair. A float mask's dead row, or one under dropout, is
-// no closed form: its block walks every key tile, later ones and those
-// below its window included. A row that no key reaches through the
-// structured masks gives 0; a float row at -inf everywhere gives NaN, as
-// the twin and the reference's CPU path do.
+// dsum/sk to dv, its producer zeroes the rows' P through log2 l = +inf).
+// Its dq is 0 under dropout too (no score of it depends on s), so K3 takes
+// it off its walk always: the consumer zeroes its P through log2 l = +inf,
+// and a block of dead rows walks nothing. A float mask's dead row, or (K1,
+// K4) one under dropout, is no closed form: its block walks every key
+// tile, later ones and those below its window included. A row that no key
+// reaches through the structured masks gives 0; a float row at -inf
+// everywhere gives NaN, as the twin and the reference's CPU path do.
 //
-// K1 and K4 walk lists of tiles (ops/flash_attention.py `mask_bounds`,
+// K1, K3 and K4 walk lists of tiles (ops/flash_attention.py `mask_bounds`,
 // `_tile_classes`): a block's non-EMPTY tiles in order, each with its
 // class. EMPTY tiles (no entry can change a counted row) are never loaded.
 // A FULL tile's entries are all bool True (at the keys the structured
@@ -47,11 +48,11 @@
 // no mask load (entry_score with keep = true or v = c). A MIXED bool tile
 // reads its entries as bits from shared memory, where the producer staged
 // the tile's packed words (`words`, 4 uint32 a row of 128 keys) by TMA
-// beside the tile's K (K1) or Q (K4); a MIXED fp32 tile reads the mask in
-// place. The structured test (kv_len, the diagonal, the window, segment
-// ids) runs per element only on a tile that one of them cuts for the
-// group's rows; a FULL tile does not turn MIXED for that. K3 walks its
-// [lo, hi) bounds and reads the mask in place (mask_score, score).
+// beside the tile's K (K1; K3 the words of the 128-key group holding its
+// 64-key tile) or Q (K4); a MIXED fp32 tile reads the mask in place. The
+// structured test (kv_len, the diagonal, the window, segment ids) runs per
+// element only on a tile that one of them cuts for the group's rows; a
+// FULL tile does not turn MIXED for that.
 //
 // The modifiers are runtime fields of one argument (Mod), not template
 // flags: the reference composes them in any combination, and a branch on
@@ -74,20 +75,20 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // The general mode's argument. Element (b, h, q, k) of the dense mask (p,
 // or null without one) lies at p + b·sb + h·sh + q·sq + k·sk (elements; 0
-// on a broadcast dim), one byte a bool or an fp32; `bounds` holds each
-// block's [lo, hi) tile range (K3); window > 0: the causal sliding window;
-// seg_q (b, sq) and seg_k (b, sk) int32, or null: the segment ids; slopes
-// (h,) fp32, or null: ALiBi.
-// Appended for K1's and K4's walks (K3 reads none of them): `list` holds a
-// block's walk at list + b·lsb + head·lsh + block·ln (K1: the query head
-// and 128-row block; K4: the kv head and 128-key block; 0 strides on a
-// broadcast dim): [n, entry 1 … entry n], an entry tile | class <<
-// TILE_SHIFT, its c at the same index of `cval`; `dead` (or null: dead
-// rows stay on the walk, or there is none) the dead rows' bits, 64 rows a
-// word, (b, head) at dead + b·dsb + head·dsh; `red` (b, nkv, d) fp32 the
-// dead rows' closed form (K1: the mean of v; K4: dsum, the sum of their
-// dO); `words` (or null: an fp32 mask or none) the bool mask packed 32 keys
-// a uint32, (wb, wh, wq, ww) words, each dim 1 where the mask broadcasts.
+// on a broadcast dim), one byte a bool or an fp32; `bounds` each block's
+// [lo, hi) tile range (no kernel reads it: the lists below replaced it);
+// window > 0: the causal sliding window; seg_q (b, sq) and seg_k (b, sk)
+// int32, or null: the segment ids; slopes (h,) fp32, or null: ALiBi.
+// The walks: `list` holds a block's walk at list + b·lsb + head·lsh +
+// block·ln (K1, K3: the query head and 128-row block; K4: the kv head and
+// 128-key block; 0 strides on a broadcast dim): [n, entry 1 … entry n], an
+// entry tile | class << TILE_SHIFT, its c at the same index of `cval`;
+// `dead` (or null: dead rows stay on the walk, or there is none) the dead
+// rows' bits, 64 rows a word, (b, head) at dead + b·dsb + head·dsh; `red`
+// (b, nkv, d) fp32 the dead rows' closed form (K1: the mean of v; K4:
+// dsum, the sum of their dO; K3 none: their dq is 0); `words` (or null:
+// an fp32 mask or none) the bool mask packed 32 keys a uint32, (wb, wh,
+// wq, ww) words, each dim 1 where the mask broadcasts.
 struct Mod {
   const void* p;
   long long sb, sh, sq, sk;
@@ -108,7 +109,7 @@ struct Mod {
   int wb, wh, wq, ww;
 };
 
-// K1's and K4's argument: Mod and the tensor map of its packed words
+// K1's, K3's and K4's argument: Mod and the tensor map of its packed words
 // (boxes of 4 words by a block's rows, or 1 row for a key-padding mask),
 // which the producer's TMA reads from the kernel's parameters
 struct ModTile {
@@ -132,56 +133,11 @@ __device__ __forceinline__ bool hidden(const Mod& md, int kc, int kvlen,
          (md.window > 0 && kc <= qp - md.window) || seg;
 }
 
-// A dense mask alone: the masked score t of key kc for a row whose mask
-// entries start at element `row` (row < 0: a row past sq, -inf
-// everywhere), and whether t depends on s (g); st: kv_len or the causal
-// diagonal hides the key
-__device__ __forceinline__ float mask_score(const Mod& md, long long row,
-                                            int kc, int sk, float s,
-                                            float scale, bool st, bool& g) {
-  g = false;
-  if (row < 0 || kc >= sk) return -INFINITY;
-  const long long at = row + (long long)kc * md.sk;
-  if (md.f32) {
-    const float v = __ldg(reinterpret_cast<const float*>(md.p) + at);
-    if (st) return NEG + v;
-    g = true;
-    return fmaf(s, scale, v);
-  }
-  const bool keep = __ldg(reinterpret_cast<const uint8_t*>(md.p) + at) != 0;
-  g = keep && !st;
-  return g ? s * scale : NEG;
-}
-
-// EXTRA: the score t of key kc for a row whose mask entries start at element
-// `row` (row < 0: a row past sq, -inf everywhere), s the raw score and
-// bias the row's ALiBi term for the key, and whether t depends on s (g: a
-// gradient reaches s only there); st: the structured masks hide the key
-__device__ __forceinline__ float score(const Mod& md, long long row, int kc,
-                                       int sk, float s, float scale,
-                                       float bias, bool st, bool& g) {
-  g = false;
-  if (row < 0 || kc >= sk) return -INFINITY;
-  if (md.p == nullptr) {
-    g = !st;
-    return st ? -INFINITY : fmaf(s, scale, bias);
-  }
-  const long long at = row + (long long)kc * md.sk;
-  if (md.f32) {
-    const float v = __ldg(reinterpret_cast<const float*>(md.p) + at);
-    if (st) return NEG + v;
-    g = true;
-    return fmaf(s, scale, bias + v);
-  }
-  const bool keep = __ldg(reinterpret_cast<const uint8_t*>(md.p) + at) != 0;
-  g = keep && !st;
-  return g ? fmaf(s, scale, bias) : NEG;
-}
-
-// The score t of an element from its mask entry, whether t depends on s
-// (g), as mask_score and score take it: a bool entry `keep`, or an fp32
+// The score t of an element from its mask entry, and whether t depends on
+// s (g: a gradient reaches s only there): a bool entry `keep`, or an fp32
 // one v; st: the structured masks hide the key; bias: ALiBi's term (0
-// without it). A FULL tile passes keep = true or v = c
+// without it); without a mask keep = true. A FULL tile passes keep = true
+// or v = c
 __device__ __forceinline__ float entry_score(bool f32, bool keep, float v,
                                              float s, float scale,
                                              float bias, bool st, bool& g) {

@@ -86,26 +86,34 @@
 //   dv = (P∘[Z/keep])ᵀ·dO over every element (P is nonzero off those only
 //        in a dead row, whose uniform softmax weighs every key,
 //        csrc/attn_mask.cuh).
-// K3 walks each 128-row block's [lo, hi) of 64-key tiles from the caller's
-// bounds (ops/flash_attention.py `mask_bounds`' dq: the reference's
-// _mask_block_bounds, :445, per query block; the window folded in, a block
-// that holds a dead row past every limit), every tile with the per-element
-// test. K4 walks each 128-key block's list of 64-row query tiles
-// (`mask_bounds`' dkv_list: the reference's per key block bounds,
+// Both walk lists of tiles, as K1 walks its key tiles
+// (csrc/flash_attention.cu, csrc/attn_mask.cuh): EMPTY tiles never loaded,
+// FULL tiles with no mask load, a MIXED bool tile's packed words staged by
+// the producer's TMA beside the tile on its stage's full barrier, a MIXED
+// fp32 tile's mask read in place, the structured test per element only
+// where kv_len, the diagonal, the window or segment ids (K4: also sq) cut
+// the tile for the group's rows. K3 walks each 128-row block's list of
+// 64-key tiles (`mask_bounds`' dq_list: the reference's _mask_block_bounds,
+// :445, per query block, made per tile; the window folded in); a MIXED
+// tile stages the 4 words a row of the 128-key group that holds it (2 KB,
+// or 16 bytes for a key-padding mask: a TMA box is 16 bytes wide at least)
+// and reads its half. K4 walks each 128-key block's list of 64-row query
+// tiles (`mask_bounds`' dkv_list: the reference's per key block bounds,
 // axis_q=False, made per tile; under GQA the union over the kv head's
-// query heads, whose own mask rows, segment ids and slopes K4 reads), as
-// K1 walks its key tiles (csrc/flash_attention.cu, csrc/attn_mask.cuh):
-// EMPTY tiles never loaded, FULL tiles with no mask load, a MIXED bool
-// tile's packed words staged by the producer's TMA beside Q and dO (1 KB, or
-// 16 bytes for a key-padding mask), the structured test per element only
-// where kv_len, the diagonal, sq, the window or segment ids cut the tile.
-// A dead row of a bool mask without dropout is off K4's walk: where a tile
-// holds one beside live rows, the producer gives it log2 l = +inf (its Pᵀ
-// and dSᵀ are 0), and the epilogue adds dsum / sk to every key's dv (`red`,
-// the sum of the dead rows' dO from csrc/attn_rows.cu). Inside MOD, WIN
-// picks the loop with the window, segment ids and ALiBi (EXTRA), as in
-// K1; without it a dense mask alone runs the lean loop (kv_len, the
-// diagonal and the mask).
+// query heads, whose own mask rows, segment ids and slopes K4 reads),
+// staging a MIXED tile's words beside Q and dO (1 KB, or 16 bytes).
+// A dead row of a bool mask (every key it reaches hidden by the mask) has
+// no score that depends on s, so its dq is 0 and its Pᵀ·dO the same at
+// every key: it is off K3's walk with or without dropout (its rows do not
+// count for a tile's class; the consumer gives it log2 l = +inf, so its P
+// and dS are 0 on a FULL tile it shares with live rows; a block of dead
+// rows walks nothing and writes zeros), and off K4's without dropout (the
+// producer gives it log2 l = +inf, and the epilogue adds dsum / sk to
+// every key's dv: `red`, the sum of the dead rows' dO from
+// csrc/attn_rows.cu). A float mask's dead row keeps its block on every
+// tile of both walks, as MIXED. Inside MOD, WIN picks the loop with the
+// window, segment ids and ALiBi (EXTRA), as in K1; without it a dense mask
+// alone runs the lean loop (kv_len, the diagonal and the mask).
 //
 // Layouts: q, dout (b, sq, h, d), k/v (b, sk, nkv, d), dq (b, sq, h, d),
 // dk/dv (b, sk, nkv, d), all bf16 and contiguous; lse, delta (b, h, sq)
@@ -215,6 +223,19 @@ __device__ __forceinline__ void issue_acc(float (&acc)[N / 2],
 // catch a tile that straddles the window's lower edge for the group's rows
 // (key <= q_off - window + r).
 //
+// General mode (MOD): the producer walks the block's list (`dq_list`),
+// reading each entry a tile ahead and passing it and its c to the
+// consumers in the stage's slot (an entry read from global memory right
+// before the softmax that needs it stalls every tile), and loads a MIXED
+// bool tile's words on the stage's full barrier. Both consumer groups walk
+// the whole list (a tile past a group's rows gives dS = 0 there). The
+// softmax pass, which hides under dq(j) on the tensor cores, takes one of
+// three loops a tile: a FULL tile no edge cuts (no mask load, no
+// structured test: most of a walk), a FULL edge tile, and a MIXED tile
+// (its bits from shared memory, or the fp32 mask in place). Shared memory
+// adds ST words stages of 2 KB and ST slots past the barriers (d = 128:
+// 201 KB).
+//
 // Why 64-key tiles: S and dP (2 × 32 fp32 a thread), dq (d/2) and the packed
 // dS (16) are live together, ≈ 150 registers at d = 128; 128-key tiles
 // would hold ≈ 230 and spill. Why one empty barrier a stage (K1 releases K
@@ -254,6 +275,14 @@ struct Dq {
   static constexpr int V_OFF = K_OFF + ST * KT_BYTES;       // V stages
   static constexpr int BAR_OFF = V_OFF + ST * KT_BYTES;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * ST) * 8 + 1024;
+  // MOD: a ring stage of a MIXED bool tile's packed words (the 4 words a
+  // row of the 128-key group that holds the 64-key tile: a TMA box's inner
+  // extent is 16 bytes at least), and of the walk entry and its c, past
+  // the barriers, so that the other instantiations keep their layout
+  static constexpr int W_BYTES = BQ3 * 16;
+  static constexpr int W_OFF = (BAR_OFF + (1 + 2 * ST) * 8 + 127) / 128 * 128;
+  static constexpr int E_OFF = W_OFF + ST * W_BYTES;
+  static constexpr int SMEM_MOD = E_OFF + ST * 8 + 1024;
 };
 
 // dS = P∘(dP − Δ) in place of dP, P = 2^(S·sl2 − lse·log2 e) from the S
@@ -294,20 +323,31 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK / 2],
       }
 }
 
-// MOD: dS = P∘(dP − Δ) in place of dP where t depends on s, else 0, with
-// t the score of csrc/attn_mask.cuh (rows r0 + 8i read the mask from
-// element mr[i], have segment ids sg[i] against the keys' at segk, and the
-// bias slope·(k - q - q_off)) and P from the row's (m, log2 l) in (mm,
-// lg). DROP: dS = P∘(dP∘Z/keep − Δ), Z hashed as in k3_ds. EXTRA: the
-// window, segment ids or ALiBi are present; without them (a dense mask
-// alone) the per-element test is kv_len, the diagonal and the mask only
-template <int BK, bool DROP, bool EXTRA>
+// MOD: the sources of a walked tile's mask entries in K3: a FULL tile's
+// (every entry True or the value c; a call without a mask too), or a MIXED
+// tile's (a bool mask's bits staged in shared memory, an fp32 mask read in
+// place)
+enum { K3_FULL, K3_MIXED };
+
+// MOD: dS = P∘(dP − Δ) in place of dP where the score t depends on s, else
+// 0, for tile k0 (keys k0 + 8c + 2·tg + j, rows r0 + 8i), with t the score
+// of csrc/attn_mask.cuh's entry_score: a FULL tile's entries are cv (0 for
+// a bool mask); a MIXED bool tile's are bits of wr[i] (the row's two words
+// of the tile's 64 keys), a MIXED fp32 tile's the mask at element mr[i] +
+// key·sk (mr[i] < 0: a row past sq). P = 2^((t − m)·log2 e − log2 l) from
+// the row's (m, log2 l) in (mm, lg) (log2 l = +inf: P = 0). The structured
+// test runs per element only on an EDGE tile (kv_len, the diagonal, the
+// window or segment ids cut it for the group's rows). EXTRA: the rows'
+// segment ids sg[i] against the keys' at segk, the bias slope·(k - q -
+// q_off). DROP: dS = P∘(dP∘Z/keep − Δ), Z hashed as in k3_ds
+template <int BK, bool DROP, bool EXTRA, int SRC, bool EDGE>
 __device__ __forceinline__ void k3_ds_mod(
     const float (&sa)[BK / 2], float (&dp)[BK / 2], const float (&mm)[2],
     const float (&lg)[2], const float (&dl)[2], int k0, int r0, int tg,
     int sk, int kvlen, int causal, int q_off, float scale, const am::Mod& md,
     const long long (&mr)[2], const int (&sg)[2], const int* segk,
-    float slope, const tf::Drop& dr, uint64_t rb, uint64_t rs8) {
+    float slope, float cv, const uint2 (&wr)[2], const tf::Drop& dr,
+    uint64_t rb, uint64_t rs8) {
 #pragma unroll
   for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -316,20 +356,33 @@ __device__ __forceinline__ void k3_ds_mod(
       for (int j = 0; j < 2; ++j) {
         const int e = 4 * c + 2 * i + j;
         const int key = k0 + c * 8 + tg * 2 + j;
-        bool g;
-        float t;
-        if constexpr (EXTRA) {
-          const int qp = q_off + r0 + 8 * i;
-          const bool st = am::hidden(
-              md, key, kvlen, causal, qp,
-              segk != nullptr && key < sk && __ldg(segk + key) != sg[i]);
-          t = am::score(md, mr[i], key, sk, sa[e], scale,
-                        slope * (float)(key - qp), st, g);
-        } else {
-          t = am::mask_score(
-              md, mr[i], key, sk, sa[e], scale,
-              key >= kvlen || (causal && key > q_off + r0 + 8 * i), g);
+        const int qp = q_off + r0 + 8 * i;
+        bool st = false;
+        if constexpr (EDGE) {
+          if constexpr (EXTRA)
+            st = am::hidden(
+                md, key, kvlen, causal, qp,
+                segk != nullptr && key < sk && __ldg(segk + key) != sg[i]);
+          else
+            st = key >= kvlen || (causal && key > qp);
         }
+        const float bias = EXTRA ? slope * (float)(key - qp) : 0.f;
+        bool keep = true;
+        float v = cv;
+        if constexpr (SRC == K3_MIXED) {
+          if (md.words != nullptr) {
+            const uint32_t w = c < 4 ? wr[i].x : wr[i].y;
+            keep = (w >> ((c & 3) * 8 + tg * 2 + j)) & 1;
+          } else if (mr[i] < 0) {
+            st = true;            // a row past sq: no entry to read
+          } else if (!st) {
+            v = __ldg(reinterpret_cast<const float*>(md.p) + mr[i] +
+                      (long long)key * md.sk);
+          }
+        }
+        bool g;
+        const float t =
+            am::entry_score(md.f32, keep, v, sa[e], scale, bias, st, g);
         const float p = am::prob(t, mm[i], lg[i]);
         float d = dp[e];
         if constexpr (DROP)
@@ -349,15 +402,17 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   const int* __restrict__ kv_lens, int sq, int sk, int h,
                   int nkv, int causal, int q_off, int window, float scale,
-                  int group, tf::Drop dr, am::Mod md) {
+                  int group, tf::Drop dr,
+                  const __grid_constant__ am::ModTile mt) {
   using C = Dq<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
   // the general mode (MOD) reads its window from md and walks the tiles of
-  // its bounds: there WIN picks the loop with the window, segment ids and
+  // its list: there WIN picks the loop with the window, segment ids and
   // ALiBi (EXTRA), and the windowed walk (WND) is the WIN kernel's alone
   constexpr bool WND = WIN && !MOD;
   constexpr bool EXTRA = WIN && MOD;
+  const am::Mod& md = mt.m;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = sm90::align1024(smem_raw);
   uint8_t* Qs = sm;
@@ -390,13 +445,22 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
   int t0 = WND ? max(0, q_off + q0 - window + 1) / BK : 0;
   int ntiles = kend > t0 * BK ? (kend + BK - 1) / BK - t0 : 0;
   const int wlo = WND ? q_off - window : 0;
+  // MOD: this block's walk, [n, entry 1 … entry n] (entry: tile | class),
+  // the entries' c at the same index of wc; ring index it is entry it + 1,
+  // which the producer passes to the consumers in stage it % ST's slot
+  // (went, wcv) beside the tile's words (Ws)
+  const int* walk = nullptr;
+  const float* wc = nullptr;
   if constexpr (MOD) {
-    // the tiles [lo, hi) of this block's bounds (structured limits folded
-    // in; every tile for a block with a dead row)
-    const int* bd = md.bounds + 2 * (((long)bi * h + hi) * nqt + qt);
-    t0 = bd[0];
-    ntiles = max(0, bd[1] - bd[0]);
+    const long long at = bi * md.lsb + hi * md.lsh + (long long)qt * md.ln;
+    walk = md.list + at;
+    wc = md.cval + at;
+    t0 = 0;
+    ntiles = walk[0];
   }
+  uint8_t* Ws = sm + C::W_OFF;          // MOD: stage s at s·W_BYTES
+  int* went = reinterpret_cast<int*>(sm + C::E_OFF);
+  float* wcv = reinterpret_cast<float*>(sm + C::E_OFF + ST * 4);
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(qbar, 1);
@@ -424,16 +488,53 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::tma_load_4d(Qs + c * BQ3 * 128, &mq, qbar, c * 64, hi, q0, bi);
         sm90::tma_load_4d(Os + c * BQ3 * 128, &mo, qbar, c * 64, hi, q0, bi);
       }
-      for (int it = 0; it < ntiles; ++it) {
-        const int s = it % ST;
-        sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
-        sm90::mbar_arrive_tx(&full[s], 2 * C::KT_BYTES);
+      if constexpr (MOD) {
+        // the walk's tiles; a MIXED tile of a bool mask brings the packed
+        // words of the 128-key group that holds it (the block's rows, or
+        // the one row of a key-padding mask) on the stage's full barrier
+        const uint32_t wbytes = (md.wq > 1 ? BQ3 : 1) * 16;
+        if (md.words != nullptr) sm90::tma_prefetch_map(&mt.words);
+        int e_nx = walk[1];    // the next tile's entry and c, a tile ahead
+        float c_nx = wc[1];
+        for (int it = 0; it < ntiles; ++it) {
+          const int s = it % ST;
+          const int e = e_nx, tile = am::entry_tile(e);
+          const float cv = c_nx;
+          if (it + 1 < ntiles) {
+            e_nx = walk[2 + it];
+            c_nx = wc[2 + it];
+          }
+          const bool stage = md.words != nullptr &&
+                             (e >> am::TILE_SHIFT) == am::TILE_MIXED;
+          sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+          went[s] = e;
+          wcv[s] = cv;
+          sm90::mbar_arrive_tx(&full[s],
+                               2 * C::KT_BYTES + (stage ? wbytes : 0));
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c) {
-          sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK * 128, &mk,
-                            &full[s], c * 64, kh, (t0 + it) * BK, bi);
-          sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK * 128, &mv,
-                            &full[s], c * 64, kh, (t0 + it) * BK, bi);
+          for (int c = 0; c < C::NCH; ++c) {
+            sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK * 128, &mk,
+                              &full[s], c * 64, kh, tile * BK, bi);
+            sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK * 128, &mv,
+                              &full[s], c * 64, kh, tile * BK, bi);
+          }
+          if (stage)
+            sm90::tma_load_4d(Ws + s * C::W_BYTES, &mt.words, &full[s],
+                              (tile >> 1) * 4, md.wq > 1 ? q0 : 0,
+                              md.wh > 1 ? hi : 0, md.wb > 1 ? bi : 0);
+        }
+      } else {
+        for (int it = 0; it < ntiles; ++it) {
+          const int s = it % ST;
+          sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+          sm90::mbar_arrive_tx(&full[s], 2 * C::KT_BYTES);
+#pragma unroll
+          for (int c = 0; c < C::NCH; ++c) {
+            sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK * 128, &mk,
+                              &full[s], c * 64, kh, (t0 + it) * BK, bi);
+            sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK * 128, &mv,
+                              &full[s], c * 64, kh, (t0 + it) * BK, bi);
+          }
         }
       }
     }
@@ -453,8 +554,11 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
     float l2[2], dl[2];
     const float* lb = lse + ((long)bi * h + hi) * sq;
     const float* db = delta + ((long)bi * h + hi) * sq;
-    // MOD: the rows' m (in mm; l2 holds log2 l) and first mask elements;
-    // EXTRA: their segment ids, the keys' ids, the head's slope
+    // MOD: the rows' m (in mm; l2 holds log2 l, +inf for a bool mask's
+    // dead row: its P and dS are 0 on every tile it shares with live
+    // rows, FULL ones included, whose class its row did not count) and
+    // first mask elements; EXTRA: their segment ids, the keys' ids, the
+    // head's slope
     float mm[2] = {0.f, 0.f};
     long long mr[2] = {-1, -1};
     int sg[2] = {0, 0};
@@ -471,6 +575,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         am::row_stats(lse + 2 * ((long)bi * h + hi) * sq, r, sq, mm[i],
                       l2[i]);
         if (r < sq) {
+          if (md.dead != nullptr &&
+              ((md.dead[bi * md.dsb + hi * md.dsh + (r >> 6)] >> (r & 63)) &
+               1))
+            l2[i] = INFINITY;
           mr[i] = bi * md.sb + hi * md.sh + (long long)r * md.sq;
           if constexpr (EXTRA)
             sg[i] = am::seg_id(md.seg_q, (long long)bi * sq + r);
@@ -522,6 +630,41 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       if (nt > j0) {
         float sa[BK / 2], dp[BK / 2];
         uint32_t da[BK / 16][4];
+        // MOD: dS of the tile in stage stg (its entry and c from the stage's
+        // slot): a FULL tile that no edge (kv_len, the diagonal, the window,
+        // segment ids) cuts for the group's rows on a loop of its own, a FULL
+        // edge tile on another, a MIXED one (its bits staged in the stage's
+        // words, or the fp32 mask in place) on the third
+        auto mod_ds = [&](int stg) {
+          const int e = went[stg], tile = am::entry_tile(e), k0 = tile * BK;
+          const bool fl = (e >> am::TILE_SHIFT) == am::TILE_FULL;
+          bool ed = k0 + BK > kvlen || (causal && k0 + BK - 1 > q_off + rw0);
+          if constexpr (EXTRA)
+            ed = ed || segk != nullptr ||
+                 (md.window > 0 && k0 <= q_off - md.window + rw0 + 63);
+          const float cv = fl ? wcv[stg] : 0.f;
+          // the rows' two words of the tile's 64 keys (half of its 128-key
+          // group's four), row 0 for a key-padding mask
+          uint2 wr[2] = {make_uint2(0, 0), make_uint2(0, 0)};
+          if (!fl && md.words != nullptr) {
+            const uint2* ws =
+                reinterpret_cast<const uint2*>(Ws + stg * C::W_BYTES);
+            const int lr = r0 - q0;
+            wr[0] = ws[(md.wq > 1 ? lr : 0) * 2 + (tile & 1)];
+            wr[1] = ws[(md.wq > 1 ? lr + 8 : 0) * 2 + (tile & 1)];
+          }
+#define K3_DS(SRC, EDGE)                                                      \
+  k3_ds_mod<BK, DROP, EXTRA, SRC, EDGE>(sa, dp, mm, l2, dl, k0, r0, tg, sk,   \
+                                        kvlen, causal, q_off, scale, md, mr,  \
+                                        sg, segk, slope, cv, wr, dr, rb, rs8)
+          if (fl && !ed)
+            K3_DS(K3_FULL, false);
+          else if (fl)
+            K3_DS(K3_FULL, true);
+          else
+            K3_DS(K3_MIXED, true);
+#undef K3_DS
+        };
         sm90::mbar_wait(&full[j0 % ST], (j0 / ST) & 1);
         issue_hs<D, HELD, BK>(sa, dQ, dK, (j0 % ST) * STAGE);
         issue_hs<D, HELD, BK>(dp, dO, dV, (j0 % ST) * STAGE);
@@ -530,9 +673,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::fence_regs(dp);
         const int kb = (t0 + j0) * BK;
         if constexpr (MOD)
-          k3_ds_mod<BK, DROP, EXTRA>(sa, dp, mm, l2, dl, kb, r0, tg, sk,
-                                     kvlen, causal, q_off, scale, md, mr, sg,
-                                     segk, slope, dr, rb, rs8);
+          mod_ds(j0 % ST);
         else
           k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen,
                                causal, q_off, wlo, sl2, dr, rb, rs8);
@@ -549,9 +690,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
           if constexpr (MOD)
-            k3_ds_mod<BK, DROP, EXTRA>(sa, dp, mm, l2, dl, k1, r0, tg, sk,
-                                       kvlen, causal, q_off, scale, md, mr,
-                                       sg, segk, slope, dr, rb, rs8);
+            mod_ds(sn);
           else
             k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
                                  causal, q_off, wlo, sl2, dr, rb, rs8);
@@ -625,16 +764,27 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       : (drop ? flash_bwd_dq_sm90<D, false, true>
                               : flash_bwd_dq_sm90<D, false, false>);
   }
+  // the general argument, and the tensor map of its packed words: boxes of
+  // 4 words by the block's 128 rows, or 1 row for a key-padding mask
+  am::ModTile mt{};
+  if (mod) {
+    mt.m = *mod;
+    if (mod->words != nullptr)
+      err = sm90_map_words(&mt.words, mod->words, mod->wb, mod->wh, mod->wq,
+                           mod->ww, mod->wq > 1 ? BQ3 : 1);
+    if (err) return err;
+  }
+  const int smem = mod ? Dq<D>::SMEM_MOD : Dq<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   // a (batch, head) unit streams its kv head's K and V: sk·d·2·2 bytes
   const int group = sm90_group((long long)sk * D * 4);
   const int grid = ((sq + BQ3 - 1) / BQ3) * h * b;
-  kern<<<grid, THREADS, Dq<D>::SMEM, st>>>(
+  kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
       (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window, scale,
-      group, dr, mod ? *mod : am::Mod{});
+      group, dr, mt);
   return (int)cudaGetLastError();
 }
 
@@ -1336,8 +1486,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   // drop: the forward's draw, as K1 takes it
   const tf::Drop dr{k1, k2, thr, inv};
-  // mod (or null): the general argument as K1 takes it, its bounds (b, h,
-  // ceil(sq/128), 2) each block's [lo, hi) of 64-key tiles; lse the (b, h,
+  // mod (or null): the general argument as K1 takes it, its walk lists
+  // (`mask_bounds`' dq_list: each 128-row block's 64-key tiles), the
+  // packed bool mask and the dead rows' bits (a bool mask); lse the (b, h,
   // sq, 2) pairs
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,

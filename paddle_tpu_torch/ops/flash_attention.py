@@ -71,12 +71,12 @@ is hidden by a bool mask takes the uniform softmax over all sk keys (the
 mean of v; the reference's Pallas kernel gives 0 there, ROADMAP Queue C).
 K1, K3 and K4 compute it in their general instantiations (below; d 64 and
 128; csrc/attn_mask.cuh), each block walking the tiles of ``mask_bounds``
-(the device-side port of the reference's ``_mask_block_bounds``): K3 a
-[lo, hi) range, reading the mask in place through four element strides;
-K1 and K4 per-tile lists that skip EMPTY tiles, read no mask on FULL ones
-and a bool mask's packed words (``mask_words``) on MIXED ones, with a bool
-mask's dead rows off the walk when there is no dropout (the mean of v and
-dO / sk to dv, ``dead_row_sums``). The bounds of the last call are cached
+(the device-side port of the reference's ``_mask_block_bounds``) as
+per-tile lists that skip EMPTY tiles, read no mask on FULL ones and a bool
+mask's packed words (``mask_words``) on MIXED ones (an fp32 mask's MIXED
+tiles read it in place through four element strides). A bool mask's dead
+rows are off K1's and K4's walks when there is no dropout (the mean of v
+and dO / sk to dv, ``dead_row_sums``) and off K3's always (dq = 0). The bounds of the last call are cached
 (``_call_bounds``): the layers of a step share one mask. The mask mode keeps a
 row's statistics as the pair (m, log l), shape (b, h, sq, 2), in place of
 the lse: a float mask can put a whole row at −1e10 and a bool mask at
@@ -98,7 +98,7 @@ the slopes, in any combination, with the mask mode's (m, log l) pairs and
 its natural-domain softmax. One instantiation takes the window, segment ids
 or ALiBi; a dense mask alone runs a leaner one, picked from the argument. ``mask_bounds`` gives every such call
 its tiles, the window folded into the structured limits; a block holding a
-dead row walks every key tile, later ones included. Any of these modes, the
+dead row that stays on the walk takes every key tile, later ones included. Any of these modes, the
 window or dropout at kernel d 256 raises (ROADMAP Queue B rows 1-3).
 
 ``flash_fwd_lse`` is the reference's (out, lse) forward (``:1177-1215``)
@@ -362,24 +362,39 @@ def _walk_lists(cls, c):
             torch.cat([torch.zeros_like(cv[..., :1]), cv], -1).contiguous())
 
 
+def _key_pairs(x, fill, op):
+    """x (..., n) reduced by `op` over pairs of neighbouring key tiles,
+    (..., ceil(n / 2)); an odd last tile pairs with `fill`: K3's 64-key
+    tiles into the 128-key tiles of K1 and K4."""
+    if x.shape[-1] % 2:
+        x = torch.cat([x, torch.full_like(x[..., :1], fill)], -1)
+    return op(x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2)), -1)
+
+
 def _tile_classes(mask, b, h, nkv, sq, sk, vis, wlo, dead, walk_dead):
     """The class of every tile of K1's grid (128-row blocks × 128-key
-    tiles, (B, mh, nqb, nk)) and of K4's (128-key blocks × 64-row query
-    tiles, the union over a kv head's query heads: (B, mh', nkb, nqt)),
-    with each tile's c (fp32 masks). The rows that count are those some
-    key reaches through kv_lens, causal and the window ([wlo, vis)) that
-    are not dead; a tile is EMPTY when no counting row has a valid entry
-    (bool True, float not −inf) at a key it reaches; FULL when every
-    counting row's reached entries are True (bool), or every entry of the
-    tile's rows equals one value c (fp32); MIXED otherwise. Without a mask
-    (segment ids or ALiBi alone) every tile with a reached key is FULL: no
-    entry to read.
+    tiles, (B, mh, nqb, nk)), of K3's (128-row blocks × 64-key tiles,
+    (B, mh, nqb, nk3)) and of K4's (128-key blocks × 64-row query tiles,
+    the union over a kv head's query heads: (B, mh', nkb, nqt)), with each
+    tile's c (fp32 masks). The rows that count are those some key reaches
+    through kv_lens, causal and the window ([wlo, vis)) that are not dead;
+    a tile is EMPTY when no counting row has a valid entry (bool True,
+    float not −inf) at a key it reaches; FULL when every counting row's
+    reached entries are True (bool), or every entry of the tile's rows
+    equals one value c (fp32); MIXED otherwise. Without a mask (segment ids
+    or ALiBi alone) every tile with a reached key is FULL: no entry to
+    read. Each row's counts are taken once, at K3's 64-key tiles, and
+    K1's and K4's 128-key tiles are pairs of them.
     `walk_dead`: a block holding a dead row takes every tile as MIXED (K1),
-    and every query tile holding one is MIXED in every key block (K4)."""
+    and every query tile holding one is MIXED in every key block (K4). K3
+    does so for a float mask's dead rows only: a bool mask's dead row has
+    dq = 0 (no score of it depends on s), with or without dropout, so it
+    never counts there."""
     dev = vis.device
-    nk, nqb, nqt = -(-sk // K1_KEYS), -(-sq // BLOCK_ROWS), -(-sq // K4_ROWS)
-    t0 = torch.arange(nk, device=dev) * K1_KEYS
-    t1 = torch.clamp(t0 + K1_KEYS, max=sk)
+    nk = -(-sk // K3_KEYS)
+    nqb, nqt = -(-sq // BLOCK_ROWS), -(-sq // K4_ROWS)
+    t0 = torch.arange(nk, device=dev) * K3_KEYS
+    t1 = torch.clamp(t0 + K3_KEYS, max=sk)
     hi = torch.minimum(torch.maximum(vis[..., None], t0), t1)   # (vb, sq, nk)
     lo = torch.minimum(torch.maximum(wlo[..., None], t0), hi)
     nvis = (hi - lo)[:, None]                              # (vb, 1, sq, nk)
@@ -407,11 +422,11 @@ def _tile_classes(mask, b, h, nkv, sq, sk, vis, wlo, dead, walk_dead):
     full_row = (full_row | ~count[..., None]).expand(shape)
     if f32:
         # the tile's min and max entry over each of its rows' keys
-        pad = nk * K1_KEYS - sk
+        pad = nk * K3_KEYS - sk
         mn = torch.nn.functional.pad(mask, (0, pad), value=math.inf)
         mx = torch.nn.functional.pad(mask, (0, pad), value=-math.inf)
-        mn = mn.reshape(mask.shape[:3] + (nk, K1_KEYS)).amin(-1)
-        mx = mx.reshape(mask.shape[:3] + (nk, K1_KEYS)).amax(-1)
+        mn = mn.reshape(mask.shape[:3] + (nk, K3_KEYS)).amin(-1)
+        mx = mx.reshape(mask.shape[:3] + (nk, K3_KEYS)).amax(-1)
         mn = mn.expand(bx, mh, mask.shape[2], nk)
         mx = mx.expand(bx, mh, mask.shape[2], nk)
 
@@ -425,15 +440,21 @@ def _tile_classes(mask, b, h, nkv, sq, sk, vis, wlo, dead, walk_dead):
         buf[:, :, :x.shape[2]] = x
         return op(buf.reshape(x.shape[:2] + (n, t, x.shape[3])), 3)
 
-    def grid(n, t):
-        ne = rows(ne_row, n, t, False, torch.any)
-        full = rows(full_row, n, t, True, torch.all)
-        if f32:
-            return ne, full, rows(mn, n, t, math.inf, torch.amin), \
-                rows(mx, n, t, -math.inf, torch.amax)
-        return ne, full, None, None
+    # (ne, full, min, max) of each (row group, 64-key tile), and of each
+    # (row group, 128-key tile): the reductions commute
+    fills = ((False, torch.any), (True, torch.all), (math.inf, torch.amin),
+             (-math.inf, torch.amax))
 
-    def classes(ne, full, lo_v, hi_v, dead_t):
+    def grid(n, t):
+        xs = (ne_row, full_row) + ((mn, mx) if f32 else ())
+        return [rows(x, n, t, f, op) for x, (f, op) in zip(xs, fills)] + \
+            [None] * (0 if f32 else 2)
+
+    def pairs(g):
+        return [None if x is None else _key_pairs(x, f, op)
+                for x, (f, op) in zip(g, fills)]
+
+    def classes(ne, full, lo_v, hi_v, dead_t, walk):
         c = torch.zeros(ne.shape, device=dev)
         if f32:
             full = lo_v == hi_v
@@ -442,14 +463,16 @@ def _tile_classes(mask, b, h, nkv, sq, sk, vis, wlo, dead, walk_dead):
             full = torch.ones_like(ne)
         cls = torch.where(ne, torch.where(full, TILE_FULL, TILE_MIXED),
                           TILE_EMPTY).to(torch.int32)
-        if walk_dead:
+        if walk:
             cls = torch.where(dead_t, TILE_MIXED, cls)
             c = torch.where(dead_t, 0.0, c)
         return cls, c
 
-    dead_b = _tiles_any(dead, nqb, BLOCK_ROWS)                 # (B, mh, nqb)
-    cls1, c1 = classes(*grid(nqb, BLOCK_ROWS), dead_b[..., None])
-    ne4, full4, lo4, hi4 = grid(nqt, K4_ROWS)                  # (., nqt, nk)
+    dead_b = _tiles_any(dead, nqb, BLOCK_ROWS)[..., None]      # (B, mh, nqb)
+    g3 = grid(nqb, BLOCK_ROWS)                                 # (., nqb, nk)
+    cls3, c3 = classes(*g3, dead_b, f32)
+    cls1, c1 = classes(*pairs(g3), dead_b, walk_dead)
+    ne4, full4, lo4, hi4 = pairs(grid(nqt, K4_ROWS))           # (., nqt, nkb)
     dead_t = _tiles_any(dead, nqt, K4_ROWS).expand(bx, mh, nqt)
     if mh == h and nkv < h:   # a kv head walks its query heads' union
         u = lambda x, op: op(x.reshape(bx, nkv, h // nkv, *x.shape[2:]), 2)
@@ -457,8 +480,25 @@ def _tile_classes(mask, b, h, nkv, sq, sk, vis, wlo, dead, walk_dead):
         if f32:
             lo4, hi4 = u(lo4, torch.amin), u(hi4, torch.amax)
         dead_t = u(dead_t, torch.any)
-    cls4, c4 = classes(ne4, full4, lo4, hi4, dead_t[..., None])
-    return cls1, c1, cls4.transpose(2, 3), c4.transpose(2, 3)
+    cls4, c4 = classes(ne4, full4, lo4, hi4, dead_t[..., None], walk_dead)
+    return cls1, c1, cls3, c3, cls4.transpose(2, 3), c4.transpose(2, 3)
+
+
+class _Bounds(dict):
+    """``mask_bounds``' result. Its [lo, hi) hull pairs ``fwd``, ``dq`` and
+    ``dkv`` are computed at their first read: no kernel reads them (each
+    walks its list), and they would double the host time of a call."""
+
+    def __init__(self, hulls):
+        super().__init__()
+        self._hulls = hulls
+
+    def __missing__(self, key):
+        if self._hulls is None or key not in ("fwd", "dq", "dkv"):
+            raise KeyError(key)
+        self.update(self._hulls())
+        self._hulls = None
+        return self[key]
 
 
 def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
@@ -473,7 +513,8 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
     device). Returns int32 [lo, hi) pairs: ``fwd`` (b, h, ceil(sq/128), 2)
     of K1's 128-key tiles, ``dq`` the same of K3's 64-key tiles, ``dkv``
     (b, nkv, ceil(sk/128), 2) of K4's 64-row query tiles, the union over a
-    kv head's query heads.
+    kv head's query heads (no kernel reads these hulls: each walks its
+    list, below; they are computed at their first read, ``_Bounds``).
 
     A tile is left out only when no entry can change a row: every entry
     bool False or float −inf, or hidden by the structured masks (kv_lens,
@@ -483,20 +524,24 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
     NEG_INF / 2), takes the softmax over every key (the uniform one for a
     bool mask: the mean of v), so its row block walks every key tile, past
     its window and its diagonal, and its query tile lies in every key
-    block's range. K3 walks ``dq``.
+    block's range.
 
-    K1 and K4 walk lists instead (``_tile_classes``, ``_walk_lists``):
+    The kernels walk lists (``_tile_classes``, ``_walk_lists``):
     ``fwd_list`` (B, mh, ceil(sq/128), 1 + ceil(sk/128)) each 128-row
-    block's non-EMPTY 128-key tiles, ``dkv_list`` (B, mh', ceil(sk/128),
-    1 + ceil(sq/64)) each 128-key block's 64-row query tiles (mh' = nkv
-    when the mask has a head per query head under GQA: the union), each
-    entry ``tile | class << TILE_SHIFT`` with its c in ``fwd_c`` /
-    ``dkv_c``, and the classes themselves in ``fwd_cls`` / ``dkv_cls``;
-    a broadcast dim stays 1. With a bool mask and no ``dropout``
-    (``dead_off``) a dead row leaves the walks: K1 writes it as the mean
-    of v and K4 adds its dO / sk to every dv row, so a block of dead rows
-    walks nothing; otherwise a block holding a dead row walks every tile
-    as MIXED. ``dead`` (B, mh, sq) flags the dead rows, ``dead_bits``
+    block's non-EMPTY 128-key tiles (K1), ``dq_list`` (B, mh,
+    ceil(sq/128), 1 + ceil(sk/64)) each 128-row block's non-EMPTY 64-key
+    tiles (K3), ``dkv_list`` (B, mh', ceil(sk/128), 1 + ceil(sq/64)) each
+    128-key block's 64-row query tiles (K4; mh' = nkv when the mask has a
+    head per query head under GQA: the union), each entry ``tile | class
+    << TILE_SHIFT`` with its c in ``fwd_c`` / ``dq_c`` / ``dkv_c``, and
+    the classes themselves in ``fwd_cls`` / ``dq_cls`` / ``dkv_cls``; a
+    broadcast dim stays 1. With a bool mask and no ``dropout``
+    (``dead_off``) a dead row leaves K1's and K4's walks: K1 writes it as
+    the mean of v and K4 adds its dO / sk to every dv row, so a block of
+    dead rows walks nothing; otherwise a block holding a dead row walks
+    every tile as MIXED. A bool mask's dead row leaves K3's walk with or
+    without dropout (its dq is 0: K3 gives it P = 0); a float mask's dead
+    row keeps its block on every tile, as MIXED. ``dead`` (B, mh, sq) flags the dead rows, ``dead_bits``
     packs them 64 rows a word (int64), ``dead_any`` says on the device
     whether there is one, and ``words`` is a bool mask packed by
     ``mask_words`` (None for an fp32 mask), which MIXED tiles read."""
@@ -519,70 +564,77 @@ def mask_bounds(mask, b, h, nkv, sq, sk, is_causal=False, kv_lens=None,
                           seg_k)                            # (B, mh, sq)
     mb, mh, mq = skip_ok.shape[:3]
 
-    nqb = -(-sq // BLOCK_ROWS)
-    nk3 = -(-sk // K3_KEYS)
-    nk1 = -(-sk // K1_KEYS)
-    dead_b = _tiles_any(dead, nqb, BLOCK_ROWS)              # (B, mh, nqb)
-    tiles = _tiles_any(skip_ok, nk3, K3_KEYS)               # (mb, mh, mq, nk3)
-    if mq != 1:
-        tiles = _tiles_any(tiles.transpose(2, 3), nqb,
-                           BLOCK_ROWS).transpose(2, 3)      # (mb, mh, nqb, nk3)
-    lo3, hi3 = _first_last(tiles, nk3)
-    # the structured limits of each block: its last row's visible keys and
-    # (window) its first row's first key
-    rows0 = torch.arange(nqb, device=dev) * BLOCK_ROWS
-    last = torch.clamp(rows0 + BLOCK_ROWS - 1, max=sq - 1)
-    kend = vis[:, last][:, None]                           # (vb, 1, nqb)
-    hi3 = torch.minimum(hi3, -(-kend // K3_KEYS))
-    lo3 = torch.maximum(lo3, wlo[:, rows0][:, None] // K3_KEYS)
-    lo1, hi1 = lo3 // 2, (hi3 + 1) // 2
-    lo3, hi3 = torch.where(dead_b, 0, lo3), torch.where(dead_b, nk3, hi3)
-    lo1, hi1 = torch.where(dead_b, 0, lo1), torch.where(dead_b, nk1, hi1)
+    def hulls():
+        """The [lo, hi) pairs ``fwd``, ``dq``, ``dkv``."""
+        nqb = -(-sq // BLOCK_ROWS)
+        nk3 = -(-sk // K3_KEYS)
+        nk1 = -(-sk // K1_KEYS)
+        dead_b = _tiles_any(dead, nqb, BLOCK_ROWS)              # (B, mh, nqb)
+        tiles = _tiles_any(skip_ok, nk3, K3_KEYS)          # (mb, mh, mq, nk3)
+        if mq != 1:
+            tiles = _tiles_any(tiles.transpose(2, 3), nqb,
+                               BLOCK_ROWS).transpose(2, 3)  # (., nqb, nk3)
+        lo3, hi3 = _first_last(tiles, nk3)
+        # the structured limits of each block: its last row's visible keys and
+        # (window) its first row's first key
+        rows0 = torch.arange(nqb, device=dev) * BLOCK_ROWS
+        last = torch.clamp(rows0 + BLOCK_ROWS - 1, max=sq - 1)
+        kend = vis[:, last][:, None]                           # (vb, 1, nqb)
+        hi3 = torch.minimum(hi3, -(-kend // K3_KEYS))
+        lo3 = torch.maximum(lo3, wlo[:, rows0][:, None] // K3_KEYS)
+        lo1, hi1 = lo3 // 2, (hi3 + 1) // 2
+        lo3, hi3 = torch.where(dead_b, 0, lo3), torch.where(dead_b, nk3, hi3)
+        lo1, hi1 = torch.where(dead_b, 0, lo1), torch.where(dead_b, nk1, hi1)
 
-    nkb = -(-sk // K4_KEYS)
-    nqt = -(-sq // K4_ROWS)
-    keys = _tiles_any(skip_ok, nkb, K4_KEYS)                # (mb, mh, mq, nkb)
-    if mq == 1:
-        rows = keys.expand(mb, mh, nqt, nkb)
-    else:
-        rows = _tiles_any(keys.transpose(2, 3), nqt,
-                          K4_ROWS).transpose(2, 3)          # (mb, mh, nqt, nkb)
-    dead_t = _tiles_any(dead, nqt, K4_ROWS)                 # (B, mh, nqt)
-    if mh == h and nkv < h:   # a kv head walks its query heads' union
-        rows = rows.reshape(mb, nkv, h // nkv, nqt, nkb).any(2)
-        dead_t = dead_t.reshape(dead_t.shape[0], nkv, h // nkv, nqt).any(2)
-    lo4, hi4 = _first_last(rows.transpose(2, 3), nqt)       # (mb, mh', nkb)
-    # the structured lower limit: no row sees a key past its kv_len; under
-    # causal the first row that sees key k0 is k0 - offset (K4's qt0)
-    k0 = torch.arange(nkb, device=dev) * K4_KEYS
-    kvlen = _visible_keys(b, 1, sk, False, kv_lens, None, dev)   # (vb, 1)
-    off = sk - sq if causal_offset is None else int(causal_offset)
-    qs0 = ((k0 - off).clamp(min=0) // K4_ROWS if is_causal
-           else torch.zeros_like(k0))[None]
-    qs0 = torch.where(k0[None] >= kvlen, nqt, qs0)          # (vb, nkb)
-    lo4 = torch.maximum(lo4, qs0[:, None])
-    if window is not None:
-        # the last row that sees the block's last key k0 + 127 (K4's qhi)
-        qlast = k0 + K4_KEYS - 1 - off + window - 1
-        hi4 = torch.minimum(hi4, torch.where(
-            qlast < 0, 0, torch.clamp(qlast // K4_ROWS + 1, max=nqt)))
-    empty4 = lo4 >= hi4
-    lo4, hi4 = torch.where(empty4, nqt, lo4), torch.where(empty4, 0, hi4)
-    lox, hix = _first_last(dead_t, nqt)                     # (B, mh')
-    lo4 = torch.minimum(lo4, lox[..., None])
-    hi4 = torch.maximum(hi4, hix[..., None])
-    out = {"fwd": _pairs(lo1, hi1, (b, h, nqb)),
-           "dq": _pairs(lo3, hi3, (b, h, nqb)),
-           "dkv": _pairs(lo4, hi4, (b, nkv, nkb))}
+        nkb = -(-sk // K4_KEYS)
+        nqt = -(-sq // K4_ROWS)
+        keys = _tiles_any(skip_ok, nkb, K4_KEYS)           # (mb, mh, mq, nkb)
+        if mq == 1:
+            rows = keys.expand(mb, mh, nqt, nkb)
+        else:
+            rows = _tiles_any(keys.transpose(2, 3), nqt,
+                              K4_ROWS).transpose(2, 3)    # (mb, mh, nqt, nkb)
+        dead_t = _tiles_any(dead, nqt, K4_ROWS)                 # (B, mh, nqt)
+        if mh == h and nkv < h:   # a kv head walks its query heads' union
+            rows = rows.reshape(mb, nkv, h // nkv, nqt, nkb).any(2)
+            dead_t = dead_t.reshape(dead_t.shape[0], nkv, h // nkv, nqt).any(2)
+        lo4, hi4 = _first_last(rows.transpose(2, 3), nqt)     # (mb, mh', nkb)
+        # the structured lower limit: no row sees a key past its kv_len; under
+        # causal the first row that sees key k0 is k0 - offset (K4's qt0)
+        k0 = torch.arange(nkb, device=dev) * K4_KEYS
+        kvlen = _visible_keys(b, 1, sk, False, kv_lens, None, dev)   # (vb, 1)
+        off = sk - sq if causal_offset is None else int(causal_offset)
+        qs0 = ((k0 - off).clamp(min=0) // K4_ROWS if is_causal
+               else torch.zeros_like(k0))[None]
+        qs0 = torch.where(k0[None] >= kvlen, nqt, qs0)          # (vb, nkb)
+        lo4 = torch.maximum(lo4, qs0[:, None])
+        if window is not None:
+            # the last row that sees the block's last key k0 + 127 (K4's qhi)
+            qlast = k0 + K4_KEYS - 1 - off + window - 1
+            hi4 = torch.minimum(hi4, torch.where(
+                qlast < 0, 0, torch.clamp(qlast // K4_ROWS + 1, max=nqt)))
+        empty4 = lo4 >= hi4
+        lo4, hi4 = torch.where(empty4, nqt, lo4), torch.where(empty4, 0, hi4)
+        lox, hix = _first_last(dead_t, nqt)                     # (B, mh')
+        lo4 = torch.minimum(lo4, lox[..., None])
+        hi4 = torch.maximum(hi4, hix[..., None])
+        return {"fwd": _pairs(lo1, hi1, (b, h, nqb)),
+                "dq": _pairs(lo3, hi3, (b, h, nqb)),
+                "dkv": _pairs(lo4, hi4, (b, nkv, nkb))}
+
+    out = _Bounds(hulls)
     # the walks of K1 and K4: dead rows of a bool mask without dropout are
-    # closed forms (the mean of v; dv += dsum / sk) and leave the walk
+    # closed forms (the mean of v; dv += dsum / sk) and leave the walk;
+    # K3's a bool mask's dead rows leave always (their dq is 0)
     dead_off = mask is not None and mask.dtype == torch.bool and not dropout
     m = None if mask is None else mask.expand(mask.shape[:3] + (sk,))
-    cls1, c1, cls4, c4 = _tile_classes(m, b, h, nkv, sq, sk, vis, wlo, dead,
-                                       not dead_off)
+    cls1, c1, cls3, c3, cls4, c4 = _tile_classes(
+        m, b, h, nkv, sq, sk, vis, wlo, dead, not dead_off)
     out["fwd_list"], out["fwd_c"] = _walk_lists(cls1, c1)
+    out["dq_list"], out["dq_c"] = _walk_lists(cls3, c3)
     out["dkv_list"], out["dkv_c"] = _walk_lists(cls4, c4)
-    out.update(fwd_cls=cls1, dkv_cls=cls4, dead=dead, dead_off=dead_off,
+    out.update(fwd_cls=cls1, dq_cls=cls3, dkv_cls=cls4, dead=dead,
+               dead_off=dead_off,
                dead_any=dead.any(),
                dead_bits=_pack_bits(dead, -(-sq // 64) * 64).view(
                    torch.int64),
@@ -966,13 +1018,14 @@ def _drop_args(dropout_p, key):
 class _ModArg(ctypes.Structure):
     """csrc/attn_mask.cuh's am::Mod: the dense mask's pointer (or null), its
     element strides (b, h, q, k; 0 on a broadcast dim), fp32 or bool, the
-    block bounds (K3), the window (0: none), the segment ids' pointers
-    (int32 (b, sq) and (b, sk), or null) and the ALiBi slopes' (fp32 (h,),
-    or null); then K1's and K4's walk (the list, its c values, its element
-    strides of a batch and a head, 0 on a broadcast dim, and a block's
-    entries), the dead rows' bits and word strides (null: none off the
-    walk), their closed form `red` (K1: the mean of v; K4: dsum), and the
-    packed bool mask with its dims (batches, heads, rows, words)."""
+    block bounds (null: no kernel reads them), the window (0: none), the
+    segment ids' pointers (int32 (b, sq) and (b, sk), or null) and the
+    ALiBi slopes' (fp32 (h,), or null); then the kernel's walk (the list,
+    its c values, its element strides of a batch and a head, 0 on a
+    broadcast dim, and a block's entries), the dead rows' bits and word
+    strides (null: none off the walk), their closed form `red` (K1: the
+    mean of v; K4: dsum; K3 none), and the packed bool mask with its dims
+    (batches, heads, rows, words)."""
     _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_longlong),
                 ("sh", ctypes.c_longlong), ("sq", ctypes.c_longlong),
                 ("sk", ctypes.c_longlong), ("f32", ctypes.c_int),
@@ -1008,10 +1061,11 @@ def _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window, bounds, part,
     """The kernels' general-mode argument (a pointer to _ModArg; None for a
     call without a dense mask, segment ids or ALiBi) and the tensors it
     points into, which the caller keeps alive over the launch. `part` is
-    the kernel's entry of ``mask_bounds``'s dict `bounds` (K1's "fwd" and
-    K4's "dkv" walk their lists; K3's "dq" its [lo, hi) bounds); `red`
-    the dead rows' closed form (K1 and K4, a call with dead rows off the
-    walk), or None."""
+    the kernel's entry of ``mask_bounds``'s dict `bounds` (K1's "fwd", K3's
+    "dq", K4's "dkv": each walks its list); `red` the dead rows' closed
+    form (K1 and K4, a call with dead rows off the walk), or None. K3 takes
+    the dead rows' bits whenever the mask is bool (their P is 0, with or
+    without dropout) and no `red`."""
     if not _general(attn_mask, seg_q, slopes):
         return None, None
     m, strides = None, (0, 0, 0, 0)
@@ -1028,27 +1082,26 @@ def _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window, bounds, part,
     if slopes is not None:
         slopes = _on(what, "alibi_slopes", slopes, q, (h,), torch.float32)
     ptr = lambda t: None if t is None else t.data_ptr()
-    bd = bounds[part]
+    # `bounds` stays null: every kernel walks its list
     arg = _ModArg(ptr(m), *strides, int(m is not None
                                         and m.dtype != torch.bool),
-                  bd.data_ptr(), min(window or 0, 1 << 30), ptr(seg_q),
+                  None, min(window or 0, 1 << 30), ptr(seg_q),
                   ptr(seg_k), ptr(slopes))
-    keep = [m, bd, seg_q, seg_k, slopes, arg, red]
-    if part != "dq":
-        lst, cv = bounds[part + "_list"], bounds[part + "_c"]
-        arg.list, arg.cval = lst.data_ptr(), cv.data_ptr()
-        arg.lsb, arg.lsh = _strides0(lst)[:2]
-        arg.ln = lst.shape[-1]
-        words = bounds["words"]
-        if words is not None:
-            arg.words = words.data_ptr()
-            arg.wb, arg.wh, arg.wq, arg.ww = words.shape
-        if red is not None:
-            dead = bounds["dead_bits"]
-            arg.dead, arg.red = dead.data_ptr(), red.data_ptr()
-            arg.dsb, arg.dsh = _strides0(dead)[:2]
-        keep += [lst, cv, words, bounds["dead_bits"]]
-    return ctypes.pointer(arg), keep
+    lst, cv = bounds[part + "_list"], bounds[part + "_c"]
+    arg.list, arg.cval = lst.data_ptr(), cv.data_ptr()
+    arg.lsb, arg.lsh = _strides0(lst)[:2]
+    arg.ln = lst.shape[-1]
+    words, dead = bounds["words"], bounds["dead_bits"]
+    if words is not None:
+        arg.words = words.data_ptr()
+        arg.wb, arg.wh, arg.wq, arg.ww = words.shape
+    if red is not None or (part == "dq" and words is not None):
+        arg.dead = dead.data_ptr()
+        arg.dsb, arg.dsh = _strides0(dead)[:2]
+    if red is not None:
+        arg.red = red.data_ptr()
+    return ctypes.pointer(arg), [m, seg_q, seg_k, slopes, arg, red, lst, cv,
+                                 words, dead]
 
 
 def _refuse_d256_modes(what, d, window, dropout_p, rows, general=False):

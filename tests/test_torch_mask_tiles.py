@@ -1,24 +1,28 @@
-"""The tile walks of K1 and K4's general mode, against brute force and the
-JAX package.
+"""The tile walks of K1, K3 and K4's general mode, against brute force and
+the JAX package.
 
-``mask_bounds`` gives K1 (each 128-row block's 128-key tiles) and K4 (each
-128-key block's 64-row query tiles, the union over a kv head's query
-heads) compact lists of their non-EMPTY tiles, each FULL (every entry True
-at the keys the structured masks leave, or every fp32 entry one value c:
-no mask load) or MIXED (a bool tile's entries read from its packed words,
-an fp32 tile's in place); the bool mask packed 32 keys a uint32; and the
-dead rows, flagged and packed 64 rows a word. With a bool mask and no
-dropout a dead row leaves the walks: K1 writes it as the mean of v with the
-pair (NEG_INF, log sk), K4 gives its dO / sk to every key's dv (dsum, the
-row sums of ``dead_row_sums``); otherwise its block walks every tile as
-MIXED.
+``mask_bounds`` gives K1 (each 128-row block's 128-key tiles), K3 (each
+128-row block's 64-key tiles) and K4 (each 128-key block's 64-row query
+tiles, the union over a kv head's query heads) compact lists of their
+non-EMPTY tiles, each FULL (every entry True at the keys the structured
+masks leave, or every fp32 entry one value c: no mask load) or MIXED (a
+bool tile's entries read from its packed words, an fp32 tile's in place);
+the bool mask packed 32 keys a uint32; and the dead rows, flagged and
+packed 64 rows a word. With a bool mask and no dropout a dead row leaves
+K1's and K4's walks: K1 writes it as the mean of v with the pair (NEG_INF,
+log sk), K4 gives its dO / sk to every key's dv (dsum, the row sums of
+``dead_row_sums``); otherwise its block walks every tile of theirs as
+MIXED. A bool mask's dead row is off K3's walk with
+or without dropout (its dq is 0: K3 gives it P = 0); a float mask's dead
+row keeps its block on every tile of K3's walk too, as MIXED.
 
 Held here on the CPU: the lists, classes, c values, packed words and dead
 flags against a brute-force scan; a walk of only the lists' tiles with
 their classes' arithmetic (and the dead rows' closed forms) against the
-plain twins in fp32; the closed forms themselves against the reference's
-``_xla_attention`` output and ``jax.vjp`` at atol 1e-5; the row sums'
-plain version against numpy; and the one-entry cache of a call's bounds.
+plain twins in fp32; K3's walked dq and the closed forms themselves
+against the reference's ``_xla_attention`` and ``jax.vjp`` at atol 1e-5;
+K3's argument on the kernels' device (meta tensors); the row sums' plain
+version against numpy; and the one-entry cache of a call's bounds.
 """
 
 import math
@@ -75,6 +79,11 @@ def _mask(form, b, h, sq, sk, seed):
         m[1, :, :, 150:290] = False                # EMPTY and FULL tiles
         m[1, :, 200:, :] = True
         return m
+    if form == "rows_dead":                        # (b, 1, sq, sk): all
+        m = np.ones((b, 1, sq, sk), bool)          # True but dead rows in
+        m[0, :, [5, 77, 200]] = False              # FULL tiles beside live
+        m[1, :, 130:140] = False                   # ones
+        return m
     if form == "bool_3d_sparse":                   # (h, sq, sk), blocks
         blk = r.rand(h, -(-sq // 64), -(-sk // 64)) > 0.5
         m = np.kron(blk, np.ones((64, 64), bool))[:, :sq, :sk]
@@ -105,6 +114,10 @@ CASES = {
                     False),
     "bool_4d_gqa_dropout": ("bool_4d", 300, 300, 4, 2, False, None, None,
                             None, True),
+    "rows_dead_full_tiles": ("rows_dead", 260, 200, 4, 2, False, None, None,
+                             None, False),
+    "rows_dead_full_tiles_dropout": ("rows_dead", 260, 200, 4, 2, False, None,
+                                     None, None, True),
     "bool_3d_sparse_causal_offset": ("bool_3d_sparse", 200, 330, 2, 2, True,
                                      None, 100, None, False),
     "fp32_4d_window": ("fp32_4d", 300, 300, 2, 1, True, [300, 200], None,
@@ -136,8 +149,9 @@ def _structure(sq, sk, causal, kv_lens, off, window):
 
 
 def _brute(mask, b, h, nkv, sq, sk, causal, kv_lens, off, window, dropout):
-    """Classes (and c) of K1's and K4's grids, the dead rows and whether
-    they leave the walk, by loops over the expanded mask."""
+    """Classes (and c) of K1's, K4's and K3's grids, the dead rows and
+    whether they leave K1's and K4's walks, by loops over the expanded
+    mask. K3 walks no bool mask's dead row, with or without dropout."""
     m = np.broadcast_to(mask, (b, h, sq, sk))
     f32 = m.dtype != bool
     ok = m if not f32 else m != -np.inf
@@ -150,9 +164,9 @@ def _brute(mask, b, h, nkv, sq, sk, causal, kv_lens, off, window, dropout):
     count = reach.any(-1)[:, None] & ~dead                    # (b, h, sq)
     dead_off = not f32 and not dropout
 
-    def cls_of(bi, heads, rows, kt):
-        """The class and c of rows × the 128 keys of tile kt over heads."""
-        ks = slice(kt * 128, min(sk, kt * 128 + 128))
+    def cls_of(bi, heads, rows, kt, kw=128, walk_dead=not dead_off):
+        """The class and c of rows × the kw keys of tile kt over heads."""
+        ks = slice(kt * kw, min(sk, kt * kw + kw))
         ne, full = False, True
         for hi_ in heads:
             for r in rows:
@@ -167,8 +181,8 @@ def _brute(mask, b, h, nkv, sq, sk, causal, kv_lens, off, window, dropout):
                                    for r in rows])
             full = bool((vals == vals[0]).all())
             c = float(vals[0]) if full else 0.0
-        if not dead_off and any(dead[bi, hi_, r] for hi_ in heads
-                                for r in rows):
+        if walk_dead and any(dead[bi, hi_, r] for hi_ in heads
+                             for r in rows):
             return 2, 0.0
         if not ne:
             return 0, 0.0
@@ -186,7 +200,14 @@ def _brute(mask, b, h, nkv, sq, sk, causal, kv_lens, off, window, dropout):
         rows = range(qt * 64, min(sq, qt * 64 + 64))
         heads = range(kh * rep, (kh + 1) * rep)
         k4[bi, kh, kb, qt], c4[bi, kh, kb, qt] = cls_of(bi, heads, rows, kb)
-    return k1, c1, k4, c4, dead, dead_off
+    nk3 = -(-sk // 64)
+    k3 = np.zeros((b, h, nqb, nk3), int)
+    c3 = np.zeros((b, h, nqb, nk3), np.float32)
+    for bi, hi_, qb, kt in np.ndindex(b, h, nqb, nk3):
+        rows = range(qb * 128, min(sq, qb * 128 + 128))
+        k3[bi, hi_, qb, kt], c3[bi, hi_, qb, kt] = cls_of(
+            bi, [hi_], rows, kt, 64, f32)
+    return k1, c1, k4, c4, k3, c3, dead, dead_off
 
 
 def _bounds(mask, b, h, nkv, sq, sk, causal, kv_lens, coff, window, drop):
@@ -202,14 +223,15 @@ def _expand(t, *shape):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_tile_walks_match_a_brute_force_scan(name):
-    """Every block's classes, c values and compact list, the packed words
-    and the dead flags and bits equal a brute-force scan."""
+    """Every block's classes, c values and compact list in K1's, K4's and
+    K3's grids, the packed words and the dead flags and bits equal a
+    brute-force scan."""
     mask, sq, sk, h, nkv, causal, kv_lens, coff, window, drop = _case(name)
     off = sk - sq if coff is None else coff
     m4, got = _bounds(mask, B, h, nkv, sq, sk, causal, kv_lens, coff, window,
                       drop)
-    k1, c1, k4, c4, dead, dead_off = _brute(mask, B, h, nkv, sq, sk, causal,
-                                            kv_lens, off, window, drop)
+    k1, c1, k4, c4, k3, c3, dead, dead_off = _brute(
+        mask, B, h, nkv, sq, sk, causal, kv_lens, off, window, drop)
     assert got["dead_off"] == dead_off
     np.testing.assert_array_equal(_expand(got["dead"], B, h, sq), dead)
     assert bool(got["dead_any"]) == bool(dead.any())
@@ -217,8 +239,26 @@ def test_tile_walks_match_a_brute_force_scan(name):
     np.testing.assert_array_equal(_expand(got["fwd_cls"], B, h, nq, nk), k1)
     np.testing.assert_array_equal(
         _expand(got["dkv_cls"], B, nkv, *k4.shape[2:]), k4)
+    np.testing.assert_array_equal(
+        _expand(got["dq_cls"], B, h, *k3.shape[2:]), k3)
+    # K3's walk: a bool mask's dead rows never on it (their blocks walk
+    # nothing when all rows are dead), a float mask's keep their blocks
+    # MIXED on every tile
+    dead_blocks = np.zeros(k3.shape[:3], bool)
+    for bi, hi_, r in zip(*np.nonzero(dead)):
+        dead_blocks[bi, hi_, r // 128] = True
+    if mask.dtype == bool:
+        live_rows = np.zeros(k3.shape[:3], bool)
+        for bi, hi_, r in np.ndindex(B, h, sq):
+            live_rows[bi, hi_, r // 128] |= not dead[bi, hi_, r]
+        assert not k3[dead_blocks & ~live_rows].any()
+        if not dead_off:     # dropout: the same blocks on all of K1's walk
+            assert (k1[dead_blocks] == tfa.TILE_MIXED).all()
+    else:
+        assert (k3[dead_blocks] == tfa.TILE_MIXED).all()
     # the c of each FULL entry of the lists, and the lists themselves
-    for part, cls, cv, heads in (("fwd", k1, c1, h), ("dkv", k4, c4, nkv)):
+    for part, cls, cv, heads in (("fwd", k1, c1, h), ("dkv", k4, c4, nkv),
+                                 ("dq", k3, c3, h)):
         lst = _expand(got[part + "_list"], B, heads, *cls.shape[2:3],
                       cls.shape[3] + 1)
         lc = _expand(got[part + "_c"], B, heads, *cls.shape[2:3],
@@ -258,7 +298,7 @@ def _walk_grid(bounds, part, b, h, nkv, sq, sk):
     the FULL tiles' c."""
     lst = bounds[part + "_list"]
     cv = bounds[part + "_c"]
-    heads = h if part == "fwd" else nkv
+    heads = nkv if part == "dkv" else h
     lst = lst.expand(b, heads, *lst.shape[2:])
     cv = cv.expand(b, heads, *cv.shape[2:])
     cls = torch.zeros((b, h, sq, sk), dtype=torch.int64)
@@ -268,9 +308,10 @@ def _walk_grid(bounds, part, b, h, nkv, sq, sk):
         n = int(lst[idx][0])
         for e, v in zip(lst[idx][1:1 + n].tolist(), cv[idx][1:1 + n].tolist()):
             t, k = e & 0xFFFFFF, e >> 24
-            if part == "fwd":
+            if part != "dkv":
+                kw = 128 if part == "fwd" else 64
                 at = (idx[0], idx[1], slice(idx[2] * 128, idx[2] * 128 + 128),
-                      slice(t * 128, t * 128 + 128))
+                      slice(t * kw, t * kw + kw))
             else:
                 at = (idx[0], slice(idx[1] * rep, (idx[1] + 1) * rep),
                       slice(t * 64, t * 64 + 64),
@@ -293,14 +334,32 @@ def _tile_scores(s, m4, st, cls, c):
     return torch.where(cls > 0, t, -math.inf), g & (cls > 0)
 
 
+def _walked_dq(bounds, m4, s, st, stats, do, kf, vf, delta):
+    """dq from K3's walk (FULL tiles True or c, MIXED ones the mask, tiles
+    off the list never loaded) on the forward's pairs (m, log l), a bool
+    mask's dead rows at P = 0 with or without dropout; kf, vf repeated to
+    the query heads, Δ (b, h, sq, 1)."""
+    b, sq, h, d = do.shape
+    t3, g3 = _tile_scores(s, m4, st, *_walk_grid(bounds, "dq", b, h, h, sq,
+                                                 kf.shape[1]))
+    mm, logl = stats[..., :1], stats[..., 1:]
+    p = torch.exp(t3 - mm - torch.where(logl == -math.inf, math.inf, logl))
+    if m4.dtype == torch.bool:
+        p = torch.where(bounds["dead"].expand(b, h, sq)[..., None], 0.0, p)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = torch.where(g3, p * (dp - delta), 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf) / math.sqrt(d)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_walking_the_lists_gives_the_plain_result(name):
-    """A forward over K1's lists and dk, dv over K4's, each tile taken as
-    its class says (FULL: True or c, no mask read; MIXED: the mask; off the
-    list: never loaded), the dead rows off the walk by their closed forms
-    (the mean of v and the pair (NEG_INF, log sk); dv += dsum / sk), equal
-    the plain twins in fp32. Under dropout the walks are checked without
-    it: the lists are the ones a dropout call takes (dead rows on them)."""
+    """A forward over K1's lists, dk, dv over K4's and dq over K3's, each
+    tile taken as its class says (FULL: True or c, no mask read; MIXED: the
+    mask; off the list: never loaded), the dead rows off the walk by their
+    closed forms (the mean of v and the pair (NEG_INF, log sk); dv += dsum
+    / sk; K3: P = 0), equal the plain twins in fp32. Under dropout the walks
+    are checked without it: the lists are the ones a dropout call takes
+    (dead rows on K1's and K4's, off K3's)."""
     mask, sq, sk, h, nkv, causal, kv_lens, coff, window, drop = _case(name)
     d = 16
     r = np.random.RandomState(3)
@@ -358,6 +417,44 @@ def test_walking_the_lists_gives_the_plain_result(name):
     np.testing.assert_allclose(dv.numpy(), grads[2].numpy(), atol=ATOL)
     if bounds["dead_off"]:       # a dead row's dq is 0: K3 gives it so
         assert (grads[0].transpose(1, 2)[dead] == 0).all()
+    # K3's walk, from the twin's pairs
+    dq = _walked_dq(bounds, m4, s, st, stats, do, kf, vf, delta)
+    np.testing.assert_allclose(dq.numpy(), grads[0].numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["key_padding_causal_gqa",
+                                  "left_pad_window_gqa", "bool_4d_gqa"])
+def test_walked_dq_matches_the_reference_gradient(name):
+    """dq from K3's walk (its tiles by class, a bool mask's dead rows at
+    P = 0), on the plain forward's pairs, against jax.vjp of the JAX
+    package's ``_xla_attention`` on the same numpy inputs, fp32, atol 1e-5
+    (ATOL: fp32 sums of a few hundred terms, as the closed-form test
+    below)."""
+    mask, sq, sk, h, nkv, causal, kv_lens, coff, window, drop = _case(name)
+    assert coff is None and not drop
+    d = 16
+    r = np.random.RandomState(7)
+    q, k, v, do = (r.randn(*shape).astype(np.float32) for shape in (
+        (B, sq, h, d), (B, sk, nkv, d), (B, sk, nkv, d), (B, sq, h, d)))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    kw = dict(is_causal=causal, kv_lens=kv_lens, window=window,
+              attn_mask=torch.from_numpy(mask))
+    out, stats = tfa.flash_attention_fwd_plain(tq, tk, tv, **kw)
+    m4, bounds = _bounds(mask, B, h, nkv, sq, sk, causal, kv_lens, None,
+                         window, False)
+    s = tfa._plain_scores(tq, tk, 1 / math.sqrt(d), sq, sk, None, None)
+    st = tfa._structured_mask(sq, sk, causal, kv_lens, None, "cpu", window)
+    rep = h // nkv
+    delta = (tdo * out).sum(-1).transpose(1, 2)[..., None]
+    dq = _walked_dq(bounds, m4, s, st, stats, tdo, tfa._repeat_kv(tk, rep),
+                    tfa._repeat_kv(tv, rep), delta)
+    f = lambda q_: jfa._xla_attention(
+        q_, jnp.asarray(k), jnp.asarray(v), attn_mask=jnp.asarray(mask),
+        is_causal=causal, window=window,
+        kv_lens=None if kv_lens is None else jnp.asarray(kv_lens))
+    _, pull = jax.vjp(f, jnp.asarray(q))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(pull(jnp.asarray(
+        do))[0]), atol=ATOL)
 
 
 def test_dead_rows_closed_form_matches_the_reference():
@@ -454,3 +551,71 @@ def test_call_bounds_are_cached_per_mask():
     assert fresh is not again
     assert tfa._call_bounds(q, k, m.clone(), True, None, None) is not fresh
     assert tfa._call_bounds(q, k, m, False, None, None) is not fresh
+
+
+@pytest.mark.parametrize("mask_dtype,dropout", [(torch.bool, 0.0),
+                                                (torch.bool, 0.1),
+                                                (torch.float32, 0.0)])
+def test_k3_argument_carries_its_walk(monkeypatch, mask_dtype, dropout):
+    """On the kernels' device (meta tensors stand for CUDA ones) K3's
+    general-mode argument carries ``dq_list``, ``dq_c``, the packed words
+    and the dead rows' bits (a bool mask, with or without dropout; none
+    for an fp32 mask), and no ``red`` and no hull bounds, which the call
+    never computes (``mask_bounds`` makes them at their first read)."""
+    seen = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                mod = args[1 + next(i for i, a in enumerate(args)
+                                    if isinstance(a, float))]
+                seen["arg"] = {f: getattr(mod.contents, f)
+                               for f, _ in tfa._ModArg._fields_}
+                return 0
+            return entry
+
+    real = tfa._mod_arg
+
+    def spy(what, *args, **kw):
+        arg, keep = real(what, *args, **kw)
+        seen["bounds"], seen["part"], seen["keep"] = args[5], args[6], keep
+        return arg, keep
+
+    monkeypatch.setattr(tfa, "KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(tfa, "_kernel_lib", lambda *a: Lib())
+    monkeypatch.setattr(tfa, "_mod_arg", spy)
+    monkeypatch.setattr(tfa._build, "stream_of", lambda t: None)
+    w = tfa.flash_attention_bwd_dq
+    for count in ("launches",) + tfa.MODE_COUNTERS:
+        monkeypatch.setattr(w, count, 0)
+    monkeypatch.setattr(w, "by_d", dict.fromkeys(w.by_d, 0))
+    b, sq, h, nkv, d = 2, 300, 4, 2, 64
+    meta = lambda *s, dtype=torch.bfloat16: torch.zeros(*s, dtype=dtype,
+                                                         device="meta")
+    q, k = meta(b, sq, h, d), meta(b, sq, nkv, d)
+    mask = meta(b, 1, sq, sq, dtype=mask_dtype)
+    key = torch.zeros(2, dtype=torch.int64) if dropout else None
+    w(q, k, k, q, meta(b, h, sq, 2, dtype=torch.float32),
+      meta(b, h, sq, dtype=torch.float32), is_causal=True, attn_mask=mask,
+      dropout_p=dropout, key=key)
+    bounds, arg, keep = seen["bounds"], seen["arg"], seen["keep"]
+    assert seen["part"] == "dq" and w.launches == w.general == 1
+    lst, cv = bounds["dq_list"], bounds["dq_c"]
+    assert lst.shape == (b, 1, -(-sq // 128), 1 + -(-sq // 64))
+    assert cv.shape == lst.shape and cv.dtype == torch.float32
+    assert arg["ln"] == lst.shape[-1]
+    assert (arg["lsb"], arg["lsh"]) == (lst.stride(0), 0)
+    assert arg["red"] is None and arg["bounds"] is None
+    # the hull pairs, which no kernel reads, were not computed on the way
+    assert not {"fwd", "dq", "dkv"} & set(bounds.keys())
+    assert bounds["dq"].shape == (b, h, -(-sq // 128), 2)
+    assert any(t is lst for t in keep) and any(t is cv for t in keep)
+    words, dead = bounds["words"], bounds["dead_bits"]
+    if mask_dtype == torch.bool:
+        assert (arg["wb"], arg["wh"], arg["wq"], arg["ww"]) == tuple(
+            words.shape) == (b, 1, sq, 12)
+        assert (arg["dsb"], arg["dsh"]) == (dead.stride(0), 0)
+        assert any(t is words for t in keep) and any(t is dead for t in keep)
+    else:
+        assert words is None and arg["ww"] == 0
+        assert arg["dead"] is None and (arg["dsb"], arg["dsh"]) == (0, 0)
