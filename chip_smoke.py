@@ -8,6 +8,7 @@
     python3 chip_smoke.py --bwd-times     # card, build, bwd_times
     python3 chip_smoke.py --dropout       # card, build, dropout, k1d,
                                           # train_dropout
+    python3 chip_smoke.py --k1d           # card, build, dropout, k1d
     python3 chip_smoke.py --moe           # card, build, k6, moe,
                                           # train_moe
     python3 chip_smoke.py --unet          # card, build, k1h, k3h, unet,
@@ -21,6 +22,9 @@
 Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
   2. build  — nvcc builds paddle_tpu_torch/csrc/*.cu (sm_90a) at first use.
+  2a. keep_words_sass — kernel W's instruction mix a hashed key, from
+              cuobjdump of the built library: the INT32 pipe's share that
+              the hashing rows' int32_bound_ms reads.
   3. k1     — flash-attention forward kernel vs its plain fp32 version at the
               prefill shape, a GQA shape, a ragged shape and sq=1 decode,
               and the edges of its 128-row query tile and 128-key TMA ring
@@ -207,6 +211,18 @@ Phases, each printing one JSON line:
               shape with and without dropout beside the bounds (bytes,
               tensor FLOPs, the hash's integer operations), the plain
               versions and torch sdpa with dropout_p 0.1 (its own mask).
+              Kernel W (the keep words K1 and K4 read, hashed once a call):
+              bit for bit against its plain twin over the cases' limits
+              (the training shape; kv_lens; non-causal ragged; the window
+              and an offset; every key, as the general mode hashes), two
+              launches equal; a bool-mask case with dropout (the general
+              mode on every key's words); K4 given the forward's words
+              equal to K4 making its own. K1's row times the whole forward
+              (W and K1, as a call without words runs them), K4's K4 on
+              the given words; W timed beside its bound, its INT32-pipe
+              figure (SHF, LOP3 and IADD3 a hash, counted in its SASS, over
+              64 lanes a clock an SM) and its plain twin; no PyTorch call
+              packs a keep mask.
   8i. k1h   — K1 at head dim 256 and the dispatch's padded head dims: every
               attention call of the SD-1.5 UNet at b 2, 8 heads, 64×64
               latents (self-attention over 4096, 1024, 256 and 64 tokens
@@ -456,8 +472,9 @@ Phases, each printing one JSON line:
               twin's build and train_step (one "dropout" key a step from
               the global generator), B 8, S 1024, AdamW 1e-4: 3 warm-up and
               10 counted steps; K1, K3 and K4 24 a step each, all in their
-              dropout modes, the dropout kernel 49 a step forward and 49
-              backward, nothing else, no plain attention or dropout call;
+              dropout modes, kernel W 24 a step (one a layer's forward), the
+              dropout kernel 49 a step forward and 49 backward, nothing
+              else, no plain attention, keep-word or dropout call;
               step ms, tokens/s, MFU on phase train's basis, peak memory,
               one traced step by kernel family; the loss finite and
               falling.
@@ -2669,6 +2686,7 @@ def reset_counts(fa, fd):
               fa.flash_attention_bwd_dkv):
         w.launches = w.masked = 0
     fa.dead_row_sums.launches = 0
+    dropout.attention_keep_words.launches = 0
     fd.fused_decode_cuda.launches = 0
     fd.fused_paged_decode_cuda.launches = 0
     fd.fused_paged_verify_cuda.launches = 0
@@ -2685,6 +2703,7 @@ def counts(fa, fd):
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
             "dead_row_sums": fa.dead_row_sums.launches,
+            "attention_keep_words": dropout.attention_keep_words.launches,
             "fused_decode_step": fd.fused_decode_cuda.launches,
             "fused_paged_decode_step": fd.fused_paged_decode_cuda.launches,
             "fused_paged_verify_step": fd.fused_paged_verify_cuda.launches,
@@ -2720,6 +2739,7 @@ def phase_e2e(fa, fd):
         new = out[:, PROMPT:]
         if got != {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
                    "dead_row_sums": 0,
+                   "attention_keep_words": 0,
                    "flash_attention_fwd": cfg.num_layers,
                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                    "fused_decode_step": NEW - 1,
@@ -3932,6 +3952,7 @@ def phase_int8(fa, fd, model, bw, flops):
                         generator=gen)
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
             "dead_row_sums": 0,
+            "attention_keep_words": 0,
             "flash_attention_fwd": L,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "fused_decode_step": NEW - 1, "fused_paged_decode_step": 0,
@@ -4339,6 +4360,7 @@ def gpt_generate(fa, fd, model, bw, flops, k2g_err):
                         generator=gen)
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
             "dead_row_sums": 0,
+            "attention_keep_words": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": GPT_NEW - 1,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -4642,6 +4664,7 @@ def phase_moe(fa, fd, bw, flops, k6_err, k6q_err):
                         generator=gen)
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
             "dead_row_sums": 0,
+            "attention_keep_words": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": 0,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -4807,6 +4830,7 @@ def moe_int8(fa, fd, model, ids, lk_bf16, bw, flops, k6q_err):
     L = cfg.num_layers
     want = {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
             "dead_row_sums": 0,
+            "attention_keep_words": 0,
             "flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_decode_step": 0,
             "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -5035,6 +5059,7 @@ KERNEL_FAMILIES = (
                                   "gemv")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("copies and dtype casts", ("copy",)),
+    ("W attention keep words (ops.dropout)", ("keep_words_kernel",)),
     ("hidden dropout (ops.dropout)", ("dropout_kernel",)))
 
 
@@ -5483,6 +5508,7 @@ def phase_train(fa, fd, flops):
     emit(res)
     if got != {"dropout": 0, "rms_norm": 0, "smem_probe": 0,
                "dead_row_sums": 0,
+               "attention_keep_words": 0,
                "flash_attention_fwd": want, "flash_attention_bwd_dq": want,
                "flash_attention_bwd_dkv": want, "fused_decode_step": 0,
                "fused_paged_decode_step": 0, "fused_paged_verify_step": 0,
@@ -6124,6 +6150,70 @@ HASH_OPS = 69
 ISSUE_PER_SM = 128
 
 
+# the instructions a hash issues to the INT32 pipe alone (SHF, LOP3, and the
+# IADD3 that ptxas did not write as IMAD, which the FMA pipe runs), counted
+# in kernel W's SASS by keep_words_sass_mix; None until it ran
+SASS_MIX = {}
+INT32_ONLY = ("SHF", "LOP3", "IADD3")
+INT32_LANES_PER_SM = 64
+
+
+def keep_words_sass_mix():
+    """Kernel W's instruction mix a hashed key: `cuobjdump -sass` of the
+    built dropout library, the loop closed by the backward branch that
+    holds the most VOTE instructions (one ballot a hashed key), each
+    opcode's count there over its ballots. Sets SASS_MIX (with the INT32
+    pipe's rate: SMs × 64 lanes × the maximum SM clock) and returns it."""
+    import re
+    from paddle_tpu_torch.ops import _build
+    so = _build.library("dropout")._name
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], check=True,
+                          capture_output=True, text=True).stdout
+    body, cur = [], None
+    for line in sass.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            cur = "keep_words_kernel" in m.group(1)
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)(\.[A-Z0-9_.]*)?\s*([^;]*);", line)
+        if cur and m:
+            body.append((int(m.group(1), 16), m.group(3), m.group(5)))
+    loops = []
+    for at, op, args in body:
+        t = re.search(r"0x([0-9a-f]+)", args)
+        if op == "BRA" and t and int(t.group(1), 16) < at:
+            ins = [o for a, o, _ in body if int(t.group(1), 16) <= a <= at]
+            loops.append((ins.count("VOTE"), ins))
+    votes, ins = max(loops) if loops else (0, [])
+    if not votes:
+        raise AssertionError("keep_words_kernel: no loop with a ballot in "
+                             "its SASS")
+    mix = {}
+    for o in ins:
+        mix[o] = mix.get(o, 0) + 1
+    SASS_MIX.update(
+        hashes_in_loop=votes,
+        per_hash={o: n / votes for o, n in sorted(mix.items(),
+                                                   key=lambda kv: -kv[1])},
+        instructions_per_hash=len(ins) / votes,
+        int32_per_hash=sum(mix.get(o, 0) for o in INT32_ONLY) / votes,
+        int32_ops_per_s=int_ops_per_s() * INT32_LANES_PER_SM / ISSUE_PER_SM,
+        int32_only=list(INT32_ONLY))
+    emit({"phase": "keep_words_sass", **SASS_MIX})
+    return SASS_MIX
+
+
+def int32_bound_ms(hashes):
+    """The least time of `hashes` hashes on the INT32 pipe alone (SASS_MIX's
+    count a hash), or None before keep_words_sass_mix ran."""
+    if not SASS_MIX:
+        return None
+    return hashes * SASS_MIX["int32_per_hash"] / SASS_MIX["int32_ops_per_s"] \
+        * 1e3
+
+
 def int_ops_per_s():
     """The card's integer-instruction ceiling: SMs × 128 × the SM clock's
     maximum (nvidia-smi clocks.max.sm)."""
@@ -6207,6 +6297,7 @@ def phase_dropout(bw, flops, iops):
            "bound_share": bound / ms,
            "byte_bound_ms": 2 * n * x.element_size() / bw * 1e3,
            "int_bound_ms": HASH_OPS * n / iops * 1e3,
+           "int32_bound_ms": int32_bound_ms(n),
            "int_ops_per_s": iops}
     emit({"phase": "dropout", "cases": cases, "stats": stats, "row": row})
     if not ok:
@@ -6304,13 +6395,14 @@ def k4_mask_probe(fa, mask, b, h, s, d):
             "ok": bad == 0 and worst < 0.05}
 
 
-def k1d_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
+def k1d_case(fa, dops, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
              q_off=None, window=None):
     """K1, K3 and K4 in dropout mode against the plain versions with the
     same key: out within K1_TOL_OUT, lse bit for bit the dropout-free
     kernel's (the statistics take the undropped P), dq, dk, dv within
     K3_TOL of the largest plain entry; two launches of each with one key
-    bitwise equal, another key another output."""
+    bitwise equal, another key another output; K4 given the call's keep
+    words (kernel W's) bitwise equal to K4 making its own."""
     q, do = rand((b, sq, h, d), gen), rand((b, sq, h, d), gen)
     k, v = rand((b, sk, nkv, d), gen), rand((b, sk, nkv, d), gen)
     kl = None if kv_lens is None else torch.tensor(
@@ -6328,6 +6420,13 @@ def k1d_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
     dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk1, dv1 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    # K4 on the forward's keep words, as FlashAttention hands them over
+    words = dops.attention_keep_words(
+        kw["key"], DROP_P, b, h, sq, sk, causal, q_off, kl, window,
+        device="cuda")
+    dk3, dv3 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                          keep_words=words, **base,
+                                          dropout_p=DROP_P)
     torch.cuda.synchronize()
     res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
            "causal": causal, "kv_lens": kv_lens, "q_off": q_off,
@@ -6337,9 +6436,11 @@ def k1d_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
                torch.equal(out, out2) and torch.equal(lse, lse2)
                and torch.equal(dq1, dq2) and torch.equal(dk1, dk2)
                and torch.equal(dv1, dv2)),
-           "other_key_differs": not bool(torch.equal(out, out3))}
+           "other_key_differs": not bool(torch.equal(out, out3)),
+           "k4_on_given_words_bitwise": bool(
+               torch.equal(dk1, dk3) and torch.equal(dv1, dv3))}
     res["ok"] &= res["lse_equals_dropout_free"] and res["repeat_bitwise"] \
-        and res["other_key_differs"]
+        and res["other_key_differs"] and res["k4_on_given_words_bitwise"]
     refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     for name, g, r in zip(("dq", "dk", "dv"), (dq1, dk1, dv1), refs):
         err = (g.float() - r).abs().max().item()
@@ -6349,14 +6450,40 @@ def k1d_case(fa, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
     return res
 
 
+def keep_words_case(dops, b, h, sq, sk, causal, kv_lens=None, q_off=None,
+                    window=None, everything=False):
+    """Kernel W against its plain twin (the port's torch threefry on the
+    card, packed), bit for bit, and two launches equal."""
+    key = drop_key(5)
+    kw = dict(is_causal=causal, causal_offset=q_off, window=window,
+              kv_lens=None if kv_lens is None else torch.tensor(
+                  kv_lens, dtype=torch.int32, device="cuda"),
+              everything=everything, device="cuda")
+    w1 = dops.attention_keep_words(key, DROP_P, b, h, sq, sk, **kw)
+    w2 = dops.attention_keep_words(key, DROP_P, b, h, sq, sk, **kw)
+    ref = dops.attention_keep_words_plain(key, DROP_P, b, h, sq, sk, **kw)
+    torch.cuda.synchronize()
+    res = {"b": b, "h": h, "sq": sq, "sk": sk, "causal": causal,
+           "kv_lens": kv_lens, "q_off": q_off, "window": window,
+           "everything": everything, "words": list(w1.shape),
+           "bits_set": int(dops.keep_words_mask(ref, sk).sum().item()),
+           "bitwise": bool(torch.equal(w1, ref)),
+           "repeat_bitwise": bool(torch.equal(w1, w2))}
+    res["ok"] = res["bitwise"] and res["repeat_bitwise"]
+    return res
+
+
 def phase_k1d(fa, bw, flops, iops):
-    """K1, K3 and K4's dropout modes: the exact mask probes (K1 at GPT-2's
-    training shape, causal and not, and at d 128 with GQA and kv_lens; K4's
-    dv at the training shape), the kept share, the agreement cases (the
-    training shape; d 128, GQA and kv_lens; non-causal; the window; a
+    """K1, K3 and K4's dropout modes and kernel W: the exact mask probes
+    (K1 at GPT-2's training shape, causal and not, and at d 128 with GQA
+    and kv_lens; K4's dv at the training shape), the kept share, W against
+    its plain twin (the cases' limits and every key), the agreement cases
+    (the training shape; d 128, GQA and kv_lens; non-causal; the window; a
     causal offset), and the times at the training shape with and without
-    dropout beside the bounds (now also the hash's integer operations) and
-    torch sdpa with dropout_p (its own mask: the time only)."""
+    dropout beside the bounds (the hash's integer operations, and their
+    INT32-pipe figure) and torch sdpa with dropout_p (its own mask: the
+    time only). K1's row times the whole forward (W, then K1 on its words),
+    K4's K4 on the given words, W's row W."""
     from paddle_tpu_torch.ops import dropout as dops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
@@ -6376,16 +6503,32 @@ def phase_k1d(fa, bw, flops, iops):
     probes.append(k1_mask_probe(fa, dops, 2, 16, 4, 512, 640, 128,
                                 causal=False, kv_lens=[640, 300])[0])
     torch.cuda.empty_cache()
+    words = [
+        keep_words_case(dops, b, h, s, s, True),                 # training
+        keep_words_case(dops, 2, 16, 512, 640, True, [640, 300]),
+        keep_words_case(dops, 2, 8, 300, 700, False, [700, 123]),
+        keep_words_case(dops, 2, 8, 384, 1084, True, None, 700, 200),
+        keep_words_case(dops, 2, 8, 200, 333, True, [333, 0], 133),
+        # the general mode's words (a bool mask beside dropout): every key
+        keep_words_case(dops, 2, 12, 512, 512, True, [512, 300],
+                        everything=True),
+    ]
+    torch.cuda.empty_cache()
     cases = [
-        k1d_case(fa, gen, b, h, h, s, s, d, True),              # training
-        k1d_case(fa, gen, 2, 16, 4, 512, 640, 128, True, [640, 300]),
-        k1d_case(fa, gen, 2, 8, 2, 300, 700, 64, False, [700, 123]),
-        k1d_case(fa, gen, 2, 8, 2, 384, 1084, 128, True, None, 700, 200),
-        k1d_case(fa, gen, 2, 8, 8, 200, 333, 64, True, [333, 0], 133),
+        k1d_case(fa, dops, gen, b, h, h, s, s, d, True),          # training
+        k1d_case(fa, dops, gen, 2, 16, 4, 512, 640, 128, True, [640, 300]),
+        k1d_case(fa, dops, gen, 2, 8, 2, 300, 700, 64, False, [700, 123]),
+        k1d_case(fa, dops, gen, 2, 8, 2, 384, 1084, 128, True, None, 700,
+                 200),
+        k1d_case(fa, dops, gen, 2, 8, 8, 200, 333, 64, True, [333, 0], 133),
     ]
     # times at the training shape, causal
     q, k, v, do = (rand((b, s, h, d), gen) for _ in range(4))
     kw = dict(is_causal=True, dropout_p=DROP_P, key=drop_key(3))
+    wkw = dict(is_causal=True, device="cuda")
+    make_words = lambda: dops.attention_keep_words(drop_key(3), DROP_P, b, h,
+                                                   s, s, **wkw)
+    zw = make_words()
     with torch.no_grad():
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         out0, lse0 = fa.flash_attention_fwd(q, k, v, is_causal=True)
@@ -6393,6 +6536,7 @@ def phase_k1d(fa, bw, flops, iops):
     delta0 = (do.float() * out0.float()).sum(-1).transpose(1, 2) \
         .contiguous()
     fns = {
+        # the whole forward: W and K1 on its words
         "k1": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
                lambda: fa.flash_attention_fwd(q, k, v, is_causal=True)),
         "k3": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
@@ -6400,7 +6544,7 @@ def phase_k1d(fa, bw, flops, iops):
                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse0, delta0,
                                                  is_causal=True)),
         "k4": (lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                  **kw),
+                                                  keep_words=zw, **kw),
                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse0, delta0,
                                                   is_causal=True))}
     times = {}
@@ -6409,10 +6553,18 @@ def phase_k1d(fa, bw, flops, iops):
                        "device_ms": device_ms(fd_, iters=20),
                        "ms_without_dropout": time_ms(f0, iters=20),
                        "device_ms_without_dropout": device_ms(f0, iters=20)}
+    k1_on_words = lambda: fa.flash_attention_fwd(q, k, v, keep_words=zw,
+                                                 **kw)
+    times["k1"].update(k1_alone_ms=time_ms(k1_on_words, iters=20),
+                       k1_alone_device_ms=device_ms(k1_on_words, iters=20))
+    times["w"] = {"ms": time_ms(make_words, iters=20),
+                  "device_ms": device_ms(make_words, iters=20)}
     plain_fwd = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
                         iters=2, warmup=1)
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do, **kw), iters=2, warmup=1)
+    plain_w = time_ms(lambda: dops.attention_keep_words_plain(
+        drop_key(3), DROP_P, b, h, s, s, **wkw), iters=2, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
@@ -6424,6 +6576,7 @@ def phase_k1d(fa, bw, flops, iops):
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
         iters=20)
     pairs, work = causal_attention_work(b, h, s, d)
+    wbytes = zw.numel() * zw.element_size()
     rows = {}
     errs = {"k1": max(c["max_abs_err"] for c in cases),
             "k3": max(c["dq"]["max_abs_err"] for c in cases),
@@ -6434,7 +6587,13 @@ def phase_k1d(fa, bw, flops, iops):
             ("k3", "flash_attention_bwd_dq", 668, "dropout :737"),
             ("k4", "flash_attention_bwd_dkv", 787, "dropout :863")):
         nbytes, nflops = work[key_]
-        bound, by = bound3(nbytes, nflops, HASH_OPS * pairs, bw, flops, iops)
+        # K4 reads the forward's words and hashes nothing; K1's row is the
+        # whole forward, whose hash W runs
+        hashes = 0 if key_ == "k4" else pairs
+        if key_ == "k4":
+            nbytes += wbytes
+        bound, by = bound3(nbytes, nflops, HASH_OPS * hashes, bw, flops,
+                           iops)
         t = times[key_]
         rows[key_] = {
             "name": f"{name} (dropout)", "mode": "dropout", "route": "cuda",
@@ -6448,28 +6607,56 @@ def phase_k1d(fa, bw, flops, iops):
             "device_ms_without_dropout": t["device_ms_without_dropout"],
             "plain_ms": plain_fwd if key_ == "k1" else plain_bwd,
             "bound_ms": bound, "bound_by": by,
+            "int32_bound_ms": int32_bound_ms(hashes) if hashes else None,
             "library_ms": lib_fwd if key_ == "k1" else lib_bwd,
             "library_is": "torch sdpa, dropout_p 0.1 (its own mask), "
                           + ("forward" if key_ == "k1" else
                              "backward, dq+dk+dv, device time"),
+            "keep": {"k1": "ms: kernel W and K1 (the whole forward); "
+                           "k1_alone: K1 on given words",
+                     "k3": "hashes the key",
+                     "k4": "reads the given words"}[key_],
             "shape_b_s_h_d": [b, s, h, d], "causal": True,
-            "visible_pairs": pairs, "int_ops": HASH_OPS * pairs,
+            "visible_pairs": pairs, "int_ops": HASH_OPS * hashes,
             "bound_share": bound / t["ms"]}
+        if key_ == "k1":
+            rows[key_].update(k1_alone_ms=t["k1_alone_ms"],
+                              k1_alone_device_ms=t["k1_alone_device_ms"])
+    # kernel W: its words written once, the hash of every visible pair
+    bound, by = bound3(wbytes, 0, HASH_OPS * pairs, bw, flops, iops)
+    w_ok = all(c["ok"] for c in words)
+    rows["w"] = {
+        "name": "attention_keep_words", "row": "W", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/dropout.cu",
+        "replaces": "none: the attention's keep mask (paddle_tpu/ops/"
+                    "flash_attention.py:139; the Pallas kernels' in-kernel "
+                    "_dropout_keep :426 draws another), hashed once a call "
+                    "for K1 and K4",
+        "launches": 0, "max_abs_err": 0.0 if w_ok else None,
+        "ms": times["w"]["ms"], "device_ms": times["w"]["device_ms"],
+        "plain_ms": plain_w, "bound_ms": bound, "bound_by": by,
+        "int32_bound_ms": int32_bound_ms(pairs),
+        "library_ms": None,
+        "library_is": "none: no PyTorch call packs a keep mask",
+        "shape_b_h_sq_sk": [b, h, s, s], "causal": True,
+        "visible_pairs": pairs, "words_bytes": wbytes,
+        "int_ops": HASH_OPS * pairs, "bound_share": bound / times["w"]["ms"],
+        "sass_mix": dict(SASS_MIX)}
     res = {"phase": "k1d", "p": DROP_P, "probes": probes, "stats": stats,
-           "cases": cases, "kernels": rows}
+           "keep_words": words, "cases": cases, "kernels": rows}
     emit(res)
-    bad = [c for c in probes + cases if not c["ok"]]
+    bad = [c for c in probes + words + cases if not c["ok"]]
     if bad or not stats["within_5_sigma"]:
         raise AssertionError(f"k1d: {bad} {stats}")
     return rows
 
 
 class PlainDropout(PlainCalls):
-    """Counts calls of the hidden dropout's plain version (the kernel's
-    wrapper looks it up at call time): a train step on the card must run
-    none."""
+    """Counts calls of the hidden dropout's and kernel W's plain versions
+    (the wrappers look them up at call time): a train step on the card
+    must run none."""
 
-    NAMES = ("dropout_plain",)
+    NAMES = ("dropout_plain", "attention_keep_words_plain")
 
 
 def phase_train_dropout(fa, fd, flops):
@@ -6543,7 +6730,8 @@ def phase_train_dropout(fa, fd, flops):
     del model, opt
     want = dict.fromkeys(got, 0)
     want.update(flash_attention_fwd=L * steps, flash_attention_bwd_dq=L * steps,
-                flash_attention_bwd_dkv=L * steps, dropout=2 * n_drop)
+                flash_attention_bwd_dkv=L * steps, dropout=2 * n_drop,
+                attention_keep_words=L * steps)
     bad = []
     if got != want:
         bad.append(f"launches {got}, expected {want}")
@@ -6553,7 +6741,7 @@ def phase_train_dropout(fa, fd, flops):
                    f"{backward}, expected {L * steps} and {n_drop}")
     if plain.n or plain_drop.n:
         bad.append(f"{plain.n} plain attention and {plain_drop.n} plain "
-                   "dropout calls")
+                   "dropout or keep-word calls")
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         bad.append(f"loss not finite or not falling: {losses}")
@@ -6563,15 +6751,15 @@ def phase_train_dropout(fa, fd, flops):
 
 
 def dropout_rows(drop_row, k1d_rows, train_res):
-    """The kernel table's dropout rows (1b, 2b, 3b and the hidden-dropout
-    kernel), their launches from phase train_dropout."""
+    """The kernel table's dropout rows (1b, 2b, 3b, W and the
+    hidden-dropout kernel), their launches from phase train_dropout."""
     got, in_mode = train_res["launches"], train_res["dropout_mode_launches"]
     out = []
     for key_, row in k1d_rows.items():
         name = row["name"].split(" ")[0]
-        row = dict(row, launches=in_mode[name],
-                   launches_by_path={"train_dropout": in_mode[name]})
-        out.append(row)
+        n = got[name] if key_ == "w" else in_mode[name]
+        out.append(dict(row, launches=n, launches_by_path={
+            "train_dropout": n}))
     out.append(dict(drop_row, launches=got["dropout"], launches_by_path={
         "train_dropout": got["dropout"]},
         backward_launches=train_res["dropout_kernel_backward_launches"]))
@@ -8151,6 +8339,7 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     document, a causal row near the start) gives |out| near max|v|·1/keep,
     past the 4 K1_TOL_OUT assumes, where one bf16 ulp is 2^-7·|out|."""
     from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import dropout as dops
     b, sq, sk, h, nkv, d = K1S_SHAPES[shape]
     (q, k, v, do), kw = k1s_inputs(shape, causal, modes, gen)
     lse_mode = "lse" in modes
@@ -8187,6 +8376,13 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
             kw.get("window"), kw.get("seg_q"), kw.get("seg_k"),
             kw.get("dropout_p", 0.0))
         res_tiles = tile_counts(wkw["bounds"], b, h, nkv)
+    # under dropout the call's keep words (kernel W, every key in the
+    # general mode), which K4 takes as FlashAttention hands them over; K1
+    # makes its own, so its time is the whole forward's
+    words = None if "dropout" not in modes else dops.attention_keep_words(
+        kw["key"], DROP_P, b, h, sq, sk, causal, None, kw.get("kv_lens"),
+        kw.get("window"), everything=general, device="cuda")
+    k4kw = wkw if words is None else dict(wkw, keep_words=words)
     with torch.no_grad():
         out, st = fa.flash_attention_fwd(q, k, v, **wkw)
         out2, st2 = fa.flash_attention_fwd(q, k, v, **wkw)
@@ -8195,9 +8391,9 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
         delta = delta - g_lse
     delta = delta.contiguous()
     grads = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **wkw),
-             *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **wkw))
+             *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **k4kw))
     grads2 = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **wkw),
-              *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **wkw))
+              *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **k4kw))
     entry = [o.detach()] + [t.grad for t in leaves]
     res = {"case": name, "shape": shape, "b": b, "sq": sq, "sk": sk,
            "h": h, "nkv": nkv, "d": d, "causal": causal,
@@ -8211,7 +8407,8 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
                and (not lse_mode or torch.equal(lse_e.detach(), st))),
            "entry_point_launches": {n: got[n] for n in (
                "flash_attention_fwd", "flash_attention_bwd_dq",
-               "flash_attention_bwd_dkv", "dead_row_sums")}}
+               "flash_attention_bwd_dkv", "dead_row_sums",
+               "attention_keep_words")}}
     if general:
         res["tiles"] = res_tiles
     del out2, st2, grads2, entry, o, leaves
@@ -8259,7 +8456,14 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
               "k3": device_ms(lambda: fa.flash_attention_bwd_dq(
                   q, k, v, do, st, delta, **wkw), iters=5),
               "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
-                  q, k, v, do, st, delta, **wkw), iters=5)}
+                  q, k, v, do, st, delta, **k4kw), iters=5)}
+        if words is not None:   # K1 on the given words, and W alone
+            k1_alone = device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, keep_words=words, **wkw), iters=5)
+            w_ms = device_ms(lambda: dops.attention_keep_words(
+                kw["key"], DROP_P, b, h, sq, sk, causal, None,
+                kw.get("kv_lens"), kw.get("window"), everything=general,
+                device="cuda"), iters=5)
     lib_fwd, lib_bwd = k1s_library(kw, q, k, v, do, h, nkv)
     tq, tk = b * sq * h * d * 2, b * sk * nkv * d * 2
     rows = b * h * sq
@@ -8269,7 +8473,8 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     st_bytes = st.numel() * 4
     nbytes = {"k1": 2 * tq + 2 * tk + extra + st_bytes,
               "k3": 3 * tq + 2 * tk + extra + st_bytes + 4 * rows,
-              "k4": 2 * tq + 4 * tk + extra + st_bytes + 4 * rows}
+              "k4": 2 * tq + 4 * tk + extra + st_bytes + 4 * rows
+              + (0 if words is None else words.numel() * 4)}
     # the k1s masks are bool; dropout hashes every pair the kernel weighs
     # (a dead row's keys for out and dv, not for K3's zero dq); without
     # dropout a dead row is the closed form (no pair's work)
@@ -8277,22 +8482,31 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     for key, plain, lib in (("k1", plain_fwd, lib_fwd),
                             ("k3", plain_bwd, lib_bwd),
                             ("k4", plain_bwd, lib_bwd)):
-        hashed = pairs + (dead_pairs if DEAD_KEY_OPS[key] else 0)
-        nint = HASH_OPS * hashed if "dropout" in modes else 0
+        # K4 reads the words: the forward's W hashed them (K1's row)
+        hashed = 0 if "dropout" not in modes or key == "k4" else \
+            pairs + (dead_pairs if DEAD_KEY_OPS[key] else 0)
+        nint = HASH_OPS * hashed
         bound, by = bound3(nbytes[key], attention_ops(
             key, d, pairs, dead_pairs, True, closed), nint, bw, flops, iops)
         bound_pr21, _ = bound3(nbytes[key], attention_ops(
             key, d, pairs, dead_pairs, True), nint, bw, flops, iops)
         res[key] = dict(res.get(key, {}), ms=ms[key], plain_ms=plain,
                         library_ms=lib, bound_ms=bound, bound_by=by,
-                        bound_ms_dead_rows_as_pairs=bound_pr21)
+                        bound_ms_dead_rows_as_pairs=bound_pr21,
+                        int32_bound_ms=int32_bound_ms(hashed) if hashed
+                        else None)
+    if words is not None:
+        res["k1"].update(k1_alone_ms=k1_alone, keep_words_ms=w_ms)
+        res["keep"] = ("k1: kernel W and K1 (the whole forward), k1_alone "
+                       "K1 on given words; k3 hashes the key; k4 reads the "
+                       "given words")
     res["library_covers"] = (
         "torch sdpa over the case's equivalent dense bool mask (and a bf16 "
         "ALiBi bias with -inf off it; its own dropout at the case's p): k1 "
         "its forward, k3 and k4 its backward (dq, dk, dv)")
     res["plain_covers"] = ("the plain twins one kv-head group at a time: "
                            "k1 the forward, k3 and k4 one backward")
-    del q, k, v, do, out, st, delta
+    del q, k, v, do, out, st, delta, words, k4kw
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -8477,6 +8691,7 @@ def k1s_rows(cases, k1s_launches, pad_launches):
                 "launches": sum(by_path.values()), "max_abs_err": err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "int32_bound_ms": t.get("int32_bound_ms"),
                 "library_ms": t["library_ms"],
                 "per": f"one call at {main_name}: b {main['b']}, h "
                        f"{main['h']}/{main['nkv']}, s {main['sq']}, d "
@@ -8683,6 +8898,10 @@ def main(argv):
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "seconds_by_source": dict(_build.build_seconds),
           "libraries": sorted(_build._libs)})
+    try:   # a measurement for the bounds: they read None without it
+        keep_words_sass_mix()
+    except Exception as e:
+        emit({"phase": "keep_words_sass", "error": repr(e)})
     if "--int8-stress" in argv:
         phase_int8_stress(fd, rope)
         return 0
@@ -8696,6 +8915,10 @@ def main(argv):
         phase_llama_step(fa, fd)
         phase_train_llama(fa, fd, flops)
         phase_train_mistral(fa, fd, flops)
+        return 0
+    if "--k1d" in argv:
+        print(json.dumps({"kernels": [phase_dropout(bw, flops, iops)] + list(
+            phase_k1d(fa, bw, flops, iops).values())}), flush=True)
         return 0
     if "--dropout" in argv:
         rows = dropout_rows(phase_dropout(bw, flops, iops),

@@ -12,8 +12,10 @@ the same in both trees (instruction text, addresses, runs of spaces and
 the anonymous namespace's hash left out), present in one tree only, or
 different, and each tree's ptxas lines that report spilled bytes. Kernels
 are matched by mangled name with the names of the ``am`` namespace's
-argument types left out, so that a kernel whose argument struct was
-renamed is still compared with its counterpart. Use it to show that a
+argument types and a template instantiation's parameter list left out, so
+that a kernel whose argument struct was renamed, or whose parameters
+changed, is still compared with its counterpart (its instructions then say
+whether the change reached its code). Use it to show that a
 change to a shared kernel source leaves the instantiations it did not mean
 to touch compiled to the same code. Writes the ptxas logs and the
 disassembly under ``--out``.
@@ -40,6 +42,10 @@ ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
 # and the name, E
 AM_TYPE = re.compile(r"N2am(\d+)")
 ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
+# a template instantiation's name up to its template arguments (literal
+# ints and bools, I...E), the nested name's E and the void return type v:
+# what follows is the parameter list
+TEMPLATE = re.compile(r"^(.*?I(?:L[a-z]+n?\d+E)+E)E?v.*$")
 
 
 def compile_cubin(src: Path, cubin: Path, log: Path):
@@ -51,8 +57,8 @@ def compile_cubin(src: Path, cubin: Path, log: Path):
 
 
 def normalise(name: str) -> str:
-    """A mangled kernel name with the anonymous namespace's hash and the
-    names of am:: types left out."""
+    """A mangled kernel name with the anonymous namespace's hash, the names
+    of am:: types and a template instantiation's parameters left out."""
     name = ANON.sub("ANON", name)
     out, at = [], 0
     for m in AM_TYPE.finditer(name):
@@ -63,7 +69,7 @@ def normalise(name: str) -> str:
             continue
         out.append(name[at:m.start()] + "N2amE")
         at = end + 1
-    return "".join(out) + name[at:]
+    return TEMPLATE.sub(r"\1", "".join(out) + name[at:])
 
 
 def kernels(sass: str):

@@ -64,15 +64,17 @@
 //    the undropped one, as the reference's "probabilities drop AFTER the
 //    softmax statistics accumulate", :533-535), drop_tile zeroes the
 //    dropped elements and scales the kept ones by 1/keep before P is packed
-//    for P·V. An element's keep bit hashes its flat index ((b·h + hi)·sq +
-//    q)·sk + k (csrc/threefry.cuh), from the same accumulator-fragment
-//    coordinates the masks use, so K3 and K4 regenerate the mask whatever
-//    their tiling. The hash (about 70 integer instructions an element)
-//    runs while P·V(j) is on the tensor cores. A template and not a
-//    per-launch flag: the consumers run at 240 registers, and a flag would
-//    make every launch carry the hash's registers and a branch in the
-//    softmax pass (ptxas: 168 at entry and no spill in the DROP
-//    instantiations without MOD; see the register note below).
+//    for P·V. The keep bits are not hashed here: kernel W
+//    (csrc/dropout.cu) hashes the call's mask once into packed words (bit
+//    k % 32 of word k / 32 of a row: the keep bit of the element whose flat
+//    index is ((b·h + hi)·sq + q)·sk + k, csrc/threefry.cuh), and the
+//    producer TMA-loads a tile's words (4 a row, 2 KB for the block's 128
+//    rows) beside K on K's full barrier into a ring of its own (`mz`, a
+//    tensor map of the words); K's stage is released after drop_tile has
+//    read them. K4 reads the same words, K3 still hashes. A template and
+//    not a per-launch flag: the consumers run at 240 registers, and a flag
+//    would make every launch carry the drop's registers and a branch in
+//    the softmax pass.
 //  * ptxas keeps the wgmmas asynchronous only when each wait matches its
 //    group statically: every wgmma in the main loop is issued
 //    unconditionally (the last tile's P·V is peeled off), and P is
@@ -128,14 +130,11 @@
 // Shared memory: Q 128·d·2 + ST·2·BK·d·2 bytes (d = 128, ST = 2: 160 KB;
 // d = 64, ST = 3: 112 KB; d = 256, BK = 64, ST = 2: 192 KB) + barriers;
 // one block per SM; MOD adds a ring of packed-word stages and walk-entry
-// slots past the barriers (ST · 2 KB + ST · 8 bytes). Registers (nvcc
-// 12.9 -Xptxas -v, sm_90a): 168 at entry for 384 threads (consumers 240,
-// producer 24 after setmaxnreg), no wgmma serialisation warning, 0 bytes
-// spilled, d = 64 and 128, in every instantiation but the general mode
-// with dropout at d = 128 (flash_fwd_sm90<128, WIN, true, true>: the
-// hash's registers beside the walk's state, 16 / 20 bytes of spill stores
-// / loads without EXTRA and 32 / 32 with it; the records are in the port's
-// kernel table, PERF.md).
+// slots past the barriers (ST · 2 KB + ST · 8 bytes), DROP a ring of keep
+// words past those (ST · 2 KB). Registers (nvcc 12.9 -Xptxas -v, sm_90a):
+// 168 at entry for 384 threads (consumers 240, producer 24 after
+// setmaxnreg), no wgmma serialisation warning; the spills of each
+// instantiation are in the port's kernel table (PERF.md).
 
 // Layouts: q (b, sq, h, d), k/v (b, sk, nkv, d), out (b, sq, h, d), all
 // bf16 and contiguous (16-byte aligned); lse (b, h, sq) fp32; kv_lens (b,)
@@ -143,7 +142,6 @@
 
 #include "attn_mask.cuh"
 #include "hopper_sm90.cuh"
-#include "threefry.cuh"
 
 using namespace sm90;
 
@@ -174,6 +172,9 @@ struct Fwd {
   static constexpr int W_OFF = (BAR_OFF + (1 + 4 * ST) * 8 + 127) / 128 * 128;
   static constexpr int E_OFF = W_OFF + ST * W_BYTES;
   static constexpr int SMEM_MOD = E_OFF + ST * 8 + 1024;
+  // DROP: a ring stage of a tile's keep words (4 a row), past MOD's
+  static constexpr int Z_OFF = (E_OFF + ST * 8 + 127) / 128 * 128;
+  static constexpr int SMEM_DROP = Z_OFF + ST * W_BYTES + 1024;
 };
 
 // S (64 x BK) = Q (this group's 64 rows) · K(tile)ᵀ, issued and committed
@@ -194,6 +195,15 @@ __device__ __forceinline__ void issue_qk(float (&s)[Fwd<D>::BK / 2],
   }
   wgmma_commit();
 }
+
+// DROP's scalar argument, 1/keep. It fills the 16 bytes of kernel
+// parameters that the dropout draw's key held before the keep words: the
+// general argument after it (am::ModTile, 64-byte aligned) keeps its offset,
+// so the instantiations without dropout keep their machine code.
+struct DropScale {
+  float inv;
+  uint32_t unused[3];
+};
 
 // Mask tile k0 where it straddles the causal diagonal, the kv_len edge or
 // (WIN) the window's lower edge for this group's rows (rw0 … rw0+63; key
@@ -408,23 +418,31 @@ __device__ __forceinline__ void softmax_tile_mod(
   }
 }
 
-// Dropout on tile k0 of P (the thread's rows r0 and r0 + 8, whose flat
-// score indices start at rb and rb + rs8): a dropped element becomes 0, a
-// kept one P/keep
+// Dropout on a tile of P from its staged keep words (zw: the 4 words of
+// the thread's row r0, 16 bytes a row, so r0 + 8's lie 8 entries on): a
+// dropped element becomes 0, a kept one P·inv (inv = 1/keep). Element
+// (c, i, j) is key c·8 + 2·tg + j of the tile: word c / 4, bit (c % 4)·8 +
+// 2·tg + j
 template <int BK>
-__device__ __forceinline__ void drop_tile(float (&s)[BK / 2],
-                                          const tf::Drop& dr, uint64_t rb,
-                                          uint64_t rs8, int k0, int tg) {
+__device__ __forceinline__ void drop_tile(float (&s)[BK / 2], const uint4* zw,
+                                          float inv, int tg) {
+  const uint4 z[2] = {zw[0], zw[8]};
+  uint32_t w[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    w[i][0] = z[i].x >> (tg * 2);
+    w[i][1] = z[i].y >> (tg * 2);
+    w[i][2] = z[i].z >> (tg * 2);
+    w[i][3] = z[i].w >> (tg * 2);
+  }
 #pragma unroll
   for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const uint64_t idx =
-            rb + (i ? rs8 : 0) + (uint64_t)(k0 + c * 8 + tg * 2 + j);
         float& v = s[4 * c + 2 * i + j];
-        v = tf::keep(dr, idx) ? v * dr.inv : 0.f;
+        v = (w[i][c >> 2] >> ((c & 3) * 8 + j)) & 1 ? v * inv : 0.f;
       }
 }
 
@@ -446,8 +464,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out,
                float* __restrict__ lse, const int* __restrict__ kv_lens,
                int sq, int sk, int h, int nkv, int causal, int q_off,
-               int window, float scale, int group, tf::Drop dr,
-               const __grid_constant__ am::ModTile mt) {
+               int window, float scale, int group, DropScale ds,
+               const __grid_constant__ am::ModTile mt,
+               const __grid_constant__ CUtensorMap mz) {
   using C = Fwd<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
@@ -457,6 +476,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
   constexpr bool WND = WIN && !MOD;
   constexpr bool EXTRA = WIN && MOD;
   const am::Mod& md = mt.m;
+  const float inv = ds.inv;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm;
@@ -504,6 +524,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
   uint8_t* Ws = sm + C::W_OFF;          // MOD: stage s at s·W_BYTES
   int* went = reinterpret_cast<int*>(sm + C::E_OFF);
   float* wcv = reinterpret_cast<float*>(sm + C::E_OFF + ST * 4);
+  uint8_t* Zs = sm + C::Z_OFF;          // DROP: stage s at s·W_BYTES
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -526,6 +547,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       tma_prefetch_map(&mq);
       tma_prefetch_map(&mk);
       tma_prefetch_map(&mv);
+      if constexpr (DROP) tma_prefetch_map(&mz);
       mbar_arrive_tx(qbar, C::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < C::NCH; ++c)
@@ -552,7 +574,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
           mbar_wait(&empty_k[s], par);
           went[s] = e;
           wcv[s] = cv;
-          mbar_arrive_tx(&full_k[s], C::KV_BYTES + (stage ? wbytes : 0));
+          mbar_arrive_tx(&full_k[s], C::KV_BYTES + (stage ? wbytes : 0) +
+                                         (DROP ? C::W_BYTES : 0));
 #pragma unroll
           for (int c = 0; c < C::NCH; ++c)
             tma_load_4d(Ks + s * C::KV_BYTES + c * BK * 128, &mk, &full_k[s],
@@ -561,6 +584,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
             tma_load_4d(Ws + s * C::W_BYTES, &mt.words, &full_k[s], tile * 4,
                         md.wq > 1 ? q0 : 0, md.wh > 1 ? hi : 0,
                         md.wb > 1 ? bi : 0);
+          if constexpr (DROP)   // the tile's keep words, the block's rows
+            tma_load_4d(Zs + s * C::W_BYTES, &mz, &full_k[s], tile * 4, q0,
+                        hi, bi);
           mbar_wait(&empty_v[s], par);
           mbar_arrive_tx(&full_v[s], C::KV_BYTES);
 #pragma unroll
@@ -573,11 +599,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
           const int s = it % ST;
           const uint32_t par = ((it / ST) & 1) ^ 1;
           mbar_wait(&empty_k[s], par);
-          mbar_arrive_tx(&full_k[s], C::KV_BYTES);
+          mbar_arrive_tx(&full_k[s], C::KV_BYTES + (DROP ? C::W_BYTES : 0));
 #pragma unroll
           for (int c = 0; c < C::NCH; ++c)
             tma_load_4d(Ks + s * C::KV_BYTES + c * BK * 128, &mk, &full_k[s],
                         c * 64, kh, (t0 + it) * BK, bi);
+          if constexpr (DROP)   // the tile's keep words, the block's rows
+            tma_load_4d(Zs + s * C::W_BYTES, &mz, &full_k[s], (t0 + it) * 4,
+                        q0, hi, bi);
           mbar_wait(&empty_v[s], par);
           mbar_arrive_tx(&full_v[s], C::KV_BYTES);
 #pragma unroll
@@ -595,9 +624,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
     const int rw0 = q0 + wg * 64;                 // the group's first row
     const int r0 = rw0 + wl * 16 + g;             // rows of d[4c + j] ...
     const float sl2 = scale * 1.4426950408889634f;
-    // DROP: flat score index of (bi, hi, r0, key 0), and +8 rows
-    const uint64_t rb = ((uint64_t)(bi * h + hi) * sq + r0) * sk;
-    const uint64_t rs8 = (uint64_t)8 * sk;
+    // DROP: the keep words of row r0 in stage stg (r0 + 8's 8 entries on)
+    auto zrow = [&](int stg) {
+      return reinterpret_cast<const uint4*>(Zs + stg * C::W_BYTES) + (r0 - q0);
+    };
     // EXTRA: the segment ids of rows r0 and r0 + 8, the keys' ids, the
     // head's slope
     int sg[2] = {0, 0};
@@ -637,7 +667,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       // tile's class and c, the words staged in K's stage, the structured
       // test only where kv_len, the diagonal, the window or segment ids cut
       // the tile for the group's rows; K's stage (and the words) released
-      // after it
+      // after it and (DROP) the drop, which reads the stage's keep words
       // (its entry and c from the stage's slot)
       auto mod_tile = [&](int stg) {
         const int e = went[stg], k0 = am::entry_tile(e) * BK;
@@ -650,8 +680,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
             q_off, scale, md, bi, hi, sg, segk, slope, e >> am::TILE_SHIFT,
             wcv + stg,
             reinterpret_cast<const uint4*>(Ws + stg * C::W_BYTES), edge);
+        if constexpr (DROP) drop_tile<BK>(s, zrow(stg), inv, tg);
         mbar_arrive(&empty_k[stg]);
-        if constexpr (DROP) drop_tile<BK>(s, dr, rb, rs8, k0, tg);
       };
 
       mbar_wait(qbar, 0);
@@ -662,10 +692,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       if constexpr (MOD) {
         mod_tile(0);
       } else {
-        mbar_arrive(&empty_k[0]);
+        // DROP: K's stage is released once the drop has read its words
+        if constexpr (!DROP) mbar_arrive(&empty_k[0]);
         softmax_tile<BK, WIN>(s, m, l, alpha, t0 * BK, r0, rw0, tg, kvlen,
                               causal, q_off, wlo, sl2);
-        if constexpr (DROP) drop_tile<BK>(s, dr, rb, rs8, t0 * BK, tg);
+        if constexpr (DROP) {
+          drop_tile<BK>(s, zrow(0), inv, tg);
+          mbar_arrive(&empty_k[0]);
+        }
       }
       pack_a<BK>(s, p);
       // A pass issues S(it+1) and then P·V(it) (every wgmma unconditional,
@@ -685,11 +719,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         if constexpr (MOD) {
           mod_tile(sn);
         } else {
-          mbar_arrive(&empty_k[sn]);   // K(it+1) is read: it may refill
+          // K(it+1) is read: it may refill (DROP: once the drop has read
+          // its keep words)
+          if constexpr (!DROP) mbar_arrive(&empty_k[sn]);
           softmax_tile<BK, WIN>(s, m, l, alpha, (t0 + it + 1) * BK, r0, rw0,
                                 tg, kvlen, causal, q_off, wlo, sl2);
-          if constexpr (DROP)
-            drop_tile<BK>(s, dr, rb, rs8, (t0 + it + 1) * BK, tg);
+          if constexpr (DROP) {
+            drop_tile<BK>(s, zrow(sn), inv, tg);
+            mbar_arrive(&empty_k[sn]);
+          }
         }
         wgmma_wait<0>();
         fence_regs(o);
@@ -789,8 +827,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-           int causal, int q_off, int window, float scale, int drop,
-           tf::Drop dr, const am::Mod* mod, cudaStream_t st) {
+           int causal, int q_off, int window, float scale, const void* keep,
+           int keep_ww, float inv, const am::Mod* mod, cudaStream_t st) {
+  const bool drop = keep != nullptr;
   CUtensorMap mq, mk, mv;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
   constexpr int BK = Fwd<D>::BK;
@@ -828,7 +867,12 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
                            mod->ww, mod->wq > 1 ? BQ : 1);
     if (err) return err;
   }
-  const int smem = mod ? Fwd<D>::SMEM_MOD : Fwd<D>::SMEM;
+  // the keep words (drop): boxes of 4 words by the block's 128 rows
+  CUtensorMap mz{};
+  if (drop) err = sm90_map_words(&mz, keep, b, h, sq, keep_ww, BQ);
+  if (err) return err;
+  const int smem = drop ? Fwd<D>::SMEM_DROP
+                        : mod ? Fwd<D>::SMEM_MOD : Fwd<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -837,14 +881,15 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const int grid = ((sq + BQ - 1) / BQ) * h * b;
   kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-      nkv, causal, q_off, window, scale, group, dr, mt);
+      nkv, causal, q_off, window, scale, group, DropScale{inv, {}}, mt, mz);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// drop: the dropout instantiation, keyed by (k1, k2), an element kept iff
-// its top 23 bits are below thr, a kept probability scaled by inv = 1/keep.
+// keep (or null: no dropout): the dropout instantiation, reading the call's
+// keep words (kernel W, csrc/dropout.cu: (b, h, sq, keep_ww) uint32,
+// keep_ww = ceil(sk / 128)·4), a kept probability scaled by inv = 1/keep.
 // mod (or null): the general mode's argument (csrc/attn_mask.cuh: the
 // dense mask, the window, the segment ids, the ALiBi slopes), its walk
 // lists (ops/flash_attention.py `mask_bounds`' fwd_list: each 128-row
@@ -856,19 +901,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int b, int sq, int sk, int h, int nkv,
                                    int d, int causal, int q_off, int window,
                                    float scale, const am::Mod* mod,
-                                   int drop, unsigned k1, unsigned k2,
-                                   unsigned thr, float inv, void* stream) {
+                                   const void* keep, int keep_ww, float inv,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
-  const tf::Drop dr{k1, k2, thr, inv};
+  if (keep != nullptr && keep_ww != (sk + 127) / 128 * 4)
+    return (int)cudaErrorInvalidValue;
   if (d == 128)
     return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, drop, dr, mod, st);
+                       q_off, window, scale, keep, keep_ww, inv, mod, st);
   if (d == 64)
     return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                      q_off, window, scale, drop, dr, mod, st);
+                      q_off, window, scale, keep, keep_ww, inv, mod, st);
   if (d == 256)
     return launch<256>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, drop, dr, mod, st);
+                       q_off, window, scale, keep, keep_ww, inv, mod, st);
   return (int)cudaErrorInvalidValue;
 }

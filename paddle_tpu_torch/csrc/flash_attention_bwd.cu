@@ -34,19 +34,14 @@
 // with this one's (below); in both the two consumer groups overlap each
 // other. Registers (nvcc 12.9 -Xptxas -v, sm_90a): 168 at entry for 384
 // threads (consumers 240, producer 24 after setmaxnreg), no wgmma
-// serialisation warning, every instantiation; 0 bytes spilled but in K4's
-// dropout modes at d 128 (flash_bwd_dkv_sm90<128, false, true>: 12 bytes
-// of spill stores, 16 of loads; <128, true, true>: 16 and 20). d = 256
+// serialisation warning, every instantiation; 0 bytes spilled in K3's and
+// in K4's but some at d 128 (the general mode with EXTRA or DROP:
+// loop-invariant scalars stored once and reloaded at the loop's head and
+// in the epilogue, nvdisasm --print-line-info, the price of the walk's
+// state beside dk and dv's 128 accumulators); each instantiation's bytes
+// are in the port's kernel table (PERF.md). d = 256
 // (flash_bwd_dq_sm90<256, false, false>, flash_bwd_dkv_sm90<256, false,
 // false>): 168 at entry, 0 bytes spilled, none of warnings C7513-C7515.
-// The general instantiations (MOD, with and without EXTRA and DROP, d 64
-// and 128): 168 at entry; K3's 0 bytes spilled; K4's 0 but at d 128 with
-// EXTRA or DROP (flash_bwd_dkv_sm90<128, true, false, true> 28 / 36 bytes
-// of spill stores / loads, <128, false, true, true> 28 / 40, <128, true,
-// true, true> 44 / 56) and <64, true, true, true> (4 / 8): loop-invariant
-// scalars stored once and reloaded at the loop's head and in the
-// epilogue (nvdisasm --print-line-info), the price of the walk's state
-// beside dk and dv's 128 accumulators.
 //
 // Head dims 64, 128 and 256 (the reference's kernel widths; the caller
 // zero-pads others, ops/flash_attention.py). At d = 256 the tiles that fit
@@ -69,9 +64,13 @@
 // keep mask and P̃ = P∘Z/keep the forward's dropped probabilities:
 //   dS = P∘(dP∘Z/keep − Δ), Δ = rowsum(dO∘O) over the dropped O as before,
 //   dv = P̃ᵀ·dO.
-// Each kernel regenerates Z from an element's flat score index ((b·h +
-// hi)·sq + q)·sk + k (csrc/threefry.cuh), from the coordinates its masks
-// already use: K3 in k3_ds, K4 in k4_drop_ds (dSᵀ, and Pᵀ dropped for dv).
+// K3 regenerates Z from an element's flat score index ((b·h + hi)·sq +
+// q)·sk + k (csrc/threefry.cuh), from the coordinates its masks already
+// use (k3_ds). K4 hashes nothing: it reads the forward's keep words
+// (kernel W, csrc/dropout.cu, as K1 reads them), which its producer
+// TMA-loads beside each streamed query tile (4 words a row over the
+// block's 128 keys, 1 KB) into a ring of its own, and k4_drop_ds reads
+// Z's bits there (dSᵀ, and Pᵀ dropped for dv).
 //
 // The general mode is a fourth flag (MOD = true, at d 64 and 128, with or
 // without DROP; the kernels without it run the code they ran before), K1's
@@ -853,6 +852,10 @@ struct Dkv {
   // MOD: a ring stage's walk entry and its c
   static constexpr int E_OFF = W_OFF + ST * W_BYTES;
   static constexpr int SMEM_MOD = E_OFF + ST * 8 + 1024;
+  // DROP: a ring stage of a query tile's keep words (4 a row: the block's
+  // 128 keys), past MOD's
+  static constexpr int Z_OFF = (E_OFF + ST * 8 + 127) / 128 * 128;
+  static constexpr int SMEM_DROP = Z_OFF + ST * W_BYTES + 1024;
 };
 
 // Pᵀ = 2^(Sᵀ·sl2 − lse·log2 e) in place, 0 where the key is masked for the
@@ -885,29 +888,37 @@ __device__ __forceinline__ void k4_p(float (&sa)[BQ4 / 2], const float* ls,
   }
 }
 
+// DROP: the keep words of a streamed query tile's row qi in the stage (4
+// a row over the block's 128 keys), the thread's word of them at zq[qi·4]
+// (zq = the stage's words + its keys' word) shifted so that bits 0 and 8
+// are its keys c0 and c0 + 8 (zsh = c0 % 32)
+__device__ __forceinline__ uint32_t k4_keep(const uint32_t* zq, int qi,
+                                            int zsh) {
+  return zq[qi * 4] >> zsh;
+}
+
 // DROP: dSᵀ = Pᵀ∘(dPᵀ∘Z/keep − Δ) in place of dPᵀ, then Pᵀ∘Z/keep in
-// place of Pᵀ (for dv); element (key c0 + 8i, query q0 + 8c + 2·tg + j) of
-// the scores of the head starting at flat index hb hashes hb + query·sk +
-// key; dl holds the tile's Δ
+// place of Pᵀ (for dv); element (key c0 + 8i, query q0 + 8c + 2·tg + j)
+// keeps iff bit 8i of k4_keep(zq, 8c + 2·tg + j, zsh); dl holds the tile's
+// Δ, inv = 1/keep
 __device__ __forceinline__ void k4_drop_ds(float (&sa)[BQ4 / 2],
                                            float (&dp)[BQ4 / 2],
-                                           const float* dl, int tg, int c0,
-                                           int q0, int sk, uint64_t hb,
-                                           const tf::Drop& dr) {
-  // the thread's first element: query q0 + 2·tg, key c0
-  const uint64_t base = hb + (uint64_t)(q0 + tg * 2) * sk + (uint64_t)c0;
+                                           const float* dl, int tg,
+                                           const uint32_t* zq, int zsh,
+                                           float inv) {
 #pragma unroll
   for (int c = 0; c < BQ4 / 8; ++c) {
     const float2 d2 = *reinterpret_cast<const float2*>(dl + c * 8 + tg * 2);
+    const uint32_t z[2] = {k4_keep(zq, c * 8 + tg * 2, zsh),
+                           k4_keep(zq, c * 8 + tg * 2 + 1, zsh)};
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int e = 4 * c + 2 * i + j;
-        const bool kp = tf::keep(
-            dr, base + (uint64_t)(c * 8 + j) * sk + (uint64_t)(8 * i));
-        dp[e] = sa[e] * ((kp ? dp[e] * dr.inv : 0.f) - (j ? d2.y : d2.x));
-        sa[e] = kp ? sa[e] * dr.inv : 0.f;
+        const bool kp = (z[j] >> (8 * i)) & 1;
+        dp[e] = sa[e] * ((kp ? dp[e] * inv : 0.f) - (j ? d2.y : d2.x));
+        sa[e] = kp ? sa[e] * inv : 0.f;
       }
   }
 }
@@ -1016,22 +1027,25 @@ __device__ __forceinline__ uint32_t k4_scores(
 // where t depends on s (gm, k4_scores), 0 elsewhere; ls holds the tile's
 // log2 l (+inf for a row whose P is 0: past sq, no key, or a dead row off
 // the walk), then Δ, then m. DROP: dSᵀ = Pᵀ∘(dPᵀ∘Z/keep − Δ), then
-// Pᵀ∘Z/keep in place of Pᵀ (for dv), Z hashed from query head hq's flat
-// index hb + query·sk + key as in k4_drop_ds (hb = (b·h + hq)·sq·sk)
+// Pᵀ∘Z/keep in place of Pᵀ (for dv), Z from the staged keep words as in
+// k4_drop_ds (zq, zsh, inv = 1/keep)
 template <bool DROP>
 __device__ __forceinline__ void k4_pds_mod(float (&sa)[BQ4 / 2],
                                            float (&dp)[BQ4 / 2],
                                            const float* ls, uint32_t gm,
-                                           int c0, int tg, int q0, int sq,
-                                           int sk, int bi, int h, int hq,
-                                           const tf::Drop& dr) {
-  const uint64_t hb = DROP ? (uint64_t)(bi * h + hq) * sq * sk : 0;
+                                           int tg, const uint32_t* zq,
+                                           int zsh, float inv) {
 #pragma unroll
   for (int c = 0; c < BQ4 / 8; ++c) {
     const int qi = c * 8 + tg * 2;
     const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
     const float2 d2 = *reinterpret_cast<const float2*>(ls + BQ4 + qi);
     const float2 m2 = *reinterpret_cast<const float2*>(ls + 2 * BQ4 + qi);
+    uint32_t z[2] = {0, 0};
+    if constexpr (DROP) {
+      z[0] = k4_keep(zq, qi, zsh);
+      z[1] = k4_keep(zq, qi + 1, zsh);
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1040,10 +1054,9 @@ __device__ __forceinline__ void k4_pds_mod(float (&sa)[BQ4 / 2],
         const float p = am::prob(sa[e], j ? m2.y : m2.x, j ? l2.y : l2.x);
         float d = dp[e], pd = p;
         if constexpr (DROP) {
-          const bool kp = tf::keep(
-              dr, hb + (uint64_t)(q0 + qi + j) * sk + (uint64_t)(c0 + 8 * i));
-          d = kp ? d * dr.inv : 0.f;
-          pd = kp ? p * dr.inv : 0.f;
+          const bool kp = (z[j] >> (8 * i)) & 1;
+          d = kp ? d * inv : 0.f;
+          pd = kp ? p * inv : 0.f;
         }
         dp[e] = (gm >> e) & 1 ? p * (d - (j ? d2.y : d2.x)) : 0.f;
         sa[e] = pd;
@@ -1061,8 +1074,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, const int* __restrict__ kv_lens,
                    int sq, int sk, int h, int nkv, int causal, int q_off,
-                   int window, float scale, int group, tf::Drop dr,
-                   const __grid_constant__ am::ModTile mt) {
+                   int window, float scale, int group, float inv,
+                   const __grid_constant__ am::ModTile mt,
+                   const __grid_constant__ CUtensorMap mz) {
   using C = Dkv<D>;
   constexpr int ST = C::ST;
   constexpr int BKEY = C::BKEY;
@@ -1125,6 +1139,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
   uint8_t* Ws = sm + C::W_OFF;          // MOD: stage s at s·W_BYTES
   int* went = reinterpret_cast<int*>(sm + C::E_OFF);
   float* wcv = reinterpret_cast<float*>(sm + C::E_OFF + ST * 4);
+  uint8_t* Zs = sm + C::Z_OFF;          // DROP: stage s at s·W_BYTES
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kvbar, 1);
@@ -1146,6 +1161,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
       if (lane == 0) {
         sm90::tma_prefetch_map(&mq);
         sm90::tma_prefetch_map(&mo);
+        if constexpr (DROP) sm90::tma_prefetch_map(&mz);
         sm90::mbar_arrive_tx(kvbar, 2 * C::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < C::NCH; ++c) {
@@ -1193,7 +1209,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
               went[s] = e;
               wcv[s] = cv;
               sm90::mbar_arrive_tx(&full[s],
-                                   2 * C::QT_BYTES + (stage ? wbytes : 0));
+                                   2 * C::QT_BYTES + (stage ? wbytes : 0) +
+                                       (DROP ? C::W_BYTES : 0));
 #pragma unroll
               for (int c = 0; c < C::NCH; ++c) {
                 sm90::tma_load_4d(Qs + s * C::QT_BYTES + c * BQ4 * 128, &mq,
@@ -1205,6 +1222,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                 sm90::tma_load_4d(Ws + s * C::W_BYTES, &mt.words, &full[s],
                                   k0 / 32, md.wq > 1 ? q0 : 0,
                                   md.wh > 1 ? hi : 0, md.wb > 1 ? bi : 0);
+              if constexpr (DROP)   // the tile's keep words, head hi's
+                sm90::tma_load_4d(Zs + s * C::W_BYTES, &mz, &full[s],
+                                  k0 / 32, q0, hi, bi);
             } else {
               sm90::mbar_arrive(&full[s]);
             }
@@ -1226,7 +1246,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
               ls[BQ4 + i] = q < sq ? db[q] : 0.f;
             }
             if (lane == 0) {
-              sm90::mbar_arrive_tx(&full[s], 2 * C::QT_BYTES);
+              sm90::mbar_arrive_tx(&full[s], 2 * C::QT_BYTES +
+                                                 (DROP ? C::W_BYTES : 0));
 #pragma unroll
               for (int c = 0; c < C::NCH; ++c) {
                 sm90::tma_load_4d(Qs + s * C::QT_BYTES + c * BQ4 * 128, &mq,
@@ -1234,6 +1255,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                 sm90::tma_load_4d(Os + s * C::QT_BYTES + c * BQ4 * 128, &mo,
                                   &full[s], c * 64, hi, q0, bi);
               }
+              if constexpr (DROP)   // the tile's keep words, head hi's
+                sm90::tma_load_4d(Zs + s * C::W_BYTES, &mz, &full[s],
+                                  k0 / 32, q0, hi, bi);
             } else {
               sm90::mbar_arrive(&full[s]);
             }
@@ -1251,6 +1275,9 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
     const int col0 = C::SPLIT ? wg * C::NA : 0;
     const int c0 = kw0 + wl * 16 + g;          // keys of the rows i = 0, 1
     const float sl2 = scale * 1.4426950408889634f;
+    // DROP: the thread's keep word in a stage's row 0 (keys c0 & ~31 …),
+    // and c0's bit in it
+    const int zw = (c0 - k0) >> 5, zsh = (c0 - k0) & 31;
     // EXTRA: the segment ids of the keys c0 and c0 + 8, the queries'
     int sgk[2] = {0, 0};
     const int* segq = nullptr;
@@ -1346,18 +1373,22 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
             else
               gm = K4_SCORES(SRC_ANY, true);
 #undef K4_SCORES
-            k4_pds_mod<DROP>(sa, dp, ls, gm, c0, tg, qm, sq, sk, bi, h, hq,
-                             dr);
+            k4_pds_mod<DROP>(
+                sa, dp, ls, gm, tg,
+                reinterpret_cast<const uint32_t*>(Zs + s * C::W_BYTES) + zw,
+                zsh, inv);
           } else {
             k4_p<WIN>(sa, ls, edge, c0, tg, kvlen, causal, q_off, q0, wlo,
                       sl2);
           }
           if constexpr (MOD) {
           } else if constexpr (DROP) {
-            // the scores of head kh·n_rep + it / per_head
-            const uint64_t hb =
-                (uint64_t)(bi * h + kh * n_rep + it / per_head) * sq * sk;
-            k4_drop_ds(sa, dp, ls + BQ4, tg, c0, q0, sk, hb, dr);
+            // the keep words of the stage's tile (head kh·n_rep + it /
+            // per_head)
+            k4_drop_ds(
+                sa, dp, ls + BQ4, tg,
+                reinterpret_cast<const uint32_t*>(Zs + s * C::W_BYTES) + zw,
+                zsh, inv);
           } else {
             k4_ds(sa, dp, ls + BQ4, tg);
           }
@@ -1415,8 +1446,10 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-               int causal, int q_off, int window, float scale, int drop,
-               tf::Drop dr, const am::Mod* mod, cudaStream_t st) {
+               int causal, int q_off, int window, float scale,
+               const void* keep, int keep_ww, float inv, const am::Mod* mod,
+               cudaStream_t st) {
+  const bool drop = keep != nullptr;
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ4);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ4);
@@ -1455,7 +1488,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                            mod->ww, mod->wq > 1 ? BQ4 : 1);
     if (err) return err;
   }
-  const int smem = mod ? Dkv<D>::SMEM_MOD : Dkv<D>::SMEM;
+  // the keep words (drop): boxes of 4 words by a query tile's 64 rows
+  CUtensorMap mz{};
+  if (drop) err = sm90_map_words(&mz, keep, b, h, sq, keep_ww, BQ4);
+  if (err) return err;
+  const int smem = drop ? Dkv<D>::SMEM_DROP
+                        : mod ? Dkv<D>::SMEM_MOD : Dkv<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1465,7 +1503,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window,
-      scale, group, dr, mt);
+      scale, group, inv, mt, mz);
   return (int)cudaGetLastError();
 }
 
@@ -1513,26 +1551,28 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int sk, int h, int nkv, int d,
                                        int causal, int q_off, int window,
                                        float scale, const am::Mod* mod,
-                                       int drop, unsigned k1, unsigned k2,
-                                       unsigned thr, float inv, void* stream) {
+                                       const void* keep, int keep_ww,
+                                       float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // window: 0 = none; a window needs causal (the reference's validation)
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
-  const tf::Drop dr{k1, k2, thr, inv};
+  // keep (or null): the forward's keep words as K1 takes them
+  if (keep != nullptr && keep_ww != (sk + 127) / 128 * 4)
+    return (int)cudaErrorInvalidValue;
   // mod (or null): as K1 takes it, its walk lists (`mask_bounds`'
   // dkv_list: each key block's 64-row query tiles) and the dead rows' dsum
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                           sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                           mod, st);
+                           sk, h, nkv, causal, q_off, window, scale, keep,
+                           keep_ww, inv, mod, st);
   if (d == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                          sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                          mod, st);
+                          sk, h, nkv, causal, q_off, window, scale, keep,
+                          keep_ww, inv, mod, st);
   if (d == 256)
     return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                           sk, h, nkv, causal, q_off, window, scale, drop, dr,
-                           mod, st);
+                           sk, h, nkv, causal, q_off, window, scale, keep,
+                           keep_ww, inv, mod, st);
   return (int)cudaErrorInvalidValue;
 }

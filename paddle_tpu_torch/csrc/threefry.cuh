@@ -1,6 +1,7 @@
 // threefry2x32 and the dropout keep test, written once for every kernel
-// that drops (csrc/dropout.cu, and the dropout modes of K1, K3 and K4 in
-// csrc/flash_attention.cu and csrc/flash_attention_bwd.cu).
+// that hashes a mask: csrc/dropout.cu (the hidden dropout, and kernel W,
+// which packs the attention's keep mask into the words K1 and K4 read) and
+// K3's dropout modes in csrc/flash_attention_bwd.cu.
 //
 // The port draws every dropout mask as the JAX package's CPU path draws it,
 // jax.random.bernoulli(key, keep, shape) (paddle_tpu/nn/functional.py:112,
@@ -12,9 +13,9 @@
 // host (ops/dropout.py `keep_threshold`). The same function runs in
 // torch integer ops in core/rng.py, so a mask on the card is checked bit
 // for bit against the plain version, and through it against JAX. A mask
-// depends on the element's index alone, never on a kernel's tiling, so
-// the backward kernels regenerate the forward's mask whatever their loop
-// order.
+// depends on the element's index alone, never on a kernel's tiling: K3
+// regenerates the forward's mask whatever its loop order, and kernel W's
+// words (hashed once a call, saved for the backward) hold the same bits.
 //
 // Cost: 20 rounds of add, rotate (one funnel shift) and xor, ten key
 // injections, the two input adds and the final xor: 73 integer operations

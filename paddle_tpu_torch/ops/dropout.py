@@ -16,6 +16,12 @@ replaces no TPU kernel: the reference leaves this dropout to XLA, and the
 port's plain version would be ~100 eager int64 passes a call); on CPU
 tensors it runs ``dropout_plain``. ``launches`` counts its launches,
 ``backward`` those of them made for a gradient.
+
+``attention_keep_words`` is the attention's keep mask packed 32 keys a
+word, hashed once a call by kernel W of ``csrc/dropout.cu`` (the plain twin
+``attention_keep_words_plain`` on the CPU): K1 and K4 read those words
+instead of hashing (``ops.flash_attention``), K3 still hashes the key.
+``attention_keep_words.launches`` counts its launches.
 """
 
 import ctypes
@@ -77,6 +83,97 @@ def attention_keep_mask(key, p, b, h, sq, sk, device=None):
     return ((y1 ^ y2) >> 9) < keep_threshold(p)
 
 
+def _pack_bits(x, n):
+    """(..., m) bool packed little-endian into (..., n // 8) uint8, n >= m a
+    multiple of 8: bit i of byte j is x[..., 8j + i], False past m."""
+    buf = torch.zeros(x.shape[:-1] + (n,), dtype=torch.uint8,
+                      device=x.device)
+    buf[..., :x.shape[-1]] = x
+    w = (2 ** torch.arange(8, device=x.device)).to(torch.uint8)
+    return (buf.reshape(x.shape[:-1] + (n // 8, 8)) * w).sum(
+        -1, dtype=torch.uint8)
+
+
+def keep_words_width(sk) -> int:
+    """Words a row of keep words holds: ceil(sk / 128)·4 (16-byte rows, for
+    TMA, as ``ops.flash_attention.mask_words`` pads a bool mask)."""
+    return -(-sk // 128) * 4
+
+
+def attention_keep_words_plain(key, p, b, h, sq, sk, is_causal=False,
+                               causal_offset=None, kv_lens=None, window=None,
+                               everything=False, device=None):
+    """Plain twin of kernel W: ``attention_keep_mask`` and the structured
+    limits (every key below sk with `everything`), packed by ``_pack_bits``
+    into int32 words (b, h, sq, ``keep_words_width(sk)``): bit i of word w
+    of a row is key 32w + i."""
+    # the attention's structured limits (ops.flash_attention imports this
+    # module, so not at the top)
+    from paddle_tpu_torch.ops.flash_attention import _structured_mask
+    z = attention_keep_mask(key, p, b, h, sq, sk, device)
+    vis = None if everything else _structured_mask(
+        sq, sk, is_causal, kv_lens, causal_offset, z.device, window)
+    if vis is not None:
+        z = z & vis
+    return _pack_bits(z, keep_words_width(sk) * 32).view(torch.int32)
+
+
+def keep_words_mask(words, sk):
+    """The bool (b, h, sq, sk) keep mask that packed words hold."""
+    by = words.contiguous().view(torch.uint8)
+    bits = (by[..., None] >> torch.arange(8, dtype=torch.uint8,
+                                          device=by.device)) & 1
+    return bits.reshape(by.shape[:-1] + (-1,))[..., :sk].bool()
+
+
+def attention_keep_words(key, p, b, h, sq, sk, is_causal=False,
+                         causal_offset=None, kv_lens=None, window=None,
+                         everything=False, device=None):
+    """The attention's keep mask over (b, h, sq, sk) as packed int32 words
+    (b, h, sq, ``keep_words_width(sk)``) on `device` (the key's by default):
+    bit i of word w of row (bi, hi, q) is ``attention_keep_mask``'s bit at
+    key 32w + i where the structured limits leave that key visible (kv_lens
+    (b,), the causal limit with ``causal_offset``, the window's lower edge),
+    0 elsewhere; with `everything` every key below sk (the general mode,
+    whose dead rows weigh every key). CUDA: one launch of kernel W
+    (``csrc/dropout.cu``; counted on ``launches``), every word written;
+    the CPU: the plain twin; "meta" (the wrappers' argument tests): the
+    words' shape, no launch."""
+    key = torch.as_tensor(key, dtype=torch.int64)
+    device = key.device if device is None else torch.device(device)
+    if window is not None and not is_causal:
+        raise ValueError("attention_keep_words: a window needs is_causal")
+    if device.type == "cpu":
+        return attention_keep_words_plain(key, p, b, h, sq, sk, is_causal,
+                                          causal_offset, kv_lens, window,
+                                          everything, device)
+    if device.type not in ("cuda", "meta"):
+        raise ValueError(f"attention_keep_words: device {device}, expected "
+                         "cuda or cpu")
+    from paddle_tpu_torch.ops.flash_attention import _kv_lens_arg
+    ww = keep_words_width(sk)
+    out = torch.empty((b, h, sq, ww), dtype=torch.int32, device=device)
+    if device.type == "meta":   # shapes only: a meta tensor holds no values
+        return out
+    kl = _kv_lens_arg(kv_lens, b, device)
+    if kl is not None and tuple(kl.shape) != (b,):
+        raise ValueError(f"attention_keep_words: kv_lens of shape "
+                         f"{tuple(kl.shape)}, expected ({b},)")
+    off = sk - sq if causal_offset is None else int(causal_offset)
+    k1, k2 = rng.key_words(key)
+    err = _lib().attention_keep_words(
+        _build.ptr(out), _build.ptr(kl) if kl is not None else None, b, h,
+        sq, sk, ww, int(bool(is_causal)), off,
+        min(int(window or 0), 1 << 30), int(everything),
+        k1, k2, keep_threshold(p), _build.stream_of(out))
+    attention_keep_words.launches += 1
+    _build.check(err, "attention_keep_words")
+    return out
+
+
+attention_keep_words.launches = 0
+
+
 def dropout_plain(x, key, p, divide=True):
     """The plain version: ``where(keep, x / keep_in_dtype, 0)`` in x's
     dtype (``divide=False``: ``where(keep, x, 0)``, the downscale_in_infer
@@ -90,10 +187,13 @@ def _lib():
     lib = _build.library("dropout")
     fn = lib.dropout_fwd
     if fn.argtypes is None:
-        vp, cu = ctypes.c_void_p, ctypes.c_uint
+        vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         fn.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, cu, cu, cu,
                        ctypes.c_float, vp]
         fn.restype = ctypes.c_int
+        kw = lib.attention_keep_words
+        kw.argtypes = [vp, vp] + [ci] * 9 + [cu, cu, cu, vp]
+        kw.restype = ctypes.c_int
     return lib
 
 

@@ -40,14 +40,19 @@ zeroed) each probability is kept with probability 1 - p and the kept ones
 are divided by 1 - p. The mask is the reference's CPU mask,
 ``bernoulli(key, 1 - p, (b, h, sq, sk))`` (``ops.dropout``): element
 (bi, hi, q, k) hashes its flat index ``((bi·h + hi)·sq + q)·sk + k``.
-K1 drops the probabilities after its softmax statistics took them
-undropped (the lse stays the undropped one, as in the reference, ``:533``);
-K3 and K4 regenerate the mask from the same index: dS = P∘(dP̃∘Z/keep − Δ)
-with Δ = rowsum(dO∘O) over the dropped O, dv = (P∘Z/keep)ᵀ·dO. Each
-kernel drops in an instantiation of its own (``DROP``), so the kernels
-without dropout run the code they ran before. ``scaled_dot_product_
-attention`` draws one key a call from ``next_rng_key("dropout")`` on
-every path, as the reference does on both of its paths (``:137``,
+The mask is hashed once a call, into packed words (``ops.dropout.
+attention_keep_words``: kernel W on the card, bit k % 32 of word k / 32 of
+a row the keep bit of key k, 0 past the structured limits), which K1 and
+K4 read by TMA beside their tiles; K3 still hashes the key. K1 drops the
+probabilities after its softmax statistics took them undropped (the lse
+stays the undropped one, as in the reference, ``:533``); K3 and K4 apply
+the same mask: dS = P∘(dP̃∘Z/keep − Δ) with Δ = rowsum(dO∘O) over the
+dropped O, dv = (P∘Z/keep)ᵀ·dO. ``FlashAttention`` makes the words in its
+forward and saves them for K4; a raw K1 or K4 call given none makes them
+itself. Each kernel drops in an instantiation of its own (``DROP``), so
+the kernels without dropout run the code they ran before. ``scaled_dot_
+product_attention`` draws one key a call from ``next_rng_key("dropout")``
+on every path, as the reference does on both of its paths (``:137``,
 ``:995``), so the streams advance alike on the CPU and on the card.
 
 ``window`` (``window_size`` at the dispatch) is the causal sliding window
@@ -117,6 +122,7 @@ import torch
 from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import dropout as drop_ops
+from paddle_tpu_torch.ops.dropout import _pack_bits
 
 NEG_INF = -1e30
 # the device type whose tensors the kernels take (a test sets "meta" to run
@@ -322,24 +328,12 @@ TILE_EMPTY, TILE_FULL, TILE_MIXED = 0, 1, 2
 TILE_SHIFT = 24
 
 
-def _pack_bits(x, n):
-    """(..., m) bool packed little-endian into (..., n // 8) uint8, n >= m a
-    multiple of 8: bit i of byte j is x[..., 8j + i], False past m."""
-    buf = torch.zeros(x.shape[:-1] + (n,), dtype=torch.uint8,
-                      device=x.device)
-    buf[..., :x.shape[-1]] = x
-    w = (2 ** torch.arange(8, device=x.device)).to(torch.uint8)
-    return (buf.reshape(x.shape[:-1] + (n // 8, 8)) * w).sum(
-        -1, dtype=torch.uint8)
-
-
 def mask_words(mask):
     """A bool (mb, mh, mq, sk) mask packed into uint32 words (as int32)
     (mb, mh, mq, W): bit i of word w is key 32w + i, W = ceil(sk / 32)
     rounded up to a multiple of 4, so that every row is 16-byte aligned for
     TMA. A (b, 1, 1, sk) key-padding mask packs to b·W words."""
-    sk = mask.shape[-1]
-    nw = -(-sk // 128) * 4
+    nw = drop_ops.keep_words_width(mask.shape[-1])
     return _pack_bits(mask, nw * 32).view(torch.int32)
 
 
@@ -716,14 +710,26 @@ def _masked_scores(s, mask, structured):
     return t + mask.to(s.dtype), g
 
 
-def _check_dropout(dropout_p, key):
+def _check_dropout(dropout_p, key, keep_words=None):
     """The dropout arguments of the kernels' wrappers and plain versions:
-    p in [0, 1], and a key (2,) whenever p > 0."""
+    p in [0, 1], and whenever p > 0 a key (2,) or the draw's keep words
+    (``ops.dropout.attention_keep_words``, where the caller takes them)."""
     if not 0.0 <= dropout_p <= 1.0:
         raise ValueError(f"dropout_p must be in [0, 1], got {dropout_p}")
-    if dropout_p > 0.0 and key is None:
+    if dropout_p > 0.0 and key is None and keep_words is None:
         raise ValueError("attention dropout needs the draw's key")
     return float(dropout_p)
+
+
+def _keep_mask(key, keep_words, dropout_p, b, h, sq, sk, device):
+    """The plain twins' keep mask Z (b, h, sq, sk): the keep words' bits
+    when given, else ``attention_keep_mask`` of `key`; None without
+    dropout."""
+    if dropout_p == 0.0:
+        return None
+    if keep_words is not None:
+        return drop_ops.keep_words_mask(keep_words, sk)
+    return drop_ops.attention_keep_mask(key, dropout_p, b, h, sq, sk, device)
 
 
 def _drop_probs(probs, z, dropout_p):
@@ -804,15 +810,17 @@ def _plain_scores(q, k, scale, sq, sk, causal_offset, alibi_slopes):
 def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
                               kv_lens=None, causal_offset=None, window=None,
                               dropout_p=0.0, key=None, attn_mask=None,
-                              seg_q=None, seg_k=None, alibi_slopes=None):
+                              seg_q=None, seg_k=None, alibi_slopes=None,
+                              keep_words=None):
     """Plain twin of the kernel: (out (b, sq, h, d) in q's dtype, lse
     (b, h, sq) fp32), computed in fp32. Fully-masked rows give out 0 and
     lse NEG_INF, as the kernel does. With ``dropout_p`` the normalised
-    probabilities are dropped by ``attention_keep_mask(key)``; the lse
-    stays the undropped one. In the general mode (``attn_mask``, segment
-    ids or ALiBi) the scores are ``_xla_attention``'s and the lse is the
-    pair (m, log l), (b, h, sq, 2) (``_masked_fwd_plain``)."""
-    dropout_p = _check_dropout(dropout_p, key)
+    probabilities are dropped by ``attention_keep_mask(key)``, or by the
+    bits of `keep_words` (``ops.dropout.attention_keep_words``) when given;
+    the lse stays the undropped one. In the general mode (``attn_mask``,
+    segment ids or ALiBi) the scores are ``_xla_attention``'s and the lse
+    is the pair (m, log l), (b, h, sq, 2) (``_masked_fwd_plain``)."""
+    dropout_p = _check_dropout(dropout_p, key, keep_words)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     vf = _repeat_kv(v, h // k.shape[2]).float()
@@ -820,8 +828,7 @@ def flash_attention_fwd_plain(q, k, v, is_causal=False, scale=None,
     s = _plain_scores(q, k, scale, sq, sk, causal_offset, alibi_slopes)
     mask = _structured_mask(sq, sk, is_causal, kv_lens, causal_offset,
                             q.device, window, seg_q, seg_k)
-    z = None if dropout_p == 0.0 else drop_ops.attention_keep_mask(
-        key, dropout_p, b, h, sq, sk, q.device)
+    z = _keep_mask(key, keep_words, dropout_p, b, h, sq, sk, q.device)
     if _general(attn_mask, seg_q, alibi_slopes):
         dm = None if attn_mask is None else dense_mask(attn_mask, b, h, sq,
                                                        sk, q.device)
@@ -890,17 +897,18 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
                               scale=None, kv_lens=None, causal_offset=None,
                               window=None, dropout_p=0.0, key=None,
                               attn_mask=None, seg_q=None, seg_k=None,
-                              alibi_slopes=None, g_lse=None):
+                              alibi_slopes=None, g_lse=None, keep_words=None):
     """Plain twin of the backward kernels: (dq, dk, dv) in fp32 from the
     forward's (out, lse), with the kernels' contract: P = exp(S·scale − lse)
     on visible keys and 0 on a row whose lse is NEG_INF, Δ = rowsum(dO∘O)
     (minus ``g_lse``, the cotangent of a differentiable lse, (b, h, sq)),
     dS = P∘(dP − Δ), dq = scale·dS·K, dk = scale·dSᵀ·Q, dv = Pᵀ·dO, and the
     GQA groups summed into their kv head. With ``dropout_p`` (Z the keep
-    mask of `key`): dS = P∘(dP∘Z/keep − Δ) and dv = (P∘Z/keep)ᵀ·dO. In the
+    mask of `key`, or the bits of `keep_words`): dS = P∘(dP∘Z/keep − Δ) and
+    dv = (P∘Z/keep)ᵀ·dO. In the
     general mode (``attn_mask``, segment ids or ALiBi) `lse` is the
     forward's pair (m, log l) (``_masked_bwd_plain``)."""
-    dropout_p = _check_dropout(dropout_p, key)
+    dropout_p = _check_dropout(dropout_p, key, keep_words)
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     n_rep = h // nkv
@@ -914,8 +922,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, is_causal=False,
     delta = (of * out.float()).sum(-1).transpose(1, 2)[..., None]
     if g_lse is not None:
         delta = delta - g_lse.float()[..., None]
-    z = None if dropout_p == 0.0 else drop_ops.attention_keep_mask(
-        key, dropout_p, b, h, sq, sk, q.device)
+    z = _keep_mask(key, keep_words, dropout_p, b, h, sq, sk, q.device)
     if _general(attn_mask, seg_q, alibi_slopes):
         dm = None if attn_mask is None else dense_mask(attn_mask, b, h, sq,
                                                        sk, q.device)
@@ -1005,14 +1012,45 @@ def _refuse_grad(what, *ts):
             "torch.no_grad()")
 
 
+def _inv_keep(dropout_p):
+    """1/keep in fp32, keep = float32(1 - p) (0 when nothing is kept)."""
+    keep = float(np.float32(1.0 - dropout_p))
+    return float(np.float32(1.0) / np.float32(keep)) if keep > 0 else 0.0
+
+
 def _drop_args(dropout_p, key):
-    """The kernels' dropout arguments: (drop, k1, k2, thr, 1/keep)."""
+    """K3's dropout arguments: (drop, k1, k2, thr, 1/keep)."""
     if dropout_p <= 0.0:
         return [0, 0, 0, 0, 1.0]
-    keep = float(np.float32(1.0 - dropout_p))
     k1, k2 = rng.key_words(key)
     return [1, k1, k2, drop_ops.keep_threshold(dropout_p),
-            float(np.float32(1.0) / np.float32(keep)) if keep > 0 else 0.0]
+            _inv_keep(dropout_p)]
+
+
+def _keep_args(what, dropout_p, key, keep_words, q, b, h, sq, sk, is_causal,
+               causal_offset, kv_lens, window, general):
+    """K1's and K4's dropout arguments: (the keep words, [their pointer,
+    words a row, 1/keep]); without dropout (None, [null, 0, 1.0]). Words
+    not given are made here, one launch of kernel W (every key of a row in
+    the general mode, whose dead rows weigh every key); given ones must be
+    the call's: int32 (b, h, sq, ceil(sk / 128)·4), contiguous, 16-byte
+    aligned, on q's device."""
+    if dropout_p <= 0.0:
+        return None, [None, 0, 1.0]
+    ww = drop_ops.keep_words_width(sk)
+    if keep_words is None:
+        keep_words = drop_ops.attention_keep_words(
+            key, dropout_p, b, h, sq, sk, is_causal, causal_offset, kv_lens,
+            window, everything=general, device=q.device)
+    elif (keep_words.device != q.device or keep_words.dtype != torch.int32
+          or tuple(keep_words.shape) != (b, h, sq, ww)
+          or not keep_words.is_contiguous() or keep_words.data_ptr() % 16):
+        raise ValueError(
+            f"{what}: keep_words must be contiguous, 16-byte aligned int32 "
+            f"{(b, h, sq, ww)} on {q.device} (ops.dropout."
+            f"attention_keep_words), got {keep_words.dtype} "
+            f"{tuple(keep_words.shape)} on {keep_words.device}")
+    return keep_words, [_build.ptr(keep_words), ww, _inv_keep(dropout_p)]
 
 
 class _ModArg(ctypes.Structure):
@@ -1226,12 +1264,14 @@ dead_row_sums.launches = 0
 def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                         causal_offset=None, window=None, dropout_p=0.0,
                         key=None, attn_mask=None, bounds=None, seg_q=None,
-                        seg_k=None, alibi_slopes=None):
+                        seg_k=None, alibi_slopes=None, keep_words=None):
     """Flash-attention forward: (out, lse) as flash_attention_fwd_plain.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64, 128
     or 256, contiguous; with ``window`` its windowed instantiation, with
-    ``dropout_p`` its dropout one, keyed by `key`; with ``attn_mask``,
+    ``dropout_p`` its dropout one, reading `keep_words`
+    (``ops.dropout.attention_keep_words`` of the call; made here from `key`
+    when None, one more launch); with ``attn_mask``,
     segment ids or ``alibi_slopes`` its general one (and the window and
     dropout there), walking `bounds` (``mask_bounds``, computed here when
     None); every mode but the plain one at d 64 and 128 only); anything
@@ -1240,12 +1280,12 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
     carries no gradient."""
     _refuse_grad("flash_attention_fwd", q, k, v)
     window = _check_window(window, is_causal)
-    dropout_p = _check_dropout(dropout_p, key)
+    dropout_p = _check_dropout(dropout_p, key, keep_words)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, is_causal, scale, kv_lens,
                                          causal_offset, window, dropout_p,
                                          key, attn_mask, seg_q, seg_k,
-                                         alibi_slopes)
+                                         alibi_slopes, keep_words)
     b, sq, sk, h, nkv, d = _check_kernel_inputs("flash_attention_fwd",
                                                 q, k, v, dims=FWD_DIMS)
     general = _general(attn_mask, seg_q, alibi_slopes)
@@ -1267,16 +1307,19 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
                           sk, red)
     lse = torch.empty((b, h, sq) + ((2,) if general else ()),
                       dtype=torch.float32, device=q.device)
-    lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9)
+    words, drop = _keep_args("flash_attention_fwd", dropout_p, key,
+                             keep_words, q, b, h, sq, sk, is_causal,
+                             causal_offset, kv_lens, window, general)
+    lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9, True)
     # window 0: the windowless kernel; a window takes the windowed one
     # (beyond 2^30 it masks nothing and stays a C int); the general
-    # argument, the general one
+    # argument, the general one; keep words, the dropout one
     err = lib.flash_attention_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _build.ptr(kl) if kl is not None else None,
         b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
-        min(window or 0, 1 << 30), float(scale), marg,
-        *_drop_args(dropout_p, key), _build.stream_of(q))
+        min(window or 0, 1 << 30), float(scale), marg, *drop,
+        _build.stream_of(q))
     _count(flash_attention_fwd, d, window, dropout_p, attn_mask, seg_q,
            alibi_slopes)
     _build.check(err, "flash_attention_fwd")
@@ -1288,9 +1331,13 @@ _counters(flash_attention_fwd, FWD_DIMS)
 
 def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
               kv_lens, causal_offset, window, dropout_p, key, attn_mask,
-              bounds, seg_q, seg_k, slopes):
+              bounds, seg_q, seg_k, slopes, keep_words=None):
+    """The K3 (`part` "dq": the draw's key) and K4 ("dkv": the keep words)
+    calls' checked arguments: (head pointers, kv_lens' pointer, the tail
+    after the outputs, d, the tensors to keep alive over the launch)."""
     window = _check_window(window, is_causal)
-    dropout_p = _check_dropout(dropout_p, key)
+    dropout_p = _check_dropout(dropout_p, key,
+                               keep_words if part == "dkv" else None)
     b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
                                                 ("dout", dout))
     general = _general(attn_mask, seg_q, slopes)
@@ -1314,11 +1361,18 @@ def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
                             bounds["dead_bits"])
     marg, keep = _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window,
                           bounds, part, q, b, h, sq, sk, red)
+    if part == "dkv":   # K4 reads the forward's keep words
+        words, drop = _keep_args(what, dropout_p, key, keep_words, q, b, h,
+                                 sq, sk, is_causal, causal_offset, kv_lens,
+                                 window, general)
+        keep = [keep, words]
+    else:
+        drop = _drop_args(dropout_p, key)
     # window 0: the windowless kernels; a window takes the windowed ones
     # (beyond 2^30 it masks nothing and stays a C int), as K1's wrapper
     tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
-            min(window or 0, 1 << 30), float(scale), marg,
-            *_drop_args(dropout_p, key), _build.stream_of(q)]
+            min(window or 0, 1 << 30), float(scale), marg, *drop,
+            _build.stream_of(q)]
     return head, _build.ptr(kl) if kl is not None else None, tail, d, keep
 
 
@@ -1355,18 +1409,21 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
                             scale=None, kv_lens=None, causal_offset=None,
                             window=None, dropout_p=0.0, key=None,
                             attn_mask=None, bounds=None, seg_q=None,
-                            seg_k=None, alibi_slopes=None):
+                            seg_k=None, alibi_slopes=None, keep_words=None):
     """(dk, dv) (bf16, k's shape) by the K4 kernel of
     ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
-    kernel; head dims and modes as in ``flash_attention_bwd_dq``. CUDA
-    tensors only."""
+    kernel; head dims and modes as in ``flash_attention_bwd_dq``, but the
+    dropout instantiation reads the forward's `keep_words`
+    (``ops.dropout.attention_keep_words``; made here from `key` when None,
+    one more launch) instead of hashing the key. CUDA tensors only."""
     head, kl, tail, d, keep = _bwd_args(
         "flash_attention_bwd_dkv", "dkv", q, k, v, dout, lse, delta,
         is_causal, scale, kv_lens, causal_offset, window, dropout_p, key,
-        attn_mask, bounds, seg_q, seg_k, alibi_slopes)
+        attn_mask, bounds, seg_q, seg_k, alibi_slopes, keep_words)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9)
+    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9,
+                      True)
     err = lib.flash_attention_bwd_dkv(*head, _build.ptr(dk), _build.ptr(dv),
                                       kl, *tail)
     _count(flash_attention_bwd_dkv, d, window, dropout_p, attn_mask, seg_q,
@@ -1382,20 +1439,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
                         kv_lens=None, causal_offset=None, window=None,
                         dropout_p=0.0, key=None, attn_mask=None,
                         bounds=None, seg_q=None, seg_k=None,
-                        alibi_slopes=None, g_lse=None):
+                        alibi_slopes=None, g_lse=None, keep_words=None):
     """Gradients (dq, dk, dv) of the attention whose forward gave (out,
     lse), in the dtypes of q, k, v. CPU tensors take
     ``flash_attention_bwd_plain``; CUDA tensors compute Δ = rowsum(dO∘O)
     in fp32 (as the reference does outside its kernels, :1059), minus
     ``g_lse`` (the cotangent of ``flash_fwd_lse``'s lse, :1061-1062), and
     launch K3 and K4 (their windowed, dropout and general instantiations
-    under a window, a dropout and a dense mask, segment ids or ALiBi)."""
+    under a window, a dropout and a dense mask, segment ids or ALiBi). With
+    dropout K3 takes `key` and K4 the forward's `keep_words`."""
     mods = dict(attn_mask=attn_mask, seg_q=seg_q, seg_k=seg_k,
                 alibi_slopes=alibi_slopes)
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_plain(
             q, k, v, out, lse, dout, is_causal, scale, kv_lens,
-            causal_offset, window, dropout_p, key, g_lse=g_lse, **mods)
+            causal_offset, window, dropout_p, key, g_lse=g_lse,
+            keep_words=keep_words, **mods)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
     if g_lse is not None:
@@ -1405,15 +1464,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
               causal_offset=causal_offset, window=window,
               dropout_p=dropout_p, key=key, bounds=bounds, **mods)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                     keep_words=keep_words, **kw)
     return dq, dk, dv
 
 
-def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints):
+def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints, words=False):
     """The ctypes entry `fn_name` of csrc/<lib_name>.cu: n_ptrs pointers,
     n_ints ints, the float scale, the general-mode argument (a pointer to
-    _ModArg, or null), the dropout arguments (drop, the key's two words,
-    the keep threshold, 1/keep) and the stream; returns cudaError."""
+    _ModArg, or null), the dropout arguments (K3: drop, the key's two
+    words, the keep threshold, 1/keep; `words`, K1 and K4: the keep words'
+    pointer or null, words a row, 1/keep) and the stream; returns
+    cudaError."""
     lib = _build.library(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
@@ -1421,7 +1483,8 @@ def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints):
                           ctypes.c_float)
         fn.argtypes = ([vp] * n_ptrs + [ci] * n_ints + [cf]
                        + [ctypes.POINTER(_ModArg)]
-                       + [ci, cu, cu, cu, cf] + [vp])
+                       + ([vp, ci, cf] if words else [ci, cu, cu, cu, cf])
+                       + [vp])
         fn.restype = ctypes.c_int
     return lib
 
@@ -1434,7 +1497,11 @@ class FlashAttention(torch.autograd.Function):
     The kernels take contiguous tensors and raise on anything else, so the
     Function makes q, k, v (GPT's qkv split gives strided views) and the
     incoming gradient contiguous itself, and saves those copies. Under
-    dropout it saves the key, not the mask: the backward regenerates it.
+    dropout it hashes the mask once into keep words
+    (``ops.dropout.attention_keep_words``: kernel W on the card, the plain
+    twin on the CPU), which K1 reads, and saves them beside q, k, v for K4
+    (sq·sk/8 bytes a (b, h)); K3 takes the key. Under recompute the
+    replayed forward makes them again.
     A dense mask, segment ids and ALiBi slopes are carried with their
     bounds (computed once for K1, K3 and K4) and get no gradient, as the
     reference's VJP gives the mask a zero cotangent (:1108-1112) and
@@ -1449,22 +1516,29 @@ class FlashAttention(torch.autograd.Function):
                   causal_offset=causal_offset, window=window,
                   dropout_p=dropout_p, key=key, attn_mask=attn_mask,
                   seg_q=seg_q, seg_k=seg_k, alibi_slopes=alibi_slopes)
-        if _general(attn_mask, seg_q, alibi_slopes) and \
-                q.device.type != "cpu":
+        general = _general(attn_mask, seg_q, alibi_slopes)
+        if general and q.device.type != "cpu":
             kw["bounds"] = _call_bounds(q, k, attn_mask, is_causal, kv_lens,
                                         causal_offset, window, seg_q, seg_k,
                                         dropout_p)
-        out, lse = flash_attention_fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out, lse)
+        words = None
+        if dropout_p > 0.0:   # the call's keep words, for K1 and K4
+            words = drop_ops.attention_keep_words(
+                key, dropout_p, q.shape[0], q.shape[2], q.shape[1],
+                k.shape[1], is_causal, causal_offset, kv_lens, window,
+                everything=general, device=q.device)
+        out, lse = flash_attention_fwd(q, k, v, keep_words=words, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, words)
         ctx.kw = kw
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, words = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), **ctx.kw)
+                                         dout.contiguous(), keep_words=words,
+                                         **ctx.kw)
         return (dq, dk, dv) + (None,) * 11
 
 

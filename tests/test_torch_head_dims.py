@@ -123,8 +123,7 @@ def test_dispatch_marshals_the_padded_head_dim(kernel_calls, d, dt, sq, sk):
                                          _meta(b, sk, h, d),
                                          _meta(b, sk, h, d))
     assert kernel_calls["flash_attention_fwd"] == [
-        b, sq, sk, h, h, dt, 0, sk - sq, 0, 1.0 / math.sqrt(d),
-        0, 0, 0, 0, 1.0]
+        b, sq, sk, h, h, dt, 0, sk - sq, 0, 1.0 / math.sqrt(d), 0, 1.0]
     assert fa.launches == 0 and fa.by_d == before
 
 
