@@ -23,8 +23,9 @@ Phases, each printing one JSON line:
   1. card   — nvidia-smi name and power limit, memory rate and bf16 peak.
   2. build  — nvcc builds paddle_tpu_torch/csrc/*.cu (sm_90a) at first use.
   2a. keep_words_sass — kernel W's instruction mix a hashed key, from
-              cuobjdump of the built library: the INT32 pipe's share that
-              the hashing rows' int32_bound_ms reads.
+              cuobjdump of the built library (its innermost hashing loop):
+              the INT32 pipe's share that the hashing rows' int32_bound_ms
+              reads, and the FMA pipe's share (IMAD).
   3. k1     — flash-attention forward kernel vs its plain fp32 version at the
               prefill shape, a GQA shape, a ragged shape and sq=1 decode,
               and the edges of its 128-row query tile and 128-key TMA ring
@@ -200,8 +201,10 @@ Phases, each printing one JSON line:
               out·keep·n rounds to the keep bit — every tile in turn at
               GPT-2's training shape (b 8, h 16, s 1024, d 64), causal and
               not, and at d 128 with GQA 16/4 and kv_lens; K4's dv with dO
-              the identity over a query tile likewise; each bit for bit
-              against the port's torch threefry on the card. The kept share
+              the identity over a query tile likewise; K3's dq with K the
+              identity over a key tile, V and dO the first unit vector and
+              Δ = 0 (dq = scale·Z/(keep·s)); each bit for bit against the
+              port's torch threefry on the card. The kept share
               of the training shape's 134 M draws within 5σ of 0.9. Cases
               (training shape; d 128, GQA, kv_lens; non-causal; the window;
               a causal offset with a kv_len-0 row): out, dq, dk, dv against
@@ -211,18 +214,18 @@ Phases, each printing one JSON line:
               shape with and without dropout beside the bounds (bytes,
               tensor FLOPs, the hash's integer operations), the plain
               versions and torch sdpa with dropout_p 0.1 (its own mask).
-              Kernel W (the keep words K1 and K4 read, hashed once a call):
+              Kernel W (the keep words K1, K3 and K4 read, once a call):
               bit for bit against its plain twin over the cases' limits
               (the training shape; kv_lens; non-causal ragged; the window
               and an offset; every key, as the general mode hashes), two
               launches equal; a bool-mask case with dropout (the general
-              mode on every key's words); K4 given the forward's words
-              equal to K4 making its own. K1's row times the whole forward
-              (W and K1, as a call without words runs them), K4's K4 on
-              the given words; W timed beside its bound, its INT32-pipe
-              figure (SHF, LOP3 and IADD3 a hash, counted in its SASS, over
-              64 lanes a clock an SM) and its plain twin; no PyTorch call
-              packs a keep mask.
+              mode on every key's words); K3 and K4 given the forward's
+              words equal to K3 and K4 making their own. K1's row times the
+              whole forward (W and K1, as a call without words runs them),
+              K3's and K4's rows K3 and K4 on the given words; W timed
+              beside its bound, its INT32-pipe figure (SHF, LOP3 and IADD3
+              a hash, counted in its SASS, over 64 lanes a clock an SM) and
+              its plain twin; no PyTorch call packs a keep mask.
   8i. k1h   — K1 at head dim 256 and the dispatch's padded head dims: every
               attention call of the SD-1.5 UNet at b 2, 8 heads, 64×64
               latents (self-attention over 4096, 1024, 256 and 64 tokens
@@ -6156,14 +6159,19 @@ ISSUE_PER_SM = 128
 SASS_MIX = {}
 INT32_ONLY = ("SHF", "LOP3", "IADD3")
 INT32_LANES_PER_SM = 64
+# the instructions of the FMA pipe among them (every IMAD form)
+FMA_PIPE = ("IMAD", "FFMA", "FADD", "FMUL")
 
 
 def keep_words_sass_mix():
     """Kernel W's instruction mix a hashed key: `cuobjdump -sass` of the
-    built dropout library, the loop closed by the backward branch that
-    holds the most VOTE instructions (one ballot a hashed key), each
-    opcode's count there over its ballots. Sets SASS_MIX (with the INT32
-    pipe's rate: SMs × 64 lanes × the maximum SM clock) and returns it."""
+    built dropout library, among the innermost loops (closed by a backward
+    branch, no other loop inside) that hold VOTE instructions (one ballot a
+    hashed word), the one with the most ballots and then the fewest
+    instructions (the row's counters below 2^32), each opcode's count
+    there over its ballots. Sets SASS_MIX (with the INT32 pipe's rate: SMs
+    × 64 lanes × the maximum SM clock, and the FMA pipe's share of the
+    instructions) and returns it."""
     import re
     from paddle_tpu_torch.ops import _build
     so = _build.library("dropout")._name
@@ -6180,13 +6188,18 @@ def keep_words_sass_mix():
                      r"([A-Z][A-Z0-9_]*)(\.[A-Z0-9_.]*)?\s*([^;]*);", line)
         if cur and m:
             body.append((int(m.group(1), 16), m.group(3), m.group(5)))
-    loops = []
+    spans = []
     for at, op, args in body:
         t = re.search(r"0x([0-9a-f]+)", args)
         if op == "BRA" and t and int(t.group(1), 16) < at:
-            ins = [o for a, o, _ in body if int(t.group(1), 16) <= a <= at]
-            loops.append((ins.count("VOTE"), ins))
-    votes, ins = max(loops) if loops else (0, [])
+            spans.append((int(t.group(1), 16), at))
+    loops = []
+    for lo, hi in spans:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
+            continue                        # a loop inside: not innermost
+        ins = [o for a, o, _ in body if lo <= a <= hi]
+        loops.append((ins.count("VOTE"), -len(ins), ins))
+    votes, _, ins = max(loops) if loops else (0, 0, [])
     if not votes:
         raise AssertionError("keep_words_kernel: no loop with a ballot in "
                              "its SASS")
@@ -6199,8 +6212,10 @@ def keep_words_sass_mix():
                                                    key=lambda kv: -kv[1])},
         instructions_per_hash=len(ins) / votes,
         int32_per_hash=sum(mix.get(o, 0) for o in INT32_ONLY) / votes,
+        fma_per_hash=sum(mix.get(o, 0) for o in FMA_PIPE) / votes,
+        fma_share=sum(mix.get(o, 0) for o in FMA_PIPE) / len(ins),
         int32_ops_per_s=int_ops_per_s() * INT32_LANES_PER_SM / ISSUE_PER_SM,
-        int32_only=list(INT32_ONLY))
+        int32_only=list(INT32_ONLY), fma_pipe=list(FMA_PIPE))
     emit({"phase": "keep_words_sass", **SASS_MIX})
     return SASS_MIX
 
@@ -6395,14 +6410,44 @@ def k4_mask_probe(fa, mask, b, h, s, d):
             "ok": bad == 0 and worst < 0.05}
 
 
+def k3_mask_probe(fa, mask, b, h, s, d):
+    """K3's mask read back exactly (MHA, non-causal): q = 0 makes every
+    probability 1/s (lse = log s, from K1), V and dO the first unit vector
+    make dP = 1, Δ = 0 is passed, so dS = Z/(keep·s); K the identity over
+    key tile t then gives dq[q, j] = scale·Z[q, t·d + j]/(keep·s), and
+    dq·keep·s/scale rounds to the keep bit. Every key tile in turn (K3 on
+    the words it makes from the key: kernel W's), against `mask` (the same
+    key's attention_keep_mask), bit for bit."""
+    key = drop_key(2)
+    q = torch.zeros((b, s, h, d), dtype=torch.bfloat16, device="cuda")
+    e0 = torch.zeros((b, s, h, d), dtype=torch.bfloat16, device="cuda")
+    e0[..., 0] = 1
+    kw = dict(is_causal=False, dropout_p=DROP_P, key=key)
+    _, lse = fa.flash_attention_fwd(q, probe_v(b, s, h, d, 0), e0, **kw)
+    delta = torch.zeros((b, h, s), dtype=torch.float32, device="cuda")
+    keep = float(np.float32(1 - DROP_P))
+    scale = 1.0 / math.sqrt(d)
+    bad = worst = 0
+    for t in range(s // d):
+        dq = fa.flash_attention_bwd_dq(q, probe_v(b, s, h, d, t), e0, e0,
+                                       lse, delta, **kw)
+        z = dq.float() * keep * s / scale             # (b, q, h, j)
+        worst = max(worst, (z - z.round()).abs().max().item())
+        bits = (z > 0.5).permute(0, 2, 1, 3)          # (b, h, q, j)
+        bad += int((bits != mask[..., t * d:(t + 1) * d]).sum().item())
+    return {"kernel": "k3", "b": b, "h": h, "s": s, "d": d, "causal": False,
+            "bits_differing": bad, "max_distance_from_integer": worst,
+            "ok": bad == 0 and worst < 0.05}
+
+
 def k1d_case(fa, dops, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
              q_off=None, window=None):
     """K1, K3 and K4 in dropout mode against the plain versions with the
     same key: out within K1_TOL_OUT, lse bit for bit the dropout-free
     kernel's (the statistics take the undropped P), dq, dk, dv within
     K3_TOL of the largest plain entry; two launches of each with one key
-    bitwise equal, another key another output; K4 given the call's keep
-    words (kernel W's) bitwise equal to K4 making its own."""
+    bitwise equal, another key another output; K3 and K4 given the call's
+    keep words (kernel W's) bitwise equal to K3 and K4 making their own."""
     q, do = rand((b, sq, h, d), gen), rand((b, sq, h, d), gen)
     k, v = rand((b, sk, nkv, d), gen), rand((b, sk, nkv, d), gen)
     kl = None if kv_lens is None else torch.tensor(
@@ -6427,6 +6472,9 @@ def k1d_case(fa, dops, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
     dk3, dv3 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                           keep_words=words, **base,
                                           dropout_p=DROP_P)
+    dq3 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                    keep_words=words, **base,
+                                    dropout_p=DROP_P)
     torch.cuda.synchronize()
     res = {"b": b, "h": h, "nkv": nkv, "sq": sq, "sk": sk, "d": d,
            "causal": causal, "kv_lens": kv_lens, "q_off": q_off,
@@ -6438,9 +6486,11 @@ def k1d_case(fa, dops, gen, b, h, nkv, sq, sk, d, causal, kv_lens=None,
                and torch.equal(dv1, dv2)),
            "other_key_differs": not bool(torch.equal(out, out3)),
            "k4_on_given_words_bitwise": bool(
-               torch.equal(dk1, dk3) and torch.equal(dv1, dv3))}
+               torch.equal(dk1, dk3) and torch.equal(dv1, dv3)),
+           "k3_on_given_words_bitwise": bool(torch.equal(dq1, dq3))}
     res["ok"] &= res["lse_equals_dropout_free"] and res["repeat_bitwise"] \
-        and res["other_key_differs"] and res["k4_on_given_words_bitwise"]
+        and res["other_key_differs"] and res["k4_on_given_words_bitwise"] \
+        and res["k3_on_given_words_bitwise"]
     refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     for name, g, r in zip(("dq", "dk", "dv"), (dq1, dk1, dv1), refs):
         err = (g.float() - r).abs().max().item()
@@ -6473,17 +6523,82 @@ def keep_words_case(dops, b, h, sq, sk, causal, kv_lens=None, q_off=None,
     return res
 
 
+def visible_word_bytes(vis, b, h):
+    """Bytes of the keep words that hold a pair of `vis` (bool, (b|1, h|1,
+    sq, sk)) over b batches and h heads: each row's 32-key words with a
+    visible key, 4 bytes each. The least a kernel that reads the words for
+    those pairs must read (K3 and K4 stage whole 128-key groups of them)."""
+    pad = -vis.shape[-1] % 32
+    if pad:
+        vis = torch.cat([vis, vis.new_zeros(vis.shape[:-1] + (pad,))], -1)
+    g = vis.reshape(vis.shape[:-1] + (-1, 32)).any(-1)
+    heads = h if g.shape[1] == 1 else 1
+    return int(g.expand(b, g.shape[1], *g.shape[2:]).sum().item()) \
+        * heads * 4
+
+
+# A row pair of kernel W whose flat index range crosses 2^32 (its CROSS
+# path): (b, h, sq, sk), causal, so that b·h·sq·sk > 2^32 and the row
+# (bh 63, q 7176) crosses it at key 4096, inside its visible keys; sk is no
+# power of two, so that the crossing falls inside a row. Its words: 546 MB.
+KEEP_WORDS_CROSS = (2, 32, 8200, 8200)
+# rows held against the plain hash on each side of the crossing row
+KEEP_WORDS_CROSS_SIDE = 4
+
+
+def keep_words_cross_case(dops):
+    """Kernel W where the flat index ((bi·h + hi)·sq + q)·sk + k passes 2^32
+    (KEEP_WORDS_CROSS): the row whose range crosses it, KEEP_WORDS_CROSS_SIDE
+    rows on each side and the last row, against the port's torch threefry
+    of those rows' flat indices, packed, bit for bit. The plain twin over
+    the whole call would need 4.3 G int64 indices; these rows need 8200
+    each."""
+    from paddle_tpu_torch.core import rng
+    b, h, sq, sk = KEEP_WORDS_CROSS
+    key = drop_key(6)
+    words = dops.attention_keep_words(key, DROP_P, b, h, sq, sk, True,
+                                      device="cuda")
+    ww = words.shape[-1]
+    cross = (1 << 32) // sk                      # the row holding 2^32
+    n = KEEP_WORDS_CROSS_SIDE
+    rows = torch.tensor(list(range(cross - n, cross + n + 1))
+                        + [b * h * sq - 1], dtype=torch.int64, device="cuda")
+    keys = torch.arange(sk, dtype=torch.int64, device="cuda")
+    idx = rows[:, None] * sk + keys[None, :]
+    kd = key.to("cuda")
+    y1, y2 = rng.threefry2x32(kd[0], kd[1], idx >> 32, idx & 0xFFFFFFFF)
+    z = ((y1 ^ y2) >> 9) < dops.keep_threshold(DROP_P)
+    z &= keys[None, :] <= (rows % sq)[:, None] + (sk - sq)     # causal
+    ref = dops._pack_bits(z, ww * 32).view(torch.int32)
+    got = words.view(-1, ww)[rows]
+    torch.cuda.synchronize()
+    res = {"b": b, "h": h, "sq": sq, "sk": sk, "causal": True,
+           "crossing_row": cross, "crossing_key": (1 << 32) - cross * sk,
+           "rows_checked": rows.tolist(),
+           "rows_with_high_word_1": int(((rows * sk + sk - 1) >> 32)
+                                        .sum().item()),
+           "words_bytes": words.numel() * 4,
+           "bits_set": int(dops.keep_words_mask(ref, sk).sum().item()),
+           "bitwise": bool(torch.equal(got, ref))}
+    res["ok"] = res["bitwise"]
+    del words, idx, y1, y2, z
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_k1d(fa, bw, flops, iops):
     """K1, K3 and K4's dropout modes and kernel W: the exact mask probes
     (K1 at GPT-2's training shape, causal and not, and at d 128 with GQA
-    and kv_lens; K4's dv at the training shape), the kept share, W against
-    its plain twin (the cases' limits and every key), the agreement cases
+    and kv_lens; K4's dv and K3's dq at the training shape, every tile),
+    the kept share, W against
+    its plain twin (the cases' limits and every key; the rows where the
+    flat index passes 2^32), the agreement cases
     (the training shape; d 128, GQA and kv_lens; non-causal; the window; a
     causal offset), and the times at the training shape with and without
     dropout beside the bounds (the hash's integer operations, and their
     INT32-pipe figure) and torch sdpa with dropout_p (its own mask: the
     time only). K1's row times the whole forward (W, then K1 on its words),
-    K4's K4 on the given words, W's row W."""
+    K3's and K4's K3 and K4 on the given words, W's row W."""
     from paddle_tpu_torch.ops import dropout as dops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
@@ -6498,6 +6613,7 @@ def phase_k1d(fa, bw, flops, iops):
              "sigma": sigma,
              "within_5_sigma": abs(kept - (1 - DROP_P)) <= 5 * sigma}
     probes.append(k4_mask_probe(fa, mask, b, h, s, d))
+    probes.append(k3_mask_probe(fa, mask, b, h, s, d))
     del mask
     probes.append(k1_mask_probe(fa, dops, b, h, h, s, s, d, causal=True)[0])
     probes.append(k1_mask_probe(fa, dops, 2, 16, 4, 512, 640, 128,
@@ -6512,6 +6628,7 @@ def phase_k1d(fa, bw, flops, iops):
         # the general mode's words (a bool mask beside dropout): every key
         keep_words_case(dops, 2, 12, 512, 512, True, [512, 300],
                         everything=True),
+        keep_words_cross_case(dops),
     ]
     torch.cuda.empty_cache()
     cases = [
@@ -6540,7 +6657,7 @@ def phase_k1d(fa, bw, flops, iops):
         "k1": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
                lambda: fa.flash_attention_fwd(q, k, v, is_causal=True)),
         "k3": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                 **kw),
+                                                 keep_words=zw, **kw),
                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse0, delta0,
                                                  is_causal=True)),
         "k4": (lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
@@ -6577,6 +6694,9 @@ def phase_k1d(fa, bw, flops, iops):
         iters=20)
     pairs, work = causal_attention_work(b, h, s, d)
     wbytes = zw.numel() * zw.element_size()
+    # the words K3 and K4 must read: those that hold a causal pair
+    vbytes = visible_word_bytes(torch.ones(
+        (1, 1, s, s), dtype=torch.bool, device="cuda").tril(), b, h)
     rows = {}
     errs = {"k1": max(c["max_abs_err"] for c in cases),
             "k3": max(c["dq"]["max_abs_err"] for c in cases),
@@ -6587,11 +6707,11 @@ def phase_k1d(fa, bw, flops, iops):
             ("k3", "flash_attention_bwd_dq", 668, "dropout :737"),
             ("k4", "flash_attention_bwd_dkv", 787, "dropout :863")):
         nbytes, nflops = work[key_]
-        # K4 reads the forward's words and hashes nothing; K1's row is the
-        # whole forward, whose hash W runs
-        hashes = 0 if key_ == "k4" else pairs
-        if key_ == "k4":
-            nbytes += wbytes
+        # K3 and K4 read the forward's words and hash nothing; K1's row is
+        # the whole forward, whose hash W runs
+        hashes = pairs if key_ == "k1" else 0
+        if key_ != "k1":
+            nbytes += vbytes
         bound, by = bound3(nbytes, nflops, HASH_OPS * hashes, bw, flops,
                            iops)
         t = times[key_]
@@ -6614,10 +6734,11 @@ def phase_k1d(fa, bw, flops, iops):
                              "backward, dq+dk+dv, device time"),
             "keep": {"k1": "ms: kernel W and K1 (the whole forward); "
                            "k1_alone: K1 on given words",
-                     "k3": "hashes the key",
+                     "k3": "reads the given words",
                      "k4": "reads the given words"}[key_],
             "shape_b_s_h_d": [b, s, h, d], "causal": True,
             "visible_pairs": pairs, "int_ops": HASH_OPS * hashes,
+            "words_read_bytes": vbytes if key_ != "k1" else None,
             "bound_share": bound / t["ms"]}
         if key_ == "k1":
             rows[key_].update(k1_alone_ms=t["k1_alone_ms"],
@@ -6631,7 +6752,7 @@ def phase_k1d(fa, bw, flops, iops):
         "replaces": "none: the attention's keep mask (paddle_tpu/ops/"
                     "flash_attention.py:139; the Pallas kernels' in-kernel "
                     "_dropout_keep :426 draws another), hashed once a call "
-                    "for K1 and K4",
+                    "for K1, K3 and K4",
         "launches": 0, "max_abs_err": 0.0 if w_ok else None,
         "ms": times["w"]["ms"], "device_ms": times["w"]["device_ms"],
         "plain_ms": plain_w, "bound_ms": bound, "bound_by": by,
@@ -7686,10 +7807,11 @@ def k1m_case(fa, gen, name, b, h, nkv, sq, sk, d, causal, form, dropout,
     is_bool = m4.dtype == torch.bool
     for key in ("k1", "k3", "k4"):
         # dropout hashes every pair the kernel weighs (a bool mask's dead
-        # row's keys for out and dv, not for K3's zero dq); without it a
-        # bool mask's dead row is the closed form
+        # row's keys for out and dv; K3 makes the same words, every key of
+        # a row, for its zero dq); without it a bool mask's dead row is the
+        # closed form
         hashed = pairs + (dead_pairs if DEAD_KEY_OPS[key] or not is_bool
-                          else 0)
+                          or key == "k3" else 0)
         nint = HASH_OPS * hashed if dropout else 0
         bound, by = bound3(nbytes[key], attention_ops(
             key, d, pairs, dead_pairs, is_bool,
@@ -8266,10 +8388,11 @@ def timed(fn):
 
 
 def k1s_structure(fa, kw, b, h, sq, sk):
-    """(pairs, dead rows) of a case: the (query, key) pairs this run's
-    structure and mask leave over all heads, and the count of dead rows (a
-    row some key reaches through the structured masks but no valid one:
-    its softmax weighs every key)."""
+    """(pairs, dead rows, live words' bytes) of a case: the (query, key)
+    pairs this run's structure and mask leave over all heads, the count of
+    dead rows (a row some key reaches through the structured masks but no
+    valid one: its softmax weighs every key), and the bytes of the keep
+    words that hold a live pair (visible_word_bytes)."""
     st = fa._structured_mask(sq, sk, kw["is_causal"], kw.get("kv_lens"),
                              None, "cuda", kw.get("window"), kw.get("seg_q"),
                              kw.get("seg_k"))
@@ -8281,7 +8404,7 @@ def k1s_structure(fa, kw, b, h, sq, sk):
     dead = st.any(-1) & ~live.any(-1)
     n_dead = int(dead.expand(b, live.shape[1], sq).sum().item()) * heads
     pairs = int(live.expand(b, live.shape[1], sq, sk).sum().item()) * heads
-    return pairs, n_dead
+    return pairs, n_dead, visible_word_bytes(live, b, h)
 
 
 def k1s_library(kw, q, k, v, do, h, nkv):
@@ -8377,12 +8500,12 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
             kw.get("dropout_p", 0.0))
         res_tiles = tile_counts(wkw["bounds"], b, h, nkv)
     # under dropout the call's keep words (kernel W, every key in the
-    # general mode), which K4 takes as FlashAttention hands them over; K1
-    # makes its own, so its time is the whole forward's
+    # general mode), which K3 and K4 take as FlashAttention hands them
+    # over; K1 makes its own, so its time is the whole forward's
     words = None if "dropout" not in modes else dops.attention_keep_words(
         kw["key"], DROP_P, b, h, sq, sk, causal, None, kw.get("kv_lens"),
         kw.get("window"), everything=general, device="cuda")
-    k4kw = wkw if words is None else dict(wkw, keep_words=words)
+    bkw = wkw if words is None else dict(wkw, keep_words=words)
     with torch.no_grad():
         out, st = fa.flash_attention_fwd(q, k, v, **wkw)
         out2, st2 = fa.flash_attention_fwd(q, k, v, **wkw)
@@ -8390,10 +8513,10 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     if g_lse is not None:
         delta = delta - g_lse
     delta = delta.contiguous()
-    grads = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **wkw),
-             *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **k4kw))
-    grads2 = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **wkw),
-              *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **k4kw))
+    grads = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **bkw),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **bkw))
+    grads2 = (fa.flash_attention_bwd_dq(q, k, v, do, st, delta, **bkw),
+              *fa.flash_attention_bwd_dkv(q, k, v, do, st, delta, **bkw))
     entry = [o.detach()] + [t.grad for t in leaves]
     res = {"case": name, "shape": shape, "b": b, "sq": sq, "sk": sk,
            "h": h, "nkv": nkv, "d": d, "causal": causal,
@@ -8445,7 +8568,7 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     del refs, grads
     gc.collect()
     torch.cuda.empty_cache()
-    pairs, n_dead = k1s_structure(fa, kw, b, h, sq, sk)
+    pairs, n_dead, live_wbytes = k1s_structure(fa, kw, b, h, sq, sk)
     dead_pairs = n_dead * sk
     res.update(pairs=pairs, dead_row_pairs=dead_pairs,
                pairs_of_all=(pairs + dead_pairs) / (b * h * sq * sk),
@@ -8454,9 +8577,9 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
         ms = {"k1": device_ms(lambda: fa.flash_attention_fwd(
                   q, k, v, **wkw), iters=5),
               "k3": device_ms(lambda: fa.flash_attention_bwd_dq(
-                  q, k, v, do, st, delta, **wkw), iters=5),
+                  q, k, v, do, st, delta, **bkw), iters=5),
               "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
-                  q, k, v, do, st, delta, **k4kw), iters=5)}
+                  q, k, v, do, st, delta, **bkw), iters=5)}
         if words is not None:   # K1 on the given words, and W alone
             k1_alone = device_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, keep_words=words, **wkw), iters=5)
@@ -8471,10 +8594,15 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
         kw.get("attn_mask"), kw.get("seg_q"), kw.get("seg_k"),
         kw.get("kv_lens"), kw.get("alibi_slopes")) if t is not None)
     st_bytes = st.numel() * 4
+    # the words K3 and K4 must read: those that hold a live pair, and K4
+    # (dv) a dead row's every word
+    wbytes = {"k3": 0, "k4": 0} if words is None else {
+        "k3": live_wbytes, "k4": live_wbytes + n_dead * -(-sk // 32) * 4}
     nbytes = {"k1": 2 * tq + 2 * tk + extra + st_bytes,
-              "k3": 3 * tq + 2 * tk + extra + st_bytes + 4 * rows,
+              "k3": 3 * tq + 2 * tk + extra + st_bytes + 4 * rows
+              + wbytes["k3"],
               "k4": 2 * tq + 4 * tk + extra + st_bytes + 4 * rows
-              + (0 if words is None else words.numel() * 4)}
+              + wbytes["k4"]}
     # the k1s masks are bool; dropout hashes every pair the kernel weighs
     # (a dead row's keys for out and dv, not for K3's zero dq); without
     # dropout a dead row is the closed form (no pair's work)
@@ -8482,8 +8610,8 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
     for key, plain, lib in (("k1", plain_fwd, lib_fwd),
                             ("k3", plain_bwd, lib_bwd),
                             ("k4", plain_bwd, lib_bwd)):
-        # K4 reads the words: the forward's W hashed them (K1's row)
-        hashed = 0 if "dropout" not in modes or key == "k4" else \
+        # K3 and K4 read the words: the forward's W hashed them (K1's row)
+        hashed = 0 if "dropout" not in modes or key != "k1" else \
             pairs + (dead_pairs if DEAD_KEY_OPS[key] else 0)
         nint = HASH_OPS * hashed
         bound, by = bound3(nbytes[key], attention_ops(
@@ -8494,19 +8622,19 @@ def k1s_case(fa, fd, nnf, gen, name, shape, causal, modes, bw, flops, iops,
                         library_ms=lib, bound_ms=bound, bound_by=by,
                         bound_ms_dead_rows_as_pairs=bound_pr21,
                         int32_bound_ms=int32_bound_ms(hashed) if hashed
-                        else None)
+                        else None, words_read_bytes=wbytes.get(key))
     if words is not None:
         res["k1"].update(k1_alone_ms=k1_alone, keep_words_ms=w_ms)
         res["keep"] = ("k1: kernel W and K1 (the whole forward), k1_alone "
-                       "K1 on given words; k3 hashes the key; k4 reads the "
-                       "given words")
+                       "K1 on given words; k3 and k4 read the given "
+                       "words")
     res["library_covers"] = (
         "torch sdpa over the case's equivalent dense bool mask (and a bf16 "
         "ALiBi bias with -inf off it; its own dropout at the case's p): k1 "
         "its forward, k3 and k4 its backward (dq, dk, dv)")
     res["plain_covers"] = ("the plain twins one kv-head group at a time: "
                            "k1 the forward, k3 and k4 one backward")
-    del q, k, v, do, out, st, delta, words, k4kw
+    del q, k, v, do, out, st, delta, words, bkw
     gc.collect()
     torch.cuda.empty_cache()
     return res

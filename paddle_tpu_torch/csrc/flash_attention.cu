@@ -71,7 +71,7 @@
 //    producer TMA-loads a tile's words (4 a row, 2 KB for the block's 128
 //    rows) beside K on K's full barrier into a ring of its own (`mz`, a
 //    tensor map of the words); K's stage is released after drop_tile has
-//    read them. K4 reads the same words, K3 still hashes. A template and
+//    read them. K3 and K4 read the same words. A template and
 //    not a per-launch flag: the consumers run at 240 registers, and a flag
 //    would make every launch carry the drop's registers and a branch in
 //    the softmax pass.

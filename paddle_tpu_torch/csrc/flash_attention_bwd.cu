@@ -64,13 +64,15 @@
 // keep mask and P̃ = P∘Z/keep the forward's dropped probabilities:
 //   dS = P∘(dP∘Z/keep − Δ), Δ = rowsum(dO∘O) over the dropped O as before,
 //   dv = P̃ᵀ·dO.
-// K3 regenerates Z from an element's flat score index ((b·h + hi)·sq +
-// q)·sk + k (csrc/threefry.cuh), from the coordinates its masks already
-// use (k3_ds). K4 hashes nothing: it reads the forward's keep words
-// (kernel W, csrc/dropout.cu, as K1 reads them), which its producer
-// TMA-loads beside each streamed query tile (4 words a row over the
-// block's 128 keys, 1 KB) into a ring of its own, and k4_drop_ds reads
-// Z's bits there (dSᵀ, and Pᵀ dropped for dv).
+// Neither kernel hashes: both read the forward's keep words (kernel W,
+// csrc/dropout.cu, as K1 reads them), which each producer TMA-loads on the
+// stage's full barrier into a ring of its own. K3's stage holds the 4
+// words a row of its block's 128 rows over the 128-key group that holds
+// the streamed 64-key tile (2 KB, the layout of a MIXED bool tile's mask
+// words), and k3_ds reads its rows' two words of the tile's half; K4's
+// holds the 4 words a row of a streamed query tile over the block's 128
+// keys (1 KB), and k4_drop_ds reads Z's bits there (dSᵀ, and Pᵀ dropped
+// for dv).
 //
 // The general mode is a fourth flag (MOD = true, at d 64 and 128, with or
 // without DROP; the kernels without it run the code they ran before), K1's
@@ -125,7 +127,6 @@
 
 #include "attn_mask.cuh"
 #include "hopper_sm90.cuh"
-#include "threefry.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -235,6 +236,14 @@ __device__ __forceinline__ void issue_acc(float (&acc)[N / 2],
 // adds ST words stages of 2 KB and ST slots past the barriers (d = 128:
 // 201 KB).
 //
+// Dropout (DROP): the producer loads, beside each K and V tile, the keep
+// words of the block's 128 rows over the tile's 128-key group (4 words a
+// row, 2 KB) into a ring of ST stages past MOD's (d = 128: 209 KB), and
+// each consumer reads its two rows' two words of the tile's half before
+// the softmax pass; the general mode with dropout stages both its mask's
+// words and the keep words. The arithmetic is the hashing kernel's, on the
+// same bits: dS = P∘(dP∘Z/keep − Δ).
+//
 // Why 64-key tiles: S and dP (2 × 32 fp32 a thread), dq (d/2) and the packed
 // dS (16) are live together, ≈ 150 registers at d = 128; 128-key tiles
 // would hold ≈ 230 and spill. Why one empty barrier a stage (K1 releases K
@@ -282,14 +291,35 @@ struct Dq {
   static constexpr int W_OFF = (BAR_OFF + (1 + 2 * ST) * 8 + 127) / 128 * 128;
   static constexpr int E_OFF = W_OFF + ST * W_BYTES;
   static constexpr int SMEM_MOD = E_OFF + ST * 8 + 1024;
+  // DROP: a ring stage of the keep words (the 4 words a row of the 128-key
+  // group that holds the 64-key tile, as W_BYTES), past MOD's
+  static constexpr int Z_OFF = (E_OFF + ST * 8 + 127) / 128 * 128;
+  static constexpr int SMEM_DROP = Z_OFF + ST * W_BYTES + 1024;
 };
+
+// The bit of element (row i, key 8c + 2·tg + j of a 64-key tile) in zr[i],
+// the row's two words of the tile's half of its 128-key group: a MIXED
+// bool tile's mask bit, or (DROP) its keep bit
+__device__ __forceinline__ bool k3_bit(const uint2 (&zr)[2], int i, int c,
+                                       int tg, int j) {
+  const uint32_t w = c < 4 ? zr[i].x : zr[i].y;
+  return (w >> ((c & 3) * 8 + tg * 2 + j)) & 1;
+}
+
+// DROP: rows lr and lr + 8 (the block's local rows) of a stage's keep words
+// (zs: 4 words a row), half hf (the 64-key tile's) of their four
+__device__ __forceinline__ void k3_keep_rows(const uint8_t* zs, int lr,
+                                             int hf, uint2 (&zr)[2]) {
+  const uint2* z = reinterpret_cast<const uint2*>(zs);
+  zr[0] = z[lr * 2 + hf];
+  zr[1] = z[(lr + 8) * 2 + hf];
+}
 
 // dS = P∘(dP − Δ) in place of dP, P = 2^(S·sl2 − lse·log2 e) from the S
 // accumulator (rows r0 + 8i, keys k0 + 8c + 2·tg + j); 0 where the key is
 // masked for the row (only `edge` tiles test): past kv_len, past the causal
 // diagonal, or (WIN) at or below wlo + r, wlo = q_off - window. DROP:
-// dS = P∘(dP∘Z/keep − Δ), Z hashed from the flat score index (rows r0 and
-// r0 + 8 start at rb and rb + rs8)
+// dS = P∘(dP∘Z/keep − Δ), Z the keep bits in zr (k3_bit), inv = 1/keep
 template <int BK, bool WIN, bool DROP>
 __device__ __forceinline__ void k3_ds(const float (&sa)[BK / 2],
                                       float (&dp)[BK / 2],
@@ -297,8 +327,7 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK / 2],
                                       const float (&dl)[2], bool edge, int k0,
                                       int r0, int tg, int kvlen, int causal,
                                       int q_off, int wlo, float sl2,
-                                      const tf::Drop& dr, uint64_t rb,
-                                      uint64_t rs8) {
+                                      const uint2 (&zr)[2], float inv) {
 #pragma unroll
   for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -314,8 +343,8 @@ __device__ __forceinline__ void k3_ds(const float (&sa)[BK / 2],
             p = 0.f;
         }
         if constexpr (DROP) {
-          const bool kp = tf::keep(dr, rb + (i ? rs8 : 0) + (uint64_t)key);
-          dp[e] = p * ((kp ? dp[e] * dr.inv : 0.f) - dl[i]);
+          const bool kp = k3_bit(zr, i, c, tg, j);
+          dp[e] = p * ((kp ? dp[e] * inv : 0.f) - dl[i]);
         } else {
           dp[e] = p * (dp[e] - dl[i]);
         }
@@ -338,15 +367,15 @@ enum { K3_FULL, K3_MIXED };
 // test runs per element only on an EDGE tile (kv_len, the diagonal, the
 // window or segment ids cut it for the group's rows). EXTRA: the rows'
 // segment ids sg[i] against the keys' at segk, the bias slope·(k - q -
-// q_off). DROP: dS = P∘(dP∘Z/keep − Δ), Z hashed as in k3_ds
+// q_off). DROP: dS = P∘(dP∘Z/keep − Δ), Z the keep bits in zr as in k3_ds
 template <int BK, bool DROP, bool EXTRA, int SRC, bool EDGE>
 __device__ __forceinline__ void k3_ds_mod(
     const float (&sa)[BK / 2], float (&dp)[BK / 2], const float (&mm)[2],
     const float (&lg)[2], const float (&dl)[2], int k0, int r0, int tg,
     int sk, int kvlen, int causal, int q_off, float scale, const am::Mod& md,
     const long long (&mr)[2], const int (&sg)[2], const int* segk,
-    float slope, float cv, const uint2 (&wr)[2], const tf::Drop& dr,
-    uint64_t rb, uint64_t rs8) {
+    float slope, float cv, const uint2 (&wr)[2], const uint2 (&zr)[2],
+    float inv) {
 #pragma unroll
   for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -370,8 +399,7 @@ __device__ __forceinline__ void k3_ds_mod(
         float v = cv;
         if constexpr (SRC == K3_MIXED) {
           if (md.words != nullptr) {
-            const uint32_t w = c < 4 ? wr[i].x : wr[i].y;
-            keep = (w >> ((c & 3) * 8 + tg * 2 + j)) & 1;
+            keep = k3_bit(wr, i, c, tg, j);
           } else if (mr[i] < 0) {
             st = true;            // a row past sq: no entry to read
           } else if (!st) {
@@ -384,9 +412,7 @@ __device__ __forceinline__ void k3_ds_mod(
             am::entry_score(md.f32, keep, v, sa[e], scale, bias, st, g);
         const float p = am::prob(t, mm[i], lg[i]);
         float d = dp[e];
-        if constexpr (DROP)
-          d = tf::keep(dr, rb + (i ? rs8 : 0) + (uint64_t)key) ? d * dr.inv
-                                                               : 0.f;
+        if constexpr (DROP) d = k3_bit(zr, i, c, tg, j) ? d * inv : 0.f;
         dp[e] = g ? p * (d - dl[i]) : 0.f;
       }
 }
@@ -401,11 +427,13 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   const int* __restrict__ kv_lens, int sq, int sk, int h,
                   int nkv, int causal, int q_off, int window, float scale,
-                  int group, tf::Drop dr,
-                  const __grid_constant__ am::ModTile mt) {
+                  int group, float inv,
+                  const __grid_constant__ am::ModTile mt,
+                  const __grid_constant__ CUtensorMap mz) {
   using C = Dq<D>;
   constexpr int ST = C::ST;
   constexpr int BK = C::BK;
+  static_assert(!DROP || BK == 64, "k3_bit reads 64-key tiles");
   // the general mode (MOD) reads its window from md and walks the tiles of
   // its list: there WIN picks the loop with the window, segment ids and
   // ALiBi (EXTRA), and the windowed walk (WND) is the WIN kernel's alone
@@ -460,6 +488,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
   uint8_t* Ws = sm + C::W_OFF;          // MOD: stage s at s·W_BYTES
   int* went = reinterpret_cast<int*>(sm + C::E_OFF);
   float* wcv = reinterpret_cast<float*>(sm + C::E_OFF + ST * 4);
+  uint8_t* Zs = sm + C::Z_OFF;          // DROP: stage s at s·W_BYTES
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(qbar, 1);
@@ -481,6 +510,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       sm90::tma_prefetch_map(&mo);
       sm90::tma_prefetch_map(&mk);
       sm90::tma_prefetch_map(&mv);
+      if constexpr (DROP) sm90::tma_prefetch_map(&mz);
       sm90::mbar_arrive_tx(qbar, 2 * C::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < C::NCH; ++c) {
@@ -508,8 +538,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
           went[s] = e;
           wcv[s] = cv;
-          sm90::mbar_arrive_tx(&full[s],
-                               2 * C::KT_BYTES + (stage ? wbytes : 0));
+          sm90::mbar_arrive_tx(&full[s], 2 * C::KT_BYTES +
+                                             (stage ? wbytes : 0) +
+                                             (DROP ? C::W_BYTES : 0));
 #pragma unroll
           for (int c = 0; c < C::NCH; ++c) {
             sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK * 128, &mk,
@@ -521,12 +552,16 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
             sm90::tma_load_4d(Ws + s * C::W_BYTES, &mt.words, &full[s],
                               (tile >> 1) * 4, md.wq > 1 ? q0 : 0,
                               md.wh > 1 ? hi : 0, md.wb > 1 ? bi : 0);
+          if constexpr (DROP)   // the tile's 128-key group's keep words
+            sm90::tma_load_4d(Zs + s * C::W_BYTES, &mz, &full[s],
+                              (tile >> 1) * 4, q0, hi, bi);
         }
       } else {
         for (int it = 0; it < ntiles; ++it) {
           const int s = it % ST;
           sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
-          sm90::mbar_arrive_tx(&full[s], 2 * C::KT_BYTES);
+          sm90::mbar_arrive_tx(&full[s], 2 * C::KT_BYTES +
+                                             (DROP ? C::W_BYTES : 0));
 #pragma unroll
           for (int c = 0; c < C::NCH; ++c) {
             sm90::tma_load_4d(Ks + s * C::KT_BYTES + c * BK * 128, &mk,
@@ -534,6 +569,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
             sm90::tma_load_4d(Vs + s * C::KT_BYTES + c * BK * 128, &mv,
                               &full[s], c * 64, kh, (t0 + it) * BK, bi);
           }
+          if constexpr (DROP)   // the tile's 128-key group's keep words
+            sm90::tma_load_4d(Zs + s * C::W_BYTES, &mz, &full[s],
+                              ((t0 + it) >> 1) * 4, q0, hi, bi);
         }
       }
     }
@@ -545,9 +583,6 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
     const int rw0 = q0 + wg * 64;                 // the group's first row
     const int r0 = rw0 + wl * 16 + g;             // rows of d[4c + j] ...
     const float sl2 = scale * 1.4426950408889634f;
-    // DROP: flat score index of (bi, hi, r0, key 0), and +8 rows
-    const uint64_t rb = ((uint64_t)(bi * h + hi) * sq + r0) * sk;
-    const uint64_t rs8 = (uint64_t)8 * sk;
 
     // this thread's rows r0 and r0 + 8: lse·log2 e (+inf where P is 0) and Δ
     float l2[2], dl[2];
@@ -652,10 +687,14 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
             wr[0] = ws[(md.wq > 1 ? lr : 0) * 2 + (tile & 1)];
             wr[1] = ws[(md.wq > 1 ? lr + 8 : 0) * 2 + (tile & 1)];
           }
+          // DROP: the rows' keep words of the tile's half
+          uint2 zr[2] = {make_uint2(0, 0), make_uint2(0, 0)};
+          if constexpr (DROP)
+            k3_keep_rows(Zs + stg * C::W_BYTES, r0 - q0, tile & 1, zr);
 #define K3_DS(SRC, EDGE)                                                      \
   k3_ds_mod<BK, DROP, EXTRA, SRC, EDGE>(sa, dp, mm, l2, dl, k0, r0, tg, sk,   \
                                         kvlen, causal, q_off, scale, md, mr,  \
-                                        sg, segk, slope, cv, wr, dr, rb, rs8)
+                                        sg, segk, slope, cv, wr, zr, inv)
           if (fl && !ed)
             K3_DS(K3_FULL, false);
           else if (fl)
@@ -670,12 +709,21 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
         sm90::wgmma_wait<0>();
         sm90::fence_regs(sa);
         sm90::fence_regs(dp);
+        // DROP (the walk without MOD, whose mod_ds reads its own): the rows'
+        // keep words of ring index it's tile (t0 + it) in stage stg, the
+        // tile's half
+        uint2 zr[2] = {make_uint2(0, 0), make_uint2(0, 0)};
+        auto keep_rows = [&](int it, int stg) {
+          if constexpr (DROP && !MOD)
+            k3_keep_rows(Zs + stg * C::W_BYTES, r0 - q0, (t0 + it) & 1, zr);
+        };
         const int kb = (t0 + j0) * BK;
+        keep_rows(j0, j0 % ST);
         if constexpr (MOD)
           mod_ds(j0 % ST);
         else
           k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(kb), kb, r0, tg, kvlen,
-                               causal, q_off, wlo, sl2, dr, rb, rs8);
+                               causal, q_off, wlo, sl2, zr, inv);
         sm90::pack_a<BK>(dp, da);
         // K1's overlap (see "Scheduling within a group" above)
         for (int it = j0; it + 1 < nt; ++it) {
@@ -688,11 +736,12 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::wgmma_wait<1>();
           sm90::fence_regs(sa);
           sm90::fence_regs(dp);
+          keep_rows(it + 1, sn);
           if constexpr (MOD)
             mod_ds(sn);
           else
             k3_ds<BK, WIN, DROP>(sa, dp, l2, dl, edge(k1), k1, r0, tg, kvlen,
-                                 causal, q_off, wlo, sl2, dr, rb, rs8);
+                                 causal, q_off, wlo, sl2, zr, inv);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(acc);
           sm90::fence_regs(da);
@@ -733,8 +782,10 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-              int causal, int q_off, int window, float scale, int drop,
-              tf::Drop dr, const am::Mod* mod, cudaStream_t st) {
+              int causal, int q_off, int window, float scale,
+              const void* keep, int keep_ww, float inv, const am::Mod* mod,
+              cudaStream_t st) {
+  const bool drop = keep != nullptr;
   CUtensorMap mq, mk, mv, mo;
   int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
   if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
@@ -773,7 +824,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                            mod->ww, mod->wq > 1 ? BQ3 : 1);
     if (err) return err;
   }
-  const int smem = mod ? Dq<D>::SMEM_MOD : Dq<D>::SMEM;
+  // the keep words (drop): boxes of 4 words by the block's 128 rows
+  CUtensorMap mz{};
+  if (drop) err = sm90_map_words(&mz, keep, b, h, sq, keep_ww, BQ3);
+  if (err) return err;
+  const int smem = drop  ? Dq<D>::SMEM_DROP
+                   : mod ? Dq<D>::SMEM_MOD : Dq<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -783,7 +839,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
       (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window, scale,
-      group, dr, mt);
+      group, inv, mt, mz);
   return (int)cudaGetLastError();
 }
 
@@ -1516,30 +1572,31 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int sq, int sk, int h, int nkv, int d,
                                       int causal, int q_off, int window,
                                       float scale, const am::Mod* mod,
-                                      int drop, unsigned k1, unsigned k2,
-                                      unsigned thr, float inv, void* stream) {
+                                      const void* keep, int keep_ww,
+                                      float inv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // window: 0 = none; a window needs causal (the reference's validation)
   if (window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
-  // drop: the forward's draw, as K1 takes it
-  const tf::Drop dr{k1, k2, thr, inv};
+  // keep (or null): the forward's keep words as K1 takes them
+  if (keep != nullptr && keep_ww != (sk + 127) / 128 * 4)
+    return (int)cudaErrorInvalidValue;
   // mod (or null): the general argument as K1 takes it, its walk lists
   // (`mask_bounds`' dq_list: each 128-row block's 64-key tiles), the
   // packed bool mask and the dead rows' bits (a bool mask); lse the (b, h,
   // sq, 2) pairs
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, window, scale, drop, dr,
-                          mod, st);
+                          h, nkv, causal, q_off, window, scale, keep,
+                          keep_ww, inv, mod, st);
   if (d == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                         h, nkv, causal, q_off, window, scale, drop, dr,
-                          mod, st);
+                         h, nkv, causal, q_off, window, scale, keep, keep_ww,
+                         inv, mod, st);
   if (d == 256)
     return launch_dq<256>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, window, scale, drop, dr,
-                          mod, st);
+                          h, nkv, causal, q_off, window, scale, keep,
+                          keep_ww, inv, mod, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,9 +19,10 @@ tensors it runs ``dropout_plain``. ``launches`` counts its launches,
 
 ``attention_keep_words`` is the attention's keep mask packed 32 keys a
 word, hashed once a call by kernel W of ``csrc/dropout.cu`` (the plain twin
-``attention_keep_words_plain`` on the CPU): K1 and K4 read those words
-instead of hashing (``ops.flash_attention``), K3 still hashes the key.
-``attention_keep_words.launches`` counts its launches.
+``attention_keep_words_plain`` on the CPU): K1, K3 and K4 read those words
+instead of hashing (``ops.flash_attention``). ``attention_keep_words.
+launches`` counts its launches; ``keep_words_partition`` is kernel W's
+work partition (a warp a pair of rows) computed as the kernel does.
 """
 
 import ctypes
@@ -116,6 +117,48 @@ def attention_keep_words_plain(key, p, b, h, sq, sk, is_causal=False,
     if vis is not None:
         z = z & vis
     return _pack_bits(z, keep_words_width(sk) * 32).view(torch.int32)
+
+
+# Kernel W's balance: a warp's words exceed the mean of its batch's two-row
+# warps by at most this many (the partial words at its two rows' edges)
+# in the causal triangle and wherever every row has the same words. A
+# window or a kv_len that cuts only some rows of the triangle leaves pairs
+# apart by up to a row's words; one pair a warp and no grid-stride loop
+# leave those to the block scheduler.
+KEEP_WORDS_SLACK = 2
+
+
+def keep_words_partition(b, h, sq, sk, is_causal=False, causal_offset=None,
+                         kv_lens=None, window=None, everything=False):
+    """Kernel W's work partition, computed as the kernel computes it: warp
+    p of a (batch, head) takes rows p and sq − 1 − p (the middle row alone
+    when sq is odd) and hashes each row's words [wa, wb), those that hold a
+    key its structured limits leave (every key below sk with
+    `everything`). Returns numpy int64 arrays (rows, wa, wb) of shape (b,
+    h, ceil(sq / 2), 2), a warp's second row -1 (and its span empty) where
+    it takes one. It documents the partition's cover and balance; what
+    proves the kernel's cover is its words held bit for bit to
+    ``attention_keep_words_plain`` on the card."""
+    p = np.arange((sq + 1) // 2)
+    rows = np.stack([p, sq - 1 - p], -1)
+    rows[..., 1][rows[..., 1] == p] = -1
+    q_off = sk - sq if causal_offset is None else int(causal_offset)
+    kvl = np.full(b, sk, np.int64)
+    if kv_lens is not None and not everything:
+        kvl = np.clip(np.asarray(torch.as_tensor(kv_lens).cpu(), np.int64),
+                      0, sk)
+    hi = np.broadcast_to(kvl[:, None, None], (b,) + rows.shape).copy()
+    lo = np.zeros_like(hi)
+    if not everything:
+        if is_causal:
+            hi = np.minimum(hi, q_off + rows + 1)
+        if window is not None:
+            lo = np.maximum(lo, q_off + rows - int(window) + 1)
+    wa = lo >> 5
+    wb = np.where(hi > lo, (hi + 31) >> 5, wa)
+    wa, wb = (np.where(rows < 0, 0, x)[:, None] for x in (wa, wb))
+    return tuple(np.broadcast_to(x, (b, h) + rows.shape).astype(np.int64)
+                 for x in (rows, wa, wb))
 
 
 def keep_words_mask(words, sk):

@@ -42,18 +42,19 @@ are divided by 1 - p. The mask is the reference's CPU mask,
 (bi, hi, q, k) hashes its flat index ``((bi·h + hi)·sq + q)·sk + k``.
 The mask is hashed once a call, into packed words (``ops.dropout.
 attention_keep_words``: kernel W on the card, bit k % 32 of word k / 32 of
-a row the keep bit of key k, 0 past the structured limits), which K1 and
-K4 read by TMA beside their tiles; K3 still hashes the key. K1 drops the
-probabilities after its softmax statistics took them undropped (the lse
-stays the undropped one, as in the reference, ``:533``); K3 and K4 apply
-the same mask: dS = P∘(dP̃∘Z/keep − Δ) with Δ = rowsum(dO∘O) over the
-dropped O, dv = (P∘Z/keep)ᵀ·dO. ``FlashAttention`` makes the words in its
-forward and saves them for K4; a raw K1 or K4 call given none makes them
-itself. Each kernel drops in an instantiation of its own (``DROP``), so
-the kernels without dropout run the code they ran before. ``scaled_dot_
-product_attention`` draws one key a call from ``next_rng_key("dropout")``
-on every path, as the reference does on both of its paths (``:137``,
-``:995``), so the streams advance alike on the CPU and on the card.
+a row the keep bit of key k, 0 past the structured limits), which K1, K3
+and K4 read by TMA beside their tiles: no attention kernel hashes. K1
+drops the probabilities after its softmax statistics took them undropped
+(the lse stays the undropped one, as in the reference, ``:533``); K3 and
+K4 apply the same mask: dS = P∘(dP̃∘Z/keep − Δ) with Δ = rowsum(dO∘O) over
+the dropped O, dv = (P∘Z/keep)ᵀ·dO. ``FlashAttention`` makes the words in
+its forward and saves them for K3 and K4; a raw K1, K3 or K4 call given
+none makes them itself. Each kernel drops in an instantiation of its own
+(``DROP``), so the kernels without dropout run the code they ran before.
+``scaled_dot_product_attention`` draws one key a call from
+``next_rng_key("dropout")`` on every path, as the reference does on both
+of its paths (``:137``, ``:995``), so the streams advance alike on the CPU
+and on the card.
 
 ``window`` (``window_size`` at the dispatch) is the causal sliding window
 of the reference (Mistral): the query at absolute position
@@ -1018,18 +1019,9 @@ def _inv_keep(dropout_p):
     return float(np.float32(1.0) / np.float32(keep)) if keep > 0 else 0.0
 
 
-def _drop_args(dropout_p, key):
-    """K3's dropout arguments: (drop, k1, k2, thr, 1/keep)."""
-    if dropout_p <= 0.0:
-        return [0, 0, 0, 0, 1.0]
-    k1, k2 = rng.key_words(key)
-    return [1, k1, k2, drop_ops.keep_threshold(dropout_p),
-            _inv_keep(dropout_p)]
-
-
 def _keep_args(what, dropout_p, key, keep_words, q, b, h, sq, sk, is_causal,
                causal_offset, kv_lens, window, general):
-    """K1's and K4's dropout arguments: (the keep words, [their pointer,
+    """K1's, K3's and K4's dropout arguments: (the keep words, [their pointer,
     words a row, 1/keep]); without dropout (None, [null, 0, 1.0]). Words
     not given are made here, one launch of kernel W (every key of a row in
     the general mode, whose dead rows weigh every key); given ones must be
@@ -1310,7 +1302,7 @@ def flash_attention_fwd(q, k, v, is_causal=False, scale=None, kv_lens=None,
     words, drop = _keep_args("flash_attention_fwd", dropout_p, key,
                              keep_words, q, b, h, sq, sk, is_causal,
                              causal_offset, kv_lens, window, general)
-    lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9, True)
+    lib = _kernel_lib("flash_attention", "flash_attention_fwd", 6, 9)
     # window 0: the windowless kernel; a window takes the windowed one
     # (beyond 2^30 it masks nothing and stays a C int); the general
     # argument, the general one; keep words, the dropout one
@@ -1332,12 +1324,12 @@ _counters(flash_attention_fwd, FWD_DIMS)
 def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
               kv_lens, causal_offset, window, dropout_p, key, attn_mask,
               bounds, seg_q, seg_k, slopes, keep_words=None):
-    """The K3 (`part` "dq": the draw's key) and K4 ("dkv": the keep words)
-    calls' checked arguments: (head pointers, kv_lens' pointer, the tail
-    after the outputs, d, the tensors to keep alive over the launch)."""
+    """The K3 (`part` "dq") and K4 ("dkv") calls' checked arguments: (head
+    pointers, kv_lens' pointer, the tail after the outputs, d, the tensors
+    to keep alive over the launch). Both read the keep words, made from
+    `key` when `keep_words` is None."""
     window = _check_window(window, is_causal)
-    dropout_p = _check_dropout(dropout_p, key,
-                               keep_words if part == "dkv" else None)
+    dropout_p = _check_dropout(dropout_p, key, keep_words)
     b, sq, sk, h, nkv, d = _check_kernel_inputs(what, q, k, v,
                                                 ("dout", dout))
     general = _general(attn_mask, seg_q, slopes)
@@ -1361,38 +1353,37 @@ def _bwd_args(what, part, q, k, v, dout, lse, delta, is_causal, scale,
                             bounds["dead_bits"])
     marg, keep = _mod_arg(what, attn_mask, seg_q, seg_k, slopes, window,
                           bounds, part, q, b, h, sq, sk, red)
-    if part == "dkv":   # K4 reads the forward's keep words
-        words, drop = _keep_args(what, dropout_p, key, keep_words, q, b, h,
-                                 sq, sk, is_causal, causal_offset, kv_lens,
-                                 window, general)
-        keep = [keep, words]
-    else:
-        drop = _drop_args(dropout_p, key)
+    # K3 and K4 read the forward's keep words
+    words, drop = _keep_args(what, dropout_p, key, keep_words, q, b, h, sq,
+                             sk, is_causal, causal_offset, kv_lens, window,
+                             general)
     # window 0: the windowless kernels; a window takes the windowed ones
     # (beyond 2^30 it masks nothing and stays a C int), as K1's wrapper
     tail = [b, sq, sk, h, nkv, d, int(bool(is_causal)), q_off,
             min(window or 0, 1 << 30), float(scale), marg, *drop,
             _build.stream_of(q)]
-    return head, _build.ptr(kl) if kl is not None else None, tail, d, keep
+    return (head, _build.ptr(kl) if kl is not None else None, tail, d,
+            [keep, words])
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, is_causal=False,
                            scale=None, kv_lens=None, causal_offset=None,
                            window=None, dropout_p=0.0, key=None,
                            attn_mask=None, bounds=None, seg_q=None,
-                           seg_k=None, alibi_slopes=None):
+                           seg_k=None, alibi_slopes=None, keep_words=None):
     """dq (bf16, q's shape) by the K3 kernel of ``csrc/flash_attention_bwd.cu``
     from the forward's lse and Δ = rowsum(dO∘O), both fp32 (b, h, sq);
     head_dim 64, 128 or 256; ``window`` (with ``is_causal``) launches its
-    windowed instantiation, ``dropout_p`` (with the forward's `key`) its
-    dropout one, ``attn_mask``, segment ids or ``alibi_slopes`` (with the
-    forward's (m, log l) pairs as `lse`; `bounds` as K1's) its general one
-    (each at d 64 and 128 only). CUDA tensors only (the CPU path is
-    ``flash_attention_bwd_plain``)."""
+    windowed instantiation, ``dropout_p`` its dropout one, reading the
+    forward's `keep_words` (``ops.dropout.attention_keep_words``; made here
+    from `key` when None, one more launch), ``attn_mask``, segment ids or
+    ``alibi_slopes`` (with the forward's (m, log l) pairs as `lse`; `bounds`
+    as K1's) its general one (each at d 64 and 128 only). CUDA tensors only
+    (the CPU path is ``flash_attention_bwd_plain``)."""
     head, kl, tail, d, keep = _bwd_args(
         "flash_attention_bwd_dq", "dq", q, k, v, dout, lse, delta, is_causal,
         scale, kv_lens, causal_offset, window, dropout_p, key, attn_mask,
-        bounds, seg_q, seg_k, alibi_slopes)
+        bounds, seg_q, seg_k, alibi_slopes, keep_words)
     dq = torch.empty_like(q)
     lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8, 9)
     err = lib.flash_attention_bwd_dq(*head, _build.ptr(dq), kl, *tail)
@@ -1412,18 +1403,15 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, is_causal=False,
                             seg_k=None, alibi_slopes=None, keep_words=None):
     """(dk, dv) (bf16, k's shape) by the K4 kernel of
     ``csrc/flash_attention_bwd.cu``; GQA groups are summed in fp32 inside the
-    kernel; head dims and modes as in ``flash_attention_bwd_dq``, but the
-    dropout instantiation reads the forward's `keep_words`
-    (``ops.dropout.attention_keep_words``; made here from `key` when None,
-    one more launch) instead of hashing the key. CUDA tensors only."""
+    kernel; head dims and modes, the keep words among them, as in
+    ``flash_attention_bwd_dq``. CUDA tensors only."""
     head, kl, tail, d, keep = _bwd_args(
         "flash_attention_bwd_dkv", "dkv", q, k, v, dout, lse, delta,
         is_causal, scale, kv_lens, causal_offset, window, dropout_p, key,
         attn_mask, bounds, seg_q, seg_k, alibi_slopes, keep_words)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9,
-                      True)
+    lib = _kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9, 9)
     err = lib.flash_attention_bwd_dkv(*head, _build.ptr(dk), _build.ptr(dv),
                                       kl, *tail)
     _count(flash_attention_bwd_dkv, d, window, dropout_p, attn_mask, seg_q,
@@ -1447,7 +1435,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
     ``g_lse`` (the cotangent of ``flash_fwd_lse``'s lse, :1061-1062), and
     launch K3 and K4 (their windowed, dropout and general instantiations
     under a window, a dropout and a dense mask, segment ids or ALiBi). With
-    dropout K3 takes `key` and K4 the forward's `keep_words`."""
+    dropout both read the forward's `keep_words`, made here once from `key`
+    when None."""
     mods = dict(attn_mask=attn_mask, seg_q=seg_q, seg_k=seg_k,
                 alibi_slopes=alibi_slopes)
     if q.device.type == "cpu":
@@ -1460,31 +1449,34 @@ def flash_attention_bwd(q, k, v, out, lse, dout, is_causal=False, scale=None,
     if g_lse is not None:
         delta = delta - g_lse.float()
     delta = delta.contiguous()
+    if dropout_p > 0.0 and keep_words is None and key is not None:
+        # one launch of kernel W for both kernels (every key of a row in
+        # the general mode, whose dead rows weigh every key)
+        keep_words = drop_ops.attention_keep_words(
+            key, dropout_p, q.shape[0], q.shape[2], q.shape[1], k.shape[1],
+            is_causal, causal_offset, kv_lens, window,
+            everything=_general(attn_mask, seg_q, alibi_slopes),
+            device=q.device)
     kw = dict(is_causal=is_causal, scale=scale, kv_lens=kv_lens,
               causal_offset=causal_offset, window=window,
-              dropout_p=dropout_p, key=key, bounds=bounds, **mods)
+              dropout_p=dropout_p, key=key, bounds=bounds,
+              keep_words=keep_words, **mods)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                     keep_words=keep_words, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
 
 
-def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints, words=False):
+def _kernel_lib(lib_name, fn_name, n_ptrs, n_ints):
     """The ctypes entry `fn_name` of csrc/<lib_name>.cu: n_ptrs pointers,
     n_ints ints, the float scale, the general-mode argument (a pointer to
-    _ModArg, or null), the dropout arguments (K3: drop, the key's two
-    words, the keep threshold, 1/keep; `words`, K1 and K4: the keep words'
-    pointer or null, words a row, 1/keep) and the stream; returns
-    cudaError."""
+    _ModArg, or null), the dropout arguments (the keep words' pointer or
+    null, words a row, 1/keep) and the stream; returns cudaError."""
     lib = _build.library(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                          ctypes.c_float)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([vp] * n_ptrs + [ci] * n_ints + [cf]
-                       + [ctypes.POINTER(_ModArg)]
-                       + ([vp, ci, cf] if words else [ci, cu, cu, cu, cf])
-                       + [vp])
+                       + [ctypes.POINTER(_ModArg)] + [vp, ci, cf] + [vp])
         fn.restype = ctypes.c_int
     return lib
 
@@ -1499,9 +1491,9 @@ class FlashAttention(torch.autograd.Function):
     incoming gradient contiguous itself, and saves those copies. Under
     dropout it hashes the mask once into keep words
     (``ops.dropout.attention_keep_words``: kernel W on the card, the plain
-    twin on the CPU), which K1 reads, and saves them beside q, k, v for K4
-    (sq·sk/8 bytes a (b, h)); K3 takes the key. Under recompute the
-    replayed forward makes them again.
+    twin on the CPU), which K1 reads, and saves them beside q, k, v for K3
+    and K4 (sq·sk/8 bytes a (b, h)). Under recompute the replayed forward
+    makes them again.
     A dense mask, segment ids and ALiBi slopes are carried with their
     bounds (computed once for K1, K3 and K4) and get no gradient, as the
     reference's VJP gives the mask a zero cotangent (:1108-1112) and
@@ -1522,7 +1514,7 @@ class FlashAttention(torch.autograd.Function):
                                         causal_offset, window, seg_q, seg_k,
                                         dropout_p)
         words = None
-        if dropout_p > 0.0:   # the call's keep words, for K1 and K4
+        if dropout_p > 0.0:   # the call's keep words, for K1, K3 and K4
             words = drop_ops.attention_keep_words(
                 key, dropout_p, q.shape[0], q.shape[2], q.shape[1],
                 k.shape[1], is_causal, causal_offset, kv_lens, window,

@@ -285,14 +285,13 @@ class _Captured(Exception):
 
 
 def test_kernel_entry_points_take_the_draw(monkeypatch):
-    """On the kernels' device, K3's C entry point gets the draw after the
-    general argument: drop 1, the key's two words, the keep threshold and
-    1/keep (float32); K1's and K4's get the draw as keep words (their
-    pointer, ceil(sk / 128)·4 words a row, 1/keep), made from the key by
-    ops.dropout.attention_keep_words; without dropout K3 gets drop 0 and
-    K1, K4 no words, each the dropout-free instantiation. The dropout
-    counters count only the dropout launches. (Meta tensors stand for CUDA
-    tensors; the entry points raise, so nothing launches.)"""
+    """On the kernels' device, K1's, K3's and K4's C entry points get the
+    draw after the general argument as keep words (their pointer,
+    ceil(sk / 128)·4 words a row, 1/keep in float32), made from the key by
+    ops.dropout.attention_keep_words; without dropout no words, each the
+    dropout-free instantiation. The dropout counters count only the
+    dropout launches. (Meta tensors stand for CUDA tensors; the entry
+    points raise, so nothing launches.)"""
     from paddle_tpu_torch.ops import _build
     got = {}
 
@@ -313,9 +312,7 @@ def test_kernel_entry_points_take_the_draw(monkeypatch):
         meta(b, sk, nkv, d)
     rows = meta(b, h, sq, dt=torch.float32)
     key = trng.fold_in(trng.PRNGKey(2 ** 31 - 1), 77)
-    k1, k2 = trng.key_words(key)
     inv = float(np.float32(1) / np.float32(0.9))
-    want = (1, k1, k2, tdrop.keep_threshold(0.1), inv)
     calls = ((tfa.flash_attention_fwd, (q, k, v)),
              (tfa.flash_attention_bwd_dq, (q, k, v, do, rows, rows)),
              (tfa.flash_attention_bwd_dkv, (q, k, v, do, rows, rows)))
@@ -327,9 +324,7 @@ def test_kernel_entry_points_take_the_draw(monkeypatch):
                 fn(*args, is_causal=True, dropout_p=p,
                    key=key if p else None)
             tail = got[fn.__name__]
-            if fn is tfa.flash_attention_bwd_dq:
-                assert tail[-6:-1] == (want if p else (0, 0, 0, 0, 1.0))
-            elif p:
+            if p:
                 # the words' pointer (0 on meta: shapes only), then W
                 assert tail[-4].value is None and tail[-3:-1] == (ww, inv)
             else:

@@ -1,5 +1,5 @@
 """The attention's keep words (``ops.dropout.attention_keep_words``): the
-dropout mask of K1 and K4 hashed once a call and packed 32 keys a word.
+dropout mask of K1, K3 and K4 hashed once a call and packed 32 keys a word.
 
 The contract is the JAX package's CPU mask, ``jax.random.bernoulli(key,
 1 - p, (b, h, sq, sk))`` (``paddle_tpu/ops/flash_attention.py:139``), its
@@ -9,7 +9,8 @@ general mode. The plain forward and backward twins given the words equal
 the same calls given the key bit for bit; ``FlashAttention`` (which makes
 the words in its forward and hands them to its backward) equals the
 reference's ``_xla_attention`` and its ``jax.vjp`` gradients; on the
-kernels' device K1's and K4's C entries get the words and K3's the key.
+kernels' device K1's, K3's and K4's C entries get the words, which
+``FlashAttention`` makes once a forward and hands to K3 and K4.
 """
 
 import jax
@@ -106,6 +107,51 @@ def test_keep_words_plain_are_the_reference_mask(case, p):
                        words)
     np.testing.assert_array_equal(
         tdrop.keep_words_mask(words, sk).numpy(), z)
+
+
+@pytest.mark.parametrize("case", WORD_CASES, ids=WORD_IDS)
+def test_keep_words_partition_hashes_each_visible_word_once(case):
+    """Kernel W's work partition (keep_words_partition, a warp a pair of
+    rows): every word that holds a key the limits leave is hashed by
+    exactly one warp, no other word is hashed, every row is taken, and no
+    warp's words exceed the mean of its batch's two-row warps by more than
+    KEEP_WORDS_SLACK (these cases: the triangle, rows alike, windows of a
+    few keys)."""
+    b, h, sq, sk, causal, off, kv_lens, window, every = case
+    rows, wa, wb = tdrop.keep_words_partition(
+        b, h, sq, sk, causal, off, kv_lens, window, every)
+    ww = tdrop.keep_words_width(sk)
+    vis = np.ones((b, 1, sq, sk), bool) if every else \
+        _visible(b, sq, sk, causal, off, kv_lens, window)
+    vis = np.concatenate([vis, np.zeros((b, 1, sq, ww * 32 - sk), bool)], -1)
+    want = np.broadcast_to(vis.reshape(b, 1, sq, ww, 32).any(-1),
+                           (b, h, sq, ww))
+    count = np.zeros((b, h, sq, ww), int)
+    taken = np.zeros((b, h, sq), int)
+    for bi, hi, p, r in np.ndindex(rows.shape):
+        q = rows[bi, hi, p, r]
+        if q >= 0:
+            taken[bi, hi, q] += 1
+            count[bi, hi, q, wa[bi, hi, p, r]:wb[bi, hi, p, r]] += 1
+    assert (taken == 1).all()
+    np.testing.assert_array_equal(count, want.astype(int))
+    share = (wb - wa).sum(-1)
+    for bi in range(b):
+        two = share[bi, :, :sq // 2]
+        assert share[bi].max() <= two.mean() + tdrop.KEEP_WORDS_SLACK
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 1024, 1024), (1, 32, 8192, 8192),
+                                   (2, 16, 512, 640)],
+                         ids=["gpt2-train", "mistral", "offset"])
+def test_keep_words_partition_balances_the_causal_triangle(shape):
+    """In the causal triangle every two-row warp of kernel W hashes the
+    same words to one word, where one warp a 32-word chunk of a row in a
+    grid-stride loop gave some warps 2.7× others'."""
+    b, h, sq, sk = shape
+    _, wa, wb = tdrop.keep_words_partition(b, h, sq, sk, True)
+    share = (wb - wa).sum(-1)[..., :sq // 2]
+    assert share.max() - share.min() <= 1
 
 
 def test_keep_words_width_and_pack_bits_are_shared():
@@ -241,10 +287,50 @@ def test_flash_attention_function_with_words_matches_jax(name):
                                    atol=GRAD_ATOL, err_msg=f"d{n}")
 
 
+class _Lib:
+    """A kernel library whose C entries record their arguments in `got`
+    (by name) and then raise _Captured, or return 0 (no error) with
+    `ok`."""
+
+    def __init__(self, got, ok=False):
+        self.got, self.ok = got, ok
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.got[name] = args
+            if not self.ok:
+                raise _Captured
+            return 0
+        return entry
+
+
+class _Captured(Exception):
+    pass
+
+
+def _on_meta(monkeypatch, lib):
+    """The kernels' device made "meta" (meta tensors stand for CUDA
+    tensors) with `lib` for every kernel library, pointers passed as the
+    tensors themselves; the wrappers' counters restored afterwards."""
+    monkeypatch.setattr(tfa, "KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(tfa, "_kernel_lib", lambda *a: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    for w in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv):
+        for name in ("launches",) + tfa.MODE_COUNTERS:
+            monkeypatch.setattr(w, name, getattr(w, name))
+        monkeypatch.setattr(w, "by_d", dict(w.by_d))
+
+
 def test_function_saves_the_words_for_k4(monkeypatch):
     """FlashAttention makes the words once a forward (everything in the
     general mode) and its backward hands those same words to the K4 twin;
-    a call without dropout makes none."""
+    a call without dropout makes none. On the kernels' device the same
+    words reach K1's, K3's and K4's C entries, made once (one
+    attention_keep_words call, the structured limits only), and a raw
+    flash_attention_bwd given the key makes one set for both of its
+    kernels."""
     made, seen = [], []
     real_make = tdrop.attention_keep_words
     real_bwd = tfa.flash_attention_bwd_plain
@@ -277,29 +363,43 @@ def test_function_saves_the_words_for_k4(monkeypatch):
             assert seen == [made[1]]
         else:
             assert made == [] and seen == [None]
-
-
-class _Captured(Exception):
-    pass
+    got = {}
+    _on_meta(monkeypatch, _Lib(got, ok=True))
+    b, sq, sk, h, nkv, d = 2, 65, 333, 8, 2, 64
+    meta = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device="meta")
+    leaves = [meta(b, sq, h, d), meta(b, sk, nkv, d), meta(b, sk, nkv, d)]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    made.clear()
+    out = tfa.FlashAttention.apply(*leaves, True, None, None, None, None,
+                                   0.1, trng.PRNGKey(3))
+    out.backward(meta(b, sq, h, d))
+    assert len(made) == 2 and made[0]["everything"] is False
+    words = made[1]
+    assert words.shape == (b, h, sq, tdrop.keep_words_width(sk))
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert got[name][-4] is words, name
+    # a raw backward given the key makes one set for K3 and K4
+    made.clear()
+    q, k, v = (t.detach() for t in leaves)
+    rows = torch.empty(b, h, sq, device="meta")
+    tfa.flash_attention_bwd(q, k, v, meta(b, sq, h, d), rows,
+                            meta(b, sq, h, d), is_causal=True, dropout_p=0.1,
+                            key=trng.PRNGKey(4))
+    assert len(made) == 2 and made[0]["everything"] is False
+    assert got["flash_attention_bwd_dq"][-4] is made[1]
+    assert got["flash_attention_bwd_dkv"][-4] is made[1]
 
 
 def test_kernel_entry_points_get_words_and_k3_the_key(monkeypatch):
     """On the kernels' device (meta tensors stand for CUDA tensors; the C
-    entries record and raise): K1's and K4's entries get the keep words'
-    pointer, ceil(sk / 128)·4 words a row and 1/keep after the general
-    argument, the words given or made by attention_keep_words (the
-    structured limits only, no launch on meta); K3's gets the key (drop 1,
-    its two words, the threshold, 1/keep). Words of the wrong shape,
-    dtype or device raise."""
+    entries record and raise): K1's, K3's and K4's entries get the keep
+    words' pointer, ceil(sk / 128)·4 words a row and 1/keep after the
+    general argument, the words given or made from the key by one
+    attention_keep_words call (the structured limits only, no launch on
+    meta). Words of the wrong shape, dtype or device raise; K3 given
+    neither key nor words raises."""
     got = {}
-
-    class Lib:
-        def __getattr__(self, name):
-            def entry(*args):
-                got[name] = args
-                raise _Captured
-            return entry
-
     made = []
     real = tdrop.attention_keep_words
 
@@ -307,10 +407,7 @@ def test_kernel_entry_points_get_words_and_k3_the_key(monkeypatch):
         made.append((a, kw))
         return real(*a, **kw)
 
-    monkeypatch.setattr(tfa, "KERNEL_DEVICE", "meta")
-    monkeypatch.setattr(tfa, "_kernel_lib", lambda *a: Lib())
-    monkeypatch.setattr(_build, "stream_of", lambda t: None)
-    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    _on_meta(monkeypatch, _Lib(got))
     monkeypatch.setattr(tdrop, "attention_keep_words", spy)
     b, sq, sk, h, nkv, d = 2, 65, 333, 8, 2, 64
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt,
@@ -321,9 +418,9 @@ def test_kernel_entry_points_get_words_and_k3_the_key(monkeypatch):
     ww = tdrop.keep_words_width(sk)
     words = meta(b, h, sq, ww, dt=torch.int32)
     key = trng.fold_in(trng.PRNGKey(7), 3)
-    k1, k2 = trng.key_words(key)
     inv = float(np.float32(1) / np.float32(0.9))
     for fn, args in ((tfa.flash_attention_fwd, (q, k, v)),
+                     (tfa.flash_attention_bwd_dq, (q, k, v, do, rows, rows)),
                      (tfa.flash_attention_bwd_dkv, (q, k, v, do, rows,
                                                     rows))):
         made.clear()
@@ -342,11 +439,6 @@ def test_kernel_entry_points_get_words_and_k3_the_key(monkeypatch):
                     torch.zeros(b, h, sq, ww, dtype=torch.int32)):
             with pytest.raises(ValueError, match="keep_words"):
                 fn(*args, is_causal=True, dropout_p=0.1, keep_words=bad)
-    with pytest.raises(_Captured):
-        tfa.flash_attention_bwd_dq(q, k, v, do, rows, rows, is_causal=True,
-                                   dropout_p=0.1, key=key)
-    assert got["flash_attention_bwd_dq"][-6:-1] == (
-        1, k1, k2, tdrop.keep_threshold(0.1), inv)
-    with pytest.raises(ValueError, match="key"):   # K3 hashes: no words
+    with pytest.raises(ValueError, match="key"):   # neither key nor words
         tfa.flash_attention_bwd_dq(q, k, v, do, rows, rows, is_causal=True,
                                    dropout_p=0.1)

@@ -1,6 +1,7 @@
 """Kernel W (``ops.dropout.attention_keep_words``, ``csrc/dropout.cu``) on the
-card against its plain twin, and K1 / K4 reading its words. Marked ``cuda``:
-skipped where torch.cuda.is_available() is False; run on a GPU machine with
+card against its plain twin, and K1 / K3 / K4 reading its words. Marked
+``cuda``: skipped where torch.cuda.is_available() is False; run on a GPU
+machine with
 ``python -m pytest -m cuda --noconftest tests/test_torch_keep_words_cuda.py``
 (no jax there: this file imports none).
 """
@@ -24,6 +25,7 @@ CASES = [
     (1, 3, 129, 5000, False, None, [4999], None, False),  # two 32-word chunks
     (2, 8, 384, 1084, True, 700, None, 200, False),     # offset, window
     (2, 2, 300, 300, True, -20, None, 1, False),        # rows before key 0
+    (1, 2, 257, 257, True, None, None, None, False),    # odd sq: a lone row
     (2, 4, 256, 333, True, None, [333, 100], 64, True),  # every key
 ]
 
@@ -53,15 +55,44 @@ def test_keep_words_kernel_matches_plain_bitwise(cuda, case, p):
 
 
 @pytest.mark.cuda
+def test_keep_words_kernel_past_two_to_the_32(cuda):
+    """Where the flat index ((bi·h + hi)·sq + q)·sk + k passes 2^32 (1 × 64
+    × 8200 × 8200, kv_len 8000: row 523776 crosses it at key 4096, inside
+    its visible keys), the crossing row, four rows on each side and the
+    last row equal the port's torch threefry of their flat indices, packed,
+    bit for bit (the whole plain twin would need 4.3 G indices)."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import dropout as dops
+    b, h, sq, sk, kvl = 1, 64, 8200, 8200, 8000
+    key = rng.fold_in(rng.PRNGKey(11), 32)
+    w = dops.attention_keep_words(
+        key, 0.1, b, h, sq, sk, kv_lens=torch.tensor(
+            [kvl], dtype=torch.int32, device=cuda), device=cuda)
+    ww = w.shape[-1]
+    cross = (1 << 32) // sk
+    assert cross * sk < 1 << 32 < (cross + 1) * sk
+    rows = torch.tensor(list(range(cross - 4, cross + 5)) + [b * h * sq - 1],
+                        dtype=torch.int64, device=cuda)
+    keys = torch.arange(sk, dtype=torch.int64, device=cuda)
+    idx = rows[:, None] * sk + keys[None, :]
+    kd = key.to(cuda)
+    y1, y2 = rng.threefry2x32(kd[0], kd[1], idx >> 32, idx & 0xFFFFFFFF)
+    z = (((y1 ^ y2) >> 9) < dops.keep_threshold(0.1)) & (keys < kvl)
+    ref = dops._pack_bits(z, ww * 32).view(torch.int32)
+    assert torch.equal(w.view(-1, ww)[rows], ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,nkv,sq,sk,d,causal,q_off,lens,window", [
     (4, 4, 256, 256, 64, True, None, None, None),
     (16, 4, 300, 333, 128, True, 33, [333, 100], None),
     (8, 2, 384, 1084, 128, True, 700, None, 200)])
 def test_k1_k4_on_given_words_equal_their_own(cuda, h, nkv, sq, sk, d,
                                               causal, q_off, lens, window):
-    """K1 and K4 given the call's words (as FlashAttention hands them over)
-    give the bits of the same wrappers making their own from the key; the
-    autograd Function launches W once a forward and K1, K3, K4 once each."""
+    """K1, K3 and K4 given the call's words (as FlashAttention hands them
+    over) give the bits of the same wrappers making their own from the key;
+    the autograd Function launches W once a forward and K1, K3, K4 once
+    each."""
     from paddle_tpu_torch.core import rng
     from paddle_tpu_torch.ops import dropout as dops
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -86,6 +117,9 @@ def test_k1_k4_on_given_words_equal_their_own(cuda, h, nkv, sq, sk, d,
                                        keep_words=words, **base,
                                        dropout_p=0.1)
     assert all(torch.equal(a, b) for a, b in zip(own, given))
+    dq_own = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dq_own, fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, keep_words=words, **base, dropout_p=0.1))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     counts = lambda: (dops.attention_keep_words.launches,
                       fa.flash_attention_fwd.launches,
@@ -97,5 +131,6 @@ def test_k1_k4_on_given_words_equal_their_own(cuda, h, nkv, sq, sk, d,
     o.backward(do)
     assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1]
     assert torch.equal(o.detach(), out)
+    assert torch.equal(leaves[0].grad, dq_own)
     assert torch.equal(leaves[1].grad, own[0])
     assert torch.equal(leaves[2].grad, own[1])

@@ -282,11 +282,10 @@ def test_k3_k4_entry_points_take_the_window(monkeypatch):
             with pytest.raises(_Captured):
                 fn(q, k, v, do, rows, rows, is_causal=True,
                    causal_offset=200, window=window)
-            # then the dropout arguments: none (K3: drop 0, key 0, 0, thr
-            # 0; K4: no keep words, 0 words a row)
-            drop = [0, 0, 0, 0] if fn is tfa.flash_attention_bwd_dq else [0]
+            # then the dropout arguments: none (no keep words, 0 words a
+            # row)
             assert ints[fn.__name__] == [b, sq, sk, h, nkv, d, 1, 200,
-                                         want] + drop
+                                         want, 0]
     for kw in (dict(is_causal=False, window=5), dict(is_causal=True,
                                                      window=0)):
         for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
