@@ -13,6 +13,7 @@
                                           # train_moe
     python3 chip_smoke.py --unet          # card, build, k1h, k3h, unet,
                                           # train_unet
+    python3 chip_smoke.py --k1h           # card, build, k1h
     python3 chip_smoke.py --ernie         # card, build, k1m, ernie
     python3 chip_smoke.py --modes         # card, build, k1s,
                                           # train_mistral_pad
@@ -226,25 +227,29 @@ Phases, each printing one JSON line:
               beside its bound, its INT32-pipe figure (SHF, LOP3 and IADD3
               a hash, counted in its SASS, over 64 lanes a clock an SM) and
               its plain twin; no PyTorch call packs a keep mask.
-  8i. k1h   — K1 at head dim 256 and the dispatch's padded head dims: every
-              attention call of the SD-1.5 UNet at b 2, 8 heads, 64×64
-              latents (self-attention over 4096, 1024, 256 and 64 tokens
-              at head dims 40, 80, 160, 160, and cross-attention to 77
-              tokens) through scaled_dot_product_attention (the pad to 64,
-              128, 256, K1, the slice) against the plain version at the
-              unpadded d, out within K1_TOL_OUT, K1H_TOL_OF_MAX of
-              max|plain| and K1H_REL_L2; one K1 launch each at the padded
-              d, and K1 on the padded inputs held there (out, lse within
-              K1's tolerances, the padded columns exactly 0); timed there
-              beside the bounds at the padded and at the model's d, the
-              whole dispatch, the plain version and torch sdpa at the
-              unpadded d; then native
+  8i. k1h   — K1 at head dim 256 and at the UNet's head dims read in place:
+              every attention call of the SD-1.5 UNet at b 2, 8 heads,
+              64×64 latents (self-attention over 4096, 1024, 256 and 64
+              tokens at head dims 40, 80, 160, 160, and cross-attention to
+              77 tokens) through scaled_dot_product_attention, which hands
+              K1 the true d (kernel widths 64, 128, 256; no pad: the
+              call's one device activity is K1's trimmed Q·Kᵀ
+              instantiation, by name), against the plain version at d, out
+              within K1_TOL_OUT, K1H_TOL_OF_MAX of max|plain| and
+              K1H_REL_L2, lse within K1's tolerances; K1 at d bitwise K1
+              on the inputs zero-padded to the kernel width, sliced, two
+              launches bitwise equal, the C entry leaving sentinels past
+              its output's end; timed there beside the bounds at the
+              model's and at the padded d, the dispatch, K1 on the padded
+              inputs and the pad + K1 + slice, the plain version and torch
+              sdpa; then native
               d 256 against the plain version (out and lse): causal with an
               offset and a batch row of kv_len 0, GQA 4, sq 1, sq 127 and
               129, non-causal sk 77 and 333 without kv_lens (keys past sk
               are TMA zero fill and must be masked), a 64-key tile edge;
               two launches of one d 256 call bitwise equal; the window and
-              dropout at d 256 refused, naming ROADMAP Queue B row 1.
+              dropout at kernel width 256 (d 256 and 160) refused, naming
+              ROADMAP Queue B row 1.
   8j. k3h   — K3 and K4 at head dim 256 (K3: 32-key tiles under 128-row
               blocks; K4: 64-key blocks, the consumer groups splitting
               dk/dv's columns) through the autograd Function against the
@@ -254,14 +259,18 @@ Phases, each printing one JSON line:
               non-causal: 256², 256 × 77, 64², 64 × 77) and d 256's edges
               (sq 1, 64 over sk 65, 65, 129, 193; ragged sk 77 and 1000; a
               causal offset inside a tile; GQA 4 and 8; a batch row of
-              kv_len 0, zero gradients); then SD-1.5's head dim 160 at the
-              UNet's shapes through the dispatch (the pad, K1, K3, K4 at
-              256 once each, the slice's backward) against the plain
-              backward at d 160, and K3's and K4's device time there beside
-              the bounds at the padded and the model's d, the plain
-              backward and torch sdpa's backward at d 160 (rows 2c, 3c);
-              the window and dropout at d 256 refused, naming Queue B rows
-              2-3.
+              kv_len 0, zero gradients); then every UNet call's backward at
+              its own head dim (40, 80, 160) through the dispatch (K1, K3,
+              K4 at the true d once each, counted at the kernel width, no
+              pad forward or backward) against the plain backward at d; K3
+              and K4 at d bitwise their launches on the inputs zero-padded
+              to the kernel width, sliced, two launches bitwise equal, the
+              C entries leaving sentinels past dq's, dk's and dv's ends;
+              their device time at d and on the padded inputs beside the
+              bounds at the model's and the padded d, the plain backward
+              and torch sdpa's backward at d (rows 2c, 3c: width 256); the
+              window and dropout at width 256 (d 256 and 160) refused,
+              naming Queue B rows 2-3.
   8k. k1m   — K1, K3 and K4's dense-mask modes (bool or fp32, read through
               broadcast strides; tiles of `mask_bounds`) against their
               plain versions on the same inputs (K3/K4's on K1's (out,
@@ -546,10 +555,11 @@ Phases, each printing one JSON line:
               with ε fed back: ms/step (CUDA events), images/s, MFU over
               the twin's analytic FLOP count, peak memory; K1 32 launches
               a forward (12 at d 256, 10 at 128, 10 at 64: the wrapper's
-              `by_d`), nothing else, no plain attention call; ε finite; one
-              traced step by kernel family (convolutions, products, norms,
-              K1, copies, the rest; each family's longest kernels by
-              name); then a full-width forward in bf16 at
+              `by_d`: kernel widths), nothing else, no plain attention
+              call; ε finite; one traced step by kernel family
+              (convolutions, products, norms, K1, copies, the rest; each
+              family's longest kernels by name) and its launches a forward
+              (device activities); then a full-width forward in bf16 at
               b 1, 32×32 latents against the port's fp32 CPU forward of the
               same weights, relative L2 of ε within UNET_REL_L2.
  20a. train_unet — UNetConfig.sd15() trained through the UNet twin's
@@ -602,8 +612,8 @@ Phases, each printing one JSON line:
 --quick stops after phase 8m; --int8-stress runs phase 8f alone; --training
 runs phases 5a, 17a, 18 and 19; --dropout phases 8g, 8h and 16a; --moe
 phases 8, 13 and 13a; --unet phases 8i, 8j, 20 and 20a (about 100 s with
-the build); --ernie phases 8k and 21 (about 140 s with the build);
---modes phases 8m and 19a (about 115 s with the build). Every failure
+the build); --k1h phase 8i alone; --ernie phases 8k and 21 (about 140 s
+with the build); --modes phases 8m and 19a (about 115 s with the build). Every failure
 propagates and exits non-zero. The whole run takes about 420 s on an
 H100, build included (phases 8i, 8j, 20 and 20a about 65 s of it, 8k and
 21 about 30 s, 8m and 19a about 65 s); the watchdog (WATCHDOG_S) ends a
@@ -6951,66 +6961,220 @@ def k1h_bound(b, h, sq, sk, d, bw, flops):
     return bound3(nbytes, 4 * b * h * sq * sk * d, 0, bw, flops, 1.0)
 
 
+def zero_cols(t, dt):
+    """t zero-padded to dt columns: what K1, K3 and K4 read at kernel width
+    dt through TMA's zero fill."""
+    return torch.nn.functional.pad(t, (0, dt - t.shape[-1]))
+
+
+class PadCounter:
+    """Counts the calls of torch.nn.functional.pad inside the block: the
+    dispatch pads only a head dim the kernels do not read in place
+    (ops.flash_attention._pad_head_dim), and its autograd's backward pads
+    and slices only where the forward padded."""
+
+    def __enter__(self):
+        self.n, self._pad = 0, torch.nn.functional.pad
+
+        def pad(*args, **kw):
+            self.n += 1
+            return self._pad(*args, **kw)
+        torch.nn.functional.pad = pad
+        return self
+
+    def __exit__(self, *exc):
+        torch.nn.functional.pad = self._pad
+
+
+# A torch.profiler trace of one short call on an H100 now and then holds
+# no device activity at all (once in about 30 such traces): it then says
+# nothing of the call, and device_kernels traces it again, up to this often
+DEVICE_TRACE_TRIES = 3
+
+
+def device_kernels(fn):
+    """The device activities' names of one call of fn, after an untraced
+    one (a torch.profiler trace, taken again while it holds no device
+    activity, DEVICE_TRACE_TRIES traces at most); None where every trace
+    holds none."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(DEVICE_TRACE_TRIES):
+        with torch.profiler.profile(activities=act) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return None
+
+
+# The guard past an output's end: TAIL_ELEMS bf16 elements of TAIL_SENTINEL
+# (exact in bf16) after the b·sq·h·d (or b·sk·nkv·d) an entry may write.
+# A write past d inside a row lands in the next head's or row's columns,
+# which the bitwise comparison with the padded launch sees; past the last
+# row only this guard sees it.
+TAIL_ELEMS, TAIL_SENTINEL = 4096, 7.0
+
+
+def guarded(like):
+    """(a flat bf16 buffer of like's numel + TAIL_ELEMS, all TAIL_SENTINEL;
+    its first numel elements viewed as like's shape)."""
+    n = like.numel()
+    buf = torch.full((n + TAIL_ELEMS,), TAIL_SENTINEL, dtype=torch.bfloat16,
+                     device=like.device)
+    return buf, buf[:n].view(like.shape)
+
+
+def tail_intact(buf, like):
+    return bool((buf[like.numel():] == TAIL_SENTINEL).all())
+
+
+def k1_entry_guarded(fa, q, k, v, scale):
+    """K1's C entry, non-causal, on an out buffer with TAIL_ELEMS sentinels
+    past its end: (out, the sentinels unchanged)."""
+    from paddle_tpu_torch.ops import _build
+    b, sq, h, d = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    buf, out = guarded(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = fa._kernel_lib("flash_attention", "flash_attention_fwd", 6, 9)
+    err = lib.flash_attention_fwd(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(buf),
+        _build.ptr(lse), None, b, sq, sk, h, nkv, d, 0, sk - sq, 0,
+        float(scale), None, None, 0, 1.0, _build.stream_of(q))
+    _build.check(err, "flash_attention_fwd (guarded)")
+    torch.cuda.synchronize()
+    return out, tail_intact(buf, out)
+
+
+def k34_entries_guarded(fa, q, k, v, do, lse, delta, scale):
+    """K3's and K4's C entries, non-causal, on dq, dk and dv buffers with
+    TAIL_ELEMS sentinels past each end: ((dq, dk, dv), the sentinels of
+    all three unchanged)."""
+    from paddle_tpu_torch.ops import _build
+    b, sq, h, d = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    (bq, dq), (bk, dk), (bv, dv) = guarded(q), guarded(k), guarded(v)
+    head = [_build.ptr(t) for t in (q, k, v, do, lse, delta)]
+    tail = [b, sq, sk, h, nkv, d, 0, sk - sq, 0, float(scale), None, None,
+            0, 1.0, _build.stream_of(q)]
+    lib = fa._kernel_lib("flash_attention_bwd", "flash_attention_bwd_dq", 8,
+                         9)
+    err = lib.flash_attention_bwd_dq(*head, _build.ptr(bq), None, *tail)
+    _build.check(err, "flash_attention_bwd_dq (guarded)")
+    lib = fa._kernel_lib("flash_attention_bwd", "flash_attention_bwd_dkv", 9,
+                         9)
+    err = lib.flash_attention_bwd_dkv(*head, _build.ptr(bk), _build.ptr(bv),
+                                      None, *tail)
+    _build.check(err, "flash_attention_bwd_dkv (guarded)")
+    torch.cuda.synchronize()
+    return (dq, dk, dv), (tail_intact(bq, dq) and tail_intact(bk, dk)
+                          and tail_intact(bv, dv))
+
+
+# K1's trimmed Q·Kᵀ at each kernel width: the k16 steps its plain mode
+# issues for a d with ceil(d / 16) at most this (csrc/flash_attention.cu
+# QK_TRIM), the last template argument of the instantiation's name
+K1_QK_TRIM = {64: 3, 128: 5, 256: 10}
+
+
 def k1h_shape(fa, gen, b, h, sq, sk, d, bw, flops):
-    """One UNet attention call at head dim d through the dispatch (the pad
-    to K1's d, K1, the slice), held against K1's plain version at the
-    unpadded d; K1 launched once at the padded d. K1 launched on the
-    dispatch's padded inputs is held as phase k1 holds it (out and lse
-    within K1_TOL_OUT and K1_TOL_LSE: the pad leaves lse exact), its
-    padded columns exactly 0, and out, relative to the reference,
-    within K1H_TOL_OF_MAX of max|plain| and K1H_REL_L2. Then K1's device
-    time at the padded d (device_ms: the wrapper's host work outlasts the
-    small launches), the dispatch's, torch sdpa's at the unpadded d and
-    the plain version's (CUDA events), beside the bound at the padded d
-    and at the model's own d."""
+    """One UNet attention call at head dim d through the dispatch, which
+    hands K1 the true d: no pad made, one launch counted at the kernel
+    width dt, the call's only device activity in a profiler trace, and, at
+    a d whose data fits K1_QK_TRIM[dt] k16 steps (SD-1.5's 40, 80, 160),
+    the trimmed Q·Kᵀ instantiation by its name. Held against K1's plain
+    version at d (out within K1_TOL_OUT, K1H_TOL_OF_MAX of max|plain| and
+    K1H_REL_L2; lse within K1's tolerances). K1 at d is bitwise K1 on the
+    inputs zero-padded to dt, sliced (out and lse); two launches at d give
+    the same bits; the dispatch's out is K1's; the C entry called on an
+    out buffer with sentinels past its end leaves them and writes K1's
+    bits. Then K1's device time at d (device_ms: the wrapper's host work
+    outlasts the small launches), the dispatch's, K1's on the padded
+    inputs and the pad + K1 + slice the dispatch ran before K1 read d in
+    place (`padded_dispatch_ms`), torch sdpa's and the plain version's
+    (CUDA events), beside the bounds at the model's d and at dt."""
     q, k, v = (rand((b, s, h, d), gen) for s in (sq, sk, sk))
-    dt = next(t for t in fa.FWD_DIMS if t >= d)
+    dt = fa.kernel_width(d)
+    scale = 1.0 / math.sqrt(d)
     before = dict(fa.flash_attention_fwd.by_d)
-    with torch.no_grad():
+    with torch.no_grad(), PadCounter() as pads:
         out = fa.scaled_dot_product_attention(q, k, v)
     torch.cuda.synchronize()
     launched = {t: fa.flash_attention_fwd.by_d[t] - before[t]
                 for t in fa.FWD_DIMS}
     ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v)
-    qp, kp, vp, scale, _ = fa._pad_head_dim(q, k, v, None)
+    qp, kp, vp = (zero_cols(t, dt) for t in (q, k, v))
     with torch.no_grad():
-        out_k, lse_k = fa.flash_attention_fwd(qp, kp, vp, scale=scale)
-    agree = k1_agreement(out_k[..., :d], lse_k, ref, ref_lse)
+        kernels = device_kernels(
+            lambda: fa.scaled_dot_product_attention(q, k, v))
+        out_k, lse_k = fa.flash_attention_fwd(q, k, v)
+        out_k2, lse_k2 = fa.flash_attention_fwd(q, k, v)
+        out_p, lse_p = fa.flash_attention_fwd(qp, kp, vp, scale=scale)
+        out_g, tail_ok = k1_entry_guarded(fa, q, k, v, scale)
+    torch.cuda.synchronize()
+    bitwise = {
+        "dispatch_is_k1": bool(torch.equal(out, out_k)),
+        "padded_sliced": bool(torch.equal(out_k, out_p[..., :d])
+                              and torch.equal(lse_k, lse_p)),
+        "two_launches": bool(torch.equal(out_k, out_k2)
+                             and torch.equal(lse_k, lse_k2)),
+        "c_entry_guarded": bool(torch.equal(out_g, out_k))}
+    agree = k1_agreement(out_k, lse_k, ref, ref_lse)
     ref_max = ref.float().abs().max().item()
     err = (out.float() - ref.float()).abs().max().item()
     rel = (torch.linalg.vector_norm(out.float() - ref.float())
            / torch.linalg.vector_norm(ref.float())).item()
-    pad_zero = not out_k[..., d:].any().item()
+    one_k1 = (kernels is not None and len(kernels) == 1
+              and "flash_fwd_sm90" in kernels[0])
+    trim = -(-d // 16) <= K1_QK_TRIM[dt]
+    # the instantiation's name, demangled or mangled
+    trimmed = one_k1 and any(
+        key in kernels[0] for key in (
+            f"<{dt}, false, false, false, {K1_QK_TRIM[dt]}>",
+            f"ILi{dt}ELb0ELb0ELb0ELi{K1_QK_TRIM[dt]}E"))
     with torch.no_grad():
-        ms = device_ms(lambda: fa.flash_attention_fwd(qp, kp, vp,
-                                                      scale=scale), iters=20)
+        ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=20)
         dispatch_ms = device_ms(
             lambda: fa.scaled_dot_product_attention(q, k, v), iters=20)
+        padded_ms = device_ms(lambda: fa.flash_attention_fwd(
+            qp, kp, vp, scale=scale), iters=20)
+        padded_dispatch_ms = device_ms(lambda: fa.flash_attention_fwd(
+            *(zero_cols(t, dt) for t in (q, k, v)), scale=scale)[0][..., :d],
+            iters=20)
     plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v),
                        iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
         iters=20)
-    bound, by = k1h_bound(b, h, sq, sk, dt, bw, flops)
-    bound_d, by_d = k1h_bound(b, h, sq, sk, d, bw, flops)
+    bound, by = k1h_bound(b, h, sq, sk, d, bw, flops)
+    bound_p, by_p = k1h_bound(b, h, sq, sk, dt, bw, flops)
     ok = (err <= K1_TOL_OUT and err <= K1H_TOL_OF_MAX * ref_max
-          and rel <= K1H_REL_L2 and agree["ok"] and pad_zero
+          and rel <= K1H_REL_L2 and agree["ok"] and all(bitwise.values())
+          and tail_ok and pads.n == 0 and one_k1 and trimmed == trim
           and launched == {t: int(t == dt) for t in fa.FWD_DIMS}
           and bool(torch.isfinite(out.float()).all()))
     return {"b": b, "h": h, "sq": sq, "sk": sk, "d": d, "kernel_d": dt,
             "max_abs_err": err, "tol": K1_TOL_OUT, "ref_max_abs": ref_max,
             "tol_of_max_ref": K1H_TOL_OF_MAX, "rel_l2": rel,
-            "rel_l2_tol": K1H_REL_L2, "k1_padded_inputs": agree,
-            "padded_columns_zero": pad_zero, "k1_launches": launched,
-            "ms": ms, "dispatch_ms": dispatch_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
-            "bound_ms_model_d": bound_d, "bound_by_model_d": by_d, "ok": ok}
+            "rel_l2_tol": K1H_REL_L2, "k1": agree, "bitwise": bitwise,
+            "tail_sentinels_intact": tail_ok, "dispatch_pads": pads.n,
+            "dispatch_kernels": kernels, "trimmed_qk": trimmed,
+            "k1_launches": launched, "ms": ms, "dispatch_ms": dispatch_ms,
+            "padded_ms": padded_ms, "padded_dispatch_ms": padded_dispatch_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by, "bound_ms_padded_d": bound_p,
+            "bound_by_padded_d": by_p, "ok": ok}
 
 
 def phase_k1h(fa, bw, flops):
-    """K1 at head dim 256 and the dispatch's padded head dims, against the
-    plain version (see the module docstring, phase 8i)."""
+    """K1 at head dim 256 and at the UNet's head dims read in place,
+    against the plain version (see the module docstring, phase 8i)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(18)
     shapes = []
@@ -7040,15 +7204,17 @@ def phase_k1h(fa, bw, flops):
     o1, l1 = fa.flash_attention_fwd(q, k, v)
     o2, l2 = fa.flash_attention_fwd(q, k, v)
     repeat = bool(torch.equal(o1, o2) and torch.equal(l1, l2))
-    # the window and dropout at d 256 raise, naming the ROADMAP row (the
-    # gradient at d 256 runs: phase k3h)
-    refused = d256_refusals(lambda **kw: fa.flash_attention_fwd(q, k, v,
-                                                                **kw))
+    # the window and dropout at kernel width 256 (d 256, and 160 in place)
+    # raise, naming the ROADMAP row (the gradient there runs: phase k3h)
+    refused = {dd: d256_refusals(lambda **kw: fa.flash_attention_fwd(
+        q[..., :dd].contiguous(), k[..., :dd].contiguous(),
+        v[..., :dd].contiguous(), **kw)) for dd in (256, 160)}
     emit({"phase": "k1h", "unet_shapes": shapes, "d256_cases": edges,
           "d256_repeat_bitwise": repeat, "d256_modes_refused": refused})
     bad = ([c for c in shapes + edges if not c["ok"]]
            + ([] if repeat else ["two d 256 launches differ"])
-           + [f"the {m} at d 256 was not refused" for m, e in refused.items()
+           + [f"the {m} at d {dd} was not refused"
+              for dd, got in refused.items() for m, e in got.items()
               if not (e and "Queue B row 1" in e)])
     if bad:
         raise AssertionError(f"K1 at the UNet's head dims: {bad}")
@@ -7056,16 +7222,18 @@ def phase_k1h(fa, bw, flops):
 
 
 def unet_rows(shapes, d256_err, launches):
-    """Rows 1c (K1 at d 256: the UNet's level-2 and mid calls, and the
-    native cases) and 1d (d 40 / 80 padded to 64 / 128): device times,
-    bounds, plain and sdpa times summed over one forward's calls of that
+    """Rows 1c (K1 at kernel width 256: the UNet's level-2 and mid calls at
+    d 160, and the native cases) and 1d (d 40 / 80 on the widths 64 /
+    128): device times, bounds (at the model's d; at the padded d beside
+    them), plain and sdpa times summed over one forward's calls of that
     mode (calls_a_forward of each shape), max |out − plain|, the unet
     path's launches (a run of UNET_STEPS denoise steps)."""
     rows = []
-    for tag, dims, line in (("1c", (256,), "head dim 256 (SD-1.5's 160, "
-                                            "padded; native 256)"),
-                            ("1d", (64, 128), "head dims 40, 80 padded to "
-                                              "64, 128")):
+    for tag, dims, line in (("1c", (256,), "kernel width 256 (SD-1.5's "
+                                            "160 read in place; native "
+                                            "256)"),
+                            ("1d", (64, 128), "head dims 40, 80 read in "
+                                              "place at widths 64, 128")):
         mine = [c for c in shapes if c["kernel_d"] in dims]
         tot = lambda key: sum(c[key] * c["calls_a_forward"] for c in mine)
         rows.append({
@@ -7078,7 +7246,9 @@ def unet_rows(shapes, d256_err, launches):
                                + ([d256_err] if 256 in dims else [])),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
-            "bound_ms_model_d": tot("bound_ms_model_d"),
+            "bound_ms_padded_d": tot("bound_ms_padded_d"),
+            "padded_ms": tot("padded_ms"),
+            "padded_dispatch_ms": tot("padded_dispatch_ms"),
             # the kind that makes up the larger share of the summed bound
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
                 c["bound_ms"] * c["calls_a_forward"] for c in mine
@@ -7092,11 +7262,11 @@ def unet_rows(shapes, d256_err, launches):
     return rows
 
 
-# ---- K3/K4 at head dim 256: the UNet's backward --------------------------------
+# ---- K3/K4 at the UNet's head dims: its backward -------------------------------
 
-# The UNet's backward calls at kernel d 256 (SD-1.5's head dim 160 at level
-# 2 and the middle, padded), b 2, 8 heads, non-causal: (query tokens, key
-# tokens, calls a step)
+# The UNet's backward calls at kernel width 256 (SD-1.5's head dim 160 at
+# level 2 and the middle), b 2, 8 heads, non-causal: (query tokens, key
+# tokens, calls a step); phase k3h runs native d 256 at these shapes too
 UNET_BWD_256 = ((256, 256, 5), (256, UNET_CTX, 5), (64, 64, 1),
                 (64, UNET_CTX, 1))
 
@@ -7111,34 +7281,61 @@ def k3h_work(b, h, sq, sk, d):
             "k4": (2 * tq + 4 * tk + 2 * row, 8 * d * pairs)}
 
 
-def k3h_shape(fa, gen, b, h, sq, sk, bw, flops):
-    """One UNet backward call at SD-1.5's head dim 160: the gradient
-    through the dispatch (the pad to 256, K1, K3 and K4 at d 256, the
-    slice's backward) against the plain backward at d 160 on the kernel
-    forward's (out, lse), each of dq, dk, dv within K3_TOL · max|plain|;
-    K1, K3 and K4 launched once each, at d 256. Then K3's and K4's device
-    time on the padded inputs (device_ms), beside the bounds at the padded
-    and at the model's d, the plain backward at d 160 and torch sdpa's
-    backward at d 160 over a retained graph (its kernels' device time)."""
-    d = 160
+def k3h_shape(fa, gen, b, h, sq, sk, d, bw, flops):
+    """One UNet backward call at head dim d: the gradient through the
+    dispatch (K1, K3 and K4 at the true d, one launch each counted at the
+    kernel width dt, no pad made forward or backward) against the plain
+    backward at d on the kernel forward's (out, lse), each of dq, dk, dv
+    within K3_TOL · max|plain|, and equal bit for bit to K3's and K4's
+    wrappers at d. K3 and K4 at d are bitwise K3 and K4 on the inputs
+    zero-padded to dt, sliced (the same lse and Δ); two launches at d give
+    the same bits; the C entries called on dq, dk and dv buffers with
+    sentinels past their ends leave them and write the wrappers' bits.
+    Then K3's and K4's device time at d (device_ms) and on the padded
+    inputs, beside the bounds at the model's d and at dt, the plain
+    backward and torch sdpa's backward at d over a retained graph (its
+    kernels' device time)."""
     q, k, v, do = (rand((b, s, h, d), gen) for s in (sq, sk, sk, sq))
+    dt = fa.kernel_width(d)
+    scale = 1.0 / math.sqrt(d)
     wraps = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
              fa.flash_attention_bwd_dkv)
     before = [dict(w.by_d) for w in wraps]
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    fa.scaled_dot_product_attention(*leaves).backward(do)
+    with PadCounter() as pads:
+        fa.scaled_dot_product_attention(*leaves).backward(do)
     torch.cuda.synchronize()
     launched = {w.__name__: {t: w.by_d[t] - n[t] for t in n}
                 for w, n in zip(wraps, before)}
-    qp, kp, vp, scale, _ = fa._pad_head_dim(q, k, v, None)
-    dop = torch.nn.functional.pad(do, (0, 256 - d))
     with torch.no_grad():
-        out, lse = fa.flash_attention_fwd(qp, kp, vp, scale=scale)
-    ref = fa.flash_attention_bwd_plain(q, k, v, out[..., :d], lse, do)
-    ok = all(got == {t: int(t == 256) for t in got}
-             for got in launched.values())
-    res = {"b": b, "h": h, "sq": sq, "sk": sk, "d": d, "kernel_d": 256,
-           "tol_of_max_ref": K3_TOL, "launches": launched}
+        out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    qp, kp, vp, dop = (zero_cols(t, dt) for t in (q, k, v, do))
+    with torch.no_grad():
+        got = [fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+               *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)]
+        again = [fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                 *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)]
+        padded = [fa.flash_attention_bwd_dq(qp, kp, vp, dop, lse, delta,
+                                            scale=scale),
+                  *fa.flash_attention_bwd_dkv(qp, kp, vp, dop, lse, delta,
+                                              scale=scale)]
+        guarded_out, tail_ok = k34_entries_guarded(fa, q, k, v, do, lse,
+                                                   delta, scale)
+    torch.cuda.synchronize()
+    eq = lambda xs, ys: all(bool(torch.equal(x, y)) for x, y in zip(xs, ys))
+    bitwise = {"autograd_is_wrappers": eq([t.grad for t in leaves], got),
+               "padded_sliced": eq(got, [t[..., :d] for t in padded]),
+               "two_launches": eq(got, again),
+               "c_entries_guarded": eq(guarded_out, got)}
+    ok = (all(got_d == {t: int(t == dt) for t in got_d}
+              for got_d in launched.values())
+          and pads.n == 0 and tail_ok and all(bitwise.values()))
+    res = {"b": b, "h": h, "sq": sq, "sk": sk, "d": d, "kernel_d": dt,
+           "tol_of_max_ref": K3_TOL, "launches": launched,
+           "dispatch_pads": pads.n, "bitwise": bitwise,
+           "tail_sentinels_intact": tail_ok}
     for name, t, r in zip(("dq", "dk", "dv"), leaves, ref):
         g = t.grad.float()
         err = (g - r).abs().max().item()
@@ -7147,14 +7344,18 @@ def k3h_shape(fa, gen, b, h, sq, sk, bw, flops):
                      "max_abs_ref": r.abs().max().item()}
         ok &= bool(err <= tol and torch.isfinite(g).all())
     res["ok"] = ok
-    delta = (dop.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     with torch.no_grad():
         ms = {"k3": device_ms(lambda: fa.flash_attention_bwd_dq(
-                  qp, kp, vp, dop, lse, delta, scale=scale), iters=20),
+                  q, k, v, do, lse, delta), iters=20),
               "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
-                  qp, kp, vp, dop, lse, delta, scale=scale), iters=20)}
+                  q, k, v, do, lse, delta), iters=20)}
+        padded_ms = {"k3": device_ms(lambda: fa.flash_attention_bwd_dq(
+                         qp, kp, vp, dop, lse, delta, scale=scale), iters=20),
+                     "k4": device_ms(lambda: fa.flash_attention_bwd_dkv(
+                         qp, kp, vp, dop, lse, delta, scale=scale),
+                         iters=20)}
     res["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, out[..., :d], lse, do), iters=3, warmup=1)
+        q, k, v, out, lse, do), iters=3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
@@ -7162,7 +7363,7 @@ def k3h_shape(fa, gen, b, h, sq, sk, bw, flops):
     res["library_ms"] = device_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
         iters=20)
-    for at, dd in (("", 256), ("_model_d", d)):
+    for at, dd in (("", d), ("_padded_d", dt)):
         for key, (nbytes, nflops) in k3h_work(b, h, sq, sk, dd).items():
             tb, to = nbytes / bw * 1e3, nflops / flops * 1e3
             res.setdefault(key, {})
@@ -7171,13 +7372,14 @@ def k3h_shape(fa, gen, b, h, sq, sk, bw, flops):
                              else "operations"})
     for key in ("k3", "k4"):
         res[key]["ms"] = ms[key]
+        res[key]["padded_ms"] = padded_ms[key]
     return res
 
 
 def phase_k3h(fa, bw, flops):
-    """K3 and K4 at head dim 256 against the plain backward (see the module
-    docstring, phase 8j). Returns (the UNet shapes' results, K3's and K4's
-    largest errors)."""
+    """K3 and K4 at head dim 256 and at the UNet's head dims read in place,
+    against the plain backward (see the module docstring, phase 8j).
+    Returns (the UNet shapes' results, K3's and K4's largest errors)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(19)
     b, h = 2, 8
@@ -7198,20 +7400,26 @@ def phase_k3h(fa, bw, flops):
         k3_case(fa, gen, 1, 8, 2, 200, 1000, 256, False, [777]),
         k3_case(fa, gen, 2, 16, 4, 300, 1200, 256, True, [1200, 0], 900),
     ]
-    shapes = [dict(k3h_shape(fa, gen, b, h, sq, sk, bw, flops),
-                   calls_a_step=calls) for sq, sk, calls in UNET_BWD_256]
-    # the window and dropout at d 256 raise, naming the ROADMAP rows
-    q = rand((1, 64, 2, 256), gen)
+    # every backward call of the UNet, at its own head dim
+    shapes = [dict(k3h_shape(fa, gen, b, h, sq, sk, d, bw, flops),
+                   level=level, calls_a_step=calls)
+              for level, sq, d, calls in UNET_ATTN for sk in (sq, UNET_CTX)]
+    # the window and dropout at kernel width 256 (d 256, and 160 in place)
+    # raise, naming the ROADMAP rows
     lse = torch.zeros((1, 2, 64), dtype=torch.float32, device="cuda")
-    refused = d256_refusals(lambda **kw: fa.flash_attention_bwd_dq(
-        q, q, q, q, lse, lse, **kw))
+    refused = {}
+    for dd in (256, 160):
+        q = rand((1, 64, 2, dd), gen)
+        refused[dd] = d256_refusals(lambda **kw: fa.flash_attention_bwd_dq(
+            q, q, q, q, lse, lse, **kw))
     emit({"phase": "k3h", "d256_cases": cases, "unet_shapes": shapes,
           "d256_modes_refused": refused})
     bad = ([c for c in cases + shapes if not c["ok"]]
-           + [f"the {m} at d 256 was not refused" for m, e in refused.items()
+           + [f"the {m} at d {dd} was not refused"
+              for dd, got in refused.items() for m, e in got.items()
               if not (e and "Queue B rows 2-3" in e)])
     if bad:
-        raise AssertionError(f"K3/K4 at head dim 256: {bad}")
+        raise AssertionError(f"K3/K4 at the UNet's head dims: {bad}")
     return shapes, (
         max(c["dq"]["max_abs_err"] for c in cases + shapes),
         max(max(c["dk"]["max_abs_err"], c["dv"]["max_abs_err"])
@@ -7219,11 +7427,13 @@ def phase_k3h(fa, bw, flops):
 
 
 def k3h_rows(shapes, errs, launches):
-    """Rows 2c and 3c (K3 and K4 at d 256: SD-1.5's 160 padded, native
-    256): device times, bounds (at the padded d and the model's), the plain
-    and sdpa backward's times, each summed over one training step's calls
-    (calls_a_step of each shape); the largest error of phase k3h; launches
-    on path train_unet (its counted steps)."""
+    """Rows 2c and 3c (K3 and K4 at kernel width 256: SD-1.5's 160 read in
+    place, native 256): device times, bounds (at the model's d; at the
+    padded d beside them), the plain and sdpa backward's times, each summed
+    over one training step's calls at width 256 (calls_a_step of each
+    shape); the largest error of phase k3h; launches on path train_unet
+    (its counted steps)."""
+    shapes = [c for c in shapes if c["kernel_d"] == 256]
     rows = []
     for name, key, tag, line, err in (
             ("flash_attention_bwd_dq", "k3", "2c", 668, errs[0]),
@@ -7231,7 +7441,8 @@ def k3h_rows(shapes, errs, launches):
         tot = lambda f: sum(f(c) * c["calls_a_step"] for c in shapes)
         rows.append({
             "name": name, "row": tag,
-            "mode": "head dim 256 (SD-1.5's 160, padded; native 256)",
+            "mode": "kernel width 256 (SD-1.5's 160 read in place; native "
+                    "256)",
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"paddle_tpu/ops/flash_attention.py:{line} (head "
@@ -7240,7 +7451,8 @@ def k3h_rows(shapes, errs, launches):
             "ms": tot(lambda c: c[key]["ms"]),
             "plain_ms": tot(lambda c: c["plain_ms"]),
             "bound_ms": tot(lambda c: c[key]["bound_ms"]),
-            "bound_ms_model_d": tot(lambda c: c[key]["bound_ms_model_d"]),
+            "bound_ms_padded_d": tot(lambda c: c[key]["bound_ms_padded_d"]),
+            "padded_ms": tot(lambda c: c[key]["padded_ms"]),
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
                 c[key]["bound_ms"] * c["calls_a_step"] for c in shapes
                 if c[key]["bound_by"] == by)),
@@ -7350,6 +7562,10 @@ def phase_unet(fa, fd, flops):
            "peak_memory_gb": peak / 1e9, "eps_finite": finite,
            "eps_shape": list(eps.shape), "launches": launches,
            "plain_attention_calls": plain.n, "traced_step": trace,
+           # a traced denoise step is one forward: its device activities
+           # (kernels, copies and fills) are its launches
+           "launches_a_forward": None if trace is None
+           else trace["device_activities"],
            "whole_model": whole}
     ok = (launches["flash_attention_fwd"] == want["flash_attention_fwd"]
           and launches["by_d"] == want_d and not others and plain.n == 0
@@ -9078,6 +9294,9 @@ def main(argv):
         rows = k1s_rows(cases, k1s_launches, pad["launches"])
         rows.append(dead_sums_row(sums, k1s_launches, pad["launches"]))
         print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if "--k1h" in argv:
+        phase_k1h(fa, bw, flops)
         return 0
     if "--unet" in argv:
         shapes, d256_err = phase_k1h(fa, bw, flops)

@@ -25,8 +25,10 @@
 // reset by it) adds the partials in split order. No atomics on the sums:
 // two launches give equal bits.
 //
-// Layouts: x (b, R, NH, d) bf16 contiguous (16-byte aligned); out (b,
-// groups, d) fp32; part (b·groups·nsplit, d) fp32 scratch and ticket
+// Layouts: x (b, R, NH, d) bf16 contiguous (16-byte aligned), d a multiple
+// of 8 up to the kernel width D (64, 128 or 256: the next at or above d);
+// out (b, groups, D) fp32, zeros past d (K1 and K4 read it at width D);
+// part (b·groups·nsplit, D) fp32 scratch and ticket
 // (b·groups,) int32 zeros (nsplit > 1); bits (or null: every row) 64 rows
 // a word, (b, hq) at bits + b·bsb + hq·bsh.
 
@@ -44,7 +46,7 @@ row_sums_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
                 float* __restrict__ part, int* __restrict__ ticket,
                 const unsigned long long* __restrict__ bits, long long bsb,
                 long long bsh, int R, int NH, int groups, int nsplit,
-                float scale) {
+                float scale, int d) {
   constexpr int CG = D / 8;             // 16-byte column groups a row
   constexpr int RL = THREADS / CG;      // row lanes
   __shared__ float lanes[RL][D];
@@ -60,14 +62,15 @@ row_sums_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  for (long long f = lo + rl; f < hi; f += RL) {
+  // a column group at or past d sums nothing: its columns stay 0
+  for (long long f = lo + rl; cg * 8 < d && f < hi; f += RL) {
     const int gi = (int)(f / R), r = (int)(f - (long long)gi * R);
     const int hq = o * G + gi;
     if (bits != nullptr &&
         !((__ldg(bits + bi * bsb + hq * bsh + (r >> 6)) >> (r & 63)) & 1ull))
       continue;
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-        x + (((long long)bi * R + r) * NH + hq) * D + cg * 8));
+        x + (((long long)bi * R + r) * NH + hq) * d + cg * 8));
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -106,17 +109,19 @@ row_sums_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
 
 }  // namespace
 
-// x (b, R, NH, d) bf16, out (b, groups, d) fp32, bits (or null) the rows'
-// selection, 64 rows a word at bits + b·bsb + hq·bsh; d 64, 128 or 256,
-// NH a multiple of groups; nsplit > 1: part (b·groups·nsplit·d fp32) and
-// ticket (b·groups int32, zeros) the scratch
+// x (b, R, NH, d) bf16, out (b, groups, D) fp32, bits (or null) the rows'
+// selection, 64 rows a word at bits + b·bsb + hq·bsh; d a multiple of 8 up
+// to 256, D the next of 64, 128 and 256; NH a multiple of groups;
+// nsplit > 1: part (b·groups·nsplit·D fp32) and ticket (b·groups int32,
+// zeros) the scratch
 extern "C" int attn_row_sums(const void* x, void* out, void* part,
                              void* ticket, const void* bits, long long bsb,
                              long long bsh, int b, int R, int NH, int groups,
                              int d, int nsplit, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (groups <= 0 || NH % groups || b <= 0 || R < 0 || nsplit < 1 ||
-      (nsplit > 1 && (part == nullptr || ticket == nullptr)))
+      (nsplit > 1 && (part == nullptr || ticket == nullptr)) || d < 8 ||
+      d > 256 || d % 8)
     return (int)cudaErrorInvalidValue;
   const int grid = b * groups * nsplit;
   const auto* xb = (const __nv_bfloat16*)x;
@@ -125,15 +130,13 @@ extern "C" int attn_row_sums(const void* x, void* out, void* part,
   row_sums_kernel<D><<<grid, THREADS, 0, st>>>(xb, (float*)out,             \
                                                (float*)part, (int*)ticket,  \
                                                bw, bsb, bsh, R, NH, groups, \
-                                               nsplit, scale)
-  if (d == 64)
+                                               nsplit, scale, d)
+  if (d <= 64)
     ROW_SUMS(64);
-  else if (d == 128)
+  else if (d <= 128)
     ROW_SUMS(128);
-  else if (d == 256)
-    ROW_SUMS(256);
   else
-    return (int)cudaErrorInvalidValue;
+    ROW_SUMS(256);
 #undef ROW_SUMS
   return (int)cudaGetLastError();
 }

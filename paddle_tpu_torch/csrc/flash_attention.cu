@@ -80,7 +80,7 @@
 //    unconditionally (the last tile's P·V is peeled off), and P is
 //    repacked into the registers P·V(j) reads only after P·V(j) completes.
 //
-//  * The general mode is a fourth flag (MOD = true, at d 64 and 128, with
+//  * The general mode is a fourth flag (MOD = true, at D 64 and 128, with
 //    or without DROP; the kernels without it run the code they ran
 //    before): the dense mask, the segment ids and ALiBi beside the causal
 //    mask, kv_lens and the window, each a runtime field of one argument
@@ -120,12 +120,35 @@
 //    diagonal say which rows no key reaches. The host picks the pair from
 //    the argument's fields; the windowed walk (t0) is never MOD's.
 //
-//  * Head dims 64, 128 and 256 (the reference's kernel widths). d = 256 is
-//    a fourth instantiation with its own key tile (Fwd<256>::BK = 64: S by
-//    m64n64k16, P·V by m64n256k16 into a 128-float O accumulator a
-//    thread); only its windowless, dropout-free kernel is built. Other
-//    head dims are zero-padded to the next of these by the caller
-//    (ops/flash_attention.py, as the reference's _pad_for_kernel, :339).
+//  * Kernel widths D = 64, 128 and 256 (the reference's kernel widths).
+//    D = 256 is a fourth instantiation with its own key tile (Fwd<256>::BK
+//    = 64: S by m64n64k16, P·V by m64n256k16 into a 128-float O
+//    accumulator a thread); only its windowless, dropout-free kernel is
+//    built. A head dim d that is a multiple of 8 up to 256 runs at the next
+//    width D at or above it, at its own width in memory: the tensor maps'
+//    column size is d (row stride h·d or nkv·d), so the columns d … D - 1
+//    of every Q, K and V tile arrive as TMA's zero fill, and the epilogue
+//    stores O at row stride h·d, only the column groups below d. The
+//    reference pads such a d in the caller (_pad_for_kernel, :339), a TPU
+//    tiling device; here the zero fill replaces the pad and the slice,
+//    and the tiles hold what the padded tensors would give. A 64-column
+//    box that lies wholly past d (columns 192-255 at d = 160) is still
+//    loaded, as zero fill, and counts towards its barrier's expected bytes
+//    like any other box. The plain mode at d = 40, 80 and 160 (SD-1.5's
+//    UNet, every one of its attention calls) runs instantiations whose
+//    Q·Kᵀ issues only the k16 steps that hold data (KS = 3, 5, 10 of D / 16
+//    = 4, 8, 16; any d with ceil(d / 16) <= KS takes them): a step over
+//    zero columns adds +0 to every score, so O and the lse are bitwise
+//    those of the padded call. KS is a template parameter: a run-time
+//    bound on the wgmma loop would make ptxas serialise the wgmmas, and
+//    every other instantiation keeps its loop. P·V stays at width D: its
+//    columns past d are zero and never stored. Every other mode at such a
+//    d runs the full loop on the zero-filled tiles. ptxas (-v, sm_90a):
+//    the trimmed instantiations <64, 3>, <128, 5> and <256, 10> take 168
+//    registers at entry, spill nothing and raise none of C7510-C7515, as
+//    the full loops do. On an H100 (700 W) the trim takes K1 at SD-1.5's
+//    largest call (b 2, 8 heads, 4096 x 4096, d 40) from 0.185 to 0.175
+//    ms (chip_smoke.py --k1h, against a copy whose QK_TRIM<D> is D / 16).
 //
 // Shared memory: Q 128·d·2 + ST·2·BK·d·2 bytes (d = 128, ST = 2: 160 KB;
 // d = 64, ST = 3: 112 KB; d = 256, BK = 64, ST = 2: 192 KB) + barriers;
@@ -177,14 +200,20 @@ struct Fwd {
   static constexpr int SMEM_DROP = Z_OFF + ST * W_BYTES + 1024;
 };
 
-// S (64 x BK) = Q (this group's 64 rows) · K(tile)ᵀ, issued and committed
+// The k16 steps of Q·Kᵀ in the plain mode's trimmed instantiation at
+// width D: those that hold data at SD-1.5's head dims 40, 80 and 160
 template <int D>
+constexpr int QK_TRIM = D == 64 ? 3 : D == 128 ? 5 : 10;
+
+// S (64 x BK) = Q (this group's 64 rows) · K(tile)ᵀ over the first KS k16
+// steps (the columns past 16·KS are zero), issued and committed
+template <int D, int KS>
 __device__ __forceinline__ void issue_qk(float (&s)[Fwd<D>::BK / 2],
                                          uint64_t dq, uint64_t dk) {
   constexpr int BK = Fwd<D>::BK;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     // 16 columns inside a 64-column tile: +32 bytes; next tile: +rows·128
     const uint32_t oq = ((kk >> 2) * BQ * 128 + (kk & 3) * 32) >> 4;
     const uint32_t ok = ((kk >> 2) * BK * 128 + (kk & 3) * 32) >> 4;
@@ -457,14 +486,14 @@ __device__ __forceinline__ void issue_pv(
   wgmma_commit();
 }
 
-template <int D, bool WIN, bool DROP, bool MOD = false>
+template <int D, bool WIN, bool DROP, bool MOD = false, int KS = D / 16>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out,
                float* __restrict__ lse, const int* __restrict__ kv_lens,
                int sq, int sk, int h, int nkv, int causal, int q_off,
-               int window, float scale, int group, DropScale ds,
+               int window, float scale, int group, DropScale ds, int d,
                const __grid_constant__ am::ModTile mt,
                const __grid_constant__ CUtensorMap mz) {
   using C = Fwd<D>;
@@ -686,7 +715,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
 
       mbar_wait(qbar, 0);
       mbar_wait(&full_k[0], 0);
-      issue_qk<D>(s, dq, dk0);
+      issue_qk<D, KS>(s, dq, dk0);
       wgmma_wait<0>();
       fence_regs(s);
       if constexpr (MOD) {
@@ -711,7 +740,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       for (int it = 0; it + 1 < ntiles; ++it) {
         const int st = it % ST, sn = (it + 1) % ST;
         mbar_wait(&full_k[sn], ((it + 1) / ST) & 1);
-        issue_qk<D>(s, dq, dk0 + sn * STAGE);
+        issue_qk<D, KS>(s, dq, dk0 + sn * STAGE);
         mbar_wait(&full_v[st], (it / ST) & 1);
         issue_pv<D>(o, p, dv0 + st * STAGE);
         wgmma_wait<1>();
@@ -749,9 +778,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
       fence_regs(o);
     }
 
-    // epilogue: rows r0 and r0 + 8
-    const long q_rs = (long)h * D;
-    bf16* ob = out + (long)bi * sq * q_rs + (long)hi * D;
+    // epilogue: rows r0 and r0 + 8, the column groups below d (row
+    // stride h·d)
+    const long q_rs = (long)h * d;
+    bf16* ob = out + (long)bi * sq * q_rs + (long)hi * d;
     float* lb = lse + ((long)bi * h + hi) * sq;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -793,10 +823,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
             const float* vm = md.red + ((long)bi * nkv + kh) * D;
 #pragma unroll
             for (int c = 0; c < D / 8; ++c) {
-              const float2 v2 =
-                  *reinterpret_cast<const float2*>(vm + c * 8 + tg * 2);
-              *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
-                  pack_f2(v2.x, v2.y);
+              if (c * 8 < d) {
+                const float2 v2 =
+                    *reinterpret_cast<const float2*>(vm + c * 8 + tg * 2);
+                *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 +
+                                             tg * 2) = pack_f2(v2.x, v2.y);
+              }
             }
             if (tg == 0)
               *reinterpret_cast<float2*>(
@@ -807,8 +839,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
         }
 #pragma unroll
         for (int c = 0; c < D / 8; ++c)
-          *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
-              pack_f2(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
+          if (c * 8 < d)
+            *reinterpret_cast<uint32_t*>(ob + r * q_rs + c * 8 + tg * 2) =
+                pack_f2(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
         if constexpr (MOD) {
           // the pair (m, log l) of (b, h, sq, 2) statistics
           if (tg == 0)
@@ -824,24 +857,30 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// head dim d (a multiple of 8, at most D) at kernel width D: the maps'
+// column size is d, so the columns d … D - 1 arrive as TMA's zero fill
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const void* kv_lens, int b, int sq, int sk, int h, int nkv,
+           const void* kv_lens, int b, int sq, int sk, int h, int nkv, int d,
            int causal, int q_off, int window, float scale, const void* keep,
            int keep_ww, float inv, const am::Mod* mod, cudaStream_t st) {
   const bool drop = keep != nullptr;
   CUtensorMap mq, mk, mv;
-  int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ);
+  int err = sm90_map_bshd(&mq, q, b, sq, h, d, BQ);
   constexpr int BK = Fwd<D>::BK;
-  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK);
-  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
+  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, d, BK);
+  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, d, BK);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
   // dropout one; the general argument (mod): the general one, with or
   // without dropout, and with the window, segment ids or ALiBi (WIN) or a
-  // dense mask alone. d = 256 has none of them yet: only its plain
-  // instantiation is built
-  auto kern = flash_fwd_sm90<D, false, false>;
+  // dense mask alone. D = 256 has none of them yet: only its plain
+  // instantiation is built. The plain mode at a d whose data fits
+  // QK_TRIM<D> k16 steps takes the trimmed Q·Kᵀ
+  constexpr int KT = QK_TRIM<D>;
+  const bool trim = (d + 15) / 16 <= KT;
+  auto kern = trim ? flash_fwd_sm90<D, false, false, false, KT>
+                   : flash_fwd_sm90<D, false, false>;
   if constexpr (D == 256) {
     if (window > 0 || drop || mod) return (int)cudaErrorInvalidValue;
   } else if (mod) {
@@ -851,11 +890,10 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
     else
       kern = drop ? flash_fwd_sm90<D, false, true, true>
                   : flash_fwd_sm90<D, false, false, true>;
-  } else {
+  } else if (window > 0 || drop) {
     kern = window > 0 ? (drop ? flash_fwd_sm90<D, true, true>
                               : flash_fwd_sm90<D, true, false>)
-                      : (drop ? flash_fwd_sm90<D, false, true>
-                              : flash_fwd_sm90<D, false, false>);
+                      : flash_fwd_sm90<D, false, true>;
   }
   // the general argument, and the tensor map of its packed words: boxes of
   // 4 words by the block's 128 rows, or 1 row for a key-padding mask
@@ -881,7 +919,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const int grid = ((sq + BQ - 1) / BQ) * h * b;
   kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, (bf16*)out, (float*)lse, (const int*)kv_lens, sq, sk, h,
-      nkv, causal, q_off, window, scale, group, DropScale{inv, {}}, mt, mz);
+      nkv, causal, q_off, window, scale, group, DropScale{inv, {}}, d, mt,
+      mz);
   return (int)cudaGetLastError();
 }
 
@@ -895,7 +934,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // lists (ops/flash_attention.py `mask_bounds`' fwd_list: each 128-row
 // block's 128-key tiles), the packed bool mask, and the dead rows with
 // their means of v (or null); lse is then the (b, h, sq, 2) pairs (m,
-// log l)
+// log l). d: the head dim, a multiple of 8 up to 256 (q, k, v and out at
+// that width), run at the next kernel width of 64, 128 and 256
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, const void* kv_lens,
                                    int b, int sq, int sk, int h, int nkv,
@@ -907,14 +947,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
   if (keep != nullptr && keep_ww != (sk + 127) / 128 * 4)
     return (int)cudaErrorInvalidValue;
-  if (d == 128)
-    return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, keep, keep_ww, inv, mod, st);
-  if (d == 64)
-    return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                      q_off, window, scale, keep, keep_ww, inv, mod, st);
-  if (d == 256)
-    return launch<256>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, causal,
-                       q_off, window, scale, keep, keep_ww, inv, mod, st);
-  return (int)cudaErrorInvalidValue;
+  if (d < 8 || d > 256 || d % 8) return (int)cudaErrorInvalidValue;
+  if (d > 128)
+    return launch<256>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, d,
+                       causal, q_off, window, scale, keep, keep_ww, inv, mod,
+                       st);
+  if (d > 64)
+    return launch<128>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, d,
+                       causal, q_off, window, scale, keep, keep_ww, inv, mod,
+                       st);
+  return launch<64>(q, k, v, out, lse, kv_lens, b, sq, sk, h, nkv, d, causal,
+                    q_off, window, scale, keep, keep_ww, inv, mod, st);
 }

@@ -43,8 +43,16 @@
 // (flash_bwd_dq_sm90<256, false, false>, flash_bwd_dkv_sm90<256, false,
 // false>): 168 at entry, 0 bytes spilled, none of warnings C7513-C7515.
 //
-// Head dims 64, 128 and 256 (the reference's kernel widths; the caller
-// zero-pads others, ops/flash_attention.py). At d = 256 the tiles that fit
+// Kernel widths D = 64, 128 and 256 (the reference's kernel widths). A
+// head dim d that is a multiple of 8 up to 256 runs at the next width at
+// or above it, as K1 runs it: the tensor maps of q, k, v and dO have the
+// column size d (row stride h·d or nkv·d), so the columns d … D - 1 arrive
+// as TMA's zero fill (a box wholly past d, columns 192-255 at d = 160, is
+// still loaded as zeros and counted in its barrier's bytes), the compute
+// and the k-loops are the width D's, and the epilogues store dq, dk and dv
+// at row stride h·d or nkv·d, only the column groups below d; the zero
+// columns give zero products, so dq, dk and dv are bitwise those of a call
+// on inputs zero-padded to D, sliced. At D = 256 the tiles that fit
 // d 64 and 128 pass the 227 KB of shared memory and setmaxnreg's 240
 // registers, so the tile shapes are per-D traits (Dq<D>, Dkv<D>, as K1's
 // Fwd<D>::BK): K3 streams 32-key tiles, K4 owns 64 keys a block and its
@@ -257,8 +265,8 @@ __device__ __forceinline__ void issue_acc(float (&acc)[N / 2],
 // bits. (Folding dq into K4 by atomic adds would change its bits from run
 // to run.)
 //
-// d = 256 (SD-1.5's head dim 160, zero-padded by the caller) takes 32-key
-// tiles (Dq<256>::BK): at 64 keys, Q and dO (128 rows, 64 KB each) and even
+// D = 256 (SD-1.5's head dim 160, read with zero fill past it) takes
+// 32-key tiles (Dq<256>::BK): at 64 keys, Q and dO (128 rows, 64 KB each) and even
 // two stages of K and V (64 KB a stage) are 256 KB, past the 227 KB a block
 // may have, and dq (128 fp32 a thread) beside S, dP (32 each) and the
 // packed dS (16) would reach setmaxnreg's 240 before addresses and
@@ -427,7 +435,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   const int* __restrict__ kv_lens, int sq, int sk, int h,
                   int nkv, int causal, int q_off, int window, float scale,
-                  int group, float inv,
+                  int group, float inv, int d,
                   const __grid_constant__ am::ModTile mt,
                   const __grid_constant__ CUtensorMap mz) {
   using C = Dq<D>;
@@ -761,37 +769,41 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
       }
     }
 
-    // epilogue: dq × scale for rows r0 and r0 + 8 below sq
-    const long q_rs = (long)h * D;
-    bf16* qo = dq + (long)bi * sq * q_rs + (long)hi * D;
+    // epilogue: dq × scale for rows r0 and r0 + 8 below sq, the column
+    // groups below d (row stride h·d)
+    const long q_rs = (long)h * d;
+    bf16* qo = dq + (long)bi * sq * q_rs + (long)hi * d;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
       if (r < sq) {
 #pragma unroll
         for (int c = 0; c < D / 8; ++c)
-          *reinterpret_cast<uint32_t*>(qo + r * q_rs + c * 8 + tg * 2) =
-              sm90::pack_f2(acc[4 * c + 2 * i] * scale,
-                            acc[4 * c + 2 * i + 1] * scale);
+          if (c * 8 < d)
+            *reinterpret_cast<uint32_t*>(qo + r * q_rs + c * 8 + tg * 2) =
+                sm90::pack_f2(acc[4 * c + 2 * i] * scale,
+                              acc[4 * c + 2 * i + 1] * scale);
       }
     }
   }
 }
 
+// head dim d (a multiple of 8, at most D) at kernel width D: the maps'
+// column size is d, so the columns d … D - 1 arrive as TMA's zero fill
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-              int causal, int q_off, int window, float scale,
+              int d, int causal, int q_off, int window, float scale,
               const void* keep, int keep_ww, float inv, const am::Mod* mod,
               cudaStream_t st) {
   const bool drop = keep != nullptr;
   CUtensorMap mq, mk, mv, mo;
-  int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ3);
-  if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ3);
+  int err = sm90_map_bshd(&mq, q, b, sq, h, d, BQ3);
+  if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, d, BQ3);
   constexpr int BK = Dq<D>::BK;
-  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BK);
-  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BK);
+  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, d, BK);
+  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, d, BK);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
   // dropout one; the general argument (mod): the general one, with or
@@ -839,7 +851,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dq,
       (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window, scale,
-      group, inv, mt, mz);
+      group, inv, d, mt, mz);
   return (int)cudaGetLastError();
 }
 
@@ -868,7 +880,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // catch the window's lower edge (key <= q_off - window + row). A key block
 // that no query sees walks nothing and writes zeros.
 //
-// d = 256 (SD-1.5's head dim 160, zero-padded by the caller): a group that
+// D = 256 (SD-1.5's head dim 160, read with zero fill past it): a group that
 // held dk and dv for 64 keys would hold 2 × 128 fp32 a thread, past
 // setmaxnreg's 240 before Sᵀ and dPᵀ, and K, V for 128 keys are 128 KB on
 // their own. So a block owns 64 keys (Dkv<256>::BKEY) and both consumer
@@ -1130,7 +1142,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, const int* __restrict__ kv_lens,
                    int sq, int sk, int h, int nkv, int causal, int q_off,
-                   int window, float scale, int group, float inv,
+                   int window, float scale, int group, float inv, int d,
                    const __grid_constant__ am::ModTile mt,
                    const __grid_constant__ CUtensorMap mz) {
   using C = Dkv<D>;
@@ -1460,8 +1472,10 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
       }
     }
 
-    const long kv_rs = (long)nkv * D;
-    const long kv_base = (long)bi * sk * kv_rs + (long)kh * D + col0;
+    // the column groups below d (row stride nkv·d); the dead rows' dsum
+    // (csrc/attn_rows.cu) at width D
+    const long kv_rs = (long)nkv * d;
+    const long kv_base = (long)bi * sk * kv_rs + (long)kh * d + col0;
     const float rsk = __frcp_rn((float)sk);    // MOD: 1 / sk
     bf16* dkb = dk + kv_base;
     bf16* dvb = dv + kv_base;
@@ -1471,6 +1485,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
       if (key < sk) {
 #pragma unroll
         for (int c = 0; c < C::NA / 8; ++c) {
+          if (col0 + c * 8 >= d) continue;
           const int col = c * 8 + tg * 2;
           *reinterpret_cast<uint32_t*>(dkb + key * kv_rs + col) =
               sm90::pack_f2(dka[4 * c + 2 * i] * scale,
@@ -1498,20 +1513,21 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// head dim d at kernel width D, as launch_dq
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* kv_lens, int b, int sq, int sk, int h, int nkv,
-               int causal, int q_off, int window, float scale,
+               int d, int causal, int q_off, int window, float scale,
                const void* keep, int keep_ww, float inv, const am::Mod* mod,
                cudaStream_t st) {
   const bool drop = keep != nullptr;
   CUtensorMap mq, mk, mv, mo;
-  int err = sm90_map_bshd(&mq, q, b, sq, h, D, BQ4);
-  if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, D, BQ4);
+  int err = sm90_map_bshd(&mq, q, b, sq, h, d, BQ4);
+  if (!err) err = sm90_map_bshd(&mo, dout, b, sq, h, d, BQ4);
   constexpr int BKEY = Dkv<D>::BKEY;
-  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, D, BKEY);
-  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, D, BKEY);
+  if (!err) err = sm90_map_bshd(&mk, k, b, sk > 1 ? sk : 1, nkv, d, BKEY);
+  if (!err) err = sm90_map_bshd(&mv, v, b, sk > 1 ? sk : 1, nkv, d, BKEY);
   if (err) return err;
   // window > 0 (with causal): the windowed instantiation; drop: the
   // dropout one; the general argument (mod): the general one, with or
@@ -1559,7 +1575,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, smem, st>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, (const int*)kv_lens, sq, sk, h, nkv, causal, q_off, window,
-      scale, group, inv, mt, mz);
+      scale, group, inv, d, mt, mz);
   return (int)cudaGetLastError();
 }
 
@@ -1584,20 +1600,20 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   // mod (or null): the general argument as K1 takes it, its walk lists
   // (`mask_bounds`' dq_list: each 128-row block's 64-key tiles), the
   // packed bool mask and the dead rows' bits (a bool mask); lse the (b, h,
-  // sq, 2) pairs
-  if (d == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, window, scale, keep,
-                          keep_ww, inv, mod, st);
-  if (d == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                         h, nkv, causal, q_off, window, scale, keep, keep_ww,
-                         inv, mod, st);
-  if (d == 256)
+  // sq, 2) pairs. d: the head dim, a multiple of 8 up to 256, run at the
+  // next kernel width of 64, 128 and 256
+  if (d < 8 || d > 256 || d % 8) return (int)cudaErrorInvalidValue;
+  if (d > 128)
     return launch_dq<256>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
-                          h, nkv, causal, q_off, window, scale, keep,
+                          h, nkv, d, causal, q_off, window, scale, keep,
                           keep_ww, inv, mod, st);
-  return (int)cudaErrorInvalidValue;
+  if (d > 64)
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk,
+                          h, nkv, d, causal, q_off, window, scale, keep,
+                          keep_ww, inv, mod, st);
+  return launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_lens, b, sq, sk, h,
+                       nkv, d, causal, q_off, window, scale, keep, keep_ww,
+                       inv, mod, st);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -1619,17 +1635,17 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   // mod (or null): as K1 takes it, its walk lists (`mask_bounds`'
   // dkv_list: each key block's 64-row query tiles) and the dead rows' dsum
-  if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                           sk, h, nkv, causal, q_off, window, scale, keep,
-                           keep_ww, inv, mod, st);
-  if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                          sk, h, nkv, causal, q_off, window, scale, keep,
-                          keep_ww, inv, mod, st);
-  if (d == 256)
+  // (width D). d: as flash_attention_bwd_dq's
+  if (d < 8 || d > 256 || d % 8) return (int)cudaErrorInvalidValue;
+  if (d > 128)
     return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
-                           sk, h, nkv, causal, q_off, window, scale, keep,
+                           sk, h, nkv, d, causal, q_off, window, scale, keep,
                            keep_ww, inv, mod, st);
-  return (int)cudaErrorInvalidValue;
+  if (d > 64)
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq,
+                           sk, h, nkv, d, causal, q_off, window, scale, keep,
+                           keep_ww, inv, mod, st);
+  return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_lens, b, sq, sk,
+                        h, nkv, d, causal, q_off, window, scale, keep,
+                        keep_ww, inv, mod, st);
 }

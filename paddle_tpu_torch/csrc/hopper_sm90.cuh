@@ -603,7 +603,9 @@ static inline int sm90_map_words(CUtensorMap* map, const void* base,
 
 // A bf16 tensor (batch, seq, heads, d), contiguous, read in boxes of `rows`
 // rows of one (batch, head) by 64 columns, 128-byte swizzle; rows past seq
-// read as zeros. Coordinates (col, head, row, batch). Returns 0 on success.
+// and columns past d read as zeros (d a multiple of 8: the row stride d·2
+// bytes must be a multiple of 16). Coordinates (col, head, row, batch).
+// Returns 0 on success.
 static inline int sm90_map_bshd(CUtensorMap* map, const void* base, int batch,
                                 int seq, int heads, int d, int rows) {
   sm90_encode_tiled_fn enc = sm90_encode_tiled();

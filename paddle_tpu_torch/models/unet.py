@@ -9,14 +9,15 @@ are ``torch.nn.functional.conv2d`` (cuDNN on the card), the projections
 reference leaves all of them to XLA, outside any Pallas kernel. Every
 attention call (self-attention over the pixels and cross-attention to the
 77-token text context) goes through ``F.scaled_dot_product_attention``: on
-the card the hand-written K1, at SD-1.5's head dims 40 / 80 / 160
-zero-padded to 64 / 128 / 256 (``ops.flash_attention._pad_head_dim``).
+the card the hand-written K1, at SD-1.5's head dims 40 / 80 / 160 read in
+place on its kernel widths 64 / 128 / 256, the columns past d TMA's zero
+fill (``ops.flash_attention.kernel_width``): no pad, no slice.
 
 Weight init follows the reference's defaults: Conv2D ``KaimingUniform``,
 Linear ``XavierNormal``, norms weight 1 and bias 0. ``ddpm_loss`` is the
 reference's training objective (ε-prediction MSE); its gradient runs every
-attention backward on K3/K4 on the card (head dim 160 on their d-256
-kernels).
+attention backward on K3/K4 on the card (head dim 160 on their width-256
+kernels, at its own width).
 """
 
 import dataclasses

@@ -18,15 +18,16 @@ wall clock. Prints one JSON line shaped like the reference's record: steps
 a second, images a second, ms a denoise step, peak memory, and MFU over an
 analytic count of one forward's FLOPs (``forward_flops``: the convolutions,
 the linear products and the attention's two products at the model's own
-head dims 40 / 80 / 160, not the padded 64 / 128 / 256 K1 computes) against
-the card's bf16 peak. Elementwise work, norms and the pad are not counted.
+head dims 40 / 80 / 160, not K1's kernel widths 64 / 128 / 256, whose
+zero columns its P·V still multiplies) against the card's bf16 peak.
+Elementwise work and norms are not counted.
 
 ``--train`` runs the reference's DDPM step (``examples/unet_bench.py:
 81-108``): after ``inputs``' draws, from the same RandomState, the noise
 and ᾱ ~ U(0.2, 0.98) per image (``train_inputs``), x_t = √ᾱ·x0 +
 √(1 − ᾱ)·noise in fp32 cast to bf16, and each step the fp32 ε-MSE
 mean((ε(x_t) − noise)²), its backward (every attention backward on K3/K4
-on the card, head dim 160 on their d-256 kernels) and pure-bf16
+on the card, head dim 160 on their width-256 kernels) and pure-bf16
 ``AdamW(1e-4, multi_precision=False)`` (``train_step``). Its line adds the
 first and last loss; MFU counts 3 × ``forward_flops`` a step (forward +
 backward ≈ 3 forwards, the reference's basis, ``mfu_basis``).
